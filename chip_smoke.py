@@ -1,0 +1,524 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (hyperspace_tpu_torch) on one GPU.
+
+    python3 chip_smoke.py [--seed N] [--rows N] [--files N] [--reps N]
+
+Phases, each printed with its time:
+
+1. device: the card's name and power limit (nvidia-smi);
+2. build: compiles the port's CUDA kernels from ``hyperspace_tpu_torch/csrc``;
+3. kernels: holds each kernel against its plain torch version on the card
+   (exact: both are integer results), then times kernel, plain version and
+   the nearest single PyTorch library call with CUDA events;
+4. small: builds one covering index over a small lake on the CPU (plain
+   versions) and on the GPU (kernels) and requires identical bucket files;
+5. slice: generates a TPC-H-shaped SF1 ``lineitem`` lake (6M rows in 16
+   files, from ``--seed``) and builds three indexes through the public API
+   (``Session`` -> ``read_parquet`` -> ``Hyperspace.create_index``) at the
+   default 200 buckets and 2M batch rows, with the kernel launch counts
+   reset just before and read just after, and prints each covering build's
+   host time by stage; then checks every bucket file (rows hash to their
+   bucket, sorted by the key, same rows as the source) and every sketch row
+   (numpy per-file min/max);
+6. profile: one more covering build under ``torch.profiler``: the device's
+   busy time (the union of its kernel and copy intervals) against the
+   build's wall time, and the device time by kernel.
+
+The line before the last is a JSON object with one entry per kernel; the
+last line is ``{"ok": true, "device": {...}}``. Any failed check raises, so
+the script exits non-zero and prints no result. It exits non-zero as well
+when no CUDA device is present or the port is not beside it.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+#: device-memory rate by card name (bytes/s; NVIDIA data sheets)
+HBM_BYTES_PER_S = {
+    "NVIDIA H100 80GB HBM3": 3.35e12,  # H100 SXM
+    "NVIDIA H100 PCIe": 2.0e12,
+}
+#: CUDA-core (non-tensor) peak of an H100 SXM, used for the integer
+#: compares and min/max of both kernels (ops/s)
+CORE_OPS_PER_S = 67e12
+
+LINEITEM_ROWS_SF1 = 6_000_000
+ORDERS_ROWS_SF1 = 1_500_000
+BATCH_ROWS = 2_000_000  # the build's default hyperspace.tpu.build.batchRows
+
+
+def phase(name: str, t0: float) -> None:
+    print(f"phase {name}: {time.perf_counter() - t0:.3f} s", flush=True)
+
+
+def gen_lineitem(root: str, rows_total: int, num_files: int, seed: int) -> str:
+    """TPC-H-shaped ``lineitem`` (the repo's benchmarks/datagen.py columns
+    and value ranges): ``rows_total`` rows over ``num_files`` parquet files."""
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    sf = rows_total / LINEITEM_ROWS_SF1
+    d = os.path.join(root, "lineitem")
+    os.makedirs(d, exist_ok=True)
+    per = max(1, rows_total // num_files)
+    rng = np.random.default_rng(seed)
+    base = np.datetime64("1992-01-01")
+    n_orders = max(1, int(ORDERS_ROWS_SF1 * sf))
+    for i in range(num_files):
+        rows = per if i < num_files - 1 else rows_total - per * (num_files - 1)
+        t = pa.table(
+            {
+                "l_orderkey": rng.integers(0, n_orders, rows).astype(np.int64),
+                "l_partkey": rng.integers(0, int(200_000 * max(sf, 0.01)), rows).astype(np.int64),
+                "l_quantity": rng.integers(1, 51, rows).astype(np.int64),
+                "l_extendedprice": np.round(rng.uniform(900.0, 105000.0, rows), 2),
+                "l_discount": np.round(rng.uniform(0.0, 0.1, rows), 2),
+                "l_tax": np.round(rng.uniform(0.0, 0.08, rows), 2),
+                "l_shipdate": base + rng.integers(0, 2526, rows).astype("timedelta64[D]"),
+            }
+        )
+        pq.write_table(t, os.path.join(d, f"part-{i:05d}.parquet"))
+    return d
+
+
+def time_ms(fn, reps: int) -> float:
+    """Median device time of ``fn`` over ``reps`` calls, each between two
+    CUDA events. A long sleep kernel queued first keeps the card busy while
+    the host enqueues every call, so host overhead stays out of the gaps."""
+    import statistics
+
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
+    torch.cuda._sleep(50_000_000)
+    for s, e in zip(starts, ends):
+        s.record()
+        fn()
+        e.record()
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
+
+
+def bound(bytes_moved: int, ops: int, hbm: float):
+    t_bytes = bytes_moved / hbm * 1e3
+    t_ops = ops / CORE_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def kernel_segments(rng, per: int, n_seg: int):
+    """Segments for the min/max kernel: NaN, signed zeros, infinities, an
+    empty and an all-NaN segment, and int64 values above 2**53."""
+    import numpy as np
+
+    segs = []
+    for _ in range(n_seg):
+        v = rng.standard_normal(per) * 10.0 ** rng.integers(-3, 9)
+        v[rng.random(per) < 0.01] = np.nan
+        segs.append(v)
+    segs[1][:] = 0.0
+    segs[1][rng.random(per) < 0.5] = -0.0
+    segs[2][::1000] = np.inf
+    segs[2][1::1000] = -np.inf
+    segs[3] = np.empty(0)
+    segs[4][:] = np.nan
+    big = rng.integers(2**53, 2**62, per, dtype=np.int64)
+    big[::2] *= -1
+    segs[5] = np.asarray(big, dtype=np.float64)
+    segs[6][:] = -0.0
+    return segs
+
+
+def check_histogram(ids_host, nb: int):
+    import torch
+
+    from hyperspace_tpu_torch.ops import kernels as K
+
+    ids = torch.from_numpy(ids_host).to("cuda")
+    got, want = K.bucket_histogram(ids, nb), K.bucket_histogram_plain(ids, nb)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), f"bucket_histogram disagrees with its plain version ({len(ids_host)} ids)"
+    assert int(want.sum()) == int(((ids_host >= 0) & (ids_host < nb)).sum())
+    return ids, float((got - want).abs().max())
+
+
+def check_minmax(segs):
+    import numpy as np
+    import torch
+
+    from hyperspace_tpu_torch.ops import kernels as K
+
+    dev = torch.device("cuda")
+    offsets_np = np.zeros(len(segs) + 1, dtype=np.int64)
+    np.cumsum([len(s) for s in segs], out=offsets_np[1:])
+    values = torch.from_numpy(np.concatenate(segs)).to(dev)
+    offsets = torch.from_numpy(offsets_np).to(dev)
+    got = K.segment_min_max_keys(values, offsets)
+    want = K.segment_min_max_keys_plain(values, offsets)
+    torch.cuda.synchronize()
+    for g, w, what in zip(got, want, ("min keys", "max keys", "empty flags")):
+        assert torch.equal(g, w), f"segmented_min_max {what} disagree with the plain version"
+    # the host driver end to end: card vs CPU, bit for bit (NaN included)
+    mn_gpu, mx_gpu = K.segmented_min_max(segs, dev)
+    mn_cpu, mx_cpu = K.segmented_min_max(segs, torch.device("cpu"))
+    assert np.array_equal(mn_gpu.view(np.int64), mn_cpu.view(np.int64))
+    assert np.array_equal(mx_gpu.view(np.int64), mx_cpu.view(np.int64))
+    for i, s in enumerate(segs):
+        ok = s[~np.isnan(s)]
+        assert bool(got[2][i]) == (len(ok) == 0), f"segment {i} empty flag"
+        if len(ok):
+            assert mn_gpu[i] == ok.min() and mx_gpu[i] == ok.max(), f"segment {i} min/max"
+    err = max(float((g.to(torch.int64) - w.to(torch.int64)).abs().max()) for g, w in zip(got, want))
+    return values, offsets, err
+
+
+def check_kernels(args, hbm: float):
+    """Each kernel against its plain version on the card — at the ISSUE's
+    adversarial inputs and at the shapes the SF1 build gives it — then timed
+    at the build's shapes: K1 gets one chunk of sorted bucket ids (whole
+    files grouped up to the 2M batch rows), K2 one segment per source file."""
+    import numpy as np
+    import torch
+
+    from hyperspace_tpu_torch.ops import kernels as K
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(args.seed)
+    per_file = args.rows // args.files
+    chunk = (BATCH_ROWS // per_file) * per_file if per_file <= BATCH_ROWS else BATCH_ROWS
+    results = {}
+
+    # --- K1: ids over 200 buckets with the -1 padding id and the build's
+    # sentinel id 200 mixed in, random and sorted
+    nb = 200
+    for n in (1 << 21, chunk):
+        ids_np = rng.integers(-1, nb + 1, n).astype(np.int32)
+        check_histogram(ids_np, nb)
+        ids, err = check_histogram(np.sort(ids_np), nb)
+    valid = ids[(ids >= 0) & (ids < nb)].to(torch.int64)
+    k1_bound, k1_by = bound(chunk * 4 + nb * 4, chunk, hbm)
+    results["bucket_histogram"] = {
+        "name": "bucket_histogram",
+        "route": "cuda",
+        "source": "hyperspace_tpu_torch/csrc/bucket_histogram.cu",
+        "replaces": "hyperspace_tpu/ops/kernels.py:275",
+        "max_abs_err": err,
+        "ms": time_ms(lambda: K.bucket_histogram(ids, nb), args.reps),
+        "plain_ms": time_ms(lambda: K.bucket_histogram_plain(ids, nb), args.reps),
+        "bound_ms": k1_bound,
+        "bound_by": k1_by,
+        "library_ms": time_ms(lambda: torch.bincount(valid, minlength=nb), args.reps),
+    }
+    print(f"kernel bucket_histogram: 2^21 and {chunk} ids, {nb} buckets, random and sorted: "
+          f"equal to plain; timed at {chunk} sorted ids", flush=True)
+
+    # --- K2: 16 segments of 375 000 values (one of them empty), then one
+    # segment of l_extendedprice-like values per source file, as the SF1
+    # build gives them
+    segs = kernel_segments(rng, 375_000, 16)
+    check_minmax(segs)
+    mn, mx = K.segmented_min_max(segs, dev)
+    assert np.signbit(mn[1]) and not np.signbit(mx[1]), "-0.0 must order below +0.0"
+    prices = [np.round(rng.uniform(900.0, 105000.0, per_file), 2) for _ in range(args.files)]
+    values, offsets, err = check_minmax(prices)
+    n_vals, n_seg = values.numel(), args.files
+    ok_mask = ~torch.isnan(values)
+    keys = K.order_keys(values)[ok_mask]
+    seg_ids = torch.repeat_interleave(torch.arange(n_seg, device=dev), offsets[1:] - offsets[:-1])[ok_mask]
+
+    def library_minmax():
+        base_mn = torch.full((n_seg,), K.I64_MAX, dtype=torch.int64, device=dev)
+        base_mx = torch.full((n_seg,), K.I64_MIN, dtype=torch.int64, device=dev)
+        base_mn.scatter_reduce_(0, seg_ids, keys, "amin")
+        base_mx.scatter_reduce_(0, seg_ids, keys, "amax")
+
+    k2_bound, k2_by = bound(n_vals * 8 + (n_seg + 1) * 8 + n_seg * 17, 3 * n_vals, hbm)
+    results["segmented_min_max"] = {
+        "name": "segmented_min_max",
+        "route": "cuda",
+        "source": "hyperspace_tpu_torch/csrc/segmented_min_max.cu",
+        "replaces": "hyperspace_tpu/ops/kernels.py:139",
+        "max_abs_err": err,
+        "ms": time_ms(lambda: K.segment_min_max_keys(values, offsets), args.reps),
+        "plain_ms": time_ms(lambda: K.segment_min_max_keys_plain(values, offsets), args.reps),
+        "bound_ms": k2_bound,
+        "bound_by": k2_by,
+        "library_ms": time_ms(library_minmax, args.reps),
+    }
+    print(f"kernel segmented_min_max: 16 adversarial segments and {n_seg} x {per_file} prices: "
+          f"equal to plain; timed at {n_vals} values", flush=True)
+    return results
+
+
+def bucket_runs(entry):
+    """{bucket: [table, ...]} of a covering index's files."""
+    import pyarrow.parquet as pq
+
+    from hyperspace_tpu_torch.indexes.covering import bucket_of_file
+
+    runs = {}
+    for f in sorted(entry.content.files):
+        runs.setdefault(bucket_of_file(f), []).append(pq.read_table(f))
+    return runs
+
+
+def check_small(tmp: str, seed: int) -> None:
+    """A small covering build on the CPU (plain versions) and on the GPU
+    (kernels) must write the same bucket files: same rows, same order."""
+    import hyperspace_tpu_torch as ht
+
+    src = gen_lineitem(os.path.join(tmp, "small"), 60_000, 3, seed + 1)
+    runs = []
+    for device in ("cpu", "cuda"):
+        sess = ht.Session(
+            conf={ht.keys.SYSTEM_PATH: os.path.join(tmp, f"small-{device}"), ht.keys.NUM_BUCKETS: 16,
+                  ht.keys.BUILD_BATCH_ROWS: 25_000},
+            device=device,
+        )
+        cfg = ht.CoveringIndexConfig("small", ["l_orderkey", "l_extendedprice"], ["l_shipdate"])
+        runs.append(bucket_runs(ht.Hyperspace(sess).create_index(sess.read_parquet(src), cfg)))
+    cpu, gpu = runs
+    assert cpu.keys() == gpu.keys()
+    for b in cpu:
+        # a bucket's runs (one per chunk) carry random file-name tags, so
+        # they are compared as a set of whole files
+        want = sorted(repr(t.to_pydict()) for t in cpu[b])
+        assert sorted(repr(t.to_pydict()) for t in gpu[b]) == want, f"bucket {b}: GPU build differs from the CPU build"
+    print("small: 60000 rows, 16 buckets: GPU bucket files equal the CPU build's", flush=True)
+
+
+def check_covering(entry, src_files, key: str, columns, num_buckets: int) -> int:
+    """Every row of every bucket file hashes to its bucket and files are
+    sorted by the key; the rows, as a multiset, are the source's."""
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from hyperspace_tpu_torch.ops import encode, hashing
+
+    tables = []
+    for b, files in bucket_runs(entry).items():
+        assert 0 <= b < num_buckets
+        for t in files:
+            k = t.column(key).to_numpy()
+            got = hashing.bucket_ids_np([encode.hash_input_uint32(k)], num_buckets)
+            assert np.all(got == b), f"{entry.name}: rows outside bucket {b}"
+            sk = encode.sort_key_int64(k)
+            assert np.all(sk[1:] >= sk[:-1]), f"{entry.name}: bucket {b} not sorted by {key}"
+            tables.append(t.select(columns))
+    idx = pa.concat_tables(tables)
+    src = pa.concat_tables([pq.read_table(f, columns=columns) for f in src_files])
+    assert idx.num_rows == src.num_rows, f"{entry.name}: {idx.num_rows} rows, source has {src.num_rows}"
+
+    def canonical(t):
+        cols = [encode.sort_key_int64(t.column(c).to_numpy()) for c in columns]
+        order = np.lexsort(cols[::-1])
+        return [c[order] for c in cols]
+
+    for a, s, c in zip(canonical(idx), canonical(src), columns):
+        assert np.array_equal(a, s), f"{entry.name}: column {c} differs from the source rows"
+    return idx.num_rows
+
+
+def check_sketches(entry, index) -> None:
+    import numpy as np
+    import pyarrow.parquet as pq
+
+    from hyperspace_tpu_torch.indexes.dataskipping import _restore_bound
+
+    table = index.read_sketch_table(entry).to_pydict()
+    by_id = {fi.file_id: fi.name for fi in entry.source_file_infos()}
+    assert len(table["_data_file_id"]) == len(by_id)
+    for i, fid in enumerate(table["_data_file_id"]):
+        data = pq.read_table(by_id[fid])
+        for s in index.sketches:
+            v = data.column(s.expr).to_numpy()
+            lo_name, hi_name = s.output_names()
+            want_lo = _restore_bound(float(np.nanmin(v)), v.dtype, lower=True)
+            want_hi = _restore_bound(float(np.nanmax(v)), v.dtype, lower=False)
+            assert table[lo_name][i] == want_lo and table[hi_name][i] == want_hi, (
+                f"sketch of {s.expr} for {by_id[fid]}: {table[lo_name][i]}..{table[hi_name][i]}"
+                f" != {want_lo}..{want_hi}"
+            )
+
+
+#: chrome-trace categories of work on the device itself
+DEVICE_EVENT_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def profile_build(hs, df, cfg, tmp: str) -> None:
+    """One more covering build under torch.profiler, tracing the device
+    only. Device busy time is the union of the trace's kernel and copy
+    intervals, so nothing counts twice, set against the build's wall time;
+    the device time by kernel follows. A short profile first starts the
+    tracer, so its start-up stays out of the build's wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]):
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+    t = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        hs.create_index(df, cfg)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t) * 1e3
+    path = os.path.join(tmp, "profile.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and e.get("cat") in DEVICE_EVENT_CATEGORIES]
+    if not events:
+        print("profile: the profiler saw no device work; device busy share not measured", flush=True)
+        return
+    busy_us, end = 0.0, float("-inf")
+    for lo, hi in sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in events):
+        busy_us += max(0.0, hi - max(lo, end))
+        end = max(end, hi)
+    busy_ms = busy_us / 1e3
+    by_name = {}
+    for e in events:
+        ms, count = by_name.get(e["name"], (0.0, 0))
+        by_name[e["name"]] = (ms + float(e["dur"]) / 1e3, count + 1)
+    print(f"profile {cfg.index_name}: wall {wall_ms:.1f} ms, device busy {busy_ms:.3f} ms "
+          f"({100 * busy_ms / wall_ms:.3f}% of wall; idle {100 - 100 * busy_ms / wall_ms:.3f}%)", flush=True)
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    # the ten largest, and the port's own kernels wherever they rank
+    for rank, (name, (ms, count)) in enumerate(ranked):
+        if rank < 10 or "bucket_histogram" in name or "segmented_min_max" in name:
+            print(f"profile   {ms:9.3f} ms  x{count:<4d} #{rank + 1:<3d} {name[:100]}", flush=True)
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--rows", type=int, default=LINEITEM_ROWS_SF1, help="lineitem rows (6M = SF1)")
+    ap.add_argument("--files", type=int, default=16)
+    ap.add_argument("--reps", type=int, default=30, help="timed runs per kernel")
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: no CUDA device is available")
+    if not os.path.isdir(os.path.join(HERE, "hyperspace_tpu_torch", "csrc")):
+        sys.exit("chip_smoke: the hyperspace_tpu_torch package is not beside this script")
+    sys.path.insert(0, HERE)
+
+    t = time.perf_counter()
+    kind = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    if kind not in HBM_BYTES_PER_S:
+        sys.exit(f"chip_smoke: no memory rate on record for {kind!r}")
+    hbm = HBM_BYTES_PER_S[kind]
+    print(f"device: {kind} (torch {torch.__version__}, CUDA {torch.version.cuda})", flush=True)
+    print(smi, flush=True)
+    phase("device", t)
+
+    t = time.perf_counter()
+    from hyperspace_tpu_torch.ops import cuda_build, kernels
+
+    libs = cuda_build.build_all()
+    for source, log in cuda_build.build_logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "error" in line:
+                print(f"nvcc {source}: {line.strip()}", flush=True)
+    print(f"built: {', '.join(os.path.basename(p) for p in libs.values())}", flush=True)
+    phase("build", t)
+
+    t = time.perf_counter()
+    results = check_kernels(args, hbm)
+    phase("kernels", t)
+
+    import hyperspace_tpu_torch as ht
+
+    tmp = tempfile.mkdtemp(prefix="hs_chip_smoke_")
+    try:
+        t = time.perf_counter()
+        check_small(tmp, args.seed)
+        phase("small", t)
+
+        t = time.perf_counter()
+        src = gen_lineitem(tmp, args.rows, args.files, args.seed)
+        print(f"lake: {args.rows} lineitem rows in {args.files} files", flush=True)
+        phase("generate", t)
+
+        sess = ht.Session(conf={ht.keys.SYSTEM_PATH: os.path.join(tmp, "indexes")}, device="cuda")
+        hs = ht.Hyperspace(sess)
+        df = sess.read_parquet(src)
+        configs = [
+            ht.CoveringIndexConfig("li_shipdate", ["l_shipdate"], ["l_quantity", "l_extendedprice", "l_discount"]),
+            ht.CoveringIndexConfig("li_orderkey", ["l_orderkey"], ["l_extendedprice"]),
+            ht.DataSkippingIndexConfig("li_skip", ht.MinMaxSketch("l_extendedprice"), ht.MinMaxSketch("l_orderkey")),
+        ]
+        entries, seconds = {}, {}
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        stages = {}
+        t = time.perf_counter()
+        for cfg in configs:
+            sess.build_stage_seconds.clear()
+            t_i = time.perf_counter()
+            entries[cfg.index_name] = hs.create_index(df, cfg)
+            seconds[cfg.index_name] = time.perf_counter() - t_i
+            stages[cfg.index_name] = dict(sess.build_stage_seconds)
+        torch.cuda.synchronize()
+        launches = dict(kernels.launches)
+        phase("slice", t)
+        for name, s in seconds.items():
+            print(f"build {name}: {s:.3f} s, {args.rows / s:.0f} rows/s ({smi})", flush=True)
+            if stages[name]:
+                print(f"stages {name}: " + ", ".join(f"{k} {v:.3f} s" for k, v in stages[name].items()),
+                      flush=True)
+        print(f"launches on the main path: {launches}", flush=True)
+        for name in results:
+            assert launches.get(name, 0) > 0, f"the main path never launched {name}"
+            results[name]["launches"] = launches[name]
+
+        t = time.perf_counter()
+        src_files = [fi.name for fi in entries["li_shipdate"].source_file_infos()]
+        for (name, key, cols) in (
+            ("li_shipdate", "l_shipdate", ["l_shipdate", "l_quantity", "l_extendedprice", "l_discount"]),
+            ("li_orderkey", "l_orderkey", ["l_orderkey", "l_extendedprice"]),
+        ):
+            n = check_covering(entries[name], src_files, key, cols, sess.conf.num_buckets)
+            print(f"check {name}: {n} rows hash to their buckets, sorted by {key}, equal to the source", flush=True)
+        from hyperspace_tpu_torch.indexes.registry import index_of_entry
+
+        check_sketches(entries["li_skip"], index_of_entry(entries["li_skip"]))
+        print("check li_skip: sketch rows equal numpy per-file min/max", flush=True)
+        listed = hs.indexes()
+        assert sorted(listed["name"]) == sorted(entries) and set(listed["state"]) == {"ACTIVE"}, listed
+        print(f"indexes: {sorted(listed['name'])} ACTIVE", flush=True)
+        phase("check", t)
+
+        t = time.perf_counter()
+        profile_build(hs, df, ht.CoveringIndexConfig(
+            "li_shipdate_profiled", ["l_shipdate"], ["l_quantity", "l_extendedprice", "l_discount"]), tmp)
+        phase("profile", t)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    print(json.dumps({"kernels": [results[k] for k in ("bucket_histogram", "segmented_min_max")]}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

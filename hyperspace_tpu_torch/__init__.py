@@ -1,0 +1,55 @@
+"""hyperspace_tpu_torch — the PyTorch/CUDA port of hyperspace_tpu.
+
+The same data-lake indexing framework, written in PyTorch for one NVIDIA
+H100: index data and the versioned operation log live on storage next to the
+data, laid out exactly as the JAX package lays them out, so either package
+reads what the other wrote. The JAX package (``hyperspace_tpu``) is the
+reference each part of the port is held against; the port imports nothing
+from it.
+
+The port grows slice by slice. It has the index build so far: covering and
+data-skipping ``create_index``, with the two device kernels of that path
+written by hand in CUDA (``csrc/``; ``ops/kernels.py``). Queries over the
+indexes arrive with the next slice.
+
+Layer map (the JAX package's layout, module for module):
+  - ``models/``    metadata model + operation-log persistence
+  - ``sources/``   source providers (parquet)
+  - ``plan/``      scan plan + column resolution
+  - ``indexes/``   covering and data-skipping index builds
+  - ``actions/``   the create action
+  - ``ops/``       hashing, encode, device sort, kernel wrappers
+  - ``csrc/``      the CUDA kernels
+  - ``telemetry/`` action events
+"""
+
+from hyperspace_tpu_torch.version import __version__
+from hyperspace_tpu_torch.config import HyperspaceConf, keys
+from hyperspace_tpu_torch.session import Session, get_session, set_session
+from hyperspace_tpu_torch.plan.expr import col
+from hyperspace_tpu_torch.plan.dataframe import DataFrame
+from hyperspace_tpu_torch.indexes.covering import CoveringIndexConfig
+from hyperspace_tpu_torch.indexes.dataskipping import (
+    DataSkippingIndexConfig,
+    MinMaxSketch,
+    BloomFilterSketch,
+    ValueListSketch,
+)
+from hyperspace_tpu_torch.hyperspace import Hyperspace
+
+__all__ = [
+    "__version__",
+    "HyperspaceConf",
+    "keys",
+    "Session",
+    "get_session",
+    "set_session",
+    "col",
+    "DataFrame",
+    "CoveringIndexConfig",
+    "DataSkippingIndexConfig",
+    "MinMaxSketch",
+    "BloomFilterSketch",
+    "ValueListSketch",
+    "Hyperspace",
+]
