@@ -93,8 +93,8 @@ class Action:
         try:
             meta = self.session.provider_manager.create_relation_metadata(source.relation)
         except HyperspaceException:
-            # no provider answers for this logged relation (e.g. builders
-            # reconfigured since the index was created) — nothing to enrich
+            # no provider answers for this logged relation (a format the
+            # port does not read) — nothing to enrich
             return
         if meta is None:
             return

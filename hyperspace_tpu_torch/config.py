@@ -2,7 +2,8 @@
 
 The keys, defaults and typed accessors the index-build path reads, under the
 same names as the JAX package's ``hyperspace_tpu/config.py`` so one conf
-dict drives either package. Keys are namespaced ``hyperspace.*``.
+dict drives either package; the port ignores the keys it does not read.
+Keys are namespaced ``hyperspace.*``.
 """
 
 from __future__ import annotations
@@ -15,11 +16,7 @@ class keys:
 
     SYSTEM_PATH = "hyperspace.system.path"
     NUM_BUCKETS = "hyperspace.index.numBuckets"
-    NESTED_COLUMN_ENABLED = "hyperspace.index.nestedColumn.enabled"
-    CACHE_EXPIRY_SECONDS = "hyperspace.index.cache.expiryDurationInSeconds"
     LINEAGE_ENABLED = "hyperspace.index.lineage.enabled"
-    SOURCE_BUILDERS = "hyperspace.index.sources.fileBasedBuilders"
-    EVENT_LOGGER_CLASS = "hyperspace.eventLoggerClass"
     BUILD_BATCH_ROWS = "hyperspace.tpu.build.batchRows"
     PARALLEL_ENABLED = "hyperspace.parallel.enabled"
 
@@ -27,11 +24,7 @@ class keys:
 DEFAULTS: Dict[str, Any] = {
     keys.SYSTEM_PATH: None,  # resolved by PathResolver; must be set per session
     keys.NUM_BUCKETS: 200,
-    keys.NESTED_COLUMN_ENABLED: False,
-    keys.CACHE_EXPIRY_SECONDS: 300,
     keys.LINEAGE_ENABLED: False,
-    keys.SOURCE_BUILDERS: "hyperspace_tpu_torch.sources.default.DefaultFileBasedSourceBuilder",
-    keys.EVENT_LOGGER_CLASS: None,
     # rows per device program of a covering build; each chunk writes one
     # sorted run per bucket
     keys.BUILD_BATCH_ROWS: 2_000_000,
@@ -63,10 +56,8 @@ def _coerce(value: Any, like: Any) -> Any:
         if isinstance(value, str):
             return value.strip().lower() in ("true", "1", "yes")
         return bool(value)
-    if isinstance(like, int) and not isinstance(like, bool):
+    if isinstance(like, int):
         return int(value)
-    if isinstance(like, float):
-        return float(value)
     return value
 
 
@@ -97,20 +88,8 @@ class HyperspaceConf:
         return int(self.get(keys.NUM_BUCKETS))
 
     @property
-    def nested_column_enabled(self) -> bool:
-        return bool(self.get(keys.NESTED_COLUMN_ENABLED))
-
-    @property
-    def cache_expiry_seconds(self) -> int:
-        return int(self.get(keys.CACHE_EXPIRY_SECONDS))
-
-    @property
     def lineage_enabled(self) -> bool:
         return bool(self.get(keys.LINEAGE_ENABLED))
-
-    @property
-    def source_builders(self) -> str:
-        return str(self.get(keys.SOURCE_BUILDERS))
 
     @property
     def build_batch_rows(self) -> int:

@@ -160,20 +160,17 @@ class CoveringIndex(Index):
             # (ref: CoveringIndex.scala:54-69 repartition+saveWithBuckets);
             # here the build owns its own out-of-core chunking.
             relation = plan.relation
-            resolved = self._resolve_all(ctx, relation.schema)
-            columns = [r.normalized_name for r in resolved]
-            key_res = [r for r in resolved if r.normalized_name in self._indexed]
-            payload = [r for r in resolved if r.normalized_name not in self._indexed]
+            columns = self._resolve_all(relation.schema)
+            key_cols = [c for c in columns if c in self._indexed]
+            payload = [c for c in columns if c not in self._indexed]
             batch_rows = ctx.session.conf.build_batch_rows
             files = [fi.name for fi in relation.all_file_infos()]
             # per-file reads lose the unified-dataset schema the one-shot
             # path had (Arrow casts/null-fills fragments against it); conform
             # every per-file projection to the resolved schema so sources
             # with per-file schema drift still build one consistent index
-            key_schema = pa.schema([_arrow_field_for(r, relation.schema) for r in key_res])
-            payload_schema = pa.schema(
-                [_arrow_field_for(r, relation.schema) for r in payload]
-            )
+            key_schema = pa.schema([relation.schema.field(c) for c in key_cols])
+            payload_schema = pa.schema([relation.schema.field(c) for c in payload])
 
             def groups():
                 # each file's dataset is constructed ONCE and serves both the
@@ -196,7 +193,7 @@ class CoveringIndex(Index):
                         if not payload:
                             return None
                         parts = [
-                            _project_conform(d, payload, payload_schema) for d in grp_ds
+                            _project_conform(d, payload_schema) for d in grp_ds
                         ]
                         return pa.concat_tables(parts) if len(parts) > 1 else parts[0]
 
@@ -205,7 +202,7 @@ class CoveringIndex(Index):
                 for f in files:
                     t = time.perf_counter()
                     ds_f = relation.arrow_dataset([f])
-                    kt = _project_conform(ds_f, key_res, key_schema)
+                    kt = _project_conform(ds_f, key_schema)
                     _add_stage(ctx.session.build_stage_seconds, "key_decode", t)
                     # emit BEFORE a file that would cross batchRows: groups
                     # stay under the cap (only a single file larger than
@@ -233,7 +230,7 @@ class CoveringIndex(Index):
                 batch_rows=batch_rows,
                 session=ctx.session,
             )
-            schema = pa.schema([_arrow_field_for(r, relation.schema) for r in resolved])
+            schema = pa.schema([relation.schema.field(c) for c in columns])
             self.schema_json = schema_codec.schema_to_json(schema)
             return
 
@@ -244,85 +241,32 @@ class CoveringIndex(Index):
             "of a supported relation); got: " + type(plan).__name__
         )
 
-    def _resolve_all(self, ctx: CreateContext, schema: pa.Schema):
-        """Resolve indexed/included columns, normalizing nested paths with the
-        ``__hs_nested.`` prefix; nested indexing is gated on conf
-        (ref: CoveringIndexConfig nested normalization, ResolverUtils.scala:44-105).
-
-        Names may arrive already normalized (refresh/optimize revive the index
-        from its log entry) — strip the prefix before re-resolving against the
-        source schema."""
-        from hyperspace_tpu_torch.plan.resolver import ResolvedColumn
-
-        def denorm(names):
-            return [ResolvedColumn.from_normalized(n).name for n in names]
-
-        resolved = resolve_columns_against_schema(denorm(self.referenced_columns), schema)
-        if any(r.is_nested for r in resolved):
-            conf = getattr(getattr(ctx, "session", None), "conf", None)
-            if conf is not None and not conf.nested_column_enabled:
-                raise ValueError(
-                    "Indexing nested columns requires "
-                    f"{C.keys.NESTED_COLUMN_ENABLED}=true"
-                )
-        self._indexed = [r.normalized_name for r in resolve_columns_against_schema(denorm(self._indexed), schema)]
-        self._included = [r.normalized_name for r in resolve_columns_against_schema(denorm(self._included), schema)]
-        return resolved
+    def _resolve_all(self, schema: pa.Schema) -> List[str]:
+        """Resolve the indexed and included columns to the schema's own
+        spelling; returns them indexed first."""
+        self._indexed = resolve_columns_against_schema(self._indexed, schema)
+        self._included = resolve_columns_against_schema(self._included, schema)
+        return self.referenced_columns
 
 
-def _project_conform(ds, resolved, schema: pa.Schema) -> pa.Table:
-    """Project ``resolved`` columns out of one file's dataset and conform the
-    result to the unified ``schema`` (cast drifted dtypes; null-fill columns
-    the file predates). The one-shot build's single dataset did this
-    implicitly via Arrow's unified dataset schema; per-file streaming reads
-    must do it explicitly or schema-evolved sources crash mid-build."""
+def _project_conform(ds, schema: pa.Schema) -> pa.Table:
+    """Project ``schema``'s columns out of one file's dataset and conform the
+    result to it (cast drifted dtypes; null-fill columns the file predates),
+    so sources with per-file schema drift still build one consistent index."""
     try:
-        t = ds.to_table(columns=_nested_projection(resolved))
+        t = ds.to_table(columns=schema.names)
     except (KeyError, pa.ArrowInvalid, pa.ArrowKeyError):
         # a projected column is missing from this file (schema evolution):
-        # decode what the file has, extract what resolves (nested leaves via
-        # struct_field — the normalized __hs_nested. name never matches a
-        # physical column), and null-fill only what's genuinely absent
-        import pyarrow.compute as pc
-
+        # decode what the file has and null-fill only what is absent
         full = ds.to_table()
-        arrays = []
-        for r, f in zip(resolved, schema):
-            parts = r.name.split(".")
-            arr = full.column(parts[0]) if parts[0] in full.column_names else None
-            for seg in parts[1:]:
-                if arr is None:
-                    break
-                try:
-                    arr = pc.struct_field(arr, seg)
-                except (KeyError, pa.ArrowInvalid, pa.ArrowKeyError, TypeError):
-                    arr = None
-            arrays.append(arr if arr is not None else pa.nulls(full.num_rows, f.type))
+        arrays = [
+            full.column(f.name) if f.name in full.column_names else pa.nulls(full.num_rows, f.type)
+            for f in schema
+        ]
         return pa.table(dict(zip(schema.names, arrays))).cast(schema)
     if t.schema != schema:
         t = t.cast(schema)
     return t
-
-
-def _nested_projection(resolved) -> Dict[str, Any]:
-    """Arrow dataset projection dict: normalized output name -> field ref
-    (nested paths project the struct leaf into a flat column)."""
-    import pyarrow.compute as pc
-
-    out: Dict[str, Any] = {}
-    for r in resolved:
-        out[r.normalized_name] = pc.field(*r.name.split(".")) if r.is_nested else pc.field(r.name)
-    return out
-
-
-def _arrow_field_for(resolved_col, schema: pa.Schema) -> pa.Field:
-    """The (leaf) arrow field a resolved column projects to, named by its
-    normalized (flat) name."""
-    parts = resolved_col.name.split(".")
-    field = schema.field(parts[0])
-    for p in parts[1:]:
-        field = field.type.field(p)
-    return pa.field(resolved_col.normalized_name, field.type)
 
 
 def _device_of(session):
@@ -409,44 +353,6 @@ def _chunk_stages(bucket_sort_columns: List[str], num_buckets: int, out_dir: str
     return launch, finish
 
 
-def write_bucketed(
-    table: pa.Table,
-    bucket_sort_columns: List[str],
-    num_buckets: int,
-    out_dir: str,
-    payload_fn=None,
-    column_order: Optional[List[str]] = None,
-    batch_rows: Optional[int] = None,
-    session=None,
-) -> List[str]:
-    """Device-accelerated bucketed + sorted Parquet write.
-
-    One device pass per chunk (ops/sort.bucket_sort_build: hash -> bucket ->
-    lexicographic sort -> histogram kernel) gives the clustering permutation
-    and per-bucket counts; the host then takes each bucket's rows and writes
-    them, eight buckets at a time (arrow take and parquet write release the
-    GIL).
-
-    ``table`` must hold at least ``bucket_sort_columns``; ``payload_fn``, if
-    given, is called after the device launch and returns the remaining
-    columns (row-aligned with ``table``) or None. ``column_order`` fixes the
-    output column order.
-
-    ``batch_rows`` (> 0) caps rows per device pass: larger tables are
-    processed in equal chunks, each writing its own sorted run per bucket
-    (the multi-run state incremental refresh also produces; optimize
-    compacts it). Returns written file paths — bucket order within each
-    chunk, chunk-major with repeated bucket ids when chunking kicks in.
-    """
-    os.makedirs(out_dir, exist_ok=True)
-    if table.num_rows == 0:
-        return []
-    stages = _chunk_stages(bucket_sort_columns, num_buckets, out_dir, column_order, session)
-    if batch_rows is not None and batch_rows > 0 and table.num_rows > batch_rows:
-        return _pipelined_chunks(_sliced_chunks(table, payload_fn, batch_rows), *stages)
-    return _pipelined_chunks([(table, payload_fn)], *stages)
-
-
 def _sliced_chunks(table: pa.Table, payload_fn, batch_rows: int):
     """Yield (key_chunk, chunk_payload_fn) slices of one materialized table;
     the payload (if any) decodes ONCE lazily and is sliced per chunk. Chunks
@@ -498,16 +404,25 @@ def write_bucketed_groups(
     batch_rows: Optional[int] = None,
     session=None,
 ) -> List[str]:
-    """Out-of-core variant of :func:`write_bucketed`: ``groups`` is an
-    ITERABLE of ``(key_table, payload_fn)`` pairs (each key_table holds the
-    bucket/sort columns for one group of source rows; ``payload_fn()``
-    lazily decodes that group's remaining columns, row-aligned). Groups are
-    consumed strictly in order and sliced to ``batch_rows`` chunks, so peak
-    host memory is O(2 chunks + one group's payload) regardless of total
-    table size. Each chunk writes its own sorted run per bucket — the
-    multi-run state the reference's incremental refresh also produces
-    (ref: actions/RefreshIncrementalAction.scala:115-128); optimize
-    compacts runs.
+    """Device-accelerated bucketed + sorted Parquet write, out of core.
+
+    ``groups`` is an ITERABLE of ``(key_table, payload_fn)`` pairs: each
+    key_table holds the bucket/sort columns for one group of source rows;
+    ``payload_fn()`` (or None) lazily decodes that group's remaining
+    columns, row-aligned. ``column_order`` fixes the output column order.
+    Groups are consumed strictly in order and sliced into equal chunks of at
+    most ``batch_rows`` (> 0) rows, so peak host memory is O(2 chunks + one
+    group's payload) regardless of total table size.
+
+    One device pass per chunk (ops/sort.bucket_sort_build: hash -> bucket ->
+    lexicographic sort -> histogram kernel) gives the clustering permutation
+    and per-bucket counts; the host then takes each bucket's rows and writes
+    them, eight buckets at a time (arrow take and parquet write release the
+    GIL). Each chunk writes its own sorted run per bucket — the multi-run
+    state the reference's incremental refresh also produces
+    (ref: actions/RefreshIncrementalAction.scala:115-128); optimize compacts
+    runs. Returns the written file paths: bucket order within each chunk,
+    chunk-major.
 
     The build path streams source FILES through this (``CoveringIndex.write``);
     the reference inherits the same bounded-memory property from Spark's

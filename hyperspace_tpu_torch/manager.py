@@ -97,13 +97,18 @@ class IndexCollectionManager:
         return pd.DataFrame(rows)
 
 
+#: Lifetime of the cached log entries: the default of the JAX package's
+#: ``hyperspace.index.cache.expiryDurationInSeconds`` (hyperspace_tpu/config.py).
+CACHE_EXPIRY_SECONDS = 300
+
+
 class CachingIndexCollectionManager(IndexCollectionManager):
-    """TTL cache over get_indexes (default 300 s), invalidated on any
-    mutating API (ref: HS/index/CachingIndexCollectionManager.scala:38-126)."""
+    """TTL cache over get_indexes, invalidated on any mutating API
+    (ref: HS/index/CachingIndexCollectionManager.scala:38-126)."""
 
     def __init__(self, session, **kwargs):
         super().__init__(session, **kwargs)
-        self._cache: TTLCache = TTLCache(lambda: self.session.conf.cache_expiry_seconds)
+        self._cache: TTLCache = TTLCache(CACHE_EXPIRY_SECONDS)
 
     def clear_cache(self) -> None:
         self._cache.clear()

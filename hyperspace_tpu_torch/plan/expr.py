@@ -1,16 +1,12 @@
 """Expression tree — the part the index-build path needs.
 
-Column references and the nested-field normalization prefix used by column
-resolution. The predicate language (literals, comparisons, connectives,
-subqueries) arrives with the query path.
+Column references. The predicate language (literals, comparisons,
+connectives, subqueries) arrives with the query path.
 """
 
 from __future__ import annotations
 
 from typing import Dict, Sequence, Set
-
-# Nested-field normalization prefix (ref: util/ResolverUtils.scala:44-105).
-NESTED_PREFIX = "__hs_nested."
 
 
 class Expr:

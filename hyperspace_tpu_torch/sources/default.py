@@ -170,11 +170,3 @@ class DefaultFileBasedSource(FileBasedSourceProvider):
         if relation.file_format in SUPPORTED_FORMATS:
             return DefaultFileBasedRelationMetadata(relation)
         return None
-
-
-class DefaultFileBasedSourceBuilder:
-    """Builder loaded from conf ``hyperspace.index.sources.fileBasedBuilders``
-    (ref: HS/index/sources/FileBasedSourceProviderManager.scala:38-174)."""
-
-    def build(self, session) -> FileBasedSourceProvider:
-        return DefaultFileBasedSource()

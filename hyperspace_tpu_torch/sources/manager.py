@@ -1,20 +1,18 @@
 """Source-provider manager.
 
-Loads comma-separated builder classes from conf and dispatches each SPI call,
-enforcing that exactly one provider answers
-(ref: HS/index/sources/FileBasedSourceProviderManager.scala:38-174).
+Dispatches each source call to the default file-based (parquet) provider,
+the only source the port has, and raises when it does not answer
+(ref: HS/index/sources/FileBasedSourceProviderManager.scala:38-174). The
+conf-loaded list of provider builders comes with the first other source.
 """
 
 from __future__ import annotations
 
-import importlib
-from typing import List, Optional
-
 from hyperspace_tpu_torch.models.log_entry import Relation
+from hyperspace_tpu_torch.sources.default import DefaultFileBasedSource
 from hyperspace_tpu_torch.sources.interfaces import (
     FileBasedRelation,
     FileBasedRelationMetadata,
-    FileBasedSourceProvider,
 )
 
 
@@ -22,42 +20,19 @@ class HyperspaceException(Exception):
     pass
 
 
-def _load_class(dotted: str):
-    module_name, _, cls_name = dotted.rpartition(".")
-    return getattr(importlib.import_module(module_name), cls_name)
-
-
 class FileBasedSourceProviderManager:
     def __init__(self, session):
         self._session = session
-        self._providers: Optional[List[FileBasedSourceProvider]] = None
-        self._built_from: Optional[str] = None
+        self._provider = DefaultFileBasedSource()
 
-    def providers(self) -> List[FileBasedSourceProvider]:
-        raw = self._session.conf.source_builders
-        if self._providers is None or raw != self._built_from:
-            self._providers = [
-                _load_class(name.strip())().build(self._session)
-                for name in raw.split(",")
-                if name.strip()
-            ]
-            self._built_from = raw
-        return self._providers
-
-    def _run_single(self, fn_name: str, *args):
-        answers = []
-        for p in self.providers():
-            result = getattr(p, fn_name)(*args, self._session)
-            if result is not None:
-                answers.append(result)
-        if len(answers) != 1:
-            raise HyperspaceException(
-                f"Expected exactly one source provider to handle {fn_name}; got {len(answers)}."
-            )
-        return answers[0]
+    def _run(self, fn_name: str, arg):
+        result = getattr(self._provider, fn_name)(arg, self._session)
+        if result is None:
+            raise HyperspaceException(f"No source provider handles {fn_name} for {arg!r}.")
+        return result
 
     def create_relation(self, path_or_plan) -> FileBasedRelation:
-        return self._run_single("create_relation", path_or_plan)
+        return self._run("create_relation", path_or_plan)
 
     def create_relation_metadata(self, relation: Relation) -> FileBasedRelationMetadata:
-        return self._run_single("create_relation_metadata", relation)
+        return self._run("create_relation_metadata", relation)

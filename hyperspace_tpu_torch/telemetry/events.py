@@ -1,18 +1,16 @@
-"""Telemetry: structured event taxonomy + pluggable sink.
+"""Telemetry: structured event taxonomy.
 
-Events are emitted around every lifecycle action and on index usage
-(ref: HS/telemetry/HyperspaceEvent.scala:28-156); the sink class is loaded
-from conf ``hyperspace.eventLoggerClass`` with a NoOp default
-(ref: HS/telemetry/HyperspaceEventLogging.scala:30-68).
+Events are emitted around every lifecycle action
+(ref: HS/telemetry/HyperspaceEvent.scala:28-156) to the NoOp sink, the
+reference's default (ref: HS/telemetry/HyperspaceEventLogging.scala:30-68).
+A sink chosen by conf comes with the first slice that reads events.
 """
 
 from __future__ import annotations
 
-import importlib
-import threading
 import time
 from dataclasses import dataclass, field
-from typing import Dict, Optional
+from typing import Dict
 
 
 @dataclass
@@ -47,37 +45,9 @@ class NoOpEventLogger(EventLogger):
         pass
 
 
-_cache_lock = threading.Lock()
-
-
-def get_event_logger(session) -> EventLogger:
-    """Resolve the session's event sink from conf ``hyperspace.eventLoggerClass``.
-
-    Logger instances are cached *per session*, keyed by the configured class
-    name — NOT in a module-level dict keyed by class name alone, which made
-    two sessions configured with the same class silently share one sink and
-    ignored mid-session conf changes. Repeated calls with an unchanged conf
-    return the same instance (tests rely on that identity); changing the conf
-    key resolves a fresh logger on the next call.
-    """
-    cls_name: Optional[str] = session.conf.get("hyperspace.eventLoggerClass")
-    key = cls_name or "__noop__"
-    with _cache_lock:
-        cache: Dict[str, EventLogger] = getattr(session, "_event_logger_cache", None)
-        if cache is None:
-            cache = {}
-            session._event_logger_cache = cache
-        got = cache.get(key)
-        if got is None:
-            if not cls_name:
-                got = NoOpEventLogger()
-            else:
-                module_name, _, attr = cls_name.rpartition(".")
-                got = getattr(importlib.import_module(module_name), attr)()
-            cache[key] = got
-        return got
+_SINK: EventLogger = NoOpEventLogger()
 
 
 def emit_event(session, event: HyperspaceEvent) -> None:
-    """Log ``event`` on the session's sink."""
-    get_event_logger(session).log_event(event)
+    """Log ``event`` on the sink."""
+    _SINK.log_event(event)

@@ -161,14 +161,15 @@ def test_sketch_tables_match(built):
 
 def test_write_bucketed_chunk_order_matches(lake, tmp_path):
     """The writer's own output order — bucket order within each chunk,
-    chunk-major — is the reference's, run for run."""
+    chunk-major — is the reference's, run for run, for one group sliced
+    into several chunks."""
     table = pq.read_table(os.path.join(lake, "part-00002.parquet"))
-    ref_paths = ref_covering.write_bucketed(
-        table, ["s", "k"], NUM_BUCKETS, str(tmp_path / "jax"), batch_rows=400,
+    ref_paths = ref_covering.write_bucketed_groups(
+        [(table, None)], ["s", "k"], NUM_BUCKETS, str(tmp_path / "jax"), batch_rows=400,
         session=hst.Session(conf=_conf(hst.keys, str(tmp_path / "sys_jax"))),
     )
-    got_paths = covering.write_bucketed(
-        table, ["s", "k"], NUM_BUCKETS, str(tmp_path / "torch"), batch_rows=400,
+    got_paths = covering.write_bucketed_groups(
+        [(table, None)], ["s", "k"], NUM_BUCKETS, str(tmp_path / "torch"), batch_rows=400,
         session=ht.Session(conf=_conf(ht.keys, str(tmp_path / "sys_torch")), device="cpu"),
     )
     assert len(got_paths) == len(ref_paths) > NUM_BUCKETS
@@ -243,3 +244,17 @@ def test_lineage_and_mesh_builds_raise(lake, tmp_path):
             op("i")
     with pytest.raises(NotImplementedError, match="parquet only"):
         hs.session.read(lake, "csv")
+
+
+def test_nested_columns_raise(tmp_path):
+    """Nested struct columns are not in the port yet: a dotted name into a
+    struct raises, and an unknown name stays a resolution error."""
+    src = tmp_path / "nested"
+    src.mkdir()
+    pq.write_table(pa.table({"id": [1, 2], "st": pa.array([{"a": 1}, {"a": 2}])}), src / "p.parquet")
+    sess = ht.Session(conf=_conf(ht.keys, str(tmp_path / "sys")), device="cpu")
+    df = sess.read_parquet(str(src))
+    with pytest.raises(NotImplementedError, match="nested"):
+        ht.Hyperspace(sess).create_index(df, ht.CoveringIndexConfig("n", ["st.a"], ["id"]))
+    with pytest.raises(ValueError, match="could not be resolved"):
+        ht.Hyperspace(sess).create_index(df, ht.CoveringIndexConfig("m", ["nope"], ["id"]))

@@ -27,14 +27,17 @@ PORT = os.path.join(REPO, "hyperspace_tpu_torch")
 
 def _port_sources():
     out = [os.path.join(REPO, "chip_smoke.py")]
-    for dirpath, _, names in os.walk(PORT):
+    for dirpath, dirs, names in os.walk(PORT):
+        dirs[:] = [d for d in dirs if d != "_build"]  # kernel build outputs, not sources
         out.extend(os.path.join(dirpath, n) for n in sorted(names) if n.endswith(".py"))
     return out
 
 
 def _forbidden(module: str) -> bool:
+    # importlib: a class named by a conf shared with the JAX package could
+    # load that package at run time, so the port imports nothing by name
     root = module.split(".")[0]
-    return root in ("jax", "jaxlib", "hyperspace_tpu")
+    return root in ("jax", "jaxlib", "hyperspace_tpu", "importlib")
 
 
 def test_port_has_sources():
@@ -55,6 +58,8 @@ def test_no_jax_or_reference_imports(path):
         elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
             if _forbidden(node.module):
                 bad.append(node.module)
+        elif isinstance(node, ast.Name) and node.id == "__import__":
+            bad.append("__import__")
         elif isinstance(node, ast.Constant) and isinstance(node.value, str):
             # dotted names handed to importlib (conf class names) count too
             if node.value.startswith(("jax.", "hyperspace_tpu.")):
