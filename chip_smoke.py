@@ -1,15 +1,20 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (hyperspace_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--seed N] [--rows N] [--files N] [--reps N]
+    python3 chip_smoke.py [--seed N] [--rows N] [--files N] [--reps N] [--baseline-csrc DIR]
 
 Phases, each printed with its time:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: compiles the port's CUDA kernels from ``hyperspace_tpu_torch/csrc``;
 3. kernels: holds each kernel against its plain torch version on the card
-   (exact: both are integer results), then times kernel, plain version and
-   the nearest single PyTorch library call with CUDA events;
+   (exact: both are integer results) at the build's shapes and at the inputs
+   each design finds hard, then times kernel, plain version and the nearest
+   single PyTorch library call with CUDA events, beside the launch floor
+   (one ``torch.zeros(1)``), each kernel's fixed cost (a tiny input), the
+   same kernel behind fill launches that initialise its outputs, and K2 at
+   the host driver's two call-cap shapes; with ``--baseline-csrc`` an
+   earlier tree's kernels are timed in turns with this tree's;
 4. small: builds one covering index over a small lake on the CPU (plain
    versions) and on the GPU (kernels) and requires identical bucket files;
 5. slice: generates a TPC-H-shaped SF1 ``lineitem`` lake (6M rows in 16
@@ -120,9 +125,8 @@ def bound(bytes_moved: int, ops: int, hbm: float):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def kernel_segments(rng, per: int, n_seg: int):
-    """Segments for the min/max kernel: NaN, signed zeros, infinities, an
-    empty and an all-NaN segment, and int64 values above 2**53."""
+def random_segments(rng, per: int, n_seg: int):
+    """``n_seg`` segments of ``per`` values of mixed magnitude, 1% NaN."""
     import numpy as np
 
     segs = []
@@ -130,6 +134,15 @@ def kernel_segments(rng, per: int, n_seg: int):
         v = rng.standard_normal(per) * 10.0 ** rng.integers(-3, 9)
         v[rng.random(per) < 0.01] = np.nan
         segs.append(v)
+    return segs
+
+
+def kernel_segments(rng, per: int, n_seg: int):
+    """Segments for the min/max kernel: NaN, signed zeros, infinities, an
+    empty and an all-NaN segment, and int64 values above 2**53."""
+    import numpy as np
+
+    segs = random_segments(rng, per, n_seg)
     segs[1][:] = 0.0
     segs[1][rng.random(per) < 0.5] = -0.0
     segs[2][::1000] = np.inf
@@ -143,20 +156,30 @@ def kernel_segments(rng, per: int, n_seg: int):
     return segs
 
 
-def check_histogram(ids_host, nb: int):
+def check_histogram(ids, nb: int):
+    """K1 against its plain version on the card tensor ``ids`` (exact)."""
     import torch
 
     from hyperspace_tpu_torch.ops import kernels as K
 
-    ids = torch.from_numpy(ids_host).to("cuda")
     got, want = K.bucket_histogram(ids, nb), K.bucket_histogram_plain(ids, nb)
     torch.cuda.synchronize()
-    assert torch.equal(got, want), f"bucket_histogram disagrees with its plain version ({len(ids_host)} ids)"
-    assert int(want.sum()) == int(((ids_host >= 0) & (ids_host < nb)).sum())
-    return ids, float((got - want).abs().max())
+    assert torch.equal(got, want), f"bucket_histogram disagrees with its plain version ({ids.numel()} ids, {nb} buckets)"
+    assert int(want.sum()) == int(((ids >= 0) & (ids < nb)).sum())
+    return float((got - want).abs().max())
 
 
-def check_minmax(segs):
+def offset_view(t):
+    """``t``'s float64 values in a tensor whose storage starts one element
+    in, so its base address is off the 16-byte grid the kernels load on."""
+    import torch
+
+    v = torch.cat([t[:1], t])[1:]
+    assert v.storage_offset() == 1 and torch.equal(v.view(torch.int64), t.view(torch.int64))
+    return v
+
+
+def check_minmax(segs, unaligned: bool = False):
     import numpy as np
     import torch
 
@@ -166,6 +189,8 @@ def check_minmax(segs):
     offsets_np = np.zeros(len(segs) + 1, dtype=np.int64)
     np.cumsum([len(s) for s in segs], out=offsets_np[1:])
     values = torch.from_numpy(np.concatenate(segs)).to(dev)
+    if unaligned:
+        values = offset_view(values)
     offsets = torch.from_numpy(offsets_np).to(dev)
     got = K.segment_min_max_keys(values, offsets)
     want = K.segment_min_max_keys_plain(values, offsets)
@@ -177,20 +202,87 @@ def check_minmax(segs):
     mn_cpu, mx_cpu = K.segmented_min_max(segs, torch.device("cpu"))
     assert np.array_equal(mn_gpu.view(np.int64), mn_cpu.view(np.int64))
     assert np.array_equal(mx_gpu.view(np.int64), mx_cpu.view(np.int64))
+    empty = got[2].cpu().numpy()
     for i, s in enumerate(segs):
         ok = s[~np.isnan(s)]
-        assert bool(got[2][i]) == (len(ok) == 0), f"segment {i} empty flag"
+        assert bool(empty[i]) == (len(ok) == 0), f"segment {i} empty flag"
         if len(ok):
             assert mn_gpu[i] == ok.min() and mx_gpu[i] == ok.max(), f"segment {i} min/max"
     err = max(float((g.to(torch.int64) - w.to(torch.int64)).abs().max()) for g, w in zip(got, want))
     return values, offsets, err
 
 
+def minmax_bound(n_vals: int, n_seg: int, hbm: float):
+    return bound(n_vals * 8 + (n_seg + 1) * 8 + n_seg * 17, 3 * n_vals, hbm)
+
+
+def build_baseline(csrc: str):
+    """The kernels of an earlier tree (``csrc``: a copy of its
+    ``hyperspace_tpu_torch/csrc``), built with the same flags, as callables
+    with the current wrappers' signatures: PR 1's launchers, K1 adding into
+    counts zeroed by the caller. Returns (histogram, min_max)."""
+    import ctypes
+
+    import torch
+
+    from hyperspace_tpu_torch.ops import cuda_build
+
+    out = tempfile.mkdtemp(prefix="hs_baseline_")
+    procs = {
+        src: subprocess.Popen([cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, "-o", os.path.join(out, src + ".so"),
+                               os.path.join(csrc, src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src in cuda_build.SOURCES
+    }
+    for src, proc in procs.items():
+        log, _ = proc.communicate()
+        assert proc.returncode == 0, f"baseline {src} does not build:\n{log}"
+    P = ctypes.c_void_p
+    hist = ctypes.CDLL(os.path.join(out, "bucket_histogram.cu.so")).hs_bucket_histogram
+    hist.argtypes, hist.restype = [P, ctypes.c_longlong, ctypes.c_int, P, P], ctypes.c_int
+    mm = ctypes.CDLL(os.path.join(out, "segmented_min_max.cu.so")).hs_segmented_min_max
+    mm.argtypes, mm.restype = [P, P, ctypes.c_int, P, P, P, P], ctypes.c_int
+    shutil.rmtree(out)  # loaded; the files are no longer needed
+
+    def stream():
+        return P(torch.cuda.current_stream().cuda_stream)
+
+    def histogram(ids, nb):
+        counts = torch.zeros(nb, dtype=torch.int32, device=ids.device)
+        assert hist(ids.data_ptr(), ids.numel(), nb, counts.data_ptr(), stream()) == 0
+        return counts
+
+    def min_max(values, offsets):
+        n_seg = offsets.numel() - 1
+        mins = torch.empty(n_seg, dtype=torch.int64, device=values.device)
+        maxs = torch.empty_like(mins)
+        empty = torch.empty(n_seg, dtype=torch.bool, device=values.device)
+        assert mm(values.data_ptr(), offsets.data_ptr(), n_seg, mins.data_ptr(), maxs.data_ptr(),
+                  empty.data_ptr(), stream()) == 0
+        return mins, maxs, empty
+
+    return histogram, min_max
+
+
+def in_turns(old, new, reps: int):
+    """Old and new timed in turns on one card (old, new, new, old), each
+    checked equal to the other first: (old ms, new ms, the four medians)."""
+    import torch
+
+    a, b = old(), new()
+    for x, y in zip(*((a, b) if isinstance(a, tuple) else ((a,), (b,)))):
+        assert torch.equal(x, y), "the earlier kernel and the new one disagree"
+    turns = [time_ms(f, reps) for f in (old, new, new, old)]
+    return (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2, turns
+
+
 def check_kernels(args, hbm: float):
-    """Each kernel against its plain version on the card — at the ISSUE's
-    adversarial inputs and at the shapes the SF1 build gives it — then timed
-    at the build's shapes: K1 gets one chunk of sorted bucket ids (whole
-    files grouped up to the 2M batch rows), K2 one segment per source file."""
+    """Each kernel against its plain version on the card — at the hard
+    inputs of each design and at the shapes the SF1 build gives it — then
+    timed: K1 at one chunk of sorted bucket ids (whole files grouped up to
+    the 2M batch rows), K2 at one segment per source file and at the two
+    shapes of the host driver's call cap (8 pieces of 2^20 values, 8192
+    files of 1024). With ``--baseline-csrc`` the earlier tree's kernels are
+    timed beside the new ones in the same run."""
     import numpy as np
     import torch
 
@@ -200,41 +292,96 @@ def check_kernels(args, hbm: float):
     rng = np.random.default_rng(args.seed)
     per_file = args.rows // args.files
     chunk = (BATCH_ROWS // per_file) * per_file if per_file <= BATCH_ROWS else BATCH_ROWS
+    baseline = build_baseline(args.baseline_csrc) if args.baseline_csrc else None
+    # the harness's floor: one small launch between two events
+    launch_floor = time_ms(lambda: torch.zeros(1, device=dev), args.reps)
+    print(f"launch floor (one torch.zeros(1) on the card): {launch_floor} ms", flush=True)
     results = {}
 
     # --- K1: ids over 200 buckets with the -1 padding id and the build's
-    # sentinel id 200 mixed in, random and sorted
+    # sentinel id 200 mixed in, random and sorted; then one long run, ids
+    # that count nowhere, an unaligned view of odd length, one bucket, and
+    # 65 536 buckets (past the shared-memory limit: the global path)
     nb = 200
     for n in (1 << 21, chunk):
         ids_np = rng.integers(-1, nb + 1, n).astype(np.int32)
-        check_histogram(ids_np, nb)
-        ids, err = check_histogram(np.sort(ids_np), nb)
+        check_histogram(torch.from_numpy(ids_np).to(dev), nb)
+        ids = torch.from_numpy(np.sort(ids_np)).to(dev)
+        err = check_histogram(ids, nb)
+    n_hard = chunk + 3
+    for nb_hard in (nb, 1, 65_536):
+        for fill in (nb_hard // 2, -1, nb_hard, None):
+            hard = (torch.full((n_hard,), fill, dtype=torch.int32, device=dev) if fill is not None
+                    else torch.from_numpy(rng.integers(-1, nb_hard + 1, n_hard).astype(np.int32)).to(dev))
+            for view in (hard, hard[1:], hard.sort().values[1:]):
+                check_histogram(view, nb_hard)
+    print(f"kernel bucket_histogram: 2^21 and {chunk} ids, {nb} buckets, random and sorted; {n_hard} ids and "
+          f"their [1:] views at 200, 1 and 65536 buckets, all equal, all -1, all nb, random, sorted: "
+          f"equal to plain; timed at {chunk} sorted ids", flush=True)
     valid = ids[(ids >= 0) & (ids < nb)].to(torch.int64)
     k1_bound, k1_by = bound(chunk * 4 + nb * 4, chunk, hbm)
+    k1_ms = time_ms(lambda: K.bucket_histogram(ids, nb), args.reps)
+    tiny_ids = ids[:4].clone()
+    _, launch = K._launcher("bucket_histogram.cu", "hs_bucket_histogram", None)
+
+    def with_fill():
+        """The same kernel on counts zeroed by a fill launch of their own."""
+        counts = torch.zeros(nb, dtype=torch.int32, device=dev)
+        assert launch(ids.data_ptr(), ids.numel(), nb, counts.data_ptr(), None, K._sm_count(dev), K._stream()) == 0
+        return counts
+
+    fill_ms, _, fill_turns = in_turns(with_fill, lambda: K.bucket_histogram(ids, nb), args.reps)
+    print(f"kernel bucket_histogram: with a zeroing fill launch {fill_ms} ms, zeroing the next call's counts "
+          f"in the kernel {k1_ms} ms (turns {fill_turns})", flush=True)
     results["bucket_histogram"] = {
         "name": "bucket_histogram",
         "route": "cuda",
         "source": "hyperspace_tpu_torch/csrc/bucket_histogram.cu",
         "replaces": "hyperspace_tpu/ops/kernels.py:275",
         "max_abs_err": err,
-        "ms": time_ms(lambda: K.bucket_histogram(ids, nb), args.reps),
+        "ms": k1_ms,
         "plain_ms": time_ms(lambda: K.bucket_histogram_plain(ids, nb), args.reps),
         "bound_ms": k1_bound,
         "bound_by": k1_by,
         "library_ms": time_ms(lambda: torch.bincount(valid, minlength=nb), args.reps),
+        "launch_floor_ms": launch_floor,
+        "fixed_ms": time_ms(lambda: K.bucket_histogram(tiny_ids, nb), args.reps),
+        "with_fill_ms": fill_ms,
+        "share_of_bound": k1_bound / k1_ms,
     }
-    print(f"kernel bucket_histogram: 2^21 and {chunk} ids, {nb} buckets, random and sorted: "
-          f"equal to plain; timed at {chunk} sorted ids", flush=True)
+    if baseline:
+        old, new, turns = in_turns(lambda: baseline[0](ids, nb), lambda: K.bucket_histogram(ids, nb), args.reps)
+        results["bucket_histogram"].update(pr1_ms=old, pr1_turns_ms=turns)
+        print(f"kernel bucket_histogram: earlier tree {old} ms, this tree {new} ms (turns {turns})", flush=True)
 
     # --- K2: 16 segments of 375 000 values (one of them empty), then one
     # segment of l_extendedprice-like values per source file, as the SF1
-    # build gives them
+    # build gives them; then the hard layouts: the call cap's two shapes,
+    # wildly unequal lengths with empty segments first, in the middle and
+    # last, and an unaligned view of odd total length
     segs = kernel_segments(rng, 375_000, 16)
     check_minmax(segs)
     mn, mx = K.segmented_min_max(segs, dev)
     assert np.signbit(mn[1]) and not np.signbit(mx[1]), "-0.0 must order below +0.0"
+    uneven = [np.empty(0), *random_segments(rng, 5_000_000, 1),
+              *(rng.standard_normal(int(k)) for k in rng.integers(1, 4, 10)), np.empty(0),
+              *(rng.standard_normal(int(k)) for k in rng.integers(1, 4, 10)), np.array([np.nan, -0.0]), np.empty(0)]
+    if sum(map(len, uneven)) % 2 == 0:
+        uneven[-2] = np.array([np.nan, -0.0, 0.0])
+    for unaligned in (False, True):
+        check_minmax(uneven, unaligned)
+    cap_shapes = []
+    for n_seg_cap, length in ((8, 1 << 20), (8192, 1024)):
+        cap_segs = random_segments(rng, length, n_seg_cap)
+        for unaligned in (True, False):  # timed below aligned, as the host driver uploads them
+            cap_values, cap_offsets, _ = check_minmax(cap_segs, unaligned)
+        cap_shapes.append((cap_values, cap_offsets))
     prices = [np.round(rng.uniform(900.0, 105000.0, per_file), 2) for _ in range(args.files)]
     values, offsets, err = check_minmax(prices)
+    print(f"kernel segmented_min_max: 16 adversarial segments, {len(uneven)} uneven segments (5M values, "
+          f"twenty of 1-3, empties first, in the middle and last; aligned and not), 8 x 2^20 and 8192 x 1024 "
+          f"(aligned and not) and {args.files} x {per_file} prices: equal to plain; timed at {values.numel()} "
+          f"values and at the cap shapes", flush=True)
     n_vals, n_seg = values.numel(), args.files
     ok_mask = ~torch.isnan(values)
     keys = K.order_keys(values)[ok_mask]
@@ -246,21 +393,54 @@ def check_kernels(args, hbm: float):
         base_mn.scatter_reduce_(0, seg_ids, keys, "amin")
         base_mx.scatter_reduce_(0, seg_ids, keys, "amax")
 
-    k2_bound, k2_by = bound(n_vals * 8 + (n_seg + 1) * 8 + n_seg * 17, 3 * n_vals, hbm)
+    k2_bound, k2_by = minmax_bound(n_vals, n_seg, hbm)
+    k2_ms = time_ms(lambda: K.segment_min_max_keys(values, offsets), args.reps)
+    _, launch_mm = K._launcher("segmented_min_max.cu", "hs_segmented_min_max", None)
+
+    def minmax_with_fill():
+        """The same kernel on outputs set to the identities by fill launches of their own."""
+        outs = (torch.full((n_seg,), K.I64_MAX, dtype=torch.int64, device=dev),
+                torch.full((n_seg,), K.I64_MIN, dtype=torch.int64, device=dev),
+                torch.ones(n_seg, dtype=torch.bool, device=dev))
+        assert launch_mm(values.data_ptr(), n_vals, offsets.data_ptr(), n_seg, *(t.data_ptr() for t in outs),
+                         None, None, None, 0, K._sm_count(dev), K._stream()) == 0
+        return outs
+
+    k2_fill_ms, _, k2_fill_turns = in_turns(minmax_with_fill, lambda: K.segment_min_max_keys(values, offsets),
+                                            args.reps)
+    print(f"kernel segmented_min_max: with fill launches {k2_fill_ms} ms, initialising the next call's outputs "
+          f"in the kernel {k2_ms} ms (turns {k2_fill_turns})", flush=True)
+    shapes = []
+    for v, o in ((values, offsets), *cap_shapes):
+        b_ms, b_by = minmax_bound(v.numel(), o.numel() - 1, hbm)
+        ms = k2_ms if v is values else time_ms(lambda: K.segment_min_max_keys(v, o), args.reps)
+        shape = {"shape": f"{o.numel() - 1}x{v.numel() // (o.numel() - 1)}", "values": v.numel(), "ms": ms,
+                 "bound_ms": b_ms, "bound_by": b_by, "share_of_bound": b_ms / ms}
+        if baseline:
+            old, new, turns = in_turns(lambda: baseline[1](v, o), lambda: K.segment_min_max_keys(v, o), args.reps)
+            shape.update(pr1_ms=old, pr1_turns_ms=turns)
+            print(f"kernel segmented_min_max {shape['shape']}: earlier tree {old} ms, this tree {new} ms "
+                  f"(turns {turns})", flush=True)
+        shapes.append(shape)
     results["segmented_min_max"] = {
         "name": "segmented_min_max",
         "route": "cuda",
         "source": "hyperspace_tpu_torch/csrc/segmented_min_max.cu",
         "replaces": "hyperspace_tpu/ops/kernels.py:139",
         "max_abs_err": err,
-        "ms": time_ms(lambda: K.segment_min_max_keys(values, offsets), args.reps),
+        "ms": k2_ms,
         "plain_ms": time_ms(lambda: K.segment_min_max_keys_plain(values, offsets), args.reps),
         "bound_ms": k2_bound,
         "bound_by": k2_by,
         "library_ms": time_ms(library_minmax, args.reps),
+        "launch_floor_ms": launch_floor,
+        "fixed_ms": time_ms(lambda: K.segment_min_max_keys(values[:1], offsets[:2].clamp(max=1)), args.reps),
+        "with_fill_ms": k2_fill_ms,
+        "share_of_bound": k2_bound / k2_ms,
+        "shapes": shapes,
     }
-    print(f"kernel segmented_min_max: 16 adversarial segments and {n_seg} x {per_file} prices: "
-          f"equal to plain; timed at {n_vals} values", flush=True)
+    if baseline:
+        results["segmented_min_max"]["pr1_ms"] = shapes[0]["pr1_ms"]
     return results
 
 
@@ -409,6 +589,8 @@ def main() -> None:
     ap.add_argument("--rows", type=int, default=LINEITEM_ROWS_SF1, help="lineitem rows (6M = SF1)")
     ap.add_argument("--files", type=int, default=16)
     ap.add_argument("--reps", type=int, default=30, help="timed runs per kernel")
+    ap.add_argument("--baseline-csrc", help="a copy of an earlier tree's hyperspace_tpu_torch/csrc: its "
+                    "kernels are built and timed in turns with this tree's")
     args = ap.parse_args()
 
     import torch

@@ -3,23 +3,35 @@ torch on a CPU tensor.
 
 - ``bucket_histogram`` — rows per bucket of the bucketed covering build
   (CUDA: ``csrc/bucket_histogram.cu``; replaces the Pallas
-  ``hyperspace_tpu/ops/kernels.py::_hist_kernel``).
+  ``hyperspace_tpu/ops/kernels.py::_hist_kernel``). One pass, one launch:
+  blocks own contiguous tiles read as int4, threads count runs of equal ids
+  in registers, and the kernel zeroes the next call's counts.
 - ``segment_min_max_keys`` — per-segment min and max order keys behind
   MinMax sketch builds, one segment per source file (CUDA:
   ``csrc/segmented_min_max.cu``; replaces the Pallas ``_minmax_kernel``).
+  The grid splits the values, not the segments, so every SM reads an equal
+  share whatever the segment lengths; pieces fold into their segment with
+  int64 atomics.
   ``segmented_min_max`` is its host driver with the JAX package's contract.
 
 Each wrapper takes the CUDA kernel for a CUDA tensor and the ``*_plain``
 torch version for a CPU tensor, and nothing else: a CUDA tensor never falls
 back. ``launches`` counts kernel launches per wrapper so a run can show that
 its main path went through the kernels.
+
+Both kernels add into their outputs with atomics, so the outputs must
+start at zero (counts) or at the identities (keys, empty flags). A fill
+launch for that would cost as much as the kernel, so each call's kernel
+also initialises the outputs of the next call on its device, which the
+wrapper keeps until then: one launch per call. Calls on one device must
+therefore be serialised on one stream, as the build's are.
 """
 
 from __future__ import annotations
 
 import collections
 import ctypes
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -39,6 +51,37 @@ def reset_launches() -> None:
 
 def _stream() -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong  # pointer, int, int64
+#: (library, launcher) per launcher name, resolved and typed once
+_launchers: Dict[str, Tuple[ctypes.CDLL, object]] = {}
+#: SM count per device index, read once
+_sm_counts: Dict[int, int] = {}
+#: per device: the outputs of the next call of each kernel, which the last
+#: call's kernel initialised (zero counts; identity keys and empty flags)
+_zeroed_counts: Dict[int, torch.Tensor] = {}
+_initialised_outputs: Dict[int, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = {}
+
+
+def _launcher(source: str, name: str, argtypes):
+    """The launcher ``name`` from the library of ``source`` (built at first
+    use), its argument types set once per process; it returns a CUDA error
+    code."""
+    found = _launchers.get(name)
+    if found is None:
+        lib = cuda_build.load(source)
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        found = _launchers[name] = (lib, fn)
+    return found
+
+
+def _sm_count(device: torch.device) -> int:
+    if device.index not in _sm_counts:
+        _sm_counts[device.index] = torch.cuda.get_device_properties(device).multi_processor_count
+    return _sm_counts[device.index]
 
 
 def _require(t: torch.Tensor, dtype: torch.dtype, what: str) -> None:
@@ -62,16 +105,20 @@ def bucket_histogram(ids: torch.Tensor, num_buckets: int) -> torch.Tensor:
     _require(ids, torch.int32, "bucket ids")
     if ids.device.type == "cpu":
         return bucket_histogram_plain(ids, num_buckets)
-    counts = torch.zeros(num_buckets, dtype=torch.int32, device=ids.device)
+    lib, fn = _launcher("bucket_histogram.cu", "hs_bucket_histogram", [_P, _LL, _I, _P, _P, _I, _P])
     if ids.numel() == 0:
-        return counts
-    lib = cuda_build.load("bucket_histogram.cu")
-    fn = lib.hs_bucket_histogram
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+        return torch.zeros(num_buckets, dtype=torch.int32, device=ids.device)
     with torch.cuda.device(ids.device):
-        code = fn(ids.data_ptr(), ids.numel(), num_buckets, counts.data_ptr(), _stream())
+        # the kernel adds into counts that the previous call's kernel zeroed
+        # and zeroes the counts of the next call
+        counts = _zeroed_counts.pop(ids.device.index, None)
+        if counts is None or counts.numel() != num_buckets:
+            counts = torch.zeros(num_buckets, dtype=torch.int32, device=ids.device)
+        following = torch.empty(num_buckets, dtype=torch.int32, device=ids.device)
+        code = fn(ids.data_ptr(), ids.numel(), num_buckets, counts.data_ptr(), following.data_ptr(),
+                  _sm_count(ids.device), _stream())
     cuda_build.check(lib, code, "bucket_histogram")
+    _zeroed_counts[ids.device.index] = following
     launches["bucket_histogram"] += 1
     return counts
 
@@ -121,23 +168,31 @@ def segment_min_max_keys(values: torch.Tensor, offsets: torch.Tensor):
         raise ValueError("values and offsets must be on one device")
     if values.device.type == "cpu":
         return segment_min_max_keys_plain(values, offsets)
+    lib, fn = _launcher("segmented_min_max.cu", "hs_segmented_min_max",
+                        [_P, _LL, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P])
     n_seg = offsets.numel() - 1
-    mins = torch.empty(n_seg, dtype=torch.int64, device=values.device)
-    maxs = torch.empty(n_seg, dtype=torch.int64, device=values.device)
-    empty = torch.empty(n_seg, dtype=torch.bool, device=values.device)
+    dev = values.device
     if n_seg == 0:
-        return mins, maxs, empty
-    lib = cuda_build.load("segmented_min_max.cu")
-    fn = lib.hs_segmented_min_max
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(values.device):
-        code = fn(values.data_ptr(), offsets.data_ptr(), n_seg, mins.data_ptr(),
-                  maxs.data_ptr(), empty.data_ptr(), _stream())
+        return (torch.empty(0, dtype=torch.int64, device=dev), torch.empty(0, dtype=torch.int64, device=dev),
+                torch.empty(0, dtype=torch.bool, device=dev))
+    with torch.cuda.device(dev):
+        # the kernel folds into outputs that the previous call's kernel set
+        # to the identities, and sets up as many for the next call
+        outs = _initialised_outputs.pop(dev.index, None)
+        if outs is None or outs[0].numel() < n_seg:
+            outs = (torch.full((n_seg,), I64_MAX, dtype=torch.int64, device=dev),
+                    torch.full((n_seg,), I64_MIN, dtype=torch.int64, device=dev),
+                    torch.ones(n_seg, dtype=torch.bool, device=dev))
+        following = (torch.empty(n_seg, dtype=torch.int64, device=dev),
+                     torch.empty(n_seg, dtype=torch.int64, device=dev),
+                     torch.empty(n_seg, dtype=torch.bool, device=dev))
+        code = fn(values.data_ptr(), values.numel(), offsets.data_ptr(), n_seg,
+                  *(t.data_ptr() for t in outs), *(t.data_ptr() for t in following), n_seg,
+                  _sm_count(dev), _stream())
     cuda_build.check(lib, code, "segmented_min_max")
+    _initialised_outputs[dev.index] = following
     launches["segmented_min_max"] += 1
-    return mins, maxs, empty
+    return tuple(t[:n_seg] for t in outs)
 
 
 # Cap on values per device call; segments are split / grouped so one huge

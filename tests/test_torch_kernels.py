@@ -42,6 +42,38 @@ def test_bucket_histogram_matches_reference(n, nb):
     np.testing.assert_array_equal(got.numpy(), ref_kernels.bucket_histogram(ids, nb))
 
 
+def _hard_ids(case: str, nb: int, n: int, rng) -> np.ndarray:
+    """Id layouts the CUDA kernel finds hard: one long run (every thread on
+    one counter), ids that all count nowhere, sorted runs."""
+    if case == "all_equal":
+        return np.full(n, nb // 2, np.int32)
+    if case == "all_minus_one":
+        return np.full(n, -1, np.int32)
+    if case == "all_sentinel":
+        return np.full(n, nb, np.int32)
+    if case == "sorted":
+        return np.sort(rng.integers(-1, nb + 1, n)).astype(np.int32)
+    raise AssertionError(case)
+
+
+@pytest.mark.parametrize("case", ["all_equal", "all_minus_one", "all_sentinel", "sorted"])
+@pytest.mark.parametrize("n,nb", [(5003, 200), (4097, 1)])
+def test_bucket_histogram_hard_inputs(case, n, nb):
+    ids = _hard_ids(case, nb, n, np.random.default_rng(n))
+    got = kernels.bucket_histogram(torch.from_numpy(ids), nb)
+    np.testing.assert_array_equal(got.numpy(), ref_kernels.bucket_histogram(ids, nb))
+
+
+def test_bucket_histogram_of_an_offset_view():
+    """``ids[1:]``: a view whose storage starts one id in and whose length is
+    not a multiple of 4 (the CUDA kernel's 16-byte loads start past it)."""
+    ids = np.random.default_rng(9).integers(-1, 65, 4002).astype(np.int32)
+    view = torch.from_numpy(ids)[1:]
+    assert view.storage_offset() == 1 and view.numel() % 4 != 0
+    np.testing.assert_array_equal(kernels.bucket_histogram(view, 64).numpy(),
+                                  ref_kernels.bucket_histogram(ids[1:], 64))
+
+
 def test_bucket_histogram_empty():
     got = kernels.bucket_histogram(torch.empty(0, dtype=torch.int32), 8)
     np.testing.assert_array_equal(got.numpy(), ref_kernels.bucket_histogram(np.array([], np.int64), 8))
@@ -98,6 +130,28 @@ def test_segmented_min_max_splits_large_segments(monkeypatch):
     segs[3][::5] = np.nan
     segs[3][7] = -0.0
     _assert_minmax_equal(segs)
+
+
+def test_segmented_min_max_unequal_lengths_and_empty_ends(monkeypatch):
+    """Empty segments first, in the middle and last, lengths from 0 to above
+    the piece cap, under small caps on both sides (pieces, several calls)."""
+    monkeypatch.setattr(kernels, "_MINMAX_CALL_ELEMS", 64)
+    monkeypatch.setattr(kernels, "_MAX_PIECE", 8)
+    monkeypatch.setattr(ref_kernels, "_MINMAX_CALL_ELEMS", 64)
+    rng = np.random.default_rng(11)
+    segs = [rng.standard_normal(n) * 1e3 for n in (0, 0, 1, 7, 8, 9, 0, 17, 64, 65, 2, 0, 3, 0)]
+    segs[8][::3] = np.nan
+    segs[9][:] = -0.0
+    segs[9][40] = 0.0
+    _assert_minmax_equal(segs)
+
+
+def test_segmented_min_max_thousands_of_one_value_segments():
+    rng = np.random.default_rng(12)
+    values = rng.standard_normal(2000)
+    values[::7] = np.nan
+    values[3::11] = -0.0
+    _assert_minmax_equal([values[i : i + 1] for i in range(2000)])
 
 
 def test_segment_min_max_keys_plain_order_keys():
@@ -197,18 +251,39 @@ def test_lex_argsort_is_a_stable_lexicographic_order():
 @pytest.mark.cuda
 def test_cuda_kernels_match_plain_versions():
     """The CUDA kernels against their plain versions on the same card
-    tensors (chip_smoke.py runs the same check at the build's shapes)."""
+    tensors, at the layouts each finds hard (chip_smoke.py runs the same
+    checks at the build's shapes and larger)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; chip_smoke.py runs this check on the card")
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
-    ids = torch.from_numpy(np.sort(rng.integers(-1, 201, 100_000)).astype(np.int32)).to(dev)
-    assert torch.equal(kernels.bucket_histogram(ids, 200), kernels.bucket_histogram_plain(ids, 200))
-    values = torch.from_numpy(np.concatenate([rng.standard_normal(5000), [np.nan, -0.0, 0.0]])).to(dev)
-    offsets = torch.tensor([0, 1000, 1000, 5003], dtype=torch.int64, device=dev)
-    for g, w in zip(kernels.segment_min_max_keys(values, offsets),
-                    kernels.segment_min_max_keys_plain(values, offsets)):
-        assert torch.equal(g, w)
+    for nb in (200, 1, 65_536):  # 65 536 counters take the global-memory path
+        for case in ("all_equal", "all_minus_one", "all_sentinel", "sorted"):
+            ids = torch.from_numpy(_hard_ids(case, nb, 100_003, rng)).to(dev)
+            for view in (ids, ids[1:]):
+                assert torch.equal(kernels.bucket_histogram(view, nb), kernels.bucket_histogram_plain(view, nb))
+        ids = torch.from_numpy(rng.integers(-1, nb + 1, 100_003).astype(np.int32)).to(dev)
+        assert torch.equal(kernels.bucket_histogram(ids, nb), kernels.bucket_histogram_plain(ids, nb))
+
+    lengths = [0, 5_000_000, *rng.integers(1, 4, 20), 0, 1 << 20, 0, 1024, 0]
+    lengths[-2] += 1 - sum(lengths) % 2  # an odd total length
+    values = rng.standard_normal(int(sum(lengths)) + 1)
+    values[rng.random(values.size) < 0.01] = np.nan
+    values[5::97] = -0.0
+    offsets = np.zeros(len(lengths) + 1, np.int64)
+    np.cumsum(lengths, out=offsets[1:])
+    short = np.arange(0, 8192 * 1024 + 1, 1024, dtype=np.int64)
+    # the segment count grows and then shrinks, so a call also finds more
+    # initialised outputs than it needs
+    cases = ((values[:-1], offsets), (values[1:], offsets), (rng.standard_normal(8192 * 1024), short),
+             (values[:10], np.array([0, 3, 3, 10], np.int64)))
+    for v, o in cases:
+        v_dev = torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+        o_dev = torch.from_numpy(o).to(dev)
+        for unaligned in (v_dev, torch.cat([v_dev[:1], v_dev])[1:]):  # storage offset of 1 value
+            for g, w in zip(kernels.segment_min_max_keys(unaligned, o_dev),
+                            kernels.segment_min_max_keys_plain(unaligned, o_dev)):
+                assert torch.equal(g, w)
 
 
 def test_cuda_build_failure_raises_and_never_falls_back(monkeypatch, tmp_path):
