@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--seed N] [--rows N] [--files N] [--reps N] [--baseline-csrc DIR]
 
-Phases, each printed with its time:
+Phases, each printed with its time (the filter query's phases are 4, 6
+and 7):
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: compiles the port's CUDA kernels from ``hyperspace_tpu_torch/csrc``;
@@ -25,12 +26,26 @@ Phases, each printed with its time:
    host time by stage; then checks every bucket file (rows hash to their
    bucket, sorted by the key, same rows as the source) and every sketch row
    (numpy per-file min/max);
-6. profile: one more covering build under ``torch.profiler``: the device's
+6. query: on the session that built them, with ``deviceMinRows=0``, TPC-H
+   q6's filter through ``li_shipdate`` and a point lookup on
+   ``l_orderkey`` through ``li_orderkey`` (``useBucketSpec``: one bucket),
+   with kernel launches and device dispatches reset just before and read
+   just after: the optimized plans, the dispatch traces (``filter:
+   device``), the rows against hyperspace off over the source (exact, as a
+   multiset); then each query cold (caches cleared: decode, upload,
+   predicate), warm (the median of ``--reps``), and warm on the host path
+   (the default ``deviceMinRows``), and the warm q6 split by layer (rewrite,
+   decode cache, scan identity, upload, predicate program, mask copy, host
+   ``mask_rows``);
+7. profile-query: one warm q6 under ``torch.profiler``: device busy time
+   against the query's wall time, and the device time by op;
+8. profile: one more covering build under ``torch.profiler``: the device's
    busy time (the union of its kernel and copy intervals) against the
    build's wall time, and the device time by kernel.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``. Any failed check raises, so
+The third line from the end is a JSON object with the queries' results and
+times, the line before the last one with an entry per kernel; the last line
+is ``{"ok": true, "device": {...}}``. Any failed check raises, so
 the script exits non-zero and prints no result. It exits non-zero as well
 when no CUDA device is present or the port is not beside it.
 """
@@ -216,6 +231,27 @@ def minmax_bound(n_vals: int, n_seg: int, hbm: float):
     return bound(n_vals * 8 + (n_seg + 1) * 8 + n_seg * 17, 3 * n_vals, hbm)
 
 
+def library_minmax(values, offsets):
+    """K2's function as PyTorch library calls: two ``scatter_reduce_`` (amin,
+    amax) of the order keys of the non-NaN values into their segments."""
+    import torch
+
+    from hyperspace_tpu_torch.ops import kernels as K
+
+    n_seg = offsets.numel() - 1
+    ok_mask = ~torch.isnan(values)
+    keys = K.order_keys(values)[ok_mask]
+    seg_ids = torch.repeat_interleave(torch.arange(n_seg, device=values.device), offsets[1:] - offsets[:-1])[ok_mask]
+
+    def run():
+        mn = torch.full((n_seg,), K.I64_MAX, dtype=torch.int64, device=values.device)
+        mx = torch.full((n_seg,), K.I64_MIN, dtype=torch.int64, device=values.device)
+        mn.scatter_reduce_(0, seg_ids, keys, "amin")
+        mx.scatter_reduce_(0, seg_ids, keys, "amax")
+
+    return run
+
+
 def build_baseline(csrc: str):
     """The kernels of an earlier tree (``csrc``: a copy of its
     ``hyperspace_tpu_torch/csrc``), built with the same flags, as callables
@@ -383,16 +419,6 @@ def check_kernels(args, hbm: float):
           f"(aligned and not) and {args.files} x {per_file} prices: equal to plain; timed at {values.numel()} "
           f"values and at the cap shapes", flush=True)
     n_vals, n_seg = values.numel(), args.files
-    ok_mask = ~torch.isnan(values)
-    keys = K.order_keys(values)[ok_mask]
-    seg_ids = torch.repeat_interleave(torch.arange(n_seg, device=dev), offsets[1:] - offsets[:-1])[ok_mask]
-
-    def library_minmax():
-        base_mn = torch.full((n_seg,), K.I64_MAX, dtype=torch.int64, device=dev)
-        base_mx = torch.full((n_seg,), K.I64_MIN, dtype=torch.int64, device=dev)
-        base_mn.scatter_reduce_(0, seg_ids, keys, "amin")
-        base_mx.scatter_reduce_(0, seg_ids, keys, "amax")
-
     k2_bound, k2_by = minmax_bound(n_vals, n_seg, hbm)
     k2_ms = time_ms(lambda: K.segment_min_max_keys(values, offsets), args.reps)
     _, launch_mm = K._launcher("segmented_min_max.cu", "hs_segmented_min_max", None)
@@ -415,6 +441,8 @@ def check_kernels(args, hbm: float):
         b_ms, b_by = minmax_bound(v.numel(), o.numel() - 1, hbm)
         ms = k2_ms if v is values else time_ms(lambda: K.segment_min_max_keys(v, o), args.reps)
         shape = {"shape": f"{o.numel() - 1}x{v.numel() // (o.numel() - 1)}", "values": v.numel(), "ms": ms,
+                 "plain_ms": time_ms(lambda: K.segment_min_max_keys_plain(v, o), args.reps),
+                 "library_ms": time_ms(library_minmax(v, o), args.reps),
                  "bound_ms": b_ms, "bound_by": b_by, "share_of_bound": b_ms / ms}
         if baseline:
             old, new, turns = in_turns(lambda: baseline[1](v, o), lambda: K.segment_min_max_keys(v, o), args.reps)
@@ -429,10 +457,10 @@ def check_kernels(args, hbm: float):
         "replaces": "hyperspace_tpu/ops/kernels.py:139",
         "max_abs_err": err,
         "ms": k2_ms,
-        "plain_ms": time_ms(lambda: K.segment_min_max_keys_plain(values, offsets), args.reps),
+        "plain_ms": shapes[0]["plain_ms"],
         "bound_ms": k2_bound,
         "bound_by": k2_by,
-        "library_ms": time_ms(library_minmax, args.reps),
+        "library_ms": shapes[0]["library_ms"],
         "launch_floor_ms": launch_floor,
         "fixed_ms": time_ms(lambda: K.segment_min_max_keys(values[:1], offsets[:2].clamp(max=1)), args.reps),
         "with_fill_ms": k2_fill_ms,
@@ -540,12 +568,13 @@ def check_sketches(entry, index) -> None:
 DEVICE_EVENT_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
-def profile_build(hs, df, cfg, tmp: str) -> None:
-    """One more covering build under torch.profiler, tracing the device
-    only. Device busy time is the union of the trace's kernel and copy
-    intervals, so nothing counts twice, set against the build's wall time;
-    the device time by kernel follows. A short profile first starts the
-    tracer, so its start-up stays out of the build's wall time."""
+def device_profile(label: str, run, tmp: str, highlight=()) -> dict:
+    """``run()`` once under torch.profiler, tracing the device only. Device
+    busy time is the union of the trace's kernel and copy intervals, so
+    nothing counts twice, set against ``run``'s wall time; the device time
+    by kernel follows (the ten largest, and names containing any of
+    ``highlight`` wherever they rank). A short profile first starts the
+    tracer, so its start-up stays out of the wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -554,7 +583,7 @@ def profile_build(hs, df, cfg, tmp: str) -> None:
         torch.cuda.synchronize()
     t = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        hs.create_index(df, cfg)
+        run()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t) * 1e3
     path = os.path.join(tmp, "profile.json")
@@ -563,8 +592,8 @@ def profile_build(hs, df, cfg, tmp: str) -> None:
         events = [e for e in json.load(f)["traceEvents"]
                   if e.get("ph") == "X" and e.get("cat") in DEVICE_EVENT_CATEGORIES]
     if not events:
-        print("profile: the profiler saw no device work; device busy share not measured", flush=True)
-        return
+        print(f"profile {label}: the profiler saw no device work; device busy share not measured", flush=True)
+        return {"wall_ms": wall_ms, "busy_ms": None}
     busy_us, end = 0.0, float("-inf")
     for lo, hi in sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in events):
         busy_us += max(0.0, hi - max(lo, end))
@@ -574,13 +603,326 @@ def profile_build(hs, df, cfg, tmp: str) -> None:
     for e in events:
         ms, count = by_name.get(e["name"], (0.0, 0))
         by_name[e["name"]] = (ms + float(e["dur"]) / 1e3, count + 1)
-    print(f"profile {cfg.index_name}: wall {wall_ms:.1f} ms, device busy {busy_ms:.3f} ms "
+    print(f"profile {label}: wall {wall_ms:.1f} ms, device busy {busy_ms:.3f} ms "
           f"({100 * busy_ms / wall_ms:.3f}% of wall; idle {100 - 100 * busy_ms / wall_ms:.3f}%)", flush=True)
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
-    # the ten largest, and the port's own kernels wherever they rank
     for rank, (name, (ms, count)) in enumerate(ranked):
-        if rank < 10 or "bucket_histogram" in name or "segmented_min_max" in name:
+        if rank < 10 or any(h in name for h in highlight):
             print(f"profile   {ms:9.3f} ms  x{count:<4d} #{rank + 1:<3d} {name[:100]}", flush=True)
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms}
+
+
+def profile_build(hs, df, cfg, tmp: str) -> None:
+    """One more covering build under torch.profiler (``device_profile``)."""
+    device_profile(cfg.index_name, lambda: hs.create_index(df, cfg), tmp,
+                   highlight=("bucket_histogram", "segmented_min_max"))
+
+
+# --- the filter query ---------------------------------------------------------
+
+
+def gen_query_lake(root: str, rows_total: int, num_files: int, seed: int) -> str:
+    """A small lake for the query checks: an int64 key ``id`` (some values
+    around 2^53), an int64 ``z`` in [-3, 3] (zero divisors), a float64 ``f``
+    with NaN, -0.0 and ±inf, a nullable int64 ``n``, a date ``d`` with nulls
+    and a string ``s`` with nulls."""
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    d = os.path.join(root, "qsmall")
+    os.makedirs(d, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    per = rows_total // num_files
+    for i in range(num_files):
+        n = per if i < num_files - 1 else rows_total - per * (num_files - 1)
+        ids = np.arange(i * per, i * per + n, dtype=np.int64)
+        ids[::997] = 2**53 + rng.integers(-2, 4, ids[::997].size)
+        f = np.round(rng.standard_normal(n) * 4, 1)
+        f[rng.random(n) < 0.05] = np.nan
+        f[rng.random(n) < 0.05] = -0.0
+        f[::1009] = np.inf
+        f[1::1013] = -np.inf
+        pq.write_table(pa.table({
+            "id": ids,
+            "z": rng.integers(-3, 4, n),
+            "f": f,
+            "n": pa.array(rng.integers(-(2**40), 2**40, n), mask=rng.random(n) < 0.1),
+            "d": pa.array(np.datetime64("1996-01-01") + rng.integers(0, 900, n).astype("timedelta64[D]"),
+                          mask=rng.random(n) < 0.05),
+            "s": pa.array([f"s{x}" for x in rng.integers(0, 60, n)], mask=rng.random(n) < 0.05),
+        }), os.path.join(d, f"part-{i:05d}.parquet"))
+    return d
+
+
+def small_queries():
+    """{name: (predicate of ``col``, selected columns)}: every predicate
+    names the index's first column ``id``, so FilterIndexRule applies."""
+    import numpy as np
+
+    return {
+        "compare_ops": (lambda c: (c("id") > 1000) & (c("id") <= 40000) & (c("f") >= -0.0) & (c("f") != 1.5),
+                        ["id", "f"]),
+        "eq_lt": (lambda c: ((c("id") < 30000) & (c("f") == 0.0)) | (c("id") == 7), ["id", "f", "s"]),
+        "string_present": (lambda c: (c("id") >= 0) & (c("s") == "s17"), ["id", "s"]),
+        "string_absent": (lambda c: (c("id") < 50000) & ((c("s") == "s17x") | (c("s") != "zzz")), ["id", "s"]),
+        "is_null": (lambda c: (c("id") < 20000) & c("n").is_null(), ["id", "n"]),
+        "not_over_null": (lambda c: (c("id") > 100) & ~(c("s") == "s3"), ["id", "s"]),
+        "kleene": (lambda c: (c("id") < 100) | ((c("f") > 1.0) & (c("s") == "s5"))
+                   | ~(c("d") < np.datetime64("1997-06-01")), ["id", "f", "s", "d"]),
+        "in_numeric": (lambda c: c("id").isin(1, 2, 3, 500, 59999, 2**53 + 1), ["id", "z"]),
+        "in_string": (lambda c: (c("id") > 10) & c("s").isin("s1", "s2", "nope"), ["id", "s"]),
+        "div_mod_zero": (lambda c: (c("id") >= 0) & ((c("id") % c("z")) == 0) & ((c("id") / c("z")) > 100.5),
+                         ["id", "z"]),
+        "div_mod_lit": (lambda c: ((c("id") % 7) == 3) & ((c("id") / 2) < 20000.5), ["id"]),
+        "date_range": (lambda c: (c("id") >= 0) & (c("d") >= np.datetime64("1996-06-01"))
+                       & (c("d") < np.datetime64("1997-01-01")), ["id", "d"]),
+        "above_2p53": (lambda c: c("id") >= 9007199254740993.0, ["id"]),
+    }
+
+
+def same_batch(got, want) -> bool:
+    """Equal columns, dtypes and bytes, in order."""
+    if list(got) != list(want):
+        return False
+    for k in want:
+        g, w = got[k], want[k]
+        if g.dtype != w.dtype:
+            return False
+        if (g.tolist() != w.tolist()) if w.dtype == object else (g.tobytes() != w.tobytes()):
+            return False
+    return True
+
+
+def canonical(batch):
+    """The batch's rows in one canonical order (a multiset's form)."""
+    import numpy as np
+
+    from hyperspace_tpu_torch.ops import encode
+
+    cols = list(batch)
+    keys = [encode.sort_key_int64(batch[c]) for c in cols]
+    order = np.lexsort(keys[::-1]) if cols else np.zeros(0, dtype=np.int64)
+    return {c: batch[c][order] for c in cols}
+
+
+def plan_index_scans(plan):
+    from hyperspace_tpu_torch.plan import logical as L
+
+    return L.collect(plan, lambda p: isinstance(p, L.IndexScan))
+
+
+def traced_collect(df):
+    """(result, dispatch-trace summary) of ``df.collect()``."""
+    from hyperspace_tpu_torch.exec import trace
+
+    with trace.recording() as events:
+        got = df.collect()
+    return got, trace.summarize(events)
+
+
+def check_query_small(tmp: str, seed: int) -> dict:
+    """The small lake's filter queries on the GPU against the CPU port (byte
+    for byte, in order) and against hyperspace off (as a multiset)."""
+    import hyperspace_tpu_torch as ht
+    from hyperspace_tpu_torch.exec import device as D
+    from hyperspace_tpu_torch.ops import kernels
+
+    src = gen_query_lake(tmp, 60_000, 3, seed + 2)
+    sessions = {}
+    for device in ("cpu", "cuda"):
+        sess = ht.Session(conf={ht.keys.SYSTEM_PATH: os.path.join(tmp, f"qsmall-{device}"), ht.keys.NUM_BUCKETS: 16,
+                                ht.keys.DEVICE_MIN_ROWS: 0}, device=device)
+        ht.Hyperspace(sess).create_index(sess.read_parquet(src),
+                                         ht.CoveringIndexConfig("qsmall", ["id"], ["z", "f", "n", "d", "s"]))
+        sess.enable_hyperspace()
+        sessions[device] = sess
+    queries = small_queries()
+    kernels.reset_launches()
+    D.reset_dispatches()
+    rows = {}
+    for name, (pred, cols) in queries.items():
+        got = {}
+        for device, sess in sessions.items():
+            df = sess.read_parquet(src).filter(pred(ht.col)).select(*cols)
+            scans = plan_index_scans(df.optimized_plan())
+            assert len(scans) == 1 and scans[0].entry.name == "qsmall", f"{name}: {df.optimized_plan().pretty()}"
+            got[device], summary = traced_collect(df)
+            assert "filter: device x1" in summary.splitlines(), f"{name} on {device}: {summary}"
+        assert same_batch(got["cuda"], got["cpu"]), f"{name}: the GPU result differs from the CPU port's"
+        with sessions["cpu"].hyperspace_scope(False):
+            off, summary = traced_collect(sessions["cpu"].read_parquet(src).filter(pred(ht.col)).select(*cols))
+        assert "filter: host x1" in summary.splitlines(), summary
+        assert same_batch(canonical(got["cuda"]), canonical(off)), f"{name}: differs from hyperspace off"
+        rows[name] = len(next(iter(off.values())))
+        print(f"query-small {name}: {rows[name]} rows; GPU equals the CPU port byte for byte and hyperspace off "
+              f"as a multiset; filter: device", flush=True)
+    # each query ran once per session: the CPU session's run is a
+    # dispatch of the same program on the CPU device
+    assert D.dispatches["fused-filter"] == 2 * len(queries), dict(D.dispatches)
+    assert not any(kernels.launches.values()), dict(kernels.launches)
+    assert all(rows.values()), rows
+    return {"queries": len(queries), "rows": rows, "dispatches": dict(D.dispatches)}
+
+
+def median_ms(fn, reps: int) -> float:
+    """Median host wall time of ``fn()`` over ``reps`` calls, each ending
+    with the device synchronised."""
+    import statistics
+
+    import torch
+
+    out = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(out)
+
+
+def query_layers(sess, df, reps: int, hbm: float) -> dict:
+    """The warm filter query split into its layers, by hand along the
+    executor's own steps: the rewrite (``optimized_plan``), the decode
+    (cache hit and cold), the scan identity that keys the device column
+    cache (a stat of every index file), the upload of the predicate columns,
+    the predicate program (CUDA events), the mask's copy back, and the host
+    ``mask_rows``; beside them the host predicate the default
+    ``deviceMinRows`` would run."""
+    import numpy as np
+    import torch
+
+    from hyperspace_tpu_torch.exec import batch as B
+    from hyperspace_tpu_torch.exec import device as D
+    from hyperspace_tpu_torch.exec import io as IO
+    from hyperspace_tpu_torch.exec.executor import _scan_identity
+    from hyperspace_tpu_torch.plan import logical as L
+    from hyperspace_tpu_torch.plan.expr import as_bool_mask
+
+    rewrite_ms = median_ms(df.optimized_plan, reps)
+    plan = df.optimized_plan()
+    (node,) = L.collect(plan, lambda p: isinstance(p, L.Filter))
+    scan, cond = node.child, node.condition
+    fcols = scan.file_columns or list(scan.columns)
+    files = list(scan.files)
+    dev = sess.device
+    IO.clear_io_cache()
+    t = time.perf_counter()
+    batch = IO.read_parquet_batch(files, fcols)
+    decode_cold = (time.perf_counter() - t) * 1e3
+    decode_warm = median_ms(lambda: IO.read_parquet_batch(files, fcols), reps)
+    identity_ms = median_ms(lambda: _scan_identity(scan), reps)
+    refs = sorted(cond.references())
+    uploaded = {}
+
+    def upload():
+        for r in refs:
+            uploaded[r] = D._put_encoded(batch[r], dev)
+
+    upload_ms = median_ms(upload, max(3, reps // 5))
+    cols = {r: v[0] for r, v in uploaded.items()}
+    fn, lits = D.compile_predicate(cond, {r: v[1] for r, v in uploaded.items()})
+    lits_dev = D.upload_literals(lits, dev)
+    program_ms = time_ms(lambda: fn(cols, lits_dev), reps)
+    mask = fn(cols, lits_dev)
+    copy_ms = median_ms(lambda: mask.cpu(), reps)
+    mask_np = mask.cpu().numpy()
+    mask_rows_ms = median_ms(lambda: B.mask_rows(batch, mask_np), reps)
+    host_ms = median_ms(lambda: as_bool_mask(cond.eval(batch)), reps)
+    assert np.array_equal(as_bool_mask(cond.eval(batch)), mask_np), "device mask != host mask"
+    n = B.num_rows(batch)
+    col_bytes = sum(c.numel() * c.element_size() for c in cols.values())
+    p_bound, p_by = bound(col_bytes + n, 2 * len(refs) * n, hbm)
+    return {
+        "rows": n, "rewrite_ms": rewrite_ms, "decode_cold_ms": decode_cold, "decode_cached_ms": decode_warm,
+        "scan_identity_ms": identity_ms, "upload_ms": upload_ms,
+        "upload_bytes": col_bytes, "program_ms": program_ms, "program_bound_ms": p_bound, "program_bound_by": p_by,
+        "mask_copy_ms": copy_ms, "mask_rows_ms": mask_rows_ms, "host_predicate_ms": host_ms,
+    }
+
+
+def q6_query(df):
+    """TPC-H q6's filter over ``lineitem``, selecting what q6 sums."""
+    import numpy as np
+
+    import hyperspace_tpu_torch as ht
+
+    c = ht.col
+    return df.filter(
+        (c("l_shipdate") >= np.datetime64("1994-01-01")) & (c("l_shipdate") < np.datetime64("1995-01-01"))
+        & (c("l_discount") >= 0.05) & (c("l_discount") <= 0.07) & (c("l_quantity") < 24)
+    ).select("l_extendedprice", "l_discount")
+
+
+def run_queries(sess, src: str, args, smi: str, hbm: float) -> dict:
+    """TPC-H q6's filter and a point lookup through the SF1 indexes, on the
+    device (``deviceMinRows=0``), against hyperspace off; then timed."""
+    import numpy as np
+    import pyarrow.parquet as pq
+    import torch
+
+    import hyperspace_tpu_torch as ht
+    from hyperspace_tpu_torch.exec import device as D
+    from hyperspace_tpu_torch.exec import io as IO
+    from hyperspace_tpu_torch.ops import kernels
+
+    c = ht.col
+    sess.conf.set(ht.keys.DEVICE_MIN_ROWS, 0)
+    sess.conf.set(ht.keys.FILTER_RULE_USE_BUCKET_SPEC, "true")
+    df = sess.read_parquet(src)
+    q6 = q6_query(df)
+    first = sorted(os.path.join(src, f) for f in os.listdir(src))[0]
+    key = int(pq.read_table(first, columns=["l_orderkey"]).column(0)[0].as_py())
+    lookup = df.filter(c("l_orderkey") == key).select("l_orderkey", "l_extendedprice")
+    queries = {"q6": (q6, "li_shipdate", None, "index"),
+               "lookup": (lookup, "li_orderkey", 1, "index-bucket-pruned(1 buckets)")}
+
+    sess.enable_hyperspace()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    D.reset_dispatches()
+    out = {}
+    for name, (q, index, n_buckets, scan_line) in queries.items():
+        plan = q.optimized_plan()
+        print(f"plan {name}:\n{plan.pretty()}", flush=True)
+        scans = plan_index_scans(plan)
+        assert len(scans) == 1 and scans[0].entry.name == index, f"{name}: {plan.pretty()}"
+        if n_buckets is not None:
+            assert scans[0].pruned_buckets is not None and len(scans[0].pruned_buckets) == n_buckets
+        IO.clear_io_cache()
+        D.clear_device_cache()
+        t = time.perf_counter()
+        got, summary = traced_collect(q)
+        cold = (time.perf_counter() - t) * 1e3
+        print(f"trace {name}: " + "; ".join(summary.splitlines()), flush=True)
+        lines = summary.splitlines()
+        assert "filter: device x1" in lines and f"scan: {scan_line} x1" in lines, summary
+        with sess.hyperspace_scope(False):
+            off, off_summary = traced_collect(q)
+            off_ms = median_ms(q.collect, min(args.reps, 5))
+        assert "filter: host x1" in off_summary.splitlines(), off_summary
+        n_rows = len(next(iter(got.values())))
+        assert n_rows > 0 and same_batch(canonical(got), canonical(off)), f"{name}: differs from hyperspace off"
+        warm = median_ms(q.collect, args.reps)
+        sess.conf.set(ht.keys.DEVICE_MIN_ROWS, 1 << 25)
+        _, host_summary = traced_collect(q)
+        assert "filter: host x1" in host_summary.splitlines(), host_summary
+        host_warm = median_ms(q.collect, args.reps)
+        sess.conf.set(ht.keys.DEVICE_MIN_ROWS, 0)
+        scanned = sum(pq.ParquetFile(f).metadata.num_rows for f in scans[0].files)
+        out[name] = {"name": name, "index": index, "rows": n_rows, "rows_scanned": scanned,
+                     "files": len(scans[0].files), "cold_ms": cold, "warm_ms": warm, "host_warm_ms": host_warm,
+                     "off_ms": off_ms, "rows_scanned_per_s": scanned / (warm / 1e3)}
+        print(f"query {name}: {n_rows} rows of {scanned} scanned ({len(scans[0].files)} files), equal to hyperspace "
+              f"off; cold {cold:.3f} ms, warm {warm:.3f} ms ({scanned / (warm / 1e3):.0f} rows/s), warm on the host "
+              f"path {host_warm:.3f} ms, hyperspace off {off_ms:.3f} ms ({smi})", flush=True)
+    torch.cuda.synchronize()
+    dispatches, launches = dict(D.dispatches), dict(kernels.launches)
+    print(f"query path: dispatches {dispatches}, kernel launches {launches}", flush=True)
+    assert dispatches.get("fused-filter", 0) > 0, "the query path never reached the device"
+    out["q6"]["layers_ms"] = layers = query_layers(sess, q6, args.reps, hbm)
+    print(f"layers q6 (warm): " + ", ".join(f"{k} {v}" for k, v in layers.items()) + f" ({smi})", flush=True)
+    return {"queries": list(out.values()), "dispatches": dispatches, "launches": launches}
 
 
 def main() -> None:
@@ -638,6 +980,10 @@ def main() -> None:
         phase("small", t)
 
         t = time.perf_counter()
+        small = check_query_small(tmp, args.seed)
+        phase("query-small", t)
+
+        t = time.perf_counter()
         src = gen_lineitem(tmp, args.rows, args.files, args.seed)
         print(f"lake: {args.rows} lineitem rows in {args.files} files", flush=True)
         phase("generate", t)
@@ -692,12 +1038,25 @@ def main() -> None:
         phase("check", t)
 
         t = time.perf_counter()
+        queries = run_queries(sess, src, args, smi, hbm)
+        queries["small"] = small
+        queries["device"] = smi
+        phase("query", t)
+
+        t = time.perf_counter()
+        q6 = q6_query(sess.read_parquet(src))
+        q6.collect()  # warm: both caches hold its columns
+        queries["q6_profile"] = device_profile("q6 (warm)", q6.collect, tmp)
+        phase("profile-query", t)
+
+        t = time.perf_counter()
         profile_build(hs, df, ht.CoveringIndexConfig(
             "li_shipdate_profiled", ["l_shipdate"], ["l_quantity", "l_extendedprice", "l_discount"]), tmp)
         phase("profile", t)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    print(json.dumps(queries))
     print(json.dumps({"kernels": [results[k] for k in ("bucket_histogram", "segmented_min_max")]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

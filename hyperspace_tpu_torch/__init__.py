@@ -7,17 +7,23 @@ reads what the other wrote. The JAX package (``hyperspace_tpu``) is the
 reference each part of the port is held against; the port imports nothing
 from it.
 
-The port grows slice by slice. It has the index build so far: covering and
+The port grows slice by slice. It has the index build — covering and
 data-skipping ``create_index``, with the two device kernels of that path
-written by hand in CUDA (``csrc/``; ``ops/kernels.py``). Queries over the
-indexes arrive with the next slice.
+written by hand in CUDA (``csrc/``; ``ops/kernels.py``) — and the filter
+query over a covering index: ``Session.enable_hyperspace()``, then
+``read_parquet(...).filter(...).select(...).collect()`` rewrites the scan
+to the index (``rules/``) and evaluates the predicate on the device
+(``exec/device.py``).
 
 Layer map (the JAX package's layout, module for module):
   - ``models/``    metadata model + operation-log persistence
   - ``sources/``   source providers (parquet)
-  - ``plan/``      scan plan + column resolution
+  - ``plan/``      logical plan, predicate language, column resolution
   - ``indexes/``   covering and data-skipping index builds
   - ``actions/``   the create action
+  - ``analysis/``  the optimizer's filter reasons
+  - ``rules/``     ApplyHyperspace + FilterIndexRule
+  - ``exec/``      executor, parquet IO, the device filter
   - ``ops/``       hashing, encode, device sort, kernel wrappers
   - ``csrc/``      the CUDA kernels
   - ``telemetry/`` action events
@@ -26,7 +32,7 @@ Layer map (the JAX package's layout, module for module):
 from hyperspace_tpu_torch.version import __version__
 from hyperspace_tpu_torch.config import HyperspaceConf, keys
 from hyperspace_tpu_torch.session import Session, get_session, set_session
-from hyperspace_tpu_torch.plan.expr import col
+from hyperspace_tpu_torch.plan.expr import col, lit
 from hyperspace_tpu_torch.plan.dataframe import DataFrame
 from hyperspace_tpu_torch.indexes.covering import CoveringIndexConfig
 from hyperspace_tpu_torch.indexes.dataskipping import (
@@ -45,6 +51,7 @@ __all__ = [
     "get_session",
     "set_session",
     "col",
+    "lit",
     "DataFrame",
     "CoveringIndexConfig",
     "DataSkippingIndexConfig",

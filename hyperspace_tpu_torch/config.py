@@ -1,9 +1,9 @@
 """Configuration system.
 
-The keys, defaults and typed accessors the index-build path reads, under the
-same names as the JAX package's ``hyperspace_tpu/config.py`` so one conf
-dict drives either package; the port ignores the keys it does not read.
-Keys are namespaced ``hyperspace.*``.
+The keys, defaults and typed accessors the index build and the filter query
+read, under the same names and with the same defaults as the JAX package's
+``hyperspace_tpu/config.py`` so one conf dict drives either package; the
+port ignores the keys it does not read. Keys are namespaced ``hyperspace.*``.
 """
 
 from __future__ import annotations
@@ -12,23 +12,44 @@ from typing import Any, Dict, Optional
 
 
 class keys:
-    """Configuration keys read by the build path."""
+    """Configuration keys read by the build and query paths."""
 
     SYSTEM_PATH = "hyperspace.system.path"
     NUM_BUCKETS = "hyperspace.index.numBuckets"
     LINEAGE_ENABLED = "hyperspace.index.lineage.enabled"
+    HYBRID_SCAN_ENABLED = "hyperspace.index.hybridscan.enabled"
+    FILTER_RULE_USE_BUCKET_SPEC = "hyperspace.index.filterRule.useBucketSpec"
     BUILD_BATCH_ROWS = "hyperspace.tpu.build.batchRows"
+    DEVICE_EXECUTION = "hyperspace.tpu.query.deviceExecution"
+    DEVICE_MIN_ROWS = "hyperspace.tpu.query.deviceMinRows"
     PARALLEL_ENABLED = "hyperspace.parallel.enabled"
+    IO_DECODE_THREADS = "hyperspace.exec.io.decodeThreads"
 
 
 DEFAULTS: Dict[str, Any] = {
     keys.SYSTEM_PATH: None,  # resolved by PathResolver; must be set per session
     keys.NUM_BUCKETS: 200,
     keys.LINEAGE_ENABLED: False,
+    # hybrid scan (index + appended source files) is not in the port yet:
+    # a query with it on raises
+    keys.HYBRID_SCAN_ENABLED: False,
+    # equality/IN predicates on the first indexed column read only the
+    # matching buckets' files
+    keys.FILTER_RULE_USE_BUCKET_SPEC: False,
     # rows per device program of a covering build; each chunk writes one
     # sorted run per bucket
     keys.BUILD_BATCH_ROWS: 2_000_000,
+    # the filter of a query over an index runs on the session's device;
+    # False keeps every filter on the host
+    keys.DEVICE_EXECUTION: True,
+    # below this many rows a filter stays on the host, where the upload and
+    # the mask's copy back would cost more than the predicate; 0 sends every
+    # filter over an index to the device
+    keys.DEVICE_MIN_ROWS: 1 << 25,
     keys.PARALLEL_ENABLED: False,
+    # width of the parquet decode pool (exec/io.py), set when a Session is
+    # constructed; the HS_DECODE_THREADS environment variable overrides it
+    keys.IO_DECODE_THREADS: 8,
 }
 
 # Operation-log layout constants (ref: HS/index/IndexConstants.scala:93-95).
@@ -92,8 +113,28 @@ class HyperspaceConf:
         return bool(self.get(keys.LINEAGE_ENABLED))
 
     @property
+    def hybrid_scan_enabled(self) -> bool:
+        return bool(self.get(keys.HYBRID_SCAN_ENABLED))
+
+    @property
+    def use_bucket_spec(self) -> bool:
+        return bool(self.get(keys.FILTER_RULE_USE_BUCKET_SPEC))
+
+    @property
     def build_batch_rows(self) -> int:
         return int(self.get(keys.BUILD_BATCH_ROWS))
+
+    @property
+    def device_execution_enabled(self) -> bool:
+        return bool(self.get(keys.DEVICE_EXECUTION))
+
+    @property
+    def device_exec_min_rows(self) -> int:
+        return int(self.get(keys.DEVICE_MIN_ROWS))
+
+    @property
+    def io_decode_threads(self) -> int:
+        return int(self.get(keys.IO_DECODE_THREADS))
 
     @property
     def parallel_enabled(self) -> bool:

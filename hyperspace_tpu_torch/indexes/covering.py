@@ -135,6 +135,12 @@ class CoveringIndex(Index):
         """(ref: HS/index/covering/CoveringIndex.scala:173-177)"""
         return BucketSpec(self.num_buckets, tuple(self._indexed), tuple(self._indexed))
 
+    @property
+    def bucket_hash_version(self) -> int:
+        """Hash-function version the data files were bucketed with; entries
+        predating the property default to 1 (the pre-normalization hash)."""
+        return int(self._extra.get(_BUCKET_HASH_VERSION_PROP, 1))
+
     # --- build -------------------------------------------------------------
     def write(self, ctx: CreateContext, df) -> None:
         """Build index data for ``df`` into ``ctx.index_data_path``

@@ -430,7 +430,12 @@ class LogEntry:
 
 
 class IndexLogEntry(LogEntry):
-    """One full index-metadata record (ref: HS/index/IndexLogEntry.scala:408-572)."""
+    """One full index-metadata record (ref: HS/index/IndexLogEntry.scala:408-572).
+
+    ``tags`` is transient per-process state keyed by (plan_key, tag_name),
+    used by the optimizer rules (ref: IndexLogEntry tags :519-571); it is
+    never serialized.
+    """
 
     def __init__(
         self,
@@ -449,6 +454,7 @@ class IndexLogEntry(LogEntry):
         self.content = content
         self.source = source
         self.properties = dict(properties)
+        self.tags: Dict[Tuple[Any, str], Any] = {}
 
     # --- derived accessors -------------------------------------------------
     @property
@@ -490,6 +496,13 @@ class IndexLogEntry(LogEntry):
             str(self.derived_dataset.properties.get(C.HAS_PARQUET_AS_SOURCE_FORMAT_PROPERTY, "false")).lower()
             == "true"
         )
+
+    # --- tags (transient) --------------------------------------------------
+    def set_tag(self, plan_key: Any, tag: str, value: Any) -> None:
+        self.tags[(plan_key, tag)] = value
+
+    def get_tag(self, plan_key: Any, tag: str) -> Any:
+        return self.tags.get((plan_key, tag))
 
     # --- serialization -----------------------------------------------------
     def to_dict(self) -> Dict[str, Any]:

@@ -1,13 +1,20 @@
 """User-facing DataFrame facade.
 
-A lazy wrapper over the logical plan so that
-``hs.create_index(df, CoveringIndexConfig(...))`` has something to operate
-on. Transformations and ``collect()`` arrive with the query path.
+A thin, lazy wrapper over the logical plan so that
+``hs.create_index(df, CoveringIndexConfig(...))`` and filter queries have
+something to operate on. ``collect()`` runs the optimizer rewrite (when
+Hyperspace is enabled on the session) then the executor.
 """
 
 from __future__ import annotations
 
+from typing import Dict, List, Union as TUnion
+
+import numpy as np
+
 from hyperspace_tpu_torch.plan import logical as L
+from hyperspace_tpu_torch.plan.expr import Col, Expr
+from hyperspace_tpu_torch.plan.resolver import resolve_column, resolve_expr
 
 
 class DataFrame:
@@ -15,9 +22,52 @@ class DataFrame:
         self.plan = plan
         self.session = session
 
+    # --- transformations ---------------------------------------------------
+    def filter(self, condition: Expr) -> "DataFrame":
+        resolved = resolve_expr(condition, self.plan.output_columns)
+        return DataFrame(L.Filter(resolved, self.plan), self.session)
+
+    where = filter
+
+    def select(self, *columns: TUnion[str, Col]) -> "DataFrame":
+        names = []
+        for c in columns:
+            name = c.name if isinstance(c, Col) else str(c)
+            resolved = resolve_column(name, self.plan.output_columns)
+            if resolved is None:
+                raise ValueError(f"Column {name!r} not found among {self.plan.output_columns}")
+            names.append(resolved)
+        return DataFrame(L.Project(names, self.plan), self.session)
+
+    # --- actions -----------------------------------------------------------
+    def optimized_plan(self) -> L.LogicalPlan:
+        from hyperspace_tpu_torch.rules.apply import optimize_plan
+
+        return optimize_plan(self.plan, self.session)
+
+    def collect(self) -> Dict[str, np.ndarray]:
+        """Execute and return columns as numpy arrays.
+
+        Arrays may be read-only views of the scan cache (plans that pass
+        rows through share decoded buffers across queries); ``np.copy`` one
+        before mutating it in place.
+        """
+        from hyperspace_tpu_torch.exec.executor import Executor
+
+        plan = self.optimized_plan()
+        return Executor(self.session).execute(plan, required_columns=plan.output_columns)
+
+    def count(self) -> int:
+        from hyperspace_tpu_torch.exec.batch import num_rows
+
+        return num_rows(self.collect())
+
     @property
-    def columns(self):
+    def columns(self) -> List[str]:
         return self.plan.output_columns
 
+    def explain(self) -> str:
+        return self.plan.pretty()
+
     def __repr__(self) -> str:
-        return f"DataFrame[\n{self.plan.pretty(1)}\n]"
+        return f"DataFrame[{', '.join(self.plan.output_columns)}]"

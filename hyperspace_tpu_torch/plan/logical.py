@@ -1,13 +1,20 @@
-"""Logical plan IR — the nodes the index-build path needs.
+"""Logical plan IR — the nodes of the index build and the filter query.
 
-``Scan`` over a source relation and the ``BucketSpec`` a covering index
-records; the rest of the relational algebra arrives with the query path.
+``Scan`` over a source relation, ``Filter`` and ``Project`` over it, and the
+node the optimizer rewrites a scan into: ``IndexScan`` (replaces a source
+scan; ref: IndexHadoopFsRelation,
+HS/index/plans/logical/IndexHadoopFsRelation.scala:29-50), with the
+``BucketSpec`` a covering index records. ``describe()`` strings are the JAX
+package's. Joins, aggregates and the rest of the relational algebra are not
+in the port yet.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+from hyperspace_tpu_torch.plan.expr import Expr
 
 
 @dataclass(frozen=True)
@@ -42,6 +49,9 @@ class LogicalPlan:
     def output_columns(self) -> List[str]:
         raise NotImplementedError
 
+    def with_children(self, children: Sequence["LogicalPlan"]) -> "LogicalPlan":
+        raise NotImplementedError
+
     def pretty(self, indent: int = 0) -> str:
         line = "  " * indent + self.describe()
         return "\n".join([line] + [c.pretty(indent + 1) for c in self.children()])
@@ -64,9 +74,102 @@ class Scan(LogicalPlan):
     def output_columns(self) -> List[str]:
         return [f.name for f in self.relation.schema]
 
+    def with_children(self, children: Sequence[LogicalPlan]) -> "Scan":
+        assert not children
+        return self
+
     def describe(self) -> str:
         return f"Scan({self.relation.name}, format={self.relation.file_format})"
 
+
+class Filter(LogicalPlan):
+    def __init__(self, condition: Expr, child: LogicalPlan):
+        self.condition = condition
+        self.child = child
+
+    def children(self) -> Sequence[LogicalPlan]:
+        return (self.child,)
+
+    @property
+    def output_columns(self) -> List[str]:
+        return self.child.output_columns
+
+    def with_children(self, children: Sequence[LogicalPlan]) -> "Filter":
+        (child,) = children
+        return Filter(self.condition, child)
+
+    def describe(self) -> str:
+        return f"Filter({self.condition!r})"
+
+
+class Project(LogicalPlan):
+    def __init__(self, columns: List[str], child: LogicalPlan):
+        self.columns = list(columns)
+        self.child = child
+
+    def children(self) -> Sequence[LogicalPlan]:
+        return (self.child,)
+
+    @property
+    def output_columns(self) -> List[str]:
+        return list(self.columns)
+
+    def with_children(self, children: Sequence[LogicalPlan]) -> "Project":
+        (child,) = children
+        return Project(self.columns, child)
+
+    def describe(self) -> str:
+        return f"Project({self.columns})"
+
+
+# --- index-side nodes (appear only in rewritten plans) ----------------------
+
+
+class IndexScan(LogicalPlan):
+    """Scan of covering-index data files instead of source files.
+
+    ``pruned_buckets`` — when bucket pruning applies (selective equality
+    predicate on the first indexed column), only those buckets' files are read
+    (ref: FilterIndexRule's useBucketSpec path,
+    HS/index/covering/FilterIndexRule.scala:162-167).
+    """
+
+    def __init__(
+        self,
+        entry: "IndexLogEntry",  # noqa: F821
+        columns: List[str],
+        bucket_spec: Optional[BucketSpec],
+        files: Optional[List[str]] = None,
+        pruned_buckets: Optional[List[int]] = None,
+        file_columns: Optional[List[str]] = None,
+    ):
+        self.entry = entry
+        self.columns = list(columns)
+        self.bucket_spec = bucket_spec
+        self.files = files if files is not None else entry.content.files
+        self.pruned_buckets = pruned_buckets
+        # parallel to ``columns``: the flat column names inside the index
+        # parquet files when they differ from the output names
+        self.file_columns = list(file_columns) if file_columns is not None else None
+
+    @property
+    def output_columns(self) -> List[str]:
+        return list(self.columns)
+
+    def with_children(self, children: Sequence[LogicalPlan]) -> "IndexScan":
+        assert not children
+        return self
+
+    def describe(self) -> str:
+        extra = f", prunedBuckets={self.pruned_buckets}" if self.pruned_buckets is not None else ""
+        n = self.bucket_spec.num_buckets if self.bucket_spec else None
+        return (
+            f"IndexScan(Hyperspace(Type: CI, Name: {self.entry.name}, "
+            f"LogVersion: {self.entry.id}), buckets={n}{extra})"
+        )
+
+
+# --- traversal helpers ------------------------------------------------------
 
 def collect(plan: LogicalPlan, predicate) -> List[LogicalPlan]:
     out = []
@@ -75,3 +178,16 @@ def collect(plan: LogicalPlan, predicate) -> List[LogicalPlan]:
     for c in plan.children():
         out.extend(collect(c, predicate))
     return out
+
+
+def transform_up(plan: LogicalPlan, fn) -> LogicalPlan:
+    new_children = [transform_up(c, fn) for c in plan.children()]
+    if list(new_children) != list(plan.children()):
+        plan = plan.with_children(new_children)
+    return fn(plan)
+
+
+def plan_key(plan: LogicalPlan) -> int:
+    """Stable per-process identity used for tagging (the reference tags plan
+    objects directly; ref: HS/index/IndexLogEntry.scala:519-571)."""
+    return id(plan)

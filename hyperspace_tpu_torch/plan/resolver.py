@@ -7,9 +7,11 @@ the port yet: a dotted name that reaches into a struct raises.
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import pyarrow as pa
+
+from hyperspace_tpu_torch.plan.expr import Expr, rewrite_columns
 
 
 def resolve_columns_against_schema(names: Sequence[str], schema: pa.Schema) -> List[str]:
@@ -27,3 +29,26 @@ def resolve_columns_against_schema(names: Sequence[str], schema: pa.Schema) -> L
             raise ValueError(f"Column {n!r} could not be resolved against schema {schema.names}")
         out.append(f.name)
     return out
+
+
+def resolve_column(name: str, available: Sequence[str]) -> Optional[str]:
+    """Resolve ``name`` case-insensitively against flat column names."""
+    for a in available:
+        if a.lower() == name.lower():
+            return a
+    root = name.split(".")[0].lower()
+    if "." in name and any(a.lower() == root for a in available):
+        raise NotImplementedError(f"nested column {name!r}: nested columns are not yet in the port")
+    return None
+
+
+def resolve_expr(e: Expr, available: Sequence[str]) -> Expr:
+    """Rewrite column refs in ``e`` to their resolved (exact-case) names."""
+    mapping = {}
+    for ref in e.references():
+        resolved = resolve_column(ref, available)
+        if resolved is None:
+            raise ValueError(f"Column {ref!r} could not be resolved among {list(available)}")
+        if resolved != ref:
+            mapping[ref] = resolved
+    return rewrite_columns(e, mapping) if mapping else e

@@ -1,0 +1,193 @@
+"""Plan-transformation utilities of the covering-index rules
+(ref: HS/index/covering/CoveringIndexRuleUtils.scala:55-288).
+
+The index-only rewrite: swap the source Scan for an IndexScan over the
+index's bucket files, optionally bucket-pruned (ref: :98-130). Hybrid scan
+(index data merged with appended source files, ref: :146-288) is not in the
+port yet; candidate collection admits only exact signature matches, so the
+rewrite never needs it.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+from hyperspace_tpu_torch.indexes.covering import BUCKET_HASH_VERSION, CoveringIndex, bucket_of_file
+from hyperspace_tpu_torch.models.log_entry import IndexLogEntry
+from hyperspace_tpu_torch.plan import logical as L
+from hyperspace_tpu_torch.plan.expr import (
+    Col,
+    Expr,
+    In,
+    extract_eq_literal,
+    split_conjunctive,
+    strip_nested_prefix,
+)
+
+
+def destructure_linear(plan: L.LogicalPlan) -> Optional[Tuple[Optional[List[str]], Optional[Expr], L.Scan]]:
+    """Match any interleaving of Project / Filter nodes over a Scan; return
+    (project_cols, condition, scan) — project_cols is the *outermost*
+    projection (the sub-plan's output), condition the AND of all filters
+    (the only sub-plan shape the rules accept;
+    ref: FilterPlanNodeFilter / JoinPlanNodeFilter linearity checks; column
+    pruning may stack an extra Project directly above the Scan)."""
+    project_cols = None
+    condition = None
+    node = plan
+    while True:
+        if isinstance(node, L.Project):
+            if project_cols is None:
+                project_cols = list(node.columns)
+            node = node.child
+        elif isinstance(node, L.Filter):
+            condition = node.condition if condition is None else condition & node.condition
+            node = node.child
+        elif isinstance(node, L.Scan):
+            return project_cols, condition, node
+        else:
+            return None
+
+
+def pruned_buckets_for_predicate(
+    condition: Optional[Expr], bucket_columns: Tuple[str, ...], num_buckets: int
+) -> Optional[List[int]]:
+    """Bucket pruning: an equality (or IN) conjunct on the single bucket
+    column narrows the scan to specific buckets
+    (ref: FilterIndexRule useBucketSpec, HS/index/covering/FilterIndexRule.scala:162-167)."""
+    from hyperspace_tpu_torch.ops.hashing import bucket_of_literals
+
+    if condition is None or len(bucket_columns) != 1:
+        return None
+    key = strip_nested_prefix(bucket_columns[0]).lower()
+    for term in split_conjunctive(condition):
+        eq = extract_eq_literal(term)
+        if eq is not None and strip_nested_prefix(eq[0]).lower() == key:
+            return [bucket_of_literals([eq[1]], num_buckets)]
+        if (
+            isinstance(term, In)
+            and isinstance(term.child, Col)
+            and strip_nested_prefix(term.child.name).lower() == key
+        ):
+            return sorted({bucket_of_literals([v.value], num_buckets) for v in term.values})
+    return None
+
+
+def index_file_columns(entry: IndexLogEntry, output_cols: List[str]) -> Optional[List[str]]:
+    """Map required output names onto the column names stored in the index
+    files (their stored spelling). None when every name maps to itself."""
+    props = entry.derived_dataset.properties
+    stored = [str(c) for c in props.get("indexedColumns", [])] + [
+        str(c) for c in props.get("includedColumns", [])
+    ]
+    lookup = {strip_nested_prefix(s).lower(): s for s in stored}
+    mapped = [lookup.get(strip_nested_prefix(c).lower(), c) for c in output_cols]
+    return mapped if mapped != list(output_cols) else None
+
+
+def index_files_for_buckets(entry: IndexLogEntry, buckets: Optional[List[int]]) -> List[str]:
+    files = entry.content.files
+    if buckets is None:
+        return files
+    # bucket ids are parsed from file names once per Content (immutable after
+    # load); re-running the regex per query dominated bucket-pruned rewrites
+    pairs = entry.content.__dict__.get("_file_buckets")
+    if pairs is None or len(pairs) != len(files):
+        pairs = entry.content.__dict__["_file_buckets"] = [(f, bucket_of_file(f)) for f in files]
+    allowed = set(buckets)
+    return [f for f, b in pairs if b in allowed]
+
+
+def transform_plan_to_use_index(
+    entry: IndexLogEntry,
+    sub_plan: L.LogicalPlan,
+    use_bucket_spec: bool,
+) -> L.LogicalPlan:
+    """Rewrite a linear sub-plan to scan the covering index instead of the
+    source (ref: transformPlanToUseIndex, CoveringIndexRuleUtils.scala:55-83)."""
+    parts = destructure_linear(sub_plan)
+    assert parts is not None
+    project_cols, condition, scan = parts
+    required = project_cols if project_cols is not None else scan.output_columns
+    if condition is not None:
+        cond_refs = [c for c in condition.references()]
+        required_all = list(dict.fromkeys(list(required) + cond_refs))
+    else:
+        required_all = list(required)
+
+    index = CoveringIndex.from_derived_dataset(entry.derived_dataset)
+    bucket_spec = index.bucket_spec()
+    # an index whose data files were bucketed under an OLDER hash function
+    # still serves correct index-only scans, but its bucket PLACEMENT can't
+    # be trusted: no bucket pruning
+    use_bucket_spec = use_bucket_spec and index.bucket_hash_version == BUCKET_HASH_VERSION
+    buckets = (
+        pruned_buckets_for_predicate(condition, bucket_spec.bucket_columns, bucket_spec.num_buckets)
+        if use_bucket_spec
+        else None
+    )
+    out: L.LogicalPlan = L.IndexScan(
+        entry,
+        columns=required_all,
+        bucket_spec=bucket_spec if use_bucket_spec else None,
+        files=index_files_for_buckets(entry, buckets),
+        pruned_buckets=buckets,
+        file_columns=index_file_columns(entry, required_all),
+    )
+
+    # canonical rebuild: every Filter sinks DIRECTLY above the scan (the
+    # executor's device filter matches that shape); Projects re-apply above
+    # in their original relative order, narrowed to the columns actually
+    # available, with no-op Projects elided
+    projects = []  # top-down
+    node = sub_plan
+    while not isinstance(node, L.Scan):
+        if isinstance(node, L.Project):
+            projects.append(list(node.columns))
+        (node,) = node.children()
+
+    if condition is not None:
+        out = L.Filter(condition, out)
+    for payload in reversed(projects):  # innermost first
+        avail = set(out.output_columns)
+        cols = [c for c in payload if c in avail]
+        if cols != list(out.output_columns):  # elide no-op projections
+            out = L.Project(cols, out)
+    if set(out.output_columns) != set(sub_plan.output_columns):
+        out = L.Project(list(sub_plan.output_columns), out)
+    return out
+
+
+def prune_columns(plan: L.LogicalPlan, needed=None) -> L.LogicalPlan:
+    """Column pruning: push the set of columns the parent actually needs down
+    to the scans, materialized as a Project directly above each Scan.
+
+    The reference relies on Catalyst's ColumnPruning running *before* its
+    rules (ref: JoinIndexRule.scala:419-448 allRequiredCols over pruned
+    plans); this IR has no separate optimizer, so ApplyHyperspace and the
+    executor normalize first. ``needed=None`` means "all columns". The
+    port's plans are linear (no joins, no shared sub-plans), so the JAX
+    package's sharing-preserving variant is not needed yet.
+    """
+    if isinstance(plan, L.Project):
+        return L.Project(plan.columns, prune_columns(plan.child, set(plan.columns)))
+    if isinstance(plan, L.Filter):
+        child_needed = None if needed is None else set(needed) | set(plan.condition.references())
+        return plan.with_children([prune_columns(plan.child, child_needed)])
+    if isinstance(plan, L.Scan):
+        out = plan.output_columns
+        if needed is None:
+            return plan
+        flat = {c for c in needed if c in set(out)}
+        if not flat:
+            # a count-only consumer needs the ROW COUNT: a zero-column scan
+            # would report zero rows, so keep the narrowest thing we have
+            flat = {out[0]} if out else set()
+        if flat < set(out):
+            return L.Project([c for c in out if c in flat], plan)
+        return plan
+    # any other node (an IndexScan) keeps all its columns
+    new_children = [prune_columns(c, None) for c in plan.children()]
+    if any(n is not o for n, o in zip(new_children, plan.children())):
+        return plan.with_children(new_children)
+    return plan

@@ -1,17 +1,23 @@
-"""Session: configuration, source providers, and the device.
+"""Session: configuration, source providers, the optimizer kill-switch and
+the device.
 
 Plays the role of SparkSession in the reference: carries conf, hosts the
-provider manager and the (caching) index collection manager.
+provider manager and the (caching) index collection manager, and owns the
+"Hyperspace enabled" flag that installs the optimizer rule
+(ref: ``spark.enableHyperspace()``, HS/package.scala:29-69).
 
 The session owns one torch device. It is CUDA unless the caller asks for
 the CPU (``Session(device="cpu")``, as the tests do); with no CUDA device
 present, a session that was not asked for the CPU raises instead of quietly
-running there. Every tensor the build creates is placed on this device.
+running there. Every tensor the build and the query create is placed on
+this device.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
+import contextvars
 from typing import Any, Dict, Optional
 
 import torch
@@ -38,7 +44,19 @@ class Session:
     def __init__(self, conf: Optional[Dict[str, Any]] = None, device=None):
         self.device = resolve_device(device)
         self.conf = HyperspaceConf(conf)
+        # the decode pool is process-global: the most recently constructed
+        # session's conf wins, the HS_DECODE_THREADS environment variable
+        # overrides both
+        from hyperspace_tpu_torch.exec import io as _io
+
+        _io.set_decode_threads(self.conf.io_decode_threads)
         self.provider_manager = FileBasedSourceProviderManager(self)
+        # context-local override beats the session-wide default, so a scoped
+        # toggle never leaks into queries racing on other threads
+        self._hyperspace_override: contextvars.ContextVar = contextvars.ContextVar(
+            "hyperspace_enabled_override", default=None
+        )
+        self.hyperspace_enabled = False
         self._index_manager = None
         #: host wall seconds per covering-build stage, summed over every chunk
         #: this session built: key_decode, encode_keys, upload_launch,
@@ -58,6 +76,48 @@ class Session:
 
     def read_parquet(self, *paths, **options) -> "DataFrame":  # noqa: F821
         return self.read(list(paths), "parquet", **options)
+
+    # --- hyperspace toggle (ref: HS/package.scala:36-43) -------------------
+    @property
+    def hyperspace_enabled(self) -> bool:
+        override = self._hyperspace_override.get()
+        return self._hyperspace_default if override is None else override
+
+    @hyperspace_enabled.setter
+    def hyperspace_enabled(self, value: bool) -> None:
+        self._hyperspace_default = bool(value)
+
+    def enable_hyperspace(self) -> "Session":
+        self.hyperspace_enabled = True
+        return self
+
+    def disable_hyperspace(self) -> "Session":
+        self.hyperspace_enabled = False
+        return self
+
+    def is_hyperspace_enabled(self) -> bool:
+        return self.hyperspace_enabled
+
+    # reference-API aliases (ref: HS/package.scala:36-43 spark.enableHyperspace());
+    # delegating defs so subclass overrides stay authoritative
+    def enableHyperspace(self) -> "Session":
+        return self.enable_hyperspace()
+
+    def disableHyperspace(self) -> "Session":
+        return self.disable_hyperspace()
+
+    def isHyperspaceEnabled(self) -> bool:
+        return self.is_hyperspace_enabled()
+
+    @contextlib.contextmanager
+    def hyperspace_scope(self, enabled: bool):
+        """Pin the hyperspace flag for this thread/context only; other
+        threads keep the session default."""
+        token = self._hyperspace_override.set(bool(enabled))
+        try:
+            yield self
+        finally:
+            self._hyperspace_override.reset(token)
 
     # --- index manager ------------------------------------------------------
     @property
