@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py [--seed N] [--rows N] [--files N] [--reps N] [--baseline-csrc DIR]
 
-Phases, each printed with its time (the filter query's phases are 4, 6
-and 7):
+Phases, each printed with its time (the filter query's phases are 5, 8
+and 9):
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: compiles the port's CUDA kernels from ``hyperspace_tpu_torch/csrc``;
@@ -18,15 +18,22 @@ and 7):
    earlier tree's kernels are timed in turns with this tree's;
 4. small: builds one covering index over a small lake on the CPU (plain
    versions) and on the GPU (kernels) and requires identical bucket files;
-5. slice: generates a TPC-H-shaped SF1 ``lineitem`` lake (6M rows in 16
-   files, from ``--seed``) and builds three indexes through the public API
-   (``Session`` -> ``read_parquet`` -> ``Hyperspace.create_index``) at the
-   default 200 buckets and 2M batch rows, with the kernel launch counts
-   reset just before and read just after, and prints each covering build's
-   host time by stage; then checks every bucket file (rows hash to their
-   bucket, sorted by the key, same rows as the source) and every sketch row
-   (numpy per-file min/max);
-6. query: on the session that built them, with ``deviceMinRows=0``, TPC-H
+5. query-small: a 60 000-row lake with NaN, -0.0, ±inf, nulls, dates,
+   strings and int64 keys above 2^53, indexed in a CPU and a GPU session
+   (``deviceMinRows=0``); a dozen filter queries (every compare, strings
+   present and absent, IS NULL, Kleene NOT/AND/OR, IN, int ``/`` and ``%``
+   by zero, a date range, a float literal above 2^53) must give the GPU
+   result equal to the CPU port's byte for byte and in order, equal to
+   hyperspace off as a multiset, and ``filter: device`` in every trace;
+6. generate and slice: generates a TPC-H-shaped SF1 ``lineitem`` lake (6M
+   rows in 16 files, from ``--seed``) and builds three indexes through the
+   public API (``Session`` -> ``read_parquet`` -> ``Hyperspace.create_index``)
+   at the default 200 buckets and 2M batch rows, with the kernel launch
+   counts reset just before and read just after, and prints each covering
+   build's host time by stage;
+7. check: every bucket file (rows hash to their bucket, sorted by the key,
+   same rows as the source) and every sketch row (numpy per-file min/max);
+8. query: on the session that built them, with ``deviceMinRows=0``, TPC-H
    q6's filter through ``li_shipdate`` and a point lookup on
    ``l_orderkey`` through ``li_orderkey`` (``useBucketSpec``: one bucket),
    with kernel launches and device dispatches reset just before and read
@@ -34,12 +41,13 @@ and 7):
    device``), the rows against hyperspace off over the source (exact, as a
    multiset); then each query cold (caches cleared: decode, upload,
    predicate), warm (the median of ``--reps``), and warm on the host path
-   (the default ``deviceMinRows``), and the warm q6 split by layer (rewrite,
-   decode cache, scan identity, upload, predicate program, mask copy, host
-   ``mask_rows``);
-7. profile-query: one warm q6 under ``torch.profiler``: device busy time
+   (the default ``deviceMinRows``), each split by the layers those same
+   runs add to ``Session.query_stage_seconds`` (rewrite, decode, scan
+   identity, upload, predicate launch, wait and mask copy, host predicate,
+   ``mask_rows``), and the predicate program's bound;
+9. profile-query: one warm q6 under ``torch.profiler``: device busy time
    against the query's wall time, and the device time by op;
-8. profile: one more covering build under ``torch.profiler``: the device's
+10. profile: one more covering build under ``torch.profiler``: the device's
    busy time (the union of its kernel and copy intervals) against the
    build's wall time, and the device time by kernel.
 
@@ -781,64 +789,44 @@ def median_ms(fn, reps: int) -> float:
     return statistics.median(out)
 
 
-def query_layers(sess, df, reps: int, hbm: float) -> dict:
-    """The warm filter query split into its layers, by hand along the
-    executor's own steps: the rewrite (``optimized_plan``), the decode
-    (cache hit and cold), the scan identity that keys the device column
-    cache (a stat of every index file), the upload of the predicate columns,
-    the predicate program (CUDA events), the mask's copy back, and the host
-    ``mask_rows``; beside them the host predicate the default
-    ``deviceMinRows`` would run."""
-    import numpy as np
+def layer_ms(sess, fn, reps: int) -> dict:
+    """Median host milliseconds of ``fn()`` (``total``, each run ending with
+    the device synchronised) and of each query layer that the run itself
+    added to ``sess.query_stage_seconds``, over ``reps`` runs; ``rest`` is a
+    run's total less its layers (result assembly and the executor's own
+    walk)."""
+    import statistics
+
     import torch
 
-    from hyperspace_tpu_torch.exec import batch as B
-    from hyperspace_tpu_torch.exec import device as D
-    from hyperspace_tpu_torch.exec import io as IO
-    from hyperspace_tpu_torch.exec.executor import _scan_identity
+    runs = []
+    for _ in range(reps):
+        sess.query_stage_seconds.clear()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        total = (time.perf_counter() - t) * 1e3
+        run = {k: v * 1e3 for k, v in sess.query_stage_seconds.items()}
+        run["rest"] = total - sum(run.values())
+        run["total"] = total
+        runs.append(run)
+    return {k: statistics.median(r.get(k, 0.0) for r in runs) for k in runs[0]}
+
+
+def program_bound(plan, rows: int, hbm: float):
+    """The predicate program's bound: each referenced column read once as
+    the device holds it (int32 codes for strings, 8 bytes otherwise), the
+    bool mask written once, two operations per column and row."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
     from hyperspace_tpu_torch.plan import logical as L
-    from hyperspace_tpu_torch.plan.expr import as_bool_mask
 
-    rewrite_ms = median_ms(df.optimized_plan, reps)
-    plan = df.optimized_plan()
     (node,) = L.collect(plan, lambda p: isinstance(p, L.Filter))
-    scan, cond = node.child, node.condition
-    fcols = scan.file_columns or list(scan.columns)
-    files = list(scan.files)
-    dev = sess.device
-    IO.clear_io_cache()
-    t = time.perf_counter()
-    batch = IO.read_parquet_batch(files, fcols)
-    decode_cold = (time.perf_counter() - t) * 1e3
-    decode_warm = median_ms(lambda: IO.read_parquet_batch(files, fcols), reps)
-    identity_ms = median_ms(lambda: _scan_identity(scan), reps)
-    refs = sorted(cond.references())
-    uploaded = {}
-
-    def upload():
-        for r in refs:
-            uploaded[r] = D._put_encoded(batch[r], dev)
-
-    upload_ms = median_ms(upload, max(3, reps // 5))
-    cols = {r: v[0] for r, v in uploaded.items()}
-    fn, lits = D.compile_predicate(cond, {r: v[1] for r, v in uploaded.items()})
-    lits_dev = D.upload_literals(lits, dev)
-    program_ms = time_ms(lambda: fn(cols, lits_dev), reps)
-    mask = fn(cols, lits_dev)
-    copy_ms = median_ms(lambda: mask.cpu(), reps)
-    mask_np = mask.cpu().numpy()
-    mask_rows_ms = median_ms(lambda: B.mask_rows(batch, mask_np), reps)
-    host_ms = median_ms(lambda: as_bool_mask(cond.eval(batch)), reps)
-    assert np.array_equal(as_bool_mask(cond.eval(batch)), mask_np), "device mask != host mask"
-    n = B.num_rows(batch)
-    col_bytes = sum(c.numel() * c.element_size() for c in cols.values())
-    p_bound, p_by = bound(col_bytes + n, 2 * len(refs) * n, hbm)
-    return {
-        "rows": n, "rewrite_ms": rewrite_ms, "decode_cold_ms": decode_cold, "decode_cached_ms": decode_warm,
-        "scan_identity_ms": identity_ms, "upload_ms": upload_ms,
-        "upload_bytes": col_bytes, "program_ms": program_ms, "program_bound_ms": p_bound, "program_bound_by": p_by,
-        "mask_copy_ms": copy_ms, "mask_rows_ms": mask_rows_ms, "host_predicate_ms": host_ms,
-    }
+    schema = pq.read_schema(node.child.files[0])
+    refs = sorted(node.condition.references())
+    width = sum(4 if pa.types.is_string(schema.field(r).type) else 8 for r in refs)
+    return bound(width * rows + rows, 2 * len(refs) * rows, hbm)
 
 
 def q6_query(df):
@@ -891,9 +879,13 @@ def run_queries(sess, src: str, args, smi: str, hbm: float) -> dict:
             assert scans[0].pruned_buckets is not None and len(scans[0].pruned_buckets) == n_buckets
         IO.clear_io_cache()
         D.clear_device_cache()
+        sess.query_stage_seconds.clear()
         t = time.perf_counter()
         got, summary = traced_collect(q)
+        torch.cuda.synchronize()
         cold = (time.perf_counter() - t) * 1e3
+        cold_layers = {k: v * 1e3 for k, v in sess.query_stage_seconds.items()}
+        cold_layers.update(rest=cold - sum(cold_layers.values()), total=cold)
         print(f"trace {name}: " + "; ".join(summary.splitlines()), flush=True)
         lines = summary.splitlines()
         assert "filter: device x1" in lines and f"scan: {scan_line} x1" in lines, summary
@@ -903,25 +895,31 @@ def run_queries(sess, src: str, args, smi: str, hbm: float) -> dict:
         assert "filter: host x1" in off_summary.splitlines(), off_summary
         n_rows = len(next(iter(got.values())))
         assert n_rows > 0 and same_batch(canonical(got), canonical(off)), f"{name}: differs from hyperspace off"
-        warm = median_ms(q.collect, args.reps)
+        warm_layers = layer_ms(sess, q.collect, args.reps)
+        warm = warm_layers["total"]
         sess.conf.set(ht.keys.DEVICE_MIN_ROWS, 1 << 25)
         _, host_summary = traced_collect(q)
         assert "filter: host x1" in host_summary.splitlines(), host_summary
-        host_warm = median_ms(q.collect, args.reps)
+        host_layers = layer_ms(sess, q.collect, args.reps)
+        host_warm = host_layers["total"]
         sess.conf.set(ht.keys.DEVICE_MIN_ROWS, 0)
         scanned = sum(pq.ParquetFile(f).metadata.num_rows for f in scans[0].files)
+        p_bound, p_by = program_bound(plan, scanned, hbm)
         out[name] = {"name": name, "index": index, "rows": n_rows, "rows_scanned": scanned,
                      "files": len(scans[0].files), "cold_ms": cold, "warm_ms": warm, "host_warm_ms": host_warm,
-                     "off_ms": off_ms, "rows_scanned_per_s": scanned / (warm / 1e3)}
+                     "off_ms": off_ms, "rows_scanned_per_s": scanned / (warm / 1e3),
+                     "program_bound_ms": p_bound, "program_bound_by": p_by,
+                     "layers_ms": {"cold": cold_layers, "warm": warm_layers, "host_warm": host_layers}}
         print(f"query {name}: {n_rows} rows of {scanned} scanned ({len(scans[0].files)} files), equal to hyperspace "
               f"off; cold {cold:.3f} ms, warm {warm:.3f} ms ({scanned / (warm / 1e3):.0f} rows/s), warm on the host "
               f"path {host_warm:.3f} ms, hyperspace off {off_ms:.3f} ms ({smi})", flush=True)
+        for run, layers in out[name]["layers_ms"].items():
+            print(f"layers {name} ({run}): " + ", ".join(f"{k} {v:.3f} ms" for k, v in layers.items())
+                  + f" ({smi})", flush=True)
     torch.cuda.synchronize()
     dispatches, launches = dict(D.dispatches), dict(kernels.launches)
     print(f"query path: dispatches {dispatches}, kernel launches {launches}", flush=True)
     assert dispatches.get("fused-filter", 0) > 0, "the query path never reached the device"
-    out["q6"]["layers_ms"] = layers = query_layers(sess, q6, args.reps, hbm)
-    print(f"layers q6 (warm): " + ", ".join(f"{k} {v}" for k, v in layers.items()) + f" ({smi})", flush=True)
     return {"queries": list(out.values()), "dispatches": dispatches, "launches": launches}
 
 

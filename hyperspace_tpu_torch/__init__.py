@@ -21,7 +21,6 @@ Layer map (the JAX package's layout, module for module):
   - ``plan/``      logical plan, predicate language, column resolution
   - ``indexes/``   covering and data-skipping index builds
   - ``actions/``   the create action
-  - ``analysis/``  the optimizer's filter reasons
   - ``rules/``     ApplyHyperspace + FilterIndexRule
   - ``exec/``      executor, parquet IO, the device filter
   - ``ops/``       hashing, encode, device sort, kernel wrappers

@@ -48,7 +48,7 @@ DEFAULTS: Dict[str, Any] = {
     keys.DEVICE_MIN_ROWS: 1 << 25,
     keys.PARALLEL_ENABLED: False,
     # width of the parquet decode pool (exec/io.py), set when a Session is
-    # constructed; the HS_DECODE_THREADS environment variable overrides it
+    # constructed
     keys.IO_DECODE_THREADS: 8,
 }
 

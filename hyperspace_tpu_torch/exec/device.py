@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import collections
 import os
+import time
 import warnings
 from typing import Dict, List, Optional, Tuple
 
@@ -593,20 +594,28 @@ def device_filter_mask(session, batch: B.Batch, condition: Expr, scan_key=None) 
         else:
             missing.append(r)
 
+    stages = session.query_stage_seconds
     if missing:
         # reject unsupported predicates BEFORE encoding/transferring the
         # missing columns — an unsupported shape must not cost device memory
         # or a wasted upload
         _pack_literals(compile_predicate(condition, _dry_codecs(batch, refs))[1])
+        t = time.perf_counter()
         for r in missing:
             dev, codec, nbytes = _put_encoded(batch[r], device)
             dev_cols[r], codecs[r] = dev, codec
             if scan_key is not None:
                 _device_cache.put((scan_key, r, str(device)), (dev, codec, n), nbytes)
+        stages["upload"] += time.perf_counter() - t
 
+    t = time.perf_counter()
     fn, lit_values = compile_predicate(condition, codecs)
     mask = fn(dev_cols, upload_literals(lit_values, device))
     dispatches["fused-filter"] += 1
     if mask.dim() == 0:  # a predicate over literals only
         mask = mask.expand(n)
-    return mask.cpu().numpy()
+    t1 = time.perf_counter()
+    stages["predicate_launch"] += t1 - t
+    out = mask.cpu().numpy()
+    stages["wait_copy_mask"] += time.perf_counter() - t1
+    return out

@@ -13,6 +13,7 @@ planner/executors; here the framework owns it.
 
 from __future__ import annotations
 
+import time
 from typing import List, Optional
 
 import numpy as np
@@ -111,6 +112,13 @@ class Executor:
     def __init__(self, session):
         self.session = session
 
+    def _add_stage(self, stage: str, t0: float) -> float:
+        """Add the time since ``t0`` to the session's
+        ``query_stage_seconds[stage]``; returns now."""
+        now = time.perf_counter()
+        self.session.query_stage_seconds[stage] += now - t0
+        return now
+
     def execute(self, plan: L.LogicalPlan, required_columns: Optional[List[str]] = None) -> B.Batch:
         # execution-time column pruning for EVERY plan (Catalyst runs
         # ColumnPruning unconditionally; ApplyHyperspace only prunes plans
@@ -145,7 +153,9 @@ class Executor:
                 cols = list(fcols) + ([INPUT_FILE_NAME] if with_file_names else [])
                 batch = {c: np.empty(0, dtype=object) for c in cols}
             else:
+                t = time.perf_counter()
                 batch = _read_files(list(plan.files), list(fcols), with_file_names)
+                self._add_stage("decode", t)
             if plan.file_columns is not None:
                 # present index columns under the output names
                 renamed: B.Batch = {out: batch[fc] for out, fc in zip(plan.columns, fcols)}
@@ -156,7 +166,11 @@ class Executor:
 
         if isinstance(plan, L.Filter):
             child = self._exec(plan.child, with_file_names)
-            return B.mask_rows(child, self._filter_mask(plan, child))
+            mask = self._filter_mask(plan, child)
+            t = time.perf_counter()
+            out = B.mask_rows(child, mask)
+            self._add_stage("mask_rows", t)
+            return out
 
         if isinstance(plan, L.Project):
             # projection pushdown into a directly-scanned source: decode ONLY
@@ -195,7 +209,10 @@ class Executor:
         if rel.partition_columns:
             pv = {f: rel.partition_values_for(f) for f in files}
             pd = dict(rel.partition_dtypes) or None
-        return _read_files(files, columns, with_file_names, pv, pd)
+        t = time.perf_counter()
+        batch = _read_files(files, columns, with_file_names, pv, pd)
+        self._add_stage("decode", t)
+        return batch
 
     def _filter_mask(self, plan: L.Filter, child: B.Batch) -> np.ndarray:
         """Predicate evaluation: the device program over index scans, host
@@ -209,16 +226,23 @@ class Executor:
                     raise NotImplementedError("the sharded (hyperspace.parallel.enabled) filter is not yet in the port")
                 from hyperspace_tpu_torch.exec import device as D
 
+                t = time.perf_counter()
+                scan_key = _scan_identity(plan.child)
+                self._add_stage("scan_identity", t)
                 try:
-                    mask = D.device_filter_mask(
-                        self.session, child, plan.condition, scan_key=_scan_identity(plan.child)
-                    )
+                    mask = D.device_filter_mask(self.session, child, plan.condition, scan_key=scan_key)
                     trace.record("filter", "device")
                     return mask
                 except D.DeviceUnsupported:
                     trace.record("filter", "host-fallback")
                     trace.fallback("filter", "unsupported")
-                    return as_bool_mask(plan.condition.eval(child))
+                    return self._host_mask(plan, child)
             trace.fallback("filter", "min-rows")
         trace.record("filter", "host")
-        return as_bool_mask(plan.condition.eval(child))
+        return self._host_mask(plan, child)
+
+    def _host_mask(self, plan: L.Filter, child: B.Batch) -> np.ndarray:
+        t = time.perf_counter()
+        mask = as_bool_mask(plan.condition.eval(child))
+        self._add_stage("host_predicate", t)
+        return mask

@@ -82,48 +82,27 @@ def clear_io_cache() -> None:
 
 _DECODE_POOL = None
 _DECODE_POOL_LOCK = threading.Lock()
-_DECODE_POOL_SIZE = None  # width the live pool was created with
-_CONFIGURED_THREADS: Optional[int] = None  # from conf, via set_decode_threads
+_DECODE_THREADS = 8  # hyperspace.exec.io.decodeThreads, via set_decode_threads
 
 
-def decode_threads() -> int:
-    """Effective decode-pool width: HS_DECODE_THREADS env > session conf
-    (``hyperspace.exec.io.decodeThreads``) > default 8."""
-    env = os.environ.get("HS_DECODE_THREADS")
-    if env:
-        try:
-            return max(1, int(env))
-        except ValueError:
-            pass
-    return max(1, _CONFIGURED_THREADS or 8)
-
-
-def set_decode_threads(n: Optional[int]) -> None:
-    """Record the conf-requested pool width (called on Session construction).
-    An already-built pool of a different width is retired — its in-flight
-    decodes finish on the old threads — and the next scan builds the new one."""
-    global _CONFIGURED_THREADS, _DECODE_POOL, _DECODE_POOL_SIZE
-    with _DECODE_POOL_LOCK:
-        _CONFIGURED_THREADS = int(n) if n else None
-        if _DECODE_POOL is not None and _DECODE_POOL_SIZE != decode_threads():
-            _DECODE_POOL.shutdown(wait=False)
-            _DECODE_POOL = None
-            _DECODE_POOL_SIZE = None
+def set_decode_threads(n: int) -> None:
+    """Record the conf's pool width (called on Session construction). The
+    pool is process-global and is built at this width by the first scan
+    that decodes more than one file."""
+    global _DECODE_THREADS
+    _DECODE_THREADS = max(1, int(n))
 
 
 def _decode_pool():
     """Shared decode thread pool — per-call pools would pay thread spin-up on
     every scan."""
-    global _DECODE_POOL, _DECODE_POOL_SIZE
+    global _DECODE_POOL
     if _DECODE_POOL is None:
         with _DECODE_POOL_LOCK:
             if _DECODE_POOL is None:
                 from concurrent.futures import ThreadPoolExecutor
 
-                _DECODE_POOL_SIZE = decode_threads()
-                _DECODE_POOL = ThreadPoolExecutor(
-                    max_workers=_DECODE_POOL_SIZE, thread_name_prefix="hs-decode"
-                )
+                _DECODE_POOL = ThreadPoolExecutor(max_workers=_DECODE_THREADS, thread_name_prefix="hs-decode")
     return _DECODE_POOL
 
 

@@ -17,8 +17,7 @@ the reference's ``IndexLogEntry`` (ref: HS/index/IndexLogEntry.scala:40-685):
   - ``FileIdTracker``— stable (name, size, mtime) → id assignment
                        (ref: HS/index/IndexLogEntry.scala:609-685)
 
-Everything (de)serializes to plain-dict JSON; transient query-time state lives
-in a ``tags`` dict that is never persisted (ref: IndexLogEntry tags :519-571).
+Everything (de)serializes to plain-dict JSON.
 """
 
 from __future__ import annotations
@@ -430,12 +429,7 @@ class LogEntry:
 
 
 class IndexLogEntry(LogEntry):
-    """One full index-metadata record (ref: HS/index/IndexLogEntry.scala:408-572).
-
-    ``tags`` is transient per-process state keyed by (plan_key, tag_name),
-    used by the optimizer rules (ref: IndexLogEntry tags :519-571); it is
-    never serialized.
-    """
+    """One full index-metadata record (ref: HS/index/IndexLogEntry.scala:408-572)."""
 
     def __init__(
         self,
@@ -454,7 +448,6 @@ class IndexLogEntry(LogEntry):
         self.content = content
         self.source = source
         self.properties = dict(properties)
-        self.tags: Dict[Tuple[Any, str], Any] = {}
 
     # --- derived accessors -------------------------------------------------
     @property
@@ -496,13 +489,6 @@ class IndexLogEntry(LogEntry):
             str(self.derived_dataset.properties.get(C.HAS_PARQUET_AS_SOURCE_FORMAT_PROPERTY, "false")).lower()
             == "true"
         )
-
-    # --- tags (transient) --------------------------------------------------
-    def set_tag(self, plan_key: Any, tag: str, value: Any) -> None:
-        self.tags[(plan_key, tag)] = value
-
-    def get_tag(self, plan_key: Any, tag: str) -> Any:
-        return self.tags.get((plan_key, tag))
 
     # --- serialization -----------------------------------------------------
     def to_dict(self) -> Dict[str, Any]:

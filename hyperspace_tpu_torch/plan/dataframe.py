@@ -8,6 +8,7 @@ Hyperspace is enabled on the session) then the executor.
 
 from __future__ import annotations
 
+import time
 from typing import Dict, List, Union as TUnion
 
 import numpy as np
@@ -54,7 +55,9 @@ class DataFrame:
         """
         from hyperspace_tpu_torch.exec.executor import Executor
 
+        t = time.perf_counter()
         plan = self.optimized_plan()
+        self.session.query_stage_seconds["rewrite"] += time.perf_counter() - t
         return Executor(self.session).execute(plan, required_columns=plan.output_columns)
 
     def count(self) -> int:

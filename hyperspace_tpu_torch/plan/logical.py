@@ -188,6 +188,6 @@ def transform_up(plan: LogicalPlan, fn) -> LogicalPlan:
 
 
 def plan_key(plan: LogicalPlan) -> int:
-    """Stable per-process identity used for tagging (the reference tags plan
-    objects directly; ref: HS/index/IndexLogEntry.scala:519-571)."""
+    """Stable per-process identity of a plan node: the key under which the
+    optimizer files a scan's candidate indexes."""
     return id(plan)

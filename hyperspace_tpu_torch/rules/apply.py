@@ -31,9 +31,9 @@ def optimize_plan(plan: L.LogicalPlan, session) -> L.LogicalPlan:
 
 
 class ApplyHyperspace:
-    def __init__(self, session, analysis_enabled: bool = False):
+    def __init__(self, session):
         self.session = session
-        self.ctx = RuleContext(session, analysis_enabled)
+        self.ctx = RuleContext(session)
 
     def apply(self, plan: L.LogicalPlan) -> L.LogicalPlan:
         if self.session.conf.hybrid_scan_enabled:
@@ -54,7 +54,7 @@ class ApplyHyperspace:
         # normalize: push required columns down to the scans (Catalyst runs
         # ColumnPruning before the reference's rules; this IR does it here)
         pruned = prune_columns(plan)
-        candidates = collect_candidates(self.ctx, pruned, indexes)
+        candidates = collect_candidates(pruned, indexes)
         if not candidates:
             return plan, 0
         new_plan, score = ScoreBasedIndexPlanOptimizer(self.ctx).apply(pruned, candidates)

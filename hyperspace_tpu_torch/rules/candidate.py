@@ -13,10 +13,8 @@ from __future__ import annotations
 
 from typing import Dict, List, Tuple
 
-from hyperspace_tpu_torch.analysis import reasons as R
 from hyperspace_tpu_torch.models.log_entry import IndexLogEntry
 from hyperspace_tpu_torch.plan import logical as L
-from hyperspace_tpu_torch.rules.context import RuleContext
 from hyperspace_tpu_torch.sources.signatures import INDEX_SIGNATURE_PROVIDER, index_signature
 
 
@@ -34,51 +32,39 @@ def _referenced_columns(entry: IndexLogEntry) -> List[str]:
         ]
 
 
-def _schema_filter(ctx: RuleContext, scan: L.Scan, indexes: List[IndexLogEntry]) -> List[IndexLogEntry]:
+def _schema_filter(scan: L.Scan, indexes: List[IndexLogEntry]) -> List[IndexLogEntry]:
     """Index's referenced columns ⊆ relation output (ref: ColumnSchemaFilter.scala:29-44)."""
     from hyperspace_tpu_torch.plan.expr import strip_nested_prefix
 
-    out = []
     relation_cols = {c.lower() for c in scan.output_columns}
-    for entry in indexes:
-        referenced = _referenced_columns(entry)
-        ok = all(strip_nested_prefix(c).lower() in relation_cols for c in referenced)
-        if ctx.tag_reason_if_failed(
-            ok, entry, scan, lambda: R.col_schema_mismatch(referenced, scan.output_columns)
-        ):
-            out.append(entry)
-    return out
+    return [
+        entry
+        for entry in indexes
+        if all(strip_nested_prefix(c).lower() in relation_cols for c in _referenced_columns(entry))
+    ]
 
 
-def _signature_filter(ctx: RuleContext, scan: L.Scan, indexes: List[IndexLogEntry]) -> List[IndexLogEntry]:
-    """Signature equality (ref: FileSignatureFilter.scala:49-107)."""
+def _signature_filter(scan: L.Scan, indexes: List[IndexLogEntry]) -> List[IndexLogEntry]:
+    """Signature equality (ref: FileSignatureFilter.scala:49-107). A
+    signature recorded under another provider is not comparable and never
+    matches: the index needs a refresh."""
     current_sig = index_signature(scan)
     out = []
     for entry in indexes:
         sig0 = entry.signature.signatures[0] if entry.signature.signatures else None
-        if sig0 is not None and sig0.provider != INDEX_SIGNATURE_PROVIDER:
-            # recorded under an older/incompatible provider: values are not
-            # comparable — require a refresh rather than mis-reporting
-            # "source data changed"
-            ctx.tag_reason_if_failed(
-                False, entry, scan, lambda: R.signature_provider_mismatch(sig0.provider)
-            )
-            continue
-        if sig0 is not None and sig0.value == current_sig:
+        if sig0 is not None and sig0.provider == INDEX_SIGNATURE_PROVIDER and sig0.value == current_sig:
             out.append(entry)
-            continue
-        ctx.tag_reason_if_failed(False, entry, scan, R.source_data_changed)
     return out
 
 
 def collect_candidates(
-    ctx: RuleContext, plan: L.LogicalPlan, indexes: List[IndexLogEntry]
+    plan: L.LogicalPlan, indexes: List[IndexLogEntry]
 ) -> Dict[int, Tuple[L.Scan, List[IndexLogEntry]]]:
     """Map each Scan leaf (by plan key) to its eligible index entries
     (ref: CandidateIndexCollector.scala:49-59)."""
     out: Dict[int, Tuple[L.Scan, List[IndexLogEntry]]] = {}
     for scan in L.collect(plan, lambda p: isinstance(p, L.Scan)):
-        eligible = _signature_filter(ctx, scan, _schema_filter(ctx, scan, indexes))
+        eligible = _signature_filter(scan, _schema_filter(scan, indexes))
         if eligible:
             out[L.plan_key(scan)] = (scan, eligible)
     return out

@@ -1,37 +1,12 @@
-"""Per-optimization rule context: session + analysis mode + reason tagging
-(the reference uses thread-locals and entry tags;
-ref: HS/index/rules/IndexFilter.scala:25-110, JoinIndexRule.scala:632-636).
+"""Per-optimization rule context: the session the rules read their conf from
+(ref: HS/index/rules/IndexFilter.scala:25-110). The reference's whyNot
+analysis also tags each index with the reasons it was passed over; that
+mode and its tags wait for the port's whyNot.
 """
 
 from __future__ import annotations
 
-from hyperspace_tpu_torch.analysis import reasons as R
-from hyperspace_tpu_torch.models.log_entry import IndexLogEntry
-from hyperspace_tpu_torch.plan.logical import LogicalPlan, plan_key
-
 
 class RuleContext:
-    def __init__(self, session, analysis_enabled: bool = False):
+    def __init__(self, session):
         self.session = session
-        self.analysis_enabled = analysis_enabled
-
-    def tag_reason_if_failed(
-        self, passed: bool, entry: IndexLogEntry, plan: LogicalPlan, reason_fn
-    ) -> bool:
-        """``withFilterReasonTag`` (ref: IndexFilter.scala:36-109): when
-        analysis is on and the check failed, append the reason to the entry's
-        FILTER_REASONS tag for this (sub)plan."""
-        if not passed and self.analysis_enabled:
-            key = plan_key(plan)
-            existing = entry.get_tag(key, R.FILTER_REASONS) or []
-            existing.append(reason_fn())
-            entry.set_tag(key, R.FILTER_REASONS, existing)
-        return passed
-
-    def tag_applicable_rule(self, entry: IndexLogEntry, plan: LogicalPlan, rule_name: str) -> None:
-        if self.analysis_enabled:
-            key = plan_key(plan)
-            existing = entry.get_tag(key, R.APPLICABLE_INDEX_RULES) or []
-            if rule_name not in existing:
-                existing.append(rule_name)
-            entry.set_tag(key, R.APPLICABLE_INDEX_RULES, existing)

@@ -12,25 +12,19 @@ from __future__ import annotations
 
 from typing import Dict, List, Optional, Tuple
 
-from hyperspace_tpu_torch.analysis import reasons as R
 from hyperspace_tpu_torch.models.log_entry import IndexLogEntry
 from hyperspace_tpu_torch.plan import logical as L
 from hyperspace_tpu_torch.plan.expr import contains_input_file_name, strip_nested_prefix
 from hyperspace_tpu_torch.rules.context import RuleContext
 from hyperspace_tpu_torch.rules.utils import destructure_linear, transform_plan_to_use_index
 
-RULE_NAME = "FilterIndexRule"
 # the score of an index-only rewrite (50 x the source bytes the index
 # covers, which is all of them without hybrid scan)
 MAX_SCORE = 50
 
 
 def _filter_column_filter(
-    ctx: RuleContext,
-    scan: L.Scan,
-    condition,
-    required: List[str],
-    candidates: List[IndexLogEntry],
+    condition, required: List[str], candidates: List[IndexLogEntry]
 ) -> List[IndexLogEntry]:
     """(ref: FilterColumnFilter — first indexed col must appear in the
     predicate; index covers filter+project columns)."""
@@ -42,33 +36,21 @@ def _filter_column_filter(
         props = entry.derived_dataset.properties
         indexed = [str(c) for c in props.get("indexedColumns", [])]
         included = [str(c) for c in props.get("includedColumns", [])]
-        first_ok = bool(indexed) and strip_nested_prefix(indexed[0]).lower() in pred_cols
-        if not ctx.tag_reason_if_failed(
-            first_ok, entry, scan, lambda: R.no_first_indexed_col_cond(indexed[0] if indexed else "", pred_cols)
-        ):
+        if not indexed or strip_nested_prefix(indexed[0]).lower() not in pred_cols:
             continue
         covered = {strip_nested_prefix(c).lower() for c in indexed + included}
-        covers = all(strip_nested_prefix(c).lower() in covered for c in required)
-        if not ctx.tag_reason_if_failed(
-            covers, entry, scan, lambda: R.missing_required_col(required, indexed + included)
-        ):
-            continue
-        out.append(entry)
+        if all(strip_nested_prefix(c).lower() in covered for c in required):
+            out.append(entry)
     return out
 
 
-def _rank(ctx: RuleContext, scan: L.Scan, candidates: List[IndexLogEntry]) -> Optional[IndexLogEntry]:
+def _rank(candidates: List[IndexLogEntry]) -> Optional[IndexLogEntry]:
     """FilterRankFilter: the smallest index, ties broken by name
     (ref: HS/index/covering/FilterIndexRanker.scala:43-63). The JAX
     package's ORDER BY tie-break waits for the Sort node."""
     if not candidates:
         return None
-    best = min(candidates, key=lambda e: (e.content.total_size, e.name))
-    if ctx.analysis_enabled:
-        for e in candidates:
-            if e is not best:
-                ctx.tag_reason_if_failed(False, e, scan, lambda: R.another_index_applied(best.name))
-    return best
+    return min(candidates, key=lambda e: (e.content.total_size, e.name))
 
 
 def apply_filter_index_rule(
@@ -92,11 +74,8 @@ def apply_filter_index_rule(
     required_out = project_cols if project_cols is not None else scan.output_columns
     required = list(dict.fromkeys(list(required_out) + list(condition.references())))
 
-    eligible = _filter_column_filter(ctx, scan, condition, required, entries)
-    best = _rank(ctx, scan, eligible)
+    best = _rank(_filter_column_filter(condition, required, entries))
     if best is None:
         return plan, 0
-    ctx.tag_applicable_rule(best, scan, RULE_NAME)
-
     new_plan = transform_plan_to_use_index(best, plan, ctx.session.conf.use_bucket_spec)
     return new_plan, MAX_SCORE

@@ -44,9 +44,6 @@ class ScoreBasedIndexPlanOptimizer:
         if key in self._memo:
             return self._memo[key]
 
-        # exhaustive mode for whyNot: every rule must run at every node so
-        # the per-index disqualification reasons get collected
-        analysis = self.ctx.analysis_enabled
         chain_top = isinstance(plan, _CHAIN_NODES) and destructure_linear(plan) is not None
 
         # NoOp path: optimize children independently (score = sum)
@@ -63,9 +60,9 @@ class ScoreBasedIndexPlanOptimizer:
             if child_score > 0:
                 best_plan, best_score = plan.with_children(new_children), child_score
 
-        if analysis or not in_chain:
+        if not in_chain:
             for rule, max_score in RULES:
-                if max_score <= best_score and not analysis:
+                if max_score <= best_score:
                     continue  # cannot beat the current best (ties keep it)
                 transformed, score = rule(self.ctx, plan, candidates)
                 if score > best_score:

@@ -44,9 +44,8 @@ class Session:
     def __init__(self, conf: Optional[Dict[str, Any]] = None, device=None):
         self.device = resolve_device(device)
         self.conf = HyperspaceConf(conf)
-        # the decode pool is process-global: the most recently constructed
-        # session's conf wins, the HS_DECODE_THREADS environment variable
-        # overrides both
+        # the decode pool is process-global: it takes the width of the
+        # session constructed last before the first multi-file scan
         from hyperspace_tpu_torch.exec import io as _io
 
         _io.set_decode_threads(self.conf.io_decode_threads)
@@ -63,6 +62,13 @@ class Session:
         #: payload_decode, device_wait_fetch (waits for the device pass and
         #: copies the permutation back), take_write
         self.build_stage_seconds: collections.Counter = collections.Counter()
+        #: host wall seconds per query layer, summed over every collect() of
+        #: this session: rewrite, decode, scan_identity, upload (encode and
+        #: copy of columns the device cache misses), predicate_launch
+        #: (compile, literal upload, enqueue), wait_copy_mask (waits for the
+        #: device program and copies the mask back), host_predicate,
+        #: mask_rows
+        self.query_stage_seconds: collections.Counter = collections.Counter()
 
     # --- reading data ------------------------------------------------------
     def read(self, paths, file_format: str, **options) -> "DataFrame":  # noqa: F821

@@ -203,6 +203,26 @@ def test_device_dispatches_and_cache(systems, lake):
     assert not calls and D.dispatches["fused-filter"] == 2
 
 
+@pytest.mark.parametrize("mode", sorted(MODES))
+def test_query_stage_seconds(systems, lake, mode):
+    """A collect() adds its host time per layer to the session's
+    ``query_stage_seconds``: the device layers on the device path, the host
+    predicate on the host path, and an upload only when the device cache
+    misses."""
+    D.clear_device_cache()
+    sess = ht.Session(conf=_conf(ht.keys, systems["torch"], **MODES[mode]), device="cpu")
+    sess.enable_hyperspace()
+    df = sess.read_parquet(lake).filter((ht.col("k") > 50) & (ht.col("f") < 0.5)).select("k", "f")
+    device = {"scan_identity", "upload", "predicate_launch", "wait_copy_mask"}
+    want = {"rewrite", "decode", "mask_rows"} | (device if mode == "device" else {"host_predicate"})
+    df.collect()
+    assert set(sess.query_stage_seconds) == want
+    assert all(v >= 0 for v in sess.query_stage_seconds.values())
+    sess.query_stage_seconds.clear()
+    df.collect()
+    assert set(sess.query_stage_seconds) == want - {"upload"}
+
+
 def test_toggle_and_count(systems, lake):
     sess = ht.Session(conf=_conf(ht.keys, systems["torch"]), device="cpu")
     assert not sess.is_hyperspace_enabled()
