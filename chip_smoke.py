@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py [--seed N] [--rows N] [--files N] [--reps N] [--baseline-csrc DIR]
 
-Phases, each printed with its time (the filter query's phases are 5, 8
-and 9):
+Phases, each printed with its time (the filter query's phases are 5, 9
+and 11, the join's 6, 10 and 12):
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: compiles the port's CUDA kernels from ``hyperspace_tpu_torch/csrc``;
@@ -25,15 +25,22 @@ and 9):
    by zero, a date range, a float literal above 2^53) must give the GPU
    result equal to the CPU port's byte for byte and in order, equal to
    hyperspace off as a multiset, and ``filter: device`` in every trace;
-6. generate and slice: generates a TPC-H-shaped SF1 ``lineitem`` lake (6M
+6. join-small: a two-table lake (a fact side with duplicate keys, nullable
+   payloads, dates and strings; a dimension side), indexed at 8 buckets in a
+   CPU and a GPU session (``deviceMinRows=0``); inner joins on an int, a
+   composite, a string and a date key, inner with a Filter on each side,
+   left, right and outer, and a self-join must give the GPU result equal to
+   the CPU port's byte for byte and in order, equal to hyperspace off (the
+   generic merge) as a multiset, and ``join: device-smj`` in every trace;
+7. generate and slice: generates a TPC-H-shaped SF1 ``lineitem`` lake (6M
    rows in 16 files, from ``--seed``) and builds three indexes through the
    public API (``Session`` -> ``read_parquet`` -> ``Hyperspace.create_index``)
    at the default 200 buckets and 2M batch rows, with the kernel launch
    counts reset just before and read just after, and prints each covering
    build's host time by stage;
-7. check: every bucket file (rows hash to their bucket, sorted by the key,
+8. check: every bucket file (rows hash to their bucket, sorted by the key,
    same rows as the source) and every sketch row (numpy per-file min/max);
-8. query: on the session that built them, with ``deviceMinRows=0``, TPC-H
+9. query: on the session that built them, with ``deviceMinRows=0``, TPC-H
    q6's filter through ``li_shipdate`` and a point lookup on
    ``l_orderkey`` through ``li_orderkey`` (``useBucketSpec``: one bucket),
    with kernel launches and device dispatches reset just before and read
@@ -45,14 +52,31 @@ and 9):
    runs add to ``Session.query_stage_seconds`` (rewrite, decode, scan
    identity, upload, predicate launch, wait and mask copy, host predicate,
    ``mask_rows``), and the predicate program's bound;
-9. profile-query: one warm q6 under ``torch.profiler``: device busy time
+10. join: on the same session, a TPC-H-shaped SF1 ``orders`` lake (1.5M
+   rows in 8 files, every ``l_orderkey`` matching one order) and its
+   covering index ``o_orderkey`` at 200 buckets (build time and stages),
+   then J1 (``lineitem`` joined to ``orders`` on the order key, 6M output
+   rows) and J2 (the same with a Filter over each side's index scan) on the
+   device (``deviceMinRows=0``, ``deviceMaterializeMaxBytes`` 2 GiB), with
+   device dispatches reset just before and read just after: the plans (two
+   IndexScans), the traces (``join: device-smj``, ``scan: index-bucketed
+   x2``), the rows against hyperspace off (as a multiset) and the host-span
+   path (byte for byte); each join cold (IO, key and device caches
+   cleared), warm (the median of ``--reps`` for J1, a third of that for
+   J2), warm on the host-span path (the default ``deviceMinRows``) and with
+   hyperspace off, each split by its ``Session.query_stage_seconds``
+   layers; then each device program of a warm J1 timed alone with CUDA
+   events beside its bound;
+11. profile-query: one warm q6 under ``torch.profiler``: device busy time
    against the query's wall time, and the device time by op;
-10. profile: one more covering build under ``torch.profiler``: the device's
+12. profile-join: the same for one warm J1;
+13. profile: one more covering build under ``torch.profiler``: the device's
    busy time (the union of its kernel and copy intervals) against the
    build's wall time, and the device time by kernel.
 
-The third line from the end is a JSON object with the queries' results and
-times, the line before the last one with an entry per kernel; the last line
+The third line from the end is a JSON object with the queries' and the
+joins' results and times, the line before the last one with an entry per
+kernel; the last line
 is ``{"ok": true, "device": {...}}``. Any failed check raises, so
 the script exits non-zero and prints no result. It exits non-zero as well
 when no CUDA device is present or the port is not beside it.
@@ -689,6 +713,12 @@ def small_queries():
     }
 
 
+def same_objects(g, w) -> bool:
+    """Equal object columns, element by element; a NaN equals a NaN (the
+    generic merge fills each null-extended string with its own NaN)."""
+    return len(g) == len(w) and all(x is y or x == y or (x != x and y != y) for x, y in zip(g.tolist(), w.tolist()))
+
+
 def same_batch(got, want) -> bool:
     """Equal columns, dtypes and bytes, in order."""
     if list(got) != list(want):
@@ -697,7 +727,7 @@ def same_batch(got, want) -> bool:
         g, w = got[k], want[k]
         if g.dtype != w.dtype:
             return False
-        if (g.tolist() != w.tolist()) if w.dtype == object else (g.tobytes() != w.tobytes()):
+        if not same_objects(g, w) if w.dtype == object else (g.tobytes() != w.tobytes()):
             return False
     return True
 
@@ -712,6 +742,12 @@ def canonical(batch):
     keys = [encode.sort_key_int64(batch[c]) for c in cols]
     order = np.lexsort(keys[::-1]) if cols else np.zeros(0, dtype=np.int64)
     return {c: batch[c][order] for c in cols}
+
+
+def as_multiset(batch):
+    """``canonical`` with datetimes at one unit: the generic merge hands key
+    columns back through pandas, which keeps dates at second resolution."""
+    return canonical({k: v.astype("datetime64[us]") if v.dtype.kind == "M" else v for k, v in batch.items()})
 
 
 def plan_index_scans(plan):
@@ -923,6 +959,354 @@ def run_queries(sess, src: str, args, smi: str, hbm: float) -> dict:
     return {"queries": list(out.values()), "dispatches": dispatches, "launches": launches}
 
 
+# --- the join -----------------------------------------------------------------
+
+
+def gen_join_lake(root: str, seed: int):
+    """A small two-table lake for the join checks: ``fact`` (40 000 rows in
+    3 files) with duplicate int keys ``k``, a second key ``k2``, a string key
+    ``s`` and a date key ``d`` (no nulls in keys), a float payload ``v`` and
+    nullable int, string and date payloads; ``dim`` (5 000 rows in 2 files)
+    with the matching keys ``dk``/``dk2``/``ds``/``dd``, some absent on the
+    fact side and some fact keys absent here, and payloads ``w``, ``dn``,
+    ``dstr``. Returns (fact dir, dim dir)."""
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    rng = np.random.default_rng(seed)
+    base = np.datetime64("1996-01-01")
+    dirs = []
+    for name, files, rows, keys, payload in (
+        ("fact", 3, 40_000, ("k", "k2", "s", "d"), ("v", "n", "str", "nd")),
+        ("dim", 2, 5_000, ("dk", "dk2", "ds", "dd"), ("w", "dn", "dstr", None)),
+    ):
+        d = os.path.join(root, "join", name)
+        os.makedirs(d, exist_ok=True)
+        per = rows // files
+        for i in range(files):
+            n = per if i < files - 1 else rows - per * (files - 1)
+            lo = 0 if name == "fact" else 500
+            cols = {
+                keys[0]: rng.integers(lo, lo + 6_000, n).astype(np.int64),
+                keys[1]: rng.integers(0, 3, n).astype(np.int64),
+                keys[2]: np.array([f"s{x}" for x in rng.integers(lo // 2, lo // 2 + 3_000, n)], dtype=object),
+                keys[3]: base + rng.integers(lo // 4, lo // 4 + 1_500, n).astype("timedelta64[D]"),
+                payload[0]: np.round(rng.standard_normal(n), 3),
+                payload[1]: pa.array(rng.integers(-(2**40), 2**40, n), mask=rng.random(n) < 0.1),
+                payload[2]: pa.array([f"p{x}" for x in rng.integers(0, 100, n)], mask=rng.random(n) < 0.05),
+            }
+            if payload[3]:
+                cols[payload[3]] = pa.array(base + rng.integers(0, 900, n).astype("timedelta64[D]"),
+                                            mask=rng.random(n) < 0.05)
+            pq.write_table(pa.table(cols), os.path.join(d, f"part-{i:05d}.parquet"))
+        dirs.append(d)
+    return tuple(dirs)
+
+
+#: the join-small indexes: (side, name, indexed, included)
+JOIN_SMALL_INDEXES = (
+    ("fact", "f_k", ["k"], ["v", "n", "str", "nd"]),
+    ("dim", "d_k", ["dk"], ["w", "dn", "dstr"]),
+    ("fact", "f_k2", ["k", "k2"], ["v"]),
+    ("dim", "d_k2", ["dk", "dk2"], ["w"]),
+    ("fact", "f_s", ["s"], ["v", "n"]),
+    ("dim", "d_s", ["ds"], ["w"]),
+    ("fact", "f_d", ["d"], ["v"]),
+    ("dim", "d_d", ["dd"], ["w", "dstr"]),
+)
+
+
+def small_joins(f, d, c):
+    """{name: (DataFrame, the two indexes its plan must scan)} over the
+    fact and dim frames ``f`` and ``d``; ``c`` is ``col``."""
+    on_k = c("k") == c("dk")
+    wide = ("k", "v", "n", "str", "nd", "dk", "w", "dn", "dstr")
+    return {
+        "inner_int": (f.join(d, on_k).select(*wide), {"f_k", "d_k"}),
+        "inner_filtered": (f.filter(c("v") > 0).join(d.filter(c("w") < 0.5), on_k).select("k", "v", "n", "w"),
+                           {"f_k", "d_k"}),
+        "left": (f.join(d, on_k, how="left").select(*wide), {"f_k", "d_k"}),
+        "right": (f.join(d, on_k, how="right").select(*wide), {"f_k", "d_k"}),
+        "outer": (f.join(d, on_k, how="outer").select(*wide), {"f_k", "d_k"}),
+        "composite": (f.join(d, (c("k") == c("dk")) & (c("k2") == c("dk2"))).select("k", "k2", "v", "dk2", "w"),
+                      {"f_k2", "d_k2"}),
+        "string_key": (f.join(d, c("s") == c("ds")).select("s", "v", "n", "ds", "w"), {"f_s", "d_s"}),
+        "date_key": (f.join(d, c("d") == c("dd")).select("d", "v", "dd", "w", "dstr"), {"f_d", "d_d"}),
+        "self_join": (f.join(f, on=["k"]).select("k", "v", "v#r", "nd#r"), {"f_k"}),
+    }
+
+
+def check_join_small(tmp: str, seed: int, devices=("cpu", "cuda")) -> dict:
+    """The small lake's joins on the GPU against the CPU port (byte for
+    byte, in order, the same ``join:`` trace) and against hyperspace off,
+    the generic merge (as a multiset). The indexes are built in a CPU and in
+    a GPU session, and each device queries both builds: rows with equal keys
+    come in the order of their bucket's runs, which differs between two
+    builds (run files carry random names), so results compare per build."""
+    import hyperspace_tpu_torch as ht
+    from hyperspace_tpu_torch.exec import device as D
+    from hyperspace_tpu_torch.ops import kernels
+
+    fact, dim = gen_join_lake(tmp, seed + 3)
+
+    def session(owner, device):
+        return ht.Session(conf={ht.keys.SYSTEM_PATH: os.path.join(tmp, f"jsmall-{owner}"), ht.keys.NUM_BUCKETS: 8,
+                                ht.keys.DEVICE_MIN_ROWS: 0, ht.keys.JOIN_DEVICE_MATERIALIZE_MAX_BYTES: 1 << 31,
+                                ht.keys.BUILD_BATCH_ROWS: 15_000}, device=device)
+
+    for owner in devices:
+        sess = session(owner, owner)
+        for side, name, indexed, included in JOIN_SMALL_INDEXES:
+            ht.Hyperspace(sess).create_index(sess.read_parquet(fact if side == "fact" else dim),
+                                             ht.CoveringIndexConfig(name, indexed, included))
+    sessions = {(owner, device): session(owner, device).enable_hyperspace() for owner in devices for device in devices}
+    kernels.reset_launches()
+    D.reset_dispatches()
+    rows = {}
+    names = list(small_joins(*(sessions[devices[0], devices[0]].read_parquet(p) for p in (fact, dim)), ht.col))
+    for name in names:
+        for owner in devices:
+            got, lines = {}, {}
+            for device in devices:
+                sess = sessions[owner, device]
+                df, indexes = small_joins(sess.read_parquet(fact), sess.read_parquet(dim), ht.col)[name]
+                scans = plan_index_scans(df.optimized_plan())
+                assert len(scans) == 2 and {s.entry.name for s in scans} == indexes, \
+                    f"{name}: {df.optimized_plan().pretty()}"
+                got[device], summary = traced_collect(df)
+                lines[device] = [ln for ln in summary.splitlines() if ln.startswith(("join:", "scan:"))]
+                assert lines[device] == ["join: device-smj x1", "scan: index-bucketed x2"], \
+                    f"{name} on {device}: {summary}"
+            assert same_batch(got[devices[-1]], got[devices[0]]), \
+                f"{name} over the {owner} build: the GPU result differs from the CPU port's"
+        cpu = sessions[devices[0], devices[0]]
+        with cpu.hyperspace_scope(False):
+            off_df = small_joins(cpu.read_parquet(fact), cpu.read_parquet(dim), ht.col)[name][0]
+            off, summary = traced_collect(off_df)
+        assert "join: generic-merge x1" in summary.splitlines(), summary
+        assert same_batch(as_multiset(got[devices[-1]]), as_multiset(off)), f"{name}: differs from hyperspace off"
+        rows[name] = len(next(iter(off.values())))
+        print(f"join-small {name}: {rows[name]} rows; over either build, GPU equals the CPU port byte for byte and "
+              f"hyperspace off as a multiset; join: device-smj", flush=True)
+    assert not any(kernels.launches.values()), dict(kernels.launches)
+    assert all(rows.values()), rows
+    # each join ran once per (build, device) pair (the CPU runs are the same
+    # programs on the CPU device); the three outer joins expand on the host
+    runs = len(devices) ** 2
+    assert D.dispatches["bucketed-smj-span"] == runs * len(names), dict(D.dispatches)
+    assert D.dispatches["join-expand-gather"] == runs * (len(names) - 3), dict(D.dispatches)
+    return {"joins": len(names), "rows": rows, "dispatches": dict(D.dispatches)}
+
+
+def gen_orders(root: str, rows_total: int, num_files: int, seed: int) -> str:
+    """TPC-H-shaped ``orders`` (the repo's benchmarks/datagen.py columns and
+    value ranges): ``o_orderkey`` is ``arange(rows_total)``, so every
+    ``l_orderkey`` of ``gen_lineitem`` matches exactly one order."""
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    sf = rows_total / ORDERS_ROWS_SF1
+    d = os.path.join(root, "orders")
+    os.makedirs(d, exist_ok=True)
+    per = max(1, rows_total // num_files)
+    rng = np.random.default_rng(seed)
+    base = np.datetime64("1992-01-01")
+    for i in range(num_files):
+        rows = per if i < num_files - 1 else rows_total - per * (num_files - 1)
+        t = pa.table(
+            {
+                "o_orderkey": np.arange(i * per, i * per + rows, dtype=np.int64),
+                "o_custkey": rng.integers(0, int(150_000 * max(sf, 0.01)), rows).astype(np.int64),
+                "o_totalprice": np.round(rng.uniform(800.0, 600000.0, rows), 2),
+                "o_orderdate": base + rng.integers(0, 2406, rows).astype("timedelta64[D]"),
+                "o_shippriority": rng.integers(0, 2, rows).astype(np.int64),
+            }
+        )
+        pq.write_table(t, os.path.join(d, f"part-{i:05d}.parquet"))
+    return d
+
+
+def join_queries(li, orders):
+    """J1: BASELINE config [2]'s lineitem-orders join on the order key; J2:
+    the same with a Filter over each side (q06_join_filter's shape)."""
+    import numpy as np
+
+    import hyperspace_tpu_torch as ht
+
+    c = ht.col
+    cols = ("l_orderkey", "l_extendedprice", "o_orderdate", "o_totalprice")
+    return {
+        "J1": li.join(orders, c("l_orderkey") == c("o_orderkey")).select(*cols),
+        "J2": li.filter(c("l_extendedprice") > 50000)
+        .join(orders.filter(c("o_orderdate") < np.datetime64("1995-03-15")), c("l_orderkey") == c("o_orderkey"))
+        .select(*cols),
+    }
+
+
+def clear_query_caches() -> None:
+    """Empty every cache a query fills: decoded files, device columns and
+    rectangles, join key encodings."""
+    from hyperspace_tpu_torch.exec import device as D
+    from hyperspace_tpu_torch.exec import io as IO
+    from hyperspace_tpu_torch.exec import join as J
+
+    IO.clear_io_cache()
+    D.clear_device_cache()
+    J.clear_rank_cache()
+
+
+def capture_programs(run):
+    """Run ``run()`` with the join's device programs wrapped to record their
+    inputs: {program: (function, args)} of their last calls."""
+    from hyperspace_tpu_torch.exec import join as J
+
+    seen = {}
+    real = {n: getattr(J, n) for n in ("bucketed_span", "bucket_pair_totals", "expand_gather")}
+
+    def wrap(n):
+        def f(*a):
+            seen[n] = (real[n], a)
+            return real[n](*a)
+
+        return f
+
+    for n in real:
+        setattr(J, n, wrap(n))
+    try:
+        run()
+    finally:
+        for n, fn in real.items():
+            setattr(J, n, fn)
+    return seen
+
+
+def program_times(seen, reps: int, hbm: float) -> dict:
+    """Each join program of a warm run timed alone (CUDA events, median of
+    ``reps``) beside its bound: every input read once and every output
+    written once over the card's memory rate, or its operations (the span
+    search's compares) over the core rate."""
+    import math
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    out = {}
+    fn, (lmat, rmat) = seen["bucketed_span"]
+    nb, wl = lmat.shape
+    wr = rmat.shape[1]
+    b_ms, b_by = bound(nbytes(lmat, rmat) + 2 * lmat.numel() * 8, 2 * nb * wl * math.ceil(math.log2(max(wr, 2))), hbm)
+    out["bucketed-smj-span"] = {"shape": f"lmat {nb}x{wl}, rmat {nb}x{wr} int64", "ms": time_ms(lambda: fn(lmat, rmat), reps),
+                                "bound_ms": b_ms, "bound_by": b_by}
+    fn, args = seen["bucket_pair_totals"]
+    lo, hi, llens, rlens = args
+    b_ms, b_by = bound(nbytes(lo, hi, llens, rlens) + nb * 8, 3 * lo.numel(), hbm)
+    out["bucket-pair-totals"] = {"shape": f"lo, hi {nb}x{wl} int64", "ms": time_ms(lambda: fn(*args), reps),
+                                 "bound_ms": b_ms, "bound_by": b_by}
+    fn, args = seen["expand_gather"]
+    lo, hi, llens, rlens, lmats, rmats, total = args
+    b_ms, b_by = bound(nbytes(lo, hi, llens, rlens, *lmats, *rmats) + total * 8 * (len(lmats) + len(rmats) + 3),
+                       total * (2 * math.ceil(math.log2(lo.numel())) + 8), hbm)
+    out["join-expand-gather"] = {"shape": f"{total} pairs, {len(lmats)} left and {len(rmats)} right columns",
+                                 "ms": time_ms(lambda: fn(*args), reps), "bound_ms": b_ms, "bound_by": b_by}
+    for v in out.values():
+        v["share_of_bound"] = v["bound_ms"] / v["ms"]
+    return out
+
+
+def run_joins(sess, li_src: str, tmp: str, args, smi: str, hbm: float) -> dict:
+    """The SF1 ``orders`` lake and its index, then J1 and J2 on the device,
+    against hyperspace off and the host-span path; then timed."""
+    import torch
+
+    import hyperspace_tpu_torch as ht
+    from hyperspace_tpu_torch.exec import device as D
+    from hyperspace_tpu_torch.ops import kernels
+
+    t = time.perf_counter()
+    o_src = gen_orders(tmp, ORDERS_ROWS_SF1, 8, args.seed + 1)
+    print(f"lake: {ORDERS_ROWS_SF1} orders rows in 8 files ({time.perf_counter() - t:.3f} s)", flush=True)
+    orders = sess.read_parquet(o_src)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    sess.build_stage_seconds.clear()
+    t = time.perf_counter()
+    ht.Hyperspace(sess).create_index(
+        orders, ht.CoveringIndexConfig("o_orderkey", ["o_orderkey"], ["o_orderdate", "o_totalprice"]))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    build_launches = dict(kernels.launches)
+    assert build_launches.get("bucket_histogram", 0) > 0, build_launches
+    print(f"build o_orderkey: {build_s:.3f} s, {ORDERS_ROWS_SF1 / build_s:.0f} rows/s, launches {build_launches} "
+          f"({smi})", flush=True)
+    print("stages o_orderkey: " + ", ".join(f"{k} {v:.3f} s" for k, v in sess.build_stage_seconds.items()), flush=True)
+
+    sess.conf.set(ht.keys.DEVICE_MIN_ROWS, 0)
+    sess.conf.set(ht.keys.JOIN_DEVICE_MATERIALIZE_MAX_BYTES, 2 << 30)
+    sess.enable_hyperspace()
+    queries = join_queries(sess.read_parquet(li_src), orders)
+    torch.cuda.synchronize()
+    D.reset_dispatches()
+    out = {}
+    for name, q in queries.items():
+        reps = args.reps if name == "J1" else max(3, args.reps // 3)
+        plan = q.optimized_plan()
+        print(f"plan {name}:\n{plan.pretty()}", flush=True)
+        scans = plan_index_scans(plan)
+        assert sorted(s.entry.name for s in scans) == ["li_orderkey", "o_orderkey"], plan.pretty()
+        clear_query_caches()
+        before = dict(D.dispatches)
+        sess.query_stage_seconds.clear()
+        t = time.perf_counter()
+        got, summary = traced_collect(q)
+        torch.cuda.synchronize()
+        cold = (time.perf_counter() - t) * 1e3
+        cold_layers = {k: v * 1e3 for k, v in sess.query_stage_seconds.items()}
+        cold_layers.update(rest=cold - sum(cold_layers.values()), total=cold)
+        print(f"trace {name}: " + "; ".join(summary.splitlines()), flush=True)
+        lines = summary.splitlines()
+        assert "join: device-smj x1" in lines and "scan: index-bucketed x2" in lines, summary
+        for program in ("bucketed-smj-span", "join-expand-gather"):
+            assert D.dispatches[program] == before.get(program, 0) + 1, (program, dict(D.dispatches))
+        n_rows = len(next(iter(got.values())))
+        warm_layers = layer_ms(sess, q.collect, reps)
+        sess.conf.set(ht.keys.DEVICE_MIN_ROWS, 1 << 25)
+        host, host_summary = traced_collect(q)
+        assert "join: host-span-smj x1" in host_summary.splitlines(), host_summary
+        assert same_batch(host, got), f"{name}: the host-span path differs from the device path"
+        del host
+        host_layers = layer_ms(sess, q.collect, max(3, reps // 3))
+        sess.conf.set(ht.keys.DEVICE_MIN_ROWS, 0)
+        with sess.hyperspace_scope(False):
+            off, off_summary = traced_collect(q)
+            assert "join: generic-merge x1" in off_summary.splitlines(), off_summary
+            assert n_rows > 0 and same_batch(as_multiset(got), as_multiset(off)), f"{name}: differs from hyperspace off"
+            del off
+            off_layers = layer_ms(sess, q.collect, 3)
+        out[name] = {"name": name, "rows": n_rows, "files": [len(s.files) for s in scans],
+                     "cold_ms": cold, "warm_ms": warm_layers["total"], "host_warm_ms": host_layers["total"],
+                     "off_ms": off_layers["total"], "reps": reps,
+                     "layers_ms": {"cold": cold_layers, "warm": warm_layers, "host_warm": host_layers,
+                                   "off": off_layers}}
+        print(f"join {name}: {n_rows} rows, equal to hyperspace off and to the host-span path; cold {cold:.3f} ms, "
+              f"warm {warm_layers['total']:.3f} ms, warm on the host-span path {host_layers['total']:.3f} ms, "
+              f"hyperspace off {off_layers['total']:.3f} ms ({smi})", flush=True)
+        for run, layers in out[name]["layers_ms"].items():
+            print(f"layers {name} ({run}): " + ", ".join(f"{k} {v:.3f} ms" for k, v in layers.items())
+                  + f" ({smi})", flush=True)
+    torch.cuda.synchronize()
+    dispatches = dict(D.dispatches)
+    print(f"join path: dispatches {dispatches}", flush=True)
+    seen = capture_programs(queries["J1"].collect)
+    programs = program_times(seen, args.reps, hbm)
+    for name, p in programs.items():
+        print(f"program {name} ({p['shape']}): {p['ms']} ms, bound {p['bound_ms']} ms ({p['bound_by']}), "
+              f"{100 * p['share_of_bound']:.1f}% of bound ({smi})", flush=True)
+    return {"joins": list(out.values()), "dispatches": dispatches, "programs": programs,
+            "o_orderkey_build_s": build_s, "o_orderkey_build_launches": build_launches}, queries["J1"]
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -980,6 +1364,10 @@ def main() -> None:
         t = time.perf_counter()
         small = check_query_small(tmp, args.seed)
         phase("query-small", t)
+
+        t = time.perf_counter()
+        join_small = check_join_small(tmp, args.seed)
+        phase("join-small", t)
 
         t = time.perf_counter()
         src = gen_lineitem(tmp, args.rows, args.files, args.seed)
@@ -1042,10 +1430,21 @@ def main() -> None:
         phase("query", t)
 
         t = time.perf_counter()
+        queries["join"], j1 = run_joins(sess, src, tmp, args, smi, hbm)
+        queries["join"]["small"] = join_small
+        phase("join", t)
+
+        t = time.perf_counter()
+        sess.conf.set(ht.keys.DEVICE_MIN_ROWS, 0)
         q6 = q6_query(sess.read_parquet(src))
         q6.collect()  # warm: both caches hold its columns
         queries["q6_profile"] = device_profile("q6 (warm)", q6.collect, tmp)
         phase("profile-query", t)
+
+        t = time.perf_counter()
+        j1.collect()  # warm: decoded buckets and device rectangles resident
+        queries["J1_profile"] = device_profile("J1 (warm)", j1.collect, tmp)
+        phase("profile-join", t)
 
         t = time.perf_counter()
         profile_build(hs, df, ht.CoveringIndexConfig(

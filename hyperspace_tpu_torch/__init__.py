@@ -9,11 +9,13 @@ from it.
 
 The port grows slice by slice. It has the index build — covering and
 data-skipping ``create_index``, with the two device kernels of that path
-written by hand in CUDA (``csrc/``; ``ops/kernels.py``) — and the filter
-query over a covering index: ``Session.enable_hyperspace()``, then
+written by hand in CUDA (``csrc/``; ``ops/kernels.py``) — the filter query
+over a covering index: ``Session.enable_hyperspace()``, then
 ``read_parquet(...).filter(...).select(...).collect()`` rewrites the scan
 to the index (``rules/``) and evaluates the predicate on the device
-(``exec/device.py``).
+(``exec/device.py``) — and the equi-join, which JoinIndexRule rewrites to
+two bucketed index scans that join as a shuffle-free sort-merge join with
+its span search and pair expansion on the device (``exec/join.py``).
 
 Layer map (the JAX package's layout, module for module):
   - ``models/``    metadata model + operation-log persistence
@@ -21,8 +23,8 @@ Layer map (the JAX package's layout, module for module):
   - ``plan/``      logical plan, predicate language, column resolution
   - ``indexes/``   covering and data-skipping index builds
   - ``actions/``   the create action
-  - ``rules/``     ApplyHyperspace + FilterIndexRule
-  - ``exec/``      executor, parquet IO, the device filter
+  - ``rules/``     ApplyHyperspace + FilterIndexRule + JoinIndexRule
+  - ``exec/``      executor, parquet IO, the device filter, the bucketed join
   - ``ops/``       hashing, encode, device sort, kernel wrappers
   - ``csrc/``      the CUDA kernels
   - ``telemetry/`` action events

@@ -1,7 +1,7 @@
 """Configuration system.
 
-The keys, defaults and typed accessors the index build and the filter query
-read, under the same names and with the same defaults as the JAX package's
+The keys, defaults and typed accessors the index build, the filter query
+and the join read, under the same names and with the same defaults as the JAX package's
 ``hyperspace_tpu/config.py`` so one conf dict drives either package; the
 port ignores the keys it does not read. Keys are namespaced ``hyperspace.*``.
 """
@@ -12,7 +12,7 @@ from typing import Any, Dict, Optional
 
 
 class keys:
-    """Configuration keys read by the build and query paths."""
+    """Configuration keys read by the build, query and join paths."""
 
     SYSTEM_PATH = "hyperspace.system.path"
     NUM_BUCKETS = "hyperspace.index.numBuckets"
@@ -24,6 +24,11 @@ class keys:
     DEVICE_MIN_ROWS = "hyperspace.tpu.query.deviceMinRows"
     PARALLEL_ENABLED = "hyperspace.parallel.enabled"
     IO_DECODE_THREADS = "hyperspace.exec.io.decodeThreads"
+    JOIN_DEVICE_MATERIALIZE = "hyperspace.tpu.join.deviceMaterialize"
+    JOIN_DEVICE_MATERIALIZE_MAX_BYTES = "hyperspace.tpu.join.deviceMaterializeMaxBytes"
+    JOIN_DEVICE_SPAN_MAX_BYTES = "hyperspace.tpu.join.deviceSpanMaxBytes"
+    STREAM_JOIN_MIN_BYTES = "hyperspace.exec.stream.joinMinBytes"
+    JOIN_SPILL_MIN_ROWS = "hyperspace.exec.join.spillMinRows"
 
 
 DEFAULTS: Dict[str, Any] = {
@@ -50,6 +55,25 @@ DEFAULTS: Dict[str, Any] = {
     # width of the parquet decode pool (exec/io.py), set when a Session is
     # constructed
     keys.IO_DECODE_THREADS: 8,
+    # inner-join pair expansion and numeric column gather on the device (the
+    # host gathers only string columns); False expands every join on the host
+    keys.JOIN_DEVICE_MATERIALIZE: True,
+    # a device-materialized join copies its whole output back; above this
+    # many estimated output bytes (at the padded size, as the JAX package
+    # estimates it) the expansion runs on the host instead. Raise it on a
+    # directly attached card
+    keys.JOIN_DEVICE_MATERIALIZE_MAX_BYTES: 256 * 1024 * 1024,
+    # above this estimated span round trip (key rectangles up, [lo, hi)
+    # down) the host span walk runs instead of the device span program
+    keys.JOIN_DEVICE_SPAN_MAX_BYTES: 256 * 1024 * 1024,
+    # above this many input bytes (both sides' files) the JAX package streams
+    # a bucketed join bucket by bucket; the streamed join is not in the port
+    # yet, so a join that large raises
+    keys.STREAM_JOIN_MIN_BYTES: 1 << 30,
+    # above this many rows on a generic-join side the JAX package merges in
+    # hash partitions; the partitioned merge is not in the port yet, so a
+    # join that large raises
+    keys.JOIN_SPILL_MIN_ROWS: 1 << 26,
 }
 
 # Operation-log layout constants (ref: HS/index/IndexConstants.scala:93-95).
@@ -139,3 +163,23 @@ class HyperspaceConf:
     @property
     def parallel_enabled(self) -> bool:
         return bool(self.get(keys.PARALLEL_ENABLED))
+
+    @property
+    def join_device_materialize(self) -> bool:
+        return bool(self.get(keys.JOIN_DEVICE_MATERIALIZE))
+
+    @property
+    def join_device_materialize_max_bytes(self) -> int:
+        return int(self.get(keys.JOIN_DEVICE_MATERIALIZE_MAX_BYTES))
+
+    @property
+    def join_device_span_max_bytes(self) -> int:
+        return int(self.get(keys.JOIN_DEVICE_SPAN_MAX_BYTES))
+
+    @property
+    def stream_join_min_bytes(self) -> int:
+        return int(self.get(keys.STREAM_JOIN_MIN_BYTES))
+
+    @property
+    def join_spill_min_rows(self) -> int:
+        return int(self.get(keys.JOIN_SPILL_MIN_ROWS))

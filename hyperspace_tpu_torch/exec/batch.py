@@ -30,6 +30,10 @@ def num_rows(batch: Batch) -> int:
     return 0
 
 
+def take(batch: Batch, indices: np.ndarray) -> Batch:
+    return {k: v[indices] for k, v in batch.items()}
+
+
 def mask_rows(batch: Batch, mask: np.ndarray) -> Batch:
     mask = np.asarray(mask)
     if mask.ndim == 0:

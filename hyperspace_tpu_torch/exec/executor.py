@@ -1,27 +1,35 @@
-"""Physical executor of the filter query.
+"""Physical executor of the filter query and the equi-join.
 
 Executes a (possibly index-rewritten) logical plan over pyarrow + numpy on
 the host, with the filter over an index scan evaluated on the session's
-device (exec/device.py). The host path is the correctness baseline and the
-non-indexed fallback.
+device (exec/device.py) and a join over two compatible bucketed index scans
+run as the shuffle-free sort-merge join (exec/join.py). The host path is the
+correctness baseline and the non-indexed fallback.
 
-The port's executor runs the nodes of the filter query — ``Scan``,
-``IndexScan``, ``Filter`` and ``Project``; every other node raises until its
-slice lands. The reference delegates all of this to Spark's physical
-planner/executors; here the framework owns it.
+The port's executor runs ``Scan``, ``IndexScan``, ``Filter``, ``Project``
+and ``Join``; every other node raises until its slice lands. The reference
+delegates all of this to Spark's physical planner/executors; here the
+framework owns it.
 """
 
 from __future__ import annotations
 
 import time
-from typing import List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
 from hyperspace_tpu_torch.exec import batch as B
 from hyperspace_tpu_torch.exec import trace
 from hyperspace_tpu_torch.plan import logical as L
-from hyperspace_tpu_torch.plan.expr import INPUT_FILE_NAME, Expr, InputFileName, as_bool_mask
+from hyperspace_tpu_torch.plan.expr import (
+    INPUT_FILE_NAME,
+    Expr,
+    InputFileName,
+    as_bool_mask,
+    extract_equi_join_keys,
+    get_column,
+)
 
 
 def _scan_identity(scan):
@@ -108,9 +116,51 @@ def _read_files(
     return read_parquet_batch(list(files), columns)
 
 
+def _gather_spec(idx: np.ndarray):
+    """Precompute the per-side gather inputs ONCE per join (the NaN mask and
+    int cast are O(rows)): (direct_idx, None, None) for an all-matched int
+    index, (None, valid, ii) for a float index with NaN unmatched marks."""
+    idx = np.asarray(idx)
+    if idx.dtype.kind != "f":
+        return (idx.astype(np.int64, copy=False), None, None)
+    valid = ~np.isnan(idx)
+    return (None, valid, idx[valid].astype(np.int64))
+
+
+def _gather_with_missing(arr: np.ndarray, spec) -> np.ndarray:
+    """Gather ``arr`` rows by a ``_gather_spec``; unmatched rows (pandas'
+    outer merge marks them NaN) null-extend with the same dtype promotion
+    pandas itself applies — ints to float64 NaN, bools to object, datetimes
+    keep their unit with NaT."""
+    direct, valid, ii = spec
+    if direct is not None:
+        return arr[direct]
+    kind = arr.dtype.kind
+    if kind in ("i", "u"):
+        res = np.full(valid.shape, np.nan, dtype=np.float64)
+        res[valid] = arr[ii].astype(np.float64)
+    elif kind == "f":
+        res = np.full(valid.shape, np.nan, dtype=arr.dtype)
+        res[valid] = arr[ii]
+    elif kind == "M":
+        res = np.full(valid.shape, np.datetime64("NaT"), dtype=arr.dtype)
+        res[valid] = arr[ii]
+    elif kind == "m":
+        res = np.full(valid.shape, np.timedelta64("NaT"), dtype=arr.dtype)
+        res[valid] = arr[ii]
+    else:  # strings/objects/bools null-extend as object NaN, like pandas
+        res = np.full(valid.shape, np.nan, dtype=object)
+        res[valid] = arr[ii]
+    return res
+
+
 class Executor:
     def __init__(self, session):
         self.session = session
+        # ids of the plan's shared sub-plans and their batches, keyed by
+        # (id, with_file_names); set per execute()
+        self._shared: set = set()
+        self._memo: Dict[Tuple[int, bool], B.Batch] = {}
 
     def _add_stage(self, stage: str, t0: float) -> float:
         """Add the time since ``t0`` to the session's
@@ -130,7 +180,16 @@ class Executor:
             plan = prune_columns(plan)
         except Exception:  # pruning must never kill a query
             trace.record("prune", "fallback-unpruned")
-        batch = self._exec(plan, _plan_needs_file_names(plan))
+        # sub-plans referenced more than once (both sides of a self-join over
+        # one DataFrame) execute once per collect; only those roots memoize
+        from hyperspace_tpu_torch.rules.utils import shared_subplan_ids
+
+        self._shared = shared_subplan_ids(plan)
+        try:
+            batch = self._exec(plan, _plan_needs_file_names(plan))
+        finally:
+            self._memo = {}
+            self._shared = set()
         if required_columns is not None:
             batch = B.select(batch, required_columns)
         elif INPUT_FILE_NAME in batch:
@@ -138,6 +197,19 @@ class Executor:
         return batch
 
     def _exec(self, plan: L.LogicalPlan, with_file_names: bool) -> B.Batch:
+        # hits hand out shallow copies so callers may add derived keys
+        # without cross-talk (arrays themselves are never mutated)
+        if id(plan) in self._shared:
+            key = (id(plan), with_file_names)
+            hit = self._memo.get(key)
+            if hit is not None:
+                return dict(hit)
+            batch = self._exec_node(plan, with_file_names)
+            self._memo[key] = batch
+            return dict(batch)
+        return self._exec_node(plan, with_file_names)
+
+    def _exec_node(self, plan: L.LogicalPlan, with_file_names: bool) -> B.Batch:
         if isinstance(plan, L.Scan):
             return self._exec_scan(plan, with_file_names)
 
@@ -174,9 +246,13 @@ class Executor:
 
         if isinstance(plan, L.Project):
             # projection pushdown into a directly-scanned source: decode ONLY
-            # the projected columns (the column-pruned plan shape is
-            # Project-over-Scan)
-            if isinstance(plan.child, L.Scan) and set(plan.columns) <= set(plan.child.output_columns):
+            # the projected columns; shared scans are pruned to one shared
+            # Project, so the _exec memo above still deduplicates
+            if (
+                isinstance(plan.child, L.Scan)
+                and id(plan.child) not in self._shared
+                and set(plan.columns) <= set(plan.child.output_columns)
+            ):
                 got = self._exec_scan(plan.child, with_file_names, columns=list(plan.columns))
                 if with_file_names and INPUT_FILE_NAME in got:
                     return got
@@ -187,7 +263,106 @@ class Executor:
                 cols = cols + [INPUT_FILE_NAME]
             return B.select(child, cols)
 
+        if isinstance(plan, L.Join):
+            return self._exec_join(plan, with_file_names)
+
         raise NotImplementedError(f"executing {type(plan).__name__} is not yet in the port")
+
+    def _exec_join(self, plan: L.Join, with_file_names: bool) -> B.Batch:
+        """The bucketed sort-merge join when both sides are compatible
+        bucketed index scans (exec/join.py), else the generic equi-join: a
+        pandas hash merge over slim key frames.
+
+        The JAX package tries a broadcast hash join between the two; that
+        tier is not in the port, and the generic merge gives the same rows
+        (in the merge's order)."""
+        import pandas as pd
+
+        if not with_file_names and self.session.conf.device_execution_enabled:
+            # deviceExecution=False is the kill switch back to the generic
+            # merge: it routes around the whole bucketed-join stack
+            from hyperspace_tpu_torch.exec import device as D
+            from hyperspace_tpu_torch.exec import join as J
+
+            try:
+                return J.dispatch_bucketed_join(self.session, plan)
+            except D.DeviceUnsupported:
+                trace.fallback("join", "unsupported")
+        trace.record("join", "generic-merge")
+
+        pairs = extract_equi_join_keys(plan.condition)
+        if pairs is None:
+            raise NotImplementedError("Only conjunctive equi-joins are supported")
+        left = self._exec(plan.left, with_file_names)
+        right = self._exec(plan.right, with_file_names)
+        t = time.perf_counter()
+        left = {k: v for k, v in left.items() if k != INPUT_FILE_NAME}
+        right = {k: v for k, v in right.items() if k != INPUT_FILE_NAME}
+
+        def materialize_key(batch: B.Batch, name: str) -> bool:
+            """Ensure ``name`` is a column of ``batch``, resolving its case
+            like the analyzer (case-insensitive)."""
+            if name in batch:
+                return True
+            got = get_column(batch, name)
+            if got is not None:
+                batch[name] = got
+                return True
+            return False
+
+        # validate key sides (columns may arrive swapped from the user)
+        lkeys, rkeys = [], []
+        for a, b in pairs:
+            if materialize_key(left, a) and materialize_key(right, b):
+                lkeys.append(a)
+                rkeys.append(b)
+            elif materialize_key(left, b) and materialize_key(right, a):
+                lkeys.append(b)
+                rkeys.append(a)
+            else:
+                raise ValueError(f"Join keys ({a}, {b}) not found in the two sides")
+
+        # rename duplicated right-side columns up front so every output column
+        # resolves to one unambiguous source (the plan's join_output_names).
+        # Only the KEY columns enter pandas: every payload column is gathered
+        # from the original numpy arrays by matched row id afterwards.
+        _, rename = L.join_output_names(list(left), list(right))
+        right_named = {rename.get(k, k): v for k, v in right.items()}
+        rkeys_renamed = [rename.get(k, k) for k in rkeys]
+        ldf = pd.DataFrame({**{k: left[k] for k in lkeys}, "__lrow": np.arange(B.num_rows(left))})
+        rdf = pd.DataFrame({**{k: right_named[k] for k in rkeys_renamed}, "__rrow": np.arange(B.num_rows(right))})
+        if plan.residual is not None:
+            raise NotImplementedError("joins with a residual ON predicate are not yet in the port")
+        spill = self.session.conf.join_spill_min_rows
+        if spill and spill > 0 and max(len(ldf), len(rdf)) > spill:
+            raise NotImplementedError(
+                "the partitioned merge (a join side above hyperspace.exec.join.spillMinRows) is not yet in the port"
+            )
+        merged = ldf.merge(rdf, left_on=lkeys, right_on=rkeys_renamed, how=plan.how)
+        lspec = _gather_spec(merged["__lrow"].to_numpy())
+        rspec = _gather_spec(merged["__rrow"].to_numpy())
+        out: B.Batch = {}
+        for name in plan.output_columns:
+            if name in merged.columns:  # key columns, incl. renamed right keys
+                out[name] = merged[name].to_numpy()
+            elif name in left:
+                out[name] = _gather_with_missing(left[name], lspec)
+            elif name in right_named:
+                out[name] = _gather_with_missing(right_named[name], rspec)
+            else:
+                raise KeyError(f"Join output column {name!r} missing")
+        # USING-style joins coalesce the key across sides: a right/outer
+        # join's unmatched rows show the RIGHT side's key, not NULL
+        if plan.how in ("right", "outer") and plan.using_pairs:
+            for lk, rk in plan.using_pairs:
+                rkr = rename.get(rk, rk)
+                if lk in out and rkr in merged.columns:
+                    lv = out[lk]
+                    mask = pd.isna(lv)
+                    if mask.any():
+                        out[lk] = np.where(mask, merged[rkr].to_numpy(), lv)
+        self._add_stage("join_merge", t)
+        return out
 
     def _exec_scan(
         self,

@@ -108,3 +108,9 @@ def bucket_sort_build(
     perm = lex_argsort([buckets, *keys])
     counts = bucket_histogram(buckets[perm], num_buckets)
     return perm.to(torch.int32), counts
+
+
+def padded_size(n: int) -> int:
+    """Power-of-two size class for ``n`` rows (min 8): the size the JAX
+    package's device programs pad to, which its cost estimates use."""
+    return max(8, 1 << (max(n - 1, 1)).bit_length())

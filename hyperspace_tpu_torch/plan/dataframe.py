@@ -1,20 +1,20 @@
 """User-facing DataFrame facade.
 
 A thin, lazy wrapper over the logical plan so that
-``hs.create_index(df, CoveringIndexConfig(...))`` and filter queries have
-something to operate on. ``collect()`` runs the optimizer rewrite (when
+``hs.create_index(df, CoveringIndexConfig(...))``, filter queries and joins
+have something to operate on. ``collect()`` runs the optimizer rewrite (when
 Hyperspace is enabled on the session) then the executor.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Dict, List, Union as TUnion
+from typing import Dict, List, Optional, Union as TUnion
 
 import numpy as np
 
 from hyperspace_tpu_torch.plan import logical as L
-from hyperspace_tpu_torch.plan.expr import Col, Expr
+from hyperspace_tpu_torch.plan.expr import Col, Expr, col
 from hyperspace_tpu_torch.plan.resolver import resolve_column, resolve_expr
 
 
@@ -39,6 +39,37 @@ class DataFrame:
                 raise ValueError(f"Column {name!r} not found among {self.plan.output_columns}")
             names.append(resolved)
         return DataFrame(L.Project(names, self.plan), self.session)
+
+    def join(
+        self,
+        other: "DataFrame",
+        on: TUnion[str, List[str], Expr],
+        how: str = "inner",
+        residual: Optional[Expr] = None,
+    ) -> "DataFrame":
+        """Equi-join on an expression (``col("a") == col("b")``, ANDed for
+        several keys) or on key names present on both sides (USING-style:
+        the key is coalesced across sides in right and outer joins)."""
+        if residual is not None:
+            raise NotImplementedError("joins with a residual ON predicate are not yet in the port")
+        using_pairs = None
+        if isinstance(on, Expr):
+            condition = on
+        else:
+            keys = [on] if isinstance(on, str) else list(on)
+            terms: Optional[Expr] = None
+            using_pairs = []
+            for k in keys:
+                lk = resolve_column(k, self.plan.output_columns)
+                rk = resolve_column(k, other.plan.output_columns)
+                if lk is None or rk is None:
+                    raise ValueError(f"Join key {k!r} must exist on both sides")
+                term = col(lk) == col(rk)
+                terms = term if terms is None else (terms & term)
+                using_pairs.append((lk, rk))
+            assert terms is not None
+            condition = terms
+        return DataFrame(L.Join(self.plan, other.plan, condition, how, None, using_pairs), self.session)
 
     # --- actions -----------------------------------------------------------
     def optimized_plan(self) -> L.LogicalPlan:

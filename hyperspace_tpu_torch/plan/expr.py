@@ -1,8 +1,8 @@
 """Expression tree.
 
-The predicate language of the filter query: column refs, literals,
-comparisons, boolean connectives, arithmetic, ``isin``/``is_null``, and
-``input_file_name()`` (ref: HS/index/covering/CoveringIndex.scala:239-273),
+The predicate language of the filter query and the join condition: column
+refs, literals, comparisons, boolean connectives, arithmetic,
+``isin``/``is_null``, and ``input_file_name()`` (ref: HS/index/covering/CoveringIndex.scala:239-273),
 with the JAX package's names and semantics (``hyperspace_tpu/plan/expr.py``).
 ``CASE``, ``LIKE``, ``CAST``, scalar functions and subqueries are not in the
 port yet.
@@ -41,6 +41,22 @@ def get_column(batch: Dict[str, np.ndarray], name: str) -> Optional[np.ndarray]:
     for k, v in batch.items():
         if k.lower() == lowered:
             return v
+    return None
+
+
+def column_root_member(name: str, available) -> Optional[str]:
+    """Case-insensitive membership of a (possibly dotted) column name in a
+    set of flat names: a dotted name belongs where its root struct column is.
+    Returns the resolved name (root exact-cased) or None."""
+    lowered = {a.lower(): a for a in available}
+    hit = lowered.get(name.lower())
+    if hit is not None:
+        return hit
+    if "." in name:
+        root, _, rest = name.partition(".")
+        base = lowered.get(root.lower())
+        if base is not None:
+            return f"{base}.{rest}"
     return None
 
 
@@ -474,10 +490,23 @@ def contains_input_file_name(e: Expr) -> bool:
 
 def split_conjunctive(e: Expr) -> List[Expr]:
     """Split a predicate on top-level ANDs (CNF split used by
-    FilterIndexRule; ref: HS/index/covering/JoinIndexRule.scala:149-155)."""
+    FilterIndexRule/JoinIndexRule; ref: HS/index/covering/JoinIndexRule.scala:149-155)."""
     if isinstance(e, BinaryOp) and e.op == "AND":
         return split_conjunctive(e.left) + split_conjunctive(e.right)
     return [e]
+
+
+def extract_equi_join_keys(e: Expr) -> Optional[List[tuple]]:
+    """If ``e`` is a conjunction of ``col = col`` terms, return the (left, right)
+    column-name pairs; else None (ref: JoinPlanNodeFilter's equi-join CNF check,
+    HS/index/covering/JoinIndexRule.scala:135-155)."""
+    pairs = []
+    for term in split_conjunctive(e):
+        if isinstance(term, BinaryOp) and term.op == "=" and isinstance(term.left, Col) and isinstance(term.right, Col):
+            pairs.append((term.left.name, term.right.name))
+        else:
+            return None
+    return pairs
 
 
 def extract_eq_literal(e: Expr) -> Optional[tuple]:

@@ -1,12 +1,13 @@
-"""Logical plan IR — the nodes of the index build and the filter query.
+"""Logical plan IR — the nodes of the index build, the filter query and the
+equi-join.
 
-``Scan`` over a source relation, ``Filter`` and ``Project`` over it, and the
-node the optimizer rewrites a scan into: ``IndexScan`` (replaces a source
-scan; ref: IndexHadoopFsRelation,
+``Scan`` over a source relation, ``Filter``, ``Project`` and ``Join`` over
+it, and the node the optimizer rewrites a scan into: ``IndexScan`` (replaces
+a source scan; ref: IndexHadoopFsRelation,
 HS/index/plans/logical/IndexHadoopFsRelation.scala:29-50), with the
 ``BucketSpec`` a covering index records. ``describe()`` strings are the JAX
-package's. Joins, aggregates and the rest of the relational algebra are not
-in the port yet.
+package's. Aggregates and the rest of the relational algebra are not in the
+port yet.
 """
 
 from __future__ import annotations
@@ -120,6 +121,73 @@ class Project(LogicalPlan):
 
     def describe(self) -> str:
         return f"Project({self.columns})"
+
+
+def join_output_names(left_cols: List[str], right_cols: List[str]) -> Tuple[List[str], Dict[str, str]]:
+    """Join output naming: right-side duplicates get a '#r' suffix, repeated
+    until unique (a second join whose right side collides with an existing
+    'x#r' yields 'x#r#r'). Returns (output names, right-col rename map) —
+    the single source of truth for planning AND execution."""
+    out = list(left_cols)
+    taken = set(left_cols)
+    rename: Dict[str, str] = {}
+    for c in right_cols:
+        name = c
+        while name in taken:
+            name = f"{name}#r"
+        if name != c:
+            rename[c] = name
+        taken.add(name)
+        out.append(name)
+    return out, rename
+
+
+class Join(LogicalPlan):
+    """Equi-join. ``condition`` must be a conjunction of col = col terms
+    (the only shape the reference's JoinIndexRule accepts,
+    ref: HS/index/covering/JoinIndexRule.scala:149-155).
+
+    ``residual`` carries an extra non-equi ON-clause predicate, evaluated
+    over the matched pairs during the join; index rules ignore joins with a
+    residual, and executing one is not in the port yet."""
+
+    def __init__(
+        self,
+        left: LogicalPlan,
+        right: LogicalPlan,
+        condition: Expr,
+        how: str = "inner",
+        residual: Optional[Expr] = None,
+        using_pairs: Optional[List[Tuple[str, str]]] = None,
+    ):
+        self.left = left
+        self.right = right
+        self.condition = condition
+        self.how = how
+        self.residual = residual
+        # (left key, right key) name pairs when the join came from a
+        # USING-style dataframe ``on="k"``: Spark coalesces the key column
+        # across sides, so a right/outer join's unmatched rows must show the
+        # RIGHT side's key under the left name, not NULL. ON-condition joins
+        # leave it None (both keys retained verbatim).
+        self.using_pairs = using_pairs
+
+    def children(self) -> Sequence[LogicalPlan]:
+        return (self.left, self.right)
+
+    @property
+    def output_columns(self) -> List[str]:
+        out, _ = join_output_names(self.left.output_columns, self.right.output_columns)
+        return out
+
+    def with_children(self, children: Sequence[LogicalPlan]) -> "Join":
+        left, right = children
+        return Join(left, right, self.condition, self.how, self.residual, self.using_pairs)
+
+    def describe(self) -> str:
+        if self.residual is not None:
+            return f"Join({self.condition!r}, how={self.how}, residual={self.residual!r})"
+        return f"Join({self.condition!r}, how={self.how})"
 
 
 # --- index-side nodes (appear only in rewritten plans) ----------------------

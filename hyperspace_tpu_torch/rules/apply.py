@@ -17,7 +17,7 @@ from hyperspace_tpu_torch.plan import logical as L
 from hyperspace_tpu_torch.rules.candidate import collect_candidates
 from hyperspace_tpu_torch.rules.context import RuleContext
 from hyperspace_tpu_torch.rules.score import ScoreBasedIndexPlanOptimizer
-from hyperspace_tpu_torch.rules.utils import prune_columns
+from hyperspace_tpu_torch.rules.utils import prune_columns_duplicating
 
 logger = logging.getLogger(__name__)
 
@@ -52,8 +52,11 @@ class ApplyHyperspace:
         if not indexes:
             return plan, 0
         # normalize: push required columns down to the scans (Catalyst runs
-        # ColumnPruning before the reference's rules; this IR does it here)
-        pruned = prune_columns(plan)
+        # ColumnPruning before the reference's rules; this IR does it here),
+        # duplicating shared sub-plans: each join side must be an independent
+        # linear sub-plan for the rules to match (a self-join's two sides
+        # are one object before this)
+        pruned = prune_columns_duplicating(plan)
         candidates = collect_candidates(pruned, indexes)
         if not candidates:
             return plan, 0

@@ -4,8 +4,8 @@ Memoized recursion: at each node, the best of (a) applying a rule to the whole
 sub-tree rooted here, (b) keeping the node and optimizing children
 independently (the NoOpRule path)
 (ref: HS/index/rules/ScoreBasedIndexPlanOptimizer.scala:29-78). The port's
-rule list is FilterIndexRule alone; JoinIndexRule and the data-skipping rule
-plug in with their slices.
+rule list is JoinIndexRule then FilterIndexRule; the data-skipping rule
+plugs in with its slice.
 """
 
 from __future__ import annotations
@@ -14,13 +14,18 @@ from typing import Dict, Tuple
 
 from hyperspace_tpu_torch.plan import logical as L
 from hyperspace_tpu_torch.rules import filter_rule as _fr
+from hyperspace_tpu_torch.rules import join_rule as _jr
 from hyperspace_tpu_torch.rules.context import RuleContext
 from hyperspace_tpu_torch.rules.filter_rule import apply_filter_index_rule
+from hyperspace_tpu_torch.rules.join_rule import apply_join_index_rule
 from hyperspace_tpu_torch.rules.utils import destructure_linear
 
 # (rule, its maximum possible score) — tried highest-max first so the
 # beaten-rule short-circuit bites as early as possible
-RULES = ((apply_filter_index_rule, _fr.MAX_SCORE),)
+RULES = (
+    (apply_join_index_rule, _jr.MAX_SCORE),
+    (apply_filter_index_rule, _fr.MAX_SCORE),
+)
 
 # linear-chain nodes: when the chain TOP destructures, a rule applied there
 # requires a subset of the columns any lower application would (and sees a

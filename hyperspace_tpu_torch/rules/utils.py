@@ -19,6 +19,7 @@ from hyperspace_tpu_torch.plan.expr import (
     Col,
     Expr,
     In,
+    column_root_member,
     extract_eq_literal,
     split_conjunctive,
     strip_nested_prefix,
@@ -158,22 +159,203 @@ def transform_plan_to_use_index(
     return out
 
 
+def hybrid_coverage_fraction(entry: IndexLogEntry, scan: L.Scan) -> float:
+    """commonBytes / currentTotalBytes — scales rule scores under hybrid scan
+    (ref: FilterIndexRule score :170-193, JoinIndexRule score :674-704).
+    Candidates are exact signature matches in the port (hybrid scan raises),
+    so an index covers all of its source's bytes."""
+    return 1.0
+
+
 def prune_columns(plan: L.LogicalPlan, needed=None) -> L.LogicalPlan:
     """Column pruning: push the set of columns the parent actually needs down
     to the scans, materialized as a Project directly above each Scan.
 
     The reference relies on Catalyst's ColumnPruning running *before* its
     rules (ref: JoinIndexRule.scala:419-448 allRequiredCols over pruned
-    plans); this IR has no separate optimizer, so ApplyHyperspace and the
-    executor normalize first. ``needed=None`` means "all columns". The
-    port's plans are linear (no joins, no shared sub-plans), so the JAX
-    package's sharing-preserving variant is not needed yet.
+    plans); this IR has no separate optimizer, so the executor normalizes
+    first. ``needed=None`` means "all columns".
+
+    Sharing-preserving: a sub-plan referenced more than once (both sides of
+    a self-join over one DataFrame) must remain ONE object after pruning, or
+    the executor's shared-subtree memo stops deduplicating and the sub-plan
+    executes once per reference. Shared roots act as barriers in a first
+    pass that accumulates the UNION of columns every reference needs; each
+    is then pruned once and swapped back in by identity.
     """
+    shared = shared_subplan_ids(plan)
+    if not shared:
+        return _prune(plan, needed, None)
+    return _prune_shared(plan, needed, shared)
+
+
+def shared_subplan_ids(plan: L.LogicalPlan) -> set:
+    """ids of sub-plans referenced more than once — the single definition
+    of "shared" used by both pruning here and the executor's shared-subtree
+    memo."""
+    counts: dict = {}
+
+    def walk(p):
+        c = counts.get(id(p), 0) + 1
+        counts[id(p)] = c
+        if c == 1:
+            for ch in p.children():
+                walk(ch)
+
+    walk(plan)
+    return {pid for pid, c in counts.items() if c > 1}
+
+
+def prune_columns_duplicating(plan: L.LogicalPlan, needed=None) -> L.LogicalPlan:
+    """Per-reference pruning: shared sub-plans (self-join sides) are rebuilt
+    independently per use with each use's own needed-set. This is what the
+    INDEX RULES want — each join side must be an independent linear
+    sub-plan to match and rewrite — at the cost of the executor's
+    shared-subtree dedup. ApplyHyperspace uses this before rule matching;
+    the executor's own pass uses the sharing-preserving prune_columns."""
+    return _prune(plan, needed, None)
+
+
+def _prune_shared(plan: L.LogicalPlan, needed, shared) -> L.LogicalPlan:
+    acc: dict = {}  # id(shared node) -> union of needed sets (None = all)
+
+    def note(p, need):
+        if id(p) in acc:
+            prev = acc[id(p)]
+            acc[id(p)] = None if (need is None or prev is None) else prev | set(need)
+        else:
+            acc[id(p)] = None if need is None else set(need)
+
+    top = _prune(plan, needed, (shared, note))
+    if not acc:
+        return top
+    # prune each shared root with its accumulated union, to a FIXPOINT:
+    # pruning one shared node can record new needs for another, so keep
+    # re-pruning any node whose union grew since it was last pruned. Unions
+    # only grow and are bounded by the column sets, so this terminates.
+    preorder: list = []
+    seen: set = set()
+
+    def pre(p):
+        if id(p) in seen:
+            return
+        seen.add(id(p))
+        preorder.append(p)
+        for ch in p.children():
+            pre(ch)
+
+    pre(plan)
+
+    def frozen(s):
+        return None if s is None else frozenset(s)
+
+    replaced: dict = {}
+    pruned_with: dict = {}
+    while True:
+        stale = [n for n in preorder if id(n) in acc and pruned_with.get(id(n), ()) != frozen(acc[id(n)])]
+        if not stale:
+            break
+        for node in stale:
+            replaced[id(node)] = _prune(node, acc[id(node)], (shared, note), skip_self=True)
+            pruned_with[id(node)] = frozen(acc[id(node)])
+    # swap pruned shared roots back in, preserving identity (memo by id).
+    # A pruned shared node often CONTAINS its original (a barrier'd Scan
+    # prunes to Project(cols, scan)); the in_progress guard keeps that
+    # self-reference pointing at the original instead of recursing forever.
+    memo: dict = {}
+    in_progress: set = set()
+
+    def swap(p):
+        got = memo.get(id(p))
+        if got is not None:
+            return got
+        if id(p) in in_progress:
+            return p
+        res = replaced.get(id(p), p)
+        if res is p:
+            new_children = [swap(ch) for ch in p.children()]
+            if any(n is not o for n, o in zip(new_children, p.children())):
+                res = p.with_children(new_children)
+        else:
+            in_progress.add(id(p))
+            try:
+                inner_children = [swap(ch) for ch in res.children()]
+                if any(n is not o for n, o in zip(inner_children, res.children())):
+                    res = res.with_children(inner_children)
+            finally:
+                in_progress.discard(id(p))
+        memo[id(p)] = res
+        return res
+
+    return swap(top)
+
+
+def _prune_join(plan: L.Join, needed, barrier) -> L.Join:
+    left_cols = set(plan.left.output_columns)
+    right_cols = set(plan.right.output_columns)
+    if needed is None:
+        l_needed = r_needed = None
+    else:
+
+        def keep_renamed(c, l_needed, r_needed):
+            # join_output_names repeats the '#r' suffix until unique, so a
+            # doubly-renamed 'x#r#r' needs iterative stripping to find the
+            # right-side source column. The rename is positional: it only
+            # reproduces at execution if the LEFT side still emits every
+            # shorter name in the chain ('x', 'x#r', ...), so keep those too.
+            base, chain = c, []
+            while base.endswith("#r"):
+                chain.append(base[:-2])
+                base = base[:-2]
+                if base in right_cols:
+                    r_needed.add(base)
+                    l_needed.update(x for x in chain if x in left_cols)
+                    return True
+            return False
+
+        l_needed, r_needed = set(), set()
+        for c in needed:
+            # LEFT membership first: join_output_names passes left names
+            # through verbatim, so an 'x#r' that exists on the left IS a left
+            # column (a lower join's rename product) — the right side's
+            # colliding 'x' renames PAST it to 'x#r#r'
+            lr = column_root_member(c, left_cols)
+            if lr is not None:
+                l_needed.add(lr)
+                continue
+            if keep_renamed(c, l_needed, r_needed):
+                continue
+            rr = column_root_member(c, right_cols)
+            if rr is not None:
+                r_needed.add(rr)
+        for c in plan.condition.references():
+            lr = column_root_member(c, left_cols)
+            if lr is not None:
+                l_needed.add(lr)
+            rr = column_root_member(c, right_cols)
+            if rr is not None:
+                r_needed.add(rr)
+    return L.Join(
+        _prune(plan.left, l_needed, barrier),
+        _prune(plan.right, r_needed, barrier),
+        plan.condition,
+        plan.how,
+        plan.residual,
+        plan.using_pairs,
+    )
+
+
+def _prune(plan: L.LogicalPlan, needed, barrier, skip_self: bool = False) -> L.LogicalPlan:
+    if barrier is not None and not skip_self and id(plan) in barrier[0]:
+        barrier[1](plan, needed)
+        return plan  # shared root: record needs, prune later, keep identity
     if isinstance(plan, L.Project):
-        return L.Project(plan.columns, prune_columns(plan.child, set(plan.columns)))
+        return L.Project(plan.columns, _prune(plan.child, set(plan.columns), barrier))
     if isinstance(plan, L.Filter):
         child_needed = None if needed is None else set(needed) | set(plan.condition.references())
-        return plan.with_children([prune_columns(plan.child, child_needed)])
+        return plan.with_children([_prune(plan.child, child_needed, barrier)])
+    if isinstance(plan, L.Join):
+        return _prune_join(plan, needed, barrier)
     if isinstance(plan, L.Scan):
         out = plan.output_columns
         if needed is None:
@@ -186,8 +368,10 @@ def prune_columns(plan: L.LogicalPlan, needed=None) -> L.LogicalPlan:
         if flat < set(out):
             return L.Project([c for c in out if c in flat], plan)
         return plan
-    # any other node (an IndexScan) keeps all its columns
-    new_children = [prune_columns(c, None) for c in plan.children()]
+    # any other node (an IndexScan) keeps all its columns, but still
+    # recurse: shared sub-plans MUST be noted here or the sharing swap would
+    # substitute replacements pruned for other (narrower) uses
+    new_children = [_prune(c, None, barrier) for c in plan.children()]
     if any(n is not o for n, o in zip(new_children, plan.children())):
         return plan.with_children(new_children)
     return plan

@@ -67,7 +67,15 @@ class Session:
         #: copy of columns the device cache misses), predicate_launch
         #: (compile, literal upload, enqueue), wait_copy_mask (waits for the
         #: device program and copies the mask back), host_predicate,
-        #: mask_rows
+        #: mask_rows; and for joins (exec/join.py): join_plan (compatibility,
+        #: footer row counts and the input-size stat), join_decode (both
+        #: sides' per-bucket decode, sort and side filters), join_keys (key
+        #: encoding, the key cache's stat of both sides' files, the key
+        #: rectangles), join_upload (host-to-device copies of key and payload
+        #: rectangles), join_span (the span program's launch),
+        #: join_materialize (pair totals, which wait for the span program;
+        #: expand-gather; the copies back), join_host_expand (host spans,
+        #: pair expansion and gathers), join_merge (the generic merge)
         self.query_stage_seconds: collections.Counter = collections.Counter()
 
     # --- reading data ------------------------------------------------------
