@@ -331,8 +331,6 @@ class Executor:
         rkeys_renamed = [rename.get(k, k) for k in rkeys]
         ldf = pd.DataFrame({**{k: left[k] for k in lkeys}, "__lrow": np.arange(B.num_rows(left))})
         rdf = pd.DataFrame({**{k: right_named[k] for k in rkeys_renamed}, "__rrow": np.arange(B.num_rows(right))})
-        if plan.residual is not None:
-            raise NotImplementedError("joins with a residual ON predicate are not yet in the port")
         spill = self.session.conf.join_spill_min_rows
         if spill and spill > 0 and max(len(ldf), len(rdf)) > spill:
             raise NotImplementedError(

@@ -78,8 +78,6 @@ def join_sides_compatible(plan: L.Join) -> Optional[Tuple[L.LogicalPlan, L.Logic
     equal bucket counts, return (left_side, right_side, lkeys, rkeys); else
     None (ref: JoinIndexRanker's equal-bucket preference,
     HS/index/covering/JoinIndexRanker.scala:52-92)."""
-    if plan.residual is not None:
-        return None
     pairs = extract_equi_join_keys(plan.condition)
     if not pairs:
         return None
@@ -234,7 +232,7 @@ def _side_files(node: L.LogicalPlan) -> List[str]:
 
 
 #: composite-key rank encodings keyed on both sides' full identity
-_RANK_CACHE = BytesLRU(int(os.environ.get("HS_RANK_CACHE_BYTES", 1 << 29)))
+_RANK_CACHE = BytesLRU(1 << 29)
 
 
 def clear_rank_cache() -> None:

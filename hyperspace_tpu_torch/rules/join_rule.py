@@ -121,8 +121,6 @@ def apply_join_index_rule(
     # a wildcard joinType, JoinIndexRule.scala:52-54)
     if not isinstance(plan, L.Join) or plan.how not in ("inner", "left", "right", "outer"):
         return plan, 0
-    if plan.residual is not None:
-        return plan, 0  # outside the rule's equi-CNF scope
     pairs = extract_equi_join_keys(plan.condition)
     if not pairs:
         return plan, 0
