@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py [--seed N] [--rows N] [--files N] [--reps N] [--baseline-csrc DIR]
 
-Phases, each printed with its time (the filter query's phases are 5, 9
-and 11, the join's 6, 10 and 12):
+Phases, each printed with its time (the filter query's phases are 5, 10
+and 13, the join's 6, 11 and 14, the aggregates' 7, 12 and 15):
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: compiles the port's CUDA kernels from ``hyperspace_tpu_torch/csrc``;
@@ -32,15 +32,26 @@ and 11, the join's 6, 10 and 12):
    left, right and outer, and a self-join must give the GPU result equal to
    the CPU port's byte for byte and in order, equal to hyperspace off (the
    generic merge) as a multiset, and ``join: device-smj`` in every trace;
-7. generate and slice: generates a TPC-H-shaped SF1 ``lineitem`` lake (6M
-   rows in 16 files, from ``--seed``) and builds three indexes through the
-   public API (``Session`` -> ``read_parquet`` -> ``Hyperspace.create_index``)
-   at the default 200 buckets and 2M batch rows, with the kernel launch
-   counts reset just before and read just after, and prints each covering
-   build's host time by stage;
-8. check: every bucket file (rows hash to their bucket, sorted by the key,
+7. agg-small: eleven aggregates over the query-small and join-small
+   indexes of both builds (global with a filter and with one that keeps no
+   row; grouped by an int, a float (NaN, -0.0, ±inf), a string (nulls), a
+   date (nulls) and two keys, with every function; 54 000 groups, past the
+   capacity floor; over the join globally, by the join key and by a left
+   key) must give the GPU result equal to the CPU port's over each build
+   (keys, order, counts, int sums, min and max exact, float sums, avg and
+   stddev at rtol 1e-9), equal to hyperspace off as a multiset of group
+   rows, and ``agg: device-fused-scan``, ``agg: device-grouped-scan`` or
+   ``agg: fused-bucketed-join`` in every trace;
+8. generate and slice: generates a TPC-H-shaped SF1 ``lineitem`` lake (6M
+   rows in 16 files, from ``--seed``, with TPC-H's return flag and line
+   status) and builds three indexes through the public API (``Session`` ->
+   ``read_parquet`` -> ``Hyperspace.create_index``) at the default 200
+   buckets and 2M batch rows, with the kernel launch counts reset just
+   before and read just after, and prints each covering build's host time
+   by stage;
+9. check: every bucket file (rows hash to their bucket, sorted by the key,
    same rows as the source) and every sketch row (numpy per-file min/max);
-9. query: on the session that built them, with ``deviceMinRows=0``, TPC-H
+10. query: on the session that built them, with ``deviceMinRows=0``, TPC-H
    q6's filter through ``li_shipdate`` and a point lookup on
    ``l_orderkey`` through ``li_orderkey`` (``useBucketSpec``: one bucket),
    with kernel launches and device dispatches reset just before and read
@@ -52,7 +63,7 @@ and 11, the join's 6, 10 and 12):
    runs add to ``Session.query_stage_seconds`` (rewrite, decode, scan
    identity, upload, predicate launch, wait and mask copy, host predicate,
    ``mask_rows``), and the predicate program's bound;
-10. join: on the same session, a TPC-H-shaped SF1 ``orders`` lake (1.5M
+11. join: on the same session, a TPC-H-shaped SF1 ``orders`` lake (1.5M
    rows in 8 files, every ``l_orderkey`` matching one order) and its
    covering index ``o_orderkey`` at 200 buckets (build time and stages),
    then J1 (``lineitem`` joined to ``orders`` on the order key, 6M output
@@ -66,16 +77,34 @@ and 11, the join's 6, 10 and 12):
    J2), warm on the host-span path (the default ``deviceMinRows``) and with
    hyperspace off, each split by its ``Session.query_stage_seconds``
    layers; then each device program of a warm J1 timed alone with CUDA
-   events beside its bound;
-11. profile-query: one warm q6 under ``torch.profiler``: device busy time
+   events beside its bound; at ``--seed 0`` and SF1 the row counts of q6,
+   J1 and J2 must be those of the lake before its flag columns;
+12. agg: on the same session, the covering index ``li_q1`` (on
+   ``l_shipdate`` with q1's columns; build time, stages and K1 launches),
+   then A1 (TPC-H q1 over plain columns through ``li_q1``: 4 groups of
+   about 5.9M rows), A2 (q6's global aggregate through ``li_shipdate``),
+   A3 (a global aggregate over J1) and A4 (J2 grouped by order key and
+   order date, the q3 class), with device dispatches reset just before:
+   the plans, the traces (``agg: device-grouped-scan``, ``agg:
+   device-fused-scan``, ``agg: fused-bucketed-join``), the groups against
+   hyperspace off (as multisets) and the host path (in order; A3 and A4
+   also against the aggregate over the materialized join); each cold,
+   warm (the median of ``--reps`` for A1 and A2, a third of that for A3
+   and A4), warm on the host path (the default ``deviceMinRows``) and with
+   hyperspace off, each split by its layers; then the ``fused-agg`` program
+   of a warm A2 and the ``grouped-agg-chunk`` program of a warm A1 timed
+   alone with CUDA events beside their bounds;
+13. profile-query: one warm q6 under ``torch.profiler``: device busy time
    against the query's wall time, and the device time by op;
-12. profile-join: the same for one warm J1;
-13. profile: one more covering build under ``torch.profiler``: the device's
+14. profile-join: the same for one warm J1;
+15. profile-agg: the same for one warm A1;
+16. profile: one more covering build under ``torch.profiler``: the device's
    busy time (the union of its kernel and copy intervals) against the
    build's wall time, and the device time by kernel.
 
-The third line from the end is a JSON object with the queries' and the
-joins' results and times, the line before the last one with an entry per
+The third line from the end is a JSON object with the queries', the
+joins' (under ``"join"``) and the aggregates' (under ``"agg"``) results and
+times, the line before the last one with an entry per
 kernel; the last line
 is ``{"ok": true, "device": {...}}``. Any failed check raises, so
 the script exits non-zero and prints no result. It exits non-zero as well
@@ -113,9 +142,17 @@ def phase(name: str, t0: float) -> None:
     print(f"phase {name}: {time.perf_counter() - t0:.3f} s", flush=True)
 
 
+#: TPC-H's "current date" (spec 4.2.3): a line shipped after it is open
+#: (``l_linestatus`` 'O'); one received by it may be returned ('R' or 'A')
+CURRENT_DATE = "1995-06-17"
+
+
 def gen_lineitem(root: str, rows_total: int, num_files: int, seed: int) -> str:
     """TPC-H-shaped ``lineitem`` (the repo's benchmarks/datagen.py columns
-    and value ranges): ``rows_total`` rows over ``num_files`` parquet files."""
+    and value ranges): ``rows_total`` rows over ``num_files`` parquet files.
+    ``l_returnflag`` and ``l_linestatus`` follow TPC-H's rule from the ship
+    date and a receipt 1-30 days later, drawn from a second generator so
+    every other column is the same as without them."""
     import numpy as np
     import pyarrow as pa
     import pyarrow.parquet as pq
@@ -125,22 +162,26 @@ def gen_lineitem(root: str, rows_total: int, num_files: int, seed: int) -> str:
     os.makedirs(d, exist_ok=True)
     per = max(1, rows_total // num_files)
     rng = np.random.default_rng(seed)
+    flags_rng = np.random.default_rng(seed + 1)
     base = np.datetime64("1992-01-01")
+    current = np.datetime64(CURRENT_DATE)
     n_orders = max(1, int(ORDERS_ROWS_SF1 * sf))
     for i in range(num_files):
         rows = per if i < num_files - 1 else rows_total - per * (num_files - 1)
-        t = pa.table(
-            {
-                "l_orderkey": rng.integers(0, n_orders, rows).astype(np.int64),
-                "l_partkey": rng.integers(0, int(200_000 * max(sf, 0.01)), rows).astype(np.int64),
-                "l_quantity": rng.integers(1, 51, rows).astype(np.int64),
-                "l_extendedprice": np.round(rng.uniform(900.0, 105000.0, rows), 2),
-                "l_discount": np.round(rng.uniform(0.0, 0.1, rows), 2),
-                "l_tax": np.round(rng.uniform(0.0, 0.08, rows), 2),
-                "l_shipdate": base + rng.integers(0, 2526, rows).astype("timedelta64[D]"),
-            }
-        )
-        pq.write_table(t, os.path.join(d, f"part-{i:05d}.parquet"))
+        cols = {
+            "l_orderkey": rng.integers(0, n_orders, rows).astype(np.int64),
+            "l_partkey": rng.integers(0, int(200_000 * max(sf, 0.01)), rows).astype(np.int64),
+            "l_quantity": rng.integers(1, 51, rows).astype(np.int64),
+            "l_extendedprice": np.round(rng.uniform(900.0, 105000.0, rows), 2),
+            "l_discount": np.round(rng.uniform(0.0, 0.1, rows), 2),
+            "l_tax": np.round(rng.uniform(0.0, 0.08, rows), 2),
+            "l_shipdate": base + rng.integers(0, 2526, rows).astype("timedelta64[D]"),
+        }
+        receipt = cols["l_shipdate"] + flags_rng.integers(1, 31, rows).astype("timedelta64[D]")
+        returned = flags_rng.choice(np.array(["R", "A"]), rows)
+        cols["l_returnflag"] = np.where(receipt <= current, returned, "N")
+        cols["l_linestatus"] = np.where(cols["l_shipdate"] > current, "O", "F")
+        pq.write_table(pa.table(cols), os.path.join(d, f"part-{i:05d}.parquet"))
     return d
 
 
@@ -865,8 +906,8 @@ def program_bound(plan, rows: int, hbm: float):
     return bound(width * rows + rows, 2 * len(refs) * rows, hbm)
 
 
-def q6_query(df):
-    """TPC-H q6's filter over ``lineitem``, selecting what q6 sums."""
+def q6_filter(df):
+    """TPC-H q6's filter over ``lineitem``."""
     import numpy as np
 
     import hyperspace_tpu_torch as ht
@@ -875,7 +916,12 @@ def q6_query(df):
     return df.filter(
         (c("l_shipdate") >= np.datetime64("1994-01-01")) & (c("l_shipdate") < np.datetime64("1995-01-01"))
         & (c("l_discount") >= 0.05) & (c("l_discount") <= 0.07) & (c("l_quantity") < 24)
-    ).select("l_extendedprice", "l_discount")
+    )
+
+
+def q6_query(df):
+    """TPC-H q6's filter, selecting what q6 sums."""
+    return q6_filter(df).select("l_extendedprice", "l_discount")
 
 
 def run_queries(sess, src: str, args, smi: str, hbm: float) -> dict:
@@ -1304,7 +1350,350 @@ def run_joins(sess, li_src: str, tmp: str, args, smi: str, hbm: float) -> dict:
         print(f"program {name} ({p['shape']}): {p['ms']} ms, bound {p['bound_ms']} ms ({p['bound_by']}), "
               f"{100 * p['share_of_bound']:.1f}% of bound ({smi})", flush=True)
     return {"joins": list(out.values()), "dispatches": dispatches, "programs": programs,
-            "o_orderkey_build_s": build_s, "o_orderkey_build_launches": build_launches}, queries["J1"]
+            "o_orderkey_build_s": build_s, "o_orderkey_build_launches": build_launches}, queries["J1"], o_src
+
+
+# --- aggregates -----------------------------------------------------------------
+
+
+def same_groups(got, want, float_aggs, ordered: bool) -> bool:
+    """Equal aggregate results: the same columns and dtypes, keys, counts,
+    int sums, min and max exact, float sums, avg and stddev (``float_aggs``)
+    at rtol 1e-9 (and atol 1e-9: a sum that cancels to about zero keeps an
+    absolute error of its summation order); in order, or (``ordered=False``) as multisets of group
+    rows, compared sorted by every exact column with dates at one unit (the
+    generic merge keeps them at second resolution) and float keys by value
+    (a group's -0.0 or +0.0 key is its first row's)."""
+    import numpy as np
+
+    from hyperspace_tpu_torch.ops import encode
+
+    if list(got) != list(want):
+        return False
+    if not ordered:
+        def norm(batch):
+            batch = {k: v.astype("datetime64[us]") if v.dtype.kind == "M" else v for k, v in batch.items()}
+            exact = [k for k in batch if k not in float_aggs]
+            if not exact or not len(batch[exact[0]]):
+                return batch
+            order = np.lexsort([encode.sort_key_int64(batch[k] + 0.0 if batch[k].dtype.kind == "f" else batch[k])
+                                for k in exact][::-1])
+            return {k: v[order] for k, v in batch.items()}
+
+        got, want = norm(got), norm(want)
+    for k in want:
+        g, w = got[k], want[k]
+        if g.dtype != w.dtype or g.shape != w.shape:
+            return False
+        if w.dtype == object:
+            # a null string key is None on the fused join path and NaN on
+            # the host (pandas) path, in both packages
+            def null(x):
+                return x is None or x != x
+
+            if not all(x == y or (null(x) and null(y)) for x, y in zip(g.tolist(), w.tolist())):
+                return False
+        elif k in float_aggs or (not ordered and w.dtype.kind == "f"):
+            if not np.allclose(g, w, rtol=1e-9, atol=1e-9, equal_nan=True):
+                return False
+        elif g.tobytes() != w.tobytes():
+            return False
+    return True
+
+
+def float_aggs_of(df) -> set:
+    """Output names of a DataFrame's float-valued sums, averages and
+    standard deviations (the ones that add floats in a varying order)."""
+    from hyperspace_tpu_torch.plan import logical as L
+
+    (agg,) = L.collect(df.plan, lambda p: isinstance(p, L.Aggregate))
+    return {name for name, fn, _ in agg.aggs if fn in ("sum", "avg", "stddev_samp")}
+
+
+def small_aggregates(q, f, d, c):
+    """{name: (DataFrame, the ``agg:`` trace line)} over the query-small
+    lake ``q`` (index ``qsmall`` on ``id``) and the join-small frames ``f``
+    and ``d``; ``c`` is ``col``."""
+    every = dict(rows=("*", "count"), nf=("f", "count"), sid=("id", "sum"), sf=("f", "sum"), mnz=("z", "min"),
+                 mxf=("f", "max"), aid=("id", "avg"), af=("f", "avg"), mnid=("id", "min"), mxid=("id", "max"),
+                 sdf=("f", "stddev_samp"), sn=("n", "sum"), mnn=("n", "min"))
+    scan = "agg: device-grouped-scan x1"
+    joined = f.join(d, c("k") == c("dk"))
+    return {
+        "global": (q.filter(c("id") > 100).agg(**{k: v for k, v in every.items() if k != "sdf"}),
+                   "agg: device-fused-scan x1"),
+        "global_no_match": (q.filter(c("id") < 0).agg(rows=("*", "count"), sf=("f", "sum"), mnz=("z", "min")),
+                            "agg: device-fused-scan x1"),
+        "by_int": (q.filter(c("id") >= 0).group_by("z").agg(**every), scan),
+        "by_float": (q.filter(c("id") > 10).group_by("f").agg(rows=("*", "count"), sid=("id", "sum"),
+                                                              sn=("n", "sum")), scan),
+        "by_string": (q.filter(c("id") < 50_000).group_by("s").agg(**every), scan),
+        "by_date": (q.filter(c("id") >= 0).group_by("d").agg(rows=("*", "count"), af=("f", "avg"),
+                                                             mxid=("id", "max")), scan),
+        "by_two_keys": (q.filter(c("id") >= 5).group_by("s", "z").agg(rows=("*", "count"), sf=("f", "sum"),
+                                                                      sdf=("f", "stddev_samp")), scan),
+        "many_groups": (q.filter(c("id") >= 0).group_by("n").agg(rows=("*", "count"), sf=("f", "sum")), scan),
+        "join_global": (joined.agg(rows=("*", "count"), sv=("v", "sum"), sw=("w", "sum"), av=("v", "avg"),
+                                   mnv=("v", "min"), mxk=("k", "max")), "agg: fused-bucketed-join x1"),
+        "join_by_key": (joined.group_by("k").agg(rows=("*", "count"), sv=("v", "sum"), sw=("w", "sum")),
+                        "agg: fused-bucketed-join x1"),
+        "join_by_left": (joined.group_by("str").agg(rows=("*", "count"), sv=("v", "sum"), an=("n", "avg")),
+                         "agg: fused-bucketed-join x1"),
+    }
+
+
+def check_agg_small(tmp: str, seed: int, devices=("cpu", "cuda")) -> dict:
+    """Aggregates over the query-small and join-small lakes, through the
+    indexes those phases built in a CPU and in a GPU session: on the GPU
+    against the CPU port over each build (in order; rows with equal keys
+    follow their bucket's run files, whose names differ between builds)
+    and against hyperspace off (as multisets of group rows)."""
+    import hyperspace_tpu_torch as ht
+    from hyperspace_tpu_torch.exec import device as D
+    from hyperspace_tpu_torch.ops import kernels
+
+    q_src = os.path.join(tmp, "qsmall")
+    fact, dim = os.path.join(tmp, "join", "fact"), os.path.join(tmp, "join", "dim")
+
+    def frames(owner, device, enabled=True):
+        """The query-small frame and the two join-small frames, read in
+        sessions over ``owner``'s indexes."""
+        out = []
+        for kind, paths in (("qsmall", (q_src,)), ("jsmall", (fact, dim))):
+            sess = ht.Session(conf={ht.keys.SYSTEM_PATH: os.path.join(tmp, f"{kind}-{owner}"),
+                                    ht.keys.DEVICE_MIN_ROWS: 0}, device=device)
+            sess.hyperspace_enabled = enabled
+            out.extend(sess.read_parquet(p) for p in paths)
+        return out
+
+    kernels.reset_launches()
+    D.reset_dispatches()
+    groups = {}
+    names = list(small_aggregates(*frames(devices[0], devices[0]), ht.col))
+    for name in names:
+        for owner in devices:
+            got = {}
+            for device in devices:
+                df, line = small_aggregates(*frames(owner, device), ht.col)[name]
+                assert plan_index_scans(df.optimized_plan()), f"{name}: {df.optimized_plan().pretty()}"
+                got[device], summary = traced_collect(df)
+                assert line in summary.splitlines(), f"{name} on {device} over the {owner} build: {summary}"
+            assert same_groups(got[devices[-1]], got[devices[0]], float_aggs_of(df), ordered=True), \
+                f"{name} over the {owner} build: the GPU result differs from the CPU port's"
+        df = small_aggregates(*frames(devices[0], devices[0], enabled=False), ht.col)[name][0]
+        off, summary = traced_collect(df)
+        assert not any(ln.startswith("agg:") for ln in summary.splitlines()), summary
+        assert same_groups(got[devices[-1]], off, float_aggs_of(df), ordered=False), \
+            f"{name}: differs from hyperspace off"
+        groups[name] = len(next(iter(off.values())))
+        print(f"agg-small {name}: {groups[name]} groups; over either build, GPU equals the CPU port and hyperspace "
+              f"off; {line.rsplit(' ', 1)[0]}", flush=True)
+    assert not any(kernels.launches.values()), dict(kernels.launches)
+    assert groups["many_groups"] > 256, groups  # past the capacity floor: one right-sized re-run
+    # each scan aggregate ran once per (build, device) pair
+    runs = len(devices) ** 2
+    assert D.dispatches["fused-agg"] == runs * 2, dict(D.dispatches)
+    assert D.dispatches["grouped-agg-chunk"] >= runs * 6, dict(D.dispatches)
+    return {"aggregates": len(names), "groups": groups, "dispatches": dict(D.dispatches)}
+
+
+def q1_query(df):
+    """TPC-H q1 over plain columns (its two computed sums wait for computed
+    columns): shipped by 1998-09-02, grouped by return flag and status."""
+    import numpy as np
+
+    import hyperspace_tpu_torch as ht
+
+    return (df.filter(ht.col("l_shipdate") <= np.datetime64("1998-09-02"))
+            .group_by("l_returnflag", "l_linestatus")
+            .agg(sum_qty=("l_quantity", "sum"), sum_base_price=("l_extendedprice", "sum"),
+                 avg_qty=("l_quantity", "avg"), avg_price=("l_extendedprice", "avg"),
+                 avg_disc=("l_discount", "avg"), count_order=("*", "count"),
+                 sd_price=("l_extendedprice", "stddev_samp")))
+
+
+def agg_queries(li, orders):
+    """A1: TPC-H q1 over plain columns; A2: q6's global aggregate; A3: a
+    global aggregate over J1; A4: J2 grouped by order (the TPC-H q3 class)."""
+    import numpy as np
+
+    import hyperspace_tpu_torch as ht
+
+    c = ht.col
+    j1 = li.join(orders, c("l_orderkey") == c("o_orderkey"))
+    j2 = li.filter(c("l_extendedprice") > 50000).join(
+        orders.filter(c("o_orderdate") < np.datetime64("1995-03-15")), c("l_orderkey") == c("o_orderkey"))
+    return {
+        "A1": (q1_query(li), ["li_q1"], "agg: device-grouped-scan x1"),
+        "A2": (q6_filter(li).agg(revenue=("l_extendedprice", "sum"), n=("*", "count"),
+                                 avg_disc=("l_discount", "avg"), min_qty=("l_quantity", "min"),
+                                 max_qty=("l_quantity", "max")),
+               ["li_shipdate"], "agg: device-fused-scan x1"),
+        "A3": (j1.agg(n=("*", "count"), sum_price=("l_extendedprice", "sum"), sum_total=("o_totalprice", "sum"),
+                      avg_price=("l_extendedprice", "avg"), min_price=("l_extendedprice", "min"),
+                      max_price=("l_extendedprice", "max")),
+               ["li_orderkey", "o_orderkey"], "agg: fused-bucketed-join x1"),
+        "A4": (j2.group_by("l_orderkey", "o_orderdate").agg(revenue=("l_extendedprice", "sum"), n=("*", "count")),
+               ["li_orderkey", "o_orderkey"], "agg: fused-bucketed-join x1"),
+    }
+
+
+def capture_agg_programs(run):
+    """Run ``run()`` with the aggregate programs wrapped to record their
+    inputs: {program: (program, args)} of their last calls."""
+    from hyperspace_tpu_torch.exec import aggregate as A
+
+    seen = {}
+    real = {"fused-agg": A.fused_agg_program, "grouped-agg-chunk": A.grouped_chunk_program}
+
+    def wrap(name):
+        def make(*a):
+            program = real[name](*a)
+
+            def call(*args):
+                seen[name] = (program, args)
+                return program(*args)
+
+            return call
+
+        return make
+
+    A.fused_agg_program, A.grouped_chunk_program = wrap("fused-agg"), wrap("grouped-agg-chunk")
+    try:
+        run()
+    finally:
+        A.fused_agg_program, A.grouped_chunk_program = real["fused-agg"], real["grouped-agg-chunk"]
+    return seen
+
+
+def agg_program_times(seen, reps: int, hbm: float) -> dict:
+    """Each aggregate program of a warm run timed alone (CUDA events, median
+    of ``reps``) beside its bound: the columns it reads, once each, and the
+    outputs it writes, once, over the card's memory rate."""
+    out = {}
+    for name, (program, args) in seen.items():
+        cols = args[0]
+        read = sum(t.numel() * t.element_size() for t in cols.values())
+        got = program(*args)
+        written = 0
+        for t in (got[1:] if name == "grouped-agg-chunk" else got):
+            for x in (t if isinstance(t, tuple) else (t,)):
+                written += x.numel() * x.element_size()
+        b_ms, b_by = bound(read + written, 0, hbm)
+        ms = time_ms(lambda: program(*args), reps)
+        n = args[2]
+        out[name] = {"shape": f"{n} rows, {len(cols)} columns ({', '.join(sorted(cols))})", "ms": ms,
+                     "bound_ms": b_ms, "bound_by": b_by, "share_of_bound": b_ms / ms, "bytes": read + written}
+    return out
+
+
+def run_aggregates(sess, li_src: str, o_src: str, tmp: str, args, smi: str, hbm: float) -> dict:
+    """The ``li_q1`` build, then A1-A4 on the device path against hyperspace
+    off and the host path; then timed, and the two programs alone."""
+    import torch
+
+    import hyperspace_tpu_torch as ht
+    from hyperspace_tpu_torch.exec import device as D
+    from hyperspace_tpu_torch.ops import kernels
+
+    li = sess.read_parquet(li_src)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    sess.build_stage_seconds.clear()
+    t = time.perf_counter()
+    ht.Hyperspace(sess).create_index(li, ht.CoveringIndexConfig(
+        "li_q1", ["l_shipdate"],
+        ["l_returnflag", "l_linestatus", "l_quantity", "l_extendedprice", "l_discount", "l_tax"]))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    build_launches = dict(kernels.launches)
+    assert build_launches.get("bucket_histogram", 0) > 0, build_launches
+    build_stages = dict(sess.build_stage_seconds)
+    print(f"build li_q1: {build_s:.3f} s, {args.rows / build_s:.0f} rows/s, launches {build_launches} ({smi})",
+          flush=True)
+    print("stages li_q1: " + ", ".join(f"{k} {v:.3f} s" for k, v in build_stages.items()), flush=True)
+
+    sess.conf.set(ht.keys.DEVICE_MIN_ROWS, 0)
+    sess.enable_hyperspace()
+    queries = agg_queries(li, sess.read_parquet(o_src))
+    torch.cuda.synchronize()
+    D.reset_dispatches()
+    out = {}
+    for name, (q, indexes, line) in queries.items():
+        reps = args.reps if name in ("A1", "A2") else max(3, args.reps // 3)
+        floats = float_aggs_of(q)
+        plan = q.optimized_plan()
+        print(f"plan {name}:\n{plan.pretty()}", flush=True)
+        assert sorted(s.entry.name for s in plan_index_scans(plan)) == indexes, plan.pretty()
+        clear_query_caches()
+        before = dict(D.dispatches)
+        sess.query_stage_seconds.clear()
+        t = time.perf_counter()
+        got, summary = traced_collect(q)
+        torch.cuda.synchronize()
+        cold = (time.perf_counter() - t) * 1e3
+        cold_layers = {k: v * 1e3 for k, v in sess.query_stage_seconds.items()}
+        cold_layers.update(rest=cold - sum(cold_layers.values()), total=cold)
+        print(f"trace {name}: " + "; ".join(summary.splitlines()), flush=True)
+        assert line in summary.splitlines(), summary
+        if name in ("A1", "A2"):
+            program = "grouped-agg-chunk" if name == "A1" else "fused-agg"
+            assert D.dispatches[program] == before.get(program, 0) + 1, (program, dict(D.dispatches))
+        groups = len(next(iter(got.values())))
+        warm_layers = layer_ms(sess, q.collect, reps)
+        sess.conf.set(ht.keys.DEVICE_MIN_ROWS, 1 << 25)
+        host, host_summary = traced_collect(q)
+        if name in ("A1", "A2"):
+            assert not any(ln.startswith("agg:") for ln in host_summary.splitlines()), host_summary
+        assert same_groups(got, host, floats, ordered=True), f"{name}: the host path differs from the device path"
+        del host
+        host_layers = layer_ms(sess, q.collect, max(3, reps // 3))
+        sess.conf.set(ht.keys.DEVICE_MIN_ROWS, 0)
+        extra = {}
+        if name in ("A3", "A4"):
+            # the aggregate over the materialized join (the device tiers off:
+            # the generic merge, then the host aggregate)
+            sess.conf.set(ht.keys.DEVICE_EXECUTION, "false")
+            t = time.perf_counter()
+            mat, mat_summary = traced_collect(q)
+            extra["materialized_ms"] = (time.perf_counter() - t) * 1e3
+            sess.conf.set(ht.keys.DEVICE_EXECUTION, "true")
+            assert "join: generic-merge x1" in mat_summary.splitlines(), mat_summary
+            assert same_groups(got, mat, floats, ordered=False), f"{name}: differs from the materialized join's"
+            del mat
+        with sess.hyperspace_scope(False):
+            off, off_summary = traced_collect(q)
+            assert not any(ln.startswith("agg:") for ln in off_summary.splitlines()), off_summary
+            assert groups > 0 and same_groups(got, off, floats, ordered=False), f"{name}: differs from hyperspace off"
+            del off
+            off_layers = layer_ms(sess, q.collect, 3)
+        out[name] = {"name": name, "groups": groups, "cold_ms": cold, "warm_ms": warm_layers["total"],
+                     "host_warm_ms": host_layers["total"], "off_ms": off_layers["total"], "reps": reps, **extra,
+                     "layers_ms": {"cold": cold_layers, "warm": warm_layers, "host_warm": host_layers,
+                                   "off": off_layers}}
+        if name == "A1":
+            out[name]["result"] = {k: v.tolist() for k, v in got.items()}
+        print(f"agg {name}: {groups} groups, equal to hyperspace off and to the host path; cold {cold:.3f} ms, "
+              f"warm {warm_layers['total']:.3f} ms, warm on the host path {host_layers['total']:.3f} ms, "
+              f"hyperspace off {off_layers['total']:.3f} ms"
+              + (f", over the materialized join {extra['materialized_ms']:.3f} ms" if extra else "") + f" ({smi})",
+              flush=True)
+        for run, layers in out[name]["layers_ms"].items():
+            print(f"layers {name} ({run}): " + ", ".join(f"{k} {v:.3f} ms" for k, v in layers.items())
+                  + f" ({smi})", flush=True)
+    torch.cuda.synchronize()
+    dispatches = dict(D.dispatches)
+    print(f"agg path: dispatches {dispatches}", flush=True)
+    seen = {}
+    for name in ("A1", "A2"):
+        seen.update(capture_agg_programs(queries[name][0].collect))
+    programs = agg_program_times(seen, args.reps, hbm)
+    for name, p in programs.items():
+        print(f"program {name} ({p['shape']}): {p['ms']} ms, bound {p['bound_ms']} ms ({p['bound_by']}), "
+              f"{100 * p['share_of_bound']:.2f}% of bound ({smi})", flush=True)
+    return {"aggregates": list(out.values()), "dispatches": dispatches, "programs": programs,
+            "li_q1_build_s": build_s, "li_q1_build_stages": build_stages,
+            "li_q1_build_launches": build_launches}, queries["A1"][0]
 
 
 def main() -> None:
@@ -1370,6 +1759,10 @@ def main() -> None:
         phase("join-small", t)
 
         t = time.perf_counter()
+        agg_small = check_agg_small(tmp, args.seed)
+        phase("agg-small", t)
+
+        t = time.perf_counter()
         src = gen_lineitem(tmp, args.rows, args.files, args.seed)
         print(f"lake: {args.rows} lineitem rows in {args.files} files", flush=True)
         phase("generate", t)
@@ -1430,9 +1823,22 @@ def main() -> None:
         phase("query", t)
 
         t = time.perf_counter()
-        queries["join"], j1 = run_joins(sess, src, tmp, args, smi, hbm)
+        queries["join"], j1, o_src = run_joins(sess, src, tmp, args, smi, hbm)
         queries["join"]["small"] = join_small
         phase("join", t)
+
+        if (args.seed, args.rows, args.files) == (0, LINEITEM_ROWS_SF1, 16):
+            # the lake's added columns left every other column as it was:
+            # the counts of the runs before them
+            rows = {q["name"]: q["rows"] for q in queries["queries"] + queries["join"]["joins"]}
+            assert (rows["q6"], rows["J1"], rows["J2"]) == (119660, 6000000, 1542231), rows
+            print(f"lake guard: q6 {rows['q6']}, J1 {rows['J1']}, J2 {rows['J2']} rows, as before the flag "
+                  f"columns", flush=True)
+
+        t = time.perf_counter()
+        queries["agg"], a1 = run_aggregates(sess, src, o_src, tmp, args, smi, hbm)
+        queries["agg"]["small"] = agg_small
+        phase("agg", t)
 
         t = time.perf_counter()
         sess.conf.set(ht.keys.DEVICE_MIN_ROWS, 0)
@@ -1445,6 +1851,12 @@ def main() -> None:
         j1.collect()  # warm: decoded buckets and device rectangles resident
         queries["J1_profile"] = device_profile("J1 (warm)", j1.collect, tmp)
         phase("profile-join", t)
+
+        t = time.perf_counter()
+        sess.conf.set(ht.keys.DEVICE_MIN_ROWS, 0)
+        a1.collect()  # warm: the scan decoded, its columns resident
+        queries["A1_profile"] = device_profile("A1 (warm)", a1.collect, tmp)
+        phase("profile-agg", t)
 
         t = time.perf_counter()
         profile_build(hs, df, ht.CoveringIndexConfig(

@@ -15,7 +15,11 @@ over a covering index: ``Session.enable_hyperspace()``, then
 to the index (``rules/``) and evaluates the predicate on the device
 (``exec/device.py``) — and the equi-join, which JoinIndexRule rewrites to
 two bucketed index scans that join as a shuffle-free sort-merge join with
-its span search and pair expansion on the device (``exec/join.py``).
+its span search and pair expansion on the device (``exec/join.py``) — and
+aggregation: ``group_by(...).agg(...)``, global ``agg(...)`` and
+``distinct()`` over a (filtered) index scan run as one device program
+(``exec/aggregate.py``), and over the bucketed join as span-weighted
+reductions that never expand the pairs.
 
 Layer map (the JAX package's layout, module for module):
   - ``models/``    metadata model + operation-log persistence
@@ -24,7 +28,8 @@ Layer map (the JAX package's layout, module for module):
   - ``indexes/``   covering and data-skipping index builds
   - ``actions/``   the create action
   - ``rules/``     ApplyHyperspace + FilterIndexRule + JoinIndexRule
-  - ``exec/``      executor, parquet IO, the device filter, the bucketed join
+  - ``exec/``      executor, parquet IO, the device filter, the bucketed join,
+                   the device aggregates
   - ``ops/``       hashing, encode, device sort, kernel wrappers
   - ``csrc/``      the CUDA kernels
   - ``telemetry/`` action events

@@ -1,7 +1,7 @@
 """Configuration system.
 
-The keys, defaults and typed accessors the index build, the filter query
-and the join read, under the same names and with the same defaults as the JAX package's
+The keys, defaults and typed accessors the index build, the filter query,
+the join and the aggregate read, under the same names and with the same defaults as the JAX package's
 ``hyperspace_tpu/config.py`` so one conf dict drives either package; the
 port ignores the keys it does not read. Keys are namespaced ``hyperspace.*``.
 """
@@ -12,7 +12,7 @@ from typing import Any, Dict, Optional
 
 
 class keys:
-    """Configuration keys read by the build, query and join paths."""
+    """Configuration keys read by the build, query, join and aggregate paths."""
 
     SYSTEM_PATH = "hyperspace.system.path"
     NUM_BUCKETS = "hyperspace.index.numBuckets"
@@ -29,6 +29,12 @@ class keys:
     JOIN_DEVICE_SPAN_MAX_BYTES = "hyperspace.tpu.join.deviceSpanMaxBytes"
     STREAM_JOIN_MIN_BYTES = "hyperspace.exec.stream.joinMinBytes"
     JOIN_SPILL_MIN_ROWS = "hyperspace.exec.join.spillMinRows"
+    STREAM_AGG_MIN_BYTES = "hyperspace.exec.stream.aggMinBytes"
+    STREAM_CHUNK_BYTES = "hyperspace.exec.stream.chunkBytes"
+    AGG_ENABLED = "hyperspace.exec.agg.enabled"
+    AGG_MAX_GROUPS = "hyperspace.exec.agg.maxGroups"
+    AGG_CAPACITY_FLOOR = "hyperspace.exec.agg.capacityFloor"
+    FUSION_ENABLED = "hyperspace.exec.fusion.enabled"
 
 
 DEFAULTS: Dict[str, Any] = {
@@ -74,6 +80,23 @@ DEFAULTS: Dict[str, Any] = {
     # hash partitions; the partitioned merge is not in the port yet, so a
     # join that large raises
     keys.JOIN_SPILL_MIN_ROWS: 1 << 26,
+    # above this many source bytes (a scan chain of at least two files that
+    # split into at least two chunks of chunkBytes) the JAX package streams
+    # an aggregate in file chunks and merges partial states; the streamed
+    # aggregate is not in the port yet, so an aggregate that large raises
+    keys.STREAM_AGG_MIN_BYTES: 1 << 30,
+    keys.STREAM_CHUNK_BYTES: 256 * 1024 * 1024,
+    # grouped aggregates over an index scan run on the session's device as
+    # one filter, rank-compression and segment-reduction program; False
+    # routes every group-by to the host pandas aggregate
+    keys.AGG_ENABLED: True,
+    # above this many groups the device grouped aggregate spills to the host
+    keys.AGG_MAX_GROUPS: 1 << 20,
+    # the smallest group capacity; capacities grow by powers of sqrt(2)
+    keys.AGG_CAPACITY_FLOOR: 256,
+    # whole-stage fusion is not in the port yet: an aggregate that would
+    # take it raises
+    keys.FUSION_ENABLED: False,
 }
 
 # Operation-log layout constants (ref: HS/index/IndexConstants.scala:93-95).
@@ -183,3 +206,27 @@ class HyperspaceConf:
     @property
     def join_spill_min_rows(self) -> int:
         return int(self.get(keys.JOIN_SPILL_MIN_ROWS))
+
+    @property
+    def stream_agg_min_bytes(self) -> int:
+        return int(self.get(keys.STREAM_AGG_MIN_BYTES))
+
+    @property
+    def stream_chunk_bytes(self) -> int:
+        return int(self.get(keys.STREAM_CHUNK_BYTES))
+
+    @property
+    def agg_device_grouped_enabled(self) -> bool:
+        return bool(self.get(keys.AGG_ENABLED))
+
+    @property
+    def agg_max_groups(self) -> int:
+        return int(self.get(keys.AGG_MAX_GROUPS))
+
+    @property
+    def agg_capacity_floor(self) -> int:
+        return int(self.get(keys.AGG_CAPACITY_FLOOR))
+
+    @property
+    def fusion_enabled(self) -> bool:
+        return bool(self.get(keys.FUSION_ENABLED))

@@ -536,7 +536,12 @@ _device_cache = BytesLRU(int(os.environ.get("HS_DEVICE_CACHE_BYTES", 1 << 31)))
 
 
 def clear_device_cache() -> None:
+    """Drop every resident column and rectangle, and the grouped
+    aggregate's capacity hints (as the JAX package's clear does)."""
+    from hyperspace_tpu_torch.exec import aggregate
+
     _device_cache.clear()
+    aggregate._CAP_HINT_MEMO.clear()
 
 
 def _dry_codecs(batch: B.Batch, refs) -> Dict[str, ColumnCodec]:

@@ -1,15 +1,17 @@
-"""Physical executor of the filter query and the equi-join.
+"""Physical executor of the filter query, the equi-join and aggregation.
 
 Executes a (possibly index-rewritten) logical plan over pyarrow + numpy on
 the host, with the filter over an index scan evaluated on the session's
-device (exec/device.py) and a join over two compatible bucketed index scans
-run as the shuffle-free sort-merge join (exec/join.py). The host path is the
-correctness baseline and the non-indexed fallback.
+device (exec/device.py), a join over two compatible bucketed index scans
+run as the shuffle-free sort-merge join (exec/join.py), and an aggregate
+over a (filtered) index scan run as one device program
+(exec/aggregate.py). The host path is the correctness baseline and the
+non-indexed fallback.
 
-The port's executor runs ``Scan``, ``IndexScan``, ``Filter``, ``Project``
-and ``Join``; every other node raises until its slice lands. The reference
-delegates all of this to Spark's physical planner/executors; here the
-framework owns it.
+The port's executor runs ``Scan``, ``IndexScan``, ``Filter``, ``Project``,
+``Join`` and ``Aggregate``; every other node raises until its slice lands.
+The reference delegates all of this to Spark's physical planner/executors;
+here the framework owns it.
 """
 
 from __future__ import annotations
@@ -154,6 +156,152 @@ def _gather_with_missing(arr: np.ndarray, spec) -> np.ndarray:
     return res
 
 
+def _chain_to_scan(plan: L.LogicalPlan):
+    """(wrappers, leaf) when ``plan`` is a chain of row-wise nodes
+    (Project/Filter) over a single Scan/IndexScan leaf — the shape the
+    streaming executor can partition by files; (None, None) otherwise."""
+    chain = []
+    node = plan
+    while isinstance(node, (L.Project, L.Filter)):
+        chain.append(node)
+        node = node.child
+    if isinstance(node, (L.Scan, L.IndexScan)):
+        return chain, node
+    return None, None
+
+
+def _leaf_files(leaf: L.LogicalPlan) -> List[str]:
+    if isinstance(leaf, L.Scan):
+        return [fi.name for fi in leaf.relation.all_file_infos()]
+    return list(leaf.files)
+
+
+def _chunk_files_by_bytes(files: List[str], target_bytes: int) -> List[List[str]]:
+    """Greedy size-bounded file groups (a single file above the target forms
+    its own group)."""
+    import os
+
+    groups: List[List[str]] = []
+    cur: List[str] = []
+    cur_bytes = 0
+    for f in files:
+        try:
+            sz = os.stat(f).st_size
+        except OSError:
+            sz = target_bytes  # unknown -> isolate conservatively
+        if cur and cur_bytes + sz > target_bytes:
+            groups.append(cur)
+            cur, cur_bytes = [], 0
+        cur.append(f)
+        cur_bytes += sz
+    if cur:
+        groups.append(cur)
+    return groups
+
+
+#: aggregate functions with a decomposable partial state (Spark's
+#: partial/final split); distinct forms accumulate uniques
+_STREAMABLE_AGGS = {
+    "count", "sum", "min", "max", "avg", "stddev_samp",
+    "count_distinct", "sum_distinct", "avg_distinct",
+}
+
+
+def host_aggregate(batch: B.Batch, keys: List[str], aggs) -> B.Batch:
+    """The host pandas aggregate over an in-memory batch — the semantic
+    reference every device aggregate path must reproduce (NULL sums via
+    min_count=1, dropna=False grouping, appearance-ordered groups via
+    sort=False)."""
+    import pandas as pd
+
+    batch = {k: v for k, v in batch.items() if k != INPUT_FILE_NAME}
+    n = B.num_rows(batch)
+
+    def series(col_name: str) -> np.ndarray:
+        got = batch.get(col_name)
+        if got is None:
+            got = get_column(batch, col_name)
+        if got is None:
+            raise KeyError(f"Aggregate input column {col_name!r} not found")
+        return got
+
+    _PD_FN = {"avg": "mean", "sum": "sum", "min": "min", "max": "max"}
+
+    def _global_agg(fn: str, col_name: Optional[str]):
+        if fn == "count":
+            return n if col_name is None else int(pd.Series(series(col_name)).count())
+        s = pd.Series(series(col_name))
+        if fn == "count_distinct":
+            return int(s.nunique(dropna=True))
+        if fn in ("sum_distinct", "avg_distinct"):
+            d = s.dropna().drop_duplicates()
+            return d.sum(min_count=1) if fn == "sum_distinct" else d.mean()
+        if fn == "stddev_samp":
+            return s.std(ddof=1)
+        if fn == "sum":
+            # SQL: SUM over zero rows (or all NULLs) is NULL, not 0 —
+            # pandas' min_count=0 default returns 0
+            return s.sum(min_count=1)
+        return getattr(s, _PD_FN[fn])()
+
+    if not keys:
+        out: B.Batch = {}
+        for name, fn, col_name in aggs:
+            out[name] = np.asarray([_global_agg(fn, col_name)])
+        return out
+
+    # object/string group keys factorize to int codes BEFORE entering the
+    # frame (pandas' string column construction is slow, and the groupby
+    # only needs key IDENTITY — real values map back at the end);
+    # use_na_sentinel=False gives NaN its own code, matching dropna=False
+    key_uniques = {}
+    frame_cols = {}
+    agg_inputs = {c for _, _, c in aggs if c is not None}
+    for k in keys:
+        arr = series(k)
+        # a key that also feeds an aggregate (min(x) ... GROUP BY x)
+        # must keep its real values — codes order by appearance
+        if arr.dtype.kind in ("O", "U", "S") and k not in agg_inputs:
+            codes, uniques = pd.factorize(arr, use_na_sentinel=False)
+            frame_cols[k] = codes
+            key_uniques[k] = uniques
+        else:
+            frame_cols[k] = arr
+    for name, fn, col_name in aggs:
+        if col_name is not None and col_name not in frame_cols:
+            frame_cols[col_name] = series(col_name)
+    df = pd.DataFrame(frame_cols)
+    grouped = df.groupby(keys, dropna=False, sort=False)
+    out = {}
+    pieces = {}
+    for name, fn, col_name in aggs:
+        if fn == "count" and col_name is None:
+            pieces[name] = grouped.size()
+        elif fn == "count":
+            pieces[name] = grouped[col_name].count()
+        elif fn == "count_distinct":
+            pieces[name] = grouped[col_name].nunique(dropna=True)
+        elif fn == "sum_distinct":
+            pieces[name] = grouped[col_name].agg(lambda s: s.dropna().drop_duplicates().sum(min_count=1))
+        elif fn == "avg_distinct":
+            pieces[name] = grouped[col_name].agg(lambda s: s.dropna().drop_duplicates().mean())
+        elif fn == "stddev_samp":
+            pieces[name] = grouped[col_name].std(ddof=1)
+        elif fn == "sum":
+            # an all-NULL group must sum to NULL (SQL), not pandas' 0
+            pieces[name] = grouped[col_name].sum(min_count=1)
+        else:
+            pieces[name] = getattr(grouped[col_name], _PD_FN[fn])()
+    result = pd.DataFrame(pieces).reset_index()
+    for k in keys:
+        vals = result[k].to_numpy()
+        uniq = key_uniques.get(k)
+        out[k] = uniq[vals] if uniq is not None else vals
+    for name, _, _ in aggs:
+        out[name] = result[name].to_numpy()
+    return out
+
+
 class Executor:
     def __init__(self, session):
         self.session = session
@@ -266,6 +414,9 @@ class Executor:
         if isinstance(plan, L.Join):
             return self._exec_join(plan, with_file_names)
 
+        if isinstance(plan, L.Aggregate):
+            return self._exec_aggregate(plan, with_file_names)
+
         raise NotImplementedError(f"executing {type(plan).__name__} is not yet in the port")
 
     def _exec_join(self, plan: L.Join, with_file_names: bool) -> B.Batch:
@@ -361,6 +512,153 @@ class Executor:
                         out[lk] = np.where(mask, merged[rkr].to_numpy(), lv)
         self._add_stage("join_merge", t)
         return out
+
+    def _exec_aggregate(self, plan: L.Aggregate, with_file_names: bool) -> B.Batch:
+        """The JAX package's tiers, in its order: the fused aggregate over a
+        compatible bucketed inner join (host spans, no pair expansion), the
+        device aggregate over a (filtered) index scan, the host pandas
+        aggregate."""
+        conf = self.session.conf
+        child = None
+        if not with_file_names and conf.device_execution_enabled:
+            join_node = plan.child
+            while isinstance(join_node, L.Project):
+                join_node = join_node.child
+            if isinstance(join_node, L.Join):
+                from hyperspace_tpu_torch.exec import device as D
+                from hyperspace_tpu_torch.exec import join as J
+
+                try:
+                    got = J.aggregate_over_bucketed_join(self.session, plan, join_node)
+                    trace.record("agg", "fused-bucketed-join")
+                    return got
+                except D.DeviceUnsupported:
+                    trace.fallback("agg", "join-unsupported")
+        if not with_file_names:
+            self._check_fused_join_aggregate(plan)
+            self._check_streaming_aggregate(plan)
+        if not with_file_names and conf.device_execution_enabled:
+            got, scan_batch, filter_node = self._try_device_aggregate(plan)
+            if got is not None:
+                trace.record("agg", "device-grouped-scan" if plan.keys else "device-fused-scan")
+                return got
+            if scan_batch is not None:
+                # the device gate already materialized the scan: reuse it
+                if filter_node is not None:
+                    mask = self._filter_mask(filter_node, scan_batch)
+                    t = time.perf_counter()
+                    child = B.mask_rows(scan_batch, mask)
+                    self._add_stage("mask_rows", t)
+                else:
+                    child = scan_batch
+
+        if child is None:
+            child = self._exec(plan.child, with_file_names)
+        t = time.perf_counter()
+        out = host_aggregate(child, list(plan.keys), list(plan.aggs))
+        self._add_stage("agg_host", t)
+        return out
+
+    def _check_fused_join_aggregate(self, plan: L.Aggregate) -> None:
+        """The JAX package compiles a grouped aggregate over (a Filter over)
+        an inner join into one fused stage program per chunk when
+        ``hyperspace.exec.fusion.enabled`` is set; that is not in the port,
+        so such a query raises."""
+        conf = self.session.conf
+        if not (conf.fusion_enabled and conf.device_execution_enabled and conf.agg_device_grouped_enabled):
+            return
+        if not plan.keys or any(fn not in _STREAMABLE_AGGS or fn.endswith("_distinct") for _, fn, _ in plan.aggs):
+            return
+        node = plan.child
+        if isinstance(node, L.Filter):
+            node = node.child
+        if isinstance(node, L.Join):
+            raise NotImplementedError(
+                "the fused join aggregate (hyperspace.exec.fusion.enabled) is not yet in the port"
+            )
+
+    def _check_streaming_aggregate(self, plan: L.Aggregate) -> None:
+        """The JAX package aggregates a scan chain over more source bytes
+        than ``hyperspace.exec.stream.aggMinBytes`` in file chunks, merging
+        partial states; that is not in the port, so an aggregate it would
+        stream raises (at least two files in at least two chunks)."""
+        conf = self.session.conf
+        min_bytes = conf.stream_agg_min_bytes
+        if not min_bytes or min_bytes <= 0:
+            return
+        if any(fn not in _STREAMABLE_AGGS for _, fn, _ in plan.aggs):
+            return
+        _chain, leaf = _chain_to_scan(plan.child)
+        if leaf is None:
+            return
+        files = _leaf_files(leaf)
+        if len(files) < 2:
+            return
+        import os
+
+        try:
+            total_bytes = sum(os.stat(f).st_size for f in files)
+        except OSError:
+            return
+        if total_bytes < min_bytes:
+            return
+        if len(_chunk_files_by_bytes(files, max(1, conf.stream_chunk_bytes))) < 2:
+            return
+        raise NotImplementedError(
+            "the streamed aggregate (inputs above hyperspace.exec.stream.aggMinBytes) is not yet in the port"
+        )
+
+    def _try_device_aggregate(self, plan: L.Aggregate):
+        """Returns (result, scan_batch, filter_node): result=None means the
+        caller runs the host path — reusing scan_batch (the materialized
+        scan, pre-filter) when it was already read for the gate. Only
+        ``DeviceUnsupported`` (raised before any upload) and
+        ``GroupCapacityExceeded`` come back as None; device errors
+        propagate."""
+        conf = self.session.conf
+        node = plan.child
+        filter_node = None
+        if isinstance(node, L.Filter):
+            filter_node = node
+            node = node.child
+        if not isinstance(node, L.IndexScan):
+            return None, None, None
+        if plan.keys and not conf.agg_device_grouped_enabled:
+            return None, None, None
+        from hyperspace_tpu_torch.exec import aggregate as A
+        from hyperspace_tpu_torch.exec import device as D
+
+        batch = self._exec(node, with_file_names=False)
+        if B.num_rows(batch) < conf.device_exec_min_rows:
+            trace.fallback("agg", "min-rows")
+            return None, batch, filter_node
+        if conf.parallel_enabled:
+            raise NotImplementedError("the sharded (hyperspace.parallel.enabled) aggregate is not yet in the port")
+        condition = filter_node.condition if filter_node is not None else None
+        t = time.perf_counter()
+        scan_key = _scan_identity(node)
+        self._add_stage("scan_identity", t)
+        try:
+            if plan.keys:
+                got = A.device_grouped_aggregate(
+                    self.session,
+                    batch,
+                    condition,
+                    list(plan.keys),
+                    list(plan.aggs),
+                    scan_key=scan_key,
+                    max_groups=conf.agg_max_groups,
+                    cap_floor=conf.agg_capacity_floor,
+                )
+            else:
+                got = A.device_filtered_aggregate(self.session, batch, condition, plan.aggs, scan_key=scan_key)
+            return got, batch, filter_node
+        except A.GroupCapacityExceeded:
+            trace.fallback("agg", "spill")
+            return None, batch, filter_node
+        except D.DeviceUnsupported:
+            trace.fallback("agg", "unsupported")
+            return None, batch, filter_node
 
     def _exec_scan(
         self,

@@ -1,8 +1,8 @@
 """User-facing DataFrame facade.
 
 A thin, lazy wrapper over the logical plan so that
-``hs.create_index(df, CoveringIndexConfig(...))``, filter queries and joins
-have something to operate on. ``collect()`` runs the optimizer rewrite (when
+``hs.create_index(df, CoveringIndexConfig(...))``, filter queries, joins and
+aggregates have something to operate on. ``collect()`` runs the optimizer rewrite (when
 Hyperspace is enabled on the session) then the executor.
 """
 
@@ -71,6 +71,31 @@ class DataFrame:
             condition = terms
         return DataFrame(L.Join(self.plan, other.plan, condition, how, None, using_pairs), self.session)
 
+    def group_by(self, *keys: TUnion[str, Col]) -> "GroupedData":
+        resolved = []
+        for k in keys:
+            name = k.name if isinstance(k, Col) else str(k)
+            r = resolve_column(name, self.plan.output_columns)
+            if r is None:
+                raise ValueError(f"Column {name!r} not found among {self.plan.output_columns}")
+            resolved.append(r)
+        return GroupedData(self, resolved)
+
+    groupBy = group_by
+
+    def agg(self, **aggs) -> "DataFrame":
+        """Global aggregates: ``df.agg(total=("v", "sum"), n=("*", "count"))``."""
+        return GroupedData(self, []).agg(**aggs)
+
+    def distinct(self) -> "DataFrame":
+        """Distinct rows over all output columns (grouped aggregation with
+        the helper count projected away)."""
+        cols = list(self.plan.output_columns)
+        agg = L.Aggregate(cols, [("__distinct_count", "count", None)], self.plan)
+        return DataFrame(L.Project(cols, agg), self.session)
+
+    dropDuplicates = drop_duplicates = distinct
+
     # --- actions -----------------------------------------------------------
     def optimized_plan(self) -> L.LogicalPlan:
         from hyperspace_tpu_torch.rules.apply import optimize_plan
@@ -105,3 +130,49 @@ class DataFrame:
 
     def __repr__(self) -> str:
         return f"DataFrame[{', '.join(self.plan.output_columns)}]"
+
+
+class GroupedData:
+    """``df.group_by(...)`` handle — terminal calls build an Aggregate node.
+
+    ``agg`` takes ``out_name=(input_column, fn)`` pairs with fn one of
+    ``Aggregate.FNS``; ``("*", "count")`` counts rows.
+    """
+
+    def __init__(self, df: DataFrame, keys: List[str]):
+        self._df = df
+        self._keys = keys
+
+    def agg(self, **aggs) -> DataFrame:
+        if not aggs:
+            raise ValueError("agg() needs at least one aggregate")
+        resolved_aggs = []
+        available = self._df.plan.output_columns
+        for out_name, (col_name, fn) in aggs.items():
+            if col_name in ("*", None):
+                if str(fn) != "count":
+                    raise ValueError(f"('*', {fn!r}) is invalid — only ('*', 'count') counts rows")
+                resolved_aggs.append((out_name, str(fn), None))
+                continue
+            r = resolve_column(str(col_name), available)
+            if r is None:
+                raise ValueError(f"Column {col_name!r} not found among {available}")
+            resolved_aggs.append((out_name, str(fn), r))
+        return DataFrame(L.Aggregate(self._keys, resolved_aggs, self._df.plan), self._df.session)
+
+    def count(self) -> DataFrame:
+        return self.agg(count=("*", "count"))
+
+    def sum(self, column: str) -> DataFrame:
+        return self.agg(**{f"sum({column})": (column, "sum")})
+
+    def min(self, column: str) -> DataFrame:
+        return self.agg(**{f"min({column})": (column, "min")})
+
+    def max(self, column: str) -> DataFrame:
+        return self.agg(**{f"max({column})": (column, "max")})
+
+    def avg(self, column: str) -> DataFrame:
+        return self.agg(**{f"avg({column})": (column, "avg")})
+
+    mean = avg

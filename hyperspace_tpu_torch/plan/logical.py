@@ -1,13 +1,13 @@
-"""Logical plan IR — the nodes of the index build, the filter query and the
-equi-join.
+"""Logical plan IR — the nodes of the index build, the filter query, the
+equi-join and aggregation.
 
-``Scan`` over a source relation, ``Filter``, ``Project`` and ``Join`` over
-it, and the node the optimizer rewrites a scan into: ``IndexScan`` (replaces
-a source scan; ref: IndexHadoopFsRelation,
+``Scan`` over a source relation, ``Filter``, ``Project``, ``Join`` and
+``Aggregate`` over it, and the node the optimizer rewrites a scan into:
+``IndexScan`` (replaces a source scan; ref: IndexHadoopFsRelation,
 HS/index/plans/logical/IndexHadoopFsRelation.scala:29-50), with the
 ``BucketSpec`` a covering index records. ``describe()`` strings are the JAX
-package's. Aggregates and the rest of the relational algebra are not in the
-port yet.
+package's. Sorting, limits and the rest of the relational algebra are not in
+the port yet.
 """
 
 from __future__ import annotations
@@ -188,6 +188,47 @@ class Join(LogicalPlan):
         if self.residual is not None:
             return f"Join({self.condition!r}, how={self.how}, residual={self.residual!r})"
         return f"Join({self.condition!r}, how={self.how})"
+
+
+class Aggregate(LogicalPlan):
+    """Hash aggregation: ``keys`` group-by columns (empty = global) and
+    ``aggs`` as (output name, fn, input column) with fn in
+    count/sum/min/max/avg — the slice of aggregation the dataframe facade
+    offers around indexed scans (the reference delegates aggregation to
+    Spark; index rewrites apply beneath this node untouched)."""
+
+    FNS = (
+        "count", "sum", "min", "max", "avg",
+        "count_distinct", "sum_distinct", "avg_distinct", "stddev_samp",
+    )
+
+    def __init__(self, keys: List[str], aggs: List[tuple], child: LogicalPlan):
+        self.keys = list(keys)
+        self.aggs = [tuple(a) for a in aggs]
+        for _, fn, _ in self.aggs:
+            if fn not in self.FNS:
+                raise ValueError(f"Unsupported aggregate fn {fn!r}; one of {self.FNS}")
+        seen = set(self.keys)
+        for name, _, _ in self.aggs:
+            if name in seen:
+                raise ValueError(f"Duplicate aggregate output name {name!r} (collides with a key or another aggregate)")
+            seen.add(name)
+        self.child = child
+
+    def children(self) -> Sequence[LogicalPlan]:
+        return (self.child,)
+
+    @property
+    def output_columns(self) -> List[str]:
+        return self.keys + [name for name, _, _ in self.aggs]
+
+    def with_children(self, children: Sequence[LogicalPlan]) -> "Aggregate":
+        (child,) = children
+        return Aggregate(self.keys, self.aggs, child)
+
+    def describe(self) -> str:
+        parts = [f"{name}={fn}({col_ or '*'})" for name, fn, col_ in self.aggs]
+        return f"Aggregate(keys={self.keys}, [{', '.join(parts)}])"
 
 
 # --- index-side nodes (appear only in rewritten plans) ----------------------

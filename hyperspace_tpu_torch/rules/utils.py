@@ -368,6 +368,10 @@ def _prune(plan: L.LogicalPlan, needed, barrier, skip_self: bool = False) -> L.L
         if flat < set(out):
             return L.Project([c for c in out if c in flat], plan)
         return plan
+    if isinstance(plan, L.Aggregate):
+        child_needed = set(plan.keys) | {c for _, _, c in plan.aggs if c is not None}
+        (child,) = plan.children()
+        return plan.with_children([_prune(child, child_needed, barrier)])
     # any other node (an IndexScan) keeps all its columns, but still
     # recurse: shared sub-plans MUST be noted here or the sharing swap would
     # substitute replacements pruned for other (narrower) uses
