@@ -4,7 +4,8 @@
     python3 chip_smoke.py [--seed N] [--rows N] [--files N] [--reps N] [--baseline-csrc DIR]
 
 Phases, each printed with its time (the filter query's phases are 5, 10
-and 13, the join's 6, 11 and 14, the aggregates' 7, 12 and 15):
+and 13, the join's 6, 11 and 14, the aggregates' 7, 12 and 15, out-of-core
+execution's 7b, 12b, 15b and 17):
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: compiles the port's CUDA kernels from ``hyperspace_tpu_torch/csrc``;
@@ -42,6 +43,17 @@ and 13, the join's 6, 11 and 14, the aggregates' 7, 12 and 15):
    stddev at rtol 1e-9), equal to hyperspace off as a multiset of group
    rows, and ``agg: device-fused-scan``, ``agg: device-grouped-scan`` or
    ``agg: fused-bucketed-join`` in every trace;
+7b. stream-small: the streamed paths over the join-small and query-small
+   lakes through the GPU build, on the GPU against the CPU port: the
+   streamed join (``joinMinBytes=1``; J1 and J2 shapes, inner, left, right
+   and outer) byte for byte equal to the unstreamed join, an empty streamed
+   join typed from the index footers, the streamed aggregate
+   (``aggMinBytes=1, chunkBytes=1``: every streamable function, distinct
+   forms, int, float, string and date keys with null groups; a chunk and a
+   merge above ``maxGroups``) equal to the unstreamed one,
+   ``to_local_iterator`` over a scan chain, an index filter and the
+   bucketed join (one closed after its first chunk: no decode after the
+   close) and the partitioned merge (``spillMinRows=64``);
 8. generate and slice: generates a TPC-H-shaped SF1 ``lineitem`` lake (6M
    rows in 16 files, from ``--seed``, with TPC-H's return flag and line
    status) and builds three indexes through the public API (``Session`` ->
@@ -94,13 +106,34 @@ and 13, the join's 6, 11 and 14, the aggregates' 7, 12 and 15):
    hyperspace off, each split by its layers; then the ``fused-agg`` program
    of a warm A2 and the ``grouped-agg-chunk`` program of a warm A1 timed
    alone with CUDA events beside their bounds;
+12b. stream: J1 and J2 streamed (``joinMinBytes=1``) with the join
+   pipeline on and off, byte for byte equal to the unstreamed join and to
+   hyperspace off as a multiset; A1 and A2 streamed (``aggMinBytes=1``,
+   ``chunkBytes`` an eighth of ``li_q1``'s index bytes: at least 8 chunks)
+   with the scan pipeline on and off, equal to the materialized aggregate,
+   and A1's pipelined and serial partial tables bit for bit (deterministic
+   algorithms); warm medians and layers of every run, the launches of
+   ``grouped-agg-chunk`` and ``grouped-merge`` per streamed A1; the
+   partitioned merge of J1 with hyperspace off (``spillMinRows=2^20``);
+   ``grouped-merge`` alone on A1's last partial tables beside its bound;
 13. profile-query: one warm q6 under ``torch.profiler``: device busy time
    against the query's wall time, and the device time by op;
 14. profile-join: the same for one warm J1;
 15. profile-agg: the same for one warm A1;
+15b. profile-stream: the same for one warm streamed A1;
 16. profile: one more covering build under ``torch.profiler``: the device's
    busy time (the union of its kernel and copy intervals) against the
-   build's wall time, and the device time by kernel.
+   build's wall time, and the device time by kernel;
+17. scale: the gates at their defaults. Each SF1 index's bytes, then the
+   fewest ``lineitem`` rows (the SF1 lake's columns, distributions and rows
+   per file; ``orders`` at a quarter) that put J1's two covering indexes
+   (TPC-H q3's ``lineitem`` and ``orders`` columns) together, and ``li_q1``
+   alone, above 1.2 GiB, sized from those indexes' SF1 bytes per row;
+   the lake generated on worker processes and indexed (K1 launches), the
+   gates' crossing asserted from the bytes; J1 (the streamed join) and A1
+   (the streamed aggregate) cold and warm, against hyperspace off (J1 by
+   row count and an order-free digest of the rows, A1 at the aggregates'
+   tolerances), with no ``stream-fallback`` in any trace.
 
 The third line from the end is a JSON object with the queries', the
 joins' (under ``"join"``) and the aggregates' (under ``"agg"``) results and
@@ -163,26 +196,34 @@ def gen_lineitem(root: str, rows_total: int, num_files: int, seed: int) -> str:
     per = max(1, rows_total // num_files)
     rng = np.random.default_rng(seed)
     flags_rng = np.random.default_rng(seed + 1)
+    for i in range(num_files):
+        rows = per if i < num_files - 1 else rows_total - per * (num_files - 1)
+        pq.write_table(pa.table(lineitem_columns(rng, flags_rng, rows, sf)), os.path.join(d, f"part-{i:05d}.parquet"))
+    return d
+
+
+def lineitem_columns(rng, flags_rng, rows: int, sf: float) -> dict:
+    """One ``lineitem`` file's columns at scale factor ``sf``: every column
+    from ``rng``, the flags from ``flags_rng``."""
+    import numpy as np
+
     base = np.datetime64("1992-01-01")
     current = np.datetime64(CURRENT_DATE)
     n_orders = max(1, int(ORDERS_ROWS_SF1 * sf))
-    for i in range(num_files):
-        rows = per if i < num_files - 1 else rows_total - per * (num_files - 1)
-        cols = {
-            "l_orderkey": rng.integers(0, n_orders, rows).astype(np.int64),
-            "l_partkey": rng.integers(0, int(200_000 * max(sf, 0.01)), rows).astype(np.int64),
-            "l_quantity": rng.integers(1, 51, rows).astype(np.int64),
-            "l_extendedprice": np.round(rng.uniform(900.0, 105000.0, rows), 2),
-            "l_discount": np.round(rng.uniform(0.0, 0.1, rows), 2),
-            "l_tax": np.round(rng.uniform(0.0, 0.08, rows), 2),
-            "l_shipdate": base + rng.integers(0, 2526, rows).astype("timedelta64[D]"),
-        }
-        receipt = cols["l_shipdate"] + flags_rng.integers(1, 31, rows).astype("timedelta64[D]")
-        returned = flags_rng.choice(np.array(["R", "A"]), rows)
-        cols["l_returnflag"] = np.where(receipt <= current, returned, "N")
-        cols["l_linestatus"] = np.where(cols["l_shipdate"] > current, "O", "F")
-        pq.write_table(pa.table(cols), os.path.join(d, f"part-{i:05d}.parquet"))
-    return d
+    cols = {
+        "l_orderkey": rng.integers(0, n_orders, rows).astype(np.int64),
+        "l_partkey": rng.integers(0, int(200_000 * max(sf, 0.01)), rows).astype(np.int64),
+        "l_quantity": rng.integers(1, 51, rows).astype(np.int64),
+        "l_extendedprice": np.round(rng.uniform(900.0, 105000.0, rows), 2),
+        "l_discount": np.round(rng.uniform(0.0, 0.1, rows), 2),
+        "l_tax": np.round(rng.uniform(0.0, 0.08, rows), 2),
+        "l_shipdate": base + rng.integers(0, 2526, rows).astype("timedelta64[D]"),
+    }
+    receipt = cols["l_shipdate"] + flags_rng.integers(1, 31, rows).astype("timedelta64[D]")
+    returned = flags_rng.choice(np.array(["R", "A"]), rows)
+    cols["l_returnflag"] = np.where(receipt <= current, returned, "N")
+    cols["l_linestatus"] = np.where(cols["l_shipdate"] > current, "O", "F")
+    return cols
 
 
 def time_ms(fn, reps: int) -> float:
@@ -871,7 +912,8 @@ def layer_ms(sess, fn, reps: int) -> dict:
     the device synchronised) and of each query layer that the run itself
     added to ``sess.query_stage_seconds``, over ``reps`` runs; ``rest`` is a
     run's total less its layers (result assembly and the executor's own
-    walk)."""
+    walk), not counting the ``prefetch_*`` layers, whose time the scan
+    pipeline's threads spent beside the consumer's."""
     import statistics
 
     import torch
@@ -884,7 +926,7 @@ def layer_ms(sess, fn, reps: int) -> dict:
         torch.cuda.synchronize()
         total = (time.perf_counter() - t) * 1e3
         run = {k: v * 1e3 for k, v in sess.query_stage_seconds.items()}
-        run["rest"] = total - sum(run.values())
+        run["rest"] = total - sum(v for k, v in run.items() if not k.startswith("prefetch_"))
         run["total"] = total
         runs.append(run)
     return {k: statistics.median(r.get(k, 0.0) for r in runs) for k in runs[0]}
@@ -1158,20 +1200,24 @@ def gen_orders(root: str, rows_total: int, num_files: int, seed: int) -> str:
     os.makedirs(d, exist_ok=True)
     per = max(1, rows_total // num_files)
     rng = np.random.default_rng(seed)
-    base = np.datetime64("1992-01-01")
     for i in range(num_files):
         rows = per if i < num_files - 1 else rows_total - per * (num_files - 1)
-        t = pa.table(
-            {
-                "o_orderkey": np.arange(i * per, i * per + rows, dtype=np.int64),
-                "o_custkey": rng.integers(0, int(150_000 * max(sf, 0.01)), rows).astype(np.int64),
-                "o_totalprice": np.round(rng.uniform(800.0, 600000.0, rows), 2),
-                "o_orderdate": base + rng.integers(0, 2406, rows).astype("timedelta64[D]"),
-                "o_shippriority": rng.integers(0, 2, rows).astype(np.int64),
-            }
-        )
-        pq.write_table(t, os.path.join(d, f"part-{i:05d}.parquet"))
+        pq.write_table(pa.table(orders_columns(rng, i * per, rows, sf)), os.path.join(d, f"part-{i:05d}.parquet"))
     return d
+
+
+def orders_columns(rng, first_key: int, rows: int, sf: float) -> dict:
+    """One ``orders`` file's columns: order keys ``first_key`` on."""
+    import numpy as np
+
+    base = np.datetime64("1992-01-01")
+    return {
+        "o_orderkey": np.arange(first_key, first_key + rows, dtype=np.int64),
+        "o_custkey": rng.integers(0, int(150_000 * max(sf, 0.01)), rows).astype(np.int64),
+        "o_totalprice": np.round(rng.uniform(800.0, 600000.0, rows), 2),
+        "o_orderdate": base + rng.integers(0, 2406, rows).astype("timedelta64[D]"),
+        "o_shippriority": rng.integers(0, 2, rows).astype(np.int64),
+    }
 
 
 def join_queries(li, orders):
@@ -1696,6 +1742,662 @@ def run_aggregates(sess, li_src: str, o_src: str, tmp: str, args, smi: str, hbm:
             "li_q1_build_launches": build_launches}, queries["A1"][0]
 
 
+# --- out-of-core execution ------------------------------------------------------
+
+#: the streamed aggregate's gates lowered: every index file its own chunk
+AGG_STREAM_SMALL = {"hyperspace.exec.stream.aggMinBytes": 1, "hyperspace.exec.stream.chunkBytes": 1}
+
+
+def index_bytes(system: str, name: str) -> int:
+    """On-disk bytes of index ``name``'s data files under ``system``."""
+    total = 0
+    for dirpath, _, names in os.walk(os.path.join(system, name)):
+        if "_hyperspace_log" not in dirpath:
+            total += sum(os.path.getsize(os.path.join(dirpath, n)) for n in names if n.endswith(".parquet"))
+    return total
+
+
+def trace_lines(summary: str, prefixes=("agg:", "join:")) -> list:
+    return [ln for ln in summary.splitlines() if ln.startswith(prefixes)]
+
+
+def assert_no_fallback(summary: str, what: str) -> None:
+    assert "stream-fallback" not in summary, f"{what}: the streamed path fell back: {summary}"
+
+
+class ReadSpy:
+    """Counts parquet decodes started and finished through the port's
+    reader while installed (``with ReadSpy() as spy``)."""
+
+    def __enter__(self):
+        from hyperspace_tpu_torch.exec import io as IO
+
+        self.real = IO.read_parquet_batch
+        self.started = self.finished = 0
+
+        def spy(files, columns):
+            self.started += 1
+            out = self.real(files, columns)
+            self.finished += 1
+            return out
+
+        IO.read_parquet_batch = spy
+        return self
+
+    def __exit__(self, *exc):
+        from hyperspace_tpu_torch.exec import io as IO
+
+        IO.read_parquet_batch = self.real
+
+
+def small_stream_aggregates(q, c):
+    """{name: (DataFrame, conf beyond AGG_STREAM_SMALL, the ``agg:`` lines)}
+    over the query-small lake ``q``: every streamable function, the
+    distinct forms, string (nulls), float (NaN, -0.0, ±inf), date (nulls)
+    and int keys, and two spills: a chunk above ``maxGroups``, and a merge
+    above it."""
+    every = dict(rows=("*", "count"), nf=("f", "count"), sid=("id", "sum"), sf=("f", "sum"), mnz=("z", "min"),
+                 mxf=("f", "max"), aid=("id", "avg"), af=("f", "avg"), mnid=("id", "min"), mxid=("id", "max"),
+                 sdf=("f", "stddev_samp"), sn=("n", "sum"), mnn=("n", "min"))
+    distinct = dict(nds=("s", "count_distinct"), sdz=("z", "sum_distinct"), adf=("f", "avg_distinct"))
+    dev = ["agg: device-grouped-stream x1", "agg: streamed-partial x1"]
+    host = ["agg: streamed-partial x1"]
+    return {
+        "global": (q.filter(c("id") > 100).agg(**every, **distinct), {}, host),
+        "by_int": (q.filter(c("id") >= 0).group_by("z").agg(**every), {}, dev),
+        # not over ``f`` itself: its stddev is 0 in every group, and the
+        # (n, sum, sum of squares) form cancels to noise of order
+        # sqrt(eps) * |f| that another summation order changes (ROADMAP C)
+        "by_float": (q.filter(c("id") > 10).group_by("f").agg(**{k: v for k, v in every.items() if v[0] != "f"}),
+                     {}, dev),
+        "by_string": (q.filter(c("id") < 50_000).group_by("s").agg(**every), {}, dev),
+        "by_date": (q.filter(c("id") >= 0).group_by("d").agg(**every), {}, dev),
+        "by_two_keys": (q.filter(c("id") >= 5).group_by("s", "z").agg(rows=("*", "count"), sf=("f", "sum"),
+                                                                      sdf=("f", "stddev_samp")), {}, dev),
+        "distinct": (q.filter(c("id") >= 0).group_by("z").agg(rows=("*", "count"), **distinct), {}, host),
+        "spill_chunk": (q.filter(c("id") >= 0).group_by("z").agg(**every), {"hyperspace.exec.agg.maxGroups": 5},
+                        host),
+        "spill_merge": (q.filter(c("id") >= 0).group_by("n").agg(rows=("*", "count"), sf=("f", "sum")),
+                        {"hyperspace.exec.agg.maxGroups": 5000}, host),
+    }
+
+
+def check_stream_small(tmp: str, seed: int, devices=("cpu", "cuda")) -> dict:
+    """The streamed paths over the join-small and query-small lakes, through
+    the GPU build of their indexes (rows with equal keys follow their
+    bucket's run files, whose names differ between builds), on the GPU
+    against the CPU port: the streamed join (inner, left, right, outer; J1
+    and J2 shapes), its typed empty result, the streamed aggregates, two
+    spills, ``to_local_iterator`` (one abandoned after a chunk) and the
+    partitioned merge."""
+    import numpy as np
+
+    import hyperspace_tpu_torch as ht
+    from hyperspace_tpu_torch.exec import device as D
+    from hyperspace_tpu_torch.exec import pipeline as P
+    from hyperspace_tpu_torch.ops import kernels
+
+    fact, dim = os.path.join(tmp, "join", "fact"), os.path.join(tmp, "join", "dim")
+    q_src = os.path.join(tmp, "qsmall")
+    owner = devices[-1]
+    c = ht.col
+
+    def session(kind, device, enabled=True, **conf):
+        sess = ht.Session(conf={ht.keys.SYSTEM_PATH: os.path.join(tmp, f"{kind}-{owner}"), ht.keys.DEVICE_MIN_ROWS: 0,
+                                ht.keys.JOIN_DEVICE_MATERIALIZE_MAX_BYTES: 1 << 31, **conf}, device=device)
+        sess.hyperspace_enabled = enabled
+        return sess
+
+    kernels.reset_launches()
+    D.reset_dispatches()
+    out = {"joins": {}, "aggregates": {}, "iterators": {}, "partitioned": {}}
+
+    # the streamed join: J1 and J2 shapes, every join type, and the empty join
+    names = ("inner_int", "inner_filtered", "left", "right", "outer")
+    for name in names + ("empty",):
+        got = {}
+        for device in devices:
+            results = {}
+            for streamed in (False, True):
+                sess = session("jsmall", device, **({ht.keys.STREAM_JOIN_MIN_BYTES: 1} if streamed else {}))
+                f, d = sess.read_parquet(fact), sess.read_parquet(dim)
+                if name == "empty":
+                    df = f.filter(c("k") < 400).join(d, c("k") == c("dk")).select("k", "v", "n", "str", "nd", "w",
+                                                                                  "dstr")
+                else:
+                    df = small_joins(f, d, c)[name][0]
+                results[streamed], summary = traced_collect(df)
+                if streamed:
+                    assert "join: host-span-smj-stream x1" in summary.splitlines(), f"{name} on {device}: {summary}"
+            got[device] = results[True]
+            n = len(next(iter(results[True].values())))
+            if name == "empty":
+                assert n == 0 and len(next(iter(results[False].values()))) == 0
+                streamed_dt = {k: v.dtype for k, v in results[True].items()}
+                plain_dt = {k: v.dtype for k, v in results[False].items()}
+                # typed from the index footers: a nullable int column is
+                # int64 here, float64 in the unstreamed (decoded) empty
+                # result, as in the JAX package (ROADMAP C)
+                diff = {k: (str(streamed_dt[k]), str(plain_dt[k])) for k in plain_dt if streamed_dt[k] != plain_dt[k]}
+                assert list(streamed_dt) == list(plain_dt) and diff == {"n": ("int64", "float64")}, diff
+                print(f"stream-small empty join on {device}: 0 rows, typed from the footers; dtypes equal the "
+                      f"unstreamed empty result's but for the nullable int column: {diff}", flush=True)
+            else:
+                assert n > 0 and same_batch(results[True], results[False]), \
+                    f"{name} on {device}: the streamed join differs from the unstreamed one"
+        assert same_batch(got[devices[-1]], got[devices[0]]), f"{name}: the GPU streamed join differs from the CPU's"
+        out["joins"][name] = len(next(iter(got[devices[-1]].values())))
+        print(f"stream-small join {name}: {out['joins'][name]} rows; streamed equals unstreamed byte for byte, GPU "
+              f"equals the CPU port; join: host-span-smj-stream", flush=True)
+
+    # the streamed aggregate
+    probe = session("qsmall", devices[0])
+    agg_names = list(small_stream_aggregates(probe.read_parquet(q_src), c))
+    for name in agg_names:
+        got = {}
+        for device in devices:
+            plain, conf, lines = small_stream_aggregates(session("qsmall", device).read_parquet(q_src), c)[name]
+            df = small_stream_aggregates(session("qsmall", device, **AGG_STREAM_SMALL, **conf).read_parquet(q_src),
+                                         c)[name][0]
+            got[device], summary = traced_collect(df)
+            assert trace_lines(summary, ("agg:",)) == lines, f"{name} on {device}: {summary}"
+            assert_no_fallback(summary, f"{name} on {device}")
+            want, mine = plain.collect(), got[device]
+            if name == "global":
+                # inherited (ROADMAP C): the host fold adds the chunks' partial
+                # sums skipping NaN, so a chunk holding +inf and -inf drops out
+                # of sum(f), and the stddev's negative variance clips to 0,
+                # where the one-pass aggregate gives NaN
+                for k in ("sf", "sdf"):
+                    assert np.isnan(want[k][0]) and not np.isnan(mine[k][0]), (k, want[k], mine[k])
+                want = {k: v for k, v in want.items() if k not in ("sf", "sdf")}
+                mine = {k: v for k, v in mine.items() if k not in ("sf", "sdf")}
+            # a spill hands the device partial to the host fold, whose group
+            # order is the partial's and then the later chunks'
+            assert same_groups(mine, want, float_aggs_of(df), ordered=not name.startswith("spill")), \
+                f"{name} on {device}: the streamed aggregate differs from the unstreamed one"
+        assert same_groups(got[devices[-1]], got[devices[0]], float_aggs_of(df), ordered=True), \
+            f"{name}: the GPU streamed aggregate differs from the CPU port's"
+        out["aggregates"][name] = len(next(iter(got[devices[-1]].values())))
+        print(f"stream-small agg {name}: {out['aggregates'][name]} groups; streamed equals unstreamed, GPU equals "
+              f"the CPU port; {', '.join(ln.rsplit(' ', 1)[0] for ln in lines)}", flush=True)
+
+    # to_local_iterator: a scan chain (hyperspace off), an index filter chain,
+    # the bucketed join; one abandoned after its first chunk
+    iterated = {
+        "scan_chain": ("qsmall", False, lambda s: s.read_parquet(q_src).filter(c("z") > 0).select("id", "f", "s")),
+        "index_filter": ("qsmall", True, lambda s: s.read_parquet(q_src).filter(c("id") >= 100).select("id", "s")),
+        "bucketed_join": ("jsmall", True, lambda s: small_joins(s.read_parquet(fact), s.read_parquet(dim), c)
+                          ["left"][0]),
+    }
+    for name, (kind, enabled, make) in iterated.items():
+        chunks = {}
+        for device in devices:
+            sess = session(kind, device, enabled, **{ht.keys.STREAM_CHUNK_BYTES: 1})
+            chunks[device] = list(make(sess).to_local_iterator())
+            whole = make(sess).collect()
+            from hyperspace_tpu_torch.exec import batch as B
+
+            assert same_batch(canonical(B.concat(chunks[device])), canonical(whole)), \
+                f"{name} on {device}: the chunks differ from collect()"
+        assert len(chunks[devices[-1]]) == len(chunks[devices[0]]) > 1
+        assert all(same_batch(g, w) for g, w in zip(chunks[devices[-1]], chunks[devices[0]])), \
+            f"{name}: the GPU chunks differ from the CPU port's"
+        sess = session(kind, devices[-1], enabled, **{ht.keys.STREAM_CHUNK_BYTES: 1})
+        with ReadSpy() as spy:
+            it = make(sess).to_local_iterator()
+            next(it)
+            it.close()
+            started = spy.started
+            assert spy.started == spy.finished, (spy.started, spy.finished)
+            time.sleep(0.2)
+            assert spy.started == started, "a decode started after the iterator was closed"
+        pool = P._PIPELINE_POOL
+        assert pool is None or pool._work_queue.empty(), "queued decodes survived the close"
+        out["iterators"][name] = len(chunks[devices[-1]])
+        print(f"stream-small to_local_iterator {name}: {len(chunks[devices[-1]])} chunks, GPU equals the CPU port "
+              f"chunk by chunk, together equal to collect(); closed after one chunk: {started} decodes started, "
+              f"all finished, none after", flush=True)
+
+    # the partitioned generic merge (hyperspace off)
+    for how in ("inner", "left", "right", "outer"):
+        got = {}
+        for device in devices:
+            res = {}
+            for spill in (64, None):
+                sess = session("jsmall", device, False, **({ht.keys.JOIN_SPILL_MIN_ROWS: spill} if spill else {}))
+                df = sess.read_parquet(fact).join(sess.read_parquet(dim), c("k") == c("dk"), how=how).select(
+                    "k", "v", "n", "str", "dk", "w", "dstr")
+                res[spill], summary = traced_collect(df)
+                if spill:
+                    assert any(ln.startswith("join: generic-merge-partitioned(") for ln in summary.splitlines()), \
+                        summary
+            assert same_batch(as_multiset(res[64]), as_multiset(res[None])), \
+                f"{how} on {device}: the partitioned merge differs from the unpartitioned one"
+            got[device] = res[64]
+        assert same_batch(got[devices[-1]], got[devices[0]]), f"{how}: the GPU partitioned merge differs from the CPU's"
+        out["partitioned"][how] = len(next(iter(got[devices[-1]].values())))
+        print(f"stream-small partitioned merge {how}: {out['partitioned'][how]} rows, equal to the unpartitioned "
+              f"merge as a multiset, GPU equals the CPU port", flush=True)
+    assert not any(kernels.launches.values()), dict(kernels.launches)
+    assert D.dispatches["grouped-merge"] > 0 and D.dispatches["grouped-agg-chunk"] > 0, dict(D.dispatches)
+    out["dispatches"] = dict(D.dispatches)
+    return out
+
+
+class PartialCapture:
+    """Records the running partial table of every GroupedAggStream that
+    finalizes while installed (``with PartialCapture() as cap``)."""
+
+    def __enter__(self):
+        from hyperspace_tpu_torch.exec import aggregate as A
+
+        self.real = A.GroupedAggStream.finalize
+        self.tables = []
+        cap = self
+
+        def finalize(stream):
+            p = stream._partial
+            cap.tables.append([t[: p["n"]].cpu().clone() if hasattr(t, "cpu") else t[: p["n"]].copy()
+                               for t in (p["fs"], *p["keys"], *p["slots"])])
+            return cap.real(stream)
+
+        A.GroupedAggStream.finalize = finalize
+        return self
+
+    def __exit__(self, *exc):
+        from hyperspace_tpu_torch.exec import aggregate as A
+
+        A.GroupedAggStream.finalize = self.real
+
+
+def capture_merge_program(run):
+    """Run ``run()`` with ``grouped_merge_program`` wrapped to record its
+    last call: (program, args)."""
+    from hyperspace_tpu_torch.exec import aggregate as A
+
+    seen = {}
+    real = A.grouped_merge_program
+
+    def make(*a):
+        program = real(*a)
+
+        def call(*args):
+            seen["grouped-merge"] = (program, args)
+            return program(*args)
+
+        return call
+
+    A.grouped_merge_program = make
+    try:
+        run()
+    finally:
+        A.grouped_merge_program = real
+    return seen["grouped-merge"]
+
+
+def merge_program_time(program, args, reps: int, hbm: float) -> dict:
+    """``grouped-merge`` alone on a streamed A1's last pair of partial
+    tables (CUDA events, median of ``reps``) beside its bound: both tables
+    read once and the merged table written once, over the card's rate."""
+    keys_a, keys_b, slots_a, slots_b, fs_a, fs_b, n_a, n_b = args
+
+    def nbytes(ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    read = nbytes((*keys_a, *keys_b, *slots_a, *slots_b, fs_a, fs_b))
+    n_g, fs, keys, slots = program(*args)
+    written = nbytes((fs, *keys, *slots))
+    b_ms, b_by = bound(read + written, 0, hbm)
+    ms = time_ms(lambda: program(*args), reps)
+    return {"shape": f"2 x {keys_a[0].shape[0]} rows ({n_a} + {n_b} groups) -> {fs.shape[0]} ({n_g} groups), "
+                     f"{len(keys_a)} keys, {len(slots_a)} slots",
+            "ms": ms, "bound_ms": b_ms, "bound_by": b_by, "share_of_bound": b_ms / ms, "bytes": read + written}
+
+
+def run_stream(sess, li_src: str, o_src: str, tmp: str, args, smi: str, hbm: float) -> dict:
+    """J1 and J2 streamed (``joinMinBytes=1``) and A1 and A2 streamed
+    (``aggMinBytes=1``, ``chunkBytes`` an eighth of ``li_q1``'s index
+    bytes), with the pipeline on and off, against the unstreamed results and
+    hyperspace off; warm medians and layers of every run; the pipelined
+    and serial partial tables of A1 bit for bit; ``grouped-merge`` alone."""
+    import torch
+
+    import hyperspace_tpu_torch as ht
+    from hyperspace_tpu_torch.exec import device as D
+
+    system = sess.conf.system_path
+    li, orders = sess.read_parquet(li_src), sess.read_parquet(o_src)
+    sess.conf.set(ht.keys.DEVICE_MIN_ROWS, 0)
+    sess.conf.set(ht.keys.JOIN_DEVICE_MATERIALIZE_MAX_BYTES, 2 << 30)
+    sess.enable_hyperspace()
+    reps_join = max(3, args.reps // 10)
+    reps_agg = max(3, args.reps // 6)
+    out = {"joins": [], "aggregates": []}
+
+    def run_mode(q, conf, reps):
+        for k, v in conf.items():
+            sess.conf.set(k, v)
+        clear_query_caches()
+        sess.query_stage_seconds.clear()
+        t = time.perf_counter()
+        got, summary = traced_collect(q)
+        torch.cuda.synchronize()
+        cold = (time.perf_counter() - t) * 1e3
+        cold_layers = {k: v * 1e3 for k, v in sess.query_stage_seconds.items()}
+        cold_layers.update(total=cold)
+        warm = layer_ms(sess, q.collect, reps)
+        return got, summary, cold_layers, warm
+
+    def report(kind, name, mode, layers):
+        print(f"layers {name} {mode} (warm): " + ", ".join(f"{k} {v:.3f} ms" for k, v in layers.items())
+              + f" ({smi})", flush=True)
+
+    joins = join_queries(li, orders)
+    for name, q in joins.items():
+        unstreamed, summary, cold_u, warm_u = run_mode(q, {ht.keys.STREAM_JOIN_MIN_BYTES: 1 << 30}, reps_join)
+        assert "join: device-smj x1" in summary.splitlines(), summary
+        with sess.hyperspace_scope(False):
+            off = as_multiset(q.collect())
+        entry = {"name": name, "rows": len(next(iter(unstreamed.values()))), "reps": reps_join,
+                 "unstreamed": {"cold_ms": cold_u["total"], "warm_ms": warm_u["total"], "layers_ms": warm_u}}
+        report("join", name, "unstreamed", warm_u)
+        for pipe in (True, False):
+            mode = "streamed_pipelined" if pipe else "streamed_serial"
+            got, summary, cold, warm = run_mode(q, {ht.keys.STREAM_JOIN_MIN_BYTES: 1,
+                                                    ht.keys.JOIN_PIPELINE_ENABLED: pipe}, reps_join)
+            assert trace_lines(summary, ("join:",)) == ["join: host-span-smj-stream x1"], summary
+            assert_no_fallback(summary, name)
+            assert same_batch(got, unstreamed), f"{name} {mode}: differs from the unstreamed join"
+            assert same_batch(as_multiset(got), off), f"{name} {mode}: differs from hyperspace off"
+            entry[mode] = {"cold_ms": cold["total"], "warm_ms": warm["total"], "layers_ms": warm}
+            report("join", name, mode, warm)
+            del got
+        sess.conf.set(ht.keys.STREAM_JOIN_MIN_BYTES, 1 << 30)
+        sess.conf.set(ht.keys.JOIN_PIPELINE_ENABLED, True)
+        out["joins"].append(entry)
+        print(f"stream {name}: {entry['rows']} rows; streamed (pipelined and serial) equals the unstreamed join byte "
+              f"for byte and hyperspace off as a multiset; warm unstreamed {entry['unstreamed']['warm_ms']:.3f} ms, "
+              f"streamed pipelined {entry['streamed_pipelined']['warm_ms']:.3f} ms, serial "
+              f"{entry['streamed_serial']['warm_ms']:.3f} ms; cold {entry['unstreamed']['cold_ms']:.3f} / "
+              f"{entry['streamed_pipelined']['cold_ms']:.3f} / {entry['streamed_serial']['cold_ms']:.3f} ms "
+              f"(median of {reps_join}; {smi})", flush=True)
+        del unstreamed, off
+
+    q1_bytes = index_bytes(system, "li_q1")
+    chunk = q1_bytes // 8
+    aggs = agg_queries(li, orders)
+    a1 = aggs["A1"][0]
+    for name in ("A1", "A2"):
+        q = aggs[name][0]
+        floats = float_aggs_of(q)
+        plain, summary, cold_u, warm_u = run_mode(q, {ht.keys.STREAM_AGG_MIN_BYTES: 1 << 30}, reps_agg)
+        entry = {"name": name, "groups": len(next(iter(plain.values()))), "reps": reps_agg, "chunk_bytes": chunk,
+                 "unstreamed": {"cold_ms": cold_u["total"], "warm_ms": warm_u["total"], "layers_ms": warm_u}}
+        report("agg", name, "unstreamed", warm_u)
+        tables = {}
+        for pipe in (True, False):
+            mode = "streamed_pipelined" if pipe else "streamed_serial"
+            before = dict(D.dispatches)
+            got, summary, cold, warm = run_mode(q, {ht.keys.STREAM_AGG_MIN_BYTES: 1, ht.keys.STREAM_CHUNK_BYTES: chunk,
+                                                    ht.keys.PIPELINE_ENABLED: pipe}, reps_agg)
+            runs = 1 + reps_agg
+            launches = {p: (D.dispatches[p] - before.get(p, 0)) / runs for p in ("grouped-agg-chunk", "grouped-merge")}
+            lines = trace_lines(summary, ("agg:",))
+            want = (["agg: device-grouped-stream x1", "agg: streamed-partial x1"] if name == "A1"
+                    else ["agg: streamed-partial x1"])
+            assert lines == want, summary
+            assert_no_fallback(summary, name)
+            chunks = int(summary.split("scan: index x")[1].split()[0])
+            assert chunks >= (8 if name == "A1" else 2), f"{name}: {chunks} chunks: {summary}"
+            entry["chunks"] = chunks
+            assert same_groups(got, plain, floats, ordered=True), f"{name} {mode}: differs from the materialized one"
+            entry[mode] = {"cold_ms": cold["total"], "warm_ms": warm["total"], "layers_ms": warm,
+                           "launches_per_query": launches}
+            report("agg", name, mode, warm)
+            if name == "A1":
+                # the partial tables bit for bit: float sums in a fixed order
+                torch.use_deterministic_algorithms(True)
+                try:
+                    with PartialCapture() as cap:
+                        a1.collect()
+                finally:
+                    torch.use_deterministic_algorithms(False)
+                tables[pipe] = cap.tables[-1]
+                print(f"stream {name} {mode}: {launches['grouped-agg-chunk']:.0f} grouped-agg-chunk and "
+                      f"{launches['grouped-merge']:.0f} grouped-merge launches per query", flush=True)
+        if name == "A1":
+            assert all(a.dtype == b.dtype and a.numpy().tobytes() == b.numpy().tobytes()
+                       for a, b in zip(tables[True], tables[False])), "A1: pipelined and serial partial tables differ"
+            entry["partials_bit_equal"] = True
+        out["aggregates"].append(entry)
+        print(f"stream {name}: {entry['groups']} groups; streamed (pipelined and serial, chunks of {chunk} bytes) "
+              f"equals the materialized aggregate" + ("; pipelined and serial partial tables bit-equal"
+                                                      if name == "A1" else "")
+              + f"; warm unstreamed {entry['unstreamed']['warm_ms']:.3f} ms, streamed pipelined "
+              f"{entry['streamed_pipelined']['warm_ms']:.3f} ms, serial {entry['streamed_serial']['warm_ms']:.3f} ms "
+              f"(median of {reps_agg}; {smi})", flush=True)
+
+    # the partitioned generic merge at SF1, hyperspace off
+    with sess.hyperspace_scope(False):
+        q = joins["J1"]
+        whole = as_multiset(q.collect())
+        sess.conf.set(ht.keys.JOIN_SPILL_MIN_ROWS, 1 << 20)
+        t = time.perf_counter()
+        got, summary = traced_collect(q)
+        part_ms = (time.perf_counter() - t) * 1e3
+        sess.conf.set(ht.keys.JOIN_SPILL_MIN_ROWS, 1 << 26)
+        parts = [ln for ln in summary.splitlines() if ln.startswith("join: generic-merge-partitioned(")]
+        assert parts, summary
+        assert same_batch(as_multiset(got), whole), "J1: the partitioned merge differs from the unpartitioned one"
+        del got, whole
+    out["partitioned_J1_off_ms"] = part_ms
+    print(f"stream J1 off, spillMinRows 2^20: {parts[0].split()[1]}, equal to the unpartitioned merge as a "
+          f"multiset; {part_ms:.3f} ms ({smi})", flush=True)
+
+    sess.conf.set(ht.keys.STREAM_AGG_MIN_BYTES, 1)
+    sess.conf.set(ht.keys.STREAM_CHUNK_BYTES, chunk)
+    program, pargs = capture_merge_program(a1.collect)
+    out["grouped_merge"] = merge_program_time(program, pargs, args.reps, hbm)
+    p = out["grouped_merge"]
+    print(f"program grouped-merge ({p['shape']}): {p['ms']} ms, bound {p['bound_ms']} ms ({p['bound_by']}), "
+          f"{100 * p['share_of_bound']:.2f}% of bound ({smi})", flush=True)
+    return out, a1, chunk
+
+
+#: the scale lake's rows per source file (as SF1's: 6M over 16 files)
+SCALE_ROWS_PER_FILE = LINEITEM_ROWS_SF1 // 16
+GATE_BYTES = 1 << 30
+SCALE_TARGET_BYTES = int(1.2 * GATE_BYTES)
+
+
+def _write_lineitem_file(path: str, seed: int, i: int, rows: int, sf: float) -> None:
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    rng = np.random.default_rng([seed, i])
+    flags_rng = np.random.default_rng([seed, i, 1])
+    pq.write_table(pa.table(lineitem_columns(rng, flags_rng, rows, sf)), path)
+
+
+def _write_orders_file(path: str, seed: int, i: int, first_key: int, rows: int, sf: float) -> None:
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    pq.write_table(pa.table(orders_columns(np.random.default_rng([seed, i]), first_key, rows, sf)), path)
+
+
+def gen_scale_lake(root: str, rows_total: int, seed: int):
+    """The SF1 lake's tables at ``rows_total`` lineitem rows (orders at a
+    quarter, every ``l_orderkey`` matching one order): the same columns,
+    value ranges and rows per file, each file from its own generator, on
+    a pool of worker processes. Returns (lineitem dir, orders dir)."""
+    import concurrent.futures
+    import multiprocessing
+
+    sf = rows_total / LINEITEM_ROWS_SF1
+    n_orders = max(1, int(ORDERS_ROWS_SF1 * sf))
+    li_dir, o_dir = os.path.join(root, "lineitem"), os.path.join(root, "orders")
+    os.makedirs(li_dir, exist_ok=True)
+    os.makedirs(o_dir, exist_ok=True)
+    jobs = []
+    for i, first in enumerate(range(0, rows_total, SCALE_ROWS_PER_FILE)):
+        rows = min(SCALE_ROWS_PER_FILE, rows_total - first)
+        jobs.append((_write_lineitem_file, os.path.join(li_dir, f"part-{i:05d}.parquet"), seed, i, rows, sf))
+    per_orders = ORDERS_ROWS_SF1 // 8
+    for i, first in enumerate(range(0, n_orders, per_orders)):
+        rows = min(per_orders, n_orders - first)
+        jobs.append((_write_orders_file, os.path.join(o_dir, f"part-{i:05d}.parquet"), seed + 1, i, first, rows, sf))
+    workers = max(1, min(8, os.cpu_count() or 1))
+    with concurrent.futures.ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+        for f in [pool.submit(fn, *a) for fn, *a in jobs]:
+            f.result()
+    return li_dir, o_dir
+
+
+def row_digest(batch, columns) -> int:
+    """Order-free digest of a batch's rows: the sum mod 2^64 of a 64-bit mix
+    of each row's column bit patterns (dates as int64 days)."""
+    import numpy as np
+
+    n = len(batch[columns[0]])
+    total = np.uint64(0)
+    step = 1 << 22
+    with np.errstate(over="ignore"):
+        for lo in range(0, n, step):
+            h = np.zeros(min(step, n - lo), dtype=np.uint64)
+            for i, c in enumerate(columns):
+                v = batch[c][lo: lo + step]
+                if v.dtype.kind == "M":
+                    v = v.astype("datetime64[D]").view(np.int64)
+                bits = np.ascontiguousarray(v.astype(np.float64) if v.dtype.kind == "f" else v.astype(np.int64))
+                h = h * np.uint64(0x9E3779B97F4A7C15) + bits.view(np.uint64) + np.uint64(i + 1)
+                h ^= h >> np.uint64(30)
+                h *= np.uint64(0xBF58476D1CE4E5B9)
+                h ^= h >> np.uint64(27)
+                h *= np.uint64(0x94D049BB133111EB)
+                h ^= h >> np.uint64(31)
+            total = total + h.sum(dtype=np.uint64)
+    return int(total)
+
+
+SCALE_Q3_LI = ("l_orderkey", ["l_extendedprice", "l_discount", "l_shipdate"])
+SCALE_Q3_O = ("o_orderkey", ["o_orderdate", "o_shippriority"])
+SCALE_J1_COLUMNS = ("l_orderkey", "l_extendedprice", "l_discount", "l_shipdate", "o_orderdate", "o_shippriority")
+
+
+def run_scale(main_sess, li_src: str, o_src: str, tmp: str, args, smi: str) -> dict:
+    """A lake whose J1 and A1 inputs pass the real 1 GiB gates with the
+    defaults untouched (``deviceMinRows`` 0, as in every SF1 phase):
+    sized from the SF1 index bytes per row, generated, indexed, then J1 and
+    A1 cold and warm against hyperspace off."""
+    import torch
+
+    import hyperspace_tpu_torch as ht
+    from hyperspace_tpu_torch.exec import device as D
+    from hyperspace_tpu_torch.ops import kernels
+
+    system = main_sess.conf.system_path
+    sizes = {name: index_bytes(system, name) for name in ("li_shipdate", "li_orderkey", "o_orderkey", "li_q1")}
+    for name, b in sizes.items():
+        print(f"scale: SF1 index {name}: {b} bytes on disk", flush=True)
+    # the scale indexes' bytes per row, from their SF1 builds
+    hs = ht.Hyperspace(main_sess)
+    hs.create_index(main_sess.read_parquet(li_src), ht.CoveringIndexConfig("li_q3", [SCALE_Q3_LI[0]], SCALE_Q3_LI[1]))
+    hs.create_index(main_sess.read_parquet(o_src), ht.CoveringIndexConfig("o_q3", [SCALE_Q3_O[0]], SCALE_Q3_O[1]))
+    for name in ("li_q3", "o_q3"):
+        sizes[name] = index_bytes(system, name)
+        print(f"scale: SF1 index {name}: {sizes[name]} bytes on disk", flush=True)
+    # per lineitem row: the lake's lineitem rows, and a quarter of an order
+    # (the scale lake's orders per lineitem row, as SF1's)
+    per_row_q1 = sizes["li_q1"] / args.rows
+    per_row_j1 = sizes["li_q3"] / args.rows + sizes["o_q3"] / LINEITEM_ROWS_SF1
+    need = max(SCALE_TARGET_BYTES / per_row_q1, SCALE_TARGET_BYTES / per_row_j1)
+    rows = -(-int(need) // SCALE_ROWS_PER_FILE) * SCALE_ROWS_PER_FILE
+    print(f"scale: {per_row_q1:.3f} bytes per row for li_q1, {per_row_j1:.3f} for J1's two indexes: "
+          f"{rows} lineitem rows ({rows / LINEITEM_ROWS_SF1:.2f} x SF1) put both above {SCALE_TARGET_BYTES} bytes",
+          flush=True)
+
+    root = os.path.join(tmp, "scale")
+    t = time.perf_counter()
+    li_dir, o_dir = gen_scale_lake(root, rows, args.seed + 7)
+    gen_s = time.perf_counter() - t
+    print(f"scale lake: {rows} lineitem rows, {max(1, int(ORDERS_ROWS_SF1 * rows / LINEITEM_ROWS_SF1))} orders rows "
+          f"({gen_s:.3f} s)", flush=True)
+    sess = ht.Session(conf={ht.keys.SYSTEM_PATH: os.path.join(root, "indexes"), ht.keys.DEVICE_MIN_ROWS: 0},
+                      device="cuda")
+    hs = ht.Hyperspace(sess)
+    li, orders = sess.read_parquet(li_dir), sess.read_parquet(o_dir)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    builds = {}
+    for name, df, (key, included) in (("li_q3", li, SCALE_Q3_LI), ("o_q3", orders, SCALE_Q3_O),
+                                      ("li_q1", li, ("l_shipdate", ["l_returnflag", "l_linestatus", "l_quantity",
+                                                                    "l_extendedprice", "l_discount", "l_tax"]))):
+        t = time.perf_counter()
+        hs.create_index(df, ht.CoveringIndexConfig(name, [key], included))
+        torch.cuda.synchronize()
+        builds[name] = {"seconds": time.perf_counter() - t, "bytes": index_bytes(sess.conf.system_path, name)}
+        print(f"scale build {name}: {builds[name]['seconds']:.3f} s, {builds[name]['bytes']} bytes ({smi})", flush=True)
+    launches = dict(kernels.launches)
+    print(f"scale builds: kernel launches {launches}", flush=True)
+    assert launches.get("bucket_histogram", 0) > 0, launches
+    j1_bytes = builds["li_q3"]["bytes"] + builds["o_q3"]["bytes"]
+    q1_bytes = builds["li_q1"]["bytes"]
+    assert j1_bytes >= sess.conf.stream_join_min_bytes and q1_bytes >= sess.conf.stream_agg_min_bytes, \
+        (j1_bytes, q1_bytes)
+    print(f"scale gates: J1's indexes {j1_bytes} bytes >= joinMinBytes {sess.conf.stream_join_min_bytes}; li_q1 "
+          f"{q1_bytes} bytes >= aggMinBytes {sess.conf.stream_agg_min_bytes}", flush=True)
+
+    sess.enable_hyperspace()
+    c = ht.col
+    out = {"rows": rows, "generate_s": gen_s, "builds": builds, "launches": launches, "sf1_index_bytes": sizes}
+    j1 = li.join(orders, c("l_orderkey") == c("o_orderkey")).select(*SCALE_J1_COLUMNS)
+    plan = j1.optimized_plan()
+    assert sorted(s.entry.name for s in plan_index_scans(plan)) == ["li_q3", "o_q3"], plan.pretty()
+    a1 = q1_query(li)
+    assert [s.entry.name for s in plan_index_scans(a1.optimized_plan())] == ["li_q1"], a1.optimized_plan().pretty()
+    for name, q, want in (("J1", j1, "join: host-span-smj-stream x1"), ("A1", a1, "agg: device-grouped-stream x1")):
+        clear_query_caches()
+        D.reset_dispatches()
+        t = time.perf_counter()
+        got, summary = traced_collect(q)
+        torch.cuda.synchronize()
+        cold = (time.perf_counter() - t) * 1e3
+        print(f"trace scale {name}: " + "; ".join(summary.splitlines()), flush=True)
+        assert want in summary.splitlines(), summary
+        if name == "A1":
+            assert "agg: streamed-partial x1" in summary.splitlines(), summary
+        assert_no_fallback(summary, f"scale {name}")
+        dispatches = dict(D.dispatches)
+        t = time.perf_counter()
+        q.collect()
+        torch.cuda.synchronize()
+        warm = (time.perf_counter() - t) * 1e3
+        with sess.hyperspace_scope(False):
+            t = time.perf_counter()
+            off, off_summary = traced_collect(q)
+            off_ms = (time.perf_counter() - t) * 1e3
+        print(f"trace scale {name} off: " + "; ".join(off_summary.splitlines()), flush=True)
+        n = len(next(iter(got.values())))
+        entry = {"rows_out": n, "cold_ms": cold, "warm_ms": warm, "off_ms": off_ms, "dispatches": dispatches}
+        if name == "J1":
+            digest = row_digest(got, SCALE_J1_COLUMNS)
+            assert n == len(off["l_orderkey"]) and digest == row_digest(off, SCALE_J1_COLUMNS), \
+                "scale J1: differs from hyperspace off"
+            entry["digest"] = digest
+        else:
+            assert same_groups(got, off, float_aggs_of(q), ordered=False), "scale A1: differs from hyperspace off"
+        del got, off
+        out[name] = entry
+        print(f"scale {name}: {n} rows out, equal to hyperspace off; cold {cold:.3f} ms, warm {warm:.3f} ms, "
+              f"hyperspace off {off_ms:.3f} ms; dispatches {dispatches} ({smi})", flush=True)
+    return out
+
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1761,6 +2463,10 @@ def main() -> None:
         t = time.perf_counter()
         agg_small = check_agg_small(tmp, args.seed)
         phase("agg-small", t)
+
+        t = time.perf_counter()
+        stream_small = check_stream_small(tmp, args.seed)
+        phase("stream-small", t)
 
         t = time.perf_counter()
         src = gen_lineitem(tmp, args.rows, args.files, args.seed)
@@ -1841,6 +2547,11 @@ def main() -> None:
         phase("agg", t)
 
         t = time.perf_counter()
+        queries["stream"], a1_streamed, chunk = run_stream(sess, src, o_src, tmp, args, smi, hbm)
+        queries["stream"]["small"] = stream_small
+        phase("stream", t)
+
+        t = time.perf_counter()
         sess.conf.set(ht.keys.DEVICE_MIN_ROWS, 0)
         q6 = q6_query(sess.read_parquet(src))
         q6.collect()  # warm: both caches hold its columns
@@ -1854,14 +2565,29 @@ def main() -> None:
 
         t = time.perf_counter()
         sess.conf.set(ht.keys.DEVICE_MIN_ROWS, 0)
+        sess.conf.set(ht.keys.STREAM_AGG_MIN_BYTES, 1 << 30)
         a1.collect()  # warm: the scan decoded, its columns resident
         queries["A1_profile"] = device_profile("A1 (warm)", a1.collect, tmp)
         phase("profile-agg", t)
 
         t = time.perf_counter()
+        sess.conf.set(ht.keys.STREAM_AGG_MIN_BYTES, 1)
+        sess.conf.set(ht.keys.STREAM_CHUNK_BYTES, chunk)
+        a1_streamed.collect()  # warm: the chunks decoded, their columns resident
+        queries["A1_stream_profile"] = device_profile("A1 streamed (warm)", a1_streamed.collect, tmp,
+                                                      highlight=("index_add", "scatter", "sort"))
+        sess.conf.set(ht.keys.STREAM_AGG_MIN_BYTES, 1 << 30)
+        phase("profile-stream", t)
+
+        t = time.perf_counter()
         profile_build(hs, df, ht.CoveringIndexConfig(
             "li_shipdate_profiled", ["l_shipdate"], ["l_quantity", "l_extendedprice", "l_discount"]), tmp)
         phase("profile", t)
+
+        t = time.perf_counter()
+        print(f"scale: {shutil.disk_usage(tmp).free} bytes free on the lake's disk", flush=True)
+        queries["scale"] = run_scale(sess, src, o_src, tmp, args, smi)
+        phase("scale", t)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

@@ -35,6 +35,11 @@ class keys:
     AGG_MAX_GROUPS = "hyperspace.exec.agg.maxGroups"
     AGG_CAPACITY_FLOOR = "hyperspace.exec.agg.capacityFloor"
     FUSION_ENABLED = "hyperspace.exec.fusion.enabled"
+    JOIN_BROADCAST_MAX_BYTES = "hyperspace.exec.join.broadcastMaxBytes"
+    JOIN_PIPELINE_ENABLED = "hyperspace.exec.join.pipeline.enabled"
+    PIPELINE_ENABLED = "hyperspace.exec.pipeline.enabled"
+    PIPELINE_DEPTH = "hyperspace.exec.pipeline.depth"
+    PIPELINE_MAX_BUFFERED_BYTES = "hyperspace.exec.pipeline.maxBufferedBytes"
 
 
 DEFAULTS: Dict[str, Any] = {
@@ -72,19 +77,18 @@ DEFAULTS: Dict[str, Any] = {
     # above this estimated span round trip (key rectangles up, [lo, hi)
     # down) the host span walk runs instead of the device span program
     keys.JOIN_DEVICE_SPAN_MAX_BYTES: 256 * 1024 * 1024,
-    # above this many input bytes (both sides' files) the JAX package streams
-    # a bucketed join bucket by bucket; the streamed join is not in the port
-    # yet, so a join that large raises
+    # above this many input bytes (both sides' files) a compatible bucketed
+    # join streams bucket by bucket: peak host memory is one bucket pair and
+    # the output, not both whole sides
     keys.STREAM_JOIN_MIN_BYTES: 1 << 30,
-    # above this many rows on a generic-join side the JAX package merges in
-    # hash partitions; the partitioned merge is not in the port yet, so a
-    # join that large raises
+    # above this many rows on a generic-join side the hash merge runs in hash
+    # partitions, each merged alone (grace-join style)
     keys.JOIN_SPILL_MIN_ROWS: 1 << 26,
     # above this many source bytes (a scan chain of at least two files that
-    # split into at least two chunks of chunkBytes) the JAX package streams
-    # an aggregate in file chunks and merges partial states; the streamed
-    # aggregate is not in the port yet, so an aggregate that large raises
+    # split into at least two chunks of chunkBytes) an aggregate runs in file
+    # chunks and merges partial states (Spark's partial/final split)
     keys.STREAM_AGG_MIN_BYTES: 1 << 30,
+    # target bytes per streamed scan chunk (file groups round up to it)
     keys.STREAM_CHUNK_BYTES: 256 * 1024 * 1024,
     # grouped aggregates over an index scan run on the session's device as
     # one filter, rank-compression and segment-reduction program; False
@@ -97,6 +101,22 @@ DEFAULTS: Dict[str, Any] = {
     # whole-stage fusion is not in the port yet: an aggregate that would
     # take it raises
     keys.FUSION_ENABLED: False,
+    # a join side whose leaf files hold at most this many bytes is the
+    # broadcast side of the JAX package's broadcast hash join and of its
+    # fused join aggregate; 0 disables both. The port has neither tier yet:
+    # it reads the key only to raise where the fused join aggregate would run
+    keys.JOIN_BROADCAST_MAX_BYTES: 64 * 1024 * 1024,
+    # the streamed bucketed join decodes bucket b+1's two sides on the
+    # prefetch pipeline while bucket b's pairs expand; False keeps the
+    # serial loop
+    keys.JOIN_PIPELINE_ENABLED: True,
+    # streamed scans (exec/pipeline.py): while chunk k executes, up to
+    # ``depth`` later chunks decode (and stage their columns on the device)
+    # on the pipeline's threads; decoded but unconsumed chunks are capped at
+    # ``maxBufferedBytes`` (one chunk ahead is always allowed)
+    keys.PIPELINE_ENABLED: True,
+    keys.PIPELINE_DEPTH: 2,
+    keys.PIPELINE_MAX_BUFFERED_BYTES: 1 << 30,
 }
 
 # Operation-log layout constants (ref: HS/index/IndexConstants.scala:93-95).
@@ -230,3 +250,23 @@ class HyperspaceConf:
     @property
     def fusion_enabled(self) -> bool:
         return bool(self.get(keys.FUSION_ENABLED))
+
+    @property
+    def join_broadcast_max_bytes(self) -> int:
+        return int(self.get(keys.JOIN_BROADCAST_MAX_BYTES))
+
+    @property
+    def join_pipeline_enabled(self) -> bool:
+        return bool(self.get(keys.JOIN_PIPELINE_ENABLED))
+
+    @property
+    def pipeline_enabled(self) -> bool:
+        return bool(self.get(keys.PIPELINE_ENABLED))
+
+    @property
+    def pipeline_depth(self) -> int:
+        return int(self.get(keys.PIPELINE_DEPTH))
+
+    @property
+    def pipeline_max_buffered_bytes(self) -> int:
+        return int(self.get(keys.PIPELINE_MAX_BUFFERED_BYTES))

@@ -17,8 +17,15 @@ device column cache the filter fills (exec/device.py):
   ``grouped_chunk_program``      device.py:1241-1269 ``grouped-agg-chunk``:
                                  filter, group and reduce; only the
                                  per-group table comes back
+  ``_merge_concat_parts``        device.py:1272-1313 re-rank and reduce
+                                 concatenated partial tables
+  ``grouped_merge_program``      device.py:1316-1331 ``grouped-merge``: fold
+                                 a chunk's table into the running one
+  ``_dev_pad``                   device.py:1334-1341
   ``GroupedAggStream``           device.py:1397-1921 capacity re-runs,
-                                 ``maxGroups``, string-key remap, finalize
+                                 ``maxGroups``, string-key remap, the
+                                 chunk merge, finalize, the spill's
+                                 partial frame
   ``device_grouped_aggregate``   device.py:1926-1953
 
 Where torch and JAX differ, the programs here do what JAX does:
@@ -35,6 +42,10 @@ Where torch and JAX differ, the programs here do what JAX does:
 - Fill values are tensors of the slot's dtype, never Python floats; int
   sums stay int64 and exact, and avg of an int column has its own float64
   sum slot.
+- A float ``scatter_reduce_`` min or max keeps the first of two equal zeros
+  (on CUDA the first atomic); XLA orders -0.0 below +0.0 and propagates a
+  NaN. Float min and max fold on order-preserving int64 keys instead
+  (``_seg_fold_float``), exact and order-free.
 - Eager torch compiles nothing, so columns are not padded to shape buckets;
   the capacity geometry, ``maxGroups`` and the capacity hint memo are kept
   so spill decisions, fallback reasons and dispatch counts equal JAX's.
@@ -59,6 +70,7 @@ from hyperspace_tpu_torch.exec import batch as B
 from hyperspace_tpu_torch.exec.device import (
     ColumnCodec,
     DeviceUnsupported,
+    _cached_column,
     _device_cache,
     _dry_codecs,
     _pack_literals,
@@ -76,7 +88,11 @@ _FS_SENTINEL = I64_MAX
 
 class GroupCapacityExceeded(DeviceUnsupported):
     """The observed group cardinality exceeds ``hyperspace.exec.agg.maxGroups``:
-    the executor spills to the host aggregate."""
+    the executor spills to the host aggregate. ``folded`` says whether the
+    chunk that crossed the limit is already in the stream's running partial
+    (a merge crossed it) or not (the chunk's own program did)."""
+
+    folded = False
 
 
 def _device_columns(session, batch: B.Batch, names, scan_key, n: int, reject_strings: bool = False):
@@ -92,9 +108,9 @@ def _device_columns(session, batch: B.Batch, names, scan_key, n: int, reject_str
     uploaded = False
     for r in names:
         ckey = (scan_key, r, str(device)) if scan_key is not None else None
-        cached = _device_cache.get(ckey) if ckey is not None else None
-        if cached is not None and cached[2] == n:
-            dev_cols[r], codecs[r] = cached[0], cached[1]
+        cached = _cached_column(ckey, n)
+        if cached is not None:
+            dev_cols[r], codecs[r] = cached
             continue
         if reject_strings and batch[r].dtype.kind in ("U", "S", "O"):
             raise DeviceUnsupported("string aggregate/predicate columns stay host-side here")
@@ -102,7 +118,7 @@ def _device_columns(session, batch: B.Batch, names, scan_key, n: int, reject_str
         dev_cols[r], codecs[r] = dev, codec
         uploaded = True
         if ckey is not None:
-            _device_cache.put(ckey, (dev, codec, n), nbytes)
+            _device_cache.put(ckey, (dev, codec, n, None), nbytes)
     if uploaded:
         session.query_stage_seconds["agg_upload"] += time.perf_counter() - t
     return dev_cols, codecs
@@ -345,6 +361,29 @@ def _segment_ids(codes: List[torch.Tensor], mask: torch.Tensor):
     return order, seg, starts
 
 
+def _float_order_key(x: torch.Tensor) -> torch.Tensor:
+    """float64 -> int64 key ordered as the floats are, with -0.0 below +0.0
+    (IEEE's total order); the map is its own inverse on int64 bit patterns
+    (``_float_order_key(key).view(torch.float64)`` gives the float back)."""
+    bits = x.view(torch.int64) if x.is_floating_point() else x
+    return torch.where(bits < 0, bits ^ I64_MAX, bits)
+
+
+def _seg_fold_float(v: torch.Tensor, seg: torch.Tensor, cap: int, how: str) -> torch.Tensor:
+    """Segment min (``how="amin"``) or max of float64 values into ``cap``
+    slots, as XLA's segment_min/max give them: -0.0 below +0.0 whatever the
+    order of arrival (a float ``scatter_reduce_`` keeps the first of two
+    equal zeros, and on CUDA the first is the first atomic), a NaN
+    propagates, and an empty slot holds +inf (min) or -inf (max). The fold
+    runs on order-preserving int64 keys, so it is exact on CUDA too."""
+    fill = float("inf") if how == "amin" else float("-inf")
+    init = _float_order_key(torch.full((cap,), fill, dtype=torch.float64, device=v.device))
+    out = init.scatter_reduce_(0, seg, _float_order_key(v.to(torch.float64)), how, include_self=True)
+    out = _float_order_key(out).view(torch.float64)
+    seen = torch.zeros(cap, dtype=torch.int64, device=v.device).index_add_(0, seg, torch.isnan(v).to(torch.int64))
+    return torch.where(seen > 0, out.new_full((), float("nan")), out)
+
+
 def _segment_reduce_slots(cols_sorted, seg, starts, cap: int, slot_specs):
     """Per-slot segment reductions over the sorted matched rows into
     ``cap``-row tables; rows past the group count hold each reduction's
@@ -387,13 +426,13 @@ def _segment_reduce_slots(cols_sorted, seg, starts, cap: int, slot_specs):
                 out.append(seg_fold(x.to(torch.int64), "amin", I64_MAX))
             else:
                 xf = x.to(torch.float64)
-                out.append(seg_fold(torch.where(nn, xf, xf.new_full((), float("inf"))), "amin", float("inf")))
+                out.append(_seg_fold_float(torch.where(nn, xf, xf.new_full((), float("inf"))), seg, cap, "amin"))
         else:  # max
             if isint:
                 out.append(seg_fold(x.to(torch.int64), "amax", I64_MIN))
             else:
                 xf = x.to(torch.float64)
-                out.append(seg_fold(torch.where(nn, xf, xf.new_full((), float("-inf"))), "amax", float("-inf")))
+                out.append(_seg_fold_float(torch.where(nn, xf, xf.new_full((), float("-inf"))), seg, cap, "amax"))
     return tuple(out)
 
 
@@ -428,6 +467,72 @@ def grouped_chunk_program(pred_fn, key_specs, slot_specs, cap: int):
     return program
 
 
+def _merge_concat_parts(key_specs, slot_specs, cap_out: int, kcat, slots_cat, fs_cat):
+    """Merge CONCATENATED partial-aggregate tables (only their groups' rows)
+    into one of ``cap_out`` rows: re-rank the keys and segment-reduce each
+    slot with its merge operation (cnt/sum/sumsq add, min/max fold).
+    Returns (n_groups, fs, key_out, slot_out) as ``grouped_chunk_program``
+    does.
+
+    Contract (the JAX package's): the parts are concatenated in ascending
+    order of their rows' global range, so a group's smallest concat
+    position is a row of the part where it first appeared, and the key
+    gathered from it is the one a single pass would have kept."""
+    device = fs_cat.device
+    m = fs_cat.shape[0]
+    codes = [_key_code(k, tag) for k, (_, tag) in zip(kcat, key_specs)]
+    order, seg, starts = _segment_ids(codes, torch.ones(m, dtype=torch.bool, device=device))
+    n_groups = starts.numel()
+    rep = order[starts]  # the stable sorts put each group's first concat row first
+    key_out = []
+    for k in kcat:
+        out = torch.full((cap_out,), float("nan") if k.is_floating_point() else 0, dtype=k.dtype, device=device)
+        out[:n_groups] = k[rep]
+        key_out.append(out)
+    # values reduced per segment follow the SORTED row order ``seg`` is over
+    fs = torch.full((cap_out,), _FS_SENTINEL, dtype=torch.int64, device=device)
+    fs = fs.scatter_reduce_(0, seg, fs_cat[order], "amin", include_self=True)
+    slot_out = []
+    for (kind, _, _), v in zip(slot_specs, slots_cat):
+        v = v[order]
+        if kind in ("cntm", "cnt", "sum", "sumsq"):
+            slot_out.append(torch.zeros(cap_out, dtype=v.dtype, device=device).index_add_(0, seg, v))
+        elif v.is_floating_point():
+            slot_out.append(_seg_fold_float(v, seg, cap_out, "amin" if kind == "min" else "amax"))
+        else:
+            fill = I64_MAX if kind == "min" else I64_MIN
+            slot_out.append(torch.full((cap_out,), fill, dtype=v.dtype, device=device)
+                            .scatter_reduce_(0, seg, v, "amin" if kind == "min" else "amax", include_self=True))
+    return n_groups, fs, tuple(key_out), tuple(slot_out)
+
+
+def grouped_merge_program(key_specs, slot_specs, cap_in: int, cap_out: int):
+    """The ``grouped-merge`` program: merge two partial-aggregate tables,
+    each padded to ``cap_in`` rows, into one of ``cap_out``.
+    ``program(keys_a, keys_b, slots_a, slots_b, fs_a, fs_b, n_a, n_b)``
+    takes each table's first ``n`` rows; the running partial is table a,
+    and its groups were first seen no later than the incoming chunk's (the
+    row bases ascend), which is ``_merge_concat_parts``'s ordering
+    contract."""
+
+    def program(keys_a, keys_b, slots_a, slots_b, fs_a, fs_b, n_a: int, n_b: int):
+        assert max(n_a, n_b) <= cap_in
+        kcat = tuple(torch.cat([a[:n_a], b[:n_b]]) for a, b in zip(keys_a, keys_b))
+        slots_cat = tuple(torch.cat([va[:n_a], vb[:n_b]]) for va, vb in zip(slots_a, slots_b))
+        fs_cat = torch.cat([fs_a[:n_a], fs_b[:n_b]])
+        return _merge_concat_parts(key_specs, slot_specs, cap_out, kcat, slots_cat, fs_cat)
+
+    return program
+
+
+def _dev_pad(arr: torch.Tensor, target: int, fill) -> torch.Tensor:
+    """Pad a (small, per-group) device tensor up to ``target`` rows."""
+    n = arr.shape[0]
+    if n == target:
+        return arr
+    return torch.cat([arr, arr.new_full((target - n,), fill)])
+
+
 def _np(x) -> np.ndarray:
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
@@ -441,13 +546,16 @@ class GroupedAggStream:
     sums, NaN-skipping counts, dtype-preserving min/max, appearance-ordered
     rows).
 
-    String group keys are grouped in the batch's dictionary codes, then the
-    per-group codes map to values on the host — O(groups) host traffic,
-    never O(rows).
+    ``update`` of a further chunk merges its table into the running one
+    (``grouped-merge``, ``_merge``): the streamed aggregate's device path.
 
-    The JAX package's stream also merges the tables of further chunks (the
-    streamed aggregate) and folds whole stages (fusion); a second ``update``
-    with rows, and fusion, raise here: they are not yet in the port.
+    String group keys are grouped per chunk in the chunk's dictionary
+    codes, then the per-group codes map into one growing stream-global
+    dictionary on the host, between the chunk and the merge — O(groups)
+    host traffic, never O(rows).
+
+    The JAX package also folds whole stages (fusion, donated state); that
+    raises here: it is not yet in the port.
 
     Raises DeviceUnsupported whenever the shape, a dtype, or the observed
     group cardinality (> ``max_groups``) leaves the device language; callers
@@ -466,6 +574,7 @@ class GroupedAggStream:
         self._slots = None
         self._refs = None
         self._partial = None  # dict(cap, n, fs, keys, slots)
+        self._row_base = 0  # rows of the chunks before this one
         # seed capacity from the last observed cardinality of the same query
         # shape over the same scan: a fresh stream otherwise starts at the
         # floor and pays a right-sizing re-run on EVERY repeated (warm) query
@@ -507,10 +616,21 @@ class GroupedAggStream:
             if kind not in ("i", "u", "b", "f"):
                 raise DeviceUnsupported(f"grouped aggregate over non-numeric column {c!r}")
             inputs[c] = batch[c].dtype
-        self._schema = (keys_schema, inputs)
-        self._slots, self._refs = _grouped_slots(
-            self.aggs, {c: dt.kind in ("i", "u", "b") for c, dt in inputs.items()}
-        )
+        if self._schema is None:
+            self._schema = (keys_schema, inputs)
+            self._slots, self._refs = _grouped_slots(
+                self.aggs, {c: dt.kind in ("i", "u", "b") for c, dt in inputs.items()}
+            )
+            return
+        prev_keys, prev_inputs = self._schema
+        if [k[:1] + (k[2],) for k in prev_keys] != [k[:1] + (k[2],) for k in keys_schema] or {
+            c: dt.kind in ("i", "u", "b") for c, dt in prev_inputs.items()
+        } != {c: dt.kind in ("i", "u", "b") for c, dt in inputs.items()}:
+            raise DeviceUnsupported("chunk schema drift under grouped aggregate")
+
+    @property
+    def has_data(self) -> bool:
+        return self._partial is not None
 
     # -- update ---------------------------------------------------------------
 
@@ -518,10 +638,6 @@ class GroupedAggStream:
         n = B.num_rows(batch)
         if n == 0:
             return
-        if self._partial is not None:
-            raise NotImplementedError(
-                "merging a second chunk into a grouped aggregate (the streamed aggregate) is not yet in the port"
-            )
         refs = sorted(condition.references()) if condition is not None else []
         agg_inputs = sorted({c for _, _, c in self.aggs if c is not None})
         for col in refs + agg_inputs + self.group_keys:
@@ -555,10 +671,11 @@ class GroupedAggStream:
         cap = group_capacity(max(self._cap_hint, 1), self.cap_floor)
         while True:
             program = grouped_chunk_program(pred_fn, key_specs, self._slots, cap)
-            n_g, fs, key_out, slot_out = program(dev_cols, lits, n, 0)
+            n_g, fs, key_out, slot_out = program(dev_cols, lits, n, self._row_base)
             dispatches["grouped-agg-chunk"] += 1
             if n_g > self.max_groups:
                 t = _add(self.session, "agg_program", t)
+                # this chunk is NOT in the running partial (folded is False)
                 raise GroupCapacityExceeded(f"group cardinality {n_g} exceeds maxGroups {self.max_groups}")
             if n_g <= cap:
                 break
@@ -568,9 +685,16 @@ class GroupedAggStream:
         key_out = list(key_out)
         for i, (name, (tag, _, _)) in enumerate(zip(self.group_keys, keys_schema)):
             if tag == "s":
-                key_out[i] = self._remap_string_key(name, key_out[i], codecs[name], n_g, cap)
-        self._partial = {"cap": cap, "n": n_g, "fs": fs, "keys": key_out, "slots": list(slot_out)}
+                key_out[i] = torch.from_numpy(
+                    self._remap_string_key(name, key_out[i], codecs[name], n_g, cap)
+                ).to(self.session.device)
+        new = {"cap": cap, "n": n_g, "fs": fs, "keys": key_out, "slots": list(slot_out)}
+        self._row_base += n
         _add(self.session, "agg_program", t)
+        if self._partial is None:
+            self._partial = new
+        else:
+            self._merge(new)
 
     def _remap_string_key(self, name, dev_codes, codec: ColumnCodec, n_g: int, cap: int) -> np.ndarray:
         """Dictionary codes -> stream-global int64 codes (a host remap of
@@ -589,6 +713,40 @@ class GroupedAggStream:
                 uniq.append(val)
             out[j] = got
         return out
+
+    def _merge(self, new) -> None:
+        """Fold a chunk's table into the running partial on the device
+        (``grouped-merge``). Raises GroupCapacityExceeded with ``folded``
+        set when the merged table holds more than ``maxGroups`` groups: the
+        merged partial is still valid, and the caller hands it to the host
+        before spilling."""
+        t = time.perf_counter()
+        a, b = self._partial, new
+        keys_schema, _ = self._schema
+        key_specs = tuple(
+            (name, "f" if tag == "f" else "i") for name, (tag, _, _) in zip(self.group_keys, keys_schema)
+        )
+        cap_in = max(a["cap"], b["cap"])
+        for part in (a, b):
+            if part["cap"] != cap_in:
+                part["fs"] = _dev_pad(part["fs"], cap_in, _FS_SENTINEL)
+                part["keys"] = [_dev_pad(k, cap_in, float("nan") if k.is_floating_point() else 0)
+                                for k in part["keys"]]
+                part["slots"] = [_dev_pad(v, cap_in, 0) for v in part["slots"]]
+        cap_out = group_capacity(a["n"] + b["n"], self.cap_floor)
+        program = grouped_merge_program(key_specs, self._slots, cap_in, cap_out)
+        n_g, fs, key_out, slot_out = program(
+            tuple(a["keys"]), tuple(b["keys"]), tuple(a["slots"]), tuple(b["slots"]),
+            a["fs"], b["fs"], a["n"], b["n"],
+        )
+        dispatches["grouped-merge"] += 1
+        self._partial = {"cap": cap_out, "n": n_g, "fs": fs, "keys": list(key_out), "slots": list(slot_out)}
+        self._cap_hint = max(self._cap_hint, n_g)
+        _add(self.session, "agg_merge", t)
+        if n_g > self.max_groups:
+            exc = GroupCapacityExceeded(f"group cardinality {n_g} exceeds maxGroups {self.max_groups}")
+            exc.folded = True  # the chunk that crossed the limit IS in the partial
+            raise exc
 
     # -- finalization ---------------------------------------------------------
 
@@ -669,6 +827,46 @@ class GroupedAggStream:
                     out[name] = np.sqrt(np.clip(var, 0.0, None))
         _add(self.session, "agg_finalize", t)
         return out
+
+
+    def to_partial_frame(self, plain):
+        """The running device partial as ONE host partial frame in the
+        streamed aggregate's merge format (``__p{i}`` columns per aggregate
+        index ``i``): the spill path hands the accumulated device state to
+        the host combine without recomputing any chunk."""
+        import pandas as pd
+
+        t = time.perf_counter()
+        n, key_cols, slot_cols = self._host_table()
+        _add(self.session, "agg_program", t)
+        _, input_dtypes = self._schema
+        frame = dict(key_cols)
+        refs_by_name = {name: ref for (name, _, _), ref in zip(self.aggs, self._refs)}
+        for i, name, fn, c in plain:
+            ref = refs_by_name[name]
+            p = f"__p{i}"
+            if fn == "count":
+                frame[p] = slot_cols[ref[0]].astype(np.int64)
+            elif fn in ("sum", "min", "max"):
+                v, cnt = slot_cols[ref[0]], slot_cols[ref[1]]
+                dt = input_dtypes[c]
+                if dt.kind in ("i", "u", "b"):
+                    if fn == "sum":
+                        frame[p] = v.astype(np.int64)
+                    else:
+                        frame[p] = v.astype(dt if dt.kind != "u" else np.int64)
+                else:
+                    frame[p] = np.where(cnt > 0, v.astype(np.float64), np.nan)
+            elif fn == "avg":
+                s, cnt = slot_cols[ref[0]], slot_cols[ref[1]]
+                frame[p + "_s"] = np.where(cnt > 0, s.astype(np.float64), np.nan)
+                frame[p + "_c"] = cnt.astype(np.int64)
+            else:  # stddev_samp
+                cnt, s, ss = (slot_cols[r] for r in ref)
+                frame[p + "_n"] = cnt.astype(np.int64)
+                frame[p + "_s"] = np.where(cnt > 0, s.astype(np.float64), np.nan)
+                frame[p + "_ss"] = ss.astype(np.float64)
+        return pd.DataFrame(frame)
 
 
 _CAP_HINT_MEMO: Dict[tuple, int] = {}

@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import collections
 import os
+import threading
 import time
 import warnings
 from typing import Dict, List, Optional, Tuple
@@ -526,10 +527,12 @@ def upload_literals(values, device: torch.device) -> Tuple[torch.Tensor, ...]:
 
 # --------------------------------------------------------------------------
 # device column cache: (scan identity, column, device) -> (tensor, codec,
-# n_rows). Index bucket files are immutable (versioned v__=N dirs), so
+# n_rows, ready). Index bucket files are immutable (versioned v__=N dirs), so
 # predicate columns stay resident on the device across queries; only the
 # first query on an index version pays the host->device copy. The scan
 # identity holds each file's mtime and size, so a rewrite invalidates.
+# ``ready`` is the CUDA event after the copy of a column staged on a
+# pipeline thread's side stream (``stage_filter_columns``), else None.
 # --------------------------------------------------------------------------
 
 _device_cache = BytesLRU(int(os.environ.get("HS_DEVICE_CACHE_BYTES", 1 << 31)))
@@ -561,14 +564,105 @@ def _dry_codecs(batch: B.Batch, refs) -> Dict[str, ColumnCodec]:
     return out
 
 
-def _put_encoded(arr: np.ndarray, device: torch.device) -> Tuple[torch.Tensor, ColumnCodec, int]:
-    """Encode and upload one column; returns (tensor, codec, bytes)."""
-    enc, codec = encode_column(arr)
+def _host_tensor(enc: np.ndarray) -> torch.Tensor:
     with warnings.catch_warnings():
         # scan-cache arrays are read-only; the upload only reads them
         warnings.filterwarnings("ignore", message="The given NumPy array is not writable")
-        host = torch.from_numpy(np.ascontiguousarray(enc))
-    return host.to(device), codec, int(enc.nbytes)
+        return torch.from_numpy(np.ascontiguousarray(enc))
+
+
+def _put_encoded(arr: np.ndarray, device: torch.device) -> Tuple[torch.Tensor, ColumnCodec, int]:
+    """Encode and upload one column; returns (tensor, codec, bytes)."""
+    enc, codec = encode_column(arr)
+    return _host_tensor(enc).to(device), codec, int(enc.nbytes)
+
+
+def _cached_column(ckey, n: int):
+    """(tensor, codec) of a resident column of ``n`` rows, or None. A column
+    staged on a pipeline thread's side stream becomes usable here: the
+    current stream waits for its copy's event, and the tensor is recorded
+    on the current stream, so the caching allocator never hands its memory
+    out while this stream's programs may still read it."""
+    cached = _device_cache.get(ckey) if ckey is not None else None
+    if cached is None or cached[2] != n:
+        return None
+    dev, codec, _, ready = cached
+    if ready is not None:
+        stream = torch.cuda.current_stream(dev.device)
+        stream.wait_event(ready)
+        dev.record_stream(stream)
+    return dev, codec
+
+
+def resolved_device(session) -> torch.device:
+    """The session's device with its index: a pipeline thread's current
+    CUDA device need not be the consumer thread's."""
+    device = session.device
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+_STAGE_STREAMS = threading.local()
+
+
+def _stage_encoded(arr: np.ndarray, device: torch.device):
+    """Encode one column and copy it to ``device`` from the calling
+    thread: on CUDA from pinned host memory on the thread's own side
+    stream, without blocking, followed by an event the consumer waits on.
+    Returns (tensor, codec, bytes, ready event or None)."""
+    if device.type != "cuda":
+        dev, codec, nbytes = _put_encoded(arr, device)
+        return dev, codec, nbytes, None
+    torch.cuda.set_device(device)
+    streams = getattr(_STAGE_STREAMS, "by_device", None)
+    if streams is None:
+        streams = _STAGE_STREAMS.by_device = {}
+    stream = streams.get(device.index)
+    if stream is None:
+        stream = streams[device.index] = torch.cuda.Stream(device)
+    enc, codec = encode_column(arr)
+    host = _host_tensor(enc).pin_memory()
+    with torch.cuda.stream(stream):
+        dev = host.to(device, non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record(stream)
+    return dev, codec, int(enc.nbytes), ready
+
+
+def stage_filter_columns(session, batch: B.Batch, condition: Optional[Expr], scan_key, extra_columns=None,
+                         device: Optional[torch.device] = None) -> None:
+    """The scan pipeline's staging hook (exec/pipeline.py): encode
+    ``condition``'s columns and ``extra_columns`` (group keys, aggregate
+    inputs) of a chunk and copy them into the device column cache from the
+    producer thread, so the consumer's program over the chunk finds them
+    resident and the copy overlaps the previous chunk's compute.
+    ``device`` is the session's device with its index (``resolved_device``,
+    taken on the consumer thread). Each entry enters the cache only with
+    its copy's event. A no-op when the predicate is outside the device
+    language or ``scan_key`` is None (nothing would be cached)."""
+    if scan_key is None or (condition is None and not extra_columns):
+        return
+    n = B.num_rows(batch)
+    if n == 0:
+        return
+    refs = sorted(condition.references()) if condition is not None else []
+    if any(r not in batch for r in refs):
+        return
+    cols = list(dict.fromkeys(refs + [c for c in (extra_columns or []) if c in batch]))
+    target = device if device is not None else session.device
+    try:
+        if condition is not None:
+            _pack_literals(compile_predicate(condition, _dry_codecs(batch, refs))[1])
+        for r in cols:
+            ckey = (scan_key, r, str(session.device))
+            cached = _device_cache.get(ckey)
+            if cached is not None and cached[2] == n:
+                continue
+            dev, codec, nbytes, ready = _stage_encoded(batch[r], target)
+            _device_cache.put(ckey, (dev, codec, n, ready), nbytes)
+    except DeviceUnsupported:
+        return  # the consumer's own path takes this chunk
 
 
 def device_filter_mask(session, batch: B.Batch, condition: Expr, scan_key=None) -> np.ndarray:
@@ -593,9 +687,9 @@ def device_filter_mask(session, batch: B.Batch, condition: Expr, scan_key=None) 
     missing: List[str] = []
     for r in refs:
         ckey = (scan_key, r, str(device)) if scan_key is not None else None
-        cached = _device_cache.get(ckey) if ckey is not None else None
-        if cached is not None and cached[2] == n:
-            dev_cols[r], codecs[r] = cached[0], cached[1]
+        cached = _cached_column(ckey, n)
+        if cached is not None:
+            dev_cols[r], codecs[r] = cached
         else:
             missing.append(r)
 
@@ -610,7 +704,7 @@ def device_filter_mask(session, batch: B.Batch, condition: Expr, scan_key=None) 
             dev, codec, nbytes = _put_encoded(batch[r], device)
             dev_cols[r], codecs[r] = dev, codec
             if scan_key is not None:
-                _device_cache.put((scan_key, r, str(device)), (dev, codec, n), nbytes)
+                _device_cache.put((scan_key, r, str(device)), (dev, codec, n, None), nbytes)
         stages["upload"] += time.perf_counter() - t
 
     t = time.perf_counter()

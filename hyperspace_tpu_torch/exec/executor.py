@@ -8,8 +8,18 @@ over a (filtered) index scan run as one device program
 (exec/aggregate.py). The host path is the correctness baseline and the
 non-indexed fallback.
 
-The port's executor runs ``Scan``, ``IndexScan``, ``Filter``, ``Project``,
-``Join`` and ``Aggregate``; every other node raises until its slice lands.
+Out of core: above ``hyperspace.exec.stream.joinMinBytes`` the bucketed
+join streams bucket by bucket (exec/join.py), above
+``exec.stream.aggMinBytes`` an aggregate over a scan chain runs in file
+chunks and merges partial states (``_streaming_aggregate``), and above
+``exec.join.spillMinRows`` the generic merge runs in hash partitions
+(``_partitioned_merge``). ``execute_stream`` yields a result chunk by chunk
+(``DataFrame.to_local_iterator``). Chunks decode ahead of their consumer on
+the scan pipeline (exec/pipeline.py).
+
+The port's executor runs ``Scan``, ``FileScan``, ``IndexScan``,
+``Filter``, ``Project``, ``Join`` and ``Aggregate``; every other node
+raises until its slice lands.
 The reference delegates all of this to Spark's physical planner/executors;
 here the framework owns it.
 """
@@ -26,6 +36,7 @@ from hyperspace_tpu_torch.exec import trace
 from hyperspace_tpu_torch.plan import logical as L
 from hyperspace_tpu_torch.plan.expr import (
     INPUT_FILE_NAME,
+    BinaryOp,
     Expr,
     InputFileName,
     as_bool_mask,
@@ -158,22 +169,94 @@ def _gather_with_missing(arr: np.ndarray, spec) -> np.ndarray:
 
 def _chain_to_scan(plan: L.LogicalPlan):
     """(wrappers, leaf) when ``plan`` is a chain of row-wise nodes
-    (Project/Filter) over a single Scan/IndexScan leaf — the shape the
-    streaming executor can partition by files; (None, None) otherwise."""
+    (Project/Filter) over a single Scan/FileScan/IndexScan leaf — the shape
+    the streaming executor can partition by files; (None, None) otherwise."""
     chain = []
     node = plan
     while isinstance(node, (L.Project, L.Filter)):
         chain.append(node)
         node = node.child
-    if isinstance(node, (L.Scan, L.IndexScan)):
+    if isinstance(node, (L.Scan, L.FileScan, L.IndexScan)):
         return chain, node
     return None, None
+
+
+def _chain_needed_columns(chain, aggs=None, keys=None):
+    """Source columns a scan chain references, for pruning the per-chunk
+    scan."""
+    needed = set()
+    for node in chain:
+        if isinstance(node, L.Project):
+            needed |= set(node.columns)
+        elif isinstance(node, L.Filter):
+            needed |= set(node.condition.references())
+    if aggs:
+        needed |= {c for _, _, c in aggs if c is not None}
+    if keys:
+        needed |= set(keys)
+    return needed
+
+
+def _chain_pushdown_condition(chain):
+    """AND of the chain's Filter conditions that sit over only Projects,
+    still in source-column terms: the predicate the grouped device stream
+    fuses into its program, and the one a chunk's leaf carries for
+    row-group pruning."""
+    cond = None
+    for node in reversed(chain):  # leaf-most wrapper first
+        if isinstance(node, L.Project):
+            continue
+        if isinstance(node, L.Filter):
+            cond = node.condition if cond is None else BinaryOp("AND", cond, node.condition)
+            continue
+        break
+    return cond
+
+
+def _pruned_scan_key(key, pruned_by):
+    """Brand a device-cache scan key with the predicate attached to the
+    scan for row-group pruning, as the JAX package does: two predicates can
+    prune the same files to equal row counts but different rows."""
+    if key is None or pruned_by is None:
+        return key
+    return key + (("rg-pred", str(pruned_by)),)
+
+
+def _rebuild_chain(chain, leaf: L.LogicalPlan) -> L.LogicalPlan:
+    """Clone the row-wise wrappers over a replacement leaf (bottom-up)."""
+    node = leaf
+    for wrapper in reversed(chain):
+        node = wrapper.with_children([node])
+    return node
 
 
 def _leaf_files(leaf: L.LogicalPlan) -> List[str]:
     if isinstance(leaf, L.Scan):
         return [fi.name for fi in leaf.relation.all_file_infos()]
     return list(leaf.files)
+
+
+def _leaf_subset(leaf: L.LogicalPlan, files: List[str], needed=None) -> L.LogicalPlan:
+    """A scan leaf over only ``files``; a relation-backed Scan becomes a
+    FileScan carrying the relation's partition metadata, pruned to the
+    ``needed`` columns (a chunked decode pays per chunk for every column it
+    decodes)."""
+    import copy
+
+    if isinstance(leaf, (L.FileScan, L.IndexScan)):
+        clone = copy.copy(leaf)
+        clone.files = list(files)
+        return clone
+    rel = leaf.relation
+    cols = list(leaf.output_columns)
+    if needed is not None:
+        lowered = {n.lower() for n in needed}
+        cols = [c for c in cols if c.lower() in lowered] or cols
+    pv = pd_ = None
+    if rel.partition_columns:
+        pv = {f: rel.partition_values_for(f) for f in files}
+        pd_ = dict(rel.partition_dtypes) or None
+    return L.FileScan(files, rel.file_format, cols, partition_values=pv, partition_dtypes=pd_)
 
 
 def _chunk_files_by_bytes(files: List[str], target_bytes: int) -> List[List[str]]:
@@ -309,12 +392,20 @@ class Executor:
         # (id, with_file_names); set per execute()
         self._shared: set = set()
         self._memo: Dict[Tuple[int, bool], B.Batch] = {}
+        # (chunk leaf, its prefetched batch) while a pipelined stream runs
+        # the chunk's chain over it (_stream_chunks)
+        self._leaf_override: Optional[Tuple[L.LogicalPlan, B.Batch]] = None
 
     def _add_stage(self, stage: str, t0: float) -> float:
         """Add the time since ``t0`` to the session's
-        ``query_stage_seconds[stage]``; returns now."""
+        ``query_stage_seconds[stage]`` (``prefetch_<stage>`` on a scan
+        pipeline's thread, where it overlaps the consumer's layers); returns
+        now."""
+        from hyperspace_tpu_torch.exec.pipeline import on_producer_thread
+
         now = time.perf_counter()
-        self.session.query_stage_seconds[stage] += now - t0
+        key = f"prefetch_{stage}" if on_producer_thread() else stage
+        self.session.query_stage_seconds[key] += now - t0
         return now
 
     def execute(self, plan: L.LogicalPlan, required_columns: Optional[List[str]] = None) -> B.Batch:
@@ -344,6 +435,171 @@ class Executor:
             batch = {k: v for k, v in batch.items() if k != INPUT_FILE_NAME}
         return batch
 
+    def execute_stream(self, plan: L.LogicalPlan):
+        """Yield result batches incrementally (DataFrame.to_local_iterator).
+
+        Streamed shapes: a (Project over a Filter over a) compatible
+        bucketed Join yields per-bucket chunks through the streamed join; a
+        row-wise chain over one scan yields per-file-group chunks.
+        Everything else yields the one materialized batch: streaming is an
+        execution strategy, never an API restriction (Spark's
+        toLocalIterator contract).
+
+        The JAX package streams a join it would broadcast (one side under
+        ``hyperspace.exec.join.broadcastMaxBytes``) through its broadcast
+        probe, chunk by chunk; that tier is not in the port, which yields
+        the one batch ``collect()`` gives, the same rows."""
+        from hyperspace_tpu_torch.rules.utils import prune_columns, shared_subplan_ids
+
+        try:
+            plan = prune_columns(plan)
+        except Exception:  # pruning must never kill a query
+            trace.record("prune", "fallback-unpruned")
+        self._shared = shared_subplan_ids(plan)
+        self._memo = {}
+        try:
+            if _plan_needs_file_names(plan):
+                batch = self._exec(plan, True)
+                yield {k: v for k, v in batch.items() if k != INPUT_FILE_NAME}
+                return
+            node = plan
+            proj = None
+            if isinstance(node, L.Project):
+                proj, node = list(node.columns), node.child
+            # a Filter directly above a Join applies per streamed chunk
+            post_filter = None
+            if isinstance(node, L.Filter) and isinstance(node.child, L.Join):
+                post_filter, node = node.condition, node.child
+            if isinstance(node, L.Join) and self.session.conf.device_execution_enabled:
+                from hyperspace_tpu_torch.exec import device as D
+                from hyperspace_tpu_torch.exec import join as J
+
+                if J.join_sides_compatible(node) is not None:
+                    gen = J.stream_bucketed_join(self.session, node)
+                    try:
+                        try:
+                            first = next(gen)
+                        except StopIteration:
+                            return
+                        except D.DeviceUnsupported:
+                            # only the first bucket's refusal falls back, as
+                            # in the JAX package
+                            gen = None
+                        if gen is not None:
+
+                            def shape(chunk):
+                                if post_filter is not None:
+                                    chunk = B.mask_rows(chunk, as_bool_mask(post_filter.eval(chunk)))
+                                return B.select(chunk, proj) if proj else chunk
+
+                            trace.record("join", "host-span-smj-stream")
+                            yield shape(first)
+                            for chunk in gen:
+                                yield shape(chunk)
+                            return
+                    finally:
+                        if gen is not None:
+                            gen.close()  # an abandoned stream stops its bucket decodes
+            chain, leaf = _chain_to_scan(plan)
+            if leaf is not None:
+                files = _leaf_files(leaf)
+                groups = _chunk_files_by_bytes(files, max(1, self.session.conf.stream_chunk_bytes))
+                if len(groups) > 1:
+                    needed = _chain_needed_columns(chain) | set(plan.output_columns)
+                    yield from self._stream_chunks(chain, leaf, groups, needed)
+                    return
+            batch = self._exec(plan, False)
+            yield {k: v for k, v in batch.items() if k != INPUT_FILE_NAME}
+        finally:
+            self._memo = {}
+            self._shared = set()
+
+    def _stream_chunks(self, chain, leaf, groups, needed, leaf_only=False, stage_extra=None):
+        """Yield one executed chain batch per file group, overlapping chunk
+        k+1's decode and device staging with chunk k's execution through
+        ScanPipeline. The serial path (pipeline off, or a chain that needs
+        file names) executes the same leaf clones, so streamed results are
+        identical either way.
+
+        ``leaf_only=True`` yields ``(leaf clone, chain plan, leaf batch)``
+        instead of executed batches: the grouped device stream consumes raw
+        leaf chunks (the predicate fuses into its program) but must still be
+        able to run the chain over the same prefetched batch when it falls
+        back mid-stream. ``stage_extra`` names further columns (group keys,
+        aggregate inputs) the staging hook copies alongside the predicate
+        columns.
+
+        Each leaf clone carries the chain's pushed-down predicate, as in the
+        JAX package, where the parquet read prunes row groups with it. The
+        port has no row-group pruning yet (ROADMAP A5b), so the predicate
+        changes nothing that is decoded; it brands the chunk's device-cache
+        key alone."""
+        conf = self.session.conf
+        pushed = _chain_pushdown_condition(chain)
+        leaves, subs = [], []
+        for g in groups:
+            lf = _leaf_subset(leaf, g, needed)
+            if pushed is not None:
+                lf.pushdown_predicate = pushed
+            leaves.append(lf)
+            subs.append(_rebuild_chain(chain, lf))
+        wfns = [_plan_needs_file_names(s) for s in subs]
+
+        if not conf.pipeline_enabled or len(groups) < 2 or any(wfns):
+            # a prefetched leaf batch cannot carry file-name columns; such
+            # chains (InputFileName in a filter) stay serial
+            for i, (sub, wfn) in enumerate(zip(subs, wfns)):
+                if leaf_only:
+                    yield leaves[i], sub, self._exec(leaves[i], False)
+                else:
+                    yield self._exec(sub, wfn)
+            return
+
+        from hyperspace_tpu_torch.exec import device as D
+        from hyperspace_tpu_torch.exec.pipeline import ScanPipeline
+
+        # staging applies when the chunk takes the device filter (a Filter
+        # directly over the scan leaf) or the grouped device stream
+        dev_cond = None
+        if conf.device_execution_enabled and chain and isinstance(chain[-1], L.Filter):
+            dev_cond = chain[-1].condition
+        staging = dev_cond is not None or bool(stage_extra)
+        device = D.resolved_device(self.session) if staging else None
+
+        def stage(i, batch):
+            if B.num_rows(batch) < conf.device_exec_min_rows:
+                return
+            key = _pruned_scan_key(_scan_identity(leaves[i]), pushed)
+            D.stage_filter_columns(self.session, batch, dev_cond, key, extra_columns=stage_extra, device=device)
+
+        def weigh(batch):
+            return sum(int(getattr(a, "nbytes", 0)) for a in batch.values())
+
+        pipe = ScanPipeline(
+            [(lambda i=i: self._exec(leaves[i], False)) for i in range(len(leaves))],
+            depth=max(1, conf.pipeline_depth),
+            max_buffered_bytes=conf.pipeline_max_buffered_bytes,
+            weigh=weigh,
+            stage=stage if staging else None,
+        )
+        try:
+            t = time.perf_counter()
+            for i, leaf_batch in enumerate(pipe):
+                self._add_stage("stream_wait", t)
+                if leaf_only:
+                    yield leaves[i], subs[i], leaf_batch
+                else:
+                    prev = self._leaf_override
+                    self._leaf_override = (leaves[i], leaf_batch)
+                    try:
+                        out = self._exec(subs[i], False)
+                    finally:
+                        self._leaf_override = prev
+                    yield out
+                t = time.perf_counter()
+        finally:
+            pipe.close()
+
     def _exec(self, plan: L.LogicalPlan, with_file_names: bool) -> B.Batch:
         # hits hand out shallow copies so callers may add derived keys
         # without cross-talk (arrays themselves are never mutated)
@@ -358,8 +614,22 @@ class Executor:
         return self._exec_node(plan, with_file_names)
 
     def _exec_node(self, plan: L.LogicalPlan, with_file_names: bool) -> B.Batch:
+        # a pipelined stream hands the current chunk's prefetched leaf batch
+        # to the chain's execution (identity match: each chunk's leaf clone
+        # is its own)
+        ov = self._leaf_override
+        if ov is not None and plan is ov[0]:
+            return dict(ov[1])
+
         if isinstance(plan, L.Scan):
             return self._exec_scan(plan, with_file_names)
+
+        if isinstance(plan, L.FileScan):
+            t = time.perf_counter()
+            batch = _read_files(list(plan.files), list(plan.columns), with_file_names,
+                                plan.partition_values, plan.partition_dtypes)
+            self._add_stage("decode", t)
+            return batch
 
         if isinstance(plan, L.IndexScan):
             if plan.pruned_buckets is not None:
@@ -386,7 +656,7 @@ class Executor:
 
         if isinstance(plan, L.Filter):
             child = self._exec(plan.child, with_file_names)
-            mask = self._filter_mask(plan, child)
+            mask = self._filter_mask(plan, child, pruned_by=getattr(plan.child, "pushdown_predicate", None))
             t = time.perf_counter()
             out = B.mask_rows(child, mask)
             self._add_stage("mask_rows", t)
@@ -484,10 +754,9 @@ class Executor:
         rdf = pd.DataFrame({**{k: right_named[k] for k in rkeys_renamed}, "__rrow": np.arange(B.num_rows(right))})
         spill = self.session.conf.join_spill_min_rows
         if spill and spill > 0 and max(len(ldf), len(rdf)) > spill:
-            raise NotImplementedError(
-                "the partitioned merge (a join side above hyperspace.exec.join.spillMinRows) is not yet in the port"
-            )
-        merged = ldf.merge(rdf, left_on=lkeys, right_on=rkeys_renamed, how=plan.how)
+            merged = self._partitioned_merge(ldf, rdf, lkeys, rkeys_renamed, plan.how, spill)
+        else:
+            merged = ldf.merge(rdf, left_on=lkeys, right_on=rkeys_renamed, how=plan.how)
         lspec = _gather_spec(merged["__lrow"].to_numpy())
         rspec = _gather_spec(merged["__rrow"].to_numpy())
         out: B.Batch = {}
@@ -513,11 +782,73 @@ class Executor:
         self._add_stage("join_merge", t)
         return out
 
+    @staticmethod
+    def _partitioned_merge(ldf, rdf, lkeys, rkeys, how: str, spill_rows: int):
+        """Grace-style partitioned hash merge: both slim key frames split by
+        a shared key hash and each partition merges alone, bounding the
+        merge's intermediate (hash table and indexers) to about 1/P of the
+        unpartitioned one. Correct for every join type because hash
+        partitions are disjoint by key: each row joins (or null-extends)
+        entirely within its partition. Equal values hash equally across the
+        two sides' dtypes (numeric keys take a common type before hashing),
+        and NaN keys hash alike, so pandas' NaN-matches-NaN merge holds
+        within each partition. The rows come partition by partition, so
+        their order differs from the unpartitioned merge's (as in the JAX
+        package; ROADMAP C)."""
+        import pandas as pd
+
+        from hyperspace_tpu_torch.ops.encode import hash_input_uint32
+        from hyperspace_tpu_torch.ops.hashing import bucket_ids_np
+
+        n_parts = max(2, -(-max(len(ldf), len(rdf)) // spill_rows))
+
+        # partitioning is only sound when keys equal under pandas hash
+        # equally on both sides: numeric pairs take a common dtype and -0.0
+        # becomes +0.0 (pandas merges them equal; their bit patterns hash
+        # apart); any other mismatch (object vs numeric, datetime units)
+        # takes the single merge rather than drop matches
+        def keyed(df, keys, other_df, other_keys):
+            planes = []
+            for k, ok in zip(keys, other_keys):
+                a = df[k].to_numpy()
+                b = other_df[ok].to_numpy()
+                if a.dtype != b.dtype:
+                    if a.dtype.kind in "iuf" and b.dtype.kind in "iuf":
+                        a = a.astype(np.result_type(a.dtype, b.dtype), copy=False)
+                    else:
+                        return None
+                if a.dtype.kind == "f":
+                    a = a + 0.0  # -0.0 -> +0.0; NaN unchanged
+                planes.append(hash_input_uint32(a))
+            return bucket_ids_np(planes, n_parts)
+
+        lids = keyed(ldf, lkeys, rdf, rkeys)
+        rids = keyed(rdf, rkeys, ldf, lkeys)
+        if lids is None or rids is None:
+            return ldf.merge(rdf, left_on=lkeys, right_on=rkeys, how=how)
+        trace.record("join", f"generic-merge-partitioned({n_parts})")
+        parts = []
+        for p in range(n_parts):
+            lp = ldf[lids == p]
+            rp = rdf[rids == p]
+            if len(lp) == 0 and len(rp) == 0:
+                continue
+            if how == "inner" and (len(lp) == 0 or len(rp) == 0):
+                continue
+            if how == "left" and len(lp) == 0:
+                continue
+            if how == "right" and len(rp) == 0:
+                continue
+            parts.append(lp.merge(rp, left_on=lkeys, right_on=rkeys, how=how))
+        if not parts:
+            return ldf.iloc[:0].merge(rdf.iloc[:0], left_on=lkeys, right_on=rkeys, how=how)
+        return pd.concat(parts, ignore_index=True, sort=False)
+
     def _exec_aggregate(self, plan: L.Aggregate, with_file_names: bool) -> B.Batch:
         """The JAX package's tiers, in its order: the fused aggregate over a
         compatible bucketed inner join (host spans, no pair expansion), the
-        device aggregate over a (filtered) index scan, the host pandas
-        aggregate."""
+        streamed aggregate over a large scan chain, the device aggregate
+        over a (filtered) index scan, the host pandas aggregate."""
         conf = self.session.conf
         child = None
         if not with_file_names and conf.device_execution_enabled:
@@ -534,9 +865,14 @@ class Executor:
                     return got
                 except D.DeviceUnsupported:
                     trace.fallback("agg", "join-unsupported")
+        # the streamed tier comes before the device-scan gate, which would
+        # materialize the whole scan: the out-of-core path exists to avoid it
         if not with_file_names:
             self._check_fused_join_aggregate(plan)
-            self._check_streaming_aggregate(plan)
+            got = self._try_streaming_aggregate(plan)
+            if got is not None:
+                trace.record("agg", "streamed-partial")
+                return got
         if not with_file_names and conf.device_execution_enabled:
             got, scan_batch, filter_node = self._try_device_aggregate(plan)
             if got is not None:
@@ -562,51 +898,332 @@ class Executor:
     def _check_fused_join_aggregate(self, plan: L.Aggregate) -> None:
         """The JAX package compiles a grouped aggregate over (a Filter over)
         an inner join into one fused stage program per chunk when
-        ``hyperspace.exec.fusion.enabled`` is set; that is not in the port,
-        so such a query raises."""
+        ``hyperspace.exec.fusion.enabled`` is set and ``broadcast_spec``
+        finds a side to broadcast; otherwise it falls through to the
+        streamed, device and host tiers. The fused program is not in the
+        port, so only a query the JAX package would fuse raises."""
         conf = self.session.conf
         if not (conf.fusion_enabled and conf.device_execution_enabled and conf.agg_device_grouped_enabled):
             return
         if not plan.keys or any(fn not in _STREAMABLE_AGGS or fn.endswith("_distinct") for _, fn, _ in plan.aggs):
             return
         node = plan.child
-        if isinstance(node, L.Filter):
+        if isinstance(node, L.Filter) and isinstance(node.child, L.Join):
             node = node.child
-        if isinstance(node, L.Join):
+        if not isinstance(node, L.Join):
+            return
+        from hyperspace_tpu_torch.exec.join_stream import broadcast_spec
+
+        if broadcast_spec(self.session, node) is not None:
             raise NotImplementedError(
                 "the fused join aggregate (hyperspace.exec.fusion.enabled) is not yet in the port"
             )
 
-    def _check_streaming_aggregate(self, plan: L.Aggregate) -> None:
-        """The JAX package aggregates a scan chain over more source bytes
-        than ``hyperspace.exec.stream.aggMinBytes`` in file chunks, merging
-        partial states; that is not in the port, so an aggregate it would
-        stream raises (at least two files in at least two chunks)."""
+    def _try_streaming_aggregate(self, plan: L.Aggregate) -> Optional[B.Batch]:
+        """Out-of-core aggregate: when the child is a scan chain over more
+        source bytes than ``hyperspace.exec.stream.aggMinBytes``, execute it
+        in file chunks and merge decomposable partial states (Spark's
+        partial/final split). Returns None (the caller materializes) when
+        the shape, size or aggregate set does not stream, and when the
+        streamed path meets what the JAX package falls back from: a shape
+        or dtype outside the device language (``DeviceUnsupported``), or a
+        host-side shape or dtype error. An error of the device itself
+        propagates."""
         conf = self.session.conf
         min_bytes = conf.stream_agg_min_bytes
         if not min_bytes or min_bytes <= 0:
-            return
+            return None
         if any(fn not in _STREAMABLE_AGGS for _, fn, _ in plan.aggs):
-            return
-        _chain, leaf = _chain_to_scan(plan.child)
+            return None
+        chain, leaf = _chain_to_scan(plan.child)
         if leaf is None:
-            return
+            return None
         files = _leaf_files(leaf)
         if len(files) < 2:
-            return
+            return None
         import os
 
         try:
             total_bytes = sum(os.stat(f).st_size for f in files)
         except OSError:
-            return
+            return None
         if total_bytes < min_bytes:
-            return
-        if len(_chunk_files_by_bytes(files, max(1, conf.stream_chunk_bytes))) < 2:
-            return
-        raise NotImplementedError(
-            "the streamed aggregate (inputs above hyperspace.exec.stream.aggMinBytes) is not yet in the port"
-        )
+            return None
+        groups = _chunk_files_by_bytes(files, max(1, conf.stream_chunk_bytes))
+        if len(groups) < 2:
+            return None
+        from hyperspace_tpu_torch.exec.device import DeviceUnsupported
+
+        needed = _chain_needed_columns(chain, plan.aggs, plan.keys)
+        try:
+            return self._streaming_aggregate(plan, chain, leaf, groups, needed)
+        except (DeviceUnsupported, KeyError, TypeError, ValueError):
+            # the streamed path must never break a query the materialized
+            # path can answer; visible in dispatch traces
+            trace.record("agg", "stream-fallback")
+            return None
+
+    def _streaming_aggregate(self, plan, chain, leaf, groups, needed) -> B.Batch:
+        import pandas as pd
+
+        conf = self.session.conf
+        grouped = bool(plan.keys)
+        # distinct-form aggregates accumulate (group keys +) unique values;
+        # everything else carries closed-form partial states
+        plain = [(i, n, fn, c) for i, (n, fn, c) in enumerate(plan.aggs) if not fn.endswith("_distinct")]
+        distinct = [(i, n, fn, c) for i, (n, fn, c) in enumerate(plan.aggs) if fn.endswith("_distinct")]
+
+        partial_frames: List = []  # grouped plain partials
+        distinct_frames = {i: [] for i, *_ in distinct}  # per-aggregate pair frames
+        g_state: Dict[int, object] = {}  # global plain partials
+
+        def fold_chunk(batch):
+            t = time.perf_counter()
+            batch = {k: v for k, v in batch.items() if k != INPUT_FILE_NAME}
+            n = B.num_rows(batch)
+
+            def series(col):
+                got = batch.get(col)
+                if got is None:
+                    got = get_column(batch, col)
+                if got is None:
+                    raise KeyError(f"Aggregate input column {col!r} not found")
+                return got
+
+            if grouped:
+                frame_cols = {k: series(k) for k in plan.keys}
+                for _i, _n, _fn, c in plain:
+                    if c is not None and c not in frame_cols:
+                        frame_cols[c] = series(c)
+                df = pd.DataFrame(frame_cols)
+                gb = df.groupby(list(plan.keys), dropna=False, sort=False)
+                pieces = {}
+                for i, name, fn, c in plain:
+                    p = f"__p{i}"
+                    if fn == "count":
+                        pieces[p] = gb.size() if c is None else gb[c].count()
+                    elif fn == "sum":
+                        pieces[p] = gb[c].sum(min_count=1)
+                    elif fn == "min":
+                        pieces[p] = gb[c].min()
+                    elif fn == "max":
+                        pieces[p] = gb[c].max()
+                    elif fn == "avg":
+                        pieces[p + "_s"] = gb[c].sum(min_count=1)
+                        pieces[p + "_c"] = gb[c].count()
+                    elif fn == "stddev_samp":
+                        # the raw (n, sum, sum of squares) partials, as the
+                        # JAX package merges them: they cancel when the mean
+                        # is much larger than the spread (ROADMAP C)
+                        pieces[p + "_n"] = gb[c].count()
+                        pieces[p + "_s"] = gb[c].sum(min_count=1)
+                        # float64 before squaring: int64 values near 2^32
+                        # would wrap the sum of squares negative
+                        pieces[p + "_ss"] = gb[c].apply(lambda s: float((s.dropna().astype(np.float64) ** 2).sum()))
+                if pieces:
+                    partial_frames.append(pd.DataFrame(pieces).reset_index())
+                elif distinct:
+                    # a keys-only partial, so groups with only distinct
+                    # aggregates still materialize every group
+                    partial_frames.append(pd.DataFrame({k: frame_cols[k] for k in plan.keys}).drop_duplicates())
+                for i, name, fn, c in distinct:
+                    pair = pd.DataFrame({**{k: series(k) for k in plan.keys}, "__v": series(c)}).drop_duplicates()
+                    distinct_frames[i].append(pair)
+            else:
+                for i, name, fn, c in plain:
+                    s = pd.Series(series(c)) if c is not None else None
+                    st = g_state.get(i)
+                    if fn == "count":
+                        v = n if c is None else int(s.count())
+                        g_state[i] = (st or 0) + v
+                    elif fn in ("sum", "min", "max"):
+                        part = getattr(s, fn)(**({"min_count": 1} if fn == "sum" else {}))
+                        g_state.setdefault(i, []).append(part)
+                    elif fn == "avg":
+                        sc = g_state.setdefault(i, [0.0, 0])
+                        cnt = int(s.count())
+                        if cnt:
+                            sc[0] += float(s.sum())
+                            sc[1] += cnt
+                    elif fn == "stddev_samp":
+                        sc = g_state.setdefault(i, [0, 0.0, 0.0])
+                        d = s.dropna().astype(np.float64)
+                        sc[0] += int(d.shape[0])
+                        sc[1] += float(d.sum())
+                        sc[2] += float((d**2).sum())
+                for i, name, fn, c in distinct:
+                    u = pd.Series(series(c)).dropna().drop_duplicates()
+                    distinct_frames[i].append(u.to_frame("__v"))
+            self._add_stage("agg_host", t)
+
+        # the grouped device stream: the chain's predicate fuses into the
+        # grouped program over each raw leaf chunk, and the running partial
+        # table stays on the device, merged chunk to chunk. A mid-stream
+        # fallback (a cardinality spill, a dtype drift) turns the device
+        # partial into ONE host partial frame and goes on with the pandas
+        # fold above.
+        stream = None
+        fuse_cond = None
+        stage_extra = None
+        if (
+            grouped
+            and not distinct
+            and conf.device_execution_enabled
+            and conf.agg_device_grouped_enabled
+            # the chunk leaves are always FileScan/IndexScan (_leaf_subset
+            # turns a relation Scan into a FileScan), so any chain of
+            # Filters and Projects fuses
+            and all(isinstance(nd, (L.Filter, L.Project)) for nd in chain)
+        ):
+            from hyperspace_tpu_torch.exec import aggregate as A
+            from hyperspace_tpu_torch.exec import device as D
+
+            if conf.parallel_enabled:
+                raise NotImplementedError("the sharded (hyperspace.parallel.enabled) aggregate is not yet in the port")
+            fuse_cond = _chain_pushdown_condition(chain)
+            stage_extra = sorted(set(plan.keys) | {c for _, _, _, c in plain if c is not None})
+            stream = A.GroupedAggStream(
+                self.session,
+                list(plan.keys),
+                list(plan.aggs),
+                max_groups=conf.agg_max_groups,
+                cap_floor=conf.agg_capacity_floor,
+                # a capacity hint shared by repeated runs of the same query
+                # shape over the same file set
+                hint_key=("stream",) + tuple(_leaf_files(leaf)),
+            )
+
+        # chunks arrive through the prefetch pipeline: chunk k+1 decodes
+        # (and stages) while this loop folds chunk k's partials
+        if stream is None:
+            for batch in self._stream_chunks(chain, leaf, groups, needed):
+                fold_chunk(batch)
+        else:
+            device_ok = True
+            for lf, sub, leaf_batch in self._stream_chunks(
+                chain, leaf, groups, needed, leaf_only=True, stage_extra=stage_extra
+            ):
+                if device_ok:
+                    nb = B.num_rows(leaf_batch)
+                    if nb and nb < conf.device_exec_min_rows:
+                        trace.fallback("agg", "min-rows")
+                        device_ok = False
+                    else:
+                        key = _pruned_scan_key(_scan_identity(lf), getattr(lf, "pushdown_predicate", None))
+                        try:
+                            stream.update(leaf_batch, fuse_cond, scan_key=key)
+                            continue
+                        except A.GroupCapacityExceeded as e:
+                            trace.fallback("agg", "spill")
+                            device_ok = False
+                            if stream.has_data:
+                                partial_frames.append(stream.to_partial_frame(plain))
+                            if e.folded:
+                                continue  # the chunk is already in that partial
+                        except D.DeviceUnsupported:
+                            trace.fallback("agg", "unsupported")
+                            device_ok = False
+                            if stream.has_data:
+                                partial_frames.append(stream.to_partial_frame(plain))
+                # the host fold of this (and every later) chunk runs the
+                # chain over the SAME prefetched leaf batch
+                prev = self._leaf_override
+                self._leaf_override = (lf, leaf_batch)
+                try:
+                    batch = self._exec(sub, False)
+                finally:
+                    self._leaf_override = prev
+                fold_chunk(batch)
+            if device_ok and stream.has_data:
+                trace.record("agg", "device-grouped-stream")
+                return stream.finalize()
+
+        t = time.perf_counter()
+        out = self._combine_partials(plan, plain, distinct, partial_frames, distinct_frames, g_state)
+        self._add_stage("agg_finalize", t)
+        return out
+
+    @staticmethod
+    def _combine_partials(plan, plain, distinct, partial_frames, distinct_frames, g_state) -> B.Batch:
+        """The final aggregate from the streamed partial states, as the JAX
+        package combines them."""
+        import pandas as pd
+
+        if plan.keys:
+            merged = pd.concat(partial_frames, ignore_index=True)
+            gb = merged.groupby(list(plan.keys), dropna=False, sort=False)
+            final = {}
+            for i, name, fn, c in plain:
+                p = f"__p{i}"
+                if fn == "count":
+                    final[name] = gb[p].sum().astype(np.int64)
+                elif fn == "sum":
+                    final[name] = gb[p].sum(min_count=1)
+                elif fn == "min":
+                    final[name] = gb[p].min()
+                elif fn == "max":
+                    final[name] = gb[p].max()
+                elif fn == "avg":
+                    s_, c_ = gb[p + "_s"].sum(min_count=1), gb[p + "_c"].sum()
+                    final[name] = s_ / c_.where(c_ > 0)
+                elif fn == "stddev_samp":
+                    n_ = gb[p + "_n"].sum()
+                    s_ = gb[p + "_s"].sum(min_count=1)
+                    ss_ = gb[p + "_ss"].sum()
+                    var = (ss_ - (s_**2) / n_.where(n_ > 0)) / (n_ - 1).where(n_ > 1)
+                    final[name] = np.sqrt(var.clip(lower=0))
+            result = pd.DataFrame(final).reset_index() if final else (
+                merged[list(plan.keys)].drop_duplicates().reset_index(drop=True)
+            )
+            for i, name, fn, c in distinct:
+                pairs = pd.concat(distinct_frames[i], ignore_index=True).drop_duplicates()
+                pairs = pairs[pairs["__v"].notna()]
+                pgb = pairs.groupby(list(plan.keys), dropna=False, sort=False)["__v"]
+                if fn == "count_distinct":
+                    dser = pgb.nunique(dropna=True)
+                elif fn == "sum_distinct":
+                    dser = pgb.sum(min_count=1)
+                else:  # avg_distinct
+                    dser = pgb.mean()
+                dser.name = name
+                result = result.merge(dser.reset_index(), on=list(plan.keys), how="left")
+                if fn == "count_distinct":
+                    result[name] = result[name].fillna(0).astype(np.int64)
+            out: B.Batch = {}
+            for k in plan.keys:
+                out[k] = result[k].to_numpy()
+            for name, _, _ in plan.aggs:
+                out[name] = result[name].to_numpy()
+            return out
+
+        out = {}
+        for i, name, fn, c in plain:
+            st = g_state.get(i)
+            if fn == "count":
+                out[name] = np.asarray([st or 0])
+            elif fn in ("sum", "min", "max"):
+                s = pd.Series(st or [])
+                out[name] = np.asarray([getattr(s, fn)(**({"min_count": 1} if fn == "sum" else {}))])
+            elif fn == "avg":
+                s_, c_ = st or (0.0, 0)
+                out[name] = np.asarray([s_ / c_ if c_ else np.nan])
+            elif fn == "stddev_samp":
+                n_, s_, ss_ = st or (0, 0.0, 0.0)
+                if n_ > 1:
+                    var = max(0.0, (ss_ - s_ * s_ / n_) / (n_ - 1))
+                    out[name] = np.asarray([np.sqrt(var)])
+                else:
+                    out[name] = np.asarray([np.nan])
+        for i, name, fn, c in distinct:
+            u = pd.concat(distinct_frames[i], ignore_index=True)["__v"].drop_duplicates()
+            u = u[u.notna()]
+            if fn == "count_distinct":
+                out[name] = np.asarray([int(u.shape[0])])
+            elif fn == "sum_distinct":
+                out[name] = np.asarray([u.sum(min_count=1) if len(u) else np.nan])
+            else:
+                out[name] = np.asarray([u.mean() if len(u) else np.nan])
+        return {name: out[name] for name, _, _ in plan.aggs}
 
     def _try_device_aggregate(self, plan: L.Aggregate):
         """Returns (result, scan_batch, filter_node): result=None means the
@@ -685,20 +1302,22 @@ class Executor:
         self._add_stage("decode", t)
         return batch
 
-    def _filter_mask(self, plan: L.Filter, child: B.Batch) -> np.ndarray:
-        """Predicate evaluation: the device program over index scans, host
-        numpy otherwise. Only a predicate the device program cannot express
-        (``DeviceUnsupported``, raised before any upload) falls back to the
-        host; errors of the device itself propagate."""
+    def _filter_mask(self, plan: L.Filter, child: B.Batch, pruned_by=None) -> np.ndarray:
+        """Predicate evaluation: the device program over index and file
+        scans, host numpy otherwise. Only a predicate the device program
+        cannot express (``DeviceUnsupported``, raised before any upload)
+        falls back to the host; errors of the device itself propagate.
+        ``pruned_by`` is the predicate attached to a streamed chunk's leaf,
+        which brands the chunk's device-cache key."""
         conf = self.session.conf
-        if conf.device_execution_enabled and isinstance(plan.child, L.IndexScan):
+        if conf.device_execution_enabled and isinstance(plan.child, (L.IndexScan, L.FileScan)):
             if B.num_rows(child) >= conf.device_exec_min_rows:
                 if conf.parallel_enabled:
                     raise NotImplementedError("the sharded (hyperspace.parallel.enabled) filter is not yet in the port")
                 from hyperspace_tpu_torch.exec import device as D
 
                 t = time.perf_counter()
-                scan_key = _scan_identity(plan.child)
+                scan_key = _pruned_scan_key(_scan_identity(plan.child), pruned_by)
                 self._add_stage("scan_identity", t)
                 try:
                     mask = D.device_filter_mask(self.session, child, plan.condition, scan_key=scan_key)

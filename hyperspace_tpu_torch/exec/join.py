@@ -25,6 +25,11 @@ filter's predicate program; the JAX package's are XLA programs. Only
 ``DeviceUnsupported`` — a shape the bucketed join does not cover, raised
 before any upload — sends the executor to its generic merge.
 
+Above ``hyperspace.exec.stream.joinMinBytes`` of index files the join
+streams (``stream_bucketed_join``): one bucket pair decodes at a time, on
+the scan pipeline ahead of the consumer, and its pairs expand on the host;
+``dispatch_bucketed_join`` folds the chunks into one batch.
+
 An aggregate over such a join never expands the pairs
 (``aggregate_over_bucketed_join``): the host spans give each left row's
 multiplicity, so sums are span-weighted and right-side sums prefix-sum
@@ -114,15 +119,14 @@ def join_sides_compatible(plan: L.Join) -> Optional[Tuple[L.LogicalPlan, L.Logic
     return plan.left, plan.right, lkeys, rkeys
 
 
-def _read_buckets(scan: L.IndexScan, columns: List[str], sort_keys: List[str]) -> Dict[int, B.Batch]:
-    """Read an IndexScan's files grouped per bucket id (the file name
-    carries the bucket), decoding only ``columns``. A bucket of several
-    files (one sorted run per build chunk) is re-sorted on ``sort_keys``:
+def _bucket_readers(scan: L.IndexScan, columns: List[str], sort_keys: List[str]):
+    """{bucket id -> thunk} decoding one bucket of an IndexScan (the file
+    name carries the bucket), only ``columns``. A bucket of several files
+    (one sorted run per build chunk) is re-sorted on ``sort_keys``:
     concatenated runs are only piecewise sorted."""
     from hyperspace_tpu_torch.exec.io import read_parquet_batch
     from hyperspace_tpu_torch.indexes.covering import bucket_of_file
 
-    trace.record("scan", "index-bucketed")
     per_bucket: Dict[int, List[str]] = {}
     for f in scan.files:
         b = bucket_of_file(f)
@@ -135,15 +139,18 @@ def _read_buckets(scan: L.IndexScan, columns: List[str], sort_keys: List[str]) -
         file_cols = [stored.get(c, c) for c in columns]
     rename = file_cols != list(columns)
 
-    out: Dict[int, B.Batch] = {}
-    for b, files in per_bucket.items():
-        batch = read_parquet_batch(files, file_cols)
-        if rename:
-            batch = {o: batch[fc] for o, fc in zip(columns, file_cols)}
-        if sort_keys and len(files) > 1:
-            batch = _sort_bucket(batch, sort_keys)
-        out[b] = batch
-    return out
+    def make(files):
+        def read() -> B.Batch:
+            batch = read_parquet_batch(files, file_cols)
+            if rename:
+                batch = {o: batch[fc] for o, fc in zip(columns, file_cols)}
+            if sort_keys and len(files) > 1:
+                batch = _sort_bucket(batch, sort_keys)
+            return batch
+
+        return read
+
+    return {b: make(files) for b, files in per_bucket.items()}
 
 
 def _sort_bucket(batch: B.Batch, sort_keys: List[str]) -> B.Batch:
@@ -179,24 +186,43 @@ def _composite_ranks(l_arrs: List[np.ndarray], r_arrs: List[np.ndarray]) -> Tupl
     return ranks[:n], ranks[n:]
 
 
-def _side_buckets(node: L.LogicalPlan, columns: List[str], sort_keys: List[str]) -> Dict[int, B.Batch]:
-    """Per-bucket batches of one join side, each sorted on ``sort_keys``:
-    an IndexScan leaf, or a Filter over one, evaluated per bucket (masking
-    keeps the order). Hybrid-scan sides (appended files re-bucketed on the
-    fly) are not in the port: every other shape raises DeviceUnsupported."""
+def _side_bucket_readers(node: L.LogicalPlan, columns: List[str], sort_keys: List[str]):
+    """Lazy per-bucket readers of one join side: ``{bucket -> thunk}``,
+    each thunk decoding (and sorting and filtering) only its bucket. The
+    shapes: an IndexScan leaf, or a Filter over one, evaluated per bucket
+    (masking keeps the order). Hybrid-scan sides (appended files
+    re-bucketed on the fly) are not in the port: every other shape raises
+    DeviceUnsupported. The streamed join walks buckets one at a time
+    through these, so peak memory is one bucket pair, not both whole sides
+    (``_side_buckets`` decodes everything, fine below the streaming
+    threshold)."""
     node = _strip_projects(node)
     if isinstance(node, L.IndexScan):
-        return _read_buckets(node, columns, sort_keys)
+        return _bucket_readers(node, columns, sort_keys)
     if isinstance(node, L.Filter):
         if contains_input_file_name(node.condition):
             raise DeviceUnsupported("input_file_name() predicate on a join side")
         inner_cols = list(dict.fromkeys(list(columns) + list(node.condition.references())))
-        out: Dict[int, B.Batch] = {}
-        for b, batch in _side_buckets(node.child, inner_cols, sort_keys).items():
-            kept = B.mask_rows(batch, as_bool_mask(node.condition.eval(batch)))
-            out[b] = {c: kept[c] for c in columns}
-        return out
+        child = _side_bucket_readers(node.child, inner_cols, sort_keys)
+
+        def wrap(thunk):
+            def read() -> B.Batch:
+                batch = thunk()
+                kept = B.mask_rows(batch, as_bool_mask(node.condition.eval(batch)))  # stays sorted
+                return {c: kept[c] for c in columns}
+
+            return read
+
+        return {b: wrap(t) for b, t in child.items()}
     raise DeviceUnsupported(f"join side {type(node).__name__} is not a bucketed shape")
+
+
+def _side_buckets(node: L.LogicalPlan, columns: List[str], sort_keys: List[str]) -> Dict[int, B.Batch]:
+    """Every bucket of one join side, decoded, each sorted on ``sort_keys``
+    (``_side_bucket_readers``)."""
+    readers = _side_bucket_readers(node, columns, sort_keys)
+    trace.record("scan", "index-bucketed")
+    return {b: read() for b, read in readers.items()}
 
 
 def _join_key_of(batch: B.Batch, key: str) -> np.ndarray:
@@ -289,9 +315,10 @@ def dispatch_bucketed_join(session, plan: L.Join) -> B.Batch:
         except OSError:
             input_bytes = 0
         if input_bytes >= stream_min:
-            raise NotImplementedError(
-                "the streamed bucketed join (inputs above hyperspace.exec.stream.joinMinBytes) is not yet in the port"
-            )
+            # out of core: walk the buckets one at a time instead of
+            # decoding both whole sides
+            stages["join_plan"] += time.perf_counter() - t
+            return _fold_streamed_join(session, plan, compat)
     stages["join_plan"] += time.perf_counter() - t
     setup = _bucketed_join_setup(session, plan, compat)
     # the span program's round trip is known here: keys go up as rectangles
@@ -316,6 +343,234 @@ def dispatch_bucketed_join(session, plan: L.Join) -> B.Batch:
     out = host_bucketed_join(session, plan, compat, setup)
     trace.record("join", "host-span-smj")
     return out
+
+
+def _fold_streamed_join(session, plan: L.Join, compat) -> B.Batch:
+    """The streamed join's chunks folded into one batch. The fold is
+    geometric: the pending chunks are concatenated onto the merged result
+    once they reach its size, so the copy work stays O(result) and at most
+    one merged copy and one run are alive; the generator is closed on any
+    exit, so both sides' readers stop mid-stream. An empty stream is typed
+    from the index footers: falling back to the generic merge would
+    materialize both sides, which this path exists to avoid."""
+    stages = session.query_stage_seconds
+    gen = stream_bucketed_join(session, plan, _compat=compat)
+    merged = None
+    merged_bytes = 0
+    pending: List[B.Batch] = []
+    pending_bytes = 0
+    try:
+        for chunk in gen:
+            t = time.perf_counter()
+            pending.append(chunk)
+            pending_bytes += _chunk_nbytes(chunk)
+            if merged is None or pending_bytes >= merged_bytes:
+                batches = ([merged] if merged is not None else []) + pending
+                merged = batches[0] if len(batches) == 1 else B.concat(batches)
+                merged_bytes = _chunk_nbytes(merged)
+                pending, pending_bytes = [], 0
+            _add(stages, "join_fold", t)
+    finally:
+        gen.close()
+    t = time.perf_counter()
+    if pending:
+        batches = ([merged] if merged is not None else []) + pending
+        merged = batches[0] if len(batches) == 1 else B.concat(batches)
+    _add(stages, "join_fold", t)
+    if merged is None:
+        lside, rside, lkeys, rkeys = compat
+        lc, rc = _stream_needed_columns(plan, lside, rside, lkeys, rkeys)
+        hints = _stream_join_dtype_hints(plan, lside, rside, lc, rc)
+        if all(n in hints for n in plan.output_columns):
+            trace.record("join", "host-span-smj-stream")
+            return {n: np.empty(0, dtype=hints[n]) for n in plan.output_columns}
+        raise DeviceUnsupported("streamed join produced no rows")
+    trace.record("join", "host-span-smj-stream")
+    return merged
+
+
+def _stream_needed_columns(plan: L.Join, lside, rside, lkeys, rkeys):
+    """(left, right) columns the streamed join decodes: its output's
+    sources and the keys."""
+    needed = set(plan.output_columns) | {n[:-2] for n in plan.output_columns if n.endswith("#r")}
+    lc = [c for c in lside.output_columns if c in needed or c in lkeys]
+    rc = [c for c in rside.output_columns if c in needed or c in rkeys]
+    return lc, rc
+
+
+def _stream_join_dtype_hints(plan: L.Join, lside, rside, lcols_needed, rcols_needed) -> Dict[str, np.dtype]:
+    """Footer-derived dtypes of the join's output columns: a bucket where
+    one side is absent still needs that side's columns typed (the
+    whole-side path reads them from other buckets; per-bucket streaming
+    cannot), and an EMPTY streamed result is built entirely from these."""
+    import pyarrow.parquet as pq
+
+    from hyperspace_tpu_torch.sources.schema import arrow_to_numpy_dtype
+
+    def side_dtypes(side, cols) -> Dict[str, np.dtype]:
+        scans = L.collect(side, lambda x: isinstance(x, L.IndexScan))
+        if not scans or not scans[0].files:
+            return {}
+        scan = scans[0]
+        try:
+            sch = pq.read_schema(scan.files[0])
+        except OSError:
+            return {}
+        stored = dict(zip(scan.columns, scan.file_columns or scan.columns))
+        out: Dict[str, np.dtype] = {}
+        for c in cols:
+            fc = stored.get(c, c)
+            if fc in sch.names:
+                out[c] = arrow_to_numpy_dtype(sch.field(fc).type)
+        return out
+
+    lmap = side_dtypes(lside, lcols_needed)
+    rmap = side_dtypes(rside, rcols_needed)
+    hints: Dict[str, np.dtype] = {}
+    for name in plan.output_columns:
+        try:
+            is_left, col = _join_column_source(name, lcols_needed, rcols_needed)
+        except DeviceUnsupported:
+            # no resolvable side: the column keeps no hint, and its dtype
+            # then depends on which buckets hold rows
+            trace.fallback("join", "dtype_hint")
+            trace.record("join", f"dtype-hint-dropped({name})")
+            continue
+        dt = (lmap if is_left else rmap).get(col)
+        if dt is not None:
+            hints[name] = dt
+    return hints
+
+
+def _chunk_nbytes(batch: B.Batch) -> int:
+    return sum(int(np.asarray(a).nbytes) for a in batch.values())
+
+
+def stream_bucketed_join(session, plan: L.Join, _compat=None):
+    """Yield the bucketed join's output ONE BUCKET AT A TIME: per bucket,
+    both sides decode, the keys encode, the spans come from
+    ``np.searchsorted``, the pairs expand, and the chunk is yielded before
+    the next bucket's expansion. No state spans buckets, so memory stays
+    O(bucket pair + one output chunk) at any scale (ref:
+    HS/index/covering/JoinIndexRule.scala:604-705).
+
+    With ``hyperspace.exec.join.pipeline.enabled`` (and the pipeline's own
+    switch) on, bucket b+1's two side decodes and its key encoding run on
+    the prefetch pipeline (exec/pipeline.py) while bucket b's pairs expand
+    on the consumer thread, under the pipeline's depth and byte budgets and
+    cancel-safe on generator close. Off, the serial loop gives the same
+    chunks.
+
+    This is host work, as in the JAX package (whose native span walk the
+    port does not have: it takes the JAX package's ``np.searchsorted``
+    branch). Used above ``hyperspace.exec.stream.joinMinBytes`` by
+    ``dispatch_bucketed_join`` and by ``DataFrame.to_local_iterator``.
+    Chunk dtypes may differ across buckets (a nullable int column is
+    float64 only in chunks holding nulls); ``B.concat`` promotes."""
+    from hyperspace_tpu_torch.exec.pipeline import ScanPipeline, on_producer_thread
+
+    compat = _compat if _compat is not None else join_sides_compatible(plan)
+    if compat is None:
+        raise DeviceUnsupported("join sides are not compatible bucketed index scans")
+    lside, rside, lkeys, rkeys = compat
+    if plan.how not in ("inner", "left", "right", "outer"):
+        raise DeviceUnsupported(f"unsupported join type {plan.how!r}")
+    lcols_needed, rcols_needed = _stream_needed_columns(plan, lside, rside, lkeys, rkeys)
+    lread = _side_bucket_readers(lside, lcols_needed, lkeys)
+    rread = _side_bucket_readers(rside, rcols_needed, rkeys)
+    nb = _side_bucket_spec(lside).num_buckets
+    keep_left = plan.how in ("left", "outer")
+    keep_right = plan.how in ("right", "outer")
+    stages = session.query_stage_seconds
+
+    hints = _stream_join_dtype_hints(plan, lside, rside, lcols_needed, rcols_needed)
+    parts = [b for b in range(nb) if b in lread or b in rread]
+
+    def decode_pair(b):
+        """The producer half: both sides' decodes and the span keys' encoding
+        (after the decode, the bucket's largest host cost)."""
+        t = time.perf_counter()
+        lt, rt = lread.get(b), rread.get(b)
+        lb = lt() if lt is not None else None
+        rb = rt() if rt is not None else None
+        if lb is not None and B.num_rows(lb) == 0:
+            lb = None
+        if rb is not None and B.num_rows(rb) == 0:
+            rb = None
+        lk = rk = None
+        if lb is not None and rb is not None:
+            if len(lkeys) == 1:
+                try:
+                    lk = _join_key_of(lb, lkeys[0])
+                    rk = _join_key_of(rb, rkeys[0])
+                except DeviceUnsupported:
+                    lk = rk = None
+            if lk is None:
+                lk, rk = _composite_ranks([lb[k] for k in lkeys], [rb[k] for k in rkeys])
+        _add(stages, "prefetch_join_decode" if on_producer_thread() else "join_decode", t)
+        return lb, rb, lk, rk
+
+    def expand(lb, rb, lk, rk):
+        """The consumer half: the spans and the pair expansion; None when
+        the bucket gives no output rows."""
+        if lb is None and rb is None:
+            return None
+        if lb is None and not keep_right:
+            return None
+        if rb is None and not keep_left:
+            return None
+        t = time.perf_counter()
+        span_of = None
+        if lb is not None and rb is not None:
+
+            def span_of(_b, lk=lk, rk=rk):
+                return np.searchsorted(rk, lk, side="left"), np.searchsorted(rk, lk, side="right")
+
+        chunk = _expand_join_pairs(
+            plan,
+            {0: lb} if lb is not None else {},
+            {0: rb} if rb is not None else {},
+            1,
+            lcols_needed,
+            rcols_needed,
+            span_of,
+            dtype_fallback=hints,
+        )
+        _add(stages, "join_host_expand", t)
+        return chunk if B.num_rows(chunk) else None
+
+    conf = session.conf
+    if conf.join_pipeline_enabled and conf.pipeline_enabled and len(parts) > 1:
+
+        def weigh(res):
+            lb, rb, _lk, _rk = res
+            return sum(_chunk_nbytes(x) for x in (lb, rb) if x is not None)
+
+        pipe = ScanPipeline(
+            [lambda b=b: decode_pair(b) for b in parts],
+            depth=conf.pipeline_depth,
+            max_buffered_bytes=conf.pipeline_max_buffered_bytes,
+            weigh=weigh,
+        )
+        try:
+            t = time.perf_counter()
+            for lb, rb, lk, rk in pipe:
+                _add(stages, "stream_wait", t)
+                chunk = expand(lb, rb, lk, rk)
+                if chunk is not None:
+                    yield chunk
+                t = time.perf_counter()
+        finally:
+            # a generator closed mid-stream lands here: queued bucket
+            # decodes are cancelled and the ones in flight waited for, so
+            # neither side's readers outlive the stream
+            pipe.close()
+        return
+
+    for b in parts:
+        chunk = expand(*decode_pair(b))
+        if chunk is not None:
+            yield chunk
 
 
 def _bucketed_join_setup(session, plan: L.Join, compat, needed_override=None):
@@ -387,13 +642,18 @@ def _join_column_source(name: str, lout, rout) -> Tuple[bool, str]:
     raise DeviceUnsupported(f"join output column {name!r} not found on either side")
 
 
-def _join_column_dtype(source, lbuckets, rbuckets, participating) -> np.dtype:
+def _join_column_dtype(name: str, source, lbuckets, rbuckets, participating, fallback=None) -> np.dtype:
     """Column dtype promoted across the participating buckets (a nullable int
-    column decodes as float64 only in buckets whose files hold nulls)."""
+    column decodes as float64 only in buckets whose files hold nulls).
+    ``fallback`` maps output name -> dtype for a column with no decoded data
+    in scope: the streamed join types a bucket's absent side from the index
+    footers (the whole-side path always has other buckets)."""
     is_left, col = source
     src = lbuckets if is_left else rbuckets
     dtypes = [src[b][col].dtype for b in participating if col in src.get(b, {})]
     if not dtypes:
+        if fallback is not None and name in fallback:
+            return fallback[name]
         raise DeviceUnsupported(f"cannot determine dtype of empty join column {col!r}")
     if any(dt == object for dt in dtypes):
         return np.dtype(object)
@@ -422,7 +682,7 @@ def _null_value(dt: np.dtype):
 
 
 def _expand_join_pairs(plan: L.Join, lbuckets, rbuckets, nb: int, lout: List[str], rout: List[str],
-                       span_of) -> B.Batch:
+                       span_of, dtype_fallback=None) -> B.Batch:
     """Pair expansion and column gather on the host, for the host span path
     and for what the device materialization does not cover. ``span_of(b)``
     returns (lo, hi) arrays of length len(left bucket b) — the matching
@@ -508,7 +768,7 @@ def _expand_join_pairs(plan: L.Join, lbuckets, rbuckets, nb: int, lout: List[str
     def out_dtype(name: str) -> np.dtype:
         is_left = sources[name][0]
         part = participating or sorted(lbuckets if is_left else rbuckets)
-        dt = _join_column_dtype(sources[name], lbuckets, rbuckets, part)
+        dt = _join_column_dtype(name, sources[name], lbuckets, rbuckets, part, fallback=dtype_fallback)
         nullable = (is_left and has_null_left) or (not is_left and has_null_right)
         if nullable and dt.kind == "b":
             return np.dtype(object)  # pandas merge: bool + NaN -> object
@@ -726,7 +986,7 @@ def _device_materialize_inner(session, plan: L.Join, lbuckets, rbuckets, lcols_n
         # no overlapping buckets: the host path builds the typed empty columns
         raise DeviceUnsupported("no overlapping buckets")
     sources = {name: _join_column_source(name, lcols_needed, rcols_needed) for name in out_cols}
-    dtypes = {name: _join_column_dtype(sources[name], lbuckets, rbuckets, participating) for name in out_cols}
+    dtypes = {name: _join_column_dtype(name, sources[name], lbuckets, rbuckets, participating) for name in out_cols}
     device_cols = [n for n in out_cols if dtypes[n].kind in ("i", "u", "f", "b", "M", "m")]
     host_cols = [n for n in out_cols if n not in device_cols]
 

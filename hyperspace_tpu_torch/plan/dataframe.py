@@ -116,6 +116,25 @@ class DataFrame:
         self.session.query_stage_seconds["rewrite"] += time.perf_counter() - t
         return Executor(self.session).execute(plan, required_columns=plan.output_columns)
 
+    def to_local_iterator(self):
+        """Yield the result as a stream of column batches (dicts of numpy
+        arrays) without materializing the whole result: Spark's
+        ``Dataset.toLocalIterator``. A compatible bucketed join streams
+        bucket by bucket, a scan chain file group by file group, anything
+        else yields one batch. Chunk dtypes may vary (a nullable int column
+        is float64 only in chunks holding nulls)."""
+        from hyperspace_tpu_torch.exec import batch as B
+        from hyperspace_tpu_torch.exec.executor import Executor
+
+        t = time.perf_counter()
+        plan = self.optimized_plan()
+        self.session.query_stage_seconds["rewrite"] += time.perf_counter() - t
+        cols = plan.output_columns
+        for chunk in Executor(self.session).execute_stream(plan):
+            yield B.select(chunk, cols)
+
+    toLocalIterator = to_local_iterator
+
     def count(self) -> int:
         from hyperspace_tpu_torch.exec.batch import num_rows
 

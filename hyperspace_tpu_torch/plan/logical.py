@@ -83,6 +83,39 @@ class Scan(LogicalPlan):
         return f"Scan({self.relation.name}, format={self.relation.file_format})"
 
 
+class FileScan(LogicalPlan):
+    """Scan of an explicit parquet file list: the per-chunk leaf of a
+    streamed scan over a source relation (``exec/executor.py::_leaf_subset``).
+    ``partition_values`` ({file -> {col -> typed value}}) carries the
+    hive-partition columns the requested ``columns`` include but the file
+    bytes do not."""
+
+    def __init__(
+        self,
+        files: List[str],
+        file_format: str,
+        columns: List[str],
+        partition_values: Optional[dict] = None,
+        partition_dtypes: Optional[dict] = None,
+    ):
+        self.files = list(files)
+        self.file_format = file_format
+        self.columns = list(columns)
+        self.partition_values = partition_values
+        self.partition_dtypes = partition_dtypes
+
+    @property
+    def output_columns(self) -> List[str]:
+        return list(self.columns)
+
+    def with_children(self, children: Sequence[LogicalPlan]) -> "FileScan":
+        assert not children
+        return self
+
+    def describe(self) -> str:
+        return f"FileScan({len(self.files)} files, format={self.file_format})"
+
+
 class Filter(LogicalPlan):
     def __init__(self, condition: Expr, child: LogicalPlan):
         self.condition = condition

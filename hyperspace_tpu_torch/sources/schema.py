@@ -24,6 +24,23 @@ def _type_to_dict(t: pa.DataType) -> Dict:
     return {"type": str(t)}
 
 
+def arrow_to_numpy_dtype(t: pa.DataType):
+    """Best-effort numpy dtype for an arrow type (object for strings/nested)."""
+    import numpy as np
+
+    if pa.types.is_integer(t):
+        return np.dtype(np.int64)
+    if pa.types.is_floating(t):
+        return np.dtype(np.float64)
+    if pa.types.is_boolean(t):
+        return np.dtype(bool)
+    if pa.types.is_timestamp(t):
+        return np.dtype(f"datetime64[{t.unit}]")
+    if pa.types.is_date(t):
+        return np.dtype("datetime64[D]")
+    return np.dtype(object)
+
+
 def schema_to_json(schema: pa.Schema) -> str:
     fields: List[Dict] = [{"name": f.name, **_type_to_dict(f.type)} for f in schema]
     return json.dumps({"fields": fields})

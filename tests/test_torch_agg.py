@@ -361,19 +361,44 @@ def test_capacity_rerun_and_hint(system, lake, monkeypatch):
         del QUERIES["by_big"]
 
 
+FUSION = {"hyperspace.exec.fusion.enabled": "true"}
+#: a grouped aggregate over a join the span path cannot take (min of a
+#: left column over ... grouped by a left key falls to the materialized join)
+JOIN_MIN = lambda f, c: f["l"].join(f["o"], c("l_ok") == c("o_ok")).group_by("l_flag").agg(  # noqa: E731
+    mn=("l_price", "min"))
+
+#: what the port once raised for and now answers as the JAX package does:
+#: the streamed aggregate, and a fused-join shape the JAX package does not
+#: fuse because no side is broadcastable (``broadcastMaxBytes`` 0, ``_conf``)
+ANSWERED = {
+    "streamed_aggregate": ({"hyperspace.exec.stream.aggMinBytes": 1, "hyperspace.exec.stream.chunkBytes": 1},
+                           QUERIES["by_int"]),
+    "join_min": (FUSION, JOIN_MIN),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ANSWERED))
+def test_answered_like_jax(system, lake, monkeypatch, case):
+    conf, query = ANSWERED[case]
+    QUERIES["__case"] = query
+    try:
+        _, ref, ref_lines, ref_falls, ref_ran = _run(hst, system, "__case", "device", lake, monkeypatch, **conf)
+        plan, got, lines, falls, ran = _run(ht, system, "__case", "device", lake, monkeypatch, **conf)
+    finally:
+        del QUERIES["__case"]
+    _assert_same_result(got, ref, plan)
+    assert (lines, falls, ran) == (ref_lines, ref_falls, ref_ran)
+    if case == "streamed_aggregate":
+        assert "agg: streamed-partial x1" in lines, lines
+
+
 def test_not_ported_features_raise(system, lake):
-    """The streamed aggregate, whole-stage fusion (of a grouped scan
-    aggregate and of a grouped join aggregate the span path cannot take)
-    and the sharded aggregate are not in the port yet: asking for them
-    raises."""
-    fusion = {"hyperspace.exec.fusion.enabled": "true"}
-    join_min = lambda f, c: f["l"].join(f["o"], c("l_ok") == c("o_ok")).group_by("l_flag").agg(  # noqa: E731
-        mn=("l_price", "min"))
+    """Whole-stage fusion (of a grouped scan aggregate, and of a grouped
+    join aggregate with a side the JAX package would broadcast) and the
+    sharded aggregate are not in the port yet: asking for them raises."""
     for conf, query, match in (
-        ({"hyperspace.exec.stream.aggMinBytes": 1, "hyperspace.exec.stream.chunkBytes": 1}, QUERIES["by_int"],
-         "streamed aggregate"),
-        (fusion, QUERIES["by_int"], "fused grouped aggregate"),
-        (fusion, join_min, "fused join aggregate"),
+        (FUSION, QUERIES["by_int"], "fused grouped aggregate"),
+        ({**FUSION, "hyperspace.exec.join.broadcastMaxBytes": 64 << 20}, JOIN_MIN, "fused join aggregate"),
         ({"hyperspace.parallel.enabled": "true"}, QUERIES["by_int"], "sharded"),
     ):
         sess = ht.Session(conf=_conf(ht.keys, system, **MODES["device"], **conf), device="cpu").enable_hyperspace()

@@ -1,0 +1,45 @@
+"""The port's verbatim copies of the JAX package's device-free modules.
+
+Nine modules of ``hyperspace_tpu_torch/`` are copies of their counterparts
+in ``hyperspace_tpu/`` with only the package name rewritten (and, in
+``models/path_resolver.py``, one ``typing`` import fewer, since the copy
+does not use ``Optional``). This test compares the texts, so a change to
+either side that is not made to the other fails here. It reads files only
+and imports nothing of either package.
+"""
+
+import os
+import re
+
+import pytest
+
+pytestmark = pytest.mark.torch_port
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+#: module path -> {reference line: the copy's line} beyond the package rename
+COPIES = {
+    "models/data_manager.py": {},
+    "models/states.py": {},
+    "indexes/registry.py": {},
+    "sources/partitions.py": {},
+    "sources/signatures.py": {},
+    "stats.py": {},
+    "utils/hashing.py": {},
+    "version.py": {},
+    "models/path_resolver.py": {"from typing import List, Optional": "from typing import List"},
+}
+
+
+def _read(package: str, module: str) -> list:
+    with open(os.path.join(REPO, package, module), encoding="utf-8") as f:
+        return f.read().splitlines()
+
+
+@pytest.mark.parametrize("module", sorted(COPIES))
+def test_copy_matches_reference(module):
+    rewrite = COPIES[module]
+    expected = [rewrite.get(line, re.sub(r"\bhyperspace_tpu\b", "hyperspace_tpu_torch", line))
+                for line in _read("hyperspace_tpu", module)]
+    got = _read("hyperspace_tpu_torch", module)
+    assert got == expected, f"{module} drifted from hyperspace_tpu/{module}"

@@ -413,17 +413,26 @@ def test_no_rewrite_matches_jax(two_sides, tmp_path, case):
 
 
 def test_residual_and_streamed_joins_raise(systems, lake):
-    """A residual ON predicate and a join above the streaming threshold are
-    not in the port yet: asking for them raises."""
+    """A residual ON predicate is not in the port yet: asking for it
+    raises. A join above the streaming threshold, which raised before the
+    streamed join was ported, now gives the JAX package's rows and trace."""
     sess = ht.Session(conf=_conf(ht.keys, systems["torch"], **{"hyperspace.exec.stream.joinMinBytes": 1}),
                       device="cpu")
     t = _frames(ht, sess, lake)
     with pytest.raises(NotImplementedError, match="residual"):
         t["lineitem"].join(t["orders"], ht.col("l_orderkey") == ht.col("o_orderkey"),
                            residual=ht.col("l_quantity") > 3)
-    sess.enable_hyperspace()
-    with pytest.raises(NotImplementedError, match="streamed"):
-        JOINS["q04_join_li_orders"][0](t, ht.col).collect()
+    out = {}
+    for pkg in (hst, ht):
+        kwargs = {} if pkg is hst else {"device": "cpu"}
+        sess = pkg.Session(conf=_conf(pkg.keys, systems["torch"], **{"hyperspace.exec.stream.joinMinBytes": 1}),
+                           **kwargs).enable_hyperspace()
+        rec = ref_trace if pkg is hst else trace
+        with rec.recording() as events:
+            out[pkg] = JOINS["q04_join_li_orders"][0](_frames(pkg, sess, lake), pkg.col).collect()
+        out[pkg, "lines"] = [ln for ln in rec.summarize(events).splitlines() if ln.startswith("join:")]
+    _assert_same_batch(out[ht], out[hst])
+    assert out[ht, "lines"] == out[hst, "lines"] == ["join: host-span-smj-stream x1"]
 
 
 def _rectangles(rng, nb, wl, wr):
