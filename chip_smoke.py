@@ -5,7 +5,7 @@
 
 Phases, each printed with its time (the filter query's phases are 5, 10
 and 13, the join's 6, 11 and 14, the aggregates' 7, 12 and 15, out-of-core
-execution's 7b, 12b, 15b and 17):
+execution's 7b, 12b, 15b and 17, the index lifecycle's 7c and 12c):
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: compiles the port's CUDA kernels from ``hyperspace_tpu_torch/csrc``;
@@ -54,6 +54,17 @@ execution's 7b, 12b, 15b and 17):
    ``to_local_iterator`` over a scan chain, an index filter and the
    bucketed join (one closed after its first chunk: no decode after the
    close) and the partitioned merge (``spillMinRows=64``);
+7c. lifecycle-small: a 60 000-row ``lineitem`` lake indexed three ways
+   (covering, covering with lineage, data-skipping) in a CPU and a GPU
+   session, then edited (two files of new orders appended, a file dropped)
+   while incremental, quick and full refresh, quick and full optimize,
+   delete, restore and vacuum run; each phase starts both sessions from a
+   copy of the CPU session's indexes, and after every action the GPU's
+   bucket files equal the CPU port's byte for byte and the sketches are
+   equal (K1 and K2 against their plain versions on the new paths), the
+   GPU launching K1 for each covering rewrite and K2 for each
+   data-skipping rebuild; after every phase each query equals hyperspace
+   off as a multiset;
 8. generate and slice: generates a TPC-H-shaped SF1 ``lineitem`` lake (6M
    rows in 16 files, from ``--seed``, with TPC-H's return flag and line
    status) and builds three indexes through the public API (``Session`` ->
@@ -116,6 +127,19 @@ execution's 7b, 12b, 15b and 17):
    ``grouped-agg-chunk`` and ``grouped-merge`` per streamed A1; the
    partitioned merge of J1 with hyperspace off (``spillMinRows=2^20``);
    ``grouped-merge`` alone on A1's last partial tables beside its bound;
+12c. lifecycle: the SF1 ``lineitem`` files hard-linked into a mutable
+   lake; ``li_mut`` (covering on ``l_shipdate`` with q6's columns),
+   ``li_lin`` (the same with lineage) and ``li_skip_mut`` (MinMax on
+   ``l_orderkey`` and ``l_extendedprice``) built; two files of new orders
+   shipped in the month after the lake's range appended, then one
+   original file dropped; incremental (the delta), incremental with
+   lineage (every row rewritten), full, quick, quick and full optimize
+   (``NoChangesException``), delete, restore and vacuum, each timed with
+   its rows/s, build stages and K1/K2 launches (at least one per rewrite);
+   after each rewrite ``check_covering`` against the current source and q6
+   through the rewritten index equal to hyperspace off; once the
+   data-skipping index is fresh, a query on the new orders pruned to the
+   two new files, equal to off, warm beside off;
 13. profile-query: one warm q6 under ``torch.profiler``: device busy time
    against the query's wall time, and the device time by op;
 14. profile-join: the same for one warm J1;
@@ -136,8 +160,8 @@ execution's 7b, 12b, 15b and 17):
    tolerances), with no ``stream-fallback`` in any trace.
 
 The third line from the end is a JSON object with the queries', the
-joins' (under ``"join"``) and the aggregates' (under ``"agg"``) results and
-times, the line before the last one with an entry per
+joins' (under ``"join"``), the aggregates' (under ``"agg"``) and the
+lifecycle's (under ``"lifecycle"``) results and times, the line before the last one with an entry per
 kernel; the last line
 is ``{"ok": true, "device": {...}}``. Any failed check raises, so
 the script exits non-zero and prints no result. It exits non-zero as well
@@ -147,6 +171,7 @@ when no CUDA device is present or the port is not beside it.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import os
 import shutil
@@ -2211,14 +2236,19 @@ GATE_BYTES = 1 << 30
 SCALE_TARGET_BYTES = int(1.2 * GATE_BYTES)
 
 
-def _write_lineitem_file(path: str, seed: int, i: int, rows: int, sf: float) -> None:
+def _write_lineitem_file(path: str, seed: int, i: int, rows: int, sf: float, edit=None) -> None:
+    """One ``lineitem`` file from its own generators; ``edit``, if given,
+    changes the columns before they are written."""
     import numpy as np
     import pyarrow as pa
     import pyarrow.parquet as pq
 
     rng = np.random.default_rng([seed, i])
     flags_rng = np.random.default_rng([seed, i, 1])
-    pq.write_table(pa.table(lineitem_columns(rng, flags_rng, rows, sf)), path)
+    cols = lineitem_columns(rng, flags_rng, rows, sf)
+    if edit is not None:
+        edit(cols)
+    pq.write_table(pa.table(cols), path)
 
 
 def _write_orders_file(path: str, seed: int, i: int, first_key: int, rows: int, sf: float) -> None:
@@ -2398,6 +2428,335 @@ def run_scale(main_sess, li_src: str, o_src: str, tmp: str, args, smi: str) -> d
 
 
 
+# --- the index lifecycle --------------------------------------------------------
+
+
+def _write_ingest_file(path: str, seed: int, i: int, rows: int, sf: float, first_day, first_key: int) -> None:
+    """A ``_write_lineitem_file`` file as a later ingest lands (TPC-H's RF1
+    in spirit): new orders, keyed from ``first_key``, shipped in the 30
+    days from ``first_day``; still open, so not returned."""
+    import numpy as np
+
+    def edit(cols):
+        rng = np.random.default_rng([seed, i, 2])
+        cols["l_orderkey"] = (first_key + rng.integers(0, max(1, rows // 4), rows)).astype(np.int64)
+        cols["l_shipdate"] = np.datetime64(first_day) + rng.integers(0, 30, rows).astype("timedelta64[D]")
+        cols["l_returnflag"] = np.full(rows, "N")
+        cols["l_linestatus"] = np.full(rows, "O")
+
+    _write_lineitem_file(path, seed, i, rows, sf, edit)
+
+
+def index_fingerprint(entry):
+    """A covering index's bucket files as {bucket: sorted digests of each
+    file's bytes}; a data-skipping index's sketch rows; None once vacuumed."""
+    import hashlib
+
+    from hyperspace_tpu_torch.indexes.covering import bucket_of_file
+    from hyperspace_tpu_torch.indexes.registry import index_of_entry
+
+    if entry is None or entry.state == "DOESNOTEXIST":
+        return None
+    if entry.kind != "CoveringIndex":
+        return repr(index_of_entry(entry).read_sketch_table(entry).to_pydict())
+    runs = {}
+    for f in entry.content.files:
+        with open(f, "rb") as fh:
+            runs.setdefault(bucket_of_file(f), []).append(hashlib.sha256(fh.read()).hexdigest())
+    return {b: sorted(v) for b, v in runs.items()}
+
+
+K1, K2 = "bucket_histogram", "segmented_min_max"
+
+
+def same_rows(got, want) -> bool:
+    """Equal as multisets; two empty results need only the same columns (a
+    scan whose files were all pruned gives dtype-less empty columns, as in
+    the JAX package)."""
+    if list(got) == list(want) and all(len(v) == 0 for v in list(got.values()) + list(want.values())):
+        return True
+    return same_batch(as_multiset(got), as_multiset(want))
+
+
+def lifecycle_outcome(fn):
+    """(entry, None) or (None, the exception's class name)."""
+    from hyperspace_tpu_torch.actions.base import HyperspaceActionException
+
+    try:
+        return fn(), None
+    except HyperspaceActionException as e:
+        return None, type(e).__name__
+
+
+def check_lifecycle_small(tmp: str, seed: int) -> dict:
+    """The lifecycle on a small lake in a CPU session (plain versions) and a
+    GPU session (kernels). Each phase starts both from a copy of the CPU
+    session's state, so even the actions that read old index files in the
+    content's (random) file-name order get the same input. After every
+    action the GPU's bucket files equal the CPU's byte for byte and the
+    sketches are equal; the GPU run launches K1 for every covering rewrite
+    and K2 for every data-skipping rebuild, and nothing else; after every
+    phase each query over the GPU's indexes equals hyperspace off."""
+    import torch
+
+    import hyperspace_tpu_torch as ht
+    from hyperspace_tpu_torch.ops import kernels
+
+    rows = 60_000
+    src = gen_lineitem(os.path.join(tmp, "lsmall"), rows, 3, seed + 5)
+    sf = rows / LINEITEM_ROWS_SF1
+    new_key = max(1, int(ORDERS_ROWS_SF1 * sf))
+    c = ht.col
+
+    def create(hs, sess):
+        df = sess.read_parquet(src)
+        hs.create_index(df, ht.CoveringIndexConfig("cov", ["l_orderkey"], ["l_extendedprice", "l_shipdate"]))
+        sess.conf.set(ht.keys.LINEAGE_ENABLED, True)
+        hs.create_index(df, ht.CoveringIndexConfig("lin", ["l_shipdate"],
+                                                   ["l_quantity", "l_extendedprice", "l_discount"]))
+        sess.conf.set(ht.keys.LINEAGE_ENABLED, False)
+        return hs.create_index(df, ht.DataSkippingIndexConfig(
+            "skip", ht.MinMaxSketch("l_orderkey"), ht.MinMaxSketch("l_extendedprice")))
+
+    def append():
+        for i in (3, 4):
+            _write_ingest_file(os.path.join(src, f"part-{i:05d}.parquet"), seed + 5, i, 10_000, sf,
+                               "1999-01-01", new_key)
+
+    covering = {K1}
+    phases = [
+        ("create", None, [("create", create, {K1, K2}, None)]),
+        ("append", append, [
+            ("incremental cov", lambda hs, s: hs.refresh_index("cov", "incremental"), covering, None),
+            ("incremental skip", lambda hs, s: hs.refresh_index("skip", "incremental"), {K2}, None),
+            ("quick lin", lambda hs, s: hs.refresh_index("lin", "quick"), set(), None),
+        ]),
+        ("optimize", None, [
+            ("optimize quick cov", lambda hs, s: hs.optimize_index("cov", "quick"), covering, None),
+            ("optimize full cov", lambda hs, s: hs.optimize_index("cov", "full"), set(), "NoChangesException"),
+        ]),
+        ("drop", lambda: os.remove(os.path.join(src, "part-00000.parquet")), [
+            ("incremental cov", lambda hs, s: hs.refresh_index("cov", "incremental"), set(),
+             "HyperspaceActionException"),
+            ("incremental lin", lambda hs, s: hs.refresh_index("lin", "incremental"), covering, None),
+            ("full cov", lambda hs, s: hs.refresh_index("cov", "full"), covering, None),
+            ("quick skip", lambda hs, s: hs.refresh_index("skip", "quick"), set(), None),
+            ("full skip", lambda hs, s: hs.refresh_index("skip", "full"), {K2}, None),
+        ]),
+        ("maintenance", None, [
+            ("optimize full lin", lambda hs, s: hs.optimize_index("lin", "full"), covering, None),
+            ("delete cov", lambda hs, s: hs.delete_index("cov"), set(), None),
+            ("restore cov", lambda hs, s: hs.restore_index("cov"), set(), None),
+            ("delete cov", lambda hs, s: hs.delete_index("cov"), set(), None),
+            ("vacuum cov", lambda hs, s: hs.vacuum_index("cov"), set(), None),
+        ]),
+    ]
+    queries = {
+        "cov": lambda df: df.filter(c("l_orderkey") == 77).select("l_orderkey", "l_extendedprice", "l_shipdate"),
+        "lin": lambda df: q6_query(df),
+        "skip": lambda df: df.filter(c("l_orderkey") >= new_key).select("l_orderkey", "l_tax"),
+    }
+    state = None
+    actions = 0
+    launched = collections.Counter()
+    for phase, edit, steps in phases:
+        if edit is not None:
+            edit()
+        sessions = {}
+        for device in ("cpu", "cuda"):
+            system = os.path.join(tmp, f"lsmall-{phase}-{device}")
+            if state is not None:
+                shutil.copytree(state, system)
+            sessions[device] = ht.Session(conf={ht.keys.SYSTEM_PATH: system, ht.keys.NUM_BUCKETS: 16,
+                                                ht.keys.BUILD_BATCH_ROWS: 25_000, ht.keys.DEVICE_MIN_ROWS: 0},
+                                          device=device)
+        for name, fn, kernels_expected, raises in steps:
+            results = {}
+            for device, sess in sessions.items():
+                hs = ht.Hyperspace(sess)
+                torch.cuda.synchronize()
+                kernels.reset_launches()
+                entry, error = lifecycle_outcome(lambda: fn(hs, sess))
+                torch.cuda.synchronize()
+                launches = {k: v for k, v in kernels.launches.items() if v}
+                assert error == raises, f"lifecycle-small {name} on {device}: raised {error}, expected {raises}"
+                if device == "cuda":
+                    assert set(launches) == kernels_expected, f"lifecycle-small {name}: launches {launches}"
+                    launched.update(launches)
+                else:
+                    assert not launches, launches
+                results[device] = {n: index_fingerprint(sess.index_manager.get_index(n)) for n in ("cov", "lin", "skip")}
+            for n in results["cpu"]:
+                assert results["cuda"][n] == results["cpu"][n], f"lifecycle-small {name}: {n} differs from the CPU port's"
+            actions += 1
+            print(f"lifecycle-small {phase}/{name}: GPU index files equal the CPU port's byte for byte; "
+                  f"launches {launches or 'none'}" + (f"; raised {raises}" if raises else ""), flush=True)
+        sess = sessions["cuda"]
+        for qname, make in queries.items():
+            q = make(sess.read_parquet(src))
+            with sess.hyperspace_scope(True):
+                on = q.collect()
+            with sess.hyperspace_scope(False):
+                off = q.collect()
+            assert same_rows(on, off), f"lifecycle-small {phase}: {qname} differs from off"
+        state = sessions["cpu"].conf.system_path
+    for k in (K1, K2):
+        assert launched[k] > 0, f"lifecycle-small never launched {k}"
+    return {"actions": actions, "launches": dict(launched)}
+
+
+def run_lifecycle(li_src: str, tmp: str, args, smi: str) -> dict:
+    """The lifecycle at SF1 on a mutable copy of the ``lineitem`` lake (its
+    16 files hard-linked, so the generated lake and its row-count guard stay
+    as they were): three indexes, an ingest of two new files, a dropped
+    file, and every action timed one by one with its build stages and K1/K2
+    launches; after each, the rewritten covering index checked against the
+    current source, q6 through it equal to hyperspace off, and a range query
+    on the new orders pruned by the data-skipping index to the two new
+    files, equal to off, warm, beside off."""
+    import numpy as np
+    import pyarrow.parquet as pq
+    import torch
+
+    import hyperspace_tpu_torch as ht
+    from hyperspace_tpu_torch.indexes.registry import index_of_entry
+    from hyperspace_tpu_torch.ops import kernels
+    from hyperspace_tpu_torch.plan import logical as L
+
+    lake = os.path.join(tmp, "lifecycle", "lineitem")
+    os.makedirs(lake)
+    for f in sorted(os.listdir(li_src)):
+        os.link(os.path.join(li_src, f), os.path.join(lake, f))
+    originals = sorted(os.listdir(lake))
+    sf = args.rows / LINEITEM_ROWS_SF1
+    new_key = max(1, int(ORDERS_ROWS_SF1 * sf))
+    per_file = args.rows // args.files
+    sess = ht.Session(conf={ht.keys.SYSTEM_PATH: os.path.join(tmp, "lifecycle", "indexes"),
+                            ht.keys.DEVICE_MIN_ROWS: 0}, device="cuda")
+    hs = ht.Hyperspace(sess)
+    q6_cols = ["l_shipdate", "l_quantity", "l_extendedprice", "l_discount"]
+    c = ht.col
+
+    def source_files():
+        return [os.path.join(lake, f) for f in sorted(os.listdir(lake))]
+
+    def source_rows():
+        return sum(pq.read_metadata(f).num_rows for f in source_files())
+
+    def new_orders(df):
+        return df.filter((c("l_orderkey") >= new_key) & (c("l_shipdate") >= np.datetime64("1999-01-01"))).select(
+            "l_orderkey", "l_shipdate", "l_tax")
+
+    out = {"device": smi, "actions": []}
+
+    def timed(label, fn, rows, kernels_expected, raises=None, index=None, ds_ready=False):
+        torch.cuda.synchronize()
+        sess.build_stage_seconds.clear()
+        kernels.reset_launches()
+        t = time.perf_counter()
+        entry, error = lifecycle_outcome(fn)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        launches = {k: v for k, v in kernels.launches.items() if v}
+        assert error == raises, f"lifecycle {label}: raised {error}, expected {raises}"
+        for k in kernels_expected:
+            assert launches.get(k, 0) >= 1, f"lifecycle {label}: no {k} launch ({launches})"
+        assert set(launches) <= set(kernels_expected), f"lifecycle {label}: launches {launches}"
+        stages = {k: round(v, 6) for k, v in sess.build_stage_seconds.items()}
+        rec = {"action": label, "seconds": seconds, "rows": rows,
+               "rows_per_s": rows / seconds if rows else None, "stages": stages, "launches": launches,
+               "raised": error}
+        print(f"lifecycle {label}: {seconds:.3f} s" + (f", {rows} rows, {rows / seconds:.0f} rows/s" if rows else "")
+              + f"; launches {launches or 'none'}" + (f"; raised {error}" if error else "") + f" ({smi})", flush=True)
+        if stages:
+            # rest: the action's host work outside the device build (reading
+            # the old index, the lineage filter, the log)
+            print(f"stages lifecycle {label}: " + ", ".join(f"{k} {v:.3f} s" for k, v in stages.items())
+                  + f", rest {seconds - sum(stages.values()):.3f} s", flush=True)
+        if index is not None:
+            entry = sess.index_manager.get_index(index)
+            t = time.perf_counter()
+            n = check_covering(entry, source_files(), "l_shipdate", q6_cols, sess.conf.num_buckets)
+            q = q6_query(sess.read_parquet(lake))
+            with sess.hyperspace_scope(True):
+                scans = [s.entry.name for s in plan_index_scans(q.optimized_plan())]
+                on = q.collect()
+            with sess.hyperspace_scope(False):
+                off = q.collect()
+            assert scans == [index], f"lifecycle {label}: q6 scans {scans}"
+            assert same_rows(on, off), f"lifecycle {label}: q6 differs from off"
+            rec["check_rows"] = n
+            rec["q6_rows"] = len(on["l_extendedprice"])
+            print(f"check lifecycle {label}: {index} {n} rows hash to their buckets, sorted, equal to the source; "
+                  f"q6 through {index} {rec['q6_rows']} rows, equal to off ({time.perf_counter() - t:.3f} s)",
+                  flush=True)
+        if ds_ready:
+            q = new_orders(sess.read_parquet(lake))
+            with sess.hyperspace_scope(True):
+                scans = L.collect(q.optimized_plan(), lambda p: isinstance(p, L.FileScan))
+                assert len(scans) == 1 and scans[0].via_index == "li_skip_mut", q.optimized_plan().pretty()
+                assert sorted(os.path.basename(f) for f in scans[0].files) == ["part-90000.parquet",
+                                                                              "part-90001.parquet"]
+                on = q.collect()
+                on_ms = median_ms(q.collect, 5)
+            with sess.hyperspace_scope(False):
+                off = q.collect()
+                off_ms = median_ms(q.collect, 5)
+            assert same_rows(on, off), f"lifecycle {label}: new-orders query differs"
+            rec["new_orders"] = {"rows": len(on["l_orderkey"]), "warm_ms": on_ms, "off_ms": off_ms}
+            print(f"query lifecycle {label}: new orders {rec['new_orders']['rows']} rows from the 2 new files via "
+                  f"li_skip_mut, equal to off; warm {on_ms:.3f} ms, off {off_ms:.3f} ms ({smi})", flush=True)
+        out["actions"].append(rec)
+        return entry
+
+    df = sess.read_parquet(lake)
+    rows = source_rows()
+    timed("create li_mut", lambda: hs.create_index(df, ht.CoveringIndexConfig(
+        "li_mut", ["l_shipdate"], ["l_quantity", "l_extendedprice", "l_discount"])), rows, {K1})
+    sess.conf.set(ht.keys.LINEAGE_ENABLED, True)
+    timed("create li_lin", lambda: hs.create_index(df, ht.CoveringIndexConfig(
+        "li_lin", ["l_shipdate"], ["l_quantity", "l_extendedprice", "l_discount"])), rows, {K1})
+    sess.conf.set(ht.keys.LINEAGE_ENABLED, False)
+    timed("create li_skip_mut", lambda: hs.create_index(df, ht.DataSkippingIndexConfig(
+        "li_skip_mut", ht.MinMaxSketch("l_orderkey"), ht.MinMaxSketch("l_extendedprice"))), rows, {K2})
+
+    t = time.perf_counter()
+    for i in (0, 1):
+        _write_ingest_file(os.path.join(lake, f"part-{90000 + i:05d}.parquet"), args.seed + 9, i, per_file, sf,
+                           "1999-01-01", new_key)
+    print(f"lifecycle ingest: 2 files of {per_file} rows (new orders from {new_key}, shipped 1999-01), "
+          f"{time.perf_counter() - t:.3f} s", flush=True)
+    timed("incremental li_mut (append)", lambda: hs.refresh_index("li_mut", "incremental"), 2 * per_file, {K1},
+          index="li_mut")
+    timed("incremental li_skip_mut (append)", lambda: hs.refresh_index("li_skip_mut", "incremental"),
+          source_rows(), {K2}, ds_ready=True)
+
+    os.remove(os.path.join(lake, originals[0]))
+    rows = source_rows()
+    timed("incremental li_lin (drop)", lambda: hs.refresh_index("li_lin", "incremental"), rows, {K1},
+          index="li_lin")
+    timed("full li_mut (drop)", lambda: hs.refresh_index("li_mut", "full"), rows, {K1}, index="li_mut")
+    timed("quick li_skip_mut", lambda: hs.refresh_index("li_skip_mut", "quick"), 0, set())
+    timed("full li_skip_mut", lambda: hs.refresh_index("li_skip_mut", "full"), rows, {K2}, ds_ready=True)
+    check_sketches(sess.index_manager.get_index("li_skip_mut"),
+                   index_of_entry(sess.index_manager.get_index("li_skip_mut")))
+    files_before = len(sess.index_manager.get_index("li_mut").content.files)
+    entry = timed("optimize quick li_mut", lambda: hs.optimize_index("li_mut", "quick"), rows, {K1},
+                  index="li_mut", ds_ready=True)
+    files_after = len(entry.content.files)
+    assert files_after == sess.conf.num_buckets < files_before, (files_after, files_before)
+    timed("optimize full li_mut", lambda: hs.optimize_index("li_mut", "full"), 0, set(), raises="NoChangesException")
+    for label, fn in (("delete li_lin", hs.delete_index), ("restore li_lin", hs.restore_index),
+                      ("delete li_lin again", hs.delete_index), ("vacuum li_lin", hs.vacuum_index)):
+        timed(label, lambda fn=fn: fn("li_lin"), 0, set())
+    listed = hs.indexes()
+    assert sorted(listed["name"]) == ["li_mut", "li_skip_mut"], listed
+    assert not os.path.exists(os.path.join(tmp, "lifecycle", "indexes", "li_lin", "v__=0"))
+    print(f"lifecycle: li_lin vacuumed, indexes {sorted(listed['name'])}; {files_before} li_mut files "
+          f"compacted to {files_after}", flush=True)
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2467,6 +2826,10 @@ def main() -> None:
         t = time.perf_counter()
         stream_small = check_stream_small(tmp, args.seed)
         phase("stream-small", t)
+
+        t = time.perf_counter()
+        lifecycle_small = check_lifecycle_small(tmp, args.seed)
+        phase("lifecycle-small", t)
 
         t = time.perf_counter()
         src = gen_lineitem(tmp, args.rows, args.files, args.seed)
@@ -2550,6 +2913,11 @@ def main() -> None:
         queries["stream"], a1_streamed, chunk = run_stream(sess, src, o_src, tmp, args, smi, hbm)
         queries["stream"]["small"] = stream_small
         phase("stream", t)
+
+        t = time.perf_counter()
+        queries["lifecycle"] = run_lifecycle(src, tmp, args, smi)
+        queries["lifecycle"]["small"] = lifecycle_small
+        phase("lifecycle", t)
 
         t = time.perf_counter()
         sess.conf.set(ht.keys.DEVICE_MIN_ROWS, 0)

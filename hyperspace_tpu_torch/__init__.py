@@ -19,15 +19,20 @@ its span search and pair expansion on the device (``exec/join.py``) — and
 aggregation: ``group_by(...).agg(...)``, global ``agg(...)`` and
 ``distinct()`` over a (filtered) index scan run as one device program
 (``exec/aggregate.py``), and over the bucketed join as span-weighted
-reductions that never expand the pairs.
+reductions that never expand the pairs — and the index lifecycle: full,
+incremental and quick refresh, quick and full optimize, delete, restore,
+vacuum and cancel (``actions/``; every rewrite runs the device build), with
+the lineage build and the data-skipping rule that prunes source files by
+their sketches (``rules/dataskipping_rule.py``).
 
 Layer map (the JAX package's layout, module for module):
   - ``models/``    metadata model + operation-log persistence
   - ``sources/``   source providers (parquet)
   - ``plan/``      logical plan, predicate language, column resolution
   - ``indexes/``   covering and data-skipping index builds
-  - ``actions/``   the create action
-  - ``rules/``     ApplyHyperspace + FilterIndexRule + JoinIndexRule
+  - ``actions/``   create, refresh, optimize and the maintenance actions
+  - ``rules/``     ApplyHyperspace + JoinIndexRule + FilterIndexRule +
+                   the data-skipping rule
   - ``exec/``      executor, parquet IO, the device filter, the bucketed join,
                    the device aggregates
   - ``ops/``       hashing, encode, device sort, kernel wrappers

@@ -1,7 +1,7 @@
 """Configuration system.
 
-The keys, defaults and typed accessors the index build, the filter query,
-the join and the aggregate read, under the same names and with the same defaults as the JAX package's
+The keys, defaults and typed accessors the index build and lifecycle, the
+filter query, the join and the aggregate read, under the same names and with the same defaults as the JAX package's
 ``hyperspace_tpu/config.py`` so one conf dict drives either package; the
 port ignores the keys it does not read. Keys are namespaced ``hyperspace.*``.
 """
@@ -12,11 +12,13 @@ from typing import Any, Dict, Optional
 
 
 class keys:
-    """Configuration keys read by the build, query, join and aggregate paths."""
+    """Configuration keys read by the build, lifecycle, query, join and
+    aggregate paths."""
 
     SYSTEM_PATH = "hyperspace.system.path"
     NUM_BUCKETS = "hyperspace.index.numBuckets"
     LINEAGE_ENABLED = "hyperspace.index.lineage.enabled"
+    OPTIMIZE_FILE_SIZE_THRESHOLD = "hyperspace.index.optimize.fileSizeThreshold"
     HYBRID_SCAN_ENABLED = "hyperspace.index.hybridscan.enabled"
     FILTER_RULE_USE_BUCKET_SPEC = "hyperspace.index.filterRule.useBucketSpec"
     BUILD_BATCH_ROWS = "hyperspace.tpu.build.batchRows"
@@ -46,6 +48,8 @@ DEFAULTS: Dict[str, Any] = {
     keys.SYSTEM_PATH: None,  # resolved by PathResolver; must be set per session
     keys.NUM_BUCKETS: 200,
     keys.LINEAGE_ENABLED: False,
+    # quick optimize compacts only index files below this size
+    keys.OPTIMIZE_FILE_SIZE_THRESHOLD: 256 * 1024 * 1024,
     # hybrid scan (index + appended source files) is not in the port yet:
     # a query with it on raises
     keys.HYBRID_SCAN_ENABLED: False,
@@ -119,6 +123,15 @@ DEFAULTS: Dict[str, Any] = {
     keys.PIPELINE_MAX_BUFFERED_BYTES: 1 << 30,
 }
 
+REFRESH_MODE_INCREMENTAL = "incremental"
+REFRESH_MODE_FULL = "full"
+REFRESH_MODE_QUICK = "quick"
+REFRESH_MODES = (REFRESH_MODE_INCREMENTAL, REFRESH_MODE_FULL, REFRESH_MODE_QUICK)
+
+OPTIMIZE_MODE_QUICK = "quick"
+OPTIMIZE_MODE_FULL = "full"
+OPTIMIZE_MODES = (OPTIMIZE_MODE_QUICK, OPTIMIZE_MODE_FULL)
+
 # Operation-log layout constants (ref: HS/index/IndexConstants.scala:93-95).
 HYPERSPACE_LOG_DIR = "_hyperspace_log"
 INDEX_VERSION_DIR_PREFIX = "v__"
@@ -178,6 +191,10 @@ class HyperspaceConf:
     @property
     def lineage_enabled(self) -> bool:
         return bool(self.get(keys.LINEAGE_ENABLED))
+
+    @property
+    def optimize_file_size_threshold(self) -> int:
+        return int(self.get(keys.OPTIMIZE_FILE_SIZE_THRESHOLD))
 
     @property
     def hybrid_scan_enabled(self) -> bool:

@@ -86,6 +86,15 @@ def _read_files(
     file, absent from the file bytes — to each file's rows."""
     from hyperspace_tpu_torch.exec.io import _decode_pool, read_parquet_batch
 
+    if not files:
+        # every file pruned (a data-skipping index removed all of them): an
+        # empty batch with the requested columns; dtype-less object arrays
+        # compare fine against any literal on zero rows
+        cols = list(columns or [])
+        if with_file_names:
+            cols.append(INPUT_FILE_NAME)
+        return {c: np.empty(0, dtype=object) for c in cols}
+
     part_cols = set()
     if partition_values:
         for v in partition_values.values():

@@ -1,7 +1,8 @@
 """The user-facing ``Hyperspace`` facade (ref: HS/Hyperspace.scala:27-231).
 
-The port has index creation and introspection; the other lifecycle
-operations raise until their slice lands.
+Every lifecycle operation reaches the index collection manager. The JAX
+package runs them with the optimizer rule disabled; the port's actions read
+their source plans directly and never consult the optimizer.
 """
 
 from __future__ import annotations

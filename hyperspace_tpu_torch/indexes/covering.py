@@ -16,8 +16,10 @@ per-partition sort + bucketed Parquet write
 (ref: CoveringIndex.scala:54-69, DataFrameWriterExtensions.scala:50-68) with a
 one device pass per chunk: encode -> hash -> bucket -> sort
 (ops/sort.bucket_sort_build) -> host gather -> per-bucket Parquet write.
-Lineage (a ``_data_file_id`` column; ref: CoveringIndex.scala:227-279) and
-the multi-device build are not in the port yet and raise.
+Optional lineage materializes a ``_data_file_id`` column mapping each index
+row to its source file (ref: CoveringIndex.scala:227-279); the id is
+attached at decode time. The multi-device build is not in the port yet and
+raises.
 
 Bucket id is encoded in the data file name: ``part-<bucket>-<tag>.parquet``.
 """
@@ -33,6 +35,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import pyarrow as pa
+import pyarrow.compute as pc
 import pyarrow.parquet as pq
 
 from hyperspace_tpu_torch import config as C
@@ -117,6 +120,12 @@ class CoveringIndex(Index):
         props.update(self._extra)
         return props
 
+    def with_new_properties(self, properties: Dict[str, Any]) -> "CoveringIndex":
+        extra = {k: v for k, v in properties.items()
+                 if k not in ("indexedColumns", "includedColumns", "numBuckets", "schemaJson", C.LINEAGE_PROPERTY)}
+        return CoveringIndex(self._indexed, self._included, self.num_buckets,
+                             self.schema_json, self.lineage, extra)
+
     @classmethod
     def from_derived_dataset(cls, dd: DerivedDataset) -> "CoveringIndex":
         p = dd.properties
@@ -140,6 +149,16 @@ class CoveringIndex(Index):
         """Hash-function version the data files were bucketed with; entries
         predating the property default to 1 (the pre-normalization hash)."""
         return int(self._extra.get(_BUCKET_HASH_VERSION_PROP, 1))
+
+    def can_handle_deleted_files(self) -> bool:
+        return self.lineage
+
+    def stats(self) -> Dict[str, Any]:
+        return {
+            "indexedColumns": self._indexed,
+            "includedColumns": self._included,
+            "numBuckets": self.num_buckets,
+        }
 
     # --- build -------------------------------------------------------------
     def write(self, ctx: CreateContext, df) -> None:
@@ -240,12 +259,16 @@ class CoveringIndex(Index):
             self.schema_json = schema_codec.schema_to_json(schema)
             return
 
-        if self.lineage:
-            raise NotImplementedError("lineage (hyperspace.index.lineage.enabled) is not yet in the port")
-        raise ValueError(
-            "createIndex expects a plain source scan (project/filter on top "
-            "of a supported relation); got: " + type(plan).__name__
+        table = self._index_data_table(ctx, df)
+        write_bucketed(
+            table,
+            self._indexed,
+            self.num_buckets,
+            ctx.index_data_path,
+            batch_rows=ctx.session.conf.build_batch_rows,
+            session=ctx.session,
         )
+        self.schema_json = schema_codec.schema_to_json(table.schema)
 
     def _resolve_all(self, schema: pa.Schema) -> List[str]:
         """Resolve the indexed and included columns to the schema's own
@@ -253,6 +276,35 @@ class CoveringIndex(Index):
         self._indexed = resolve_columns_against_schema(self._indexed, schema)
         self._included = resolve_columns_against_schema(self._included, schema)
         return self.referenced_columns
+
+    def _index_data_table(self, ctx: CreateContext, df) -> pa.Table:
+        """The vertical slice (+ optional lineage column) as one arrow table
+        (ref: createIndexData, CoveringIndex.scala:227-279)."""
+        from hyperspace_tpu_torch.plan.logical import Scan
+
+        plan = df.plan
+        if not isinstance(plan, Scan):
+            raise ValueError(
+                "createIndex expects a plain source scan (project/filter on top "
+                "of a supported relation); got: " + type(plan).__name__
+            )
+        relation = plan.relation
+        # a field-reference projection, as the JAX package reads it, so the
+        # table (and every bucket file's schema) is the same
+        projection = {c: pc.field(c) for c in self._resolve_all(relation.schema)}
+
+        if not self.lineage:
+            return relation.arrow_dataset().to_table(columns=projection)
+
+        # lineage: attach _data_file_id per source file at decode time
+        # (arrow_dataset so hive-partition columns resolve per file)
+        tables = []
+        for fi in relation.all_file_infos():
+            fid = ctx.file_id_tracker.add_file(fi)
+            t = relation.arrow_dataset([fi.name]).to_table(columns=projection)
+            t = t.append_column(C.DATA_FILE_NAME_ID, pa.array(np.full(t.num_rows, fid, dtype=np.int64)))
+            tables.append(t)
+        return pa.concat_tables(tables)
 
 
 def _project_conform(ds, schema: pa.Schema) -> pa.Table:
@@ -399,6 +451,34 @@ def _pipelined_chunks(chunks, launch, finish) -> List[str]:
     if in_flight is not None:
         paths.extend(finish(*in_flight))
     return paths
+
+
+def write_bucketed(
+    table: pa.Table,
+    bucket_sort_columns: List[str],
+    num_buckets: int,
+    out_dir: str,
+    batch_rows: Optional[int] = None,
+    session=None,
+) -> List[str]:
+    """Device-accelerated bucketed + sorted Parquet write of one in-memory
+    table, in its column order: the writer of incremental refresh, optimize
+    and the lineage build.
+
+    ``batch_rows`` (> 0) caps rows per device pass
+    (ops/sort.bucket_sort_build: hash -> bucket -> lexicographic sort ->
+    histogram kernel): a larger table is sliced into equal chunks, each
+    writing its own sorted run per bucket, pipelined one chunk deep. Without
+    it the table is one chunk, as optimize needs (one file per bucket).
+    Returns the written file paths: bucket order within each chunk,
+    chunk-major."""
+    os.makedirs(out_dir, exist_ok=True)
+    if table.num_rows == 0:
+        return []
+    launch, finish = _chunk_stages(bucket_sort_columns, num_buckets, out_dir, None, session)
+    if batch_rows is not None and 0 < batch_rows < table.num_rows:
+        return _pipelined_chunks(_sliced_chunks(table, None, batch_rows), launch, finish)
+    return finish(launch(table), None)
 
 
 def write_bucketed_groups(

@@ -6,8 +6,8 @@ query-time file pruning translates predicates against the sketch table
 (ref: HS/index/dataskipping/DataSkippingIndex.scala:35-179,
 DataSkippingIndexConfig.scala:40-76, sketch/MinMaxSketch.scala:33-43).
 
-The port has the build; the pruning rule that reads the sketch table arrives
-with the query path.
+The pruning rule that reads the sketch table is
+``rules/dataskipping_rule.py``.
 """
 
 from __future__ import annotations
@@ -156,6 +156,19 @@ class BloomFilterSketch(Sketch):
         np.bitwise_or.at(bits, pos // 64, np.uint64(1) << (pos % np.uint64(64)).astype(np.uint64))
         return [bits.view(np.int64).tolist()]
 
+    def might_contain(self, bits_words: List[int], value) -> bool:
+        """Raises on a literal that cannot be coerced to the build dtype —
+        callers treat that as unprunable."""
+        if self.value_dtype == "object":
+            arr = np.asarray([str(value)], dtype=object)
+        elif self.value_dtype == "datetime64[ns]":
+            arr = np.asarray([np.datetime64(value)]).astype("datetime64[ns]")
+        else:
+            arr = np.asarray([value]).astype(np.float64)
+        bits = np.asarray(bits_words, dtype=np.int64).view(np.uint64)
+        pos = self._positions(arr).reshape(-1)
+        return bool(np.all((bits[pos // 64] >> (pos % np.uint64(64)).astype(np.uint64)) & np.uint64(1)))
+
     def to_dict(self) -> Dict[str, Any]:
         return {
             "kind": self.kind,
@@ -228,10 +241,20 @@ class DataSkippingIndex(Index):
         props.update(self._extra)
         return props
 
+    def with_new_properties(self, properties: Dict[str, Any]) -> "DataSkippingIndex":
+        extra = {k: v for k, v in properties.items() if k != "sketches"}
+        return DataSkippingIndex(self.sketches, extra)
+
     @classmethod
     def from_derived_dataset(cls, dd: DerivedDataset) -> "DataSkippingIndex":
         extra = {k: v for k, v in dd.properties.items() if k != "sketches"}
         return cls([Sketch.from_dict(s) for s in dd.properties["sketches"]], extra)
+
+    def can_handle_deleted_files(self) -> bool:
+        return True  # rows are keyed by file id; deleted files' rows are dropped
+
+    def stats(self) -> Dict[str, Any]:
+        return {"sketches": [repr(s) for s in self.sketches]}
 
     # --- build (ref: DataSkippingIndex.index() :116-138) -------------------
     def write(self, ctx: CreateContext, df) -> None:

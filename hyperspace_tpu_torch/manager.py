@@ -6,29 +6,27 @@ per-index log/data managers (ref: HS/index/IndexCollectionManager.scala:28-196);
 invalidated by any mutating call
 (ref: HS/index/CachingIndexCollectionManager.scala:38-173).
 
-The port has ``create`` and the reads; the other lifecycle actions raise.
+The JAX package's manager also consults a snapshot pin on every read and
+publishes a commit event on the session's lifecycle bus after every
+mutation (``hyperspace_tpu/lifecycle/``); neither is in the port yet
+(ROADMAP A9), so reads see the latest stable entries and a mutation only
+clears the cache.
 """
 
 from __future__ import annotations
 
 from typing import List, Optional
 
+from hyperspace_tpu_torch import config as C
 from hyperspace_tpu_torch.actions.base import HyperspaceActionException
 from hyperspace_tpu_torch.actions.create import CreateAction
+from hyperspace_tpu_torch.actions.maintenance import CancelAction, DeleteAction, RestoreAction, VacuumAction
 from hyperspace_tpu_torch.models import states
 from hyperspace_tpu_torch.models.data_manager import IndexDataManagerFactory
 from hyperspace_tpu_torch.models.log_entry import IndexLogEntry
 from hyperspace_tpu_torch.models.log_manager import IndexLogManagerFactory
 from hyperspace_tpu_torch.models.path_resolver import PathResolver
 from hyperspace_tpu_torch.utils.cache import TTLCache
-
-
-def _not_ported(action: str):
-    def method(self, *args, **kwargs):
-        raise NotImplementedError(f"{action} is not yet in the port")
-
-    method.__name__ = action
-    return method
 
 
 class IndexCollectionManager:
@@ -52,12 +50,48 @@ class IndexCollectionManager:
         log_m, data_m, path = self._managers(index_config.index_name)
         return CreateAction(self.session, df, index_config, log_m, data_m, path).run()
 
-    delete = _not_ported("delete")
-    restore = _not_ported("restore")
-    vacuum = _not_ported("vacuum")
-    cancel = _not_ported("cancel")
-    refresh = _not_ported("refresh")
-    optimize = _not_ported("optimize")
+    def delete(self, name: str) -> IndexLogEntry:
+        log_m, data_m, _ = self._managers(name)
+        return DeleteAction(self.session, name, log_m, data_m).run()
+
+    def restore(self, name: str) -> IndexLogEntry:
+        log_m, data_m, _ = self._managers(name)
+        return RestoreAction(self.session, name, log_m, data_m).run()
+
+    def vacuum(self, name: str) -> IndexLogEntry:
+        log_m, data_m, _ = self._managers(name)
+        return VacuumAction(self.session, name, log_m, data_m).run()
+
+    def cancel(self, name: str) -> IndexLogEntry:
+        log_m, data_m, _ = self._managers(name)
+        return CancelAction(self.session, name, log_m, data_m).run()
+
+    def refresh(self, name: str, mode: str = C.REFRESH_MODE_FULL) -> IndexLogEntry:
+        from hyperspace_tpu_torch.actions.refresh import (
+            RefreshFullAction,
+            RefreshIncrementalAction,
+            RefreshQuickAction,
+        )
+
+        log_m, data_m, _ = self._managers(name)
+        mode = mode.lower()
+        if mode == C.REFRESH_MODE_FULL:
+            action = RefreshFullAction(self.session, name, log_m, data_m)
+        elif mode == C.REFRESH_MODE_INCREMENTAL:
+            action = RefreshIncrementalAction(self.session, name, log_m, data_m)
+        elif mode == C.REFRESH_MODE_QUICK:
+            action = RefreshQuickAction(self.session, name, log_m, data_m)
+        else:
+            raise HyperspaceActionException(f"Unsupported refresh mode {mode!r}")
+        return action.run()
+
+    def optimize(self, name: str, mode: str = C.OPTIMIZE_MODE_QUICK) -> IndexLogEntry:
+        from hyperspace_tpu_torch.actions.optimize import OptimizeAction
+
+        log_m, data_m, _ = self._managers(name)
+        if mode.lower() not in C.OPTIMIZE_MODES:
+            raise HyperspaceActionException(f"Unsupported optimize mode {mode!r}")
+        return OptimizeAction(self.session, name, log_m, data_m, mode.lower()).run()
 
     # --- reads (ref: IndexCollectionManager.scala indexes) -----------------
     def get_index(self, name: str) -> Optional[IndexLogEntry]:
@@ -121,8 +155,29 @@ class CachingIndexCollectionManager(IndexCollectionManager):
         accepted = set(accepted_states or states.STABLE_STATES)
         return [e for e in cached if e.state in accepted]
 
-    def create(self, df, index_config):
+    def _invalidating(self, fn, *args, **kwargs):
         try:
-            return super().create(df, index_config)
+            return fn(*args, **kwargs)
         finally:
             self.clear_cache()
+
+    def create(self, df, index_config):
+        return self._invalidating(super().create, df, index_config)
+
+    def delete(self, name):
+        return self._invalidating(super().delete, name)
+
+    def restore(self, name):
+        return self._invalidating(super().restore, name)
+
+    def vacuum(self, name):
+        return self._invalidating(super().vacuum, name)
+
+    def cancel(self, name):
+        return self._invalidating(super().cancel, name)
+
+    def refresh(self, name, mode=C.REFRESH_MODE_FULL):
+        return self._invalidating(super().refresh, name, mode)
+
+    def optimize(self, name, mode=C.OPTIMIZE_MODE_QUICK):
+        return self._invalidating(super().optimize, name, mode)

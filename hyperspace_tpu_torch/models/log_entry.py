@@ -385,6 +385,13 @@ class FileIdTracker:
         self._ids: Dict[FileKey, int] = {}
         self._max_id: int = C.UNKNOWN_FILE_ID
 
+    @property
+    def max_id(self) -> int:
+        return self._max_id
+
+    def file_to_id_map(self) -> Dict[FileKey, int]:
+        return dict(self._ids)
+
     def add_file(self, fi: FileInfo) -> int:
         """Record ``fi``; returns its id. Existing key keeps its id; a known
         id (>= 0) on a new key is honored; otherwise a fresh id is assigned."""
@@ -407,6 +414,9 @@ class FileIdTracker:
     def add_files(self, files: Iterable[FileInfo]) -> None:
         for f in files:
             f.file_id = self.add_file(f)
+
+    def get_file_id(self, key: FileKey) -> Optional[int]:
+        return self._ids.get(key)
 
     @classmethod
     def from_contents(cls, *contents: Content) -> "FileIdTracker":
@@ -462,6 +472,9 @@ class IndexLogEntry(LogEntry):
     def signature(self) -> LogicalPlanFingerprint:
         return self.source.fingerprint
 
+    def source_files_size(self) -> int:
+        return self.relation.data.content.total_size
+
     def source_file_infos(self) -> List[FileInfo]:
         return self.relation.data.content.file_infos()
 
@@ -489,6 +502,23 @@ class IndexLogEntry(LogEntry):
             str(self.derived_dataset.properties.get(C.HAS_PARQUET_AS_SOURCE_FORMAT_PROPERTY, "false")).lower()
             == "true"
         )
+
+    def has_lineage_column(self) -> bool:
+        return str(self.derived_dataset.properties.get(C.LINEAGE_PROPERTY, "false")).lower() == "true"
+
+    def with_next_id(self, next_id: int) -> "IndexLogEntry":
+        self.id = next_id
+        return self
+
+    def copy_with_update(self, appended: List[FileInfo], deleted: List[FileInfo]) -> "IndexLogEntry":
+        """Record appended/deleted files for query-time hybrid scan
+        (ref: HS/index/IndexLogEntry.scala:460-475, used by RefreshQuickAction)."""
+        new = IndexLogEntry.from_dict(self.to_dict())
+        new.relation.data.update = Update(
+            Content.from_leaf_files(appended) if appended else None,
+            Content.from_leaf_files(deleted) if deleted else None,
+        )
+        return new
 
     # --- serialization -----------------------------------------------------
     def to_dict(self) -> Dict[str, Any]:

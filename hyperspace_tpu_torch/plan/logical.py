@@ -85,10 +85,12 @@ class Scan(LogicalPlan):
 
 class FileScan(LogicalPlan):
     """Scan of an explicit parquet file list: the per-chunk leaf of a
-    streamed scan over a source relation (``exec/executor.py::_leaf_subset``).
-    ``partition_values`` ({file -> {col -> typed value}}) carries the
-    hive-partition columns the requested ``columns`` include but the file
-    bytes do not."""
+    streamed scan over a source relation (``exec/executor.py::_leaf_subset``),
+    and the files a data-skipping index keeps
+    (``rules/dataskipping_rule.py``). ``partition_values`` ({file -> {col ->
+    typed value}}) carries the hive-partition columns the requested
+    ``columns`` include but the file bytes do not; ``via_index`` names the
+    index whose rewrite produced the scan."""
 
     def __init__(
         self,
@@ -97,12 +99,14 @@ class FileScan(LogicalPlan):
         columns: List[str],
         partition_values: Optional[dict] = None,
         partition_dtypes: Optional[dict] = None,
+        via_index: Optional[str] = None,
     ):
         self.files = list(files)
         self.file_format = file_format
         self.columns = list(columns)
         self.partition_values = partition_values
         self.partition_dtypes = partition_dtypes
+        self.via_index = via_index
 
     @property
     def output_columns(self) -> List[str]:
@@ -113,7 +117,8 @@ class FileScan(LogicalPlan):
         return self
 
     def describe(self) -> str:
-        return f"FileScan({len(self.files)} files, format={self.file_format})"
+        via = f", Hyperspace(Type: DS, Name: {self.via_index})" if self.via_index else ""
+        return f"FileScan({len(self.files)} files, format={self.file_format}{via})"
 
 
 class Filter(LogicalPlan):

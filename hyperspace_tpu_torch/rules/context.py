@@ -10,3 +10,6 @@ from __future__ import annotations
 class RuleContext:
     def __init__(self, session):
         self.session = session
+        # per-optimization memo space for rules (e.g. the data-skipping
+        # rule's pruned file lists, keyed per scan, predicate and index)
+        self.scratch: dict = {}

@@ -3,9 +3,9 @@
 Memoized recursion: at each node, the best of (a) applying a rule to the whole
 sub-tree rooted here, (b) keeping the node and optimizing children
 independently (the NoOpRule path)
-(ref: HS/index/rules/ScoreBasedIndexPlanOptimizer.scala:29-78). The port's
-rule list is JoinIndexRule then FilterIndexRule; the data-skipping rule
-plugs in with its slice.
+(ref: HS/index/rules/ScoreBasedIndexPlanOptimizer.scala:29-78; rules list =
+FilterIndexRule :: JoinIndexRule :: NoOpRule, plus the data-skipping rule,
+which the reference never registered).
 """
 
 from __future__ import annotations
@@ -13,9 +13,11 @@ from __future__ import annotations
 from typing import Dict, Tuple
 
 from hyperspace_tpu_torch.plan import logical as L
+from hyperspace_tpu_torch.rules import dataskipping_rule as _ds
 from hyperspace_tpu_torch.rules import filter_rule as _fr
 from hyperspace_tpu_torch.rules import join_rule as _jr
 from hyperspace_tpu_torch.rules.context import RuleContext
+from hyperspace_tpu_torch.rules.dataskipping_rule import apply_data_skipping_rule
 from hyperspace_tpu_torch.rules.filter_rule import apply_filter_index_rule
 from hyperspace_tpu_torch.rules.join_rule import apply_join_index_rule
 from hyperspace_tpu_torch.rules.utils import destructure_linear
@@ -25,6 +27,7 @@ from hyperspace_tpu_torch.rules.utils import destructure_linear
 RULES = (
     (apply_join_index_rule, _jr.MAX_SCORE),
     (apply_filter_index_rule, _fr.MAX_SCORE),
+    (apply_data_skipping_rule, _ds.MAX_SCORE),
 )
 
 # linear-chain nodes: when the chain TOP destructures, a rule applied there

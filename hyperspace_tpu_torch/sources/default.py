@@ -156,6 +156,11 @@ class DefaultFileBasedRelation(FileBasedRelation):
 class DefaultFileBasedRelationMetadata(FileBasedRelationMetadata):
     """(ref: HS/index/sources/default/DefaultFileBasedRelationMetadata.scala:25)"""
 
+    def to_relation_object(self) -> DefaultFileBasedRelation:
+        return DefaultFileBasedRelation(
+            self.relation.root_paths, self.relation.file_format, self.relation.options
+        )
+
 
 class DefaultFileBasedSource(FileBasedSourceProvider):
     def create_relation(self, path_or_plan, session) -> Optional[FileBasedRelation]:

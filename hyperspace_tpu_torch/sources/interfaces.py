@@ -38,6 +38,12 @@ class FileBasedRelation:
         raise NotImplementedError
 
     @property
+    def physical_format(self) -> str:
+        """Format of the underlying data files (e.g. a Delta relation's files
+        are parquet; ref: internalFileFormatName, interfaces.scala:249-272)."""
+        return "parquet" if self.has_parquet_as_source_format() else self.file_format
+
+    @property
     def options(self) -> Dict[str, str]:
         return {}
 
@@ -72,6 +78,11 @@ class FileBasedRelationMetadata:
     def refresh(self) -> Relation:
         """Reconstruct a current snapshot of the logged relation (drop any
         recorded update, re-list files)."""
+        raise NotImplementedError
+
+    def to_relation_object(self) -> "FileBasedRelation":
+        """Revive a live FileBasedRelation over the logged source's current
+        state (used by refresh actions)."""
         raise NotImplementedError
 
     def enrich_index_properties(

@@ -35,6 +35,46 @@ class CreateActionEvent(ActionEvent):
     pass
 
 
+@dataclass
+class DeleteActionEvent(ActionEvent):
+    pass
+
+
+@dataclass
+class RestoreActionEvent(ActionEvent):
+    pass
+
+
+@dataclass
+class VacuumActionEvent(ActionEvent):
+    pass
+
+
+@dataclass
+class RefreshActionEvent(ActionEvent):
+    pass
+
+
+@dataclass
+class RefreshIncrementalActionEvent(ActionEvent):
+    pass
+
+
+@dataclass
+class RefreshQuickActionEvent(ActionEvent):
+    pass
+
+
+@dataclass
+class OptimizeActionEvent(ActionEvent):
+    pass
+
+
+@dataclass
+class CancelActionEvent(ActionEvent):
+    pass
+
+
 class EventLogger:
     def log_event(self, event: HyperspaceEvent) -> None:
         raise NotImplementedError

@@ -26,6 +26,7 @@ import hyperspace_tpu_torch as ht  # noqa: E402
 from hyperspace_tpu.indexes import covering as ref_covering  # noqa: E402
 from hyperspace_tpu.indexes.registry import index_of_entry as ref_index_of_entry  # noqa: E402
 from hyperspace_tpu.plan import logical as RL  # noqa: E402
+from hyperspace_tpu_torch.actions.base import HyperspaceActionException  # noqa: E402
 from hyperspace_tpu_torch.indexes import covering  # noqa: E402
 from hyperspace_tpu_torch.indexes.registry import index_of_entry  # noqa: E402
 
@@ -230,17 +231,20 @@ def test_port_lists_jax_built_indexes(built):
 
 def test_lineage_and_mesh_builds_raise(lake, tmp_path):
     """What the port does not have yet raises; it never quietly builds
-    something else."""
-    for extra, what in (
-        ({"hyperspace.index.lineage.enabled": "true"}, "lineage"),
-        ({"hyperspace.parallel.enabled": "true"}, "mesh"),
-    ):
-        sess = ht.Session(conf={**_conf(ht.keys, str(tmp_path / what)), **extra}, device="cpu")
-        with pytest.raises(NotImplementedError, match=what):
-            ht.Hyperspace(sess).create_index(sess.read_parquet(lake), ht.CoveringIndexConfig("i", ["k"], ["p"]))
+    something else. The lineage build and the lifecycle actions are in the
+    port now: a lineage index carries ``_data_file_id``, and an action on a
+    missing index raises the JAX package's error, not ``NotImplementedError``."""
+    sess = ht.Session(conf={**_conf(ht.keys, str(tmp_path / "mesh")), "hyperspace.parallel.enabled": "true"},
+                      device="cpu")
+    with pytest.raises(NotImplementedError, match="mesh"):
+        ht.Hyperspace(sess).create_index(sess.read_parquet(lake), ht.CoveringIndexConfig("i", ["k"], ["p"]))
+    sess = ht.Session(conf={**_conf(ht.keys, str(tmp_path / "lineage")), "hyperspace.index.lineage.enabled": "true"},
+                      device="cpu")
+    entry = ht.Hyperspace(sess).create_index(sess.read_parquet(lake), ht.CoveringIndexConfig("i", ["k"], ["p"]))
+    assert pq.read_schema(entry.content.files[0]).names == ["k", "p", "_data_file_id"]
     hs = ht.Hyperspace(ht.Session(conf=_conf(ht.keys, str(tmp_path / "x")), device="cpu"))
     for op in (hs.refresh_index, hs.optimize_index, hs.delete_index, hs.vacuum_index, hs.restore_index):
-        with pytest.raises(NotImplementedError, match="not yet in the port"):
+        with pytest.raises(HyperspaceActionException, match="does not exist|is DOESNOTEXIST"):
             op("i")
     with pytest.raises(NotImplementedError, match="parquet only"):
         hs.session.read(lake, "csv")

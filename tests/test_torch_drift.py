@@ -1,6 +1,6 @@
 """The port's verbatim copies of the JAX package's device-free modules.
 
-Nine modules of ``hyperspace_tpu_torch/`` are copies of their counterparts
+Twelve modules of ``hyperspace_tpu_torch/`` are copies of their counterparts
 in ``hyperspace_tpu/`` with only the package name rewritten (and, in
 ``models/path_resolver.py``, one ``typing`` import fewer, since the copy
 does not use ``Optional``). This test compares the texts, so a change to
@@ -19,6 +19,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 #: module path -> {reference line: the copy's line} beyond the package rename
 COPIES = {
+    "actions/maintenance.py": {},
+    "actions/optimize.py": {},
+    "actions/refresh.py": {},
     "models/data_manager.py": {},
     "models/states.py": {},
     "indexes/registry.py": {},
