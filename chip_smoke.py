@@ -5,7 +5,9 @@
 
 Phases, each printed with its time (the filter query's phases are 5, 10
 and 13, the join's 6, 11 and 14, the aggregates' 7, 12 and 15, out-of-core
-execution's 7b, 12b, 15b and 17, the index lifecycle's 7c and 12c):
+execution's 7b, 12b, 15b and 17, the index lifecycle's 7c and 12c, scan
+pruning's 7d and 12d, hybrid scan's 7e and 12e, the other sources' 7f and
+12f):
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: compiles the port's CUDA kernels from ``hyperspace_tpu_torch/csrc``;
@@ -65,6 +67,31 @@ execution's 7b, 12b, 15b and 17, the index lifecycle's 7c and 12c):
    GPU launching K1 for each covering rewrite and K2 for each
    data-skipping rebuild; after every phase each query equals hyperspace
    off as a multiset;
+7d. prune-small: a 60 000-row ``lineitem`` lake rewritten by ship year
+   as a hive-partitioned lake of 1024-row row groups; q6 (a projection
+   over its filter: no scan takes a pushed-down predicate, in either
+   package), q6f (its filter, every column) and q6pf (q6f and
+   ``l_shipyear == 1994``) with pruning on and off, in a CPU and a GPU
+   session: the same rows, files read and row groups kept on both, pruned
+   rows equal to unpruned; a covering index over the partitioned lake (K1)
+   serving q6 and q6's aggregate unstreamed and streamed, equal to the CPU
+   port and to hyperspace off;
+7e. hybrid-small: ``li_h``, ``li_ok_h`` (lineage) and ``o_h`` built on the
+   GPU (K1) over a small lake; two new-orders ``lineitem`` files and their
+   ``orders`` file appended, one ``lineitem`` file dropped; q6, J1 (inner,
+   outer, streamed) and A3 through hybrid scan in a CPU and a GPU session
+   over the same indexes: GPU == CPU port == hyperspace off, ``filter:
+   device-lineage`` and the ``lineage-antijoin`` program on the GPU, the
+   appends re-bucketed once then cached; again after a quick refresh (no
+   launch) and after an incremental one (K1, hybrid scan over); then the
+   program on the card against its plain version over its edge cases;
+7f. sources-small: a Delta table (covering index with lineage and a MinMax
+   sketch; a new version and a removed file; hybrid q6; incremental
+   refresh on the GPU launching K1 and K2, index files equal to the CPU
+   port's byte for byte; time travel to the first index version; the
+   sketch pruning), an Iceberg table (covering index on the GPU, a new
+   snapshot through hybrid scan) and CSV and ORC lakes (covering index on
+   the GPU): every query GPU == CPU port == hyperspace off;
 8. generate and slice: generates a TPC-H-shaped SF1 ``lineitem`` lake (6M
    rows in 16 files, from ``--seed``, with TPC-H's return flag and line
    status) and builds three indexes through the public API (``Session`` ->
@@ -136,10 +163,32 @@ execution's 7b, 12b, 15b and 17, the index lifecycle's 7c and 12c):
    lineage (every row rewritten), full, quick, quick and full optimize
    (``NoChangesException``), delete, restore and vacuum, each timed with
    its rows/s, build stages and K1/K2 launches (at least one per rewrite);
-   after each rewrite ``check_covering`` against the current source and q6
-   through the rewritten index equal to hyperspace off; once the
+   after each rewrite q6 through the rewritten index equal to hyperspace
+   off, and after the lineage rewrite and the compaction ``check_covering``
+   against the current source; once the
    data-skipping index is fresh, a query on the new orders pruned to the
    two new files, equal to off, warm beside off;
+12d. prune: the SF1 ``lineitem`` rewritten by ship year into 14 files of
+   131072-row row groups in ship-date order; q6, q6f and q6pf with
+   hyperspace off, pruning on and off: files and row groups read, rows
+   equal, cold and warm times; then ``li_part`` (K1) serving q6 and q6's
+   aggregate unstreamed and streamed, cold, warm and off with layers;
+12e. hybrid: the SF1 ``lineitem`` and ``orders`` hard-linked into a
+   mutable lake; ``li_h``, ``li_ok_h`` (lineage) and ``o_h`` (K1); two
+   new-orders files (keys from 1500000) and their ``orders`` file
+   appended, one original ``lineitem`` file dropped; q6, J1 (both sides
+   ``BucketUnion``) and A3 through hybrid scan: traces (``filter:
+   device-lineage``, ``rebucket: computed`` then ``cached``), cold, warm
+   and off with layers, equal to off and to the same queries after a full
+   refresh (K1); the lineage-antijoin program alone on q6's index side
+   with CUDA events, beside its bound, ``torch.isin`` and numpy;
+12f. delta: the SF1 ``lineitem`` written as a Delta table (one version per
+   file); ``ld_cov`` (lineage; K1) and ``ld_skip`` (MinMax on
+   ``l_orderkey``; K2); a version of new orders and one that removes a
+   file; q6 through hybrid scan, incremental refresh of both (K1, K2), q6
+   again and a time-travel q6 of the table before the edits (served by
+   the index's first version), each action's seconds, rows/s and
+   launches, each query cold, warm and off;
 13. profile-query: one warm q6 under ``torch.profiler``: device busy time
    against the query's wall time, and the device time by op;
 14. profile-join: the same for one warm J1;
@@ -160,9 +209,12 @@ execution's 7b, 12b, 15b and 17, the index lifecycle's 7c and 12c):
    tolerances), with no ``stream-fallback`` in any trace.
 
 The third line from the end is a JSON object with the queries', the
-joins' (under ``"join"``), the aggregates' (under ``"agg"``) and the
-lifecycle's (under ``"lifecycle"``) results and times, the line before the last one with an entry per
-kernel; the last line
+joins' (under ``"join"``), the aggregates' (under ``"agg"``), the
+lifecycle's (under ``"lifecycle"``), pruning's (``"prune"``), hybrid
+scan's (``"hybrid"``) and the Delta table's (``"delta"``) results and
+times, the line before the last one with an entry per kernel (its launches
+on the build's main path, and per path under ``launches_by_path``); the
+last line
 is ``{"ok": true, "device": {...}}``. Any failed check raises, so
 the script exits non-zero and prints no result. It exits non-zero as well
 when no CUDA device is present or the port is not beside it.
@@ -1800,9 +1852,9 @@ class ReadSpy:
         self.real = IO.read_parquet_batch
         self.started = self.finished = 0
 
-        def spy(files, columns):
+        def spy(files, columns, predicate=None):
             self.started += 1
-            out = self.real(files, columns)
+            out = self.real(files, columns, predicate=predicate)
             self.finished += 1
             return out
 
@@ -2649,7 +2701,7 @@ def run_lifecycle(li_src: str, tmp: str, args, smi: str) -> dict:
 
     out = {"device": smi, "actions": []}
 
-    def timed(label, fn, rows, kernels_expected, raises=None, index=None, ds_ready=False):
+    def timed(label, fn, rows, kernels_expected, raises=None, index=None, ds_ready=False, full_check=False):
         torch.cuda.synchronize()
         sess.build_stage_seconds.clear()
         kernels.reset_launches()
@@ -2676,7 +2728,9 @@ def run_lifecycle(li_src: str, tmp: str, args, smi: str) -> dict:
         if index is not None:
             entry = sess.index_manager.get_index(index)
             t = time.perf_counter()
-            n = check_covering(entry, source_files(), "l_shipdate", q6_cols, sess.conf.num_buckets)
+            # the bucket-file check reads every row: it runs on a sample of
+            # the rewrites (lineage deletes, the compaction); q6 checks all
+            n = check_covering(entry, source_files(), "l_shipdate", q6_cols, sess.conf.num_buckets) if full_check else None
             q = q6_query(sess.read_parquet(lake))
             with sess.hyperspace_scope(True):
                 scans = [s.entry.name for s in plan_index_scans(q.optimized_plan())]
@@ -2687,9 +2741,9 @@ def run_lifecycle(li_src: str, tmp: str, args, smi: str) -> dict:
             assert same_rows(on, off), f"lifecycle {label}: q6 differs from off"
             rec["check_rows"] = n
             rec["q6_rows"] = len(on["l_extendedprice"])
-            print(f"check lifecycle {label}: {index} {n} rows hash to their buckets, sorted, equal to the source; "
-                  f"q6 through {index} {rec['q6_rows']} rows, equal to off ({time.perf_counter() - t:.3f} s)",
-                  flush=True)
+            checked = f"{index} {n} rows hash to their buckets, sorted, equal to the source; " if full_check else ""
+            print(f"check lifecycle {label}: {checked}q6 through {index} {rec['q6_rows']} rows, equal to off "
+                  f"({time.perf_counter() - t:.3f} s)", flush=True)
         if ds_ready:
             q = new_orders(sess.read_parquet(lake))
             with sess.hyperspace_scope(True):
@@ -2734,7 +2788,7 @@ def run_lifecycle(li_src: str, tmp: str, args, smi: str) -> dict:
     os.remove(os.path.join(lake, originals[0]))
     rows = source_rows()
     timed("incremental li_lin (drop)", lambda: hs.refresh_index("li_lin", "incremental"), rows, {K1},
-          index="li_lin")
+          index="li_lin", full_check=True)
     timed("full li_mut (drop)", lambda: hs.refresh_index("li_mut", "full"), rows, {K1}, index="li_mut")
     timed("quick li_skip_mut", lambda: hs.refresh_index("li_skip_mut", "quick"), 0, set())
     timed("full li_skip_mut", lambda: hs.refresh_index("li_skip_mut", "full"), rows, {K2}, ds_ready=True)
@@ -2742,7 +2796,7 @@ def run_lifecycle(li_src: str, tmp: str, args, smi: str) -> dict:
                    index_of_entry(sess.index_manager.get_index("li_skip_mut")))
     files_before = len(sess.index_manager.get_index("li_mut").content.files)
     entry = timed("optimize quick li_mut", lambda: hs.optimize_index("li_mut", "quick"), rows, {K1},
-                  index="li_mut", ds_ready=True)
+                  index="li_mut", ds_ready=True, full_check=True)
     files_after = len(entry.content.files)
     assert files_after == sess.conf.num_buckets < files_before, (files_after, files_before)
     timed("optimize full li_mut", lambda: hs.optimize_index("li_mut", "full"), 0, set(), raises="NoChangesException")
@@ -2757,12 +2811,838 @@ def run_lifecycle(li_src: str, tmp: str, args, smi: str) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# scan pruning, hybrid scan and the other sources
+# --------------------------------------------------------------------------
+
+
+def q6_condition():
+    """TPC-H q6's predicate over ``lineitem``."""
+    import numpy as np
+
+    import hyperspace_tpu_torch as ht
+
+    c = ht.col
+    return ((c("l_shipdate") >= np.datetime64("1994-01-01")) & (c("l_shipdate") < np.datetime64("1995-01-01"))
+            & (c("l_discount") >= 0.05) & (c("l_discount") <= 0.07) & (c("l_quantity") < 24))
+
+
+def prune_queries(df):
+    """q6 as written (a projection over its filter), q6f (its filter,
+    every column: the shape whose scan takes the pushed-down predicate) and
+    q6pf (q6f and ``l_shipyear == 1994``, the conjunct a user of a
+    year-partitioned lake adds)."""
+    import hyperspace_tpu_torch as ht
+
+    return {
+        "q6": df.filter(q6_condition()).select("l_extendedprice", "l_discount"),
+        "q6f": df.filter(q6_condition()),
+        "q6pf": df.filter(q6_condition() & (ht.col("l_shipyear") == 1994)),
+    }
+
+
+def gen_partitioned_lineitem(src: str, out: str, rg_rows: int, file_rows: int) -> str:
+    """``src`` rewritten as a hive-partitioned lake by ship year
+    (``l_shipyear=1992`` ...): each partition's rows in ``l_shipdate`` order,
+    in files of ``file_rows`` rows with ``rg_rows``-row row groups, as a lake
+    clustered by date is laid out."""
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    table = pa.concat_tables([pq.read_table(os.path.join(src, f)) for f in sorted(os.listdir(src))])
+    table = table.sort_by("l_shipdate")
+    years = table.column("l_shipdate").to_numpy().astype("datetime64[Y]").astype(np.int64) + 1970
+    for y in np.unique(years):
+        part = table.filter(pa.array(years == y))
+        d = os.path.join(out, f"l_shipyear={int(y)}")
+        os.makedirs(d)
+        for i, lo in enumerate(range(0, part.num_rows, file_rows)):
+            pq.write_table(part.slice(lo, file_rows), os.path.join(d, f"part-{i:05d}.parquet"), row_group_size=rg_rows)
+    return out
+
+
+class PruneSpy:
+    """Within the block: the files each scan read (``_read_files``) and the
+    row groups each read kept (``prune_row_groups``: a list, or None for
+    every group)."""
+
+    def __enter__(self):
+        from hyperspace_tpu_torch.exec import executor as E
+        from hyperspace_tpu_torch.exec import io as IO
+
+        self.mods = (E, IO)
+        self.files, self.kept = [], []
+        real_read, real_prune = E._read_files, IO.prune_row_groups
+        self.real = (real_read, real_prune)
+
+        def read(files, *a, **k):
+            self.files.append(list(files))
+            return real_read(files, *a, **k)
+
+        def prune(path, predicate):
+            got = real_prune(path, predicate)
+            self.kept.append((path, got))
+            return got
+
+        E._read_files, IO.prune_row_groups = read, prune
+        return self
+
+    def __exit__(self, *exc):
+        E, IO = self.mods
+        E._read_files, IO.prune_row_groups = self.real
+
+    def counts(self):
+        """(files read, row groups decoded, row groups in those files)."""
+        import pyarrow.parquet as pq
+
+        files = sorted({f for fs in self.files for f in fs})
+        groups = {f: pq.read_metadata(f).num_row_groups for f in files}
+        kept = dict(self.kept)
+        decoded = sum(groups[f] if kept.get(f) is None else len(kept[f]) for f in files)
+        return len(files), decoded, sum(groups.values())
+
+
+def check_prune_small(tmp: str, seed: int, devices=("cpu", "cuda")) -> dict:
+    """Pruning on a small year-partitioned lake, in a CPU and a GPU session:
+    q6, q6f and q6pf with pruning on and off give the same rows in order
+    (GPU == CPU port, pruned == unpruned == hyperspace off's multiset), read
+    the same files and keep the same row groups on both; then a covering
+    index over the partitioned lake (built on the GPU: K1) serves q6 and
+    q6's aggregate, unstreamed and streamed, equal to the CPU port."""
+    import torch
+
+    import hyperspace_tpu_torch as ht
+    from hyperspace_tpu_torch.exec import io as IO
+    from hyperspace_tpu_torch.ops import kernels
+
+    src = gen_lineitem(os.path.join(tmp, "psmall"), 60_000, 3, seed + 11)
+    lake = gen_partitioned_lineitem(src, os.path.join(tmp, "psmall", "by_year"), 1024, 4096)
+    system = os.path.join(tmp, "psmall-indexes")
+    out = {}
+    for pruning in (True, False):
+        got = {}
+        for device in devices:
+            sess = ht.Session(conf={ht.keys.SYSTEM_PATH: system, ht.keys.DEVICE_MIN_ROWS: 0,
+                                    "hyperspace.exec.io.rowGroupPruning": pruning}, device=device)
+            for name, q in prune_queries(sess.read_parquet(lake)).items():
+                IO.clear_io_cache()
+                with PruneSpy() as spy:
+                    rows = q.collect()
+                got[name, device] = (rows, spy.counts())
+        for name in ("q6", "q6f", "q6pf"):
+            (g, gc), (c, cc) = got[name, devices[-1]], got[name, devices[0]]
+            assert same_batch(g, c) and gc == cc, f"prune-small {name}: the GPU differs from the CPU port"
+            if not pruning:
+                assert same_batch(g, out[name]["rows"]), f"prune-small {name}: pruned rows differ from unpruned"
+            else:
+                out[name] = {"rows": g, "files_groups": gc}
+            print(f"prune-small {name} (pruning {'on' if pruning else 'off'}): {len(next(iter(g.values())))} rows; "
+                  f"{gc[0]} files, {gc[1]} of {gc[2]} row groups decoded; GPU equals the CPU port", flush=True)
+    n_files = sum(len(fs) for _, _, fs in os.walk(lake))
+    assert out["q6"]["files_groups"][0] == n_files and out["q6"]["files_groups"][1] == out["q6"]["files_groups"][2]
+    assert out["q6f"]["files_groups"][1] < out["q6f"]["files_groups"][2], out["q6f"]
+    assert out["q6pf"]["files_groups"][0] < out["q6f"]["files_groups"][0], out["q6pf"]
+
+    # a covering index over the partitioned lake, built on the GPU
+    sessions = {}
+    for device in devices:
+        sessions[device] = ht.Session(conf={ht.keys.SYSTEM_PATH: system, ht.keys.DEVICE_MIN_ROWS: 0,
+                                            ht.keys.NUM_BUCKETS: 16}, device=device)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    ht.Hyperspace(sessions[devices[-1]]).create_index(sessions[devices[-1]].read_parquet(lake), ht.CoveringIndexConfig(
+        "lp_small", ["l_shipdate"], ["l_quantity", "l_extendedprice", "l_discount"]))
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in kernels.launches.items() if v}
+    if devices[-1] == "cuda":
+        assert set(launches) == {K1}, launches
+    for streamed in (False, True):
+        conf = ({"hyperspace.exec.stream.aggMinBytes": 1, "hyperspace.exec.stream.chunkBytes": 1} if streamed
+                else {"hyperspace.exec.stream.aggMinBytes": 1 << 30})
+        res = {}
+        for device, sess in sessions.items():
+            for k, v in conf.items():
+                sess.conf.set(k, v)
+            sess.enable_hyperspace()
+            df = sess.read_parquet(lake)
+            for name, q in (("q6", df.filter(q6_condition()).select("l_extendedprice", "l_discount")),
+                            ("q6 agg", df.filter(q6_condition()).agg(revenue=("l_extendedprice", "sum"),
+                                                                     n=("*", "count")))):
+                assert plan_index_scans(q.optimized_plan()), q.optimized_plan().pretty()
+                res[name, device], summary = traced_collect(q)
+                if streamed and name == "q6 agg":
+                    assert "agg: streamed-partial x1" in summary.splitlines(), summary
+                sess.disable_hyperspace()
+                off = q.collect()
+                sess.enable_hyperspace()
+                assert same_groups(res[name, device], off, {"revenue"}, ordered=False), f"prune-small {name} != off"
+        for name in ("q6", "q6 agg"):
+            assert same_groups(res[name, devices[-1]], res[name, devices[0]], {"revenue"}, ordered=True), name
+        print(f"prune-small lp_small ({'streamed' if streamed else 'unstreamed'}): q6 and q6's aggregate through "
+              f"the index over the partitioned lake equal the CPU port and hyperspace off", flush=True)
+    return {"launches": launches, **{k: v["files_groups"] for k, v in out.items()}}
+
+
+def check_lineage_program(device: str) -> dict:
+    """The lineage-antijoin program on ``device`` against its plain version
+    (numpy ``np.isin``, negated), bit for bit, over its edge cases: duplicate
+    and no ids, every id deleted, ids beyond the column's range, an int32
+    column, counts at and just past a padding bucket (64, 65), and a
+    million rows."""
+    import numpy as np
+
+    import hyperspace_tpu_torch as ht
+    from hyperspace_tpu_torch.exec import lineage as LN
+
+    rng = np.random.default_rng(7)
+    big = rng.integers(0, 1000, 1_000_000).astype(np.int64)
+    cases = {
+        "duplicates": (np.array([3, 1, 4, 1, 5, 9, 2, 6], dtype=np.int64), [1, 1, 9, 9, 9]),
+        "no ids": (np.arange(10, dtype=np.int64), []),
+        "every id": (np.array([0, 1, 2, 2, 1, 0], dtype=np.int64), [0, 1, 2]),
+        "beyond range": (np.arange(5, dtype=np.int64), [-(2**40), 7, 2**62, 100]),
+        "int32": (np.array([5, 6, 7, 8, 9], dtype=np.int32), [6, 8]),
+        "64 ids": (np.arange(200, dtype=np.int64), list(range(0, 128, 2))),
+        "65 ids": (np.arange(200, dtype=np.int64), list(range(0, 130, 2))),
+        "1M rows": (big, sorted(set(rng.integers(0, 1000, 100).tolist()))),
+    }
+    sess = ht.Session(device=device)
+    for name, (col, ids) in cases.items():
+        got = LN.lineage_delete_mask(sess, {"_data_file_id": col}, "_data_file_id", ids)
+        want = LN.lineage_keep_mask_plain(col, ids)
+        assert got.dtype == want.dtype and got.tobytes() == want.tobytes(), f"lineage-antijoin {name} differs"
+    print(f"lineage-antijoin on {device}: {len(cases)} cases bit-equal to the plain version", flush=True)
+    return {"cases": len(cases)}
+
+
+def hybrid_queries(li, orders):
+    """q6 through the lineage index; J1 (inner and outer) and A3 over
+    hybrid sides on both join sides."""
+    import hyperspace_tpu_torch as ht
+
+    c = ht.col
+    cols = ("l_orderkey", "l_extendedprice", "o_orderdate", "o_totalprice")
+    j1 = li.join(orders, c("l_orderkey") == c("o_orderkey"))
+    return {
+        "q6": q6_query(li),
+        "J1": j1.select(*cols),
+        "J1 outer": li.join(orders, c("l_orderkey") == c("o_orderkey"), how="outer").select(*cols),
+        "A3": j1.agg(n=("*", "count"), sum_price=("l_extendedprice", "sum"), sum_total=("o_totalprice", "sum"),
+                     min_price=("l_extendedprice", "min"), max_price=("l_extendedprice", "max")),
+    }
+
+
+HYBRID_CONF = {"hyperspace.index.hybridscan.enabled": True, "hyperspace.lifecycle.deviceLineage.minRows": 0}
+
+
+def build_hybrid_indexes(sess, li, orders):
+    """``li_h`` (q6's columns) and ``li_ok_h`` (J1's) with lineage, ``o_h``."""
+    import hyperspace_tpu_torch as ht
+
+    hs = ht.Hyperspace(sess)
+    sess.conf.set(ht.keys.LINEAGE_ENABLED, True)
+    hs.create_index(li, ht.CoveringIndexConfig("li_h", ["l_shipdate"], ["l_quantity", "l_extendedprice", "l_discount"]))
+    hs.create_index(li, ht.CoveringIndexConfig("li_ok_h", ["l_orderkey"], ["l_extendedprice"]))
+    sess.conf.set(ht.keys.LINEAGE_ENABLED, False)
+    hs.create_index(orders, ht.CoveringIndexConfig("o_h", ["o_orderkey"], ["o_orderdate", "o_totalprice"]))
+
+
+def edit_hybrid_lake(li_dir: str, o_dir: str, seed: int, per_file: int, sf: float, new_key: int) -> str:
+    """Append the two new-orders ``lineitem`` files and one ``orders`` file
+    holding those orders; drop the first original ``lineitem`` file. Returns
+    the dropped file's name."""
+    first = sorted(os.listdir(li_dir))[0]
+    for i in (0, 1):
+        _write_ingest_file(os.path.join(li_dir, f"part-{90000 + i:05d}.parquet"), seed + 9, i, per_file, sf,
+                           "1999-01-01", new_key)
+    _write_orders_file(os.path.join(o_dir, "part-90000.parquet"), seed + 9, 0, new_key, max(1, per_file // 4), sf)
+    os.remove(os.path.join(li_dir, first))
+    return first
+
+
+def check_hybrid_small(tmp: str, seed: int, devices=("cpu", "cuda")) -> dict:
+    """Hybrid scan on a small lake: three indexes built on the GPU (K1),
+    then files appended to both tables and one dropped; a CPU and a GPU
+    session over the same indexes run q6, J1 (inner, outer, streamed) and
+    A3: GPU == CPU port (byte for byte; A3's float sums at rtol 1e-9) ==
+    hyperspace off (as a multiset); the GPU's q6 says ``filter:
+    device-lineage`` and launches the lineage-antijoin program; J1
+    re-buckets the appends once, then from the cache. A quick refresh
+    (no launch) keeps serving through hybrid scan, and an incremental one
+    (K1) ends it."""
+    import torch
+
+    import hyperspace_tpu_torch as ht
+    from hyperspace_tpu_torch.exec import device as D
+    from hyperspace_tpu_torch.exec import join as J
+    from hyperspace_tpu_torch.ops import kernels
+
+    rows = 60_000
+    root = os.path.join(tmp, "hsmall")
+    li_dir = gen_lineitem(root, rows, 6, seed + 13)
+    sf = rows / LINEITEM_ROWS_SF1
+    o_dir = gen_orders(root, max(1, int(ORDERS_ROWS_SF1 * sf)), 2, seed + 14)
+    new_key = max(1, int(ORDERS_ROWS_SF1 * sf))
+    system = os.path.join(tmp, "hsmall-indexes")
+    sessions = {d: ht.Session(conf={ht.keys.SYSTEM_PATH: system, ht.keys.NUM_BUCKETS: 16, ht.keys.DEVICE_MIN_ROWS: 0,
+                                    ht.keys.BUILD_BATCH_ROWS: 25_000, **HYBRID_CONF}, device=d) for d in devices}
+    gpu = sessions[devices[-1]]
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    build_hybrid_indexes(gpu, gpu.read_parquet(li_dir), gpu.read_parquet(o_dir))
+    torch.cuda.synchronize()
+    build_launches = {k: v for k, v in kernels.launches.items() if v}
+    if devices[-1] == "cuda":
+        assert set(build_launches) == {K1}, build_launches
+    edit_hybrid_lake(li_dir, o_dir, seed, rows // 8, sf, new_key)
+    out = {"build_launches": build_launches}
+
+    def run_all(stage: str, expect_hybrid: bool):
+        got = {}
+        for device, sess in sessions.items():
+            sess.enable_hyperspace()
+            qs = hybrid_queries(sess.read_parquet(li_dir), sess.read_parquet(o_dir))
+            D.reset_dispatches()
+            J.clear_rank_cache()
+            for name, q in qs.items():
+                plan = q.optimized_plan().pretty()
+                assert ("BucketUnion" in plan or "_data_file_id" in plan) == expect_hybrid or name == "q6", plan
+                got[name, device], summary = traced_collect(q)
+                lines = summary.splitlines()
+                if device == "cuda" and expect_hybrid and name == "q6":
+                    assert "filter: device-lineage x1" in lines, summary
+                if expect_hybrid and name == "J1":
+                    assert "rebucket: computed x2" in lines, summary
+                    again, summary = traced_collect(q)
+                    assert "rebucket: cached x2" in summary.splitlines() and same_batch(again, got[name, device])
+            if device == "cuda" and expect_hybrid:
+                assert D.dispatches["lineage-antijoin"] >= 1, dict(D.dispatches)
+                out.setdefault("dispatches", {})[stage] = dict(D.dispatches)
+            sess.conf.set(ht.keys.STREAM_JOIN_MIN_BYTES, 1)
+            got["J1 streamed", device], summary = traced_collect(qs["J1"])
+            assert "join: host-span-smj-stream x1" in summary.splitlines(), summary
+            sess.conf.set(ht.keys.STREAM_JOIN_MIN_BYTES, 1 << 30)
+            sess.disable_hyperspace()
+            for name, q in qs.items():
+                off = q.collect()
+                assert same_groups(got[name, device], off, {"sum_price", "sum_total"}, ordered=False), (stage, name)
+            assert same_rows(got["J1 streamed", device], qs["J1"].collect())
+        for key in {k for k, _ in got}:
+            g, c = got[key, devices[-1]], got[key, devices[0]]
+            assert same_groups(g, c, {"sum_price", "sum_total"}, ordered=True), f"hybrid-small {stage} {key}: GPU != CPU"
+        print(f"hybrid-small {stage}: q6, J1 (inner, outer, streamed) and A3 on the GPU equal the CPU port and "
+              f"hyperspace off" + ("; filter: device-lineage, rebucket computed then cached" if expect_hybrid else ""),
+              flush=True)
+
+    run_all("appended and dropped", True)
+    for label, mode, expected, hybrid in (("quick", "quick", set(), True), ("incremental", "incremental", {K1}, False)):
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        for name in ("li_h", "li_ok_h"):
+            ht.Hyperspace(gpu).refresh_index(name, mode)
+        ht.Hyperspace(gpu).refresh_index("o_h", mode)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in kernels.launches.items() if v}
+        if devices[-1] == "cuda":
+            assert set(launches) == expected, (label, launches)
+        out[f"{label}_launches"] = launches
+        for sess in sessions.values():
+            sess.index_manager.clear_cache()
+        run_all(f"after {label} refresh", hybrid)
+    return out
+
+
+def check_sources_small(tmp: str, seed: int, devices=("cpu", "cuda")) -> dict:
+    """Delta, Iceberg and CSV/ORC on small tables. Delta: a covering index
+    with lineage and a MinMax sketch built in the CPU session; each session
+    from a copy, a new version and a removed file; hybrid scan, then
+    incremental refresh (the GPU launching K1 and K2) with index files equal
+    to the CPU port's byte for byte; a time-travel read of the first
+    version. Iceberg: a covering index on the GPU (K1), a new snapshot,
+    hybrid scan. CSV and ORC: a covering index on the GPU (K1) and a
+    query. Every query equals the CPU port and hyperspace off."""
+    import pyarrow.csv as pacsv
+    import pyarrow.orc as orc
+    import pyarrow.parquet as pq
+    import torch
+
+    import hyperspace_tpu_torch as ht
+    from hyperspace_tpu_torch.ops import kernels
+    from hyperspace_tpu_torch.sources import delta, iceberg
+
+    rows = 60_000
+    root = os.path.join(tmp, "ssmall")
+    src = gen_lineitem(root, rows, 3, seed + 17)
+    sf = rows / LINEITEM_ROWS_SF1
+    new_key = max(1, int(ORDERS_ROWS_SF1 * sf))
+    tables = [pq.read_table(os.path.join(src, f)) for f in sorted(os.listdir(src))]
+    c = ht.col
+    out = {}
+
+    def conf(system, **extra):
+        return {ht.keys.SYSTEM_PATH: system, ht.keys.NUM_BUCKETS: 16, ht.keys.DEVICE_MIN_ROWS: 0,
+                ht.keys.BUILD_BATCH_ROWS: 25_000, **HYBRID_CONF, **extra}
+
+    def compare(label, make, sessions, float_aggs=(), ordered=True):
+        got = {}
+        for device, sess in sessions.items():
+            q = make(sess)
+            with sess.hyperspace_scope(True):
+                plan = q.optimized_plan().pretty()
+                got[device] = q.collect()
+            with sess.hyperspace_scope(False):
+                off = q.collect()
+            assert same_groups(got[device], off, set(float_aggs), ordered=False), f"sources-small {label} != off"
+        assert same_groups(got[devices[-1]], got[devices[0]], set(float_aggs), ordered=ordered), f"{label}: GPU != CPU"
+        return plan
+
+    # Delta
+    lake = os.path.join(root, "delta")
+    for t in tables:  # six versions: a removed file stays under maxDeletedRatio
+        half = t.num_rows // 2
+        delta.write_delta_table(t.slice(0, half), lake)
+        delta.write_delta_table(t.slice(half), lake)
+    first_version = delta.list_versions(lake)[-1]
+    base = os.path.join(tmp, "ssmall-delta-base")
+    cpu = ht.Session(conf=conf(base, **{ht.keys.LINEAGE_ENABLED: True}), device=devices[0])
+    ht.Hyperspace(cpu).create_index(cpu.read_delta(lake), ht.CoveringIndexConfig(
+        "d_cov", ["l_shipdate"], ["l_quantity", "l_extendedprice", "l_discount"]))
+    ht.Hyperspace(cpu).create_index(cpu.read_delta(lake), ht.DataSkippingIndexConfig(
+        "d_skip", ht.MinMaxSketch("l_orderkey")))
+    edit = os.path.join(root, "ingest.parquet")
+    _write_ingest_file(edit, seed + 17, 0, rows // 6, sf, "1999-01-01", new_key)
+    delta.write_delta_table(pq.read_table(edit), lake)
+    delta.delete_delta_files(lake, [sorted(delta._replay(lake, 0))[0]])
+    sessions = {}
+    for i, device in enumerate(devices):
+        system = os.path.join(tmp, f"ssmall-delta-{i}-{device}")
+        shutil.copytree(base, system)
+        sessions[device] = ht.Session(conf=conf(system), device=device)
+    plan = compare("delta hybrid q6", lambda s: q6_query(s.read_delta(lake)), sessions)
+    assert "BucketUnion" in plan and "_data_file_id" in plan, plan
+    for device, sess in sessions.items():
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        ht.Hyperspace(sess).refresh_index("d_cov", "incremental")
+        ht.Hyperspace(sess).refresh_index("d_skip", "incremental")
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in kernels.launches.items() if v}
+        if device == "cuda":
+            assert set(launches) == {K1, K2}, launches
+            out["delta_refresh_launches"] = launches
+    fp = {d: {n: index_fingerprint(s.index_manager.get_index(n)) for n in ("d_cov", "d_skip")}
+          for d, s in sessions.items()}
+    assert fp[devices[-1]] == fp[devices[0]], "sources-small: delta refresh differs from the CPU port's"
+    # each session refreshed its own copy: a bucket's runs carry random file
+    # tags, so rows with equal keys may come in another order (ROADMAP C)
+    plan = compare("delta q6 after refresh", lambda s: q6_query(s.read_delta(lake)), sessions, ordered=False)
+    assert "BucketUnion" not in plan and "LogVersion: 3" in plan, plan
+    plan = compare("delta time travel", lambda s: q6_query(s.read_delta(lake, version=first_version)), sessions,
+                   ordered=False)
+    assert "LogVersion: 1" in plan, plan
+    new_orders = compare("delta skipping", lambda s: s.read_delta(lake).filter(c("l_orderkey") >= new_key)
+                         .select("l_orderkey", "l_tax"), sessions, ordered=False)
+    assert "Type: DS, Name: d_skip" in new_orders, new_orders
+    print("sources-small delta: hybrid q6, incremental refresh (K1, K2) with index files equal to the CPU port's, "
+          "time travel to the first index version, the sketch's pruning: GPU == CPU port == off", flush=True)
+
+    # Iceberg
+    ice = os.path.join(root, "iceberg")
+    for t in tables:
+        iceberg.write_iceberg_table(t, ice)
+    system = os.path.join(tmp, "ssmall-iceberg")
+    sessions = {d: ht.Session(conf=conf(system), device=d) for d in devices}
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    ht.Hyperspace(sessions[devices[-1]]).create_index(sessions[devices[-1]].read_iceberg(ice), ht.CoveringIndexConfig(
+        "i_cov", ["l_orderkey"], ["l_extendedprice", "l_shipdate"]))
+    torch.cuda.synchronize()
+    if devices[-1] == "cuda":
+        assert {k for k, v in kernels.launches.items() if v} == {K1}, dict(kernels.launches)
+    iceberg.write_iceberg_table(pq.read_table(edit), ice)
+    plan = compare("iceberg hybrid", lambda s: s.read_iceberg(ice).filter(c("l_orderkey") >= new_key - 50)
+                   .select("l_orderkey", "l_extendedprice"), sessions)
+    assert "BucketUnion" in plan, plan
+    print("sources-small iceberg: a new snapshot served through hybrid scan: GPU == CPU port == off", flush=True)
+
+    # CSV and ORC
+    for fmt in ("csv", "orc"):
+        d = os.path.join(root, fmt)
+        os.makedirs(d)
+        for i, t in enumerate(tables):
+            t = t.select(["l_orderkey", "l_extendedprice", "l_quantity"])
+            path = os.path.join(d, f"part-{i:05d}.{fmt}")
+            if fmt == "csv":
+                pacsv.write_csv(t, path)
+            else:
+                orc.write_table(t, path)
+        system = os.path.join(tmp, f"ssmall-{fmt}")
+        sessions = {dv: ht.Session(conf=conf(system), device=dv) for dv in devices}
+        gpu = sessions[devices[-1]]
+        ht.Hyperspace(gpu).create_index(gpu.read(d, fmt), ht.CoveringIndexConfig(
+            f"{fmt}_cov", ["l_orderkey"], ["l_extendedprice"]))
+        plan = compare(f"{fmt} filter", lambda s, d=d, fmt=fmt: s.read(d, fmt).filter(c("l_orderkey") == 77)
+                       .select("l_orderkey", "l_extendedprice"), sessions)
+        assert "IndexScan" in plan, plan
+    print("sources-small csv, orc: covering index built on the GPU, queries == CPU port == off", flush=True)
+    out["first_version"] = first_version
+    return out
+
+
+def time_queries(sess, qs: dict, reps: int, label: str, smi: str):
+    """Cold (caches emptied), warm (median of ``reps``, with layers) and
+    hyperspace-off times of each query; the results of the cold runs."""
+    import torch
+
+    out, results = {}, {}
+    for name, q in qs.items():
+        clear_query_caches()
+        sess.query_stage_seconds.clear()
+        t = time.perf_counter()
+        results[name] = q.collect()
+        torch.cuda.synchronize()
+        cold = (time.perf_counter() - t) * 1e3
+        warm = layer_ms(sess, q.collect, reps)
+        with sess.hyperspace_scope(False):
+            off_ms = median_ms(q.collect, max(2, reps // 2))
+        out[name] = {"rows": len(next(iter(results[name].values()))), "cold_ms": cold, "warm_ms": warm["total"],
+                     "off_ms": off_ms, "layers": warm}
+        print(f"{label} {name}: {out[name]['rows']} rows; cold {cold:.3f} ms, warm {warm['total']:.3f} ms, "
+              f"off {off_ms:.3f} ms ({smi})", flush=True)
+        print(f"layers {label} {name} (warm): " + ", ".join(f"{k} {v:.3f}" for k, v in warm.items() if v >= 0.001),
+              flush=True)
+    return out, results
+
+
+def run_prune(li_src: str, tmp: str, args, smi: str) -> dict:
+    """Scan pruning at SF1: ``lineitem`` rewritten as a year-partitioned
+    lake (131072-row row groups in ship-date order); q6, q6f and q6pf with
+    hyperspace off, pruning on and off: files and row groups read, rows
+    equal, cold and warm times; then ``li_part`` (K1) serving q6 and q6's
+    aggregate, unstreamed and streamed."""
+    import torch
+
+    import hyperspace_tpu_torch as ht
+    from hyperspace_tpu_torch.exec import io as IO
+    from hyperspace_tpu_torch.ops import kernels
+
+    t = time.perf_counter()
+    lake = gen_partitioned_lineitem(li_src, os.path.join(tmp, "prune", "lineitem"), 131072, 4 * 131072)
+    n_files = sum(len(fs) for _, _, fs in os.walk(lake))
+    print(f"prune lake: {args.rows} rows by l_shipyear in {n_files} files of 131072-row groups, "
+          f"{time.perf_counter() - t:.3f} s", flush=True)
+    sess = ht.Session(conf={ht.keys.SYSTEM_PATH: os.path.join(tmp, "prune", "indexes"), ht.keys.DEVICE_MIN_ROWS: 0},
+                      device="cuda")
+    reps = max(3, args.reps // 3)
+    out = {"device": smi, "files": n_files, "queries": {}}
+    want = {}
+    for pruning in (True, False):
+        sess.conf.set("hyperspace.exec.io.rowGroupPruning", pruning)
+        for name, q in prune_queries(sess.read_parquet(lake)).items():
+            IO.clear_io_cache()
+            with PruneSpy() as spy:
+                t = time.perf_counter()
+                got = q.collect()
+                cold = (time.perf_counter() - t) * 1e3
+            files, decoded, groups = spy.counts()
+            warm = median_ms(q.collect, reps)
+            if name in want:
+                assert same_batch(got, want[name]), f"prune {name}: pruned rows differ from unpruned"
+            want[name] = got
+            rec = {"rows": len(next(iter(got.values()))), "files": files, "row_groups": decoded,
+                   "row_groups_total": groups, "cold_ms": cold, "warm_ms": warm}
+            out["queries"][f"{name} pruning {'on' if pruning else 'off'}"] = rec
+            print(f"prune {name} (pruning {'on' if pruning else 'off'}): {rec['rows']} rows; {files} of {n_files} "
+                  f"files, {decoded} of {groups} row groups decoded; cold {cold:.3f} ms, warm {warm:.3f} ms ({smi})",
+                  flush=True)
+    q = out["queries"]
+    assert q["q6pf pruning on"]["files"] < n_files and q["q6f pruning on"]["row_groups"] < q["q6f pruning off"]["row_groups"]
+    assert q["q6 pruning on"]["row_groups"] == q["q6 pruning off"]["row_groups"]
+    with sess.hyperspace_scope(False):
+        off = q6_query(sess.read_parquet(li_src)).collect()
+    assert same_rows(want["q6"], off), "prune q6 differs from the unpartitioned lake's"
+
+    sess.conf.set("hyperspace.exec.io.rowGroupPruning", True)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t = time.perf_counter()
+    ht.Hyperspace(sess).create_index(sess.read_parquet(lake), ht.CoveringIndexConfig(
+        "li_part", ["l_shipdate"], ["l_quantity", "l_extendedprice", "l_discount"]))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    launches = {k: v for k, v in kernels.launches.items() if v}
+    assert set(launches) == {K1}, launches
+    out["li_part"] = {"seconds": seconds, "rows_per_s": args.rows / seconds, "launches": launches}
+    print(f"build li_part: {seconds:.3f} s, {args.rows / seconds:.0f} rows/s; launches {launches} ({smi})", flush=True)
+    sess.enable_hyperspace()
+    df = sess.read_parquet(lake)
+    qs = {"q6": df.filter(q6_condition()).select("l_extendedprice", "l_discount"),
+          "q6 agg": df.filter(q6_condition()).agg(revenue=("l_extendedprice", "sum"), n=("*", "count"))}
+    for streamed in (False, True):
+        sess.conf.set(ht.keys.STREAM_AGG_MIN_BYTES, 1 if streamed else 1 << 30)
+        sess.conf.set(ht.keys.STREAM_CHUNK_BYTES, (8 << 20) if streamed else 256 << 20)
+        label = "prune li_part" + (" streamed" if streamed else "")
+        times, res = time_queries(sess, qs, reps, label, smi)
+        with sess.hyperspace_scope(False):
+            for name, qq in qs.items():
+                assert same_groups(res[name], qq.collect(), {"revenue"}, ordered=False), f"{label} {name} != off"
+        out[label] = times
+    sess.conf.set(ht.keys.STREAM_AGG_MIN_BYTES, 1 << 30)
+    return out
+
+
+def capture_lineage_program(run):
+    """Run ``run()`` with the lineage-antijoin program wrapped: its last
+    call's inputs."""
+    from hyperspace_tpu_torch.exec import lineage as LN
+
+    seen = {}
+    real = LN.antijoin_program
+
+    def wrap(*a):
+        seen["args"] = a
+        return real(*a)
+
+    LN.antijoin_program = wrap
+    try:
+        run()
+    finally:
+        LN.antijoin_program = real
+    return seen["args"]
+
+
+def lineage_program_time(args_, reps: int, hbm: float) -> dict:
+    """The lineage-antijoin program alone on its inputs (CUDA events), its
+    bound (the ids read once, the table once, the mask written once),
+    ``torch.isin`` on the same inputs and the plain numpy version."""
+    import numpy as np
+    import torch
+
+    from hyperspace_tpu_torch.exec import lineage as LN
+
+    col, ids, n_ids = args_
+    live = ids[:n_ids]
+    mask = LN.antijoin_program(col, ids, n_ids)
+    assert torch.equal(mask, torch.isin(col, live, invert=True)), "lineage-antijoin differs from torch.isin"
+    host_col, host_ids = col.cpu().numpy(), live.cpu().numpy()
+    assert np.array_equal(mask.cpu().numpy(), LN.lineage_keep_mask_plain(host_col, host_ids))
+    n = col.numel()
+    b_ms, b_by = bound(n * 8 + ids.numel() * 8 + n, n * (int(np.ceil(np.log2(max(ids.numel(), 2)))) + 3), hbm)
+    t = time.perf_counter()
+    for _ in range(3):
+        LN.lineage_keep_mask_plain(host_col, host_ids)
+    plain_ms = (time.perf_counter() - t) / 3 * 1e3
+    out = {"shape": f"{n} int64 lineage ids, {n_ids} deleted ids in a table of {ids.numel()}",
+           "ms": time_ms(lambda: LN.antijoin_program(col, ids, n_ids), reps), "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": time_ms(lambda: torch.isin(col, live, invert=True), reps), "plain_ms": plain_ms}
+    out["share_of_bound"] = b_ms / out["ms"]
+    return out
+
+
+def run_hybrid(li_src: str, o_src: str, tmp: str, args, smi: str, hbm: float) -> dict:
+    """Hybrid scan at SF1: ``lineitem`` and ``orders`` hard-linked into a
+    mutable lake; ``li_h``, ``li_ok_h`` (lineage) and ``o_h`` built; two
+    new-orders ``lineitem`` files and their ``orders`` file appended, one
+    original ``lineitem`` file dropped; q6, J1 and A3 through the hybrid
+    plans, cold, warm and off, with layers and traces, equal to off and to
+    the same queries after a full refresh; the lineage-antijoin program
+    alone on q6's index side."""
+    import torch
+
+    import hyperspace_tpu_torch as ht
+    from hyperspace_tpu_torch.exec import device as D
+    from hyperspace_tpu_torch.exec import join as J
+    from hyperspace_tpu_torch.ops import kernels
+
+    li_dir, o_dir = os.path.join(tmp, "hybrid", "lineitem"), os.path.join(tmp, "hybrid", "orders")
+    for s, d in ((li_src, li_dir), (o_src, o_dir)):
+        os.makedirs(d)
+        for f in sorted(os.listdir(s)):
+            os.link(os.path.join(s, f), os.path.join(d, f))
+    sf = args.rows / LINEITEM_ROWS_SF1
+    new_key = max(1, int(ORDERS_ROWS_SF1 * sf))
+    per_file = args.rows // args.files
+    sess = ht.Session(conf={ht.keys.SYSTEM_PATH: os.path.join(tmp, "hybrid", "indexes"), ht.keys.DEVICE_MIN_ROWS: 0,
+                            ht.keys.JOIN_DEVICE_MATERIALIZE_MAX_BYTES: 2 << 30, **HYBRID_CONF}, device="cuda")
+    out = {"device": smi}
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t = time.perf_counter()
+    build_hybrid_indexes(sess, sess.read_parquet(li_dir), sess.read_parquet(o_dir))
+    torch.cuda.synchronize()
+    out["build"] = {"seconds": time.perf_counter() - t, "launches": {k: v for k, v in kernels.launches.items() if v}}
+    assert set(out["build"]["launches"]) == {K1}, out["build"]
+    print(f"hybrid build li_h, li_ok_h, o_h: {out['build']['seconds']:.3f} s; launches {out['build']['launches']}",
+          flush=True)
+    li_bytes = sum(os.path.getsize(os.path.join(li_dir, f)) for f in os.listdir(li_dir))
+    dropped = edit_hybrid_lake(li_dir, o_dir, args.seed, per_file, sf, new_key)
+    li_now = sum(os.path.getsize(os.path.join(li_dir, f)) for f in os.listdir(li_dir))
+    appended = sum(os.path.getsize(os.path.join(li_dir, f)) for f in os.listdir(li_dir) if f.startswith("part-9"))
+    out["edit"] = {"dropped": dropped, "appended_share": appended / li_now,
+                   "deleted_share": os.path.getsize(os.path.join(li_src, dropped)) / li_bytes}
+    print(f"hybrid edit: 2 lineitem files ({per_file} rows each, keys from {new_key}) and 1 orders file appended, "
+          f"{dropped} dropped; appended {out['edit']['appended_share']:.4f} of lineitem's bytes, deleted "
+          f"{out['edit']['deleted_share']:.4f} of the indexed bytes", flush=True)
+
+    sess.enable_hyperspace()
+    qs = hybrid_queries(sess.read_parquet(li_dir), sess.read_parquet(o_dir))
+    del qs["J1 outer"]
+    for name, q in qs.items():
+        plan = q.optimized_plan().pretty()
+        assert "_data_file_id" in plan and (name == "q6" or plan.count("BucketUnion") == 2), plan
+    clear_query_caches()
+    D.reset_dispatches()
+    traces = {}
+    rebuckets = []
+    real_rebucket = J._rebucket
+
+    def timed_rebucket(*a):
+        t = time.perf_counter()
+        got = real_rebucket(*a)
+        rebuckets.append(((time.perf_counter() - t) * 1e3, sum(len(next(iter(v.values()))) for v in got.values())))
+        return got
+
+    for name, q in qs.items():
+        J._rebucket = timed_rebucket if name == "J1" else real_rebucket
+        try:
+            _, summary = traced_collect(q)
+            _, again = traced_collect(q)
+        finally:
+            J._rebucket = real_rebucket
+        traces[name] = [ln for ln in (summary + "\n" + again).splitlines()
+                        if ln.startswith(("filter:", "join:", "agg:", "rebucket:"))]
+        print(f"hybrid trace {name}: {'; '.join(traces[name])}", flush=True)
+    # J1's first run re-buckets the lineitem side, then the orders side; its
+    # second run finds both in the cache
+    assert len(rebuckets) == 4, rebuckets
+    out["rebucket"] = {side: {"rows": rebuckets[i][1], "computed_ms": rebuckets[i][0], "cached_ms": rebuckets[i + 2][0]}
+                       for i, side in enumerate(("lineitem", "orders"))}
+    for side, r in out["rebucket"].items():
+        print(f"hybrid rebucket {side}: {r['rows']} appended rows, computed {r['computed_ms']:.3f} ms, cached "
+              f"{r['cached_ms']:.3f} ms ({smi})", flush=True)
+    assert "filter: device-lineage x1" in traces["q6"], traces
+    assert "rebucket: computed x2" in traces["J1"] and "rebucket: cached x2" in traces["J1"], traces
+    out["dispatches"] = dict(D.dispatches)
+    assert D.dispatches["lineage-antijoin"] >= 1, out["dispatches"]
+    out["traces"] = traces
+    reps = max(3, args.reps // 3)
+    times, results = time_queries(sess, qs, reps, "hybrid", smi)
+    out["queries"] = times
+    for name, q in qs.items():
+        with sess.hyperspace_scope(False):
+            off = q.collect()
+        assert same_groups(results[name], off, {"sum_price", "sum_total"}, ordered=False), f"hybrid {name} != off"
+    out["program"] = lineage_program_time(capture_lineage_program(qs["q6"].collect), args.reps, hbm)
+    p = out["program"]
+    print(f"program lineage-antijoin ({p['shape']}): {p['ms']:.6f} ms, bound {p['bound_ms']:.6f} ms "
+          f"({p['bound_by']}), share {p['share_of_bound']:.4f}; torch.isin {p['library_ms']:.6f} ms, "
+          f"numpy {p['plain_ms']:.3f} ms ({smi})", flush=True)
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t = time.perf_counter()
+    for name in ("li_h", "li_ok_h", "o_h"):
+        ht.Hyperspace(sess).refresh_index(name, "full")
+    torch.cuda.synchronize()
+    out["full_refresh"] = {"seconds": time.perf_counter() - t,
+                           "launches": {k: v for k, v in kernels.launches.items() if v}}
+    assert set(out["full_refresh"]["launches"]) == {K1}, out["full_refresh"]
+    for name, q in qs.items():
+        plan = q.optimized_plan().pretty()
+        assert "_data_file_id" not in plan and "BucketUnion" not in plan, plan
+        assert same_groups(q.collect(), results[name], {"sum_price", "sum_total"}, ordered=False), name
+    refreshed, _ = time_queries(sess, qs, reps, "hybrid refreshed", smi)
+    out["refreshed"] = refreshed
+    print(f"hybrid: full refresh {out['full_refresh']['seconds']:.3f} s (launches {out['full_refresh']['launches']}); "
+          f"q6, J1, A3 equal before and after", flush=True)
+    return out
+
+
+def run_delta(li_src: str, tmp: str, args, smi: str) -> dict:
+    """A Delta table at SF1: ``lineitem`` written through the port's writer
+    (one version per source file); a covering index with lineage (K1) and a
+    MinMax sketch on ``l_orderkey`` (K2); a version of new orders and a
+    version that removes a file; q6 through hybrid scan, incremental refresh
+    of both indexes (K1, K2), q6 again, and a time-travel read of the table
+    before the edits, which picks the index version recorded for it."""
+    import pyarrow.parquet as pq
+    import torch
+
+    import hyperspace_tpu_torch as ht
+    from hyperspace_tpu_torch.ops import kernels
+    from hyperspace_tpu_torch.sources import delta
+
+    lake = os.path.join(tmp, "delta", "lineitem")
+    t = time.perf_counter()
+    for f in sorted(os.listdir(li_src)):
+        delta.write_delta_table(pq.read_table(os.path.join(li_src, f)), lake)
+    first = delta.list_versions(lake)[-1]
+    out = {"device": smi, "write_seconds": time.perf_counter() - t, "actions": [], "queries": {}}
+    print(f"delta write: {args.rows} rows in {first + 1} versions, {out['write_seconds']:.3f} s", flush=True)
+    sess = ht.Session(conf={ht.keys.SYSTEM_PATH: os.path.join(tmp, "delta", "indexes"), ht.keys.DEVICE_MIN_ROWS: 0,
+                            **HYBRID_CONF}, device="cuda")
+    hs = ht.Hyperspace(sess)
+    sf = args.rows / LINEITEM_ROWS_SF1
+    per_file = args.rows // args.files
+    reps = max(3, args.reps // 3)
+
+    def action(label, fn, rows, expected):
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        launches = {k: v for k, v in kernels.launches.items() if v}
+        assert set(launches) == expected, (label, launches)
+        out["actions"].append({"action": label, "seconds": seconds, "rows": rows, "rows_per_s": rows / seconds,
+                               "launches": launches})
+        print(f"delta {label}: {seconds:.3f} s, {rows} rows, {rows / seconds:.0f} rows/s; launches {launches} ({smi})",
+              flush=True)
+
+    def q6_run(label, version=None):
+        q = q6_query(sess.read_delta(lake, version=version))
+        with sess.hyperspace_scope(True):
+            plan = q.optimized_plan().pretty()
+            times, res = time_queries(sess, {label: q}, reps, "delta", smi)
+        with sess.hyperspace_scope(False):
+            assert same_rows(res[label], q.collect()), f"delta {label} differs from off"
+        out["queries"][label] = times[label]
+        return plan
+
+    sess.enable_hyperspace()
+    sess.conf.set(ht.keys.LINEAGE_ENABLED, True)
+    action("create ld_cov", lambda: hs.create_index(sess.read_delta(lake), ht.CoveringIndexConfig(
+        "ld_cov", ["l_shipdate"], ["l_quantity", "l_extendedprice", "l_discount"])), args.rows, {K1})
+    sess.conf.set(ht.keys.LINEAGE_ENABLED, False)
+    action("create ld_skip", lambda: hs.create_index(sess.read_delta(lake), ht.DataSkippingIndexConfig(
+        "ld_skip", ht.MinMaxSketch("l_orderkey"))), args.rows, {K2})
+    edit = os.path.join(tmp, "delta", "ingest.parquet")
+    _write_ingest_file(edit, args.seed + 21, 0, per_file, sf, "1999-01-01", max(1, int(ORDERS_ROWS_SF1 * sf)))
+    delta.write_delta_table(pq.read_table(edit), lake)
+    delta.delete_delta_files(lake, [sorted(delta._replay(lake, 0))[0]])
+    print(f"delta edit: version {first + 1} adds {per_file} rows of new orders, version {first + 2} removes a file",
+          flush=True)
+    plan = q6_run("q6 hybrid")
+    assert "BucketUnion" in plan and "_data_file_id" in plan, plan
+    rows_now = sum(pq.read_metadata(f).num_rows for f in delta.DeltaLakeRelation(lake).arrow_dataset().files)
+    action("incremental ld_cov", lambda: hs.refresh_index("ld_cov", "incremental"), rows_now, {K1})
+    action("incremental ld_skip", lambda: hs.refresh_index("ld_skip", "incremental"), rows_now, {K2})
+    plan = q6_run("q6 refreshed")
+    assert "BucketUnion" not in plan, plan
+    plan = q6_run("q6 time travel", version=first)
+    assert "LogVersion: 1" in plan, plan
+    print(f"delta time travel: version {first} served by ld_cov's first log version", flush=True)
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rows", type=int, default=LINEITEM_ROWS_SF1, help="lineitem rows (6M = SF1)")
     ap.add_argument("--files", type=int, default=16)
-    ap.add_argument("--reps", type=int, default=30, help="timed runs per kernel")
+    ap.add_argument("--reps", type=int, default=12, help="timed runs per kernel and warm query")
     ap.add_argument("--baseline-csrc", help="a copy of an earlier tree's hyperspace_tpu_torch/csrc: its "
                     "kernels are built and timed in turns with this tree's")
     args = ap.parse_args()
@@ -2830,6 +3710,19 @@ def main() -> None:
         t = time.perf_counter()
         lifecycle_small = check_lifecycle_small(tmp, args.seed)
         phase("lifecycle-small", t)
+
+        t = time.perf_counter()
+        prune_small = check_prune_small(tmp, args.seed)
+        phase("prune-small", t)
+
+        t = time.perf_counter()
+        hybrid_small = check_hybrid_small(tmp, args.seed)
+        hybrid_small["program"] = check_lineage_program("cuda")
+        phase("hybrid-small", t)
+
+        t = time.perf_counter()
+        sources_small = check_sources_small(tmp, args.seed)
+        phase("sources-small", t)
 
         t = time.perf_counter()
         src = gen_lineitem(tmp, args.rows, args.files, args.seed)
@@ -2918,6 +3811,29 @@ def main() -> None:
         queries["lifecycle"] = run_lifecycle(src, tmp, args, smi)
         queries["lifecycle"]["small"] = lifecycle_small
         phase("lifecycle", t)
+
+        t = time.perf_counter()
+        queries["prune"] = run_prune(src, tmp, args, smi)
+        queries["prune"]["small"] = prune_small
+        phase("prune", t)
+
+        t = time.perf_counter()
+        queries["hybrid"] = run_hybrid(src, o_src, tmp, args, smi, hbm)
+        queries["hybrid"]["small"] = hybrid_small
+        phase("hybrid", t)
+
+        t = time.perf_counter()
+        queries["delta"] = run_delta(src, tmp, args, smi)
+        queries["delta"]["small"] = sources_small
+        phase("delta", t)
+        for name in results:
+            results[name]["launches_by_path"] = {
+                "build": results[name]["launches"],
+                "prune": queries["prune"]["li_part"]["launches"].get(name, 0),
+                "hybrid": queries["hybrid"]["build"]["launches"].get(name, 0)
+                + queries["hybrid"]["full_refresh"]["launches"].get(name, 0),
+                "delta": sum(a["launches"].get(name, 0) for a in queries["delta"]["actions"]),
+            }
 
         t = time.perf_counter()
         sess.conf.set(ht.keys.DEVICE_MIN_ROWS, 0)

@@ -23,18 +23,26 @@ reductions that never expand the pairs — and the index lifecycle: full,
 incremental and quick refresh, quick and full optimize, delete, restore,
 vacuum and cancel (``actions/``; every rewrite runs the device build), with
 the lineage build and the data-skipping rule that prunes source files by
-their sketches (``rules/dataskipping_rule.py``).
+their sketches (``rules/dataskipping_rule.py``) — and scan pruning (hive
+partitions, and parquet row groups by their footer statistics:
+``exec/io.py``), hybrid scan, which serves an index over a source that
+gained or lost files as the index minus the deleted files' rows
+(``exec/lineage.py``, on the device) plus the appended files re-bucketed
+on the fly, and the Delta, Iceberg, CSV, JSON, ORC, Avro and text
+sources (``Session.read_delta``, ``read_iceberg``, ``read_*``).
 
 Layer map (the JAX package's layout, module for module):
   - ``models/``    metadata model + operation-log persistence
-  - ``sources/``   source providers (parquet)
+  - ``sources/``   source providers (parquet and the other file formats,
+                   Delta Lake, Iceberg)
   - ``plan/``      logical plan, predicate language, column resolution
   - ``indexes/``   covering and data-skipping index builds
   - ``actions/``   create, refresh, optimize and the maintenance actions
   - ``rules/``     ApplyHyperspace + JoinIndexRule + FilterIndexRule +
                    the data-skipping rule
-  - ``exec/``      executor, parquet IO, the device filter, the bucketed join,
-                   the device aggregates
+  - ``exec/``      executor, scan IO and pruning, the device filter, the
+                   bucketed join, the device aggregates, the lineage
+                   anti-join
   - ``ops/``       hashing, encode, device sort, kernel wrappers
   - ``csrc/``      the CUDA kernels
   - ``telemetry/`` action events

@@ -1,7 +1,8 @@
 """Configuration system.
 
 The keys, defaults and typed accessors the index build and lifecycle, the
-filter query, the join and the aggregate read, under the same names and with the same defaults as the JAX package's
+filter query, the join, the aggregate, scan pruning, hybrid scan and the
+source providers read, under the same names and with the same defaults as the JAX package's
 ``hyperspace_tpu/config.py`` so one conf dict drives either package; the
 port ignores the keys it does not read. Keys are namespaced ``hyperspace.*``.
 """
@@ -20,6 +21,9 @@ class keys:
     LINEAGE_ENABLED = "hyperspace.index.lineage.enabled"
     OPTIMIZE_FILE_SIZE_THRESHOLD = "hyperspace.index.optimize.fileSizeThreshold"
     HYBRID_SCAN_ENABLED = "hyperspace.index.hybridscan.enabled"
+    HYBRID_SCAN_MAX_DELETED_RATIO = "hyperspace.index.hybridscan.maxDeletedRatio"
+    HYBRID_SCAN_MAX_APPENDED_RATIO = "hyperspace.index.hybridscan.maxAppendedRatio"
+    SOURCE_BUILDERS = "hyperspace.index.sources.fileBasedBuilders"
     FILTER_RULE_USE_BUCKET_SPEC = "hyperspace.index.filterRule.useBucketSpec"
     BUILD_BATCH_ROWS = "hyperspace.tpu.build.batchRows"
     DEVICE_EXECUTION = "hyperspace.tpu.query.deviceExecution"
@@ -42,6 +46,9 @@ class keys:
     PIPELINE_ENABLED = "hyperspace.exec.pipeline.enabled"
     PIPELINE_DEPTH = "hyperspace.exec.pipeline.depth"
     PIPELINE_MAX_BUFFERED_BYTES = "hyperspace.exec.pipeline.maxBufferedBytes"
+    EXEC_IO_ROWGROUP_PRUNING = "hyperspace.exec.io.rowGroupPruning"
+    LIFECYCLE_DEVICE_LINEAGE_ENABLED = "hyperspace.lifecycle.deviceLineage.enabled"
+    LIFECYCLE_DEVICE_LINEAGE_MIN_ROWS = "hyperspace.lifecycle.deviceLineage.minRows"
 
 
 DEFAULTS: Dict[str, Any] = {
@@ -50,9 +57,22 @@ DEFAULTS: Dict[str, Any] = {
     keys.LINEAGE_ENABLED: False,
     # quick optimize compacts only index files below this size
     keys.OPTIMIZE_FILE_SIZE_THRESHOLD: 256 * 1024 * 1024,
-    # hybrid scan (index + appended source files) is not in the port yet:
-    # a query with it on raises
+    # hybrid scan: an index whose source gained or lost files since its last
+    # refresh still serves, as the index minus the deleted files' rows plus
+    # the appended files re-bucketed on the fly, while the deleted bytes
+    # stay under maxDeletedRatio of the indexed bytes and the appended bytes
+    # under maxAppendedRatio of the current bytes
     keys.HYBRID_SCAN_ENABLED: False,
+    keys.HYBRID_SCAN_MAX_DELETED_RATIO: 0.2,
+    keys.HYBRID_SCAN_MAX_APPENDED_RATIO: 0.3,
+    # source providers, by class name; the port resolves each name through a
+    # static table of its own builders and takes the JAX package's names as
+    # aliases, so one conf dict drives either package
+    keys.SOURCE_BUILDERS: (
+        "hyperspace_tpu_torch.sources.default.DefaultFileBasedSourceBuilder,"
+        "hyperspace_tpu_torch.sources.delta.DeltaLakeSourceBuilder,"
+        "hyperspace_tpu_torch.sources.iceberg.IcebergSourceBuilder"
+    ),
     # equality/IN predicates on the first indexed column read only the
     # matching buckets' files
     keys.FILTER_RULE_USE_BUCKET_SPEC: False,
@@ -121,6 +141,15 @@ DEFAULTS: Dict[str, Any] = {
     keys.PIPELINE_ENABLED: True,
     keys.PIPELINE_DEPTH: 2,
     keys.PIPELINE_MAX_BUFFERED_BYTES: 1 << 30,
+    # a parquet read under a pushed-down predicate decodes only the row
+    # groups whose footer min/max may hold a match (the Filter above still
+    # applies the whole predicate)
+    keys.EXEC_IO_ROWGROUP_PRUNING: True,
+    # hybrid scan's deleted-row filter (NOT IN over the lineage column) runs
+    # on the session's device as the lineage-antijoin program at or above
+    # minRows rows; below, or with it off, numpy evaluates it on the host
+    keys.LIFECYCLE_DEVICE_LINEAGE_ENABLED: True,
+    keys.LIFECYCLE_DEVICE_LINEAGE_MIN_ROWS: 4096,
 }
 
 REFRESH_MODE_INCREMENTAL = "incremental"
@@ -199,6 +228,30 @@ class HyperspaceConf:
     @property
     def hybrid_scan_enabled(self) -> bool:
         return bool(self.get(keys.HYBRID_SCAN_ENABLED))
+
+    @property
+    def hybrid_scan_deleted_ratio_threshold(self) -> float:
+        return float(self.get(keys.HYBRID_SCAN_MAX_DELETED_RATIO))
+
+    @property
+    def hybrid_scan_appended_ratio_threshold(self) -> float:
+        return float(self.get(keys.HYBRID_SCAN_MAX_APPENDED_RATIO))
+
+    @property
+    def source_builders(self) -> str:
+        return str(self.get(keys.SOURCE_BUILDERS))
+
+    @property
+    def rowgroup_pruning_enabled(self) -> bool:
+        return bool(self.get(keys.EXEC_IO_ROWGROUP_PRUNING))
+
+    @property
+    def lifecycle_device_lineage_enabled(self) -> bool:
+        return bool(self.get(keys.LIFECYCLE_DEVICE_LINEAGE_ENABLED))
+
+    @property
+    def lifecycle_device_lineage_min_rows(self) -> int:
+        return int(self.get(keys.LIFECYCLE_DEVICE_LINEAGE_MIN_ROWS))
 
     @property
     def use_bucket_spec(self) -> bool:

@@ -18,8 +18,11 @@ chunks and merges partial states (``_streaming_aggregate``), and above
 the scan pipeline (exec/pipeline.py).
 
 The port's executor runs ``Scan``, ``FileScan``, ``IndexScan``,
-``Filter``, ``Project``, ``Join`` and ``Aggregate``; every other node
-raises until its slice lands.
+``Filter``, ``Project``, ``Join``, ``Aggregate`` and hybrid scan's
+``Union``, ``BucketUnion`` and ``Repartition``; every other node raises
+until its slice lands. A Filter over a source scan reads only the files
+its partition-column conjuncts keep, and pushes its predicate into the
+parquet read, which prunes row groups by their footer statistics.
 The reference delegates all of this to Spark's physical planner/executors;
 here the framework owns it.
 """
@@ -76,15 +79,21 @@ def _plan_needs_file_names(plan: L.LogicalPlan) -> bool:
 
 def _read_files(
     files: List[str],
+    file_format: str,
     columns: Optional[List[str]],
     with_file_names: bool,
     partition_values: Optional[dict] = None,
     partition_dtypes: Optional[dict] = None,
+    format_options: Optional[dict] = None,
+    predicate=None,
 ) -> B.Batch:
-    """Read parquet ``files`` into one batch. ``partition_values`` ({file ->
-    {col -> typed value}}) attaches hive-partition columns — constant per
-    file, absent from the file bytes — to each file's rows."""
+    """Read ``files`` into one batch. ``partition_values`` ({file -> {col ->
+    typed value}}) attaches hive-partition columns — constant per file,
+    absent from the file bytes — to each file's rows. ``predicate`` (the
+    scan's pushed-down filter, re-applied by the Filter above) enables
+    parquet row-group min/max pruning in the reader."""
     from hyperspace_tpu_torch.exec.io import _decode_pool, read_parquet_batch
+    from hyperspace_tpu_torch.sources import formats as F
 
     if not files:
         # every file pruned (a data-skipping index removed all of them): an
@@ -113,12 +122,13 @@ def _read_files(
         if file_columns is not None and not file_columns:
             # every requested column is a partition column: the file is never
             # decoded, but its row count still shapes the output
-            import pyarrow.parquet as pq
-
             b: B.Batch = {}
-            n = pq.ParquetFile(f).metadata.num_rows
+            n = F.count_rows(f, file_format, format_options)
+        elif file_format == "parquet":
+            b = read_parquet_batch([f], file_columns, predicate=predicate)
+            n = B.num_rows(b)
         else:
-            b = read_parquet_batch([f], file_columns)
+            b = B.table_to_batch(F.read_table(f, file_format, file_columns, format_options))
             n = B.num_rows(b)
         if attach:
             from hyperspace_tpu_torch.sources import partitions as P
@@ -128,14 +138,49 @@ def _read_files(
                 dt = (partition_dtypes or {}).get(c, np.dtype(object))
                 b[c] = P.column_array(values.get(c), dt, n)
         if with_file_names:
-            b[INPUT_FILE_NAME] = np.full(n, f, dtype=object)
+            b[INPUT_FILE_NAME] = np.full(B.num_rows(b), f, dtype=object)
         return b
 
     if with_file_names or attach:
         if len(files) > 1:
             return B.concat(list(_decode_pool().map(read_one, files)))
         return B.concat([read_one(f) for f in files])
-    return read_parquet_batch(list(files), columns)
+    if file_format == "parquet":
+        return read_parquet_batch(list(files), columns, predicate=predicate)
+    return B.table_to_batch(F.open_dataset(list(files), file_format, format_options).to_table(columns=columns))
+
+
+def _prune_partitions(scan: L.Scan, condition) -> Optional[List[str]]:
+    """Files of ``scan`` surviving the partition-column conjuncts of
+    ``condition`` (None = no partitioning / nothing prunable)."""
+    from hyperspace_tpu_torch.plan.expr import split_conjunctive
+    from hyperspace_tpu_torch.sources import partitions as P
+
+    rel = scan.relation
+    part_cols = set(getattr(rel, "partition_columns", []) or [])
+    if not part_cols:
+        return None
+    terms = [t for t in split_conjunctive(condition) if set(t.references()) and set(t.references()) <= part_cols]
+    if not terms:
+        return None
+    files = [fi.name for fi in rel.all_file_infos()]
+    # vectorized: one "row" per file holding its partition values
+    dtypes = getattr(rel, "partition_dtypes", {}) or {}
+    pvs = [rel.partition_values_for(f) for f in files]
+    file_batch = {}
+    for c in sorted(part_cols):
+        dt = dtypes.get(c, np.dtype(object))
+        vals = [pv.get(c) for pv in pvs]
+        if dt == np.dtype(object):
+            arr = np.empty(len(vals), dtype=object)
+            arr[:] = vals
+        else:
+            arr = np.array([P.typed_value(None, dt) if v is None else v for v in vals], dtype=dt)
+        file_batch[c] = arr
+    mask = np.ones(len(files), dtype=bool)
+    for t in terms:
+        mask &= as_bool_mask(t.eval(file_batch))
+    return [f for f, keep in zip(files, mask) if keep]
 
 
 def _gather_spec(idx: np.ndarray):
@@ -265,7 +310,14 @@ def _leaf_subset(leaf: L.LogicalPlan, files: List[str], needed=None) -> L.Logica
     if rel.partition_columns:
         pv = {f: rel.partition_values_for(f) for f in files}
         pd_ = dict(rel.partition_dtypes) or None
-    return L.FileScan(files, rel.file_format, cols, partition_values=pv, partition_dtypes=pd_)
+    return L.FileScan(
+        files,
+        rel.physical_format,
+        cols,
+        partition_values=pv,
+        partition_dtypes=pd_,
+        format_options=getattr(rel, "options", None) or None,
+    )
 
 
 def _chunk_files_by_bytes(files: List[str], target_bytes: int) -> List[List[str]]:
@@ -538,17 +590,15 @@ class Executor:
         aggregate inputs) the staging hook copies alongside the predicate
         columns.
 
-        Each leaf clone carries the chain's pushed-down predicate, as in the
-        JAX package, where the parquet read prunes row groups with it. The
-        port has no row-group pruning yet (ROADMAP A5b), so the predicate
-        changes nothing that is decoded; it brands the chunk's device-cache
-        key alone."""
+        With ``hyperspace.exec.io.rowGroupPruning`` on, each leaf clone
+        carries the chain's pushed-down predicate: the parquet read prunes
+        row groups with it, and it brands the chunk's device-cache key."""
         conf = self.session.conf
-        pushed = _chain_pushdown_condition(chain)
+        pushed = _chain_pushdown_condition(chain) if conf.rowgroup_pruning_enabled else None
         leaves, subs = [], []
         for g in groups:
             lf = _leaf_subset(leaf, g, needed)
-            if pushed is not None:
+            if pushed is not None and isinstance(lf, (L.FileScan, L.IndexScan)):
                 lf.pushdown_predicate = pushed
             leaves.append(lf)
             subs.append(_rebuild_chain(chain, lf))
@@ -635,8 +685,16 @@ class Executor:
 
         if isinstance(plan, L.FileScan):
             t = time.perf_counter()
-            batch = _read_files(list(plan.files), list(plan.columns), with_file_names,
-                                plan.partition_values, plan.partition_dtypes)
+            batch = _read_files(
+                list(plan.files),
+                plan.file_format,
+                list(plan.columns),
+                with_file_names,
+                partition_values=plan.partition_values,
+                partition_dtypes=plan.partition_dtypes,
+                format_options=plan.format_options,
+                predicate=getattr(plan, "pushdown_predicate", None),
+            )
             self._add_stage("decode", t)
             return batch
 
@@ -653,7 +711,13 @@ class Executor:
                 batch = {c: np.empty(0, dtype=object) for c in cols}
             else:
                 t = time.perf_counter()
-                batch = _read_files(list(plan.files), list(fcols), with_file_names)
+                batch = _read_files(
+                    list(plan.files),
+                    "parquet",
+                    list(fcols),
+                    with_file_names,
+                    predicate=getattr(plan, "pushdown_predicate", None),
+                )
                 self._add_stage("decode", t)
             if plan.file_columns is not None:
                 # present index columns under the output names
@@ -664,8 +728,39 @@ class Executor:
             return batch
 
         if isinstance(plan, L.Filter):
-            child = self._exec(plan.child, with_file_names)
-            mask = self._filter_mask(plan, child, pruned_by=getattr(plan.child, "pushdown_predicate", None))
+            rg_ok = self.session.conf.rowgroup_pruning_enabled
+            pushed = None
+            if isinstance(plan.child, L.Scan):
+                # partition pruning: conjuncts over partition columns decide
+                # per file, from path-derived values, which files to read
+                files = _prune_partitions(plan.child, plan.condition)
+                if rg_ok:
+                    pushed = plan.condition
+                child = self._exec_scan(plan.child, with_file_names, files=files, predicate=pushed)
+            else:
+                existing = getattr(plan.child, "pushdown_predicate", None)
+                if existing is not None:
+                    # a streamed leaf subset arrives with its pushdown already
+                    # attached (_stream_chunks)
+                    pushed = existing
+                    child = self._exec(plan.child, with_file_names)
+                elif (
+                    rg_ok
+                    and isinstance(plan.child, (L.FileScan, L.IndexScan))
+                    and id(plan.child) not in self._shared
+                ):
+                    # push the predicate down for row-group pruning on a
+                    # CLONE: the original node may be shared, and keeps
+                    # full-read semantics
+                    import copy
+
+                    clone = copy.copy(plan.child)
+                    clone.pushdown_predicate = plan.condition
+                    pushed = plan.condition
+                    child = self._exec(clone, with_file_names)
+                else:
+                    child = self._exec(plan.child, with_file_names)
+            mask = self._filter_mask(plan, child, pruned_by=pushed)
             t = time.perf_counter()
             out = B.mask_rows(child, mask)
             self._add_stage("mask_rows", t)
@@ -695,6 +790,14 @@ class Executor:
 
         if isinstance(plan, L.Aggregate):
             return self._exec_aggregate(plan, with_file_names)
+
+        if isinstance(plan, (L.Union, L.BucketUnion)):
+            return B.concat([self._exec(c, with_file_names) for c in plan.children()])
+
+        if isinstance(plan, L.Repartition):
+            # host path: an in-memory batch has no physical bucketing, so the
+            # rows pass through (the bucketed join re-buckets them itself)
+            return self._exec(plan.child, with_file_names)
 
         raise NotImplementedError(f"executing {type(plan).__name__} is not yet in the port")
 
@@ -1290,15 +1393,22 @@ class Executor:
         self,
         plan: L.Scan,
         with_file_names: bool,
+        files: Optional[List[str]] = None,
         columns: Optional[List[str]] = None,
+        predicate=None,
     ) -> B.Batch:
         rel = plan.relation
-        files = [fi.name for fi in rel.all_file_infos()]
+        if files is None:
+            files = [fi.name for fi in rel.all_file_infos()]
         if not files:
-            # an empty source: typed empty columns from the schema
-            batch = B.table_to_batch(rel.schema.empty_table())
-            if columns is not None:
-                batch = {c: v for c, v in batch.items() if c in columns}
+            # empty after pruning: typed empty columns from the schema
+            from hyperspace_tpu_torch.sources import schema as schema_codec
+
+            batch: B.Batch = {
+                f.name: np.empty(0, dtype=schema_codec.arrow_to_numpy_dtype(f.type))
+                for f in rel.schema
+                if columns is None or f.name in columns
+            }
             if with_file_names:
                 batch[INPUT_FILE_NAME] = np.empty(0, dtype=object)
             return batch
@@ -1307,7 +1417,16 @@ class Executor:
             pv = {f: rel.partition_values_for(f) for f in files}
             pd = dict(rel.partition_dtypes) or None
         t = time.perf_counter()
-        batch = _read_files(files, columns, with_file_names, pv, pd)
+        batch = _read_files(
+            files,
+            rel.physical_format,
+            columns,
+            with_file_names,
+            pv,
+            pd,
+            format_options=getattr(rel, "options", None) or None,
+            predicate=predicate,
+        )
         self._add_stage("decode", t)
         return batch
 
@@ -1316,10 +1435,41 @@ class Executor:
         scans, host numpy otherwise. Only a predicate the device program
         cannot express (``DeviceUnsupported``, raised before any upload)
         falls back to the host; errors of the device itself propagate.
-        ``pruned_by`` is the predicate attached to a streamed chunk's leaf,
-        which brands the chunk's device-cache key."""
+        ``pruned_by`` is the predicate whose row-group pruning produced
+        ``child``; it brands the scan's device-cache key. Hybrid scan's
+        lineage ``NOT IN`` runs as the lineage-antijoin program."""
         conf = self.session.conf
         if conf.device_execution_enabled and isinstance(plan.child, (L.IndexScan, L.FileScan)):
+            # hybrid scan's lineage delete filter: the lineage-antijoin
+            # program instead of the general predicate program (which has no
+            # IN) or the host set operation
+            lineage = self._lineage_not_in(plan.condition)
+            if lineage is not None and conf.lifecycle_device_lineage_enabled:
+                if B.num_rows(child) >= conf.lifecycle_device_lineage_min_rows:
+                    if conf.parallel_enabled:
+                        raise NotImplementedError(
+                            "the sharded (hyperspace.parallel.enabled) lineage filter is not yet in the port"
+                        )
+                    from hyperspace_tpu_torch.exec import device as D
+                    from hyperspace_tpu_torch.exec.lineage import lineage_delete_mask
+
+                    t = time.perf_counter()
+                    scan_key = _pruned_scan_key(_scan_identity(plan.child), pruned_by)
+                    self._add_stage("scan_identity", t)
+                    col, ids = lineage
+                    try:
+                        t = time.perf_counter()
+                        mask = lineage_delete_mask(self.session, child, col, ids, scan_key=scan_key)
+                        self._add_stage("lineage", t)
+                        trace.record("filter", "device-lineage")
+                        return mask
+                    except D.DeviceUnsupported:
+                        trace.record("filter", "host-fallback")
+                        trace.fallback("lineage", "unsupported")
+                        return self._host_mask(plan, child)
+                trace.fallback("lineage", "min-rows")
+                trace.record("filter", "host")
+                return self._host_mask(plan, child)
             if B.num_rows(child) >= conf.device_exec_min_rows:
                 if conf.parallel_enabled:
                     raise NotImplementedError("the sharded (hyperspace.parallel.enabled) filter is not yet in the port")
@@ -1339,6 +1489,24 @@ class Executor:
             trace.fallback("filter", "min-rows")
         trace.record("filter", "host")
         return self._host_mask(plan, child)
+
+    @staticmethod
+    def _lineage_not_in(condition) -> Optional[Tuple[str, list]]:
+        """Match the hybrid-scan delete filter ``NOT (col IN int-literals)``
+        (rules/utils._hybrid_scan_plan); returns (column, ids) or None."""
+        from hyperspace_tpu_torch.plan.expr import Col, In, Lit, Not
+
+        if not (isinstance(condition, Not) and isinstance(condition.child, In)):
+            return None
+        inner = condition.child
+        if not isinstance(inner.child, Col):
+            return None
+        ids = []
+        for lit in inner.values:
+            if not (isinstance(lit, Lit) and isinstance(lit.value, (int, np.integer))):
+                return None
+            ids.append(int(lit.value))
+        return inner.child.name, ids
 
     def _host_mask(self, plan: L.Filter, child: B.Batch) -> np.ndarray:
         t = time.perf_counter()

@@ -8,7 +8,9 @@ This is the port of the JAX package's bucketed join
 (``hyperspace_tpu/exec/device.py``), with its decisions, caches and trace:
 
   1. both sides decode per bucket, each bucket sorted on the keys (a bucket
-     of several runs is re-sorted; a side's Filter applies per bucket);
+     of several runs is re-sorted; a side's Filter applies per bucket; a
+     hybrid-scan side's appended rows are re-bucketed on the host with the
+     build's hash and concatenated with the index's bucket);
   2. the keys encode to one int64 per row, order-preserving and comparable
      across sides: identity for one int or date key, dense ranks shared by
      both sides for composite and string keys;
@@ -40,6 +42,7 @@ reduce sub-segments of each bucket's sorted run and merge them once.
 from __future__ import annotations
 
 import os
+import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -77,7 +80,9 @@ def _strip_projects(plan: L.LogicalPlan) -> L.LogicalPlan:
 
 def _side_bucket_spec(node: L.LogicalPlan) -> Optional[L.BucketSpec]:
     """The bucket layout a join side arrives in, looking through the
-    layout-preserving wrappers (Project/Filter)."""
+    layout-preserving wrappers (Project/Filter). Covers plain IndexScans AND
+    hybrid-scan sides (BucketUnion of index minus deletes + re-bucketed
+    appends — ref: CoveringIndexRuleUtils.scala:146-288)."""
     spec = getattr(node, "bucket_spec", None)
     if spec is not None:
         return spec
@@ -88,9 +93,9 @@ def _side_bucket_spec(node: L.LogicalPlan) -> Optional[L.BucketSpec]:
 
 def join_sides_compatible(plan: L.Join) -> Optional[Tuple[L.LogicalPlan, L.LogicalPlan, List[str], List[str]]]:
     """If both join children arrive bucketed on exactly the join keys with
-    equal bucket counts, return (left_side, right_side, lkeys, rkeys); else
-    None (ref: JoinIndexRanker's equal-bucket preference,
-    HS/index/covering/JoinIndexRanker.scala:52-92)."""
+    equal bucket counts — index scans or hybrid-scan BucketUnions — return
+    (left_side, right_side, lkeys, rkeys); else None (ref: JoinIndexRanker's
+    equal-bucket preference, HS/index/covering/JoinIndexRanker.scala:52-92)."""
     pairs = extract_equi_join_keys(plan.condition)
     if not pairs:
         return None
@@ -186,16 +191,18 @@ def _composite_ranks(l_arrs: List[np.ndarray], r_arrs: List[np.ndarray]) -> Tupl
     return ranks[:n], ranks[n:]
 
 
-def _side_bucket_readers(node: L.LogicalPlan, columns: List[str], sort_keys: List[str]):
+def _side_bucket_readers(session, node: L.LogicalPlan, columns: List[str], sort_keys: List[str]):
     """Lazy per-bucket readers of one join side: ``{bucket -> thunk}``,
-    each thunk decoding (and sorting and filtering) only its bucket. The
-    shapes: an IndexScan leaf, or a Filter over one, evaluated per bucket
-    (masking keeps the order). Hybrid-scan sides (appended files
-    re-bucketed on the fly) are not in the port: every other shape raises
-    DeviceUnsupported. The streamed join walks buckets one at a time
-    through these, so peak memory is one bucket pair, not both whole sides
-    (``_side_buckets`` decodes everything, fine below the streaming
-    threshold)."""
+    each thunk decoding (and sorting and filtering) only its bucket, or
+    giving None for a bucket the side has no rows in. The shapes: an
+    IndexScan leaf; a Filter, evaluated per bucket (masking keeps the
+    order; hybrid scan's lineage NOT IN is one); a Repartition of appended
+    files, re-bucketed on the host with the build's hash (``_rebucket``);
+    and a BucketUnion, concatenated per bucket and re-sorted once. Every
+    other shape raises DeviceUnsupported. The streamed join walks buckets
+    one at a time through these, so peak memory is one bucket pair, not
+    both whole sides (``_side_buckets`` decodes everything, fine below the
+    streaming threshold)."""
     node = _strip_projects(node)
     if isinstance(node, L.IndexScan):
         return _bucket_readers(node, columns, sort_keys)
@@ -203,26 +210,128 @@ def _side_bucket_readers(node: L.LogicalPlan, columns: List[str], sort_keys: Lis
         if contains_input_file_name(node.condition):
             raise DeviceUnsupported("input_file_name() predicate on a join side")
         inner_cols = list(dict.fromkeys(list(columns) + list(node.condition.references())))
-        child = _side_bucket_readers(node.child, inner_cols, sort_keys)
+        child = _side_bucket_readers(session, node.child, inner_cols, sort_keys)
 
         def wrap(thunk):
-            def read() -> B.Batch:
+            def read() -> Optional[B.Batch]:
                 batch = thunk()
+                if batch is None:  # an empty bucket of a Repartition or BucketUnion
+                    return None
                 kept = B.mask_rows(batch, as_bool_mask(node.condition.eval(batch)))  # stays sorted
                 return {c: kept[c] for c in columns}
 
             return read
 
         return {b: wrap(t) for b, t in child.items()}
+    if isinstance(node, L.Repartition):
+        # the appended-files side: small by hybridscan.maxAppendedRatio, so
+        # it re-buckets whole, once, on the first bucket's read (the lock
+        # keeps the pipeline's concurrent bucket reads from each doing it)
+        cell: Dict[str, Dict[int, B.Batch]] = {}
+        lock = threading.Lock()
+
+        def load() -> Dict[int, B.Batch]:
+            with lock:
+                if "b" not in cell:
+                    cell["b"] = _rebucket(session, node, columns, sort_keys)
+            return cell["b"]
+
+        def make_r(b):
+            return lambda: load().get(b)
+
+        return {b: make_r(b) for b in range(node.bucket_spec.num_buckets)}
+    if isinstance(node, L.BucketUnion):
+        parts = [_side_bucket_readers(session, c, columns, sort_keys) for c in node.children()]
+        keys = set()
+        for p in parts:
+            keys |= set(p)
+
+        def make_u(b):
+            def read() -> Optional[B.Batch]:
+                got = [t() for t in (p.get(b) for p in parts) if t is not None]
+                got = [g for g in got if g is not None]
+                batches = [g for g in got if B.num_rows(g)]
+                if not batches:
+                    return got[0] if got else None  # a bucket of no rows stays one
+                if len(batches) == 1:
+                    return batches[0]
+                return _sort_bucket(B.concat(batches), sort_keys)
+
+            return read
+
+        return {b: make_u(b) for b in keys}
     raise DeviceUnsupported(f"join side {type(node).__name__} is not a bucketed shape")
 
 
-def _side_buckets(node: L.LogicalPlan, columns: List[str], sort_keys: List[str]) -> Dict[int, B.Batch]:
-    """Every bucket of one join side, decoded, each sorted on ``sort_keys``
-    (``_side_bucket_readers``)."""
-    readers = _side_bucket_readers(node, columns, sort_keys)
+#: re-bucketed hybrid-scan appends, keyed on the appended files' identity
+_REBUCKET_CACHE = BytesLRU(1 << 28)
+
+
+def _rebucket(session, node: L.Repartition, columns: List[str], sort_keys: List[str]) -> Dict[int, B.Batch]:
+    """The appended rows of a hybrid-scan side, per bucket, each sorted on
+    ``sort_keys``: the same hash as the index build places each row in its
+    index bucket. Hybrid scan re-buckets the SAME appended files on every
+    query against the index (ref: CoveringIndexRuleUtils.scala:357-417), so
+    the result is cached on the files' (path, mtime, size) and the plan
+    text; a new append misses."""
+    from hyperspace_tpu_torch.exec.executor import Executor
+    from hyperspace_tpu_torch.ops.encode import hash_input_uint32
+    from hyperspace_tpu_torch.ops.hashing import bucket_ids_np
+
+    spec = node.bucket_spec
+    cache_key = None
+    files = []
+    for p in L.collect(node.child, lambda x: isinstance(x, (L.FileScan, L.Scan))):
+        files.extend([fi.name for fi in p.relation.all_file_infos()] if isinstance(p, L.Scan) else p.files)
+    if files:
+        try:
+            ident = tuple((f, os.stat(f).st_mtime_ns, os.stat(f).st_size) for f in files)
+            cache_key = (
+                "rebucket", ident, spec.num_buckets, tuple(spec.bucket_columns), tuple(columns),
+                tuple(sort_keys), node.child.pretty(),
+            )
+        except OSError:
+            cache_key = None
+    if cache_key is not None:
+        hit = _REBUCKET_CACHE.get(cache_key)
+        if hit is not None:
+            trace.record("rebucket", "cached")
+            return {b: dict(v) for b, v in hit.items()}
+    batch = Executor(session).execute(node.child, required_columns=list(columns))
+    try:
+        key_cols = [batch[c] for c in spec.bucket_columns]
+    except KeyError as e:
+        raise DeviceUnsupported(f"bucket column missing from appended side: {e}")
+    nb = spec.num_buckets
+    ids = bucket_ids_np([hash_input_uint32(c) for c in key_cols], nb)
+    order = np.argsort(ids, kind="stable")
+    bounds = np.searchsorted(ids[order], np.arange(nb + 1))
+    out: Dict[int, B.Batch] = {}
+    for b in range(nb):
+        lo, hi = int(bounds[b]), int(bounds[b + 1])
+        if hi > lo:
+            idx = order[lo:hi]
+            out[b] = _sort_bucket({c: batch[c][idx] for c in columns}, sort_keys)
+    if cache_key is not None:
+        nbytes = sum(a.nbytes for v in out.values() for a in v.values() if hasattr(a, "nbytes"))
+        # keep copies of the per-bucket dicts: a caller may add keys to what
+        # it is handed, on a hit or a miss alike
+        _REBUCKET_CACHE.put(cache_key, {b: dict(v) for b, v in out.items()}, nbytes)
+        trace.record("rebucket", "computed")
+    return out
+
+
+def _side_buckets(session, node: L.LogicalPlan, columns: List[str], sort_keys: List[str]) -> Dict[int, B.Batch]:
+    """Every bucket of one join side that holds rows, decoded, each sorted
+    on ``sort_keys`` (``_side_bucket_readers``)."""
+    readers = _side_bucket_readers(session, node, columns, sort_keys)
     trace.record("scan", "index-bucketed")
-    return {b: read() for b, read in readers.items()}
+    out = {}
+    for b, read in readers.items():
+        got = read()
+        if got is not None:
+            out[b] = got
+    return out
 
 
 def _join_key_of(batch: B.Batch, key: str) -> np.ndarray:
@@ -256,7 +365,7 @@ def _file_num_rows(path: str) -> int:
 
 def _side_files(node: L.LogicalPlan) -> List[str]:
     files: List[str] = []
-    for p in L.collect(node, lambda x: isinstance(x, L.IndexScan)):
+    for p in L.collect(node, lambda x: isinstance(x, (L.IndexScan, L.FileScan))):
         files.extend(p.files)
     return files
 
@@ -266,7 +375,9 @@ _RANK_CACHE = BytesLRU(1 << 29)
 
 
 def clear_rank_cache() -> None:
+    """Drop the composite-key encodings and the re-bucketed appends."""
     _RANK_CACHE.clear()
+    _REBUCKET_CACHE.clear()
 
 
 def _rank_cache_key(lside, rside, lkeys: List[str], rkeys: List[str]):
@@ -476,8 +587,8 @@ def stream_bucketed_join(session, plan: L.Join, _compat=None):
     if plan.how not in ("inner", "left", "right", "outer"):
         raise DeviceUnsupported(f"unsupported join type {plan.how!r}")
     lcols_needed, rcols_needed = _stream_needed_columns(plan, lside, rside, lkeys, rkeys)
-    lread = _side_bucket_readers(lside, lcols_needed, lkeys)
-    rread = _side_bucket_readers(rside, rcols_needed, rkeys)
+    lread = _side_bucket_readers(session, lside, lcols_needed, lkeys)
+    rread = _side_bucket_readers(session, rside, rcols_needed, rkeys)
     nb = _side_bucket_spec(lside).num_buckets
     keep_left = plan.how in ("left", "outer")
     keep_right = plan.how in ("right", "outer")
@@ -589,8 +700,8 @@ def _bucketed_join_setup(session, plan: L.Join, compat, needed_override=None):
         need_l = need_r = set(plan.output_columns) | {n[:-2] for n in plan.output_columns if n.endswith("#r")}
     lcols_needed = [c for c in lside.output_columns if c in need_l or c in lkeys]
     rcols_needed = [c for c in rside.output_columns if c in need_r or c in rkeys]
-    lbuckets = _side_buckets(lside, lcols_needed, lkeys)
-    rbuckets = _side_buckets(rside, rcols_needed, rkeys)
+    lbuckets = _side_buckets(session, lside, lcols_needed, lkeys)
+    rbuckets = _side_buckets(session, rside, rcols_needed, rkeys)
     nb = _side_bucket_spec(lside).num_buckets
     session.query_stage_seconds["join_decode"] += time.perf_counter() - t
     return lbuckets, rbuckets, lkeys, rkeys, nb, lcols_needed, rcols_needed

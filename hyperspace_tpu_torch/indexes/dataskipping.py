@@ -280,8 +280,14 @@ class DataSkippingIndex(Index):
             if not file_cols:
                 b = {}
                 n = relation.arrow_dataset([fi.name]).count_rows()
-            else:
+            elif relation.physical_format == "parquet":
                 b = read_parquet_batch([fi.name], file_cols)
+                n = len(next(iter(b.values()))) if b else 0
+            else:
+                from hyperspace_tpu_torch.sources import formats as F
+
+                t = F.read_table(fi.name, relation.physical_format, file_cols, getattr(relation, "options", None))
+                b = {c: t.column(c).to_numpy(zero_copy_only=False) for c in file_cols}
                 n = len(next(iter(b.values()))) if b else 0
             if part_cols:
                 from hyperspace_tpu_torch.sources import partitions as P

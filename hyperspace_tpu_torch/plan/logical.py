@@ -1,13 +1,14 @@
 """Logical plan IR — the nodes of the index build, the filter query, the
 equi-join and aggregation.
 
-``Scan`` over a source relation, ``Filter``, ``Project``, ``Join`` and
-``Aggregate`` over it, and the node the optimizer rewrites a scan into:
-``IndexScan`` (replaces a source scan; ref: IndexHadoopFsRelation,
-HS/index/plans/logical/IndexHadoopFsRelation.scala:29-50), with the
-``BucketSpec`` a covering index records. ``describe()`` strings are the JAX
-package's. Sorting, limits and the rest of the relational algebra are not in
-the port yet.
+``Scan`` over a source relation, ``Filter``, ``Project``, ``Join``,
+``Aggregate`` and ``Union`` over it, and the nodes the optimizer rewrites a
+scan into: ``IndexScan`` (replaces a source scan; ref:
+IndexHadoopFsRelation, HS/index/plans/logical/IndexHadoopFsRelation.scala:29-50),
+with the ``BucketSpec`` a covering index records, and hybrid scan's
+``FileScan`` of appended files, ``Repartition`` and ``BucketUnion``.
+``describe()`` strings are the JAX package's. Sorting, limits and the rest
+of the relational algebra are not in the port yet.
 """
 
 from __future__ import annotations
@@ -84,13 +85,16 @@ class Scan(LogicalPlan):
 
 
 class FileScan(LogicalPlan):
-    """Scan of an explicit parquet file list: the per-chunk leaf of a
-    streamed scan over a source relation (``exec/executor.py::_leaf_subset``),
-    and the files a data-skipping index keeps
-    (``rules/dataskipping_rule.py``). ``partition_values`` ({file -> {col ->
-    typed value}}) carries the hive-partition columns the requested
-    ``columns`` include but the file bytes do not; ``via_index`` names the
-    index whose rewrite produced the scan."""
+    """Scan of an explicit file list: the per-chunk leaf of a streamed scan
+    over a source relation (``exec/executor.py::_leaf_subset``), the files a
+    data-skipping index keeps (``rules/dataskipping_rule.py``), and hybrid
+    scan's appended files (ref: CoveringIndexRuleUtils' appended-data scan,
+    HS/index/covering/CoveringIndexRuleUtils.scala:206-243).
+    ``partition_values`` ({file -> {col -> typed value}}) carries the
+    hive-partition columns the requested ``columns`` include but the file
+    bytes do not; ``format_options`` the source's reader options (a csv
+    delimiter or header); ``via_index`` names the index whose rewrite
+    produced the scan."""
 
     def __init__(
         self,
@@ -100,6 +104,7 @@ class FileScan(LogicalPlan):
         partition_values: Optional[dict] = None,
         partition_dtypes: Optional[dict] = None,
         via_index: Optional[str] = None,
+        format_options: Optional[dict] = None,
     ):
         self.files = list(files)
         self.file_format = file_format
@@ -107,6 +112,7 @@ class FileScan(LogicalPlan):
         self.partition_values = partition_values
         self.partition_dtypes = partition_dtypes
         self.via_index = via_index
+        self.format_options = dict(format_options) if format_options else None
 
     @property
     def output_columns(self) -> List[str]:
@@ -269,6 +275,24 @@ class Aggregate(LogicalPlan):
         return f"Aggregate(keys={self.keys}, [{', '.join(parts)}])"
 
 
+class Union(LogicalPlan):
+    """Rows of every child, in child order (hybrid scan's plain union of an
+    index and appended files whose bucket layout cannot be trusted)."""
+
+    def __init__(self, children_: List[LogicalPlan]):
+        self._children = list(children_)
+
+    def children(self) -> Sequence[LogicalPlan]:
+        return tuple(self._children)
+
+    @property
+    def output_columns(self) -> List[str]:
+        return self._children[0].output_columns
+
+    def with_children(self, children: Sequence[LogicalPlan]) -> "Union":
+        return Union(list(children))
+
+
 # --- index-side nodes (appear only in rewritten plans) ----------------------
 
 
@@ -314,6 +338,58 @@ class IndexScan(LogicalPlan):
             f"IndexScan(Hyperspace(Type: CI, Name: {self.entry.name}, "
             f"LogVersion: {self.entry.id}), buckets={n}{extra})"
         )
+
+
+class Repartition(LogicalPlan):
+    """Hash-repartition child rows into ``bucket_spec`` buckets — injected on
+    top of appended-data scans so hybrid scan can merge with index buckets
+    (ref: RepartitionByExpression injection,
+    HS/index/covering/CoveringIndexRuleUtils.scala:357-417). The bucketed
+    join re-buckets the rows on the host with the build's hash; any other
+    consumer takes them as they are."""
+
+    def __init__(self, bucket_spec: BucketSpec, child: LogicalPlan):
+        self.bucket_spec = bucket_spec
+        self.child = child
+
+    def children(self) -> Sequence[LogicalPlan]:
+        return (self.child,)
+
+    @property
+    def output_columns(self) -> List[str]:
+        return self.child.output_columns
+
+    def with_children(self, children: Sequence[LogicalPlan]) -> "Repartition":
+        (child,) = children
+        return Repartition(self.bucket_spec, child)
+
+    def describe(self) -> str:
+        return f"Repartition(n={self.bucket_spec.num_buckets}, cols={list(self.bucket_spec.bucket_columns)})"
+
+
+class BucketUnion(LogicalPlan):
+    """Union preserving bucket layout: all children share the same
+    ``bucket_spec``; the i-th bucket of the output is the concatenation of the
+    i-th buckets of the children — no reshuffle
+    (ref: HS/index/plans/logical/BucketUnion.scala:31-68,
+    HS/index/execution/BucketUnionExec.scala:52-121)."""
+
+    def __init__(self, children_: List[LogicalPlan], bucket_spec: BucketSpec):
+        self._children = list(children_)
+        self.bucket_spec = bucket_spec
+
+    def children(self) -> Sequence[LogicalPlan]:
+        return tuple(self._children)
+
+    @property
+    def output_columns(self) -> List[str]:
+        return self._children[0].output_columns
+
+    def with_children(self, children: Sequence[LogicalPlan]) -> "BucketUnion":
+        return BucketUnion(list(children), self.bucket_spec)
+
+    def describe(self) -> str:
+        return f"BucketUnion(n={self.bucket_spec.num_buckets})"
 
 
 # --- traversal helpers ------------------------------------------------------

@@ -36,8 +36,6 @@ class ApplyHyperspace:
         self.ctx = RuleContext(session)
 
     def apply(self, plan: L.LogicalPlan) -> L.LogicalPlan:
-        if self.session.conf.hybrid_scan_enabled:
-            raise NotImplementedError("hybrid scan (hyperspace.index.hybridscan.enabled) is not yet in the port")
         try:
             new_plan, _score = self._rewrite(plan)
             return new_plan
@@ -57,7 +55,7 @@ class ApplyHyperspace:
         # linear sub-plan for the rules to match (a self-join's two sides
         # are one object before this)
         pruned = prune_columns_duplicating(plan)
-        candidates = collect_candidates(pruned, indexes)
+        candidates = collect_candidates(self.ctx, pruned, indexes)
         if not candidates:
             return plan, 0
         new_plan, score = ScoreBasedIndexPlanOptimizer(self.ctx).apply(pruned, candidates)

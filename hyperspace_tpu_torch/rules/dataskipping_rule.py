@@ -331,6 +331,7 @@ def apply_data_skipping_rule(
         partition_values=pv,
         partition_dtypes=pd,
         via_index=entry.name,
+        format_options=getattr(rel, "options", None),
     )
     new_plan: L.LogicalPlan = L.Filter(condition, new_scan)
     if project_cols is not None:

@@ -16,18 +16,23 @@ from hyperspace_tpu_torch.models.log_entry import IndexLogEntry
 from hyperspace_tpu_torch.plan import logical as L
 from hyperspace_tpu_torch.plan.expr import contains_input_file_name, strip_nested_prefix
 from hyperspace_tpu_torch.rules.context import RuleContext
-from hyperspace_tpu_torch.rules.utils import destructure_linear, transform_plan_to_use_index
+from hyperspace_tpu_torch.rules.utils import (
+    destructure_linear,
+    hybrid_coverage_fraction,
+    hybrid_thresholds_ok,
+    transform_plan_to_use_index,
+)
 
-# the score of an index-only rewrite (50 x the source bytes the index
-# covers, which is all of them without hybrid scan)
+# ceiling of the 50 x coverage score below (score.py's short-circuit)
 MAX_SCORE = 50
 
 
 def _filter_column_filter(
-    condition, required: List[str], candidates: List[IndexLogEntry]
+    ctx: RuleContext, scan: L.Scan, condition, required: List[str], candidates: List[IndexLogEntry]
 ) -> List[IndexLogEntry]:
     """(ref: FilterColumnFilter — first indexed col must appear in the
-    predicate; index covers filter+project columns)."""
+    predicate; index covers filter+project columns; under hybrid scan the
+    drift thresholds hold at rule time too)."""
     out = []
     pred_cols = {strip_nested_prefix(c).lower() for c in condition.references()}
     for entry in candidates:
@@ -39,17 +44,22 @@ def _filter_column_filter(
         if not indexed or strip_nested_prefix(indexed[0]).lower() not in pred_cols:
             continue
         covered = {strip_nested_prefix(c).lower() for c in indexed + included}
-        if all(strip_nested_prefix(c).lower() in covered for c in required):
+        if not all(strip_nested_prefix(c).lower() in covered for c in required):
+            continue
+        if hybrid_thresholds_ok(ctx, entry, scan):
             out.append(entry)
     return out
 
 
-def _rank(candidates: List[IndexLogEntry]) -> Optional[IndexLogEntry]:
-    """FilterRankFilter: the smallest index, ties broken by name
-    (ref: HS/index/covering/FilterIndexRanker.scala:43-63). The JAX
+def _rank(ctx: RuleContext, scan: L.Scan, candidates: List[IndexLogEntry]) -> Optional[IndexLogEntry]:
+    """FilterRankFilter: the smallest index, ties broken by name; under
+    hybrid scan, the most common bytes, ties broken toward the smaller
+    index (ref: HS/index/covering/FilterIndexRanker.scala:43-63). The JAX
     package's ORDER BY tie-break waits for the Sort node."""
     if not candidates:
         return None
+    if ctx.session.conf.hybrid_scan_enabled:
+        return max(candidates, key=lambda e: (ctx.common_bytes(e, scan), -e.content.total_size))
     return min(candidates, key=lambda e: (e.content.total_size, e.name))
 
 
@@ -74,8 +84,8 @@ def apply_filter_index_rule(
     required_out = project_cols if project_cols is not None else scan.output_columns
     required = list(dict.fromkeys(list(required_out) + list(condition.references())))
 
-    best = _rank(_filter_column_filter(condition, required, entries))
+    best = _rank(ctx, scan, _filter_column_filter(ctx, scan, condition, required, entries))
     if best is None:
         return plan, 0
-    new_plan = transform_plan_to_use_index(best, plan, ctx.session.conf.use_bucket_spec)
-    return new_plan, MAX_SCORE
+    new_plan = transform_plan_to_use_index(ctx, best, plan, ctx.session.conf.use_bucket_spec)
+    return new_plan, max(int(MAX_SCORE * hybrid_coverage_fraction(ctx, best, scan)), 1)

@@ -14,8 +14,7 @@ Eligibility pipeline (mirrors the reference's filter chain):
                          bucket counts, then more buckets (:554-601;
                          JoinIndexRanker.scala:52-92)
 
-Score: 70 per side, scaled by hybrid coverage (:674-704), which is 1 for
-the exact signature matches the port admits.
+Score: 70 per side, scaled by hybrid coverage (:674-704).
 """
 
 from __future__ import annotations
@@ -34,6 +33,7 @@ from hyperspace_tpu_torch.rules.context import RuleContext
 from hyperspace_tpu_torch.rules.utils import (
     destructure_linear,
     hybrid_coverage_fraction,
+    hybrid_thresholds_ok,
     transform_plan_to_use_index,
 )
 
@@ -66,9 +66,12 @@ def _attribute_mapping(
     return mapping
 
 
-def _side_candidates(join_cols: List[str], required: List[str], entries: List[IndexLogEntry]) -> List[IndexLogEntry]:
+def _side_candidates(
+    ctx: RuleContext, scan: L.Scan, join_cols: List[str], required: List[str], entries: List[IndexLogEntry]
+) -> List[IndexLogEntry]:
     """JoinColumnFilter (ref: :419-448): the indexed columns are exactly the
-    join columns, and the index covers every column the side needs."""
+    join columns, the index covers every column the side needs, and under
+    hybrid scan the drift thresholds hold at rule time too."""
     out = []
     join_set = {strip_nested_prefix(c).lower() for c in join_cols}
     for entry in entries:
@@ -80,7 +83,9 @@ def _side_candidates(join_cols: List[str], required: List[str], entries: List[In
         if {strip_nested_prefix(c).lower() for c in indexed} != join_set:
             continue
         covered = {strip_nested_prefix(c).lower() for c in indexed + included}
-        if all(strip_nested_prefix(c).lower() in covered for c in required):
+        if not all(strip_nested_prefix(c).lower() in covered for c in required):
+            continue
+        if hybrid_thresholds_ok(ctx, entry, scan):
             out.append(entry)
     return out
 
@@ -98,17 +103,28 @@ def _compatible(l_entry: IndexLogEntry, r_entry: IndexLogEntry, mapping: Dict[st
     )
 
 
-def _rank_pairs(pairs: List[Tuple[IndexLogEntry, IndexLogEntry]]) -> Optional[Tuple[IndexLogEntry, IndexLogEntry]]:
-    """JoinIndexRanker: equal bucket counts first, then more buckets
-    (ref: JoinIndexRanker.scala:52-92). The reference's middle term, common
-    bytes under hybrid scan, is 0 here: hybrid scan is not in the port."""
+def _rank_pairs(
+    ctx: RuleContext,
+    pairs: List[Tuple[IndexLogEntry, IndexLogEntry]],
+    l_scan: L.Scan,
+    r_scan: L.Scan,
+) -> Optional[Tuple[IndexLogEntry, IndexLogEntry]]:
+    """JoinIndexRanker: equal bucket counts first, then common bytes under
+    hybrid scan, then more buckets (ref: JoinIndexRanker.scala:52-92)."""
     if not pairs:
         return None
 
     def nb(e: IndexLogEntry) -> int:
         return int(e.derived_dataset.properties.get("numBuckets", 0))
 
-    return max(pairs, key=lambda p: (nb(p[0]) == nb(p[1]), 0, nb(p[0]) + nb(p[1])))
+    hybrid = ctx.session.conf.hybrid_scan_enabled
+
+    def sort_key(p):
+        l, r = p
+        common = ctx.common_bytes(l, l_scan) + ctx.common_bytes(r, r_scan) if hybrid else 0
+        return (nb(l) == nb(r), common, nb(l) + nb(r))
+
+    return max(pairs, key=sort_key)
 
 
 def apply_join_index_rule(
@@ -151,17 +167,20 @@ def apply_join_index_rule(
 
     l_join_cols = list(mapping.keys())
     r_join_cols = list(mapping.values())
-    l_entries = _side_candidates(l_join_cols, required_cols(l_proj, l_cond, l_scan, l_join_cols), candidates[lk][1])
-    r_entries = _side_candidates(r_join_cols, required_cols(r_proj, r_cond, r_scan, r_join_cols), candidates[rk][1])
+    l_required = required_cols(l_proj, l_cond, l_scan, l_join_cols)
+    r_required = required_cols(r_proj, r_cond, r_scan, r_join_cols)
+    l_entries = _side_candidates(ctx, l_scan, l_join_cols, l_required, candidates[lk][1])
+    r_entries = _side_candidates(ctx, r_scan, r_join_cols, r_required, candidates[rk][1])
 
     # candidate lists are per-scan (signature-matched), so an entry appearing
     # on both sides implies a self-join — no extra identity check needed
-    best = _rank_pairs([(le, re) for le in l_entries for re in r_entries if _compatible(le, re, mapping)])
+    compatible = [(le, re) for le in l_entries for re in r_entries if _compatible(le, re, mapping)]
+    best = _rank_pairs(ctx, compatible, l_scan, r_scan)
     if best is None:
         return plan, 0
     l_best, r_best = best
-    new_left = transform_plan_to_use_index(l_best, plan.left, use_bucket_spec=True)
-    new_right = transform_plan_to_use_index(r_best, plan.right, use_bucket_spec=True)
+    new_left = transform_plan_to_use_index(ctx, l_best, plan.left, use_bucket_spec=True)
+    new_right = transform_plan_to_use_index(ctx, r_best, plan.right, use_bucket_spec=True)
     new_plan = L.Join(new_left, new_right, plan.condition, plan.how, plan.residual, plan.using_pairs)
-    score = int(70 * hybrid_coverage_fraction(l_best, l_scan) + 70 * hybrid_coverage_fraction(r_best, r_scan))
+    score = int(70 * hybrid_coverage_fraction(ctx, l_best, l_scan) + 70 * hybrid_coverage_fraction(ctx, r_best, r_scan))
     return new_plan, max(score, 1)

@@ -1,17 +1,20 @@
 """Plan-transformation utilities of the covering-index rules
 (ref: HS/index/covering/CoveringIndexRuleUtils.scala:55-288).
 
-The index-only rewrite: swap the source Scan for an IndexScan over the
-index's bucket files, optionally bucket-pruned (ref: :98-130). Hybrid scan
-(index data merged with appended source files, ref: :146-288) is not in the
-port yet; candidate collection admits only exact signature matches, so the
-rewrite never needs it.
+Two rewrite shapes:
+
+  1. index-only scan — swap the source Scan for an IndexScan over the
+     index's bucket files, optionally bucket-pruned (ref: :98-130);
+  2. hybrid scan — index data + appended source files re-bucketed on the
+     fly, merged with BucketUnion; rows from deleted source files are
+     filtered out through the lineage column (ref: :146-288).
 """
 
 from __future__ import annotations
 
 from typing import List, Optional, Tuple
 
+from hyperspace_tpu_torch import config as C
 from hyperspace_tpu_torch.indexes.covering import BUCKET_HASH_VERSION, CoveringIndex, bucket_of_file
 from hyperspace_tpu_torch.models.log_entry import IndexLogEntry
 from hyperspace_tpu_torch.plan import logical as L
@@ -19,11 +22,14 @@ from hyperspace_tpu_torch.plan.expr import (
     Col,
     Expr,
     In,
+    Lit,
+    Not,
     column_root_member,
     extract_eq_literal,
     split_conjunctive,
     strip_nested_prefix,
 )
+from hyperspace_tpu_torch.rules.context import RuleContext
 
 
 def destructure_linear(plan: L.LogicalPlan) -> Optional[Tuple[Optional[List[str]], Optional[Expr], L.Scan]]:
@@ -48,6 +54,29 @@ def destructure_linear(plan: L.LogicalPlan) -> Optional[Tuple[Optional[List[str]
             return project_cols, condition, node
         else:
             return None
+
+
+def hybrid_thresholds_ok(ctx: RuleContext, entry: IndexLogEntry, scan: L.Scan) -> bool:
+    """Rule-time re-check of the hybrid-scan drift thresholds
+    (``hyperspace.index.hybridscan.maxDeletedRatio`` / ``maxAppendedRatio``)
+    against the current file diff and the current conf, with the same
+    denominators as candidate collection (``candidate._signature_filter``)."""
+    conf = ctx.session.conf
+    if not ctx.hybrid_required(entry, scan):
+        return True  # exact signature match: no drift to gate
+    current = {fi.key: fi for fi in scan.relation.all_file_infos()}
+    indexed = {fi.key: fi for fi in entry.source_file_infos()}
+    appended_bytes = sum(current[k].size for k in current.keys() - indexed.keys())
+    deleted_bytes = sum(indexed[k].size for k in indexed.keys() - current.keys())
+    if deleted_bytes:
+        deleted_ratio = deleted_bytes / max(1, entry.source_files_size())
+        if deleted_ratio > conf.hybrid_scan_deleted_ratio_threshold:
+            return False
+    if appended_bytes:
+        total_bytes = sum(fi.size for fi in current.values())
+        if appended_bytes / max(1, total_bytes) > conf.hybrid_scan_appended_ratio_threshold:
+            return False
+    return True
 
 
 def pruned_buckets_for_predicate(
@@ -100,6 +129,7 @@ def index_files_for_buckets(entry: IndexLogEntry, buckets: Optional[List[int]]) 
 
 
 def transform_plan_to_use_index(
+    ctx: RuleContext,
     entry: IndexLogEntry,
     sub_plan: L.LogicalPlan,
     use_bucket_spec: bool,
@@ -120,21 +150,25 @@ def transform_plan_to_use_index(
     bucket_spec = index.bucket_spec()
     # an index whose data files were bucketed under an OLDER hash function
     # still serves correct index-only scans, but its bucket PLACEMENT can't
-    # be trusted: no bucket pruning
-    use_bucket_spec = use_bucket_spec and index.bucket_hash_version == BUCKET_HASH_VERSION
-    buckets = (
-        pruned_buckets_for_predicate(condition, bucket_spec.bucket_columns, bucket_spec.num_buckets)
-        if use_bucket_spec
-        else None
-    )
-    out: L.LogicalPlan = L.IndexScan(
-        entry,
-        columns=required_all,
-        bucket_spec=bucket_spec if use_bucket_spec else None,
-        files=index_files_for_buckets(entry, buckets),
-        pruned_buckets=buckets,
-        file_columns=index_file_columns(entry, required_all),
-    )
+    # be trusted: no bucket pruning, no shuffle-free join layout
+    trusted_layout = index.bucket_hash_version == BUCKET_HASH_VERSION
+    use_bucket_spec = use_bucket_spec and trusted_layout
+    if not ctx.hybrid_required(entry, scan):
+        buckets = (
+            pruned_buckets_for_predicate(condition, bucket_spec.bucket_columns, bucket_spec.num_buckets)
+            if use_bucket_spec
+            else None
+        )
+        out: L.LogicalPlan = L.IndexScan(
+            entry,
+            columns=required_all,
+            bucket_spec=bucket_spec if use_bucket_spec else None,
+            files=index_files_for_buckets(entry, buckets),
+            pruned_buckets=buckets,
+            file_columns=index_file_columns(entry, required_all),
+        )
+    else:
+        out = _hybrid_scan_plan(ctx, entry, scan, required_all, bucket_spec, trusted_layout=trusted_layout)
 
     # canonical rebuild: every Filter sinks DIRECTLY above the scan (the
     # executor's device filter matches that shape); Projects re-apply above
@@ -159,12 +193,73 @@ def transform_plan_to_use_index(
     return out
 
 
-def hybrid_coverage_fraction(entry: IndexLogEntry, scan: L.Scan) -> float:
+def _hybrid_scan_plan(
+    ctx: RuleContext,
+    entry: IndexLogEntry,
+    scan: L.Scan,
+    required: List[str],
+    bucket_spec: L.BucketSpec,
+    trusted_layout: bool = True,
+) -> L.LogicalPlan:
+    """Hybrid scan: BucketUnion(index minus deleted, re-bucketed appended)
+    (ref: CoveringIndexRuleUtils.scala:146-288)."""
+    facts = ctx.hybrid_facts(entry, scan)
+    appended, deleted = facts.appended, facts.deleted
+
+    index_cols = list(required)
+    if deleted and C.DATA_FILE_NAME_ID not in index_cols:
+        index_cols = index_cols + [C.DATA_FILE_NAME_ID]
+
+    index_side: L.LogicalPlan = L.IndexScan(
+        entry,
+        columns=index_cols,
+        bucket_spec=bucket_spec if trusted_layout else None,
+        file_columns=index_file_columns(entry, index_cols),
+    )
+    if deleted:
+        tracker = entry.file_id_tracker()
+        deleted_infos = {fi.name: fi for fi in entry.source_file_infos()}
+        ids = []
+        for name in deleted:
+            fi = deleted_infos.get(name)
+            if fi is not None and fi.file_id != C.UNKNOWN_FILE_ID:
+                ids.append(fi.file_id)
+            else:
+                fid = next((v for k, v in tracker.file_to_id_map().items() if k[0] == name), None)
+                if fid is not None:
+                    ids.append(fid)
+        # Not(In(_data_file_id, deletedIds)) (ref: :244-253)
+        index_side = L.Filter(Not(In(Col(C.DATA_FILE_NAME_ID), [Lit(i) for i in ids])), index_side)
+        index_side = L.Project(list(required), index_side)
+
+    if not appended:
+        return index_side
+
+    rel = scan.relation
+    pv = pd = None
+    if getattr(rel, "partition_columns", None):
+        pv = {f: rel.partition_values_for(f) for f in appended}
+        pd_ = getattr(rel, "partition_dtypes", None)
+        pd = dict(pd_) if pd_ else None
+    appended_scan = L.FileScan(
+        appended, rel.physical_format, list(required), partition_values=pv,
+        partition_dtypes=pd, format_options=getattr(rel, "options", None),
+    )
+    if not trusted_layout:
+        # stale bucket-hash version: the files still hold the right rows,
+        # but their bucket placement predates the current hash function, so
+        # the plan must not advertise a bucketed layout — a plain Union
+        return L.Union([index_side, appended_scan])
+    return L.BucketUnion([index_side, L.Repartition(bucket_spec, appended_scan)], bucket_spec)
+
+
+def hybrid_coverage_fraction(ctx: RuleContext, entry: IndexLogEntry, scan: L.Scan) -> float:
     """commonBytes / currentTotalBytes — scales rule scores under hybrid scan
-    (ref: FilterIndexRule score :170-193, JoinIndexRule score :674-704).
-    Candidates are exact signature matches in the port (hybrid scan raises),
-    so an index covers all of its source's bytes."""
-    return 1.0
+    (ref: FilterIndexRule score :170-193, JoinIndexRule score :674-704)."""
+    if not ctx.hybrid_required(entry, scan):
+        return 1.0
+    total = sum(fi.size for fi in scan.relation.all_file_infos())
+    return ctx.common_bytes(entry, scan) / max(1, total)
 
 
 def prune_columns(plan: L.LogicalPlan, needed=None) -> L.LogicalPlan:
@@ -368,13 +463,16 @@ def _prune(plan: L.LogicalPlan, needed, barrier, skip_self: bool = False) -> L.L
         if flat < set(out):
             return L.Project([c for c in out if c in flat], plan)
         return plan
+    if isinstance(plan, L.Union):
+        return plan.with_children([_prune(c, needed, barrier) for c in plan.children()])
     if isinstance(plan, L.Aggregate):
         child_needed = set(plan.keys) | {c for _, _, c in plan.aggs if c is not None}
         (child,) = plan.children()
         return plan.with_children([_prune(child, child_needed, barrier)])
-    # any other node (an IndexScan) keeps all its columns, but still
-    # recurse: shared sub-plans MUST be noted here or the sharing swap would
-    # substitute replacements pruned for other (narrower) uses
+    # any other node (an IndexScan; Repartition and BucketUnion pass rows
+    # through) keeps all its columns, but still recurse: shared sub-plans
+    # MUST be noted here or the sharing swap would substitute replacements
+    # pruned for other (narrower) uses
     new_children = [_prune(c, None, barrier) for c in plan.children()]
     if any(n is not o for n, o in zip(new_children, plan.children())):
         return plan.with_children(new_children)

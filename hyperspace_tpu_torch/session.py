@@ -91,6 +91,35 @@ class Session:
     def read_parquet(self, *paths, **options) -> "DataFrame":  # noqa: F821
         return self.read(list(paths), "parquet", **options)
 
+    def read_csv(self, *paths, **options) -> "DataFrame":  # noqa: F821
+        return self.read(list(paths), "csv", **options)
+
+    def read_json(self, *paths, **options) -> "DataFrame":  # noqa: F821
+        return self.read(list(paths), "json", **options)
+
+    def read_orc(self, *paths, **options) -> "DataFrame":  # noqa: F821
+        return self.read(list(paths), "orc", **options)
+
+    def read_avro(self, *paths, **options) -> "DataFrame":  # noqa: F821
+        return self.read(list(paths), "avro", **options)
+
+    def read_text(self, *paths, **options) -> "DataFrame":  # noqa: F821
+        return self.read(list(paths), "text", **options)
+
+    def read_delta(self, path, version: Optional[int] = None) -> "DataFrame":  # noqa: F821
+        from hyperspace_tpu_torch.plan.dataframe import DataFrame
+        from hyperspace_tpu_torch.plan.logical import Scan
+        from hyperspace_tpu_torch.sources.delta import DeltaLakeRelation
+
+        return DataFrame(Scan(DeltaLakeRelation(path, version=version)), self)
+
+    def read_iceberg(self, path, snapshot_id: Optional[int] = None) -> "DataFrame":  # noqa: F821
+        from hyperspace_tpu_torch.plan.dataframe import DataFrame
+        from hyperspace_tpu_torch.plan.logical import Scan
+        from hyperspace_tpu_torch.sources.iceberg import IcebergRelation
+
+        return DataFrame(Scan(IcebergRelation(path, snapshot_id=snapshot_id)), self)
+
     # --- hyperspace toggle (ref: HS/package.scala:36-43) -------------------
     @property
     def hyperspace_enabled(self) -> bool:

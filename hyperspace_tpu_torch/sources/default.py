@@ -1,10 +1,7 @@
-"""Default file-based source provider: Parquet datasets on local or
-fuse-mounted lake storage
+"""Default file-based source provider: Parquet (and CSV/JSON via pyarrow)
+datasets on local/fuse-mounted lake storage
 (ref: HS/index/sources/default/DefaultFileBasedSource.scala:37-124,
 DefaultFileBasedRelation.scala:38).
-
-Only parquet is in the port so far; the relation is otherwise the JAX
-package's, so both packages log identical relation snapshots.
 """
 
 from __future__ import annotations
@@ -26,8 +23,14 @@ from hyperspace_tpu_torch.sources.interfaces import (
     FileBasedSourceProvider,
 )
 from hyperspace_tpu_torch.sources.signatures import file_based_signature
-
-SUPPORTED_FORMATS = ("parquet",)
+from hyperspace_tpu_torch.sources import formats
+from hyperspace_tpu_torch.sources.formats import (
+    MATERIALIZED_FORMATS,
+    SUPPORTED_FORMATS,
+    read_format_schema,
+    read_table,
+    tables_to_dataset,
+)
 
 
 def _list_data_files(root: str) -> List[str]:
@@ -39,8 +42,6 @@ def _list_data_files(root: str) -> List[str]:
 class DefaultFileBasedRelation(FileBasedRelation):
     def __init__(self, root_paths: List[str], file_format: str, options: Optional[Dict[str, str]] = None,
                  files: Optional[List[str]] = None):
-        if file_format not in SUPPORTED_FORMATS:
-            raise NotImplementedError(f"{file_format!r} sources are not yet in the port (parquet only)")
         self._root_paths = [os.path.abspath(p) for p in root_paths]
         self._file_format = file_format
         self._options = dict(options or {})
@@ -64,6 +65,8 @@ class DefaultFileBasedRelation(FileBasedRelation):
         self._schema: Optional[pa.Schema] = None
         # hive-style partition discovery (.../col=value/... segments); single
         # root only, so arrow_dataset() can serve the same partition columns
+        # (multi-root layouts are treated as unpartitioned, like Spark
+        # without an explicit basePath)
         if len(self._root_paths) == 1 and os.path.isdir(self._root_paths[0]):
             self._part_cols, self._part_raw = partitions.discover(self._files, self._root_paths)
         else:
@@ -89,9 +92,18 @@ class DefaultFileBasedRelation(FileBasedRelation):
     @property
     def schema(self) -> pa.Schema:
         # arrow_dataset() carries the hive partitioning, so its schema
-        # already includes the partition fields
+        # already includes the partition fields (the path-derived value
+        # shadows any same-named column in the file bytes); avro/text resolve
+        # from file headers alone — no record data is decoded for the schema
         if self._schema is None:
-            self._schema = self.arrow_dataset().schema
+            if self._file_format in MATERIALIZED_FORMATS:
+                s = read_format_schema(self._files, self._file_format)
+                for field in self._partition_arrow_fields():
+                    if field.name not in s.names:
+                        s = s.append(field)
+                self._schema = s
+            else:
+                self._schema = self.arrow_dataset().schema
         return self._schema
 
     @property
@@ -124,15 +136,34 @@ class DefaultFileBasedRelation(FileBasedRelation):
 
     def arrow_dataset(self, files: Optional[List[str]] = None) -> pads.Dataset:
         target = files if files is not None else self._files
+        if self._file_format in MATERIALIZED_FORMATS:
+            return self._materialized_dataset(target)
+        fmt = formats.arrow_format(self._file_format, self._options)
         if self._part_cols:
             part = pads.partitioning(pa.schema(self._partition_arrow_fields()), flavor="hive")
             return pads.dataset(
                 target,
-                format=self._file_format,
+                format=fmt,
                 partitioning=part,
                 partition_base_dir=self._root_paths[0],
             )
-        return pads.dataset(target, format=self._file_format)
+        return pads.dataset(target, format=fmt)
+
+    def _materialized_dataset(self, target: List[str]) -> pads.Dataset:
+        """Avro/text: decode to in-memory tables, attaching hive-partition
+        columns (constant per file, absent from the file bytes) so the schema
+        matches what the native path's hive partitioning would expose."""
+        tables = []
+        for f in target:
+            t = read_table(f, self._file_format)
+            if self._part_cols:
+                vals = self.partition_values_for(f)
+                for field in self._partition_arrow_fields():
+                    t = t.append_column(
+                        field, pa.array([vals.get(field.name)] * t.num_rows, type=field.type)
+                    )
+            tables.append(t)
+        return tables_to_dataset(tables)
 
     def all_file_infos(self) -> List[FileInfo]:
         return [FileInfo.from_path(f) for f in self._files]
@@ -156,6 +187,12 @@ class DefaultFileBasedRelation(FileBasedRelation):
 class DefaultFileBasedRelationMetadata(FileBasedRelationMetadata):
     """(ref: HS/index/sources/default/DefaultFileBasedRelationMetadata.scala:25)"""
 
+    def refresh(self) -> Relation:
+        fresh = DefaultFileBasedRelation(
+            self.relation.root_paths, self.relation.file_format, self.relation.options
+        )
+        return fresh.create_relation_metadata(None)
+
     def to_relation_object(self) -> DefaultFileBasedRelation:
         return DefaultFileBasedRelation(
             self.relation.root_paths, self.relation.file_format, self.relation.options
@@ -168,6 +205,8 @@ class DefaultFileBasedSource(FileBasedSourceProvider):
             return path_or_plan
         if isinstance(path_or_plan, tuple):
             paths, fmt, options = path_or_plan
+            if fmt not in SUPPORTED_FORMATS:
+                return None
             return DefaultFileBasedRelation(list(paths), fmt, options)
         return None
 
@@ -175,3 +214,11 @@ class DefaultFileBasedSource(FileBasedSourceProvider):
         if relation.file_format in SUPPORTED_FORMATS:
             return DefaultFileBasedRelationMetadata(relation)
         return None
+
+
+class DefaultFileBasedSourceBuilder:
+    """Builder loaded from conf ``hyperspace.index.sources.fileBasedBuilders``
+    (ref: HS/index/sources/FileBasedSourceProviderManager.scala:38-174)."""
+
+    def build(self, session) -> FileBasedSourceProvider:
+        return DefaultFileBasedSource()

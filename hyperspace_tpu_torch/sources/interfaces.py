@@ -14,7 +14,7 @@ from typing import Any, Dict, List, Optional
 
 import pyarrow as pa
 
-from hyperspace_tpu_torch.models.log_entry import FileInfo, Relation
+from hyperspace_tpu_torch.models.log_entry import FileInfo, IndexLogEntry, Relation
 
 
 class FileBasedRelation:
@@ -64,6 +64,12 @@ class FileBasedRelation:
         """Snapshot into log-entry form (ref: interfaces.scala createRelationMetadata)."""
         raise NotImplementedError
 
+    def closest_index(self, entry: IndexLogEntry) -> IndexLogEntry:
+        """Hook for source-specific index-version selection, e.g. Delta time
+        travel (ref: interfaces.scala:155-158, DeltaLakeRelation.scala:179-251).
+        Default: identity."""
+        return entry
+
     def has_parquet_as_source_format(self) -> bool:
         return self.file_format == "parquet"
 
@@ -84,6 +90,9 @@ class FileBasedRelationMetadata:
         """Revive a live FileBasedRelation over the logged source's current
         state (used by refresh actions)."""
         raise NotImplementedError
+
+    def internal_file_format_name(self) -> str:
+        return self.relation.file_format
 
     def enrich_index_properties(
         self,

@@ -233,7 +233,8 @@ def test_lineage_and_mesh_builds_raise(lake, tmp_path):
     """What the port does not have yet raises; it never quietly builds
     something else. The lineage build and the lifecycle actions are in the
     port now: a lineage index carries ``_data_file_id``, and an action on a
-    missing index raises the JAX package's error, not ``NotImplementedError``."""
+    missing index raises the JAX package's error, not ``NotImplementedError``,
+    and a format no source provider reads raises the providers' error."""
     sess = ht.Session(conf={**_conf(ht.keys, str(tmp_path / "mesh")), "hyperspace.parallel.enabled": "true"},
                       device="cpu")
     with pytest.raises(NotImplementedError, match="mesh"):
@@ -246,8 +247,8 @@ def test_lineage_and_mesh_builds_raise(lake, tmp_path):
     for op in (hs.refresh_index, hs.optimize_index, hs.delete_index, hs.vacuum_index, hs.restore_index):
         with pytest.raises(HyperspaceActionException, match="does not exist|is DOESNOTEXIST"):
             op("i")
-    with pytest.raises(NotImplementedError, match="parquet only"):
-        hs.session.read(lake, "csv")
+    with pytest.raises(Exception, match="exactly one source provider"):
+        hs.session.read(lake, "xml")
 
 
 def test_nested_columns_raise(tmp_path):

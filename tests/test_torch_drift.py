@@ -1,6 +1,6 @@
 """The port's verbatim copies of the JAX package's device-free modules.
 
-Twelve modules of ``hyperspace_tpu_torch/`` are copies of their counterparts
+Seventeen modules of ``hyperspace_tpu_torch/`` are copies of their counterparts
 in ``hyperspace_tpu/`` with only the package name rewritten (and, in
 ``models/path_resolver.py``, one ``typing`` import fewer, since the copy
 does not use ``Optional``). This test compares the texts, so a change to
@@ -25,9 +25,14 @@ COPIES = {
     "models/data_manager.py": {},
     "models/states.py": {},
     "indexes/registry.py": {},
+    "sources/default.py": {},
+    "sources/delta.py": {},
+    "sources/formats.py": {},
+    "sources/iceberg.py": {},
     "sources/partitions.py": {},
     "sources/signatures.py": {},
     "stats.py": {},
+    "utils/avro.py": {},
     "utils/hashing.py": {},
     "version.py": {},
     "models/path_resolver.py": {"from typing import List, Optional": "from typing import List"},

@@ -239,13 +239,16 @@ def test_toggle_and_count(systems, lake):
 
 
 def test_not_ported_features_raise(systems, lake):
-    """Hybrid scan and the sharded filter are not in the port yet: asking
-    for them raises instead of quietly running something else."""
+    """The sharded filter is not in the port yet: asking for it raises
+    instead of quietly running something else. Hybrid scan is in the port:
+    over an unchanged lake it serves the index as the plain rewrite does."""
     sess = ht.Session(conf=_conf(ht.keys, systems["torch"], **{"hyperspace.index.hybridscan.enabled": "true"}),
                       device="cpu")
+    q = sess.read_parquet(lake).filter(ht.col("k") == 7)
+    off = q.collect()
     sess.enable_hyperspace()
-    with pytest.raises(NotImplementedError, match="hybrid scan"):
-        sess.read_parquet(lake).filter(ht.col("k") == 7).collect()
+    assert L.collect(q.optimized_plan(), lambda p: isinstance(p, L.IndexScan))
+    assert _multiset(q.collect()) == _multiset(off)
     sess = ht.Session(conf=_conf(ht.keys, systems["torch"], **{"hyperspace.parallel.enabled": "true",
                                                                  "hyperspace.tpu.query.deviceMinRows": 0}),
                       device="cpu")

@@ -22,10 +22,13 @@ order (the device programs); the dispatch trace's ``agg:``, ``filter:``,
 run must be equal too.
 
 Both packages' sessions set ``hyperspace.exec.join.broadcastMaxBytes`` to 0
-(the JAX package's broadcast tier is not in the port), and the JAX
-package's row-group pruning and native span walk are off: the port has
-neither yet, and with them off the JAX package decodes the same rows and
-takes the numpy span branch the port copies. The float key ``fk`` holds no
+(the JAX package's broadcast tier is not in the port) and turn row-group
+pruning off, so every chunk decodes whole and a query matching no row
+still streams (with pruning on, both packages prune its every chunk to
+zero rows and fall back alike; tests/test_torch_pruning.py compares the
+pruned streams). The JAX package's native span walk is off: the port does
+not have it, and without it the JAX package takes the numpy span branch
+the port copies. The float key ``fk`` holds no
 -0.0: the JAX package's device path splits -0.0 from +0.0 on its CPU
 backend, unlike its host path and the port (ROADMAP C, tests/test_torch_agg.py).
 """
@@ -127,9 +130,8 @@ COVERING = [
 
 def _conf(pkg, system_path, **extra):
     base = {pkg.keys.SYSTEM_PATH: system_path, pkg.keys.NUM_BUCKETS: NUM_BUCKETS,
-            "hyperspace.tpu.build.batchRows": 400, "hyperspace.exec.join.broadcastMaxBytes": 0}
-    if pkg is hst:
-        base["hyperspace.exec.io.rowGroupPruning"] = False
+            "hyperspace.tpu.build.batchRows": 400, "hyperspace.exec.join.broadcastMaxBytes": 0,
+            "hyperspace.exec.io.rowGroupPruning": False}
     return {**base, **extra}
 
 
@@ -316,10 +318,10 @@ def test_abandoned_iterator_leaves_no_decode(system, lake, monkeypatch, name):
     real = IO.read_parquet_batch
     started, finished = [], []
 
-    def spy(files, columns):
+    def spy(files, columns, predicate=None):
         started.append(files)
         time.sleep(0.01)
-        out = real(files, columns)
+        out = real(files, columns, predicate=predicate)
         finished.append(files)
         return out
 
@@ -592,9 +594,8 @@ def test_infinite_partials_are_inherited(tmp_path, monkeypatch):
     for pkg in (hst, ht):
         for streamed in (True, False):
             kwargs = {} if pkg is hst else {"device": "cpu"}
-            conf = {pkg.keys.SYSTEM_PATH: str(tmp_path / "sys"), **(AGG_STREAM if streamed else {})}
-            if pkg is hst:
-                conf["hyperspace.exec.io.rowGroupPruning"] = False
+            conf = {pkg.keys.SYSTEM_PATH: str(tmp_path / "sys"), **(AGG_STREAM if streamed else {}),
+                    "hyperspace.exec.io.rowGroupPruning": False}
             sess = pkg.Session(conf=conf, **kwargs)
             out[pkg, streamed] = sess.read_parquet(str(d)).agg(s=("x", "sum"), sd=("x", "stddev_samp")).collect()
     _assert_same_batch(out[ht, True], out[hst, True])
