@@ -7,7 +7,7 @@ Phases, each printed with its time (the filter query's phases are 5, 10
 and 13, the join's 6, 11 and 14, the aggregates' 7, 12 and 15, out-of-core
 execution's 7b, 12b, 15b and 17, the index lifecycle's 7c and 12c, scan
 pruning's 7d and 12d, hybrid scan's 7e and 12e, the other sources' 7f and
-12f):
+12f, the SQL front end's 7g and 12g):
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: compiles the port's CUDA kernels from ``hyperspace_tpu_torch/csrc``;
@@ -92,6 +92,16 @@ pruning's 7d and 12d, hybrid scan's 7e and 12e, the other sources' 7f and
    sketch pruning), an Iceberg table (covering index on the GPU, a new
    snapshot through hybrid scan) and CSV and ORC lakes (covering index on
    the GPU): every query GPU == CPU port == hyperspace off;
+7g. sql-small: the shaped 8-table TPC-H fixture of the JAX package's SQL
+   suite (tests/test_tpch_queries.py's schemas, rows, generator, shaping
+   and index roster at 4 buckets, copied here) indexed in a CPU and a GPU
+   session (``deviceMinRows=0``; K1 for each GPU build); the 22 texts of
+   tests/tpch_queries.py through ``Session.sql``: the GPU rows equal the
+   CPU port's in order (floats at rtol 1e-9) and hyperspace off as a
+   multiset, the optimized plan equals tests/approved_plans/tpch_sql/qN.txt,
+   no result is empty, and the trace's ``join:``, ``scan:`` and ``filter:``
+   counts equal qN.dispatch.txt's (the JAX package's broadcast join, A6,
+   answers as the generic merge; ``decode:`` lines, A13, are left out);
 8. generate and slice: generates a TPC-H-shaped SF1 ``lineitem`` lake (6M
    rows in 16 files, from ``--seed``, with TPC-H's return flag and line
    status) and builds three indexes through the public API (``Session`` ->
@@ -189,6 +199,20 @@ pruning's 7d and 12d, hybrid scan's 7e and 12e, the other sources' 7f and
    again and a time-travel q6 of the table before the edits (served by
    the index's first version), each action's seconds, rows/s and
    launches, each query cold, warm and off;
+12g. sql: all 8 TPC-H tables at SF1 from ``benchmarks/tpch_full.py``'s
+   ``gen_all`` (``--seed``), the suite's roster at 200 buckets (each
+   build's seconds and K1 launches); q1 (unindexed) and the nine queries
+   that rewrite in benchmarks/RESULTS.md's 22-query table (q3, q5, q6,
+   q10, q12, q14, q17, q18, q19): the time of ``Session.sql()`` plus
+   ``optimized_plan()``, the plan and the trace, the rows against
+   hyperspace off (a multiset), cold, warm (the median of ``--reps``/4)
+   and off, each split by its layers; then ``li_q1`` (K1) and q6 and q1
+   through SQL beside A2 and A1 (the DataFrame API) on the same lake,
+   warm, with the aggregate tier each takes (SQL's ``Aggregate ->
+   Compute`` takes the host aggregate, as in the JAX package); then the
+   other twelve once on and once off, rows equal, over a lake and roster
+   of their own at SF 0.1 (cut from SF1 to keep the script inside its
+   time limit);
 13. profile-query: one warm q6 under ``torch.profiler``: device busy time
    against the query's wall time, and the device time by op;
 14. profile-join: the same for one warm J1;
@@ -204,15 +228,16 @@ pruning's 7d and 12d, hybrid scan's 7e and 12e, the other sources' 7f and
    alone, above 1.2 GiB, sized from those indexes' SF1 bytes per row;
    the lake generated on worker processes and indexed (K1 launches), the
    gates' crossing asserted from the bytes; J1 (the streamed join) and A1
-   (the streamed aggregate) cold and warm, against hyperspace off (J1 by
-   row count and an order-free digest of the rows, A1 at the aggregates'
-   tolerances), with no ``stream-fallback`` in any trace.
+   (the streamed aggregate) cold, against hyperspace off (J1 by row count
+   and an order-free digest of the rows, A1 at the aggregates'
+   tolerances), with no ``stream-fallback`` in any trace (the warm run
+   went, for the script's time limit).
 
 The third line from the end is a JSON object with the queries', the
 joins' (under ``"join"``), the aggregates' (under ``"agg"``), the
 lifecycle's (under ``"lifecycle"``), pruning's (``"prune"``), hybrid
-scan's (``"hybrid"``) and the Delta table's (``"delta"``) results and
-times, the line before the last one with an entry per kernel (its launches
+scan's (``"hybrid"``), the Delta table's (``"delta"``) and SQL's
+(``"sql"``) results and times, the line before the last one with an entry per kernel (its launches
 on the build's main path, and per path under ``launches_by_path``); the
 last line
 is ``{"ok": true, "device": {...}}``. Any failed check raises, so
@@ -2374,7 +2399,7 @@ def run_scale(main_sess, li_src: str, o_src: str, tmp: str, args, smi: str) -> d
     """A lake whose J1 and A1 inputs pass the real 1 GiB gates with the
     defaults untouched (``deviceMinRows`` 0, as in every SF1 phase):
     sized from the SF1 index bytes per row, generated, indexed, then J1 and
-    A1 cold and warm against hyperspace off."""
+    A1 cold against hyperspace off."""
     import torch
 
     import hyperspace_tpu_torch as ht
@@ -2454,17 +2479,13 @@ def run_scale(main_sess, li_src: str, o_src: str, tmp: str, args, smi: str) -> d
             assert "agg: streamed-partial x1" in summary.splitlines(), summary
         assert_no_fallback(summary, f"scale {name}")
         dispatches = dict(D.dispatches)
-        t = time.perf_counter()
-        q.collect()
-        torch.cuda.synchronize()
-        warm = (time.perf_counter() - t) * 1e3
         with sess.hyperspace_scope(False):
             t = time.perf_counter()
             off, off_summary = traced_collect(q)
             off_ms = (time.perf_counter() - t) * 1e3
         print(f"trace scale {name} off: " + "; ".join(off_summary.splitlines()), flush=True)
         n = len(next(iter(got.values())))
-        entry = {"rows_out": n, "cold_ms": cold, "warm_ms": warm, "off_ms": off_ms, "dispatches": dispatches}
+        entry = {"rows_out": n, "cold_ms": cold, "off_ms": off_ms, "dispatches": dispatches}
         if name == "J1":
             digest = row_digest(got, SCALE_J1_COLUMNS)
             assert n == len(off["l_orderkey"]) and digest == row_digest(off, SCALE_J1_COLUMNS), \
@@ -2474,7 +2495,7 @@ def run_scale(main_sess, li_src: str, o_src: str, tmp: str, args, smi: str) -> d
             assert same_groups(got, off, float_aggs_of(q), ordered=False), "scale A1: differs from hyperspace off"
         del got, off
         out[name] = entry
-        print(f"scale {name}: {n} rows out, equal to hyperspace off; cold {cold:.3f} ms, warm {warm:.3f} ms, "
+        print(f"scale {name}: {n} rows out, equal to hyperspace off; cold {cold:.3f} ms, "
               f"hyperspace off {off_ms:.3f} ms; dispatches {dispatches} ({smi})", flush=True)
     return out
 
@@ -3637,12 +3658,484 @@ def run_delta(li_src: str, tmp: str, args, smi: str) -> dict:
     return out
 
 
+# --- the SQL front end ------------------------------------------------------------
+
+#: TPC-H's 22 query texts (tests/tpch_queries.py holds only strings)
+TPCH_QUERIES_FILE = os.path.join(HERE, "tests", "tpch_queries.py")
+#: the approved plans and dispatch traces of the JAX package's SQL suite
+TPCH_APPROVED_DIR = os.path.join(HERE, "tests", "approved_plans", "tpch_sql")
+
+# The shaped 8-table fixture of tests/test_tpch_queries.py (that file imports
+# the JAX package, so its schemas, row counts, generator, shaping and index
+# roster are kept here as a copy).
+# column name -> generator kind; I=key int, F=money, S=string-ish, D=date
+TPCH_SCHEMAS = {
+    "region": {"r_regionkey": "I", "r_name": "RN", "r_comment": "S"},
+    "nation": {"n_nationkey": "I", "n_name": "NN", "n_regionkey": "RK", "n_comment": "S"},
+    "supplier": {
+        "s_suppkey": "I", "s_name": "S", "s_address": "S", "s_nationkey": "NK",
+        "s_phone": "PH", "s_acctbal": "F", "s_comment": "S",
+    },
+    "customer": {
+        "c_custkey": "I", "c_name": "S", "c_address": "S", "c_nationkey": "NK",
+        "c_phone": "PH", "c_acctbal": "F", "c_mktsegment": "SEG", "c_comment": "S",
+    },
+    "part": {
+        "p_partkey": "I", "p_name": "PN", "p_mfgr": "S", "p_brand": "BR",
+        "p_type": "PT", "p_size": "SZ", "p_container": "CT", "p_retailprice": "F",
+        "p_comment": "S",
+    },
+    "partsupp": {
+        "ps_partkey": "I", "ps_suppkey": "I", "ps_availqty": "Q",
+        "ps_supplycost": "F", "ps_comment": "S",
+    },
+    "orders": {
+        "o_orderkey": "I", "o_custkey": "I", "o_orderstatus": "ST",
+        "o_totalprice": "F", "o_orderdate": "D", "o_orderpriority": "PR",
+        "o_clerk": "S", "o_shippriority": "SZ", "o_comment": "SC",
+    },
+    "lineitem": {
+        "l_orderkey": "I", "l_partkey": "I", "l_suppkey": "I", "l_linenumber": "SZ",
+        "l_quantity": "Q", "l_extendedprice": "F", "l_discount": "DISC", "l_tax": "DISC",
+        "l_returnflag": "RF", "l_linestatus": "LS", "l_shipdate": "D",
+        "l_commitdate": "D", "l_receiptdate": "D", "l_shipinstruct": "SI",
+        "l_shipmode": "SM", "l_comment": "S",
+    },
+}
+TPCH_SMALL_ROWS = {"region": 3, "nation": 6, "supplier": 40, "customer": 60, "part": 80,
+                   "partsupp": 300, "orders": 600, "lineitem": 2400}
+_TPCH_NATIONS = ["FRANCE", "GERMANY", "BRAZIL", "CANADA", "ASIAN1", "ASIAN2"]
+_TPCH_REGIONS = ["EUROPE", "AMERICA", "ASIA"]
+# foreign-key domains: values land inside the referenced table's key range
+_TPCH_FK_DOMAIN = {"l_orderkey": "orders", "l_partkey": "part", "l_suppkey": "supplier",
+                   "ps_partkey": "part", "ps_suppkey": "supplier", "o_custkey": "customer"}
+#: (table, index, indexed columns, included columns): the suite's roster
+TPCH_INDEXES = [
+    ("lineitem", "li_ok", ["l_orderkey"],
+     ["l_extendedprice", "l_discount", "l_quantity", "l_tax", "l_shipdate",
+      "l_commitdate", "l_receiptdate", "l_shipmode", "l_returnflag",
+      "l_linestatus", "l_suppkey", "l_partkey"]),
+    ("lineitem", "li_sd", ["l_shipdate"],
+     ["l_extendedprice", "l_discount", "l_quantity", "l_orderkey"]),
+    ("lineitem", "li_pk", ["l_partkey"],
+     ["l_extendedprice", "l_discount", "l_quantity", "l_shipdate",
+      "l_shipmode", "l_shipinstruct"]),
+    ("orders", "o_ok", ["o_orderkey"],
+     ["o_custkey", "o_orderdate", "o_totalprice", "o_orderpriority",
+      "o_orderstatus", "o_shippriority"]),
+    ("orders", "o_ck", ["o_custkey"],
+     ["o_orderkey", "o_orderdate", "o_totalprice", "o_shippriority",
+      "o_comment"]),
+    ("customer", "c_ck", ["c_custkey"],
+     ["c_name", "c_acctbal", "c_mktsegment", "c_nationkey", "c_phone",
+      "c_address", "c_comment"]),
+    ("part", "p_pk", ["p_partkey"],
+     ["p_name", "p_mfgr", "p_brand", "p_type", "p_size", "p_container",
+      "p_retailprice"]),
+    ("supplier", "s_sk", ["s_suppkey"],
+     ["s_name", "s_address", "s_nationkey", "s_phone", "s_acctbal",
+      "s_comment"]),
+    ("partsupp", "ps_pk", ["ps_partkey"],
+     ["ps_suppkey", "ps_availqty", "ps_supplycost"]),
+]
+#: the queries that rewrite onto the roster in benchmarks/RESULTS.md's
+#: 22-query table, and q1, the unindexed scan
+SQL_TIMED = ("q1", "q3", "q5", "q6", "q10", "q12", "q14", "q17", "q18", "q19")
+#: the scale factors of the ``sql`` phase's lakes: the timed queries', and
+#: the other twelve's (cut to keep the script inside its time limit)
+SQL_SF = 1.0
+SQL_OTHER_SF = 0.1
+
+
+def _tpch_gen(cname, kind, n, rng):
+    """One column of the small fixture (tests/test_tpch_queries.py::_gen)."""
+    import numpy as np
+
+    if kind == "I":
+        dom = TPCH_SMALL_ROWS.get(_TPCH_FK_DOMAIN.get(cname, ""), n)
+        return rng.integers(0, dom, n).astype(np.int64)
+    if kind == "F":
+        return np.round(rng.uniform(0, 2000, n), 2)
+    if kind == "Q":
+        return rng.integers(1, 60, n).astype(np.int64)
+    if kind == "DISC":
+        return np.round(rng.integers(0, 11, n) / 100.0, 2)
+    if kind == "D":
+        return np.datetime64("1992-01-01") + rng.integers(0, 2500, n).astype("timedelta64[D]")
+    if kind == "SZ":
+        return np.array([[1, 5, 15, 23, 36, 45, 9, 14][i % 8] for i in range(n)], dtype=np.int64)
+    if kind == "RN":
+        return np.array([_TPCH_REGIONS[i % len(_TPCH_REGIONS)] for i in range(n)], dtype=object)
+    if kind == "NN":
+        return np.array([_TPCH_NATIONS[i % len(_TPCH_NATIONS)] for i in range(n)], dtype=object)
+    if kind == "RK":
+        return np.array([[0, 0, 1, 1, 2, 2][i % 6] for i in range(n)], dtype=np.int64)
+    if kind == "NK":
+        return np.array([i % 6 for i in range(n)], dtype=np.int64)
+    if kind == "PH":
+        return np.array([f"{13 + (i % 20)}-{i % 997:03d}-55" for i in range(n)], dtype=object)
+    if kind == "SEG":
+        segs = ["BUILDING", "AUTOMOBILE", "MACHINERY"]
+        return np.array([segs[i % 3] for i in range(n)], dtype=object)
+    if kind == "PN":
+        words = ["forest", "green", "lavender", "blue"]
+        return np.array([f"{words[i % 4]} part {i}" for i in range(n)], dtype=object)
+    if kind == "BR":
+        return np.array([f"Brand#{[12, 23, 34, 45][i % 4]}" for i in range(n)], dtype=object)
+    if kind == "PT":
+        kinds = ["ECONOMY ANODIZED STEEL", "MEDIUM POLISHED BRASS", "SMALL BRASS", "PROMO STEEL"]
+        return np.array([kinds[i % 4] for i in range(n)], dtype=object)
+    if kind == "CT":
+        cts = ["SM CASE", "MED BOX", "LG PACK", "JUMBO JAR"]
+        return np.array([cts[i % 4] for i in range(n)], dtype=object)
+    if kind == "ST":
+        return np.array([["F", "O", "P"][i % 3] for i in range(n)], dtype=object)
+    if kind == "PR":
+        return np.array([["1-URGENT", "2-HIGH", "3-MEDIUM"][i % 3] for i in range(n)], dtype=object)
+    if kind == "RF":
+        return np.array([["R", "A", "N"][i % 3] for i in range(n)], dtype=object)
+    if kind == "LS":
+        return np.array([["O", "F"][i % 2] for i in range(n)], dtype=object)
+    if kind == "SI":
+        return np.array([["DELIVER IN PERSON", "COLLECT COD"][i % 2] for i in range(n)], dtype=object)
+    if kind == "SM":
+        return np.array([["AIR", "MAIL", "SHIP", "AIR REG"][i % 4] for i in range(n)], dtype=object)
+    if kind == "SC":
+        return np.array([("special requests" if i % 9 == 0 else f"note {i}") for i in range(n)], dtype=object)
+    return np.array([f"{cname[:5]}_{i % 37}" for i in range(n)], dtype=object)
+
+
+def _tpch_shape(name, cols, n, rng) -> None:
+    """The fixture's shaping (tests/test_tpch_queries.py::_shape_table):
+    heavy orders for q18, commit and receipt dates derived from the ship
+    date with about 20% lateness, orderless customers for q22."""
+    import numpy as np
+
+    if name == "lineitem":
+        heavy = n // 6
+        cols["l_orderkey"][:heavy] = rng.integers(0, 20, heavy)
+        cols["l_shipdate"] = np.datetime64("1993-01-01") + rng.integers(0, 1460, n).astype("timedelta64[D]")
+        ship = cols["l_shipdate"]
+        commit = ship + rng.integers(7, 30, n).astype("timedelta64[D]")
+        late = rng.random(n) < 0.2
+        receipt = commit + np.where(late, rng.integers(1, 6, n), rng.integers(-5, 1, n)).astype("timedelta64[D]")
+        cols["l_commitdate"] = commit
+        cols["l_receiptdate"] = receipt
+    if name == "orders":
+        cols["o_custkey"] = rng.integers(0, int(TPCH_SMALL_ROWS["customer"] * 0.85), n).astype(np.int64)
+    if name == "customer":
+        lo = int(TPCH_SMALL_ROWS["customer"] * 0.85)
+        cols["c_acctbal"][lo:] = cols["c_acctbal"][lo:] + 1500.0
+
+
+def gen_tpch_small(root: str) -> dict:
+    """The suite's shaped 8-table lake, one parquet file per table, each
+    table's generator seeded from its name as the suite seeds it (its
+    approved plans and dispatch traces are of this data); {table: dir}."""
+    import zlib
+
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    dirs = {}
+    for name, schema in TPCH_SCHEMAS.items():
+        rng = np.random.default_rng(zlib.crc32(name.encode()))
+        n = TPCH_SMALL_ROWS[name]
+        cols = {c: _tpch_gen(c, k, n, rng) for c, k in schema.items()}
+        if name in ("region", "nation", "supplier", "customer", "part", "orders"):
+            cols[list(schema)[0]] = np.arange(n, dtype=np.int64)  # unique primary keys
+        _tpch_shape(name, cols, n, rng)
+        d = dirs[name] = os.path.join(root, name)
+        os.makedirs(d)
+        pq.write_table(pa.table(cols), os.path.join(d, "part-00000.parquet"))
+    return dirs
+
+
+def tpch_texts() -> dict:
+    """{qN: text} of tests/tpch_queries.py (a file of string literals)."""
+    ns: dict = {}
+    with open(TPCH_QUERIES_FILE, encoding="utf-8") as f:
+        exec(compile(f.read(), TPCH_QUERIES_FILE, "exec"), ns)
+    return dict(sorted(ns["TPCH_QUERIES"].items(), key=lambda kv: int(kv[0][1:])))
+
+
+def open_tpch(dirs: dict, system: str, device: str, num_buckets=None):
+    """A session over the lake with every table registered as a view and
+    the roster built (hyperspace on, ``deviceMinRows=0``); the seconds and
+    kernel launches of each build."""
+    import torch
+
+    import hyperspace_tpu_torch as ht
+    from hyperspace_tpu_torch.ops import kernels
+
+    conf = {ht.keys.SYSTEM_PATH: system, ht.keys.DEVICE_MIN_ROWS: 0}
+    if num_buckets is not None:
+        conf[ht.keys.NUM_BUCKETS] = num_buckets
+    sess = ht.Session(conf=conf, device=device)
+    for name, d in dirs.items():
+        sess.read_parquet(d).create_or_replace_temp_view(name)
+    hs = ht.Hyperspace(sess)
+    builds = {}
+    for table, name, indexed, included in TPCH_INDEXES:
+        if device == "cuda":
+            torch.cuda.synchronize()
+        kernels.reset_launches()
+        t = time.perf_counter()
+        hs.create_index(sess._temp_views[table], ht.CoveringIndexConfig(name, indexed, included))
+        if device == "cuda":
+            torch.cuda.synchronize()
+        builds[name] = {"seconds": time.perf_counter() - t, "launches": dict(kernels.launches)}
+    return sess.enable_hyperspace(), builds
+
+
+def approved_dispatch(qname: str) -> dict:
+    """The approved trace's ``join:``, ``scan:`` and ``filter:`` counts in
+    the port's terms: the JAX package's broadcast join (A6) answers as the
+    generic merge; where it streams its probe side through the bucketed
+    join (``join: host-span-smj-stream``), the port's merge runs that join
+    on its device tier (``join: device-smj`` over two ``scan:
+    index-bucketed``); ``decode:`` lines are the native decode's (A13)."""
+    counts = collections.Counter()
+    with open(os.path.join(TPCH_APPROVED_DIR, f"{qname}.dispatch.txt"), encoding="utf-8") as f:
+        for line in f.read().splitlines():
+            what, n = line.rsplit(" x", 1)
+            if what == "join: broadcast-hash-stream":
+                what = "join: generic-merge"
+            if what == "join: host-span-smj-stream":
+                counts["join: device-smj"] += int(n)
+                counts["scan: index-bucketed"] += 2 * int(n)
+            elif what.startswith(("join:", "scan:", "filter:")):
+                counts[what] += int(n)
+    return dict(counts)
+
+
+def dispatch_counts(summary: str) -> dict:
+    """A trace summary's ``join:``, ``scan:`` and ``filter:`` counts."""
+    out = {}
+    for line in summary.splitlines():
+        what, n = line.rsplit(" x", 1)
+        if what.startswith(("join:", "scan:", "filter:")):
+            out[what] = int(n)
+    return out
+
+
+def float_columns(batch) -> set:
+    return {k for k, v in batch.items() if v.dtype.kind == "f"}
+
+
+def check_sql_small(tmp: str, seed: int, devices=("cpu", "cuda")) -> dict:
+    """The 22 TPC-H texts through ``Session.sql`` over the suite's fixture,
+    indexed in a CPU and a GPU session: the GPU rows equal the CPU port's in
+    order (floats at rtol 1e-9) and hyperspace off as a multiset, the plan
+    equals the approved one, no result is empty, and the trace's join, scan
+    and filter counts equal the approved ones (``approved_dispatch``)."""
+    import hyperspace_tpu_torch as ht
+
+    root = os.path.join(tmp, "sql-small")
+    dirs = gen_tpch_small(root)
+    texts = tpch_texts()
+    assert len(texts) == 22, sorted(texts)
+    sessions, builds = {}, {}
+    for device in devices:
+        sessions[device], builds[device] = open_tpch(dirs, os.path.join(root, f"_indexes-{device}"), device,
+                                                     num_buckets=4)
+    k1 = sum(b["launches"].get("bucket_histogram", 0) for b in builds[devices[-1]].values())
+    if devices[-1] == "cuda":
+        assert all(b["launches"].get("bucket_histogram", 0) > 0 for b in builds["cuda"].values()), builds["cuda"]
+    print(f"sql-small: 8 tables, {len(TPCH_INDEXES)} covering indexes at 4 buckets in each session; "
+          f"K1 launches of the GPU builds {k1}", flush=True)
+    out = {}
+    for qname, text in texts.items():
+        got, traces = {}, {}
+        for device, sess in sessions.items():
+            q = sess.sql(text)
+            plan = q.optimized_plan().pretty().replace(root, "<TPCH>")
+            with open(os.path.join(TPCH_APPROVED_DIR, f"{qname}.txt"), encoding="utf-8") as f:
+                assert plan == f.read(), f"{qname} on {device}: the plan differs from the approved one:\n{plan}"
+            clear_query_caches()
+            got[device], traces[device] = traced_collect(q)
+            assert dispatch_counts(traces[device]) == approved_dispatch(qname), (
+                f"{qname} on {device}: {traces[device]} against {approved_dispatch(qname)}")
+        gpu, cpu = got[devices[-1]], got[devices[0]]
+        floats = float_columns(cpu)
+        assert same_groups(gpu, cpu, floats, ordered=True), f"{qname}: the GPU rows differ from the CPU port's"
+        sess = sessions[devices[-1]]
+        with sess.hyperspace_scope(False):
+            off = sess.sql(text).collect()
+        assert same_groups(gpu, off, floats | float_columns(off), ordered=False), (
+            f"{qname}: the GPU rows differ from hyperspace off")
+        rows = len(next(iter(gpu.values())))
+        assert rows > 0, f"{qname} returned no rows"
+        lines = [ln for ln in traces[devices[-1]].splitlines() if not ln.startswith("decode:")]
+        out[qname] = {"rows": rows, "trace": lines}
+        print(f"sql-small {qname}: {rows} rows; plan as approved; GPU equals the CPU port in order and "
+              f"hyperspace off as a multiset; " + "; ".join(lines), flush=True)
+    return {"queries": out, "k1_launches": k1}
+
+
+def sql_layers(sess, q, reps: int) -> dict:
+    """Cold (caches emptied) and warm (median of ``reps``) layers of one
+    query, with its trace and result."""
+    import torch
+
+    clear_query_caches()
+    sess.query_stage_seconds.clear()
+    t = time.perf_counter()
+    got, summary = traced_collect(q)
+    torch.cuda.synchronize()
+    cold = (time.perf_counter() - t) * 1e3
+    cold_layers = {k: v * 1e3 for k, v in sess.query_stage_seconds.items()}
+    cold_layers.update(rest=cold - sum(v for k, v in cold_layers.items() if not k.startswith("prefetch_")),
+                       total=cold)
+    return {"cold": cold_layers, "warm": layer_ms(sess, q.collect, reps)}, got, summary
+
+
+def run_sql(tmp: str, args, smi: str) -> dict:
+    """TPC-H at SF1 through ``Session.sql``: all 8 tables from
+    ``benchmarks/tpch_full.py::gen_all``, the suite's roster at 200 buckets,
+    the timed queries cold, warm and off, q6 and q1 beside their DataFrame
+    forms (A2, A1); then the other twelve once on and once off over a lake
+    and roster of their own at ``SQL_OTHER_SF``."""
+    import torch
+
+    import hyperspace_tpu_torch as ht
+    from benchmarks import tpch_full  # numpy and pyarrow only
+    from hyperspace_tpu_torch.exec import device as D
+    from hyperspace_tpu_torch.ops import kernels
+
+    root = os.path.join(tmp, "sql")
+    t = time.perf_counter()
+    dirs = tpch_full.gen_all(root, SQL_SF, args.seed)
+    gen_s = time.perf_counter() - t
+    print(f"sql lake: TPC-H SF {SQL_SF}, "
+          f"{', '.join(f'{k} {tpch_full._rows(k, SQL_SF)}' for k in tpch_full.ROWS_SF1)} rows ({gen_s:.3f} s)",
+          flush=True)
+    sess, builds = open_tpch(dirs, os.path.join(root, "_indexes"), "cuda")
+    for name, b in builds.items():
+        assert b["launches"].get("bucket_histogram", 0) > 0, (name, b)
+        print(f"build {name}: {b['seconds']:.3f} s, launches {b['launches']} ({smi})", flush=True)
+    texts = tpch_texts()
+    reps = max(2, args.reps // 4)
+    out = {"sf": SQL_SF, "gen_s": gen_s, "builds": builds, "device": smi, "warm_reps": reps, "timed": {}, "other": {}}
+
+    def plan_ms(text):
+        t = time.perf_counter()
+        q = sess.sql(text)
+        plan = q.optimized_plan()
+        return q, plan, (time.perf_counter() - t) * 1e3
+
+    D.reset_dispatches()
+    for qname in SQL_TIMED:
+        q, plan, p_ms = plan_ms(texts[qname])
+        print(f"plan {qname} ({p_ms:.3f} ms to parse, resolve and optimize):\n{plan.pretty()}", flush=True)
+        layers, got, summary = sql_layers(sess, q, reps)
+        lines = [ln for ln in summary.splitlines() if not ln.startswith("decode:")]
+        print(f"trace {qname}: " + "; ".join(lines), flush=True)
+        with sess.hyperspace_scope(False):
+            sess.query_stage_seconds.clear()
+            t = time.perf_counter()
+            off = q.collect()
+            off_ms = (time.perf_counter() - t) * 1e3
+            off_layers = {k: v * 1e3 for k, v in sess.query_stage_seconds.items()}
+            off_layers.update(rest=off_ms - sum(v for k, v in off_layers.items() if not k.startswith("prefetch_")),
+                              total=off_ms)
+        floats = float_columns(got) | float_columns(off)
+        rows = len(next(iter(got.values())))
+        assert rows > 0 and same_groups(got, off, floats, ordered=False), f"{qname}: differs from hyperspace off"
+        del off
+        out["timed"][qname] = {"rows": rows, "plan_ms": p_ms, "trace": lines,
+                               "indexes": sorted({s.entry.name for s in plan_index_scans(plan)}),
+                               "cold_ms": layers["cold"]["total"], "warm_ms": layers["warm"]["total"],
+                               "off_ms": off_ms,
+                               "layers_ms": {"cold": layers["cold"], "warm": layers["warm"], "off": off_layers}}
+        r = out["timed"][qname]
+        print(f"sql {qname}: {rows} rows, equal to hyperspace off; indexes {r['indexes']}; plan {p_ms:.3f} ms, "
+              f"cold {r['cold_ms']:.3f} ms, warm {r['warm_ms']:.3f} ms, off {r['off_ms']:.3f} ms ({smi})",
+              flush=True)
+        for run, lay in r["layers_ms"].items():
+            print(f"layers sql {qname} ({run}): " + ", ".join(f"{k} {v:.3f} ms" for k, v in lay.items())
+                  + f" ({smi})", flush=True)
+    out["dispatches"] = dict(D.dispatches)
+    print(f"sql path: dispatches {out['dispatches']}", flush=True)
+
+    # Compute beside the DataFrame API: q6 through SQL plans as Aggregate ->
+    # Compute -> Filter -> IndexScan and takes the host aggregate (as in the
+    # JAX package); A2, q6's aggregate over plain columns, takes fused-agg.
+    # q1 likewise beside A1 once li_q1 covers q1's columns.
+    li = sess.read_parquet(dirs["lineitem"])
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t = time.perf_counter()
+    ht.Hyperspace(sess).create_index(li, ht.CoveringIndexConfig(
+        "li_q1", ["l_shipdate"],
+        ["l_returnflag", "l_linestatus", "l_quantity", "l_extendedprice", "l_discount", "l_tax"]))
+    torch.cuda.synchronize()
+    out["li_q1_build"] = {"seconds": time.perf_counter() - t, "launches": dict(kernels.launches)}
+    assert out["li_q1_build"]["launches"].get("bucket_histogram", 0) > 0, out["li_q1_build"]
+    print(f"build li_q1 (sql lake): {out['li_q1_build']['seconds']:.3f} s, launches "
+          f"{out['li_q1_build']['launches']} ({smi})", flush=True)
+    pairs = {
+        "q6": sess.sql(texts["q6"]),
+        "A2": q6_filter(li).agg(revenue=("l_extendedprice", "sum"), n=("*", "count"),
+                                avg_disc=("l_discount", "avg"), min_qty=("l_quantity", "min"),
+                                max_qty=("l_quantity", "max")),
+        "q1": sess.sql(texts["q1"]),
+        "A1": q1_query(li),
+    }
+    out["compute"] = {}
+    for name, q in pairs.items():
+        got, summary = traced_collect(q)  # warms the caches
+        tiers = [ln for ln in summary.splitlines() if ln.startswith(("agg:", "filter:"))]
+        warm = layer_ms(sess, q.collect, reps)
+        plan = q.optimized_plan()
+        out["compute"][name] = {"tiers": tiers, "warm_ms": warm["total"], "layers_ms": warm,
+                                "indexes": sorted({s.entry.name for s in plan_index_scans(plan)}),
+                                "groups": len(next(iter(got.values())))}
+        print(f"compute {name}: {'; '.join(tiers)}; indexes {out['compute'][name]['indexes']}; warm "
+              f"{warm['total']:.3f} ms ({smi})", flush=True)
+        print(f"layers compute {name} (warm): " + ", ".join(f"{k} {v:.3f} ms" for k, v in warm.items())
+              + f" ({smi})", flush=True)
+    assert "agg: device-fused-scan x1" in out["compute"]["A2"]["tiers"], out["compute"]["A2"]
+    assert "agg: device-grouped-scan x1" in out["compute"]["A1"]["tiers"], out["compute"]["A1"]
+
+    other_root = os.path.join(tmp, "sql-other")
+    other_dirs = tpch_full.gen_all(other_root, SQL_OTHER_SF, args.seed)
+    sess, builds = open_tpch(other_dirs, os.path.join(other_root, "_indexes"), "cuda")
+    assert all(b["launches"].get("bucket_histogram", 0) > 0 for b in builds.values()), builds
+    out["other_sf"], out["other_builds"] = SQL_OTHER_SF, builds
+    print(f"sql other lake: TPC-H SF {SQL_OTHER_SF}, roster built, K1 launches "
+          f"{sum(b['launches'].get('bucket_histogram', 0) for b in builds.values())} ({smi})", flush=True)
+    for qname, text in texts.items():
+        if qname in SQL_TIMED:
+            continue
+        q, plan, p_ms = plan_ms(text)
+        t = time.perf_counter()
+        got, summary = traced_collect(q)
+        torch.cuda.synchronize()
+        on_ms = (time.perf_counter() - t) * 1e3
+        with sess.hyperspace_scope(False):
+            t = time.perf_counter()
+            off = q.collect()
+            off_ms = (time.perf_counter() - t) * 1e3
+        rows = len(next(iter(got.values())))
+        assert same_groups(got, off, float_columns(got) | float_columns(off), ordered=False), (
+            f"{qname}: differs from hyperspace off")
+        del off
+        lines = [ln for ln in summary.splitlines() if not ln.startswith("decode:")]
+        out["other"][qname] = {"rows": rows, "plan_ms": p_ms, "on_ms": on_ms, "off_ms": off_ms, "trace": lines,
+                               "indexes": sorted({s.entry.name for s in plan_index_scans(plan)})}
+        print(f"sql {qname} (SF {SQL_OTHER_SF}): {rows} rows, equal to hyperspace off; on {on_ms:.3f} ms "
+              f"(first run), off {off_ms:.3f} ms; " + "; ".join(lines) + f" ({smi})", flush=True)
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rows", type=int, default=LINEITEM_ROWS_SF1, help="lineitem rows (6M = SF1)")
     ap.add_argument("--files", type=int, default=16)
-    ap.add_argument("--reps", type=int, default=12, help="timed runs per kernel and warm query")
+    ap.add_argument("--reps", type=int, default=8, help="timed runs per kernel and warm query")
     ap.add_argument("--baseline-csrc", help="a copy of an earlier tree's hyperspace_tpu_torch/csrc: its "
                     "kernels are built and timed in turns with this tree's")
     args = ap.parse_args()
@@ -3723,6 +4216,10 @@ def main() -> None:
         t = time.perf_counter()
         sources_small = check_sources_small(tmp, args.seed)
         phase("sources-small", t)
+
+        t = time.perf_counter()
+        sql_small = check_sql_small(tmp, args.seed)
+        phase("sql-small", t)
 
         t = time.perf_counter()
         src = gen_lineitem(tmp, args.rows, args.files, args.seed)
@@ -3826,6 +4323,11 @@ def main() -> None:
         queries["delta"] = run_delta(src, tmp, args, smi)
         queries["delta"]["small"] = sources_small
         phase("delta", t)
+
+        t = time.perf_counter()
+        queries["sql"] = run_sql(tmp, args, smi)
+        queries["sql"]["small"] = sql_small
+        phase("sql", t)
         for name in results:
             results[name]["launches_by_path"] = {
                 "build": results[name]["launches"],
@@ -3833,6 +4335,10 @@ def main() -> None:
                 "hybrid": queries["hybrid"]["build"]["launches"].get(name, 0)
                 + queries["hybrid"]["full_refresh"]["launches"].get(name, 0),
                 "delta": sum(a["launches"].get(name, 0) for a in queries["delta"]["actions"]),
+                "sql-small": sql_small["k1_launches"] if name == "bucket_histogram" else 0,
+                "sql": sum(b["launches"].get(name, 0) for b in queries["sql"]["builds"].values())
+                + queries["sql"]["li_q1_build"]["launches"].get(name, 0)
+                + sum(b["launches"].get(name, 0) for b in queries["sql"]["other_builds"].values()),
             }
 
         t = time.perf_counter()

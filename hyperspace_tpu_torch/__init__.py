@@ -29,13 +29,18 @@ partitions, and parquet row groups by their footer statistics:
 gained or lost files as the index minus the deleted files' rows
 (``exec/lineage.py``, on the device) plus the appended files re-bucketed
 on the fly, and the Delta, Iceberg, CSV, JSON, ORC, Avro and text
-sources (``Session.read_delta``, ``read_iceberg``, ``read_*``).
+sources (``Session.read_delta``, ``read_iceberg``, ``read_*``) — and the
+SQL front end: ``Session.sql`` over views registered with
+``DataFrame.create_or_replace_temp_view`` (``plan/sql.py``, with
+``CASE``/``LIKE``/``CAST``, scalar functions, subqueries and their
+decorrelation, windows, set operations, ``ORDER BY`` and ``LIMIT``).
 
 Layer map (the JAX package's layout, module for module):
   - ``models/``    metadata model + operation-log persistence
   - ``sources/``   source providers (parquet and the other file formats,
                    Delta Lake, Iceberg)
-  - ``plan/``      logical plan, predicate language, column resolution
+  - ``plan/``      logical plan, expression language, column resolution,
+                   the SQL front end
   - ``indexes/``   covering and data-skipping index builds
   - ``actions/``   create, refresh, optimize and the maintenance actions
   - ``rules/``     ApplyHyperspace + JoinIndexRule + FilterIndexRule +
@@ -45,13 +50,14 @@ Layer map (the JAX package's layout, module for module):
                    anti-join
   - ``ops/``       hashing, encode, device sort, kernel wrappers
   - ``csrc/``      the CUDA kernels
+  - ``obs/``       the span tracer
   - ``telemetry/`` action events
 """
 
 from hyperspace_tpu_torch.version import __version__
 from hyperspace_tpu_torch.config import HyperspaceConf, keys
 from hyperspace_tpu_torch.session import Session, get_session, set_session
-from hyperspace_tpu_torch.plan.expr import col, lit
+from hyperspace_tpu_torch.plan.expr import col, lit, input_file_name
 from hyperspace_tpu_torch.plan.dataframe import DataFrame
 from hyperspace_tpu_torch.indexes.covering import CoveringIndexConfig
 from hyperspace_tpu_torch.indexes.dataskipping import (
@@ -71,6 +77,7 @@ __all__ = [
     "set_session",
     "col",
     "lit",
+    "input_file_name",
     "DataFrame",
     "CoveringIndexConfig",
     "DataSkippingIndexConfig",

@@ -5,7 +5,7 @@ the device is dense numeric (see exec/device.py)."""
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import pyarrow as pa
@@ -22,6 +22,18 @@ def table_to_batch(table: pa.Table) -> Batch:
         except pa.ArrowInvalid:
             out[name] = np.asarray(col.to_pylist(), dtype=object)
     return out
+
+
+def batch_to_table(batch: Batch, column_order: Optional[List[str]] = None) -> pa.Table:
+    names = column_order if column_order is not None else list(batch)
+    arrays = []
+    for n in names:
+        v = batch[n]
+        if v.dtype == object or v.dtype.kind in ("U", "S"):
+            arrays.append(pa.array([None if x is None else str(x) for x in v.tolist()], type=pa.string()))
+        else:
+            arrays.append(pa.array(v))
+    return pa.table(dict(zip(names, arrays)))
 
 
 def num_rows(batch: Batch) -> int:

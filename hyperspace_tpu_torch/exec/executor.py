@@ -17,12 +17,15 @@ chunks and merges partial states (``_streaming_aggregate``), and above
 (``DataFrame.to_local_iterator``). Chunks decode ahead of their consumer on
 the scan pipeline (exec/pipeline.py).
 
-The port's executor runs ``Scan``, ``FileScan``, ``IndexScan``,
-``Filter``, ``Project``, ``Join``, ``Aggregate`` and hybrid scan's
-``Union``, ``BucketUnion`` and ``Repartition``; every other node raises
-until its slice lands. A Filter over a source scan reads only the files
-its partition-column conjuncts keep, and pushes its predicate into the
-parquet read, which prunes row groups by their footer statistics.
+The executor runs every node of the logical plan: the scans, ``Filter``,
+``Project``, ``Compute``, ``Join`` (with a residual ON predicate on the
+host merge), ``Aggregate``, ``Sort`` and ``Limit`` (a host sort and
+slice), ``Window``, ``Rename``, ``SetOp`` and hybrid scan's ``Union``,
+``BucketUnion`` and ``Repartition``. Subquery expressions run once per
+``execute`` (``plan/expr.py::subquery_scope``). A Filter over a source
+scan reads only the files its partition-column conjuncts keep, and pushes
+its predicate into the parquet read, which prunes row groups by their
+footer statistics.
 The reference delegates all of this to Spark's physical planner/executors;
 here the framework owns it.
 """
@@ -38,13 +41,17 @@ from hyperspace_tpu_torch.exec import batch as B
 from hyperspace_tpu_torch.exec import trace
 from hyperspace_tpu_torch.plan import logical as L
 from hyperspace_tpu_torch.plan.expr import (
+    EMPTY_SCALAR,
     INPUT_FILE_NAME,
     BinaryOp,
     Expr,
     InputFileName,
+    NullableBool,
+    _to_value_array,
     as_bool_mask,
     extract_equi_join_keys,
     get_column,
+    subquery_scope,
 )
 
 
@@ -221,13 +228,122 @@ def _gather_with_missing(arr: np.ndarray, spec) -> np.ndarray:
     return res
 
 
+def _key_codes(arr: np.ndarray, asc: bool) -> np.ndarray:
+    """Per-row int64 sort codes for one key column: rank by value (negated
+    for descending), missing values (NaN/NaT/None) last in BOTH directions.
+    The single ordering definition shared by the Sort node, windows and
+    set operations."""
+    n = arr.shape[0]
+    if arr.dtype == object:
+        missing = np.array([v is None or (isinstance(v, float) and v != v) for v in arr], dtype=bool)
+        conv = np.where(missing, "", arr.astype(str))
+    elif arr.dtype.kind == "f":
+        missing = np.isnan(arr)
+        conv = np.where(missing, 0.0, arr)
+    elif arr.dtype.kind == "M":
+        missing = np.isnat(arr)
+        fill = arr[~missing][0] if (~missing).any() else arr
+        conv = np.where(missing, fill, arr)
+    else:
+        missing = np.zeros(n, dtype=bool)
+        conv = arr
+    _, codes = np.unique(conv, return_inverse=True)
+    keyvals = (codes if asc else -codes).astype(np.int64)
+    keyvals[missing] = np.iinfo(np.int64).max
+    return keyvals
+
+
+def _composite_codes(per_key: List[np.ndarray]) -> np.ndarray:
+    """Collapse per-key int64 codes into one composite code per row (equal
+    tuples share a code, ordering lexicographic)."""
+    n = per_key[0].shape[0] if per_key else 0
+    sort_order = np.lexsort(per_key[::-1])
+    changed = np.zeros(n, dtype=bool)
+    if n:
+        for kv in per_key:
+            s = kv[sort_order]
+            changed[1:] |= s[1:] != s[:-1]
+    composite = np.cumsum(changed)
+    out = np.empty(n, dtype=np.int64)
+    out[sort_order] = composite
+    return out
+
+
+def _order_codes(child: B.Batch, keys) -> np.ndarray:
+    """One int64 composite code per row whose ordering equals the
+    lexicographic (column, ascending) ordering — equal tuples share a code."""
+    return _composite_codes([_key_codes(child[name], asc) for name, asc in keys])
+
+
+def _window_column(child: B.Batch, spec, caches) -> np.ndarray:
+    """Evaluate one window spec over the batch (pandas per-partition ops).
+    ``caches`` memoizes partition ngroups and order codes across the sibling
+    specs of one Window node."""
+    import pandas as pd
+
+    part_cache, codes_cache = caches
+    out_name, fn, arg, pcols, orders, cumulative = spec
+    n = B.num_rows(child)
+    # one int per row identifying its partition
+    part = part_cache.get(tuple(pcols))
+    if part is None:
+        if pcols:
+            part = (
+                pd.DataFrame({c: child[c] for c in pcols})
+                .groupby(list(pcols), dropna=False, sort=False)
+                .ngroup()
+                .to_numpy()
+            )
+        else:
+            part = np.zeros(n, dtype=np.int64)
+        part_cache[tuple(pcols)] = part
+
+    def order_codes():
+        key = tuple(orders)
+        got = codes_cache.get(key)
+        if got is None:
+            got = codes_cache[key] = _order_codes(child, orders)
+        return got
+
+    if fn in ("rank", "dense_rank", "row_number"):
+        method = {"rank": "min", "dense_rank": "dense", "row_number": "first"}[fn]
+        return pd.Series(order_codes()).groupby(part).rank(method=method).astype(np.int64).to_numpy()
+
+    pd_fn = {"sum": "sum", "min": "min", "max": "max", "avg": "mean", "count": "count"}[fn]
+    vals = pd.Series(child[arg]) if arg is not None else pd.Series(np.ones(n, dtype=np.int64))
+    if cumulative and orders:
+        # explicit ROWS UNBOUNDED PRECEDING .. CURRENT ROW
+        codes = order_codes()
+        pos = np.lexsort((np.arange(n), part, codes))
+        inv = np.empty(n, dtype=np.int64)
+        inv[pos] = np.arange(n)
+        sv = vals.iloc[pos].reset_index(drop=True)
+        sp = part[pos]
+        if fn == "count":
+            cum = sv.notna().groupby(sp).cumsum()
+        elif fn == "sum":
+            # running sum skips NULLs (cumsum would leave NaN holes)
+            cum = sv.fillna(0).groupby(sp).cumsum()
+            all_null = (~sv.notna()).groupby(sp).cummin()  # NULL until a value
+            cum[all_null.astype(bool)] = np.nan
+        else:
+            # expanding() emits rows grouped by partition: drop the group
+            # level and sort back to sv's positional order before inverting
+            cum = sv.groupby(sp).expanding().agg(pd_fn).reset_index(level=0, drop=True).sort_index()
+        return np.asarray(cum)[inv]
+    if fn == "count" and arg is None:
+        return pd.Series(np.ones(n, dtype=np.int64)).groupby(part).transform("size").to_numpy()
+    return vals.groupby(part).transform(pd_fn).to_numpy()
+
+
 def _chain_to_scan(plan: L.LogicalPlan):
     """(wrappers, leaf) when ``plan`` is a chain of row-wise nodes
-    (Project/Filter) over a single Scan/FileScan/IndexScan leaf — the shape
-    the streaming executor can partition by files; (None, None) otherwise."""
+    (Project/Compute/Filter/Rename) over a single Scan/FileScan/IndexScan
+    leaf — the shape the streaming executor can partition by files; (None,
+    None) otherwise."""
     chain = []
     node = plan
-    while isinstance(node, (L.Project, L.Filter)):
+    while isinstance(node, (L.Project, L.Compute, L.Filter, L.Rename)):
         chain.append(node)
         node = node.child
     if isinstance(node, (L.Scan, L.FileScan, L.IndexScan)):
@@ -242,8 +358,13 @@ def _chain_needed_columns(chain, aggs=None, keys=None):
     for node in chain:
         if isinstance(node, L.Project):
             needed |= set(node.columns)
+        elif isinstance(node, L.Compute):
+            for _, e in node.exprs:
+                needed |= set(e.references())
         elif isinstance(node, L.Filter):
             needed |= set(node.condition.references())
+        elif isinstance(node, L.Rename):
+            needed |= set(node.mapping.keys())
     if aggs:
         needed |= {c for _, _, c in aggs if c is not None}
     if keys:
@@ -255,7 +376,8 @@ def _chain_pushdown_condition(chain):
     """AND of the chain's Filter conditions that sit over only Projects,
     still in source-column terms: the predicate the grouped device stream
     fuses into its program, and the one a chunk's leaf carries for
-    row-group pruning."""
+    row-group pruning. Compute and Rename rebind the namespace, so
+    conditions above them don't push."""
     cond = None
     for node in reversed(chain):  # leaf-most wrapper first
         if isinstance(node, L.Project):
@@ -486,7 +608,8 @@ class Executor:
 
         self._shared = shared_subplan_ids(plan)
         try:
-            batch = self._exec(plan, _plan_needs_file_names(plan))
+            with subquery_scope():  # each subquery runs once per execute
+                batch = self._exec(plan, _plan_needs_file_names(plan))
         finally:
             self._memo = {}
             self._shared = set()
@@ -508,8 +631,10 @@ class Executor:
 
         The JAX package streams a join it would broadcast (one side under
         ``hyperspace.exec.join.broadcastMaxBytes``) through its broadcast
-        probe, chunk by chunk; that tier is not in the port, which yields
-        the one batch ``collect()`` gives, the same rows."""
+        probe, chunk by chunk, and a root Limit through its sorted-run
+        merge, device top-k or an early-stopping scan; those tiers are not
+        in the port, which yields the one batch ``collect()`` gives, the
+        same rows."""
         from hyperspace_tpu_torch.rules.utils import prune_columns, shared_subplan_ids
 
         try:
@@ -519,58 +644,59 @@ class Executor:
         self._shared = shared_subplan_ids(plan)
         self._memo = {}
         try:
-            if _plan_needs_file_names(plan):
-                batch = self._exec(plan, True)
-                yield {k: v for k, v in batch.items() if k != INPUT_FILE_NAME}
-                return
-            node = plan
-            proj = None
-            if isinstance(node, L.Project):
-                proj, node = list(node.columns), node.child
-            # a Filter directly above a Join applies per streamed chunk
-            post_filter = None
-            if isinstance(node, L.Filter) and isinstance(node.child, L.Join):
-                post_filter, node = node.condition, node.child
-            if isinstance(node, L.Join) and self.session.conf.device_execution_enabled:
-                from hyperspace_tpu_torch.exec import device as D
-                from hyperspace_tpu_torch.exec import join as J
-
-                if J.join_sides_compatible(node) is not None:
-                    gen = J.stream_bucketed_join(self.session, node)
-                    try:
-                        try:
-                            first = next(gen)
-                        except StopIteration:
-                            return
-                        except D.DeviceUnsupported:
-                            # only the first bucket's refusal falls back, as
-                            # in the JAX package
-                            gen = None
-                        if gen is not None:
-
-                            def shape(chunk):
-                                if post_filter is not None:
-                                    chunk = B.mask_rows(chunk, as_bool_mask(post_filter.eval(chunk)))
-                                return B.select(chunk, proj) if proj else chunk
-
-                            trace.record("join", "host-span-smj-stream")
-                            yield shape(first)
-                            for chunk in gen:
-                                yield shape(chunk)
-                            return
-                    finally:
-                        if gen is not None:
-                            gen.close()  # an abandoned stream stops its bucket decodes
-            chain, leaf = _chain_to_scan(plan)
-            if leaf is not None:
-                files = _leaf_files(leaf)
-                groups = _chunk_files_by_bytes(files, max(1, self.session.conf.stream_chunk_bytes))
-                if len(groups) > 1:
-                    needed = _chain_needed_columns(chain) | set(plan.output_columns)
-                    yield from self._stream_chunks(chain, leaf, groups, needed)
+            with subquery_scope():
+                if _plan_needs_file_names(plan):
+                    batch = self._exec(plan, True)
+                    yield {k: v for k, v in batch.items() if k != INPUT_FILE_NAME}
                     return
-            batch = self._exec(plan, False)
-            yield {k: v for k, v in batch.items() if k != INPUT_FILE_NAME}
+                node = plan
+                proj = None
+                if isinstance(node, L.Project):
+                    proj, node = list(node.columns), node.child
+                # a Filter directly above a Join applies per streamed chunk
+                post_filter = None
+                if isinstance(node, L.Filter) and isinstance(node.child, L.Join):
+                    post_filter, node = node.condition, node.child
+                if isinstance(node, L.Join) and self.session.conf.device_execution_enabled:
+                    from hyperspace_tpu_torch.exec import device as D
+                    from hyperspace_tpu_torch.exec import join as J
+
+                    if J.join_sides_compatible(node) is not None:
+                        gen = J.stream_bucketed_join(self.session, node)
+                        try:
+                            try:
+                                first = next(gen)
+                            except StopIteration:
+                                return
+                            except D.DeviceUnsupported:
+                                # only the first bucket's refusal falls back, as
+                                # in the JAX package
+                                gen = None
+                            if gen is not None:
+
+                                def shape(chunk):
+                                    if post_filter is not None:
+                                        chunk = B.mask_rows(chunk, as_bool_mask(post_filter.eval(chunk)))
+                                    return B.select(chunk, proj) if proj else chunk
+
+                                trace.record("join", "host-span-smj-stream")
+                                yield shape(first)
+                                for chunk in gen:
+                                    yield shape(chunk)
+                                return
+                        finally:
+                            if gen is not None:
+                                gen.close()  # an abandoned stream stops its bucket decodes
+                chain, leaf = _chain_to_scan(plan)
+                if leaf is not None:
+                    files = _leaf_files(leaf)
+                    groups = _chunk_files_by_bytes(files, max(1, self.session.conf.stream_chunk_bytes))
+                    if len(groups) > 1:
+                        needed = _chain_needed_columns(chain) | set(plan.output_columns)
+                        yield from self._stream_chunks(chain, leaf, groups, needed)
+                        return
+                batch = self._exec(plan, False)
+                yield {k: v for k, v in batch.items() if k != INPUT_FILE_NAME}
         finally:
             self._memo = {}
             self._shared = set()
@@ -785,26 +911,112 @@ class Executor:
                 cols = cols + [INPUT_FILE_NAME]
             return B.select(child, cols)
 
+        if isinstance(plan, L.Compute):
+            child = self._exec(plan.child, with_file_names)
+            out = dict(child)
+            n = B.num_rows(child)
+            for name, expr in plan.exprs:
+                v = expr.eval(child)
+                if v is EMPTY_SCALAR:  # NULL scalar subquery -> NULL column
+                    v = np.full(n, np.nan)
+                elif isinstance(v, NullableBool):
+                    # a three-valued boolean projected as a SELECT item keeps
+                    # its NULLs (Spark yields NULL, not false)
+                    v = _to_value_array(v)
+                v = np.asarray(v)
+                if v.ndim == 0:
+                    v = np.broadcast_to(v, (n,)).copy()
+                out[name] = v
+            return out
+
         if isinstance(plan, L.Join):
             return self._exec_join(plan, with_file_names)
 
         if isinstance(plan, L.Aggregate):
             return self._exec_aggregate(plan, with_file_names)
 
+        if isinstance(plan, L.Sort):
+            # the host sort; the JAX package first tries its sorted-run merge
+            # over an order-covering index, which gives the same rows
+            child = self._exec(plan.child, with_file_names)
+            order = np.arange(B.num_rows(child))
+            # least-significant key first: stable argsorts compose into the
+            # lexicographic order over all keys. Keys sort by rank (np.unique
+            # codes): negation-safe for every dtype, and missing values
+            # (NaN/None) rank last in BOTH directions like pandas.
+            for name, asc in reversed(plan.keys):
+                arr = get_column(child, name)
+                if arr is None:
+                    raise KeyError(f"Sort key {name!r} not found")
+                keyvals = _key_codes(arr[order], asc)
+                order = order[np.argsort(keyvals, kind="stable")]
+            return {k: v[order] for k, v in child.items()}
+
+        if isinstance(plan, L.Limit):
+            # ORDER BY ... LIMIT k: the host sort, then the slice; the JAX
+            # package's sorted-run merge and streaming device top-k give
+            # byte-identical rows
+            child = self._exec(plan.child, with_file_names)
+            return {k: v[: plan.n] for k, v in child.items()}
+
+        if isinstance(plan, L.Window):
+            child = self._exec(plan.child, with_file_names)
+            out = dict(child)
+            caches = ({}, {})  # partition ngroups / order codes, shared by specs
+            for spec in plan.specs:
+                out[spec[0]] = _window_column(child, spec, caches)
+            return out
+
+        if isinstance(plan, L.Rename):
+            child = self._exec(plan.child, with_file_names)
+            return {plan.mapping.get(k, k): v for k, v in child.items()}
+
         if isinstance(plan, (L.Union, L.BucketUnion)):
             return B.concat([self._exec(c, with_file_names) for c in plan.children()])
+
+        if isinstance(plan, L.SetOp):
+            left = self._exec(plan.left, with_file_names)
+            right = self._exec(plan.right, with_file_names)
+            lcols = plan.left.output_columns
+            rcols = plan.right.output_columns
+            n_l = B.num_rows(left)
+            # code rows over the CONCATENATION of both sides so equal values
+            # of different dtypes (int64 vs float64 from a CAST or nullable
+            # column) share a code; NULLs (NaN/NaT/None) compare equal via
+            # the shared _key_codes missing handling
+            per_key = []
+            for lc, rc in zip(lcols, rcols):
+                a, b = left[lc], right[rc]
+                try:
+                    both = np.concatenate([a, b])
+                except (TypeError, ValueError):
+                    both = np.concatenate([a.astype(object), b.astype(object)])
+                per_key.append(_key_codes(both, True))
+            comp = _composite_codes(per_key) if per_key else np.zeros(0, dtype=np.int64)
+            l_codes, r_codes = comp[:n_l], comp[n_l:]
+            rset = np.zeros(int(comp.max()) + 1 if comp.size else 1, dtype=bool)
+            rset[r_codes] = True
+            hit = rset[l_codes]
+            first = np.zeros(n_l, dtype=bool)
+            if n_l:
+                _, first_idx = np.unique(l_codes, return_index=True)
+                first[first_idx] = True  # distinct semantics
+            keep = first & (hit if plan.kind == "intersect" else ~hit)
+            take = np.nonzero(keep)[0]
+            return {c: left[c][take] for c in lcols}
 
         if isinstance(plan, L.Repartition):
             # host path: an in-memory batch has no physical bucketing, so the
             # rows pass through (the bucketed join re-buckets them itself)
             return self._exec(plan.child, with_file_names)
 
-        raise NotImplementedError(f"executing {type(plan).__name__} is not yet in the port")
+        raise NotImplementedError(f"Cannot execute {type(plan).__name__}")
 
     def _exec_join(self, plan: L.Join, with_file_names: bool) -> B.Batch:
         """The bucketed sort-merge join when both sides are compatible
         bucketed index scans (exec/join.py), else the generic equi-join: a
-        pandas hash merge over slim key frames.
+        pandas hash merge over slim key frames (a residual ON predicate
+        filters its matched pairs, ``_residual_join``).
 
         The JAX package tries a broadcast hash join between the two; that
         tier is not in the port, and the generic merge gives the same rows
@@ -841,6 +1053,11 @@ class Executor:
             if got is not None:
                 batch[name] = got
                 return True
+            lowered = {k.lower(): k for k in batch}
+            actual = lowered.get(name.lower())
+            if actual is not None:
+                batch[name] = batch[actual]
+                return True
             return False
 
         # validate key sides (columns may arrive swapped from the user)
@@ -864,11 +1081,14 @@ class Executor:
         rkeys_renamed = [rename.get(k, k) for k in rkeys]
         ldf = pd.DataFrame({**{k: left[k] for k in lkeys}, "__lrow": np.arange(B.num_rows(left))})
         rdf = pd.DataFrame({**{k: right_named[k] for k in rkeys_renamed}, "__rrow": np.arange(B.num_rows(right))})
-        spill = self.session.conf.join_spill_min_rows
-        if spill and spill > 0 and max(len(ldf), len(rdf)) > spill:
-            merged = self._partitioned_merge(ldf, rdf, lkeys, rkeys_renamed, plan.how, spill)
+        if plan.residual is None:
+            spill = self.session.conf.join_spill_min_rows
+            if spill and spill > 0 and max(len(ldf), len(rdf)) > spill:
+                merged = self._partitioned_merge(ldf, rdf, lkeys, rkeys_renamed, plan.how, spill)
+            else:
+                merged = ldf.merge(rdf, left_on=lkeys, right_on=rkeys_renamed, how=plan.how)
         else:
-            merged = ldf.merge(rdf, left_on=lkeys, right_on=rkeys_renamed, how=plan.how)
+            merged = self._residual_join(plan, ldf, rdf, lkeys, rkeys_renamed, left, right_named)
         lspec = _gather_spec(merged["__lrow"].to_numpy())
         rspec = _gather_spec(merged["__rrow"].to_numpy())
         out: B.Batch = {}
@@ -956,6 +1176,47 @@ class Executor:
             return ldf.iloc[:0].merge(rdf.iloc[:0], left_on=lkeys, right_on=rkeys, how=how)
         return pd.concat(parts, ignore_index=True, sort=False)
 
+    @staticmethod
+    def _residual_join(plan: L.Join, ldf, rdf, lkeys, rkeys, left, right_named):
+        """Join with a non-equi ON residual: equi-match pairs, keep only
+        pairs satisfying the residual, then null-extend the unmatched side
+        rows for outer joins — ON-clause semantics, which a post-join filter
+        cannot express for left/right/full joins (a failing pair must
+        null-extend, not disappear). Residual references use post-join
+        (renamed) column names; NULL residual results drop the pair
+        (three-valued, like any SQL predicate). ``ldf``/``rdf`` are the slim
+        key+row-id frames; residual inputs gather from the original arrays."""
+        import pandas as pd
+
+        pairs = ldf.merge(rdf, left_on=lkeys, right_on=rkeys, how="inner")
+        if len(pairs):
+            # only the referenced columns feed the predicate (the planner
+            # resolved them to exact post-join names)
+            li = pairs["__lrow"].to_numpy()
+            ri = pairs["__rrow"].to_numpy()
+            batch = {}
+            for c in plan.residual.references():
+                if c in pairs.columns:
+                    batch[c] = pairs[c].to_numpy()
+                elif c in left:
+                    batch[c] = left[c][li]
+                elif c in right_named:
+                    batch[c] = right_named[c][ri]
+            keep = as_bool_mask(plan.residual.eval(batch))
+            # a constant residual (ON ... AND 1 = 0) evaluates 0-d: broadcast
+            keep = np.broadcast_to(np.asarray(keep, dtype=bool), (len(pairs),))
+            surviving = pairs[keep]
+        else:
+            surviving = pairs
+        parts = [surviving]
+        if plan.how in ("left", "outer"):
+            lost = ldf[~np.isin(np.arange(len(ldf)), surviving["__lrow"].to_numpy())]
+            parts.append(lost)  # right columns null-extend via concat
+        if plan.how in ("right", "outer"):
+            lost_r = rdf[~np.isin(np.arange(len(rdf)), surviving["__rrow"].to_numpy())]
+            parts.append(lost_r)  # left columns null-extend
+        return pd.concat(parts, ignore_index=True, sort=False) if len(parts) > 1 else surviving
+
     def _exec_aggregate(self, plan: L.Aggregate, with_file_names: bool) -> B.Batch:
         """The JAX package's tiers, in its order: the fused aggregate over a
         compatible bucketed inner join (host spans, no pair expansion), the
@@ -965,14 +1226,20 @@ class Executor:
         child = None
         if not with_file_names and conf.device_execution_enabled:
             join_node = plan.child
-            while isinstance(join_node, L.Project):
+            computes = []
+            while isinstance(join_node, (L.Project, L.Compute)):
+                if isinstance(join_node, L.Compute):
+                    # computed aggregate inputs and group keys (q3's
+                    # sum(l_extendedprice * (1 - l_discount))): single-side
+                    # expressions evaluate per bucket inside the fusion
+                    computes.extend(join_node.exprs)
                 join_node = join_node.child
             if isinstance(join_node, L.Join):
                 from hyperspace_tpu_torch.exec import device as D
                 from hyperspace_tpu_torch.exec import join as J
 
                 try:
-                    got = J.aggregate_over_bucketed_join(self.session, plan, join_node)
+                    got = J.aggregate_over_bucketed_join(self.session, plan, join_node, computes=computes)
                     trace.record("agg", "fused-bucketed-join")
                     return got
                 except D.DeviceUnsupported:

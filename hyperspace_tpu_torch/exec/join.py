@@ -96,6 +96,8 @@ def join_sides_compatible(plan: L.Join) -> Optional[Tuple[L.LogicalPlan, L.Logic
     equal bucket counts — index scans or hybrid-scan BucketUnions — return
     (left_side, right_side, lkeys, rkeys); else None (ref: JoinIndexRanker's
     equal-bucket preference, HS/index/covering/JoinIndexRanker.scala:52-92)."""
+    if plan.residual is not None:
+        return None  # non-equi ON residuals run on the host join path
     pairs = extract_equi_join_keys(plan.condition)
     if not pairs:
         return None
@@ -1252,7 +1254,35 @@ def _check_agg_input_dtypes(lside, rside, need_l, need_r) -> None:
                 raise DeviceUnsupported(f"aggregate input {c!r} type {t} -> materialize")
 
 
-def aggregate_over_bucketed_join(session, agg: L.Aggregate, join: L.Join) -> B.Batch:
+def _computed_map(computes, lcols, rcols):
+    """name -> (side, expr) for Compute nodes between Aggregate and Join:
+    an expression whose references live wholly on one side evaluates per
+    bucket on that side's decoded batch (anything cross-side
+    materializes)."""
+    out = {}
+    for name, expr in computes or ():
+        refs = set(expr.references())
+        if not refs:
+            out[name] = ("left", expr)  # constant: broadcasts on either side
+        elif refs <= lcols:
+            out[name] = ("left", expr)
+        elif refs <= rcols:
+            out[name] = ("right", expr)
+        else:
+            raise DeviceUnsupported(f"computed aggregate input {name!r} references both sides -> materialize")
+    return out
+
+
+def _side_values(batch: B.Batch, src: str, expr) -> np.ndarray:
+    """A side's column, or a computed column evaluated over the side's
+    decoded bucket (a constant broadcasts to every row)."""
+    if expr is None:
+        return batch[src]
+    arr = np.asarray(expr.eval(batch))
+    return np.broadcast_to(arr, (B.num_rows(batch),)) if arr.ndim == 0 else arr
+
+
+def aggregate_over_bucketed_join(session, agg: L.Aggregate, join: L.Join, computes=()) -> B.Batch:
     """Global aggregates over a compatible bucketed inner join WITHOUT
     materializing the pair expansion: per bucket, the [lo, hi) match spans
     give each left row's multiplicity, so sums become weighted sums and
@@ -1262,10 +1292,9 @@ def aggregate_over_bucketed_join(session, agg: L.Aggregate, join: L.Join) -> B.B
     (``_grouped_aggregate_over_join``). Host numpy over the spans, as in the
     JAX package. Raises DeviceUnsupported for shapes it can't fuse (outer
     joins, min/max of right-side columns, non-numeric inputs, overflow-risk
-    int sums); the executor then materializes the join.
-
-    The JAX package also takes computed inputs (``Compute`` nodes between
-    the aggregate and the join); the port's DataFrame API builds none."""
+    int sums, an input computed from both sides); the executor then
+    materializes the join. ``computes`` are the ``(name, expr)`` pairs of
+    the Compute nodes between the aggregate and the join."""
     stages = session.query_stage_seconds
     t = time.perf_counter()
     if join.how != "inner":
@@ -1275,23 +1304,29 @@ def aggregate_over_bucketed_join(session, agg: L.Aggregate, join: L.Join) -> B.B
         raise DeviceUnsupported("join sides are not compatible bucketed scans")
     lside, rside, lkeys, rkeys = compat
     if agg.keys:
-        return _grouped_aggregate_over_join(session, agg, join, compat)
+        return _grouped_aggregate_over_join(session, agg, join, compat, computes=computes)
 
     lcols = set(lside.output_columns)
     rcols = set(rside.output_columns)
-    plans = []  # (name, fn, side, src)
+    computed = _computed_map(computes, lcols, rcols)
+    plans = []  # (name, fn, side, src, expr|None)
     need_l, need_r = set(), set()
     for name, fn, col_name in agg.aggs:
         if fn not in _AGG_FNS:
             raise DeviceUnsupported(f"unsupported aggregate fn {fn!r} -> materialize")
         if fn == "count" and col_name is None:
-            plans.append((name, "count*", None, None))
+            plans.append((name, "count*", None, None, None))
             continue
-        side, src = _agg_side_of(lcols, rcols, col_name)
+        if col_name in computed:
+            side, expr = computed[col_name]
+            src, refs = col_name, set(expr.references())
+        else:
+            side, src = _agg_side_of(lcols, rcols, col_name)
+            expr, refs = None, {src}
         if fn in ("min", "max") and side == "right":
             raise DeviceUnsupported("min/max of a right-side column -> materialize")
-        plans.append((name, fn, side, src))
-        (need_l if side == "left" else need_r).add(src)
+        plans.append((name, fn, side, src, expr))
+        (need_l if side == "left" else need_r).update(refs)
 
     # footer-level dtype check BEFORE any decode (the overflow guards still
     # bail late: they need values)
@@ -1303,17 +1338,22 @@ def aggregate_over_bucketed_join(session, agg: L.Aggregate, join: L.Join) -> B.B
     span_of = _make_host_span_of(session, setup, compat)
     t = time.perf_counter()
 
-    def declared_is_int(side: str, src: str) -> bool:
+    def declared_is_int(side: str, src: str, expr) -> bool:
         # dtype from ANY decoded bucket, so the output dtype is right even
         # when no bucket has matches
         for batch in (lbuckets if side == "left" else rbuckets).values():
+            if expr is not None:
+                return _agg_column_stats(np.asarray(expr.eval(batch)))[2]
             if src in batch:
                 return _agg_column_stats(batch[src])[2]
         raise DeviceUnsupported(f"aggregate input {src!r} has no decoded bucket")
 
     total_pairs = 0
     acc = {name: {"sum": 0, "cnt": 0, "min": None, "max": None} for name, *_ in plans}
-    is_int_out = {name: (declared_is_int(side, src) if side is not None else True) for name, fn, side, src in plans}
+    is_int_out = {
+        name: (declared_is_int(side, src, expr) if side is not None else True)
+        for name, fn, side, src, expr in plans
+    }
     for b in range(nb):
         lb, rb = lbuckets.get(b), rbuckets.get(b)
         if lb is None or rb is None:
@@ -1333,11 +1373,11 @@ def aggregate_over_bucketed_join(session, agg: L.Aggregate, join: L.Join) -> B.B
         # aggregate reading that column in this bucket
         col_cache: Dict[Tuple[str, str], tuple] = {}
 
-        def col_info(side: str, src: str):
+        def col_info(side: str, src: str, expr):
             got = col_cache.get((side, src))
             if got is not None:
                 return got
-            vals, ok, is_int = _agg_column_stats((lb if side == "left" else rb)[src])
+            vals, ok, is_int = _agg_column_stats(_side_values(lb if side == "left" else rb, src, expr))
             pref = prefn = None
             if side == "right":
                 if is_int:
@@ -1352,11 +1392,11 @@ def aggregate_over_bucketed_join(session, agg: L.Aggregate, join: L.Join) -> B.B
             col_cache[(side, src)] = got
             return got
 
-        for name, fn, side, src in plans:
+        for name, fn, side, src, expr in plans:
             a = acc[name]
             if fn == "count*":
                 continue
-            vals, ok, is_int, pref, prefn = col_info(side, src)
+            vals, ok, is_int, pref, prefn = col_info(side, src, expr)
             if side == "left":
                 w = counts if ok is None else counts * ok
                 if fn in ("sum", "avg"):
@@ -1384,7 +1424,7 @@ def aggregate_over_bucketed_join(session, agg: L.Aggregate, join: L.Join) -> B.B
                     a["cnt"] += int((prefn[hi_i] - prefn[lo_i]).sum())
 
     out: B.Batch = {}
-    for name, fn, side, src in plans:
+    for name, fn, side, src, expr in plans:
         a = acc[name]
         if fn == "count*":
             out[name] = np.asarray([total_pairs])
@@ -1412,7 +1452,7 @@ def aggregate_over_bucketed_join(session, agg: L.Aggregate, join: L.Join) -> B.B
     return out
 
 
-def _grouped_aggregate_over_join(session, agg: L.Aggregate, join: L.Join, compat) -> B.Batch:
+def _grouped_aggregate_over_join(session, agg: L.Aggregate, join: L.Join, compat, computes=()) -> B.Batch:
     """Grouped aggregates over a compatible bucketed inner join WITHOUT
     materializing the pair expansion.
 
@@ -1429,14 +1469,22 @@ def _grouped_aggregate_over_join(session, agg: L.Aggregate, join: L.Join, compat
     that makes the gathered per-left-row value well defined — the TPC-H q3
     class (GROUP BY l_orderkey, o_orderdate over lineitem JOIN orders).
 
-    Raises DeviceUnsupported for shapes it can't fuse (min/max, non-unique
-    right side under right-side group keys); the executor then
-    materializes."""
+    Raises DeviceUnsupported for shapes it can't fuse (min/max, inputs
+    computed from both sides, non-unique right side under right-side group
+    keys); the executor then materializes."""
     stages = session.query_stage_seconds
     t = time.perf_counter()
     lside, rside, lkeys, rkeys = compat
     lcols = set(lside.output_columns)
     rcols = set(rside.output_columns)
+    computed = _computed_map(computes, lcols, rcols)
+
+    def resolve(col):
+        if col in computed:
+            side, expr = computed[col]
+            return side, col, expr, set(expr.references())
+        side, src = _agg_side_of(lcols, rcols, col)
+        return side, src, None, {src}
 
     for _, fn, _c in agg.aggs:
         if fn not in _AGG_FNS:
@@ -1444,37 +1492,42 @@ def _grouped_aggregate_over_join(session, agg: L.Aggregate, join: L.Join, compat
 
     # group-key plan: join keys canonicalize to the LEFT key column
     # (matched rows carry equal values); anything else is an "extra"
-    key_plan = []  # (out_name, kind, src) kind in jk/lx/rx
+    key_plan = []  # (out_name, kind, src, expr) kind in jk/lx/rx
     need_l, need_r = set(lkeys), set(rkeys)
     has_right_extra = False
     for k in agg.keys:
-        side, src = _agg_side_of(lcols, rcols, k)
-        if side == "left" and src in lkeys:
-            key_plan.append((k, "jk", src))
-        elif side == "right" and src in rkeys:
-            key_plan.append((k, "jk", lkeys[rkeys.index(src)]))
+        side, src, expr, refs = resolve(k)
+        if expr is None and side == "left" and src in lkeys:
+            key_plan.append((k, "jk", src, None))
+        elif expr is None and side == "right" and src in rkeys:
+            key_plan.append((k, "jk", lkeys[rkeys.index(src)], None))
         elif side == "left":
-            key_plan.append((k, "lx", src))
-            need_l.add(src)
+            key_plan.append((k, "lx", src, expr))
+            need_l |= refs
         else:
-            key_plan.append((k, "rx", src))
-            need_r.add(src)
+            key_plan.append((k, "rx", src, expr))
+            need_r |= refs
             has_right_extra = True
 
-    plans = []  # (name, fn, side, src)
+    plans = []  # (name, fn, side, src, expr)
     for name, fn, col_name in agg.aggs:
         if fn == "count" and col_name is None:
-            plans.append((name, "count*", None, None))
+            plans.append((name, "count*", None, None, None))
             continue
-        side, src = _agg_side_of(lcols, rcols, col_name)
+        side, src, expr, refs = resolve(col_name)
         if fn in ("min", "max"):
             raise DeviceUnsupported("grouped min/max -> materialize")
-        plans.append((name, fn, side, src))
-        (need_l if side == "left" else need_r).add(src)
+        plans.append((name, fn, side, src, expr))
+        (need_l if side == "left" else need_r).update(refs)
 
-    _check_agg_input_dtypes(
-        lside, rside, {s for _, _, sd, s in plans if sd == "left"}, {s for _, _, sd, s in plans if sd == "right"}
-    )
+    # the footer pre-check covers computed inputs through their references,
+    # so a string-referencing expression bails before decoding both sides
+    check_l = {s for _, fn, sd, s, e in plans if sd == "left" and e is None}
+    check_r = {s for _, fn, sd, s, e in plans if sd == "right" and e is None}
+    for _, fn, sd, _s, e in plans:
+        if e is not None:
+            (check_l if sd == "left" else check_r).update(e.references())
+    _check_agg_input_dtypes(lside, rside, check_l, check_r)
     _add(stages, "join_plan", t)
     setup = _bucketed_join_setup(session, join, compat, needed_override=(sorted(need_l), sorted(need_r)))
     lbuckets, rbuckets, _lk, _rk, nb, _lc, _rc = setup
@@ -1501,11 +1554,11 @@ def _grouped_aggregate_over_join(session, agg: L.Aggregate, join: L.Join, compat
         if has_right_extra and counts.size and int(counts.max()) > 1:
             raise DeviceUnsupported("right-side group key over a non-unique join side -> materialize")
 
-        def right_gathered(src):
+        def right_gathered(src, expr):
             # valid where counts == 1; count-0 rows carry a neighbour's
             # value, which either forms an empty segment (dropped) or
             # harmlessly extends an equal-valued one
-            return rb[src][np.clip(lo_i, 0, rr - 1)]
+            return _side_values(rb, src, expr)[np.clip(lo_i, 0, rr - 1)]
 
         # sub-segment boundaries: a change in ANY join key or group extra
         key_arrays = {}  # out_name -> per-left-row values for output
@@ -1514,11 +1567,11 @@ def _grouped_aggregate_over_join(session, agg: L.Aggregate, join: L.Join, compat
         for kc in lkeys:
             kv = sort_key_int64(lb[kc])
             change[1:] |= kv[1:] != kv[:-1]
-        for k, kind, src in key_plan:
+        for k, kind, src, expr in key_plan:
             if kind == "jk":
                 key_arrays[k] = lb[src]
                 continue
-            arr = lb[src] if kind == "lx" else right_gathered(src)
+            arr = _side_values(lb, src, expr) if kind == "lx" else right_gathered(src, expr)
             key_arrays[k] = arr
             kv = sort_key_int64(arr)
             change[1:] |= kv[1:] != kv[:-1]
@@ -1528,16 +1581,16 @@ def _grouped_aggregate_over_join(session, agg: L.Aggregate, join: L.Join, compat
         if not keep.any():
             continue
 
-        for k, kind, src in key_plan:
+        for k, kind, src, expr in key_plan:
             key_parts[k].append(key_arrays[k][starts][keep])
 
         col_cache: Dict[Tuple[str, str], tuple] = {}
 
-        def col_info(side, src):
+        def col_info(side, src, expr):
             got = col_cache.get((side, src))
             if got is not None:
                 return got
-            vals, ok, is_int = _agg_column_stats(lb[src] if side == "left" else rb[src])
+            vals, ok, is_int = _agg_column_stats(_side_values(lb if side == "left" else rb, src, expr))
             if is_int and vals.size and _int_magnitude(vals) * max(int(counts.sum()), 1) >= INT_GUARD:
                 raise DeviceUnsupported("int sum overflow risk -> materialize")
             pref = prefn = None
@@ -1553,11 +1606,11 @@ def _grouped_aggregate_over_join(session, agg: L.Aggregate, join: L.Join, compat
             col_cache[(side, src)] = got
             return got
 
-        for name, fn, side, src in plans:
+        for name, fn, side, src, expr in plans:
             if fn == "count*":
                 cnt_parts[name].append(run_pairs[keep])
                 continue
-            vals, ok, is_int, pref, prefn = col_info(side, src)
+            vals, ok, is_int, pref, prefn = col_info(side, src, expr)
             if not is_int:
                 int_sum[name] = False
             if side == "left":
@@ -1573,21 +1626,28 @@ def _grouped_aggregate_over_join(session, agg: L.Aggregate, join: L.Join, compat
                     row_sums = pref[hi_i] - pref[lo_i]
                     sum_parts[name].append(np.add.reduceat(row_sums, starts)[keep])
 
-    def declared_dtype(side, src) -> np.dtype:
+    def declared_dtype(side, src, expr) -> np.dtype:
+        # a computed column's dtype comes from evaluating it over any
+        # decoded bucket (empty-result outputs type like the materialized
+        # path's)
         for batch in (lbuckets if side == "left" else rbuckets).values():
+            if expr is not None:
+                return np.asarray(expr.eval(batch)).dtype
             if src in batch:
                 return batch[src].dtype
+        if expr is not None:
+            return np.dtype(np.float64)
         raise DeviceUnsupported(f"aggregate input {src!r} has no decoded bucket")
 
     out: B.Batch = {}
     if not any(key_parts[k] for k, *_ in key_plan):
-        for k, kind, src in key_plan:
-            out[k] = np.empty(0, dtype=declared_dtype("left" if kind != "rx" else "right", src))
-        for name, fn, side, src in plans:
+        for k, kind, src, expr in key_plan:
+            out[k] = np.empty(0, dtype=declared_dtype("left" if kind != "rx" else "right", src, expr))
+        for name, fn, side, src, expr in plans:
             if fn in ("count", "count*"):
                 dt = np.dtype(np.int64)
             elif fn == "sum":
-                is_int = _agg_column_stats(np.empty(0, dtype=declared_dtype(side, src)))[2]
+                is_int = _agg_column_stats(np.empty(0, dtype=declared_dtype(side, src, expr)))[2]
                 dt = np.dtype(np.int64) if is_int else np.dtype(np.float64)
             else:
                 dt = np.dtype(np.float64)
@@ -1607,7 +1667,7 @@ def _grouped_aggregate_over_join(session, agg: L.Aggregate, join: L.Join, compat
     gcols = list(frame)
     n_seg = len(next(iter(key_arrays_out.values())))
     frame["__pos"] = np.arange(n_seg, dtype=np.int64)
-    for name, fn, side, src in plans:
+    for name, fn, side, src, expr in plans:
         frame[f"__c_{name}"] = np.concatenate(cnt_parts[name])
         if sum_parts[name]:
             s_part = np.concatenate(sum_parts[name])
@@ -1627,7 +1687,7 @@ def _grouped_aggregate_over_join(session, agg: L.Aggregate, join: L.Join, compat
     rep = res["__pos"].to_numpy()
     for k, *_rest in key_plan:
         out[k] = key_arrays_out[k][rep]
-    for name, fn, side, src in plans:
+    for name, fn, side, src, expr in plans:
         c = res[f"__c_{name}"].to_numpy()
         if fn in ("count", "count*"):
             out[name] = c.astype(np.int64)

@@ -1,8 +1,8 @@
 """User-facing DataFrame facade.
 
 A thin, lazy wrapper over the logical plan so that
-``hs.create_index(df, CoveringIndexConfig(...))``, filter queries, joins and
-aggregates have something to operate on. ``collect()`` runs the optimizer rewrite (when
+``hs.create_index(df, CoveringIndexConfig(...))``, filter queries, joins,
+aggregates and ``Session.sql`` have something to operate on. ``collect()`` runs the optimizer rewrite (when
 Hyperspace is enabled on the session) then the executor.
 """
 
@@ -49,9 +49,10 @@ class DataFrame:
     ) -> "DataFrame":
         """Equi-join on an expression (``col("a") == col("b")``, ANDed for
         several keys) or on key names present on both sides (USING-style:
-        the key is coalesced across sides in right and outer joins)."""
-        if residual is not None:
-            raise NotImplementedError("joins with a residual ON predicate are not yet in the port")
+        the key is coalesced across sides in right and outer joins).
+        ``residual`` carries a non-equi ON-clause predicate evaluated during
+        the join (post-join column names): for outer joins a failing pair
+        null-extends instead of matching."""
         using_pairs = None
         if isinstance(on, Expr):
             condition = on
@@ -69,7 +70,7 @@ class DataFrame:
                 using_pairs.append((lk, rk))
             assert terms is not None
             condition = terms
-        return DataFrame(L.Join(self.plan, other.plan, condition, how, None, using_pairs), self.session)
+        return DataFrame(L.Join(self.plan, other.plan, condition, how, residual, using_pairs), self.session)
 
     def group_by(self, *keys: TUnion[str, Col]) -> "GroupedData":
         resolved = []
@@ -87,6 +88,24 @@ class DataFrame:
         """Global aggregates: ``df.agg(total=("v", "sum"), n=("*", "count"))``."""
         return GroupedData(self, []).agg(**aggs)
 
+    def order_by(self, *keys: TUnion[str, Col], ascending: TUnion[bool, List[bool]] = True) -> "DataFrame":
+        names = []
+        for k in keys:
+            name = k.name if isinstance(k, Col) else str(k)
+            r = resolve_column(name, self.plan.output_columns)
+            if r is None:
+                raise ValueError(f"Column {name!r} not found among {self.plan.output_columns}")
+            names.append(r)
+        asc = [ascending] * len(names) if isinstance(ascending, bool) else list(ascending)
+        if len(asc) != len(names):
+            raise ValueError("ascending must be a bool or match the number of sort keys")
+        return DataFrame(L.Sort(list(zip(names, asc)), self.plan), self.session)
+
+    orderBy = sort = order_by
+
+    def limit(self, n: int) -> "DataFrame":
+        return DataFrame(L.Limit(n, self.plan), self.session)
+
     def distinct(self) -> "DataFrame":
         """Distinct rows over all output columns (grouped aggregation with
         the helper count projected away)."""
@@ -95,6 +114,22 @@ class DataFrame:
         return DataFrame(L.Project(cols, agg), self.session)
 
     dropDuplicates = drop_duplicates = distinct
+
+    def as_scalar(self) -> Expr:
+        """This one-column frame as a scalar-subquery expression, usable as a
+        comparison operand: ``df.filter(col("a") == other.select("b").as_scalar())``.
+        Index rewrites apply inside the subquery."""
+        from hyperspace_tpu_torch.plan.expr import ScalarSubquery
+
+        return ScalarSubquery(self.plan, self.session)
+
+    asScalar = as_scalar
+
+    def create_or_replace_temp_view(self, name: str) -> None:
+        """Register this frame for ``session.sql()`` (Spark's temp-view role)."""
+        self.session.register_view(name, self)
+
+    createOrReplaceTempView = create_or_replace_temp_view
 
     # --- actions -----------------------------------------------------------
     def optimized_plan(self) -> L.LogicalPlan:
@@ -134,6 +169,14 @@ class DataFrame:
             yield B.select(chunk, cols)
 
     toLocalIterator = to_local_iterator
+
+    def to_arrow(self):
+        from hyperspace_tpu_torch.exec.batch import batch_to_table
+
+        return batch_to_table(self.collect(), self.plan.output_columns)
+
+    def to_pandas(self):
+        return self.to_arrow().to_pandas()
 
     def count(self) -> int:
         from hyperspace_tpu_torch.exec.batch import num_rows

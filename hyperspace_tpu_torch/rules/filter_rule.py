@@ -51,16 +51,33 @@ def _filter_column_filter(
     return out
 
 
+def _order_covers(entry: IndexLogEntry, required) -> bool:
+    """Does the entry's within-bucket sort order (= its indexed columns)
+    satisfy the query's ORDER BY requirement? Only all-ascending key lists
+    that prefix the indexed columns qualify (plan/ordering's eligibility)."""
+    if not required:
+        return False
+    if any(not asc for _, asc in required):
+        return False
+    props = entry.derived_dataset.properties
+    indexed = [str(c).lower() for c in props.get("indexedColumns", [])]
+    want = [str(c).lower() for c, _ in required]
+    return indexed[: len(want)] == want
+
+
 def _rank(ctx: RuleContext, scan: L.Scan, candidates: List[IndexLogEntry]) -> Optional[IndexLogEntry]:
-    """FilterRankFilter: the smallest index, ties broken by name; under
-    hybrid scan, the most common bytes, ties broken toward the smaller
-    index (ref: HS/index/covering/FilterIndexRanker.scala:43-63). The JAX
-    package's ORDER BY tie-break waits for the Sort node."""
+    """FilterRankFilter: the smallest index; under hybrid scan, the most
+    common bytes, ties broken toward the smaller index (ref:
+    HS/index/covering/FilterIndexRanker.scala:43-63). Equal-size candidates
+    tie-break toward one whose sort order covers the query's ORDER BY
+    (stashed by ApplyHyperspace), then by name; order-awareness never
+    overrides the size rank."""
     if not candidates:
         return None
     if ctx.session.conf.hybrid_scan_enabled:
         return max(candidates, key=lambda e: (ctx.common_bytes(e, scan), -e.content.total_size))
-    return min(candidates, key=lambda e: (e.content.total_size, e.name))
+    required = ctx.scratch.get("required_ordering")
+    return min(candidates, key=lambda e: (e.content.total_size, not _order_covers(e, required), e.name))
 
 
 def apply_filter_index_rule(

@@ -137,6 +137,10 @@ def apply_join_index_rule(
     # a wildcard joinType, JoinIndexRule.scala:52-54)
     if not isinstance(plan, L.Join) or plan.how not in ("inner", "left", "right", "outer"):
         return plan, 0
+    if plan.residual is not None:
+        # non-equi ON residual: outside the rule's equi-CNF scope
+        # (ref: JoinPlanNodeFilter, JoinIndexRule.scala:149-155)
+        return plan, 0
     pairs = extract_equi_join_keys(plan.condition)
     if not pairs:
         return plan, 0

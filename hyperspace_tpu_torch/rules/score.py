@@ -33,21 +33,41 @@ RULES = (
 # linear-chain nodes: when the chain TOP destructures, a rule applied there
 # requires a subset of the columns any lower application would (and sees a
 # superset of the filter conjuncts), so it succeeds whenever a lower one
-# does — re-evaluating rules below such a top is pure overhead
-_CHAIN_NODES = (L.Project, L.Filter)
+# does — re-evaluating rules below such a top is pure overhead. When the top
+# does NOT destructure (e.g. a filter over a computed column pins the
+# chain), interior nodes stay eligible.
+_CHAIN_NODES = (L.Project, L.Filter, L.Compute)
 
 
 class ScoreBasedIndexPlanOptimizer:
     def __init__(self, ctx: RuleContext):
         self.ctx = ctx
         self._memo: Dict[int, Tuple[L.LogicalPlan, int]] = {}
+        self._multi_parent: set = set()
 
     def apply(self, plan: L.LogicalPlan, candidates) -> Tuple[L.LogicalPlan, int]:
+        counts: Dict[int, int] = {}
+
+        def walk(p: L.LogicalPlan) -> None:
+            c = counts.get(id(p), 0) + 1
+            counts[id(p)] = c
+            if c == 1:
+                for ch in p.children():
+                    walk(ch)
+
+        walk(plan)
+        # a sub-plan with several parents (a CTE referenced N times) always
+        # gets the full rule set and ONE memo entry, so the rewritten tree
+        # keeps sharing a single object (the executor's shared-subplan memo
+        # depends on that identity)
+        self._multi_parent = {pid for pid, c in counts.items() if c > 1}
         return self._rec(plan, candidates)
 
     def _rec(
         self, plan: L.LogicalPlan, candidates, in_chain: bool = False
     ) -> Tuple[L.LogicalPlan, int]:
+        if id(plan) in self._multi_parent:
+            in_chain = False
         key = id(plan)
         if key in self._memo:
             return self._memo[key]

@@ -33,7 +33,7 @@ from hyperspace_tpu_torch.rules.context import RuleContext
 
 
 def destructure_linear(plan: L.LogicalPlan) -> Optional[Tuple[Optional[List[str]], Optional[Expr], L.Scan]]:
-    """Match any interleaving of Project / Filter nodes over a Scan; return
+    """Match any interleaving of Project / Filter / Compute nodes over a Scan; return
     (project_cols, condition, scan) — project_cols is the *outermost*
     projection (the sub-plan's output), condition the AND of all filters
     (the only sub-plan shape the rules accept;
@@ -49,6 +49,19 @@ def destructure_linear(plan: L.LogicalPlan) -> Optional[Tuple[Optional[List[str]
             node = node.child
         elif isinstance(node, L.Filter):
             condition = node.condition if condition is None else condition & node.condition
+            node = node.child
+        elif isinstance(node, L.Compute):
+            # computed columns need their input columns from the scan: swap
+            # each computed name in the projection for the expression's
+            # references (SQL expression SELECT items plan as Compute)
+            exprs = dict(node.exprs)
+            if condition is not None and set(condition.references()) & set(exprs):
+                return None  # a filter over computed columns can't move below them
+            if project_cols is not None:
+                resolved: List[str] = []
+                for c in project_cols:
+                    resolved.extend(sorted(exprs[c].references()) if c in exprs else [c])
+                project_cols = list(dict.fromkeys(resolved))
             node = node.child
         elif isinstance(node, L.Scan):
             return project_cols, condition, node
@@ -171,23 +184,28 @@ def transform_plan_to_use_index(
         out = _hybrid_scan_plan(ctx, entry, scan, required_all, bucket_spec, trusted_layout=trusted_layout)
 
     # canonical rebuild: every Filter sinks DIRECTLY above the scan (the
-    # executor's device filter matches that shape); Projects re-apply above
-    # in their original relative order, narrowed to the columns actually
-    # available, with no-op Projects elided
-    projects = []  # top-down
+    # executor's device filter matches that shape); Project and Compute
+    # nodes re-apply above in their original relative order, with Projects
+    # narrowed to the columns actually available and no-op Projects elided
+    ops = []  # top-down chain ops
     node = sub_plan
     while not isinstance(node, L.Scan):
         if isinstance(node, L.Project):
-            projects.append(list(node.columns))
+            ops.append(("project", list(node.columns)))
+        elif isinstance(node, L.Compute):
+            ops.append(("compute", node.exprs))
         (node,) = node.children()
 
     if condition is not None:
         out = L.Filter(condition, out)
-    for payload in reversed(projects):  # innermost first
-        avail = set(out.output_columns)
-        cols = [c for c in payload if c in avail]
-        if cols != list(out.output_columns):  # elide no-op projections
-            out = L.Project(cols, out)
+    for kind, payload in reversed(ops):  # innermost op first
+        if kind == "compute":
+            out = L.Compute(payload, out)
+        else:
+            avail = set(out.output_columns)
+            cols = [c for c in payload if c in avail]
+            if cols != list(out.output_columns):  # elide no-op projections
+                out = L.Project(cols, out)
     if set(out.output_columns) != set(sub_plan.output_columns):
         out = L.Project(list(sub_plan.output_columns), out)
     return out
@@ -423,7 +441,17 @@ def _prune_join(plan: L.Join, needed, barrier) -> L.Join:
             rr = column_root_member(c, right_cols)
             if rr is not None:
                 r_needed.add(rr)
-        for c in plan.condition.references():
+        cond_refs = set(plan.condition.references())
+        if plan.residual is not None:
+            # residual refs use post-join names: map '#r' back to the
+            # right-side source column like the needed loop above
+            # (left-first, same reasoning)
+            for c in plan.residual.references():
+                if column_root_member(c, left_cols) is not None:
+                    cond_refs.add(c)
+                elif not keep_renamed(c, l_needed, r_needed):
+                    cond_refs.add(c)
+        for c in cond_refs:
             lr = column_root_member(c, left_cols)
             if lr is not None:
                 l_needed.add(lr)
@@ -449,6 +477,19 @@ def _prune(plan: L.LogicalPlan, needed, barrier, skip_self: bool = False) -> L.L
     if isinstance(plan, L.Filter):
         child_needed = None if needed is None else set(needed) | set(plan.condition.references())
         return plan.with_children([_prune(plan.child, child_needed, barrier)])
+    if isinstance(plan, L.Compute):
+        # a computed column needs its expression's inputs instead of itself
+        if needed is None:
+            child_needed = None
+        else:
+            exprs = dict(plan.exprs)
+            child_needed = set()
+            for c in needed:
+                if c in exprs:
+                    child_needed |= exprs[c].references()
+                else:
+                    child_needed.add(c)
+        return plan.with_children([_prune(plan.child, child_needed, barrier)])
     if isinstance(plan, L.Join):
         return _prune_join(plan, needed, barrier)
     if isinstance(plan, L.Scan):
@@ -469,10 +510,29 @@ def _prune(plan: L.LogicalPlan, needed, barrier, skip_self: bool = False) -> L.L
         child_needed = set(plan.keys) | {c for _, _, c in plan.aggs if c is not None}
         (child,) = plan.children()
         return plan.with_children([_prune(child, child_needed, barrier)])
-    # any other node (an IndexScan; Repartition and BucketUnion pass rows
-    # through) keeps all its columns, but still recurse: shared sub-plans
-    # MUST be noted here or the sharing swap would substitute replacements
-    # pruned for other (narrower) uses
+    if isinstance(plan, L.Window):
+        produced = {s[0] for s in plan.specs}
+        operands = set()
+        for _out, _fn, arg, parts, orders, _cum in plan.specs:
+            if arg is not None:
+                operands.add(arg)
+            operands |= set(parts)
+            operands |= {c for c, _ in orders}
+        child_needed = None if needed is None else ({c for c in needed if c not in produced} | operands)
+        return plan.with_children([_prune(plan.child, child_needed, barrier)])
+    if isinstance(plan, L.Sort):
+        child_needed = None if needed is None else set(needed) | {c for c, _ in plan.keys}
+        return plan.with_children([_prune(plan.child, child_needed, barrier)])
+    if isinstance(plan, L.Limit):
+        return plan.with_children([_prune(plan.child, needed, barrier)])
+    if isinstance(plan, L.Rename):
+        inverse = {v: k for k, v in plan.mapping.items()}
+        child_needed = None if needed is None else {inverse.get(c, c) for c in needed}
+        return plan.with_children([_prune(plan.child, child_needed, barrier)])
+    # any other node (set operations compare WHOLE rows; an IndexScan;
+    # Repartition and BucketUnion pass rows through) keeps all its columns,
+    # but still recurse: shared sub-plans MUST be noted here or the sharing
+    # swap would substitute replacements pruned for other (narrower) uses
     new_children = [_prune(c, None, barrier) for c in plan.children()]
     if any(n is not o for n, o in zip(new_children, plan.children())):
         return plan.with_children(new_children)

@@ -77,6 +77,8 @@ class Session:
         #: expand-gather; the copies back), join_host_expand (host spans,
         #: pair expansion and gathers), join_merge (the generic merge)
         self.query_stage_seconds: collections.Counter = collections.Counter()
+        #: views registered for ``sql()`` (name -> DataFrame)
+        self._temp_views: Dict[str, Any] = {}
 
     # --- reading data ------------------------------------------------------
     def read(self, paths, file_format: str, **options) -> "DataFrame":  # noqa: F821
@@ -119,6 +121,18 @@ class Session:
         from hyperspace_tpu_torch.sources.iceberg import IcebergRelation
 
         return DataFrame(Scan(IcebergRelation(path, snapshot_id=snapshot_id)), self)
+
+    # --- SQL (the reference's users drive Hyperspace through Spark SQL) ----
+    def sql(self, query: str) -> "DataFrame":  # noqa: F821
+        from hyperspace_tpu_torch.plan.sql import run_sql
+
+        return run_sql(query, self)
+
+    def register_view(self, name: str, df: "DataFrame") -> None:  # noqa: F821
+        self._temp_views[name] = df
+
+    def drop_view(self, name: str) -> None:
+        self._temp_views.pop(name, None)
 
     # --- hyperspace toggle (ref: HS/package.scala:36-43) -------------------
     @property

@@ -1,6 +1,6 @@
 """The port's verbatim copies of the JAX package's device-free modules.
 
-Seventeen modules of ``hyperspace_tpu_torch/`` are copies of their counterparts
+Twenty-three modules of ``hyperspace_tpu_torch/`` are copies of their counterparts
 in ``hyperspace_tpu/`` with only the package name rewritten (and, in
 ``models/path_resolver.py``, one ``typing`` import fewer, since the copy
 does not use ``Optional``). This test compares the texts, so a change to
@@ -24,6 +24,12 @@ COPIES = {
     "actions/refresh.py": {},
     "models/data_manager.py": {},
     "models/states.py": {},
+    "obs/spans.py": {},
+    "plan/decorrelate.py": {},
+    "plan/expr.py": {},
+    "plan/logical.py": {},
+    "plan/ordering.py": {},
+    "plan/sql.py": {},
     "indexes/registry.py": {},
     "sources/default.py": {},
     "sources/delta.py": {},

@@ -84,6 +84,23 @@ def test_import_does_not_initialize_cuda_or_load_jax():
     assert r.returncode == 0 and r.stdout.strip().endswith("ok"), r.stderr
 
 
+def test_sql_front_end_imports_without_jax_or_cuda():
+    """The SQL front end (``plan/sql.py`` and what it imports: the
+    expressions, decorrelation, the span tracer) loads neither JAX nor the
+    JAX package, and starts no CUDA context."""
+    code = (
+        "import sys\n"
+        "import hyperspace_tpu_torch.plan.sql, hyperspace_tpu_torch.plan.decorrelate\n"
+        "import torch\n"
+        "assert not torch.cuda.is_initialized(), 'import initialized CUDA'\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'hyperspace_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0 and r.stdout.strip().endswith("ok"), r.stderr
+
+
 def test_session_defaults_to_cuda_and_refuses_without_it(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -413,15 +413,27 @@ def test_no_rewrite_matches_jax(two_sides, tmp_path, case):
 
 
 def test_residual_and_streamed_joins_raise(systems, lake):
-    """A residual ON predicate is not in the port yet: asking for it
-    raises. A join above the streaming threshold, which raised before the
-    streamed join was ported, now gives the JAX package's rows and trace."""
-    sess = ht.Session(conf=_conf(ht.keys, systems["torch"], **{"hyperspace.exec.stream.joinMinBytes": 1}),
-                      device="cpu")
-    t = _frames(ht, sess, lake)
-    with pytest.raises(NotImplementedError, match="residual"):
-        t["lineitem"].join(t["orders"], ht.col("l_orderkey") == ht.col("o_orderkey"),
-                           residual=ht.col("l_quantity") > 3)
+    """A residual ON predicate, which raised before the SQL slice ported
+    it, now gives the JAX package's plan, rows and trace for every join
+    type (the index rule leaves such a join alone; it runs as the generic
+    merge). A join above the streaming threshold, which raised before the
+    streamed join was ported, gives the JAX package's rows and trace."""
+    for how in ("inner", "left", "right", "outer"):
+        res = {}
+        for pkg in (hst, ht):
+            kwargs = {} if pkg is hst else {"device": "cpu"}
+            sess = pkg.Session(conf=_conf(pkg.keys, systems["torch"], **{"hyperspace.exec.stream.joinMinBytes": 1}),
+                               **kwargs).enable_hyperspace()
+            t = _frames(pkg, sess, lake)
+            q = t["lineitem"].join(t["orders"], pkg.col("l_orderkey") == pkg.col("o_orderkey"), how=how,
+                                   residual=pkg.col("l_quantity") > 3)
+            rec = ref_trace if pkg is hst else trace
+            with rec.recording() as events:
+                res[pkg] = (q.optimized_plan().pretty(), q.collect())
+            res[pkg, "lines"] = [ln for ln in rec.summarize(events).splitlines() if ln.startswith("join:")]
+        assert res[ht][0] == res[hst][0] and "IndexScan" not in res[ht][0], how
+        _assert_same_batch(res[ht][1], res[hst][1])
+        assert res[ht, "lines"] == res[hst, "lines"] == ["join: generic-merge x1"], how
     out = {}
     for pkg in (hst, ht):
         kwargs = {} if pkg is hst else {"device": "cpu"}

@@ -238,10 +238,12 @@ def test_toggle_and_count(systems, lake):
     assert df.explain() == df.plan.pretty() and df.columns == ["k"]
 
 
-def test_not_ported_features_raise(systems, lake):
-    """The sharded filter is not in the port yet: asking for it raises
-    instead of quietly running something else. Hybrid scan is in the port:
-    over an unchanged lake it serves the index as the plain rewrite does."""
+def test_not_ported_features_raise(systems, lake, tmp_path):
+    """The sharded filter and nested columns are not in the port yet:
+    asking for them raises instead of quietly running something else.
+    Hybrid scan is in the port: over an unchanged lake it serves the index
+    as the plain rewrite does. So is ``col.isin(df)`` (an IN-subquery, which
+    raised before the SQL slice): it gives the JAX package's rows."""
     sess = ht.Session(conf=_conf(ht.keys, systems["torch"], **{"hyperspace.index.hybridscan.enabled": "true"}),
                       device="cpu")
     q = sess.read_parquet(lake).filter(ht.col("k") == 7)
@@ -255,5 +257,15 @@ def test_not_ported_features_raise(systems, lake):
     sess.enable_hyperspace()
     with pytest.raises(NotImplementedError, match="sharded"):
         sess.read_parquet(lake).filter(ht.col("k") == 7).collect()
-    with pytest.raises(NotImplementedError, match="IN-subqueries"):
-        ht.col("k").isin(sess.read_parquet(lake))
+    rows = {}
+    for pkg in (hst, ht):
+        kwargs = {} if pkg is hst else {"device": "cpu"}
+        s = pkg.Session(conf=_conf(pkg.keys, systems["torch"]), **kwargs).enable_hyperspace()
+        inner = s.read_parquet(lake).filter(pkg.col("k") < 20).select("k")
+        rows[pkg] = _multiset(s.read_parquet(lake).filter(pkg.col("k").isin(inner)).collect())
+    assert rows[ht] == rows[hst] and rows[ht]
+    nested = tmp_path / "nested"
+    nested.mkdir()
+    pq.write_table(pa.table({"id": [1, 2], "st": pa.array([{"a": 1}, {"a": 2}])}), nested / "p.parquet")
+    with pytest.raises(NotImplementedError, match="nested"):
+        sess.read_parquet(str(nested)).filter(ht.col("st.a") == 1)

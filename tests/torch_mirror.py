@@ -1,0 +1,239 @@
+"""Run a JAX-package test module's cases against the port, each query also
+held against the JAX package.
+
+``load_cases`` reads a test module of the JAX package (``tests/test_sql.py``
+and the like), rewrites ``hyperspace_tpu`` to ``hyperspace_tpu_torch`` in its
+text and executes it as a module of its own, so each case drives the port
+with the case's own assertions. Its ``session`` fixture is replaced by a
+``MirroredSession``: a port session (``device="cpu"``) paired with a JAX
+package session over the same lake and the same index system path (either
+package serves the other's indexes). While ``mirroring`` is active:
+
+- ``Session.sql`` runs the text through both packages: the same error type
+  and message when the port raises, else the same unoptimized plan text;
+- ``DataFrame.optimized_plan`` gives the same text in both packages;
+- ``DataFrame.collect`` gives the same column names and rows in both:
+  in order, unless the JAX package's trace shows its broadcast join (ROADMAP
+  A6; the port's generic merge answers in its place, in another order),
+  then as a multiset; floats at rtol 1e-9; the same error type when the
+  port raises.
+
+A DataFrame built with the port's API is carried to the JAX package by
+rebuilding its plan, node for node and expression for expression, from the
+same-named classes there (the plan and expression modules are verbatim
+copies); the source relations map to the JAX package's reads of the same
+paths.
+"""
+
+import contextlib
+import importlib
+import math
+import re
+import sys
+import types
+
+import numpy as np
+import pytest
+
+import hyperspace_tpu as hst
+import hyperspace_tpu_torch as ht
+from hyperspace_tpu.exec import trace as ref_trace
+from hyperspace_tpu_torch.plan.dataframe import DataFrame as PortFrame
+
+FLOAT_RTOL = 1e-9
+
+
+class MirroredSession(ht.Session):
+    def __init__(self, system_path: str):
+        super().__init__(conf={ht.keys.SYSTEM_PATH: system_path}, device="cpu")
+        self.mirror = hst.Session(conf={hst.keys.SYSTEM_PATH: system_path})
+        self._relations = {}  # id(port relation) -> (port relation, JAX relation)
+
+    # -- the JAX side ---------------------------------------------------------
+    def sync_mirror(self) -> None:
+        """The JAX session takes the port session's conf and toggle, and
+        re-reads the index roster (the port may have just changed it)."""
+        self.mirror.conf._conf = dict(self.conf._conf)
+        self.mirror.hyperspace_enabled = self.hyperspace_enabled
+        self.mirror.index_manager.clear_cache()
+
+    def ref_frame(self, df):
+        self.sync_mirror()
+        got = getattr(df, "_ref_frame", None)
+        if got is not None:
+            return got
+        return hst.DataFrame(to_ref(df.plan, self, {}), self.mirror)
+
+    # -- the port side --------------------------------------------------------
+    def read(self, paths, file_format: str, **options):
+        df = super().read(paths, file_format, **options)
+        ref = self.mirror.read(paths, file_format, **options)
+        self._relations[id(df.plan.relation)] = (df.plan.relation, ref.plan.relation)
+        return df
+
+    def register_view(self, name, df) -> None:
+        super().register_view(name, df)
+        self.mirror.register_view(name, self.ref_frame(df))
+
+    def drop_view(self, name) -> None:
+        super().drop_view(name)
+        self.mirror.drop_view(name)
+
+    def sql(self, query: str):
+        self.sync_mirror()
+        try:
+            df = super().sql(query)
+        except Exception as e:
+            with pytest.raises(Exception) as ref_err:
+                self.mirror.sql(query)
+            assert type(ref_err.value).__name__ == type(e).__name__, (query, e, ref_err.value)
+            assert str(ref_err.value) == str(e), query
+            raise
+        ref = self.mirror.sql(query)
+        assert df.plan.pretty() == ref.plan.pretty(), query
+        df._ref_frame = ref
+        return df
+
+
+_REF_MODULES = {}
+
+
+def _ref_class(cls):
+    mod = cls.__module__
+    if not mod.startswith("hyperspace_tpu_torch."):
+        return None
+    ref_mod = _REF_MODULES.get(mod)
+    if ref_mod is None:
+        ref_mod = _REF_MODULES[mod] = importlib.import_module("hyperspace_tpu" + mod[len("hyperspace_tpu_torch"):])
+    return getattr(ref_mod, cls.__name__)
+
+
+def to_ref(obj, sess: MirroredSession, memo: dict):
+    """The JAX package's twin of a port plan or expression (sharing kept:
+    one object maps to one object)."""
+    key = id(obj)
+    if key in memo:
+        return memo[key]
+    if isinstance(obj, ht.Session):
+        return sess.mirror
+    if key in sess._relations:
+        return sess._relations[key][1]
+    if isinstance(obj, list):
+        out = [to_ref(x, sess, memo) for x in obj]
+    elif isinstance(obj, tuple):
+        out = tuple(to_ref(x, sess, memo) for x in obj)
+    elif isinstance(obj, dict):
+        out = {k: to_ref(v, sess, memo) for k, v in obj.items()}
+    else:
+        cls = _ref_class(type(obj))
+        if cls is None:
+            return obj
+        out = object.__new__(cls)
+        memo[key] = out
+        out.__dict__.update({k: to_ref(v, sess, memo) for k, v in vars(obj).items()})
+        return out
+    memo[key] = out
+    return out
+
+
+def _rows(batch):
+    cols = [np.asarray(batch[k]).tolist() for k in batch]
+    return list(zip(*cols)) if cols else []
+
+
+def _row_key(row):
+    return tuple((x is None, isinstance(x, float) and x != x, type(x).__name__, repr(x)) for x in row)
+
+
+def same_rows(got, want, ordered: bool, what) -> None:
+    assert list(got) == list(want), (what, list(got), list(want))
+    g, w = _rows(got), _rows(want)
+    assert len(g) == len(w), (what, len(g), len(w))
+    if not ordered:
+        g, w = sorted(g, key=_row_key), sorted(w, key=_row_key)
+    for a, b in zip(g, w):
+        for x, y in zip(a, b):
+            if isinstance(x, float) and isinstance(y, float):
+                assert (x != x and y != y) or math.isclose(x, y, rel_tol=FLOAT_RTOL, abs_tol=0.0) or x == y, (
+                    what, a, b)
+            else:
+                assert x == y or (x is None and y is None) or (x != x and y != y), (what, a, b)
+
+
+@contextlib.contextmanager
+def mirroring():
+    """Hold every port query of a MirroredSession against the JAX package
+    for the duration of the block."""
+    orig_collect, orig_optimized = PortFrame.collect, PortFrame.optimized_plan
+    busy = []  # re-entrancy guard: a port query inside a port query
+
+    def optimized_plan(self):
+        plan = orig_optimized(self)
+        sess = self.session
+        if isinstance(sess, MirroredSession) and not busy:
+            busy.append(1)
+            try:
+                ref = sess.ref_frame(self).optimized_plan()
+            finally:
+                busy.pop()
+            assert plan.pretty() == ref.pretty(), (plan.pretty(), ref.pretty())
+        return plan
+
+    def collect(self):
+        sess = self.session
+        if not isinstance(sess, MirroredSession) or busy:
+            return orig_collect(self)
+        busy.append(1)
+        try:
+            try:
+                got = orig_collect(self)
+            except Exception as e:
+                with pytest.raises(Exception) as ref_err:
+                    sess.ref_frame(self).collect()
+                assert type(ref_err.value).__name__ == type(e).__name__, (e, ref_err.value)
+                raise
+            ref = sess.ref_frame(self)
+            assert orig_optimized(self).pretty() == ref.optimized_plan().pretty()
+            with ref_trace.recording() as events:
+                want = ref.collect()
+            broadcast = any(kind == "join" and detail.startswith("broadcast") for kind, detail in events)
+            same_rows(got, want, not broadcast, self.plan.describe())
+            return got
+        finally:
+            busy.pop()
+
+    PortFrame.collect, PortFrame.optimized_plan = collect, optimized_plan
+    try:
+        yield
+    finally:
+        PortFrame.collect, PortFrame.optimized_plan = orig_collect, orig_optimized
+
+
+def load_cases(path: str, name: str, rewrites=None):
+    """Execute the JAX test module at ``path`` with the package renamed to
+    the port (and each ``rewrites`` line replaced) as module ``name``."""
+    with open(path, encoding="utf-8") as f:
+        text = f.read()
+    text = re.sub(r"\bhyperspace_tpu\b", "hyperspace_tpu_torch", text)
+    for old, new in (rewrites or {}).items():
+        assert old in text, old
+        text = text.replace(old, new)
+    mod = types.ModuleType(name)
+    mod.__file__ = path
+    sys.modules[name] = mod
+    exec(compile(text, path, "exec"), mod.__dict__)
+    return mod
+
+
+def export_cases(mod, namespace: dict, left_out: dict) -> None:
+    """Put ``mod``'s fixtures, test functions and test classes (as
+    subclasses, less the ``left_out`` methods) into a test module's
+    namespace, where pytest collects them."""
+    for attr, obj in vars(mod).items():
+        if hasattr(obj, "_pytestfixturefunction") or type(obj).__name__ == "FixtureFunctionDefinition":
+            namespace[attr] = obj
+        elif attr.startswith("test_") and callable(obj) and attr not in left_out:
+            namespace[attr] = obj
+        elif attr.startswith("Test") and isinstance(obj, type):
+            gone = {m.split("::")[1]: None for m in left_out if m.startswith(attr + "::")}
+            namespace[attr] = type(attr, (obj,), {"__module__": namespace["__name__"], **gone})
