@@ -7,7 +7,8 @@ Phases, each printed with its time (the filter query's phases are 5, 10
 and 13, the join's 6, 11 and 14, the aggregates' 7, 12 and 15, out-of-core
 execution's 7b, 12b, 15b and 17, the index lifecycle's 7c and 12c, scan
 pruning's 7d and 12d, hybrid scan's 7e and 12e, the other sources' 7f and
-12f, the SQL front end's 7g and 12g):
+12f, the SQL front end's 7g and 12g, the broadcast hash join's 7h, 11 (J3)
+and 12g, ORDER BY ... LIMIT's 7i and 12h):
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: compiles the port's CUDA kernels from ``hyperspace_tpu_torch/csrc``;
@@ -99,9 +100,34 @@ pruning's 7d and 12d, hybrid scan's 7e and 12e, the other sources' 7f and
    tests/tpch_queries.py through ``Session.sql``: the GPU rows equal the
    CPU port's in order (floats at rtol 1e-9) and hyperspace off as a
    multiset, the optimized plan equals tests/approved_plans/tpch_sql/qN.txt,
-   no result is empty, and the trace's ``join:``, ``scan:`` and ``filter:``
-   counts equal qN.dispatch.txt's (the JAX package's broadcast join, A6,
-   answers as the generic merge; ``decode:`` lines, A13, are left out);
+   no result is empty, and the trace equals qN.dispatch.txt line for line
+   (``decode:`` lines, the native decode A13, are left out); the GPU runs
+   ``hash-build`` and ``hash-probe``;
+7h. bcast-small: the shapes of tests/test_join_stream.py's broadcast cases
+   (inner, left, right and outer on a float key with NaN and on a
+   composite key; a join whose keys never meet, typed empty; a build side
+   over ``broadcastMaxBytes``, which takes the generic merge; Filter ->
+   Project over the join; a left join's Filter after the null extension; a
+   q3-shaped chain of two broadcast joins) in a CPU and a GPU session: GPU
+   rows equal the CPU port's byte for byte and in order (collected and,
+   for the last three, chunk by chunk through ``execute_stream``), equal the
+   generic merge (``broadcastMaxBytes=0``) as a multiset, and every trace
+   shows its tier; ``hash-build``, ``hash-probe`` and ``fused-postjoin`` run
+   on the GPU; then the three programs on the card against their plain
+   versions (numpy's combine and stable argsort, ``np.searchsorted``, the
+   host ``eval``): an empty build, a one-row build, collisions forced by
+   equal planes, random composite planes, a probe with no hit;
+7i. topk-small: the lakes of tests/test_topk.py (NaN floats, None strings,
+   tie keys; dates with NaT, -0.0 and ±inf; files of disjoint sorted keys
+   in 250-row groups) in a CPU and a GPU session: ORDER BY ... LIMIT on
+   int, float, string and date keys, one key and two, both directions,
+   ties, a limit above the rows, k at ``maxK`` and above it (the host
+   sort), a covered order (``sort: index-order-merge`` and ``-limit``) and
+   the running threshold with pushdown on (at least 20 row groups skipped)
+   and off (none): the GPU rows equal the CPU port's and the host sort and
+   slice's (``topk.enabled=false``) byte for byte, with the same ``topk:``
+   lines; a bare Limit through ``to_local_iterator`` stops decoding; then
+   ``topk-chunk`` and ``topk-merge`` on the card against ``np.lexsort``;
 8. generate and slice: generates a TPC-H-shaped SF1 ``lineitem`` lake (6M
    rows in 16 files, from ``--seed``, with TPC-H's return flag and line
    status) and builds three indexes through the public API (``Session`` ->
@@ -138,7 +164,14 @@ pruning's 7d and 12d, hybrid scan's 7e and 12e, the other sources' 7f and
    hyperspace off, each split by its ``Session.query_stage_seconds``
    layers; then each device program of a warm J1 timed alone with CUDA
    events beside its bound; at ``--seed 0`` and SF1 the row counts of q6,
-   J1 and J2 must be those of the lake before its flag columns;
+   J1 and J2 must be those of the lake before its flag columns. Hyperspace
+   off takes the tier the port's ``broadcast_spec`` picks (``orders`` is
+   under ``broadcastMaxBytes``: the broadcast join), asserted per join, and
+   each join also runs off with ``broadcastMaxBytes=0`` (the generic merge);
+   then J3 (J1 with a Filter on ``o_totalprice`` above the join, hyperspace
+   off, through ``to_local_iterator``): the broadcast probe with the
+   ``fused-postjoin`` program on every chunk, equal to the materialized
+   query, and the program alone on its largest chunk;
 12. agg: on the same session, the covering index ``li_q1`` (on
    ``l_shipdate`` with q1's columns; build time, stages and K1 launches),
    then A1 (TPC-H q1 over plain columns through ``li_q1``: 4 groups of
@@ -160,9 +193,11 @@ pruning's 7d and 12d, hybrid scan's 7e and 12e, the other sources' 7f and
    ``chunkBytes`` an eighth of ``li_q1``'s index bytes: at least 8 chunks)
    with the scan pipeline on and off, equal to the materialized aggregate,
    and A1's pipelined and serial partial tables bit for bit (deterministic
-   algorithms); warm medians and layers of every run, the launches of
-   ``grouped-agg-chunk`` and ``grouped-merge`` per streamed A1; the
-   partitioned merge of J1 with hyperspace off (``spillMinRows=2^20``);
+   algorithms); warm medians and layers of every run (cold for the
+   unstreamed and pipelined ones; the serial one's first run keeps the
+   caches), the launches of ``grouped-agg-chunk`` and ``grouped-merge`` per
+   streamed A1; the partitioned merge of J1 with hyperspace off
+   (``spillMinRows=2^20``, ``broadcastMaxBytes=0``);
    ``grouped-merge`` alone on A1's last partial tables beside its bound;
 12c. lifecycle: the SF1 ``lineitem`` files hard-linked into a mutable
    lake; ``li_mut`` (covering on ``l_shipdate`` with q6's columns),
@@ -190,7 +225,7 @@ pruning's 7d and 12d, hybrid scan's 7e and 12e, the other sources' 7f and
    ``BucketUnion``) and A3 through hybrid scan: traces (``filter:
    device-lineage``, ``rebucket: computed`` then ``cached``), cold, warm
    and off with layers, equal to off and to the same queries after a full
-   refresh (K1); the lineage-antijoin program alone on q6's index side
+   refresh (K1), timed warm; the lineage-antijoin program alone on q6's index side
    with CUDA events, beside its bound, ``torch.isin`` and numpy;
 12f. delta: the SF1 ``lineitem`` written as a Delta table (one version per
    file); ``ld_cov`` (lineage; K1) and ``ld_skip`` (MinMax on
@@ -212,7 +247,23 @@ pruning's 7d and 12d, hybrid scan's 7e and 12e, the other sources' 7f and
    Compute`` takes the host aggregate, as in the JAX package); then the
    other twelve once on and once off, rows equal, over a lake and roster
    of their own at SF 0.1 (cut from SF1 to keep the script inside its
-   time limit);
+   time limit). Every query prints its ``join: broadcast-hash-stream``
+   count; each timed one also runs off with ``broadcastMaxBytes=0`` (the
+   generic merge, PR 9's "off"), and its layers include the broadcast
+   join's ``join_build``, ``join_probe`` (program and copy-back),
+   ``join_verify``, ``join_postjoin`` and ``join_gather``; then
+   ``hash-build`` and ``hash-probe`` alone on the largest table the timed
+   queries broadcast and its largest probe chunk;
+12h. topk: on the main session and lake (16 files), T1 (the 100 dearest
+   lines) and T2 (T1 under q6's filter) over the source with
+   ``stream.chunkBytes`` set so the 16 files make 8 chunks (the streaming
+   device top-k, 8 ``topk-chunk`` dispatches), T3 (a month of
+   ``l_shipdate`` in ship-date order, limit 1000, through ``li_shipdate``:
+   the sorted-run merge), each cold, warm (the median of ``--reps``) and
+   with ``topk.enabled=false`` (rows equal byte for byte), with the row
+   groups pruning kept and the cold run's dispatches; T4 (``limit(10)``
+   through ``to_local_iterator``) with the files it decoded of 16; then
+   ``topk-chunk`` and ``topk-merge`` alone on T1's inputs;
 13. profile-query: one warm q6 under ``torch.profiler``: device busy time
    against the query's wall time, and the device time by op;
 14. profile-join: the same for one warm J1;
@@ -225,7 +276,7 @@ pruning's 7d and 12d, hybrid scan's 7e and 12e, the other sources' 7f and
    fewest ``lineitem`` rows (the SF1 lake's columns, distributions and rows
    per file; ``orders`` at a quarter) that put J1's two covering indexes
    (TPC-H q3's ``lineitem`` and ``orders`` columns) together, and ``li_q1``
-   alone, above 1.2 GiB, sized from those indexes' SF1 bytes per row;
+   alone, above 1.1 GiB, sized from those indexes' SF1 bytes per row;
    the lake generated on worker processes and indexed (K1 launches), the
    gates' crossing asserted from the bytes; J1 (the streamed join) and A1
    (the streamed aggregate) cold, against hyperspace off (J1 by row count
@@ -236,8 +287,9 @@ pruning's 7d and 12d, hybrid scan's 7e and 12e, the other sources' 7f and
 The third line from the end is a JSON object with the queries', the
 joins' (under ``"join"``), the aggregates' (under ``"agg"``), the
 lifecycle's (under ``"lifecycle"``), pruning's (``"prune"``), hybrid
-scan's (``"hybrid"``), the Delta table's (``"delta"``) and SQL's
-(``"sql"``) results and times, the line before the last one with an entry per kernel (its launches
+scan's (``"hybrid"``), the Delta table's (``"delta"``), SQL's (``"sql"``,
+with ``bcast-small`` under ``"bcast_small"``) and the top-k's (``"topk"``)
+results and times, the line before the last one with an entry per kernel (its launches
 on the build's main path, and per path under ``launches_by_path``); the
 last line
 is ``{"ok": true, "device": {...}}``. Any failed check raises, so
@@ -1271,14 +1323,15 @@ def check_join_small(tmp: str, seed: int, devices=("cpu", "cuda")) -> dict:
             assert same_batch(got[devices[-1]], got[devices[0]]), \
                 f"{name} over the {owner} build: the GPU result differs from the CPU port's"
         cpu = sessions[devices[0], devices[0]]
+        off_df = small_joins(cpu.read_parquet(fact), cpu.read_parquet(dim), ht.col)[name][0]
         with cpu.hyperspace_scope(False):
-            off_df = small_joins(cpu.read_parquet(fact), cpu.read_parquet(dim), ht.col)[name][0]
             off, summary = traced_collect(off_df)
-        assert "join: generic-merge x1" in summary.splitlines(), summary
+        off_lines = off_join_lines(cpu, off_df)
+        assert trace_lines(summary, ("join:",)) == off_lines, (summary, off_lines)
         assert same_batch(as_multiset(got[devices[-1]]), as_multiset(off)), f"{name}: differs from hyperspace off"
         rows[name] = len(next(iter(off.values())))
         print(f"join-small {name}: {rows[name]} rows; over either build, GPU equals the CPU port byte for byte and "
-              f"hyperspace off as a multiset; join: device-smj", flush=True)
+              f"hyperspace off ({'; '.join(off_lines)}) as a multiset; join: device-smj", flush=True)
     assert not any(kernels.launches.values()), dict(kernels.launches)
     assert all(rows.values()), rows
     # each join ran once per (build, device) pair (the CPU runs are the same
@@ -1472,20 +1525,32 @@ def run_joins(sess, li_src: str, tmp: str, args, smi: str, hbm: float) -> dict:
         del host
         host_layers = layer_ms(sess, q.collect, max(3, reps // 3))
         sess.conf.set(ht.keys.DEVICE_MIN_ROWS, 0)
+        off_lines = off_join_lines(sess, q)
         with sess.hyperspace_scope(False):
             off, off_summary = traced_collect(q)
-            assert "join: generic-merge x1" in off_summary.splitlines(), off_summary
+            assert trace_lines(off_summary, ("join:",)) == off_lines, (off_summary, off_lines)
             assert n_rows > 0 and same_batch(as_multiset(got), as_multiset(off)), f"{name}: differs from hyperspace off"
             del off
-            off_layers = layer_ms(sess, q.collect, 3)
+            off_layers = layer_ms(sess, q.collect, 2)
+            # the generic merge, the off baseline before the broadcast tier
+            sess.conf.set(ht.keys.JOIN_BROADCAST_MAX_BYTES, 0)
+            generic, generic_summary = traced_collect(q)
+            assert "join: generic-merge x1" in generic_summary.splitlines(), generic_summary
+            assert same_batch(as_multiset(got), as_multiset(generic)), f"{name}: differs from the generic merge"
+            del generic
+            generic_layers = layer_ms(sess, q.collect, 1)
+            sess.conf.set(ht.keys.JOIN_BROADCAST_MAX_BYTES, 64 << 20)
         out[name] = {"name": name, "rows": n_rows, "files": [len(s.files) for s in scans],
                      "cold_ms": cold, "warm_ms": warm_layers["total"], "host_warm_ms": host_layers["total"],
-                     "off_ms": off_layers["total"], "reps": reps,
+                     "off_ms": off_layers["total"], "off_tier": off_lines, "generic_ms": generic_layers["total"],
+                     "reps": reps,
                      "layers_ms": {"cold": cold_layers, "warm": warm_layers, "host_warm": host_layers,
-                                   "off": off_layers}}
-        print(f"join {name}: {n_rows} rows, equal to hyperspace off and to the host-span path; cold {cold:.3f} ms, "
+                                   "off": off_layers, "generic": generic_layers}}
+        print(f"join {name}: {n_rows} rows, equal to hyperspace off ({'; '.join(off_lines)}), to the generic merge "
+              f"and to the host-span path; cold {cold:.3f} ms, "
               f"warm {warm_layers['total']:.3f} ms, warm on the host-span path {host_layers['total']:.3f} ms, "
-              f"hyperspace off {off_layers['total']:.3f} ms ({smi})", flush=True)
+              f"hyperspace off {off_layers['total']:.3f} ms, off with broadcastMaxBytes=0 (the generic merge) "
+              f"{generic_layers['total']:.3f} ms ({smi})", flush=True)
         for run, layers in out[name]["layers_ms"].items():
             print(f"layers {name} ({run}): " + ", ".join(f"{k} {v:.3f} ms" for k, v in layers.items())
                   + f" ({smi})", flush=True)
@@ -1497,8 +1562,51 @@ def run_joins(sess, li_src: str, tmp: str, args, smi: str, hbm: float) -> dict:
     for name, p in programs.items():
         print(f"program {name} ({p['shape']}): {p['ms']} ms, bound {p['bound_ms']} ms ({p['bound_by']}), "
               f"{100 * p['share_of_bound']:.1f}% of bound ({smi})", flush=True)
+    out["J3"] = run_fused_postjoin(sess, sess.read_parquet(li_src), orders, smi, hbm, args.reps)
     return {"joins": list(out.values()), "dispatches": dispatches, "programs": programs,
             "o_orderkey_build_s": build_s, "o_orderkey_build_launches": build_launches}, queries["J1"], o_src
+
+
+def run_fused_postjoin(sess, li, orders, smi: str, hbm: float, reps: int) -> dict:
+    """J3: J1's join with a Filter above it (``o_totalprice > 300000``),
+    hyperspace off, streamed through ``to_local_iterator``: the broadcast
+    probe of the 6M ``lineitem`` rows against the 1.5M ``orders`` with the
+    post-join filter as the ``fused-postjoin`` program; the rows equal the
+    materialized query's as a multiset; then the program alone on the
+    largest chunk's pairs."""
+    import torch
+
+    import hyperspace_tpu_torch as ht
+    from hyperspace_tpu_torch.exec import batch as B
+    from hyperspace_tpu_torch.exec import device as D
+    from hyperspace_tpu_torch.exec import trace
+
+    c = ht.col
+    q = li.join(orders, c("l_orderkey") == c("o_orderkey")).filter(c("o_totalprice") > 300000.0).select(
+        "l_orderkey", "l_extendedprice", "o_orderdate", "o_totalprice")
+    with sess.hyperspace_scope(False):
+        want = as_multiset(q.collect())
+        D.reset_dispatches()
+        sess.query_stage_seconds.clear()
+        with ProgramCapture() as cap, trace.recording() as events:
+            t = time.perf_counter()
+            chunks = list(q.to_local_iterator())
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+        layers = {k: v * 1e3 for k, v in sess.query_stage_seconds.items()}
+    assert ("join", "broadcast-hash-stream") in events, trace.summarize(events)
+    assert D.dispatches["fused-postjoin"] == D.dispatches["hash-probe"] > 0, dict(D.dispatches)
+    got = B.concat(chunks)
+    assert same_batch(as_multiset(got), want), "J3: the streamed chunks differ from the materialized query"
+    rows = len(next(iter(got.values())))
+    programs = new_program_times({"fused-postjoin": cap.seen["fused-postjoin"]}, reps, hbm)
+    print(f"join J3 (hyperspace off, streamed): {rows} rows in {len(chunks)} chunks, equal to the materialized "
+          f"query as a multiset; dispatches {dict(D.dispatches)}; {ms:.3f} ms ({smi})", flush=True)
+    print("layers J3 (streamed): " + ", ".join(f"{k} {v:.3f} ms" for k, v in layers.items()) + f" ({smi})",
+          flush=True)
+    print_programs(programs, smi)
+    return {"name": "J3", "rows": rows, "chunks": len(chunks), "streamed_ms": ms, "layers_ms": layers,
+            "dispatches": dict(D.dispatches), "programs": programs}
 
 
 # --- aggregates -----------------------------------------------------------------
@@ -1814,7 +1922,7 @@ def run_aggregates(sess, li_src: str, o_src: str, tmp: str, args, smi: str, hbm:
             assert not any(ln.startswith("agg:") for ln in off_summary.splitlines()), off_summary
             assert groups > 0 and same_groups(got, off, floats, ordered=False), f"{name}: differs from hyperspace off"
             del off
-            off_layers = layer_ms(sess, q.collect, 3)
+            off_layers = layer_ms(sess, q.collect, 2)
         out[name] = {"name": name, "groups": groups, "cold_ms": cold, "warm_ms": warm_layers["total"],
                      "host_warm_ms": host_layers["total"], "off_ms": off_layers["total"], "reps": reps, **extra,
                      "layers_ms": {"cold": cold_layers, "warm": warm_layers, "host_warm": host_layers,
@@ -2061,13 +2169,15 @@ def check_stream_small(tmp: str, seed: int, devices=("cpu", "cuda")) -> dict:
               f"chunk by chunk, together equal to collect(); closed after one chunk: {started} decodes started, "
               f"all finished, none after", flush=True)
 
-    # the partitioned generic merge (hyperspace off)
+    # the partitioned generic merge (hyperspace off; broadcastMaxBytes=0,
+    # since the dimension side would take the broadcast join)
     for how in ("inner", "left", "right", "outer"):
         got = {}
         for device in devices:
             res = {}
             for spill in (64, None):
-                sess = session("jsmall", device, False, **({ht.keys.JOIN_SPILL_MIN_ROWS: spill} if spill else {}))
+                sess = session("jsmall", device, False, **{ht.keys.JOIN_BROADCAST_MAX_BYTES: 0},
+                               **({ht.keys.JOIN_SPILL_MIN_ROWS: spill} if spill else {}))
                 df = sess.read_parquet(fact).join(sess.read_parquet(dim), c("k") == c("dk"), how=how).select(
                     "k", "v", "n", "str", "dk", "w", "dstr")
                 res[spill], summary = traced_collect(df)
@@ -2079,8 +2189,9 @@ def check_stream_small(tmp: str, seed: int, devices=("cpu", "cuda")) -> dict:
             got[device] = res[64]
         assert same_batch(got[devices[-1]], got[devices[0]]), f"{how}: the GPU partitioned merge differs from the CPU's"
         out["partitioned"][how] = len(next(iter(got[devices[-1]].values())))
-        print(f"stream-small partitioned merge {how}: {out['partitioned'][how]} rows, equal to the unpartitioned "
-              f"merge as a multiset, GPU equals the CPU port", flush=True)
+        print(f"stream-small partitioned merge {how} (broadcastMaxBytes=0: the generic merge): "
+              f"{out['partitioned'][how]} rows, equal to the unpartitioned merge as a multiset, GPU equals the CPU "
+              f"port", flush=True)
     assert not any(kernels.launches.values()), dict(kernels.launches)
     assert D.dispatches["grouped-merge"] > 0 and D.dispatches["grouped-agg-chunk"] > 0, dict(D.dispatches)
     out["dispatches"] = dict(D.dispatches)
@@ -2173,14 +2284,14 @@ def run_stream(sess, li_src: str, o_src: str, tmp: str, args, smi: str, hbm: flo
     sess.conf.set(ht.keys.DEVICE_MIN_ROWS, 0)
     sess.conf.set(ht.keys.JOIN_DEVICE_MATERIALIZE_MAX_BYTES, 2 << 30)
     sess.enable_hyperspace()
-    reps_join = max(3, args.reps // 10)
-    reps_agg = max(3, args.reps // 6)
+    reps_join = reps_agg = 2
     out = {"joins": [], "aggregates": []}
 
-    def run_mode(q, conf, reps):
+    def run_mode(q, conf, reps, cold_caches=True):
         for k, v in conf.items():
             sess.conf.set(k, v)
-        clear_query_caches()
+        if cold_caches:
+            clear_query_caches()
         sess.query_stage_seconds.clear()
         t = time.perf_counter()
         got, summary = traced_collect(q)
@@ -2207,7 +2318,8 @@ def run_stream(sess, li_src: str, o_src: str, tmp: str, args, smi: str, hbm: flo
         for pipe in (True, False):
             mode = "streamed_pipelined" if pipe else "streamed_serial"
             got, summary, cold, warm = run_mode(q, {ht.keys.STREAM_JOIN_MIN_BYTES: 1,
-                                                    ht.keys.JOIN_PIPELINE_ENABLED: pipe}, reps_join)
+                                                    ht.keys.JOIN_PIPELINE_ENABLED: pipe}, reps_join,
+                                                cold_caches=pipe)
             assert trace_lines(summary, ("join:",)) == ["join: host-span-smj-stream x1"], summary
             assert_no_fallback(summary, name)
             assert same_batch(got, unstreamed), f"{name} {mode}: differs from the unstreamed join"
@@ -2222,8 +2334,8 @@ def run_stream(sess, li_src: str, o_src: str, tmp: str, args, smi: str, hbm: flo
               f"for byte and hyperspace off as a multiset; warm unstreamed {entry['unstreamed']['warm_ms']:.3f} ms, "
               f"streamed pipelined {entry['streamed_pipelined']['warm_ms']:.3f} ms, serial "
               f"{entry['streamed_serial']['warm_ms']:.3f} ms; cold {entry['unstreamed']['cold_ms']:.3f} / "
-              f"{entry['streamed_pipelined']['cold_ms']:.3f} / {entry['streamed_serial']['cold_ms']:.3f} ms "
-              f"(median of {reps_join}; {smi})", flush=True)
+              f"{entry['streamed_pipelined']['cold_ms']:.3f} ms, serial first run (caches kept) "
+              f"{entry['streamed_serial']['cold_ms']:.3f} ms (median of {reps_join}; {smi})", flush=True)
         del unstreamed, off
 
     q1_bytes = index_bytes(system, "li_q1")
@@ -2242,7 +2354,7 @@ def run_stream(sess, li_src: str, o_src: str, tmp: str, args, smi: str, hbm: flo
             mode = "streamed_pipelined" if pipe else "streamed_serial"
             before = dict(D.dispatches)
             got, summary, cold, warm = run_mode(q, {ht.keys.STREAM_AGG_MIN_BYTES: 1, ht.keys.STREAM_CHUNK_BYTES: chunk,
-                                                    ht.keys.PIPELINE_ENABLED: pipe}, reps_agg)
+                                                    ht.keys.PIPELINE_ENABLED: pipe}, reps_agg, cold_caches=pipe)
             runs = 1 + reps_agg
             launches = {p: (D.dispatches[p] - before.get(p, 0)) / runs for p in ("grouped-agg-chunk", "grouped-merge")}
             lines = trace_lines(summary, ("agg:",))
@@ -2285,17 +2397,19 @@ def run_stream(sess, li_src: str, o_src: str, tmp: str, args, smi: str, hbm: flo
         q = joins["J1"]
         whole = as_multiset(q.collect())
         sess.conf.set(ht.keys.JOIN_SPILL_MIN_ROWS, 1 << 20)
+        sess.conf.set(ht.keys.JOIN_BROADCAST_MAX_BYTES, 0)  # orders would broadcast
         t = time.perf_counter()
         got, summary = traced_collect(q)
         part_ms = (time.perf_counter() - t) * 1e3
         sess.conf.set(ht.keys.JOIN_SPILL_MIN_ROWS, 1 << 26)
+        sess.conf.set(ht.keys.JOIN_BROADCAST_MAX_BYTES, 64 << 20)
         parts = [ln for ln in summary.splitlines() if ln.startswith("join: generic-merge-partitioned(")]
         assert parts, summary
         assert same_batch(as_multiset(got), whole), "J1: the partitioned merge differs from the unpartitioned one"
         del got, whole
     out["partitioned_J1_off_ms"] = part_ms
-    print(f"stream J1 off, spillMinRows 2^20: {parts[0].split()[1]}, equal to the unpartitioned merge as a "
-          f"multiset; {part_ms:.3f} ms ({smi})", flush=True)
+    print(f"stream J1 off, spillMinRows 2^20, broadcastMaxBytes=0 (the generic merge): {parts[0].split()[1]}, "
+          f"equal to the unpartitioned merge as a multiset; {part_ms:.3f} ms ({smi})", flush=True)
 
     sess.conf.set(ht.keys.STREAM_AGG_MIN_BYTES, 1)
     sess.conf.set(ht.keys.STREAM_CHUNK_BYTES, chunk)
@@ -2310,7 +2424,7 @@ def run_stream(sess, li_src: str, o_src: str, tmp: str, args, smi: str, hbm: flo
 #: the scale lake's rows per source file (as SF1's: 6M over 16 files)
 SCALE_ROWS_PER_FILE = LINEITEM_ROWS_SF1 // 16
 GATE_BYTES = 1 << 30
-SCALE_TARGET_BYTES = int(1.2 * GATE_BYTES)
+SCALE_TARGET_BYTES = int(1.1 * GATE_BYTES)
 
 
 def _write_lineitem_file(path: str, seed: int, i: int, rows: int, sf: float, edit=None) -> None:
@@ -3311,26 +3425,32 @@ def check_sources_small(tmp: str, seed: int, devices=("cpu", "cuda")) -> dict:
     return out
 
 
-def time_queries(sess, qs: dict, reps: int, label: str, smi: str):
+def time_queries(sess, qs: dict, reps: int, label: str, smi: str, cold_and_off: bool = True):
     """Cold (caches emptied), warm (median of ``reps``, with layers) and
-    hyperspace-off times of each query; the results of the cold runs."""
+    hyperspace-off (one run) times of each query; the results of the
+    first runs. ``cold_and_off=False`` keeps the caches and times warm
+    only."""
     import torch
 
     out, results = {}, {}
     for name, q in qs.items():
-        clear_query_caches()
+        if cold_and_off:
+            clear_query_caches()
         sess.query_stage_seconds.clear()
         t = time.perf_counter()
         results[name] = q.collect()
         torch.cuda.synchronize()
         cold = (time.perf_counter() - t) * 1e3
         warm = layer_ms(sess, q.collect, reps)
-        with sess.hyperspace_scope(False):
-            off_ms = median_ms(q.collect, max(2, reps // 2))
-        out[name] = {"rows": len(next(iter(results[name].values()))), "cold_ms": cold, "warm_ms": warm["total"],
-                     "off_ms": off_ms, "layers": warm}
-        print(f"{label} {name}: {out[name]['rows']} rows; cold {cold:.3f} ms, warm {warm['total']:.3f} ms, "
-              f"off {off_ms:.3f} ms ({smi})", flush=True)
+        off_ms = None
+        if cold_and_off:
+            with sess.hyperspace_scope(False):
+                off_ms = median_ms(q.collect, 1)
+        out[name] = {"rows": len(next(iter(results[name].values()))), "warm_ms": warm["total"], "layers": warm,
+                     **({"cold_ms": cold, "off_ms": off_ms} if cold_and_off else {})}
+        print(f"{label} {name}: {out[name]['rows']} rows; "
+              + (f"cold {cold:.3f} ms, warm {warm['total']:.3f} ms, off {off_ms:.3f} ms" if cold_and_off
+                 else f"warm {warm['total']:.3f} ms") + f" ({smi})", flush=True)
         print(f"layers {label} {name} (warm): " + ", ".join(f"{k} {v:.3f}" for k, v in warm.items() if v >= 0.001),
               flush=True)
     return out, results
@@ -3355,7 +3475,7 @@ def run_prune(li_src: str, tmp: str, args, smi: str) -> dict:
           f"{time.perf_counter() - t:.3f} s", flush=True)
     sess = ht.Session(conf={ht.keys.SYSTEM_PATH: os.path.join(tmp, "prune", "indexes"), ht.keys.DEVICE_MIN_ROWS: 0},
                       device="cuda")
-    reps = max(3, args.reps // 3)
+    reps = max(2, args.reps // 3)
     out = {"device": smi, "files": n_files, "queries": {}}
     want = {}
     for pruning in (True, False):
@@ -3547,7 +3667,7 @@ def run_hybrid(li_src: str, o_src: str, tmp: str, args, smi: str, hbm: float) ->
     out["dispatches"] = dict(D.dispatches)
     assert D.dispatches["lineage-antijoin"] >= 1, out["dispatches"]
     out["traces"] = traces
-    reps = max(3, args.reps // 3)
+    reps = max(2, args.reps // 3)
     times, results = time_queries(sess, qs, reps, "hybrid", smi)
     out["queries"] = times
     for name, q in qs.items():
@@ -3573,7 +3693,7 @@ def run_hybrid(li_src: str, o_src: str, tmp: str, args, smi: str, hbm: float) ->
         plan = q.optimized_plan().pretty()
         assert "_data_file_id" not in plan and "BucketUnion" not in plan, plan
         assert same_groups(q.collect(), results[name], {"sum_price", "sum_total"}, ordered=False), name
-    refreshed, _ = time_queries(sess, qs, reps, "hybrid refreshed", smi)
+    refreshed, _ = time_queries(sess, qs, reps, "hybrid refreshed", smi, cold_and_off=False)
     out["refreshed"] = refreshed
     print(f"hybrid: full refresh {out['full_refresh']['seconds']:.3f} s (launches {out['full_refresh']['launches']}); "
           f"q6, J1, A3 equal before and after", flush=True)
@@ -3606,7 +3726,7 @@ def run_delta(li_src: str, tmp: str, args, smi: str) -> dict:
     hs = ht.Hyperspace(sess)
     sf = args.rows / LINEITEM_ROWS_SF1
     per_file = args.rows // args.files
-    reps = max(3, args.reps // 3)
+    reps = max(2, args.reps // 3)
 
     def action(label, fn, rows, expected):
         torch.cuda.synchronize()
@@ -3889,35 +4009,20 @@ def open_tpch(dirs: dict, system: str, device: str, num_buckets=None):
     return sess.enable_hyperspace(), builds
 
 
-def approved_dispatch(qname: str) -> dict:
-    """The approved trace's ``join:``, ``scan:`` and ``filter:`` counts in
-    the port's terms: the JAX package's broadcast join (A6) answers as the
-    generic merge; where it streams its probe side through the bucketed
-    join (``join: host-span-smj-stream``), the port's merge runs that join
-    on its device tier (``join: device-smj`` over two ``scan:
-    index-bucketed``); ``decode:`` lines are the native decode's (A13)."""
-    counts = collections.Counter()
+def approved_dispatch(qname: str) -> list:
+    """The approved trace's lines less its ``decode:`` lines (the native
+    decode, A13)."""
     with open(os.path.join(TPCH_APPROVED_DIR, f"{qname}.dispatch.txt"), encoding="utf-8") as f:
-        for line in f.read().splitlines():
-            what, n = line.rsplit(" x", 1)
-            if what == "join: broadcast-hash-stream":
-                what = "join: generic-merge"
-            if what == "join: host-span-smj-stream":
-                counts["join: device-smj"] += int(n)
-                counts["scan: index-bucketed"] += 2 * int(n)
-            elif what.startswith(("join:", "scan:", "filter:")):
-                counts[what] += int(n)
-    return dict(counts)
+        return [ln for ln in f.read().splitlines() if not ln.startswith("decode:")]
 
 
-def dispatch_counts(summary: str) -> dict:
-    """A trace summary's ``join:``, ``scan:`` and ``filter:`` counts."""
-    out = {}
-    for line in summary.splitlines():
-        what, n = line.rsplit(" x", 1)
-        if what.startswith(("join:", "scan:", "filter:")):
-            out[what] = int(n)
-    return out
+def dispatch_lines(summary: str) -> list:
+    """A trace summary's lines less its ``decode:`` lines."""
+    return [ln for ln in summary.splitlines() if not ln.startswith("decode:")]
+
+
+def broadcast_count(lines) -> int:
+    return sum(int(ln.rsplit(" x", 1)[1]) for ln in lines if ln.startswith("join: broadcast-hash-stream"))
 
 
 def float_columns(batch) -> set:
@@ -3928,8 +4033,11 @@ def check_sql_small(tmp: str, seed: int, devices=("cpu", "cuda")) -> dict:
     """The 22 TPC-H texts through ``Session.sql`` over the suite's fixture,
     indexed in a CPU and a GPU session: the GPU rows equal the CPU port's in
     order (floats at rtol 1e-9) and hyperspace off as a multiset, the plan
-    equals the approved one, no result is empty, and the trace's join, scan
-    and filter counts equal the approved ones (``approved_dispatch``)."""
+    equals the approved one, no result is empty, and the trace equals the
+    approved one line for line, less its ``decode:`` lines
+    (``approved_dispatch``); on the GPU the broadcast join's programs run."""
+    from hyperspace_tpu_torch.exec import device as D
+
     import hyperspace_tpu_torch as ht
 
     root = os.path.join(tmp, "sql-small")
@@ -3946,6 +4054,7 @@ def check_sql_small(tmp: str, seed: int, devices=("cpu", "cuda")) -> dict:
     print(f"sql-small: 8 tables, {len(TPCH_INDEXES)} covering indexes at 4 buckets in each session; "
           f"K1 launches of the GPU builds {k1}", flush=True)
     out = {}
+    gpu_dispatches = collections.Counter()
     for qname, text in texts.items():
         got, traces = {}, {}
         for device, sess in sessions.items():
@@ -3954,9 +4063,13 @@ def check_sql_small(tmp: str, seed: int, devices=("cpu", "cuda")) -> dict:
             with open(os.path.join(TPCH_APPROVED_DIR, f"{qname}.txt"), encoding="utf-8") as f:
                 assert plan == f.read(), f"{qname} on {device}: the plan differs from the approved one:\n{plan}"
             clear_query_caches()
+            if device == "cuda":
+                D.reset_dispatches()
             got[device], traces[device] = traced_collect(q)
-            assert dispatch_counts(traces[device]) == approved_dispatch(qname), (
+            assert dispatch_lines(traces[device]) == approved_dispatch(qname), (
                 f"{qname} on {device}: {traces[device]} against {approved_dispatch(qname)}")
+            if device == "cuda":
+                gpu_dispatches.update(D.dispatches)
         gpu, cpu = got[devices[-1]], got[devices[0]]
         floats = float_columns(cpu)
         assert same_groups(gpu, cpu, floats, ordered=True), f"{qname}: the GPU rows differ from the CPU port's"
@@ -3967,11 +4080,14 @@ def check_sql_small(tmp: str, seed: int, devices=("cpu", "cuda")) -> dict:
             f"{qname}: the GPU rows differ from hyperspace off")
         rows = len(next(iter(gpu.values())))
         assert rows > 0, f"{qname} returned no rows"
-        lines = [ln for ln in traces[devices[-1]].splitlines() if not ln.startswith("decode:")]
+        lines = dispatch_lines(traces[devices[-1]])
         out[qname] = {"rows": rows, "trace": lines}
-        print(f"sql-small {qname}: {rows} rows; plan as approved; GPU equals the CPU port in order and "
+        print(f"sql-small {qname}: {rows} rows; plan and trace as approved; GPU equals the CPU port in order and "
               f"hyperspace off as a multiset; " + "; ".join(lines), flush=True)
-    return {"queries": out, "k1_launches": k1}
+    if devices[-1] == "cuda":
+        assert gpu_dispatches["hash-build"] > 0 and gpu_dispatches["hash-probe"] > 0, dict(gpu_dispatches)
+    print(f"sql-small GPU dispatches: {dict(gpu_dispatches)}", flush=True)
+    return {"queries": out, "k1_launches": k1, "gpu_dispatches": dict(gpu_dispatches)}
 
 
 def sql_layers(sess, q, reps: int) -> dict:
@@ -3991,12 +4107,14 @@ def sql_layers(sess, q, reps: int) -> dict:
     return {"cold": cold_layers, "warm": layer_ms(sess, q.collect, reps)}, got, summary
 
 
-def run_sql(tmp: str, args, smi: str) -> dict:
+def run_sql(tmp: str, args, smi: str, hbm: float) -> dict:
     """TPC-H at SF1 through ``Session.sql``: all 8 tables from
     ``benchmarks/tpch_full.py::gen_all``, the suite's roster at 200 buckets,
-    the timed queries cold, warm and off, q6 and q1 beside their DataFrame
-    forms (A2, A1); then the other twelve once on and once off over a lake
-    and roster of their own at ``SQL_OTHER_SF``."""
+    the timed queries cold, warm, off and generic (off with
+    ``broadcastMaxBytes=0``), the broadcast programs alone on their largest
+    inputs, q6 and q1 beside their DataFrame forms (A2, A1); then the other
+    twelve once on and once off over a lake and roster of their own at
+    ``SQL_OTHER_SF``."""
     import torch
 
     import hyperspace_tpu_torch as ht
@@ -4025,39 +4143,63 @@ def run_sql(tmp: str, args, smi: str) -> dict:
         plan = q.optimized_plan()
         return q, plan, (time.perf_counter() - t) * 1e3
 
+    def timed_run(q):
+        sess.query_stage_seconds.clear()
+        t = time.perf_counter()
+        got, summary = traced_collect(q)
+        ms = (time.perf_counter() - t) * 1e3
+        lay = {k: v * 1e3 for k, v in sess.query_stage_seconds.items()}
+        lay.update(rest=ms - sum(v for k, v in lay.items() if not k.startswith("prefetch_")), total=ms)
+        return got, dispatch_lines(summary), lay
+
     D.reset_dispatches()
-    for qname in SQL_TIMED:
-        q, plan, p_ms = plan_ms(texts[qname])
-        print(f"plan {qname} ({p_ms:.3f} ms to parse, resolve and optimize):\n{plan.pretty()}", flush=True)
-        layers, got, summary = sql_layers(sess, q, reps)
-        lines = [ln for ln in summary.splitlines() if not ln.startswith("decode:")]
-        print(f"trace {qname}: " + "; ".join(lines), flush=True)
-        with sess.hyperspace_scope(False):
-            sess.query_stage_seconds.clear()
-            t = time.perf_counter()
-            off = q.collect()
-            off_ms = (time.perf_counter() - t) * 1e3
-            off_layers = {k: v * 1e3 for k, v in sess.query_stage_seconds.items()}
-            off_layers.update(rest=off_ms - sum(v for k, v in off_layers.items() if not k.startswith("prefetch_")),
-                              total=off_ms)
-        floats = float_columns(got) | float_columns(off)
-        rows = len(next(iter(got.values())))
-        assert rows > 0 and same_groups(got, off, floats, ordered=False), f"{qname}: differs from hyperspace off"
-        del off
-        out["timed"][qname] = {"rows": rows, "plan_ms": p_ms, "trace": lines,
-                               "indexes": sorted({s.entry.name for s in plan_index_scans(plan)}),
-                               "cold_ms": layers["cold"]["total"], "warm_ms": layers["warm"]["total"],
-                               "off_ms": off_ms,
-                               "layers_ms": {"cold": layers["cold"], "warm": layers["warm"], "off": off_layers}}
-        r = out["timed"][qname]
-        print(f"sql {qname}: {rows} rows, equal to hyperspace off; indexes {r['indexes']}; plan {p_ms:.3f} ms, "
-              f"cold {r['cold_ms']:.3f} ms, warm {r['warm_ms']:.3f} ms, off {r['off_ms']:.3f} ms ({smi})",
-              flush=True)
-        for run, lay in r["layers_ms"].items():
-            print(f"layers sql {qname} ({run}): " + ", ".join(f"{k} {v:.3f} ms" for k, v in lay.items())
-                  + f" ({smi})", flush=True)
+    capture = ProgramCapture().__enter__()
+    try:
+        for qname in SQL_TIMED:
+            q, plan, p_ms = plan_ms(texts[qname])
+            print(f"plan {qname} ({p_ms:.3f} ms to parse, resolve and optimize):\n{plan.pretty()}", flush=True)
+            before = collections.Counter(D.dispatches)
+            layers, got, summary = sql_layers(sess, q, reps)
+            per_run = {k: v / (1 + reps) for k, v in (collections.Counter(D.dispatches) - before).items()}
+            lines = dispatch_lines(summary)
+            print(f"trace {qname}: " + "; ".join(lines), flush=True)
+            with sess.hyperspace_scope(False):
+                off, off_lines, off_layers = timed_run(q)
+                # the generic merge: the off baseline before the broadcast tier
+                sess.conf.set(ht.keys.JOIN_BROADCAST_MAX_BYTES, 0)
+                generic, generic_lines, generic_layers = timed_run(q)
+                sess.conf.set(ht.keys.JOIN_BROADCAST_MAX_BYTES, 64 << 20)
+            assert not broadcast_count(generic_lines), generic_lines
+            floats = float_columns(got) | float_columns(off)
+            rows = len(next(iter(got.values())))
+            assert rows > 0 and same_groups(got, off, floats, ordered=False), f"{qname}: differs from hyperspace off"
+            assert same_groups(got, generic, floats, ordered=False), f"{qname}: differs from the generic merge"
+            del off, generic
+            out["timed"][qname] = {"rows": rows, "plan_ms": p_ms, "trace": lines,
+                                   "indexes": sorted({s.entry.name for s in plan_index_scans(plan)}),
+                                   "broadcast": broadcast_count(lines), "off_broadcast": broadcast_count(off_lines),
+                                   "dispatches_per_run": per_run,
+                                   "cold_ms": layers["cold"]["total"], "warm_ms": layers["warm"]["total"],
+                                   "off_ms": off_layers["total"], "generic_ms": generic_layers["total"],
+                                   "layers_ms": {"cold": layers["cold"], "warm": layers["warm"], "off": off_layers,
+                                                 "generic": generic_layers}}
+            r = out["timed"][qname]
+            print(f"sql {qname}: {rows} rows, equal to hyperspace off and to the generic merge; indexes "
+                  f"{r['indexes']}; join: broadcast-hash-stream x{r['broadcast']} (off x{r['off_broadcast']}); "
+                  f"plan {p_ms:.3f} ms, cold {r['cold_ms']:.3f} ms, warm {r['warm_ms']:.3f} ms, off "
+                  f"{r['off_ms']:.3f} ms, generic (off, broadcastMaxBytes=0) {r['generic_ms']:.3f} ms; device "
+                  f"programs per run {per_run} ({smi})", flush=True)
+            for run, lay in r["layers_ms"].items():
+                print(f"layers sql {qname} ({run}): " + ", ".join(f"{k} {v:.3f} ms" for k, v in lay.items())
+                      + f" ({smi})", flush=True)
+    finally:
+        capture.__exit__()
     out["dispatches"] = dict(D.dispatches)
     print(f"sql path: dispatches {out['dispatches']}", flush=True)
+    seen = {k: v for k, v in capture.seen.items() if k in ("hash-build", "hash-probe", "fused-postjoin")}
+    out["programs"] = new_program_times(seen, args.reps, hbm)
+    print_programs(out["programs"], smi)
+    del capture, seen
 
     # Compute beside the DataFrame API: q6 through SQL plans as Aggregate ->
     # Compute -> Filter -> IndexScan and takes the host aggregate (as in the
@@ -4122,11 +4264,734 @@ def run_sql(tmp: str, args, smi: str) -> dict:
         assert same_groups(got, off, float_columns(got) | float_columns(off), ordered=False), (
             f"{qname}: differs from hyperspace off")
         del off
-        lines = [ln for ln in summary.splitlines() if not ln.startswith("decode:")]
+        lines = dispatch_lines(summary)
         out["other"][qname] = {"rows": rows, "plan_ms": p_ms, "on_ms": on_ms, "off_ms": off_ms, "trace": lines,
+                               "broadcast": broadcast_count(lines),
                                "indexes": sorted({s.entry.name for s in plan_index_scans(plan)})}
         print(f"sql {qname} (SF {SQL_OTHER_SF}): {rows} rows, equal to hyperspace off; on {on_ms:.3f} ms "
-              f"(first run), off {off_ms:.3f} ms; " + "; ".join(lines) + f" ({smi})", flush=True)
+              f"(first run), off {off_ms:.3f} ms; join: broadcast-hash-stream x{broadcast_count(lines)}; "
+              + "; ".join(lines) + f" ({smi})", flush=True)
+    return out
+
+
+# --- the broadcast hash join and ORDER BY ... LIMIT ---------------------------------
+
+
+def off_join_lines(sess, df) -> list:
+    """The ``join:`` lines ``df`` gives with hyperspace off, as the port's
+    ``broadcast_spec`` (a verbatim copy of the JAX package's decision)
+    picks each join's tier: ``broadcast-hash-stream`` where a side fits
+    under ``broadcastMaxBytes``, else ``generic-merge``."""
+    from hyperspace_tpu_torch.exec import join_stream as JS
+    from hyperspace_tpu_torch.plan import logical as L
+
+    with sess.hyperspace_scope(False):
+        plan = df.optimized_plan()
+    tiers = collections.Counter(
+        "broadcast-hash-stream" if JS.broadcast_spec(sess, j) is not None else "generic-merge"
+        for j in L.collect(plan, lambda p: isinstance(p, L.Join)))
+    return [f"join: {t} x{n}" for t, n in sorted(tiers.items())]
+
+
+def gen_bcast_lake(root: str, seed: int) -> dict:
+    """The shapes of tests/test_join_stream.py's broadcast cases: ``l``
+    (2500 rows in 3 files: float keys with 4% NaN, a string key ``c``, a
+    payload) and ``r`` (110 rows: ``k2``, ``c2``, ``w``); a q3-shaped chain
+    (``fact`` 3000 rows in 3 files, dimensions ``d1`` of 40 and ``d2`` of
+    25 rows); a pair whose keys never meet (``nl``, ``nr``)."""
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    rng = np.random.default_rng(seed)
+    tables = {}
+    n, m = 2500, 110
+    lk = rng.integers(0, 60, n).astype(np.float64)
+    lk[rng.random(n) < 0.04] = np.nan
+    tables["l"] = ({"k": lk, "c": np.array([f"g{v}" for v in rng.integers(0, 6, n)]),
+                    "v": np.round(rng.standard_normal(n), 4)}, 3)
+    rk = rng.integers(0, 70, m).astype(np.float64)
+    rk[rng.random(m) < 0.04] = np.nan
+    tables["r"] = ({"k2": rk, "c2": np.array([f"g{v}" for v in rng.integers(0, 7, m)]),
+                    "w": np.round(rng.standard_normal(m), 4)}, 1)
+    f = 3000
+    tables["fact"] = ({"fk1": rng.integers(0, 40, f).astype(np.int64), "fk2": rng.integers(0, 25, f).astype(np.int64),
+                       "amount": np.round(rng.uniform(0, 100, f), 3)}, 3)
+    tables["d1"] = ({"dk1": np.arange(40, dtype=np.int64), "dname": np.array([f"d{i}" for i in range(40)])}, 1)
+    tables["d2"] = ({"dk2": np.arange(25, dtype=np.int64), "region": np.array([f"r{i % 5}" for i in range(25)])}, 1)
+    tables["nl"] = ({"k": np.arange(50, dtype=np.int64), "v": np.ones(50)}, 1)
+    tables["nr"] = ({"k2": np.arange(1000, 1010, dtype=np.int64), "w": np.ones(10)}, 1)
+    dirs = {}
+    for name, (cols, parts) in tables.items():
+        d = dirs[name] = os.path.join(root, "bcast", name)
+        os.makedirs(d, exist_ok=True)
+        rows = len(next(iter(cols.values())))
+        for i in range(parts):
+            sl = slice(i * rows // parts, (i + 1) * rows // parts)
+            pq.write_table(pa.table({k: v[sl] for k, v in cols.items()}), os.path.join(d, f"part-{i}.parquet"))
+    return dirs
+
+
+def bcast_shapes(c) -> dict:
+    """{name: (make(frames) -> DataFrame, conf, streamed, the ``join:``
+    lines its collect() must show)}; ``c`` is ``col``."""
+    bcast = ["join: broadcast-hash-stream x1"]
+    out = {}
+    for how in ("inner", "left", "right", "outer"):
+        out[how] = (lambda t, how=how: t["l"].join(t["r"], c("k") == c("k2"), how=how), {}, False, bcast)
+        out[f"composite_{how}"] = (lambda t, how=how: t["l"].join(
+            t["r"], (c("k") == c("k2")) & (c("c") == c("c2")), how=how), {}, False, bcast)
+    out["no_match"] = (lambda t: t["nl"].join(t["nr"], c("k") == c("k2")), {}, False, bcast)
+    out["over_budget"] = (lambda t: t["l"].join(t["r"], c("k") == c("k2"), how="left"),
+                          {"hyperspace.exec.join.broadcastMaxBytes": 16}, False, ["join: generic-merge x1"])
+    out["filter_project"] = (lambda t: t["l"].join(t["r"], c("k") == c("k2")).filter(c("w") > 0.25).select(
+        "k", "v", "w"), {}, True, bcast)
+    out["outer_post_filter"] = (lambda t: t["l"].join(t["r"], c("k") == c("k2"), how="left").filter(c("v") > 0.0),
+                                {}, True, bcast)
+    out["q3_chain"] = (lambda t: t["fact"].join(t["d1"], c("fk1") == c("dk1")).join(t["d2"], c("fk2") == c("dk2"))
+                       .filter(c("region") == "r2").select("dname", "region", "amount"),
+                       {"hyperspace.exec.stream.chunkBytes": 8 * 1024}, True, ["join: broadcast-hash-stream x2"])
+    return out
+
+
+def check_bcast_small(tmp: str, seed: int, devices=("cpu", "cuda")) -> dict:
+    """The broadcast shapes in a CPU and a GPU session: the GPU rows equal
+    the CPU port's byte for byte and in order (collected and, for the
+    streamed shapes, chunk by chunk through ``execute_stream``), equal the
+    generic merge (``broadcastMaxBytes=0``) as a multiset, and every trace
+    shows the tier it must; on the GPU ``hash-build``, ``hash-probe`` and
+    (Filter -> Project over the join) ``fused-postjoin`` run."""
+    import hyperspace_tpu_torch as ht
+    from hyperspace_tpu_torch.exec import batch as B
+    from hyperspace_tpu_torch.exec import device as D
+    from hyperspace_tpu_torch.exec import trace
+    from hyperspace_tpu_torch.exec.executor import Executor
+
+    dirs = gen_bcast_lake(tmp, seed + 10)
+
+    def session(device, conf):
+        return ht.Session(conf={ht.keys.SYSTEM_PATH: os.path.join(tmp, "bcast-indexes"), **conf}, device=device)
+
+    def frames(sess):
+        return {name: sess.read_parquet(d) for name, d in dirs.items()}
+
+    gpu_dispatches = collections.Counter()
+    out = {}
+    for name, (make, conf, streamed, lines) in bcast_shapes(ht.col).items():
+        got, chunks = {}, {}
+        for device in devices:
+            sess = session(device, conf)
+            df = make(frames(sess))
+            D.reset_dispatches()
+            got[device], summary = traced_collect(df)
+            assert trace_lines(summary, ("join:",)) == lines, f"{name} on {device}: {summary}"
+            if streamed:
+                with trace.recording() as events:
+                    chunks[device] = list(Executor(sess).execute_stream(df.optimized_plan()))
+                assert trace_lines(trace.summarize(events), ("join:",)) == lines, f"{name} streamed on {device}"
+                assert same_batch(canonical(B.concat(chunks[device])), canonical(got[device])), \
+                    f"{name} on {device}: the streamed chunks differ from collect()"
+            if device == "cuda":
+                gpu_dispatches.update(D.dispatches)
+                if name == "filter_project":
+                    assert D.dispatches["fused-postjoin"] > 0, dict(D.dispatches)
+        assert same_batch(got[devices[-1]], got[devices[0]]), f"{name}: the GPU rows differ from the CPU port's"
+        if streamed:
+            assert len(chunks[devices[-1]]) == len(chunks[devices[0]]) and all(
+                same_batch(g, w) for g, w in zip(chunks[devices[-1]], chunks[devices[0]])), \
+                f"{name}: the GPU chunks differ from the CPU port's"
+        generic, summary = traced_collect(make(frames(session(devices[-1], {
+            **conf, "hyperspace.exec.join.broadcastMaxBytes": 0}))))
+        assert all(ln.startswith("join: generic-merge") for ln in trace_lines(summary, ("join:",))), summary
+        rows = len(next(iter(got[devices[-1]].values())))
+        if name == "no_match":
+            # typed from the probe side's dtypes: its empty int key comes out
+            # float64 (the JAX package's null promotion), the merge's int64
+            assert rows == 0 and sorted(got[devices[-1]]) == sorted(generic) == ["k", "k2", "v", "w"], generic
+            assert not len(next(iter(generic.values()))), generic
+        else:
+            assert rows > 0, name
+            assert same_batch(as_multiset(got[devices[-1]]), as_multiset(generic)), \
+                f"{name}: differs from the generic merge"
+        out[name] = rows
+        print(f"bcast-small {name}: {rows} rows; GPU equals the CPU port byte for byte"
+              + (" (collected and chunk by chunk)" if streamed else "")
+              + ("; typed empty like the generic merge (broadcastMaxBytes=0)" if name == "no_match"
+                 else "; equal to the generic merge (broadcastMaxBytes=0) as a multiset")
+              + "; " + "; ".join(lines), flush=True)
+    if devices[-1] == "cuda":
+        for program in ("hash-build", "hash-probe", "fused-postjoin"):
+            assert gpu_dispatches[program] > 0, (program, dict(gpu_dispatches))
+    return {"rows": out, "gpu_dispatches": dict(gpu_dispatches)}
+
+
+def plain_hash_build(planes):
+    """The plain version of ``hash-build``: numpy's combine, then a stable
+    argsort."""
+    import numpy as np
+
+    from hyperspace_tpu_torch.ops.hashing import combine_hashes_np
+
+    h = combine_hashes_np(planes)
+    order = np.argsort(h, kind="stable")
+    return h[order].astype(np.int64), order
+
+
+def plain_hash_probe(table, n_build: int, planes):
+    """The plain version of ``hash-probe``: numpy's combine, then
+    ``np.searchsorted`` left and right, clamped to the live table."""
+    import numpy as np
+
+    from hyperspace_tpu_torch.ops.hashing import combine_hashes_np
+
+    h = combine_hashes_np(planes)
+    return (np.minimum(np.searchsorted(table, h, side="left"), n_build),
+            np.minimum(np.searchsorted(table, h, side="right"), n_build))
+
+
+def check_bcast_programs(device: str) -> dict:
+    """``hash-build``, ``hash-probe`` and ``fused-postjoin`` on ``device``
+    against their plain versions: an empty build, a build of one row, hash
+    collisions forced by equal planes, two random key planes, and a probe
+    with no hit; the post-join predicate against the host ``eval`` of the
+    gathered pairs. All results are integers or masks: exact."""
+    import numpy as np
+    import torch
+
+    import hyperspace_tpu_torch as ht
+    from hyperspace_tpu_torch.exec import join_stream as JS
+    from hyperspace_tpu_torch.plan.expr import as_bool_mask
+
+    dev = torch.device(device)
+    rng = np.random.default_rng(17)
+
+    def planes(n, k, lo=0, hi=2**32):
+        return [rng.integers(lo, hi, n, dtype=np.uint64).astype(np.uint32) for _ in range(k)]
+
+    cases = {
+        "empty build": (planes(0, 1), planes(300, 1)),
+        "one-row build": (planes(1, 1), None),
+        "equal planes (collisions)": ([np.full(500, 7, dtype=np.uint32)] * 2, None),
+        "two random key planes": (planes(5000, 2, 0, 900), None),
+        "probe with no hit": (planes(2000, 1, 0, 1000), planes(700, 1, 5000, 9000)),
+    }
+    out = {}
+    for name, (bp, pp) in cases.items():
+        if pp is None:  # probes drawn from the build's rows plus fresh ones
+            take = rng.integers(0, len(bp[0]), 600)
+            pp = [np.concatenate([p[take], q]) for p, q in zip(bp, planes(200, len(bp)))]
+        table, order = JS.hash_build_program(JS._upload_hash_planes(bp, dev))
+        want_t, want_o = plain_hash_build(bp)
+        assert np.array_equal(table.cpu().numpy(), want_t) and np.array_equal(order.cpu().numpy(), want_o), \
+            f"hash-build ({name}) differs from its plain version"
+        lo, hi = JS.hash_probe_program(table, len(bp[0]), JS._upload_hash_planes(pp, dev))
+        want_lo, want_hi = plain_hash_probe(want_t, len(bp[0]), pp)
+        assert np.array_equal(lo.cpu().numpy(), want_lo) and np.array_equal(hi.cpu().numpy(), want_hi), \
+            f"hash-probe ({name}) differs from its plain version"
+        out[name] = {"build_rows": len(bp[0]), "probe_rows": len(pp[0]), "hits": int((want_hi - want_lo).sum())}
+    assert out["probe with no hit"]["hits"] == 0, out
+    # fused-postjoin over random pairs, against the host eval
+    n_p, n_b, pairs = 4000, 300, 20000
+    probe = {"k": rng.integers(0, 9, n_p).astype(np.int64), "v": rng.standard_normal(n_p),
+             "c": np.array([f"g{x}" for x in rng.integers(0, 5, n_p)], dtype=object)}
+    probe["v"][::17] = np.nan
+    build_batch = {"k2": np.arange(n_b, dtype=np.int64), "w": rng.standard_normal(n_b),
+                   "d": np.arange(n_b).astype("datetime64[D]")}
+    table, order = JS.hash_build_program(JS._upload_hash_planes([JS.hash_input_uint32(build_batch["k2"])], dev))
+    build = JS.BuildSide(build_batch, n_b, table, order.cpu().numpy(), {"k2": np.dtype(np.int64)}, 0)
+    pidx = rng.integers(0, n_p, pairs).astype(np.int64)
+    bidx = rng.integers(0, n_b, pairs).astype(np.int64)
+    c = ht.col
+    sess = ht.Session(conf={}, device=device)
+    for cond in ((c("w") > 0.25) & (c("v") < 0.5), (c("c") == "g2") | c("v").is_null(),
+                 c("d") >= np.datetime64("1970-03-01"), ~(c("k") + c("k2") > 150)):
+        refs = sorted(cond.references())
+        sources = {r: JS._join_column_source(r, list(probe), list(build_batch)) for r in refs}
+        got = JS._device_postjoin_mask(sess, cond, probe, build, pidx, bidx, refs, sources, True)
+        gathered = JS._gather_pairs(refs, sources, probe, build_batch, pidx, bidx, {}, {})
+        want = np.broadcast_to(np.asarray(as_bool_mask(cond.eval(gathered)), dtype=bool), (pairs,))
+        assert np.array_equal(got, want), f"fused-postjoin ({cond!r}) differs from the host eval"
+    out["fused-postjoin"] = {"pairs": pairs, "predicates": 4}
+    print(f"bcast programs on {device}: hash-build, hash-probe and fused-postjoin equal their plain versions "
+          f"exactly: {out}", flush=True)
+    return out
+
+
+def gen_topk_lake(root: str, seed: int) -> dict:
+    """The lakes of tests/test_topk.py: ``data`` (6 files of 800 rows: int
+    ``k``, float ``v`` with NaN, string ``name`` with None, tie key
+    ``grp``), ``typed`` (4 files of 300 rows: dates with NaT, floats with
+    NaN, -0.0 and ±inf, strings with None) and ``sorted`` (6 files of
+    disjoint ascending ``k`` in 250-row groups)."""
+    import datetime
+
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    rng = np.random.default_rng(seed)
+    dirs = {k: os.path.join(root, "topk", k) for k in ("data", "typed", "sorted")}
+    for d in dirs.values():
+        os.makedirs(d, exist_ok=True)
+    for i in range(6):
+        n = 800
+        v = np.round(rng.uniform(-100, 100, n), 3)
+        v[rng.choice(n, 20, replace=False)] = np.nan
+        name = np.array([f"name_{j % 31:02d}" for j in range(n)], dtype=object)
+        name[rng.choice(n, 15, replace=False)] = None
+        pq.write_table(pa.table({"k": rng.integers(0, 10_000, n).astype(np.int64), "v": v, "name": name,
+                                 "grp": rng.integers(0, 5, n).astype(np.int64)}),
+                       os.path.join(dirs["data"], f"part-{i:05d}.parquet"))
+        k = np.arange(i * 1000, (i + 1) * 1000, dtype=np.int64)
+        pq.write_table(pa.table({"k": k, "v": k.astype(np.float64) / 3}),
+                       os.path.join(dirs["sorted"], f"part-{i:05d}.parquet"), row_group_size=250)
+    for i in range(4):
+        n = 300
+        f = np.round(rng.uniform(-5, 5, n), 1)
+        f[rng.choice(n, 30, replace=False)] = rng.choice([np.nan, -0.0, 0.0, np.inf, -np.inf], 30)
+        day = rng.integers(0, 400, n)
+        dt = [datetime.date(1995, 1, 1) + datetime.timedelta(days=int(x)) for x in day]
+        for j in rng.choice(n, 10, replace=False):
+            dt[j] = None
+        s = np.array([f"s{x:03d}" for x in rng.integers(0, 50, n)], dtype=object)
+        s[rng.choice(n, 12, replace=False)] = None
+        pq.write_table(pa.table({"f": f, "d": pa.array(dt, type=pa.date32()), "s": s,
+                                 "i": rng.integers(-3, 3, n)}), os.path.join(dirs["typed"], f"part-{i}.parquet"))
+    return dirs
+
+
+def topk_small_queries(c) -> dict:
+    """{name: (lake, make(df) -> DataFrame, conf, the ``topk:`` and
+    ``sort:`` lines its trace must show)}; ``c`` is ``col``."""
+    dev = ["topk: device-topk-stream x1"]
+    out = {}
+    for keys, asc in ((("k",), (True,)), (("k",), (False,)), (("v",), (False,)), (("v", "k"), (False, True)),
+                      (("name", "k"), (True, True)), (("name", "v"), (False, True))):
+        out["-".join(keys) + "".join("a" if a else "d" for a in asc)] = (
+            "data", lambda df, keys=keys, asc=asc: df.order_by(*keys, ascending=list(asc)).limit(25), {}, dev)
+    for keys, asc in ((("d",), (True,)), (("d",), (False,)), (("f", "i"), (False, True)), (("s", "d"), (False, True))):
+        out["typed " + "-".join(keys) + "".join("a" if a else "d" for a in asc)] = (
+            "typed", lambda df, keys=keys, asc=asc: df.order_by(*keys, ascending=list(asc)).limit(70), {}, dev)
+    out["ties"] = ("data", lambda df: df.order_by("grp").limit(1200), {}, dev)
+    out["limit above rows"] = ("typed", lambda df: df.order_by("i", "f").limit(3000), {}, dev)
+    out["k at maxK"] = ("data", lambda df: df.order_by("v", "k").limit(4096), {}, dev)
+    out["k above maxK"] = ("data", lambda df: df.order_by("v", "k").limit(4097), {}, [])
+    for pushdown in (True, False):
+        out[f"threshold pushdown {'on' if pushdown else 'off'}"] = (
+            "sorted", lambda df: df.order_by("k").limit(10),
+            {"hyperspace.exec.pipeline.enabled": False, "hyperspace.exec.topk.thresholdPushdown": pushdown}, dev)
+    out["covered order"] = ("index", lambda df: df.filter(c("k") > 50).select("k", "v").order_by("k"), {},
+                            ["sort: index-order-merge x1"])
+    out["covered order, limit"] = ("index", lambda df: df.filter(c("k") > 50).select("k", "v").order_by("k").limit(17),
+                                   {}, ["sort: index-order-merge-limit x1"])
+    return out
+
+
+class PruneCount:
+    """Row groups kept by the port's row-group pruning while installed:
+    ``kept`` and ``total`` over the files it judged."""
+
+    def __enter__(self):
+        import pyarrow.parquet as pq
+
+        from hyperspace_tpu_torch.exec import io as IO
+
+        self.real = IO.prune_row_groups
+        self.kept = self.total = 0
+
+        def spy(path, predicate):
+            got = self.real(path, predicate)
+            n = pq.ParquetFile(path).metadata.num_row_groups
+            self.total += n
+            self.kept += n if got is None else len(got)
+            return got
+
+        IO.prune_row_groups = spy
+        return self
+
+    def __exit__(self, *exc):
+        from hyperspace_tpu_torch.exec import io as IO
+
+        IO.prune_row_groups = self.real
+
+
+def check_topk_small(tmp: str, seed: int, devices=("cpu", "cuda")) -> dict:
+    """ORDER BY ... LIMIT over the top-k lakes in a CPU and a GPU session:
+    the GPU rows equal the CPU port's and the host sort and slice's
+    (``topk.enabled=false``) byte for byte, the ``topk:`` and ``sort:``
+    trace lines are the expected ones on both; the threshold skips row
+    groups only with pushdown on; a bare Limit stops decoding; on the GPU
+    ``topk-chunk`` and ``topk-merge`` run."""
+    import hyperspace_tpu_torch as ht
+    from hyperspace_tpu_torch.exec import device as D
+
+    dirs = gen_topk_lake(tmp, seed + 20)
+    dirs["index"] = dirs["data"]
+    base = {ht.keys.NUM_BUCKETS: 8, "hyperspace.exec.stream.chunkBytes": 1}
+
+    def session(device, conf, owner="topk-indexes"):
+        return ht.Session(conf={ht.keys.SYSTEM_PATH: os.path.join(tmp, owner), **base, **conf}, device=device)
+
+    builder = session(devices[-1], {})
+    ht.Hyperspace(builder).create_index(builder.read_parquet(dirs["data"]),
+                                        ht.CoveringIndexConfig("ordIdx", ["k"], ["v", "grp"]))
+    gpu_dispatches = collections.Counter()
+    out = {}
+    for name, (lake, make, conf, lines) in topk_small_queries(ht.col).items():
+        got, pruned = {}, {}
+        for device in devices:
+            sess = session(device, conf)
+            if lake == "index":
+                sess.enable_hyperspace()
+            clear_query_caches()
+            D.reset_dispatches()
+            with PruneCount() as pc:
+                got[device], summary = traced_collect(make(sess.read_parquet(dirs[lake])))
+            pruned[device] = (pc.kept, pc.total)
+            assert trace_lines(summary, ("topk:", "sort: index-order")) == lines, f"{name} on {device}: {summary}"
+            if device == "cuda":
+                gpu_dispatches.update(D.dispatches)
+        host_sess = session(devices[-1], {**conf, "hyperspace.exec.topk.enabled": False})
+        host, summary = traced_collect(make(host_sess.read_parquet(dirs["data" if lake == "index" else lake])))
+        assert not trace_lines(summary, ("topk:",)), summary
+        assert same_batch(got[devices[-1]], got[devices[0]]), f"{name}: the GPU rows differ from the CPU port's"
+        assert same_batch(got[devices[-1]], host), f"{name}: the GPU rows differ from the host sort and slice"
+        if name.startswith("threshold"):
+            kept, total = pruned[devices[-1]]
+            assert (total - kept >= 20) if name.endswith("on") else (kept == total), (name, kept, total)
+        rows = len(next(iter(host.values())))
+        out[name] = {"rows": rows, "row_groups_kept": pruned[devices[-1]]}
+        print(f"topk-small {name}: {rows} rows; GPU equals the CPU port and the host sort and slice byte for byte; "
+              + ("; ".join(lines) or "host sort") + f"; row groups kept {pruned[devices[-1]][0]} of "
+              f"{pruned[devices[-1]][1]} judged", flush=True)
+    # a bare Limit: the first chunks give its rows, the later files are
+    # never decoded
+    for device in devices:
+        sess = session(device, {"hyperspace.exec.pipeline.depth": 1})
+        clear_query_caches()
+        from hyperspace_tpu_torch.exec import trace
+
+        with ReadSpy() as spy, trace.recording() as events:
+            chunks = list(sess.read_parquet(dirs["data"]).limit(700).to_local_iterator())
+        assert ("limit", "early-stop-stream") in events and sum(len(b["k"]) for b in chunks) == 700
+        assert spy.started < 6, spy.started
+        out[f"bare limit ({device})"] = {"files_decoded": spy.started, "of": 6}
+        print(f"topk-small bare limit on {device}: 700 rows in {len(chunks)} chunks, {spy.started} of 6 files "
+              f"decoded; limit: early-stop-stream", flush=True)
+    if devices[-1] == "cuda":
+        assert gpu_dispatches["topk-chunk"] > 0 and gpu_dispatches["topk-merge"] > 0, dict(gpu_dispatches)
+    return {"queries": out, "gpu_dispatches": dict(gpu_dispatches)}
+
+
+def plain_topk(mat, cap: int):
+    """The plain version of ``topk-chunk`` / ``topk-merge``: ``np.lexsort``
+    over the planes (the first most significant), then the first ``cap``
+    columns, sentinel-extended."""
+    import numpy as np
+
+    order = np.lexsort(mat[::-1])
+    out = mat[:, order][:, :cap]
+    if out.shape[1] < cap:
+        out = np.concatenate([out, np.full((mat.shape[0], cap - out.shape[1]), np.iinfo(np.int64).max)], axis=1)
+    return out
+
+
+def check_topk_programs(device: str) -> dict:
+    """``topk-chunk`` and ``topk-merge`` on ``device`` against
+    ``np.lexsort``: one to three key planes with sentinel (missing) keys
+    and sentinel padding, capacities below and above the chunk's width.
+    Exact."""
+    import numpy as np
+    import torch
+
+    from hyperspace_tpu_torch.ops import sort as S
+
+    rng = np.random.default_rng(23)
+    sent = np.iinfo(np.int64).max
+    n = 0
+    for nk in (1, 2, 3):
+        for cap in (1, 64, 4096, 9000):
+            a = np.stack([rng.integers(-50, 50, 6000) for _ in range(nk)] + [np.arange(6000) + 10])
+            a[0, rng.random(6000) < 0.05] = sent
+            a = np.concatenate([a, np.full((nk + 1, 300), sent)], axis=1)
+            b = np.stack([rng.integers(-50, 50, 4000) for _ in range(nk)] + [np.arange(4000) + 7000])
+            ga = S.topk_chunk_fn(nk, cap)(torch.from_numpy(a).to(device))
+            gb = S.topk_chunk_fn(nk, cap)(torch.from_numpy(b).to(device))
+            assert np.array_equal(ga.cpu().numpy(), plain_topk(a, cap)), f"topk-chunk ({nk} keys, cap {cap})"
+            merged = S.topk_merge_fn(nk, cap)(ga, gb).cpu().numpy()
+            assert np.array_equal(merged, plain_topk(np.concatenate([a, b], axis=1), cap)), \
+                f"topk-merge ({nk} keys, cap {cap})"
+            n += 1
+    print(f"topk programs on {device}: topk-chunk and topk-merge equal np.lexsort exactly in {n} cases", flush=True)
+    return {"cases": n}
+
+
+class ProgramCapture:
+    """The broadcast join's and the top-k's programs wrapped while installed,
+    keeping the inputs of the largest call of each: ``hash-build`` (most
+    build rows), ``hash-probe`` (the largest table, then the most probe
+    rows), ``fused-postjoin`` (the most pairs), ``topk-chunk`` (the widest
+    chunk) and ``topk-merge``."""
+
+    def __enter__(self):
+        from hyperspace_tpu_torch.exec import join_stream as JS
+        from hyperspace_tpu_torch.ops import sort as S
+
+        self.seen = {}
+        self.real = {"build": JS.hash_build_program, "probe": JS.hash_probe_program,
+                     "postjoin": JS._postjoin_program, "chunk": S.topk_chunk_fn, "merge": S.topk_merge_fn}
+        seen, real = self.seen, self.real
+
+        def keep(name, size, entry):
+            if name not in seen or size >= seen[name][0]:
+                seen[name] = (size, entry)
+
+        def build(planes):
+            keep("hash-build", planes[0].numel(), planes)
+            return real["build"](planes)
+
+        def probe(table, n_build, planes):
+            keep("hash-probe", (table.numel(), planes[0].numel()), (table, n_build, planes))
+            return real["probe"](table, n_build, planes)
+
+        def postjoin(cache_key, refs, ref_on_probe, fn):
+            prog = real["postjoin"](cache_key, refs, ref_on_probe, fn)
+
+            def run(pcols, bcols, pidx, bidx, lits):
+                keep("fused-postjoin", pidx.numel(), (prog, (pcols, bcols, pidx, bidx, lits)))
+                return prog(pcols, bcols, pidx, bidx, lits)
+
+            return run
+
+        def chunk(nk, cap):
+            fn = real["chunk"](nk, cap)
+
+            def run(planes):
+                keep("topk-chunk", planes.shape[1], (fn, planes, cap))
+                return fn(planes)
+
+            return run
+
+        def merge(nk, cap):
+            fn = real["merge"](nk, cap)
+
+            def run(a, b):
+                keep("topk-merge", a.shape[1], (fn, a, b))
+                return fn(a, b)
+
+            return run
+
+        JS.hash_build_program, JS.hash_probe_program, JS._postjoin_program = build, probe, postjoin
+        S.topk_chunk_fn, S.topk_merge_fn = chunk, merge
+        return self
+
+    def __exit__(self, *exc):
+        from hyperspace_tpu_torch.exec import join_stream as JS
+        from hyperspace_tpu_torch.ops import sort as S
+
+        JS.hash_build_program, JS.hash_probe_program = self.real["build"], self.real["probe"]
+        JS._postjoin_program = self.real["postjoin"]
+        S.topk_chunk_fn, S.topk_merge_fn = self.real["chunk"], self.real["merge"]
+
+
+def new_program_times(seen: dict, reps: int, hbm: float) -> dict:
+    """Each captured program alone with CUDA events (median of ``reps``),
+    its plain version's time on the same inputs (numpy on the host, one
+    run on the host clock), its bound (each input read once, each output
+    written once over the memory rate; or its compares over the core rate)
+    and the nearest single library call: ``torch.searchsorted`` alone for
+    ``hash-probe``, ``torch.topk`` on the primary key plane for
+    ``topk-chunk``."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from hyperspace_tpu_torch.exec import join_stream as JS
+    from hyperspace_tpu_torch.ops.hashing import combine_hashes_torch
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    def host_ms(fn):
+        t = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t) * 1e3
+
+    out = {}
+    if "hash-build" in seen:
+        planes = seen["hash-build"][1]
+        n = planes[0].numel()
+        host = [p.cpu().numpy().view(np.uint32) for p in planes]
+        b_ms, b_by = bound(nbytes(*planes) + 16 * n, n * max(1, math.ceil(math.log2(max(n, 2)))), hbm)
+        out["hash-build"] = {"shape": f"{n} build rows, {len(planes)} key planes (int32)",
+                             "ms": time_ms(lambda: JS.hash_build_program(planes), reps),
+                             "plain_ms": host_ms(lambda: plain_hash_build(host)),
+                             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    if "hash-probe" in seen:
+        table, n_build, planes = seen["hash-probe"][1]
+        n = planes[0].numel()
+        host = [p.cpu().numpy().view(np.uint32) for p in planes]
+        table_np = table.cpu().numpy()
+        h = combine_hashes_torch(planes)
+        b_ms, b_by = bound(nbytes(table, *planes) + 16 * n, 2 * n * max(1, math.ceil(math.log2(max(n_build, 2)))), hbm)
+        out["hash-probe"] = {"shape": f"{n} probe rows against {n_build} build rows, {len(planes)} key planes",
+                             "ms": time_ms(lambda: JS.hash_probe_program(table, n_build, planes), reps),
+                             "plain_ms": host_ms(lambda: plain_hash_probe(table_np, n_build, host)),
+                             "bound_ms": b_ms, "bound_by": b_by,
+                             "library_ms": time_ms(lambda: torch.searchsorted(table, h), reps),
+                             "library": "torch.searchsorted (one walk, on the combined hashes)"}
+    if "fused-postjoin" in seen:
+        prog, (pcols, bcols, pidx, bidx, lits) = seen["fused-postjoin"][1]
+        n = pidx.numel()
+        cols = {**pcols, **bcols}
+        host_cols = {k: v.cpu().numpy() for k, v in cols.items()}
+        pidx_np, bidx_np = pidx.cpu().numpy(), bidx.cpu().numpy()
+        b_ms, b_by = bound(nbytes(pidx, bidx, *cols.values()) + n, 2 * n * max(1, len(cols)), hbm)
+        out["fused-postjoin"] = {"shape": f"{n} pairs, {len(cols)} referenced columns",
+                                 "ms": time_ms(lambda: prog(pcols, bcols, pidx, bidx, lits), reps),
+                                 "plain_ms": host_ms(lambda: [host_cols[k][pidx_np if k in pcols else bidx_np]
+                                                              for k in host_cols]),
+                                 "plain": "the gather alone (the host eval varies by predicate)",
+                                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    if "topk-chunk" in seen:
+        fn, planes, cap = seen["topk-chunk"][1]
+        k1, p = planes.shape
+        host = planes.cpu().numpy()
+        b_ms, b_by = bound(nbytes(planes) + k1 * cap * 8, k1 * p * max(1, math.ceil(math.log2(max(p, 2)))), hbm)
+        out["topk-chunk"] = {"shape": f"({k1}, {p}) int64 planes, cap {cap}", "ms": time_ms(lambda: fn(planes), reps),
+                             "plain_ms": host_ms(lambda: plain_topk(host, cap)),
+                             "bound_ms": b_ms, "bound_by": b_by,
+                             "library_ms": time_ms(lambda: torch.topk(planes[0], min(cap, p), largest=False), reps),
+                             "library": "torch.topk on the primary key plane"}
+    if "topk-merge" in seen:
+        fn, a, b = seen["topk-merge"][1]
+        host = np.concatenate([a.cpu().numpy(), b.cpu().numpy()], axis=1)
+        k1, cap = a.shape
+        b_ms, b_by = bound(nbytes(a, b) + k1 * cap * 8, 2 * k1 * cap * max(1, math.ceil(math.log2(2 * cap))), hbm)
+        out["topk-merge"] = {"shape": f"2 x ({k1}, {cap}) int64 candidates", "ms": time_ms(lambda: fn(a, b), reps),
+                             "plain_ms": host_ms(lambda: plain_topk(host, cap)),
+                             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    for v in out.values():
+        v["share_of_bound"] = v["bound_ms"] / v["ms"]
+    return out
+
+
+def print_programs(programs: dict, smi: str) -> None:
+    for name, p in programs.items():
+        lib = f", library {p['library_ms']} ms ({p['library']})" if p.get("library_ms") is not None else ""
+        print(f"program {name} ({p['shape']}): {p['ms']} ms, bound {p['bound_ms']} ms ({p['bound_by']}), "
+              f"{100 * p['share_of_bound']:.2f}% of bound; plain {p['plain_ms']} ms{lib} ({smi})", flush=True)
+
+
+def topk_queries(li, c) -> dict:
+    """T1-T3 over the SF1 ``lineitem`` (T4 is the streamed bare Limit):
+    T1 the 100 dearest lines, T2 the same under q6's filter, T3 an
+    ``l_shipdate`` range in ship-date order (the order ``li_shipdate``
+    keeps)."""
+    import numpy as np
+
+    return {
+        "T1": li.order_by("l_extendedprice", ascending=[False]).limit(100),
+        "T2": q6_filter(li).order_by("l_extendedprice", ascending=[False]).limit(100),
+        "T3": li.filter((c("l_shipdate") >= np.datetime64("1994-01-01"))
+                        & (c("l_shipdate") < np.datetime64("1994-02-01")))
+        .select("l_shipdate", "l_extendedprice").order_by("l_shipdate").limit(1000),
+    }
+
+
+def run_topk(sess, li_src: str, args, smi: str, hbm: float) -> dict:
+    """ORDER BY ... LIMIT at SF1 (the main lake, 16 files): T1 and T2 over
+    the source with ``stream.chunkBytes`` set so the 16 files make 8 chunks
+    (the streaming device top-k), T3 through ``li_shipdate`` (the sorted-run
+    merge), each cold, warm (median of ``--reps``) and with
+    ``topk.enabled=false`` (rows equal byte for byte), with the row groups
+    kept by pruning and the dispatches of the cold run; T4, ``limit(10)``
+    through ``to_local_iterator``, with the files it decoded; then
+    ``topk-chunk`` and ``topk-merge`` alone on T1's inputs."""
+    import pyarrow.parquet as pq
+    import torch
+
+    import hyperspace_tpu_torch as ht
+    from hyperspace_tpu_torch.exec import device as D
+    from hyperspace_tpu_torch.exec.executor import _chunk_files_by_bytes
+
+    files = sorted(os.path.join(li_src, f) for f in os.listdir(li_src))
+    chunk = 2 * max(os.path.getsize(f) for f in files)
+    assert len(_chunk_files_by_bytes(files, chunk)) == 8, chunk
+    row_groups = sum(pq.ParquetFile(f).metadata.num_row_groups for f in files)
+    saved = {k: sess.conf.get(k) for k in (ht.keys.STREAM_CHUNK_BYTES, ht.keys.DEVICE_MIN_ROWS)}
+    sess.conf.set(ht.keys.STREAM_CHUNK_BYTES, chunk)
+    sess.conf.set(ht.keys.DEVICE_MIN_ROWS, 0)
+    sess.enable_hyperspace()
+    li = sess.read_parquet(li_src)
+    out = {"chunk_bytes": chunk, "chunks": 8, "row_groups": row_groups, "queries": {}}
+    expect = {"T1": "topk: device-topk-stream x1", "T2": "topk: device-topk-stream x1",
+              "T3": "sort: index-order-merge-limit x1"}
+    try:
+        for name, q in topk_queries(li, ht.col).items():
+            clear_query_caches()
+            D.reset_dispatches()
+            sess.query_stage_seconds.clear()
+            with PruneCount() as pc:
+                t = time.perf_counter()
+                got, summary = traced_collect(q)
+                torch.cuda.synchronize()
+                cold = (time.perf_counter() - t) * 1e3
+            cold_dispatches = dict(D.dispatches)
+            lines = trace_lines(summary, ("topk:", "sort: index-order"))
+            assert expect[name] in lines and "topk: host-candidate-fallback x1" not in lines, summary
+            assert "topk: stream-fallback x1" not in lines, summary
+            if name in ("T1", "T2"):
+                assert cold_dispatches.get("topk-chunk", 0) == 8, cold_dispatches
+            warm = layer_ms(sess, q.collect, args.reps)
+            sess.conf.set(ht.keys.EXEC_TOPK_ENABLED, False)
+            t = time.perf_counter()
+            host, host_summary = traced_collect(q)
+            host_ms = (time.perf_counter() - t) * 1e3
+            sess.conf.set(ht.keys.EXEC_TOPK_ENABLED, True)
+            assert same_batch(got, host), f"{name}: differs from the host sort and slice"
+            rows = len(next(iter(got.values())))
+            assert rows == (1000 if name == "T3" else 100), rows
+            kept = f"{pc.kept} of {pc.total} judged" if pc.total else "none judged (no pushed predicate)"
+            out["queries"][name] = {"rows": rows, "trace": lines, "cold_ms": cold, "warm_ms": warm["total"],
+                                    "topk_disabled_ms": host_ms, "dispatches": cold_dispatches,
+                                    "row_groups_kept": [pc.kept, pc.total], "layers_ms": warm}
+            print(f"topk {name}: {rows} rows, equal to topk.enabled=false byte for byte; {'; '.join(lines)}; cold "
+                  f"{cold:.3f} ms, warm {warm['total']:.3f} ms, topk.enabled=false {host_ms:.3f} ms; row groups "
+                  f"kept {kept} (of {row_groups} in the lake); dispatches {cold_dispatches} ({smi})", flush=True)
+            print(f"layers topk {name} (warm): " + ", ".join(f"{k} {v:.3f} ms" for k, v in warm.items())
+                  + f" ({smi})", flush=True)
+        clear_query_caches()
+        decoded = []
+        from hyperspace_tpu_torch.exec import io as IO
+
+        real = IO.read_parquet_batch
+
+        def spy(fs, columns, predicate=None):
+            decoded.extend(fs)
+            return real(fs, columns, predicate=predicate)
+
+        IO.read_parquet_batch = spy
+        try:
+            t = time.perf_counter()
+            it = li.limit(10).to_local_iterator()
+            first = next(it)
+            it.close()
+            t4_ms = (time.perf_counter() - t) * 1e3
+        finally:
+            IO.read_parquet_batch = real
+        assert len(next(iter(first.values()))) == 10
+        out["queries"]["T4"] = {"rows": 10, "files_decoded": len(set(decoded)), "of": len(files), "cold_ms": t4_ms}
+        print(f"topk T4: limit(10) through to_local_iterator: 10 rows, {len(set(decoded))} of {len(files)} files "
+              f"decoded, cold {t4_ms:.3f} ms ({smi})", flush=True)
+        with ProgramCapture() as cap:
+            topk_queries(li, ht.col)["T1"].collect()
+        out["programs"] = new_program_times(cap.seen, args.reps, hbm)
+        print_programs(out["programs"], smi)
+    finally:
+        for k, v in saved.items():
+            sess.conf.set(k, v)
     return out
 
 
@@ -4135,7 +5000,7 @@ def main() -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rows", type=int, default=LINEITEM_ROWS_SF1, help="lineitem rows (6M = SF1)")
     ap.add_argument("--files", type=int, default=16)
-    ap.add_argument("--reps", type=int, default=8, help="timed runs per kernel and warm query")
+    ap.add_argument("--reps", type=int, default=6, help="timed runs per kernel and warm query")
     ap.add_argument("--baseline-csrc", help="a copy of an earlier tree's hyperspace_tpu_torch/csrc: its "
                     "kernels are built and timed in turns with this tree's")
     args = ap.parse_args()
@@ -4220,6 +5085,16 @@ def main() -> None:
         t = time.perf_counter()
         sql_small = check_sql_small(tmp, args.seed)
         phase("sql-small", t)
+
+        t = time.perf_counter()
+        bcast_small = check_bcast_small(tmp, args.seed)
+        bcast_small["programs"] = check_bcast_programs("cuda")
+        phase("bcast-small", t)
+
+        t = time.perf_counter()
+        topk_small = check_topk_small(tmp, args.seed)
+        topk_small["programs"] = check_topk_programs("cuda")
+        phase("topk-small", t)
 
         t = time.perf_counter()
         src = gen_lineitem(tmp, args.rows, args.files, args.seed)
@@ -4325,9 +5200,15 @@ def main() -> None:
         phase("delta", t)
 
         t = time.perf_counter()
-        queries["sql"] = run_sql(tmp, args, smi)
+        queries["sql"] = run_sql(tmp, args, smi, hbm)
         queries["sql"]["small"] = sql_small
+        queries["sql"]["bcast_small"] = bcast_small
         phase("sql", t)
+
+        t = time.perf_counter()
+        queries["topk"] = run_topk(sess, src, args, smi, hbm)
+        queries["topk"]["small"] = topk_small
+        phase("topk", t)
         for name in results:
             results[name]["launches_by_path"] = {
                 "build": results[name]["launches"],

@@ -1,8 +1,8 @@
 """Configuration system.
 
 The keys, defaults and typed accessors the index build and lifecycle, the
-filter query, the join, the aggregate, scan pruning, hybrid scan and the
-source providers read, under the same names and with the same defaults as the JAX package's
+filter query, the joins, the aggregate, the top-k, scan pruning, hybrid scan
+and the source providers read, under the same names and with the same defaults as the JAX package's
 ``hyperspace_tpu/config.py`` so one conf dict drives either package; the
 port ignores the keys it does not read. Keys are namespaced ``hyperspace.*``.
 """
@@ -42,6 +42,9 @@ class keys:
     AGG_CAPACITY_FLOOR = "hyperspace.exec.agg.capacityFloor"
     FUSION_ENABLED = "hyperspace.exec.fusion.enabled"
     JOIN_BROADCAST_MAX_BYTES = "hyperspace.exec.join.broadcastMaxBytes"
+    EXEC_TOPK_ENABLED = "hyperspace.exec.topk.enabled"
+    EXEC_TOPK_MAX_K = "hyperspace.exec.topk.maxK"
+    EXEC_TOPK_THRESHOLD_PUSHDOWN = "hyperspace.exec.topk.thresholdPushdown"
     JOIN_PIPELINE_ENABLED = "hyperspace.exec.join.pipeline.enabled"
     PIPELINE_ENABLED = "hyperspace.exec.pipeline.enabled"
     PIPELINE_DEPTH = "hyperspace.exec.pipeline.depth"
@@ -122,14 +125,22 @@ DEFAULTS: Dict[str, Any] = {
     keys.AGG_MAX_GROUPS: 1 << 20,
     # the smallest group capacity; capacities grow by powers of sqrt(2)
     keys.AGG_CAPACITY_FLOOR: 256,
-    # whole-stage fusion is not in the port yet: an aggregate that would
-    # take it raises
+    # whole-stage fusion is not in the port yet: an aggregate or a top-k
+    # fold that would take it raises
     keys.FUSION_ENABLED: False,
-    # a join side whose leaf files hold at most this many bytes is the
-    # broadcast side of the JAX package's broadcast hash join and of its
-    # fused join aggregate; 0 disables both. The port has neither tier yet:
-    # it reads the key only to raise where the fused join aggregate would run
+    # a join side whose leaf files hold at most this many bytes is built
+    # into one sorted hash table on the device and the other side streams
+    # through it (exec/join_stream.py); 0 sends such joins to the generic
+    # merge. The fused join aggregate, which is not in the port, takes the
+    # same decision
     keys.JOIN_BROADCAST_MAX_BYTES: 64 * 1024 * 1024,
+    # ORDER BY ... LIMIT k over a multi-chunk scan folds a candidate buffer
+    # on the device (exec/topk.py) instead of a host sort of every row;
+    # maxK is the largest k it serves, and thresholdPushdown feeds the
+    # running k-th candidate's key into row-group pruning of later chunks
+    keys.EXEC_TOPK_ENABLED: True,
+    keys.EXEC_TOPK_MAX_K: 4096,
+    keys.EXEC_TOPK_THRESHOLD_PUSHDOWN: True,
     # the streamed bucketed join decodes bucket b+1's two sides on the
     # prefetch pipeline while bucket b's pairs expand; False keeps the
     # serial loop
@@ -324,6 +335,18 @@ class HyperspaceConf:
     @property
     def join_broadcast_max_bytes(self) -> int:
         return int(self.get(keys.JOIN_BROADCAST_MAX_BYTES))
+
+    @property
+    def topk_enabled(self) -> bool:
+        return bool(self.get(keys.EXEC_TOPK_ENABLED))
+
+    @property
+    def topk_max_k(self) -> int:
+        return int(self.get(keys.EXEC_TOPK_MAX_K))
+
+    @property
+    def topk_threshold_pushdown(self) -> bool:
+        return bool(self.get(keys.EXEC_TOPK_THRESHOLD_PUSHDOWN))
 
     @property
     def join_pipeline_enabled(self) -> bool:

@@ -58,12 +58,39 @@ class DeviceUnsupported(Exception):
 
 
 #: device programs run per family since the last ``reset_dispatches()``
-#: ("fused-filter": one per filter evaluated on the device)
+#: ("fused-filter": one per filter evaluated on the device; the broadcast
+#: join's "hash-build", "hash-probe" and "fused-postjoin" in
+#: exec/join_stream.py; the top-k's "topk-chunk" and "topk-merge" in
+#: exec/topk.py)
 dispatches: collections.Counter = collections.Counter()
 
 
 def reset_dispatches() -> None:
     dispatches.clear()
+
+
+# Geometric sizes: powers of sqrt(2) over a floor. The JAX package pads its
+# programs' inputs to them to bound XLA recompiles; torch compiles nothing,
+# so the port keeps them only where they set a result's size (the top-k's
+# candidate capacity).
+_BUCKET_FLOOR = 4096
+_SQRT2 = 1.4142135623730951
+
+
+def bucket_rows(n: int, floor: int = _BUCKET_FLOOR) -> int:
+    """Smallest geometric shape bucket (powers of sqrt(2) over ``floor``)
+    holding ``n`` rows."""
+    b = floor
+    while b < n:
+        b = int(b * _SQRT2) + 1
+    return b
+
+
+def topk_capacity(k: int, floor: int = 64) -> int:
+    """Candidate-buffer capacity for a LIMIT ``k``: the same geometric
+    buckets over a small floor, so nearby limits (10, 12, 100...) share one
+    capacity."""
+    return bucket_rows(max(1, int(k)), floor=max(1, int(floor)))
 
 
 # --------------------------------------------------------------------------

@@ -3,10 +3,13 @@
 Executes a (possibly index-rewritten) logical plan over pyarrow + numpy on
 the host, with the filter over an index scan evaluated on the session's
 device (exec/device.py), a join over two compatible bucketed index scans
-run as the shuffle-free sort-merge join (exec/join.py), and an aggregate
+run as the shuffle-free sort-merge join (exec/join.py), a join with a
+small side as the broadcast hash join (exec/join_stream.py), an aggregate
 over a (filtered) index scan run as one device program
-(exec/aggregate.py). The host path is the correctness baseline and the
-non-indexed fallback.
+(exec/aggregate.py), and ``ORDER BY ... LIMIT k`` over a multi-chunk scan
+as the streaming device top-k (exec/topk.py) unless the index's sorted runs
+already give the order (``_merge_sorted_runs``). The host path is the
+correctness baseline and the non-indexed fallback.
 
 Out of core: above ``hyperspace.exec.stream.joinMinBytes`` the bucketed
 join streams bucket by bucket (exec/join.py), above
@@ -19,9 +22,9 @@ the scan pipeline (exec/pipeline.py).
 
 The executor runs every node of the logical plan: the scans, ``Filter``,
 ``Project``, ``Compute``, ``Join`` (with a residual ON predicate on the
-host merge), ``Aggregate``, ``Sort`` and ``Limit`` (a host sort and
-slice), ``Window``, ``Rename``, ``SetOp`` and hybrid scan's ``Union``,
-``BucketUnion`` and ``Repartition``. Subquery expressions run once per
+host merge), ``Aggregate``, ``Sort``, ``Limit``, ``Window``, ``Rename``,
+``SetOp`` and hybrid scan's ``Union``, ``BucketUnion`` and
+``Repartition``. Subquery expressions run once per
 ``execute`` (``plan/expr.py::subquery_scope``). A Filter over a source
 scan reads only the files its partition-column conjuncts keep, and pushes
 its predicate into the parquet read, which prunes row groups by their
@@ -53,6 +56,9 @@ from hyperspace_tpu_torch.plan.expr import (
     get_column,
     subquery_scope,
 )
+
+#: the global row-id column of the top-k's host fallback (pool + chunks)
+_TOPK_RID = "__hs_topk_rid__"
 
 
 def _scan_identity(scan):
@@ -629,12 +635,12 @@ class Executor:
         execution strategy, never an API restriction (Spark's
         toLocalIterator contract).
 
-        The JAX package streams a join it would broadcast (one side under
-        ``hyperspace.exec.join.broadcastMaxBytes``) through its broadcast
-        probe, chunk by chunk, and a root Limit through its sorted-run
-        merge, device top-k or an early-stopping scan; those tiers are not
-        in the port, which yields the one batch ``collect()`` gives, the
-        same rows."""
+        A join with a side under ``hyperspace.exec.join.broadcastMaxBytes``
+        streams through the broadcast hash join's probe, chunk by chunk
+        (exec/join_stream.py), with a Filter and a Project above it fused
+        into the chunk walk. A root Limit over a Sort yields the sorted-run
+        merge's or the device top-k's one batch; a bare root Limit stops
+        the scan pipeline once it has its rows."""
         from hyperspace_tpu_torch.rules.utils import prune_columns, shared_subplan_ids
 
         try:
@@ -650,10 +656,17 @@ class Executor:
                     yield {k: v for k, v in batch.items() if k != INPUT_FILE_NAME}
                     return
                 node = plan
+                if isinstance(node, L.Limit):
+                    gen = self._stream_limit_node(node)
+                    if gen is not None:
+                        yield from gen
+                        return
                 proj = None
                 if isinstance(node, L.Project):
                     proj, node = list(node.columns), node.child
                 # a Filter directly above a Join applies per streamed chunk
+                # (a mask per bucket of the bucketed join; the post-join
+                # program of the broadcast probe)
                 post_filter = None
                 if isinstance(node, L.Filter) and isinstance(node.child, L.Join):
                     post_filter, node = node.condition, node.child
@@ -687,6 +700,24 @@ class Executor:
                         finally:
                             if gen is not None:
                                 gen.close()  # an abandoned stream stops its bucket decodes
+                    from hyperspace_tpu_torch.exec import join_stream as JS
+
+                    if JS.broadcast_spec(self.session, node) is not None:
+                        gen = JS.stream_broadcast_join(self, node, post_filter=post_filter, project=proj)
+                        try:
+                            try:
+                                first = next(gen)
+                            except StopIteration:
+                                return
+                            except D.DeviceUnsupported:
+                                gen = None
+                            if gen is not None:
+                                yield first
+                                yield from gen
+                                return
+                        finally:
+                            if gen is not None:
+                                gen.close()  # an abandoned stream stops its probe decodes
                 chain, leaf = _chain_to_scan(plan)
                 if leaf is not None:
                     files = _leaf_files(leaf)
@@ -701,7 +732,8 @@ class Executor:
             self._memo = {}
             self._shared = set()
 
-    def _stream_chunks(self, chain, leaf, groups, needed, leaf_only=False, stage_extra=None):
+    def _stream_chunks(self, chain, leaf, groups, needed, leaf_only=False, stage_extra=None,
+                       dynamic_pushdown=None):
         """Yield one executed chain batch per file group, overlapping chunk
         k+1's decode and device staging with chunk k's execution through
         ScanPipeline. The serial path (pipeline off, or a chain that needs
@@ -718,7 +750,16 @@ class Executor:
 
         With ``hyperspace.exec.io.rowGroupPruning`` on, each leaf clone
         carries the chain's pushed-down predicate: the parquet read prunes
-        row groups with it, and it brands the chunk's device-cache key."""
+        row groups with it, and it brands the chunk's device-cache key.
+
+        ``dynamic_pushdown`` is a zero-argument callable returning a
+        currently valid extra pruning predicate (or None): the top-k
+        stream's running k-th-value threshold. It is read inside each
+        chunk's decode, so a prefetched chunk takes whatever threshold the
+        fold has reached when its decode starts (a stale one only prunes
+        less). Staging is off with a dynamic predicate: the branded scan
+        key changes with the threshold, so staged columns would never be
+        looked up."""
         conf = self.session.conf
         pushed = _chain_pushdown_condition(chain) if conf.rowgroup_pruning_enabled else None
         leaves, subs = [], []
@@ -730,10 +771,21 @@ class Executor:
             subs.append(_rebuild_chain(chain, lf))
         wfns = [_plan_needs_file_names(s) for s in subs]
 
+        def apply_dynamic(i):
+            # refresh the chunk leaf's pruning predicate at decode time (the
+            # top-k threshold tightens as earlier chunks fold)
+            if dynamic_pushdown is None or not isinstance(leaves[i], (L.FileScan, L.IndexScan)):
+                return
+            dp = dynamic_pushdown()
+            if dp is None:
+                return
+            leaves[i].pushdown_predicate = dp if pushed is None else BinaryOp("AND", pushed, dp)
+
         if not conf.pipeline_enabled or len(groups) < 2 or any(wfns):
             # a prefetched leaf batch cannot carry file-name columns; such
             # chains (InputFileName in a filter) stay serial
             for i, (sub, wfn) in enumerate(zip(subs, wfns)):
+                apply_dynamic(i)
                 if leaf_only:
                     yield leaves[i], sub, self._exec(leaves[i], False)
                 else:
@@ -748,7 +800,7 @@ class Executor:
         dev_cond = None
         if conf.device_execution_enabled and chain and isinstance(chain[-1], L.Filter):
             dev_cond = chain[-1].condition
-        staging = dev_cond is not None or bool(stage_extra)
+        staging = (dev_cond is not None or bool(stage_extra)) and dynamic_pushdown is None
         device = D.resolved_device(self.session) if staging else None
 
         def stage(i, batch):
@@ -760,8 +812,12 @@ class Executor:
         def weigh(batch):
             return sum(int(getattr(a, "nbytes", 0)) for a in batch.values())
 
+        def decode(i):
+            apply_dynamic(i)
+            return self._exec(leaves[i], False)
+
         pipe = ScanPipeline(
-            [(lambda i=i: self._exec(leaves[i], False)) for i in range(len(leaves))],
+            [(lambda i=i: decode(i)) for i in range(len(leaves))],
             depth=max(1, conf.pipeline_depth),
             max_buffered_bytes=conf.pipeline_max_buffered_bytes,
             weigh=weigh,
@@ -936,8 +992,10 @@ class Executor:
             return self._exec_aggregate(plan, with_file_names)
 
         if isinstance(plan, L.Sort):
-            # the host sort; the JAX package first tries its sorted-run merge
-            # over an order-covering index, which gives the same rows
+            if not with_file_names:
+                got = self._try_sorted_run_merge(plan)
+                if got is not None:
+                    return got
             child = self._exec(plan.child, with_file_names)
             order = np.arange(B.num_rows(child))
             # least-significant key first: stable argsorts compose into the
@@ -953,9 +1011,15 @@ class Executor:
             return {k: v[order] for k, v in child.items()}
 
         if isinstance(plan, L.Limit):
-            # ORDER BY ... LIMIT k: the host sort, then the slice; the JAX
-            # package's sorted-run merge and streaming device top-k give
-            # byte-identical rows
+            if isinstance(plan.child, L.Sort) and not with_file_names:
+                # ORDER BY ... LIMIT k: index-order merge first (no sort at
+                # all), then the streaming device top-k; both are
+                # byte-identical to host-sort-then-slice
+                got = self._try_sorted_run_merge(plan.child, limit=plan.n)
+                if got is None:
+                    got = self._try_streaming_topk(plan.child, plan.n)
+                if got is not None:
+                    return got
             child = self._exec(plan.child, with_file_names)
             return {k: v[: plan.n] for k, v in child.items()}
 
@@ -1018,9 +1082,9 @@ class Executor:
         pandas hash merge over slim key frames (a residual ON predicate
         filters its matched pairs, ``_residual_join``).
 
-        The JAX package tries a broadcast hash join between the two; that
-        tier is not in the port, and the generic merge gives the same rows
-        (in the merge's order)."""
+        Between the two sits the broadcast hash join
+        (exec/join_stream.py): a join with a side under
+        ``hyperspace.exec.join.broadcastMaxBytes``."""
         import pandas as pd
 
         if not with_file_names and self.session.conf.device_execution_enabled:
@@ -1029,8 +1093,14 @@ class Executor:
             from hyperspace_tpu_torch.exec import device as D
             from hyperspace_tpu_torch.exec import join as J
 
+            from hyperspace_tpu_torch.exec import join_stream as JS
+
             try:
                 return J.dispatch_bucketed_join(self.session, plan)
+            except D.DeviceUnsupported:
+                pass  # next tier: the broadcast hash join
+            try:
+                return JS.dispatch_broadcast_join(self, plan)
             except D.DeviceUnsupported:
                 trace.fallback("join", "unsupported")
         trace.record("join", "generic-merge")
@@ -1273,6 +1343,256 @@ class Executor:
         out = host_aggregate(child, list(plan.keys), list(plan.aggs))
         self._add_stage("agg_host", t)
         return out
+
+    # -- ORDER BY ... LIMIT and the bare LIMIT, streamed ---------------------
+
+    def _stream_limit_node(self, plan: L.Limit):
+        """Streamed execution of a root Limit: ORDER BY ... LIMIT goes to the
+        sorted-run merge or the device top-k (one result batch), a bare
+        Limit stops the scan pipeline early. Returns a generator, or None to
+        fall back to the materialized path."""
+        if isinstance(plan.child, L.Sort):
+            got = self._try_sorted_run_merge(plan.child, limit=plan.n)
+            if got is None:
+                got = self._try_streaming_topk(plan.child, plan.n)
+            if got is None:
+                return None
+
+            def one():
+                yield got
+
+            return one()
+        return self._stream_limit(plan)
+
+    def _stream_limit(self, plan: L.Limit):
+        """Early-terminating bare Limit: stop pulling source chunks once n
+        rows are collected. Closing the chunk generator propagates into
+        ScanPipeline.close(), which cancels every queued decode."""
+        if plan.n <= 0:
+            return None
+        conf = self.session.conf
+        chain, leaf = _chain_to_scan(plan.child)
+        if leaf is None:
+            return None
+        files = _leaf_files(leaf)
+        groups = _chunk_files_by_bytes(files, max(1, conf.stream_chunk_bytes))
+        if len(groups) < 2:
+            return None
+        needed = _chain_needed_columns(chain) | set(plan.output_columns)
+
+        def gen():
+            remaining = int(plan.n)
+            chunks = self._stream_chunks(chain, leaf, groups, needed)
+            try:
+                for batch in chunks:
+                    batch = {c: v for c, v in batch.items() if c != INPUT_FILE_NAME}
+                    rows = B.num_rows(batch)
+                    if rows >= remaining:
+                        trace.record("limit", "early-stop-stream")
+                        yield {c: np.asarray(v)[:remaining] for c, v in batch.items()}
+                        return
+                    if rows:
+                        remaining -= rows
+                        yield batch
+            finally:
+                # cancel queued decodes even when our own consumer abandons
+                # the stream mid-iteration
+                chunks.close()
+
+        return gen()
+
+    def _try_streaming_topk(self, sort_plan: L.Sort, k: int) -> Optional[B.Batch]:
+        """ORDER BY ... LIMIT k over a multi-chunk scan chain as a streaming
+        device top-k fold (exec/topk.TopKStream): no full materialization,
+        byte-identical to host-sort-then-slice. Returns None (the caller
+        materializes) when the shape or configuration does not stream, and
+        when the streamed path fails (``topk: stream-fallback``). The
+        sharded and fused folds are not in the port: where the JAX package
+        would take them, this raises."""
+        conf = self.session.conf
+        if not (conf.topk_enabled and conf.device_execution_enabled):
+            return None
+        if not sort_plan.keys or k <= 0 or k > conf.topk_max_k:
+            return None
+        chain, leaf = _chain_to_scan(sort_plan.child)
+        if leaf is None:
+            return None
+        files = _leaf_files(leaf)
+        if len(files) < 2:
+            return None
+        groups = _chunk_files_by_bytes(files, max(1, conf.stream_chunk_bytes))
+        if len(groups) < 2:
+            return None
+        if conf.parallel_enabled:
+            raise NotImplementedError("the sharded (hyperspace.parallel.enabled) top-k is not yet in the port")
+        try:
+            return self._streaming_topk(sort_plan, k, chain, leaf, groups)
+        except NotImplementedError:
+            raise
+        except Exception:
+            # the streamed path must never break a query the materialized
+            # path can answer; visible in dispatch traces
+            trace.record("topk", "stream-fallback")
+            return None
+
+    def _streaming_topk(self, sort_plan, k, chain, leaf, groups) -> Optional[B.Batch]:
+        from hyperspace_tpu_torch.exec import device as D
+        from hyperspace_tpu_torch.exec.topk import TopKStream
+
+        conf = self.session.conf
+        needed = _chain_needed_columns(chain) | set(sort_plan.output_columns)
+        needed |= {c for c, _ in sort_plan.keys}
+        stream = TopKStream(self.session, sort_plan.keys, k)
+        # the running k-th-value threshold prunes row groups of chunks not
+        # yet decoded; only sound when pruning is on and the chain cannot
+        # rebind the primary key column
+        dynamic = None
+        if (
+            conf.topk_threshold_pushdown
+            and conf.rowgroup_pruning_enabled
+            and all(isinstance(nd, (L.Filter, L.Project)) for nd in chain)
+        ):
+            dynamic = stream.threshold_condition
+        host_parts: Optional[List[B.Batch]] = None
+        host_rid = 0
+        for batch in self._stream_chunks(chain, leaf, groups, needed, dynamic_pushdown=dynamic):
+            batch = {c: v for c, v in batch.items() if c != INPUT_FILE_NAME}
+            if host_parts is None:
+                t = time.perf_counter()
+                try:
+                    stream.update(batch)
+                    self._add_stage("topk_fold", t)
+                    continue
+                except D.DeviceUnsupported as e:
+                    # mid-stream fallback: the pool is a superset of the
+                    # top-k of every folded row, so (pool + this and later
+                    # chunks) re-sorted on host stays byte-identical
+                    trace.fallback("topk", str(e) or type(e).__name__)
+                    host_parts = [stream.pool_rows_with_rid(_TOPK_RID)] if stream.has_data else []
+                    host_rid = stream.rows_seen
+            n = B.num_rows(batch)
+            part = dict(batch)
+            part[_TOPK_RID] = host_rid + np.arange(n, dtype=np.int64)
+            host_rid += n
+            host_parts.append(part)
+        if host_parts is None:
+            if not stream.has_data:
+                return None  # every chunk came back empty: materialize
+            trace.record("topk", "device-topk-stream")
+            return stream.finalize()
+        parts = [p for p in host_parts if B.num_rows(p)]
+        if not parts:
+            return None
+        merged = B.concat(parts)
+        # stable composite sort with the global row id as the base order:
+        # exactly the host Sort's tie semantics
+        order = np.argsort(np.asarray(merged[_TOPK_RID]), kind="stable")
+        for name, asc in reversed(sort_plan.keys):
+            arr = get_column(merged, name)
+            if arr is None:
+                raise KeyError(f"Sort key {name!r} not found")
+            codes = _key_codes(np.asarray(arr)[order], asc)
+            order = order[np.argsort(codes, kind="stable")]
+        take = order[:k]
+        trace.record("topk", "host-candidate-fallback")
+        return {c: np.asarray(v)[take] for c, v in merged.items() if c != _TOPK_RID}
+
+    # -- sort elimination: a merge of the index's sorted runs ----------------
+
+    def _try_sorted_run_merge(self, sort_plan: L.Sort, limit=None) -> Optional[B.Batch]:
+        """Replace a Sort whose order the covering index already provides
+        (within-bucket sort order, plan/ordering.sort_run_eligibility) with a
+        k-way merge of per-file runs. The reason it cannot fire lands in the
+        dispatch trace (``sort: merge-why-not: ...``)."""
+        from hyperspace_tpu_torch.plan import ordering as ORD
+
+        leaf, chain, reason = ORD.sort_run_eligibility(sort_plan)
+        if leaf is None:
+            # record once per query: the bare-Sort call (the Limit wrapper
+            # retries through the Sort branch anyway)
+            if reason is not None and limit is None:
+                trace.record("sort", f"merge-why-not: {reason}")
+            return None
+        try:
+            return self._merge_sorted_runs(sort_plan, chain, leaf, limit)
+        except Exception:
+            trace.record("sort", "merge-fallback")
+            return None
+
+    def _merge_sorted_runs(self, sort_plan, chain, leaf, limit) -> Optional[B.Batch]:
+        import heapq
+
+        files = _leaf_files(leaf)
+        if len(files) < 2:
+            return None  # a single run needs no merge; the host path is fine
+        needed = _chain_needed_columns(chain) | set(sort_plan.output_columns)
+        needed |= {c for c, _ in sort_plan.keys}
+        runs = []
+        for f in files:
+            sub = _rebuild_chain(chain, _leaf_subset(leaf, [f], needed))
+            runs.append(self._exec(sub, False))
+        lens = [B.num_rows(r) for r in runs]
+        total = B.concat(runs)
+        n = B.num_rows(total)
+        bounds = np.cumsum([0] + lens)
+        # rank codes over the concatenation: one consistent code space for
+        # all runs, the host Sort's NULLS LAST / DESC semantics
+        codes = []
+        for name, asc in sort_plan.keys:
+            arr = get_column(total, name)
+            if arr is None:
+                raise KeyError(f"Sort key {name!r} not found")
+            codes.append(_key_codes(np.asarray(arr), asc))
+
+        def run_monotone(s: int, e: int) -> bool:
+            if e - s < 2:
+                return True
+            lt = np.zeros(e - s - 1, dtype=bool)
+            eq = np.ones(e - s - 1, dtype=bool)
+            for c in codes:
+                seg = c[s:e]
+                lt |= eq & (seg[1:] < seg[:-1])
+                eq &= seg[1:] == seg[:-1]
+            return not lt.any()
+
+        run_orders = []
+        repaired = 0
+        for i in range(len(runs)):
+            s, e = int(bounds[i]), int(bounds[i + 1])
+            if run_monotone(s, e):
+                run_orders.append(np.arange(s, e, dtype=np.int64))
+            else:
+                # physical order disagrees with the requested order (NULL
+                # placement, float total-order rotation, stale layout):
+                # stable-repair the run; the merge stays byte-identical
+                repaired += 1
+                sl = np.lexsort(tuple(c[s:e] for c in reversed(codes)))
+                run_orders.append(s + sl.astype(np.int64))
+        # k-way heap merge; ties across runs resolve by global position, the
+        # host stable sort's tie order (within a run the repair is stable,
+        # so sequential emission preserves it too)
+        take_n = n if limit is None else min(int(limit), n)
+        heap = []
+        for ro in run_orders:
+            if ro.size:
+                i0 = int(ro[0])
+                heapq.heappush(heap, (tuple(c[i0] for c in codes), i0, ro, 1))
+        out_idx = np.empty(take_n, dtype=np.int64)
+        taken = 0
+        while heap and taken < take_n:
+            _, idx, ro, nxt = heapq.heappop(heap)
+            out_idx[taken] = idx
+            taken += 1
+            if nxt < ro.size:
+                i0 = int(ro[nxt])
+                heapq.heappush(heap, (tuple(c[i0] for c in codes), i0, ro, nxt + 1))
+        trace.record(
+            "sort",
+            "index-order-merge"
+            + ("-limit" if limit is not None else "")
+            + (f"-repaired:{repaired}" if repaired else ""),
+        )
+        return {c: np.asarray(v)[out_idx] for c, v in total.items()}
 
     def _check_fused_join_aggregate(self, plan: L.Aggregate) -> None:
         """The JAX package compiles a grouped aggregate over (a Filter over)

@@ -7,6 +7,8 @@ dense numerics before it is uploaded:
   - ``sort_key``    — int64 per row whose ordering equals the column's natural
                       ordering (strings -> dictionary rank; floats -> an
                       order-preserving bit transform; ints/dates -> identity)
+  - ``order_plane`` — signed int64 per row for one ORDER BY key of the
+                      streaming top-k (NULLS LAST in both directions)
 """
 
 from __future__ import annotations
@@ -50,6 +52,69 @@ def sort_key_int64(arr: np.ndarray) -> np.ndarray:
         codes, _, _ = factorize_strings(arr)  # nulls (-1) sort first
         return codes
     raise TypeError(f"Unsupported column dtype for sorting: {arr.dtype}")
+
+
+_I64_MAX = np.iinfo(np.int64).max
+_I64_MIN = np.iinfo(np.int64).min
+
+#: rid/plane sentinel for padding rows in the top-k programs — sorts after
+#: every real row (real planes are clipped below it, real rids are counts)
+ORDER_PLANE_SENTINEL = _I64_MAX
+
+
+def order_plane(arr: np.ndarray, asc: bool = True) -> np.ndarray:
+    """Signed-comparison int64 order plane for ONE sort key column, matching
+    the host ``Sort`` semantics (executor._key_codes): missing values
+    (NaN/NaT/None) sort LAST in both directions, ``-0.0 == +0.0``, and the
+    DESC plane is the negated ASC plane.
+
+    This is deliberately NOT ``sort_key_int64``: that transform is
+    order-preserving only under *unsigned* int64 comparison (its float branch
+    maps positive floats below negative ones when compared signed), which is
+    fine for the internally-consistent bucket layouts it feeds but wrong for
+    ``lax.sort``'s signed total order. Here floats get the signed-safe
+    transform (flip the magnitude bits of negatives), and every plane is
+    clipped to ``[INT64_MIN+2, INT64_MAX-2]`` so DESC negation cannot
+    overflow and ``INT64_MAX`` stays reserved for missing/padding. String
+    planes are dense ranks over THIS array only — callers merging candidate
+    sets across chunks must re-encode over the combined values
+    (TopKStream handles this like GroupedAggStream._remap_string_key).
+    """
+    kind = arr.dtype.kind
+    n = arr.shape[0]
+    if kind in ("i", "b"):
+        v = arr.astype(np.int64)
+        missing = np.zeros(n, dtype=bool)
+    elif kind == "u":
+        v = np.minimum(arr, np.uint64(_I64_MAX - 2)).astype(np.int64)
+        missing = np.zeros(n, dtype=bool)
+    elif kind == "M":
+        missing = np.isnat(arr)
+        v = arr.view("int64").astype(np.int64)
+    elif kind == "f":
+        f = arr.astype(np.float64)
+        missing = np.isnan(f)
+        # collapse -0.0/+0.0 (np.unique ranks them equal) and park NaNs on a
+        # fixed value before the bit transform (masked to MAX below anyway)
+        f = np.where(missing | (f == 0.0), np.float64(0.0), f)
+        bits = f.view(np.int64)
+        v = np.where(bits >= 0, bits, bits ^ np.int64(_I64_MAX))
+    elif kind in ("U", "S", "O"):
+        obj = arr.astype(object)
+        # same missing definition as the host sort path (None or float NaN)
+        missing = np.array(
+            [x is None or (isinstance(x, float) and x != x) for x in obj], dtype=bool
+        )
+        filled = np.where(missing, "", obj).astype(str)
+        _, inverse = np.unique(filled, return_inverse=True)
+        v = inverse.astype(np.int64)
+    else:
+        raise TypeError(f"Unsupported column dtype for ordering: {arr.dtype}")
+    v = np.clip(v, _I64_MIN + 2, _I64_MAX - 2)
+    if not asc:
+        v = -v
+    v[missing] = _I64_MAX
+    return v
 
 
 def hash_input_uint32(arr: np.ndarray) -> np.ndarray:

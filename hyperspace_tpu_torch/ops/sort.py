@@ -1,4 +1,5 @@
-"""On-device bucketed sort — the index-build hot path.
+"""On-device sorts: the index build's bucketed sort and the top-k's select
+and merge.
 
 Replaces the shuffle + per-partition sort of Spark's bucketed write
 (``repartition(numBuckets, cols).sortWithinPartitions``;
@@ -30,6 +31,7 @@ from typing import Sequence, Tuple
 
 import torch
 
+from hyperspace_tpu_torch.ops.encode import ORDER_PLANE_SENTINEL
 from hyperspace_tpu_torch.ops.hashing import bucket_ids_torch
 from hyperspace_tpu_torch.ops.kernels import bucket_histogram
 
@@ -114,3 +116,56 @@ def padded_size(n: int) -> int:
     """Power-of-two size class for ``n`` rows (min 8): the size the JAX
     package's device programs pad to, which its cost estimates use."""
     return max(8, 1 << (max(n - 1, 1)).bit_length())
+
+
+# --------------------------------------------------------------------------
+# streaming top-k (ORDER BY ... LIMIT k without materialization)
+#
+# Both programs take a (num_keys + 1, P) int64 "plane matrix": one signed
+# NULLS-LAST order plane per ORDER BY key (ops/encode.order_plane) and a
+# last plane of global row ids, which makes the order total: equal keys
+# resolve by ascending row id, the host stable sort's tie order. So the
+# chain of stable sorts of ``lex_argsort`` gives exactly the order of the
+# JAX package's unstable multi-operand ``lax.sort``. Padding columns carry
+# ORDER_PLANE_SENTINEL in every plane (the row id too): they sort after
+# every real row, and the host trims them by ``rid < sentinel``.
+# --------------------------------------------------------------------------
+
+_TOPK_SENTINEL = int(ORDER_PLANE_SENTINEL)
+
+
+def _take_cap(mat: torch.Tensor, cap: int, sentinel: int) -> torch.Tensor:
+    """The first ``cap`` columns of ``mat``, sentinel-extended when it has
+    fewer."""
+    p = mat.shape[1]
+    if p >= cap:
+        return mat[:, :cap]
+    pad = torch.full((mat.shape[0], cap - p), sentinel, dtype=mat.dtype, device=mat.device)
+    return torch.cat([mat, pad], dim=1)
+
+
+def _sorted_columns(mat: torch.Tensor) -> torch.Tensor:
+    """``mat``'s columns in lexicographic order of its rows' values."""
+    return mat[:, lex_argsort(list(mat.unbind(0)))]
+
+
+def topk_chunk_fn(num_keys: int, cap: int):
+    """Builder for the per-chunk select: the plane matrix's columns in
+    order, then the first ``cap``. Returns a (num_keys + 1, cap) candidate
+    matrix."""
+
+    def run(planes: torch.Tensor) -> torch.Tensor:
+        return _take_cap(_sorted_columns(planes), cap, _TOPK_SENTINEL)
+
+    return run
+
+
+def topk_merge_fn(num_keys: int, cap: int):
+    """Builder for the pairwise candidate merge: concatenate two (num_keys +
+    1, cap) candidate matrices, order them, keep the first ``cap``: the
+    fold step of exec/topk.TopKStream."""
+
+    def run(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        return _sorted_columns(torch.cat([a, b], dim=1))[:, :cap]
+
+    return run

@@ -8,15 +8,13 @@ texts of tests/tpch_queries.py then runs through both packages'
 
 - the port's optimized plan equals the approved plan
   (tests/approved_plans/tpch_sql/qN.txt) and the JAX package's plan;
-- the port's rows equal the JAX package's: in order where the ORDER BY
-  fixes the order, as a multiset where the JAX package's broadcast join
-  (ROADMAP A6; the port's generic merge answers in its place) leaves ties
-  or the row order open; float aggregates at rtol 1e-9;
+- the port's rows equal the JAX package's: in order where the query ends
+  in an ORDER BY, else as a multiset; float aggregates at rtol 1e-9;
 - hyperspace on equals off in the port;
-- with ``deviceMinRows=0`` (the plain versions of the device programs on
+- with ``deviceMinRows=0`` (the device programs run as torch programs on
   the CPU) the rows are the same again, and the dispatch trace equals the
-  approved one (qN.dispatch.txt) once the tiers the port does not have yet
-  are mapped to the one that answers in their place (``approved_dispatch``);
+  approved one (qN.dispatch.txt) line for line, less its ``decode:`` lines
+  (the native decode, ROADMAP A13; ``approved_dispatch``);
 - ten queries match the pandas oracles of tests/test_tpch_oracles.py.
 
 Only helper names are imported from the JAX test modules, so pytest does
@@ -138,26 +136,10 @@ def mapped_dispatch(events) -> str:
 
 
 def approved_dispatch(qname: str) -> str:
-    """The approved trace in the port's terms: ``decode:`` lines left out;
-    the JAX package's broadcast join (A6) answers as the generic merge, and
-    where it streams its probe side through the bucketed join (``join:
-    host-span-smj-stream``), the port's merge runs that join on its device
-    tier (``join: device-smj`` over two ``scan: index-bucketed``)."""
+    """The approved trace less its ``decode:`` lines."""
     with open(os.path.join(APPROVED_DIR, f"{qname}.dispatch.txt")) as f:
         text = f.read()
-    counts = {}
-    for line in text.splitlines():
-        kind_detail, n = line.rsplit(" x", 1)
-        if kind_detail.startswith("decode:"):
-            continue
-        if kind_detail == "join: broadcast-hash-stream":
-            kind_detail = "join: generic-merge"
-        if kind_detail == "join: host-span-smj-stream":
-            counts["join: device-smj"] = counts.get("join: device-smj", 0) + int(n)
-            counts["scan: index-bucketed"] = counts.get("scan: index-bucketed", 0) + 2 * int(n)
-            continue
-        counts[kind_detail] = counts.get(kind_detail, 0) + int(n)
-    return "\n".join(f"{k} x{n}" for k, n in sorted(counts.items()))
+    return "\n".join(line for line in text.splitlines() if not line.startswith("decode:"))
 
 
 def ref_rows(env, qname):

@@ -12,11 +12,9 @@ package serves the other's indexes). While ``mirroring`` is active:
 - ``Session.sql`` runs the text through both packages: the same error type
   and message when the port raises, else the same unoptimized plan text;
 - ``DataFrame.optimized_plan`` gives the same text in both packages;
-- ``DataFrame.collect`` gives the same column names and rows in both:
-  in order, unless the JAX package's trace shows its broadcast join (ROADMAP
-  A6; the port's generic merge answers in its place, in another order),
-  then as a multiset; floats at rtol 1e-9; the same error type when the
-  port raises.
+- ``DataFrame.collect`` gives the same column names and rows in both, in
+  the same order; floats at rtol 1e-9; the same error type when the port
+  raises.
 
 A DataFrame built with the port's API is carried to the JAX package by
 rebuilding its plan, node for node and expression for expression, from the
@@ -37,16 +35,16 @@ import pytest
 
 import hyperspace_tpu as hst
 import hyperspace_tpu_torch as ht
-from hyperspace_tpu.exec import trace as ref_trace
 from hyperspace_tpu_torch.plan.dataframe import DataFrame as PortFrame
 
 FLOAT_RTOL = 1e-9
 
 
 class MirroredSession(ht.Session):
-    def __init__(self, system_path: str):
-        super().__init__(conf={ht.keys.SYSTEM_PATH: system_path}, device="cpu")
-        self.mirror = hst.Session(conf={hst.keys.SYSTEM_PATH: system_path})
+    def __init__(self, system_path: str, conf=None):
+        conf = {**(conf or {}), ht.keys.SYSTEM_PATH: system_path}
+        super().__init__(conf=conf, device="cpu")
+        self.mirror = hst.Session(conf=dict(conf))
         self._relations = {}  # id(port relation) -> (port relation, JAX relation)
 
     # -- the JAX side ---------------------------------------------------------
@@ -141,16 +139,12 @@ def _rows(batch):
     return list(zip(*cols)) if cols else []
 
 
-def _row_key(row):
-    return tuple((x is None, isinstance(x, float) and x != x, type(x).__name__, repr(x)) for x in row)
-
-
-def same_rows(got, want, ordered: bool, what) -> None:
+def same_rows(got, want, what) -> None:
+    """The same column names and the same rows in the same order (floats
+    at rtol 1e-9, NaN equal to NaN)."""
     assert list(got) == list(want), (what, list(got), list(want))
     g, w = _rows(got), _rows(want)
     assert len(g) == len(w), (what, len(g), len(w))
-    if not ordered:
-        g, w = sorted(g, key=_row_key), sorted(w, key=_row_key)
     for a, b in zip(g, w):
         for x, y in zip(a, b):
             if isinstance(x, float) and isinstance(y, float):
@@ -194,10 +188,7 @@ def mirroring():
                 raise
             ref = sess.ref_frame(self)
             assert orig_optimized(self).pretty() == ref.optimized_plan().pretty()
-            with ref_trace.recording() as events:
-                want = ref.collect()
-            broadcast = any(kind == "join" and detail.startswith("broadcast") for kind, detail in events)
-            same_rows(got, want, not broadcast, self.plan.describe())
+            same_rows(got, ref.collect(), self.plan.describe())
             return got
         finally:
             busy.pop()
@@ -228,12 +219,13 @@ def load_cases(path: str, name: str, rewrites=None):
 def export_cases(mod, namespace: dict, left_out: dict) -> None:
     """Put ``mod``'s fixtures, test functions and test classes (as
     subclasses, less the ``left_out`` methods) into a test module's
-    namespace, where pytest collects them."""
+    namespace, where pytest collects them; a class named in ``left_out``
+    stays out whole."""
     for attr, obj in vars(mod).items():
         if hasattr(obj, "_pytestfixturefunction") or type(obj).__name__ == "FixtureFunctionDefinition":
             namespace[attr] = obj
         elif attr.startswith("test_") and callable(obj) and attr not in left_out:
             namespace[attr] = obj
-        elif attr.startswith("Test") and isinstance(obj, type):
+        elif attr.startswith("Test") and isinstance(obj, type) and attr not in left_out:
             gone = {m.split("::")[1]: None for m in left_out if m.startswith(attr + "::")}
             namespace[attr] = type(attr, (obj,), {"__module__": namespace["__name__"], **gone})
