@@ -8,7 +8,8 @@ and 13, the join's 6, 11 and 14, the aggregates' 7, 12 and 15, out-of-core
 execution's 7b, 12b, 15b and 17, the index lifecycle's 7c and 12c, scan
 pruning's 7d and 12d, hybrid scan's 7e and 12e, the other sources' 7f and
 12f, the SQL front end's 7g and 12g, the broadcast hash join's 7h, 11 (J3)
-and 12g, ORDER BY ... LIMIT's 7i and 12h):
+and 12g, ORDER BY ... LIMIT's 7i and 12h, the reference API surface's 7j,
+explain and whyNot's 7k and 12g, nested columns' 7l and 12i):
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: compiles the port's CUDA kernels from ``hyperspace_tpu_torch/csrc``;
@@ -128,6 +129,23 @@ and 12g, ORDER BY ... LIMIT's 7i and 12h):
    slice's (``topk.enabled=false``) byte for byte, with the same ``topk:``
    lines; a bare Limit through ``to_local_iterator`` stops decoding; then
    ``topk-chunk`` and ``topk-merge`` on the card against ``np.lexsort``;
+7j. api-small: tests/test_reference_api_compat.py's camelCase lifecycle
+   (``CoveringIndexConfig.builder()``, ``createIndex``, ``refreshIndex``,
+   ``optimizeIndex``, ``whyNot``, ``deleteIndex``, ``restoreIndex``,
+   ``vacuumIndex``) and a ``refreshIndex`` of a data-skipping index in a
+   CPU and a GPU session, each action from a copy of one state: the same
+   log entries and bucket files (byte for byte), K1 for each covering build
+   and K2 for each sketch rebuild on the GPU; ``createIndex`` and
+   ``refreshIndex`` over a DataFrame another index covers read no index
+   (the dispatch trace); ``hyperspace.parallel.enabled`` below
+   ``parallel.minRows`` builds and filters as without it;
+7k. explain-small: tests/test_golden_explain.py's fixtures rebuilt on the
+   GPU: every explain mode and whyNot report equals ``tests/golden`` (only
+   read) after its root normalization, and the CPU port's string;
+7l. nested-small: tests/test_nested_columns.py's shapes (filter, select of
+   a struct leaf, bucket pruning, the join on a nested key, full and
+   incremental refresh, hybrid scan) in a CPU and a GPU session: the same
+   rows in order and trace, equal to hyperspace off; K1 for every build;
 8. generate and slice: generates a TPC-H-shaped SF1 ``lineitem`` lake (6M
    rows in 16 files, from ``--seed``, with TPC-H's return flag and line
    status) and builds three indexes through the public API (``Session`` ->
@@ -264,6 +282,15 @@ and 12g, ORDER BY ... LIMIT's 7i and 12h):
    groups pruning kept and the cold run's dispatches; T4 (``limit(10)``
    through ``to_local_iterator``) with the files it decoded of 16; then
    ``topk-chunk`` and ``topk-merge`` alone on T1's inputs;
+12i. nested: the SF1 ``lineitem`` and ``orders`` written again with
+   struct columns (``l_ship``, ``l_key``, ``o_key``); ``li_ship_nested``,
+   ``li_key_nested`` and ``o_key_nested`` built (stages, rows/s, K1); NQ6
+   (q6's filter over the ``l_ship`` leaves, ``filter: device``) and NJ1
+   (J1 on the nested order keys, nested-small's join tier) cold, warm and
+   off (one run) with layers, equal to off and as many rows as their flat
+   twins q6 and J1. Within 12g, ``explain``: ``Hyperspace.explain`` and
+   ``why_not`` of all 22 texts over the SF1 lake and roster, each timed and
+   equal to a CPU session's;
 13. profile-query: one warm q6 under ``torch.profiler``: device busy time
    against the query's wall time, and the device time by op;
 14. profile-join: the same for one warm J1;
@@ -288,8 +315,9 @@ The third line from the end is a JSON object with the queries', the
 joins' (under ``"join"``), the aggregates' (under ``"agg"``), the
 lifecycle's (under ``"lifecycle"``), pruning's (``"prune"``), hybrid
 scan's (``"hybrid"``), the Delta table's (``"delta"``), SQL's (``"sql"``,
-with ``bcast-small`` under ``"bcast_small"``) and the top-k's (``"topk"``)
-results and times, the line before the last one with an entry per kernel (its launches
+with ``bcast-small`` under ``"bcast_small"`` and explain under
+``"explain"``), the top-k's (``"topk"``) and the nested columns' (``"nested"``,
+with api-small and explain-small) results and times, the line before the last one with an entry per kernel (its launches
 on the build's main path, and per path under ``launches_by_path``); the
 last line
 is ``{"ok": true, "device": {...}}``. Any failed check raises, so
@@ -4201,6 +4229,11 @@ def run_sql(tmp: str, args, smi: str, hbm: float) -> dict:
     print_programs(out["programs"], smi)
     del capture, seen
 
+    # explain and whyNot of every text over this lake and its roster
+    t = time.perf_counter()
+    out["explain"] = run_explain(sess, dirs, texts, smi)
+    phase("explain", t)
+
     # Compute beside the DataFrame API: q6 through SQL plans as Aggregate ->
     # Compute -> Filter -> IndexScan and takes the host aggregate (as in the
     # JAX package); A2, q6's aggregate over plain columns, takes fused-agg.
@@ -4995,6 +5028,623 @@ def run_topk(sess, li_src: str, args, smi: str, hbm: float) -> dict:
     return out
 
 
+# --- the reference API surface, nested columns, explain and whyNot ---------------
+
+
+def entry_digest(entry, root: str):
+    """What two sessions' log entries of one index must share: name, state,
+    log id, kind and properties, the source signature and files, and the
+    index's bucket files by content (their names are random), with the
+    session's system path written as ``<SYSTEM>``."""
+    import re
+
+    if entry is None:
+        return None
+    d = entry.to_dict()
+    d.pop("content", None)
+    text = json.dumps(d, sort_keys=True, default=str).replace(root, "<SYSTEM>")
+    text = re.sub(r'"timestamp": \d+', '"timestamp": 0', text)
+    return entry.state, entry.id, text, index_fingerprint(entry)
+
+
+def check_api_small(tmp: str, seed: int) -> dict:
+    """tests/test_reference_api_compat.py's camelCase lifecycle, and a
+    ``refreshIndex`` of a data-skipping index, in a CPU and a GPU session,
+    each action from a copy of one state: the same outcome, log entry and
+    bucket files (byte for byte) on both, K1 for every covering build and
+    K2 for the sketch rebuilds on the GPU, none on the CPU. With hyperspace
+    on and ``camelIdx`` covering the DataFrame, ``createIndex`` and
+    ``refreshIndex`` of another index read no index (no ``scan:`` event).
+    Under ``hyperspace.parallel.enabled`` below ``parallel.minRows`` a
+    build and a filter give the same bucket files, rows and trace as
+    without it."""
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    import torch
+
+    import hyperspace_tpu_torch as ht
+    from hyperspace_tpu_torch.exec import trace
+    from hyperspace_tpu_torch.ops import kernels
+
+    data = os.path.join(tmp, "api", "d")
+    os.makedirs(data)
+    rng = np.random.default_rng(seed)
+    pq.write_table(pa.table({"k": rng.integers(0, 50, 500).astype(np.int64), "v": rng.standard_normal(500)}),
+                   os.path.join(data, "p.parquet"))
+    c = ht.col
+
+    def append():
+        r = np.random.default_rng(seed + 1)
+        pq.write_table(pa.table({"k": r.integers(0, 50, 100).astype(np.int64), "v": r.standard_normal(100)}),
+                       os.path.join(data, "p2.parquet"))
+
+    def optimize(hs, s):
+        try:
+            return hs.optimizeIndex("camelIdx")
+        except Exception as e:  # the reference test's allowance: nothing to compact
+            assert "No index files" in str(e) or "NoChanges" in type(e).__name__, e
+            return None
+
+    cfg = lambda: ht.CoveringIndexConfig.builder().indexName("camelIdx").indexBy("k").include("v").create()  # noqa: E731
+    steps = [
+        (None, "createIndex", lambda hs, s: hs.createIndex(s.read_parquet(data), cfg()), {K1}),
+        (None, "createIndex skip", lambda hs, s: hs.createIndex(
+            s.read_parquet(data), ht.DataSkippingIndexConfig("skipIdx", ht.MinMaxSketch("v"))), {K2}),
+        (append, "refreshIndex full", lambda hs, s: hs.refreshIndex("camelIdx", "full"), {K1}),
+        (None, "refreshIndex skip", lambda hs, s: hs.refreshIndex("skipIdx", "full"), {K2}),
+        (None, "optimizeIndex", optimize, set()),
+        (None, "deleteIndex", lambda hs, s: hs.deleteIndex("camelIdx"), set()),
+        (None, "restoreIndex", lambda hs, s: hs.restoreIndex("camelIdx"), set()),
+        (None, "deleteIndex", lambda hs, s: hs.deleteIndex("camelIdx"), set()),
+        (None, "vacuumIndex", lambda hs, s: hs.vacuumIndex("camelIdx"), set()),
+    ]
+    state, launched, n = None, collections.Counter(), 0
+    for edit, name, fn, expected in steps:
+        if edit is not None:
+            edit()
+        got, prev = {}, state
+        for device in ("cpu", "cuda"):
+            system = os.path.join(tmp, "api", f"{n}-{device}")
+            if prev is not None:
+                shutil.copytree(prev, system)
+            sess = ht.Session(conf={ht.keys.SYSTEM_PATH: system, ht.keys.NUM_BUCKETS: 4,
+                                    ht.keys.DEVICE_MIN_ROWS: 0}, device=device)
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            fn(ht.Hyperspace(sess), sess)
+            torch.cuda.synchronize()
+            launches = {k for k, v in kernels.launches.items() if v}
+            if device == "cuda":
+                assert launches == expected, f"api-small {name}: launches {launches}"
+                launched.update({k: v for k, v in kernels.launches.items() if v})
+            else:
+                assert not launches, launches
+            got[device] = {i: entry_digest(sess.index_manager.get_index(i), system) for i in ("camelIdx", "skipIdx")}
+            if device == "cpu":
+                state = system
+            else:
+                gpu = sess
+        assert got["cuda"] == got["cpu"], f"api-small {name}: the GPU's log entries or files differ from the CPU's"
+        print(f"api-small {name}: GPU log entries and bucket files equal the CPU port's; launches "
+              f"{sorted(launches) or 'none'}", flush=True)
+        if name == "refreshIndex full":
+            text = {}
+            for device in ("cpu", "cuda"):
+                s = ht.Session(conf=dict(gpu.conf._conf), device=device).enableHyperspace()
+                assert s.isHyperspaceEnabled()
+                hs = ht.Hyperspace(s)
+                qq = s.read_parquet(data).filter(c("k") == 7).select("v")
+                on = qq.collect()
+                s.disableHyperspace()
+                assert same_rows(on, qq.collect()), "api-small: the query differs from hyperspace off"
+                s.enableHyperspace()
+                text[device] = hs.whyNot(qq)
+            assert text["cuda"] == text["cpu"] and "camelIdx" in text["cuda"], text
+        n += 1
+
+    # lifecycle actions over a DataFrame another index covers read the source
+    system = os.path.join(tmp, "api", "covered")
+    sess = ht.Session(conf={ht.keys.SYSTEM_PATH: system, ht.keys.NUM_BUCKETS: 4, ht.keys.DEVICE_MIN_ROWS: 0},
+                      device="cuda")
+    hs = ht.Hyperspace(sess)
+    df = sess.read_parquet(data)
+    hs.createIndex(df, cfg())
+    sess.enableHyperspace()
+    with trace.recording() as events:
+        second = hs.createIndex(df, ht.CoveringIndexConfig("second", ["v"], ["k"]))
+        pq.write_table(pq.read_table(os.path.join(data, "p2.parquet")).slice(0, 10), os.path.join(data, "p3.parquet"))
+        hs.refreshIndex("second", "incremental")
+    assert not [e for e in events if e[0] in ("scan", "filter", "join")], events
+    assert sess.isHyperspaceEnabled() and second.state == "ACTIVE"
+    print("api-small: createIndex and refreshIndex over a DataFrame camelIdx covers read no index "
+          f"(trace: {trace.summarize(events) if events else 'no dispatch events'})", flush=True)
+
+    # C3: parallel.enabled below parallel.minRows is the single-device path
+    digests, traces = {}, {}
+    for label, extra in (("plain", {}), ("parallel", {"hyperspace.parallel.enabled": "true"})):
+        system = os.path.join(tmp, "api", f"c3-{label}")
+        s = ht.Session(conf={ht.keys.SYSTEM_PATH: system, ht.keys.NUM_BUCKETS: 4, ht.keys.DEVICE_MIN_ROWS: 0,
+                             **extra}, device="cuda")
+        entry = ht.Hyperspace(s).createIndex(s.read_parquet(data), cfg())
+        digests[label] = index_fingerprint(entry)
+        s.enableHyperspace()
+        got, summary = traced_collect(s.read_parquet(data).filter(c("k") == 7).select("v"))
+        traces[label] = (canonical(got), dispatch_lines(summary))
+    assert digests["parallel"] == digests["plain"], "api-small: parallel.enabled changed the bucket files"
+    assert same_batch(traces["parallel"][0], traces["plain"][0]) and traces["parallel"][1] == traces["plain"][1]
+    assert "filter: device x1" in traces["parallel"][1], traces
+    print(f"api-small: parallel.enabled below minRows: bucket files, rows and trace as without it "
+          f"({'; '.join(traces['parallel'][1])})", flush=True)
+    for k in (K1, K2):
+        assert launched[k] > 0, f"api-small never launched {k}"
+    return {"actions": n, "launches": dict(launched)}
+
+
+GOLDEN_DIR = os.path.join(HERE, "tests", "golden")
+
+
+def check_explain_small(tmp: str) -> dict:
+    """tests/test_golden_explain.py's fixtures rebuilt on the GPU (the same
+    seeds, files and indexes): each explain mode and whyNot report equals
+    its ``tests/golden/*.txt`` after the suite's root normalization, and a
+    CPU session over the same lake and indexes gives the same string. The
+    golden files are only read."""
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    import hyperspace_tpu_torch as ht
+    from hyperspace_tpu_torch.sources.iceberg import write_iceberg_table
+
+    c = ht.col
+    golden = {}
+    for f in sorted(os.listdir(GOLDEN_DIR)):
+        with open(os.path.join(GOLDEN_DIR, f), encoding="utf-8") as fh:
+            golden[f] = fh.read()
+    checked = {}
+
+    def sessions(root, indexes):
+        """(GPU session, CPU session) over ``root``'s system path, each
+        with hyperspace on; the GPU one builds ``indexes`` first."""
+        out = []
+        for device in ("cuda", "cpu"):
+            s = ht.Session(conf={ht.keys.SYSTEM_PATH: os.path.join(root, "indexes"), ht.keys.NUM_BUCKETS: 8},
+                           device=device)
+            if device == "cuda":
+                indexes(s)
+            out.append(s.enable_hyperspace())
+        return out
+
+    def check(name, root, each):
+        """``each(session)`` -> report, in both sessions."""
+        texts = [each(s).replace(root, "<ROOT0>") for s in pair]
+        assert texts[0] == texts[1], f"explain-small {name}: the GPU's string differs from the CPU port's"
+        assert texts[0] == golden[name], f"explain-small {name}: differs from tests/golden/{name}"
+        checked[name] = len(texts[0])
+
+    def golden_env(root):
+        rng = np.random.default_rng(12345)
+        n = 1000
+        table = pa.table({
+            "clicks": rng.integers(0, 100, n).astype(np.int64),
+            "imprs": rng.integers(0, 1000, n).astype(np.int64),
+            "score": np.round(rng.standard_normal(n), 6),
+            "query": np.array([f"q{i % 23}" for i in range(n)]),
+        })
+        os.makedirs(os.path.join(root, "data"))
+        os.makedirs(os.path.join(root, "indexes"))
+        for i in range(4):
+            pq.write_table(table.slice(i * 250, 250), os.path.join(root, "data", f"part-{i:05d}.parquet"))
+
+        def indexes(s):
+            hs = ht.Hyperspace(s)
+            df = s.read_parquet(os.path.join(root, "data"))
+            hs.create_index(df, ht.CoveringIndexConfig("filterIndex", ["clicks"], ["query"]))
+            hs.create_index(df, ht.CoveringIndexConfig("joinIndex", ["imprs"], ["clicks"]))
+        return indexes
+
+    root = os.path.join(tmp, "golden")
+    pair = sessions(root, golden_env(root))
+    data = os.path.join(root, "data")
+    fq = lambda s: s.read_parquet(data).filter(c("clicks") == 7).select("query")  # noqa: E731
+    hs = lambda s: ht.Hyperspace(s)  # noqa: E731
+    check("filter.txt", root, lambda s: hs(s).explain(fq(s), verbose=True))
+    check("filter_console.txt", root, lambda s: hs(s).explain(fq(s), mode="console"))
+    check("filter_html.txt", root, lambda s: hs(s).explain(fq(s), mode="html"))
+    check("selfJoin.txt", root, lambda s: hs(s).explain(
+        s.read_parquet(data).join(s.read_parquet(data), on=["imprs"]).select("clicks"), verbose=True))
+
+    def subquery(s):
+        df = s.read_parquet(data)
+        scalar = df.filter(c("clicks") == 3).limit(1).select("query").as_scalar()
+        return hs(s).explain(df.filter(c("query") == scalar).select("imprs"), verbose=True)
+
+    check("subquery.txt", root, subquery)
+    sq = lambda s: s.read_parquet(data).filter(c("score") > 0).select("query")  # noqa: E731
+    check("whyNot_allIndex.txt", root, lambda s: hs(s).why_not(sq(s)))
+    check("whyNot_indexName.txt", root, lambda s: hs(s).why_not(sq(s), index_name="filterIndex", extended=True))
+    for s in pair:
+        s.conf.set(ht.keys.FILTER_RULE_USE_BUCKET_SPEC, True)
+    check("filter_bucket_pruned.txt", root, lambda s: hs(s).explain(fq(s), verbose=True))
+    for s in pair:
+        s.conf.set(ht.keys.FILTER_RULE_USE_BUCKET_SPEC, False)
+    rng = np.random.default_rng(54321)
+    n = 100
+    pq.write_table(pa.table({
+        "clicks": rng.integers(0, 100, n).astype(np.int64),
+        "imprs": rng.integers(0, 1000, n).astype(np.int64),
+        "score": np.round(rng.standard_normal(n), 6),
+        "query": np.array([f"q{i % 23}" for i in range(n)]),
+    }), os.path.join(data, "part-00004.parquet"))
+    for s in pair:
+        s.conf.set(ht.keys.HYBRID_SCAN_ENABLED, True)
+    check("filter_hybrid_scan.txt", root, lambda s: hs(s).explain(fq(s), verbose=True))
+
+    root = os.path.join(tmp, "golden-priority")
+    os.makedirs(os.path.join(root, "pdata"))
+    os.makedirs(os.path.join(root, "indexes"))
+    rng = np.random.default_rng(777)
+    n = 800
+    table = pa.table({"clicks": rng.integers(0, 40, n).astype(np.int64),
+                      "imprs": rng.integers(0, 200, n).astype(np.int64)})
+    for i in range(4):
+        pq.write_table(table.slice(i * 200, 200), os.path.join(root, "pdata", f"part-{i:05d}.parquet"))
+    pdata = os.path.join(root, "pdata")
+
+    def priority_indexes(s):
+        df = s.read_parquet(pdata)
+        hs(s).create_index(df, ht.CoveringIndexConfig("fIdx", ["clicks"], ["imprs"]))
+        hs(s).create_index(df, ht.CoveringIndexConfig("jIdx", ["imprs"], ["clicks"]))
+
+    pair = sessions(root, priority_indexes)
+
+    def priority(s):
+        df = s.read_parquet(pdata)
+        return hs(s).why_not(df.filter(c("clicks") == 7).join(df, on=["imprs"]).select("clicks"))
+
+    check("whyNot_priority.txt", root, priority)
+
+    root = os.path.join(tmp, "golden-iceberg")
+    os.makedirs(os.path.join(root, "indexes"))
+    rng = np.random.default_rng(12345)
+    n = 500
+    write_iceberg_table(pa.table({"k": rng.integers(0, 50, n).astype(np.int64),
+                                  "v": rng.integers(0, 500, n).astype(np.int64)}), os.path.join(root, "ice"))
+    ice = os.path.join(root, "ice")
+    pair = sessions(root, lambda s: hs(s).create_index(s.read_iceberg(ice),
+                                                       ht.CoveringIndexConfig("iceJoinIndex", ["k"], ["v"])))
+    check("selfJoin_Iceberg.txt", root, lambda s: hs(s).explain(
+        s.read_iceberg(ice).join(s.read_iceberg(ice), on=["k"]).select("v"), verbose=True))
+    assert sorted(checked) == sorted(golden), (sorted(checked), sorted(golden))
+    for f, text in golden.items():
+        with open(os.path.join(GOLDEN_DIR, f), encoding="utf-8") as fh:
+            assert fh.read() == text, f"explain-small: tests/golden/{f} changed"
+    print(f"explain-small: {len(checked)} explain and whyNot strings on the GPU equal tests/golden and the CPU "
+          f"port's: {', '.join(sorted(checked))}", flush=True)
+    return {"golden": sorted(checked)}
+
+
+def gen_nested_small(root: str, seed: int) -> tuple:
+    """tests/test_nested_columns.py's lake (two files of ``id`` and
+    ``nested: struct<leaf: struct<cnt>, name>``) and its right table."""
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    d, r = os.path.join(root, "nested"), os.path.join(root, "r")
+    os.makedirs(d)
+    os.makedirs(r)
+    rng = np.random.default_rng(seed)
+    for i in range(2):
+        n = 200
+        pq.write_table(pa.table({
+            "id": pa.array(rng.integers(0, 1000, n).astype(np.int64)),
+            "nested": pa.array([{"leaf": {"cnt": int(v % 9)}, "name": f"n{v % 4}"} for v in rng.integers(0, 100, n)]),
+        }), os.path.join(d, f"p{i}.parquet"))
+    pq.write_table(pa.table({"cnt": np.arange(9, dtype=np.int64),
+                             "label": np.array([f"L{i}" for i in range(9)])}), os.path.join(r, "p.parquet"))
+    return d, r
+
+
+def append_nested(d: str, name: str, seed: int, n: int) -> None:
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    rng = np.random.default_rng(seed)
+    pq.write_table(pa.table({
+        "id": pa.array(rng.integers(0, 1000, n).astype(np.int64)),
+        "nested": pa.array([{"leaf": {"cnt": int(v % 9)}, "name": f"n{v % 4}"} for v in rng.integers(0, 100, n)]),
+    }), os.path.join(d, name))
+
+
+def check_nested_small(tmp: str, seed: int) -> dict:
+    """tests/test_nested_columns.py's shapes in a CPU and a GPU session, each
+    over its own copy of one seeded lake (``deviceMinRows=0``, 4 buckets):
+    a filter, the select of a struct leaf, bucket pruning, the join on a
+    nested key, full and incremental refresh after an append, and hybrid
+    scan. The GPU's rows equal the CPU port's in order, with the same
+    dispatch trace; both equal hyperspace off as a multiset; the GPU
+    launches K1 for every nested build."""
+    import torch
+
+    import hyperspace_tpu_torch as ht
+    from hyperspace_tpu_torch.ops import kernels
+    from hyperspace_tpu_torch.plan import logical as L
+
+    c = ht.col
+    results = {}
+    launched = collections.Counter()
+    for device in ("cpu", "cuda"):
+        root = os.path.join(tmp, f"nested-small-{device}")
+        d, r = gen_nested_small(root, seed)
+        sess = ht.Session(conf={ht.keys.SYSTEM_PATH: os.path.join(root, "indexes"), ht.keys.NUM_BUCKETS: 4,
+                                ht.keys.DEVICE_MIN_ROWS: 0, ht.keys.NESTED_COLUMN_ENABLED: True}, device=device)
+        hs = ht.Hyperspace(sess)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        kernels.reset_launches()
+        df, rdf = sess.read_parquet(d), sess.read_parquet(r)
+        hs.create_index(df, ht.CoveringIndexConfig("nQ", ["nested.leaf.cnt"], ["id"]))
+        hs.create_index(df, ht.CoveringIndexConfig("nSel", ["nested.leaf.cnt"], ["nested.name"]))
+        hs.create_index(rdf, ht.CoveringIndexConfig("nJR", ["cnt"], ["label"]))
+        if device == "cuda":
+            torch.cuda.synchronize()
+            assert kernels.launches.get(K1, 0) >= 3, kernels.launches
+            launched.update(kernels.launches)
+        else:
+            assert not any(kernels.launches.values()), kernels.launches
+        sess.enable_hyperspace()
+        out = {}
+
+        def run(name, q, expect_plan=None):
+            plan = q.optimized_plan()
+            if expect_plan is not None:
+                assert expect_plan(plan), f"nested-small {name}: {plan.pretty()}"
+            got, summary = traced_collect(q)
+            with sess.hyperspace_scope(False):
+                off = q.collect()
+            assert len(next(iter(got.values()))) > 0, name
+            # a struct's string leaf extracted on the host path is a numpy
+            # string array, the index's column an object array (as in the
+            # JAX package): compare the values
+            off = {k: v.astype(object) if v.dtype.kind == "U" else v for k, v in off.items()}
+            assert same_rows(got, off), f"nested-small {name} on {device}: differs from hyperspace off"
+            out[name] = (got, dispatch_lines(summary))
+
+        scans = lambda plan: L.collect(plan, lambda p: isinstance(p, L.IndexScan))  # noqa: E731
+        run("filter", sess.read_parquet(d).filter(c("nested.leaf.cnt") == 3).select("id"), lambda p: scans(p))
+        run("select", sess.read_parquet(d).filter(c("nested.leaf.cnt") > 5).select("nested.name"),
+            lambda p: scans(p))
+        sess.conf.set(ht.keys.FILTER_RULE_USE_BUCKET_SPEC, True)
+        run("bucket-pruned", sess.read_parquet(d).filter(c("nested.leaf.cnt") == 3).select("id"),
+            lambda p: scans(p) and scans(p)[0].pruned_buckets is not None)
+        sess.conf.set(ht.keys.FILTER_RULE_USE_BUCKET_SPEC, False)
+        hs.create_index(df, ht.CoveringIndexConfig("nJL", ["nested.leaf.cnt"], ["id"]))
+        run("join", sess.read_parquet(d).join(sess.read_parquet(r), on=c("nested.leaf.cnt") == c("cnt"))
+            .select("id", "label"), lambda p: len(scans(p)) == 2)
+        for mode in ("full", "incremental"):
+            hs.create_index(sess.read_parquet(d), ht.CoveringIndexConfig(f"nRef_{mode}", ["nested.leaf.cnt"], ["id"]))
+        append_nested(d, "app.parquet", seed + 4, 60)
+        for mode in ("full", "incremental"):
+            kernels.reset_launches()
+            hs.refresh_index(f"nRef_{mode}", mode)
+            if device == "cuda":
+                torch.cuda.synchronize()
+                assert kernels.launches.get(K1, 0) > 0, (mode, kernels.launches)
+                launched.update(kernels.launches)
+        for name in ("nQ", "nSel", "nJL"):
+            hs.delete_index(name)
+        run("refreshed", sess.read_parquet(d).filter(c("nested.leaf.cnt") == 3).select("id"), lambda p: scans(p))
+        hs.create_index(sess.read_parquet(d), ht.CoveringIndexConfig("nHy", ["nested.leaf.cnt"], ["id"]))
+        for name in ("nRef_full", "nRef_incremental"):
+            hs.delete_index(name)
+        append_nested(d, "appended.parquet", seed + 9, 50)
+        sess.conf.set(ht.keys.HYBRID_SCAN_ENABLED, True)
+        run("hybrid", sess.read_parquet(d).filter(c("nested.leaf.cnt") == 3).select("id"),
+            lambda p: L.collect(p, lambda x: isinstance(x, L.BucketUnion)))
+        results[device] = out
+    for name, (got, lines) in results["cuda"].items():
+        want, want_lines = results["cpu"][name]
+        assert same_batch(got, want), f"nested-small {name}: the GPU's rows differ from the CPU port's"
+        assert lines == want_lines, (name, lines, want_lines)
+        print(f"nested-small {name}: GPU == CPU port (in order) == hyperspace off; " + "; ".join(lines), flush=True)
+    join_tier = [ln for ln in results["cuda"]["join"][1] if ln.startswith("join:")]
+    filter_tier = [ln for ln in results["cuda"]["filter"][1] if ln.startswith("filter:")]
+    assert filter_tier == ["filter: device x1"], filter_tier
+    assert launched[K1] > 0
+    return {"shapes": sorted(results["cuda"]), "join_tier": join_tier, "launches": dict(launched)}
+
+
+def gen_nested_lake(root: str, li_src: str, o_src: str, seed: int) -> tuple:
+    """SF1 ``lineitem`` and ``orders`` written again with struct columns:
+    ``l_ship: struct<shipdate, quantity, discount, extendedprice>`` and
+    ``l_key: struct<orderkey, linenumber>`` (line numbers from ``seed``)
+    beside the other columns, ``o_key: struct<orderkey>`` beside the
+    other orders columns; file for file."""
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    li, od = os.path.join(root, "lineitem_nested"), os.path.join(root, "orders_nested")
+    os.makedirs(li)
+    os.makedirs(od)
+    rng = np.random.default_rng(seed + 7)
+    for f in sorted(os.listdir(li_src)):
+        t = pq.read_table(os.path.join(li_src, f))
+        ship = pa.StructArray.from_arrays(
+            [t.column(c).combine_chunks() for c in ("l_shipdate", "l_quantity", "l_discount", "l_extendedprice")],
+            ["shipdate", "quantity", "discount", "extendedprice"])
+        key = pa.StructArray.from_arrays(
+            [t.column("l_orderkey").combine_chunks(), pa.array(rng.integers(1, 8, t.num_rows).astype(np.int64))],
+            ["orderkey", "linenumber"])
+        rest = [c for c in t.column_names
+                if c not in ("l_shipdate", "l_quantity", "l_discount", "l_extendedprice", "l_orderkey")]
+        pq.write_table(pa.table({"l_key": key, "l_ship": ship, **{c: t.column(c) for c in rest}}),
+                       os.path.join(li, f))
+    for f in sorted(os.listdir(o_src)):
+        t = pq.read_table(os.path.join(o_src, f))
+        key = pa.StructArray.from_arrays([t.column("o_orderkey").combine_chunks()], ["orderkey"])
+        pq.write_table(pa.table({"o_key": key, **{c: t.column(c) for c in t.column_names if c != "o_orderkey"}}),
+                       os.path.join(od, f))
+    return li, od
+
+
+def nested_queries(li, od):
+    """NQ6: q6's filter over the ``l_ship`` leaves; NJ1: J1 on the nested
+    order keys."""
+    import numpy as np
+
+    import hyperspace_tpu_torch as ht
+
+    c = ht.col
+    nq6 = li.filter(
+        (c("l_ship.shipdate") >= np.datetime64("1994-01-01")) & (c("l_ship.shipdate") < np.datetime64("1995-01-01"))
+        & (c("l_ship.discount") >= 0.05) & (c("l_ship.discount") <= 0.07) & (c("l_ship.quantity") < 24)
+    ).select("l_ship.extendedprice", "l_ship.discount")
+    nj1 = li.join(od, c("l_key.orderkey") == c("o_key.orderkey")).select(
+        "l_key.orderkey", "l_ship.extendedprice", "o_orderdate", "o_totalprice")
+    return {"NQ6": nq6, "NJ1": nj1}
+
+
+def run_nested(li_src: str, o_src: str, tmp: str, args, smi: str, join_tier, twins: dict) -> dict:
+    """The SF1 lakes with struct columns; ``li_ship_nested`` (on
+    ``l_ship.shipdate`` with the other three leaves), ``li_key_nested`` and
+    ``o_key_nested`` (on the nested order keys with the columns NJ1 reads),
+    each build's stages, rows/s and K1 launches; NQ6 and NJ1 cold, warm (the
+    median of ``--reps``) and hyperspace off (one run: the source path
+    decodes the structs row by row), with layers; NQ6 on ``filter:
+    device``, NJ1 on ``join_tier`` (nested-small's), both equal to off."""
+    import pyarrow.parquet as pq
+    import torch
+
+    import hyperspace_tpu_torch as ht
+    from hyperspace_tpu_torch.exec import device as D
+    from hyperspace_tpu_torch.exec import io as IO
+    from hyperspace_tpu_torch.ops import kernels
+
+    t = time.perf_counter()
+    li_dir, o_dir = gen_nested_lake(os.path.join(tmp, "nested"), li_src, o_src, args.seed)
+    gen_s = time.perf_counter() - t
+    rows = {"lineitem": sum(pq.read_metadata(os.path.join(li_dir, f)).num_rows for f in os.listdir(li_dir)),
+            "orders": sum(pq.read_metadata(os.path.join(o_dir, f)).num_rows for f in os.listdir(o_dir))}
+    print(f"nested lake: lineitem {rows['lineitem']} rows in {len(os.listdir(li_dir))} files, orders "
+          f"{rows['orders']} in {len(os.listdir(o_dir))}, with struct columns ({gen_s:.3f} s)", flush=True)
+    sess = ht.Session(conf={ht.keys.SYSTEM_PATH: os.path.join(tmp, "nested", "_indexes"),
+                            ht.keys.DEVICE_MIN_ROWS: 0, ht.keys.NESTED_COLUMN_ENABLED: True,
+                            ht.keys.JOIN_DEVICE_MATERIALIZE_MAX_BYTES: 2 << 30}, device="cuda")
+    hs = ht.Hyperspace(sess)
+    li, od = sess.read_parquet(li_dir), sess.read_parquet(o_dir)
+    out = {"gen_s": gen_s, "rows": rows, "device": smi, "builds": {}, "queries": {}}
+    for df, cfg, n in (
+        (li, ht.CoveringIndexConfig("li_ship_nested", ["l_ship.shipdate"],
+                                    ["l_ship.quantity", "l_ship.discount", "l_ship.extendedprice"]), rows["lineitem"]),
+        (li, ht.CoveringIndexConfig("li_key_nested", ["l_key.orderkey"], ["l_ship.extendedprice"]), rows["lineitem"]),
+        (od, ht.CoveringIndexConfig("o_key_nested", ["o_key.orderkey"], ["o_orderdate", "o_totalprice"]),
+         rows["orders"]),
+    ):
+        sess.build_stage_seconds.clear()
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t = time.perf_counter()
+        entry = hs.create_index(df, cfg)
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t
+        launches = dict(kernels.launches)
+        assert launches.get(K1, 0) > 0, (cfg.index_name, launches)
+        assert entry.derived_dataset.properties["indexedColumns"][0].startswith("__hs_nested."), entry.name
+        out["builds"][cfg.index_name] = {"seconds": s, "rows_per_s": n / s, "launches": launches,
+                                         "stages": dict(sess.build_stage_seconds)}
+        print(f"build {cfg.index_name}: {s:.3f} s, {n / s:.0f} rows/s, launches {launches} ({smi})", flush=True)
+        print(f"stages {cfg.index_name}: " + ", ".join(f"{k} {v:.3f} s" for k, v in sess.build_stage_seconds.items()),
+              flush=True)
+    sess.enable_hyperspace()
+    for name, q in nested_queries(li, od).items():
+        plan = q.optimized_plan()
+        print(f"plan {name}:\n{plan.pretty()}", flush=True)
+        assert len(plan_index_scans(plan)) == (1 if name == "NQ6" else 2), plan.pretty()
+        IO.clear_io_cache()
+        D.clear_device_cache()
+        clear_query_caches()
+        sess.query_stage_seconds.clear()
+        t = time.perf_counter()
+        got, summary = traced_collect(q)
+        torch.cuda.synchronize()
+        cold = (time.perf_counter() - t) * 1e3
+        cold_layers = {k: v * 1e3 for k, v in sess.query_stage_seconds.items()}
+        cold_layers.update(rest=cold - sum(cold_layers.values()), total=cold)
+        lines = dispatch_lines(summary)
+        print(f"trace {name}: " + "; ".join(lines), flush=True)
+        if name == "NQ6":
+            assert "filter: device x1" in lines, lines
+        else:
+            assert [ln for ln in lines if ln.startswith("join:")] == join_tier, (lines, join_tier)
+        warm = layer_ms(sess, q.collect, args.reps)
+        with sess.hyperspace_scope(False):
+            sess.query_stage_seconds.clear()
+            t = time.perf_counter()
+            off, off_summary = traced_collect(q)
+            off_ms = (time.perf_counter() - t) * 1e3
+            off_layers = {k: v * 1e3 for k, v in sess.query_stage_seconds.items()}
+            off_layers.update(rest=off_ms - sum(off_layers.values()), total=off_ms)
+        n_rows = len(next(iter(got.values())))
+        # every value is a copy of a source value (no arithmetic): exact, as
+        # a multiset (the index path and the source path order rows apart)
+        assert n_rows > 0 and same_batch(as_multiset(got), as_multiset(off)), f"{name}: differs from hyperspace off"
+        del off
+        twin = twins[name]
+        out["queries"][name] = {"rows": n_rows, "trace": lines, "off_trace": dispatch_lines(off_summary),
+                                "cold_ms": cold, "warm_ms": warm["total"], "off_ms": off_ms,
+                                "layers_ms": {"cold": cold_layers, "warm": warm, "off": off_layers},
+                                "flat_twin": twin}
+        print(f"nested {name}: {n_rows} rows, equal to hyperspace off; cold {cold:.3f} ms, warm {warm['total']:.3f} "
+              f"ms, off {off_ms:.3f} ms; flat twin {twin['name']}: {twin['rows']} rows, warm {twin['warm_ms']:.3f} "
+              f"ms ({smi})", flush=True)
+        for run, lay in out["queries"][name]["layers_ms"].items():
+            print(f"layers {name} ({run}): " + ", ".join(f"{k} {v:.3f} ms" for k, v in lay.items()) + f" ({smi})",
+                  flush=True)
+        assert n_rows == twin["rows"], (name, n_rows, twin)
+    return out
+
+
+def run_explain(sess, dirs: dict, texts: dict, smi: str) -> dict:
+    """``Hyperspace.explain`` (plaintext) and ``why_not`` of all 22 TPC-H
+    texts over the ``sql`` phase's SF1 lake and roster, each timed, each
+    equal to a CPU session's string over the same lake and system path."""
+    import hyperspace_tpu_torch as ht
+
+    cpu = ht.Session(conf=dict(sess.conf._conf), device="cpu")
+    for name, d in dirs.items():
+        cpu.read_parquet(d).create_or_replace_temp_view(name)
+    cpu.enable_hyperspace()
+    out = {}
+    for qname, text in texts.items():
+        row = {}
+        strings = {}
+        for label, s in (("gpu", sess), ("cpu", cpu)):
+            df = s.sql(text)
+            hs = ht.Hyperspace(s)
+            t = time.perf_counter()
+            e = hs.explain(df)
+            e_ms = (time.perf_counter() - t) * 1e3
+            t = time.perf_counter()
+            w = hs.why_not(df)
+            w_ms = (time.perf_counter() - t) * 1e3
+            strings[label] = (e, w)
+            if label == "gpu":
+                row = {"explain_ms": e_ms, "why_not_ms": w_ms, "explain_chars": len(e), "why_not_chars": len(w),
+                       "indexes_used": sorted(ln.split(":")[0].strip() for ln in
+                                              e.split("Indexes used:\n", 1)[1].splitlines()
+                                              if ln.startswith("  ") and ":" in ln)}
+        assert strings["gpu"] == strings["cpu"], f"explain {qname}: the GPU session's strings differ from the CPU's"
+        assert strings["gpu"][0].startswith("=" * 64) and "whyNot report" in strings["gpu"][1], qname
+        out[qname] = row
+        print(f"explain {qname}: explain {row['explain_ms']:.3f} ms, whyNot {row['why_not_ms']:.3f} ms, equal to the "
+              f"CPU port's; indexes used {row['indexes_used'] or 'none'} ({smi})", flush=True)
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5095,6 +5745,18 @@ def main() -> None:
         topk_small = check_topk_small(tmp, args.seed)
         topk_small["programs"] = check_topk_programs("cuda")
         phase("topk-small", t)
+
+        t = time.perf_counter()
+        api_small = check_api_small(tmp, args.seed)
+        phase("api-small", t)
+
+        t = time.perf_counter()
+        explain_small = check_explain_small(tmp)
+        phase("explain-small", t)
+
+        t = time.perf_counter()
+        nested_small = check_nested_small(tmp, args.seed)
+        phase("nested-small", t)
 
         t = time.perf_counter()
         src = gen_lineitem(tmp, args.rows, args.files, args.seed)
@@ -5209,6 +5871,15 @@ def main() -> None:
         queries["topk"] = run_topk(sess, src, args, smi, hbm)
         queries["topk"]["small"] = topk_small
         phase("topk", t)
+
+        t = time.perf_counter()
+        twins = {"NQ6": next(q for q in queries["queries"] if q["name"] == "q6"),
+                 "NJ1": next(j for j in queries["join"]["joins"] if j["name"] == "J1")}
+        queries["nested"] = run_nested(src, o_src, tmp, args, smi, nested_small["join_tier"], twins)
+        queries["nested"]["small"] = nested_small
+        queries["nested"]["api_small"] = api_small
+        queries["nested"]["explain_small"] = explain_small
+        phase("nested", t)
         for name in results:
             results[name]["launches_by_path"] = {
                 "build": results[name]["launches"],
@@ -5220,6 +5891,9 @@ def main() -> None:
                 "sql": sum(b["launches"].get(name, 0) for b in queries["sql"]["builds"].values())
                 + queries["sql"]["li_q1_build"]["launches"].get(name, 0)
                 + sum(b["launches"].get(name, 0) for b in queries["sql"]["other_builds"].values()),
+                "api-small": api_small["launches"].get(name, 0),
+                "nested-small": nested_small["launches"].get(name, 0),
+                "nested": sum(b["launches"].get(name, 0) for b in queries["nested"]["builds"].values()),
             }
 
         t = time.perf_counter()

@@ -52,6 +52,39 @@ class keys:
     EXEC_IO_ROWGROUP_PRUNING = "hyperspace.exec.io.rowGroupPruning"
     LIFECYCLE_DEVICE_LINEAGE_ENABLED = "hyperspace.lifecycle.deviceLineage.enabled"
     LIFECYCLE_DEVICE_LINEAGE_MIN_ROWS = "hyperspace.lifecycle.deviceLineage.minRows"
+    NESTED_COLUMN_ENABLED = "hyperspace.index.nestedColumn.enabled"
+    GLOBBING_PATTERN = "hyperspace.source.globbingPattern"
+    CACHE_EXPIRY_SECONDS = "hyperspace.index.cache.expiryDurationInSeconds"
+    DISPLAY_MODE = "hyperspace.explain.displayMode"
+    HIGHLIGHT_BEGIN_TAG = "hyperspace.explain.displayMode.highlight.beginTag"
+    HIGHLIGHT_END_TAG = "hyperspace.explain.displayMode.highlight.endTag"
+    TPU_BUILD_DISTRIBUTED_MIN_ROWS = "hyperspace.tpu.build.distributedMinRows"
+    PARALLEL_MESH_DEVICES = "hyperspace.parallel.mesh.devices"
+    PARALLEL_MIN_ROWS = "hyperspace.parallel.minRows"
+    PARALLEL_BUILD_ENABLED = "hyperspace.parallel.build.enabled"
+
+    # the JAX package's names for the keys above that the port names
+    # otherwise (the same strings), so code written against either resolves
+    TPU_BUILD_BATCH_ROWS = BUILD_BATCH_ROWS
+    TPU_QUERY_DEVICE_EXECUTION = DEVICE_EXECUTION
+    TPU_QUERY_DEVICE_MIN_ROWS = DEVICE_MIN_ROWS
+    TPU_JOIN_DEVICE_MATERIALIZE = JOIN_DEVICE_MATERIALIZE
+    TPU_JOIN_DEVICE_MATERIALIZE_MAX_BYTES = JOIN_DEVICE_MATERIALIZE_MAX_BYTES
+    TPU_JOIN_DEVICE_SPAN_MAX_BYTES = JOIN_DEVICE_SPAN_MAX_BYTES
+    EXEC_STREAM_JOIN_MIN_BYTES = STREAM_JOIN_MIN_BYTES
+    EXEC_STREAM_AGG_MIN_BYTES = STREAM_AGG_MIN_BYTES
+    EXEC_STREAM_CHUNK_BYTES = STREAM_CHUNK_BYTES
+    EXEC_JOIN_SPILL_MIN_ROWS = JOIN_SPILL_MIN_ROWS
+    EXEC_JOIN_BROADCAST_MAX_BYTES = JOIN_BROADCAST_MAX_BYTES
+    EXEC_JOIN_PIPELINE_ENABLED = JOIN_PIPELINE_ENABLED
+    EXEC_IO_DECODE_THREADS = IO_DECODE_THREADS
+    EXEC_PIPELINE_ENABLED = PIPELINE_ENABLED
+    EXEC_PIPELINE_DEPTH = PIPELINE_DEPTH
+    EXEC_PIPELINE_MAX_BUFFERED_BYTES = PIPELINE_MAX_BUFFERED_BYTES
+    EXEC_AGG_DEVICE_GROUPED = AGG_ENABLED
+    EXEC_AGG_MAX_GROUPS = AGG_MAX_GROUPS
+    EXEC_AGG_CAPACITY_FLOOR = AGG_CAPACITY_FLOOR
+    EXEC_FUSION_ENABLED = FUSION_ENABLED
 
 
 DEFAULTS: Dict[str, Any] = {
@@ -89,7 +122,29 @@ DEFAULTS: Dict[str, Any] = {
     # the mask's copy back would cost more than the predicate; 0 sends every
     # filter over an index to the device
     keys.DEVICE_MIN_ROWS: 1 << 25,
+    # the sharded (multi-device) paths are not in the port: with this on, a
+    # query raises where the JAX package would shard it (a chunk of at least
+    # minRows rows, or a streamed path), and a build raises where it would
+    # build on a mesh (build.enabled, more than one device in the mesh of
+    # mesh.devices devices, 0 = all, and at least distributedMinRows rows)
     keys.PARALLEL_ENABLED: False,
+    keys.PARALLEL_MIN_ROWS: 1 << 16,
+    keys.PARALLEL_BUILD_ENABLED: True,
+    keys.PARALLEL_MESH_DEVICES: 0,
+    keys.TPU_BUILD_DISTRIBUTED_MIN_ROWS: 0,
+    # a struct leaf named by its dotted path (``a.b``) may be indexed; it is
+    # stored as the flat column ``__hs_nested.a.b``
+    keys.NESTED_COLUMN_ENABLED: False,
+    # the JAX package's key, read by neither package: a glob path matches
+    # its files whatever this says
+    keys.GLOBBING_PATTERN: None,
+    # seconds the index manager serves its cached roster before re-reading
+    # the operation logs (read on every lookup; 0 re-reads every time)
+    keys.CACHE_EXPIRY_SECONDS: 300,
+    # explain's display keys, with the JAX package's defaults
+    keys.DISPLAY_MODE: "console",
+    keys.HIGHLIGHT_BEGIN_TAG: "",
+    keys.HIGHLIGHT_END_TAG: "",
     # width of the parquet decode pool (exec/io.py), set when a Session is
     # constructed
     keys.IO_DECODE_THREADS: 8,
@@ -213,6 +268,10 @@ class HyperspaceConf:
         self._conf[key] = value
         return self
 
+    def unset(self, key: str) -> "HyperspaceConf":
+        self._conf.pop(key, None)
+        return self
+
     def get(self, key: str, default: Any = None) -> Any:
         if key in self._conf:
             return _coerce(self._conf[key], DEFAULTS.get(key, default))
@@ -287,6 +346,30 @@ class HyperspaceConf:
     @property
     def parallel_enabled(self) -> bool:
         return bool(self.get(keys.PARALLEL_ENABLED))
+
+    @property
+    def parallel_min_rows(self) -> int:
+        return int(self.get(keys.PARALLEL_MIN_ROWS))
+
+    @property
+    def parallel_build_enabled(self) -> bool:
+        return bool(self.get(keys.PARALLEL_BUILD_ENABLED))
+
+    @property
+    def parallel_mesh_devices(self) -> int:
+        return int(self.get(keys.PARALLEL_MESH_DEVICES))
+
+    @property
+    def distributed_build_min_rows(self) -> int:
+        return int(self.get(keys.TPU_BUILD_DISTRIBUTED_MIN_ROWS))
+
+    @property
+    def nested_column_enabled(self) -> bool:
+        return bool(self.get(keys.NESTED_COLUMN_ENABLED))
+
+    @property
+    def cache_expiry_seconds(self) -> int:
+        return int(self.get(keys.CACHE_EXPIRY_SECONDS))
 
     @property
     def join_device_materialize(self) -> bool:

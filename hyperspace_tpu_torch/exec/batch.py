@@ -62,12 +62,45 @@ def concat(batches: List[Batch]) -> Batch:
     return {n: np.concatenate([b[n] for b in batches]) for n in names}
 
 
+def _struct_leaf(batch: Batch, name: str) -> Optional[np.ndarray]:
+    """``plan.expr.get_column`` of a dotted struct path, by plain dict
+    lookups, where that gives the same array: the root column is the one
+    ``get_column`` would take, every row is None or a dict holding each
+    segment's exact field name, and no two field names differ only in
+    case. None elsewhere, and ``get_column`` answers."""
+    from hyperspace_tpu_torch.plan.expr import NESTED_PREFIX
+
+    root_name, *segs = name.split(".")
+    lowered = {name.lower(), (NESTED_PREFIX + name).lower()}
+    roots = [k for k in batch if k.lower() == root_name.lower()]
+    if not segs or not roots or roots[0] != root_name or any(k.lower() in lowered for k in batch):
+        return None
+    vals = list(batch[root_name])
+    for seg in segs:
+        first = next((v for v in vals if v is not None), None)
+        if not isinstance(first, dict) or len({k.lower() for k in first}) != len(first):
+            return None
+        try:
+            vals = [None if v is None else v[seg] for v in vals]
+        except (KeyError, TypeError, IndexError):
+            return None
+    arr = np.asarray(vals)
+    if arr.dtype == object:
+        try:
+            arr = np.asarray(vals, dtype=np.float64)
+        except (TypeError, ValueError):
+            pass
+    return arr
+
+
 def select(batch: Batch, columns: List[str]) -> Batch:
     from hyperspace_tpu_torch.plan.expr import get_column
 
     out: Batch = {}
     for c in columns:
-        got = batch[c] if c in batch else get_column(batch, c)
+        got = batch[c] if c in batch else _struct_leaf(batch, c)
+        if got is None:
+            got = get_column(batch, c)
         if got is None:
             raise KeyError(f"Column {c!r} not found in batch with columns {list(batch)}")
         out[c] = got

@@ -79,6 +79,16 @@ def _scan_identity(scan):
     return tuple(parts)
 
 
+def _check_sharded(session, what: str, n_rows: Optional[int] = None) -> None:
+    """Raise where the JAX package takes its sharded path (``_maybe_parallel``):
+    under ``hyperspace.parallel.enabled``, a chunk of at least
+    ``hyperspace.parallel.minRows`` rows, or a streamed path, which has no
+    row count. Below that the single-device path runs, as there."""
+    conf = session.conf
+    if conf.parallel_enabled and (n_rows is None or n_rows >= conf.parallel_min_rows):
+        raise NotImplementedError(f"the sharded (hyperspace.parallel.enabled) {what} is not yet in the port")
+
+
 def _plan_needs_file_names(plan: L.LogicalPlan) -> bool:
     def expr_has(e: Expr) -> bool:
         if isinstance(e, InputFileName):
@@ -1423,8 +1433,7 @@ class Executor:
         groups = _chunk_files_by_bytes(files, max(1, conf.stream_chunk_bytes))
         if len(groups) < 2:
             return None
-        if conf.parallel_enabled:
-            raise NotImplementedError("the sharded (hyperspace.parallel.enabled) top-k is not yet in the port")
+        _check_sharded(self.session, "top-k")
         try:
             return self._streaming_topk(sort_plan, k, chain, leaf, groups)
         except NotImplementedError:
@@ -1777,8 +1786,7 @@ class Executor:
             from hyperspace_tpu_torch.exec import aggregate as A
             from hyperspace_tpu_torch.exec import device as D
 
-            if conf.parallel_enabled:
-                raise NotImplementedError("the sharded (hyperspace.parallel.enabled) aggregate is not yet in the port")
+            _check_sharded(self.session, "aggregate")
             fuse_cond = _chain_pushdown_condition(chain)
             stage_extra = sorted(set(plan.keys) | {c for _, _, _, c in plain if c is not None})
             stream = A.GroupedAggStream(
@@ -1948,8 +1956,7 @@ class Executor:
         if B.num_rows(batch) < conf.device_exec_min_rows:
             trace.fallback("agg", "min-rows")
             return None, batch, filter_node
-        if conf.parallel_enabled:
-            raise NotImplementedError("the sharded (hyperspace.parallel.enabled) aggregate is not yet in the port")
+        _check_sharded(self.session, "aggregate", B.num_rows(batch))
         condition = filter_node.condition if filter_node is not None else None
         t = time.perf_counter()
         scan_key = _scan_identity(node)
@@ -2033,10 +2040,7 @@ class Executor:
             lineage = self._lineage_not_in(plan.condition)
             if lineage is not None and conf.lifecycle_device_lineage_enabled:
                 if B.num_rows(child) >= conf.lifecycle_device_lineage_min_rows:
-                    if conf.parallel_enabled:
-                        raise NotImplementedError(
-                            "the sharded (hyperspace.parallel.enabled) lineage filter is not yet in the port"
-                        )
+                    _check_sharded(self.session, "lineage filter", B.num_rows(child))
                     from hyperspace_tpu_torch.exec import device as D
                     from hyperspace_tpu_torch.exec.lineage import lineage_delete_mask
 
@@ -2058,8 +2062,7 @@ class Executor:
                 trace.record("filter", "host")
                 return self._host_mask(plan, child)
             if B.num_rows(child) >= conf.device_exec_min_rows:
-                if conf.parallel_enabled:
-                    raise NotImplementedError("the sharded (hyperspace.parallel.enabled) filter is not yet in the port")
+                _check_sharded(self.session, "filter", B.num_rows(child))
                 from hyperspace_tpu_torch.exec import device as D
 
                 t = time.perf_counter()
@@ -2097,6 +2100,15 @@ class Executor:
 
     def _host_mask(self, plan: L.Filter, child: B.Batch) -> np.ndarray:
         t = time.perf_counter()
+        # a struct leaf the predicate names more than once is extracted from
+        # its root column once, not per reference
+        dotted = [r for r in plan.condition.references() if "." in r and r not in child]
+        if dotted:
+            child = dict(child)
+            for r in dotted:
+                got = get_column(child, r)
+                if got is not None:
+                    child[r] = got
         mask = as_bool_mask(plan.condition.eval(child))
         self._add_stage("host_predicate", t)
         return mask

@@ -251,7 +251,37 @@ def read_parquet_batch(files: List[str], columns: Optional[List[str]], predicate
     def _dataset_read() -> B.Batch:
         trace.record("decode", "pyarrow-dataset")
         schema = pa.unify_schemas([pq.read_schema(f) for f in files])
-        return B.table_to_batch(pads.dataset(files, format="parquet", schema=schema).to_table(columns=columns))
+        ds = pads.dataset(files, format="parquet", schema=schema)
+        cols = columns
+        if columns is not None and any("." in c and c not in ds.schema.names for c in columns):
+            # nested struct paths (hybrid scan's appended-file side of a
+            # nested index): project leaves into flat columns
+            import pyarrow.compute as pc
+
+            from hyperspace_tpu_torch.plan.expr import strip_nested_prefix
+
+            def resolve_path(dotted: str):
+                # case-insensitive per segment (the resolver only exact-cases
+                # the root; pc.field is case-sensitive)
+                parts = dotted.split(".")
+                out, fields = [], list(ds.schema)
+                for i, p in enumerate(parts):
+                    hit = next((f for f in fields if f.name.lower() == p.lower()), None)
+                    if hit is None:
+                        return parts  # let arrow raise its own error
+                    out.append(hit.name)
+                    if i < len(parts) - 1:
+                        t = hit.type
+                        fields = [t.field(j) for j in range(t.num_fields)] if pa.types.is_struct(t) else []
+                return out
+
+            cols = {}
+            for c in columns:
+                if c in ds.schema.names:
+                    cols[c] = pc.field(c)
+                else:
+                    cols[c] = pc.field(*resolve_path(strip_nested_prefix(c)))
+        return B.table_to_batch(ds.to_table(columns=cols))
 
     # a multi-file scan's CONCATENATED batch is itself cacheable (same
     # immutability argument as the per-file entries); trace events mirror

@@ -18,8 +18,9 @@ one device pass per chunk: encode -> hash -> bucket -> sort
 (ops/sort.bucket_sort_build) -> host gather -> per-bucket Parquet write.
 Optional lineage materializes a ``_data_file_id`` column mapping each index
 row to its source file (ref: CoveringIndex.scala:227-279); the id is
-attached at decode time. The multi-device build is not in the port yet and
-raises.
+attached at decode time. A nested struct leaf (``a.b``) is stored as the flat
+column ``__hs_nested.a.b``. The multi-device build is not in the port yet and
+raises where the JAX package would build on a mesh.
 
 Bucket id is encoded in the data file name: ``part-<bucket>-<tag>.parquet``.
 """
@@ -27,6 +28,7 @@ Bucket id is encoded in the data file name: ``part-<bucket>-<tag>.parquet``.
 from __future__ import annotations
 
 import collections
+import itertools
 import os
 import re
 import time
@@ -43,7 +45,7 @@ from hyperspace_tpu_torch.indexes import registry
 from hyperspace_tpu_torch.indexes.base import CreateContext, Index, IndexConfig
 from hyperspace_tpu_torch.models.log_entry import DerivedDataset
 from hyperspace_tpu_torch.plan.logical import BucketSpec
-from hyperspace_tpu_torch.plan.resolver import resolve_columns_against_schema
+from hyperspace_tpu_torch.plan.resolver import ResolvedColumn, resolve_columns_against_schema
 from hyperspace_tpu_torch.sources import schema as schema_codec
 
 _BUCKET_FILE_RE = re.compile(r"part-(\d+)-")
@@ -185,17 +187,18 @@ class CoveringIndex(Index):
             # (ref: CoveringIndex.scala:54-69 repartition+saveWithBuckets);
             # here the build owns its own out-of-core chunking.
             relation = plan.relation
-            columns = self._resolve_all(relation.schema)
-            key_cols = [c for c in columns if c in self._indexed]
-            payload = [c for c in columns if c not in self._indexed]
+            resolved = self._resolve_all(ctx, relation.schema)
+            columns = [r.normalized_name for r in resolved]
+            key_res = [r for r in resolved if r.normalized_name in self._indexed]
+            payload = [r for r in resolved if r.normalized_name not in self._indexed]
             batch_rows = ctx.session.conf.build_batch_rows
             files = [fi.name for fi in relation.all_file_infos()]
             # per-file reads lose the unified-dataset schema the one-shot
             # path had (Arrow casts/null-fills fragments against it); conform
             # every per-file projection to the resolved schema so sources
             # with per-file schema drift still build one consistent index
-            key_schema = pa.schema([relation.schema.field(c) for c in key_cols])
-            payload_schema = pa.schema([relation.schema.field(c) for c in payload])
+            key_schema = pa.schema([_arrow_field_for(r, relation.schema) for r in key_res])
+            payload_schema = pa.schema([_arrow_field_for(r, relation.schema) for r in payload])
 
             def groups():
                 # each file's dataset is constructed ONCE and serves both the
@@ -218,7 +221,7 @@ class CoveringIndex(Index):
                         if not payload:
                             return None
                         parts = [
-                            _project_conform(d, payload_schema) for d in grp_ds
+                            _project_conform(d, payload, payload_schema) for d in grp_ds
                         ]
                         return pa.concat_tables(parts) if len(parts) > 1 else parts[0]
 
@@ -227,7 +230,7 @@ class CoveringIndex(Index):
                 for f in files:
                     t = time.perf_counter()
                     ds_f = relation.arrow_dataset([f])
-                    kt = _project_conform(ds_f, key_schema)
+                    kt = _project_conform(ds_f, key_res, key_schema)
                     _add_stage(ctx.session.build_stage_seconds, "key_decode", t)
                     # emit BEFORE a file that would cross batchRows: groups
                     # stay under the cap (only a single file larger than
@@ -246,6 +249,16 @@ class CoveringIndex(Index):
                 if pending_ds:
                     yield emit()
 
+            # the mesh-or-single-device decision needs the TOTAL rows
+            # (distributedMinRows), which streaming never sees at once;
+            # parquet footers give it, other formats size by the first chunk
+            total_rows = None
+            if relation.physical_format == "parquet":
+                try:
+                    total_rows = sum(pq.read_metadata(f).num_rows for f in files)
+                except Exception:
+                    total_rows = None
+
             write_bucketed_groups(
                 groups(),
                 self._indexed,
@@ -254,8 +267,9 @@ class CoveringIndex(Index):
                 column_order=columns,
                 batch_rows=batch_rows,
                 session=ctx.session,
+                total_rows=total_rows,
             )
-            schema = pa.schema([relation.schema.field(c) for c in columns])
+            schema = pa.schema([_arrow_field_for(r, relation.schema) for r in resolved])
             self.schema_json = schema_codec.schema_to_json(schema)
             return
 
@@ -270,12 +284,29 @@ class CoveringIndex(Index):
         )
         self.schema_json = schema_codec.schema_to_json(table.schema)
 
-    def _resolve_all(self, schema: pa.Schema) -> List[str]:
-        """Resolve the indexed and included columns to the schema's own
-        spelling; returns them indexed first."""
-        self._indexed = resolve_columns_against_schema(self._indexed, schema)
-        self._included = resolve_columns_against_schema(self._included, schema)
-        return self.referenced_columns
+    def _resolve_all(self, ctx: CreateContext, schema: pa.Schema):
+        """Resolve indexed/included columns, normalizing nested paths with the
+        ``__hs_nested.`` prefix; nested indexing is gated on conf
+        (ref: CoveringIndexConfig nested normalization, ResolverUtils.scala:44-105).
+
+        Names may arrive already normalized (refresh/optimize revive the index
+        from its log entry) — strip the prefix before re-resolving against the
+        source schema."""
+
+        def denorm(names):
+            return [ResolvedColumn.from_normalized(n).name for n in names]
+
+        resolved = resolve_columns_against_schema(denorm(self.referenced_columns), schema)
+        if any(r.is_nested for r in resolved):
+            conf = getattr(getattr(ctx, "session", None), "conf", None)
+            if conf is not None and not conf.nested_column_enabled:
+                raise ValueError(
+                    "Indexing nested columns requires "
+                    f"{C.keys.NESTED_COLUMN_ENABLED}=true"
+                )
+        self._indexed = [r.normalized_name for r in resolve_columns_against_schema(denorm(self._indexed), schema)]
+        self._included = [r.normalized_name for r in resolve_columns_against_schema(denorm(self._included), schema)]
+        return resolved
 
     def _index_data_table(self, ctx: CreateContext, df) -> pa.Table:
         """The vertical slice (+ optional lineage column) as one arrow table
@@ -289,9 +320,8 @@ class CoveringIndex(Index):
                 "of a supported relation); got: " + type(plan).__name__
             )
         relation = plan.relation
-        # a field-reference projection, as the JAX package reads it, so the
-        # table (and every bucket file's schema) is the same
-        projection = {c: pc.field(c) for c in self._resolve_all(relation.schema)}
+        resolved = self._resolve_all(ctx, relation.schema)
+        projection = _nested_projection(resolved)
 
         if not self.lineage:
             return relation.arrow_dataset().to_table(columns=projection)
@@ -307,38 +337,88 @@ class CoveringIndex(Index):
         return pa.concat_tables(tables)
 
 
-def _project_conform(ds, schema: pa.Schema) -> pa.Table:
-    """Project ``schema``'s columns out of one file's dataset and conform the
-    result to it (cast drifted dtypes; null-fill columns the file predates),
-    so sources with per-file schema drift still build one consistent index."""
+def _project_conform(ds, resolved, schema: pa.Schema) -> pa.Table:
+    """Project ``resolved`` columns out of one file's dataset and conform the
+    result to the unified ``schema`` (cast drifted dtypes; null-fill columns
+    the file predates), so sources with per-file schema drift still build one
+    consistent index."""
     try:
-        t = ds.to_table(columns=schema.names)
+        t = ds.to_table(columns=_nested_projection(resolved))
     except (KeyError, pa.ArrowInvalid, pa.ArrowKeyError):
         # a projected column is missing from this file (schema evolution):
-        # decode what the file has and null-fill only what is absent
+        # decode what the file has, extract what resolves (nested leaves via
+        # struct_field — the normalized __hs_nested. name never matches a
+        # physical column), and null-fill only what's genuinely absent
         full = ds.to_table()
-        arrays = [
-            full.column(f.name) if f.name in full.column_names else pa.nulls(full.num_rows, f.type)
-            for f in schema
-        ]
+        arrays = []
+        for r, f in zip(resolved, schema):
+            parts = r.name.split(".")
+            arr = full.column(parts[0]) if parts[0] in full.column_names else None
+            for seg in parts[1:]:
+                if arr is None:
+                    break
+                try:
+                    arr = pc.struct_field(arr, seg)
+                except (KeyError, pa.ArrowInvalid, pa.ArrowKeyError, TypeError):
+                    arr = None
+            arrays.append(arr if arr is not None else pa.nulls(full.num_rows, f.type))
         return pa.table(dict(zip(schema.names, arrays))).cast(schema)
     if t.schema != schema:
         t = t.cast(schema)
     return t
 
 
-def _device_of(session):
+def _nested_projection(resolved) -> Dict[str, Any]:
+    """Arrow dataset projection dict: normalized output name -> field ref
+    (nested paths project the struct leaf into a flat column)."""
+    out: Dict[str, Any] = {}
+    for r in resolved:
+        out[r.normalized_name] = pc.field(*r.name.split(".")) if r.is_nested else pc.field(r.name)
+    return out
+
+
+def _arrow_field_for(resolved_col, schema: pa.Schema) -> pa.Field:
+    """The (leaf) arrow field a resolved column projects to, named by its
+    normalized (flat) name."""
+    parts = resolved_col.name.split(".")
+    field = schema.field(parts[0])
+    for p in parts[1:]:
+        field = field.type.field(p)
+    return pa.field(resolved_col.normalized_name, field.type)
+
+
+def _mesh_devices(device) -> int:
+    """Devices in the session's mesh: every local card on CUDA, one on the
+    CPU."""
+    import torch
+
+    return torch.cuda.device_count() if device.type == "cuda" else 1
+
+
+def _device_of(session, total_rows: int):
     """The build's device: the session's, else the default (CUDA, raising
-    when there is none)."""
+    when there is none). Where the JAX package builds on a mesh
+    (``parallel.enabled`` and ``parallel.build.enabled``, a mesh of more than
+    one device, and at least ``tpu.build.distributedMinRows`` rows), this
+    raises: the multi-device build is not in the port. One device is a
+    one-device mesh, and builds there."""
     from hyperspace_tpu_torch.session import resolve_device
 
-    if session is not None and session.conf.parallel_enabled:
+    if session is None:
+        return resolve_device(None)
+    conf = session.conf
+    if (
+        conf.parallel_enabled
+        and conf.parallel_build_enabled
+        and _mesh_devices(session.device) > 1
+        and total_rows >= conf.distributed_build_min_rows
+    ):
         raise NotImplementedError("the multi-device (mesh) build is not yet in the port")
-    return session.device if session is not None else resolve_device(None)
+    return session.device
 
 
 def _chunk_stages(bucket_sort_columns: List[str], num_buckets: int, out_dir: str,
-                  column_order: Optional[List[str]], session):
+                  column_order: Optional[List[str]], session, total_rows: int):
     """The two stages of one chunk's build: ``launch`` (host encode, upload,
     device hash/sort/histogram) and ``finish`` (fetch the permutation and
     counts, then per-bucket take + parquet write). Their host time goes to
@@ -349,7 +429,7 @@ def _chunk_stages(bucket_sort_columns: List[str], num_buckets: int, out_dir: str
     from hyperspace_tpu_torch.ops import encode
     from hyperspace_tpu_torch.ops.sort import bucket_sort_build
 
-    device = _device_of(session)
+    device = _device_of(session, total_rows)
     seconds = session.build_stage_seconds if session is not None else collections.Counter()
 
     def launch(chunk: pa.Table) -> dict:
@@ -475,7 +555,7 @@ def write_bucketed(
     os.makedirs(out_dir, exist_ok=True)
     if table.num_rows == 0:
         return []
-    launch, finish = _chunk_stages(bucket_sort_columns, num_buckets, out_dir, None, session)
+    launch, finish = _chunk_stages(bucket_sort_columns, num_buckets, out_dir, None, session, table.num_rows)
     if batch_rows is not None and 0 < batch_rows < table.num_rows:
         return _pipelined_chunks(_sliced_chunks(table, None, batch_rows), launch, finish)
     return finish(launch(table), None)
@@ -489,6 +569,7 @@ def write_bucketed_groups(
     column_order: Optional[List[str]] = None,
     batch_rows: Optional[int] = None,
     session=None,
+    total_rows: Optional[int] = None,
 ) -> List[str]:
     """Device-accelerated bucketed + sorted Parquet write, out of core.
 
@@ -512,9 +593,10 @@ def write_bucketed_groups(
 
     The build path streams source FILES through this (``CoveringIndex.write``);
     the reference inherits the same bounded-memory property from Spark's
-    streaming executors (ref: CoveringIndex.scala:54-69)."""
+    streaming executors (ref: CoveringIndex.scala:54-69). ``total_rows``
+    sizes the mesh decision (``_device_of``); without it the first chunk
+    does."""
     os.makedirs(out_dir, exist_ok=True)
-    stages = _chunk_stages(bucket_sort_columns, num_buckets, out_dir, column_order, session)
 
     def flattened():
         for key_table, payload_fn in groups:
@@ -526,7 +608,13 @@ def write_bucketed_groups(
             else:
                 yield key_table, payload_fn
 
-    return _pipelined_chunks(flattened(), *stages)
+    flat = flattened()
+    first = next(flat, None)
+    if first is None:
+        return []
+    rows = total_rows if total_rows is not None else first[0].num_rows
+    stages = _chunk_stages(bucket_sort_columns, num_buckets, out_dir, column_order, session, rows)
+    return _pipelined_chunks(itertools.chain([first], flat), *stages)
 
 
 class CoveringIndexConfig(IndexConfig):
@@ -575,6 +663,41 @@ class CoveringIndexConfig(IndexConfig):
 
     def __repr__(self) -> str:
         return f"CoveringIndexConfig({self._name!r}, indexed={self._indexed}, included={self._included})"
+
+    class Builder:
+        """Fluent builder (ref: CoveringIndexConfig builder, :118-200)."""
+
+        def __init__(self):
+            self._name: Optional[str] = None
+            self._indexed: List[str] = []
+            self._included: List[str] = []
+
+        def indexName(self, name: str) -> "CoveringIndexConfig.Builder":
+            if self._name:
+                raise ValueError("indexName is already set")
+            self._name = name
+            return self
+
+        index_name = indexName
+
+        def indexBy(self, *columns: str) -> "CoveringIndexConfig.Builder":
+            self._indexed.extend(columns)
+            return self
+
+        index_by = indexBy
+
+        def include(self, *columns: str) -> "CoveringIndexConfig.Builder":
+            self._included.extend(columns)
+            return self
+
+        def create(self) -> "CoveringIndexConfig":
+            if not self._name:
+                raise ValueError("indexName must be set")
+            return CoveringIndexConfig(self._name, self._indexed, self._included)
+
+    @staticmethod
+    def builder() -> "CoveringIndexConfig.Builder":
+        return CoveringIndexConfig.Builder()
 
 
 registry.register(CoveringIndex.kind, CoveringIndex.from_derived_dataset)

@@ -262,7 +262,7 @@ class DataSkippingIndex(Index):
 
         assert isinstance(df.plan, Scan)
         relation = df.plan.relation
-        cols = resolve_columns_against_schema(self.indexed_columns, relation.schema)
+        cols = [c.name for c in resolve_columns_against_schema(self.indexed_columns, relation.schema)]
         rows = self._sketch_rows(relation, relation.all_file_infos(), cols, ctx)
         self._write_rows(rows, ctx.index_data_path)
 

@@ -17,7 +17,8 @@ the reference's ``IndexLogEntry`` (ref: HS/index/IndexLogEntry.scala:40-685):
   - ``FileIdTracker``— stable (name, size, mtime) → id assignment
                        (ref: HS/index/IndexLogEntry.scala:609-685)
 
-Everything (de)serializes to plain-dict JSON.
+Everything (de)serializes to plain-dict JSON; transient query-time state lives
+in a ``tags`` dict that is never persisted (ref: IndexLogEntry tags :519-571).
 """
 
 from __future__ import annotations
@@ -439,7 +440,12 @@ class LogEntry:
 
 
 class IndexLogEntry(LogEntry):
-    """One full index-metadata record (ref: HS/index/IndexLogEntry.scala:408-572)."""
+    """One full index-metadata record (ref: HS/index/IndexLogEntry.scala:408-572).
+
+    ``tags`` is transient per-process state keyed by (plan_key, tag_name),
+    used only by the whyNot analysis, which wipes it before and after each
+    run (ref: IndexLogEntry tags :519-571); it is never serialized.
+    """
 
     def __init__(
         self,
@@ -458,6 +464,7 @@ class IndexLogEntry(LogEntry):
         self.content = content
         self.source = source
         self.properties = dict(properties)
+        self.tags: Dict[Tuple[Any, str], Any] = {}
 
     # --- derived accessors -------------------------------------------------
     @property
@@ -519,6 +526,24 @@ class IndexLogEntry(LogEntry):
             Content.from_leaf_files(deleted) if deleted else None,
         )
         return new
+
+    # --- tags (transient) --------------------------------------------------
+    def set_tag(self, plan_key: Any, tag: str, value: Any) -> None:
+        self.tags[(plan_key, tag)] = value
+
+    def get_tag(self, plan_key: Any, tag: str) -> Any:
+        return self.tags.get((plan_key, tag))
+
+    def unset_tag(self, plan_key: Any, tag: str) -> None:
+        self.tags.pop((plan_key, tag), None)
+
+    def unset_tag_for_all_plans(self, tag: str) -> None:
+        """Drop a tag for every plan key (ref: IndexLogEntry
+        ``unsetTagValueForAllPlan``, HS/index/IndexLogEntry.scala:560-565) —
+        entries are shared across queries by the caching manager, so analysis
+        tags must be wiped before each whyNot run."""
+        for key in [k for k in self.tags if k[1] == tag]:
+            self.tags.pop(key, None)
 
     # --- serialization -----------------------------------------------------
     def to_dict(self) -> Dict[str, Any]:

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Optional
+from typing import List, Optional
 
 from hyperspace_tpu_torch import config as C
 from hyperspace_tpu_torch.models import states
@@ -89,6 +89,19 @@ class IndexLogManager:
             if entry is not None and entry.state in states.STABLE_STATES:
                 return entry
         return None
+
+    def get_index_versions(self, accepted_states: List[str]) -> List[int]:
+        """Log ids of entries in the given states, newest first
+        (ref: HS/index/IndexLogManager.scala:129-142)."""
+        latest = self.get_latest_id()
+        if latest is None:
+            return []
+        out = []
+        for log_id in range(latest, -1, -1):
+            entry = self.get_log(log_id)
+            if entry is not None and entry.state in accepted_states:
+                out.append(log_id)
+        return out
 
     def write_log(self, log_id: int, entry: IndexLogEntry) -> bool:
         """Write entry at ``log_id`` iff no entry with that id exists yet.

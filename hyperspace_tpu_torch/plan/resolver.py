@@ -1,45 +1,89 @@
 """Column resolution.
 
-Case-insensitive resolution of user column names against a schema
-(ref: HS/util/ResolverUtils.scala:33-233). Nested struct fields are not in
-the port yet: a dotted name that reaches into a struct raises.
+Case-insensitive resolution of user column names against a plan's output,
+including nested struct fields normalized with the ``__hs_nested.`` prefix
+(ref: HS/util/ResolverUtils.scala:33-233 — ``ResolvedColumn`` normalization
+:44-105, struct traversal :160-181, array/map rejection :185-195).
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import List, Optional, Sequence
 
 import pyarrow as pa
 
-from hyperspace_tpu_torch.plan.expr import Expr, rewrite_columns
+from hyperspace_tpu_torch.plan.expr import NESTED_PREFIX, Col, Expr, rewrite_columns
 
 
-def resolve_columns_against_schema(names: Sequence[str], schema: pa.Schema) -> List[str]:
-    """The schema's own spelling of each name in ``names``."""
-    by_lower = {}
+@dataclass(frozen=True)
+class ResolvedColumn:
+    """A resolved column; nested fields carry the normalization prefix in
+    ``normalized_name`` (e.g. ``a.b`` -> ``__hs_nested.a.b``)."""
+
+    name: str
+    is_nested: bool = False
+
+    @property
+    def normalized_name(self) -> str:
+        return (NESTED_PREFIX + self.name) if self.is_nested else self.name
+
+    @classmethod
+    def from_normalized(cls, normalized: str) -> "ResolvedColumn":
+        if normalized.startswith(NESTED_PREFIX):
+            return cls(normalized[len(NESTED_PREFIX):], True)
+        return cls(normalized, False)
+
+
+def _resolve_against_schema(name: str, schema: pa.Schema) -> Optional[ResolvedColumn]:
     for f in schema:
-        by_lower.setdefault(f.name.lower(), f)
-    out = []
-    for n in names:
-        f = by_lower.get(n.lower())
-        if f is None:
-            head = by_lower.get(n.split(".")[0].lower())
-            if "." in n and head is not None and pa.types.is_struct(head.type):
-                raise NotImplementedError(f"nested column {n!r}: nested columns are not yet in the port")
-            raise ValueError(f"Column {n!r} could not be resolved against schema {schema.names}")
-        out.append(f.name)
-    return out
+        if f.name.lower() == name.lower():
+            return ResolvedColumn(f.name, False)
+    # nested struct path a.b.c
+    parts = name.split(".")
+    if len(parts) > 1:
+        field = None
+        resolved_parts: List[str] = []
+        fields = list(schema)
+        for i, part in enumerate(parts):
+            match = next((f for f in fields if f.name.lower() == part.lower()), None)
+            if match is None:
+                return None
+            if pa.types.is_list(match.type) or pa.types.is_map(match.type):
+                raise ValueError(f"Array/map field {match.name!r} cannot be indexed (ref: ResolverUtils.scala:185-195)")
+            resolved_parts.append(match.name)
+            field = match
+            if i < len(parts) - 1:
+                if not pa.types.is_struct(field.type):
+                    return None
+                fields = [field.type.field(j) for j in range(field.type.num_fields)]
+        return ResolvedColumn(".".join(resolved_parts), True)
+    return None
 
 
 def resolve_column(name: str, available: Sequence[str]) -> Optional[str]:
-    """Resolve ``name`` case-insensitively against flat column names."""
+    """Resolve ``name`` case-insensitively against flat column names; a
+    dotted nested path resolves when its root column does (the remaining
+    segments resolve at execution against the struct values)."""
     for a in available:
         if a.lower() == name.lower():
             return a
-    root = name.split(".")[0].lower()
-    if "." in name and any(a.lower() == root for a in available):
-        raise NotImplementedError(f"nested column {name!r}: nested columns are not yet in the port")
+    if "." in name:
+        root, _, rest = name.partition(".")
+        for a in available:
+            if a.lower() == root.lower():
+                return f"{a}.{rest}"
     return None
+
+
+def resolve_columns_against_schema(names: Sequence[str], schema: pa.Schema) -> List[ResolvedColumn]:
+    out = []
+    for n in names:
+        r = _resolve_against_schema(n, schema)
+        if r is None:
+            raise ValueError(f"Column {n!r} could not be resolved against schema {schema.names}")
+        out.append(r)
+    return out
 
 
 def resolve_expr(e: Expr, available: Sequence[str]) -> Expr:

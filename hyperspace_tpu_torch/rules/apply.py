@@ -37,12 +37,19 @@ def iter_subquery_plans(plan: L.LogicalPlan):
             yield from iter_subquery_plans(sub.plan)
 
 
+def plans_including_subqueries(plan: L.LogicalPlan) -> List[L.LogicalPlan]:
+    """``plan`` plus every subquery inner plan it carries — the single
+    traversal helper every analysis over "the whole query" must use."""
+    return [plan, *iter_subquery_plans(plan)]
+
+
 def used_index_names(plan: L.LogicalPlan) -> List[str]:
     """Names of every index an (optimized) plan uses: covering-index scans
     plus data-skipping rewrites (FileScans tagged via_index), across the main
-    plan and all subquery plans."""
+    plan and all subquery plans. Shared by explain and whyNot so the two
+    reports can never disagree."""
     used = set()
-    for p in [plan, *iter_subquery_plans(plan)]:
+    for p in plans_including_subqueries(plan):
         used |= {s.entry.name for s in L.collect(p, lambda x: isinstance(x, L.IndexScan))}
         used |= {s.via_index for s in L.collect(p, lambda x: isinstance(x, L.FileScan)) if s.via_index}
     return sorted(used)
@@ -67,9 +74,9 @@ def optimize_plan(plan: L.LogicalPlan, session) -> L.LogicalPlan:
 
 
 class ApplyHyperspace:
-    def __init__(self, session):
+    def __init__(self, session, analysis_enabled: bool = False):
         self.session = session
-        self.ctx = RuleContext(session)
+        self.ctx = RuleContext(session, analysis_enabled)
 
     def apply(self, plan: L.LogicalPlan) -> L.LogicalPlan:
         try:

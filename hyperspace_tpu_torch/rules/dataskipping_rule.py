@@ -13,10 +13,6 @@ Sketch semantics are three-valued: for every (file, conjunct) the evaluator
 answers "maybe contains matches" (keep) or "definitely not" (prune);
 anything it cannot reason about keeps the file — pruning must never change
 query results.
-
-The JAX package also tags each index with why it was or was not applied,
-for its whyNot analysis; those tags wait for the port's whyNot (ROADMAP
-A12), and the parquet source's reader options for its other formats (A5c).
 """
 
 from __future__ import annotations
@@ -25,6 +21,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from hyperspace_tpu_torch.analysis import reasons as R
 from hyperspace_tpu_torch.indexes.dataskipping import (
     BloomFilterSketch,
     DataSkippingIndex,
@@ -39,6 +36,7 @@ from hyperspace_tpu_torch.plan.expr import BinaryOp, Col, Expr, In, Lit, Not
 from hyperspace_tpu_torch.rules.context import RuleContext
 from hyperspace_tpu_torch.rules.utils import destructure_linear
 
+RULE_NAME = "DataSkippingIndexRule"
 # ceiling of max(1, int(40 x pruned)) + 1 below (see score.py short-circuit)
 MAX_SCORE = 41
 
@@ -301,9 +299,15 @@ def apply_data_skipping_rule(
                 pruned = None
             ctx.scratch[cache_key] = pruned
         if pruned is None:
+            ctx.tag_reason_if_failed(
+                False, entry, scan, lambda: R.index_not_eligible("predicate not prunable by sketches")
+            )
             continue
         surviving, surviving_bytes, total_bytes = pruned
         if surviving_bytes >= total_bytes:
+            ctx.tag_reason_if_failed(
+                False, entry, scan, lambda: R.index_not_eligible("sketches pruned no files")
+            )
             continue
         if best is None or surviving_bytes < best[2]:
             best = (entry, surviving, surviving_bytes, total_bytes)
@@ -311,6 +315,7 @@ def apply_data_skipping_rule(
     if best is None:
         return plan, 0
     entry, surviving, surviving_bytes, total_bytes = best
+    ctx.tag_applicable_rule(entry, scan, RULE_NAME)
 
     required_out = project_cols if project_cols is not None else scan.output_columns
     needed = list(dict.fromkeys(list(required_out) + list(condition.references())))
@@ -328,9 +333,9 @@ def apply_data_skipping_rule(
         surviving,
         rel.physical_format,
         needed,
+        via_index=entry.name,
         partition_values=pv,
         partition_dtypes=pd,
-        via_index=entry.name,
         format_options=getattr(rel, "options", None),
     )
     new_plan: L.LogicalPlan = L.Filter(condition, new_scan)

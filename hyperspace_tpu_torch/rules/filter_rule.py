@@ -14,6 +14,7 @@ from typing import Dict, List, Optional, Tuple
 
 from hyperspace_tpu_torch.models.log_entry import IndexLogEntry
 from hyperspace_tpu_torch.plan import logical as L
+from hyperspace_tpu_torch.analysis import reasons as R
 from hyperspace_tpu_torch.plan.expr import contains_input_file_name, strip_nested_prefix
 from hyperspace_tpu_torch.rules.context import RuleContext
 from hyperspace_tpu_torch.rules.utils import (
@@ -23,6 +24,7 @@ from hyperspace_tpu_torch.rules.utils import (
     transform_plan_to_use_index,
 )
 
+RULE_NAME = "FilterIndexRule"
 # ceiling of the 50 x coverage score below (score.py's short-circuit)
 MAX_SCORE = 50
 
@@ -41,10 +43,16 @@ def _filter_column_filter(
         props = entry.derived_dataset.properties
         indexed = [str(c) for c in props.get("indexedColumns", [])]
         included = [str(c) for c in props.get("includedColumns", [])]
-        if not indexed or strip_nested_prefix(indexed[0]).lower() not in pred_cols:
+        first_ok = bool(indexed) and strip_nested_prefix(indexed[0]).lower() in pred_cols
+        if not ctx.tag_reason_if_failed(
+            first_ok, entry, scan, lambda: R.no_first_indexed_col_cond(indexed[0] if indexed else "", pred_cols)
+        ):
             continue
         covered = {strip_nested_prefix(c).lower() for c in indexed + included}
-        if not all(strip_nested_prefix(c).lower() in covered for c in required):
+        covers = all(strip_nested_prefix(c).lower() in covered for c in required)
+        if not ctx.tag_reason_if_failed(
+            covers, entry, scan, lambda: R.missing_required_col(required, indexed + included)
+        ):
             continue
         if hybrid_thresholds_ok(ctx, entry, scan):
             out.append(entry)
@@ -75,9 +83,15 @@ def _rank(ctx: RuleContext, scan: L.Scan, candidates: List[IndexLogEntry]) -> Op
     if not candidates:
         return None
     if ctx.session.conf.hybrid_scan_enabled:
-        return max(candidates, key=lambda e: (ctx.common_bytes(e, scan), -e.content.total_size))
-    required = ctx.scratch.get("required_ordering")
-    return min(candidates, key=lambda e: (e.content.total_size, not _order_covers(e, required), e.name))
+        best = max(candidates, key=lambda e: (ctx.common_bytes(e, scan), -e.content.total_size))
+    else:
+        required = ctx.scratch.get("required_ordering")
+        best = min(candidates, key=lambda e: (e.content.total_size, not _order_covers(e, required), e.name))
+    if ctx.analysis_enabled:
+        for e in candidates:
+            if e is not best:
+                ctx.tag_reason_if_failed(False, e, scan, lambda: R.another_index_applied(best.name))
+    return best
 
 
 def apply_filter_index_rule(
@@ -104,5 +118,6 @@ def apply_filter_index_rule(
     best = _rank(ctx, scan, _filter_column_filter(ctx, scan, condition, required, entries))
     if best is None:
         return plan, 0
+    ctx.tag_applicable_rule(best, scan, RULE_NAME)
     new_plan = transform_plan_to_use_index(ctx, best, plan, ctx.session.conf.use_bucket_spec)
     return new_plan, max(int(MAX_SCORE * hybrid_coverage_fraction(ctx, best, scan)), 1)

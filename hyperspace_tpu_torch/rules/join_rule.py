@@ -23,6 +23,7 @@ from typing import Dict, List, Optional, Tuple
 
 from hyperspace_tpu_torch.models.log_entry import IndexLogEntry
 from hyperspace_tpu_torch.plan import logical as L
+from hyperspace_tpu_torch.analysis import reasons as R
 from hyperspace_tpu_torch.plan.expr import (
     column_root_member,
     contains_input_file_name,
@@ -37,6 +38,7 @@ from hyperspace_tpu_torch.rules.utils import (
     transform_plan_to_use_index,
 )
 
+RULE_NAME = "JoinIndexRule"
 # ceiling of the 70+70 coverage score below — the optimizer short-circuits
 # rules that cannot beat the current best, keyed on this constant
 MAX_SCORE = 140
@@ -67,7 +69,12 @@ def _attribute_mapping(
 
 
 def _side_candidates(
-    ctx: RuleContext, scan: L.Scan, join_cols: List[str], required: List[str], entries: List[IndexLogEntry]
+    ctx: RuleContext,
+    side: str,
+    scan: L.Scan,
+    join_cols: List[str],
+    required: List[str],
+    entries: List[IndexLogEntry],
 ) -> List[IndexLogEntry]:
     """JoinColumnFilter (ref: :419-448): the indexed columns are exactly the
     join columns, the index covers every column the side needs, and under
@@ -80,10 +87,16 @@ def _side_candidates(
         props = entry.derived_dataset.properties
         indexed = [str(c) for c in props.get("indexedColumns", [])]
         included = [str(c) for c in props.get("includedColumns", [])]
-        if {strip_nested_prefix(c).lower() for c in indexed} != join_set:
+        exact = {strip_nested_prefix(c).lower() for c in indexed} == join_set
+        if not ctx.tag_reason_if_failed(
+            exact, entry, scan, lambda: R.not_all_join_cols_indexed(side, join_cols, indexed)
+        ):
             continue
         covered = {strip_nested_prefix(c).lower() for c in indexed + included}
-        if not all(strip_nested_prefix(c).lower() in covered for c in required):
+        covers = all(strip_nested_prefix(c).lower() in covered for c in required)
+        if not ctx.tag_reason_if_failed(
+            covers, entry, scan, lambda: R.missing_required_col(required, indexed + included)
+        ):
             continue
         if hybrid_thresholds_ok(ctx, entry, scan):
             out.append(entry)
@@ -173,16 +186,22 @@ def apply_join_index_rule(
     r_join_cols = list(mapping.values())
     l_required = required_cols(l_proj, l_cond, l_scan, l_join_cols)
     r_required = required_cols(r_proj, r_cond, r_scan, r_join_cols)
-    l_entries = _side_candidates(ctx, l_scan, l_join_cols, l_required, candidates[lk][1])
-    r_entries = _side_candidates(ctx, r_scan, r_join_cols, r_required, candidates[rk][1])
+    l_entries = _side_candidates(ctx, "left", l_scan, l_join_cols, l_required, candidates[lk][1])
+    r_entries = _side_candidates(ctx, "right", r_scan, r_join_cols, r_required, candidates[rk][1])
 
     # candidate lists are per-scan (signature-matched), so an entry appearing
     # on both sides implies a self-join — no extra identity check needed
     compatible = [(le, re) for le in l_entries for re in r_entries if _compatible(le, re, mapping)]
     best = _rank_pairs(ctx, compatible, l_scan, r_scan)
     if best is None:
+        for e in l_entries:
+            ctx.tag_reason_if_failed(False, e, l_scan, lambda: R.no_avail_join_index_pair("left"))
+        for e in r_entries:
+            ctx.tag_reason_if_failed(False, e, r_scan, lambda: R.no_avail_join_index_pair("right"))
         return plan, 0
     l_best, r_best = best
+    ctx.tag_applicable_rule(l_best, l_scan, RULE_NAME)
+    ctx.tag_applicable_rule(r_best, r_scan, RULE_NAME)
     new_left = transform_plan_to_use_index(ctx, l_best, plan.left, use_bucket_spec=True)
     new_right = transform_plan_to_use_index(ctx, r_best, plan.right, use_bucket_spec=True)
     new_plan = L.Join(new_left, new_right, plan.condition, plan.how, plan.residual, plan.using_pairs)

@@ -15,6 +15,7 @@ from __future__ import annotations
 from typing import List, Optional, Tuple
 
 from hyperspace_tpu_torch import config as C
+from hyperspace_tpu_torch.analysis import reasons as R
 from hyperspace_tpu_torch.indexes.covering import BUCKET_HASH_VERSION, CoveringIndex, bucket_of_file
 from hyperspace_tpu_torch.models.log_entry import IndexLogEntry
 from hyperspace_tpu_torch.plan import logical as L
@@ -84,10 +85,19 @@ def hybrid_thresholds_ok(ctx: RuleContext, entry: IndexLogEntry, scan: L.Scan) -
     if deleted_bytes:
         deleted_ratio = deleted_bytes / max(1, entry.source_files_size())
         if deleted_ratio > conf.hybrid_scan_deleted_ratio_threshold:
+            ctx.tag_reason_if_failed(
+                False, entry, scan,
+                lambda: R.too_many_deleted(deleted_ratio, conf.hybrid_scan_deleted_ratio_threshold),
+            )
             return False
     if appended_bytes:
         total_bytes = sum(fi.size for fi in current.values())
-        if appended_bytes / max(1, total_bytes) > conf.hybrid_scan_appended_ratio_threshold:
+        appended_ratio = appended_bytes / max(1, total_bytes)
+        if appended_ratio > conf.hybrid_scan_appended_ratio_threshold:
+            ctx.tag_reason_if_failed(
+                False, entry, scan,
+                lambda: R.too_many_appended(appended_ratio, conf.hybrid_scan_appended_ratio_threshold),
+            )
             return False
     return True
 
@@ -496,13 +506,19 @@ def _prune(plan: L.LogicalPlan, needed, barrier, skip_self: bool = False) -> L.L
         out = plan.output_columns
         if needed is None:
             return plan
-        flat = {c for c in needed if c in set(out)}
-        if not flat:
+        out_set = set(out)
+        flat = {c for c in needed if c in out_set}
+        # dotted refs survive pruning as their own projected columns (the
+        # reference relies on Catalyst extracting nested field accesses)
+        dotted = {c for c in needed if c not in out_set and "." in c and c.split(".")[0] in out_set}
+        if not flat and not dotted:
             # a count-only consumer needs the ROW COUNT: a zero-column scan
             # would report zero rows, so keep the narrowest thing we have
             flat = {out[0]} if out else set()
-        if flat < set(out):
-            return L.Project([c for c in out if c in flat], plan)
+        if flat | {d.split(".")[0] for d in dotted} < out_set or dotted:
+            ordered = [c for c in out if c in flat] + sorted(dotted)
+            if set(ordered) != out_set:
+                return L.Project(ordered, plan)
         return plan
     if isinstance(plan, L.Union):
         return plan.with_children([_prune(c, needed, barrier) for c in plan.children()])

@@ -176,6 +176,12 @@ class Session:
         finally:
             self._hyperspace_override.reset(token)
 
+    def with_hyperspace_disabled(self):
+        """The scope every lifecycle action runs in, so that a build never
+        reads another index in place of its source
+        (ref: Hyperspace.scala:193-200 withHyperspaceRuleDisabled)."""
+        return self.hyperspace_scope(False)
+
     # --- index manager ------------------------------------------------------
     @property
     def index_manager(self):

@@ -6,23 +6,24 @@
 from __future__ import annotations
 
 import time
-from typing import Generic, Optional, Tuple, TypeVar
+from typing import Callable, Generic, Optional, Tuple, TypeVar
 
 T = TypeVar("T")
 
 
 class TTLCache(Generic[T]):
-    """Single-entry cache with creation-time-based expiry."""
+    """Single-entry cache with creation-time-based expiry; the lifetime is
+    read on every lookup."""
 
-    def __init__(self, expiry_seconds: float):
-        self._expiry_seconds = expiry_seconds
+    def __init__(self, expiry_seconds_fn: Callable[[], float]):
+        self._expiry_seconds_fn = expiry_seconds_fn
         self._entry: Optional[Tuple[float, T]] = None
 
     def get(self) -> Optional[T]:
         if self._entry is None:
             return None
         created, value = self._entry
-        if time.time() - created > self._expiry_seconds:
+        if time.time() - created > self._expiry_seconds_fn():
             self._entry = None
             return None
         return value

@@ -392,19 +392,29 @@ def test_answered_like_jax(system, lake, monkeypatch, case):
         assert "agg: streamed-partial x1" in lines, lines
 
 
-def test_not_ported_features_raise(system, lake):
+def test_not_ported_features_raise(system, lake, monkeypatch):
     """Whole-stage fusion (of a grouped scan aggregate, and of a grouped
     join aggregate with a side the JAX package would broadcast) and the
-    sharded aggregate are not in the port yet: asking for them raises."""
+    sharded aggregate are not in the port yet: asking for them raises. The
+    sharded aggregate raises only where the JAX package would shard it
+    (a chunk of at least ``hyperspace.parallel.minRows`` rows); below that
+    both packages aggregate on one device, with the same result, trace and
+    programs."""
+    sharded = {"hyperspace.parallel.enabled": "true"}
     for conf, query, match in (
         (FUSION, QUERIES["by_int"], "fused grouped aggregate"),
         ({**FUSION, "hyperspace.exec.join.broadcastMaxBytes": 64 << 20}, JOIN_MIN, "fused join aggregate"),
-        ({"hyperspace.parallel.enabled": "true"}, QUERIES["by_int"], "sharded"),
+        ({**sharded, "hyperspace.parallel.minRows": 0}, QUERIES["by_int"], "sharded"),
     ):
         sess = ht.Session(conf=_conf(ht.keys, system, **MODES["device"], **conf), device="cpu").enable_hyperspace()
         frames = {t: sess.read_parquet(p) for t, p in lake.items()}
         with pytest.raises(NotImplementedError, match=match):
             query(frames, ht.col).collect()
+    _, ref, ref_lines, ref_falls, ref_ran = _run(hst, system, "by_int", "device", lake, monkeypatch, **sharded)
+    plan, got, lines, falls, ran = _run(ht, system, "by_int", "device", lake, monkeypatch, **sharded)
+    _assert_same_result(got, ref, plan)
+    assert (lines, falls, ran) == (ref_lines, ref_falls, ref_ran)
+    assert "agg: device-grouped-scan x1" in lines, lines
 
 
 def test_agg_stage_seconds(system, lake):

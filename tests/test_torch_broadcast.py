@@ -5,8 +5,7 @@ port (tests/torch_mirror.py): their own assertions hold the port's answers
 to the pandas oracle, and every ``collect()`` is held to the JAX package's
 rows over the same lake, in the same order. The file's ``_counter`` of
 broadcast joins reads the port's ``hash-build`` dispatches (one per
-broadcast join; the port has no metrics registry yet, ROADMAP A9), and its
-key names are the port's.
+broadcast join; the port has no metrics registry yet, ROADMAP A9).
 
 Left out, each with the ROADMAP item that ports what it needs:
 
@@ -76,10 +75,6 @@ _cases = M.load_cases(
     assert name == "hs_join_broadcast_total", name
     return float(D.dispatches["hash-build"])
 ''',
-        "hst.keys.EXEC_JOIN_BROADCAST_MAX_BYTES": "hst.keys.JOIN_BROADCAST_MAX_BYTES",
-        "hst.keys.EXEC_STREAM_CHUNK_BYTES": "hst.keys.STREAM_CHUNK_BYTES",
-        "hst.keys.EXEC_JOIN_PIPELINE_ENABLED": "hst.keys.JOIN_PIPELINE_ENABLED",
-        "hst.keys.EXEC_STREAM_JOIN_MIN_BYTES": "hst.keys.STREAM_JOIN_MIN_BYTES",
         "        from hyperspace_tpu_torch.exec import device as D\n\n        sess, ldf, rdf, _lpd, _rpd = smj_sides":
             "        from hyperspace_tpu_torch.exec import join as D\n\n        sess, ldf, rdf, _lpd, _rpd = smj_sides",
     },
@@ -96,23 +91,7 @@ def _mirrored():
 def test_every_case_is_run_or_listed():
     """Each case of tests/test_join_stream.py is collected here or left out
     by name (its own or its class's)."""
-    import ast
-
-    with open(_cases.__file__, encoding="utf-8") as f:
-        tree = ast.parse(f.read())
-    names = set()
-    for node in tree.body:
-        if isinstance(node, ast.FunctionDef) and node.name.startswith("test_"):
-            names.add(node.name)
-        elif isinstance(node, ast.ClassDef) and node.name.startswith("Test"):
-            names |= {f"{node.name}::{f.name}" for f in node.body
-                      if isinstance(f, ast.FunctionDef) and f.name.startswith("test_")}
-    here = globals()
-    run = {n for n in names if "::" not in n and n in here}
-    run |= {n for n in names if "::" in n and getattr(here.get(n.split("::")[0]), n.split("::")[1], None)}
-    listed = {n for n in names if n in LEFT_OUT or n.split("::")[0] in LEFT_OUT}
-    assert names == run | listed, sorted(names - run - listed)
-    assert not run & listed
+    M.assert_every_case([_cases], globals(), LEFT_OUT)
 
 
 # --------------------------------------------------------------------------

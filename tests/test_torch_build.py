@@ -229,16 +229,35 @@ def test_port_lists_jax_built_indexes(built):
     assert index_of_entry(entry).bucket_spec().num_buckets == NUM_BUCKETS
 
 
-def test_lineage_and_mesh_builds_raise(lake, tmp_path):
+def test_lineage_and_mesh_builds_raise(lake, tmp_path, monkeypatch):
     """What the port does not have yet raises; it never quietly builds
-    something else. The lineage build and the lifecycle actions are in the
-    port now: a lineage index carries ``_data_file_id``, and an action on a
-    missing index raises the JAX package's error, not ``NotImplementedError``,
-    and a format no source provider reads raises the providers' error."""
-    sess = ht.Session(conf={**_conf(ht.keys, str(tmp_path / "mesh")), "hyperspace.parallel.enabled": "true"},
+    something else. The mesh build raises only where the JAX package would
+    build on a mesh (``parallel.enabled`` and ``parallel.build.enabled``, a
+    mesh of more than one device, at least ``distributedMinRows`` rows); on
+    one device it builds the same bucket files as without
+    ``parallel.enabled``. The lineage build and the lifecycle actions are in
+    the port now: a lineage index carries ``_data_file_id``, and an action on
+    a missing index raises the JAX package's error, not
+    ``NotImplementedError``, and a format no source provider reads raises the
+    providers' error."""
+    from hyperspace_tpu_torch.indexes import covering
+
+    buckets = {}
+    for name, extra in (("plain", {}), ("mesh", {"hyperspace.parallel.enabled": "true"})):
+        sess = ht.Session(conf={**_conf(ht.keys, str(tmp_path / name)), **extra}, device="cpu")
+        entry = ht.Hyperspace(sess).create_index(sess.read_parquet(lake), ht.CoveringIndexConfig("i", ["k"], ["p"]))
+        assert entry.state == "ACTIVE"
+        runs = {}
+        for f in entry.content.files:
+            runs.setdefault(covering.bucket_of_file(f), []).append(pq.read_table(f).to_pylist())
+        buckets[name] = {b: sorted(r, key=repr) for b, r in runs.items()}
+    assert buckets["mesh"] == buckets["plain"]
+    monkeypatch.setattr(covering, "_mesh_devices", lambda device: 2)
+    sess = ht.Session(conf={**_conf(ht.keys, str(tmp_path / "mesh2")), "hyperspace.parallel.enabled": "true"},
                       device="cpu")
     with pytest.raises(NotImplementedError, match="mesh"):
         ht.Hyperspace(sess).create_index(sess.read_parquet(lake), ht.CoveringIndexConfig("i", ["k"], ["p"]))
+    monkeypatch.undo()
     sess = ht.Session(conf={**_conf(ht.keys, str(tmp_path / "lineage")), "hyperspace.index.lineage.enabled": "true"},
                       device="cpu")
     entry = ht.Hyperspace(sess).create_index(sess.read_parquet(lake), ht.CoveringIndexConfig("i", ["k"], ["p"]))
@@ -252,14 +271,21 @@ def test_lineage_and_mesh_builds_raise(lake, tmp_path):
 
 
 def test_nested_columns_raise(tmp_path):
-    """Nested struct columns are not in the port yet: a dotted name into a
-    struct raises, and an unknown name stays a resolution error."""
+    """A dotted name into a struct is a nested column: indexing it needs
+    ``hyperspace.index.nestedColumn.enabled`` (else the JAX package's
+    ``ValueError``), and with it the index stores the leaf as the flat
+    column ``__hs_nested.st.a``, as the JAX package does; an unknown name
+    stays a resolution error."""
     src = tmp_path / "nested"
     src.mkdir()
     pq.write_table(pa.table({"id": [1, 2], "st": pa.array([{"a": 1}, {"a": 2}])}), src / "p.parquet")
     sess = ht.Session(conf=_conf(ht.keys, str(tmp_path / "sys")), device="cpu")
     df = sess.read_parquet(str(src))
-    with pytest.raises(NotImplementedError, match="nested"):
+    with pytest.raises(ValueError, match="nestedColumn"):
         ht.Hyperspace(sess).create_index(df, ht.CoveringIndexConfig("n", ["st.a"], ["id"]))
     with pytest.raises(ValueError, match="could not be resolved"):
         ht.Hyperspace(sess).create_index(df, ht.CoveringIndexConfig("m", ["nope"], ["id"]))
+    sess.conf.set(ht.keys.NESTED_COLUMN_ENABLED, True)
+    entry = ht.Hyperspace(sess).create_index(df, ht.CoveringIndexConfig("n", ["st.a"], ["id"]))
+    assert entry.derived_dataset.properties["indexedColumns"] == ["__hs_nested.st.a"]
+    assert pq.read_schema(entry.content.files[0]).names == ["__hs_nested.st.a", "id"]

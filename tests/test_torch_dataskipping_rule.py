@@ -338,3 +338,31 @@ def test_bloom_might_contain_matches_jax(value, expected):
     (ref_words,), (words,) = ref.aggregate(values), got.aggregate(values)
     assert words == ref_words
     assert got.might_contain(words, value) == ref.might_contain(ref_words, value) == expected
+
+
+def test_explain_and_why_not_report_the_dataskipping_index(tmp_path):
+    """tests/test_dataskipping_rule.py's explain case
+    (``test_why_not_reports_applied_dataskipping_index``): the index
+    the rule applied is listed under "Indexes used" and "Applied indexes",
+    and both reports equal the JAX package's over the same lake and
+    indexes."""
+    root = tmp_path / "dsdata"
+    root.mkdir()
+    for i in range(4):
+        pq.write_table(pa.table({"v": np.arange(i * 100, i * 100 + 100, dtype=np.int64)}), root / f"p{i}.parquet")
+    system = str(tmp_path / "indexes")
+    port = ht.Session(conf={ht.keys.SYSTEM_PATH: system}, device="cpu")
+    ht.Hyperspace(port).create_index(port.read_parquet(str(root)),
+                                     ht.DataSkippingIndexConfig("dsWhy", ht.MinMaxSketch("v")))
+    reports = {}
+    for pkg, sess in ((ht, port), (hst, hst.Session(conf={hst.keys.SYSTEM_PATH: system}))):
+        sess.enable_hyperspace()
+        q = sess.read_parquet(str(root)).filter(pkg.col("v") == 123)
+        hs = pkg.Hyperspace(sess)
+        reports[pkg] = (hs.explain(q), hs.why_not(q))
+    assert reports[ht] == reports[hst]
+    explain, why_not = reports[ht]
+    assert "dsWhy" in explain.split("Indexes used:")[1]
+    lines = why_not.splitlines()
+    start = lines.index("Applied indexes:")
+    assert "- dsWhy" in lines[start + 1: lines.index("", start)], why_not

@@ -1,6 +1,6 @@
 """The port's verbatim copies of the JAX package's device-free modules.
 
-Twenty-three modules of ``hyperspace_tpu_torch/`` are copies of their counterparts
+Thirty modules of ``hyperspace_tpu_torch/`` are copies of their counterparts
 in ``hyperspace_tpu/`` with only the package name rewritten (and, in
 ``models/path_resolver.py``, one ``typing`` import fewer, since the copy
 does not use ``Optional``). This test compares the texts, so a change to
@@ -20,6 +20,13 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #: module path -> {reference line: the copy's line} beyond the package rename
 COPIES = {
     "actions/maintenance.py": {},
+    "analysis/__init__.py": {},
+    "analysis/explain.py": {},
+    "analysis/reasons.py": {},
+    "analysis/why_not.py": {},
+    "hyperspace.py": {},
+    "plan/resolver.py": {},
+    "rules/dataskipping_rule.py": {},
     "actions/optimize.py": {},
     "actions/refresh.py": {},
     "models/data_manager.py": {},

@@ -239,11 +239,14 @@ def test_toggle_and_count(systems, lake):
 
 
 def test_not_ported_features_raise(systems, lake, tmp_path):
-    """The sharded filter and nested columns are not in the port yet:
-    asking for them raises instead of quietly running something else.
-    Hybrid scan is in the port: over an unchanged lake it serves the index
-    as the plain rewrite does. So is ``col.isin(df)`` (an IN-subquery, which
-    raised before the SQL slice): it gives the JAX package's rows."""
+    """The sharded filter is not in the port yet: where the JAX package
+    would shard it (``hyperspace.parallel.enabled`` and a chunk of at least
+    ``parallel.minRows`` rows) the port raises instead of quietly running
+    something else; below ``minRows`` both packages filter on one device,
+    with the same rows and trace. Hybrid scan is in the port: over an
+    unchanged lake it serves the index as the plain rewrite does. So is
+    ``col.isin(df)`` (an IN-subquery, which raised before the SQL slice),
+    and so are nested struct columns: both give the JAX package's rows."""
     sess = ht.Session(conf=_conf(ht.keys, systems["torch"], **{"hyperspace.index.hybridscan.enabled": "true"}),
                       device="cpu")
     q = sess.read_parquet(lake).filter(ht.col("k") == 7)
@@ -251,8 +254,17 @@ def test_not_ported_features_raise(systems, lake, tmp_path):
     sess.enable_hyperspace()
     assert L.collect(q.optimized_plan(), lambda p: isinstance(p, L.IndexScan))
     assert _multiset(q.collect()) == _multiset(off)
-    sess = ht.Session(conf=_conf(ht.keys, systems["torch"], **{"hyperspace.parallel.enabled": "true",
-                                                                 "hyperspace.tpu.query.deviceMinRows": 0}),
+    parallel = {"hyperspace.parallel.enabled": "true", "hyperspace.tpu.query.deviceMinRows": 0}
+    got, traces = {}, {}
+    for pkg, tr in ((hst, ref_trace), (ht, trace)):
+        kwargs = {} if pkg is hst else {"device": "cpu"}
+        s = pkg.Session(conf=_conf(pkg.keys, systems["torch"], **parallel), **kwargs).enable_hyperspace()
+        with tr.recording() as ev:
+            got[pkg] = s.read_parquet(lake).filter(pkg.col("k") == 7).collect()
+        traces[pkg] = [ln for ln in tr.summarize(ev).splitlines() if ln.startswith(("filter:", "scan:"))]
+    assert _multiset(got[ht]) == _multiset(got[hst]) == _multiset(off)
+    assert traces[ht] == traces[hst] and "filter: device x1" in traces[ht]
+    sess = ht.Session(conf=_conf(ht.keys, systems["torch"], **parallel, **{"hyperspace.parallel.minRows": 0}),
                       device="cpu")
     sess.enable_hyperspace()
     with pytest.raises(NotImplementedError, match="sharded"):
@@ -267,5 +279,9 @@ def test_not_ported_features_raise(systems, lake, tmp_path):
     nested = tmp_path / "nested"
     nested.mkdir()
     pq.write_table(pa.table({"id": [1, 2], "st": pa.array([{"a": 1}, {"a": 2}])}), nested / "p.parquet")
-    with pytest.raises(NotImplementedError, match="nested"):
-        sess.read_parquet(str(nested)).filter(ht.col("st.a") == 1)
+    rows = {}
+    for pkg in (hst, ht):
+        kwargs = {} if pkg is hst else {"device": "cpu"}
+        s = pkg.Session(conf=_conf(pkg.keys, systems["torch"]), **kwargs)
+        rows[pkg] = _multiset(s.read_parquet(str(nested)).filter(pkg.col("st.a") == 1).select("id").collect())
+    assert rows[ht] == rows[hst] and rows[ht]

@@ -7,10 +7,9 @@ the port: its own assertions hold the port's answers, and each
 JAX package's over the same lake and indexes (the same plan text, the same
 rows, the same error for the same bad text).
 
-Left out, each waiting for the item of ROADMAP.md that ports what it needs:
-
-- ``TestSqlUsesIndexes::test_explain_works_on_sql``: ``Hyperspace.explain``
-  (A12b, explain and whyNot).
+No case is left out: ``TestSqlUsesIndexes::test_explain_works_on_sql`` runs
+since the port has ``Hyperspace.explain``, and its string is held against
+the JAX package's too.
 """
 
 import os
@@ -23,9 +22,7 @@ import torch_mirror as M  # noqa: E402
 
 pytestmark = pytest.mark.torch_port
 
-LEFT_OUT = {
-    "TestSqlUsesIndexes::test_explain_works_on_sql": "A12b: Hyperspace.explain",
-}
+LEFT_OUT: dict = {}
 
 _cases = M.load_cases(
     os.path.join(os.path.dirname(__file__), "test_sql.py"),
@@ -50,19 +47,4 @@ def session(tmp_system_path):
 
 def test_every_case_is_run_or_listed():
     """Each case of tests/test_sql.py is collected here or left out by name."""
-    import ast
-
-    with open(_cases.__file__, encoding="utf-8") as f:
-        tree = ast.parse(f.read())
-    names = set()
-    for node in tree.body:
-        if isinstance(node, ast.FunctionDef) and node.name.startswith("test_"):
-            names.add(node.name)
-        elif isinstance(node, ast.ClassDef) and node.name.startswith("Test"):
-            names |= {f"{node.name}::{f.name}" for f in node.body
-                      if isinstance(f, ast.FunctionDef) and f.name.startswith("test_")}
-    here = globals()
-    run = {n for n in names if "::" not in n and n in here}
-    run |= {n for n in names if "::" in n and getattr(here.get(n.split("::")[0]), n.split("::")[1], None)}
-    assert names == run | set(LEFT_OUT), sorted(names - run - set(LEFT_OUT))
-    assert not run & set(LEFT_OUT)
+    M.assert_every_case([_cases], globals(), LEFT_OUT)

@@ -10,11 +10,9 @@ run with the package renamed to the port, under their own assertions, and
 every ``Session.sql``, optimized plan and ``collect()`` is compared with the
 JAX package's over the same lake and indexes.
 
-Left out, each waiting for the item of ROADMAP.md that ports what it needs:
-
-- ``TestWhyNotSeesSubquery::test_applied_inside_subquery_reported`` and
-  ``TestWhyNotSeesSubquery::test_subquery_scan_disqualification_reported``:
-  ``Hyperspace.why_not`` (A12b, explain and whyNot).
+No case is left out: the two ``TestWhyNotSeesSubquery`` cases run since the
+port has ``Hyperspace.why_not``, and each report is held against the JAX
+package's too.
 """
 
 import os
@@ -31,10 +29,7 @@ import torch_mirror as M  # noqa: E402
 pytestmark = pytest.mark.torch_port
 
 HERE = os.path.dirname(__file__)
-LEFT_OUT = {
-    "TestWhyNotSeesSubquery::test_applied_inside_subquery_reported": "A12b: Hyperspace.why_not",
-    "TestWhyNotSeesSubquery::test_subquery_scan_disqualification_reported": "A12b: Hyperspace.why_not",
-}
+LEFT_OUT: dict = {}
 SOURCES = ("test_subquery.py", "test_decorrelate.py", "test_residual_join.py")
 
 _modules = [M.load_cases(os.path.join(HERE, src), f"_torch_{src[:-3]}_cases") for src in SOURCES]
@@ -52,21 +47,7 @@ def session(tmp_system_path):
 def test_every_case_is_run_or_listed():
     """Each case of the three JAX test files is collected here or left out
     by name."""
-    import ast
-
-    here = globals()
-    for mod in _modules:
-        with open(mod.__file__, encoding="utf-8") as f:
-            tree = ast.parse(f.read())
-        for node in tree.body:
-            if isinstance(node, ast.FunctionDef) and node.name.startswith("test_"):
-                assert node.name in here, node.name
-            elif isinstance(node, ast.ClassDef) and node.name.startswith("Test"):
-                for fn in node.body:
-                    if isinstance(fn, ast.FunctionDef) and fn.name.startswith("test_"):
-                        name = f"{node.name}::{fn.name}"
-                        ran = getattr(here.get(node.name), fn.name, None) is not None
-                        assert ran != (name in LEFT_OUT), name
+    M.assert_every_case(_modules, globals(), LEFT_OUT)
 
 
 # --- windows, set operations and unions over keys with NULL, -0.0 and NaN ---

@@ -23,8 +23,9 @@ oracle with None and NaN taken as one missing value.
 
 Left out, each with the ROADMAP item that ports what it needs:
 ``TestShardedTopk`` (A10, the sharded select), ``TestServingBatcherTopk``
-(A9, serving), the two why-not report cases (A12b, ``Hyperspace.why_not``)
-and ``TestCompileFlatness`` (XLA compiles; torch compiles nothing).
+(A9, serving) and ``TestCompileFlatness`` (XLA compiles; torch compiles
+nothing). The two why-not report cases run here: ``Hyperspace.why_not``
+gives the JAX package's report, with its ``Sort elimination:`` section.
 """
 
 import datetime
@@ -243,6 +244,24 @@ def test_descending_order_records_why_not(tmp_path):
     assert reasons == [d for k, d in rev if k == "sort" and d.startswith("merge-why-not")]
     assert reasons and "cannot ride the ascending index order" in reasons[0]
     assert_identical(got, want)
+
+
+@pytest.mark.parametrize("ascending, verdict", [
+    (False, "cannot ride the ascending index order"),
+    (True, "eliminated — streamed merge of sorted index runs"),
+])
+def test_why_not_reports_sort_elimination(tmp_path, ascending, verdict):
+    """tests/test_topk.py::TestSortElimination's two why-not cases
+    (``test_descending_refusal_reason_and_why_not``,
+    ``test_eliminated_sort_reported_in_why_not``): the port's report equals
+    the JAX package's and names the Sort's verdict."""
+    data, port, ref = _indexed(tmp_path)
+    text = {}
+    for pkg, s in ((ht, port), (hst, ref)):
+        q = s.read_parquet(data).filter(pkg.col("k") > 50).select("k", "v").order_by("k", ascending=[ascending])
+        text[pkg] = pkg.Hyperspace(s).why_not(q, "ordIdx")
+    assert text[ht] == text[hst]
+    assert "Sort elimination:" in text[ht] and verdict in text[ht], text[ht]
 
 
 # --------------------------------------------------------------------------

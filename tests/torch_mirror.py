@@ -11,10 +11,13 @@ package serves the other's indexes). While ``mirroring`` is active:
 
 - ``Session.sql`` runs the text through both packages: the same error type
   and message when the port raises, else the same unoptimized plan text;
-- ``DataFrame.optimized_plan`` gives the same text in both packages;
+- ``DataFrame.optimized_plan`` gives the same text in both packages, and
+  so do ``Hyperspace.explain`` and ``Hyperspace.why_not``;
 - ``DataFrame.collect`` gives the same column names and rows in both, in
   the same order; floats at rtol 1e-9; the same error type when the port
-  raises.
+  raises; with ``compare_traces``, the same dispatch trace (less the
+  ``decode:`` lines, which name the JAX package's native decoder, and with
+  the JAX package's native span walk and pair expansion off).
 
 A DataFrame built with the port's API is carried to the JAX package by
 rebuilding its plan, node for node and expression for expression, from the
@@ -41,10 +44,11 @@ FLOAT_RTOL = 1e-9
 
 
 class MirroredSession(ht.Session):
-    def __init__(self, system_path: str, conf=None):
+    def __init__(self, system_path: str, conf=None, compare_traces: bool = False):
         conf = {**(conf or {}), ht.keys.SYSTEM_PATH: system_path}
         super().__init__(conf=conf, device="cpu")
         self.mirror = hst.Session(conf=dict(conf))
+        self.compare_traces = compare_traces
         self._relations = {}  # id(port relation) -> (port relation, JAX relation)
 
     # -- the JAX side ---------------------------------------------------------
@@ -134,6 +138,38 @@ def to_ref(obj, sess: MirroredSession, memo: dict):
     return out
 
 
+def index_scans(q):
+    """The port's ``conftest.index_scans``: IndexScan nodes of the optimized
+    plan."""
+    from hyperspace_tpu_torch.plan import logical as PL
+
+    return [p for p in PL.collect(q.optimized_plan(), lambda x: True) if isinstance(p, PL.IndexScan)]
+
+
+@contextlib.contextmanager
+def _no_native_join():
+    """The JAX package's span walk and pair expansion without its native
+    library, so its join trace names the port's paths."""
+    from hyperspace_tpu import native as ref_native
+
+    def unsupported(*args, **kwargs):
+        raise ref_native.NativeUnsupported("native join kernels off for the comparison")
+
+    saved = ref_native.merge_spans, ref_native.expand_pairs
+    ref_native.merge_spans = ref_native.expand_pairs = unsupported
+    try:
+        yield
+    finally:
+        ref_native.merge_spans, ref_native.expand_pairs = saved
+
+
+def trace_lines(events) -> list:
+    """A dispatch trace's summary lines, less ``decode:`` lines."""
+    from hyperspace_tpu_torch.exec import trace as T
+
+    return [ln for ln in T.summarize(events).splitlines() if not ln.startswith("decode:")]
+
+
 def _rows(batch):
     cols = [np.asarray(batch[k]).tolist() for k in batch]
     return list(zip(*cols)) if cols else []
@@ -179,8 +215,12 @@ def mirroring():
             return orig_collect(self)
         busy.append(1)
         try:
+            from hyperspace_tpu.exec import trace as ref_trace
+            from hyperspace_tpu_torch.exec import trace as port_trace
+
             try:
-                got = orig_collect(self)
+                with port_trace.recording() as got_events:
+                    got = orig_collect(self)
             except Exception as e:
                 with pytest.raises(Exception) as ref_err:
                     sess.ref_frame(self).collect()
@@ -188,16 +228,50 @@ def mirroring():
                 raise
             ref = sess.ref_frame(self)
             assert orig_optimized(self).pretty() == ref.optimized_plan().pretty()
-            same_rows(got, ref.collect(), self.plan.describe())
+            native_off = _no_native_join() if sess.compare_traces else contextlib.nullcontext()
+            with native_off, ref_trace.recording() as ref_events:
+                want = ref.collect()
+            same_rows(got, want, self.plan.describe())
+            sess.last_trace_lines = trace_lines(got_events)
+            if sess.compare_traces:
+                assert trace_lines(got_events) == trace_lines(ref_events), (
+                    self.plan.describe(), trace_lines(got_events), trace_lines(ref_events))
             return got
         finally:
             busy.pop()
 
+    orig_explain, orig_why_not = ht.Hyperspace.explain, ht.Hyperspace.why_not
+
+    def explain(self, df, verbose: bool = False, mode: str = "plaintext") -> str:
+        got = orig_explain(self, df, verbose, mode)
+        sess = self.session
+        if isinstance(sess, MirroredSession):
+            want = hst.Hyperspace(sess.mirror).explain(sess.ref_frame(df), verbose, mode)
+            assert got == want, (got, want)
+        return got
+
+    def why_not(self, df, index_name=None, extended: bool = False) -> str:
+        got = orig_why_not(self, df, index_name, extended)
+        sess = self.session
+        if isinstance(sess, MirroredSession):
+            want = hst.Hyperspace(sess.mirror).why_not(sess.ref_frame(df), index_name, extended)
+            assert got == want, (got, want)
+        return got
+
     PortFrame.collect, PortFrame.optimized_plan = collect, optimized_plan
+    ht.Hyperspace.explain, ht.Hyperspace.why_not = explain, why_not
     try:
         yield
     finally:
         PortFrame.collect, PortFrame.optimized_plan = orig_collect, orig_optimized
+        ht.Hyperspace.explain, ht.Hyperspace.why_not = orig_explain, orig_why_not
+
+
+def mirrored_session(conf=None, **kwargs) -> MirroredSession:
+    """A ``MirroredSession`` built the way the JAX suites build a session:
+    ``Session(conf={SYSTEM_PATH: ..., ...})``."""
+    conf = dict(conf or {})
+    return MirroredSession(conf.pop(ht.keys.SYSTEM_PATH), conf=conf, **kwargs)
 
 
 def load_cases(path: str, name: str, rewrites=None):
@@ -211,6 +285,7 @@ def load_cases(path: str, name: str, rewrites=None):
         text = text.replace(old, new)
     mod = types.ModuleType(name)
     mod.__file__ = path
+    mod.__rewritten__ = text
     sys.modules[name] = mod
     exec(compile(text, path, "exec"), mod.__dict__)
     return mod
@@ -229,3 +304,38 @@ def export_cases(mod, namespace: dict, left_out: dict) -> None:
         elif attr.startswith("Test") and isinstance(obj, type) and attr not in left_out:
             gone = {m.split("::")[1]: None for m in left_out if m.startswith(attr + "::")}
             namespace[attr] = type(attr, (obj,), {"__module__": namespace["__name__"], **gone})
+
+
+def assert_every_case(mods, namespace: dict, left_out: dict) -> None:
+    """Each test function and test method of ``mods`` (modules from
+    ``load_cases``) is collected in ``namespace`` or left out by name, never
+    both."""
+    import ast
+
+    for mod in mods:
+        tree = ast.parse(mod.__rewritten__)
+        for node in tree.body:
+            if isinstance(node, ast.FunctionDef) and node.name.startswith("test_"):
+                assert (node.name in namespace) != (node.name in left_out), node.name
+            elif isinstance(node, ast.ClassDef) and node.name.startswith("Test"):
+                for fn in node.body:
+                    if isinstance(fn, ast.FunctionDef) and fn.name.startswith("test_"):
+                        name = f"{node.name}::{fn.name}"
+                        ran = getattr(namespace.get(node.name), fn.name, None) is not None
+                        assert ran != (name in left_out or node.name in left_out), name
+
+
+def cases_of(mod) -> list:
+    """Every case name of a module from ``load_cases``: ``test_x`` and
+    ``TestX::test_y``."""
+    import ast
+
+    tree = ast.parse(mod.__rewritten__)
+    out = []
+    for node in tree.body:
+        if isinstance(node, ast.FunctionDef) and node.name.startswith("test_"):
+            out.append(node.name)
+        elif isinstance(node, ast.ClassDef) and node.name.startswith("Test"):
+            out += [f"{node.name}::{fn.name}" for fn in node.body
+                    if isinstance(fn, ast.FunctionDef) and fn.name.startswith("test_")]
+    return out
