@@ -9,7 +9,8 @@ execution's 7b, 12b, 15b and 17, the index lifecycle's 7c and 12c, scan
 pruning's 7d and 12d, hybrid scan's 7e and 12e, the other sources' 7f and
 12f, the SQL front end's 7g and 12g, the broadcast hash join's 7h, 11 (J3)
 and 12g, ORDER BY ... LIMIT's 7i and 12h, the reference API surface's 7j,
-explain and whyNot's 7k and 12g, nested columns' 7l and 12i):
+explain and whyNot's 7k and 12g, nested columns' 7l and 12i, whole-stage
+fusion's 7m and 12j):
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: compiles the port's CUDA kernels from ``hyperspace_tpu_torch/csrc``;
@@ -146,6 +147,16 @@ explain and whyNot's 7k and 12g, nested columns' 7l and 12i):
    a struct leaf, bucket pruning, the join on a nested key, full and
    incremental refresh, hybrid scan) in a CPU and a GPU session: the same
    rows in order and trace, equal to hyperspace off; K1 for every build;
+7m. fusion-small: tests/test_fusion.py's q1, q3 and top-k lakes in a CPU
+   and a GPU session with ``hyperspace.exec.fusion.enabled`` on and off
+   and ``...fusion.donation`` on and off: the GPU's fused rows equal the
+   CPU port's and the GPU's fusion-off rows (keys, counts, int sums, min
+   and max exact, float sums at rtol 1e-9; top-k byte for byte), donation
+   on and off byte for byte (deterministic algorithms), each fused program
+   dispatched once a chunk; the q3 chain dispatches at least 3x fewer
+   programs than the per-family device fold over the same chunks; a q1
+   whose first chunk overflows the state's capacity redoes that chunk
+   per-family and folds the rest fused, equal to fusion off;
 8. generate and slice: generates a TPC-H-shaped SF1 ``lineitem`` lake (6M
    rows in 16 files, from ``--seed``, with TPC-H's return flag and line
    status) and builds three indexes through the public API (``Session`` ->
@@ -291,6 +302,16 @@ explain and whyNot's 7k and 12g, nested columns' 7l and 12i):
    twins q6 and J1. Within 12g, ``explain``: ``Hyperspace.explain`` and
    ``why_not`` of all 22 texts over the SF1 lake and roster, each timed and
    equal to a CPU session's;
+12j. fusion: at SF1, fusion on against off (warm medians of a third of
+   ``--reps``, at least 2; cold; dispatches per query; fusion fallbacks;
+   rows equal, floats at rtol 1e-9): FA1 (the streamed A1; its string keys
+   stay per-family), FA1d (A1 grouped by ``l_discount`` at A1's chunks),
+   FA4 (A1's filter and aggregates by ``l_partkey``, 200 000 groups, over
+   the source in 8 chunks), FJ3 (count, sum, avg, min and max over J3's
+   chain, hyperspace off, by ``o_shippriority`` and by ``l_partkey``) and
+   FT1 (T1); then one warm run with each fused program between CUDA events
+   and one with the per-family programs it replaces (FJ3's through the
+   per-family device fold over the same probe chunks), printed per chunk;
 13. profile-query: one warm q6 under ``torch.profiler``: device busy time
    against the query's wall time, and the device time by op;
 14. profile-join: the same for one warm J1;
@@ -317,7 +338,8 @@ lifecycle's (under ``"lifecycle"``), pruning's (``"prune"``), hybrid
 scan's (``"hybrid"``), the Delta table's (``"delta"``), SQL's (``"sql"``,
 with ``bcast-small`` under ``"bcast_small"`` and explain under
 ``"explain"``), the top-k's (``"topk"``) and the nested columns' (``"nested"``,
-with api-small and explain-small) results and times, the line before the last one with an entry per kernel (its launches
+with api-small and explain-small) and fusion's (``"fusion"``, with
+fusion-small) results and times, the line before the last one with an entry per kernel (its launches
 on the build's main path, and per path under ``launches_by_path``); the
 last line
 is ``{"ok": true, "device": {...}}``. Any failed check raises, so
@@ -5028,6 +5050,478 @@ def run_topk(sess, li_src: str, args, smi: str, hbm: float) -> dict:
     return out
 
 
+# --- whole-stage fusion ----------------------------------------------------------------
+
+
+def _fusion_q1_lake(d: str, seed: int, num_files: int = 4, rows: int = 700) -> str:
+    """tests/test_fusion.py's q1 lake (``_write_q1``, copied: the test module
+    imports the JAX package): ``g`` (9 groups), ``qty``, ``price``."""
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    os.makedirs(d, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    for i in range(num_files):
+        n = rows + 37 * i
+        pq.write_table(pa.table({
+            "g": rng.integers(0, 9, n).astype(np.int64),
+            "qty": rng.integers(0, 500, n).astype(np.int64),
+            "price": np.round(rng.uniform(0, 1000, n), 3),
+        }), os.path.join(d, f"p{i}.parquet"))
+    return d
+
+
+def _fusion_q3_lake(d: str, seed: int):
+    """tests/test_fusion.py's q3 lake (``_write_q3``): a probe side of four
+    files and a 120-row build side."""
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    probe, build = os.path.join(d, "probe"), os.path.join(d, "build")
+    os.makedirs(probe, exist_ok=True)
+    os.makedirs(build, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    for i in range(4):
+        pq.write_table(pa.table({
+            "k": rng.integers(0, 80, 900).astype(np.int64),
+            "g": rng.integers(0, 12, 900).astype(np.int64),
+            "v": np.round(rng.standard_normal(900), 4),
+        }), os.path.join(probe, f"p{i}.parquet"))
+    pq.write_table(pa.table({
+        "k2": rng.integers(0, 90, 120).astype(np.int64),
+        "w": np.round(rng.standard_normal(120), 4),
+    }), os.path.join(build, "b.parquet"))
+    return probe, build
+
+
+def _fusion_topk_lake(d: str, seed: int) -> str:
+    """tests/test_fusion.py's top-k lake (``_write_topk``): five files with
+    NaN floats and a string column."""
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    os.makedirs(d, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    for i in range(5):
+        v = np.round(rng.uniform(-100, 100, 600), 3)
+        v[rng.choice(600, 10, replace=False)] = np.nan
+        pq.write_table(pa.table({
+            "k": rng.integers(0, 5000, 600).astype(np.int64),
+            "v": v,
+            "name": np.array([f"n{j % 17:02d}" for j in range(600)], dtype=object),
+        }), os.path.join(d, f"p{i}.parquet"))
+    return d
+
+
+FUSED_FAMILIES = ("fused-stage-agg", "fused-stage-topk", "fused-stage-join-agg")
+
+
+def _fusion_conf(ht, fusion: bool, donation: bool = True, **extra) -> dict:
+    return {ht.keys.DEVICE_MIN_ROWS: 0, ht.keys.STREAM_AGG_MIN_BYTES: 1, ht.keys.STREAM_CHUNK_BYTES: 1,
+            ht.keys.FUSION_ENABLED: fusion, ht.keys.FUSION_DONATION: donation, **extra}
+
+
+def check_fusion_small(tmp: str, seed: int, devices=("cpu", "cuda")) -> dict:
+    """tests/test_fusion.py's q1, q3 and top-k lakes in CPU and GPU
+    sessions with fusion on and off and donation on and off: the GPU's
+    fused rows equal the CPU port's fused rows and the GPU's fusion-off
+    rows (keys, counts, int sums, min and max byte for byte, float sums,
+    averages and deviations at rtol 1e-9; top-k byte for byte); donation on
+    and off give the same bytes (deterministic algorithms: CUDA float sums
+    add in a varying order otherwise); the fused q3 dispatches at least 3x
+    fewer programs than the per-family sequence over the same chunks; a q1
+    whose first chunk overflows the state's capacity redoes that chunk
+    per-family and folds the others fused."""
+    import numpy as np
+    import torch
+
+    import hyperspace_tpu_torch as ht
+    from hyperspace_tpu_torch.exec import aggregate as A
+    from hyperspace_tpu_torch.exec import device as D
+    from hyperspace_tpu_torch.exec import trace
+    from hyperspace_tpu_torch.exec.executor import Executor
+
+    cpu, gpu = devices
+    root = os.path.join(tmp, "fusion_small")
+    q1_dir = _fusion_q1_lake(os.path.join(root, "q1"), seed + 7)
+    probe_dir, build_dir = _fusion_q3_lake(os.path.join(root, "q3"), seed + 3)
+    tk_dir = _fusion_topk_lake(os.path.join(root, "tk"), seed + 13)
+    c = ht.col
+
+    def session(device, fusion, donation=True, **extra):
+        return ht.Session(conf={ht.keys.SYSTEM_PATH: os.path.join(root, "idx"),
+                                **_fusion_conf(ht, fusion, donation, **extra)}, device=device)
+
+    aggs_q3 = dict(n=("*", "count"), s=("v", "sum"), a=("w", "avg"), mn=("v", "min"), mx=("w", "max"))
+    shapes = {
+        "q1": (lambda s: s.read_parquet(q1_dir).filter(c("qty") > 40).group_by("g").agg(
+            n=("*", "count"), sq=("qty", "sum"), sp=("price", "sum"), aq=("qty", "avg"), lo=("price", "min"),
+            hi=("qty", "max"), sd=("price", "stddev_samp")), "fused-stage-agg", "agg: device-grouped-stream x1"),
+        "q3": (lambda s: s.read_parquet(probe_dir).join(s.read_parquet(build_dir), on=c("k") == c("k2"))
+               .filter(c("v") > -0.5).group_by("g").agg(**aggs_q3),
+               "fused-stage-join-agg", "agg: fused-join-agg-stream x1"),
+        "topk": (lambda s: s.read_parquet(tk_dir).order_by("v", "k", ascending=[False, True]).limit(25),
+                 "fused-stage-topk", "topk: device-topk-stream x1"),
+    }
+    out = {}
+    for name, (make, family, line) in shapes.items():
+        runs = {}
+        for device, fusion, donation in ((gpu, True, True), (gpu, True, False), (cpu, True, True), (gpu, False, True)):
+            D.reset_dispatches()
+            q = make(session(device, fusion, donation))
+            torch.use_deterministic_algorithms(device == gpu and fusion)
+            try:
+                got, summary = traced_collect(q)
+            finally:
+                torch.use_deterministic_algorithms(False)
+            runs[(device, fusion, donation)] = got
+            if fusion:
+                assert line in summary.splitlines(), (name, device, summary)
+                assert D.dispatches[family] >= 3, (name, device, dict(D.dispatches))
+            else:
+                assert not any(D.dispatches[f] for f in FUSED_FAMILIES), (name, dict(D.dispatches))
+            if device == gpu and fusion and donation:
+                out[name] = {"rows": len(next(iter(got.values()))), "dispatches": dict(D.dispatches)}
+        got = runs[(gpu, True, True)]
+        floats = set() if name == "topk" else float_aggs_of(make(session(cpu, True)))
+        check = (lambda g, w: same_batch(g, w)) if name == "topk" else (
+            lambda g, w: same_groups(g, w, floats, ordered=True))
+        assert check(got, runs[(cpu, True, True)]), f"fusion-small {name}: the GPU differs from the CPU port"
+        assert check(got, runs[(gpu, False, True)]), f"fusion-small {name}: fusion on differs from off"
+        assert same_batch(got, runs[(gpu, True, False)]), f"fusion-small {name}: donation on and off differ"
+        print(f"fusion-small {name}: {out[name]['rows']} rows; GPU fused == CPU port fused == GPU fusion off; "
+              f"donation on == off byte for byte; dispatches {out[name]['dispatches']}", flush=True)
+
+    # the q3 chain's dispatches against the per-family sequence over the same chunks
+    sess = session(gpu, False)
+    D.reset_dispatches()
+    gs = A.GroupedAggStream(sess, ["g"], [(k, fn, col if col != "*" else None) for k, (col, fn) in aggs_q3.items()],
+                            max_groups=sess.conf.agg_max_groups, cap_floor=sess.conf.agg_capacity_floor)
+    joined = sess.read_parquet(probe_dir).join(sess.read_parquet(build_dir), on=c("k") == c("k2")).filter(
+        c("v") > -0.5)
+    for chunk in Executor(sess).execute_stream(joined.plan):
+        gs.update({k: np.asarray(v) for k, v in chunk.items()}, None)
+    per_family = sum(D.dispatches.values())
+    per_family_programs = dict(D.dispatches)
+    per_family_rows = gs.finalize()
+    D.reset_dispatches()
+    fused_rows = shapes["q3"][0](session(gpu, True)).collect()
+    fused = sum(D.dispatches.values())
+    assert same_groups(fused_rows, per_family_rows, float_aggs_of(shapes["q3"][0](sess)), ordered=True), (
+        "fusion-small q3: the per-family device fold differs")
+    assert per_family >= 3 * fused, (per_family_programs, dict(D.dispatches))
+    out["q3_dispatches"] = {"per_family": per_family_programs, "fused": dict(D.dispatches)}
+    print(f"fusion-small q3 dispatches: per-family {per_family} {per_family_programs}, fused {fused} "
+          f"{dict(D.dispatches)}: {per_family / fused:.2f}x fewer", flush=True)
+
+    # a first chunk above the state's capacity: redone per-family, then fused
+    ov_dir = _fusion_q1_lake(os.path.join(root, "q1_overflow"), seed + 8, rows=1200)
+    fb0 = trace.fallbacks[("fusion", "grouped-overflow")]
+    D.reset_dispatches()
+
+    def q1_over(s):
+        return s.read_parquet(ov_dir).filter(c("qty") > 40).group_by("g").agg(
+            n=("*", "count"), sq=("qty", "sum"), sp=("price", "sum"), lo=("price", "min"))
+
+    got = q1_over(session(gpu, True, True, **{ht.keys.AGG_CAPACITY_FLOOR: 2})).collect()
+    redone = trace.fallbacks[("fusion", "grouped-overflow")] - fb0
+    ov_dispatches = dict(D.dispatches)
+    want = q1_over(session(gpu, False)).collect()
+    assert redone == 1 and ov_dispatches["fused-stage-agg"] >= 4 and ov_dispatches["grouped-agg-chunk"] >= 1, (
+        redone, ov_dispatches)
+    assert same_groups(got, want, {"sp"}, ordered=True), "fusion-small overflow: differs from fusion off"
+    out["overflow"] = {"redone_chunks": redone, "dispatches": ov_dispatches}
+    print(f"fusion-small overflow: capacity floor 2, {redone} chunk redone per-family, dispatches {ov_dispatches}; "
+          f"equal to fusion off", flush=True)
+    return out
+
+
+class FusionTimer:
+    """While installed, every fused program (``stage_ir.compile_stage``'s)
+    and, with ``per_family``, every per-family program the fused ones
+    replace (``grouped_chunk_program``, ``grouped_merge_program``,
+    ``hash_probe_program``, ``_postjoin_program``, ``topk_chunk_fn``,
+    ``topk_merge_fn``) runs between two CUDA events; ``calls`` lists
+    (family, start, end, bytes) in call order, ``bytes`` the tensors it read
+    and wrote. (A cached stage program runs the closure its caller built
+    last, so a timed one does not outlive the timer.)"""
+
+    def __init__(self, per_family: bool):
+        self.per_family = per_family
+
+    @staticmethod
+    def _bytes(obj) -> int:
+        import torch
+
+        if isinstance(obj, torch.Tensor):
+            return obj.numel() * obj.element_size()
+        if isinstance(obj, dict):
+            return sum(FusionTimer._bytes(v) for v in obj.values())
+        if isinstance(obj, (list, tuple)):
+            return sum(FusionTimer._bytes(v) for v in obj)
+        return 0
+
+    def _timed(self, family, fn):
+        import torch
+
+        def run(*args):
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            got = fn(*args)
+            e.record()
+            self.calls.append((family, s, e, self._bytes(args) + self._bytes(got)))
+            return got
+
+        return run
+
+    def __enter__(self):
+        from hyperspace_tpu_torch.exec import aggregate as A
+        from hyperspace_tpu_torch.exec import join_stream as JS
+        from hyperspace_tpu_torch.exec import stage_ir
+        from hyperspace_tpu_torch.ops import sort as S
+
+        self.calls = []
+        self.real = {"compile": (stage_ir, "compile_stage", stage_ir.compile_stage)}
+        real_compile = stage_ir.compile_stage
+
+        def compile_stage(skeleton, fn, *, donate_argnums=()):
+            family = ("fused-stage-agg" if skeleton.startswith("gaggfused") else
+                      "fused-stage-topk" if skeleton.startswith("fuse[T") else "fused-stage-join-agg")
+            return real_compile(skeleton, self._timed(family, fn), donate_argnums=donate_argnums)
+
+        stage_ir.compile_stage = compile_stage
+        if self.per_family:
+            for mod, attr, family in ((A, "grouped_chunk_program", "grouped-agg-chunk"),
+                                      (A, "grouped_merge_program", "grouped-merge"),
+                                      (JS, "_postjoin_program", "fused-postjoin"),
+                                      (S, "topk_chunk_fn", "topk-chunk"), (S, "topk_merge_fn", "topk-merge")):
+                builder = getattr(mod, attr)
+                self.real[attr] = (mod, attr, builder)
+                setattr(mod, attr, (lambda b, f: lambda *a: self._timed(f, b(*a)))(builder, family))
+            self.real["probe"] = (JS, "hash_probe_program", JS.hash_probe_program)
+            JS.hash_probe_program = self._timed("hash-probe", JS.hash_probe_program)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in self.real.values():
+            setattr(mod, attr, fn)
+
+    def chunks(self, first: str) -> list:
+        """The calls as per-chunk lists of (family, ms, bytes), a chunk
+        starting at each call of ``first``."""
+        import torch
+
+        torch.cuda.synchronize()
+        out = []
+        for family, s, e, nbytes in self.calls:
+            if family == first or not out:
+                out.append([])
+            out[-1].append((family, s.elapsed_time(e), nbytes))
+        return out
+
+
+def _fusion_run(sess, q, conf: dict, reps: int):
+    """(rows, trace summary, cold ms, warm layers) of ``q`` under ``conf``;
+    the cold run starts with every query cache empty."""
+    import torch
+
+    for k, v in conf.items():
+        sess.conf.set(k, v)
+    clear_query_caches()
+    t = time.perf_counter()
+    got, summary = traced_collect(q)
+    torch.cuda.synchronize()
+    cold = (time.perf_counter() - t) * 1e3
+    warm = layer_ms(sess, q.collect, reps)
+    return got, summary, cold, warm
+
+
+def run_fusion(sess, li_src: str, o_src: str, a1_streamed, a1_chunk: int, args, smi: str, hbm: float) -> dict:
+    """Fusion on against off at SF1, warm medians, the rows equal: FA1 (the
+    streamed A1 through ``li_q1``, ``a1_chunk`` bytes a chunk), FA4 (A1's
+    filter and aggregates grouped by ``l_partkey``, 200 000 groups, over the
+    source in 8 chunks), FJ3 (count, sum, avg, min and max over J3's chain,
+    ``o_totalprice > 300000`` over the broadcast ``lineitem`` join
+    ``orders``, hyperspace off, grouped by ``o_shippriority`` and by
+    ``l_partkey``) and FT1 (T1 in 8 chunks). Then one warm run of each with
+    every fused program between CUDA events, and one with the per-family
+    programs they replace (FJ3's through the per-family device fold over
+    the same chunks, as tests/test_fusion.py's q3 baseline): per chunk the
+    fused program's time beside the sum of the per-family programs'.
+    A1's group keys are strings, which stay per-family in both packages:
+    FA1 runs no fused program, and FA1d (A1 grouped by ``l_discount``, 11
+    float keys, at A1's chunks) is the fused fold at A1's shape."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    import hyperspace_tpu_torch as ht
+    from hyperspace_tpu_torch.exec import aggregate as A
+    from hyperspace_tpu_torch.exec import device as D
+    from hyperspace_tpu_torch.exec import trace
+    from hyperspace_tpu_torch.exec.executor import Executor
+
+    c = ht.col
+    reps = max(2, args.reps // 3)
+    files = sorted(os.path.join(li_src, f) for f in os.listdir(li_src))
+    src_chunk = 2 * max(os.path.getsize(f) for f in files)
+    li, orders = sess.read_parquet(li_src), sess.read_parquet(o_src)
+    saved = {k: sess.conf.get(k) for k in (ht.keys.STREAM_CHUNK_BYTES, ht.keys.STREAM_AGG_MIN_BYTES,
+                                           ht.keys.DEVICE_MIN_ROWS, ht.keys.FUSION_ENABLED)}
+    sess.conf.set(ht.keys.DEVICE_MIN_ROWS, 0)
+    q1_aggs = dict(sum_qty=("l_quantity", "sum"), sum_base_price=("l_extendedprice", "sum"),
+                   avg_qty=("l_quantity", "avg"), avg_price=("l_extendedprice", "avg"),
+                   avg_disc=("l_discount", "avg"), count_order=("*", "count"),
+                   sd_price=("l_extendedprice", "stddev_samp"))
+    j3_aggs = dict(n=("*", "count"), revenue=("l_extendedprice", "sum"), avg_qty=("l_quantity", "avg"),
+                   min_disc=("l_discount", "min"), max_total=("o_totalprice", "max"))
+    j3 = li.join(orders, c("l_orderkey") == c("o_orderkey")).filter(c("o_totalprice") > 300000.0)
+    fa4 = li.filter(c("l_shipdate") <= np.datetime64("1998-09-02")).group_by("l_partkey").agg(**q1_aggs)
+    fa1d = li.filter(c("l_shipdate") <= np.datetime64("1998-09-02")).group_by("l_discount").agg(**q1_aggs)
+    queries = {
+        # name: (DataFrame, hyperspace on, chunk bytes, the fused family, per-family families, trace line);
+        # A1's string group keys stay per-family in both packages: FA1 runs
+        # no fused program, FA1d (A1 grouped by its 11 discounts, a float
+        # key) takes fused-stage-agg at A1's chunks
+        "FA1": (a1_streamed, True, a1_chunk, None, ("grouped-agg-chunk", "grouped-merge"),
+                "agg: device-grouped-stream x1"),
+        "FA1d": (fa1d, True, a1_chunk, "fused-stage-agg", ("grouped-agg-chunk", "grouped-merge"),
+                 "agg: device-grouped-stream x1"),
+        "FA4": (fa4, True, src_chunk, "fused-stage-agg", ("grouped-agg-chunk", "grouped-merge"),
+                "agg: device-grouped-stream x1"),
+        "FJ3-shippriority": (j3.group_by("o_shippriority").agg(**j3_aggs), False, src_chunk,
+                             "fused-stage-join-agg",
+                             ("hash-probe", "fused-postjoin", "grouped-agg-chunk", "grouped-merge"),
+                             "agg: fused-join-agg-stream x1"),
+        "FJ3-partkey": (j3.group_by("l_partkey").agg(**j3_aggs), False, src_chunk, "fused-stage-join-agg",
+                        ("hash-probe", "fused-postjoin", "grouped-agg-chunk", "grouped-merge"),
+                        "agg: fused-join-agg-stream x1"),
+        "FT1": (li.order_by("l_extendedprice", ascending=[False]).limit(100), True, src_chunk,
+                "fused-stage-topk", ("topk-chunk", "topk-merge"), "topk: device-topk-stream x1"),
+    }
+    out = {}
+    try:
+        for name, (q, hs_on, chunk, family, per_family, line) in queries.items():
+            sess.conf.set(ht.keys.STREAM_CHUNK_BYTES, chunk)
+            sess.conf.set(ht.keys.STREAM_AGG_MIN_BYTES, 1)
+            entry = {"chunk_bytes": chunk}
+            with sess.hyperspace_scope(hs_on):
+                results = {}
+                for fusion in (False, True):
+                    D.reset_dispatches()
+                    fb0 = sum(v for (op, _), v in trace.fallbacks.items() if op == "fusion")
+                    got, summary, cold, warm = _fusion_run(sess, q, {ht.keys.FUSION_ENABLED: fusion}, reps)
+                    runs = 1 + reps
+                    dispatches = {k: v / runs for k, v in D.dispatches.items()}
+                    fallbacks = sum(v for (op, _), v in trace.fallbacks.items() if op == "fusion") - fb0
+                    lines = summary.splitlines()
+                    if fusion or family != "fused-stage-join-agg":  # off, the join aggregate is the host one
+                        assert line in lines, (name, summary)
+                    if fusion and family is not None:
+                        assert dispatches.get(family, 0) > 0, (name, dispatches)
+                    else:
+                        assert not any(dispatches.get(f, 0) for f in FUSED_FAMILIES), (name, dispatches)
+                    assert "agg: stream-fallback x1" not in lines and "topk: stream-fallback x1" not in lines, summary
+                    results[fusion] = got
+                    entry["on" if fusion else "off"] = {
+                        "cold_ms": cold, "warm_ms": warm["total"], "layers_ms": warm,
+                        "dispatches_per_query": dispatches, "fusion_fallbacks": fallbacks,
+                        "trace": [ln for ln in lines if ln.startswith(("agg:", "join:", "topk:"))]}
+                if name == "FT1":
+                    assert same_batch(results[True], results[False]), f"{name}: fusion on differs from off"
+                else:
+                    assert same_groups(results[True], results[False], float_aggs_of(q), ordered=True), (
+                        f"{name}: fusion on differs from off")
+                rows = len(next(iter(results[True].values())))
+                entry["rows"] = rows
+                fused_rows = results[True]
+                del results
+                # one warm run of each path with its programs between CUDA events
+                fused_chunks = []
+                if family is not None:
+                    sess.conf.set(ht.keys.FUSION_ENABLED, True)
+                    q.collect()  # settle the capacity hint
+                    with FusionTimer(per_family=False) as fused_t:
+                        q.collect()
+                    fused_chunks = fused_t.chunks(family)
+                sess.conf.set(ht.keys.FUSION_ENABLED, False)
+                sess.query_stage_seconds.clear()
+                with FusionTimer(per_family=True) as pf_t:
+                    if family == "fused-stage-join-agg":
+                        # the per-family device fold over the same probe chunks
+                        (agg,) = [p for p in _plan_nodes(q.plan) if type(p).__name__ == "Aggregate"]
+                        inputs = list(dict.fromkeys(list(agg.keys) + [col for _, _, col in agg.aggs if col]))
+                        gs = A.GroupedAggStream(sess, list(agg.keys), list(agg.aggs),
+                                                max_groups=sess.conf.agg_max_groups,
+                                                cap_floor=sess.conf.agg_capacity_floor)
+                        t = time.perf_counter()
+                        for ch in Executor(sess).execute_stream(j3.select(*inputs).plan):
+                            gs.update({k: np.asarray(v) for k, v in ch.items()}, None)
+                        pf_rows = gs.finalize()
+                        torch.cuda.synchronize()
+                        entry["per_family_fold_ms"] = (time.perf_counter() - t) * 1e3
+                        assert same_groups(pf_rows, fused_rows, float_aggs_of(q), ordered=True), (
+                            f"{name}: the per-family device fold differs from the fused one")
+                        entry["per_family_verify_ms"] = sess.query_stage_seconds.get("join_verify", 0.0) * 1e3
+                    else:
+                        q.collect()
+                pf_chunks = pf_t.chunks(per_family[0])
+            fused_ms = [sum(ms for f, ms, _ in ch if f == family) for ch in fused_chunks]
+            fused_bytes = [sum(b for f, _, b in ch if f == family) for ch in fused_chunks]
+            pf_ms = [sum(ms for f, ms, _ in ch if f in per_family) for ch in pf_chunks]
+            pf_by_family = {f: sum(ms for ch in pf_chunks for g, ms, _ in ch if g == f) for f in per_family}
+            entry["fused"] = {"family": family, "chunks": len(fused_chunks), "ms_per_chunk": fused_ms,
+                              "bytes_per_chunk": fused_bytes, "ms": sum(fused_ms),
+                              "bound_ms": sum(b / hbm * 1e3 for b in fused_bytes)}
+            entry["fused"]["share_of_bound"] = (entry["fused"]["bound_ms"] / entry["fused"]["ms"]
+                                                if fused_ms else None)
+            entry["per_family"] = {"families": list(per_family), "chunks": len(pf_chunks), "ms_per_chunk": pf_ms,
+                                   "ms": sum(pf_ms), "ms_by_family": pf_by_family}
+            if family != "fused-stage-join-agg" and family != "fused-stage-topk":
+                chunk_calls = [(ms, b) for ch in pf_chunks for f, ms, b in ch if f == "grouped-agg-chunk"]
+                entry["grouped_agg_chunk"] = {"calls": len(chunk_calls), "ms": statistics.median(m for m, _ in chunk_calls),
+                                              "bytes": statistics.median(b for _, b in chunk_calls)}
+                entry["grouped_agg_chunk"]["bound_ms"] = entry["grouped_agg_chunk"]["bytes"] / hbm * 1e3
+            out[name] = entry
+            on, off = entry["on"], entry["off"]
+            print(f"fusion {name}: {rows} rows, fusion on == off; warm on {on['warm_ms']:.3f} ms, off "
+                  f"{off['warm_ms']:.3f} ms, cold on {on['cold_ms']:.3f} / off {off['cold_ms']:.3f} ms (median of "
+                  f"{reps}); dispatches per query on {on['dispatches_per_query']}, off {off['dispatches_per_query']}; "
+                  f"fusion fallbacks {on['fusion_fallbacks']} ({smi})", flush=True)
+            # the top-k's first chunk has no state to merge into: it runs
+            # topk-chunk alone, fused or not
+            skip = len(pf_chunks) - len(fused_chunks)
+            for i, ms in enumerate(fused_ms):
+                seq = pf_chunks[i + skip] if 0 <= i + skip < len(pf_chunks) else []
+                print(f"fusion {name} chunk {i + max(skip, 0)}: {family} x1 {ms:.3f} ms ({fused_bytes[i]} bytes); "
+                      f"per-family " + " + ".join(f"{f} {m:.3f}" for f, m, _ in seq)
+                      + f" = {sum(m for _, m, _ in seq):.3f} ms ({smi})", flush=True)
+            fused_text = (f"{family} {entry['fused']['ms']:.3f} ms over {len(fused_chunks)} chunks (bound "
+                          f"{entry['fused']['bound_ms']:.3f} ms, {100 * entry['fused']['share_of_bound']:.2f}%)"
+                          if fused_ms else "no fused program (string group keys stay per-family)")
+            print(f"fusion {name} programs: {fused_text}, per-family {entry['per_family']['ms']:.3f} ms over "
+                  f"{len(pf_chunks)} chunks {pf_by_family}"
+                  + (f", host verify {entry['per_family_verify_ms']:.3f} ms, per-family device fold "
+                     f"{entry['per_family_fold_ms']:.3f} ms" if "per_family_verify_ms" in entry else "")
+                  + (f"; grouped-agg-chunk median {entry['grouped_agg_chunk']['ms']:.3f} ms, bound "
+                     f"{entry['grouped_agg_chunk']['bound_ms']:.4f} ms" if "grouped_agg_chunk" in entry else "")
+                  + f" ({smi})", flush=True)
+    finally:
+        for k, v in saved.items():
+            sess.conf.set(k, v)
+    return out
+
+
+def _plan_nodes(plan):
+    from hyperspace_tpu_torch.plan import logical as L
+
+    return L.collect(plan, lambda p: True)
+
+
 # --- the reference API surface, nested columns, explain and whyNot ---------------
 
 
@@ -5759,6 +6253,10 @@ def main() -> None:
         phase("nested-small", t)
 
         t = time.perf_counter()
+        fusion_small = check_fusion_small(tmp, args.seed)
+        phase("fusion-small", t)
+
+        t = time.perf_counter()
         src = gen_lineitem(tmp, args.rows, args.files, args.seed)
         print(f"lake: {args.rows} lineitem rows in {args.files} files", flush=True)
         phase("generate", t)
@@ -5880,6 +6378,11 @@ def main() -> None:
         queries["nested"]["api_small"] = api_small
         queries["nested"]["explain_small"] = explain_small
         phase("nested", t)
+
+        t = time.perf_counter()
+        queries["fusion"] = run_fusion(sess, src, o_src, a1_streamed, chunk, args, smi, hbm)
+        queries["fusion"]["small"] = fusion_small
+        phase("fusion", t)
         for name in results:
             results[name]["launches_by_path"] = {
                 "build": results[name]["launches"],

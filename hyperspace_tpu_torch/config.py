@@ -41,6 +41,7 @@ class keys:
     AGG_MAX_GROUPS = "hyperspace.exec.agg.maxGroups"
     AGG_CAPACITY_FLOOR = "hyperspace.exec.agg.capacityFloor"
     FUSION_ENABLED = "hyperspace.exec.fusion.enabled"
+    FUSION_DONATION = "hyperspace.exec.fusion.donation"
     JOIN_BROADCAST_MAX_BYTES = "hyperspace.exec.join.broadcastMaxBytes"
     EXEC_TOPK_ENABLED = "hyperspace.exec.topk.enabled"
     EXEC_TOPK_MAX_K = "hyperspace.exec.topk.maxK"
@@ -85,6 +86,7 @@ class keys:
     EXEC_AGG_MAX_GROUPS = AGG_MAX_GROUPS
     EXEC_AGG_CAPACITY_FLOOR = AGG_CAPACITY_FLOOR
     EXEC_FUSION_ENABLED = FUSION_ENABLED
+    EXEC_FUSION_DONATION = FUSION_DONATION
 
 
 DEFAULTS: Dict[str, Any] = {
@@ -180,14 +182,18 @@ DEFAULTS: Dict[str, Any] = {
     keys.AGG_MAX_GROUPS: 1 << 20,
     # the smallest group capacity; capacities grow by powers of sqrt(2)
     keys.AGG_CAPACITY_FLOOR: 256,
-    # whole-stage fusion is not in the port yet: an aggregate or a top-k
-    # fold that would take it raises
+    # whole-stage fusion (exec/stage_ir.py): a streamed chunk's grouped
+    # aggregate, top-k or broadcast join-aggregate folds into the running
+    # state with ONE program; results are byte-identical either way
     keys.FUSION_ENABLED: False,
+    # with fusion on, the fold state is updated in place (the JAX package
+    # donates it); only consulted when fusion is on
+    keys.FUSION_DONATION: True,
     # a join side whose leaf files hold at most this many bytes is built
     # into one sorted hash table on the device and the other side streams
     # through it (exec/join_stream.py); 0 sends such joins to the generic
-    # merge. The fused join aggregate, which is not in the port, takes the
-    # same decision
+    # merge. The fused join aggregate (exec/stage_ir.py) takes the same
+    # decision
     keys.JOIN_BROADCAST_MAX_BYTES: 64 * 1024 * 1024,
     # ORDER BY ... LIMIT k over a multi-chunk scan folds a candidate buffer
     # on the device (exec/topk.py) instead of a host sort of every row;
@@ -414,6 +420,10 @@ class HyperspaceConf:
     @property
     def fusion_enabled(self) -> bool:
         return bool(self.get(keys.FUSION_ENABLED))
+
+    @property
+    def fusion_donation(self) -> bool:
+        return bool(self.get(keys.FUSION_DONATION))
 
     @property
     def join_broadcast_max_bytes(self) -> int:

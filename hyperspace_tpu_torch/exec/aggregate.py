@@ -22,6 +22,11 @@ device column cache the filter fills (exec/device.py):
   ``grouped_merge_program``      device.py:1316-1331 ``grouped-merge``: fold
                                  a chunk's table into the running one
   ``_dev_pad``                   device.py:1334-1341
+  ``fused_grouped_update_program`` device.py:1344-1377 ``fused-stage-agg``:
+                                 the chunk program and the merge into the
+                                 running table in one program
+                                 (``hyperspace.exec.fusion.enabled``)
+  ``_fused_state_dtypes``        device.py:1380-1394
   ``GroupedAggStream``           device.py:1397-1921 capacity re-runs,
                                  ``maxGroups``, string-key remap, the
                                  chunk merge, finalize, the spill's
@@ -67,6 +72,7 @@ import numpy as np
 import torch
 
 from hyperspace_tpu_torch.exec import batch as B
+from hyperspace_tpu_torch.exec import stage_ir, trace
 from hyperspace_tpu_torch.exec.device import (
     ColumnCodec,
     DeviceUnsupported,
@@ -77,6 +83,7 @@ from hyperspace_tpu_torch.exec.device import (
     _put_encoded,
     compile_predicate,
     dispatches,
+    predicate_skeleton,
     upload_literals,
 )
 from hyperspace_tpu_torch.plan.expr import Expr
@@ -477,12 +484,16 @@ def _merge_concat_parts(key_specs, slot_specs, cap_out: int, kcat, slots_cat, fs
     Contract (the JAX package's): the parts are concatenated in ascending
     order of their rows' global range, so a group's smallest concat
     position is a row of the part where it first appeared, and the key
-    gathered from it is the one a single pass would have kept."""
+    gathered from it is the one a single pass would have kept. Above
+    ``cap_out`` groups only the count is returned (the fused fold's
+    overflow check)."""
     device = fs_cat.device
     m = fs_cat.shape[0]
     codes = [_key_code(k, tag) for k, (_, tag) in zip(kcat, key_specs)]
     order, seg, starts = _segment_ids(codes, torch.ones(m, dtype=torch.bool, device=device))
     n_groups = starts.numel()
+    if n_groups > cap_out:
+        return n_groups, None, None, None
     rep = order[starts]  # the stable sorts put each group's first concat row first
     key_out = []
     for k in kcat:
@@ -533,6 +544,69 @@ def _dev_pad(arr: torch.Tensor, target: int, fill) -> torch.Tensor:
     return torch.cat([arr, arr.new_full((target - n,), fill)])
 
 
+def _fused_state_dtypes(key_specs, slot_specs):
+    """(dtype per group key, dtype per state slot) of the fused fold state:
+    exactly those of the chunk and merge programs' outputs, so the merged
+    table copies into the state without a cast."""
+    key_dts = tuple(torch.float64 if tag == "f" else torch.int64 for _, tag in key_specs)
+    slot_dts = tuple(
+        torch.int64 if (kind in ("cntm", "cnt") or (isint and kind in ("sum", "min", "max"))) else torch.float64
+        for kind, _, isint in slot_specs
+    )
+    return key_dts, slot_dts
+
+
+def fold_into_state(key_specs, slot_specs, cap: int, donate: bool,
+                    state_keys, state_slots, state_fs, state_n: int, key_b, slot_b, fs_b, n_b: int):
+    """Merge a chunk's per-group table (its first ``n_b`` rows) into the
+    running ``cap``-row state (its first ``state_n`` rows), state first:
+    ``_merge_concat_parts``'s first-seen contract, the ``grouped-merge``
+    body. Returns ``(n_merged, fs, keys, slots)``. The merged count is read
+    before any write: above ``cap`` groups the state comes back as it was.
+    With ``donate`` the merged table is written into the state tensors
+    (``copy_``; their storage stays), else the state is the merged table's
+    fresh tensors."""
+    kcat = tuple(torch.cat([a[:state_n], b[:n_b]]) for a, b in zip(state_keys, key_b))
+    scat = tuple(torch.cat([a[:state_n], b[:n_b]]) for a, b in zip(state_slots, slot_b))
+    fs_cat = torch.cat([state_fs[:state_n], fs_b[:n_b]])
+    n_m, fs_m, key_m, slot_m = _merge_concat_parts(key_specs, slot_specs, cap, kcat, scat, fs_cat)
+    if n_m > cap:
+        return n_m, state_fs, tuple(state_keys), tuple(state_slots)
+    if not donate:
+        return n_m, fs_m, key_m, slot_m
+    for dst, src in zip((state_fs, *state_keys, *state_slots), (fs_m, *key_m, *slot_m)):
+        dst.copy_(src)
+    return n_m, state_fs, tuple(state_keys), tuple(state_slots)
+
+
+def fused_grouped_update_program(pred_fn, key_specs, slot_specs, cap: int, donate: bool):
+    """The ``fused-stage-agg`` program (``hyperspace.exec.fusion.enabled``):
+    the chunk's filter, group and segment reduction (``grouped_chunk_program``)
+    AND the merge into the running partial (``fold_into_state``) as one
+    program, so a streamed chunk costs one dispatch and, with ``donate``,
+    the state keeps its storage.
+
+    ``program(state_keys, state_slots, state_fs, state_n, cols, lits, n,
+    row_base)`` returns ``(n_b, n_m, n_out, fs, keys, slots)``. Overflow
+    contract: above ``cap`` groups in the chunk (``n_b``; then ``n_m`` is
+    reported as ``n_b``, a lower bound) or in the merge (``n_m``) the state
+    is not written, ``n_out`` is ``state_n``, and the caller redoes the
+    chunk per-family."""
+    chunk = grouped_chunk_program(pred_fn, key_specs, slot_specs, cap)
+
+    def program(state_keys, state_slots, state_fs, state_n: int, cols, lits, n: int, row_base: int):
+        n_b, fs_b, key_b, slot_b = chunk(cols, lits, n, row_base)
+        if n_b > cap:
+            return n_b, n_b, state_n, state_fs, tuple(state_keys), tuple(state_slots)
+        n_m, fs_out, keys_out, slots_out = fold_into_state(
+            key_specs, slot_specs, cap, donate, state_keys, state_slots, state_fs, state_n,
+            key_b, slot_b, fs_b, n_b,
+        )
+        return n_b, n_m, (n_m if n_m <= cap else state_n), fs_out, keys_out, slots_out
+
+    return program
+
+
 def _np(x) -> np.ndarray:
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
@@ -554,8 +628,12 @@ class GroupedAggStream:
     dictionary on the host, between the chunk and the merge — O(groups)
     host traffic, never O(rows).
 
-    The JAX package also folds whole stages (fusion, donated state); that
-    raises here: it is not yet in the port.
+    Under ``hyperspace.exec.fusion.enabled`` a chunk with no string group
+    key folds with ONE program instead (``fused-stage-agg``,
+    ``_update_fused``), its state updated in place with
+    ``hyperspace.exec.fusion.donation``; a capacity overflow redoes the
+    chunk per-family, counted in ``trace.fallbacks[("fusion",
+    "grouped-overflow")]``.
 
     Raises DeviceUnsupported whenever the shape, a dtype, or the observed
     group cardinality (> ``max_groups``) leaves the device language; callers
@@ -647,10 +725,6 @@ class GroupedAggStream:
         keys_schema, _ = self._schema
         if condition is not None:
             _pack_literals(compile_predicate(condition, _dry_codecs(batch, refs))[1])
-        if self.session.conf.fusion_enabled and not any(tag == "s" for tag, _, _ in keys_schema):
-            raise NotImplementedError(
-                "the whole-stage fused grouped aggregate (hyperspace.exec.fusion.enabled) is not yet in the port"
-            )
 
         dev_cols, codecs = _device_columns(
             self.session, batch, sorted(set(refs) | set(agg_inputs) | set(self.group_keys)), scan_key, n
@@ -668,6 +742,21 @@ class GroupedAggStream:
         key_specs = tuple(
             (name, "f" if tag == "f" else "i") for name, (tag, _, _) in zip(self.group_keys, keys_schema)
         )
+        if stage_ir.fusion_wanted(self.session.conf) and not any(tag == "s" for tag, _, _ in keys_schema):
+            # whole-stage fold: the chunk program and the merge in ONE
+            # dispatch. String group keys stay per-family: their chunk ->
+            # global dictionary remap is a host step between the two
+            skeleton = (
+                f"{predicate_skeleton(condition, codecs) if condition is not None else '<none>'}"
+                f"|k:{','.join(f'{n_}:{t_}' for n_, t_ in key_specs)}"
+                f"|s:{','.join(f'{k_}:{c_}:{int(i_)}' for k_, c_, i_ in self._slots)}"
+            )
+            folded = self._update_fused(dev_cols, lits, pred_fn, key_specs, skeleton, n)
+            _add(self.session, "agg_program", t)
+            if folded:
+                return
+            trace.fallback("fusion", "grouped-overflow")
+            t = time.perf_counter()
         cap = group_capacity(max(self._cap_hint, 1), self.cap_floor)
         while True:
             program = grouped_chunk_program(pred_fn, key_specs, self._slots, cap)
@@ -695,6 +784,59 @@ class GroupedAggStream:
             self._partial = new
         else:
             self._merge(new)
+
+    def _ensure_fused_state(self, key_specs, cap: int):
+        """The running partial as (keys, slots, fs, n) tensors of ``cap``
+        rows: zero-filled when the stream is fresh (``state_n == 0`` leaves
+        them out of the merge), padded to new storage when ``cap`` grew
+        (the one reallocation of an in-place state)."""
+        p = self._partial
+        if p is None:
+            device = self.session.device
+            key_dts, slot_dts = _fused_state_dtypes(key_specs, self._slots)
+            keys = tuple(torch.zeros(cap, dtype=dt, device=device) for dt in key_dts)
+            slots = tuple(torch.zeros(cap, dtype=dt, device=device) for dt in slot_dts)
+            fs = torch.full((cap,), _FS_SENTINEL, dtype=torch.int64, device=device)
+            return keys, slots, fs, 0
+        if p["cap"] < cap:
+            p["fs"] = _dev_pad(p["fs"], cap, _FS_SENTINEL)
+            p["keys"] = [_dev_pad(k, cap, float("nan") if k.is_floating_point() else 0) for k in p["keys"]]
+            p["slots"] = [_dev_pad(v, cap, 0) for v in p["slots"]]
+            p["cap"] = cap
+        return tuple(p["keys"]), tuple(p["slots"]), p["fs"], int(p["n"])
+
+    def _update_fused(self, dev_cols, lits, pred_fn, key_specs, base_sk: str, n: int) -> bool:
+        """One-dispatch fold of this chunk (``fused-stage-agg``). Returns
+        False on a capacity overflow: the state is as it was, and the caller
+        redoes the chunk per-family."""
+        cap = group_capacity(max(self._cap_hint, 1), self.cap_floor)
+        if self._partial is not None:
+            cap = max(cap, self._partial["cap"])
+        state_keys, state_slots, state_fs, state_n = self._ensure_fused_state(key_specs, cap)
+        donate = stage_ir.donation_wanted(self.session.conf)
+        program = stage_ir.compile_stage(
+            f"gaggfused[{cap}{'+d' if donate else ''}]:{base_sk}",
+            fused_grouped_update_program(pred_fn, key_specs, self._slots, cap, donate),
+            donate_argnums=(0, 1, 2) if donate else (),
+        )
+        n_b, n_m, n_out, fs_out, keys_out, slots_out = program(
+            state_keys, state_slots, state_fs, state_n, dev_cols, lits, n, self._row_base
+        )
+        stage_ir.count_dispatch("fused-stage-agg")
+        self._partial = {"cap": cap, "n": n_out, "fs": fs_out, "keys": list(keys_out), "slots": list(slots_out)}
+        stage_ir.note_peak_bytes([fs_out, *keys_out, *slots_out])
+        if n_b > cap or n_m > cap:
+            self._cap_hint = max(self._cap_hint, n_b, n_m)
+            if state_n == 0:
+                self._partial = None  # nothing folded yet; the redo starts fresh
+            return False
+        self._row_base += n
+        self._cap_hint = max(self._cap_hint, n_m)
+        if n_m > self.max_groups:
+            exc = GroupCapacityExceeded(f"group cardinality {n_m} exceeds maxGroups {self.max_groups}")
+            exc.folded = True  # the chunk IS in the stored partial
+            raise exc
+        return True
 
     def _remap_string_key(self, name, dev_codes, codec: ColumnCodec, n_g: int, cap: int) -> np.ndarray:
         """Dictionary codes -> stream-global int64 codes (a host remap of

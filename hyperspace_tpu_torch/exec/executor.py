@@ -1300,8 +1300,10 @@ class Executor:
     def _exec_aggregate(self, plan: L.Aggregate, with_file_names: bool) -> B.Batch:
         """The JAX package's tiers, in its order: the fused aggregate over a
         compatible bucketed inner join (host spans, no pair expansion), the
-        streamed aggregate over a large scan chain, the device aggregate
-        over a (filtered) index scan, the host pandas aggregate."""
+        whole-stage fused aggregate over a broadcast join (under
+        ``hyperspace.exec.fusion.enabled``), the streamed aggregate over a
+        large scan chain, the device aggregate over a (filtered) index scan,
+        the host pandas aggregate."""
         conf = self.session.conf
         child = None
         if not with_file_names and conf.device_execution_enabled:
@@ -1327,7 +1329,9 @@ class Executor:
         # the streamed tier comes before the device-scan gate, which would
         # materialize the whole scan: the out-of-core path exists to avoid it
         if not with_file_names:
-            self._check_fused_join_aggregate(plan)
+            got = self._try_fused_join_aggregate(plan)
+            if got is not None:
+                return got
             got = self._try_streaming_aggregate(plan)
             if got is not None:
                 trace.record("agg", "streamed-partial")
@@ -1417,8 +1421,8 @@ class Executor:
         byte-identical to host-sort-then-slice. Returns None (the caller
         materializes) when the shape or configuration does not stream, and
         when the streamed path fails (``topk: stream-fallback``). The
-        sharded and fused folds are not in the port: where the JAX package
-        would take them, this raises."""
+        sharded fold is not in the port: where the JAX package would take
+        it, this raises."""
         conf = self.session.conf
         if not (conf.topk_enabled and conf.device_execution_enabled):
             return None
@@ -1603,29 +1607,46 @@ class Executor:
         )
         return {c: np.asarray(v)[out_idx] for c, v in total.items()}
 
-    def _check_fused_join_aggregate(self, plan: L.Aggregate) -> None:
-        """The JAX package compiles a grouped aggregate over (a Filter over)
-        an inner join into one fused stage program per chunk when
-        ``hyperspace.exec.fusion.enabled`` is set and ``broadcast_spec``
-        finds a side to broadcast; otherwise it falls through to the
-        streamed, device and host tiers. The fused program is not in the
-        port, so only a query the JAX package would fuse raises."""
+    def _try_fused_join_aggregate(self, plan: L.Aggregate) -> Optional[B.Batch]:
+        """A grouped aggregate over (a Filter over) an inner broadcast Join
+        runs as ONE fused program per probe chunk
+        (exec/stage_ir.stream_join_aggregate) instead of the per-family
+        probe, verify, post-join, fold and merge sequence. Returns None (the
+        caller goes on to the streamed, device and host tiers) unless
+        ``hyperspace.exec.fusion.enabled`` is set and the shape fuses; a
+        shape that does not is counted in ``trace.fallbacks[("fusion",
+        "join-agg-unsupported")]``. As on the streamed aggregate, a host-side
+        shape or dtype error gives ``agg: stream-fallback``; an error of the
+        device itself propagates."""
         conf = self.session.conf
-        if not (conf.fusion_enabled and conf.device_execution_enabled and conf.agg_device_grouped_enabled):
-            return
-        if not plan.keys or any(fn not in _STREAMABLE_AGGS or fn.endswith("_distinct") for _, fn, _ in plan.aggs):
-            return
+        from hyperspace_tpu_torch.exec import stage_ir
+
+        if not (conf.device_execution_enabled and conf.agg_device_grouped_enabled and stage_ir.fusion_wanted(conf)):
+            return None
+        if not plan.keys:
+            return None
+        if any(fn not in _STREAMABLE_AGGS or fn.endswith("_distinct") for _, fn, _ in plan.aggs):
+            return None
         node = plan.child
+        post_filter = None
         if isinstance(node, L.Filter) and isinstance(node.child, L.Join):
-            node = node.child
+            post_filter, node = node.condition, node.child
         if not isinstance(node, L.Join):
-            return
+            return None
+        from hyperspace_tpu_torch.exec.device import DeviceUnsupported
         from hyperspace_tpu_torch.exec.join_stream import broadcast_spec
 
-        if broadcast_spec(self.session, node) is not None:
-            raise NotImplementedError(
-                "the fused join aggregate (hyperspace.exec.fusion.enabled) is not yet in the port"
-            )
+        spec = broadcast_spec(self.session, node)
+        if spec is None:
+            return None
+        try:
+            return stage_ir.stream_join_aggregate(self, node, spec, post_filter, list(plan.keys), list(plan.aggs))
+        except DeviceUnsupported:
+            trace.fallback("fusion", "join-agg-unsupported")
+            return None
+        except (KeyError, TypeError, ValueError):
+            trace.record("agg", "stream-fallback")
+            return None
 
     def _try_streaming_aggregate(self, plan: L.Aggregate) -> Optional[B.Batch]:
         """Out-of-core aggregate: when the child is a scan chain over more

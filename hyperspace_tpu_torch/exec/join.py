@@ -686,11 +686,15 @@ def stream_bucketed_join(session, plan: L.Join, _compat=None):
             yield chunk
 
 
-def _bucketed_join_setup(session, plan: L.Join, compat, needed_override=None):
+def _bucketed_join_setup(session, plan: L.Join, compat=None, needed_override=None):
     """Validation and the per-bucket decode of both sides. Returns
     (lbuckets, rbuckets, lkeys, rkeys, nb, lcols_needed, rcols_needed).
     ``needed_override`` = (left cols, right cols) replaces the columns the
     join emits (the fused aggregate reads only its inputs)."""
+    if compat is None:
+        compat = join_sides_compatible(plan)
+    if compat is None:
+        raise DeviceUnsupported("join sides are not compatible bucketed index scans")
     lside, rside, lkeys, rkeys = compat
     if plan.how not in ("inner", "left", "right", "outer"):
         raise DeviceUnsupported(f"unsupported join type {plan.how!r}")
@@ -943,10 +947,14 @@ def _make_host_span_of(session, setup, compat):
     return span_of
 
 
-def host_bucketed_join(session, plan: L.Join, compat, setup) -> B.Batch:
+def host_bucketed_join(session, plan: L.Join, compat=None, setup=None) -> B.Batch:
     """The bucketed join with spans computed on the host (``np.searchsorted``
     over each bucket's sorted keys): below the device-dispatch row threshold
-    and above the span byte budget."""
+    and above the span byte budget. Called alone (no ``compat`` or
+    ``setup``), it analyses and decodes the sides itself."""
+    if setup is None:
+        compat = compat if compat is not None else join_sides_compatible(plan)
+        setup = _bucketed_join_setup(session, plan, compat)
     lbuckets, rbuckets, lkeys, rkeys, nb, lcols_needed, rcols_needed = setup
     span_of = _make_host_span_of(session, setup, compat)
     t = time.perf_counter()
@@ -1015,14 +1023,19 @@ def _upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
 
 
-def device_bucketed_join(session, plan: L.Join, compat, setup) -> B.Batch:
+def device_bucketed_join(session, plan: L.Join, compat=None, setup=None) -> B.Batch:
     """A compatible bucketed equi-join with its spans on the device.
 
     Per-bucket sorted key runs of both sides are padded into (nb, width)
     rectangles, and the span program gives every left row the ``[lo, hi)``
     of its matching right rows — no exchange (the reference's no-shuffle
     SMJ, HS/index/covering/JoinIndexRule.scala:604-618). An inner join then
-    expands and gathers on the device; other joins expand on the host."""
+    expands and gathers on the device; other joins expand on the host.
+    Called alone (no ``compat`` or ``setup``), it analyses and decodes the
+    sides itself."""
+    if setup is None:
+        compat = compat if compat is not None else join_sides_compatible(plan)
+        setup = _bucketed_join_setup(session, plan, compat)
     lbuckets, rbuckets, lkeys, rkeys, nb, lcols_needed, rcols_needed = setup
     device = session.device
     stages = session.query_stage_seconds

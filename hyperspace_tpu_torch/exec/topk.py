@@ -28,9 +28,13 @@ conservative ``threshold_condition()`` (``col <= v`` ascending, ``>=``
 descending), which the executor pushes into row-group min/max pruning of
 chunks not yet decoded.
 
-The JAX package's sharded select (``hyperspace.parallel.enabled``) and its
-one-program fold (``hyperspace.exec.fusion.enabled``) are not in the port;
-the executor raises where the JAX package would take them.
+Under ``hyperspace.exec.fusion.enabled`` every chunk after the first runs
+the select and the merge as one program instead (ops/sort.fused_topk_fn,
+"fused-stage-topk"), the candidate matrix updated in place with
+``hyperspace.exec.fusion.donation``; string keys stay per-family (their
+merge needs the host re-encode between select and merge). The JAX
+package's sharded select (``hyperspace.parallel.enabled``) is not in the
+port; the executor raises where the JAX package would take it.
 """
 
 from __future__ import annotations
@@ -137,23 +141,38 @@ class TopKStream:
             raise D.DeviceUnsupported(str(e))
         if self._string_keys is None:
             self._string_keys = [a.dtype.kind in _STRING_KINDS for a in key_arrays]
-        if self._state is not None and not any(self._string_keys) and self.session.conf.fusion_enabled:
-            raise NotImplementedError(
-                "the fused top-k fold (hyperspace.exec.fusion.enabled) is not yet in the port"
-            )
 
         base = self.rows_seen
         self.rows_seen += n
         rid = base + np.arange(n, dtype=np.int64)
 
-        cand = self._run_chunk(planes + [rid])
+        from hyperspace_tpu_torch.exec import stage_ir
+
+        # whole-stage fold: the chunk's select and the merge in one
+        # dispatch. String keys stay per-family (their merge needs the host
+        # re-encode between select and merge)
+        use_fused = (
+            self._state is not None
+            and not any(self._string_keys)
+            and stage_ir.fusion_wanted(self.session.conf)
+        )
+        if use_fused:
+            merged, cand = self._run_fused(planes + [rid])
+        else:
+            cand = self._run_chunk(planes + [rid])
         crid = cand[-1].cpu().numpy()
         valid = crid < _SENT
         add_rid = crid[valid]
         local = (add_rid - base).astype(np.int64)
         add_pool: B.Batch = {c: np.asarray(v)[local] for c, v in batch.items()}
 
-        if self._state is None:
+        if use_fused:
+            pool_all = B.concat([self._pool, add_pool]) if self._pool else add_pool
+            rid_all = np.concatenate([self._order, add_rid]) if self._order is not None else add_rid
+            self._state = merged
+            mrid = merged[-1].cpu().numpy()
+            merged_rid = mrid[mrid < _SENT]
+        elif self._state is None:
             self._state = cand
             merged_rid = add_rid
             pool_all, rid_all = add_pool, add_rid
@@ -177,6 +196,27 @@ class TopKStream:
         out = S.topk_chunk_fn(len(self.keys), self.cap)(self._upload(np.stack(mat_rows)))
         D.dispatches["topk-chunk"] += 1
         return out
+
+    def _run_fused(self, mat_rows: List[np.ndarray]):
+        """One-dispatch fold: the chunk's select-top-k and the merge with the
+        running candidate state as one program, the state written in place
+        with ``hyperspace.exec.fusion.donation``. Returns ``(merged, cand)``;
+        the caller rebinds ``self._state`` to ``merged``."""
+        from hyperspace_tpu_torch.exec import stage_ir
+        from hyperspace_tpu_torch.ops import sort as S
+
+        nk = len(self.keys)
+        donate = stage_ir.donation_wanted(self.session.conf)
+        plan = stage_ir.StagePlan((stage_ir.TopKOp(nk, self.cap),))
+        program = stage_ir.compile_stage(
+            f"{plan.skeleton()}{'+d' if donate else ''}",
+            S.fused_topk_fn(nk, self.cap, donate),
+            donate_argnums=(0,) if donate else (),
+        )
+        merged, cand = program(self._state, self._upload(np.stack(mat_rows)))
+        stage_ir.count_dispatch("fused-stage-topk")
+        stage_ir.note_peak_bytes([merged])
+        return merged, cand
 
     def _merge(self, cand: torch.Tensor, add_pool: B.Batch, add_rid: np.ndarray):
         """Merge the chunk's candidate matrix into the running buffer.

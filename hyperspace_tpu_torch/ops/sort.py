@@ -169,3 +169,28 @@ def topk_merge_fn(num_keys: int, cap: int):
         return _sorted_columns(torch.cat([a, b], dim=1))[:, :cap]
 
     return run
+
+
+def fused_topk_fn(num_keys: int, cap: int, donate: bool = False):
+    """Builder for the whole-stage fold (``hyperspace.exec.fusion.enabled``,
+    "fused-stage-topk"): the chunk's select (``topk_chunk_fn``) AND the merge
+    with the running candidate state (``topk_merge_fn``), state first, as
+    ONE program, so a streamed chunk costs one dispatch. With ``donate``
+    the merged candidates are written into the ``(num_keys + 1, cap)``
+    state (``copy_``; its storage stays), else they come back fresh.
+
+    Returns ``(merged, cand)``: the new state and the chunk's own candidate
+    matrix, whose row-id plane tells the host which chunk rows to pool. The
+    same bodies as the per-family pair, so the result is bit-identical."""
+    select = topk_chunk_fn(num_keys, cap)
+    merge = topk_merge_fn(num_keys, cap)
+
+    def run(state: torch.Tensor, planes: torch.Tensor):
+        cand = select(planes)
+        merged = merge(state, cand)
+        if donate:
+            state.copy_(merged)
+            merged = state
+        return merged, cand
+
+    return run

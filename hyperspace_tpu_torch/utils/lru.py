@@ -46,6 +46,10 @@ class BytesLRU:
                 _, (_, nb) = self._entries.popitem(last=False)
                 self._bytes -= nb
 
+    def keys(self):
+        with self._lock:
+            return list(self._entries.keys())
+
     def clear(self) -> None:
         with self._lock:
             self._entries.clear()

@@ -393,28 +393,49 @@ def test_answered_like_jax(system, lake, monkeypatch, case):
 
 
 def test_not_ported_features_raise(system, lake, monkeypatch):
-    """Whole-stage fusion (of a grouped scan aggregate, and of a grouped
-    join aggregate with a side the JAX package would broadcast) and the
-    sharded aggregate are not in the port yet: asking for them raises. The
-    sharded aggregate raises only where the JAX package would shard it
-    (a chunk of at least ``hyperspace.parallel.minRows`` rows); below that
-    both packages aggregate on one device, with the same result, trace and
-    programs."""
+    """The sharded aggregate is not in the port yet: asking for it raises,
+    but only where the JAX package would shard it (a chunk of at least
+    ``hyperspace.parallel.minRows`` rows); below that both packages
+    aggregate on one device, with the same result, trace and programs.
+    Whole-stage fusion (of a grouped scan aggregate, and of a grouped join
+    aggregate with a side the JAX package broadcasts) is ported: both
+    packages give the same result, trace and fallbacks, with one fused
+    program each."""
     sharded = {"hyperspace.parallel.enabled": "true"}
-    for conf, query, match in (
-        (FUSION, QUERIES["by_int"], "fused grouped aggregate"),
-        ({**FUSION, "hyperspace.exec.join.broadcastMaxBytes": 64 << 20}, JOIN_MIN, "fused join aggregate"),
-        ({**sharded, "hyperspace.parallel.minRows": 0}, QUERIES["by_int"], "sharded"),
-    ):
-        sess = ht.Session(conf=_conf(ht.keys, system, **MODES["device"], **conf), device="cpu").enable_hyperspace()
-        frames = {t: sess.read_parquet(p) for t, p in lake.items()}
-        with pytest.raises(NotImplementedError, match=match):
-            query(frames, ht.col).collect()
+    sess = ht.Session(conf=_conf(ht.keys, system, **MODES["device"], **sharded, **{"hyperspace.parallel.minRows": 0}),
+                      device="cpu").enable_hyperspace()
+    frames = {t: sess.read_parquet(p) for t, p in lake.items()}
+    with pytest.raises(NotImplementedError, match="sharded"):
+        QUERIES["by_int"](frames, ht.col).collect()
     _, ref, ref_lines, ref_falls, ref_ran = _run(hst, system, "by_int", "device", lake, monkeypatch, **sharded)
     plan, got, lines, falls, ran = _run(ht, system, "by_int", "device", lake, monkeypatch, **sharded)
     _assert_same_result(got, ref, plan)
     assert (lines, falls, ran) == (ref_lines, ref_falls, ref_ran)
     assert "agg: device-grouped-scan x1" in lines, lines
+    bcast = {**FUSION, "hyperspace.exec.join.broadcastMaxBytes": 64 << 20}
+    join_by_date = lambda f, c: f["l"].join(f["o"], c("l_ok") == c("o_ok")).group_by("o_date").agg(  # noqa: E731
+        n=("*", "count"), q=("l_q", "sum"), mn=("l_price", "min"))
+    for conf, query, family, fused in (
+        (FUSION, QUERIES["by_int"], "fused-stage-agg", True),
+        # a string group key does not fuse: both packages count the fallback
+        (bcast, JOIN_MIN, "fused-stage-join-agg", False),
+        (bcast, join_by_date, "fused-stage-join-agg", True),
+    ):
+        QUERIES["__case"] = query
+        try:
+            ref_fused = REGISTRY.counter("hs_device_dispatches_total", "", program=family).value
+            _, ref, ref_lines, ref_falls, ref_ran = _run(hst, system, "__case", "device", lake, monkeypatch, **conf)
+            ref_fused = REGISTRY.counter("hs_device_dispatches_total", "", program=family).value - ref_fused
+            port_fused = D.dispatches[family]
+            plan, got, lines, falls, ran = _run(ht, system, "__case", "device", lake, monkeypatch, **conf)
+            port_fused = D.dispatches[family] - port_fused
+        finally:
+            del QUERIES["__case"]
+        _assert_same_result(got, ref, plan)
+        assert (lines, falls, ran) == (ref_lines, ref_falls, ref_ran), family
+        assert port_fused == ref_fused, (family, port_fused, ref_fused)
+        assert (port_fused > 0) == fused, (family, port_fused, falls, lines)
+        assert (("fusion", "join-agg-unsupported") in falls) == (not fused), falls
 
 
 def test_agg_stage_seconds(system, lake):

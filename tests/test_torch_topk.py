@@ -435,13 +435,27 @@ def test_midstream_refusal_takes_the_host_candidates(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("key", ["parallel", "fusion"])
 def test_sharded_and_fused_folds_raise(tmp_path, key):
-    """Where the JAX package would take its sharded select or its fused
-    fold, the port raises: neither is in the port."""
+    """Where the JAX package would take its sharded select, the port
+    raises: it is not in the port. Its fused fold is ported: the port's
+    rows equal the JAX package's fused run and the port's fusion-off run,
+    with as many ``fused-stage-topk`` dispatches as the JAX package's."""
     data = _write_files(str(tmp_path / "data"))
-    conf = {"hyperspace.parallel.enabled": True} if key == "parallel" else {"hyperspace.exec.fusion.enabled": True}
-    port, _ = sessions(tmp_path, **conf)
-    with pytest.raises(NotImplementedError, match="not yet in the port"):
-        port.read_parquet(data).order_by("k").limit(5).collect()
+    if key == "parallel":
+        port, _ = sessions(tmp_path, **{"hyperspace.parallel.enabled": True})
+        with pytest.raises(NotImplementedError, match="not yet in the port"):
+            port.read_parquet(data).order_by("k").limit(5).collect()
+        return
+    from hyperspace_tpu.obs.metrics import REGISTRY
+
+    fused = REGISTRY.counter("hs_device_dispatches_total", "", program="fused-stage-topk")
+    build = lambda s, df: df.order_by("k").limit(5)  # noqa: E731
+    before, ref_before = D.dispatches["fused-stage-topk"], fused.value
+    got, pev, want, rev, port = run_both(tmp_path, data, build, **{"hyperspace.exec.fusion.enabled": True})
+    assert D.dispatches["fused-stage-topk"] - before == fused.value - ref_before > 0
+    assert topk_events(pev) == topk_events(rev) == ["device-topk-stream"]
+    assert_identical(got, want)
+    port.conf.set(ht.keys.EXEC_FUSION_ENABLED, False)
+    assert_identical(got, build(port, port.read_parquet(data)).collect())
 
 
 # --------------------------------------------------------------------------

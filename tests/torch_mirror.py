@@ -218,6 +218,7 @@ def mirroring():
             from hyperspace_tpu.exec import trace as ref_trace
             from hyperspace_tpu_torch.exec import trace as port_trace
 
+            outer_events = port_trace._events  # a recording of the case's own
             try:
                 with port_trace.recording() as got_events:
                     got = orig_collect(self)
@@ -232,6 +233,8 @@ def mirroring():
             with native_off, ref_trace.recording() as ref_events:
                 want = ref.collect()
             same_rows(got, want, self.plan.describe())
+            if outer_events is not None:
+                outer_events.extend(got_events)
             sess.last_trace_lines = trace_lines(got_events)
             if sess.compare_traces:
                 assert trace_lines(got_events) == trace_lines(ref_events), (
@@ -339,3 +342,91 @@ def cases_of(mod) -> list:
             out += [f"{node.name}::{fn.name}" for fn in node.body
                     if isinstance(fn, ast.FunctionDef) and fn.name.startswith("test_")]
     return out
+
+
+class ModuleUnion:
+    """One name space over several port modules, for a JAX suite that reads
+    internals the port keeps in other modules than the JAX package does
+    (``exec/device.py``'s join internals live in ``exec/join.py``, its
+    aggregate's in ``exec/aggregate.py``): an attribute is read from the
+    first module that has it, and set (``monkeypatch.setattr``) on that
+    module, where the port's callers look it up."""
+
+    def __init__(self, *module_names: str):
+        object.__setattr__(self, "_modules", [importlib.import_module(m) for m in module_names])
+
+    def _owner(self, name: str):
+        for mod in self._modules:
+            if hasattr(mod, name):
+                return mod
+        raise AttributeError(name)
+
+    def __getattr__(self, name: str):
+        return getattr(self._owner(name), name)
+
+    def __setattr__(self, name: str, value) -> None:
+        setattr(self._owner(name), name, value)
+
+
+class _Series:
+    def __init__(self, read):
+        self._read = read
+
+    @property
+    def value(self):
+        return self._read()
+
+
+class PortRegistry:
+    """The JAX package's metrics registry (``obs/metrics.REGISTRY``) as far as
+    the port counts the same things, for suites that read it; the registry
+    itself waits for A9:
+
+    - ``hs_device_dispatches_total{program}``: ``exec/device.dispatches``;
+    - ``hs_device_fallback_total{op, reason}``: ``exec/trace.fallbacks``;
+    - ``hs_xla_compiles_total``: programs built by ``exec/stage_ir.compile_stage``
+      (the port's eager programs compile nothing else);
+    - the ``hs_device_peak_bytes`` gauge: ``exec/stage_ir.peak_bytes()``.
+
+    Any other name raises, so a case that reads one is left out by name."""
+
+    def _dispatches(self):
+        from hyperspace_tpu_torch.exec import device
+
+        return device.dispatches
+
+    def counter(self, name: str, help: str = "", **labels):
+        from hyperspace_tpu_torch.exec import stage_ir, trace
+
+        if name == "hs_device_dispatches_total":
+            return _Series(lambda: float(self._dispatches()[labels["program"]]))
+        if name == "hs_device_fallback_total":
+            return _Series(lambda: float(trace.fallbacks[(labels["op"], labels["reason"])]))
+        if name == "hs_xla_compiles_total":
+            assert not labels, labels
+            return _Series(lambda: float(stage_ir.stage_compiles))
+        raise KeyError(f"the port does not count {name!r} (A9)")
+
+    def gauge(self, name: str, help: str = "", **labels):
+        from hyperspace_tpu_torch.exec import stage_ir
+
+        if name == "hs_device_peak_bytes":
+            return _Series(lambda: float(stage_ir.peak_bytes()))
+        raise KeyError(f"the port has no gauge {name!r} (A9)")
+
+    def snapshot(self) -> dict:
+        from hyperspace_tpu_torch.exec import stage_ir, trace
+
+        out = {}
+        if self._dispatches():
+            out["hs_device_dispatches_total"] = {"series": [
+                {"labels": {"program": p}, "value": float(v)} for p, v in self._dispatches().items()]}
+        if trace.fallbacks:
+            out["hs_device_fallback_total"] = {"series": [
+                {"labels": {"op": op, "reason": r}, "value": float(v)} for (op, r), v in trace.fallbacks.items()]}
+        if stage_ir.stage_compiles:
+            out["hs_xla_compiles_total"] = {"series": [{"labels": {}, "value": float(stage_ir.stage_compiles)}]}
+        return out
+
+
+PORT_REGISTRY = PortRegistry()
