@@ -10,7 +10,9 @@ pruning's 7d and 12d, hybrid scan's 7e and 12e, the other sources' 7f and
 12f, the SQL front end's 7g and 12g, the broadcast hash join's 7h, 11 (J3)
 and 12g, ORDER BY ... LIMIT's 7i and 12h, the reference API surface's 7j,
 explain and whyNot's 7k and 12g, nested columns' 7l and 12i, whole-stage
-fusion's 7m and 12j):
+fusion's 7m and 12j, native decode and the reliability layer's 7n and 12k;
+every phase decodes through the port's native reader, as the JAX package
+does):
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: compiles the port's CUDA kernels from ``hyperspace_tpu_torch/csrc``;
@@ -102,8 +104,8 @@ fusion's 7m and 12j):
    tests/tpch_queries.py through ``Session.sql``: the GPU rows equal the
    CPU port's in order (floats at rtol 1e-9) and hyperspace off as a
    multiset, the optimized plan equals tests/approved_plans/tpch_sql/qN.txt,
-   no result is empty, and the trace equals qN.dispatch.txt line for line
-   (``decode:`` lines, the native decode A13, are left out); the GPU runs
+   no result is empty, and the trace, from cleared caches, equals
+   qN.dispatch.txt line for line, ``decode:`` lines included; the GPU runs
    ``hash-build`` and ``hash-probe``;
 7h. bcast-small: the shapes of tests/test_join_stream.py's broadcast cases
    (inner, left, right and outer on a float key with NaN and on a
@@ -157,6 +159,20 @@ fusion's 7m and 12j):
    programs than the per-family device fold over the same chunks; a q1
    whose first chunk overflows the state's capacity redoes that chunk
    per-family and folds the rest fused, equal to fusion off;
+7n. native-small: the port's libhs_native (its path, compiler and the
+   codecs built or dropped; a failed build fails the script), then two
+   files per cell of a matrix (NONE, SNAPPY, GZIP, ZSTD x int32, int64,
+   float64, date, a dictionary string and a plain one x nulls or none x
+   whole or row-group pruned) read by a GPU session (pinned decode
+   buffers) and a CPU one: equal to each other and to pyarrow byte for
+   byte, ``decode: native-rg`` for every codec the build has, the same
+   dictionary codes; the staged host tensors of the pinned columns are
+   the decode buffers and pinned; ``dict-expand`` on the card equal to the
+   factorize path (dense: the same tensor and codec; with nulls the same
+   strings), to its staged copy and to its plain version; a corrupt index
+   decode (a seeded fault) raises ``CorruptDataError`` and quarantines the
+   index, whose query then reads the source with the same rows; a
+   transient one falls back to the per-file decode with the same rows;
 8. generate and slice: generates a TPC-H-shaped SF1 ``lineitem`` lake (6M
    rows in 16 files, from ``--seed``, with TPC-H's return flag and line
    status) and builds three indexes through the public API (``Session`` ->
@@ -283,6 +299,18 @@ fusion's 7m and 12j):
    ``join_verify``, ``join_postjoin`` and ``join_gather``; then
    ``hash-build`` and ``hash-probe`` alone on the largest table the timed
    queries broadcast and its largest probe chunk;
+12k. native: q6 and J1 on the main session and q12 and q19 through
+   ``Session.sql`` on the SF1 TPC-H session, cold and warm (2), with native
+   decode on and off (``hyperspace.exec.io.native.enabled``), rows equal,
+   with ``decode``/``join_decode`` layers, ``hs_native_decode_total`` by
+   codec, ``hs_native_decode_bytes_total`` and no dialect or io-error
+   fallback over index files; q6 cold and ``li_shipdate``'s columns decoded
+   and staged, pinned against pageable in turns, and the caching host
+   allocator's bytes; ``l_returnflag == 'R'`` over the source (hyperspace
+   off, ``deviceMinRows=0``, one file per chunk) equal to the host, with
+   ``dict-expand`` timed alone beside its bound; ``li_skip_native`` built
+   from native decode (K2), K2 on natively decoded values against its
+   plain version and K1 on a natively decoded key against numpy;
 12h. topk: on the main session and lake (16 files), T1 (the 100 dearest
    lines) and T2 (T1 under q6's filter) over the source with
    ``stream.chunkBytes`` set so the 16 files make 8 chunks (the streaming
@@ -338,8 +366,9 @@ lifecycle's (under ``"lifecycle"``), pruning's (``"prune"``), hybrid
 scan's (``"hybrid"``), the Delta table's (``"delta"``), SQL's (``"sql"``,
 with ``bcast-small`` under ``"bcast_small"`` and explain under
 ``"explain"``), the top-k's (``"topk"``) and the nested columns' (``"nested"``,
-with api-small and explain-small) and fusion's (``"fusion"``, with
-fusion-small) results and times, the line before the last one with an entry per kernel (its launches
+with api-small and explain-small), fusion's (``"fusion"``, with
+fusion-small) and native decode's (``"native"``, with native-small) results
+and times, the line before the last one with an entry per kernel (its launches
 on the build's main path, and per path under ``launches_by_path``); the
 last line
 is ``{"ok": true, "device": {...}}``. Any failed check raises, so
@@ -4060,14 +4089,15 @@ def open_tpch(dirs: dict, system: str, device: str, num_buckets=None):
 
 
 def approved_dispatch(qname: str) -> list:
-    """The approved trace's lines less its ``decode:`` lines (the native
-    decode, A13)."""
+    """The approved trace's lines, ``decode:`` lines included."""
     with open(os.path.join(TPCH_APPROVED_DIR, f"{qname}.dispatch.txt"), encoding="utf-8") as f:
-        return [ln for ln in f.read().splitlines() if not ln.startswith("decode:")]
+        return f.read().splitlines()
 
 
 def dispatch_lines(summary: str) -> list:
-    """A trace summary's lines less its ``decode:`` lines."""
+    """A trace summary's lines less its ``decode:`` lines, which depend on
+    what earlier runs left in the IO cache (``sql-small`` compares whole
+    traces, from cleared caches)."""
     return [ln for ln in summary.splitlines() if not ln.startswith("decode:")]
 
 
@@ -4083,9 +4113,10 @@ def check_sql_small(tmp: str, seed: int, devices=("cpu", "cuda")) -> dict:
     """The 22 TPC-H texts through ``Session.sql`` over the suite's fixture,
     indexed in a CPU and a GPU session: the GPU rows equal the CPU port's in
     order (floats at rtol 1e-9) and hyperspace off as a multiset, the plan
-    equals the approved one, no result is empty, and the trace equals the
-    approved one line for line, less its ``decode:`` lines
-    (``approved_dispatch``); on the GPU the broadcast join's programs run."""
+    equals the approved one, no result is empty, and the trace, from cleared
+    caches, equals the approved one line for line, ``decode:`` lines
+    included (the native decode); on the GPU the broadcast join's programs
+    run."""
     from hyperspace_tpu_torch.exec import device as D
 
     import hyperspace_tpu_torch as ht
@@ -4116,7 +4147,7 @@ def check_sql_small(tmp: str, seed: int, devices=("cpu", "cuda")) -> dict:
             if device == "cuda":
                 D.reset_dispatches()
             got[device], traces[device] = traced_collect(q)
-            assert dispatch_lines(traces[device]) == approved_dispatch(qname), (
+            assert traces[device].splitlines() == approved_dispatch(qname), (
                 f"{qname} on {device}: {traces[device]} against {approved_dispatch(qname)}")
             if device == "cuda":
                 gpu_dispatches.update(D.dispatches)
@@ -4130,7 +4161,7 @@ def check_sql_small(tmp: str, seed: int, devices=("cpu", "cuda")) -> dict:
             f"{qname}: the GPU rows differ from hyperspace off")
         rows = len(next(iter(gpu.values())))
         assert rows > 0, f"{qname} returned no rows"
-        lines = dispatch_lines(traces[devices[-1]])
+        lines = traces[devices[-1]].splitlines()
         out[qname] = {"rows": rows, "trace": lines}
         print(f"sql-small {qname}: {rows} rows; plan and trace as approved; GPU equals the CPU port in order and "
               f"hyperspace off as a multiset; " + "; ".join(lines), flush=True)
@@ -4157,14 +4188,15 @@ def sql_layers(sess, q, reps: int) -> dict:
     return {"cold": cold_layers, "warm": layer_ms(sess, q.collect, reps)}, got, summary
 
 
-def run_sql(tmp: str, args, smi: str, hbm: float) -> dict:
+def run_sql(tmp: str, args, smi: str, hbm: float):
     """TPC-H at SF1 through ``Session.sql``: all 8 tables from
     ``benchmarks/tpch_full.py::gen_all``, the suite's roster at 200 buckets,
     the timed queries cold, warm, off and generic (off with
     ``broadcastMaxBytes=0``), the broadcast programs alone on their largest
     inputs, q6 and q1 beside their DataFrame forms (A2, A1); then the other
     twelve once on and once off over a lake and roster of their own at
-    ``SQL_OTHER_SF``."""
+    ``SQL_OTHER_SF``. Returns the results and the SF1 session (its lake and
+    roster serve the ``native`` phase)."""
     import torch
 
     import hyperspace_tpu_torch as ht
@@ -4296,6 +4328,7 @@ def run_sql(tmp: str, args, smi: str, hbm: float) -> dict:
     assert "agg: device-fused-scan x1" in out["compute"]["A2"]["tiers"], out["compute"]["A2"]
     assert "agg: device-grouped-scan x1" in out["compute"]["A1"]["tiers"], out["compute"]["A1"]
 
+    sf1_sess = sess
     other_root = os.path.join(tmp, "sql-other")
     other_dirs = tpch_full.gen_all(other_root, SQL_OTHER_SF, args.seed)
     sess, builds = open_tpch(other_dirs, os.path.join(other_root, "_indexes"), "cuda")
@@ -4326,7 +4359,7 @@ def run_sql(tmp: str, args, smi: str, hbm: float) -> dict:
         print(f"sql {qname} (SF {SQL_OTHER_SF}): {rows} rows, equal to hyperspace off; on {on_ms:.3f} ms "
               f"(first run), off {off_ms:.3f} ms; join: broadcast-hash-stream x{broadcast_count(lines)}; "
               + "; ".join(lines) + f" ({smi})", flush=True)
-    return out
+    return out, sf1_sess
 
 
 # --- the broadcast hash join and ORDER BY ... LIMIT ---------------------------------
@@ -6139,6 +6172,397 @@ def run_explain(sess, dirs: dict, texts: dict, smi: str) -> dict:
     return out
 
 
+# --- native Parquet decode and the reliability layer ------------------------------
+
+NATIVE_CODECS = ("NONE", "SNAPPY", "GZIP", "ZSTD")
+
+
+def native_small_table(seed: int, n: int, nulls: bool):
+    """Every column type the native decoder reads: a sorted int64 key (the
+    pruning column), int32, int64, float64, date32, a dictionary string
+    column and a plain one; with ``nulls``, holes in the int64, float,
+    date and dictionary string columns."""
+    import numpy as np
+    import pyarrow as pa
+
+    rng = np.random.default_rng(seed)
+
+    def holes(values, period):
+        mask = (rng.integers(0, period, n) == 0) if nulls else np.zeros(n, dtype=bool)
+        return pa.array([None if m else v for m, v in zip(mask.tolist(), values.tolist())])
+
+    days = (np.datetime64("1995-01-01") + rng.integers(0, 2500, n).astype("timedelta64[D]")).astype("datetime64[D]")
+    strings = np.array([f"flag-{int(v) % 23:02d}" for v in rng.integers(0, 10**6, n)], dtype=object)
+    return pa.table({
+        "k": pa.array(np.arange(n, dtype=np.int64)),
+        "i32": pa.array(rng.integers(-(2**31), 2**31 - 1, n).astype(np.int32)),
+        "i64": holes(rng.integers(-(10**12), 10**12, n).astype(np.int64), 9),
+        "f64": holes(rng.standard_normal(n), 7),
+        "d": holes(days, 5),
+        "s": holes(strings, 11),
+        "u": pa.array([f"row-{seed}-{i}" for i in range(n)]),
+    })
+
+
+def same_decoded(got, want, what: str) -> None:
+    """Byte for byte: numeric buffers by their bytes, strings and nulls by
+    value; the same dictionary codes and entries where both are
+    dictionary-backed."""
+    import numpy as np
+
+    from hyperspace_tpu_torch.exec import batch as B
+
+    assert list(got) == list(want), (what, list(got), list(want))
+    for c in want:
+        g, w = np.asarray(got[c]), np.asarray(want[c])
+        assert g.dtype == w.dtype and g.shape == w.shape, (what, c, g.dtype, w.dtype, g.shape, w.shape)
+        if w.dtype == object:
+            assert all((x is None and y is None) or x == y for x, y in zip(g.tolist(), w.tolist())), (what, c)
+        else:
+            assert g.tobytes() == w.tobytes(), (what, c)
+        if isinstance(got[c], B.DictBackedArray) and isinstance(want[c], B.DictBackedArray):
+            assert got[c].hs_dict_codes.tobytes() == want[c].hs_dict_codes.tobytes(), (what, c)
+            assert list(got[c].hs_dict_uniques) == list(want[c].hs_dict_uniques), (what, c)
+
+
+def counter_values(name: str) -> dict:
+    """{labels (sorted tuple): value} of one registry counter."""
+    from hyperspace_tpu_torch.obs.metrics import REGISTRY
+
+    series = REGISTRY.snapshot().get(name, {}).get("series", [])
+    return {tuple(sorted(s["labels"].items())): s["value"] for s in series}
+
+
+def counter_delta(after: dict, before: dict) -> dict:
+    return {",".join(f"{k}={v}" for k, v in key) or "total": after[key] - before.get(key, 0.0)
+            for key in after if after[key] != before.get(key, 0.0)}
+
+
+def check_native_small(tmp: str, seed: int) -> dict:
+    """The port's build of libhs_native (no silent pyarrow: a failed build
+    fails here); a codec matrix decoded by a GPU session (pinned buffers)
+    and a CPU one, equal to each other and to pyarrow byte for byte; the
+    pinned handoff; ``dict-expand`` against the factorize path and its
+    plain version; a corrupt decode that quarantines an index (the query
+    then reads the source, with the same rows) and a transient one that
+    falls back to the per-file decode (same rows)."""
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    import torch
+
+    import hyperspace_tpu_torch as ht
+    from hyperspace_tpu_torch import native
+    from hyperspace_tpu_torch.exec import batch as B
+    from hyperspace_tpu_torch.exec import device as D
+    from hyperspace_tpu_torch.exec import io as IO
+    from hyperspace_tpu_torch.exec import trace
+    from hyperspace_tpu_torch.reliability import errors as rerr
+    from hyperspace_tpu_torch.reliability.degrade import QUARANTINE
+    from hyperspace_tpu_torch.reliability.faults import FaultRule, fault_scope
+
+    assert native.is_available(), "libhs_native did not build or load"
+    info = native.build_info()
+    print(f"native-small: libhs_native {os.path.relpath(info['path'], HERE)} "
+          f"({'built by this run' if info['built'] else 'built earlier'}); {info['compiler']}; codecs "
+          f"{', '.join(info['codecs'])}; dropped: {', '.join(info['dropped']) if info['dropped'] else 'none'}",
+          flush=True)
+    cuda = torch.device("cuda", torch.cuda.current_device())
+    root = os.path.join(tmp, "native-small")
+    ht.Session(device="cuda")  # a CUDA session: decode buffers pinned
+    cols = ["k", "i32", "i64", "f64", "d", "s", "u"]
+    matrix = {}
+    pinned_checked = 0
+    for codec in NATIVE_CODECS:
+        native_codec = "uncompressed" if codec == "NONE" else codec.lower()
+        for nulls in (False, True):
+            d = os.path.join(root, f"{codec}-{int(nulls)}")
+            os.makedirs(d)
+            files = []
+            for i in range(2):
+                f = os.path.join(d, f"part-{i:05d}.parquet")
+                pq.write_table(native_small_table(seed + 31 * i + int(nulls), 6000, nulls), f, compression=codec,
+                               row_group_size=1000, use_dictionary=["s"])
+                files.append(f)
+            for pruned in (False, True):
+                pred = ht.col("k") < 2500 if pruned else None  # row groups 0-2 of 6 per file
+                got, kinds = {}, {}
+                for device in ("cuda", "cpu"):
+                    IO.set_pinned_decode(device == "cuda")
+                    IO.clear_io_cache()
+                    with trace.recording() as events:
+                        got[device] = IO.read_parquet_batch(files, cols, predicate=pred)
+                    kinds[device] = sorted({detail for kind, detail in events if kind == "decode"})
+                IO.set_pinned_decode(True)
+                what = f"{codec} nulls={nulls} pruned={pruned}"
+                same_decoded(got["cuda"], got["cpu"], what + " GPU vs CPU port")
+                if native_codec in info["codecs"]:
+                    assert kinds["cuda"] == kinds["cpu"] == ["native-rg"], (what, kinds)
+                want = pa.concat_tables([pq.ParquetFile(f).read_row_groups([0, 1, 2] if pruned else list(range(6)),
+                                                                           columns=cols) for f in files])
+                pa_batch = {c: want[c].to_numpy(zero_copy_only=False) for c in cols}
+                same_decoded(got["cuda"], pa_batch, what + " GPU vs pyarrow")
+                assert isinstance(got["cuda"]["s"], B.DictBackedArray), what
+                if not nulls and not pruned:
+                    for c in ("k", "i64", "f64", "d"):
+                        enc, _codec = D.encode_column(got["cuda"][c])
+                        host = D._staging_host(enc, cuda)
+                        assert host.data_ptr() == got["cuda"][c].ctypes.data and host.is_pinned(), (what, c)
+                        pinned_checked += 1
+                matrix[what] = {"rows": len(got["cuda"]["k"]), "decode": kinds["cuda"]}
+                print(f"native-small {what}: {len(got['cuda']['k'])} rows, GPU == CPU port == pyarrow byte for "
+                      f"byte; decode {kinds['cuda']}", flush=True)
+    print(f"native-small pinned: {pinned_checked} staged host tensors are the decode buffers and pinned", flush=True)
+
+    # dict-expand: the dictionary column staged on the card against the
+    # factorize path, its staging twin and its plain version
+    IO.clear_io_cache()
+    dense = IO.read_parquet_batch([os.path.join(root, "SNAPPY-0", "part-00000.parquet")], ["s"])["s"]
+    holed = IO.read_parquet_batch([os.path.join(root, "SNAPPY-1", "part-00000.parquet")], ["s"])["s"]
+    D.reset_dispatches()
+    expand = {}
+    for label, arr in (("dense", dense), ("nulls", holed)):
+        assert isinstance(arr, B.DictBackedArray), label
+        plain = np.asarray(arr).view(np.ndarray).copy()
+        dev, codec, _ = D._put_encoded(arr, cuda)
+        want, want_codec, _ = D._put_encoded(plain, cuda)
+        staged, s_codec, _, ready = D._stage_encoded(arr, cuda)
+        torch.cuda.current_stream().wait_event(ready)
+        assert torch.equal(staged, dev) and list(s_codec.uniques) == list(codec.uniques), label
+        if label == "dense":
+            assert torch.equal(dev, want) and list(codec.uniques) == list(want_codec.uniques), label
+        decoded = lambda t, u: [None if c < 0 else u[c] for c in t.cpu().tolist()]  # noqa: E731
+        assert decoded(dev, codec.uniques) == decoded(want, want_codec.uniques) == plain.tolist(), label
+        codes, remap, _ = D._dict_plan(arr)
+        prog = D.dict_expand_program(torch.from_numpy(codes).to(cuda), torch.from_numpy(remap).to(cuda))
+        assert prog.cpu().numpy().tobytes() == D.dict_expand_plain(codes, remap).tobytes(), label
+        expand[label] = {"rows": len(arr), "entries": len(codec.uniques), "nulls": int((codes < 0).sum())}
+    assert D.dispatches["dict-expand"] == 4, dict(D.dispatches)  # two uploads and two stagings
+    print(f"native-small dict-expand: {expand}; equal to the factorize path (dense: the same tensor and codec; "
+          f"with nulls: the same strings), the staged copy and the plain version; dispatches "
+          f"{D.dispatches['dict-expand']}", flush=True)
+
+    # faults: a corrupt index decode quarantines the index; a transient one
+    # falls back to the per-file decode
+    lake = os.path.join(root, "lake")
+    os.makedirs(lake)
+    rng = np.random.default_rng(seed + 5)
+    for i in range(3):
+        pq.write_table(pa.table({"c1": rng.integers(0, 100, 4000).astype(np.int64),
+                                 "c2": np.round(rng.uniform(0, 100, 4000), 3)}),
+                       os.path.join(lake, f"part-{i:05d}.parquet"))
+    system = os.path.join(root, "_indexes")
+    conf = {ht.keys.SYSTEM_PATH: system, ht.keys.NUM_BUCKETS: 4, ht.keys.DEVICE_MIN_ROWS: 0}
+    sess = ht.Session(conf={**conf, ht.keys.RELIABILITY_QUARANTINE_ENABLED: True,
+                            ht.keys.RELIABILITY_QUARANTINE_THRESHOLD: 1,
+                            ht.keys.RELIABILITY_QUARANTINE_COOLDOWN_SECONDS: 3600.0}, device="cuda")
+    ht.Hyperspace(sess).create_index(sess.read_parquet(lake), ht.CoveringIndexConfig("nidx", ["c1"], ["c2"]))
+    sess.enable_hyperspace()
+
+    def query(s):
+        return s.read_parquet(lake).filter(ht.col("c1") < 50).select("c1", "c2")
+
+    with sess.hyperspace_scope(False):
+        want = canonical(query(sess).collect())
+    assert plan_index_scans(query(sess).optimized_plan())
+    clear_query_caches()
+    raised = counter_values("hs_io_errors_total")
+    with fault_scope(FaultRule("io.decode", "corrupt", path_glob=os.path.join(system, "*"))):
+        try:
+            query(sess).collect()
+            raise AssertionError("a corrupt index decode did not raise")
+        except rerr.CorruptDataError as exc:
+            assert isinstance(exc, rerr.FaultInjected), exc
+    assert QUARANTINE.state_of("nidx") == "open", QUARANTINE.state_of("nidx")
+    fallback_q = query(sess)
+    assert not plan_index_scans(fallback_q.optimized_plan()), fallback_q.optimized_plan().pretty()
+    assert same_batch(canonical(fallback_q.collect()), want), "the quarantined query differs from the source"
+    corrupt = counter_delta(counter_values("hs_io_errors_total"), raised)
+    print(f"native-small corrupt: CorruptDataError raised, nidx quarantined, the query re-planned against the "
+          f"source with the same rows; hs_io_errors_total {corrupt}", flush=True)
+
+    sess = ht.Session(conf=conf, device="cuda").enable_hyperspace()  # quarantine off again
+    clear_query_caches()
+    before = counter_values("hs_native_fallback_total")
+    with fault_scope(FaultRule("io.decode", "transient", nth=1)):
+        with trace.recording() as events:
+            got = query(sess).collect()
+    assert plan_index_scans(query(sess).optimized_plan())
+    assert same_batch(canonical(got), want), "the transient fault changed the rows"
+    fell = counter_delta(counter_values("hs_native_fallback_total"), before)
+    assert fell.get("reason=io-error") == 1.0, fell
+    decode = sorted({detail for kind, detail in events if kind == "decode"})
+    assert "native" in decode, decode  # the per-file path answered natively
+    print(f"native-small transient: the fault fell back to the per-file decode ({decode}), same rows; "
+          f"hs_native_fallback_total {fell}", flush=True)
+    return {"build": {k: v for k, v in info.items() if k != "path"}, "matrix": matrix, "pinned_checked": pinned_checked,
+            "dict_expand": expand, "corrupt_io_errors": corrupt, "transient_fallbacks": fell}
+
+
+def set_native(ht, on: bool) -> None:
+    """``hyperspace.exec.io.native.enabled`` as a user sets it: a session
+    built with the key applies it to the process-global decode path."""
+    ht.Session(conf={ht.keys.EXEC_IO_NATIVE_ENABLED: on}, device="cuda")
+
+
+def run_native(sess, hs, df, li_src: str, j1, sql_sess, args, smi: str, hbm: float) -> dict:
+    """Native decode at SF1: cold and warm q6 and J1 on the main session and
+    q12 and q19 through ``Session.sql`` on the SF1 TPC-H session, native on
+    and off (``hyperspace.exec.io.native.enabled``), rows equal; decode
+    counters; no dialect or io-error fallback over index files; the pinned
+    decode against pageable decode plus ``.pin_memory()``; a string filter
+    over the source that runs ``dict-expand`` (timed beside its bound); and
+    ``li_skip`` rebuilt from native decode, with K2 on natively decoded
+    values against its plain version and K1 on a natively decoded key."""
+    import numpy as np
+    import torch
+
+    import hyperspace_tpu_torch as ht
+    from hyperspace_tpu_torch.exec import device as D
+    from hyperspace_tpu_torch.exec import io as IO
+    from hyperspace_tpu_torch.exec import trace
+    from hyperspace_tpu_torch.indexes.registry import index_of_entry
+    from hyperspace_tpu_torch.ops import kernels
+    from hyperspace_tpu_torch.ops.hashing import bucket_ids_np, numeric_hash32
+    from hyperspace_tpu_torch.ops.sort import bucket_sort_build
+
+    cuda = torch.device("cuda", torch.cuda.current_device())
+    texts = tpch_texts()
+    sess.conf.set(ht.keys.DEVICE_MIN_ROWS, 0)
+    queries = {"q6": (sess, q6_query(sess.read_parquet(li_src))), "J1": (sess, j1),
+               "q12": (sql_sess, sql_sess.sql(texts["q12"])), "q19": (sql_sess, sql_sess.sql(texts["q19"]))}
+    out = {"device": smi, "queries": {}}
+    rows_on = {}
+    index_fallbacks = {}
+    for mode in ("on", "off"):
+        set_native(ht, mode == "on")
+        for name, (s, q) in queries.items():
+            before = {n: counter_values(n) for n in ("hs_native_decode_total", "hs_native_decode_bytes_total",
+                                                     "hs_native_fallback_total")}
+            layers, got, summary = sql_layers(s, q, 2)
+            delta = {n: counter_delta(counter_values(n), b) for n, b in before.items()}
+            decode = [ln for ln in summary.splitlines() if ln.startswith("decode:")]
+            if mode == "on":
+                rows_on[name] = got
+                if name in ("q6", "J1"):  # index files only
+                    index_fallbacks[name] = delta["hs_native_fallback_total"]
+                    assert not any(k in ("reason=dialect", "reason=io-error")
+                                   for k in delta["hs_native_fallback_total"]), (name, delta)
+                    assert decode and not any("pyarrow" in ln for ln in decode), (name, decode)
+            else:
+                ordered = name in ("q6", "J1")
+                ok = (same_batch(got, rows_on[name]) if ordered
+                      else same_groups(got, rows_on[name], float_columns(got), ordered=True))
+                assert ok, f"native {name}: rows differ with native decode off"
+            r = out["queries"].setdefault(name, {})
+            r[mode] = {"cold_ms": layers["cold"]["total"], "warm_ms": layers["warm"]["total"],
+                       "decode_ms": {"cold": layers["cold"].get("decode", 0.0),
+                                     "warm": layers["warm"].get("decode", 0.0)},
+                       "join_decode_ms": {"cold": layers["cold"].get("join_decode", 0.0),
+                                          "warm": layers["warm"].get("join_decode", 0.0)},
+                       "trace_decode": decode, "counters": delta, "layers_ms": layers}
+            print(f"native {name} ({mode}): cold {layers['cold']['total']:.3f} ms (decode "
+                  f"{layers['cold'].get('decode', 0.0):.3f}, join_decode {layers['cold'].get('join_decode', 0.0):.3f}),"
+                  f" warm {layers['warm']['total']:.3f} ms; {'; '.join(decode)}; counters {delta} ({smi})", flush=True)
+        del got
+    set_native(ht, True)
+    del rows_on
+    out["index_fallbacks"] = index_fallbacks
+
+    # the pinned decode against pageable decode plus .pin_memory(): q6 cold,
+    # and its index columns decoded and staged alone, in turns
+    q6 = queries["q6"][1]
+    files = list(sess.index_manager.get_index("li_shipdate").content.files)
+    cols = ["l_shipdate", "l_quantity", "l_discount", "l_extendedprice"]
+    pin = {"q6_cold": {True: [], False: []}, "stage": {True: [], False: []}}
+    for pinned in (True, False, True, False):
+        IO.set_pinned_decode(pinned)
+        layers, _got, _summary = sql_layers(sess, q6, 1)
+        pin["q6_cold"][pinned].append({k: layers["cold"].get(k, 0.0) for k in ("decode", "upload", "total")})
+        IO.clear_io_cache()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        batch = IO.read_parquet_batch(files, cols)
+        t1 = time.perf_counter()
+        for c in cols:
+            _dev, _codec, _n, ready = D._stage_encoded(batch[c], cuda)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        pin["stage"][pinned].append({"decode": (t1 - t) * 1e3, "stage": (t2 - t1) * 1e3,
+                                     "bytes": int(sum(batch[c].nbytes for c in cols))})
+        del batch
+    IO.set_pinned_decode(True)
+    out["pinned_vs_pageable"] = {("pinned" if k else "pageable"): v for k, v in pin["q6_cold"].items()}
+    out["stage_pinned_vs_pageable"] = {("pinned" if k else "pageable"): v for k, v in pin["stage"].items()}
+    for label, runs in (("q6 cold", out["pinned_vs_pageable"]), ("stage li_shipdate", out["stage_pinned_vs_pageable"])):
+        print(f"native pinned vs pageable, {label}: {runs} ({smi})", flush=True)
+    host_stats = getattr(torch.cuda, "host_memory_stats", None)
+    out["host_memory"] = {k: v for k, v in (host_stats() if host_stats else {}).items() if "bytes" in k}
+    print(f"native pinned host memory (torch's caching host allocator): {out['host_memory'] or 'not reported'}",
+          flush=True)
+
+    # dict-expand: a string filter over the dictionary-encoded source lake,
+    # hyperspace off, deviceMinRows=0, streamed one file per chunk
+    src_files = sorted(os.path.join(li_src, f) for f in os.listdir(li_src) if f.endswith(".parquet"))
+    sess.conf.set(ht.keys.STREAM_CHUNK_BYTES, os.path.getsize(src_files[0]))
+    q = sess.read_parquet(li_src).filter(ht.col("l_returnflag") == "R")
+    D.reset_dispatches()
+    with sess.hyperspace_scope(False):
+        with trace.recording() as events:
+            n_dev = sum(len(ch["l_orderkey"]) for ch in q.to_local_iterator())
+        sess.conf.set(ht.keys.DEVICE_MIN_ROWS, 1 << 25)
+        n_host = len(q.collect()["l_orderkey"])
+        sess.conf.set(ht.keys.DEVICE_MIN_ROWS, 0)
+    sess.conf.set(ht.keys.STREAM_CHUNK_BYTES, 128 << 20)
+    expands = D.dispatches["dict-expand"]
+    assert n_dev == n_host > 0 and expands > 0 and ("filter", "device") in events, (n_dev, n_host, dict(D.dispatches))
+    arr = IO.read_parquet_batch([src_files[0]], ["l_returnflag"])["l_returnflag"]
+    codes, remap, _codec = D._dict_plan(arr)
+    codes_dev, remap_dev = torch.from_numpy(codes).to(cuda), torch.from_numpy(remap).to(cuda)
+    got = D.dict_expand_program(codes_dev, remap_dev)
+    t = time.perf_counter()
+    want = D.dict_expand_plain(codes, remap)
+    plain_ms = (time.perf_counter() - t) * 1e3
+    assert got.cpu().numpy().tobytes() == want.tobytes()
+    b_ms, by = bound(codes.nbytes * 2 + remap.nbytes, codes.size, hbm)
+    prog_ms = time_ms(lambda: D.dict_expand_program(codes_dev, remap_dev), args.reps)
+    out["dict_expand"] = {"rows": n_dev, "launches": expands, "shape": f"{codes.size} int32 codes, remap {remap.size}",
+                          "ms": prog_ms, "bound_ms": b_ms, "bound_by": by, "plain_ms": plain_ms}
+    print(f"native dict-expand: l_returnflag == 'R' over the source (hyperspace off, deviceMinRows=0): {n_dev} rows "
+          f"== host; {expands} dispatches; program {prog_ms:.6f} ms on {codes.size} codes, bound {b_ms:.6f} ms "
+          f"({by}), plain {plain_ms:.3f} ms ({smi})", flush=True)
+
+    # li_skip rebuilt from native decode (K2), K2 and K1 on natively decoded
+    # values against their plain versions
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t = time.perf_counter()
+    with trace.recording() as events:
+        entry = hs.create_index(df, ht.DataSkippingIndexConfig(
+            "li_skip_native", ht.MinMaxSketch("l_extendedprice"), ht.MinMaxSketch("l_orderkey")))
+    torch.cuda.synchronize()
+    skip_s = time.perf_counter() - t
+    launches = dict(kernels.launches)
+    decode = sorted({detail for kind, detail in events if kind == "decode"})
+    assert launches.get("segmented_min_max", 0) > 0 and "native-rg" in decode, (launches, decode)
+    check_sketches(entry, index_of_entry(entry))
+    IO.clear_io_cache()
+    segs = [np.asarray(IO.read_parquet_batch([f], ["l_extendedprice"])["l_extendedprice"]) for f in src_files]
+    _values, _offsets, k2_err = check_minmax(segs)
+    keys = np.asarray(IO.read_parquet_batch([src_files[0]], ["l_orderkey"])["l_orderkey"])
+    _perm, counts = bucket_sort_build([torch.from_numpy(keys).to(cuda)], [], ("i",), 200, len(keys))
+    want_counts = np.bincount(bucket_ids_np([numeric_hash32(keys)], 200), minlength=200)
+    assert np.array_equal(counts.cpu().numpy(), want_counts), "K1 on a natively decoded key"
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    out["launches"] = launches
+    out["li_skip_native"] = {"seconds": skip_s, "decode": decode, "k2_max_abs_err": k2_err}
+    print(f"native li_skip rebuilt from native decode ({decode}) in {skip_s:.3f} s; sketches equal numpy; K2 on "
+          f"natively decoded values equals its plain version; K1 on a natively decoded key equals numpy's "
+          f"bincount; launches {launches} ({smi})", flush=True)
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6257,6 +6681,10 @@ def main() -> None:
         phase("fusion-small", t)
 
         t = time.perf_counter()
+        native_small = check_native_small(tmp, args.seed)
+        phase("native-small", t)
+
+        t = time.perf_counter()
         src = gen_lineitem(tmp, args.rows, args.files, args.seed)
         print(f"lake: {args.rows} lineitem rows in {args.files} files", flush=True)
         phase("generate", t)
@@ -6360,10 +6788,16 @@ def main() -> None:
         phase("delta", t)
 
         t = time.perf_counter()
-        queries["sql"] = run_sql(tmp, args, smi, hbm)
+        queries["sql"], sql_sess = run_sql(tmp, args, smi, hbm)
         queries["sql"]["small"] = sql_small
         queries["sql"]["bcast_small"] = bcast_small
         phase("sql", t)
+
+        t = time.perf_counter()
+        queries["native"] = run_native(sess, hs, df, src, j1, sql_sess, args, smi, hbm)
+        queries["native"]["small"] = native_small
+        del sql_sess
+        phase("native", t)
 
         t = time.perf_counter()
         queries["topk"] = run_topk(sess, src, args, smi, hbm)
@@ -6397,6 +6831,7 @@ def main() -> None:
                 "api-small": api_small["launches"].get(name, 0),
                 "nested-small": nested_small["launches"].get(name, 0),
                 "nested": sum(b["launches"].get(name, 0) for b in queries["nested"]["builds"].values()),
+                "native": queries["native"]["launches"].get(name, 0),
             }
 
         t = time.perf_counter()

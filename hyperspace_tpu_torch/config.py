@@ -1,8 +1,8 @@
 """Configuration system.
 
 The keys, defaults and typed accessors the index build and lifecycle, the
-filter query, the joins, the aggregate, the top-k, scan pruning, hybrid scan
-and the source providers read, under the same names and with the same defaults as the JAX package's
+filter query, the joins, the aggregate, the top-k, scan pruning, hybrid scan,
+the source providers, native decode and the reliability layer read, under the same names and with the same defaults as the JAX package's
 ``hyperspace_tpu/config.py`` so one conf dict drives either package; the
 port ignores the keys it does not read. Keys are namespaced ``hyperspace.*``.
 """
@@ -63,6 +63,20 @@ class keys:
     PARALLEL_MESH_DEVICES = "hyperspace.parallel.mesh.devices"
     PARALLEL_MIN_ROWS = "hyperspace.parallel.minRows"
     PARALLEL_BUILD_ENABLED = "hyperspace.parallel.build.enabled"
+    EXEC_IO_NATIVE_ENABLED = "hyperspace.exec.io.native.enabled"
+    EXEC_IO_NATIVE_ROWGROUP = "hyperspace.exec.io.native.rowGroupDecode"
+    EXEC_IO_NATIVE_MAX_DICT = "hyperspace.exec.io.native.maxDictEntries"
+    RELIABILITY_FAULTS_ENABLED = "hyperspace.reliability.faults.enabled"
+    RELIABILITY_FAULTS_SPEC = "hyperspace.reliability.faults.spec"
+    RELIABILITY_FAULTS_SEED = "hyperspace.reliability.faults.seed"
+    RELIABILITY_RETRY_ENABLED = "hyperspace.reliability.retry.enabled"
+    RELIABILITY_RETRY_MAX_ATTEMPTS = "hyperspace.reliability.retry.maxAttempts"
+    RELIABILITY_RETRY_BASE_MS = "hyperspace.reliability.retry.baseMs"
+    RELIABILITY_RETRY_CAP_MS = "hyperspace.reliability.retry.capMs"
+    RELIABILITY_QUARANTINE_ENABLED = "hyperspace.reliability.quarantine.enabled"
+    RELIABILITY_QUARANTINE_THRESHOLD = "hyperspace.reliability.quarantine.threshold"
+    RELIABILITY_QUARANTINE_COOLDOWN_SECONDS = "hyperspace.reliability.quarantine.cooldownSeconds"
+    FABRIC_ENABLED = "hyperspace.fabric.enabled"
 
     # the JAX package's names for the keys above that the port names
     # otherwise (the same strings), so code written against either resolves
@@ -222,6 +236,38 @@ DEFAULTS: Dict[str, Any] = {
     # minRows rows; below, or with it off, numpy evaluates it on the host
     keys.LIFECYCLE_DEVICE_LINEAGE_ENABLED: True,
     keys.LIFECYCLE_DEVICE_LINEAGE_MIN_ROWS: 4096,
+    # native parquet decode (exec/io.py over the C++ decoder of native/,
+    # built into _build/ at first use): `enabled` gates all of it (the
+    # row-group fast path and the per-file native-first read);
+    # `rowGroupDecode` gates the parallel row-group fast path alone;
+    # string columns whose every chunk has a dictionary of at most
+    # `maxDictEntries` entries ship codes and the dictionary, and expand on
+    # the device (0 turns that off)
+    keys.EXEC_IO_NATIVE_ENABLED: True,
+    keys.EXEC_IO_NATIVE_ROWGROUP: True,
+    keys.EXEC_IO_NATIVE_MAX_DICT: 4096,
+    # fault injection at the lake IO seams (reliability/faults.py): off, the
+    # registry stays empty and every seam costs one attribute read; the spec
+    # installs seeded rules ("site:kind[:glob=..][:nth=N][:p=F][:delay=S]
+    # [:max=N]" joined by ";")
+    keys.RELIABILITY_FAULTS_ENABLED: False,
+    keys.RELIABILITY_FAULTS_SPEC: "",
+    keys.RELIABILITY_FAULTS_SEED: 0,
+    # retry of transient IO errors with decorrelated-jitter backoff
+    # (reliability/retry.py); off, a failing read surfaces at once
+    keys.RELIABILITY_RETRY_ENABLED: False,
+    keys.RELIABILITY_RETRY_MAX_ATTEMPTS: 4,
+    keys.RELIABILITY_RETRY_BASE_MS: 5.0,
+    keys.RELIABILITY_RETRY_CAP_MS: 100.0,
+    # the index quarantine breaker (reliability/degrade.py): this many
+    # corrupt reads of one index's files take it out of planning (queries
+    # read the source) until a half-open probe after the cooldown reads clean
+    keys.RELIABILITY_QUARANTINE_ENABLED: False,
+    keys.RELIABILITY_QUARANTINE_THRESHOLD: 3,
+    keys.RELIABILITY_QUARANTINE_COOLDOWN_SECONDS: 30.0,
+    # the multi-process serving fabric (ROADMAP A9): the commit bus raises
+    # "not yet in the port" when it would persist a commit record
+    keys.FABRIC_ENABLED: False,
 }
 
 REFRESH_MODE_INCREMENTAL = "incremental"
@@ -456,3 +502,59 @@ class HyperspaceConf:
     @property
     def pipeline_max_buffered_bytes(self) -> int:
         return int(self.get(keys.PIPELINE_MAX_BUFFERED_BYTES))
+
+    @property
+    def io_native_enabled(self) -> bool:
+        return bool(self.get(keys.EXEC_IO_NATIVE_ENABLED))
+
+    @property
+    def io_native_rowgroup(self) -> bool:
+        return bool(self.get(keys.EXEC_IO_NATIVE_ROWGROUP))
+
+    @property
+    def io_native_max_dict_entries(self) -> int:
+        return int(self.get(keys.EXEC_IO_NATIVE_MAX_DICT))
+
+    @property
+    def reliability_faults_enabled(self) -> bool:
+        return bool(self.get(keys.RELIABILITY_FAULTS_ENABLED))
+
+    @property
+    def reliability_faults_spec(self) -> str:
+        return str(self.get(keys.RELIABILITY_FAULTS_SPEC) or "")
+
+    @property
+    def reliability_faults_seed(self) -> int:
+        return int(self.get(keys.RELIABILITY_FAULTS_SEED))
+
+    @property
+    def reliability_retry_enabled(self) -> bool:
+        return bool(self.get(keys.RELIABILITY_RETRY_ENABLED))
+
+    @property
+    def reliability_retry_max_attempts(self) -> int:
+        return int(self.get(keys.RELIABILITY_RETRY_MAX_ATTEMPTS))
+
+    @property
+    def reliability_retry_base_ms(self) -> float:
+        return float(self.get(keys.RELIABILITY_RETRY_BASE_MS))
+
+    @property
+    def reliability_retry_cap_ms(self) -> float:
+        return float(self.get(keys.RELIABILITY_RETRY_CAP_MS))
+
+    @property
+    def reliability_quarantine_enabled(self) -> bool:
+        return bool(self.get(keys.RELIABILITY_QUARANTINE_ENABLED))
+
+    @property
+    def reliability_quarantine_threshold(self) -> int:
+        return int(self.get(keys.RELIABILITY_QUARANTINE_THRESHOLD))
+
+    @property
+    def reliability_quarantine_cooldown_seconds(self) -> float:
+        return float(self.get(keys.RELIABILITY_QUARANTINE_COOLDOWN_SECONDS))
+
+    @property
+    def fabric_enabled(self) -> bool:
+        return bool(self.get(keys.FABRIC_ENABLED))

@@ -82,7 +82,7 @@ from hyperspace_tpu_torch.exec.device import (
     _pack_literals,
     _put_encoded,
     compile_predicate,
-    dispatches,
+    count_dispatch,
     predicate_skeleton,
     upload_literals,
 )
@@ -248,7 +248,7 @@ def device_filtered_aggregate(
         pred_fn, lit_values = None, ()
     program = fused_agg_program(pred_fn, tuple((fn, c) for _, fn, c in aggs))
     outs, valids = program(dev_cols, upload_literals(lit_values, session.device), n)
-    dispatches["fused-agg"] += 1
+    count_dispatch("fused-agg")
     outs, valids = _read_scalars(outs, valids)
     t = _add(session, "agg_program", t)
 
@@ -761,7 +761,7 @@ class GroupedAggStream:
         while True:
             program = grouped_chunk_program(pred_fn, key_specs, self._slots, cap)
             n_g, fs, key_out, slot_out = program(dev_cols, lits, n, self._row_base)
-            dispatches["grouped-agg-chunk"] += 1
+            count_dispatch("grouped-agg-chunk")
             if n_g > self.max_groups:
                 t = _add(self.session, "agg_program", t)
                 # this chunk is NOT in the running partial (folded is False)
@@ -881,7 +881,7 @@ class GroupedAggStream:
             tuple(a["keys"]), tuple(b["keys"]), tuple(a["slots"]), tuple(b["slots"]),
             a["fs"], b["fs"], a["n"], b["n"],
         )
-        dispatches["grouped-merge"] += 1
+        count_dispatch("grouped-merge")
         self._partial = {"cap": cap_out, "n": n_g, "fs": fs, "keys": list(key_out), "slots": list(slot_out)}
         self._cap_hint = max(self._cap_hint, n_g)
         _add(self.session, "agg_merge", t)

@@ -1,7 +1,9 @@
 """Columnar batch: a dict ``column name -> numpy array`` (object dtype for
 strings), the host-side unit flowing between physical operators. The device
 filter dictionary-encodes string columns into int32 codes so everything on
-the device is dense numeric (see exec/device.py)."""
+the device is dense numeric (see exec/device.py); a string column the native
+decoder read from dictionary pages arrives as a ``DictBackedArray`` and
+ships its codes instead."""
 
 from __future__ import annotations
 
@@ -11,6 +13,33 @@ import numpy as np
 import pyarrow as pa
 
 Batch = Dict[str, np.ndarray]
+
+
+class DictBackedArray(np.ndarray):
+    """Object array of strings that remembers the dictionary encoding it was
+    decoded from (parquet RLE_DICTIONARY via the native row-group reader).
+
+    ``hs_dict_codes`` is an int32 array (-1 = null) indexing into
+    ``hs_dict_uniques`` (object array, file order — NOT sorted). Host
+    operators see a plain object array of str/None; the device staging path
+    (exec/device.py) spots the attributes and ships the narrow codes +
+    dictionary instead of bytes×rows, expanding on-device.
+
+    Derived arrays (slices, masks, concat) intentionally do NOT inherit the
+    attributes — numpy only propagates them through an __array_finalize__
+    that copies, which we omit — so any reshaped view degrades to plain
+    value semantics instead of carrying stale codes.
+    """
+
+    hs_dict_codes: Optional[np.ndarray] = None
+    hs_dict_uniques: Optional[np.ndarray] = None
+
+
+def dict_backed(values: np.ndarray, codes: np.ndarray, uniques: np.ndarray) -> DictBackedArray:
+    arr = values.view(DictBackedArray)
+    arr.hs_dict_codes = codes
+    arr.hs_dict_uniques = uniques
+    return arr
 
 
 def table_to_batch(table: pa.Table) -> Batch:

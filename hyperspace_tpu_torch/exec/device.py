@@ -10,7 +10,10 @@ pairs, the same rejections.
 
 Strings are dictionary-encoded host-side; predicate literals are translated
 into code space via the sorted dictionary, so <, <=, =, >=, > on strings all
-lower to integer compares on the device.
+lower to integer compares on the device. A string column the native decoder
+read from dictionary pages (``B.DictBackedArray``) ships its int32 codes and
+a remap table instead, and the ``dict-expand`` program ranks the codes on
+the device into the same encoding.
 
 Three torch semantics differ from JAX's under x64 and are handled here:
 ``int64 / int64`` is float32 in torch (float64 in JAX), so integer true
@@ -50,6 +53,7 @@ from hyperspace_tpu_torch.plan.expr import (
     Lit,
     Not,
 )
+from hyperspace_tpu_torch.reliability.faults import FAULTS
 from hyperspace_tpu_torch.utils.lru import BytesLRU
 
 
@@ -58,15 +62,30 @@ class DeviceUnsupported(Exception):
 
 
 #: device programs run per family since the last ``reset_dispatches()``
-#: ("fused-filter": one per filter evaluated on the device; the broadcast
-#: join's "hash-build", "hash-probe" and "fused-postjoin" in
-#: exec/join_stream.py; the top-k's "topk-chunk" and "topk-merge" in
-#: exec/topk.py)
+#: ("fused-filter": one per filter evaluated on the device; "dict-expand":
+#: one per dictionary-coded string column uploaded; the broadcast join's
+#: "hash-build", "hash-probe" and "fused-postjoin" in exec/join_stream.py;
+#: the top-k's "topk-chunk" and "topk-merge" in exec/topk.py)
 dispatches: collections.Counter = collections.Counter()
 
 
 def reset_dispatches() -> None:
     dispatches.clear()
+
+
+def count_dispatch(program: str) -> None:
+    """Count one device-program dispatch under its family name, in
+    ``dispatches`` and in the metrics registry's
+    ``hs_device_dispatches_total{program}`` (the JAX package's name for the
+    same count; ``reset_dispatches`` leaves the registry's running total)."""
+    dispatches[program] += 1
+    from hyperspace_tpu_torch.obs.metrics import REGISTRY
+
+    REGISTRY.counter(
+        "hs_device_dispatches_total",
+        "Device-program dispatches, by program family",
+        program=program,
+    ).inc()
 
 
 # Geometric sizes: powers of sqrt(2) over a floor. The JAX package pads its
@@ -591,6 +610,26 @@ def _dry_codecs(batch: B.Batch, refs) -> Dict[str, ColumnCodec]:
     return out
 
 
+def purge_device_cache_files(paths) -> int:
+    """Drop every resident device column whose scan covers any of ``paths``
+    (commit invalidation, lifecycle/invalidation.py); returns the entries
+    removed. Column keys are ``(scan_key, column, device)``, and a scan key
+    is a tuple of ``(path, mtime_ns, size)`` triples (with a pruning marker
+    after them, where there is one)."""
+    wanted = set(paths)
+    if not wanted:
+        return 0
+    removed = 0
+    for key in _device_cache.keys():
+        scan_key = key[0] if isinstance(key, tuple) and key else None
+        if not isinstance(scan_key, tuple):
+            continue
+        hit = any(isinstance(part, tuple) and part and part[0] in wanted for part in scan_key)
+        if hit and _device_cache.discard(key):
+            removed += 1
+    return removed
+
+
 def _host_tensor(enc: np.ndarray) -> torch.Tensor:
     with warnings.catch_warnings():
         # scan-cache arrays are read-only; the upload only reads them
@@ -598,10 +637,80 @@ def _host_tensor(enc: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(enc))
 
 
-def _put_encoded(arr: np.ndarray, device: torch.device) -> Tuple[torch.Tensor, ColumnCodec, int]:
-    """Encode and upload one column; returns (tensor, codec, bytes)."""
+def _staging_host(enc: np.ndarray, device: torch.device) -> torch.Tensor:
+    """The host tensor a copy to ``device`` reads: the array's own memory,
+    which for a column the native decoder wrote under a CUDA session is
+    already pinned (exec/io.py ``set_pinned_decode``); any other array is
+    copied into pinned memory first when the copy goes to a CUDA device."""
+    host = _host_tensor(enc)
+    if device.type == "cuda" and not host.is_pinned():
+        host = host.pin_memory()
+    return host
+
+
+def dict_expand_program(codes: torch.Tensor, remap: torch.Tensor) -> torch.Tensor:
+    """"dict-expand": each int32 dictionary code to its rank in the sorted
+    dictionary through the remap table, -1 (null) kept. The gather index is
+    clamped into the table, so a -1 code never indexes (an out-of-range
+    gather is a device assert on CUDA)."""
+    idx = codes.clamp(0, remap.shape[0] - 1).long()
+    return torch.where(codes >= 0, remap[idx], torch.full_like(codes, -1))
+
+
+def dict_expand_plain(codes: np.ndarray, remap: np.ndarray) -> np.ndarray:
+    """The numpy version of ``dict_expand_program``."""
+    return np.where(codes >= 0, remap[np.clip(codes, 0, remap.shape[0] - 1)], np.int32(-1)).astype(np.int32)
+
+
+def _dict_plan(arr: np.ndarray):
+    """(int32 codes, remap table, codec) of a dictionary-backed string column
+    (``B.DictBackedArray`` from the native decoder), else None. The remap
+    table maps a code to its rank among the sorted dictionary entries; its
+    length is a power of two. The codec's uniques are the sorted entries,
+    so literal bounds resolve as on the ``factorize_strings`` path."""
+    codes = getattr(arr, "hs_dict_codes", None)
+    uniques = getattr(arr, "hs_dict_uniques", None)
+    if codes is None or uniques is None or codes.shape[0] != arr.shape[0]:
+        return None
+    order = np.argsort(uniques, kind="stable")
+    k = int(order.shape[0])
+    rank = np.empty(k, dtype=np.int32)
+    rank[order] = np.arange(k, dtype=np.int32)
+    cap = 1
+    while cap < max(k, 1):
+        cap *= 2
+    remap = np.zeros(cap, dtype=np.int32)
+    remap[:k] = rank
+    return np.ascontiguousarray(codes, dtype=np.int32), remap, ColumnCodec("string", uniques=uniques[order])
+
+
+def _encoded_for_upload(arr: np.ndarray):
+    """(host array to copy, remap table or None, codec) of one column: a
+    dictionary-backed string column's int32 codes and remap table
+    (``_dict_plan``), else ``encode_column``'s encoding."""
+    plan = _dict_plan(arr)
+    if plan is not None:
+        return plan
     enc, codec = encode_column(arr)
-    return _host_tensor(enc).to(device), codec, int(enc.nbytes)
+    return enc, None, codec
+
+
+def _dict_expand(codes_dev: torch.Tensor, remap: np.ndarray, device: torch.device) -> torch.Tensor:
+    remap_dev = _host_tensor(remap).to(device)
+    out = dict_expand_program(codes_dev, remap_dev)
+    count_dispatch("dict-expand")
+    return out
+
+
+def _put_encoded(arr: np.ndarray, device: torch.device) -> Tuple[torch.Tensor, ColumnCodec, int]:
+    """Encode and upload one column; returns (tensor, codec, bytes). A
+    dictionary-backed string column uploads its int32 codes and the remap
+    table, and ``dict-expand`` ranks them on the device."""
+    enc, remap, codec = _encoded_for_upload(arr)
+    dev = _host_tensor(enc).to(device)
+    if remap is None:
+        return dev, codec, int(enc.nbytes)
+    return _dict_expand(dev, remap, device), codec, int(enc.nbytes + remap.nbytes)
 
 
 def _cached_column(ckey, n: int):
@@ -635,9 +744,10 @@ _STAGE_STREAMS = threading.local()
 
 def _stage_encoded(arr: np.ndarray, device: torch.device):
     """Encode one column and copy it to ``device`` from the calling
-    thread: on CUDA from pinned host memory on the thread's own side
-    stream, without blocking, followed by an event the consumer waits on.
-    Returns (tensor, codec, bytes, ready event or None)."""
+    thread: on CUDA from pinned host memory (the native decoder's buffer
+    where it is pinned, else a pinned copy) on the thread's own side
+    stream, followed by an event the consumer waits on. Returns (tensor,
+    codec, bytes, ready event or None)."""
     if device.type != "cuda":
         dev, codec, nbytes = _put_encoded(arr, device)
         return dev, codec, nbytes, None
@@ -648,13 +758,22 @@ def _stage_encoded(arr: np.ndarray, device: torch.device):
     stream = streams.get(device.index)
     if stream is None:
         stream = streams[device.index] = torch.cuda.Stream(device)
-    enc, codec = encode_column(arr)
-    host = _host_tensor(enc).pin_memory()
+    enc, remap, codec = _encoded_for_upload(arr)
+    host = _staging_host(enc, device)
     with torch.cuda.stream(stream):
         dev = host.to(device, non_blocking=True)
+        nbytes = int(enc.nbytes)
+        if remap is not None:
+            dev = _dict_expand(dev, remap, device)
+            nbytes += int(remap.nbytes)
         ready = torch.cuda.Event()
         ready.record(stream)
-    return dev, codec, int(enc.nbytes), ready
+    if host.data_ptr() == enc.ctypes.data:
+        # the copy reads the pinned decode buffer itself, which the caching
+        # host allocator does not track for this copy: the buffer must
+        # outlive it, so this producer thread waits for the copy
+        ready.synchronize()
+    return dev, codec, nbytes, ready
 
 
 def stage_filter_columns(session, batch: B.Batch, condition: Optional[Expr], scan_key, extra_columns=None,
@@ -681,6 +800,8 @@ def stage_filter_columns(session, batch: B.Batch, condition: Optional[Expr], sca
     try:
         if condition is not None:
             _pack_literals(compile_predicate(condition, _dry_codecs(batch, refs))[1])
+        if FAULTS.active:
+            FAULTS.check("device.transfer")
         for r in cols:
             ckey = (scan_key, r, str(session.device))
             cached = _device_cache.get(ckey)
@@ -737,7 +858,7 @@ def device_filter_mask(session, batch: B.Batch, condition: Expr, scan_key=None) 
     t = time.perf_counter()
     fn, lit_values = compile_predicate(condition, codecs)
     mask = fn(dev_cols, upload_literals(lit_values, device))
-    dispatches["fused-filter"] += 1
+    count_dispatch("fused-filter")
     if mask.dim() == 0:  # a predicate over literals only
         mask = mask.expand(n)
     t1 = time.perf_counter()

@@ -16,11 +16,13 @@ This is the port of the JAX package's bucketed join
      both sides for composite and string keys;
   3. per bucket, every left row's span ``[lo, hi)`` of equal right keys:
      on the device (``bucketed-smj-span``) above ``deviceMinRows`` input
-     rows, else on the host (``np.searchsorted``);
+     rows, else on the host (the native merge walk ``native.merge_spans``,
+     or ``np.searchsorted`` without the library);
   4. the pairs expand and the output columns gather: for an inner join on
      the device (``join-expand-gather``; string columns gather on the host
-     from the downloaded row indexes), otherwise on the host, where outer
-     joins null-extend their unmatched rows.
+     from the downloaded row indexes), otherwise on the host (the native
+     ``native.expand_pairs``, numpy past int32 range), where outer joins
+     null-extend their unmatched rows.
 
 The device programs are torch programs on the session's device, like the
 filter's predicate program; the JAX package's are XLA programs. Only
@@ -49,10 +51,11 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from hyperspace_tpu_torch import native
 from hyperspace_tpu_torch.exec import batch as B
 from hyperspace_tpu_torch.exec import trace
 from hyperspace_tpu_torch.exec.aggregate import _AGG_FNS
-from hyperspace_tpu_torch.exec.device import DeviceUnsupported, _device_cache, dispatches
+from hyperspace_tpu_torch.exec.device import DeviceUnsupported, _device_cache, count_dispatch
 from hyperspace_tpu_torch.ops.encode import sort_key_int64
 from hyperspace_tpu_torch.plan import logical as L
 from hyperspace_tpu_torch.plan.expr import (
@@ -61,6 +64,7 @@ from hyperspace_tpu_torch.plan.expr import (
     extract_equi_join_keys,
     strip_nested_prefix,
 )
+from hyperspace_tpu_torch.reliability.faults import FAULTS
 from hyperspace_tpu_torch.utils.lru import BytesLRU
 
 #: key of the padding slots of the key rectangles: above every real key
@@ -561,8 +565,8 @@ def _chunk_nbytes(batch: B.Batch) -> int:
 
 def stream_bucketed_join(session, plan: L.Join, _compat=None):
     """Yield the bucketed join's output ONE BUCKET AT A TIME: per bucket,
-    both sides decode, the keys encode, the spans come from
-    ``np.searchsorted``, the pairs expand, and the chunk is yielded before
+    both sides decode, the keys encode, the spans come from the native
+    merge walk (``np.searchsorted`` without it), the pairs expand, and the chunk is yielded before
     the next bucket's expansion. No state spans buckets, so memory stays
     O(bucket pair + one output chunk) at any scale (ref:
     HS/index/covering/JoinIndexRule.scala:604-705).
@@ -574,9 +578,8 @@ def stream_bucketed_join(session, plan: L.Join, _compat=None):
     cancel-safe on generator close. Off, the serial loop gives the same
     chunks.
 
-    This is host work, as in the JAX package (whose native span walk the
-    port does not have: it takes the JAX package's ``np.searchsorted``
-    branch). Used above ``hyperspace.exec.stream.joinMinBytes`` by
+    This is host work, as in the JAX package. Each bucket's decode passes
+    the ``join.task`` fault seam first. Used above ``hyperspace.exec.stream.joinMinBytes`` by
     ``dispatch_bucketed_join`` and by ``DataFrame.to_local_iterator``.
     Chunk dtypes may differ across buckets (a nullable int column is
     float64 only in chunks holding nulls); ``B.concat`` promotes."""
@@ -602,6 +605,8 @@ def stream_bucketed_join(session, plan: L.Join, _compat=None):
     def decode_pair(b):
         """The producer half: both sides' decodes and the span keys' encoding
         (after the decode, the bucket's largest host cost)."""
+        if FAULTS.active:
+            FAULTS.check("join.task")
         t = time.perf_counter()
         lt, rt = lread.get(b), rread.get(b)
         lb = lt() if lt is not None else None
@@ -637,7 +642,10 @@ def stream_bucketed_join(session, plan: L.Join, _compat=None):
         if lb is not None and rb is not None:
 
             def span_of(_b, lk=lk, rk=rk):
-                return np.searchsorted(rk, lk, side="left"), np.searchsorted(rk, lk, side="right")
+                try:
+                    return native.merge_spans(lk, rk)
+                except native.NativeUnsupported:
+                    return np.searchsorted(rk, lk, side="left"), np.searchsorted(rk, lk, side="right")
 
         chunk = _expand_join_pairs(
             plan,
@@ -783,7 +791,13 @@ def _join_column_dtype(name: str, source, lbuckets, rbuckets, participating, fal
 
 
 def _expand_inner(lo_b: np.ndarray, counts: np.ndarray, chunk_total: int) -> Tuple[np.ndarray, np.ndarray]:
-    """(left row, right row) index arrays of the pairs of one bucket."""
+    """(left row, right row) index arrays of the pairs of one bucket: the
+    native pair expansion (int32), or numpy's (int64) past int32 range or
+    without the library."""
+    try:
+        return native.expand_pairs(lo_b, np.asarray(lo_b, dtype=np.int64) + counts, chunk_total)
+    except native.NativeUnsupported:
+        pass
     lidx = np.repeat(np.arange(counts.shape[0]), counts)
     offsets = np.concatenate([[0], np.cumsum(counts)[:-1]])
     ridx = np.arange(chunk_total) - np.repeat(offsets, counts) + np.repeat(lo_b, counts)
@@ -941,15 +955,21 @@ def _make_host_span_of(session, setup, compat):
 
     def span_of(b: int):
         lk, rk = lkeys_by_bucket[b], rkeys_by_bucket[b]
-        trace.record("spans", "searchsorted")
-        return np.searchsorted(rk, lk, side="left"), np.searchsorted(rk, lk, side="right")
+        try:
+            # one O(n+m) merge walk in C over the pre-sorted runs
+            spans = native.merge_spans(lk, rk)
+            trace.record("spans", "native")
+            return spans
+        except native.NativeUnsupported:
+            trace.record("spans", "searchsorted")
+            return np.searchsorted(rk, lk, side="left"), np.searchsorted(rk, lk, side="right")
 
     return span_of
 
 
 def host_bucketed_join(session, plan: L.Join, compat=None, setup=None) -> B.Batch:
-    """The bucketed join with spans computed on the host (``np.searchsorted``
-    over each bucket's sorted keys): below the device-dispatch row threshold
+    """The bucketed join with spans computed on the host (the native merge
+    walk, or ``np.searchsorted``, over each bucket's sorted keys): below the device-dispatch row threshold
     and above the span byte budget. Called alone (no ``compat`` or
     ``setup``), it analyses and decodes the sides itself."""
     if setup is None:
@@ -1071,7 +1091,7 @@ def device_bucketed_join(session, plan: L.Join, compat=None, setup=None) -> B.Ba
         t = _add(stages, "join_upload", t)
 
     lo, hi = bucketed_span(lmat_dev, rmat_dev)
-    dispatches["bucketed-smj-span"] += 1
+    count_dispatch("bucketed-smj-span")
     t = _add(stages, "join_span", t)
 
     if plan.how == "inner" and session.conf.join_device_materialize:
@@ -1177,7 +1197,7 @@ def _device_materialize_inner(session, plan: L.Join, lbuckets, rbuckets, lcols_n
         t = _add(stages, "join_upload", t)
 
     louts, routs, b_idx, i_idx, j_idx = expand_gather(lo, hi, llens, rlens, lmats_dev, rmats_dev, total)
-    dispatches["join-expand-gather"] += 1
+    count_dispatch("join-expand-gather")
     out: B.Batch = {}
     for name, arr in (*zip(l_device, louts), *zip(r_device, routs)):
         v = arr.cpu().numpy()

@@ -51,7 +51,7 @@ from hyperspace_tpu_torch.exec.device import (
     DeviceUnsupported,
     _host_tensor,
     compile_predicate,
-    dispatches,
+    count_dispatch,
     encode_column,
     predicate_skeleton,
     upload_literals,
@@ -92,7 +92,12 @@ def _plan_leaf_bytes(plan: L.LogicalPlan) -> Optional[int]:
                 if not leaf.files:
                     return None
                 total += sum(os.stat(f).st_size for f in leaf.files)
-        except OSError:
+        except Exception as exc:
+            # no estimate, no broadcast decision; counted, so a flaky mount
+            # that sends every join to the merge shows in the metrics
+            from hyperspace_tpu_torch.reliability.errors import count_io_error
+
+            count_io_error("join.stat", exc, swallowed=True)
             return None
     return total
 
@@ -210,7 +215,7 @@ def build_hash_side(session, build_plan: L.LogicalPlan, build_cols: List[str],
     n = B.num_rows(batch)
     hashes = [hash_input_uint32(batch[k]) for k in bkeys]
     table, order = hash_build_program(_upload_hash_planes(hashes, session.device))
-    dispatches["hash-build"] += 1
+    count_dispatch("hash-build")
     order_host = _copy_back(order)
     nbytes = sum(int(a.nbytes) for a in batch.values()) + int(table.nbytes) + int(order_host.nbytes)
     _add(session.query_stage_seconds, "join_build", t)
@@ -267,7 +272,7 @@ def _probe_chunk(session, build: BuildSide, chunk: B.Batch,
             arr = arr.astype(bdt)
         hashes.append(hash_input_uint32(arr))
     lo_d, hi_d = hash_probe_program(build.table, build.n, _upload_hash_planes(hashes, build.table.device))
-    dispatches["hash-probe"] += 1
+    count_dispatch("hash-probe")
     lo, hi = _copy_back(torch.stack([lo_d, hi_d]))
     t = _add(session.query_stage_seconds, "join_probe", t)
     counts = hi - lo
@@ -417,7 +422,7 @@ def _device_postjoin_mask(session, condition, pbatch: B.Batch, build: BuildSide,
     prog = _postjoin_program((skeleton, sides), list(refs), ref_on_probe, fn)
     mask = prog(pcols, bcols, _host_tensor(pidx).to(device), _host_tensor(bidx).to(device),
                 upload_literals(lits, device))
-    dispatches["fused-postjoin"] += 1
+    count_dispatch("fused-postjoin")
     if mask.dim() == 0:  # a predicate over literals only
         mask = mask.expand(n)
     return _copy_back(mask)

@@ -32,7 +32,7 @@ from hyperspace_tpu_torch.exec.device import (
     _device_cache,
     _host_tensor,
     _put_encoded,
-    dispatches,
+    count_dispatch,
 )
 
 #: sorted-ascending pad value of the id table: above any real lineage id, so
@@ -108,5 +108,5 @@ def lineage_delete_mask(session, batch: B.Batch, column: str, deleted_ids, scan_
             _device_cache.put(ckey, (dev_col, codec, n, None), nbytes)
     dev_ids = _host_tensor(table).to(device)
     mask = antijoin_program(dev_col, dev_ids, n_ids)
-    dispatches["lineage-antijoin"] += 1
+    count_dispatch("lineage-antijoin")
     return mask.cpu().numpy()[:n]

@@ -28,6 +28,8 @@ import threading
 from concurrent.futures import Future
 from typing import Callable, Dict, List, Optional, Sequence
 
+from hyperspace_tpu_torch.reliability.faults import FAULTS
+
 _PIPELINE_POOL = None
 _PIPELINE_POOL_LOCK = threading.Lock()
 _PRODUCER = threading.local()
@@ -63,6 +65,8 @@ class ScanPipeline:
     Cancel-safe: ``close()`` (called by ``__exit__``, by the consumer's
     ``finally`` on generator close, and at exhaustion) cancels queued tasks
     and waits for the ones in flight, so no worker outlives the stream.
+    A task's error (typed by the reliability layer where it is a lake IO
+    failure) reaches the consumer through its chunk's ``result()``.
     """
 
     def __init__(
@@ -90,6 +94,8 @@ class ScanPipeline:
     def _run(self, i: int):
         _PRODUCER.active = True
         try:
+            if FAULTS.active:
+                FAULTS.check("pipeline.task")
             out = self._tasks[i]()
             if self._stage is not None:
                 self._stage(i, out)

@@ -53,7 +53,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from hyperspace_tpu_torch.exec.device import dispatches
+from hyperspace_tpu_torch.exec import device as _device
 
 # --------------------------------------------------------------------------
 # conf gates
@@ -82,9 +82,9 @@ def donation_wanted(conf) -> bool:
 
 
 def count_dispatch(program: str) -> None:
-    """Count one device-program dispatch under its family name (the JAX
-    package's ``hs_device_dispatches_total{program}``)."""
-    dispatches[program] += 1
+    """Count one device-program dispatch under its family name
+    (``exec/device.count_dispatch``)."""
+    _device.count_dispatch(program)
 
 
 _peak_bytes = 0

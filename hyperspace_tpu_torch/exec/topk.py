@@ -194,7 +194,7 @@ class TopKStream:
         from hyperspace_tpu_torch.ops import sort as S
 
         out = S.topk_chunk_fn(len(self.keys), self.cap)(self._upload(np.stack(mat_rows)))
-        D.dispatches["topk-chunk"] += 1
+        D.count_dispatch("topk-chunk")
         return out
 
     def _run_fused(self, mat_rows: List[np.ndarray]):
@@ -237,7 +237,7 @@ class TopKStream:
             # combined encoding (O(cap) host work) before the device merge
             a, b = (self._upload(m) for m in self._rebuild_matrices(add_pool, add_rid))
         merged = S.topk_merge_fn(len(self.keys), self.cap)(a, b)
-        D.dispatches["topk-merge"] += 1
+        D.count_dispatch("topk-merge")
         self._state = merged
         mrid = merged[-1].cpu().numpy()
         return mrid[mrid < _SENT], pool_all, rid_all

@@ -157,23 +157,60 @@ class CachingIndexCollectionManager(IndexCollectionManager):
         finally:
             self.clear_cache()
 
+    # --- lifecycle commit publication --------------------------------------
+    def _pre_mutation_entry(self, name):
+        """The entry as it stands before a mutation, read straight from the
+        log (not the TTL cache), so the commit event names exactly the files
+        the mutation superseded."""
+        try:
+            log_m, _, _ = self._managers(name)
+            return log_m.get_latest_stable_log()
+        except Exception:
+            return None
+
+    def _publish_commit(self, kind, name, old, new):
+        """Publish one CommitEvent on the session bus after a successful
+        mutation. Affected files: the previous entry's index data files and
+        the source files the commit dropped from coverage, whose cached
+        derivatives are now stale."""
+        affected = []
+        try:
+            if old is not None:
+                affected.extend(old.content.files)
+                old_src = {fi.name for fi in old.source_file_infos()}
+                new_src = {fi.name for fi in new.source_file_infos()} if new is not None else set()
+                affected.extend(sorted(old_src - new_src))
+        except Exception:
+            affected = []  # a malformed entry must not fail the commit
+        from hyperspace_tpu_torch.lifecycle.invalidation import CommitEvent
+
+        self.session.lifecycle_bus.publish(CommitEvent(name, getattr(new, "id", None), kind, affected))
+
+    def _published(self, kind, name, fn, *args, **kwargs):
+        old = self._pre_mutation_entry(name)
+        entry = self._invalidating(fn, *args, **kwargs)
+        # only a mutation that returns publishes, so commit_seq counts real
+        # commits (NoChangesException and the like propagate before it)
+        self._publish_commit(kind, name, old, entry)
+        return entry
+
     def create(self, df, index_config):
-        return self._invalidating(super().create, df, index_config)
+        return self._published("create", index_config.index_name, super().create, df, index_config)
 
     def delete(self, name):
-        return self._invalidating(super().delete, name)
+        return self._published("delete", name, super().delete, name)
 
     def restore(self, name):
-        return self._invalidating(super().restore, name)
+        return self._published("restore", name, super().restore, name)
 
     def vacuum(self, name):
-        return self._invalidating(super().vacuum, name)
+        return self._published("vacuum", name, super().vacuum, name)
 
     def cancel(self, name):
-        return self._invalidating(super().cancel, name)
+        return self._published("cancel", name, super().cancel, name)
 
     def refresh(self, name, mode=C.REFRESH_MODE_FULL):
-        return self._invalidating(super().refresh, name, mode)
+        return self._published(f"refresh-{mode}", name, super().refresh, name, mode)
 
     def optimize(self, name, mode=C.OPTIMIZE_MODE_QUICK):
-        return self._invalidating(super().optimize, name, mode)
+        return self._published(f"optimize-{mode}", name, super().optimize, name, mode)

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import json
 import os
+from pathlib import Path
 from typing import List, Optional
 
 from hyperspace_tpu_torch import config as C
@@ -18,6 +19,21 @@ from hyperspace_tpu_torch.models.log_entry import IndexLogEntry
 from hyperspace_tpu_torch.utils.file_utils import write_atomic, write_atomic_exclusive
 
 LATEST_STABLE = "latestStable"
+
+#: _read_classified statuses: distinguishing missing from corrupt is what
+#: lets a torn trailing entry degrade to the prior version instead of
+#: making the whole index silently vanish
+READ_OK, READ_MISSING, READ_CORRUPT = "ok", "missing", "corrupt"
+
+
+def _count_corrupt(index: str) -> None:
+    from hyperspace_tpu_torch.obs.metrics import REGISTRY
+
+    REGISTRY.counter(
+        "hs_log_corrupt_total",
+        "operation-log entries that failed to parse (torn/corrupt writes)",
+        index=index,
+    ).inc()
 
 
 class IndexLogManager:
@@ -32,17 +48,38 @@ class IndexLogManager:
         return os.path.join(self.log_dir, str(log_id))
 
     def _read_classified(self, path: str):
-        """``(entry, corrupt)``: an absent or unreadable file is ``(None,
-        False)``; bytes that do not parse are ``(None, True)``, so a torn
-        trailing entry degrades to the prior version instead of making the
-        index vanish."""
-        try:
+        """``(entry, status)`` — status distinguishes a file that is absent
+        (READ_MISSING) from one whose bytes don't parse (READ_CORRUPT, which
+        bumps ``hs_log_corrupt_total`` and strikes the quarantine breaker)."""
+        from hyperspace_tpu_torch.reliability.degrade import QUARANTINE
+        from hyperspace_tpu_torch.reliability.faults import FAULTS
+        from hyperspace_tpu_torch.reliability.retry import with_retry
+
+        def _load() -> bytes:
             with open(path, "rb") as f:
-                return IndexLogEntry.from_json(f.read().decode("utf-8")), False
+                raw = f.read()
+            if FAULTS.active:
+                raw = FAULTS.mangle_bytes("log.read", path, raw)
+            return raw
+
+        try:
+            entry = IndexLogEntry.from_json(
+                with_retry(_load, op="log.read").decode("utf-8")
+            )
+        except FileNotFoundError:
+            return None, READ_MISSING
         except OSError:
-            return None, False
+            # unreadable, not provably torn: treated as missing (the prior
+            # behavior), but a transient here never marks the entry corrupt
+            return None, READ_MISSING
         except (json.JSONDecodeError, KeyError, UnicodeDecodeError, ValueError):
-            return None, True
+            _count_corrupt(self.index_name)
+            if QUARANTINE.enabled:
+                QUARANTINE.note_corrupt(path)
+            return None, READ_CORRUPT
+        if QUARANTINE.enabled:
+            QUARANTINE.note_ok(path)
+        return entry, READ_OK
 
     def _read(self, path: str) -> Optional[IndexLogEntry]:
         return self._read_classified(path)[0]
@@ -54,7 +91,9 @@ class IndexLogManager:
         """Highest numeric log id present, or None
         (ref: HS/index/IndexLogManager.scala:88-100). Raw directory-listing
         semantics: writers derive the *next* id from this, so a torn trailing
-        entry must still count."""
+        entry must still count — skipping it here would hand two writers the
+        same id. Readers wanting the newest *readable* entry use
+        :meth:`get_latest_log`, which walks past torn tails."""
         try:
             names = os.listdir(self.log_dir)
         except OSError:
@@ -63,15 +102,17 @@ class IndexLogManager:
         return max(ids) if ids else None
 
     def get_latest_log(self) -> Optional[IndexLogEntry]:
-        """Newest *readable* entry: a corrupt trailing entry degrades to the
-        prior parseable version; a missing id reports the index absent."""
+        """Newest *readable* entry: a corrupt (torn) trailing entry degrades
+        to the prior parseable version instead of reporting the index absent;
+        a genuinely missing id keeps the old absent semantics."""
         latest = self.get_latest_id()
         if latest is None:
             return None
         for log_id in range(latest, -1, -1):
-            entry, corrupt = self._read_classified(self._path(log_id))
-            if not corrupt:
-                return entry
+            entry, status = self._read_classified(self._path(log_id))
+            if status == READ_CORRUPT:
+                continue
+            return entry  # READ_OK entry, or None for READ_MISSING
         return None
 
     def get_latest_stable_log(self) -> Optional[IndexLogEntry]:
@@ -105,9 +146,17 @@ class IndexLogManager:
 
     def write_log(self, log_id: int, entry: IndexLogEntry) -> bool:
         """Write entry at ``log_id`` iff no entry with that id exists yet.
-        Returns False when another writer won (ref: HS/index/IndexLogManager.scala:178-194)."""
+        Returns False when another writer won (ref: HS/index/IndexLogManager.scala:178-194).
+        The ``log.write`` fault seam fires first. (The JAX package also
+        checks a fabric lease's fencing token here; the fabric waits for
+        ROADMAP A9.)"""
         entry.id = log_id
-        return write_atomic_exclusive(self._path(log_id), entry.to_json().encode("utf-8"))
+        data = entry.to_json().encode("utf-8")
+        from hyperspace_tpu_torch.reliability.faults import FAULTS
+
+        if FAULTS.active:
+            FAULTS.check("log.write", self._path(log_id))
+        return write_atomic_exclusive(self._path(log_id), data)
 
     def create_latest_stable_log(self, log_id: int) -> bool:
         """Snapshot entry ``log_id`` as ``latestStable``
@@ -117,6 +166,15 @@ class IndexLogManager:
             return False
         write_atomic(os.path.join(self.log_dir, LATEST_STABLE), entry.to_json().encode("utf-8"))
         return True
+
+    def delete_latest_stable_log(self) -> bool:
+        try:
+            os.unlink(os.path.join(self.log_dir, LATEST_STABLE))
+            return True
+        except FileNotFoundError:
+            return True
+        except OSError:
+            return False
 
 
 class IndexLogManagerFactory:

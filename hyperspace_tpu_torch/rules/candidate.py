@@ -10,7 +10,8 @@ deleted byte ratios must stay under their thresholds, and deletes need an
 index that can drop the deleted files' rows (a covering index with
 lineage). What it learns about each (index, scan) pair goes into the
 ``RuleContext``; under whyNot analysis each filter tags the reason an entry
-fails. The reliability layer's quarantine filter is not in the port yet.
+fails. A quarantined index (the reliability layer's breaker) is no
+candidate, and its queries read the source.
 """
 
 from __future__ import annotations
@@ -36,6 +37,23 @@ def _referenced_columns(entry: IndexLogEntry) -> List[str]:
         return [str(c) for c in props.get("indexedColumns", [])] + [
             str(c) for c in props.get("includedColumns", [])
         ]
+
+
+def _quarantine_filter(ctx: RuleContext, scan: L.Scan, indexes: List[IndexLogEntry]) -> List[IndexLogEntry]:
+    """Drop quarantined indexes (reliability circuit breaker) so their
+    queries transparently re-plan against source. One attribute read when
+    the breaker registry is disabled (the default)."""
+    from hyperspace_tpu_torch.reliability.degrade import QUARANTINE
+
+    if not QUARANTINE.enabled:
+        return indexes
+    out = []
+    for entry in indexes:
+        name = str(entry.name)
+        ok = not QUARANTINE.is_quarantined(name)
+        if ctx.tag_reason_if_failed(ok, entry, scan, lambda: R.index_quarantined(name)):
+            out.append(entry)
+    return out
 
 
 def _schema_filter(ctx: RuleContext, scan: L.Scan, indexes: List[IndexLogEntry]) -> List[IndexLogEntry]:
@@ -150,7 +168,7 @@ def collect_candidates(
     (ref: CandidateIndexCollector.scala:49-59)."""
     out: Dict[int, Tuple[L.Scan, List[IndexLogEntry]]] = {}
     for scan in L.collect(plan, lambda p: isinstance(p, L.Scan)):
-        eligible = _signature_filter(ctx, scan, _schema_filter(ctx, scan, indexes))
+        eligible = _signature_filter(ctx, scan, _schema_filter(ctx, scan, _quarantine_filter(ctx, scan, indexes)))
         if eligible:
             out[L.plan_key(scan)] = (scan, eligible)
     return out

@@ -44,11 +44,25 @@ class Session:
     def __init__(self, conf: Optional[Dict[str, Any]] = None, device=None):
         self.device = resolve_device(device)
         self.conf = HyperspaceConf(conf)
-        # the decode pool is process-global: it takes the width of the
-        # session constructed last before the first multi-file scan
+        # the decode pool and the native decode keys are process-global:
+        # the session constructed last wins
         from hyperspace_tpu_torch.exec import io as _io
 
         _io.set_decode_threads(self.conf.io_decode_threads)
+        _io.set_native_options(
+            enabled=self.conf.io_native_enabled,
+            rowgroup=self.conf.io_native_rowgroup,
+            max_dict_entries=self.conf.io_native_max_dict_entries,
+        )
+        # a CUDA session's native decode writes pinned host buffers, which
+        # the device staging copies without pinning them again
+        _io.set_pinned_decode(self.device.type == "cuda")
+        # the reliability registries (fault injection, the retry policy, the
+        # quarantine breakers) are process-global like the decode pool, and
+        # all off by default
+        from hyperspace_tpu_torch import reliability as _reliability
+
+        _reliability.configure(self)
         self.provider_manager = FileBasedSourceProviderManager(self)
         # context-local override beats the session-wide default, so a scoped
         # toggle never leaks into queries racing on other threads
@@ -57,6 +71,7 @@ class Session:
         )
         self.hyperspace_enabled = False
         self._index_manager = None
+        self._lifecycle_bus = None
         #: host wall seconds per covering-build stage, summed over every chunk
         #: this session built: key_decode, encode_keys, upload_launch,
         #: payload_decode, device_wait_fetch (waits for the device pass and
@@ -190,6 +205,19 @@ class Session:
 
             self._index_manager = CachingIndexCollectionManager(self)
         return self._index_manager
+
+    # --- lifecycle commit bus ----------------------------------------------
+    @property
+    def lifecycle_bus(self):
+        """The session's commit/invalidation bus (lazy, one per session):
+        every index mutation and every quarantine trip publishes here, and
+        it purges the roster, IO and device caches of the files involved
+        (lifecycle/invalidation.py)."""
+        if self._lifecycle_bus is None:
+            from hyperspace_tpu_torch.lifecycle.invalidation import InvalidationBus
+
+            self._lifecycle_bus = InvalidationBus(self)
+        return self._lifecycle_bus
 
 
 _current: Optional[Session] = None

@@ -1,7 +1,7 @@
-"""Byte-capped LRU used by the scan and device caches.
+"""Byte-capped LRU used by the scan/device caches.
 
 One policy implementation shared by the host batch cache (exec/io.py) and the
-device column cache (exec/device.py): get() refreshes recency, put() overwrites
+HBM column cache (exec/device.py): get() refreshes recency, put() overwrites
 existing keys (adjusting the byte count) and evicts least-recently-used
 entries until the total fits the cap.
 """
@@ -21,15 +21,26 @@ class BytesLRU:
         self._entries: "OrderedDict[Hashable, tuple]" = OrderedDict()
         self._bytes = 0
         self._lock = threading.Lock()
+        # observability for >cap working sets (benchmarks record these to
+        # show byte-capped eviction actually engaging at scale)
+        self.evictions = 0
+        self.hits = 0
+        self.misses = 0
 
     def __len__(self) -> int:
         return len(self._entries)
+
+    @property
+    def total_bytes(self) -> int:
+        return self._bytes
 
     def get(self, key: Hashable) -> Optional[Any]:
         with self._lock:
             got = self._entries.get(key)
             if got is None:
+                self.misses += 1
                 return None
+            self.hits += 1
             self._entries.move_to_end(key)
             return got[0]
 
@@ -45,10 +56,21 @@ class BytesLRU:
             while self._bytes > self.cap and self._entries:
                 _, (_, nb) = self._entries.popitem(last=False)
                 self._bytes -= nb
+                self.evictions += 1
 
     def keys(self):
         with self._lock:
             return list(self._entries.keys())
+
+    def discard(self, key: Hashable) -> bool:
+        """Drop one entry if present (targeted invalidation on data-version
+        commits); returns whether anything was removed."""
+        with self._lock:
+            got = self._entries.pop(key, None)
+            if got is None:
+                return False
+            self._bytes -= got[1]
+            return True
 
     def clear(self) -> None:
         with self._lock:

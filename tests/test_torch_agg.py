@@ -17,10 +17,10 @@ the fallback reasons, the device programs run, and the results' column
 names, dtypes, row order and values — exact, except float sums, avg and
 stddev at rtol 1e-9 (the two programs add floats in different orders).
 
-Both packages' sessions set ``hyperspace.exec.join.broadcastMaxBytes`` to 0
-and the JAX package's native span walk and pair expansion are off, as in
-tests/test_torch_join.py: a join the fused aggregate cannot take then runs
-the bucketed join in both, in the same row order.
+Both packages' sessions set ``hyperspace.exec.join.broadcastMaxBytes`` to 0,
+as in tests/test_torch_join.py: a join the fused aggregate cannot take then
+runs the bucketed join in both (native span walk and pair expansion), in
+the same row order.
 """
 
 import numpy as np
@@ -32,7 +32,6 @@ torch = pytest.importorskip("torch")
 
 import hyperspace_tpu as hst  # noqa: E402
 import hyperspace_tpu_torch as ht  # noqa: E402
-from hyperspace_tpu import native as ref_native  # noqa: E402
 from hyperspace_tpu.exec import device as RD  # noqa: E402
 from hyperspace_tpu.exec import trace as ref_trace  # noqa: E402
 from hyperspace_tpu.obs.metrics import REGISTRY  # noqa: E402
@@ -123,17 +122,6 @@ def system(lake, tmp_path_factory):
     """The system path of every covering index, built by the port."""
     return _build(ht, str(tmp_path_factory.mktemp("torch_agg_indexes")), lake)
 
-
-@pytest.fixture(autouse=True)
-def _no_native_join(monkeypatch):
-    """The JAX package's span walk and pair expansion without its native
-    library (module docstring)."""
-
-    def unsupported(*args, **kwargs):
-        raise ref_native.NativeUnsupported("native join kernels off for the comparison")
-
-    monkeypatch.setattr(ref_native, "merge_spans", unsupported)
-    monkeypatch.setattr(ref_native, "expand_pairs", unsupported)
 
 
 GLOBAL_ALL = dict(

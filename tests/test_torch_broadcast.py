@@ -5,7 +5,8 @@ port (tests/torch_mirror.py): their own assertions hold the port's answers
 to the pandas oracle, and every ``collect()`` is held to the JAX package's
 rows over the same lake, in the same order. The file's ``_counter`` of
 broadcast joins reads the port's ``hash-build`` dispatches (one per
-broadcast join; the port has no metrics registry yet, ROADMAP A9).
+broadcast join; the port's metrics registry does not count
+``hs_join_broadcast_total`` yet, ROADMAP A9).
 
 Left out, each with the ROADMAP item that ports what it needs:
 
@@ -14,7 +15,8 @@ Left out, each with the ROADMAP item that ports what it needs:
   cache of ``serving/build_cache.py`` (A9);
 - ``TestQ3Chain::test_probe_compile_flatness_across_chunk_sizes``: XLA
   compile counts (torch compiles nothing);
-- ``TestDtypeHintFallback``: the metrics registry's fallback counter (A9).
+- ``TestDtypeHintFallback``: the registry's ``hs_device_fallback_total``
+  (the port counts fallbacks in ``exec/trace.fallbacks``; A9).
 
 Beside them, each package's streamed output (``execute_stream``) is held
 to the other's chunk for chunk, and the three programs to numpy:
@@ -51,7 +53,7 @@ LEFT_OUT = {
     "TestJoinBuildCache": "A9: serving/build_cache.py",
     "TestServingSharedBuilds": "A9: serving/build_cache.py",
     "TestQ3Chain::test_probe_compile_flatness_across_chunk_sizes": "XLA compile counts",
-    "TestDtypeHintFallback": "A9: the metrics registry",
+    "TestDtypeHintFallback": "A9: hs_device_fallback_total in the metrics registry",
 }
 
 _cases = M.load_cases(

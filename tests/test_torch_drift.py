@@ -1,11 +1,14 @@
 """The port's verbatim copies of the JAX package's device-free modules.
 
-Thirty modules of ``hyperspace_tpu_torch/`` are copies of their counterparts
-in ``hyperspace_tpu/`` with only the package name rewritten (and, in
-``models/path_resolver.py``, one ``typing`` import fewer, since the copy
-does not use ``Optional``). This test compares the texts, so a change to
-either side that is not made to the other fails here. It reads files only
-and imports nothing of either package.
+Thirty-seven modules of ``hyperspace_tpu_torch/`` are copies of their
+counterparts in ``hyperspace_tpu/`` with only the package name rewritten
+(and, in ``models/path_resolver.py``, one ``typing`` import fewer, since the
+copy does not use ``Optional``), and the port builds its native decoder
+from byte-identical copies of ``native/hs_native.cc`` and
+``native/thrift_compact.h`` in ``hyperspace_tpu_torch/csrc/``. This test
+compares the texts, so a change to either side that is not made to the
+other fails here. It reads files only and imports nothing of either
+package.
 """
 
 import os
@@ -24,6 +27,13 @@ COPIES = {
     "analysis/explain.py": {},
     "analysis/reasons.py": {},
     "analysis/why_not.py": {},
+    "check/locks.py": {},
+    "obs/metrics.py": {},
+    "reliability/__init__.py": {},
+    "reliability/degrade.py": {},
+    "reliability/errors.py": {},
+    "reliability/faults.py": {},
+    "utils/lru.py": {},
     "hyperspace.py": {},
     "plan/resolver.py": {},
     "rules/dataskipping_rule.py": {},
@@ -64,3 +74,11 @@ def test_copy_matches_reference(module):
                 for line in _read("hyperspace_tpu", module)]
     got = _read("hyperspace_tpu_torch", module)
     assert got == expected, f"{module} drifted from hyperspace_tpu/{module}"
+
+
+@pytest.mark.parametrize("source", ["hs_native.cc", "thrift_compact.h"])
+def test_native_source_matches_reference(source):
+    with open(os.path.join(REPO, "native", source), "rb") as f:
+        want = f.read()
+    with open(os.path.join(REPO, "hyperspace_tpu_torch", "csrc", source), "rb") as f:
+        assert f.read() == want, f"hyperspace_tpu_torch/csrc/{source} drifted from native/{source}"

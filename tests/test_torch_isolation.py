@@ -84,6 +84,34 @@ def test_import_does_not_initialize_cuda_or_load_jax():
     assert r.returncode == 0 and r.stdout.strip().endswith("ok"), r.stderr
 
 
+def test_native_loader_names_no_path_of_the_jax_package():
+    """The port's native binding builds and loads its own library from
+    ``hyperspace_tpu_torch/csrc/`` into ``hyperspace_tpu_torch/_build/``: its
+    source names nothing under ``hyperspace_tpu/`` (nor the JAX package's
+    ``native/`` build), and a process that uses it maps only the port's
+    library."""
+    import re
+
+    with open(os.path.join(PORT, "native", "__init__.py"), encoding="utf-8") as f:
+        text = f.read()
+    assert re.search(r"hyperspace_tpu(?!_torch)", text) is None
+    assert "libhs_native.so" not in text and "Makefile" not in text
+    from hyperspace_tpu_torch import native
+
+    assert native.CSRC_DIR == os.path.join(PORT, "csrc") and native.BUILD_DIR == os.path.join(PORT, "_build")
+    assert native.library_path().startswith(native.BUILD_DIR + os.sep)
+    code = (
+        "from hyperspace_tpu_torch import native\n"
+        "ok = native.is_available()\n"
+        "maps = open('/proc/self/maps').read()\n"
+        "assert 'hyperspace_tpu/native' not in maps, 'loaded the JAX package library'\n"
+        "assert not ok or native.library_path() in maps\n"
+        "print('ok')\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0 and r.stdout.strip().endswith("ok"), r.stderr
+
+
 def test_sql_front_end_imports_without_jax_or_cuda():
     """The SQL front end (``plan/sql.py`` and what it imports: the
     expressions, decorrelation, the span tracer) loads neither JAX nor the

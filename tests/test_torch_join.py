@@ -21,10 +21,9 @@ Both packages' sessions set ``hyperspace.exec.join.broadcastMaxBytes`` to 0.
 The JAX package takes a broadcast hash join for a side under that many bytes
 (64 MiB by default) when the bucketed join does not apply, and that tier's
 row order may differ from the generic merge's; the port has no such tier and
-runs the generic merge there. The JAX package's native span walk and pair
-expansion are switched off, as they are where its native library is absent:
-its host path then takes the numpy branch the port copies (the same spans,
-the same pairs, and the ``spans: searchsorted`` trace line).
+runs the generic merge there. Both packages take their native span walk
+and pair expansion (each its own build of the same library): the same
+spans, the same pairs, and the ``spans: native`` trace line.
 """
 
 import numpy as np
@@ -36,7 +35,6 @@ torch = pytest.importorskip("torch")
 
 import hyperspace_tpu as hst  # noqa: E402
 import hyperspace_tpu_torch as ht  # noqa: E402
-from hyperspace_tpu import native as ref_native  # noqa: E402
 from hyperspace_tpu.exec import device as RD  # noqa: E402
 from hyperspace_tpu.exec import trace as ref_trace  # noqa: E402
 from hyperspace_tpu_torch.exec import device as D  # noqa: E402
@@ -143,17 +141,6 @@ def systems(lake, tmp_path_factory):
         out[owner] = path
     return out
 
-
-@pytest.fixture(autouse=True)
-def _no_native_join(monkeypatch):
-    """The JAX package's span walk and pair expansion without its native
-    library (module docstring)."""
-
-    def unsupported(*args, **kwargs):
-        raise ref_native.NativeUnsupported("native join kernels off for the comparison")
-
-    monkeypatch.setattr(ref_native, "merge_spans", unsupported)
-    monkeypatch.setattr(ref_native, "expand_pairs", unsupported)
 
 
 WIDE = ("l_orderkey", "l_extendedprice", "l_comment", "l_n", "l_shipdate",
@@ -315,7 +302,8 @@ def test_self_join_reads_its_side_once(systems, lake):
     IO.clear_io_cache()
     with trace.recording() as events:
         df.collect()
-    assert [e for e in events if e[0] == "decode"] == [("decode", "pyarrow")] * 3  # lineitem's 3 files
+    # lineitem's 3 files, through the native row-group decode as in the JAX package
+    assert [e for e in events if e[0] == "decode"] == [("decode", "native-rg")] * 3
 
 
 def test_join_stage_seconds(systems, lake):

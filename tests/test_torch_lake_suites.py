@@ -13,9 +13,10 @@ Left out, each with the item of ROADMAP.md that takes it:
 - ``test_dataskipping_rule.py::test_usage_event_reports_applied_dataskipping_index``:
   the conf-chosen event sink ``CollectingEventLogger`` (A9);
 - ``test_delta_and_analysis.py::TestExplainWhyNot``: runs in
-  tests/test_torch_explain.py (A12b);
-- ``test_iceberg.py::TestAvroCodec::test_snappy_codec_blocks``: imports the
-  native library (A13).
+  tests/test_torch_explain.py (A12b).
+
+``test_iceberg.py::TestAvroCodec::test_snappy_codec_blocks`` runs on the
+port's native library.
 """
 
 import os
@@ -34,7 +35,6 @@ SOURCES = ("test_log_entry.py", "test_dataskipping_rule.py", "test_delta_and_ana
 LEFT_OUT = {
     "test_usage_event_reports_applied_dataskipping_index": "A9: the CollectingEventLogger event sink",
     "TestExplainWhyNot": "A12b: runs in tests/test_torch_explain.py",
-    "TestAvroCodec::test_snappy_codec_blocks": "A13: imports the native library",
 }
 
 _modules = [M.load_cases(os.path.join(HERE, src), f"_torch_{src[:-3]}_lake_suite") for src in SOURCES]

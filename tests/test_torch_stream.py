@@ -26,9 +26,8 @@ Both packages' sessions set ``hyperspace.exec.join.broadcastMaxBytes`` to 0
 pruning off, so every chunk decodes whole and a query matching no row
 still streams (with pruning on, both packages prune its every chunk to
 zero rows and fall back alike; tests/test_torch_pruning.py compares the
-pruned streams). The JAX package's native span walk is off: the port does
-not have it, and without it the JAX package takes the numpy span branch
-the port copies. The float key ``fk`` holds no
+pruned streams). Both packages walk the spans natively. The float key
+``fk`` holds no
 -0.0: the JAX package's device path splits -0.0 from +0.0 on its CPU
 backend, unlike its host path and the port (ROADMAP C, tests/test_torch_agg.py).
 """
@@ -45,7 +44,6 @@ torch = pytest.importorskip("torch")
 
 import hyperspace_tpu as hst  # noqa: E402
 import hyperspace_tpu_torch as ht  # noqa: E402
-from hyperspace_tpu import native as ref_native  # noqa: E402
 from hyperspace_tpu.exec import device as RD  # noqa: E402
 from hyperspace_tpu.exec import trace as ref_trace  # noqa: E402
 from hyperspace_tpu.exec.executor import Executor as RefExecutor  # noqa: E402
@@ -144,17 +142,6 @@ def system(lake, tmp_path_factory):
         ht.Hyperspace(sess).create_index(sess.read_parquet(lake[table]), ht.CoveringIndexConfig(name, indexed, included))
     return path
 
-
-@pytest.fixture(autouse=True)
-def _no_native_join(monkeypatch):
-    """The JAX package's span walk and pair expansion without its native
-    library (module docstring)."""
-
-    def unsupported(*args, **kwargs):
-        raise ref_native.NativeUnsupported("native join kernels off for the comparison")
-
-    monkeypatch.setattr(ref_native, "merge_spans", unsupported)
-    monkeypatch.setattr(ref_native, "expand_pairs", unsupported)
 
 
 def _session(pkg, system, lake, enabled=True, **conf):

@@ -12,9 +12,9 @@ texts of tests/tpch_queries.py then runs through both packages'
   in an ORDER BY, else as a multiset; float aggregates at rtol 1e-9;
 - hyperspace on equals off in the port;
 - with ``deviceMinRows=0`` (the device programs run as torch programs on
-  the CPU) the rows are the same again, and the dispatch trace equals the
-  approved one (qN.dispatch.txt) line for line, less its ``decode:`` lines
-  (the native decode, ROADMAP A13; ``approved_dispatch``);
+  the CPU) the rows are the same again, and the dispatch trace, recorded
+  from cleared IO and device caches as the approved one was, equals the
+  approved one (qN.dispatch.txt) line for line, ``decode:`` lines included;
 - ten queries match the pandas oracles of tests/test_tpch_oracles.py.
 
 Only helper names are imported from the JAX test modules, so pytest does
@@ -37,6 +37,8 @@ import pandas as pd  # noqa: E402
 
 import hyperspace_tpu as hst  # noqa: E402
 import hyperspace_tpu_torch as ht  # noqa: E402
+from hyperspace_tpu_torch.exec import device as D  # noqa: E402
+from hyperspace_tpu_torch.exec import io as IO  # noqa: E402
 from hyperspace_tpu_torch.exec import trace  # noqa: E402
 from test_tpch_oracles import test_q1 as _oracle_q1  # noqa: E402
 from test_tpch_oracles import test_q3 as _oracle_q3  # noqa: E402
@@ -129,17 +131,9 @@ def assert_same_rows(got, want, ordered: bool, what: str):
                 assert x == y or (x is None and y is None), (what, a, b)
 
 
-def mapped_dispatch(events) -> str:
-    """The port's dispatch trace less its ``decode:`` lines (the native
-    decode is A13)."""
-    return "\n".join(line for line in trace.summarize(events).splitlines() if not line.startswith("decode:"))
-
-
 def approved_dispatch(qname: str) -> str:
-    """The approved trace less its ``decode:`` lines."""
     with open(os.path.join(APPROVED_DIR, f"{qname}.dispatch.txt")) as f:
-        text = f.read()
-    return "\n".join(line for line in text.splitlines() if not line.startswith("decode:"))
+        return f.read()
 
 
 def ref_rows(env, qname):
@@ -161,6 +155,10 @@ def test_query_matches_jax(env, qname, mode):
         plan = q.optimized_plan().pretty()
         with open(os.path.join(APPROVED_DIR, f"{qname}.txt")) as f:
             assert plan.replace(root, "<TPCH>") == f.read(), qname
+        if mode == "device":
+            # the approved traces were recorded from cold caches
+            IO.clear_io_cache()
+            D.clear_device_cache()
         with trace.recording() as events:
             on = q.collect()
     finally:
@@ -175,7 +173,7 @@ def test_query_matches_jax(env, qname, mode):
             sess.enable_hyperspace()
         assert_same_rows(on, off, ordered_by_sort(text), f"{qname} on vs off")
     else:
-        assert mapped_dispatch(events) == approved_dispatch(qname), qname
+        assert trace.summarize(events) == approved_dispatch(qname), qname
     assert len(next(iter(on.values()))) > 0, qname
     assert_same_rows(on, ref_rows(env, qname), ordered_by_sort(text), f"{qname} port vs jax")
 

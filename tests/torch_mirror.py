@@ -15,9 +15,9 @@ package serves the other's indexes). While ``mirroring`` is active:
   so do ``Hyperspace.explain`` and ``Hyperspace.why_not``;
 - ``DataFrame.collect`` gives the same column names and rows in both, in
   the same order; floats at rtol 1e-9; the same error type when the port
-  raises; with ``compare_traces``, the same dispatch trace (less the
-  ``decode:`` lines, which name the JAX package's native decoder, and with
-  the JAX package's native span walk and pair expansion off).
+  raises; with ``compare_traces``, the same dispatch trace, ``decode:``
+  lines included (both packages decode natively, each with its own build
+  of the same library).
 
 A DataFrame built with the port's API is carried to the JAX package by
 rebuilding its plan, node for node and expression for expression, from the
@@ -146,28 +146,11 @@ def index_scans(q):
     return [p for p in PL.collect(q.optimized_plan(), lambda x: True) if isinstance(p, PL.IndexScan)]
 
 
-@contextlib.contextmanager
-def _no_native_join():
-    """The JAX package's span walk and pair expansion without its native
-    library, so its join trace names the port's paths."""
-    from hyperspace_tpu import native as ref_native
-
-    def unsupported(*args, **kwargs):
-        raise ref_native.NativeUnsupported("native join kernels off for the comparison")
-
-    saved = ref_native.merge_spans, ref_native.expand_pairs
-    ref_native.merge_spans = ref_native.expand_pairs = unsupported
-    try:
-        yield
-    finally:
-        ref_native.merge_spans, ref_native.expand_pairs = saved
-
-
 def trace_lines(events) -> list:
-    """A dispatch trace's summary lines, less ``decode:`` lines."""
+    """A dispatch trace's summary lines."""
     from hyperspace_tpu_torch.exec import trace as T
 
-    return [ln for ln in T.summarize(events).splitlines() if not ln.startswith("decode:")]
+    return T.summarize(events).splitlines()
 
 
 def _rows(batch):
@@ -229,8 +212,7 @@ def mirroring():
                 raise
             ref = sess.ref_frame(self)
             assert orig_optimized(self).pretty() == ref.optimized_plan().pretty()
-            native_off = _no_native_join() if sess.compare_traces else contextlib.nullcontext()
-            with native_off, ref_trace.recording() as ref_events:
+            with ref_trace.recording() as ref_events:
                 want = ref.collect()
             same_rows(got, want, self.plan.describe())
             if outer_events is not None:
@@ -378,9 +360,10 @@ class _Series:
 
 
 class PortRegistry:
-    """The JAX package's metrics registry (``obs/metrics.REGISTRY``) as far as
-    the port counts the same things, for suites that read it; the registry
-    itself waits for A9:
+    """The JAX package's metrics registry (``obs/metrics.REGISTRY``) read
+    from the port's own counters, for suites whose series the port keeps
+    outside its registry (``obs/metrics.py``, which counts dispatches, IO
+    errors, faults and native decode under the JAX package's names):
 
     - ``hs_device_dispatches_total{program}``: ``exec/device.dispatches``;
     - ``hs_device_fallback_total{op, reason}``: ``exec/trace.fallbacks``;
