@@ -33,7 +33,13 @@ sources (``Session.read_delta``, ``read_iceberg``, ``read_*``) — and the
 SQL front end: ``Session.sql`` over views registered with
 ``DataFrame.create_or_replace_temp_view`` (``plan/sql.py``, with
 ``CASE``/``LIKE``/``CAST``, scalar functions, subqueries and their
-decorrelation, windows, set operations, ``ORDER BY`` and ``LIMIT``).
+decorrelation, windows, set operations, ``ORDER BY`` and ``LIMIT``) — and
+the serving runtime: ``QueryServer(session)`` admits concurrent requests,
+pins each to a snapshot of the index roster, caches compiled plans,
+results, decoded buckets and broadcast build sides, and micro-batches
+same-shape requests into one shared scan (``serving/``), with per-request
+query profiles, the fingerprint history and SLO accounting (``obs/``) and
+the background ``RefreshManager`` (``lifecycle/``).
 
 Layer map (the JAX package's layout, module for module):
   - ``models/``    metadata model + operation-log persistence
@@ -50,8 +56,12 @@ Layer map (the JAX package's layout, module for module):
                    anti-join
   - ``ops/``       hashing, encode, device sort, kernel wrappers
   - ``csrc/``      the CUDA kernels
-  - ``obs/``       the span tracer
-  - ``telemetry/`` action events
+  - ``serving/``   QueryServer: admission, scheduling, the plan, result,
+                   bucket and join build caches, micro-batching
+  - ``lifecycle/`` snapshot pins, the commit bus, the refresh manager
+  - ``obs/``       spans, metrics, query profiles, history, SLO
+  - ``fabric/``    node identity
+  - ``telemetry/`` events and the conf-chosen event sink
 """
 
 from hyperspace_tpu_torch.version import __version__
@@ -67,6 +77,7 @@ from hyperspace_tpu_torch.indexes.dataskipping import (
     ValueListSketch,
 )
 from hyperspace_tpu_torch.hyperspace import Hyperspace
+from hyperspace_tpu_torch.serving import AdmissionRejected, QueryServer, RequestTimeout
 
 __all__ = [
     "__version__",
@@ -85,4 +96,7 @@ __all__ = [
     "BloomFilterSketch",
     "ValueListSketch",
     "Hyperspace",
+    "QueryServer",
+    "AdmissionRejected",
+    "RequestTimeout",
 ]

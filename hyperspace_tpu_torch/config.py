@@ -2,9 +2,11 @@
 
 The keys, defaults and typed accessors the index build and lifecycle, the
 filter query, the joins, the aggregate, the top-k, scan pruning, hybrid scan,
-the source providers, native decode and the reliability layer read, under the same names and with the same defaults as the JAX package's
-``hyperspace_tpu/config.py`` so one conf dict drives either package; the
-port ignores the keys it does not read. Keys are namespaced ``hyperspace.*``.
+the source providers, native decode, the reliability layer, the serving
+runtime, observability and the refresh manager read, under the same names
+and with the same defaults as the JAX package's ``hyperspace_tpu/config.py``
+so one conf dict drives either package; the port ignores the keys it does
+not read. Keys are namespaced ``hyperspace.*``.
 """
 
 from __future__ import annotations
@@ -77,6 +79,55 @@ class keys:
     RELIABILITY_QUARANTINE_THRESHOLD = "hyperspace.reliability.quarantine.threshold"
     RELIABILITY_QUARANTINE_COOLDOWN_SECONDS = "hyperspace.reliability.quarantine.cooldownSeconds"
     FABRIC_ENABLED = "hyperspace.fabric.enabled"
+    EVENT_LOGGER_CLASS = "hyperspace.eventLoggerClass"
+    EXEC_JOIN_BUILD_CACHE_MAX_BYTES = "hyperspace.exec.join.buildCache.maxBytes"
+    SERVING_QUEUE_DEPTH = "hyperspace.serving.queueDepth"
+    SERVING_WORKERS = "hyperspace.serving.workers"
+    SERVING_DEFAULT_TIMEOUT_SECONDS = "hyperspace.serving.defaultTimeoutSeconds"
+    SERVING_PLAN_CACHE_ENABLED = "hyperspace.serving.planCache.enabled"
+    SERVING_PLAN_CACHE_MAX_ENTRIES = "hyperspace.serving.planCache.maxEntries"
+    SERVING_MICRO_BATCH_ENABLED = "hyperspace.serving.microBatch.enabled"
+    SERVING_MICRO_BATCH_MAX_REQUESTS = "hyperspace.serving.microBatch.maxRequests"
+    SERVING_MICRO_BATCH_MAX_WAIT_MS = "hyperspace.serving.microBatch.maxWaitMs"
+    SERVING_BUCKET_CACHE_BYTES = "hyperspace.serving.bucketCache.bytes"
+    SERVING_PREFETCH_ENABLED = "hyperspace.serving.prefetch.enabled"
+    SERVING_PREFETCH_WORKERS = "hyperspace.serving.prefetch.workers"
+    SERVING_SCHED_ENABLED = "hyperspace.serving.sched.enabled"
+    SERVING_SCHED_INTERACTIVE_MS = "hyperspace.serving.sched.interactiveMs"
+    SERVING_SCHED_HEAVY_MS = "hyperspace.serving.sched.heavyMs"
+    SERVING_SCHED_MIN_CONFIDENCE = "hyperspace.serving.sched.minConfidence"
+    SERVING_SCHED_MAX_QUEUED_SECONDS = "hyperspace.serving.sched.maxQueuedSeconds"
+    SERVING_SCHED_TENANT_WEIGHTS = "hyperspace.serving.sched.tenantWeights"
+    SERVING_SCHED_TENANT_RATE = "hyperspace.serving.sched.tenantRatePerSecond"
+    SERVING_SCHED_TENANT_BURST = "hyperspace.serving.sched.tenantBurst"
+    SERVING_SCHED_BURN_THRESHOLD = "hyperspace.serving.sched.burnBoostThreshold"
+    SERVING_SCHED_BURN_FACTOR = "hyperspace.serving.sched.burnBoostFactor"
+    SERVING_RESULT_CACHE_ENABLED = "hyperspace.serving.resultCache.enabled"
+    SERVING_RESULT_CACHE_BYTES = "hyperspace.serving.resultCache.bytes"
+    SERVING_RESULT_CACHE_MAX_ENTRY_BYTES = "hyperspace.serving.resultCache.maxEntryBytes"
+    SERVING_RESULT_CACHE_SUBSUMPTION = "hyperspace.serving.resultCache.subsumption"
+    OBS_TRACING_ENABLED = "hyperspace.obs.tracing.enabled"
+    OBS_TRACE_MAX_SPANS = "hyperspace.obs.trace.maxSpans"
+    OBS_METRICS_ENABLED = "hyperspace.obs.metrics.enabled"
+    OBS_PROFILE_HISTORY = "hyperspace.obs.profile.history"
+    OBS_PROFILE_WHY_NOT = "hyperspace.obs.profile.whyNot"
+    OBS_HISTORY_ENABLED = "hyperspace.obs.history.enabled"
+    OBS_HISTORY_MAX_FINGERPRINTS = "hyperspace.obs.history.maxFingerprints"
+    OBS_HISTORY_PERSIST = "hyperspace.obs.history.persist"
+    OBS_SLOW_QUERY_MS = "hyperspace.obs.slowQueryMs"
+    OBS_SLOW_QUERY_MAX_ENTRIES = "hyperspace.obs.slowQuery.maxEntries"
+    OBS_SLOW_QUERY_DIR = "hyperspace.obs.slowQuery.dir"
+    OBS_SLO_TARGET_MS = "hyperspace.obs.slo.targetMs"
+    OBS_SLO_OBJECTIVE = "hyperspace.obs.slo.objective"
+    OBS_SLO_WINDOWS_SECONDS = "hyperspace.obs.slo.windowsSeconds"
+    OBS_HTTP_PORT = "hyperspace.obs.http.port"
+    OBS_HTTP_HOST = "hyperspace.obs.http.host"
+    CHECK_LOCKS = "hyperspace.check.locks"
+    LIFECYCLE_SNAPSHOT_ENABLED = "hyperspace.lifecycle.snapshot.enabled"
+    LIFECYCLE_REFRESH_INTERVAL_SECONDS = "hyperspace.lifecycle.refresh.intervalSeconds"
+    LIFECYCLE_REFRESH_MODE = "hyperspace.lifecycle.refresh.mode"
+    FABRIC_NODE_ID = "hyperspace.fabric.nodeId"
+    FABRIC_LEASE_ENABLED = "hyperspace.fabric.lease.enabled"
 
     # the JAX package's names for the keys above that the port names
     # otherwise (the same strings), so code written against either resolves
@@ -268,6 +319,125 @@ DEFAULTS: Dict[str, Any] = {
     # the multi-process serving fabric (ROADMAP A9): the commit bus raises
     # "not yet in the port" when it would persist a commit record
     keys.FABRIC_ENABLED: False,
+    # Byte budget of the shared build-side LRU (serving/build_cache.py):
+    # micro-batched requests joining the same dimension table reuse one
+    # built hash table instead of rebuilding per request. Entries key on
+    # (scan signature, keys, data-version brand) and purge on brand
+    # rotation, like the result cache.
+    keys.EXEC_JOIN_BUILD_CACHE_MAX_BYTES: 256 * 1024 * 1024,
+    keys.EVENT_LOGGER_CLASS: None,
+    # Serving runtime. Queue depth bounds memory under overload: submits
+    # beyond it are REJECTED (AdmissionRejected), never silently queued.
+    keys.SERVING_QUEUE_DEPTH: 64,
+    keys.SERVING_WORKERS: 4,
+    # None = no deadline; floats are seconds from submit to result.
+    keys.SERVING_DEFAULT_TIMEOUT_SECONDS: 30.0,
+    keys.SERVING_PLAN_CACHE_ENABLED: True,
+    keys.SERVING_PLAN_CACHE_MAX_ENTRIES: 256,
+    keys.SERVING_MICRO_BATCH_ENABLED: True,
+    keys.SERVING_MICRO_BATCH_MAX_REQUESTS: 16,
+    # How long a worker lingers draining the queue to fill a batch; the
+    # latency cost of coalescing is bounded by this.
+    keys.SERVING_MICRO_BATCH_MAX_WAIT_MS: 2.0,
+    keys.SERVING_BUCKET_CACHE_BYTES: 1 << 30,
+    keys.SERVING_PREFETCH_ENABLED: True,
+    keys.SERVING_PREFETCH_WORKERS: 2,
+    # Cost-aware scheduler. Off by default: with both sched and resultCache
+    # disabled the server is byte-for-byte the FIFO runtime above.
+    keys.SERVING_SCHED_ENABLED: False,
+    # Predicted-latency class cut points: under interactiveMs -> interactive,
+    # over heavyMs -> heavy, between -> standard. Estimates whose confidence
+    # is below minConfidence classify as "unknown" (scheduled after standard
+    # but before heavy — unknown shapes must not starve, nor jump the line).
+    keys.SERVING_SCHED_INTERACTIVE_MS: 50.0,
+    keys.SERVING_SCHED_HEAVY_MS: 500.0,
+    keys.SERVING_SCHED_MIN_CONFIDENCE: 0.3,
+    # Shed when the confident predicted work already queued exceeds this many
+    # seconds (0 = depth-only shedding, the FIFO discipline).
+    keys.SERVING_SCHED_MAX_QUEUED_SECONDS: 0.0,
+    # "tenantA=4,tenantB=1" weighted fair shares; unlisted tenants weigh 1.
+    keys.SERVING_SCHED_TENANT_WEIGHTS: "",
+    # Per-tenant token-bucket admission rate (requests/s); 0 = unlimited.
+    keys.SERVING_SCHED_TENANT_RATE: 0.0,
+    keys.SERVING_SCHED_TENANT_BURST: 32,
+    # A tenant whose own SLO burn rate >= threshold gets its weight
+    # multiplied by factor (recovery boost); a tenant hogging the most work
+    # while ANOTHER tenant burns gets its weight divided by factor.
+    keys.SERVING_SCHED_BURN_THRESHOLD: 2.0,
+    keys.SERVING_SCHED_BURN_FACTOR: 2.0,
+    # Semantic result cache. Off by default (see sched.enabled note).
+    keys.SERVING_RESULT_CACHE_ENABLED: False,
+    keys.SERVING_RESULT_CACHE_BYTES: 256 * 1024 * 1024,
+    keys.SERVING_RESULT_CACHE_MAX_ENTRY_BYTES: 16 * 1024 * 1024,
+    # Serve a request whose predicate provably implies a cached superset
+    # predicate by re-filtering the cached batch.
+    keys.SERVING_RESULT_CACHE_SUBSUMPTION: True,
+    # Span tracing is opt-in: when off, each instrumentation point costs one
+    # contextvar read (bench.py --obs-overhead pins the bar at <= 3%).
+    keys.OBS_TRACING_ENABLED: False,
+    # Per-trace span budget; beyond it the tree stops growing and the trace
+    # reports droppedSpans (bounded memory under pathological plans).
+    keys.OBS_TRACE_MAX_SPANS: 100_000,
+    keys.OBS_METRICS_ENABLED: True,
+    # How many per-request QueryProfiles a QueryServer retains.
+    keys.OBS_PROFILE_HISTORY: 16,
+    # Run the why-not analysis on traced queries (extra optimizer passes per
+    # query — diagnostic sessions only).
+    keys.OBS_PROFILE_WHY_NOT: False,
+    # Fold every completed query into the fingerprint-keyed ProfileHistory
+    # (streaming stats + cost estimates). O(1) per query, bounded memory —
+    # on by default; tracing is NOT required (latency/rows fold regardless).
+    keys.OBS_HISTORY_ENABLED: True,
+    # LRU bound on distinct fingerprints retained by a history instance.
+    keys.OBS_HISTORY_MAX_FINGERPRINTS: 512,
+    # Append one JSON line per completed query to
+    # <system.path>/_telemetry/profile_history.jsonl (the workload log the
+    # index advisor replays). Off by default: it is per-query disk IO.
+    keys.OBS_HISTORY_PERSIST: False,
+    # Flight-record queries slower than this many milliseconds (and every
+    # errored/rejected request). 0 disables the recorder entirely.
+    keys.OBS_SLOW_QUERY_MS: 0.0,
+    # Bound on the flight recorder's in-memory and on-disk rings.
+    keys.OBS_SLOW_QUERY_MAX_ENTRIES: 32,
+    # On-disk ring directory; None derives <system.path>/_telemetry/slow
+    # when a system path is configured, "" keeps entries memory-only.
+    keys.OBS_SLOW_QUERY_DIR: None,
+    # Latency-SLO target per served request, in milliseconds; 0 disables
+    # SLO tracking. Good/bad counters and burn-rate gauges are per-tenant.
+    keys.OBS_SLO_TARGET_MS: 1000.0,
+    # Fraction of requests that must meet the target (error budget = 1-x).
+    keys.OBS_SLO_OBJECTIVE: 0.999,
+    # Comma-separated burn-rate window lengths in seconds.
+    keys.OBS_SLO_WINDOWS_SECONDS: "300,3600",
+    # Port for the JAX package's HTTP telemetry endpoint, which a
+    # QueryServer starts alongside itself. None disables it; the endpoint
+    # (obs/export.py) is not in the port yet, so a server raises "not yet in
+    # the port" while this is set.
+    keys.OBS_HTTP_PORT: None,
+    keys.OBS_HTTP_HOST: "127.0.0.1",
+    # Wrap named internal mutexes in the lock-order watcher (cross-thread
+    # acquisition-order cycle detection). Construction-time flag: locks
+    # created before a Session enabled it stay plain.
+    keys.CHECK_LOCKS: False,
+    # Pin a SnapshotHandle (index-log roster frozen at admission) per served
+    # request, so a refresh committing mid-flight never changes a running
+    # query's answer (docs/lifecycle.md).
+    keys.LIFECYCLE_SNAPSHOT_ENABLED: True,
+    # Seconds between RefreshManager drift polls.
+    keys.LIFECYCLE_REFRESH_INTERVAL_SECONDS: 5.0,
+    # Refresh mode the manager schedules: "auto" picks incremental when the
+    # appended/deleted ratios exceed the hybrid-scan thresholds (the index
+    # would stop qualifying for hybrid scan) and quick otherwise; or pin
+    # "incremental" / "quick" / "full" explicitly.
+    keys.LIFECYCLE_REFRESH_MODE: "auto",
+    # Stable identity stamped as the origin of this process's commit
+    # records (self-commit dedupe) and its sidecar node file. Empty means
+    # "<hostname>:<pid>", which is unique per process on one host.
+    keys.FABRIC_NODE_ID: "",
+    # The lake-persisted refresh lease (fabric/lease.py, ROADMAP A9) is not
+    # in the port yet: with it on (and the fabric on), a refresh raises
+    # "not yet in the port" instead of running unfenced.
+    keys.FABRIC_LEASE_ENABLED: False,
 }
 
 REFRESH_MODE_INCREMENTAL = "incremental"
@@ -306,6 +476,8 @@ def _coerce(value: Any, like: Any) -> Any:
         return bool(value)
     if isinstance(like, int):
         return int(value)
+    if isinstance(like, float):
+        return float(value)
     return value
 
 
@@ -330,6 +502,9 @@ class HyperspaceConf:
         if key in DEFAULTS:
             return DEFAULTS[key] if default is None else default
         return default
+
+    def copy(self) -> "HyperspaceConf":
+        return HyperspaceConf(dict(self._conf))
 
     @property
     def system_path(self) -> Optional[str]:
@@ -558,3 +733,230 @@ class HyperspaceConf:
     @property
     def fabric_enabled(self) -> bool:
         return bool(self.get(keys.FABRIC_ENABLED))
+
+    @property
+    def join_build_cache_max_bytes(self) -> int:
+        return int(self.get(keys.EXEC_JOIN_BUILD_CACHE_MAX_BYTES))
+
+    # Serving runtime --------------------------------------------------------
+    @property
+    def serving_queue_depth(self) -> int:
+        return int(self.get(keys.SERVING_QUEUE_DEPTH))
+
+    @property
+    def serving_workers(self) -> int:
+        return int(self.get(keys.SERVING_WORKERS))
+
+    @property
+    def serving_default_timeout_seconds(self) -> Optional[float]:
+        v = self.get(keys.SERVING_DEFAULT_TIMEOUT_SECONDS)
+        return None if v is None else float(v)
+
+    @property
+    def serving_plan_cache_enabled(self) -> bool:
+        return bool(self.get(keys.SERVING_PLAN_CACHE_ENABLED))
+
+    @property
+    def serving_plan_cache_max_entries(self) -> int:
+        return int(self.get(keys.SERVING_PLAN_CACHE_MAX_ENTRIES))
+
+    @property
+    def serving_micro_batch_enabled(self) -> bool:
+        return bool(self.get(keys.SERVING_MICRO_BATCH_ENABLED))
+
+    @property
+    def serving_micro_batch_max_requests(self) -> int:
+        return int(self.get(keys.SERVING_MICRO_BATCH_MAX_REQUESTS))
+
+    @property
+    def serving_micro_batch_max_wait_ms(self) -> float:
+        return float(self.get(keys.SERVING_MICRO_BATCH_MAX_WAIT_MS))
+
+    @property
+    def serving_bucket_cache_bytes(self) -> int:
+        return int(self.get(keys.SERVING_BUCKET_CACHE_BYTES))
+
+    @property
+    def serving_prefetch_enabled(self) -> bool:
+        return bool(self.get(keys.SERVING_PREFETCH_ENABLED))
+
+    @property
+    def serving_prefetch_workers(self) -> int:
+        return int(self.get(keys.SERVING_PREFETCH_WORKERS))
+
+    @property
+    def serving_sched_enabled(self) -> bool:
+        return bool(self.get(keys.SERVING_SCHED_ENABLED))
+
+    @property
+    def serving_sched_interactive_ms(self) -> float:
+        return float(self.get(keys.SERVING_SCHED_INTERACTIVE_MS))
+
+    @property
+    def serving_sched_heavy_ms(self) -> float:
+        return float(self.get(keys.SERVING_SCHED_HEAVY_MS))
+
+    @property
+    def serving_sched_min_confidence(self) -> float:
+        return float(self.get(keys.SERVING_SCHED_MIN_CONFIDENCE))
+
+    @property
+    def serving_sched_max_queued_seconds(self) -> float:
+        return float(self.get(keys.SERVING_SCHED_MAX_QUEUED_SECONDS))
+
+    @property
+    def serving_sched_tenant_weights(self) -> Dict[str, float]:
+        raw = str(self.get(keys.SERVING_SCHED_TENANT_WEIGHTS) or "")
+        out: Dict[str, float] = {}
+        for part in raw.split(","):
+            part = part.strip()
+            if not part:
+                continue
+            name, _, w = part.partition("=")
+            try:
+                out[name.strip()] = float(w)
+            except ValueError:
+                raise ValueError(
+                    f"bad tenant weight {part!r} in {keys.SERVING_SCHED_TENANT_WEIGHTS}"
+                ) from None
+        return out
+
+    @property
+    def serving_sched_tenant_rate(self) -> float:
+        return float(self.get(keys.SERVING_SCHED_TENANT_RATE))
+
+    @property
+    def serving_sched_tenant_burst(self) -> int:
+        return int(self.get(keys.SERVING_SCHED_TENANT_BURST))
+
+    @property
+    def serving_sched_burn_threshold(self) -> float:
+        return float(self.get(keys.SERVING_SCHED_BURN_THRESHOLD))
+
+    @property
+    def serving_sched_burn_factor(self) -> float:
+        return float(self.get(keys.SERVING_SCHED_BURN_FACTOR))
+
+    @property
+    def serving_result_cache_enabled(self) -> bool:
+        return bool(self.get(keys.SERVING_RESULT_CACHE_ENABLED))
+
+    @property
+    def serving_result_cache_bytes(self) -> int:
+        return int(self.get(keys.SERVING_RESULT_CACHE_BYTES))
+
+    @property
+    def serving_result_cache_max_entry_bytes(self) -> int:
+        return int(self.get(keys.SERVING_RESULT_CACHE_MAX_ENTRY_BYTES))
+
+    @property
+    def serving_result_cache_subsumption(self) -> bool:
+        return bool(self.get(keys.SERVING_RESULT_CACHE_SUBSUMPTION))
+
+    # Observability ----------------------------------------------------------
+    @property
+    def obs_tracing_enabled(self) -> bool:
+        return bool(self.get(keys.OBS_TRACING_ENABLED))
+
+    @property
+    def obs_trace_max_spans(self) -> int:
+        return int(self.get(keys.OBS_TRACE_MAX_SPANS))
+
+    @property
+    def obs_metrics_enabled(self) -> bool:
+        return bool(self.get(keys.OBS_METRICS_ENABLED))
+
+    @property
+    def obs_profile_history(self) -> int:
+        return int(self.get(keys.OBS_PROFILE_HISTORY))
+
+    @property
+    def obs_profile_why_not(self) -> bool:
+        return bool(self.get(keys.OBS_PROFILE_WHY_NOT))
+
+    @property
+    def obs_history_enabled(self) -> bool:
+        return bool(self.get(keys.OBS_HISTORY_ENABLED))
+
+    @property
+    def obs_history_max_fingerprints(self) -> int:
+        return int(self.get(keys.OBS_HISTORY_MAX_FINGERPRINTS))
+
+    @property
+    def obs_history_persist(self) -> bool:
+        return bool(self.get(keys.OBS_HISTORY_PERSIST))
+
+    @property
+    def obs_slow_query_ms(self) -> float:
+        return float(self.get(keys.OBS_SLOW_QUERY_MS))
+
+    @property
+    def obs_slow_query_max_entries(self) -> int:
+        return int(self.get(keys.OBS_SLOW_QUERY_MAX_ENTRIES))
+
+    @property
+    def obs_slow_query_dir(self) -> Optional[str]:
+        v = self.get(keys.OBS_SLOW_QUERY_DIR)
+        return None if v is None else str(v)
+
+    @property
+    def obs_slo_target_ms(self) -> float:
+        return float(self.get(keys.OBS_SLO_TARGET_MS))
+
+    @property
+    def obs_slo_objective(self) -> float:
+        return float(self.get(keys.OBS_SLO_OBJECTIVE))
+
+    @property
+    def obs_slo_windows_seconds(self) -> tuple:
+        raw = str(self.get(keys.OBS_SLO_WINDOWS_SECONDS))
+        out = []
+        for part in raw.split(","):
+            part = part.strip()
+            if part:
+                out.append(float(part))
+        return tuple(out) or (300.0, 3600.0)
+
+    @property
+    def obs_http_port(self) -> Optional[int]:
+        v = self.get(keys.OBS_HTTP_PORT)
+        return None if v is None else int(v)
+
+    @property
+    def obs_http_host(self) -> str:
+        return str(self.get(keys.OBS_HTTP_HOST))
+
+    @property
+    def check_locks_enabled(self) -> bool:
+        return bool(self.get(keys.CHECK_LOCKS))
+
+    @property
+    def lifecycle_snapshot_enabled(self) -> bool:
+        return bool(self.get(keys.LIFECYCLE_SNAPSHOT_ENABLED))
+
+    @property
+    def lifecycle_refresh_interval_seconds(self) -> float:
+        return float(self.get(keys.LIFECYCLE_REFRESH_INTERVAL_SECONDS))
+
+    @property
+    def lifecycle_refresh_mode(self) -> str:
+        return str(self.get(keys.LIFECYCLE_REFRESH_MODE)).lower()
+
+    @property
+    def fabric_node_id(self) -> str:
+        return str(self.get(keys.FABRIC_NODE_ID) or "")
+
+    @property
+    def fabric_lease_enabled(self) -> bool:
+        return bool(self.get(keys.FABRIC_LEASE_ENABLED))
+
+    def deltas(self) -> Dict[str, Any]:
+        """Explicitly-set keys whose value differs from the centralized
+        default — the "what is non-standard about this session" record the
+        flight recorder stamps on every captured query."""
+        out: Dict[str, Any] = {}
+        for k, v in self._conf.items():
+            default = DEFAULTS.get(k)
+            if _coerce(v, default) != default:
+                out[k] = v
+        return out

@@ -79,6 +79,7 @@ from hyperspace_tpu_torch.exec.device import (
     _cached_column,
     _device_cache,
     _dry_codecs,
+    _observe_program,
     _pack_literals,
     _put_encoded,
     compile_predicate,
@@ -86,6 +87,8 @@ from hyperspace_tpu_torch.exec.device import (
     predicate_skeleton,
     upload_literals,
 )
+from hyperspace_tpu_torch.obs import spans as obs_spans
+from hyperspace_tpu_torch.obs.metrics import REGISTRY
 from hyperspace_tpu_torch.plan.expr import Expr
 
 I64_MAX = int(np.iinfo(np.int64).max)
@@ -247,9 +250,11 @@ def device_filtered_aggregate(
     else:
         pred_fn, lit_values = None, ()
     program = fused_agg_program(pred_fn, tuple((fn, c) for _, fn, c in aggs))
+    t0 = time.perf_counter()
     outs, valids = program(dev_cols, upload_literals(lit_values, session.device), n)
     count_dispatch("fused-agg")
     outs, valids = _read_scalars(outs, valids)
+    _observe_program("fused-agg", t0)
     t = _add(session, "agg_program", t)
 
     result: Dict[str, np.ndarray] = {}
@@ -760,8 +765,10 @@ class GroupedAggStream:
         cap = group_capacity(max(self._cap_hint, 1), self.cap_floor)
         while True:
             program = grouped_chunk_program(pred_fn, key_specs, self._slots, cap)
+            t0 = time.perf_counter()
             n_g, fs, key_out, slot_out = program(dev_cols, lits, n, self._row_base)
             count_dispatch("grouped-agg-chunk")
+            _observe_program("grouped-agg-chunk", t0)
             if n_g > self.max_groups:
                 t = _add(self.session, "agg_program", t)
                 # this chunk is NOT in the running partial (folded is False)
@@ -819,10 +826,12 @@ class GroupedAggStream:
             fused_grouped_update_program(pred_fn, key_specs, self._slots, cap, donate),
             donate_argnums=(0, 1, 2) if donate else (),
         )
+        t0 = time.perf_counter()
         n_b, n_m, n_out, fs_out, keys_out, slots_out = program(
             state_keys, state_slots, state_fs, state_n, dev_cols, lits, n, self._row_base
         )
         stage_ir.count_dispatch("fused-stage-agg")
+        _observe_program("fused-stage-agg", t0)
         self._partial = {"cap": cap, "n": n_out, "fs": fs_out, "keys": list(keys_out), "slots": list(slots_out)}
         stage_ir.note_peak_bytes([fs_out, *keys_out, *slots_out])
         if n_b > cap or n_m > cap:
@@ -877,11 +886,18 @@ class GroupedAggStream:
                 part["slots"] = [_dev_pad(v, cap_in, 0) for v in part["slots"]]
         cap_out = group_capacity(a["n"] + b["n"], self.cap_floor)
         program = grouped_merge_program(key_specs, self._slots, cap_in, cap_out)
-        n_g, fs, key_out, slot_out = program(
-            tuple(a["keys"]), tuple(b["keys"]), tuple(a["slots"]), tuple(b["slots"]),
-            a["fs"], b["fs"], a["n"], b["n"],
-        )
-        count_dispatch("grouped-merge")
+        t0 = time.perf_counter()
+        with obs_spans.span("agg-merge", cat="groupagg", groups_in=a["n"] + b["n"]):
+            n_g, fs, key_out, slot_out = program(
+                tuple(a["keys"]), tuple(b["keys"]), tuple(a["slots"]), tuple(b["slots"]),
+                a["fs"], b["fs"], a["n"], b["n"],
+            )
+            count_dispatch("grouped-merge")
+        _observe_program("grouped-merge", t0)
+        REGISTRY.counter(
+            "hs_agg_merge_seconds_total",
+            "Cumulative device partial-aggregate merge time (seconds)",
+        ).inc(time.perf_counter() - t0)
         self._partial = {"cap": cap_out, "n": n_g, "fs": fs, "keys": list(key_out), "slots": list(slot_out)}
         self._cap_hint = max(self._cap_hint, n_g)
         _add(self.session, "agg_merge", t)

@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from hyperspace_tpu_torch.exec import batch as B
+from hyperspace_tpu_torch.obs import spans as obs_spans
 from hyperspace_tpu_torch.plan.expr import (
     BinaryOp,
     Col,
@@ -86,6 +87,29 @@ def count_dispatch(program: str) -> None:
         "Device-program dispatches, by program family",
         program=program,
     ).inc()
+
+
+def _observe_program(family: str, t0: float) -> None:
+    """Per-program-family timing at the device programs' call sites: a
+    wall-clock histogram (``hs_device_program_seconds{program}``) and an
+    event on the active span.
+
+    Timing caveat, as in the JAX package: CUDA launches are asynchronous,
+    so the interval covers the launch plus whatever host sync the call site
+    does (the copy of a mask or a count back), not necessarily the whole
+    device execution. The port's eager programs compile nothing, so it has
+    no compile-seconds counter and no "(compile)" mark."""
+    wall = max(0.0, time.perf_counter() - t0)
+    from hyperspace_tpu_torch.obs.metrics import REGISTRY
+
+    REGISTRY.histogram(
+        "hs_device_program_seconds",
+        "wall seconds around device program invocations, by program family",
+        program=family,
+    ).observe(wall)
+    sp = obs_spans.current_span()
+    if sp is not None:
+        sp.event("device-program", f"{family}: {wall * 1e3:.2f} ms")
 
 
 # Geometric sizes: powers of sqrt(2) over a floor. The JAX package pads its
@@ -697,8 +721,10 @@ def _encoded_for_upload(arr: np.ndarray):
 
 def _dict_expand(codes_dev: torch.Tensor, remap: np.ndarray, device: torch.device) -> torch.Tensor:
     remap_dev = _host_tensor(remap).to(device)
+    t0 = time.perf_counter()
     out = dict_expand_program(codes_dev, remap_dev)
     count_dispatch("dict-expand")
+    _observe_program("dict-expand", t0)
     return out
 
 
@@ -802,13 +828,14 @@ def stage_filter_columns(session, batch: B.Batch, condition: Optional[Expr], sca
             _pack_literals(compile_predicate(condition, _dry_codecs(batch, refs))[1])
         if FAULTS.active:
             FAULTS.check("device.transfer")
-        for r in cols:
-            ckey = (scan_key, r, str(session.device))
-            cached = _device_cache.get(ckey)
-            if cached is not None and cached[2] == n:
-                continue
-            dev, codec, nbytes, ready = _stage_encoded(batch[r], target)
-            _device_cache.put(ckey, (dev, codec, n, ready), nbytes)
+        with obs_spans.span("h2d-stage", cat="pipeline", rows=n):
+            for r in cols:
+                ckey = (scan_key, r, str(session.device))
+                cached = _device_cache.get(ckey)
+                if cached is not None and cached[2] == n:
+                    continue
+                dev, codec, nbytes, ready = _stage_encoded(batch[r], target)
+                _device_cache.put(ckey, (dev, codec, n, ready), nbytes)
     except DeviceUnsupported:
         return  # the consumer's own path takes this chunk
 
@@ -865,4 +892,5 @@ def device_filter_mask(session, batch: B.Batch, condition: Expr, scan_key=None) 
     stages["predicate_launch"] += t1 - t
     out = mask.cpu().numpy()
     stages["wait_copy_mask"] += time.perf_counter() - t1
+    _observe_program("fused-filter", t)
     return out

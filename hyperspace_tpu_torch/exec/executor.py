@@ -42,6 +42,7 @@ import numpy as np
 
 from hyperspace_tpu_torch.exec import batch as B
 from hyperspace_tpu_torch.exec import trace
+from hyperspace_tpu_torch.obs import spans
 from hyperspace_tpu_torch.plan import logical as L
 from hyperspace_tpu_torch.plan.expr import (
     EMPTY_SCALAR,
@@ -584,6 +585,44 @@ def host_aggregate(batch: B.Batch, keys: List[str], aggs) -> B.Batch:
     return out
 
 
+def aggregate_batch(session, keys, aggs, batch: B.Batch) -> B.Batch:
+    """Aggregate an already-materialized batch: the serving micro-batch
+    path's last step. Grouped shapes try the device grouped aggregate
+    (``scan_key=None``: the batch is transient, nothing to keep resident);
+    everything else, and every fallback, runs the host pandas path."""
+    conf = session.conf
+    keys = list(keys)
+    aggs = list(aggs)
+    if (
+        keys
+        and conf.device_execution_enabled
+        and conf.agg_device_grouped_enabled
+        and B.num_rows(batch) >= conf.device_exec_min_rows
+    ):
+        from hyperspace_tpu_torch.exec import aggregate as A
+        from hyperspace_tpu_torch.exec import device as D
+
+        _check_sharded(session, "aggregate", B.num_rows(batch))
+        try:
+            got = A.device_grouped_aggregate(
+                session,
+                batch,
+                None,
+                keys,
+                aggs,
+                scan_key=None,
+                max_groups=conf.agg_max_groups,
+                cap_floor=conf.agg_capacity_floor,
+            )
+            trace.record("agg", "device-grouped-batch")
+            return got
+        except A.GroupCapacityExceeded:
+            trace.fallback("agg", "spill")
+        except D.DeviceUnsupported:
+            trace.fallback("agg", "unsupported")
+    return host_aggregate(batch, keys, aggs)
+
+
 class Executor:
     def __init__(self, session):
         self.session = session
@@ -607,17 +646,25 @@ class Executor:
         self.session.query_stage_seconds[key] += now - t0
         return now
 
-    def execute(self, plan: L.LogicalPlan, required_columns: Optional[List[str]] = None) -> B.Batch:
+    def execute(
+        self,
+        plan: L.LogicalPlan,
+        required_columns: Optional[List[str]] = None,
+        prepruned: bool = False,
+    ) -> B.Batch:
         # execution-time column pruning for EVERY plan (Catalyst runs
         # ColumnPruning unconditionally; ApplyHyperspace only prunes plans
         # it rewrites, and hyperspace-off queries never saw it at all);
-        # the fallback keeps the never-break-a-query contract
-        try:
-            from hyperspace_tpu_torch.rules.utils import prune_columns
+        # the fallback keeps the never-break-a-query contract. ``prepruned``
+        # lets the serving plan cache skip this walk for templates pruned
+        # once at compile
+        if not prepruned:
+            try:
+                from hyperspace_tpu_torch.rules.utils import prune_columns
 
-            plan = prune_columns(plan)
-        except Exception:  # pruning must never kill a query
-            trace.record("prune", "fallback-unpruned")
+                plan = prune_columns(plan)
+            except Exception:  # pruning must never kill a query
+                trace.record("prune", "fallback-unpruned")
         # sub-plans referenced more than once (both sides of a self-join over
         # one DataFrame) execute once per collect; only those roots memoize
         from hyperspace_tpu_torch.rules.utils import shared_subplan_ids
@@ -843,7 +890,8 @@ class Executor:
                     prev = self._leaf_override
                     self._leaf_override = (leaves[i], leaf_batch)
                     try:
-                        out = self._exec(subs[i], False)
+                        with spans.span("execute", cat="pipeline", chunk=i):
+                            out = self._exec(subs[i], False)
                     finally:
                         self._leaf_override = prev
                     yield out
@@ -859,10 +907,28 @@ class Executor:
             hit = self._memo.get(key)
             if hit is not None:
                 return dict(hit)
-            batch = self._exec_node(plan, with_file_names)
+            batch = self._exec_inner(plan, with_file_names)
             self._memo[key] = batch
             return dict(batch)
-        return self._exec_node(plan, with_file_names)
+        return self._exec_inner(plan, with_file_names)
+
+    def _exec_inner(self, plan: L.LogicalPlan, with_file_names: bool) -> B.Batch:
+        # per-operator span: node-type name and result rows/bytes. One
+        # contextvar read on the disabled path (spans.span returns the shared
+        # null context manager)
+        cm = spans.span(type(plan).__name__, cat="exec")
+        if cm is spans._NULL_CM:
+            return self._exec_node(plan, with_file_names)
+        with cm as sp:
+            batch = self._exec_node(plan, with_file_names)
+            try:
+                sp.set(
+                    rows=B.num_rows(batch),
+                    bytes=int(sum(getattr(a, "nbytes", 0) for a in batch.values())),
+                )
+            except Exception:
+                pass
+            return batch
 
     def _exec_node(self, plan: L.LogicalPlan, with_file_names: bool) -> B.Batch:
         # a pipelined stream hands the current chunk's prefetched leaf batch
@@ -876,6 +942,17 @@ class Executor:
             return self._exec_scan(plan, with_file_names)
 
         if isinstance(plan, L.FileScan):
+            bucket_cache = getattr(self.session, "bucket_cache", None)
+            if (
+                bucket_cache is not None
+                and not with_file_names
+                and plan.files
+                and plan.file_format == "parquet"
+                and not plan.partition_values
+                and not plan.format_options
+            ):
+                trace.record("scan", "bucket-cache-filescan")
+                return bucket_cache.read(list(plan.files), list(plan.columns))
             t = time.perf_counter()
             batch = _read_files(
                 list(plan.files),
@@ -896,11 +973,14 @@ class Executor:
             else:
                 trace.record("scan", "index")
             fcols = plan.file_columns if plan.file_columns is not None else list(plan.columns)
+            bucket_cache = getattr(self.session, "bucket_cache", None)
             if not plan.files:
                 # every bucket pruned away: empty columns; dtype-less object
                 # arrays compare fine against any literal on zero rows
                 cols = list(fcols) + ([INPUT_FILE_NAME] if with_file_names else [])
                 batch = {c: np.empty(0, dtype=object) for c in cols}
+            elif bucket_cache is not None and not with_file_names:
+                batch = bucket_cache.read(list(plan.files), list(fcols))
             else:
                 t = time.perf_counter()
                 batch = _read_files(

@@ -55,7 +55,7 @@ from hyperspace_tpu_torch import native
 from hyperspace_tpu_torch.exec import batch as B
 from hyperspace_tpu_torch.exec import trace
 from hyperspace_tpu_torch.exec.aggregate import _AGG_FNS
-from hyperspace_tpu_torch.exec.device import DeviceUnsupported, _device_cache, count_dispatch
+from hyperspace_tpu_torch.exec.device import DeviceUnsupported, _device_cache, _observe_program, count_dispatch
 from hyperspace_tpu_torch.ops.encode import sort_key_int64
 from hyperspace_tpu_torch.plan import logical as L
 from hyperspace_tpu_torch.plan.expr import (
@@ -1090,8 +1090,10 @@ def device_bucketed_join(session, plan: L.Join, compat=None, setup=None) -> B.Ba
             _device_cache.put(dev_key, (lmat_dev, rmat_dev, llens, rlens), lmat.nbytes + rmat.nbytes)
         t = _add(stages, "join_upload", t)
 
+    t0 = time.perf_counter()
     lo, hi = bucketed_span(lmat_dev, rmat_dev)
     count_dispatch("bucketed-smj-span")
+    _observe_program("bucketed-smj-span", t0)
     t = _add(stages, "join_span", t)
 
     if plan.how == "inner" and session.conf.join_device_materialize:

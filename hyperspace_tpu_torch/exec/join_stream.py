@@ -28,11 +28,13 @@ the order over the real rows is the same. Two guards keep CUDA gathers in
 range: the device post-join program runs only when every pair index is
 non-negative (null-extended pairs carry -1), and the host gathers clip.
 
-Under serving the JAX package shares built sides through a byte-budgeted
-cache (``serving/build_cache.py``); the port keeps the
-``session.join_build_cache`` hook, and with no cache attached (the port has
-no serving layer yet) every join builds privately, as the JAX package does
-outside serving.
+Under serving, built sides are shared through a byte-budgeted cache
+(``serving/build_cache.py``, attached as ``session.join_build_cache`` while
+a ``QueryServer`` runs), keyed by the build plan's identity and its
+data-version brand; outside serving every join builds privately. The
+server's worker threads launch on the same (default) stream, so a cached
+table filled by one request's build is ordered before any other request's
+probe of it on the device.
 """
 
 from __future__ import annotations
@@ -621,16 +623,27 @@ def _build_identity(build_plan: L.LogicalPlan, build_cols: List[str], bkeys: Lis
 
 
 def _shared_build_side(session, build_plan, build_cols: List[str], bkeys: List[str]) -> BuildSide:
-    """Build through the session's shared build cache when one is attached
-    (``session.join_build_cache``: ``get_or_build(key, build, weigh)``),
-    else privately. The port attaches none until its serving layer (which
-    also brands entries with the data version) exists."""
+    """Build via the session's shared build cache when one is attached
+    (QueryServer start()); outside serving every join builds privately. An
+    entry is keyed by the build's identity and its data-version brand; a
+    build whose files cannot be stat'ed or whose sources cannot be signed
+    is never cached."""
     cache = getattr(session, "join_build_cache", None)
-    key = _build_identity(build_plan, build_cols, bkeys) if cache is not None else None
-    if key is None:
+    if cache is None:
+        return build_hash_side(session, build_plan, build_cols, bkeys)
+    key = _build_identity(build_plan, build_cols, bkeys)
+    brand = None
+    if key is not None:
+        try:
+            from hyperspace_tpu_torch.serving.result_cache import version_brand
+
+            brand = version_brand(session, build_plan, enabled=True)
+        except Exception:
+            brand = None
+    if key is None or brand is None:
         return build_hash_side(session, build_plan, build_cols, bkeys)
     return cache.get_or_build(
-        key,
+        key, brand,
         lambda: build_hash_side(session, build_plan, build_cols, bkeys),
         lambda b: b.nbytes,
     )

@@ -28,6 +28,7 @@ import threading
 from concurrent.futures import Future
 from typing import Callable, Dict, List, Optional, Sequence
 
+from hyperspace_tpu_torch.obs import spans
 from hyperspace_tpu_torch.reliability.faults import FAULTS
 
 _PIPELINE_POOL = None
@@ -94,17 +95,20 @@ class ScanPipeline:
     def _run(self, i: int):
         _PRODUCER.active = True
         try:
-            if FAULTS.active:
-                FAULTS.check("pipeline.task")
-            out = self._tasks[i]()
-            if self._stage is not None:
-                self._stage(i, out)
-            return out
+            with spans.span("prefetch", cat="pipeline", chunk=i):
+                if FAULTS.active:
+                    FAULTS.check("pipeline.task")
+                out = self._tasks[i]()
+                if self._stage is not None:
+                    self._stage(i, out)
+                return out
         finally:
             _PRODUCER.active = False
 
     def _submit(self, i: int) -> None:
-        fut = _pipeline_pool().submit(self._run, i)
+        # the task runs under the submitting thread's span context, so its
+        # prefetch span lands in the stream's trace tree
+        fut = _pipeline_pool().submit(spans.wrap(self._run), i)
         if self._weigh is not None:
 
             def _done(f: Future, i: int = i) -> None:

@@ -614,12 +614,14 @@ def _fused_fold_chunk(session, gs, build, chunk, pkeys, bkeys, post_filter,
                                cap, pair_cap, donate),
         donate_argnums=(0, 1, 2) if donate else (),
     )
+    t0 = time.perf_counter()
     total, n_chunk, n_m, n_kept, n_out, fs_out, keys_out, slots_out = program(
         state_keys, state_slots, state_fs, state_n,
         build.table, border, build.n, bkenc, pplanes, pkenc, pcols, bcols,
         upload_literals(lits, device), gs._row_base,
     )
     count_dispatch("fused-stage-join-agg")
+    _device._observe_program("fused-stage-join-agg", t0)
     session.query_stage_seconds["agg_program"] += time.perf_counter() - t
     gs._partial = {"cap": cap, "n": n_out, "fs": fs_out, "keys": list(keys_out), "slots": list(slots_out)}
     note_peak_bytes([fs_out, *keys_out, *slots_out])

@@ -14,39 +14,93 @@ list.append is atomic under the GIL. Enable with::
     with trace.recording() as events:
         q.collect()
     print(trace.summarize(events))
+
+Under a running ``QueryServer`` a process-global recording would interleave
+unrelated requests, so :func:`recording` refuses; every event also lands on
+the context's current obs span, and :func:`summarize_span_events` reads a
+request's dispatch trace from its span tree.
 """
 
 from __future__ import annotations
 
 import contextlib
+import threading
 from collections import Counter
 from typing import Iterator, List, Optional
+
+from hyperspace_tpu_torch.obs import spans as _spans
 
 _events: Optional[List] = None
 
 #: device-path fallbacks to the host, by (operator, reason), since the
-#: process started (the JAX package counts these in its metrics registry)
+#: process started; the metrics registry counts the same events as
+#: ``hs_device_fallback_total{op, reason}``
 fallbacks: Counter = Counter()
+
+# QueryServers running in this process (recording() refuses while any runs)
+_servers_running = 0
+_servers_lock = threading.Lock()
+
+
+def server_started() -> None:
+    global _servers_running
+    with _servers_lock:
+        _servers_running += 1
+
+
+def server_stopped() -> None:
+    global _servers_running
+    with _servers_lock:
+        _servers_running = max(0, _servers_running - 1)
 
 
 def record(kind: str, detail: str) -> None:
     """Append a dispatch event (e.g. ``record("filter", "device")``) to the
-    active recorder, if any."""
+    active recorder, if any, and annotate the context's current obs span,
+    so dispatch decisions land inside the per-request span tree too."""
     events = _events
     if events is not None:
         events.append((kind, detail))
+    sp = _spans.current_span()
+    if sp is not None:
+        sp.event(kind, detail)
 
 
 def fallback(op: str, reason: str) -> None:
     """Count a device-path fallback: a recording names every fallback, and
-    this counter shows them without one."""
+    these counters show them without one."""
     fallbacks[(op, reason)] += 1
+    from hyperspace_tpu_torch.obs.metrics import REGISTRY
+
+    REGISTRY.counter(
+        "hs_device_fallback_total",
+        "Device-path fallbacks to host execution, by operator and reason",
+        op=op,
+        reason=reason,
+    ).inc()
+
+
+def active() -> bool:
+    return _events is not None
 
 
 @contextlib.contextmanager
 def recording() -> Iterator[List]:
-    """Collect dispatch events for the duration of the block."""
+    """Collect dispatch events for the duration of the block.
+
+    Raises ``RuntimeError`` while a ``QueryServer`` is running: the recorder
+    is process-global and would interleave every concurrent request's
+    events. Use span traces (``hyperspace.obs.tracing.enabled`` and the
+    per-request profiles) under serving instead."""
     global _events
+    with _servers_lock:
+        if _servers_running:
+            raise RuntimeError(
+                "exec.trace.recording() is process-global and cannot run while "
+                f"{_servers_running} QueryServer(s) are serving concurrent "
+                "requests; use obs span tracing (hyperspace.obs.tracing.enabled) "
+                "for per-request dispatch visibility"
+            )
     prev = _events
     _events = []
     try:
@@ -61,3 +115,13 @@ def summarize(events: List) -> str:
     counts = Counter(events)
     lines = [f"{kind}: {detail} x{n}" for (kind, detail), n in sorted(counts.items())]
     return "\n".join(lines) if lines else "(no dispatch events)"
+
+
+def summarize_span_events(root) -> str:
+    """Dispatch summary of one finished span tree: :func:`summarize`'s form,
+    sourced from the events :func:`record` annotated onto obs spans (how a
+    served request's dispatch trace is read without a recording)."""
+    events: List = []
+    for sp in root.walk():
+        events.extend(sp.events)
+    return summarize(events)

@@ -6,11 +6,9 @@ per-index log/data managers (ref: HS/index/IndexCollectionManager.scala:28-196);
 invalidated by any mutating call
 (ref: HS/index/CachingIndexCollectionManager.scala:38-173).
 
-The JAX package's manager also consults a snapshot pin on every read and
-publishes a commit event on the session's lifecycle bus after every
-mutation (``hyperspace_tpu/lifecycle/``); neither is in the port yet
-(ROADMAP A9), so reads see the latest stable entries and a mutation only
-clears the cache.
+Every roster read consults the lifecycle snapshot pin first
+(``lifecycle/snapshot.py``), and every mutation publishes one commit event
+on the session's lifecycle bus (``lifecycle/invalidation.py``).
 """
 
 from __future__ import annotations
@@ -27,6 +25,7 @@ from hyperspace_tpu_torch.models.log_entry import IndexLogEntry
 from hyperspace_tpu_torch.models.log_manager import IndexLogManagerFactory
 from hyperspace_tpu_torch.models.path_resolver import PathResolver
 from hyperspace_tpu_torch.utils.cache import TTLCache
+from hyperspace_tpu_torch.lifecycle.snapshot import current_snapshot
 
 
 class IndexCollectionManager:
@@ -94,11 +93,21 @@ class IndexCollectionManager:
         return OptimizeAction(self.session, name, log_m, data_m, mode.lower()).run()
 
     # --- reads (ref: IndexCollectionManager.scala indexes) -----------------
+    # Both reads consult the lifecycle snapshot pin first: inside a
+    # snapshot_scope every roster resolution returns the version captured at
+    # admission, so a refresh committing mid-flight cannot change a running
+    # query's answer.
     def get_index(self, name: str) -> Optional[IndexLogEntry]:
+        pin = current_snapshot()
+        if pin is not None:
+            return pin.get_index(name)
         log_m, _, _ = self._managers(name)
         return log_m.get_latest_stable_log()
 
     def get_indexes(self, accepted_states: Optional[List[str]] = None) -> List[IndexLogEntry]:
+        pin = current_snapshot()
+        if pin is not None:
+            return pin.get_indexes(accepted_states)
         accepted = set(accepted_states or states.STABLE_STATES)
         out = []
         for path in self.path_resolver.all_index_paths():
@@ -144,6 +153,12 @@ class CachingIndexCollectionManager(IndexCollectionManager):
         self._cache.clear()
 
     def get_indexes(self, accepted_states: Optional[List[str]] = None) -> List[IndexLogEntry]:
+        # the pin before the TTL cache: a pinned request must not read the
+        # cache (its version may be newer than the pin), and a miss under a
+        # pin would store the pinned roster for everyone else
+        pin = current_snapshot()
+        if pin is not None:
+            return pin.get_indexes(accepted_states)
         cached = self._cache.get()
         if cached is None:
             cached = super().get_indexes(list(states.STABLE_STATES))

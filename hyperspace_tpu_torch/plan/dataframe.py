@@ -143,13 +143,58 @@ class DataFrame:
         Arrays may be read-only views of the scan cache (plans that pass
         rows through share decoded buffers across queries); ``np.copy`` one
         before mutating it in place.
+
+        With ``hyperspace.obs.tracing.enabled`` and no trace already active
+        in this context, the whole call is traced and the resulting
+        ``QueryProfile`` is retrievable via ``session.last_query_profile()``.
+        A trace already active (a QueryServer request, an outer traced block)
+        just gains child spans instead of rooting a second tree.
         """
         from hyperspace_tpu_torch.exec.executor import Executor
+        from hyperspace_tpu_torch.obs import spans
 
+        conf = self.session.conf
+        if not conf.obs_tracing_enabled or spans.current_span() is not None:
+            plan = self._timed_optimized_plan()
+            return Executor(self.session).execute(plan, required_columns=plan.output_columns)
+
+        from hyperspace_tpu_torch.obs.profile import build_profile
+
+        error = None
+        with spans.trace("query", max_spans=conf.obs_trace_max_spans) as root:
+            try:
+                plan = self._timed_optimized_plan()
+                with spans.span("execute", cat="exec"):
+                    return Executor(self.session).execute(plan, required_columns=plan.output_columns)
+            except BaseException as e:
+                error = type(e).__name__
+                raise
+            finally:
+                profile = build_profile(root, query=self.plan.describe(), error=error)
+                if conf.obs_profile_why_not:
+                    try:
+                        from hyperspace_tpu_torch.analysis.why_not import why_not_string
+
+                        profile.why_not = why_not_string(self, self.session)
+                    except Exception:
+                        pass
+                self.session._last_profile = profile
+                history = self.session.profile_history
+                if history is not None:
+                    try:
+                        from hyperspace_tpu_torch.serving.fingerprint import plan_fingerprint
+
+                        history.record_profile(plan_fingerprint(self.plan).structure, profile)
+                    except Exception:
+                        pass  # the cost model must never fail a query
+
+    def _timed_optimized_plan(self) -> L.LogicalPlan:
+        """``optimized_plan()``, its wall time added to the session's
+        ``query_stage_seconds["rewrite"]``."""
         t = time.perf_counter()
         plan = self.optimized_plan()
         self.session.query_stage_seconds["rewrite"] += time.perf_counter() - t
-        return Executor(self.session).execute(plan, required_columns=plan.output_columns)
+        return plan
 
     def to_local_iterator(self):
         """Yield the result as a stream of column batches (dicts of numpy

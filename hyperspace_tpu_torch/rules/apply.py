@@ -13,7 +13,7 @@ src/test/resources/expected/spark-2.4/subquery.txt).
 from __future__ import annotations
 
 import logging
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 from hyperspace_tpu_torch.models import states
 from hyperspace_tpu_torch.obs import spans
@@ -24,6 +24,7 @@ from hyperspace_tpu_torch.rules.candidate import collect_candidates
 from hyperspace_tpu_torch.rules.context import RuleContext
 from hyperspace_tpu_torch.rules.score import ScoreBasedIndexPlanOptimizer
 from hyperspace_tpu_torch.rules.utils import prune_columns_duplicating
+from hyperspace_tpu_torch.telemetry.events import HyperspaceIndexUsageEvent, emit_event
 
 logger = logging.getLogger(__name__)
 
@@ -64,10 +65,14 @@ def _collect_subqueries(e: Expr) -> List[SubqueryExpr]:
     return out
 
 
-def optimize_plan(plan: L.LogicalPlan, session) -> L.LogicalPlan:
-    """Apply the hyperspace rewrite when the session's toggle says so, else
-    hand the plan back."""
-    if not session.hyperspace_enabled:
+def optimize_plan(plan: L.LogicalPlan, session, enabled: Optional[bool] = None) -> L.LogicalPlan:
+    """The one optimizer entry point shared by ad-hoc execution
+    (``DataFrame.optimized_plan``) and the serving plan cache: apply the
+    hyperspace rewrite when the toggle (or the explicit ``enabled`` override
+    captured at request-submit time) says so, else hand the plan back."""
+    if enabled is None:
+        enabled = session.hyperspace_enabled
+    if not enabled:
         return plan
     with spans.span("optimize", cat="plan"):
         return ApplyHyperspace(session).apply(plan)
@@ -80,13 +85,30 @@ class ApplyHyperspace:
 
     def apply(self, plan: L.LogicalPlan) -> L.LogicalPlan:
         try:
-            new_plan, _score = self._rewrite(plan)
+            new_plan, _score = self.apply_with_score(plan)
             return new_plan
         except NotImplementedError:
             raise
         except Exception:  # never break a query (ref: ApplyHyperspace.scala:59-63)
             logger.warning("Hyperspace rule application failed; falling back", exc_info=True)
             return plan
+
+    def apply_with_score(self, plan: L.LogicalPlan):
+        """The rewrite and its score; a rewrite that applies an index
+        annotates the current span and emits one index-usage event."""
+        new_plan, score = self._rewrite(plan)
+        if score == 0:
+            return plan, 0
+        names = used_index_names(new_plan)
+        summary = new_plan.describe()
+        sp = spans.current_span()
+        if sp is not None:
+            sp.set(indexes=names, plan=summary, score=score)
+        emit_event(
+            self.session,
+            HyperspaceIndexUsageEvent(index_names=names, plan_summary=summary),
+        )
+        return new_plan, score
 
     def _rewrite(self, plan: L.LogicalPlan) -> Tuple[L.LogicalPlan, int]:
         original = plan

@@ -10,8 +10,10 @@ which the reference never registered).
 
 from __future__ import annotations
 
+import time
 from typing import Dict, Tuple
 
+from hyperspace_tpu_torch.obs import spans
 from hyperspace_tpu_torch.plan import logical as L
 from hyperspace_tpu_torch.rules import dataskipping_rule as _ds
 from hyperspace_tpu_torch.rules import filter_rule as _fr
@@ -44,6 +46,10 @@ class ScoreBasedIndexPlanOptimizer:
         self.ctx = ctx
         self._memo: Dict[int, Tuple[L.LogicalPlan, int]] = {}
         self._multi_parent: set = set()
+        # accumulated wall seconds per rule across the whole recursion (a
+        # span per rule per node would explode the trace, so the tracer gets
+        # one aggregate attribute, QueryProfile.rule_timings)
+        self._rule_seconds: Dict[str, float] = {}
 
     def apply(self, plan: L.LogicalPlan, candidates) -> Tuple[L.LogicalPlan, int]:
         counts: Dict[int, int] = {}
@@ -61,7 +67,11 @@ class ScoreBasedIndexPlanOptimizer:
         # keeps sharing a single object (the executor's shared-subplan memo
         # depends on that identity)
         self._multi_parent = {pid for pid, c in counts.items() if c > 1}
-        return self._rec(plan, candidates)
+        result = self._rec(plan, candidates)
+        sp = spans.current_span()
+        if sp is not None and self._rule_seconds:
+            sp.set(rule_timings=dict(self._rule_seconds))
+        return result
 
     def _rec(
         self, plan: L.LogicalPlan, candidates, in_chain: bool = False
@@ -92,10 +102,17 @@ class ScoreBasedIndexPlanOptimizer:
                 best_plan, best_score = plan.with_children(new_children), child_score
 
         if analysis or not in_chain:
+            timing = spans.current_span() is not None
             for rule, max_score in RULES:
                 if max_score <= best_score and not analysis:
                     continue  # cannot beat the current best (ties keep it)
-                transformed, score = rule(self.ctx, plan, candidates)
+                if timing:
+                    t0 = time.perf_counter()
+                    transformed, score = rule(self.ctx, plan, candidates)
+                    name = rule.__name__
+                    self._rule_seconds[name] = self._rule_seconds.get(name, 0.0) + (time.perf_counter() - t0)
+                else:
+                    transformed, score = rule(self.ctx, plan, candidates)
                 if score > best_score:
                     best_plan, best_score = transformed, score
 

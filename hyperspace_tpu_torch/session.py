@@ -63,6 +63,12 @@ class Session:
         from hyperspace_tpu_torch import reliability as _reliability
 
         _reliability.configure(self)
+        # lock watching is enable-only: locks wrap at construction, so a
+        # later session with the flag off cannot unwrap them
+        if self.conf.check_locks_enabled:
+            from hyperspace_tpu_torch.check import locks as _locks
+
+            _locks.watcher.enable()
         self.provider_manager = FileBasedSourceProviderManager(self)
         # context-local override beats the session-wide default, so a scoped
         # toggle never leaks into queries racing on other threads
@@ -94,6 +100,13 @@ class Session:
         self.query_stage_seconds: collections.Counter = collections.Counter()
         #: views registered for ``sql()`` (name -> DataFrame)
         self._temp_views: Dict[str, Any] = {}
+        # most recent QueryProfile from a traced collect() (obs tracing on)
+        self._last_profile = None
+        # lazily built fingerprint-keyed ProfileHistory for ad-hoc queries
+        # (each QueryServer owns its own, labeled per server)
+        self._profile_history = None
+        # the torch.profiler run between start_profile and stop_profile
+        self._profiler = None
 
     # --- reading data ------------------------------------------------------
     def read(self, paths, file_format: str, **options) -> "DataFrame":  # noqa: F821
@@ -218,6 +231,87 @@ class Session:
 
             self._lifecycle_bus = InvalidationBus(self)
         return self._lifecycle_bus
+
+    # --- query profiles (obs) ----------------------------------------------
+    def last_query_profile(self):
+        """The ``QueryProfile`` of the most recent traced ``collect()`` on
+        this session, or None. Requires ``hyperspace.obs.tracing.enabled``."""
+        return self._last_profile
+
+    @property
+    def profile_history(self):
+        """The session's fingerprint-keyed :class:`ProfileHistory` (traced
+        ad-hoc ``collect()`` calls fold into it), or None when
+        ``hyperspace.obs.history.enabled`` is false."""
+        if self._profile_history is None and self.conf.obs_history_enabled:
+            from hyperspace_tpu_torch.obs.history import ProfileHistory
+
+            self._profile_history = ProfileHistory(
+                max_fingerprints=self.conf.obs_history_max_fingerprints
+            )
+        return self._profile_history
+
+    def estimate_cost(self, query):
+        """Learned latency estimate for a SQL string or DataFrame from this
+        session's profile history (``ProfileHistory.estimate_cost``); None
+        when the history is disabled or the fingerprint is unseen."""
+        history = self.profile_history
+        if history is None:
+            return None
+        from hyperspace_tpu_torch.serving.fingerprint import plan_fingerprint
+
+        df = self.sql(query) if isinstance(query, str) else query
+        fp = plan_fingerprint(getattr(df, "plan", df))
+        return history.estimate_cost(fp.structure)
+
+    def data_version_brand(self, query):
+        """The data-version brand a served result of ``query`` (SQL string or
+        DataFrame) would be cached under: a digest of the session's active
+        index roster, the rewrite conf and every scan leaf's source snapshot
+        signature. None when any source cannot be signed. Two calls that
+        return the same brand observe the same data version."""
+        from hyperspace_tpu_torch.serving.result_cache import version_brand
+
+        df = self.sql(query) if isinstance(query, str) else query
+        return version_brand(self, getattr(df, "plan", df), bool(self.hyperspace_enabled))
+
+    # --- profiling ----------------------------------------------------------
+    # The JAX package traces through the XLA profiler; the port traces host
+    # and (on a CUDA session) device activity through torch.profiler and
+    # writes a Chrome trace into ``log_dir``, viewable in Perfetto.
+    def start_profile(self, log_dir: str) -> None:
+        import os
+
+        from torch.profiler import ProfilerActivity, profile
+
+        if self._profiler is not None:
+            raise RuntimeError("a profile is already running on this session")
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        os.makedirs(log_dir, exist_ok=True)
+        prof = profile(activities=activities)
+        prof.__enter__()
+        self._profiler = (prof, log_dir)
+
+    def stop_profile(self) -> None:
+        import os
+        import time
+
+        if self._profiler is None:
+            raise RuntimeError("no profile is running on this session")
+        prof, log_dir = self._profiler
+        self._profiler = None
+        prof.__exit__(None, None, None)
+        prof.export_chrome_trace(os.path.join(log_dir, f"trace-{os.getpid()}-{time.time_ns()}.json"))
+
+    @contextlib.contextmanager
+    def profile(self, log_dir: str):
+        self.start_profile(log_dir)
+        try:
+            yield
+        finally:
+            self.stop_profile()
 
 
 _current: Optional[Session] = None

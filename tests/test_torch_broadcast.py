@@ -6,17 +6,15 @@ to the pandas oracle, and every ``collect()`` is held to the JAX package's
 rows over the same lake, in the same order. The file's ``_counter`` of
 broadcast joins reads the port's ``hash-build`` dispatches (one per
 broadcast join; the port's metrics registry does not count
-``hs_join_broadcast_total`` yet, ROADMAP A9).
+``hs_join_broadcast_total`` yet, ROADMAP A9), and any other counter from
+the registry, as the JAX package's does. The shared build cache of
+``serving/build_cache.py`` runs under the port's ``QueryServer``.
 
-Left out, each with the ROADMAP item that ports what it needs:
+Left out, each with its reason:
 
 - ``TestHloContracts``: HLO contracts, never ported (XLA only);
-- ``TestJoinBuildCache`` and ``TestServingSharedBuilds``: the shared build
-  cache of ``serving/build_cache.py`` (A9);
 - ``TestQ3Chain::test_probe_compile_flatness_across_chunk_sizes``: XLA
-  compile counts (torch compiles nothing);
-- ``TestDtypeHintFallback``: the registry's ``hs_device_fallback_total``
-  (the port counts fallbacks in ``exec/trace.fallbacks``; A9).
+  compile counts (torch compiles nothing).
 
 Beside them, each package's streamed output (``execute_stream``) is held
 to the other's chunk for chunk, and the three programs to numpy:
@@ -50,10 +48,7 @@ pytestmark = pytest.mark.torch_port
 
 LEFT_OUT = {
     "TestHloContracts": "HLO contracts (XLA only)",
-    "TestJoinBuildCache": "A9: serving/build_cache.py",
-    "TestServingSharedBuilds": "A9: serving/build_cache.py",
     "TestQ3Chain::test_probe_compile_flatness_across_chunk_sizes": "XLA compile counts",
-    "TestDtypeHintFallback": "A9: hs_device_fallback_total in the metrics registry",
 }
 
 _cases = M.load_cases(
@@ -73,10 +68,19 @@ _cases = M.load_cases(
     return sum(s["value"] for s in snap["series"])
 ''': '''def _counter(name) -> float:
     from hyperspace_tpu_torch.exec import device as D
+    from hyperspace_tpu_torch.obs.metrics import REGISTRY
 
-    assert name == "hs_join_broadcast_total", name
-    return float(D.dispatches["hash-build"])
+    if name == "hs_join_broadcast_total":
+        return float(D.dispatches["hash-build"])
+    snap = REGISTRY.snapshot().get(name)
+    if not snap:
+        return 0.0
+    return sum(s["value"] for s in snap["series"])
 ''',
+        # the port keeps the JAX package's exec/device.py join internals in
+        # exec/join.py
+        "        from hyperspace_tpu_torch.exec import device as D\n        from hyperspace_tpu_torch.obs.metrics import REGISTRY\n":
+            "        from hyperspace_tpu_torch.exec import join as D\n        from hyperspace_tpu_torch.obs.metrics import REGISTRY\n",
         "        from hyperspace_tpu_torch.exec import device as D\n\n        sess, ldf, rdf, _lpd, _rpd = smj_sides":
             "        from hyperspace_tpu_torch.exec import join as D\n\n        sess, ldf, rdf, _lpd, _rpd = smj_sides",
     },

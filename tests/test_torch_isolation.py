@@ -129,6 +129,27 @@ def test_sql_front_end_imports_without_jax_or_cuda():
     assert r.returncode == 0 and r.stdout.strip().endswith("ok"), r.stderr
 
 
+def test_serving_runtime_imports_without_jax_or_cuda():
+    """The serving runtime and what it builds on (``serving/``,
+    ``lifecycle/``, ``obs/``, ``fabric/``, ``telemetry/``) load neither JAX
+    nor the JAX package, and start no CUDA context."""
+    code = (
+        "import sys\n"
+        "import hyperspace_tpu_torch.serving, hyperspace_tpu_torch.serving.server\n"
+        "import hyperspace_tpu_torch.serving.build_cache, hyperspace_tpu_torch.serving.batcher\n"
+        "import hyperspace_tpu_torch.lifecycle, hyperspace_tpu_torch.lifecycle.refresh_manager\n"
+        "import hyperspace_tpu_torch.obs, hyperspace_tpu_torch.obs.history, hyperspace_tpu_torch.obs.slo\n"
+        "import hyperspace_tpu_torch.fabric, hyperspace_tpu_torch.telemetry.events\n"
+        "import torch\n"
+        "assert not torch.cuda.is_initialized(), 'import initialized CUDA'\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'hyperspace_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0 and r.stdout.strip().endswith("ok"), r.stderr
+
+
 def test_session_defaults_to_cuda_and_refuses_without_it(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

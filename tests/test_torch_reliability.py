@@ -11,25 +11,25 @@ Its sessions are CPU sessions (``Session(conf=base, device="cpu")``), and
 are not mirrored into the JAX package: an injected fault fires in one
 package's registry only.
 
-tests/test_obs.py's metrics-registry cases (get-or-create, kind conflicts,
-gauges, histograms, Prometheus text and escaping, the snapshot, thread
-safety) and its span-tree cases run against the port's verbatim copies of
-``obs/metrics.py`` and ``obs/spans.py``.
+tests/test_obs.py runs whole against the port: the metrics registry
+(get-or-create, kind conflicts, gauges, histograms, Prometheus text and
+escaping, the snapshot, thread safety), the span trees, query profiles of a
+traced ``collect()``, the conf-chosen event sink, and the dispatch recorder
+under a running ``QueryServer``. Its sessions are the port's on the CPU
+(``torch_mirror.cpu_port``).
 
 Left out, each with its reason:
 
-- ``test_reliability.py::TestChaosSoak`` and ``TestChaosSoakLong``: they
-  drive the serving stack (``QueryServer``, the refresh manager; ROADMAP
-  A9), and are unsteady in the JAX package too (ROADMAP end of §C);
+- ``test_reliability.py::TestChaosSoak``: it can list a
+  ``part-0000N.parquet.tmp`` before its rename and count it as an
+  unclassified error, and does so in the JAX package too (ROADMAP end of
+  §C); ``TestChaosSoakLong`` is slow and a soak;
 - ``test_reliability.py::TestPipelineTypedErrors::test_decode_fault_surfaces_typed_cancels_queue_leaks_no_spans``:
   its last assertion needs a prefetch still queued in the pipeline pool
   when the stream closes, which happens only under CPU contention; the JAX
   package's own case fails alone on an idle host (ROADMAP end of §C). Its
   typed error through the pipeline is held by
-  ``test_pipeline_decode_fault_surfaces_typed`` here;
-- ``test_obs.py``'s query-profile, event-logger and serving cases (named in
-  ``LEFT_OUT``): query profiles, the conf-chosen event sink and the serving
-  stack wait for ROADMAP A9.
+  ``test_pipeline_decode_fault_surfaces_typed`` here.
 """
 
 import os
@@ -44,37 +44,20 @@ import torch_mirror as M  # noqa: E402
 pytestmark = [pytest.mark.torch_port, pytest.mark.faults]
 
 HERE = os.path.dirname(__file__)
-_A9 = "ROADMAP A9: query profiles, the event sink and the serving stack"
 SOURCES = {
     "test_reliability.py": {
         "from conftest import index_scans  # noqa: E402": "from torch_mirror import index_scans  # noqa: E402",
         "    sess = hst.Session(conf=base)\n": '    sess = hst.Session(conf=base, device="cpu")\n',
     },
-    "test_obs.py": {
-        "from hyperspace_tpu_torch.obs.profile import build_profile\n": "",
-        "from hyperspace_tpu_torch.serving import QueryServer\n": "",
-        "from hyperspace_tpu_torch.telemetry.events import (\n"
-        "    CollectingEventLogger,\n"
-        "    HyperspaceIndexUsageEvent,\n"
-        "    NoOpEventLogger,\n"
-        "    emit_event,\n"
-        "    get_event_logger,\n"
-        ")\n": "",
-    },
+    "test_obs.py": dict(M.CPU_PORT_IMPORT),
 }
 LEFT_OUT = {
-    "TestChaosSoak": "the serving stack (ROADMAP A9); unsteady in the JAX package too",
-    "TestChaosSoakLong": "the serving stack (ROADMAP A9); slow and soak",
+    "TestChaosSoak": (
+        "lists a part-N.parquet.tmp before its rename and counts it an unclassified error; "
+        "unsteady in the JAX package too (ROADMAP end of §C)"),
+    "TestChaosSoakLong": "slow and a soak",
     "TestPipelineTypedErrors::test_decode_fault_surfaces_typed_cancels_queue_leaks_no_spans": (
         "needs a prefetch still queued at close (CPU contention); fails alone in the JAX package too"),
-    "test_profile_report_and_json": _A9,
-    "test_collect_profile_end_to_end": _A9,
-    "test_collect_untraced_leaves_no_profile": _A9,
-    "test_event_logger_honors_conf_change_per_session": _A9,
-    "test_event_logger_not_shared_across_sessions": _A9,
-    "test_emit_event_counts_in_registry": _A9,
-    "test_recording_raises_while_server_runs": _A9,
-    "test_record_annotates_current_obs_span": _A9,
 }
 
 _modules = [M.load_cases(os.path.join(HERE, src), f"_torch_{src[:-3]}_suite", rewrites=rw)

@@ -21,10 +21,11 @@ None into NaN in string columns, ``test_limit_above_max_k_falls_back`` and
 the host-order cases), the rows are held to the JAX package's and to that
 oracle with None and NaN taken as one missing value.
 
-Left out, each with the ROADMAP item that ports what it needs:
-``TestShardedTopk`` (A10, the sharded select), ``TestServingBatcherTopk``
-(A9, serving) and ``TestCompileFlatness`` (XLA compiles; torch compiles
-nothing). The two why-not report cases run here: ``Hyperspace.why_not``
+The serving batcher's top-k cap (``TestServingBatcherTopk``'s shape) runs
+in both packages' ``execute_shared_scan`` and equals each request's own
+``collect()``. Left out, each with the ROADMAP item that ports what it
+needs: ``TestShardedTopk`` (A10, the sharded select) and
+``TestCompileFlatness`` (XLA compiles; torch compiles nothing). The two why-not report cases run here: ``Hyperspace.why_not``
 gives the JAX package's report, with its ``Sort elimination:`` section.
 """
 
@@ -507,3 +508,33 @@ def test_order_plane_matches_reference():
     for c in cols:
         for asc in (True, False):
             np.testing.assert_array_equal(order_plane(c, asc), ref_order_plane(c, asc))
+
+
+def test_serving_batcher_applies_the_topk_cap(tmp_path):
+    """``tests/test_topk.py::TestServingBatcherTopk`` in both packages: an
+    ``ORDER BY ... LIMIT`` template decomposes with a ``topk`` cap, and one
+    shared scan serves three literal variants, each equal to its own
+    ``collect()`` and to the JAX package's shared scan, row for row."""
+    from hyperspace_tpu.serving.batcher import execute_shared_scan as ref_shared
+    from hyperspace_tpu.serving.batcher import shared_scan_ops as ref_ops
+    from hyperspace_tpu_torch.serving.batcher import execute_shared_scan, shared_scan_ops
+
+    rng = np.random.default_rng(5)
+    n = 2000
+    pq.write_table(pa.table({"k": rng.integers(0, 500, n).astype(np.int64), "v": rng.standard_normal(n)}),
+                   str(tmp_path / "t.parquet"))
+    port, ref = sessions(tmp_path)
+    for sess in (port, ref):
+        sess.read_parquet(str(tmp_path / "t.parquet")).create_or_replace_temp_view("t")
+    sql = "SELECT k, v FROM t WHERE k > {lo} ORDER BY k, v LIMIT 20"
+    los = (100, 5, 400)
+    outs = []
+    for sess, ops_of, shared in ((port, shared_scan_ops, execute_shared_scan), (ref, ref_ops, ref_shared)):
+        ops, leaf = ops_of(sess.sql(sql.format(lo=100)).plan)
+        assert ops[0][0] == "topk"
+        outs.append(shared(sess, ops, leaf, [sess.sql(sql.format(lo=lo)).plan for lo in los]))
+    for lo, got, want in zip(los, *outs):
+        own = port.sql(sql.format(lo=lo)).collect()
+        for c in own:
+            np.testing.assert_array_equal(np.asarray(got[c]), np.asarray(own[c]), err_msg=f"{lo}:{c}")
+            np.testing.assert_array_equal(np.asarray(got[c]), np.asarray(want[c]), err_msg=f"{lo}:{c}")

@@ -252,6 +252,42 @@ def mirroring():
         ht.Hyperspace.explain, ht.Hyperspace.why_not = orig_explain, orig_why_not
 
 
+class CpuSession(ht.Session):
+    """A port session on the CPU unless the caller names a device."""
+
+    def __init__(self, conf=None, device="cpu"):
+        super().__init__(conf=conf, device=device)
+
+
+def cpu_port():
+    """The port's package as a JAX suite imports it (``hst``), with
+    ``Session`` defaulting to the CPU, so the suite's own
+    ``hst.Session(conf=...)`` calls build CPU sessions."""
+    mod = types.ModuleType("hyperspace_tpu_torch")
+    mod.__dict__.update(vars(ht))
+    mod.Session = CpuSession
+    return mod
+
+
+#: the ``load_cases`` rewrite that gives a suite ``cpu_port()`` as ``hst``
+CPU_PORT_IMPORT = {
+    "import hyperspace_tpu_torch as hst\n": "import torch_mirror as _mirror\nhst = _mirror.cpu_port()\n",
+}
+
+
+def port_tpch_env(root):
+    """``tests/test_tpch_queries.py::build_tpch_env`` with the port's CPU
+    session: the same shaped 8-table lake and index roster."""
+    name = "_torch_tpch_queries_env"
+    mod = sys.modules.get(name)
+    if mod is None:
+        import os
+
+        mod = load_cases(os.path.join(os.path.dirname(os.path.abspath(__file__)), "test_tpch_queries.py"),
+                         name, rewrites=CPU_PORT_IMPORT)
+    return mod.build_tpch_env(root)
+
+
 def mirrored_session(conf=None, **kwargs) -> MirroredSession:
     """A ``MirroredSession`` built the way the JAX suites build a session:
     ``Session(conf={SYSTEM_PATH: ..., ...})``."""
