@@ -11,8 +11,8 @@ pruning's 7d and 12d, hybrid scan's 7e and 12e, the other sources' 7f and
 and 12g, ORDER BY ... LIMIT's 7i and 12h, the reference API surface's 7j,
 explain and whyNot's 7k and 12g, nested columns' 7l and 12i, whole-stage
 fusion's 7m and 12j, native decode and the reliability layer's 7n and 12k,
-the serving runtime's 7o and 12l; every phase decodes through the port's
-native reader, as the JAX package does):
+the serving runtime's 7o and 12l, the fabric's 7p and 12m; every phase
+decodes through the port's native reader, as the JAX package does):
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: compiles the port's CUDA kernels from ``hyperspace_tpu_torch/csrc``;
@@ -192,6 +192,16 @@ native reader, as the JAX package does):
    after the commit equal ``collect()`` under the same pin, GPU == CPU,
    the appended rows whole wherever the listing holds them (0 stale, 0
    torn);
+7p. fabric-small: one small lake (20 000 rows of the query-small
+   columns, a copy each), the fabric on, through the CPU port and then on
+   the GPU: a writer builds a covering and a MinMax index (K1, K2), a file
+   lands and ``RefreshManager.refresh_index`` refreshes both under the lake
+   lease (K1 and K2 equal to their plain versions); a second session's
+   watcher replays the four commit records and its query sees the new
+   rows, equal to the writer's; a zombie whose lease a third node took over
+   at a fixed clock gets ``LeaseLostError`` at ``write_log`` and lands no
+   entry; fsck. The commit records, lease tokens and holders, the fenced
+   tokens, log ids, rows and the fsck report must be equal in both runs;
 8. generate and slice: generates a TPC-H-shaped SF1 ``lineitem`` lake (6M
    rows in 16 files, from ``--seed``, with TPC-H's return flag and line
    status) and builds three indexes through the public API (``Session`` ->
@@ -403,7 +413,21 @@ native reader, as the JAX package does):
    direct ``collect()`` (quiesced in order, A1's floats at rtol 1e-9;
    under the refresh as multisets of the data version the request could
    see: 0 stale, 0 torn; a request that started before the commit may
-   see either version whole, ROADMAP C8).
+   see either version whole, ROADMAP C8);
+12m. fabric: two worker processes (``FABRIC_WORKER``), each with a CUDA
+   context of its own on the card, a ``QueryServer`` behind a
+   ``WorkerEndpoint``, the commit watcher (25 ms polls) and the sidecar;
+   a ``FrontDoor`` here, health on, routes 24 SQL requests of 12l's mix
+   (five distinct texts) from 4 client threads over 8 tenants; an SF1
+   ``lineitem`` file lands and this process refreshes ``li_shipdate``
+   (K1) and ``li_skip`` (K2) under the lake lease, each call equal to its
+   plain version; both
+   workers replay both commit records, and the mix routed again sees the
+   new rows (0 stale, 0 torn). Every routed result equals a direct
+   ``collect()`` here through the same JSON wire; the merged ``/metrics``
+   parses and carries both workers' ``server`` series. Prints queries/s
+   and latency p50 and p99 through the FrontDoor, each worker's replay lag
+   and the refresh's seconds.
 
 The third line from the end is a JSON object with the queries', the
 joins' (under ``"join"``), the aggregates' (under ``"agg"``), the
@@ -412,8 +436,9 @@ scan's (``"hybrid"``), the Delta table's (``"delta"``), SQL's (``"sql"``,
 with ``bcast-small`` under ``"bcast_small"`` and explain under
 ``"explain"``), the top-k's (``"topk"``) and the nested columns' (``"nested"``,
 with api-small and explain-small), fusion's (``"fusion"``, with
-fusion-small), native decode's (``"native"``, with native-small) and
-serving's (``"serving"``, with serving-small) results and times, the line before the last one with an entry per kernel (its launches
+fusion-small), native decode's (``"native"``, with native-small),
+serving's (``"serving"``, with serving-small) and the fabric's
+(``"fabric"``, with fabric-small) results and times, the line before the last one with an entry per kernel (its launches
 on the build's main path, and per path under ``launches_by_path``); the
 last line
 is ``{"ok": true, "device": {...}}``. Any failed check raises, so
@@ -2126,18 +2151,25 @@ def assert_no_fallback(summary: str, what: str) -> None:
 
 class ReadSpy:
     """Counts parquet decodes started and finished through the port's
-    reader while installed (``with ReadSpy() as spy``)."""
+    reader while installed (``with ReadSpy() as spy``). The prefetch
+    threads decode side by side, so the counts move under a lock: an
+    unguarded ``+=`` from two threads can lose one."""
 
     def __enter__(self):
+        import threading
+
         from hyperspace_tpu_torch.exec import io as IO
 
         self.real = IO.read_parquet_batch
         self.started = self.finished = 0
+        lock = threading.Lock()
 
         def spy(files, columns, predicate=None):
-            self.started += 1
+            with lock:
+                self.started += 1
             out = self.real(files, columns, predicate=predicate)
-            self.finished += 1
+            with lock:
+                self.finished += 1
             return out
 
         IO.read_parquet_batch = spy
@@ -7306,6 +7338,540 @@ def run_serving(li_src: str, o_src: str, system: str, tmp: str, args, smi: str) 
             "result_cache": cached, "host_cores": cores, "device": smi, "launches": refresh_launches}
 
 
+def _sync(device: str) -> None:
+    import torch
+
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+class _FixedClock:
+    """A settable clock for the lease's expiry (``fabric/lease.py`` takes
+    one), so that the takeover below happens at the same instant in every
+    run."""
+
+    def __init__(self, t: float):
+        self.t = t
+
+    def __call__(self) -> float:
+        return self.t
+
+
+def _fabric_conf(ht, system: str, node: str, **extra) -> dict:
+    """A fabric session's conf: the fabric on under ``node``; the watcher
+    thread off and the sidecar's rounds an hour apart unless ``extra`` says
+    otherwise (the phase polls by hand)."""
+    return {ht.keys.SYSTEM_PATH: system, ht.keys.FABRIC_ENABLED: True, ht.keys.FABRIC_NODE_ID: node,
+            ht.keys.FABRIC_WATCHER_ENABLED: False, ht.keys.FABRIC_SLO_PUBLISH_INTERVAL_SECONDS: 3600, **extra}
+
+
+def _record_shapes(system: str, indexes) -> dict:
+    """Each index's commit records as (id, seq, origin, kind, log id, the
+    number of affected files): every field but the clock reading and the
+    index files' generated names."""
+    from hyperspace_tpu_torch.fabric import records
+
+    return {name: [(rid, r["seq"], r["origin"], r["kind"], r["logId"], len(r["affectedFiles"]))
+                   for rid, r in records.read_commit_records(records.commits_dir(system, name))]
+            for name in indexes}
+
+
+def check_fabric_small(tmp: str, seed: int, devices=("cpu", "cuda")) -> dict:
+    """fabric-small: the same sequence on a copy of one small lake (20 000
+    rows of the query-small columns in 4 files), through the CPU port and
+    then on the GPU, with the fabric on in every session:
+
+    1. a writer session (node ``n1``, the refresh lease on) builds a
+       covering index (K1 on the GPU) and a MinMax data-skipping index (K2);
+       a file of new ids lands and ``RefreshManager.refresh_index`` refreshes
+       both, each under the lake lease with its fencing token checked at
+       the log write (K1 and K2 again, each call equal to its plain
+       version);
+    2. a second session (node ``n2``) replays the writer's commit records
+       with its watcher (``poll_once``): its bus takes the writer's
+       ``commit_seq``, and its queries see the new ids, equal to the
+       writer's;
+    3. a zombie holds the covering index's lease, stops renewing, and a
+       third node takes the lease over at a fixed clock: the zombie's
+       ``write_log`` under its ``fence_scope`` raises ``LeaseLostError``
+       (held token against the lake's) and no log entry lands; the
+       successor's lands;
+    4. fsck of the lake.
+
+    The commit records (all but their clock readings and file names), the
+    lease tokens and holders, the query rows, the fsck report and the log
+    ids must be equal between the two runs."""
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    import hyperspace_tpu_torch as ht
+    from hyperspace_tpu_torch.fabric import lease as lease_mod
+    from hyperspace_tpu_torch.fabric.fsck import fsck
+    from hyperspace_tpu_torch.lifecycle import RefreshManager
+    from hyperspace_tpu_torch.models.log_manager import IndexLogManager
+    from hyperspace_tpu_torch.ops import kernels
+
+    root = os.path.join(tmp, "fabric_small")
+    base = gen_query_lake(os.path.join(root, "base"), 20_000, 4, seed + 16)
+    c = ht.col
+    runs = {}
+    for run, device in enumerate(devices):
+        t0 = time.perf_counter()
+        lake = os.path.join(root, f"{run}-{device}", "lake")
+        system = os.path.join(root, f"{run}-{device}", "idx")
+        shutil.copytree(base, lake)
+        writer = ht.Session(conf=_fabric_conf(
+            ht, system, "n1", **{ht.keys.FABRIC_LEASE_ENABLED: True, ht.keys.FABRIC_LEASE_TTL_SECONDS: 30.0,
+                                 ht.keys.FABRIC_LEASE_RENEW_INTERVAL_SECONDS: 10.0, ht.keys.NUM_BUCKETS: 8,
+                                 ht.keys.DEVICE_MIN_ROWS: 0}), device=device)
+        reader = ht.Session(conf=_fabric_conf(ht, system, "n2", **{ht.keys.DEVICE_MIN_ROWS: 0}), device=device)
+        try:
+            _sync(device)
+            kernels.reset_launches()
+            with KernelCapture() as cap:
+                hs = ht.Hyperspace(writer)
+                hs.create_index(writer.read_parquet(lake), ht.CoveringIndexConfig("fab_id", ["id"], ["z", "f", "s"]))
+                hs.create_index(writer.read_parquet(lake), ht.DataSkippingIndexConfig("fab_skip", ht.MinMaxSketch("id")))
+                replayed = [reader.fabric.watcher.poll_once()]
+                rng = np.random.default_rng(seed + 16)
+                extra = 3000
+                _write_atomic(lambda p: pq.write_table(pa.table({
+                    "id": np.arange(50_000, 50_000 + extra, dtype=np.int64), "z": rng.integers(-3, 4, extra),
+                    "f": np.round(rng.standard_normal(extra), 1),
+                    "n": pa.array(rng.integers(0, 9, extra)),
+                    "d": np.datetime64("1997-01-01") + rng.integers(0, 30, extra).astype("timedelta64[D]"),
+                    "s": np.array([f"s{x}" for x in rng.integers(0, 60, extra)], dtype=object),
+                }), p), os.path.join(lake, "part-00004.parquet"))
+                manager = RefreshManager(writer)
+                outcomes = [manager.refresh_index(name, "incremental") for name in ("fab_id", "fab_skip")]
+                _sync(device)
+            launches = {k: v for k, v in kernels.launches.items() if v}
+            calls = cap.check()
+            assert outcomes == ["committed", "committed"], outcomes
+            replayed.append(reader.fabric.watcher.poll_once())
+            assert replayed == [2, 2], replayed
+            assert reader.lifecycle_bus.commit_seq == writer.lifecycle_bus.commit_seq == 4
+            rows = {}
+            for s, who in ((writer, "writer"), (reader, "reader")):
+                s.enable_hyperspace()
+                q = s.read_parquet(lake).filter((c("id") >= 49_000) & (c("z") != 0)).select("id", "z", "f", "s")
+                got, summary = traced_collect(q)
+                assert plan_index_scans(q.optimized_plan()), f"fabric-small {who}: the query used no index"
+                assert int(np.count_nonzero(got["id"] >= 50_000)) > 0, f"fabric-small {who}: stale"
+                rows[who] = got
+            assert same_batch(rows["reader"], rows["writer"]), "fabric-small: the replaying session differs"
+
+            # a zombie writer: its lease expired and a peer took it over
+            clock = _FixedClock(1.0e9)
+            zombie = lease_mod.acquire(system, "refresh/fab_id", "zombie", ttl_s=10.0, clock=clock)
+            clock.t += 11.0
+            successor = lease_mod.acquire(system, "refresh/fab_id", "n3", ttl_s=10.0, clock=clock)
+            log = IndexLogManager(os.path.join(system, "fab_id"))
+            latest = log.get_latest_id()
+            with lease_mod.fence_scope(zombie):
+                try:
+                    log.write_log(latest + 1, log.get_latest_log())
+                    raise AssertionError("fabric-small: the zombie's log write landed")
+                except lease_mod.LeaseLostError as e:
+                    fenced = (e.held_token, e.current_token)
+            assert log.get_latest_id() == latest, "fabric-small: a fenced write left a log entry"
+            with lease_mod.fence_scope(successor):
+                assert log.write_log(latest + 1, log.get_latest_log())
+            successor.release()
+            tokens = {}
+            for name in ("refresh/fab_id", "refresh/fab_skip"):
+                token, state = lease_mod.read_state(system, name)
+                tokens[name] = (token, (state or {}).get("holder"))
+            report = fsck(system, clock=lambda: 1.0e9 + 7200.0)
+            report["systemPath"] = "<lake>"
+        finally:
+            writer.fabric.stop()
+            reader.fabric.stop()
+        runs[run] = {
+            "records": _record_shapes(system, ("fab_id", "fab_skip")), "tokens": tokens, "fenced": fenced,
+            "log_id": latest + 1, "fsck": report, "replayed": replayed, "launches": launches, "calls": calls,
+            "rows": rows["reader"], "seconds": time.perf_counter() - t0,
+        }
+        print(f"fabric-small {device}: {runs[run]['seconds']:.3f} s; records {runs[run]['records']}; "
+              f"replayed {replayed}; zombie fenced (held, lake) {fenced}; lease states {tokens}; fsck removed "
+              f"{report['removed']}; kernel launches {launches}", flush=True)
+    cpu, gpu = 0, 1
+    for key in ("records", "tokens", "fenced", "log_id", "fsck", "replayed"):
+        assert runs[gpu][key] == runs[cpu][key], (f"fabric-small {key}: GPU differs from CPU", runs[gpu][key],
+                                                  runs[cpu][key])
+    assert same_batch(runs[gpu]["rows"], runs[cpu]["rows"]), "fabric-small: the GPU's rows differ from the CPU's"
+    if devices[gpu] == "cuda":
+        assert runs[gpu]["launches"].get(K1, 0) > 0 and runs[gpu]["launches"].get(K2, 0) > 0, runs[gpu]["launches"]
+    print(f"fabric-small: GPU == CPU port (records, lease tokens, the fenced zombie, log ids, fsck, "
+          f"{len(runs[gpu]['rows']['id'])} rows)", flush=True)
+    return {"launches": runs[gpu]["launches"], "seconds": {devices[i]: r["seconds"] for i, r in runs.items()},
+            "records": runs[gpu]["records"], "fsck": runs[gpu]["fsck"]["removed"], "fenced": runs[gpu]["fenced"]}
+
+
+#: a fabric worker: one process with its own CUDA context on the card, a
+#: ``QueryServer`` behind a ``WorkerEndpoint``, the commit watcher and the
+#: coherence sidecar on. It imports the port only. argv: the repo root and a
+#: JSON object (conf, device, server name, lake paths, the replay log). It
+#: prints one JSON line (its URL) once it serves, and serves until its
+#: standard input closes. Every replayed commit re-resolves the served views
+#: (a DataFrame keeps the listing it was read with) and then appends the
+#: commit and the wall time to the replay log; it subscribes after the
+#: server, so its line is written once every other subscriber has run.
+FABRIC_WORKER = r'''
+import json, os, sys, time
+sys.path.insert(0, sys.argv[1])
+cfg = json.loads(sys.argv[2])
+import hyperspace_tpu_torch as ht
+from hyperspace_tpu_torch.fabric import WorkerEndpoint
+from hyperspace_tpu_torch.serving import QueryServer
+
+sess = ht.Session(conf=cfg["conf"], device=cfg["device"])
+sess.enable_hyperspace()
+
+
+def views():
+    sess.register_view("lineitem", sess.read_parquet(cfg["lineitem"]))
+    sess.register_view("orders", sess.read_parquet(cfg["orders"]))
+
+
+views()
+with QueryServer(sess, workers=cfg["threads"], name=cfg["name"]) as srv, WorkerEndpoint(srv) as ep:
+    def replayed(event):
+        views()
+        with open(cfg["replays"], "a") as f:
+            f.write(json.dumps({"index": event.index_name, "kind": event.kind, "logId": event.log_id,
+                                "origin": event.origin, "seq": sess.lifecycle_bus.commit_seq,
+                                "at": time.time()}) + "\n")
+
+    sess.lifecycle_bus.subscribe(replayed)
+    print(json.dumps({"url": ep.url, "pid": os.getpid(), "device": str(sess.device),
+                      "node": sess.fabric.node_id}), flush=True)
+    sys.stdin.readline()
+'''
+
+FABRIC_WORKERS = 2
+FABRIC_REQUESTS = 24  # 12 q6, 5 A1, 5 J3, 2 T1 (the 12l mix's shares) over 5 distinct texts
+FABRIC_CLIENTS = 4
+FABRIC_TENANTS = 8
+
+
+def fabric_sql(kind: str, v: int) -> str:
+    """The 12l requests as SQL text, which is what a FrontDoor forwards:
+    q6's filter with ``l_quantity < 9 + v``, A1 (q1 over plain columns,
+    shipped by a cut-off ``v`` weeks before 1998-09-02, in group order), J3
+    (a month of ``lineitem`` joined to ``orders`` above an
+    ``o_totalprice``) and T1 (the 100 dearest lines)."""
+    import numpy as np
+
+    if kind == "q6":
+        return ("select l_extendedprice, l_discount from lineitem where l_shipdate >= date '1994-01-01' "
+                "and l_shipdate < date '1995-01-01' and l_discount >= 0.05 and l_discount <= 0.07 "
+                f"and l_quantity < {9 + v}")
+    if kind == "A1":
+        cut = np.datetime64("1998-09-02") - np.timedelta64(7 * v, "D")
+        return ("select l_returnflag, l_linestatus, sum(l_quantity) as sum_qty, sum(l_extendedprice) as "
+                "sum_base_price, avg(l_quantity) as avg_qty, avg(l_extendedprice) as avg_price, avg(l_discount) "
+                f"as avg_disc, count(*) as count_order from lineitem where l_shipdate <= date '{cut}' "
+                "group by l_returnflag, l_linestatus order by l_returnflag, l_linestatus")
+    if kind == "J3":
+        return ("select l_orderkey, l_extendedprice, o_custkey, o_totalprice from lineitem, orders "
+                "where l_orderkey = o_orderkey and l_shipdate >= date '1994-03-01' "
+                f"and l_shipdate < date '1994-04-01' and o_totalprice > {250000.0 + 100000.0 * v}")
+    return ("select l_orderkey, l_partkey, l_extendedprice, l_shipdate from lineitem "
+            "order by l_extendedprice desc limit 100")
+
+
+def fabric_mix(seed: int) -> list:
+    """``FABRIC_REQUESTS`` requests in a seeded order, each with a tenant:
+    (tenant, kind, variant). Five distinct texts (q6 at two literals), so
+    that each one's direct ``collect()``, before and after the refresh,
+    stays within the phase's time."""
+    import numpy as np
+
+    mix = [("q6", i % 2) for i in range(12)] + [("A1", 0)] * 5 + [("J3", 0)] * 5 + [("T1", 0)] * 2
+    rng = np.random.default_rng(seed + 16)
+    order = rng.permutation(len(mix))
+    return [(f"tenant{int(rng.integers(0, FABRIC_TENANTS))}",) + mix[i] for i in order]
+
+
+def wire(batch) -> dict:
+    """A collected batch as a FrontDoor hands it back from a worker: JSON
+    columns (``WorkerEndpoint``'s encoding) read into numpy arrays."""
+    import numpy as np
+
+    body = json.loads(json.dumps({"columns": {k: v.tolist() for k, v in batch.items()}}, default=str))
+    return {k: np.asarray(v) for k, v in body["columns"].items()}
+
+
+def _same_routed(kind: str, got, want) -> bool:
+    """A routed result against a direct ``collect()`` through the same
+    wire: A1 in group order with its float aggregates at rtol 1e-9, the
+    others as multisets of rows."""
+    if kind == "A1":
+        return same_groups(got, want, {"sum_base_price", "avg_qty", "avg_price", "avg_disc"}, ordered=True)
+
+    def rows(batch):
+        return sorted(zip(*(v.tolist() for v in batch.values())), key=repr)
+
+    return list(got) == list(want) and rows(got) == rows(want)
+
+
+def _read_line(proc, timeout: float) -> str:
+    """The next line of a child's standard output, or an error after
+    ``timeout`` seconds."""
+    import queue
+    import threading
+
+    box = queue.Queue()
+    threading.Thread(target=lambda: box.put(proc.stdout.readline()), daemon=True).start()
+    try:
+        return box.get(timeout=timeout)
+    except queue.Empty:
+        raise AssertionError(f"fabric: worker {proc.pid} printed nothing in {timeout:.0f} s") from None
+
+
+def parse_prometheus(text: str) -> dict:
+    """A Prometheus 0.0.4 exposition as {family: [(labels, value)]}; a line
+    that does not parse, or a family whose ``# TYPE`` comes twice, fails."""
+    import re
+
+    families, typed = {}, set()
+    sample = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{(?:[^"}]|"(?:[^"\\]|\\.)*")*\})? (\S+)$')
+    for line in text.splitlines():
+        if not line:
+            continue
+        if line.startswith("# TYPE "):
+            name = line.split()[2]
+            assert name not in typed, f"fabric: {name} typed twice in the merged exposition"
+            typed.add(name)
+            continue
+        if line.startswith("#"):
+            continue
+        m = sample.match(line)
+        assert m is not None, f"fabric: unparseable exposition line {line!r}"
+        float(m.group(3))
+        families.setdefault(m.group(1), []).append((m.group(2) or "", float(m.group(3))))
+    return families
+
+
+def run_fabric(li_src: str, o_src: str, system: str, tmp: str, args, smi: str, device: str = "cuda") -> dict:
+    """fabric: the scale-out fabric over the SF1 lake and the indexes the
+    earlier phases built. Two worker processes (``FABRIC_WORKER``), each
+    with its own CUDA context on the one card, serve behind their
+    ``WorkerEndpoint``s with the watcher (25 ms polls) and the sidecar on; a
+    ``FrontDoor`` in this process, health on, routes ``FABRIC_REQUESTS``
+    SQL requests of the 12l mix from ``FABRIC_CLIENTS`` closed-loop client
+    threads over ``FABRIC_TENANTS`` tenants (rendezvous hashing). Then an
+    SF1 ``lineitem`` file of new orders lands, and this process, as the
+    fabric's writer (the lease on, its watcher off), refreshes
+    ``li_shipdate`` (K1) and ``li_skip`` (K2) under the lake lease, each
+    kernel call equal to its plain version. Each worker replays both
+    commit records; the requests admitted after both replays run again
+    through the FrontDoor and must see the new rows (0 stale, 0 torn). Every
+    routed result equals a direct ``collect()`` of the same text in this
+    process over the listing it could see, through the same JSON wire. The
+    FrontDoor's merged ``/metrics`` must parse and carry both workers'
+    ``server`` series. Prints queries/s and latency p50 and p99 through the
+    FrontDoor, each worker's replay lag (from the commit record's time to
+    the replay) and the refresh's seconds."""
+    import subprocess
+    import threading
+
+    import hyperspace_tpu_torch as ht
+    from hyperspace_tpu_torch.fabric import FrontDoor, records
+    from hyperspace_tpu_torch.lifecycle import RefreshManager
+    from hyperspace_tpu_torch.ops import kernels
+
+    t_phase = time.perf_counter()
+    files = sorted(os.path.join(li_src, f) for f in os.listdir(li_src) if f.endswith(".parquet"))
+    chunk = 2 * max(os.path.getsize(f) for f in files)
+    serving_conf = {ht.keys.SYSTEM_PATH: system, ht.keys.DEVICE_MIN_ROWS: 0, ht.keys.STREAM_CHUNK_BYTES: chunk,
+                    ht.keys.HYBRID_SCAN_ENABLED: True}
+    root = os.path.join(tmp, "fabric")
+    os.makedirs(root, exist_ok=True)
+    names = [f"qs{i}" for i in range(FABRIC_WORKERS)]
+    procs, logs, writer = [], [], None
+    if device == "cuda":
+        import torch
+
+        torch.cuda.empty_cache()  # the earlier phases' cached blocks: room for the workers' contexts
+    try:
+        t = time.perf_counter()
+        for name in names:
+            cfg = {"device": device, "name": name, "threads": 2, "lineitem": li_src, "orders": o_src,
+                   "replays": os.path.join(root, f"{name}.replays.jsonl"),
+                   "conf": {**serving_conf, ht.keys.FABRIC_ENABLED: True, ht.keys.FABRIC_NODE_ID: name,
+                            ht.keys.FABRIC_POLL_INTERVAL_SECONDS: 0.025}}
+            log = open(os.path.join(root, f"{name}.stderr"), "w")
+            logs.append(log)
+            procs.append(subprocess.Popen([sys.executable, "-c", FABRIC_WORKER, HERE, json.dumps(cfg)],
+                                          stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=log, text=True))
+        hello = []
+        for proc, name in zip(procs, names):
+            line = _read_line(proc, 120.0)
+            if not line:
+                proc.wait(timeout=30)
+                with open(os.path.join(root, f"{name}.stderr")) as f:
+                    raise AssertionError(f"fabric: worker {name} exited {proc.returncode}: {f.read()[-3000:]}")
+            hello.append(json.loads(line))
+        assert all(h["device"].startswith(device) for h in hello), hello
+        started_s = time.perf_counter() - t
+        print(f"fabric: {len(procs)} workers serving in {started_s:.3f} s: " + ", ".join(
+            f"{h['node']} pid {h['pid']} on {h['device']} at {h['url']}" for h in hello), flush=True)
+
+        writer = ht.Session(conf=_fabric_conf(ht, system, "writer", **{
+            **serving_conf, ht.keys.FABRIC_LEASE_ENABLED: True, ht.keys.FABRIC_HEALTH_ENABLED: True,
+            ht.keys.LIFECYCLE_REFRESH_MODE: "incremental"}), device=device)
+        writer.enable_hyperspace()
+        door = FrontDoor([h["url"] for h in hello], conf=writer.conf)
+        mix = fabric_mix(args.seed)
+        variants = sorted({(k, v) for _, k, v in mix})
+
+        def direct(label):
+            """Each distinct request collected directly here, over the
+            current listing, through the JSON wire."""
+            writer.register_view("lineitem", writer.read_parquet(li_src))
+            writer.register_view("orders", writer.read_parquet(o_src))
+            out = {}
+            t0 = time.perf_counter()
+            for kind, v in variants:
+                out[kind, v] = wire(writer.sql(fabric_sql(kind, v)).collect())
+            print(f"fabric: {len(variants)} distinct requests collected directly ({label}) in "
+                  f"{time.perf_counter() - t0:.3f} s", flush=True)
+            return out
+
+        def routed(label, requests):
+            per = [requests[i::FABRIC_CLIENTS] for i in range(FABRIC_CLIENTS)]
+            done, errors = [], []
+            lock = threading.Lock()
+
+            def client(share):
+                try:
+                    for tenant, kind, v in share:
+                        t0 = time.perf_counter()
+                        got = door.query(fabric_sql(kind, v), tenant=tenant, timeout=300)
+                        t1 = time.perf_counter()
+                        with lock:
+                            done.append((kind, v, t0, t1, tenant, got))
+                except Exception as e:  # surfaced below: a failed request fails the phase
+                    errors.append(e)
+
+            threads = [threading.Thread(target=client, args=(share,)) for share in per]
+            t0 = time.perf_counter()
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(600)
+            wall = time.perf_counter() - t0
+            assert not any(th.is_alive() for th in threads), f"fabric {label}: a client did not finish"
+            assert not errors, errors
+            out = {**_latencies(done, wall), "wall_s": wall,
+                   "by_worker": dict(collections.Counter(door.pick(r[4]) for r in done))}
+            print(f"fabric {label}: {len(done)} requests through the FrontDoor from {FABRIC_CLIENTS} clients in "
+                  f"{wall:.3f} s: {out['qps']:.3f} queries/s, latency p50 {out['p50_ms']:.3f} ms, p99 "
+                  f"{out['p99_ms']:.3f} ms; by worker {out['by_worker']} ({smi})", flush=True)
+            return out, done
+
+        before = direct("the listing the workers read")
+        first, done = routed("before the refresh", mix)
+        assert len(first["by_worker"]) == len(procs), f"fabric: a worker got no request {first['by_worker']}"
+        for kind, v, _, _, _, got in done:
+            assert _same_routed(kind, got, before[kind, v]), f"fabric {kind}{v}: differs from collect()"
+
+        # an SF1 file of new orders lands; the writer refreshes under the lease
+        n_files = len(files)
+        new_path = os.path.join(li_src, f"part-{n_files:05d}.parquet")
+        _write_atomic(lambda p: _write_ingest_file(p, args.seed + 16, n_files, LINEITEM_ROWS_SF1 // 16, 1.0,
+                                                   "1994-05-01", 2 * ORDERS_ROWS_SF1), new_path)
+        _sync(device)
+        kernels.reset_launches()
+        manager = RefreshManager(writer)
+        with KernelCapture() as cap:
+            t = time.perf_counter()
+            outcomes = {name: manager.refresh_index(name, "incremental") for name in ("li_shipdate", "li_skip")}
+            _sync(device)
+            refresh_s = time.perf_counter() - t
+        launches = {k: v for k, v in kernels.launches.items() if v}
+        calls = cap.check()
+        assert outcomes == {"li_shipdate": "committed", "li_skip": "committed"}, outcomes
+        if device == "cuda":
+            assert launches.get(K1, 0) > 0 and launches.get(K2, 0) > 0, launches
+        commits = {}
+        for name in ("li_shipdate", "li_skip"):
+            rid, rec = records.read_commit_records(records.commits_dir(system, name))[-1]
+            assert rec["origin"] == "writer" and rec["kind"] == "refresh-incremental", rec
+            commits[name] = rec
+        print(f"fabric refresh: {LINEITEM_ROWS_SF1 // 16} rows landed; li_shipdate and li_skip refreshed under the "
+              f"lease in {refresh_s:.3f} s ({outcomes}); launches {launches}, each call equal to its plain version "
+              f"({calls}) ({smi})", flush=True)
+
+        # each worker replays both commit records
+        lags, deadline = {}, time.perf_counter() + 60.0
+        for name in names:
+            want = {(n, r["logId"]) for n, r in commits.items()}
+            while True:
+                path = os.path.join(root, f"{name}.replays.jsonl")
+                seen = []
+                if os.path.exists(path):
+                    with open(path) as f:
+                        seen = [json.loads(ln) for ln in f if ln.strip()]
+                got = {(r["index"], r["logId"]): r for r in seen if r["origin"] == "writer"}
+                if want <= set(got):
+                    break
+                assert time.perf_counter() < deadline, f"fabric: {name} did not replay {want} ({seen})"
+                time.sleep(0.01)
+            lags[name] = {n: got[n, r["logId"]]["at"] - r["ts"] for n, r in commits.items()}
+        print(f"fabric replay lag (commit record to the worker's replay, wall clock): " + "; ".join(
+            f"{w} " + ", ".join(f"{n} {1e3 * s:.3f} ms" for n, s in v.items()) for w, v in lags.items())
+            + f" ({smi})", flush=True)
+
+        after = direct("the new listing")
+        second, done = routed("after the replay", mix)
+        stale = torn = 0
+        for kind, v, _, _, _, got in done:
+            if not _same_routed(kind, got, after[kind, v]):
+                if _same_routed(kind, got, before[kind, v]):
+                    stale += 1
+                else:
+                    torn += 1
+        new_rows = sum(1 for k in variants if k[0] in ("q6", "A1") and not _same_routed(k[0], after[k], before[k]))
+        assert new_rows > 0, "fabric: the new file changed no q6 or A1 answer"
+        print(f"fabric after the replay: {len(done)} routed results against the new listing: {stale} stale, "
+              f"{torn} torn ({new_rows} of the distinct q6 and A1 answers changed with the new file)", flush=True)
+        assert stale == 0 and torn == 0, (stale, torn)
+
+        families = parse_prometheus(door.metrics_text())
+        servers = {name: sum(1 for series in families.values() for labels, _ in series
+                             if f'server="{name}"' in labels) for name in names}
+        assert all(servers.values()), f"fabric: the merged /metrics lacks a worker's series {servers}"
+        seqs = {labels: v for labels, v in families.get("hs_fabric_commit_seq", [])}
+        print(f"fabric merged /metrics: {len(families)} families, series per worker {servers}, "
+              f"hs_fabric_commit_seq {seqs}", flush=True)
+    finally:
+        if writer is not None:
+            writer.fabric.stop()
+        for proc in procs:
+            try:
+                proc.stdin.close()
+            except OSError:
+                pass
+        for proc in procs:
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=30)
+        for log in logs:
+            log.close()
+    codes = [p.returncode for p in procs]
+    assert codes == [0] * len(procs), f"fabric: worker exit codes {codes}"
+    seconds = time.perf_counter() - t_phase
+    return {"workers": len(procs), "started_s": started_s, "before": first, "after": second, "lags_s": lags,
+            "refresh_s": refresh_s, "launches": launches, "stale": stale, "torn": torn, "series": servers,
+            "seconds": seconds, "device": smi}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7430,6 +7996,10 @@ def main() -> None:
         t = time.perf_counter()
         serving_small = check_serving_small(tmp, args.seed)
         phase("serving-small", t)
+
+        t = time.perf_counter()
+        fabric_small = check_fabric_small(tmp, args.seed)
+        phase("fabric-small", t)
 
         t = time.perf_counter()
         src = gen_lineitem(tmp, args.rows, args.files, args.seed)
@@ -7580,6 +8150,7 @@ def main() -> None:
                 "nested": sum(b["launches"].get(name, 0) for b in queries["nested"]["builds"].values()),
                 "native": queries["native"]["launches"].get(name, 0),
                 "serving-small": serving_small["launches"].get(name, 0),
+                "fabric-small": fabric_small["launches"].get(name, 0),
             }
 
         t = time.perf_counter()
@@ -7626,6 +8197,13 @@ def main() -> None:
         for name in results:
             results[name]["launches_by_path"]["serving"] = queries["serving"]["launches"].get(name, 0)
         phase("serving", t)
+
+        t = time.perf_counter()
+        queries["fabric"] = run_fabric(src, o_src, sess.conf.system_path, tmp, args, smi)
+        queries["fabric"]["small"] = fabric_small
+        for name in results:
+            results[name]["launches_by_path"]["fabric"] = queries["fabric"]["launches"].get(name, 0)
+        phase("fabric", t)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

@@ -59,8 +59,11 @@ Layer map (the JAX package's layout, module for module):
   - ``serving/``   QueryServer: admission, scheduling, the plan, result,
                    bucket and join build caches, micro-batching
   - ``lifecycle/`` snapshot pins, the commit bus, the refresh manager
-  - ``obs/``       spans, metrics, query profiles, history, SLO
-  - ``fabric/``    node identity
+  - ``obs/``       spans, metrics, query profiles, history, SLO, the
+                   HTTP telemetry endpoint
+  - ``fabric/``    multi-process serving over one lake: commit records and
+                   their watcher, the coherence sidecar, the fenced refresh
+                   lease, FrontDoor over worker endpoints, health, fsck
   - ``telemetry/`` events and the conf-chosen event sink
 """
 

@@ -122,12 +122,41 @@ class keys:
     OBS_SLO_WINDOWS_SECONDS = "hyperspace.obs.slo.windowsSeconds"
     OBS_HTTP_PORT = "hyperspace.obs.http.port"
     OBS_HTTP_HOST = "hyperspace.obs.http.host"
+    # Distributed observability over the serving fabric (obs/spans.py and
+    # fabric/frontdoor.py): trace-context propagation on routed requests,
+    # cross-process span-tree stitching, and federation fan-out bounds.
+    OBS_FABRIC_PROPAGATE = "hyperspace.obs.fabric.propagate"
+    OBS_FABRIC_STITCH_ENABLED = "hyperspace.obs.fabric.stitch.enabled"
+    OBS_FABRIC_STITCH_MAX_SPANS = "hyperspace.obs.fabric.stitch.maxSpans"
+    OBS_FABRIC_STITCH_MAX_BYTES = "hyperspace.obs.fabric.stitch.maxBytes"
+    OBS_FABRIC_FEDERATION_TIMEOUT_SECONDS = "hyperspace.obs.fabric.federationTimeoutSeconds"
     CHECK_LOCKS = "hyperspace.check.locks"
     LIFECYCLE_SNAPSHOT_ENABLED = "hyperspace.lifecycle.snapshot.enabled"
     LIFECYCLE_REFRESH_INTERVAL_SECONDS = "hyperspace.lifecycle.refresh.intervalSeconds"
     LIFECYCLE_REFRESH_MODE = "hyperspace.lifecycle.refresh.mode"
     FABRIC_NODE_ID = "hyperspace.fabric.nodeId"
+    FABRIC_WATCHER_ENABLED = "hyperspace.fabric.watcher.enabled"
+    FABRIC_POLL_INTERVAL_SECONDS = "hyperspace.fabric.watcher.pollIntervalSeconds"
+    FABRIC_QUARANTINE_SHARED = "hyperspace.fabric.quarantine.shared"
+    FABRIC_SLO_SHARED = "hyperspace.fabric.slo.shared"
+    FABRIC_SLO_PUBLISH_INTERVAL_SECONDS = "hyperspace.fabric.slo.publishIntervalSeconds"
+    # Fabric crash tolerance: lake-persisted refresh leases with fencing
+    # tokens, health-aware FrontDoor failover, and fsck lake garbage
+    # collection. All default-off on top of the fabric's own default-off.
     FABRIC_LEASE_ENABLED = "hyperspace.fabric.lease.enabled"
+    FABRIC_LEASE_TTL_SECONDS = "hyperspace.fabric.lease.ttlSeconds"
+    FABRIC_LEASE_RENEW_INTERVAL_SECONDS = "hyperspace.fabric.lease.renewIntervalSeconds"
+    FABRIC_HEALTH_ENABLED = "hyperspace.fabric.health.enabled"
+    FABRIC_HEALTH_FAILURE_THRESHOLD = "hyperspace.fabric.health.failureThreshold"
+    FABRIC_HEALTH_PROBE_INTERVAL_SECONDS = "hyperspace.fabric.health.probeIntervalSeconds"
+    FABRIC_HEALTH_HEARTBEAT_INTERVAL_SECONDS = "hyperspace.fabric.health.heartbeatIntervalSeconds"
+    FABRIC_HEALTH_MISSED_BEATS = "hyperspace.fabric.health.missedBeats"
+    FABRIC_HEALTH_MAX_COMMIT_LAG = "hyperspace.fabric.health.maxCommitLag"
+    FABRIC_HEALTH_HEDGE_MS = "hyperspace.fabric.health.hedgeMs"
+    FABRIC_FSCK_ENABLED = "hyperspace.fabric.fsck.enabled"
+    FABRIC_FSCK_RETENTION_SECONDS = "hyperspace.fabric.fsck.retentionSeconds"
+    FABRIC_FSCK_DEAD_NODE_SECONDS = "hyperspace.fabric.fsck.deadNodeSeconds"
+    FABRIC_FSCK_INTERVAL_SECONDS = "hyperspace.fabric.fsck.intervalSeconds"
 
     # the JAX package's names for the keys above that the port names
     # otherwise (the same strings), so code written against either resolves
@@ -316,8 +345,9 @@ DEFAULTS: Dict[str, Any] = {
     keys.RELIABILITY_QUARANTINE_ENABLED: False,
     keys.RELIABILITY_QUARANTINE_THRESHOLD: 3,
     keys.RELIABILITY_QUARANTINE_COOLDOWN_SECONDS: 30.0,
-    # the multi-process serving fabric (ROADMAP A9): the commit bus raises
-    # "not yet in the port" when it would persist a commit record
+    # Master fabric switch. Off: no commit records are written, no watcher
+    # or sidecar thread starts, every hook is one conf read; single-process
+    # behavior is byte-identical to a build without the subsystem.
     keys.FABRIC_ENABLED: False,
     # Byte budget of the shared build-side LRU (serving/build_cache.py):
     # micro-batched requests joining the same dimension table reuse one
@@ -415,6 +445,22 @@ DEFAULTS: Dict[str, Any] = {
     # the port" while this is set.
     keys.OBS_HTTP_PORT: None,
     keys.OBS_HTTP_HOST: "127.0.0.1",
+    # Stamp a W3C traceparent header (plus the stitch budget header when
+    # stitching is on) onto FrontDoor /query requests whenever the router is
+    # tracing. Off: routed requests are byte-identical to a build without
+    # distributed tracing.
+    keys.OBS_FABRIC_PROPAGATE: True,
+    # Ship the worker's serialized span tree back in the /query response so
+    # the router can graft it into one end-to-end trace. Off by default:
+    # it grows every traced response by up to stitch.maxBytes.
+    keys.OBS_FABRIC_STITCH_ENABLED: False,
+    # Bounds on the stitched payload a worker may return: spans survive
+    # tree-prefix truncation up to maxSpans, and the JSON encoding degrades
+    # to the root alone past maxBytes (droppedSpans/truncated stay visible).
+    keys.OBS_FABRIC_STITCH_MAX_SPANS: 512,
+    keys.OBS_FABRIC_STITCH_MAX_BYTES: 262_144,
+    # Per-worker HTTP timeout for /profilez and /statusz federation sweeps.
+    keys.OBS_FABRIC_FEDERATION_TIMEOUT_SECONDS: 30.0,
     # Wrap named internal mutexes in the lock-order watcher (cross-thread
     # acquisition-order cycle detection). Construction-time flag: locks
     # created before a Session enabled it stay plain.
@@ -434,10 +480,66 @@ DEFAULTS: Dict[str, Any] = {
     # records (self-commit dedupe) and its sidecar node file. Empty means
     # "<hostname>:<pid>", which is unique per process on one host.
     keys.FABRIC_NODE_ID: "",
-    # The lake-persisted refresh lease (fabric/lease.py, ROADMAP A9) is not
-    # in the port yet: with it on (and the fabric on), a refresh raises
-    # "not yet in the port" instead of running unfenced.
+    # Run the CommitWatcher thread when the fabric is on. A pure writer
+    # process (one that only refreshes) can turn this off and only publish.
+    keys.FABRIC_WATCHER_ENABLED: True,
+    # Watcher poll interval, the cross-process staleness bound: a commit
+    # in process A is replayed in process B within one interval.
+    keys.FABRIC_POLL_INTERVAL_SECONDS: 0.25,
+    # Merge remote quarantine strikes/trips from peers' commit records and
+    # sidecar files, so one process's corrupt reads protect the others.
+    keys.FABRIC_QUARANTINE_SHARED: True,
+    # Publish/merge per-tenant SLO good/bad counts and token-bucket drains
+    # through the sidecar, so burn rates and rate limits hold globally.
+    keys.FABRIC_SLO_SHARED: True,
+    # Seconds between sidecar publish/merge rounds.
+    keys.FABRIC_SLO_PUBLISH_INTERVAL_SECONDS: 1.0,
+    # Lake-persisted refresh lease: when on (and the fabric is on), the
+    # RefreshManager acquires a per-index lease before building, so exactly
+    # one *process* refreshes an index, and the lease's fencing token is
+    # verified at every operation-log write: a holder that paused past
+    # expiry and was taken over fails its late commit instead of landing it.
     keys.FABRIC_LEASE_ENABLED: False,
+    # How long an unrenewed lease stays exclusive; also the takeover bound
+    # for a holder killed mid-refresh.
+    keys.FABRIC_LEASE_TTL_SECONDS: 30.0,
+    # Heartbeat renewal cadence while a refresh holds its lease. Keep well
+    # under the TTL (a renewal extends the expiry by one full TTL).
+    keys.FABRIC_LEASE_RENEW_INTERVAL_SECONDS: 10.0,
+    # Health-aware FrontDoor membership: consecutive failures / missed
+    # sidecar heartbeats / commit-seq staleness eject a worker from the
+    # rendezvous set (tenants re-hash to survivors); a half-open probe
+    # re-admits it. Also enables retry-on-next-candidate failover.
+    keys.FABRIC_HEALTH_ENABLED: False,
+    # Consecutive transport/transient failures before ejection.
+    keys.FABRIC_HEALTH_FAILURE_THRESHOLD: 3,
+    # Cooldown before an ejected worker gets one half-open probe request.
+    keys.FABRIC_HEALTH_PROBE_INTERVAL_SECONDS: 5.0,
+    # Expected sidecar heartbeat cadence (the ledger publish interval of
+    # the workers being watched); beat age is judged against this.
+    keys.FABRIC_HEALTH_HEARTBEAT_INTERVAL_SECONDS: 1.0,
+    # A worker whose ledger heartbeat is older than this many intervals is
+    # ejected as dead: the failover detection bound is 2 intervals.
+    keys.FABRIC_HEALTH_MISSED_BEATS: 2,
+    # Eject a worker whose /healthz last-applied commit_seq lags the fleet
+    # max by more than this (a wedged watcher serves stale answers while
+    # looking alive). 0 disables staleness ejection.
+    keys.FABRIC_HEALTH_MAX_COMMIT_LAG: 0,
+    # Hedged reads: if the primary worker hasn't answered within this many
+    # milliseconds, mirror the (idempotent) query to the next rendezvous
+    # candidate and take whichever answers first. 0 disables hedging.
+    keys.FABRIC_HEALTH_HEDGE_MS: 0.0,
+    # Run the fsck garbage collector (fabric/fsck.py) at session start and
+    # then periodically: compacts old/torn commit records, superseded lease
+    # tokens, expired leases, and dead-node ledgers.
+    keys.FABRIC_FSCK_ENABLED: False,
+    # Commit records older than this are compacted (the newest record per
+    # index is always kept so watcher cursors stay monotonic).
+    keys.FABRIC_FSCK_RETENTION_SECONDS: 3600.0,
+    # Node ledgers silent for longer than this are removed.
+    keys.FABRIC_FSCK_DEAD_NODE_SECONDS: 600.0,
+    # Seconds between periodic fsck passes when enabled.
+    keys.FABRIC_FSCK_INTERVAL_SECONDS: 300.0,
 }
 
 REFRESH_MODE_INCREMENTAL = "incremental"
@@ -949,6 +1051,98 @@ class HyperspaceConf:
     @property
     def fabric_lease_enabled(self) -> bool:
         return bool(self.get(keys.FABRIC_LEASE_ENABLED))
+
+    @property
+    def obs_fabric_propagate(self) -> bool:
+        return bool(self.get(keys.OBS_FABRIC_PROPAGATE))
+
+    @property
+    def obs_fabric_stitch_enabled(self) -> bool:
+        return bool(self.get(keys.OBS_FABRIC_STITCH_ENABLED))
+
+    @property
+    def obs_fabric_stitch_max_spans(self) -> int:
+        return int(self.get(keys.OBS_FABRIC_STITCH_MAX_SPANS))
+
+    @property
+    def obs_fabric_stitch_max_bytes(self) -> int:
+        return int(self.get(keys.OBS_FABRIC_STITCH_MAX_BYTES))
+
+    @property
+    def obs_fabric_federation_timeout_seconds(self) -> float:
+        return float(self.get(keys.OBS_FABRIC_FEDERATION_TIMEOUT_SECONDS))
+
+    @property
+    def fabric_watcher_enabled(self) -> bool:
+        return bool(self.get(keys.FABRIC_WATCHER_ENABLED))
+
+    @property
+    def fabric_poll_interval_seconds(self) -> float:
+        return float(self.get(keys.FABRIC_POLL_INTERVAL_SECONDS))
+
+    @property
+    def fabric_quarantine_shared(self) -> bool:
+        return bool(self.get(keys.FABRIC_QUARANTINE_SHARED))
+
+    @property
+    def fabric_slo_shared(self) -> bool:
+        return bool(self.get(keys.FABRIC_SLO_SHARED))
+
+    @property
+    def fabric_slo_publish_interval_seconds(self) -> float:
+        return float(self.get(keys.FABRIC_SLO_PUBLISH_INTERVAL_SECONDS))
+
+    @property
+    def fabric_lease_ttl_seconds(self) -> float:
+        return float(self.get(keys.FABRIC_LEASE_TTL_SECONDS))
+
+    @property
+    def fabric_lease_renew_interval_seconds(self) -> float:
+        return float(self.get(keys.FABRIC_LEASE_RENEW_INTERVAL_SECONDS))
+
+    @property
+    def fabric_health_enabled(self) -> bool:
+        return bool(self.get(keys.FABRIC_HEALTH_ENABLED))
+
+    @property
+    def fabric_health_failure_threshold(self) -> int:
+        return int(self.get(keys.FABRIC_HEALTH_FAILURE_THRESHOLD))
+
+    @property
+    def fabric_health_probe_interval_seconds(self) -> float:
+        return float(self.get(keys.FABRIC_HEALTH_PROBE_INTERVAL_SECONDS))
+
+    @property
+    def fabric_health_heartbeat_interval_seconds(self) -> float:
+        return float(self.get(keys.FABRIC_HEALTH_HEARTBEAT_INTERVAL_SECONDS))
+
+    @property
+    def fabric_health_missed_beats(self) -> int:
+        return int(self.get(keys.FABRIC_HEALTH_MISSED_BEATS))
+
+    @property
+    def fabric_health_max_commit_lag(self) -> int:
+        return int(self.get(keys.FABRIC_HEALTH_MAX_COMMIT_LAG))
+
+    @property
+    def fabric_health_hedge_ms(self) -> float:
+        return float(self.get(keys.FABRIC_HEALTH_HEDGE_MS))
+
+    @property
+    def fabric_fsck_enabled(self) -> bool:
+        return bool(self.get(keys.FABRIC_FSCK_ENABLED))
+
+    @property
+    def fabric_fsck_retention_seconds(self) -> float:
+        return float(self.get(keys.FABRIC_FSCK_RETENTION_SECONDS))
+
+    @property
+    def fabric_fsck_dead_node_seconds(self) -> float:
+        return float(self.get(keys.FABRIC_FSCK_DEAD_NODE_SECONDS))
+
+    @property
+    def fabric_fsck_interval_seconds(self) -> float:
+        return float(self.get(keys.FABRIC_FSCK_INTERVAL_SECONDS))
 
     def deltas(self) -> Dict[str, Any]:
         """Explicitly-set keys whose value differs from the centralized

@@ -171,11 +171,11 @@ class InvalidationBus:
         conf = getattr(self._session, "conf", None)
         if conf is None or not conf.fabric_enabled:
             return
-        # the fabric's commit records (the JAX package's fabric/records.py)
-        # wait for ROADMAP A9
-        raise NotImplementedError(
-            "hyperspace.fabric.enabled: commit records are not yet in the port"
-        )
+        from hyperspace_tpu_torch.fabric import records
+
+        if event.origin is None:
+            event.origin = records.local_node_id(conf)
+        records.append_commit_record(conf.system_path, event, seq)
 
     def _apply(self, event: CommitEvent, subscribers) -> dict:
         counts = {"roster": 0, "bucket": 0, "io": 0, "device": 0}

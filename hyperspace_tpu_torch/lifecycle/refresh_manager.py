@@ -18,11 +18,11 @@ Concurrency stance:
   serving keeps resolving the prior stable version throughout;
 - **single-writer per index**: a non-blocking per-index mutex makes a second
   scheduler (or an operator-issued manual refresh racing the manager) skip
-  rather than double-build; the reference's cross-process lease with
+  rather than double-build; with ``hyperspace.fabric.lease.enabled`` the
+  same guarantee extends across *processes* via a lake-persisted lease with
   heartbeat renewal and a fencing token verified at the commit point
-  (``fabric/lease.py``) is not yet in the port: under
-  ``hyperspace.fabric.lease.enabled`` (and the fabric) a refresh raises
-  ``NotImplementedError``, and no commit is fenced;
+  (``fabric/lease.py``) — a holder killed mid-refresh is taken over by a
+  peer after lease expiry, and its late commit is fenced off;
 - **crash-safe / retry-idempotent** by construction: refresh goes through
   the Action FSM (CREATING->ACTIVE via the log manager), so a failure at any
   point leaves the prior ACTIVE entry untouched and a retry re-runs the same
@@ -195,13 +195,13 @@ class RefreshManager:
 
     def _acquire_lake_lease(self, name: str):
         """The cross-process half of single-writer: a lake-persisted lease
-        per index (``fabric/lease.py``, not yet in the port) under that conf.
+        per index (``fabric/lease.py``) when the fabric + lease conf is on.
         Returns ``(lease, acquired)`` — ``(None, True)`` means leases are
         off and the in-process lock alone governs, as before."""
         conf = self._session.conf
         if not (conf.fabric_enabled and conf.fabric_lease_enabled and conf.system_path):
             return None, True
-        raise NotImplementedError("hyperspace.fabric.lease.enabled: the refresh lease (fabric/lease.py) is not yet in the port")
+        from hyperspace_tpu_torch.fabric import lease as lease_mod
         from hyperspace_tpu_torch.fabric.records import local_node_id
 
         lease = lease_mod.acquire(
@@ -247,7 +247,7 @@ class RefreshManager:
                     # retried refresh already landed) — converged
                     outcome = "no-changes"
                 except Exception as exc:
-                    LeaseLostError = ()  # the lease (fabric/lease.py) is not yet in the port
+                    from hyperspace_tpu_torch.fabric.lease import LeaseLostError
 
                     # the Action FSM guarantees the prior ACTIVE entry still
                     # serves; the next poll retries the same diff. A fenced

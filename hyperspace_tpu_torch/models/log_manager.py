@@ -147,15 +147,25 @@ class IndexLogManager:
     def write_log(self, log_id: int, entry: IndexLogEntry) -> bool:
         """Write entry at ``log_id`` iff no entry with that id exists yet.
         Returns False when another writer won (ref: HS/index/IndexLogManager.scala:178-194).
-        The ``log.write`` fault seam fires first. (The JAX package also
-        checks a fabric lease's fencing token here; the fabric waits for
-        ROADMAP A9.)"""
+
+        When a fabric refresh lease is in scope (``fabric/lease.py``
+        ``fence_scope``), its fencing token is verified first: a holder
+        whose lease expired and was taken over raises ``LeaseLostError``
+        here — the commit point — so a zombie writer can never land a log
+        entry over its successor's."""
         entry.id = log_id
         data = entry.to_json().encode("utf-8")
         from hyperspace_tpu_torch.reliability.faults import FAULTS
 
         if FAULTS.active:
             FAULTS.check("log.write", self._path(log_id))
+        from hyperspace_tpu_torch.fabric.lease import current_fence
+
+        # fencing check adjacent to the write itself: everything slow (the
+        # build, injected latency above) happens before the token is judged
+        fence = current_fence()
+        if fence is not None:
+            fence.verify()
         return write_atomic_exclusive(self._path(log_id), data)
 
     def create_latest_stable_log(self, log_id: int) -> bool:

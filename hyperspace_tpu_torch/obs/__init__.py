@@ -1,20 +1,24 @@
-"""Query observability: spans, metrics, profiles.
+"""Unified query observability: spans, metrics, profiles.
 
-Verbatim copies of the JAX package's modules:
+Three layers on one substrate (see docs/observability.md):
 
-- :mod:`hyperspace_tpu_torch.obs.spans`: context-propagated hierarchical
-  span traces per query, with Chrome trace-event export;
-- :mod:`hyperspace_tpu_torch.obs.metrics`: the process-wide labeled metrics
-  registry with Prometheus text and a JSON snapshot;
-- :mod:`hyperspace_tpu_torch.obs.profile`: the per-query ``QueryProfile``;
-- :mod:`hyperspace_tpu_torch.obs.history`: fingerprint-keyed profile
-  statistics with cost estimates (``ProfileHistory``) and the slow-query
+- :mod:`hyperspace_tpu_torch.obs.spans` — context-propagated hierarchical span
+  traces per query, with Chrome trace-event export (Perfetto);
+- :mod:`hyperspace_tpu_torch.obs.metrics` — a process-wide, labeled metrics
+  registry (counters/gauges/histograms) with Prometheus text exposition;
+- :mod:`hyperspace_tpu_torch.obs.profile` — the per-query ``QueryProfile``
+  joining span timings with plan facts (indexes applied, rows/bytes,
+  why-not reasons);
+- :mod:`hyperspace_tpu_torch.obs.history` — fingerprint-keyed streaming profile
+  statistics + cost estimates (``ProfileHistory``) and the slow-query
   flight recorder (``FlightRecorder``);
-- :mod:`hyperspace_tpu_torch.obs.slo`: per-tenant latency-SLO accounting.
+- :mod:`hyperspace_tpu_torch.obs.slo` — per-tenant latency-SLO accounting with
+  multi-window burn-rate gauges;
+- :mod:`hyperspace_tpu_torch.obs.export` — the stdlib HTTP telemetry endpoint
+  (``/metrics``, ``/statusz``, ``/profilez``).
 
-The HTTP telemetry endpoint (the JAX package's ``obs/export.py``) is not in
-the port yet (ROADMAP A9). Importing this package loads the standard library
-only.
+Import of this package is stdlib-only: no jax, no numpy (the library's
+import-side-effect contract, tests/test_import_side_effects.py).
 """
 
 from hyperspace_tpu_torch.obs.metrics import (
@@ -25,6 +29,7 @@ from hyperspace_tpu_torch.obs.metrics import (
     MetricsRegistry,
     default_registry,
 )
+from hyperspace_tpu_torch.obs.export import TelemetryEndpoint
 from hyperspace_tpu_torch.obs.history import (
     CostEstimate,
     FlightEntry,
@@ -72,6 +77,7 @@ __all__ = [
     "load_history",
     "merge_history_snapshots",
     "SloTracker",
+    "TelemetryEndpoint",
     "NULL_SPAN",
     "Span",
     "Trace",

@@ -816,7 +816,7 @@ class QueryServer:
         (fingerprint drill-down). ``port=0`` binds an ephemeral port —
         read ``server.telemetry.port``."""
         if self.telemetry is None:
-            raise NotImplementedError("hyperspace.obs.http.port: the telemetry endpoint (obs/export.py) is not yet in the port")
+            from hyperspace_tpu_torch.obs.export import TelemetryEndpoint
 
             self.telemetry = TelemetryEndpoint(
                 self.registry,

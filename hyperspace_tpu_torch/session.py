@@ -107,6 +107,12 @@ class Session:
         self._profile_history = None
         # the torch.profiler run between start_profile and stop_profile
         self._profiler = None
+        # scale-out fabric runtime (commit watcher and coherence sidecar):
+        # None by default; wired last so its bus subscription and watcher
+        # see a fully constructed session
+        from hyperspace_tpu_torch import fabric as _fabric
+
+        self._fabric = _fabric.configure(self)
 
     # --- reading data ------------------------------------------------------
     def read(self, paths, file_format: str, **options) -> "DataFrame":  # noqa: F821
@@ -231,6 +237,14 @@ class Session:
 
             self._lifecycle_bus = InvalidationBus(self)
         return self._lifecycle_bus
+
+    # --- scale-out fabric ---------------------------------------------------
+    @property
+    def fabric(self):
+        """This session's :class:`~hyperspace_tpu_torch.fabric.FabricRuntime`
+        (commit watcher and coherence sidecar), or None while
+        ``hyperspace.fabric.enabled`` is off."""
+        return self._fabric
 
     # --- query profiles (obs) ----------------------------------------------
     def last_query_profile(self):

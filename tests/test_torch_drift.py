@@ -1,13 +1,9 @@
 """The port's verbatim copies of the JAX package's device-free modules.
 
-Fifty-five modules of ``hyperspace_tpu_torch/`` are copies of their
+Sixty-seven modules of ``hyperspace_tpu_torch/`` are copies of their
 counterparts in ``hyperspace_tpu/`` with only the package name rewritten
 (and, in ``models/path_resolver.py``, one ``typing`` import fewer, since the
-copy does not use ``Optional``; in ``serving/server.py``, the telemetry
-endpoint's import raises instead, since ``obs/export.py`` is not in the
-port; in ``lifecycle/refresh_manager.py``, the refresh lease's import
-raises instead and its docstring says so, since ``fabric/lease.py`` is not
-in the port), and the port builds its native decoder
+copy does not use ``Optional``), and the port builds its native decoder
 from byte-identical copies of ``native/hs_native.cc`` and
 ``native/thrift_compact.h`` in ``hyperspace_tpu_torch/csrc/``. This test
 compares the texts, so a change to either side that is not made to the
@@ -65,25 +61,7 @@ COPIES = {
     "models/path_resolver.py": {"from typing import List, Optional": "from typing import List"},
     "fabric/records.py": {},
     "lifecycle/__init__.py": {},
-    "lifecycle/refresh_manager.py": {
-        "  rather than double-build; with ``hyperspace.fabric.lease.enabled`` the":
-            "  rather than double-build; the reference's cross-process lease with",
-        "  same guarantee extends across *processes* via a lake-persisted lease with":
-            "  heartbeat renewal and a fencing token verified at the commit point",
-        "  heartbeat renewal and a fencing token verified at the commit point":
-            "  (``fabric/lease.py``) is not yet in the port: under",
-        "  (``fabric/lease.py``) — a holder killed mid-refresh is taken over by a":
-            "  ``hyperspace.fabric.lease.enabled`` (and the fabric) a refresh raises",
-        "  peer after lease expiry, and its late commit is fenced off;":
-            "  ``NotImplementedError``, and no commit is fenced;",
-        "        per index (``fabric/lease.py``) when the fabric + lease conf is on.":
-            "        per index (``fabric/lease.py``, not yet in the port) under that conf.",
-        "        from hyperspace_tpu.fabric import lease as lease_mod": (
-            '        raise NotImplementedError("hyperspace.fabric.lease.enabled: the refresh lease '
-            '(fabric/lease.py) is not yet in the port")'),
-        "                    from hyperspace_tpu.fabric.lease import LeaseLostError":
-            "                    LeaseLostError = ()  # the lease (fabric/lease.py) is not yet in the port",
-    },
+    "lifecycle/refresh_manager.py": {},
     "lifecycle/snapshot.py": {},
     "obs/history.py": {},
     "obs/profile.py": {},
@@ -98,11 +76,19 @@ COPIES = {
     "serving/plan_cache.py": {},
     "serving/result_cache.py": {},
     "serving/scheduler.py": {},
-    "serving/server.py": {
-        "            from hyperspace_tpu.obs.export import TelemetryEndpoint": (
-            '            raise NotImplementedError("hyperspace.obs.http.port: the telemetry endpoint '
-            '(obs/export.py) is not yet in the port")'),
-    },
+    "serving/server.py": {},
+    "fabric/__init__.py": {},
+    "fabric/coherence.py": {},
+    "fabric/frontdoor.py": {},
+    "fabric/fsck.py": {},
+    "fabric/health.py": {},
+    "fabric/lease.py": {},
+    "fabric/watcher.py": {},
+    "fsck.py": {},
+    "obs/__init__.py": {},
+    "obs/export.py": {},
+    "lifecycle/invalidation.py": {},
+    "models/log_manager.py": {},
 }
 
 

@@ -2,8 +2,9 @@
 
 The port runs in a GPU process that must never load JAX, so no module of
 ``hyperspace_tpu_torch/`` — nor ``chip_smoke.py`` — may import ``jax`` or
-anything of ``hyperspace_tpu``. The scan is static because this test
-process already imports jax (tests/conftest.py). The port also must not
+anything of ``hyperspace_tpu``, and neither may the child-process scripts
+that the port's tests start (``torch_mirror.child_scripts``). The scan is
+static because this test process already imports jax (tests/conftest.py). The port also must not
 touch CUDA at import, and must not run anywhere but the GPU unless the
 caller asks for the CPU.
 """
@@ -47,10 +48,8 @@ def test_port_has_sources():
     assert os.path.exists(os.path.join(PORT, "csrc", "segmented_min_max.cu"))
 
 
-@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: os.path.relpath(p, REPO))
-def test_no_jax_or_reference_imports(path):
-    with open(path, encoding="utf-8") as f:
-        tree = ast.parse(f.read(), filename=path)
+def _bad_imports(text: str, filename: str) -> list:
+    tree = ast.parse(text, filename=filename)
     bad = []
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
@@ -64,7 +63,35 @@ def test_no_jax_or_reference_imports(path):
             # dotted names handed to importlib (conf class names) count too
             if node.value.startswith(("jax.", "hyperspace_tpu.")):
                 bad.append(node.value)
+    return bad
+
+
+@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: os.path.relpath(p, REPO))
+def test_no_jax_or_reference_imports(path):
+    with open(path, encoding="utf-8") as f:
+        bad = _bad_imports(f.read(), path)
     assert not bad, f"{os.path.relpath(path, REPO)} imports {bad}"
+
+
+def _child_scripts():
+    import torch_mirror as M
+
+    out = []
+    for suite in ("test_fabric.py", "test_process_concurrency.py"):
+        for name, text in sorted(M.child_scripts(os.path.join(REPO, "tests", suite)).items()):
+            out.append(pytest.param(text, id=f"{suite}::{name}"))
+    return out
+
+
+@pytest.mark.parametrize("text", _child_scripts())
+def test_child_scripts_import_neither_jax_nor_the_jax_package(text):
+    """Each child-process script the port's tests run (the JAX suites'
+    scripts, rewritten by ``torch_mirror.port_child_script``) imports
+    neither ``jax`` nor ``hyperspace_tpu``, names JAX nowhere, and builds
+    its sessions on the CPU."""
+    assert not _bad_imports(text, "<child>")
+    assert "jax" not in text.lower()
+    assert "hst.Session = _CpuSession" in text
 
 
 def test_import_does_not_initialize_cuda_or_load_jax():
@@ -140,6 +167,10 @@ def test_serving_runtime_imports_without_jax_or_cuda():
         "import hyperspace_tpu_torch.lifecycle, hyperspace_tpu_torch.lifecycle.refresh_manager\n"
         "import hyperspace_tpu_torch.obs, hyperspace_tpu_torch.obs.history, hyperspace_tpu_torch.obs.slo\n"
         "import hyperspace_tpu_torch.fabric, hyperspace_tpu_torch.telemetry.events\n"
+        "import hyperspace_tpu_torch.fabric.frontdoor, hyperspace_tpu_torch.fabric.lease\n"
+        "import hyperspace_tpu_torch.fabric.watcher, hyperspace_tpu_torch.fabric.coherence\n"
+        "import hyperspace_tpu_torch.fabric.health, hyperspace_tpu_torch.fabric.fsck\n"
+        "import hyperspace_tpu_torch.obs.export, hyperspace_tpu_torch.fsck\n"
         "import torch\n"
         "assert not torch.cuda.is_initialized(), 'import initialized CUDA'\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'hyperspace_tpu'))\n"
@@ -178,3 +209,40 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
     r = subprocess.run([sys.executable, str(alone)], cwd=tmp_path, capture_output=True, text=True,
                        timeout=120, env=env)
     assert r.returncode != 0 and '"ok"' not in r.stdout
+
+
+def test_fsck_module_runs_without_jax(tmp_path):
+    """``python -m hyperspace_tpu_torch.fsck <system path>`` runs in a
+    process that loads neither JAX nor the JAX package, and prints its JSON
+    report."""
+    import json
+
+    code = (
+        "import runpy, sys\n"
+        "sys.argv = ['hyperspace_tpu_torch.fsck', sys.argv[1]]\n"
+        "try:\n"
+        "    runpy.run_module('hyperspace_tpu_torch.fsck', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert not e.code, e.code\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'hyperspace_tpu'))\n"
+        "assert not bad, bad\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code, str(tmp_path)], cwd=REPO, capture_output=True, text=True,
+                       timeout=120)
+    assert r.returncode == 0, r.stderr
+    report = json.loads(r.stdout)
+    assert report["systemPath"] == str(tmp_path)
+
+
+def test_chip_smoke_fabric_worker_imports_only_the_port():
+    """The fabric worker that ``chip_smoke.py`` starts on the card
+    (``FABRIC_WORKER``, run with ``python -c``) imports neither ``jax`` nor
+    ``hyperspace_tpu``, and takes its device from the parent."""
+    with open(os.path.join(REPO, "chip_smoke.py"), encoding="utf-8") as f:
+        tree = ast.parse(f.read())
+    scripts = [node.value.value for node in tree.body
+               if isinstance(node, ast.Assign) and any(getattr(t, "id", None) == "FABRIC_WORKER" for t in node.targets)]
+    assert len(scripts) == 1
+    assert not _bad_imports(scripts[0], "<FABRIC_WORKER>")
+    assert "jax" not in scripts[0].lower()
+    assert 'device=cfg["device"]' in scripts[0]

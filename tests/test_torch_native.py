@@ -33,6 +33,12 @@ same dictionary codes and entries and the same ``decode:`` trace;
 ``merge_spans`` and ``expand_pairs`` against the JAX package's; the
 ``dict-expand`` program against its numpy version; and each package's file
 handles against its own library. Tolerance: exact everywhere.
+
+The JAX package's side of those cases loads a library that this module
+builds for itself (``_reference_library``): the JAX package compiles its
+own in place and caches a failed load for the life of the process, so an
+xdist worker that opened it half-written would hold the port against the
+pyarrow fallback instead.
 """
 
 import os
@@ -100,6 +106,59 @@ _modules = [M.load_cases(os.path.join(HERE, src), f"_torch_{src[:-3]}_suite", re
             for src, rw in SOURCES.items()]
 for _mod in _modules:
     M.export_cases(_mod, globals(), LEFT_OUT)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_library(tmp_path_factory):
+    """A whole JAX-package library for this module, whatever another
+    process is doing to the JAX package's own in-place build.
+
+    The JAX package compiles ``libhs_native.so`` into its own source tree
+    with ``g++ -o``, and remembers the first load failure for the life of
+    the process, so a process that opens the file while another is still
+    writing it loses native decode for good. Here the library is built by
+    the JAX package's own ``_build`` from its own sources into a private
+    path (named by the sources' digest, in the directory every xdist
+    worker of the run shares), under an exclusive ``flock`` and a rename,
+    so that workers share one build. The module then points the JAX
+    package's loader at it, with its cached library and failure cleared,
+    and restores all three afterwards. A library that cannot be had fails
+    the module with the compiler's or the loader's message."""
+    import fcntl
+    import hashlib
+
+    digest = hashlib.sha256()
+    for name in ("hs_native.cc", "thrift_compact.h"):
+        with open(os.path.join(ref_native._SRC_DIR, name), "rb") as f:
+            digest.update(f.read())
+    path = str(tmp_path_factory.getbasetemp().parent / f"ref-libhs_native-{digest.hexdigest()[:16]}.so")
+    saved = (ref_native._SO_PATH, ref_native._lib, ref_native._load_failed)
+    with open(path + ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if not os.path.exists(path):
+                part = f"{path}.{os.getpid()}.part"
+                ref_native._SO_PATH = part
+                try:
+                    ref_native._build()
+                except ref_native.NativeUnsupported as e:
+                    pytest.fail(f"cannot build the JAX package's libhs_native: {e}")
+                finally:
+                    ref_native._SO_PATH = saved[0]
+                os.replace(part, path)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    with ref_native._lock:
+        ref_native._SO_PATH, ref_native._lib, ref_native._load_failed = path, None, None
+    try:
+        try:
+            ref_native._load()
+        except ref_native.NativeUnsupported as e:
+            pytest.fail(f"cannot load the JAX package's libhs_native: {e}")
+        yield path
+    finally:
+        with ref_native._lock:
+            ref_native._SO_PATH, ref_native._lib, ref_native._load_failed = saved
 
 
 @pytest.fixture(autouse=True)

@@ -4,19 +4,19 @@ fingerprints, held to the JAX package's suites and to the JAX package.
 tests/test_obs_serving.py (one disjoint span tree per served request, the
 stats event against the registry, Chrome traces), test_obs_history.py (the
 P² sketch, ``ProfileHistory`` and its JSONL log, the flight recorder, SLO
-burn rates, the server's intelligence hooks, ``Session.estimate_cost``),
-test_profiler.py (``Session.profile`` writes a trace, here through
+burn rates, the server's intelligence hooks, ``Session.estimate_cost``, the
+HTTP telemetry endpoint ``obs/export.py``), test_profiler.py (``Session.profile`` writes a trace, here through
 ``torch.profiler``) and test_plan_fingerprint.py (fingerprints over the
 TPC-H corpus, built by the port: ``torch_mirror.port_tpch_env``) run with
 the package renamed to the port (tests/torch_mirror.py ``load_cases``), its
 sessions the port's on the CPU (``torch_mirror.cpu_port``). The cases at
 the end hold the port against the JAX package: the same span names in a
-traced ``collect()``'s profile, and one ``profile_history.jsonl`` read by
-both packages' ``load_history`` to the same estimates.
+traced ``collect()``'s profile, one ``profile_history.jsonl`` read by
+both packages' ``load_history`` to the same estimates, and each package's
+telemetry endpoint over one registry content: the same replies, and
+``/metrics`` byte-identical to the registry's exposition.
 
-Left out, each with its reason (``LEFT_OUT``): test_obs_history.py's five
-cases of the HTTP telemetry endpoint (``obs/export.py``), which the port
-does not have yet (ROADMAP A9).
+Nothing is left out (``LEFT_OUT`` is empty).
 """
 
 import os
@@ -35,26 +35,16 @@ import torch_mirror as M  # noqa: E402
 pytestmark = pytest.mark.torch_port
 
 HERE = os.path.dirname(__file__)
-_EXPORT = "ROADMAP A9: the telemetry endpoint (obs/export.py) is not in the port"
 SOURCES = {
     "test_obs_serving.py": dict(M.CPU_PORT_IMPORT),
-    "test_obs_history.py": {
-        **M.CPU_PORT_IMPORT,
-        "from hyperspace_tpu_torch.obs.export import PROMETHEUS_CONTENT_TYPE, TelemetryEndpoint\n": "",
-    },
+    "test_obs_history.py": dict(M.CPU_PORT_IMPORT),
     "test_profiler.py": dict(M.CPU_PORT_IMPORT),
     "test_plan_fingerprint.py": {
         **M.CPU_PORT_IMPORT,
         "from test_tpch_queries import build_tpch_env\n": "from torch_mirror import port_tpch_env as build_tpch_env\n",
     },
 }
-LEFT_OUT = {
-    "test_endpoint_metrics_byte_identical_to_registry": _EXPORT,
-    "test_endpoint_statusz_and_404": _EXPORT,
-    "test_endpoint_profilez_overview_and_drilldown": _EXPORT,
-    "test_endpoint_profilez_404_when_history_disabled": _EXPORT,
-    "test_server_telemetry_endpoint_end_to_end": _EXPORT,
-}
+LEFT_OUT = {}
 
 _modules = [M.load_cases(os.path.join(HERE, src), f"_torch_{src[:-3]}_suite", rewrites=rw)
             for src, rw in SOURCES.items()]
@@ -83,13 +73,17 @@ def test_every_case_is_run_or_listed():
 
 
 def test_telemetry_endpoint_raises_not_yet_in_the_port(tmp_path):
-    """``hyperspace.obs.http.port`` is the one key of a server the port does
-    not serve: starting a server with it set raises, and without it the
-    server starts."""
+    """``hyperspace.obs.http.port`` no longer raises: a server started with
+    it serves the telemetry endpoint (``/metrics`` equal to its registry's
+    exposition), closes it at shutdown, and without the key starts none."""
+    import urllib.request
+
     sess = ht.Session(conf={ht.keys.OBS_HTTP_PORT: 0}, device="cpu")
-    srv = ht.QueryServer(sess, workers=0)
-    with pytest.raises(NotImplementedError, match="not yet in the port"):
-        srv.start()
+    with ht.QueryServer(sess, workers=0) as srv:
+        assert srv.telemetry is not None and srv.telemetry.port > 0
+        with urllib.request.urlopen(f"http://127.0.0.1:{srv.telemetry.port}/metrics", timeout=30) as resp:
+            assert resp.status == 200
+            assert resp.read().decode("utf-8") == srv.prometheus_text()
     sess.conf.unset(ht.keys.OBS_HTTP_PORT)
     with ht.QueryServer(sess, workers=0) as srv:
         assert srv.telemetry is None
@@ -181,3 +175,41 @@ def test_history_jsonl_reads_the_same_in_both_packages(tmp_path, writer):
         return snap
 
     assert stats(port) == stats(ref)
+
+
+@pytest.mark.parametrize("path", ["/metrics", "/statusz", "/nowhere"])
+def test_telemetry_endpoint_serves_what_the_jax_package_serves(path):
+    """One registry content, put into each package's own registry class and
+    served by each package's ``TelemetryEndpoint`` on a loopback port:
+    the same status, content type and body for ``/metrics`` (the
+    registry's exposition, byte for byte), ``/statusz`` and a 404."""
+    import urllib.error
+    import urllib.request
+
+    from hyperspace_tpu.obs.export import TelemetryEndpoint as RefEndpoint
+    from hyperspace_tpu.obs.metrics import MetricsRegistry as RefRegistry
+    from hyperspace_tpu_torch.obs.export import TelemetryEndpoint
+    from hyperspace_tpu_torch.obs.metrics import MetricsRegistry
+
+    def fill(reg):
+        reg.counter("hs_test_requests_total", "requests", route="a").inc(3)
+        reg.counter("hs_test_requests_total", "requests", route='b\\"q').inc()
+        reg.gauge("hs_test_depth", "queue depth").set(7.5)
+        h = reg.histogram("hs_test_seconds", "latency", program="p")
+        for v in (0.001, 0.02, 0.3, 4.0):
+            h.observe(v)
+        return reg
+
+    def get(endpoint_cls, reg):
+        with endpoint_cls(reg, port=0, status_fn=lambda: {"ok": True, "n": 2}) as ep:
+            try:
+                with urllib.request.urlopen(f"http://127.0.0.1:{ep.port}{path}", timeout=30) as resp:
+                    return resp.status, resp.headers["Content-Type"], resp.read()
+            except urllib.error.HTTPError as err:
+                return err.code, err.headers["Content-Type"], err.read()
+
+    port_reg, ref_reg = fill(MetricsRegistry()), fill(RefRegistry())
+    got, want = get(TelemetryEndpoint, port_reg), get(RefEndpoint, ref_reg)
+    assert got == want
+    if path == "/metrics":
+        assert got[2].decode("utf-8") == port_reg.prometheus_text() == ref_reg.prometheus_text()

@@ -136,10 +136,13 @@ def test_pins_hold_across_the_ports_refresh_in_both_packages(tmp_path):
 
 
 def test_refresh_under_the_lease_conf_raises_not_yet_in_the_port(tmp_path):
-    """The lake-persisted refresh lease (``fabric/lease.py``) is not in the
-    port: with the fabric and the lease on, the refresh manager raises
-    before it builds, and the index keeps its version; with the lease off it
-    commits."""
+    """The lake-persisted refresh lease (``fabric/lease.py``) is in the
+    port: with the fabric and the lease on, a refresh that another node's
+    live lease holds back is ``busy`` and the index keeps its version; once
+    that lease is released the refresh commits under a lease of its own
+    (token 2, released after the commit) and writes its commit record."""
+    from hyperspace_tpu_torch.fabric import lease as lease_mod
+    from hyperspace_tpu_torch.fabric import records
     from hyperspace_tpu_torch.lifecycle import RefreshManager, SnapshotHandle
 
     data = tmp_path / "lake"
@@ -155,9 +158,13 @@ def test_refresh_under_the_lease_conf_raises_not_yet_in_the_port(tmp_path):
     version = SnapshotHandle.capture(sess).index_version("lease_k")
     sess.conf.set(ht.keys.FABRIC_ENABLED, True)
     sess.conf.set(ht.keys.FABRIC_LEASE_ENABLED, True)
-    with pytest.raises(NotImplementedError, match="not yet in the port"):
-        RefreshManager(sess).poll_once()
+    peer = lease_mod.acquire(str(tmp_path / "idx"), "refresh/lease_k", "peer", ttl_s=600.0)
+    assert [o["outcome"] for o in RefreshManager(sess).poll_once()] == ["busy"]
     assert SnapshotHandle.capture(sess).index_version("lease_k") == version
-    sess.conf.set(ht.keys.FABRIC_ENABLED, False)
+    peer.release()
     assert [o["outcome"] for o in RefreshManager(sess).poll_once()] == ["committed"]
     assert SnapshotHandle.capture(sess).index_version("lease_k") > version
+    token, state = lease_mod.read_state(str(tmp_path / "idx"), "refresh/lease_k")
+    assert token == 2 and state["expiresAt"] == 0.0  # released after its commit
+    recs = records.read_commit_records(records.commits_dir(str(tmp_path / "idx"), "lease_k"))
+    assert [r["kind"] for _, r in recs] == ["refresh-incremental"]

@@ -439,7 +439,15 @@ def test_sharded_and_fused_folds_raise(tmp_path, key):
     """Where the JAX package would take its sharded select, the port
     raises: it is not in the port. Its fused fold is ported: the port's
     rows equal the JAX package's fused run and the port's fusion-off run,
-    with as many ``fused-stage-topk`` dispatches as the JAX package's."""
+    with as many ``fused-stage-topk`` dispatches as the JAX package's.
+
+    Both packages run the fused case with the scan pipeline off. With it
+    on, the chunks that reach the fold depend on whether a prefetched
+    chunk's decode starts before or after the fold has tightened the
+    running k-th-value threshold that prunes its row groups (4 chunks on
+    an idle host, 3 when the prefetch pool starts the fourth chunk late),
+    and each package runs its own race. Serial, each chunk is pruned by
+    the threshold of every chunk before it, in both packages alike."""
     data = _write_files(str(tmp_path / "data"))
     if key == "parallel":
         port, _ = sessions(tmp_path, **{"hyperspace.parallel.enabled": True})
@@ -451,7 +459,8 @@ def test_sharded_and_fused_folds_raise(tmp_path, key):
     fused = REGISTRY.counter("hs_device_dispatches_total", "", program="fused-stage-topk")
     build = lambda s, df: df.order_by("k").limit(5)  # noqa: E731
     before, ref_before = D.dispatches["fused-stage-topk"], fused.value
-    got, pev, want, rev, port = run_both(tmp_path, data, build, **{"hyperspace.exec.fusion.enabled": True})
+    got, pev, want, rev, port = run_both(tmp_path, data, build, **{"hyperspace.exec.fusion.enabled": True,
+                                                                     "hyperspace.exec.pipeline.enabled": False})
     assert D.dispatches["fused-stage-topk"] - before == fused.value - ref_before > 0
     assert topk_events(pev) == topk_events(rev) == ["device-topk-stream"]
     assert_identical(got, want)

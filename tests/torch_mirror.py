@@ -449,3 +449,49 @@ class PortRegistry:
 
 
 PORT_REGISTRY = PortRegistry()
+
+
+_CPU_CHILD_SESSION = (
+    "\n\n"
+    "class _CpuSession(hst.Session):  # the port's session, on the CPU\n"
+    "    def __init__(self, conf=None, device=\"cpu\"):\n"
+    "        super().__init__(conf=conf, device=device)\n"
+    "\n"
+    "\n"
+    "hst.Session = _CpuSession\n"
+)
+
+
+def port_child_script(text: str) -> str:
+    """A JAX suite's child-process script as the port's: the package
+    renamed, JAX's platform pinning (and the comment above it) gone, and
+    ``hst.Session`` a CPU session, so that the child imports neither
+    ``jax`` nor ``hyperspace_tpu``."""
+    text = re.sub(r"\bhyperspace_tpu\b", "hyperspace_tpu_torch", text)
+    out = []
+    for line in text.splitlines(keepends=True):
+        if re.search(r"jax|JAX", line):
+            while out and out[-1].lstrip().startswith("#"):
+                out.pop()
+            continue
+        out.append(line)
+        if line == "import hyperspace_tpu_torch as hst\n":
+            out.append(_CPU_CHILD_SESSION)
+    return "".join(out)
+
+
+def child_scripts(path: str) -> dict:
+    """The child-process scripts of the JAX suite at ``path`` (its
+    module-level string constants that import ``hyperspace_tpu``), each as
+    the port's (``port_child_script``): name -> text."""
+    import ast
+
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read())
+    out = {}
+    for node in tree.body:
+        if (isinstance(node, ast.Assign) and len(node.targets) == 1 and isinstance(node.targets[0], ast.Name)
+                and isinstance(node.value, ast.Constant) and isinstance(node.value.value, str)
+                and "import hyperspace_tpu" in node.value.value):
+            out[node.targets[0].id] = port_child_script(node.value.value)
+    return out
