@@ -11,8 +11,9 @@ pruning's 7d and 12d, hybrid scan's 7e and 12e, the other sources' 7f and
 and 12g, ORDER BY ... LIMIT's 7i and 12h, the reference API surface's 7j,
 explain and whyNot's 7k and 12g, nested columns' 7l and 12i, whole-stage
 fusion's 7m and 12j, native decode and the reliability layer's 7n and 12k,
-the serving runtime's 7o and 12l, the fabric's 7p and 12m; every phase
-decodes through the port's native reader, as the JAX package does):
+the serving runtime's 7o and 12l, the fabric's 7p and 12m, the mesh-sharded
+path's 7q and 12n; every phase decodes through the port's native reader, as
+the JAX package does):
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: compiles the port's CUDA kernels from ``hyperspace_tpu_torch/csrc``;
@@ -202,6 +203,16 @@ decodes through the port's native reader, as the JAX package does):
    at a fixed clock gets ``LeaseLostError`` at ``write_log`` and lands no
    entry; fsck. The commit records, lease tokens and holders, the fenced
    tokens, log ids, rows and the fsck report must be equal in both runs;
+7q. mesh-small: the sharded path (``hyperspace.parallel.enabled``,
+   ``minRows`` 0) over 4-shard meshes (4 x cpu in the CPU port, 4 x
+   cuda:0 on the card; a test mesh, no conf key reaches it): a 60 000-row
+   ``lineitem`` lake's ``li_sd`` and ``li_q1`` built through the exchange,
+   their bucket files equal byte for byte between the two and to the
+   card's single-device build; q6, A1, A1 streamed, T1, FA1d and FT1: the
+   GPU rows equal the CPU port's and the single-device run's, each through
+   its sharded family (``fused-filter`` with ``filter: device-sharded``,
+   ``sharded-grouped``, ``sharded-topk``, ``fused-stage-agg-sharded``,
+   ``fused-stage-topk-sharded``), no fallback;
 8. generate and slice: generates a TPC-H-shaped SF1 ``lineitem`` lake (6M
    rows in 16 files, from ``--seed``, with TPC-H's return flag and line
    status) and builds three indexes through the public API (``Session`` ->
@@ -369,6 +380,18 @@ decodes through the port's native reader, as the JAX package does):
    FT1 (T1); then one warm run with each fused program between CUDA events
    and one with the per-family programs it replaces (FJ3's through the
    per-family device fold over the same probe chunks), printed per chunk;
+12n. mesh: the sharded path at SF1 over the main session's indexes under
+   the card's own mesh (one device) and a 4-shard mesh on cuda:0: q6, A1
+   (``li_q1``), A1 streamed (12b's chunks), T1 (8 chunks), FA1d and FT1
+   (fused), each a first run, a warm run and one with the parallel path
+   off: rows equal (floats at rtol 1e-9), the sharded family dispatched,
+   no fallback; per query the sharded programs' time (CUDA events) and
+   dispatches; each sharded program alone beside its single-device twin
+   and its bound; then ``li_shipdate`` built under each mesh, the card's
+   one device with K1 and a MinMax sketch with K2 (each call against its
+   plain version), the 4-shard mesh through the exchange (its overflow
+   rows, the exchange alone beside its bound), every bucket file equal to
+   the main build's byte for byte;
 13. profile-query: one warm q6 under ``torch.profiler``: device busy time
    against the query's wall time, and the device time by op;
 14. profile-join: the same for one warm J1;
@@ -391,7 +414,7 @@ decodes through the port's native reader, as the JAX package does):
 12l. serving: ``QueryServer(workers=4)`` at its defaults (no result cache,
    no scheduler) over the SF1 lake and the indexes built above
    (``deviceMinRows=0``, hybrid scan on, row-group pruning on), fed by 8
-   closed-loop client threads 80 requests a run: 50% q6 (16
+   closed-loop client threads 40 requests a run: 50% q6 (16
    ``l_quantity`` literals), 20% A1-shaped grouped aggregates (4
    cut-offs), 20% J3-shaped broadcast joins (a month of ``lineitem`` to
    ``orders``, 2 ``o_totalprice`` literals) and 10% T1, each over a fresh
@@ -413,7 +436,8 @@ decodes through the port's native reader, as the JAX package does):
    direct ``collect()`` (quiesced in order, A1's floats at rtol 1e-9;
    under the refresh as multisets of the data version the request could
    see: 0 stale, 0 torn; a request that started before the commit may
-   see either version whole, ROADMAP C8);
+   see either version whole: it may have been admitted against the old
+   index version);
 12m. fabric: two worker processes (``FABRIC_WORKER``), each with a CUDA
    context of its own on the card, a ``QueryServer`` behind a
    ``WorkerEndpoint``, the commit watcher (25 ms polls) and the sidecar;
@@ -437,8 +461,9 @@ with ``bcast-small`` under ``"bcast_small"`` and explain under
 ``"explain"``), the top-k's (``"topk"``) and the nested columns' (``"nested"``,
 with api-small and explain-small), fusion's (``"fusion"``, with
 fusion-small), native decode's (``"native"``, with native-small),
-serving's (``"serving"``, with serving-small) and the fabric's
-(``"fabric"``, with fabric-small) results and times, the line before the last one with an entry per kernel (its launches
+serving's (``"serving"``, with serving-small), the fabric's
+(``"fabric"``, with fabric-small) and the sharded path's (``"mesh"``, with
+mesh-small) results and times, the line before the last one with an entry per kernel (its launches
 on the build's main path, and per path under ``launches_by_path``); the
 last line
 is ``{"ok": true, "device": {...}}``. Any failed check raises, so
@@ -6759,9 +6784,9 @@ def check_serving_small(tmp: str, seed: int, devices=("cpu", "cuda")) -> dict:
     for the covering rewrite and K2 once for the sketch rebuild, each equal
     to its plain version on its inputs; requests admitted against the pin
     and after the commit serve their version's rows, equal to a direct
-    ``collect()`` under the same pin, none stale, none torn; and on one
-    server, a request over the new listing after one over the old gets the
-    old listing's rows (ROADMAP C8, as in the JAX package)."""
+    ``collect()`` under the same pin, none stale, none torn; one server
+    serves the requests over both listings, each its own listing's rows
+    (ROADMAP C8, repaired in the port)."""
     import numpy as np
     import pyarrow as pa
     import pyarrow.parquet as pq
@@ -6927,15 +6952,16 @@ def check_serving_small(tmp: str, seed: int, devices=("cpu", "cuda")) -> dict:
     versions, refreshed = {}, {}
     for device, sess in sessions.items():
         res = {}
-        for k, frames in (("before", before), ("after", after)):
-            # one server per listing: the plan cache keys a scan by its root
-            # path, not its files, so a template compiled over one listing
-            # would be bound for the other (ROADMAP C8, checked below)
-            with ht.QueryServer(sess, workers=4) as srv:
+        # one server for both listings: the plan cache keys a scan by its
+        # file listing (ROADMAP C8, repaired in the port), so the requests
+        # over the new listing bind templates of their own
+        with ht.QueryServer(sess, workers=4) as srv:
+            for k, frames in (("before", before), ("after", after)):
                 with snapshot_scope(pin):
                     fa = srv.submit(frames[device], timeout=120)
                 fb = srv.submit(frames[device], timeout=120)
                 res[k, "N"], res[k, "N+1"] = fa.result(timeout=120), fb.result(timeout=120)
+        for k, frames in (("before", before), ("after", after)):
             with snapshot_scope(pin):
                 want_n = frames[device].collect()
             assert same_batch(res[k, "N"], want_n), f"serving-small refresh {k} at N on {device}: differs from collect()"
@@ -6947,15 +6973,9 @@ def check_serving_small(tmp: str, seed: int, devices=("cpu", "cuda")) -> dict:
         for ver in ("N", "N+1"):
             assert int(np.count_nonzero(res["after", ver]["id"] >= 60_000)) == want_new > 0, f"stale: after at {ver}"
             assert not np.any(res["before", ver]["id"] >= 60_000), f"before at {ver} saw the appended file"
-        # ROADMAP C8, shared with the JAX package: on one server, the request
-        # over the new listing binds the template compiled over the old one
-        # and gets the old listing's rows, not collect()'s
-        with ht.QueryServer(sess, workers=4) as srv:
-            with snapshot_scope(pin):
-                srv.query(before[device], timeout=120)
-                res["C8", "N"] = srv.query(after[device], timeout=120)
-        assert same_batch(res["C8", "N"], res["before", "N"]), f"serving-small C8 on {device}: not the old listing's rows"
-        assert not same_batch(res["C8", "N"], res["after", "N"])
+        # ROADMAP C8, repaired: the server that served the old listing served
+        # the new one's rows, not the old ones
+        assert not same_batch(res["after", "N"], res["before", "N"]), f"serving-small C8 on {device}: old rows"
         versions[device] = {f"{a}@{b}": len(next(iter(r.values()))) for (a, b), r in res.items()}
         refreshed[device] = res
     for key, batch in refreshed[gpu].items():
@@ -6964,15 +6984,15 @@ def check_serving_small(tmp: str, seed: int, devices=("cpu", "cuda")) -> dict:
           f"v{fresh.index_version('serve_id')} and serve_skip; launches {refresh_launches}, each call equal to its "
           f"plain version ({calls}); rows per request {versions[gpu]}: pinned and fresh requests equal "
           f"collect() under the same pin, the appended rows whole in every request over the new listing, none "
-          f"stale, none torn; GPU == CPU; one server's request over the new listing after one over the old got the "
-          f"old listing's {versions[gpu]['C8@N']} rows (ROADMAP C8, as in the JAX package)", flush=True)
+          f"stale, none torn; GPU == CPU; one server served both listings, the new one's rows over the new listing "
+          f"(ROADMAP C8, repaired)", flush=True)
     return {"build_launches": build_launches, "refresh_launches": refresh_launches,
             "launches": dict(collections.Counter(build_launches) + collections.Counter(refresh_launches)),
             "stats": {d: s["serving"] for d, s in stats.items()}, "build_cache": stats[gpu]["build_cache"],
             "bursts": bursts, "versions": versions}
 
 
-SERVING_REQUESTS = 80  # per run: 40 q6, 16 A1, 16 J3, 8 T1
+SERVING_REQUESTS = 40  # per run: 20 q6, 8 A1, 8 J3, 4 T1 (the script's time limit)
 SERVING_CLIENTS = 8
 
 
@@ -7298,8 +7318,7 @@ def run_serving(li_src: str, o_src: str, system: str, tmp: str, args, smi: str) 
           f"({calls}) ({smi})", flush=True)
     ref_new = references("after the commit")
     # a request that started before the commit may see either version
-    # whole: until the commit, a template compiled over the old listing is
-    # bound for the new one (ROADMAP C8, as in the JAX package)
+    # whole: it may have been admitted against the old index version
     stale = torn = checked = 0
     for kind, v, t0, _, _, got in done:
         if got is None:
@@ -7872,6 +7891,373 @@ def run_fabric(li_src: str, o_src: str, system: str, tmp: str, args, smi: str, d
             "seconds": seconds, "device": smi}
 
 
+# --------------------------------------------------------------------------
+# the mesh-sharded path: mesh-small and mesh
+# --------------------------------------------------------------------------
+
+MESH_SHARDS = 4  # the shards of the mesh the phases lay over cuda:0
+
+
+def mesh_queries(li, c, a1_chunk: int, src_chunk: int) -> dict:
+    """{name: (DataFrame, hyperspace on, conf, sharded dispatch family, the
+    trace line)}: q6's filter through ``li_sd``/``li_shipdate``, A1 through
+    ``li_q1`` unstreamed and streamed, T1 over the source in chunks, and
+    the fused folds: FA1d (A1 grouped by ``l_discount``, a float key: A1's
+    string keys stay per-family) and FT1."""
+    import numpy as np
+
+    import hyperspace_tpu_torch as ht
+
+    k = ht.keys
+    q1_aggs = dict(sum_qty=("l_quantity", "sum"), sum_base_price=("l_extendedprice", "sum"),
+                   avg_qty=("l_quantity", "avg"), avg_price=("l_extendedprice", "avg"),
+                   avg_disc=("l_discount", "avg"), count_order=("*", "count"),
+                   sd_price=("l_extendedprice", "stddev_samp"))
+    streamed = {k.STREAM_AGG_MIN_BYTES: 1, k.STREAM_CHUNK_BYTES: a1_chunk}
+    t1 = li.order_by("l_extendedprice", ascending=[False]).limit(100)
+    fa1d = li.filter(c("l_shipdate") <= np.datetime64("1998-09-02")).group_by("l_discount").agg(**q1_aggs)
+    return {
+        "q6": (q6_query(li), True, {}, "fused-filter", "filter: device-sharded x1"),
+        "A1": (q1_query(li), True, {k.STREAM_AGG_MIN_BYTES: 1 << 40}, "sharded-grouped",
+               "agg: device-grouped-scan x1"),
+        "A1s": (q1_query(li), True, streamed, "sharded-grouped", "agg: device-grouped-stream-sharded x1"),
+        "T1": (t1, False, {k.STREAM_CHUNK_BYTES: src_chunk}, "sharded-topk", "topk: device-topk-stream-sharded x1"),
+        "FA1d": (fa1d, True, {**streamed, k.FUSION_ENABLED: True}, "fused-stage-agg-sharded",
+                 "agg: device-grouped-stream-sharded x1"),
+        "FT1": (t1, False, {k.STREAM_CHUNK_BYTES: src_chunk, k.FUSION_ENABLED: True}, "fused-stage-topk-sharded",
+                "topk: device-topk-stream-sharded x1"),
+    }
+
+
+def _mesh_session(system: str, device: str, mesh=None, **conf):
+    """A session over ``system`` with the parallel path on (``minRows``
+    0, ``deviceMinRows`` 0) over ``mesh`` (the session's own when None)."""
+    import hyperspace_tpu_torch as ht
+
+    sess = ht.Session(conf={ht.keys.SYSTEM_PATH: system, ht.keys.DEVICE_MIN_ROWS: 0,
+                            ht.keys.PARALLEL_ENABLED: True, ht.keys.PARALLEL_MIN_ROWS: 0, **conf}, device=device)
+    if mesh is not None:
+        sess.set_mesh(mesh)
+    return sess
+
+
+def _mesh_run(sess, q, hs_on: bool, conf: dict, parallel: bool = True):
+    """(rows, trace summary, wall ms, sharded-program seconds, dispatches)
+    of one ``collect()`` of ``q`` under ``conf``, the parallel path on or
+    off; the conf is restored after."""
+    import torch
+
+    import hyperspace_tpu_torch as ht
+    from hyperspace_tpu_torch.exec import device as D
+    from hyperspace_tpu_torch.obs.metrics import REGISTRY
+
+    saved = {key: sess.conf.get(key) for key in list(conf) + [ht.keys.PARALLEL_ENABLED]}
+    for key, v in {**conf, ht.keys.PARALLEL_ENABLED: parallel}.items():
+        sess.conf.set(key, v)
+    if hs_on:
+        sess.enable_hyperspace()
+    else:
+        sess.disable_hyperspace()
+    mesh_s = REGISTRY.counter("hs_mesh_collective_seconds_total")
+    filt = REGISTRY.histogram("hs_device_program_seconds", program="fused-filter")
+    before = (mesh_s.value, filt.sum, collections.Counter(D.dispatches))
+    try:
+        if sess.device.type == "cuda":
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        got, summary = traced_collect(q)
+        ms = (time.perf_counter() - t) * 1e3
+    finally:
+        for key, v in saved.items():
+            sess.conf.set(key, v)
+    D.resolve_program_timings()
+    programs_s = (mesh_s.value - before[0]) + (filt.sum - before[1] if parallel else 0.0)
+    return got, summary, ms, programs_s, dict(collections.Counter(D.dispatches) - before[2])
+
+
+def _same_mesh_rows(name: str, got, want, q) -> bool:
+    if name in ("A1", "A1s", "FA1d"):
+        return same_groups(got, want, float_aggs_of(q), ordered=True)
+    return same_batch(got, want)
+
+
+def check_mesh_small(tmp: str, seed: int, devices=("cpu", "cuda")) -> dict:
+    """The sharded path on a small lake (60 000 ``lineitem`` rows in 4
+    files), in a CPU session (the plain versions) and a GPU session, each
+    over a 4-shard mesh (4 x cpu; 4 x cuda:0) with ``parallel.enabled``
+    and ``minRows`` 0: ``li_sd`` and ``li_q1`` built through the exchange,
+    their bucket files equal byte for byte between the two and to a
+    single-device build; then q6, A1, streamed A1, T1, FA1d and FT1 (two
+    files a chunk): the GPU rows equal the CPU port's (floats at rtol
+    1e-9) and the GPU's single-device rows, each through its sharded
+    program family, with no fallback."""
+    import hyperspace_tpu_torch as ht
+    from hyperspace_tpu_torch.exec import device as D
+    from hyperspace_tpu_torch.parallel import make_mesh
+    from hyperspace_tpu_torch.parallel import mesh as PM
+
+    src = gen_lineitem(os.path.join(tmp, "mesh_small"), 60_000, 4, seed + 17)
+    configs = [
+        ht.CoveringIndexConfig("li_sd", ["l_shipdate"], ["l_quantity", "l_extendedprice", "l_discount"]),
+        ht.CoveringIndexConfig("li_q1", ["l_shipdate"], ["l_returnflag", "l_linestatus", "l_quantity",
+                                                         "l_extendedprice", "l_discount", "l_tax"]),
+    ]
+    files = sorted(os.path.join(src, f) for f in os.listdir(src))
+    chunk = 2 * max(os.path.getsize(f) for f in files)
+    digests, results = {}, {}
+    for device in ("single",) + tuple(devices):
+        system = os.path.join(tmp, f"mesh_small_{device}")
+        if device == "single":  # the plain build, on the card when the phase runs there
+            sess = ht.Session(conf={ht.keys.SYSTEM_PATH: system, ht.keys.NUM_BUCKETS: 16}, device=devices[-1])
+        else:
+            shard = "cpu" if device == "cpu" else "cuda:0"
+            sess = _mesh_session(system, device, make_mesh(devices=[shard] * MESH_SHARDS),
+                                 **{ht.keys.NUM_BUCKETS: 16})
+        PM.reset_collectives()
+        li = sess.read_parquet(src)
+        for cfg in configs:
+            entry = ht.Hyperspace(sess).create_index(li, cfg)
+            digests[device, cfg.index_name] = {b: sorted(open(f, "rb").read() for f in fs)
+                                               for b, fs in _files_by_bucket(entry).items()}
+        exchanges = PM.collective_calls[("all_to_all", "buckets")]
+        assert exchanges == (0 if device == "single" else len(configs)), (device, exchanges)
+        if device == "single":
+            continue
+        qs = mesh_queries(sess.read_parquet(src), ht.col, 1, chunk)
+        out = results[device] = {}
+        for name, (q, hs_on, conf, family, line) in qs.items():
+            got, summary, _, _, disp = _mesh_run(sess, q, hs_on, conf)
+            assert_no_fallback(summary, f"mesh-small {name} on {device}")
+            assert line in summary, (device, name, summary)
+            assert disp.get(family, 0) > 0, (device, name, disp)
+            want = _mesh_run(sess, q, hs_on, conf, parallel=False)[0]
+            assert _same_mesh_rows(name, got, want, q), f"mesh-small {name} on {device}: differs from one device"
+            out[name] = (got, q, disp)
+    for cfg in configs:
+        name = cfg.index_name
+        assert all(digests[d, name] == digests["single", name] for d in devices), \
+            f"mesh-small {name}: the exchange build's bucket files differ"
+    last = devices[-1]
+    for name, (got, q, _) in results[last].items():
+        assert _same_mesh_rows(name, got, results[devices[0]][name][0], q), f"mesh-small {name}: GPU differs from CPU"
+    disp = {name: {k: v for k, v in r[2].items() if v} for name, r in results[last].items()}
+    print(f"mesh-small: {MESH_SHARDS}-shard meshes (cpu, cuda:0): li_sd and li_q1 through the exchange, bucket files "
+          f"GPU == CPU == single device; q6, A1, A1s, T1, FA1d, FT1: GPU == CPU port == one device, dispatches "
+          f"{disp}", flush=True)
+    D.reset_dispatches()
+    return {"dispatches": disp}
+
+
+def _files_by_bucket(entry) -> dict:
+    from hyperspace_tpu_torch.indexes.covering import bucket_of_file
+
+    out = {}
+    for f in entry.content.files:
+        out.setdefault(bucket_of_file(f), []).append(f)
+    return out
+
+
+class ShardedCapture:
+    """The five functions of ``parallel/collectives.py`` that make the
+    sharded programs, and the build's exchange, wrapped while installed:
+    each program made keeps its first call's arguments (and its maker's),
+    so it can be timed alone on them beside its single-device twin
+    afterwards."""
+
+    NAMES = {"sharded_elementwise": "sharded-filter", "sharded_grouped_chunk_program": "sharded-grouped",
+             "sharded_fused_grouped_program": "fused-stage-agg-sharded",
+             "sharded_topk_chunk_program": "sharded-topk", "sharded_fused_topk_program": "fused-stage-topk-sharded"}
+
+    def __enter__(self):
+        from hyperspace_tpu_torch.ops import bucketize as BZ
+        from hyperspace_tpu_torch.parallel import collectives as C
+
+        self.seen = {}
+        self.real = {n: getattr(C, n) for n in self.NAMES}
+        self.real_build = BZ.distributed_bucket_sort_build
+        seen = self.seen
+
+        def wrap(n):
+            def make(*bargs):
+                prog = self.real[n](*bargs)
+
+                def program(*args):
+                    seen.setdefault(self.NAMES[n], (prog, bargs, args))  # each family's first call
+                    return prog(*args)
+
+                return program
+
+            return make
+
+        def build(*args):
+            seen.setdefault("exchange-build", (self.real_build, None, args))
+            return self.real_build(*args)
+
+        for n in self.NAMES:
+            setattr(C, n, wrap(n))
+        BZ.distributed_bucket_sort_build = build
+        return self
+
+    def __exit__(self, *exc):
+        from hyperspace_tpu_torch.ops import bucketize as BZ
+        from hyperspace_tpu_torch.parallel import collectives as C
+
+        for n, fn in self.real.items():
+            setattr(C, n, fn)
+        BZ.distributed_bucket_sort_build = self.real_build
+
+
+def sharded_program_times(seen: dict, n_dev: int, reps: int, hbm: float) -> dict:
+    """Each captured sharded program alone (CUDA events, median of
+    ``reps``) beside its single-device twin on the same inputs and its
+    bound: every input read once and every output written once over the
+    card's memory rate."""
+    import torch
+
+    from hyperspace_tpu_torch.exec import aggregate as A
+    from hyperspace_tpu_torch.ops import sort as S
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts if isinstance(t, torch.Tensor))
+
+    out = {}
+    for family, (prog, bargs, args) in seen.items():
+        if family == "sharded-filter":
+            cols, lits = args
+            n = next(iter(cols.values())).shape[0]
+            twin, moved = (lambda: bargs[2](cols, lits)), nbytes(*cols.values()) + n
+            shape = f"{n} rows, {len(cols)} columns"
+        elif family in ("sharded-grouped", "fused-stage-agg-sharded"):
+            _, _, pred_fn, key_specs, slot_specs, cap = bargs
+            cols = args[4] if family == "fused-stage-agg-sharded" else args[0]
+            n = args[6] if family == "fused-stage-agg-sharded" else args[2]
+            tables = (1 + len(key_specs) + len(slot_specs)) * cap * 8
+            if family == "sharded-grouped":
+                single = A.grouped_chunk_program(pred_fn, key_specs, slot_specs, cap)
+                moved = nbytes(*cols.values()) + tables
+            else:
+                single = A.fused_grouped_update_program(pred_fn, key_specs, slot_specs, cap, False)
+                moved = nbytes(*cols.values()) + 2 * tables
+            twin = (lambda single=single: single(*args))
+            shape = f"{n} rows, {len(key_specs)} keys, {len(slot_specs)} slots, cap {cap}"
+        elif family in ("sharded-topk", "fused-stage-topk-sharded"):
+            _, _, num_keys, cap = bargs
+            planes = args[-1]
+            single = S.topk_chunk_fn(num_keys, cap) if family == "sharded-topk" else S.fused_topk_fn(num_keys, cap)
+            twin = (lambda single=single: single(*args))
+            moved = nbytes(planes) + (num_keys + 1) * cap * 8 * (1 if family == "sharded-topk" else 3)
+            shape = f"({num_keys + 1}, {planes.shape[1]}) int64 planes, cap {cap}"
+        else:  # exchange-build
+            mesh, keys, hashes, kinds, ridx, n_valid, nb, cap = args
+            ins = [t for k in keys for t in k] + [t for h in hashes for t in h] + list(ridx)
+            moved = nbytes(*ins) + n_dev * n_dev * cap * 9
+            twin = None
+            shape = f"{n_valid} rows over {n_dev} shards, {len(keys)} keys, {nb} buckets, capacity {cap}"
+        b_ms, b_by = bound(moved, 0, hbm)
+        ms = time_ms(lambda prog=prog, args=args: prog(*args), reps)
+        out[family] = {"shape": shape, "ms": ms, "single_device_ms": time_ms(twin, reps) if twin else None,
+                       "bound_ms": b_ms, "bound_by": b_by, "share_of_bound": b_ms / ms}
+    return out
+
+
+def run_mesh(sess, li_src: str, a1_chunk: int, entries: dict, args, smi: str, hbm: float) -> dict:
+    """The sharded path at SF1 over the main lake and its indexes, under
+    two meshes: the card's own (one device) and a 4-shard mesh on cuda:0.
+    Per mesh: q6, A1, streamed A1, T1, FA1d and FT1 with
+    ``parallel.enabled`` and ``minRows`` 0, each a first and a warm run and
+    one with the parallel path off: rows equal (floats at rtol 1e-9), the
+    sharded family dispatched, no fallback; the sharded programs' seconds
+    (CUDA events: ``hs_mesh_collective_seconds_total`` and the filter's
+    ``hs_device_program_seconds``) and dispatches per query; then each
+    sharded program alone on the warm run's inputs beside its single-device
+    twin and its bound. Then ``li_shipdate`` built under each mesh: on the
+    card's one device the plain build (K1, each call against its plain
+    version) with a MinMax sketch (K2), on the 4-shard mesh through the
+    exchange (its overflow count and the exchange alone timed); every
+    bucket file equal byte for byte to the main build's."""
+    import torch
+
+    import hyperspace_tpu_torch as ht
+    from hyperspace_tpu_torch.ops import bucketize as BZ
+    from hyperspace_tpu_torch.ops import kernels
+    from hyperspace_tpu_torch.parallel import make_mesh
+
+    files = sorted(os.path.join(li_src, f) for f in os.listdir(li_src))
+    src_chunk = 2 * max(os.path.getsize(f) for f in files)
+    meshes = {"1-device": make_mesh(device_type="cuda"),
+              f"{MESH_SHARDS}-shard": make_mesh(devices=["cuda:0"] * MESH_SHARDS)}
+    assert meshes["1-device"].size == torch.cuda.device_count()
+    reps = 3
+    out = {"meshes": {}, "builds": {}}
+    main_files = {b: sorted(open(f, "rb").read() for f in fs)
+                  for b, fs in _files_by_bucket(entries["li_shipdate"]).items()}
+    for label, mesh in meshes.items():
+        msess = _mesh_session(sess.conf.system_path, "cuda", mesh)
+        qs = mesh_queries(msess.read_parquet(li_src), ht.col, a1_chunk, src_chunk)
+        res = out["meshes"][label] = {"shards": mesh.size, "queries": {}}
+        with ShardedCapture() as cap:
+            for name, (q, hs_on, conf, family, line) in qs.items():
+                first = _mesh_run(msess, q, hs_on, conf)
+                got, summary, warm_ms, programs_s, disp = _mesh_run(msess, q, hs_on, conf)
+                assert_no_fallback(summary, f"mesh {label} {name}")
+                assert line in summary, (label, name, summary)
+                assert disp.get(family, 0) > 0, (label, name, disp)
+                want, _, off_ms, _, _ = _mesh_run(msess, q, hs_on, conf, parallel=False)
+                assert _same_mesh_rows(name, got, want, q) and _same_mesh_rows(name, first[0], want, q), \
+                    f"mesh {label} {name}: differs from the single-device run"
+                res["queries"][name] = {"rows": int(len(next(iter(got.values())))), "first_ms": first[2],
+                                        "warm_ms": warm_ms, "off_ms": off_ms, "sharded_program_ms": programs_s * 1e3,
+                                        "dispatches": {k: v for k, v in disp.items() if v}}
+                print(f"mesh {label} {name}: {res['queries'][name]['rows']} rows, first {first[2]:.3f} ms, warm "
+                      f"{warm_ms:.3f} ms (parallel off {off_ms:.3f} ms); sharded programs {programs_s * 1e3:.3f} ms "
+                      f"over {res['queries'][name]['dispatches']} ({smi})", flush=True)
+        res["programs"] = sharded_program_times(cap.seen, mesh.size, reps, hbm)
+        for fam, p in res["programs"].items():
+            print(f"program {fam} @ {label} ({p['shape']}): {p['ms']} ms, single device {p['single_device_ms']} ms, "
+                  f"bound {p['bound_ms']} ms ({p['bound_by']}), {100 * p['share_of_bound']:.2f}% of bound ({smi})",
+                  flush=True)
+        # the mesh build of li_shipdate
+        bsess = _mesh_session(os.path.join(os.path.dirname(sess.conf.system_path), f"mesh_build_{mesh.size}"),
+                              "cuda", mesh)
+        configs = [ht.CoveringIndexConfig("li_shipdate", ["l_shipdate"],
+                                          ["l_quantity", "l_extendedprice", "l_discount"])]
+        if mesh.size == 1:
+            configs.append(ht.DataSkippingIndexConfig("li_skip_mesh", ht.MinMaxSketch("l_extendedprice")))
+        overflow = BZ.overflow_rows["build"]
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t = time.perf_counter()
+        with KernelCapture() as kcap, ShardedCapture() as scap:
+            built = {cfg.index_name: ht.Hyperspace(bsess).create_index(bsess.read_parquet(li_src), cfg)
+                     for cfg in configs}
+            torch.cuda.synchronize()
+        build_s = time.perf_counter() - t
+        launches = {k: v for k, v in kernels.launches.items() if v}
+        calls = kcap.check()
+        got_files = {b: sorted(open(f, "rb").read() for f in fs)
+                     for b, fs in _files_by_bucket(built["li_shipdate"]).items()}
+        assert got_files == main_files, f"mesh {label}: li_shipdate's bucket files differ from the main build's"
+        if mesh.size == 1:
+            assert launches.get(K1, 0) > 0 and launches.get(K2, 0) > 0 and "exchange-build" not in scap.seen, launches
+        else:
+            assert "exchange-build" in scap.seen and launches.get(K1, 0) == 0, launches
+        entry = {"seconds": build_s, "rows_per_s": args.rows / build_s, "launches": launches,
+                 "overflow_rows": BZ.overflow_rows["build"] - overflow}
+        if "exchange-build" in scap.seen:
+            entry["exchange"] = sharded_program_times({"exchange-build": scap.seen["exchange-build"]}, mesh.size,
+                                                      reps, hbm)["exchange-build"]
+        out["builds"][label] = entry
+        print(f"mesh build li_shipdate @ {label}: {build_s:.3f} s ({entry['rows_per_s']:.0f} rows/s), launches "
+              f"{launches} (each K1/K2 call equal to its plain version: {calls}), exchange overflow "
+              f"{entry['overflow_rows']} rows; bucket files equal the main build's byte for byte ({smi})", flush=True)
+        if "exchange" in entry:
+            p = entry["exchange"]
+            print(f"program exchange-build @ {label} ({p['shape']}): {p['ms']} ms, bound {p['bound_ms']} ms "
+                  f"({p['bound_by']}), {100 * p['share_of_bound']:.2f}% of bound ({smi})", flush=True)
+        del bsess, built
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -8000,6 +8386,10 @@ def main() -> None:
         t = time.perf_counter()
         fabric_small = check_fabric_small(tmp, args.seed)
         phase("fabric-small", t)
+
+        t = time.perf_counter()
+        mesh_small = check_mesh_small(tmp, args.seed)
+        phase("mesh-small", t)
 
         t = time.perf_counter()
         src = gen_lineitem(tmp, args.rows, args.files, args.seed)
@@ -8134,6 +8524,11 @@ def main() -> None:
         queries["fusion"] = run_fusion(sess, src, o_src, a1_streamed, chunk, args, smi, hbm)
         queries["fusion"]["small"] = fusion_small
         phase("fusion", t)
+
+        t = time.perf_counter()
+        queries["mesh"] = run_mesh(sess, src, chunk, entries, args, smi, hbm)
+        queries["mesh"]["small"] = mesh_small
+        phase("mesh", t)
         for name in results:
             results[name]["launches_by_path"] = {
                 "build": results[name]["launches"],
@@ -8151,6 +8546,7 @@ def main() -> None:
                 "native": queries["native"]["launches"].get(name, 0),
                 "serving-small": serving_small["launches"].get(name, 0),
                 "fabric-small": fabric_small["launches"].get(name, 0),
+                "mesh": queries["mesh"]["builds"]["1-device"]["launches"].get(name, 0),
             }
 
         t = time.perf_counter()

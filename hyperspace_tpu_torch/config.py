@@ -65,6 +65,8 @@ class keys:
     PARALLEL_MESH_DEVICES = "hyperspace.parallel.mesh.devices"
     PARALLEL_MIN_ROWS = "hyperspace.parallel.minRows"
     PARALLEL_BUILD_ENABLED = "hyperspace.parallel.build.enabled"
+    TPU_MESH_AXIS = "hyperspace.tpu.mesh.axis"
+    TPU_ROWS_PER_SHARD_CAPACITY_FACTOR = "hyperspace.tpu.rebucket.capacityFactor"
     EXEC_IO_NATIVE_ENABLED = "hyperspace.exec.io.native.enabled"
     EXEC_IO_NATIVE_ROWGROUP = "hyperspace.exec.io.native.rowGroupDecode"
     EXEC_IO_NATIVE_MAX_DICT = "hyperspace.exec.io.native.maxDictEntries"
@@ -228,6 +230,10 @@ DEFAULTS: Dict[str, Any] = {
     keys.PARALLEL_BUILD_ENABLED: True,
     keys.PARALLEL_MESH_DEVICES: 0,
     keys.TPU_BUILD_DISTRIBUTED_MIN_ROWS: 0,
+    # the mesh's axis name, and the exchange's slots per source and
+    # destination as a multiple of the even share (ops/bucketize.py)
+    keys.TPU_MESH_AXIS: "buckets",
+    keys.TPU_ROWS_PER_SHARD_CAPACITY_FACTOR: 2.0,
     # a struct leaf named by its dotted path (``a.b``) may be indexed; it is
     # stored as the flat column ``__hs_nested.a.b``
     keys.NESTED_COLUMN_ENABLED: False,
@@ -691,6 +697,14 @@ class HyperspaceConf:
     @property
     def distributed_build_min_rows(self) -> int:
         return int(self.get(keys.TPU_BUILD_DISTRIBUTED_MIN_ROWS))
+
+    @property
+    def mesh_axis(self) -> str:
+        return str(self.get(keys.TPU_MESH_AXIS))
+
+    @property
+    def rebucket_capacity_factor(self) -> float:
+        return float(self.get(keys.TPU_ROWS_PER_SHARD_CAPACITY_FACTOR))
 
     @property
     def nested_column_enabled(self) -> bool:

@@ -33,6 +33,12 @@ device column cache the filter fills (exec/device.py):
                                  partial frame
   ``device_grouped_aggregate``   device.py:1926-1953
 
+Under ``hyperspace.parallel.enabled`` (a ``ShardedExecutor`` as
+``parallel``) the stream runs the sharded twins of the chunk and fused
+programs (parallel/collectives.py: ``sharded-grouped``,
+``fused-stage-agg-sharded``), which merge the shards' tables on the device;
+the merge between chunks stays ``grouped-merge``.
+
 Where torch and JAX differ, the programs here do what JAX does:
 
 - ``jnp.lexsort`` becomes a chain of stable ``torch.sort`` from the last key
@@ -80,6 +86,7 @@ from hyperspace_tpu_torch.exec.device import (
     _device_cache,
     _dry_codecs,
     _observe_program,
+    program_clock,
     _pack_literals,
     _put_encoded,
     compile_predicate,
@@ -250,7 +257,7 @@ def device_filtered_aggregate(
     else:
         pred_fn, lit_values = None, ()
     program = fused_agg_program(pred_fn, tuple((fn, c) for _, fn, c in aggs))
-    t0 = time.perf_counter()
+    t0 = program_clock(session.device)
     outs, valids = program(dev_cols, upload_literals(lit_values, session.device), n)
     count_dispatch("fused-agg")
     outs, valids = _read_scalars(outs, valids)
@@ -645,10 +652,15 @@ class GroupedAggStream:
     fall back (or spill) to the host path.
     """
 
-    def __init__(self, session, group_keys, aggs, *, max_groups: int, cap_floor: int, hint_key=None):
+    def __init__(self, session, group_keys, aggs, *, max_groups: int, cap_floor: int, hint_key=None,
+                 parallel=None):
         if not group_keys:
             raise DeviceUnsupported("global aggregates take the fused-scalar path")
         self.session = session
+        # a ShardedExecutor (parallel/executor.py) switches the chunk
+        # programs to their sharded twins (parallel/collectives.py), whose
+        # per-shard tables merge on the device
+        self._parallel = parallel
         self.group_keys = list(group_keys)
         self.aggs = [(name, fn, c) for name, fn, c in aggs]
         self.max_groups = int(max_groups)
@@ -763,12 +775,21 @@ class GroupedAggStream:
             trace.fallback("fusion", "grouped-overflow")
             t = time.perf_counter()
         cap = group_capacity(max(self._cap_hint, 1), self.cap_floor)
+        px = self._parallel
+        family = "sharded-grouped" if px is not None else "grouped-agg-chunk"
         while True:
-            program = grouped_chunk_program(pred_fn, key_specs, self._slots, cap)
-            t0 = time.perf_counter()
-            n_g, fs, key_out, slot_out = program(dev_cols, lits, n, self._row_base)
-            count_dispatch("grouped-agg-chunk")
-            _observe_program("grouped-agg-chunk", t0)
+            t0 = program_clock(self.session.device)
+            if px is not None:
+                from hyperspace_tpu_torch.parallel import collectives as C
+
+                program = C.sharded_grouped_chunk_program(px.mesh, px.axis, pred_fn, key_specs, self._slots, cap)
+                n_g, fs, key_out, slot_out = px.timed_call(
+                    "grouped-agg", program, dev_cols, lits, n, self._row_base)
+            else:
+                program = grouped_chunk_program(pred_fn, key_specs, self._slots, cap)
+                n_g, fs, key_out, slot_out = program(dev_cols, lits, n, self._row_base)
+            count_dispatch(family)
+            _observe_program(family, t0)
             if n_g > self.max_groups:
                 t = _add(self.session, "agg_program", t)
                 # this chunk is NOT in the running partial (folded is False)
@@ -791,6 +812,8 @@ class GroupedAggStream:
             self._partial = new
         else:
             self._merge(new)
+        p = self._partial
+        stage_ir.note_peak_bytes([p["fs"], *p["keys"], *p["slots"]])
 
     def _ensure_fused_state(self, key_specs, cap: int):
         """The running partial as (keys, slots, fs, n) tensors of ``cap``
@@ -820,18 +843,31 @@ class GroupedAggStream:
         if self._partial is not None:
             cap = max(cap, self._partial["cap"])
         state_keys, state_slots, state_fs, state_n = self._ensure_fused_state(key_specs, cap)
-        donate = stage_ir.donation_wanted(self.session.conf)
-        program = stage_ir.compile_stage(
-            f"gaggfused[{cap}{'+d' if donate else ''}]:{base_sk}",
-            fused_grouped_update_program(pred_fn, key_specs, self._slots, cap, donate),
-            donate_argnums=(0, 1, 2) if donate else (),
-        )
-        t0 = time.perf_counter()
-        n_b, n_m, n_out, fs_out, keys_out, slots_out = program(
-            state_keys, state_slots, state_fs, state_n, dev_cols, lits, n, self._row_base
-        )
-        stage_ir.count_dispatch("fused-stage-agg")
-        _observe_program("fused-stage-agg", t0)
+        px = self._parallel
+        # the sharded fold never writes its state in place, as in the JAX
+        # package
+        donate = stage_ir.donation_wanted(self.session.conf) and px is None
+        if px is not None:
+            from hyperspace_tpu_torch.parallel import collectives as C
+            from hyperspace_tpu_torch.parallel.mesh import mesh_fingerprint
+
+            family = "fused-stage-agg-sharded"
+            skeleton = f"gaggfused[{cap}]:{base_sk}@{mesh_fingerprint(px.mesh)}/shmap"
+            fn = C.sharded_fused_grouped_program(px.mesh, px.axis, pred_fn, key_specs, self._slots, cap)
+        else:
+            family = "fused-stage-agg"
+            skeleton = f"gaggfused[{cap}{'+d' if donate else ''}]:{base_sk}"
+            fn = fused_grouped_update_program(pred_fn, key_specs, self._slots, cap, donate)
+        program = stage_ir.compile_stage(skeleton, fn, donate_argnums=(0, 1, 2) if donate else ())
+        args = (state_keys, state_slots, state_fs, state_n, dev_cols, lits, n, self._row_base)
+        stage_ir.fold_peak_start(self.session.device)
+        t0 = program_clock(self.session.device)
+        if px is not None:
+            n_b, n_m, n_out, fs_out, keys_out, slots_out = px.timed_call("grouped-agg", program, *args)
+        else:
+            n_b, n_m, n_out, fs_out, keys_out, slots_out = program(*args)
+        stage_ir.count_dispatch(family)
+        _observe_program(family, t0)
         self._partial = {"cap": cap, "n": n_out, "fs": fs_out, "keys": list(keys_out), "slots": list(slots_out)}
         stage_ir.note_peak_bytes([fs_out, *keys_out, *slots_out])
         if n_b > cap or n_m > cap:
@@ -886,7 +922,7 @@ class GroupedAggStream:
                 part["slots"] = [_dev_pad(v, cap_in, 0) for v in part["slots"]]
         cap_out = group_capacity(a["n"] + b["n"], self.cap_floor)
         program = grouped_merge_program(key_specs, self._slots, cap_in, cap_out)
-        t0 = time.perf_counter()
+        t0 = program_clock(self.session.device)
         with obs_spans.span("agg-merge", cat="groupagg", groups_in=a["n"] + b["n"]):
             n_g, fs, key_out, slot_out = program(
                 tuple(a["keys"]), tuple(b["keys"]), tuple(a["slots"]), tuple(b["slots"]),
@@ -897,7 +933,7 @@ class GroupedAggStream:
         REGISTRY.counter(
             "hs_agg_merge_seconds_total",
             "Cumulative device partial-aggregate merge time (seconds)",
-        ).inc(time.perf_counter() - t0)
+        ).inc(time.perf_counter() - t0.t0)
         self._partial = {"cap": cap_out, "n": n_g, "fs": fs, "keys": list(key_out), "slots": list(slot_out)}
         self._cap_hint = max(self._cap_hint, n_g)
         _add(self.session, "agg_merge", t)
@@ -983,6 +1019,7 @@ class GroupedAggStream:
                         np.nan,
                     )
                     out[name] = np.sqrt(np.clip(var, 0.0, None))
+        REGISTRY.counter("hs_agg_groups_total", "Groups produced by device grouped aggregation").inc(n)
         _add(self.session, "agg_finalize", t)
         return out
 
@@ -1040,14 +1077,17 @@ def device_grouped_aggregate(
     *,
     max_groups: int,
     cap_floor: int,
+    parallel=None,
 ) -> B.Batch:
     """One-shot fused filter -> grouped aggregate over a materialized scan
     batch. Raises DeviceUnsupported outside the device language or beyond
-    ``max_groups`` cardinality."""
+    ``max_groups`` cardinality. ``parallel`` (a ``ShardedExecutor``) runs
+    the sharded chunk program."""
     if B.num_rows(batch) == 0:
         raise DeviceUnsupported("empty input stays host-side")
     stream = GroupedAggStream(
-        session, group_keys, aggs, max_groups=max_groups, cap_floor=cap_floor, hint_key=scan_key
+        session, group_keys, aggs, max_groups=max_groups, cap_floor=cap_floor, hint_key=scan_key,
+        parallel=parallel,
     )
     stream.update(batch, condition, scan_key=scan_key)
     return stream.finalize()

@@ -66,7 +66,9 @@ class DeviceUnsupported(Exception):
 #: ("fused-filter": one per filter evaluated on the device; "dict-expand":
 #: one per dictionary-coded string column uploaded; the broadcast join's
 #: "hash-build", "hash-probe" and "fused-postjoin" in exec/join_stream.py;
-#: the top-k's "topk-chunk" and "topk-merge" in exec/topk.py)
+#: the top-k's "topk-chunk" and "topk-merge" in exec/topk.py; the sharded
+#: twins "sharded-grouped", "sharded-topk", "fused-stage-agg-sharded" and
+#: "fused-stage-topk-sharded", parallel/collectives.py)
 dispatches: collections.Counter = collections.Counter()
 
 
@@ -89,27 +91,85 @@ def count_dispatch(program: str) -> None:
     ).inc()
 
 
-def _observe_program(family: str, t0: float) -> None:
-    """Per-program-family timing at the device programs' call sites: a
-    wall-clock histogram (``hs_device_program_seconds{program}``) and an
-    event on the active span.
+class ProgramClock:
+    """The start of one device program's timing (``program_clock``): the
+    host clock, and on a CUDA device an event recorded on the current
+    stream before the program's first launch."""
 
-    Timing caveat, as in the JAX package: CUDA launches are asynchronous,
-    so the interval covers the launch plus whatever host sync the call site
-    does (the copy of a mask or a count back), not necessarily the whole
-    device execution. The port's eager programs compile nothing, so it has
-    no compile-seconds counter and no "(compile)" mark."""
-    wall = max(0.0, time.perf_counter() - t0)
+    __slots__ = ("t0", "device", "start")
+
+    def __init__(self, device: Optional[torch.device]):
+        self.t0 = time.perf_counter()
+        self.device = device
+        self.start = None
+        if device is not None and device.type == "cuda":
+            self.start = torch.cuda.Event(enable_timing=True)
+            self.start.record(torch.cuda.current_stream(device))
+
+
+def program_clock(device: Optional[torch.device]) -> ProgramClock:
+    """Start timing a device program on ``device``; hand the clock to
+    ``_observe_program`` after the program."""
+    return ProgramClock(device)
+
+
+#: (family, start event, end event, span) of CUDA-timed programs whose end
+#: event has not been seen complete yet
+_pending_programs: collections.deque = collections.deque()
+_pending_lock = threading.Lock()
+
+
+def _record_program(family: str, seconds: float, sp) -> None:
     from hyperspace_tpu_torch.obs.metrics import REGISTRY
 
     REGISTRY.histogram(
         "hs_device_program_seconds",
-        "wall seconds around device program invocations, by program family",
+        "seconds of device program invocations (CUDA events on the card, wall time on the CPU), by program family",
         program=family,
-    ).observe(wall)
-    sp = obs_spans.current_span()
+    ).observe(seconds)
     if sp is not None:
-        sp.event("device-program", f"{family}: {wall * 1e3:.2f} ms")
+        sp.event("device-program", f"{family}: {seconds * 1e3:.2f} ms")
+
+
+def _observe_program(family: str, clock: ProgramClock) -> None:
+    """Per-program-family timing at the device programs' call sites: a
+    histogram (``hs_device_program_seconds{program}``) and an event on the
+    span active at the call.
+
+    On a CUDA device the time is the device's own: an end event is recorded
+    on the current stream here, and the interval between the clock's start
+    event and it is read once the end event is complete, which never waits:
+    right away when the call site has already synchronised (the copy of a
+    mask or a count back), else at a later program's observation or at the
+    end of the query (``resolve_program_timings``). Nothing here adds a
+    synchronisation. On the CPU the time is the wall time since the clock
+    started. The port's eager programs compile nothing, so it has no
+    compile-seconds counter and no "(compile)" mark."""
+    sp = obs_spans.current_span()
+    if clock.start is None:
+        _record_program(family, max(0.0, time.perf_counter() - clock.t0), sp)
+        return
+    end = torch.cuda.Event(enable_timing=True)
+    end.record(torch.cuda.current_stream(clock.device))
+    with _pending_lock:
+        _pending_programs.append((family, clock.start, end, sp))
+    resolve_program_timings()
+
+
+def resolve_program_timings() -> int:
+    """Record every pending CUDA-timed program whose end event is complete
+    (``Event.query``, which does not wait); returns how many are left."""
+    done = []
+    with _pending_lock:
+        keep = collections.deque()
+        while _pending_programs:
+            item = _pending_programs.popleft()
+            (done if item[2].query() else keep).append(item)
+        _pending_programs.extend(keep)
+        left = len(_pending_programs)
+    for family, start, end, sp in done:
+        _record_program(family, start.elapsed_time(end) / 1e3, sp)
+    return left
 
 
 # Geometric sizes: powers of sqrt(2) over a floor. The JAX package pads its
@@ -721,7 +781,7 @@ def _encoded_for_upload(arr: np.ndarray):
 
 def _dict_expand(codes_dev: torch.Tensor, remap: np.ndarray, device: torch.device) -> torch.Tensor:
     remap_dev = _host_tensor(remap).to(device)
-    t0 = time.perf_counter()
+    t0 = program_clock(device)
     out = dict_expand_program(codes_dev, remap_dev)
     count_dispatch("dict-expand")
     _observe_program("dict-expand", t0)
@@ -812,7 +872,11 @@ def stage_filter_columns(session, batch: B.Batch, condition: Optional[Expr], sca
     ``device`` is the session's device with its index (``resolved_device``,
     taken on the consumer thread). Each entry enters the cache only with
     its copy's event. A no-op when the predicate is outside the device
-    language or ``scan_key`` is None (nothing would be cached)."""
+    language or ``scan_key`` is None (nothing would be cached). The JAX
+    package's ``parallel=`` (the mesh to stage onto) has no counterpart: a
+    column stages whole onto the session's device, the mesh's first, and
+    the sharded programs take their shards' row blocks from the cached
+    column, so both modes share one cache entry."""
     if scan_key is None or (condition is None and not extra_columns):
         return
     n = B.num_rows(batch)
@@ -840,14 +904,16 @@ def stage_filter_columns(session, batch: B.Batch, condition: Optional[Expr], sca
         return  # the consumer's own path takes this chunk
 
 
-def device_filter_mask(session, batch: B.Batch, condition: Expr, scan_key=None) -> np.ndarray:
+def device_filter_mask(session, batch: B.Batch, condition: Expr, scan_key=None, parallel=None) -> np.ndarray:
     """Evaluate ``condition`` on the session's device over the referenced
     columns of ``batch``; returns the host bool mask. Raises
     DeviceUnsupported when the predicate is outside the device language.
 
     ``scan_key`` identifies an immutable file set (IndexScan bucket files);
     when given, encoded predicate columns stay resident on the device across
-    queries."""
+    queries. ``parallel`` (a ``ShardedExecutor``) evaluates the predicate
+    per shard of its mesh (``parallel/collectives.sharded_elementwise``);
+    the column cache is the same in both modes."""
     device = session.device
     refs = sorted(condition.references())
     for r in refs:
@@ -883,7 +949,13 @@ def device_filter_mask(session, batch: B.Batch, condition: Expr, scan_key=None) 
         stages["upload"] += time.perf_counter() - t
 
     t = time.perf_counter()
+    clock = program_clock(device)
     fn, lit_values = compile_predicate(condition, codecs)
+    if parallel is not None:
+        from hyperspace_tpu_torch.parallel import collectives as C
+
+        fn = C.sharded_elementwise(parallel.mesh, parallel.axis, fn)
+        parallel.note_op("filter")
     mask = fn(dev_cols, upload_literals(lit_values, device))
     count_dispatch("fused-filter")
     if mask.dim() == 0:  # a predicate over literals only
@@ -892,5 +964,5 @@ def device_filter_mask(session, batch: B.Batch, condition: Expr, scan_key=None) 
     stages["predicate_launch"] += t1 - t
     out = mask.cpu().numpy()
     stages["wait_copy_mask"] += time.perf_counter() - t1
-    _observe_program("fused-filter", t)
+    _observe_program("fused-filter", clock)
     return out

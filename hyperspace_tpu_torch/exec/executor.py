@@ -80,14 +80,19 @@ def _scan_identity(scan):
     return tuple(parts)
 
 
-def _check_sharded(session, what: str, n_rows: Optional[int] = None) -> None:
-    """Raise where the JAX package takes its sharded path (``_maybe_parallel``):
-    under ``hyperspace.parallel.enabled``, a chunk of at least
-    ``hyperspace.parallel.minRows`` rows, or a streamed path, which has no
-    row count. Below that the single-device path runs, as there."""
-    conf = session.conf
-    if conf.parallel_enabled and (n_rows is None or n_rows >= conf.parallel_min_rows):
-        raise NotImplementedError(f"the sharded (hyperspace.parallel.enabled) {what} is not yet in the port")
+def _maybe_parallel(session, n_rows: Optional[int] = None):
+    """The session's ``ShardedExecutor`` when ``hyperspace.parallel.enabled``
+    is on (and, when a row count is known, the chunk clears
+    ``hyperspace.parallel.minRows``; a streamed path has none); None routes
+    to the single-device path."""
+    if not session.conf.parallel_enabled:
+        return None
+    from hyperspace_tpu_torch.parallel.executor import ShardedExecutor
+
+    px = ShardedExecutor.maybe(session)
+    if px is not None and n_rows is not None and not px.rows_ok(n_rows):
+        return None
+    return px
 
 
 def _plan_needs_file_names(plan: L.LogicalPlan) -> bool:
@@ -602,7 +607,6 @@ def aggregate_batch(session, keys, aggs, batch: B.Batch) -> B.Batch:
         from hyperspace_tpu_torch.exec import aggregate as A
         from hyperspace_tpu_torch.exec import device as D
 
-        _check_sharded(session, "aggregate", B.num_rows(batch))
         try:
             got = A.device_grouped_aggregate(
                 session,
@@ -613,6 +617,7 @@ def aggregate_batch(session, keys, aggs, batch: B.Batch) -> B.Batch:
                 scan_key=None,
                 max_groups=conf.agg_max_groups,
                 cap_floor=conf.agg_capacity_floor,
+                parallel=_maybe_parallel(session, B.num_rows(batch)),
             )
             trace.record("agg", "device-grouped-batch")
             return got
@@ -676,6 +681,11 @@ class Executor:
         finally:
             self._memo = {}
             self._shared = set()
+            # the query's device programs have ended (its results are on
+            # the host): read their CUDA-event times without waiting
+            from hyperspace_tpu_torch.exec import device as D
+
+            D.resolve_program_timings()
         if required_columns is not None:
             batch = B.select(batch, required_columns)
         elif INPUT_FILE_NAME in batch:
@@ -1517,7 +1527,6 @@ class Executor:
         groups = _chunk_files_by_bytes(files, max(1, conf.stream_chunk_bytes))
         if len(groups) < 2:
             return None
-        _check_sharded(self.session, "top-k")
         try:
             return self._streaming_topk(sort_plan, k, chain, leaf, groups)
         except NotImplementedError:
@@ -1535,7 +1544,7 @@ class Executor:
         conf = self.session.conf
         needed = _chain_needed_columns(chain) | set(sort_plan.output_columns)
         needed |= {c for c, _ in sort_plan.keys}
-        stream = TopKStream(self.session, sort_plan.keys, k)
+        stream = TopKStream(self.session, sort_plan.keys, k, parallel=_maybe_parallel(self.session))
         # the running k-th-value threshold prunes row groups of chunks not
         # yet decoded; only sound when pruning is on and the chain cannot
         # rebind the primary key column
@@ -1571,7 +1580,7 @@ class Executor:
         if host_parts is None:
             if not stream.has_data:
                 return None  # every chunk came back empty: materialize
-            trace.record("topk", "device-topk-stream")
+            trace.record("topk", "device-topk-stream-sharded" if stream.parallel is not None else "device-topk-stream")
             return stream.finalize()
         parts = [p for p in host_parts if B.num_rows(p)]
         if not parts:
@@ -1887,7 +1896,6 @@ class Executor:
             from hyperspace_tpu_torch.exec import aggregate as A
             from hyperspace_tpu_torch.exec import device as D
 
-            _check_sharded(self.session, "aggregate")
             fuse_cond = _chain_pushdown_condition(chain)
             stage_extra = sorted(set(plan.keys) | {c for _, _, _, c in plain if c is not None})
             stream = A.GroupedAggStream(
@@ -1899,6 +1907,9 @@ class Executor:
                 # a capacity hint shared by repeated runs of the same query
                 # shape over the same file set
                 hint_key=("stream",) + tuple(_leaf_files(leaf)),
+                # decided per stream (chunk sizes are not known yet):
+                # minRows gates the one-shot programs, not stream chunks
+                parallel=_maybe_parallel(self.session),
             )
 
         # chunks arrive through the prefetch pipeline: chunk k+1 decodes
@@ -1943,7 +1954,10 @@ class Executor:
                     self._leaf_override = prev
                 fold_chunk(batch)
             if device_ok and stream.has_data:
-                trace.record("agg", "device-grouped-stream")
+                trace.record(
+                    "agg",
+                    "device-grouped-stream-sharded" if stream._parallel is not None else "device-grouped-stream",
+                )
                 return stream.finalize()
 
         t = time.perf_counter()
@@ -2057,7 +2071,6 @@ class Executor:
         if B.num_rows(batch) < conf.device_exec_min_rows:
             trace.fallback("agg", "min-rows")
             return None, batch, filter_node
-        _check_sharded(self.session, "aggregate", B.num_rows(batch))
         condition = filter_node.condition if filter_node is not None else None
         t = time.perf_counter()
         scan_key = _scan_identity(node)
@@ -2073,6 +2086,7 @@ class Executor:
                     scan_key=scan_key,
                     max_groups=conf.agg_max_groups,
                     cap_floor=conf.agg_capacity_floor,
+                    parallel=_maybe_parallel(self.session, B.num_rows(batch)),
                 )
             else:
                 got = A.device_filtered_aggregate(self.session, batch, condition, plan.aggs, scan_key=scan_key)
@@ -2141,7 +2155,6 @@ class Executor:
             lineage = self._lineage_not_in(plan.condition)
             if lineage is not None and conf.lifecycle_device_lineage_enabled:
                 if B.num_rows(child) >= conf.lifecycle_device_lineage_min_rows:
-                    _check_sharded(self.session, "lineage filter", B.num_rows(child))
                     from hyperspace_tpu_torch.exec import device as D
                     from hyperspace_tpu_torch.exec.lineage import lineage_delete_mask
 
@@ -2151,7 +2164,8 @@ class Executor:
                     col, ids = lineage
                     try:
                         t = time.perf_counter()
-                        mask = lineage_delete_mask(self.session, child, col, ids, scan_key=scan_key)
+                        mask = lineage_delete_mask(self.session, child, col, ids, scan_key=scan_key,
+                                                   parallel=_maybe_parallel(self.session, B.num_rows(child)))
                         self._add_stage("lineage", t)
                         trace.record("filter", "device-lineage")
                         return mask
@@ -2163,15 +2177,15 @@ class Executor:
                 trace.record("filter", "host")
                 return self._host_mask(plan, child)
             if B.num_rows(child) >= conf.device_exec_min_rows:
-                _check_sharded(self.session, "filter", B.num_rows(child))
                 from hyperspace_tpu_torch.exec import device as D
 
                 t = time.perf_counter()
                 scan_key = _pruned_scan_key(_scan_identity(plan.child), pruned_by)
                 self._add_stage("scan_identity", t)
                 try:
-                    mask = D.device_filter_mask(self.session, child, plan.condition, scan_key=scan_key)
-                    trace.record("filter", "device")
+                    px = _maybe_parallel(self.session, B.num_rows(child))
+                    mask = D.device_filter_mask(self.session, child, plan.condition, scan_key=scan_key, parallel=px)
+                    trace.record("filter", "device-sharded" if px is not None else "device")
                     return mask
                 except D.DeviceUnsupported:
                     trace.record("filter", "host-fallback")

@@ -377,6 +377,7 @@ _NATIVE_ENABLED = True  # hyperspace.exec.io.native.enabled
 _NATIVE_RG = True  # hyperspace.exec.io.native.rowGroupDecode
 _MAX_DICT = 4096  # hyperspace.exec.io.native.maxDictEntries
 _PINNED = False  # a CUDA session is live: decode buffers are pinned
+_STAGING_PAD = 1  # shard-count multiple of the decode buffers (set_staging_pad)
 #: a scan whose row groups average fewer rows decodes on the calling thread:
 #: a pool task's hand-off and the threads' contention for the interpreter
 #: lock then cost more than the chunk's decode (on an eight-core host, index
@@ -410,15 +411,28 @@ def set_pinned_decode(on: bool) -> None:
     _PINNED = bool(on)
 
 
+def set_staging_pad(m: int) -> None:
+    """Shard-count multiple that decode buffers are allocated to (wired
+    when a sharded executor takes its mesh, parallel/executor.py): the
+    column is a prefix view of its buffer, so the sharded programs' equal
+    row blocks of the staged copy never need a padding copy. A stale value
+    costs nothing but the unused rows."""
+    global _STAGING_PAD
+    _STAGING_PAD = max(1, int(m))
+
+
 def _decode_buffer(n: int, dtype: np.dtype) -> np.ndarray:
     """An uninitialized ``n``-row buffer the decoder writes into: pinned
-    under a CUDA session, else ordinary host memory."""
+    under a CUDA session, else ordinary host memory; allocated to a
+    multiple of the staging pad, of which the first ``n`` rows are
+    returned."""
+    rows = n + (-n) % _STAGING_PAD
     if _PINNED and n > 0:
         import torch
 
-        raw = torch.empty(n * dtype.itemsize, dtype=torch.uint8, pin_memory=True)
-        return raw.numpy().view(dtype)
-    return np.empty(n, dtype=dtype)
+        raw = torch.empty(rows * dtype.itemsize, dtype=torch.uint8, pin_memory=True)
+        return raw.numpy().view(dtype)[:n]
+    return np.empty(rows, dtype=dtype)[:n]
 
 
 def _native_decode_counter(codec: str):

@@ -55,7 +55,13 @@ from hyperspace_tpu_torch import native
 from hyperspace_tpu_torch.exec import batch as B
 from hyperspace_tpu_torch.exec import trace
 from hyperspace_tpu_torch.exec.aggregate import _AGG_FNS
-from hyperspace_tpu_torch.exec.device import DeviceUnsupported, _device_cache, _observe_program, count_dispatch
+from hyperspace_tpu_torch.exec.device import (
+    DeviceUnsupported,
+    _device_cache,
+    _observe_program,
+    count_dispatch,
+    program_clock,
+)
 from hyperspace_tpu_torch.ops.encode import sort_key_int64
 from hyperspace_tpu_torch.plan import logical as L
 from hyperspace_tpu_torch.plan.expr import (
@@ -679,6 +685,7 @@ def stream_bucketed_join(session, plan: L.Join, _compat=None):
                 _add(stages, "stream_wait", t)
                 chunk = expand(lb, rb, lk, rk)
                 if chunk is not None:
+                    _count_join_stream_chunk()
                     yield chunk
                 t = time.perf_counter()
         finally:
@@ -691,7 +698,17 @@ def stream_bucketed_join(session, plan: L.Join, _compat=None):
     for b in parts:
         chunk = expand(*decode_pair(b))
         if chunk is not None:
+            _count_join_stream_chunk()
             yield chunk
+
+
+def _count_join_stream_chunk() -> None:
+    from hyperspace_tpu_torch.obs.metrics import REGISTRY
+
+    REGISTRY.counter(
+        "hs_join_stream_chunks_total",
+        "Chunks yielded by the streaming join paths (bucketed SMJ buckets + broadcast probe chunks)",
+    ).inc()
 
 
 def _bucketed_join_setup(session, plan: L.Join, compat=None, needed_override=None):
@@ -1090,7 +1107,7 @@ def device_bucketed_join(session, plan: L.Join, compat=None, setup=None) -> B.Ba
             _device_cache.put(dev_key, (lmat_dev, rmat_dev, llens, rlens), lmat.nbytes + rmat.nbytes)
         t = _add(stages, "join_upload", t)
 
-    t0 = time.perf_counter()
+    t0 = program_clock(device)
     lo, hi = bucketed_span(lmat_dev, rmat_dev)
     count_dispatch("bucketed-smj-span")
     _observe_program("bucketed-smj-span", t0)

@@ -58,11 +58,21 @@ from hyperspace_tpu_torch.exec.device import (
     predicate_skeleton,
     upload_literals,
 )
-from hyperspace_tpu_torch.exec.join import _add, _join_column_source, _null_value
+from hyperspace_tpu_torch.exec.join import _add, _count_join_stream_chunk, _join_column_source, _null_value
 from hyperspace_tpu_torch.ops.encode import hash_input_uint32
 from hyperspace_tpu_torch.ops.hashing import combine_hashes_torch
 from hyperspace_tpu_torch.plan import logical as L
 from hyperspace_tpu_torch.plan.expr import as_bool_mask, extract_equi_join_keys
+
+
+def _count_broadcast() -> None:
+    from hyperspace_tpu_torch.obs.metrics import REGISTRY
+
+    REGISTRY.counter(
+        "hs_join_broadcast_total",
+        "Joins executed by the broadcast-hash streaming path",
+    ).inc()
+
 
 # --------------------------------------------------------------------------
 # applicability
@@ -483,6 +493,7 @@ def stream_broadcast_join(executor, plan: L.Join, spec: Optional[BroadcastSpec] 
     probe_cols = [c for c in probe_plan.output_columns if c in need_p or c in pkeys]
 
     build = _shared_build_side(session, build_plan, build_cols, bkeys)
+    _count_broadcast()
     trace.record("join", "broadcast-hash-stream")
 
     probe_exec = probe_plan
@@ -570,6 +581,7 @@ def stream_broadcast_join(executor, plan: L.Join, spec: Optional[BroadcastSpec] 
             if p_i.shape[0] == 0:
                 continue
             out = assemble(chunk, p_i, b_i)
+            _count_join_stream_chunk()
             yielded = True
             yield out
     finally:
@@ -588,6 +600,7 @@ def stream_broadcast_join(executor, plan: L.Join, spec: Optional[BroadcastSpec] 
             p_i, b_i = filter_pairs(None, p_i, miss_b.astype(np.int64))
             if p_i.shape[0]:
                 out = assemble(None, p_i, b_i)
+                _count_join_stream_chunk()
                 yielded = True
                 yield out
 

@@ -78,11 +78,14 @@ def lineage_keep_mask_plain(col: np.ndarray, deleted_ids) -> np.ndarray:
     return ~np.isin(np.asarray(col, dtype=np.int64), np.asarray(list(deleted_ids), dtype=np.int64))
 
 
-def lineage_delete_mask(session, batch: B.Batch, column: str, deleted_ids, scan_key=None) -> np.ndarray:
+def lineage_delete_mask(session, batch: B.Batch, column: str, deleted_ids, scan_key=None,
+                        parallel=None) -> np.ndarray:
     """Keep-mask for ``NOT (column IN deleted_ids)`` computed on the
     session's device; byte-identical to the plain version. Raises
     :class:`DeviceUnsupported` when the column is absent or not integral —
-    the caller falls back to the host and counts the fallback."""
+    the caller falls back to the host and counts the fallback. ``parallel``
+    (a ``ShardedExecutor``) runs the program per shard of its mesh, the id
+    table replicated to each shard's device."""
     if column not in batch:
         raise DeviceUnsupported(f"lineage column {column!r} missing from batch")
     n = B.num_rows(batch)
@@ -107,6 +110,13 @@ def lineage_delete_mask(session, batch: B.Batch, column: str, deleted_ids, scan_
         if ckey is not None:
             _device_cache.put(ckey, (dev_col, codec, n, None), nbytes)
     dev_ids = _host_tensor(table).to(device)
-    mask = antijoin_program(dev_col, dev_ids, n_ids)
+    if parallel is not None:
+        from hyperspace_tpu_torch.parallel import collectives as C
+
+        program = C.sharded_elementwise(
+            parallel.mesh, parallel.axis, lambda cols, lits: antijoin_program(cols["c"], lits[0], n_ids))
+        mask = program({"c": dev_col}, (dev_ids,))
+    else:
+        mask = antijoin_program(dev_col, dev_ids, n_ids)
     count_dispatch("lineage-antijoin")
     return mask.cpu().numpy()[:n]

@@ -25,6 +25,7 @@ running them there would deadlock once its threads <= the pipeline depth.
 from __future__ import annotations
 
 import threading
+import time
 from concurrent.futures import Future
 from typing import Callable, Dict, List, Optional, Sequence
 
@@ -53,6 +54,31 @@ def _pipeline_pool():
 
                 _PIPELINE_POOL = ThreadPoolExecutor(max_workers=4, thread_name_prefix="hs-pipeline")
     return _PIPELINE_POOL
+
+
+def _counters():
+    from hyperspace_tpu_torch.obs.metrics import REGISTRY
+
+    return (
+        REGISTRY.counter(
+            "hs_pipeline_chunks_total",
+            "Chunks yielded by the pipelined scan engine",
+        ),
+        REGISTRY.counter(
+            "hs_pipeline_wait_seconds_total",
+            "Seconds stream consumers stalled waiting on a prefetched chunk",
+        ),
+    )
+
+
+def _cancelled_counter():
+    from hyperspace_tpu_torch.obs.metrics import REGISTRY
+
+    return REGISTRY.counter(
+        "hs_pipeline_cancelled_total",
+        "Queued prefetch decodes cancelled by an early stream close (LIMIT "
+        "reached, consumer abandoned the stream)",
+    )
 
 
 class ScanPipeline:
@@ -146,10 +172,14 @@ class ScanPipeline:
     # -- consumer side -------------------------------------------------------
 
     def __iter__(self):
+        chunks_c, wait_c = _counters()
         try:
             for k in range(len(self._tasks)):
                 self._pump(k)
+                t0 = time.monotonic()
                 out = self._futures[k].result()
+                wait_c.inc(time.monotonic() - t0)
+                chunks_c.inc()
                 with self._lock:
                     self._buffered -= self._sizes.pop(k, 0)
                 self._pump(k)  # the consumed budget frees the next lookahead slot
@@ -161,7 +191,16 @@ class ScanPipeline:
         """Cancel queued prefetches and wait for the ones in flight.
         Idempotent."""
         self._closed = True
-        inflight = [f for f in self._futures if f is not None and not f.done() and not f.cancel()]
+        inflight = []
+        cancelled = 0
+        for f in self._futures:
+            if f is not None and not f.done():
+                if f.cancel():
+                    cancelled += 1
+                else:
+                    inflight.append(f)
+        if cancelled:
+            _cancelled_counter().inc(cancelled)
         for f in inflight:
             try:
                 f.result()

@@ -90,21 +90,41 @@ def count_dispatch(program: str) -> None:
 _peak_bytes = 0
 
 
+def fold_peak_start(device: Optional[torch.device]) -> None:
+    """Start a fold step's peak-memory window: on a CUDA device the
+    allocator's peak counter restarts from what is allocated now, so
+    ``note_peak_bytes`` after the step reads the step's own high-water
+    mark (``torch.cuda.max_memory_allocated``)."""
+    if device is not None and device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+
+
 def note_peak_bytes(tensors=()) -> int:
-    """Sample the bytes the fold holds and fold them into the high-water
-    mark: on a CUDA device ``torch.cuda.memory_allocated`` (everything
-    allocated there), else the summed bytes of the live fold-state
-    ``tensors``. Called after each fold step, when the old and the new
-    state could coexist (the allocation in-place state avoids)."""
+    """Sample the bytes the fold held and fold them into the high-water
+    mark and the ``hs_device_peak_bytes`` gauge: on a CUDA device the
+    allocator's peak since ``fold_peak_start`` (everything allocated there
+    while the fold ran, its temporaries included), else the summed bytes
+    of the live fold-state ``tensors``. Called after each fold step, when
+    the old and the new state could coexist (the allocation in-place state
+    avoids)."""
     global _peak_bytes
     tensors = [t for t in tensors if isinstance(t, torch.Tensor)]
     cuda = next((t.device for t in tensors if t.device.type == "cuda"), None)
     if cuda is not None:
-        total = int(torch.cuda.memory_allocated(cuda))
+        total = int(torch.cuda.max_memory_allocated(cuda))
     else:
         total = sum(int(t.nelement() * t.element_size()) for t in tensors)
+    from hyperspace_tpu_torch.obs.metrics import REGISTRY
+
+    g = REGISTRY.gauge(
+        "hs_device_peak_bytes",
+        "High-water bytes on the device while a streamed fold step ran "
+        "(CUDA allocator peak; the fold state's bytes on the CPU)",
+    )
     if total > _peak_bytes:
         _peak_bytes = total
+    if total > g.value:
+        g.set(total)
     return total
 
 
@@ -415,6 +435,7 @@ def stream_join_aggregate(executor, join_plan, spec, post_filter, group_keys, ag
     probe_cols = [c for c in probe_plan.output_columns if c in need_p or c in pkeys]
 
     build = J._shared_build_side(session, build_plan, build_cols, bkeys)
+    J._count_broadcast()
     trace.record("join", "broadcast-hash-stream")
 
     # the grouped fold state and its finalization live in GroupedAggStream;
@@ -614,7 +635,8 @@ def _fused_fold_chunk(session, gs, build, chunk, pkeys, bkeys, post_filter,
                                cap, pair_cap, donate),
         donate_argnums=(0, 1, 2) if donate else (),
     )
-    t0 = time.perf_counter()
+    fold_peak_start(device)
+    t0 = _device.program_clock(device)
     total, n_chunk, n_m, n_kept, n_out, fs_out, keys_out, slots_out = program(
         state_keys, state_slots, state_fs, state_n,
         build.table, border, build.n, bkenc, pplanes, pkenc, pcols, bcols,

@@ -32,13 +32,19 @@ Under ``hyperspace.exec.fusion.enabled`` every chunk after the first runs
 the select and the merge as one program instead (ops/sort.fused_topk_fn,
 "fused-stage-topk"), the candidate matrix updated in place with
 ``hyperspace.exec.fusion.donation``; string keys stay per-family (their
-merge needs the host re-encode between select and merge). The JAX
-package's sharded select (``hyperspace.parallel.enabled``) is not in the
-port; the executor raises where the JAX package would take it.
+merge needs the host re-encode between select and merge).
+
+Under ``hyperspace.parallel.enabled`` (a ``ShardedExecutor`` as
+``parallel``) the select runs per shard of the mesh, and one gather of the
+per-shard candidate matrices (``n_shards * cap`` candidates, never rows)
+feeds a final select ("sharded-topk", parallel/collectives.py); the fused
+fold's twin is "fused-stage-topk-sharded", which never writes its state in
+place, as in the JAX package. The merge stays the single-device program.
 """
 
 from __future__ import annotations
 
+import time
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -46,11 +52,40 @@ import torch
 
 from hyperspace_tpu_torch.exec import batch as B
 from hyperspace_tpu_torch.exec import device as D
+from hyperspace_tpu_torch.obs.metrics import REGISTRY
 from hyperspace_tpu_torch.ops.encode import ORDER_PLANE_SENTINEL, order_plane
 
 _SENT = np.int64(ORDER_PLANE_SENTINEL)
 
 _STRING_KINDS = ("U", "S", "O")
+
+
+def _chunks_total():
+    return REGISTRY.counter(
+        "hs_topk_chunks_total",
+        "Chunks folded into streaming device top-k candidate buffers",
+    )
+
+
+def _merges_total():
+    return REGISTRY.counter(
+        "hs_topk_merges_total",
+        "Pairwise candidate-buffer merges run by streaming device top-k",
+    )
+
+
+def _threshold_updates_total():
+    return REGISTRY.counter(
+        "hs_topk_threshold_updates_total",
+        "Dynamic k-th-value threshold updates fed back into row-group pruning",
+    )
+
+
+def _merge_seconds_total():
+    return REGISTRY.counter(
+        "hs_topk_merge_seconds_total",
+        "Wall seconds spent in top-k candidate encode/select/merge steps",
+    )
 
 
 def _is_missing_scalar(v) -> bool:
@@ -77,11 +112,12 @@ class TopKStream:
     the k-th candidate (the threshold row) is ``_pool[...][k - 1]``.
     """
 
-    def __init__(self, session, keys: Sequence[Tuple[str, bool]], k: int):
+    def __init__(self, session, keys: Sequence[Tuple[str, bool]], k: int, parallel=None):
         self.session = session
         self.keys: List[Tuple[str, bool]] = [(str(c), bool(a)) for c, a in keys]
         self.k = int(k)
         self.cap = D.topk_capacity(self.k)
+        self.parallel = parallel
         self.rows_seen = 0          # global row-id base for the next chunk
         self.chunks = 0
         self._state: Optional[torch.Tensor] = None  # (K+1, cap) device candidates
@@ -127,6 +163,7 @@ class TopKStream:
         n = B.num_rows(batch)
         if n == 0:
             return
+        t0 = time.perf_counter()
         from hyperspace_tpu_torch.plan.expr import get_column
 
         key_arrays = []
@@ -170,6 +207,7 @@ class TopKStream:
             pool_all = B.concat([self._pool, add_pool]) if self._pool else add_pool
             rid_all = np.concatenate([self._order, add_rid]) if self._order is not None else add_rid
             self._state = merged
+            _merges_total().inc()
             mrid = merged[-1].cpu().numpy()
             merged_rid = mrid[mrid < _SENT]
         elif self._state is None:
@@ -185,7 +223,9 @@ class TopKStream:
         self._pool = {c: np.asarray(v)[pos] for c, v in pool_all.items()}
 
         self.chunks += 1
+        _chunks_total().inc()
         self._update_threshold()
+        _merge_seconds_total().inc(time.perf_counter() - t0)
 
     def _upload(self, mat: np.ndarray) -> torch.Tensor:
         return D._host_tensor(mat).to(self.session.device)
@@ -193,8 +233,17 @@ class TopKStream:
     def _run_chunk(self, mat_rows: List[np.ndarray]) -> torch.Tensor:
         from hyperspace_tpu_torch.ops import sort as S
 
-        out = S.topk_chunk_fn(len(self.keys), self.cap)(self._upload(np.stack(mat_rows)))
-        D.count_dispatch("topk-chunk")
+        nk = len(self.keys)
+        px = self.parallel
+        planes = self._upload(np.stack(mat_rows))
+        if px is not None:
+            from hyperspace_tpu_torch.parallel import collectives as C
+
+            out = px.timed_call("topk", C.sharded_topk_chunk_program(px.mesh, px.axis, nk, self.cap), planes)
+            D.count_dispatch("sharded-topk")
+        else:
+            out = S.topk_chunk_fn(nk, self.cap)(planes)
+            D.count_dispatch("topk-chunk")
         return out
 
     def _run_fused(self, mat_rows: List[np.ndarray]):
@@ -206,15 +255,30 @@ class TopKStream:
         from hyperspace_tpu_torch.ops import sort as S
 
         nk = len(self.keys)
-        donate = stage_ir.donation_wanted(self.session.conf)
+        px = self.parallel
+        # the sharded fold never writes its state in place, as in the JAX
+        # package
+        donate = stage_ir.donation_wanted(self.session.conf) and px is None
         plan = stage_ir.StagePlan((stage_ir.TopKOp(nk, self.cap),))
-        program = stage_ir.compile_stage(
-            f"{plan.skeleton()}{'+d' if donate else ''}",
-            S.fused_topk_fn(nk, self.cap, donate),
-            donate_argnums=(0,) if donate else (),
-        )
-        merged, cand = program(self._state, self._upload(np.stack(mat_rows)))
-        stage_ir.count_dispatch("fused-stage-topk")
+        if px is not None:
+            from hyperspace_tpu_torch.parallel import collectives as C
+            from hyperspace_tpu_torch.parallel.mesh import mesh_fingerprint
+
+            family = "fused-stage-topk-sharded"
+            skeleton = f"{plan.skeleton()}@{mesh_fingerprint(px.mesh)}/shmap"
+            fn = C.sharded_fused_topk_program(px.mesh, px.axis, nk, self.cap)
+        else:
+            family = "fused-stage-topk"
+            skeleton = f"{plan.skeleton()}{'+d' if donate else ''}"
+            fn = S.fused_topk_fn(nk, self.cap, donate)
+        program = stage_ir.compile_stage(skeleton, fn, donate_argnums=(0,) if donate else ())
+        planes = self._upload(np.stack(mat_rows))
+        stage_ir.fold_peak_start(self.session.device)
+        if px is not None:
+            merged, cand = px.timed_call("topk", program, self._state, planes)
+        else:
+            merged, cand = program(self._state, planes)
+        stage_ir.count_dispatch(family)
         stage_ir.note_peak_bytes([merged])
         return merged, cand
 
@@ -239,6 +303,7 @@ class TopKStream:
         merged = S.topk_merge_fn(len(self.keys), self.cap)(a, b)
         D.count_dispatch("topk-merge")
         self._state = merged
+        _merges_total().inc()
         mrid = merged[-1].cpu().numpy()
         return mrid[mrid < _SENT], pool_all, rid_all
 
@@ -282,7 +347,9 @@ class TopKStream:
             return
         if isinstance(v, np.generic) and v.dtype.kind not in ("M", "m"):
             v = v.item()
-        self._threshold = v
+        if self._threshold is None or v != self._threshold:
+            self._threshold = v
+            _threshold_updates_total().inc()
 
     # -- result ---------------------------------------------------------------
 

@@ -19,8 +19,16 @@ one device pass per chunk: encode -> hash -> bucket -> sort
 Optional lineage materializes a ``_data_file_id`` column mapping each index
 row to its source file (ref: CoveringIndex.scala:227-279); the id is
 attached at decode time. A nested struct leaf (``a.b``) is stored as the flat
-column ``__hs_nested.a.b``. The multi-device build is not in the port yet and
-raises where the JAX package would build on a mesh.
+column ``__hs_nested.a.b``.
+
+Under ``hyperspace.parallel.enabled`` and ``hyperspace.parallel.build.enabled``,
+a session mesh of more than one shard and at least
+``hyperspace.tpu.build.distributedMinRows`` rows, each chunk takes the mesh
+build instead (``_mesh_stages``): the key planes shard over the mesh, each
+shard hashes its rows, one all-to-all routes every row to the shard that
+owns its bucket (ops/bucketize.py), each shard sorts its buckets, and an
+exchange that overflows its slots is redone at doubled capacity. The bucket
+files are those of the single-device build, byte for byte.
 
 Bucket id is encoded in the data file name: ``part-<bucket>-<tag>.parquet``.
 """
@@ -387,34 +395,29 @@ def _arrow_field_for(resolved_col, schema: pa.Schema) -> pa.Field:
     return pa.field(resolved_col.normalized_name, field.type)
 
 
-def _mesh_devices(device) -> int:
-    """Devices in the session's mesh: every local card on CUDA, one on the
-    CPU."""
-    import torch
-
-    return torch.cuda.device_count() if device.type == "cuda" else 1
-
-
-def _device_of(session, total_rows: int):
+def _device_of(session):
     """The build's device: the session's, else the default (CUDA, raising
-    when there is none). Where the JAX package builds on a mesh
-    (``parallel.enabled`` and ``parallel.build.enabled``, a mesh of more than
-    one device, and at least ``tpu.build.distributedMinRows`` rows), this
-    raises: the multi-device build is not in the port. One device is a
-    one-device mesh, and builds there."""
+    when there is none)."""
     from hyperspace_tpu_torch.session import resolve_device
 
+    return resolve_device(None) if session is None else session.device
+
+
+def _build_mesh(session, total_rows: int):
+    """The mesh a build of ``total_rows`` rows runs on, as the JAX package
+    decides it: under ``parallel.enabled`` and ``parallel.build.enabled``,
+    a session mesh of more than one shard and at least
+    ``tpu.build.distributedMinRows`` rows; else None (the single-device
+    build, which a one-device mesh is)."""
     if session is None:
-        return resolve_device(None)
+        return None
     conf = session.conf
-    if (
-        conf.parallel_enabled
-        and conf.parallel_build_enabled
-        and _mesh_devices(session.device) > 1
-        and total_rows >= conf.distributed_build_min_rows
-    ):
-        raise NotImplementedError("the multi-device (mesh) build is not yet in the port")
-    return session.device
+    if not (conf.parallel_enabled and conf.parallel_build_enabled):
+        return None
+    mesh = session.mesh
+    if mesh.size > 1 and total_rows >= conf.distributed_build_min_rows:
+        return mesh
+    return None
 
 
 def _chunk_stages(bucket_sort_columns: List[str], num_buckets: int, out_dir: str,
@@ -429,8 +432,11 @@ def _chunk_stages(bucket_sort_columns: List[str], num_buckets: int, out_dir: str
     from hyperspace_tpu_torch.ops import encode
     from hyperspace_tpu_torch.ops.sort import bucket_sort_build
 
-    device = _device_of(session, total_rows)
+    device = _device_of(session)
     seconds = session.build_stage_seconds if session is not None else collections.Counter()
+    mesh = _build_mesh(session, total_rows)
+    if mesh is not None:
+        return _mesh_stages(bucket_sort_columns, num_buckets, out_dir, column_order, session, mesh, seconds)
 
     def launch(chunk: pa.Table) -> dict:
         """Host encode + device pass. The device work is queued on the
@@ -451,30 +457,15 @@ def _chunk_stages(bucket_sort_columns: List[str], num_buckets: int, out_dir: str
         """Attach the lazily-decoded payload, fetch the permutation, and
         write the per-bucket sorted parquet files; host-heavy, overlapped
         with the NEXT chunk's device work."""
-        chunk = state["chunk"]
         t = time.perf_counter()
-        if chunk_payload_fn is not None:
-            payload = chunk_payload_fn()
-            if payload is not None:
-                for name in payload.column_names:
-                    chunk = chunk.append_column(payload.schema.field(name), payload.column(name))
-        if column_order:
-            chunk = chunk.select(column_order)
-        # single-chunk columns so per-bucket takes don't re-resolve offsets
-        chunk = chunk.combine_chunks()
+        chunk = _prepare_chunk(state["chunk"], chunk_payload_fn, column_order)
         t = _add_stage(seconds, "payload_decode", t)
         perm_np = state["perm"].cpu().numpy()
         boundaries = np.concatenate([[0], np.cumsum(state["counts"].cpu().numpy())])
         t = _add_stage(seconds, "device_wait_fetch", t)
 
         def _take_write(b: int, lo: int, hi: int) -> str:
-            path = os.path.join(out_dir, _bucket_file_name(b))
-            # uncompressed PLAIN is the index-file dialect: the JAX package's
-            # native decoder mmaps these and memcpys column chunks with zero
-            # decompression work
-            rows = chunk.take(pa.array(perm_np[lo:hi]))
-            pq.write_table(rows, path, use_dictionary=False, compression="NONE")
-            return path
+            return _write_bucket_file(chunk, out_dir, b, perm_np[lo:hi])
 
         from concurrent.futures import ThreadPoolExecutor
 
@@ -487,6 +478,113 @@ def _chunk_stages(bucket_sort_columns: List[str], num_buckets: int, out_dir: str
             out = [f.result() for f in futures]
         _add_stage(seconds, "take_write", t)
         return out
+
+    return launch, finish
+
+
+def _prepare_chunk(chunk: pa.Table, chunk_payload_fn, column_order) -> pa.Table:
+    """A chunk's key columns with its lazily decoded payload attached, in
+    the output column order, as single-chunk columns (so per-bucket takes
+    do not re-resolve chunk offsets)."""
+    if chunk_payload_fn is not None:
+        payload = chunk_payload_fn()
+        if payload is not None:
+            for name in payload.column_names:
+                chunk = chunk.append_column(payload.schema.field(name), payload.column(name))
+    if column_order:
+        chunk = chunk.select(column_order)
+    return chunk.combine_chunks()
+
+
+def _write_bucket_file(chunk: pa.Table, out_dir: str, b: int, rows) -> str:
+    path = os.path.join(out_dir, _bucket_file_name(b))
+    # uncompressed PLAIN is the index-file dialect: the JAX package's native
+    # decoder mmaps these and memcpys column chunks with zero decompression
+    # work
+    pq.write_table(chunk.take(pa.array(rows)), path, use_dictionary=False, compression="NONE")
+    return path
+
+
+def _mesh_stages(bucket_sort_columns: List[str], num_buckets: int, out_dir: str,
+                 column_order: Optional[List[str]], session, mesh, seconds: collections.Counter):
+    """The mesh build's two stages of one chunk (the JAX package's
+    ``_launch_mesh`` / ``_finish_mesh``): ``launch`` shards the encoded key
+    planes over the mesh (each padded to one row count per shard) and runs
+    the exchange program; ``finish`` redoes an exchange that overflowed at
+    doubled slot capacity, then writes each shard's buckets. Buckets live
+    wholly on their owner shard, sorted by (bucket, keys, row), so each
+    shard's valid prefix holds its buckets' rows in the single-device
+    build's order."""
+    import torch
+
+    from hyperspace_tpu_torch.exec.batch import table_to_batch
+    from hyperspace_tpu_torch.ops import encode
+    from hyperspace_tpu_torch.ops.bucketize import _next_pow2, distributed_bucket_sort_build
+    from hyperspace_tpu_torch.ops.sort import padded_size
+
+    n_dev = mesh.size
+    capacity_factor = session.conf.rebucket_capacity_factor
+
+    def shards_of(arr: np.ndarray, per_dev: int, fill=0) -> list:
+        padded = np.full(per_dev * n_dev, fill, dtype=arr.dtype)
+        padded[: arr.shape[0]] = arr
+        return [torch.from_numpy(padded[d * per_dev:(d + 1) * per_dev]).to(mesh.device_of(d))
+                for d in mesh.local_shards()]
+
+    def launch(chunk: pa.Table) -> dict:
+        t = time.perf_counter()
+        batch = table_to_batch(chunk.select(bucket_sort_columns))
+        keys, kinds, host_hashes = encode.encode_sort_columns([batch[c] for c in bucket_sort_columns])
+        t = _add_stage(seconds, "encode_keys", t)
+        cn = chunk.num_rows
+        per_dev = padded_size(-(-cn // n_dev))
+        dev_keys = [shards_of(k, per_dev) for k in keys]
+        dev_hashes = [shards_of(h.view(np.int32), per_dev) for h in host_hashes]
+        row_idx = shards_of(np.arange(per_dev * n_dev, dtype=np.int32), per_dev)
+        capacity = min(_next_pow2(int(per_dev / n_dev * capacity_factor)), _next_pow2(per_dev))
+        out = distributed_bucket_sort_build(mesh, dev_keys, dev_hashes, kinds, row_idx, cn, num_buckets, capacity)
+        _add_stage(seconds, "upload_launch", t)
+        return {"chunk": chunk, "out": out, "capacity": capacity, "per_dev": per_dev,
+                "retry": (dev_keys, dev_hashes, kinds, row_idx, cn)}
+
+    def finish(state: dict, chunk_payload_fn) -> List[str]:
+        t = time.perf_counter()
+        chunk = _prepare_chunk(state["chunk"], chunk_payload_fn, column_order)
+        t = _add_stage(seconds, "payload_decode", t)
+        out, capacity, per_dev = state["out"], state["capacity"], state["per_dev"]
+        while sum(int(v[3].sum()) for v in out.values()) > 0:
+            # skew overflowed a destination's slots: double the capacity
+            # and redo (a source shard holds per_dev rows, so a capacity of
+            # per_dev always fits and the loop ends)
+            if capacity >= per_dev:
+                raise RuntimeError(
+                    f"distributed build exchange overflow at full capacity (capacity={capacity}, per_dev={per_dev})"
+                )
+            capacity = min(_next_pow2(capacity * 2), _next_pow2(per_dev))
+            dev_keys, dev_hashes, kinds, row_idx, cn = state["retry"]
+            out = distributed_bucket_sort_build(mesh, dev_keys, dev_hashes, kinds, row_idx, cn, num_buckets,
+                                                capacity)
+        host = {g: tuple(v.cpu().numpy() for v in out[g][:3]) for g in out}
+        t = _add_stage(seconds, "device_wait_fetch", t)
+
+        from concurrent.futures import ThreadPoolExecutor
+
+        futures = []
+        with ThreadPoolExecutor(max_workers=8) as ex:
+            for d in sorted(host):
+                bkts, ridx, vld = host[d]
+                nv = int(vld.sum())  # valid rows sort to the shard's prefix
+                if nv == 0:
+                    continue
+                b_v, r_v = bkts[:nv], ridx[:nv]
+                bounds = np.searchsorted(b_v, np.arange(num_buckets + 1))
+                for b in range(d, num_buckets, n_dev):
+                    lo, hi = int(bounds[b]), int(bounds[b + 1])
+                    if hi > lo:
+                        futures.append(ex.submit(_write_bucket_file, chunk, out_dir, b, r_v[lo:hi]))
+            paths = [f.result() for f in futures]
+        _add_stage(seconds, "take_write", t)
+        return paths
 
     return launch, finish
 
@@ -594,7 +692,7 @@ def write_bucketed_groups(
     The build path streams source FILES through this (``CoveringIndex.write``);
     the reference inherits the same bounded-memory property from Spark's
     streaming executors (ref: CoveringIndex.scala:54-69). ``total_rows``
-    sizes the mesh decision (``_device_of``); without it the first chunk
+    sizes the mesh decision (``_build_mesh``); without it the first chunk
     does."""
     os.makedirs(out_dir, exist_ok=True)
 

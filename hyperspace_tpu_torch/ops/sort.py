@@ -49,6 +49,26 @@ def lex_argsort(keys: Sequence[torch.Tensor]) -> torch.Tensor:
     return perm
 
 
+def bucket_sort_perm(hash_inputs: Sequence[torch.Tensor], sort_keys: Sequence[torch.Tensor], num_buckets: int):
+    """Assign buckets and produce the permutation that clusters rows by
+    bucket and sorts by the indexed columns within each bucket, without the
+    per-bucket counts.
+
+    Args:
+      hash_inputs: per-column hash inputs of the bucket keys (uint32 values
+        in int32 or int64 tensors).
+      sort_keys: order-preserving keys of the sort columns.
+      num_buckets: bucket count.
+
+    Returns:
+      (perm, sorted_buckets): ``perm`` the int32 row permutation (ties by
+      row index); ``sorted_buckets`` the bucket id of each permuted row
+      (non-decreasing)."""
+    buckets = bucket_ids_torch(list(hash_inputs), num_buckets)
+    perm = lex_argsort([buckets, *sort_keys])
+    return perm.to(torch.int32), buckets[perm]
+
+
 def _device_hash32(kind: str, key: torch.Tensor) -> torch.Tensor:
     """Reconstruct the column's uint32 hash input (in an int64 tensor) from
     its order key — bit-exact vs the host ``hashing.numeric_hash32`` on the

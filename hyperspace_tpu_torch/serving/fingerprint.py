@@ -141,6 +141,17 @@ def _expr_attrs(e: Expr) -> str:
 # --- plans ------------------------------------------------------------------
 
 
+def _listing_token(rel) -> str:
+    """A source relation's file listing (path, size, mtime) as a token, so a
+    scan over a new listing binds a new template (ROADMAP C8). A listing
+    that cannot be read gives its error's name; the query raises when it
+    runs."""
+    try:
+        return rel.signature()
+    except OSError as e:
+        return type(e).__name__
+
+
 def _canon_plan(plan: L.LogicalPlan, st: _Canon, exact: bool = False) -> Tuple[str, Dict[str, str]]:
     """Canonical string + alias environment (output name -> canonical token)
     for ``plan``. Children canonicalize first (post-order), then the node's
@@ -148,7 +159,7 @@ def _canon_plan(plan: L.LogicalPlan, st: _Canon, exact: bool = False) -> Tuple[s
     if isinstance(plan, L.Scan):
         rel = plan.relation
         env = {c: c for c in plan.output_columns}
-        return f"Scan[{rel.name};{rel.file_format};{','.join(plan.output_columns)}]", env
+        return f"Scan[{rel.name};{rel.file_format};{','.join(plan.output_columns)};{_listing_token(rel)}]", env
 
     if isinstance(plan, L.IndexScan):
         env = {c: c for c in plan.output_columns}

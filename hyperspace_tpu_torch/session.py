@@ -42,6 +42,13 @@ def resolve_device(device=None) -> torch.device:
 
 class Session:
     def __init__(self, conf: Optional[Dict[str, Any]] = None, device=None):
+        # a multi-process world comes up before any device is touched, and
+        # only when the environment configures one (HS_NUM_PROCESSES and
+        # HS_PROCESS_ID), so Session() has no such side effect otherwise
+        from hyperspace_tpu_torch.parallel.distributed import configured_from_env, initialize_from_env
+
+        if configured_from_env():
+            initialize_from_env()
         self.device = resolve_device(device)
         self.conf = HyperspaceConf(conf)
         # the decode pool and the native decode keys are process-global:
@@ -78,6 +85,7 @@ class Session:
         self.hyperspace_enabled = False
         self._index_manager = None
         self._lifecycle_bus = None
+        self._mesh = None
         #: host wall seconds per covering-build stage, summed over every chunk
         #: this session built: key_decode, encode_keys, upload_launch,
         #: payload_decode, device_wait_fetch (waits for the device pass and
@@ -326,6 +334,32 @@ class Session:
             yield
         finally:
             self.stop_profile()
+
+    # --- device mesh ----------------------------------------------------------
+    @property
+    def mesh(self):
+        """The 1-D device mesh over every local device of the session's kind
+        (every card; ``parallel.mesh.SHARD_COUNT`` shards of the CPU),
+        created at first use; the axis name comes from
+        ``hyperspace.tpu.mesh.axis``."""
+        if self._mesh is None:
+            from hyperspace_tpu_torch.parallel.mesh import make_mesh
+
+            self._mesh = make_mesh(axis=self.conf.mesh_axis, device_type=self.device.type)
+            self._note_mesh(self._mesh)
+        return self._mesh
+
+    def set_mesh(self, mesh) -> "Session":
+        self._mesh = mesh
+        self._note_mesh(mesh)
+        return self
+
+    @staticmethod
+    def _note_mesh(mesh) -> None:
+        # decode buffers pad to the mesh's shard count (exec/io.py)
+        from hyperspace_tpu_torch.exec import io as _io
+
+        _io.set_staging_pad(mesh.size)
 
 
 _current: Optional[Session] = None

@@ -67,14 +67,17 @@ def write_atomic(path: PathLike, data: bytes) -> None:
 def walk_data_files(root: PathLike):
     """Yield data-file paths under ``root``, excluding hidden/meta entries
     (dot- or underscore-prefixed) at ANY depth — files and whole directories
-    alike. The one DataPathFilter used by source listing and index-content
-    scans (ref: HS/util/PathUtils.scala:33-39 DataPathFilter)."""
+    alike — and files still being written (``*.tmp``: an atomic writer's
+    file before its rename, which a reader that listed it would find gone;
+    ROADMAP C10, in the port only). The one DataPathFilter used by source
+    listing and index-content scans (ref: HS/util/PathUtils.scala:33-39
+    DataPathFilter)."""
     import os
 
     for dirpath, dirs, names in os.walk(str(root)):
         dirs[:] = [d for d in dirs if not d.startswith((".", "_"))]
         for n in sorted(names):
-            if not n.startswith((".", "_")):
+            if not n.startswith((".", "_")) and not n.endswith(".tmp"):
                 yield os.path.join(dirpath, n)
 
 

@@ -380,26 +380,33 @@ def test_answered_like_jax(system, lake, monkeypatch, case):
         assert "agg: streamed-partial x1" in lines, lines
 
 
-def test_not_ported_features_raise(system, lake, monkeypatch):
-    """The sharded aggregate is not in the port yet: asking for it raises,
-    but only where the JAX package would shard it (a chunk of at least
-    ``hyperspace.parallel.minRows`` rows); below that both packages
-    aggregate on one device, with the same result, trace and programs.
+def test_sharded_and_fused_aggregates(system, lake, monkeypatch):
+    """The sharded aggregate (a chunk of at least ``hyperspace.parallel.minRows``
+    rows, an 8-shard CPU mesh) runs ``sharded-grouped`` programs and gives
+    the port's single-device result and trace; the JAX package's sharded
+    grouped aggregate fails on this JAX (its ``shard_map`` takes no
+    ``check_rep``, ROADMAP §C), so below ``minRows``, where both packages
+    aggregate on one device, they give the same result, trace and programs.
     Whole-stage fusion (of a grouped scan aggregate, and of a grouped join
     aggregate with a side the JAX package broadcasts) is ported: both
     packages give the same result, trace and fallbacks, with one fused
     program each."""
+    from hyperspace_tpu_torch.parallel import mesh as PM
+
     sharded = {"hyperspace.parallel.enabled": "true"}
-    sess = ht.Session(conf=_conf(ht.keys, system, **MODES["device"], **sharded, **{"hyperspace.parallel.minRows": 0}),
-                      device="cpu").enable_hyperspace()
-    frames = {t: sess.read_parquet(p) for t, p in lake.items()}
-    with pytest.raises(NotImplementedError, match="sharded"):
-        QUERIES["by_int"](frames, ht.col).collect()
     _, ref, ref_lines, ref_falls, ref_ran = _run(hst, system, "by_int", "device", lake, monkeypatch, **sharded)
     plan, got, lines, falls, ran = _run(ht, system, "by_int", "device", lake, monkeypatch, **sharded)
     _assert_same_result(got, ref, plan)
     assert (lines, falls, ran) == (ref_lines, ref_falls, ref_ran)
     assert "agg: device-grouped-scan x1" in lines, lines
+    monkeypatch.setattr(PM, "SHARD_COUNT", 8)
+    before = D.dispatches["sharded-grouped"]
+    plan, shard_got, shard_lines, shard_falls, _ = _run(
+        ht, system, "by_int", "device", lake, monkeypatch, **sharded, **{"hyperspace.parallel.minRows": 0})
+    assert D.dispatches["sharded-grouped"] > before
+    _assert_same_result(shard_got, got, plan)
+    assert (shard_lines, shard_falls) == (lines, falls)
+    monkeypatch.setattr(PM, "SHARD_COUNT", 1)
     bcast = {**FUSION, "hyperspace.exec.join.broadcastMaxBytes": 64 << 20}
     join_by_date = lambda f, c: f["l"].join(f["o"], c("l_ok") == c("o_ok")).group_by("o_date").agg(  # noqa: E731
         n=("*", "count"), q=("l_q", "sum"), mn=("l_price", "min"))

@@ -12,11 +12,13 @@ faults, each held against the JAX package.
   resolves to the same string, and ``HyperspaceConf.unset`` drops a key.
 - Under ``hyperspace.parallel.enabled``, below ``hyperspace.parallel.minRows``
   rows, the filter, the aggregate and the build run on one device with the
-  JAX package's rows and trace; at ``minRows=0`` the sharded paths raise.
+  JAX package's rows and trace; at ``minRows=0`` they run sharded over an
+  8-shard CPU mesh (the build over a 4-shard one), with the same rows.
 - Every lifecycle action runs with hyperspace disabled: over a DataFrame that
   another index covers, it reads the source, not that index.
 """
 
+import math
 import os
 
 import numpy as np
@@ -32,6 +34,7 @@ import torch_mirror as M  # noqa: E402
 from hyperspace_tpu.exec import trace as ref_trace  # noqa: E402
 from hyperspace_tpu_torch.exec import trace  # noqa: E402
 from hyperspace_tpu_torch.indexes import covering  # noqa: E402
+from hyperspace_tpu_torch.parallel import mesh as PM  # noqa: E402
 
 pytestmark = pytest.mark.torch_port
 
@@ -166,7 +169,7 @@ AGG = lambda sess, pkg, lake: (  # noqa: E731
 
 
 @pytest.mark.parametrize("query", ["filter", "aggregate"])
-def test_parallel_below_min_rows_runs_single_device(lake, tmp_path, query):
+def test_parallel_below_min_rows_runs_single_device(lake, tmp_path, query, monkeypatch):
     fn = {"filter": FILTER, "aggregate": AGG}[query]
     system = str(tmp_path / "sys")
     _, sess = _sessions(system)
@@ -176,16 +179,32 @@ def test_parallel_below_min_rows_runs_single_device(lake, tmp_path, query):
     assert got[ht] == got[hst] == plain[ht]
     want = "filter: device x1" if query == "filter" else "agg: device-grouped-scan x1"
     assert want in got[ht][1], got[ht][1]
-    _, sess = _sessions(system, **PARALLEL, **{"hyperspace.parallel.minRows": 0})
+    # at minRows 0 the port shards it over its 8-shard CPU mesh, with the
+    # single-device rows (the JAX package's sharded filter gives them too;
+    # its sharded grouped aggregate fails on this JAX, ROADMAP §C)
+    monkeypatch.setattr(PM, "SHARD_COUNT", 8)
+    sharded = {**PARALLEL, "hyperspace.parallel.minRows": 0}
+    ref, sess = _sessions(system, **sharded)
     sess.enable_hyperspace()
-    with pytest.raises(NotImplementedError, match="sharded"):
-        fn(sess, ht, lake)
+    with trace.recording() as ev:
+        port = (_rows(fn(sess, ht, lake)), _lines(trace, ev))
+    # float sums add per shard first: rtol 1e-9, the rest exact
+    assert len(port[0]) == len(plain[ht][0])
+    for a, b in zip(port[0], plain[ht][0]):
+        assert all(x == y or (isinstance(x, float) and math.isclose(x, y, rel_tol=1e-9)) for x, y in zip(a, b)), (a, b)
+    want = "filter: device-sharded x1" if query == "filter" else "agg: device-grouped-scan x1"
+    assert want in port[1], port[1]
+    if query == "filter":
+        ref.enable_hyperspace()
+        with ref_trace.recording() as ev:
+            assert (_rows(fn(ref, hst, lake)), _lines(ref_trace, ev)) == port
 
 
 def test_parallel_build_below_mesh_is_single_device(lake, tmp_path, monkeypatch):
     """On one device (a one-device mesh) the build under parallel.enabled
-    writes the JAX package's bucket rows; with more devices it raises where
-    the JAX package would build on a mesh."""
+    writes the JAX package's bucket rows; on a mesh of four shards it runs
+    the exchange where the JAX package would build on a mesh, and writes the
+    same rows, and the plain build where the gates keep it off."""
     runs = {}
     for owner in ("jax", "torch"):
         sessions = _sessions(str(tmp_path / owner), **{"hyperspace.parallel.enabled": "true"})
@@ -198,17 +217,18 @@ def test_parallel_build_below_mesh_is_single_device(lake, tmp_path, monkeypatch)
             by_bucket.setdefault(covering.bucket_of_file(f), []).extend(pq.read_table(f).to_pylist())
         runs[owner] = {b: sorted(r, key=repr) for b, r in by_bucket.items()}
     assert runs["torch"] == runs["jax"]
-    monkeypatch.setattr(covering, "_mesh_devices", lambda device: 4)
-    for i, (conf, raises) in enumerate((({}, True), ({"hyperspace.parallel.build.enabled": "false"}, False),
-                                        ({"hyperspace.tpu.build.distributedMinRows": 10**6}, False))):
+    monkeypatch.setattr(PM, "SHARD_COUNT", 4)
+    for i, (conf, exchange) in enumerate((({}, True), ({"hyperspace.parallel.build.enabled": "false"}, False),
+                                          ({"hyperspace.tpu.build.distributedMinRows": 10**6}, False))):
         _, sess = _sessions(str(tmp_path / f"mesh{i}"), **{"hyperspace.parallel.enabled": "true"}, **conf)
-        build = lambda: ht.Hyperspace(sess).create_index(  # noqa: E731
-            sess.read_parquet(lake), ht.CoveringIndexConfig("b", ["k"], ["v"]))
-        if raises:
-            with pytest.raises(NotImplementedError, match="mesh"):
-                build()
-        else:
-            assert build().state == "ACTIVE"
+        PM.reset_collectives()
+        entry = ht.Hyperspace(sess).create_index(sess.read_parquet(lake), ht.CoveringIndexConfig("b", ["k"], ["v"]))
+        assert entry.state == "ACTIVE"
+        assert (PM.collective_calls[("all_to_all", "buckets")] > 0) == exchange, conf
+        by_bucket = {}
+        for f in entry.content.files:
+            by_bucket.setdefault(covering.bucket_of_file(f), []).extend(pq.read_table(f).to_pylist())
+        assert {b: sorted(r, key=repr) for b, r in by_bucket.items()} == runs["jax"], conf
 
 
 # --- lifecycle actions run with hyperspace disabled --------------------------

@@ -3,11 +3,9 @@
 The cases of tests/test_join_stream.py run with the package renamed to the
 port (tests/torch_mirror.py): their own assertions hold the port's answers
 to the pandas oracle, and every ``collect()`` is held to the JAX package's
-rows over the same lake, in the same order. The file's ``_counter`` of
-broadcast joins reads the port's ``hash-build`` dispatches (one per
-broadcast join; the port's metrics registry does not count
-``hs_join_broadcast_total`` yet, ROADMAP A9), and any other counter from
-the registry, as the JAX package's does. The shared build cache of
+rows over the same lake, in the same order. The file's ``_counter`` reads
+the port's metrics registry, ``hs_join_broadcast_total`` among them, as
+the JAX package's does. The shared build cache of
 ``serving/build_cache.py`` runs under the port's ``QueryServer``.
 
 Left out, each with its reason:
@@ -59,24 +57,6 @@ _cases = M.load_cases(
             "    import torch_mirror as M\n\n"
             "    sess = M.MirroredSession(base.pop(hst.keys.SYSTEM_PATH), conf=base)\n"
         ),
-        '''def _counter(name) -> float:
-    from hyperspace_tpu_torch.obs.metrics import REGISTRY
-
-    snap = REGISTRY.snapshot().get(name)
-    if not snap:
-        return 0.0
-    return sum(s["value"] for s in snap["series"])
-''': '''def _counter(name) -> float:
-    from hyperspace_tpu_torch.exec import device as D
-    from hyperspace_tpu_torch.obs.metrics import REGISTRY
-
-    if name == "hs_join_broadcast_total":
-        return float(D.dispatches["hash-build"])
-    snap = REGISTRY.snapshot().get(name)
-    if not snap:
-        return 0.0
-    return sum(s["value"] for s in snap["series"])
-''',
         # the port keeps the JAX package's exec/device.py join internals in
         # exec/join.py
         "        from hyperspace_tpu_torch.exec import device as D\n        from hyperspace_tpu_torch.obs.metrics import REGISTRY\n":

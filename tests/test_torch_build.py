@@ -229,34 +229,41 @@ def test_port_lists_jax_built_indexes(built):
     assert index_of_entry(entry).bucket_spec().num_buckets == NUM_BUCKETS
 
 
-def test_lineage_and_mesh_builds_raise(lake, tmp_path, monkeypatch):
-    """What the port does not have yet raises; it never quietly builds
-    something else. The mesh build raises only where the JAX package would
-    build on a mesh (``parallel.enabled`` and ``parallel.build.enabled``, a
-    mesh of more than one device, at least ``distributedMinRows`` rows); on
-    one device it builds the same bucket files as without
-    ``parallel.enabled``. The lineage build and the lifecycle actions are in
-    the port now: a lineage index carries ``_data_file_id``, and an action on
-    a missing index raises the JAX package's error, not
+def test_lineage_and_mesh_builds(lake, tmp_path, monkeypatch):
+    """The mesh build (``parallel.enabled`` and ``parallel.build.enabled``, a
+    mesh of more than one shard, at least ``distributedMinRows`` rows) runs
+    the exchange, and writes the bucket files of the build without
+    ``parallel.enabled``, run for run and row for row, as the JAX package's
+    8-device mesh build does; on one device (a one-device mesh) it is the
+    plain build. The lineage build and the lifecycle actions are in the
+    port: a lineage index carries ``_data_file_id``, and an action on a
+    missing index raises the JAX package's error, not
     ``NotImplementedError``, and a format no source provider reads raises the
     providers' error."""
     from hyperspace_tpu_torch.indexes import covering
+    from hyperspace_tpu_torch.parallel import mesh as PM
 
-    buckets = {}
-    for name, extra in (("plain", {}), ("mesh", {"hyperspace.parallel.enabled": "true"})):
-        sess = ht.Session(conf={**_conf(ht.keys, str(tmp_path / name)), **extra}, device="cpu")
-        entry = ht.Hyperspace(sess).create_index(sess.read_parquet(lake), ht.CoveringIndexConfig("i", ["k"], ["p"]))
-        assert entry.state == "ACTIVE"
+    def bucket_runs(entry):
         runs = {}
         for f in entry.content.files:
             runs.setdefault(covering.bucket_of_file(f), []).append(pq.read_table(f).to_pylist())
-        buckets[name] = {b: sorted(r, key=repr) for b, r in runs.items()}
-    assert buckets["mesh"] == buckets["plain"]
-    monkeypatch.setattr(covering, "_mesh_devices", lambda device: 2)
-    sess = ht.Session(conf={**_conf(ht.keys, str(tmp_path / "mesh2")), "hyperspace.parallel.enabled": "true"},
-                      device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        ht.Hyperspace(sess).create_index(sess.read_parquet(lake), ht.CoveringIndexConfig("i", ["k"], ["p"]))
+        return {b: sorted(r, key=repr) for b, r in runs.items()}
+
+    buckets = {}
+    mesh = {"hyperspace.parallel.enabled": "true"}
+    for name, shards, extra in (("plain", 1, {}), ("mesh1", 1, mesh), ("mesh8", 8, mesh)):
+        monkeypatch.setattr(PM, "SHARD_COUNT", shards)
+        sess = ht.Session(conf={**_conf(ht.keys, str(tmp_path / name)), **extra}, device="cpu")
+        PM.reset_collectives()
+        entry = ht.Hyperspace(sess).create_index(sess.read_parquet(lake), ht.CoveringIndexConfig("i", ["k"], ["p"]))
+        assert entry.state == "ACTIVE"
+        assert (PM.collective_calls[("all_to_all", "buckets")] > 0) == (shards > 1), name
+        buckets[name] = bucket_runs(entry)
+    ref = hst.Session(conf={**_conf(hst.keys, str(tmp_path / "jax_mesh8")), **mesh})
+    entry = hst.Hyperspace(ref).create_index(ref.read_parquet(lake), hst.CoveringIndexConfig("i", ["k"], ["p"]))
+    assert len(ref.mesh.devices.flat) == 8
+    buckets["jax_mesh8"] = bucket_runs(entry)
+    assert buckets["mesh8"] == buckets["mesh1"] == buckets["plain"] == buckets["jax_mesh8"]
     monkeypatch.undo()
     sess = ht.Session(conf={**_conf(ht.keys, str(tmp_path / "lineage")), "hyperspace.index.lineage.enabled": "true"},
                       device="cpu")

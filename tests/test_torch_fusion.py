@@ -20,9 +20,15 @@ averages and standard deviations at rtol 1e-9 against the JAX package
 (its segment sums add in another order), byte-identical within the port
 (fusion on against off, donation on against off).
 
+``TestShardedFused`` runs on the port's 8-shard CPU mesh: the sharded fused
+fold against the sharded per-family run (byte for byte) and the port's
+unsharded fused run (rtol 1e-9 for float sums; the top-k byte for byte).
+Both cases fail in the JAX package itself (its ``shard_map`` takes no
+``check_rep`` on this JAX, ROADMAP §C), whose streams then fall back to
+its host paths: the mirror still holds the port's rows to those.
+
 Left out of tests/test_fusion.py:
 
-- ``TestShardedFused`` (both cases): A10, and they fail in the reference;
 - ``TestHloContracts``: the port has no ``check/hlo_lint.py`` (ROADMAP);
 - ``TestDonation::test_donated_state_buffer_is_deleted``: torch has no
   donation; ``test_donated_state_keeps_its_storage`` here holds the
@@ -58,7 +64,6 @@ REWRITES = {
         "        from hyperspace_tpu_torch.exec import aggregate as D\n"),
 }
 LEFT_OUT = {
-    "TestShardedFused": "A10 (the sharded fused programs); both cases fail in the reference",
     "TestHloContracts": "no check/hlo_lint.py in the port (ROADMAP A11)",
     "TestDonation::test_donated_state_buffer_is_deleted": (
         "torch has no donation: test_donated_state_keeps_its_storage holds the in-place state"),
@@ -69,7 +74,11 @@ M.export_cases(_suite, globals(), LEFT_OUT)
 
 
 @pytest.fixture(autouse=True)
-def _mirrored():
+def _mirrored(monkeypatch):
+    from hyperspace_tpu_torch.parallel import mesh as PM
+
+    # the JAX package's tests run over 8 virtual CPU devices (conftest.py)
+    monkeypatch.setattr(PM, "SHARD_COUNT", 8)
     with M.mirroring():
         yield
     ht.set_session(None)

@@ -181,6 +181,30 @@ def test_serving_runtime_imports_without_jax_or_cuda():
     assert r.returncode == 0 and r.stdout.strip().endswith("ok"), r.stderr
 
 
+def test_sharded_path_imports_without_jax_or_cuda():
+    """The sharded path (``parallel/``, ``ops/bucketize.py``) loads neither
+    JAX nor the JAX package, starts no CUDA context and no process group,
+    and a CPU session's mesh needs no card."""
+    code = (
+        "import sys\n"
+        "import hyperspace_tpu_torch as ht\n"
+        "import hyperspace_tpu_torch.parallel, hyperspace_tpu_torch.parallel.executor\n"
+        "import hyperspace_tpu_torch.parallel.collectives, hyperspace_tpu_torch.parallel.distributed\n"
+        "import hyperspace_tpu_torch.ops.bucketize\n"
+        "import torch, torch.distributed as dist\n"
+        "mesh = ht.Session(device='cpu').mesh\n"
+        "assert mesh.size == 1 and str(mesh.device_of(0)) == 'cpu', mesh\n"
+        "assert not torch.cuda.is_initialized(), 'import initialized CUDA'\n"
+        "assert not dist.is_initialized(), 'a process group started'\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'hyperspace_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if not k.startswith("HS_")}
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120, env=env)
+    assert r.returncode == 0 and r.stdout.strip().endswith("ok"), r.stderr
+
+
 def test_session_defaults_to_cuda_and_refuses_without_it(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -213,3 +213,93 @@ def test_telemetry_endpoint_serves_what_the_jax_package_serves(path):
     assert got == want
     if path == "/metrics":
         assert got[2].decode("utf-8") == port_reg.prometheus_text() == ref_reg.prometheus_text()
+
+
+# --------------------------------------------------------------------------
+# the same metric families on the same queries
+# --------------------------------------------------------------------------
+
+_FAMILY_RUN = r'''
+import json, os, sys
+sys.path.insert(0, sys.argv[1])
+PKG = sys.argv[2]
+root = sys.argv[3]
+import numpy as np
+import pyarrow as pa
+import pyarrow.parquet as pq
+if PKG == "hyperspace_tpu":
+    import hyperspace_tpu as hs
+    make = lambda conf: hs.Session(conf=conf)
+else:
+    import hyperspace_tpu_torch as hs
+    from hyperspace_tpu_torch.parallel import mesh as _pm
+    _pm.SHARD_COUNT = 8
+    make = lambda conf: hs.Session(conf=conf, device="cpu")
+from importlib import import_module
+REGISTRY = import_module(PKG + ".obs.metrics").REGISTRY
+
+rng = np.random.default_rng(5)
+for part in range(4):
+    n = 3000
+    pq.write_table(pa.table({"k": rng.integers(0, 200, n), "g": rng.integers(0, 9, n),
+                             "v": rng.standard_normal(n)}), os.path.join(root, "fact", f"p{part}.parquet"))
+pq.write_table(pa.table({"dk": np.arange(200), "label": [f"l{i % 7}" for i in range(200)]}),
+               os.path.join(root, "dim", "d.parquet"))
+# native decode off in both: a fresh checkout's JAX package builds its
+# library in place at first use, racing other test processes
+base = {hs.keys.SYSTEM_PATH: os.path.join(root, "sys_" + PKG), hs.keys.TPU_QUERY_DEVICE_MIN_ROWS: 0,
+        hs.keys.NUM_BUCKETS: 8, "hyperspace.exec.io.native.enabled": False}
+sess = make({**base, hs.keys.PARALLEL_ENABLED: True, hs.keys.PARALLEL_MIN_ROWS: 0})
+fact = sess.read_parquet(os.path.join(root, "fact"))
+hs.Hyperspace(sess).create_index(fact, hs.CoveringIndexConfig("by_k", ["k"], ["g", "v"]))
+sess.enable_hyperspace()
+fact.filter(hs.col("k") == 7).select("v").collect()  # the sharded filter
+sess = make(base)
+sess.enable_hyperspace()
+fact = sess.read_parquet(os.path.join(root, "fact"))
+fact.filter(hs.col("k") < 50).group_by("g").agg(n=("*", "count"), s=("v", "sum")).collect()
+stream = {hs.keys.EXEC_STREAM_AGG_MIN_BYTES: 1, hs.keys.EXEC_STREAM_CHUNK_BYTES: 1}
+sess = make({**base, **stream, hs.keys.EXEC_FUSION_ENABLED: True})
+fact = sess.read_parquet(os.path.join(root, "fact"))
+fact.group_by("g").agg(n=("*", "count"), s=("v", "sum")).collect()
+fact.order_by("v", ascending=[False]).limit(10).collect()
+sess = make({**base, **stream})
+fact = sess.read_parquet(os.path.join(root, "fact"))
+fact.order_by("v", "k", ascending=[False, True]).limit(10).collect()
+dim = sess.read_parquet(os.path.join(root, "dim"))
+list(fact.join(dim, hs.col("k") == hs.col("dk")).select("v", "label").to_local_iterator())
+print(json.dumps(sorted(n for n in REGISTRY.snapshot() if n.startswith("hs_"))))
+'''
+
+
+def test_same_metric_families_as_the_jax_package(tmp_path):
+    """The same queries (a mesh build and a sharded filter, a device grouped
+    aggregate, a fused streamed aggregate and top-k, a streamed top-k, a
+    streamed broadcast join), each package in a fresh process on the CPU
+    with native decode off (the JAX package would build its library in
+    place): both registries then hold the same ``hs_*`` families, but for
+    the JAX package's two XLA compile families, which the port never has."""
+    import json
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(HERE)
+    held = {}
+    for pkg in ("hyperspace_tpu", "hyperspace_tpu_torch"):
+        root = tmp_path / pkg
+        (root / "fact").mkdir(parents=True)
+        (root / "dim").mkdir()
+        env = dict(os.environ, JAX_PLATFORMS="cpu", XLA_FLAGS="--xla_force_host_platform_device_count=8",
+                   OMP_NUM_THREADS="2")
+        out = subprocess.run([sys.executable, "-c", _FAMILY_RUN, repo, pkg, str(root)], env=env,
+                             capture_output=True, text=True, timeout=240)
+        assert out.returncode == 0, out.stderr[-3000:]
+        held[pkg] = set(json.loads(out.stdout.strip().splitlines()[-1]))
+    compile_families = {"hs_xla_compiles_total", "hs_device_compile_seconds_total"}
+    assert compile_families <= held["hyperspace_tpu"]
+    assert held["hyperspace_tpu_torch"] == held["hyperspace_tpu"] - compile_families
+    for family in ("hs_agg_groups_total", "hs_join_broadcast_total", "hs_join_stream_chunks_total",
+                   "hs_pipeline_chunks_total", "hs_pipeline_wait_seconds_total", "hs_topk_chunks_total",
+                   "hs_topk_merges_total", "hs_topk_merge_seconds_total", "hs_topk_threshold_updates_total",
+                   "hs_device_peak_bytes", "hs_mesh_devices", "hs_mesh_sharded_ops_total"):
+        assert family in held["hyperspace_tpu_torch"], family

@@ -9,7 +9,8 @@ disabled, federated profile and SLO merging, per-node staleness gauges,
 build identity in every exposition, and the device-program timing hooks.
 
 Rewritten for the port: ``TestDeviceProgramTiming::test_observe_program_metrics_and_span_event``
-holds the port's ``_observe_program(family, t0)`` (two calls: two
+holds the port's ``_observe_program(family, clock)`` over a
+``program_clock(None)`` (wall time, as on the CPU; two calls: two
 observations in ``hs_device_program_seconds`` and two ``device-program``
 span events) and loses its compile half: the port's eager programs compile
 nothing, so it has no ``_note_compile``, no
@@ -34,11 +35,13 @@ SOURCES = {
         **M.CPU_PORT_IMPORT,
         # the port's timing hook: no compile to note or to count
         "        from hyperspace_tpu_torch.exec.device import _note_compile, _observe_program\n": (
-            "        from hyperspace_tpu_torch.exec.device import _observe_program\n"),
+            "        from hyperspace_tpu_torch.exec.device import _observe_program, program_clock\n"),
         "        assert _note_compile(family, sig) is True  # first sight compiles\n"
         "        assert _note_compile(family, sig) is False\n": "",
+        "            t0 = time.perf_counter()\n"
         "            _observe_program(family, True, t0)\n"
         "            _observe_program(family, False, t0)\n": (
+            "            t0 = program_clock(None)\n"
             "            _observe_program(family, t0)\n"
             "            _observe_program(family, t0)\n"),
         "        total = REGISTRY.counter(\"hs_device_compile_seconds_total\", program=family)\n"

@@ -238,11 +238,12 @@ def test_toggle_and_count(systems, lake):
     assert df.explain() == df.plan.pretty() and df.columns == ["k"]
 
 
-def test_not_ported_features_raise(systems, lake, tmp_path):
-    """The sharded filter is not in the port yet: where the JAX package
-    would shard it (``hyperspace.parallel.enabled`` and a chunk of at least
-    ``parallel.minRows`` rows) the port raises instead of quietly running
-    something else; below ``minRows`` both packages filter on one device,
+def test_sharded_filter_and_later_features(systems, lake, tmp_path, monkeypatch):
+    """The sharded filter: where the JAX package shards it
+    (``hyperspace.parallel.enabled`` and a chunk of at least
+    ``parallel.minRows`` rows) the port evaluates the predicate per shard of
+    its 8-shard CPU mesh, with the JAX package's rows and trace (``filter:
+    device-sharded``); below ``minRows`` both packages filter on one device,
     with the same rows and trace. Hybrid scan is in the port: over an
     unchanged lake it serves the index as the plain rewrite does. So is
     ``col.isin(df)`` (an IN-subquery, which raised before the SQL slice),
@@ -264,11 +265,19 @@ def test_not_ported_features_raise(systems, lake, tmp_path):
         traces[pkg] = [ln for ln in tr.summarize(ev).splitlines() if ln.startswith(("filter:", "scan:"))]
     assert _multiset(got[ht]) == _multiset(got[hst]) == _multiset(off)
     assert traces[ht] == traces[hst] and "filter: device x1" in traces[ht]
-    sess = ht.Session(conf=_conf(ht.keys, systems["torch"], **parallel, **{"hyperspace.parallel.minRows": 0}),
-                      device="cpu")
-    sess.enable_hyperspace()
-    with pytest.raises(NotImplementedError, match="sharded"):
-        sess.read_parquet(lake).filter(ht.col("k") == 7).collect()
+    from hyperspace_tpu_torch.parallel import mesh as PM
+
+    monkeypatch.setattr(PM, "SHARD_COUNT", 8)
+    sharded = {**parallel, "hyperspace.parallel.minRows": 0}
+    for pkg, tr in ((hst, ref_trace), (ht, trace)):
+        kwargs = {} if pkg is hst else {"device": "cpu"}
+        s = pkg.Session(conf=_conf(pkg.keys, systems["torch"], **sharded), **kwargs).enable_hyperspace()
+        with tr.recording() as ev:
+            got[pkg] = s.read_parquet(lake).filter(pkg.col("k") == 7).collect()
+        traces[pkg] = [ln for ln in tr.summarize(ev).splitlines() if ln.startswith(("filter:", "scan:"))]
+    assert _multiset(got[ht]) == _multiset(got[hst]) == _multiset(off)
+    assert traces[ht] == traces[hst] and "filter: device-sharded x1" in traces[ht]
+    monkeypatch.undo()
     rows = {}
     for pkg in (hst, ht):
         kwargs = {} if pkg is hst else {"device": "cpu"}

@@ -12,7 +12,8 @@ mirrored into the JAX package: a served request never calls ``collect()``.
 test_plan_fingerprint.py in tests/test_torch_obs.py: their ``simple``
 fixtures differ from test_serving.py's.)
 The cases at the end hold the port against the JAX package on one lake:
-the same fingerprints, the same served rows, the same data-version brands.
+the same fingerprints (but for the listing token the port folds into a
+scan's, ROADMAP C8), the same served rows, the same data-version brands.
 
 Left out, each with its reason (``LEFT_OUT``):
 
@@ -115,15 +116,28 @@ TEXTS = [
 
 
 def test_fingerprints_equal_the_jax_package(tmp_path):
-    """The same text plans to the same fingerprint structure, exact hash,
-    parameter tokens, literals and output columns in both packages."""
+    """The same text plans to the same canonical form, parameter tokens,
+    literals and output columns in both packages, but for the file listing
+    the port folds into each ``Scan``'s token (ROADMAP C8, repaired in the
+    port only): without it the canonical forms are equal, so the structure
+    and exact hashes differ by the listing alone."""
     port, ref, _ = _pair(tmp_path)
+    from hyperspace_tpu.serving.fingerprint import canonical_form as ref_canon
     from hyperspace_tpu.serving.fingerprint import plan_fingerprint as ref_fp
+    from hyperspace_tpu_torch.plan import logical as PL
+    from hyperspace_tpu_torch.serving.fingerprint import canonical_form as port_canon
     from hyperspace_tpu_torch.serving.fingerprint import plan_fingerprint as port_fp
 
     for text in TEXTS:
-        a, b = port_fp(port.sql(text).plan), ref_fp(ref.sql(text).plan)
-        assert (a.structure, a.exact, a.has_subquery) == (b.structure, b.exact, b.has_subquery), text
+        plan = port.sql(text).plan
+        a, b = port_fp(plan), ref_fp(ref.sql(text).plan)
+        canon = port_canon(plan)
+        sigs = {s.relation.signature() for s in PL.collect(plan, lambda p: isinstance(p, PL.Scan))}
+        assert sigs and all(f";{sig}]" in canon for sig in sigs), text
+        for sig in sigs:
+            canon = canon.replace(f";{sig}]", "]")
+        assert canon == ref_canon(ref.sql(text).plan), text
+        assert a.structure != b.structure and a.has_subquery == b.has_subquery, text
         assert a.slot_sigs == b.slot_sigs and list(a.literals) == list(b.literals), text
         assert list(a.output_columns) == list(b.output_columns), text
 
@@ -174,12 +188,31 @@ def test_version_brands_equal_the_jax_package_across_a_refresh(tmp_path):
     M.same_rows(port.sql(text).collect(), ref.sql(text).collect(), text)
 
 
-def test_plan_cache_binds_a_template_over_the_old_listing_in_both_packages(tmp_path):
-    """ROADMAP C8, kept for parity: the plan cache keys a scan by its root
-    path, not its files. A DataFrame read after a file lands gets the
-    template compiled over the old listing from one server, so both
-    packages serve the old listing's rows, the same ones, while the same
-    DataFrame's ``collect()`` holds the new file's rows in both."""
+def test_listing_skips_a_file_still_being_written(tmp_path):
+    """ROADMAP C10, repaired in the port: an atomic writer's ``*.tmp`` file,
+    not yet renamed, is not a data file of the port's listing (the JAX
+    package lists it, and a reader that listed it finds it gone once it is
+    renamed). A served request over a listing taken mid-write therefore
+    reads the committed files, as ``collect()`` does."""
+    port, ref, data = _pair(tmp_path)
+    inflight = os.path.join(data, "part-00009.parquet.tmp")
+    pq.write_table(pa.table({"k": np.full(3, 7, dtype=np.int64), "v": [1.5, 2.5, 3.5], "g": ["g9"] * 3}), inflight)
+    assert inflight not in [fi.name for fi in port.read_parquet(data).plan.relation.all_file_infos()]
+    assert inflight in [fi.name for fi in ref.read_parquet(data).plan.relation.all_file_infos()]
+    frame = port.read_parquet(data).filter(ht.col("k") == 7).select("v", "g")
+    with ht.QueryServer(port, workers=2) as ps:
+        served = ps.query(frame, timeout=60)
+    os.remove(inflight)
+    M.same_rows(served, port.read_parquet(data).filter(ht.col("k") == 7).select("v", "g").collect(), "mid-write")
+
+
+def test_plan_cache_serves_the_new_listing_in_the_port_and_the_old_in_the_jax_package(tmp_path):
+    """ROADMAP C8, repaired in the port: its plan cache keys a scan by its
+    file listing (path, size, mtime), so a DataFrame read after a file lands
+    binds a new template and the server returns the new file's rows, those
+    of the same DataFrame's ``collect()``. The JAX package keys a scan by
+    its root path and still serves the old listing's rows from the template
+    compiled over it."""
     port, ref, data = _pair(tmp_path)
 
     def frame(sess):
@@ -193,10 +226,10 @@ def test_plan_cache_binds_a_template_over_the_old_listing_in_both_packages(tmp_p
                        os.path.join(data, "part-00009.parquet"))
         new = {s: frame(s) for s in (port, ref)}
         served = {port: ps.query(new[port], timeout=60), ref: rs.query(new[ref], timeout=60)}
-        assert ps.stats()["planCache"]["hits"] >= 1 and rs.stats()["planCache"]["hits"] >= 1
+        assert ps.stats()["planCache"]["hits"] == 0 and rs.stats()["planCache"]["hits"] >= 1
     M.same_rows(first[port], first[ref], "the old listing")
-    M.same_rows(served[port], served[ref], "served over the new listing")
-    M.same_rows(served[port], first[port], "served over the new listing: the old listing's rows")
     fresh = {s: new[s].collect() for s in (port, ref)}
     M.same_rows(fresh[port], fresh[ref], "collect() over the new listing")
     assert len(fresh[port]["v"]) == len(first[port]["v"]) + 3
+    M.same_rows(served[port], fresh[port], "the port serves the new listing's rows")
+    M.same_rows(served[ref], first[ref], "the JAX package serves the old listing's rows")

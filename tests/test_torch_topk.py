@@ -435,11 +435,15 @@ def test_midstream_refusal_takes_the_host_candidates(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("key", ["parallel", "fusion"])
-def test_sharded_and_fused_folds_raise(tmp_path, key):
-    """Where the JAX package would take its sharded select, the port
-    raises: it is not in the port. Its fused fold is ported: the port's
-    rows equal the JAX package's fused run and the port's fusion-off run,
-    with as many ``fused-stage-topk`` dispatches as the JAX package's.
+def test_sharded_and_fused_folds(tmp_path, key, monkeypatch):
+    """The sharded select (``parallel``, an 8-shard CPU mesh): the port's
+    rows equal the JAX package's and the port's single-device run, through
+    ``sharded-topk`` programs. The JAX package's own sharded select fails
+    on this JAX (its ``shard_map`` takes no ``check_rep``, ROADMAP §C) and
+    falls back to its host sort, so only the rows are compared with it. The
+    fused fold: the port's rows equal the JAX package's fused run and the
+    port's fusion-off run, with as many ``fused-stage-topk`` dispatches as
+    the JAX package's.
 
     Both packages run the fused case with the scan pipeline off. With it
     on, the chunks that reach the fold depend on whether a prefetched
@@ -450,9 +454,17 @@ def test_sharded_and_fused_folds_raise(tmp_path, key):
     the threshold of every chunk before it, in both packages alike."""
     data = _write_files(str(tmp_path / "data"))
     if key == "parallel":
-        port, _ = sessions(tmp_path, **{"hyperspace.parallel.enabled": True})
-        with pytest.raises(NotImplementedError, match="not yet in the port"):
-            port.read_parquet(data).order_by("k").limit(5).collect()
+        from hyperspace_tpu_torch.parallel import mesh as PM
+
+        monkeypatch.setattr(PM, "SHARD_COUNT", 8)
+        build = lambda s, df: df.order_by("v", "k", ascending=[False, True]).limit(30)  # noqa: E731
+        before = D.dispatches["sharded-topk"]
+        got, pev, want, rev, port = run_both(tmp_path, data, build, **{"hyperspace.parallel.enabled": True})
+        assert D.dispatches["sharded-topk"] > before
+        assert topk_events(pev) == ["device-topk-stream-sharded"], topk_events(pev)
+        assert_identical(got, want)
+        port.conf.set("hyperspace.parallel.enabled", False)
+        assert_identical(got, build(port, port.read_parquet(data)).collect())
         return
     from hyperspace_tpu.obs.metrics import REGISTRY
 

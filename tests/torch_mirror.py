@@ -407,7 +407,8 @@ class PortRegistry:
       (the port's eager programs compile nothing else);
     - the ``hs_device_peak_bytes`` gauge: ``exec/stage_ir.peak_bytes()``.
 
-    Any other name raises, so a case that reads one is left out by name."""
+    Any other counter is the port's registry's own; any other gauge raises,
+    so a case that reads one is left out by name."""
 
     def _dispatches(self):
         from hyperspace_tpu_torch.exec import device
@@ -424,7 +425,9 @@ class PortRegistry:
         if name == "hs_xla_compiles_total":
             assert not labels, labels
             return _Series(lambda: float(stage_ir.stage_compiles))
-        raise KeyError(f"the port does not count {name!r} (A9)")
+        from hyperspace_tpu_torch.obs.metrics import REGISTRY
+
+        return REGISTRY.counter(name, help, **labels)
 
     def gauge(self, name: str, help: str = "", **labels):
         from hyperspace_tpu_torch.exec import stage_ir
@@ -495,3 +498,27 @@ def child_scripts(path: str) -> dict:
                 and "import hyperspace_tpu" in node.value.value):
             out[node.targets[0].id] = port_child_script(node.value.value)
     return out
+
+
+class _PortJax:
+    """The few ``jax`` names a JAX mesh suite calls, over the port's mesh
+    (``port_jax_shim``): ``devices()`` lists the CPU mesh's shards and
+    ``device_put(array, placement)`` places a host array with a
+    ``parallel.mesh`` placement."""
+
+    @staticmethod
+    def devices():
+        from hyperspace_tpu_torch.parallel import mesh
+
+        return mesh.make_mesh(device_type="cpu").devices.tolist()
+
+    @staticmethod
+    def device_put(array, placement):
+        return placement.put(array)
+
+
+def port_jax_shim() -> _PortJax:
+    """A suite's ``jax`` module, for suites whose arrays go through
+    ``device_put`` and come back through ``np.asarray`` (the port's
+    ``ShardedTensor`` reads as numpy, so ``jnp`` can be numpy)."""
+    return _PortJax()
