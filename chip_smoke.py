@@ -220,8 +220,9 @@ the JAX package does):
    buckets and 2M batch rows, with the kernel launch counts reset just
    before and read just after, and prints each covering build's host time
    by stage;
-9. check: every bucket file (rows hash to their bucket, sorted by the key,
-   same rows as the source) and every sketch row (numpy per-file min/max);
+9. index-check: every bucket file (rows hash to their bucket, sorted by
+   the key, same rows as the source) and every sketch row (numpy per-file
+   min/max);
 10. query: on the session that built them, with ``deviceMinRows=0``, TPC-H
    q6's filter through ``li_shipdate`` and a point lookup on
    ``l_orderkey`` through ``li_orderkey`` (``useBucketSpec``: one bucket),
@@ -321,16 +322,16 @@ the JAX package does):
    launches, each query cold, warm and off;
 12g. sql: all 8 TPC-H tables at SF1 from ``benchmarks/tpch_full.py``'s
    ``gen_all`` (``--seed``), the suite's roster at 200 buckets (each
-   build's seconds and K1 launches); q1 (unindexed) and five of the nine
-   queries that rewrite in benchmarks/RESULTS.md's 22-query table (q3,
-   q5, q6, q12, q19; ``SQL_TIMED``): the time of ``Session.sql()`` plus
+   build's seconds and K1 launches); three of the nine queries that
+   rewrite in benchmarks/RESULTS.md's 22-query table (q3, q6, q19;
+   ``SQL_TIMED``): the time of ``Session.sql()`` plus
    ``optimized_plan()``, the plan and the trace, the rows against
    hyperspace off (a multiset), cold, warm (the median of ``--reps``/4)
    and off, each split by its layers; then ``li_q1`` (K1) and q6 and q1
    through SQL beside A2 and A1 (the DataFrame API) on the same lake,
    warm, with the aggregate tier each takes (SQL's ``Aggregate ->
    Compute`` takes the host aggregate, as in the JAX package); then the
-   other sixteen once on and once off, rows equal, over a lake and roster
+   other nineteen once on and once off, rows equal, over a lake and roster
    of their own at SF 0.1 (cut from SF1 to keep the script inside its
    time limit). Every query prints its ``join: broadcast-hash-stream``
    count; each timed one also runs off with ``broadcastMaxBytes=0`` (the
@@ -392,6 +393,29 @@ the JAX package does):
    plain version), the 4-shard mesh through the exchange (its overflow
    rows, the exchange alone beside its bound), every bucket file equal to
    the main build's byte for byte;
+12o. check: static analysis and program contracts. The port's lint
+   (``python -m hyperspace_tpu_torch.check``'s ``main([])``) must find
+   nothing. Then ``hyperspace.check.hlo.enabled`` on the card over the SF1
+   lake and indexes above, under ``torch.cuda.set_sync_debug_mode("warn")``
+   with the scan pipeline off: q6 (``fused-filter``), a string filter over
+   the dictionary-encoded source (``dict-expand``), A1 and A1 streamed
+   (``grouped-agg-chunk``, ``grouped-merge``), A2 (``fused-agg``), J1
+   (``bucketed-smj-span``), J3 streamed (``hash-build``, ``hash-probe``,
+   ``fused-postjoin``), T1 (``topk-chunk``, ``topk-merge``), FA1d, FT1 and
+   FJ3 (``fused-stage-agg``, ``-topk``, ``-join-agg``) and the
+   ``lineage-antijoin`` program on a million rows; on a 4-shard mesh over
+   cuda:0, q6, A1 (``sharded-grouped``), T1 (``sharded-topk``), FA1d and
+   FT1 (the sharded fused folds), a re-bucketing of a million rows
+   (``index-rebucket``) and ``li_shipdate`` built through the exchange
+   (``index-build-exchange``): 21 of the 22 families (the hierarchical
+   exchange needs a 2-D mesh of processes), each verified at least once;
+   then every query with the check off, its rows equal. The same run in a
+   CPU session over a 60 000-row lake (and its 4 x cpu mesh), each
+   family's verified count and findings beside the card's, and the
+   synchronisations CUDA reported in each window (with the Python line
+   that caused each) beside the window's recorded ``host-callback`` ops.
+   Last, warm q6 and A1 with the check on (each program already verified)
+   against off;
 13. profile-query: one warm q6 under ``torch.profiler``: device busy time
    against the query's wall time, and the device time by op;
 14. profile-join: the same for one warm J1;
@@ -462,8 +486,8 @@ with ``bcast-small`` under ``"bcast_small"`` and explain under
 with api-small and explain-small), fusion's (``"fusion"``, with
 fusion-small), native decode's (``"native"``, with native-small),
 serving's (``"serving"``, with serving-small), the fabric's
-(``"fabric"``, with fabric-small) and the sharded path's (``"mesh"``, with
-mesh-small) results and times, the line before the last one with an entry per kernel (its launches
+(``"fabric"``, with fabric-small), the sharded path's (``"mesh"``, with
+mesh-small) and the check phase's (``"check"``) results and times, the line before the last one with an entry per kernel (its launches
 on the build's main path, and per path under ``launches_by_path``); the
 last line
 is ``{"ok": true, "device": {...}}``. Any failed check raises, so
@@ -4064,12 +4088,13 @@ TPCH_INDEXES = [
     ("partsupp", "ps_pk", ["ps_partkey"],
      ["ps_suppkey", "ps_availqty", "ps_supplycost"]),
 ]
-#: the queries timed at SF1: q1 (the unindexed scan), q6, q3, q5 (three
-#: broadcasts), q12 and q19 (the native phase's), of those that rewrite onto
-#: the roster in benchmarks/RESULTS.md's 22-query table; the other four
-#: (q10, q14, q17, q18) run with the other twelve at ``SQL_OTHER_SF``, to
-#: keep the script inside its time limit
-SQL_TIMED = ("q1", "q3", "q5", "q6", "q12", "q19")
+#: the queries timed at SF1: q6, q3 (a bucketed join and broadcasts off)
+#: and q19 (the native phase's), of those that rewrite onto the roster in
+#: benchmarks/RESULTS.md's 22-query table; q1 (the unindexed scan), q5,
+#: q12 and the other four (q10, q14, q17, q18) run with the other twelve at
+#: ``SQL_OTHER_SF``, to keep the script inside its time limit (six were
+#: timed until the check phase came)
+SQL_TIMED = ("q3", "q6", "q19")
 #: the scale factors of the ``sql`` phase's lakes: the timed queries', and
 #: the other sixteen's (cut to keep the script inside its time limit)
 SQL_SF = 1.0
@@ -8258,6 +8283,319 @@ def run_mesh(sess, li_src: str, a1_chunk: int, entries: dict, args, smi: str, hb
     return out
 
 
+# --- static analysis and program contracts (12o) --------------------------------
+
+#: the families each query of the check phase runs
+CHECK_FAMILIES = {
+    "q6": ("fused-filter",),
+    "q6s": ("fused-filter", "dict-expand"),
+    "A1": ("grouped-agg-chunk",),
+    "A1s": ("grouped-agg-chunk", "grouped-merge"),
+    "A2": ("fused-agg",),
+    "J1": ("bucketed-smj-span",),
+    "J3": ("hash-build", "hash-probe", "fused-postjoin"),
+    "T1": ("topk-chunk", "topk-merge"),
+    "FA1d": ("fused-stage-agg",),
+    "FT1": ("fused-stage-topk",),
+    "FJ3": ("fused-stage-join-agg",),
+    "lineage": ("lineage-antijoin",),
+    "mesh q6": ("fused-filter",),
+    "mesh A1": ("sharded-grouped",),
+    "mesh T1": ("sharded-topk",),
+    "mesh FA1d": ("fused-stage-agg-sharded",),
+    "mesh FT1": ("fused-stage-topk-sharded",),
+    "mesh rebucket": ("index-rebucket",),
+    "mesh build": ("index-build-exchange",),
+}
+
+
+def check_queries(li, orders, a1_chunk: int, src_chunk: int) -> dict:
+    """{name: (DataFrame, hyperspace on, conf, streamed)}: q6 through
+    ``li_shipdate``, q6s (a string filter over the dictionary-encoded
+    source, streamed a file a chunk: a file's string column arrives
+    dictionary-coded), A1 through ``li_q1`` unstreamed and streamed, A2
+    (q6's global aggregate), J1, J3 (J1 under a Filter, hyperspace off,
+    streamed through the broadcast join), T1 over the source in chunks,
+    and the fused FA1d, FT1 and FJ3 (J3's chain grouped by
+    ``o_shippriority``)."""
+    import hyperspace_tpu_torch as ht
+
+    k, c = ht.keys, ht.col
+    mq = mesh_queries(li, c, a1_chunk, src_chunk)
+    j = li.join(orders, c("l_orderkey") == c("o_orderkey"))
+    cols = ("l_orderkey", "l_extendedprice", "o_orderdate", "o_totalprice")
+    fj3 = j.filter(c("o_totalprice") > 300000.0).group_by("o_shippriority").agg(
+        n=("*", "count"), revenue=("l_extendedprice", "sum"))
+    return {
+        "q6": (q6_query(li), True, {}, False),
+        "q6s": (li.filter((c("l_returnflag") == "R") & (c("l_quantity") < 24)), False,
+                {ht.keys.STREAM_CHUNK_BYTES: src_chunk // 2}, True),
+        "A1": (mq["A1"][0], True, mq["A1"][2], False),
+        "A1s": (mq["A1s"][0], True, mq["A1s"][2], False),
+        "A2": (q6_filter(li).agg(revenue=("l_extendedprice", "sum"), n=("*", "count")), True,
+               {k.STREAM_AGG_MIN_BYTES: 1 << 40}, False),
+        "J1": (j.select(*cols), True, {}, False),
+        "J3": (j.filter(c("o_totalprice") > 300000.0).select(*cols), False, {}, True),
+        "T1": (mq["T1"][0], False, mq["T1"][2], False),
+        "FA1d": (mq["FA1d"][0], True, mq["FA1d"][2], False),
+        "FT1": (mq["FT1"][0], False, mq["FT1"][2], False),
+        "FJ3": (fj3, False, {k.STREAM_AGG_MIN_BYTES: 1, k.STREAM_CHUNK_BYTES: src_chunk, k.FUSION_ENABLED: True},
+                False),
+    }
+
+
+def _check_switch(sess, on: bool) -> None:
+    """The check on or off: the session's conf, and the module default the
+    sites with no conf in reach read (``dict-expand``, the exchange)."""
+    import hyperspace_tpu_torch as ht
+    from hyperspace_tpu_torch.check import program_lint as PL
+
+    sess.conf.set(ht.keys.CHECK_HLO_ENABLED, on)
+    PL.set_default_enabled(on)
+
+
+def _check_run(sess, q, hs_on: bool, conf: dict, streamed: bool):
+    """One run of ``q`` under ``conf`` (restored after): its rows, as a
+    multiset when streamed."""
+    from hyperspace_tpu_torch.exec import batch as B
+
+    saved = {key: sess.conf.get(key) for key in conf}
+    for key, v in conf.items():
+        sess.conf.set(key, v)
+    try:
+        with sess.hyperspace_scope(hs_on):
+            if streamed:
+                return as_multiset(B.concat(list(q.to_local_iterator())))
+            return q.collect()
+    finally:
+        for key, v in saved.items():
+            sess.conf.set(key, v)
+
+
+def _same_check_rows(name: str, got, want, q) -> bool:
+    if name in ("A1", "A1s", "A2", "FA1d", "FJ3", "mesh A1", "mesh FA1d"):
+        return same_groups(got, want, float_aggs_of(q), ordered=True)
+    return same_batch(got, want)
+
+
+def _findings_by_family(findings) -> dict:
+    """{family: {rule: {op: count}}} of program-contract findings (a
+    collective budget's count under the op ``calls``)."""
+    out: dict = {}
+    for f in findings:
+        rules = out.setdefault(f.detail["family"], {})
+        ops = rules.setdefault(f.rule, {})
+        for op, n in (f.detail.get("ops") or {"calls": f.detail.get("count", 0)}).items():
+            ops[op] = ops.get(op, 0) + n
+    return out
+
+
+def contract_pass(system: str, li_src: str, o_src: str, a1_chunk: int, src_chunk: int, device: str,
+                  mesh_devices, build_root: str, syncs: bool = False):
+    """Every check query on ``device`` with the check on, the
+    ``lineage-antijoin`` program, and on a mesh over ``mesh_devices`` q6,
+    A1, T1, FA1d and FT1, a re-bucketing of 1M rows and ``li_shipdate``
+    built through the exchange: each family's
+    verified count and findings; then every query again with the check off,
+    its rows equal to the on run's. With ``syncs`` the recorded windows
+    also run under ``torch.cuda.set_sync_debug_mode("warn")``, the scan
+    pipeline off (the debug mode and the warnings it raises are
+    process-wide), and each window's synchronisations are counted. Returns
+    (the results, the session, its queries)."""
+    import warnings
+
+    import numpy as np
+
+    import hyperspace_tpu_torch as ht
+    from hyperspace_tpu_torch.check import program_lint as PL
+    from hyperspace_tpu_torch.exec import device as D
+    from hyperspace_tpu_torch.exec import io as IO
+    from hyperspace_tpu_torch.exec import lineage as LN
+    from hyperspace_tpu_torch.obs.metrics import REGISTRY
+    from hyperspace_tpu_torch.ops import bucketize as BZ
+    from hyperspace_tpu_torch.parallel import make_mesh
+    from hyperspace_tpu_torch.parallel.mesh import sharded
+
+    k = ht.keys
+
+    def verified():
+        return {f: REGISTRY.counter("hs_check_programs_verified_total", program=f).value
+                for f in PL.registered_contracts()}
+
+    sess = ht.Session(conf={k.SYSTEM_PATH: system, k.DEVICE_MIN_ROWS: 0, k.JOIN_DEVICE_MATERIALIZE_MAX_BYTES: 2 << 30},
+                      device=device)
+    qs = check_queries(sess.read_parquet(li_src), sess.read_parquet(o_src), a1_chunk, src_chunk)
+    rng = np.random.default_rng(7)
+    ids_col = rng.integers(0, 1000, 1_000_000).astype(np.int64)
+    deleted = sorted(set(rng.integers(0, 1000, 100).tolist()))
+    msess = _mesh_session(system, device, make_mesh(devices=[mesh_devices] * MESH_SHARDS))
+    mq = mesh_queries(msess.read_parquet(li_src), ht.col, a1_chunk, src_chunk)
+    mesh_qs = {f"mesh {name}": mq[name][:3] + (False,) for name in ("q6", "A1", "T1", "FA1d", "FT1")}
+    out = {"device": device, "ms": {"on": {}, "off": {}}}
+
+    def run(pass_, name, s, spec):
+        t = time.perf_counter()
+        try:
+            return _check_run(s, *spec)
+        finally:
+            out["ms"][pass_][name] = (time.perf_counter() - t) * 1e3
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # each finding also warns; they print below
+        # the device columns go, and the first source file's decode, so the
+        # on pass uploads again and decodes that file afresh: dict-expand
+        # runs where a file's dictionary-coded string column is uploaded
+        D.clear_device_cache()
+        IO.purge_io_cache([os.path.join(li_src, min(os.listdir(li_src)))])
+        PL.reset_runtime_state()
+        before = verified()
+        t = time.perf_counter()
+        _check_switch(sess, True)
+        if syncs:
+            sess.conf.set(k.PIPELINE_ENABLED, False)
+            PL.count_syncs(True)
+        try:
+            on = {name: run("on", name, sess, spec) for name, spec in qs.items()}
+            mask = LN.lineage_delete_mask(sess, {"_data_file_id": ids_col}, "_data_file_id", deleted)
+            assert mask.tobytes() == LN.lineage_keep_mask_plain(ids_col, deleted).tobytes(), \
+                "lineage-antijoin differs"
+            _check_switch(msess, True)
+            on.update({name: run("on", name, msess, spec) for name, spec in mesh_qs.items()})
+            # the flat re-bucketing exchange over the mesh: one all-to-all
+            n_rb = 1 << 20
+            place = sharded(msess.mesh)
+            _, _, valid, overflow = BZ.rebucket(
+                msess.mesh, {"v": place.put(np.arange(n_rb, dtype=np.int64))},
+                place.put((np.arange(n_rb) % 200).astype(np.int32)), 2 * n_rb // MESH_SHARDS)
+            assert int(np.asarray(overflow).sum()) == 0 and int(np.asarray(valid).sum()) == n_rb
+            bsess = _mesh_session(build_root, device, make_mesh(devices=[mesh_devices] * MESH_SHARDS))
+            _check_switch(bsess, True)
+            t_b = time.perf_counter()
+            ht.Hyperspace(bsess).create_index(bsess.read_parquet(li_src), ht.CoveringIndexConfig(
+                "li_shipdate", ["l_shipdate"], ["l_quantity", "l_extendedprice", "l_discount"]))
+            out["ms"]["on"]["mesh build"] = (time.perf_counter() - t_b) * 1e3
+        finally:
+            PL.count_syncs(False)
+            sess.conf.set(k.PIPELINE_ENABLED, True)
+        out["seconds_on"] = time.perf_counter() - t
+        after = verified()
+        findings = PL.runtime_violations()
+        out["verified"] = {f: int(after[f] - before.get(f, 0.0)) for f in after if after[f] > before.get(f, 0.0)}
+        out["findings"] = _findings_by_family(findings)
+        missing = {f for fams in CHECK_FAMILIES.values() for f in fams} - set(out["verified"])
+        assert not missing, f"check {device}: never verified {sorted(missing)}"
+        if syncs:
+            out["syncs"] = PL.runtime_syncs()
+            out["host_callback_ops"] = {fam: sum(rules.get("forbidden-op:host-callback", {}).values())
+                                        for fam, rules in out["findings"].items()}
+        t = time.perf_counter()
+        _check_switch(sess, False)
+        _check_switch(msess, False)
+        off = {name: run("off", name, sess, spec) for name, spec in qs.items()}
+        off.update({name: run("off", name, msess, spec) for name, spec in mesh_qs.items()})
+        out["seconds_off"] = time.perf_counter() - t
+        for name, (q, *_rest) in {**qs, **mesh_qs}.items():
+            assert _same_check_rows(name, on[name], off[name], q), f"check {device} {name}: rows differ with the check on"
+    return out, sess, qs
+
+def run_check(system: str, li_src: str, o_src: str, a1_chunk: int, tmp: str, args, smi: str,
+              device: str = "cuda") -> dict:
+    """12o: the lint on this tree, then the program contracts on the card
+    over the SF1 lake (``system``'s indexes), beside the CPU port's over a
+    60 000-row lake, then warm q6 and A1 with the check on against off."""
+    import contextlib
+    import io
+    import statistics
+
+    import torch
+
+    import hyperspace_tpu_torch as ht
+    from hyperspace_tpu_torch.check.__main__ import main as lint_main
+    from hyperspace_tpu_torch.ops import kernels
+
+    out = {}
+    t = time.perf_counter()
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        rc = lint_main([])
+    out["lint"] = {"rc": rc, "findings": len(text.getvalue().splitlines()), "seconds": time.perf_counter() - t}
+    assert rc == 0, f"the port's lint found:\n{text.getvalue()}"
+    print(f"check lint: python -m hyperspace_tpu_torch.check exits 0, 0 findings "
+          f"({out['lint']['seconds']:.3f} s)", flush=True)
+
+    files = sorted(os.path.join(li_src, f) for f in os.listdir(li_src))
+    src_chunk = 2 * max(os.path.getsize(f) for f in files)
+    kernels.reset_launches()
+    card, sess, qs = contract_pass(system, li_src, o_src, a1_chunk, src_chunk, device, device,
+                         os.path.join(tmp, "check_mesh_build"), syncs=device == "cuda")
+    out["launches"] = {k_: v for k_, v in kernels.launches.items() if v}
+
+    # the CPU port over a small lake: the same queries, indexes and mesh
+    t = time.perf_counter()
+    small = os.path.join(tmp, "check_cpu")
+    s_li = gen_lineitem(small, 60_000, 4, args.seed)
+    s_o = gen_orders(small, 15_000, 2, args.seed + 1)
+    s_sys = os.path.join(small, "indexes")
+    bsess = ht.Session(conf={ht.keys.SYSTEM_PATH: s_sys, ht.keys.NUM_BUCKETS: 8}, device="cpu")
+    hs = ht.Hyperspace(bsess)
+    for name, src, key, inc in (
+            ("li_shipdate", s_li, "l_shipdate", ["l_quantity", "l_extendedprice", "l_discount"]),
+            ("li_q1", s_li, "l_shipdate", ["l_returnflag", "l_linestatus", "l_quantity", "l_extendedprice",
+                                           "l_discount", "l_tax"]),
+            ("li_orderkey", s_li, "l_orderkey", ["l_extendedprice"]),
+            ("o_orderkey", s_o, "o_orderkey", ["o_orderdate", "o_totalprice"])):
+        hs.create_index(bsess.read_parquet(src), ht.CoveringIndexConfig(name, [key], inc))
+    s_chunk = max(1, index_bytes(s_sys, "li_q1") // 8)
+    s_files = sorted(os.path.join(s_li, f) for f in os.listdir(s_li))
+    cpu, _, _ = contract_pass(s_sys, s_li, s_o, s_chunk, 2 * max(os.path.getsize(f) for f in s_files), "cpu", "cpu",
+                        os.path.join(small, "mesh_build"))
+    cpu_s = time.perf_counter() - t
+
+    out["families"] = {}
+    for fam in sorted(set(card["verified"]) | set(cpu["verified"])):
+        row = {"verified_card": card["verified"].get(fam, 0), "findings_card": card["findings"].get(fam, {}),
+               "verified_cpu": cpu["verified"].get(fam, 0), "findings_cpu": cpu["findings"].get(fam, {})}
+        syncs = ""
+        if "syncs" in card:
+            row["syncs_card"] = card["syncs"].get(fam, {})
+            row["host_callback_ops_card"] = card["host_callback_ops"].get(fam, 0)
+            syncs = (f"; syncs reported {sum(row['syncs_card'].values())} {row['syncs_card'] or ''} beside "
+                     f"{row['host_callback_ops_card']} host-callback ops")
+        out["families"][fam] = row
+        print(f"check {fam}: card verified {row['verified_card']}, findings {row['findings_card'] or 'none'}; "
+              f"CPU port verified {row['verified_cpu']}, findings {row['findings_cpu'] or 'none'}{syncs} ({smi})",
+              flush=True)
+    out["seconds"] = {"card_on": card["seconds_on"], "card_off": card["seconds_off"], "cpu": cpu_s}
+
+    # warm q6 and A1, each program already verified, the check on and off
+    out["warm_ms"] = {}
+    for name in ("q6", "A1"):
+        times = {True: [], False: []}
+        for on in (False, True):  # warm-up: the CPU pass above emptied the query caches
+            _check_switch(sess, on)
+            _check_run(sess, *qs[name])
+        for on in (False, True, True, False) * max(1, args.reps // 3):
+            _check_switch(sess, on)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            t = time.perf_counter()
+            _check_run(sess, *qs[name])
+            times[on].append((time.perf_counter() - t) * 1e3)
+        _check_switch(sess, False)
+        med = {k_: statistics.median(v) for k_, v in times.items()}
+        out["warm_ms"][name] = {"on": med[True], "off": med[False], "runs": len(times[True])}
+        print(f"check warm {name}: {med[True]:.3f} ms with the check on (verified), {med[False]:.3f} ms off, "
+              f"medians of {len(times[True])} ({smi})", flush=True)
+    for pass_, ms in card["ms"].items():
+        if ms:
+                print(f"check {pass_} pass: " + ", ".join(f"{n} {v:.1f}" for n, v in ms.items()) + " ms", flush=True)
+    out["ms"] = card["ms"]
+    print(f"check: card passes {card['seconds_on']:.3f} s with the check on"
+          f"{' under the sync debug mode' if 'syncs' in card else ''}, {card['seconds_off']:.3f} s off; CPU port "
+          f"{cpu_s:.3f} s (its lake and builds included); kernel launches {out['launches']}", flush=True)
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -8443,7 +8781,7 @@ def main() -> None:
         listed = hs.indexes()
         assert sorted(listed["name"]) == sorted(entries) and set(listed["state"]) == {"ACTIVE"}, listed
         print(f"indexes: {sorted(listed['name'])} ACTIVE", flush=True)
-        phase("check", t)
+        phase("index-check", t)
 
         t = time.perf_counter()
         queries = run_queries(sess, src, args, smi, hbm)
@@ -8529,6 +8867,10 @@ def main() -> None:
         queries["mesh"] = run_mesh(sess, src, chunk, entries, args, smi, hbm)
         queries["mesh"]["small"] = mesh_small
         phase("mesh", t)
+
+        t = time.perf_counter()
+        queries["check"] = run_check(sess.conf.system_path, src, o_src, chunk, tmp, args, smi)
+        phase("check", t)
         for name in results:
             results[name]["launches_by_path"] = {
                 "build": results[name]["launches"],

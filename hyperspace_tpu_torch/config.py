@@ -11,6 +11,7 @@ not read. Keys are namespaced ``hyperspace.*``.
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, Optional
 
 
@@ -58,6 +59,7 @@ class keys:
     NESTED_COLUMN_ENABLED = "hyperspace.index.nestedColumn.enabled"
     GLOBBING_PATTERN = "hyperspace.source.globbingPattern"
     CACHE_EXPIRY_SECONDS = "hyperspace.index.cache.expiryDurationInSeconds"
+    DATASKIPPING_TARGET_FILE_SIZE = "hyperspace.index.dataskipping.targetIndexDataFileSize"
     DISPLAY_MODE = "hyperspace.explain.displayMode"
     HIGHLIGHT_BEGIN_TAG = "hyperspace.explain.displayMode.highlight.beginTag"
     HIGHLIGHT_END_TAG = "hyperspace.explain.displayMode.highlight.endTag"
@@ -132,8 +134,12 @@ class keys:
     OBS_FABRIC_STITCH_MAX_SPANS = "hyperspace.obs.fabric.stitch.maxSpans"
     OBS_FABRIC_STITCH_MAX_BYTES = "hyperspace.obs.fabric.stitch.maxBytes"
     OBS_FABRIC_FEDERATION_TIMEOUT_SECONDS = "hyperspace.obs.fabric.federationTimeoutSeconds"
+    # program contracts (check/program_lint.py): each device program's
+    # recorded dispatch against its family's declared contract
+    CHECK_HLO_ENABLED = "hyperspace.check.hlo.enabled"
     CHECK_LOCKS = "hyperspace.check.locks"
     LIFECYCLE_SNAPSHOT_ENABLED = "hyperspace.lifecycle.snapshot.enabled"
+    LIFECYCLE_REFRESH_ENABLED = "hyperspace.lifecycle.refresh.enabled"
     LIFECYCLE_REFRESH_INTERVAL_SECONDS = "hyperspace.lifecycle.refresh.intervalSeconds"
     LIFECYCLE_REFRESH_MODE = "hyperspace.lifecycle.refresh.mode"
     FABRIC_NODE_ID = "hyperspace.fabric.nodeId"
@@ -243,6 +249,9 @@ DEFAULTS: Dict[str, Any] = {
     # seconds the index manager serves its cached roster before re-reading
     # the operation logs (read on every lookup; 0 re-reads every time)
     keys.CACHE_EXPIRY_SECONDS: 300,
+    # the JAX package's target size of a data-skipping index's sketch
+    # files, with its default; neither package's sketch writer reads it
+    keys.DATASKIPPING_TARGET_FILE_SIZE: 256 * 1024 * 1024,
     # explain's display keys, with the JAX package's defaults
     keys.DISPLAY_MODE: "console",
     keys.HIGHLIGHT_BEGIN_TAG: "",
@@ -470,11 +479,20 @@ DEFAULTS: Dict[str, Any] = {
     # Wrap named internal mutexes in the lock-order watcher (cross-thread
     # acquisition-order cycle detection). Construction-time flag: locks
     # created before a Session enabled it stay plain.
+    # Verify every device program, once per (program key, shape signature),
+    # against its family's registered ProgramContract: the aten ops and
+    # collectives one live call dispatched (check/program_lint.py), counted
+    # in hs_check_violations_total on breach. Off, it costs one conf lookup
+    # per program. HS_CHECK_HLO=1 flips the default on for a whole process.
+    keys.CHECK_HLO_ENABLED: os.environ.get("HS_CHECK_HLO", "") not in ("", "0"),
     keys.CHECK_LOCKS: False,
     # Pin a SnapshotHandle (index-log roster frozen at admission) per served
     # request, so a refresh committing mid-flight never changes a running
     # query's answer (docs/lifecycle.md).
     keys.LIFECYCLE_SNAPSHOT_ENABLED: True,
+    # Run the background RefreshManager alongside serving; off by default —
+    # refreshes are an explicit operational decision.
+    keys.LIFECYCLE_REFRESH_ENABLED: False,
     # Seconds between RefreshManager drift polls.
     keys.LIFECYCLE_REFRESH_INTERVAL_SECONDS: 5.0,
     # Refresh mode the manager schedules: "auto" picks incremental when the
@@ -645,6 +663,10 @@ class HyperspaceConf:
     @property
     def source_builders(self) -> str:
         return str(self.get(keys.SOURCE_BUILDERS))
+
+    @property
+    def dataskipping_target_file_size(self) -> int:
+        return int(self.get(keys.DATASKIPPING_TARGET_FILE_SIZE))
 
     @property
     def rowgroup_pruning_enabled(self) -> bool:
@@ -1043,12 +1065,20 @@ class HyperspaceConf:
         return str(self.get(keys.OBS_HTTP_HOST))
 
     @property
+    def check_hlo_enabled(self) -> bool:
+        return bool(self.get(keys.CHECK_HLO_ENABLED))
+
+    @property
     def check_locks_enabled(self) -> bool:
         return bool(self.get(keys.CHECK_LOCKS))
 
     @property
     def lifecycle_snapshot_enabled(self) -> bool:
         return bool(self.get(keys.LIFECYCLE_SNAPSHOT_ENABLED))
+
+    @property
+    def lifecycle_refresh_enabled(self) -> bool:
+        return bool(self.get(keys.LIFECYCLE_REFRESH_ENABLED))
 
     @property
     def lifecycle_refresh_interval_seconds(self) -> float:

@@ -77,6 +77,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from hyperspace_tpu_torch.check import program_lint as _program_lint
 from hyperspace_tpu_torch.exec import batch as B
 from hyperspace_tpu_torch.exec import stage_ir, trace
 from hyperspace_tpu_torch.exec.device import (
@@ -92,6 +93,7 @@ from hyperspace_tpu_torch.exec.device import (
     compile_predicate,
     count_dispatch,
     predicate_skeleton,
+    program_key,
     upload_literals,
 )
 from hyperspace_tpu_torch.obs import spans as obs_spans
@@ -256,9 +258,13 @@ def device_filtered_aggregate(
         pred_fn, lit_values = compile_predicate(condition, codecs)
     else:
         pred_fn, lit_values = None, ()
-    program = fused_agg_program(pred_fn, tuple((fn, c) for _, fn, c in aggs))
+    agg_spec = tuple((fn, c) for _, fn, c in aggs)
+    program = fused_agg_program(pred_fn, agg_spec)
     t0 = program_clock(session.device)
-    outs, valids = program(dev_cols, upload_literals(lit_values, session.device), n)
+    lits = upload_literals(lit_values, session.device)
+    with _program_lint.maybe_verify(session.conf, "fused-agg", lambda: program_key(
+            "fused-agg", f"{_pred_skeleton(condition, codecs)}|a:{agg_spec}"), (dev_cols, lits)):
+        outs, valids = program(dev_cols, lits, n)
     count_dispatch("fused-agg")
     outs, valids = _read_scalars(outs, valids)
     _observe_program("fused-agg", t0)
@@ -279,6 +285,10 @@ def device_filtered_aggregate(
                 result[name] = np.asarray([float(val)])
     _add(session, "agg_finalize", t)
     return result
+
+
+def _pred_skeleton(condition: Optional[Expr], codecs) -> str:
+    return predicate_skeleton(condition, codecs) if condition is not None else "<none>"
 
 
 def _add(session, stage: str, t0: float) -> float:
@@ -764,7 +774,7 @@ class GroupedAggStream:
             # dispatch. String group keys stay per-family: their chunk ->
             # global dictionary remap is a host step between the two
             skeleton = (
-                f"{predicate_skeleton(condition, codecs) if condition is not None else '<none>'}"
+                f"{_pred_skeleton(condition, codecs)}"
                 f"|k:{','.join(f'{n_}:{t_}' for n_, t_ in key_specs)}"
                 f"|s:{','.join(f'{k_}:{c_}:{int(i_)}' for k_, c_, i_ in self._slots)}"
             )
@@ -779,15 +789,21 @@ class GroupedAggStream:
         family = "sharded-grouped" if px is not None else "grouped-agg-chunk"
         while True:
             t0 = program_clock(self.session.device)
+            window = _program_lint.maybe_verify(
+                self.session.conf, family,
+                lambda: program_key(family, f"gagg[{cap}]:{_pred_skeleton(condition, codecs)}|k:{key_specs}"
+                                            f"|s:{self._slots}", px), (dev_cols, lits))
             if px is not None:
                 from hyperspace_tpu_torch.parallel import collectives as C
 
                 program = C.sharded_grouped_chunk_program(px.mesh, px.axis, pred_fn, key_specs, self._slots, cap)
-                n_g, fs, key_out, slot_out = px.timed_call(
-                    "grouped-agg", program, dev_cols, lits, n, self._row_base)
+                with window:
+                    n_g, fs, key_out, slot_out = px.timed_call(
+                        "grouped-agg", program, dev_cols, lits, n, self._row_base)
             else:
                 program = grouped_chunk_program(pred_fn, key_specs, self._slots, cap)
-                n_g, fs, key_out, slot_out = program(dev_cols, lits, n, self._row_base)
+                with window:
+                    n_g, fs, key_out, slot_out = program(dev_cols, lits, n, self._row_base)
             count_dispatch(family)
             _observe_program(family, t0)
             if n_g > self.max_groups:
@@ -862,10 +878,11 @@ class GroupedAggStream:
         args = (state_keys, state_slots, state_fs, state_n, dev_cols, lits, n, self._row_base)
         stage_ir.fold_peak_start(self.session.device)
         t0 = program_clock(self.session.device)
-        if px is not None:
-            n_b, n_m, n_out, fs_out, keys_out, slots_out = px.timed_call("grouped-agg", program, *args)
-        else:
-            n_b, n_m, n_out, fs_out, keys_out, slots_out = program(*args)
+        with _program_lint.maybe_verify(self.session.conf, family, f"{family}/{skeleton}", args):
+            if px is not None:
+                n_b, n_m, n_out, fs_out, keys_out, slots_out = px.timed_call("grouped-agg", program, *args)
+            else:
+                n_b, n_m, n_out, fs_out, keys_out, slots_out = program(*args)
         stage_ir.count_dispatch(family)
         _observe_program(family, t0)
         self._partial = {"cap": cap, "n": n_out, "fs": fs_out, "keys": list(keys_out), "slots": list(slots_out)}
@@ -922,12 +939,14 @@ class GroupedAggStream:
                 part["slots"] = [_dev_pad(v, cap_in, 0) for v in part["slots"]]
         cap_out = group_capacity(a["n"] + b["n"], self.cap_floor)
         program = grouped_merge_program(key_specs, self._slots, cap_in, cap_out)
+        args = (tuple(a["keys"]), tuple(b["keys"]), tuple(a["slots"]), tuple(b["slots"]),
+                a["fs"], b["fs"], a["n"], b["n"])
         t0 = program_clock(self.session.device)
         with obs_spans.span("agg-merge", cat="groupagg", groups_in=a["n"] + b["n"]):
-            n_g, fs, key_out, slot_out = program(
-                tuple(a["keys"]), tuple(b["keys"]), tuple(a["slots"]), tuple(b["slots"]),
-                a["fs"], b["fs"], a["n"], b["n"],
-            )
+            with _program_lint.maybe_verify(
+                    self.session.conf, "grouped-merge",
+                    lambda: f"grouped-merge/gmerge[{cap_in}->{cap_out}]|k:{key_specs}|s:{self._slots}", args):
+                n_g, fs, key_out, slot_out = program(*args)
             count_dispatch("grouped-merge")
         _observe_program("grouped-merge", t0)
         REGISTRY.counter(

@@ -42,6 +42,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from hyperspace_tpu_torch.check import program_lint as _program_lint
 from hyperspace_tpu_torch.exec import batch as B
 from hyperspace_tpu_torch.obs import spans as obs_spans
 from hyperspace_tpu_torch.plan.expr import (
@@ -60,6 +61,64 @@ from hyperspace_tpu_torch.utils.lru import BytesLRU
 
 class DeviceUnsupported(Exception):
     """Raised when an expression/plan shape cannot run on the device path."""
+
+
+# --- declared program contracts (check/program_lint.py) ----------------------
+# Each device-program family states its collective budget next to the code
+# that builds it, with the JAX package's budgets one for one, and inherits
+# the forbidden-op rules: no host wait, no f32->f64 array upcast, no
+# value-dependent shape. With hyperspace.check.hlo.enabled on, each call
+# site's maybe_verify() window records one live call of every new program
+# and checks it.
+_ANY = (0, None)
+_program_lint.register_contract(
+    "fused-filter",
+    collectives={},
+    description="fused predicate mask: elementwise over resident shards, shuffle-free",
+)
+_program_lint.register_contract(
+    "fused-agg",
+    collectives={"all-reduce": _ANY},
+    description="fused filter+aggregate: scalar reductions may all-reduce, never move rows",
+)
+_program_lint.register_contract(
+    "grouped-agg-chunk",
+    collectives={"all-gather": _ANY, "all-reduce": _ANY},
+    description="grouped-aggregate chunk: may gather fixed-size partials, never rows",
+)
+_program_lint.register_contract(
+    "sharded-grouped",
+    collectives={"all-gather": (1, None), "all-reduce": _ANY},
+    description="sharded grouped chunk: all-gathers per-shard partial TABLES (>=1), never rows",
+)
+_program_lint.register_contract(
+    "grouped-merge",
+    collectives={},
+    description="pairwise partial-aggregate merge: device-local, collective-free",
+)
+_program_lint.register_contract(
+    "bucketed-smj-span",
+    collectives={},
+    description="bucketed sort-merge join span search: the shuffle-freedom claim itself",
+)
+_program_lint.register_contract(
+    "fused-stage-agg",
+    collectives={"all-gather": _ANY, "all-reduce": _ANY},
+    description="whole-stage filter+group+state-merge with in-place fold state: one dispatch per chunk",
+    single_fusion=True,
+)
+_program_lint.register_contract(
+    "fused-stage-agg-sharded",
+    collectives={"all-gather": (1, None), "all-reduce": _ANY},
+    description="sharded whole-stage grouped fold: gathers per-shard partial TABLES (>=1), one dispatch",
+    single_fusion=True,
+)
+_program_lint.register_contract(
+    "dict-expand",
+    collectives={},
+    description="on-device dictionary expansion: codes gather a replicated remap table, shuffle-free",
+    single_fusion=True,
+)
 
 
 #: device programs run per family since the last ``reset_dispatches()``
@@ -105,6 +164,17 @@ class ProgramClock:
         if device is not None and device.type == "cuda":
             self.start = torch.cuda.Event(enable_timing=True)
             self.start.record(torch.cuda.current_stream(device))
+
+
+def program_key(family: str, skeleton: str, parallel=None) -> str:
+    """A program's identity for contract verification:
+    ``<family>/<skeleton>`` and, when sharded, its mesh (the JAX package's
+    program-cache key, with the family in front so a finding names it)."""
+    if parallel is None:
+        return f"{family}/{skeleton}"
+    from hyperspace_tpu_torch.parallel.mesh import mesh_fingerprint
+
+    return f"{family}/{skeleton}@{mesh_fingerprint(parallel.mesh)}"
 
 
 def program_clock(device: Optional[torch.device]) -> ProgramClock:
@@ -782,7 +852,9 @@ def _encoded_for_upload(arr: np.ndarray):
 def _dict_expand(codes_dev: torch.Tensor, remap: np.ndarray, device: torch.device) -> torch.Tensor:
     remap_dev = _host_tensor(remap).to(device)
     t0 = program_clock(device)
-    out = dict_expand_program(codes_dev, remap_dev)
+    # no session conf reaches the upload: the module default is the switch
+    with _program_lint.maybe_verify(None, "dict-expand", "dict-expand/remap", (codes_dev, remap_dev)):
+        out = dict_expand_program(codes_dev, remap_dev)
     count_dispatch("dict-expand")
     _observe_program("dict-expand", t0)
     return out
@@ -956,7 +1028,11 @@ def device_filter_mask(session, batch: B.Batch, condition: Expr, scan_key=None, 
 
         fn = C.sharded_elementwise(parallel.mesh, parallel.axis, fn)
         parallel.note_op("filter")
-    mask = fn(dev_cols, upload_literals(lit_values, device))
+    lits = upload_literals(lit_values, device)
+    with _program_lint.maybe_verify(
+        session.conf, "fused-filter", lambda: program_key("fused-filter", predicate_skeleton(condition, codecs),
+                                                          parallel), (dev_cols, lits)):
+        mask = fn(dev_cols, lits)
     count_dispatch("fused-filter")
     if mask.dim() == 0:  # a predicate over literals only
         mask = mask.expand(n)

@@ -1427,14 +1427,14 @@ class Executor:
                 trace.record("agg", "streamed-partial")
                 return got
         if not with_file_names and conf.device_execution_enabled:
-            got, scan_batch, filter_node = self._try_device_aggregate(plan)
+            got, scan_batch, filter_node, pruned = self._try_device_aggregate(plan)
             if got is not None:
                 trace.record("agg", "device-grouped-scan" if plan.keys else "device-fused-scan")
                 return got
             if scan_batch is not None:
                 # the device gate already materialized the scan: reuse it
                 if filter_node is not None:
-                    mask = self._filter_mask(filter_node, scan_batch)
+                    mask = self._filter_mask(filter_node, scan_batch, pruned_by=pruned)
                     t = time.perf_counter()
                     child = B.mask_rows(scan_batch, mask)
                     self._add_stage("mask_rows", t)
@@ -2048,9 +2048,13 @@ class Executor:
         return {name: out[name] for name, _, _ in plan.aggs}
 
     def _try_device_aggregate(self, plan: L.Aggregate):
-        """Returns (result, scan_batch, filter_node): result=None means the
-        caller runs the host path — reusing scan_batch (the materialized
-        scan, pre-filter) when it was already read for the gate. Only
+        """Returns (result, scan_batch, filter_node, pruned_by): result=None
+        means the caller runs the host path — reusing scan_batch (the
+        materialized scan, pre-filter) when it was already read for the
+        gate. ``pruned_by`` is the scan's attached row-group-pruning
+        predicate; it brands the device-cache key here, and the caller must
+        thread it into any further device-cache use of scan_batch, or a
+        pruned batch gets branded with an unpruned key. Only
         ``DeviceUnsupported`` (raised before any upload) and
         ``GroupCapacityExceeded`` come back as None; device errors
         propagate."""
@@ -2061,19 +2065,20 @@ class Executor:
             filter_node = node
             node = node.child
         if not isinstance(node, L.IndexScan):
-            return None, None, None
+            return None, None, None, None
         if plan.keys and not conf.agg_device_grouped_enabled:
-            return None, None, None
+            return None, None, None, None
         from hyperspace_tpu_torch.exec import aggregate as A
         from hyperspace_tpu_torch.exec import device as D
 
+        pruned = getattr(node, "pushdown_predicate", None)
         batch = self._exec(node, with_file_names=False)
         if B.num_rows(batch) < conf.device_exec_min_rows:
             trace.fallback("agg", "min-rows")
-            return None, batch, filter_node
+            return None, batch, filter_node, pruned
         condition = filter_node.condition if filter_node is not None else None
         t = time.perf_counter()
-        scan_key = _scan_identity(node)
+        scan_key = _pruned_scan_key(_scan_identity(node), pruned)
         self._add_stage("scan_identity", t)
         try:
             if plan.keys:
@@ -2090,13 +2095,13 @@ class Executor:
                 )
             else:
                 got = A.device_filtered_aggregate(self.session, batch, condition, plan.aggs, scan_key=scan_key)
-            return got, batch, filter_node
+            return got, batch, filter_node, pruned
         except A.GroupCapacityExceeded:
             trace.fallback("agg", "spill")
-            return None, batch, filter_node
+            return None, batch, filter_node, pruned
         except D.DeviceUnsupported:
             trace.fallback("agg", "unsupported")
-            return None, batch, filter_node
+            return None, batch, filter_node, pruned
 
     def _exec_scan(
         self,

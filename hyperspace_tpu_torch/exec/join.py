@@ -52,6 +52,7 @@ import numpy as np
 import torch
 
 from hyperspace_tpu_torch import native
+from hyperspace_tpu_torch.check import program_lint as _program_lint
 from hyperspace_tpu_torch.exec import batch as B
 from hyperspace_tpu_torch.exec import trace
 from hyperspace_tpu_torch.exec.aggregate import _AGG_FNS
@@ -1108,7 +1109,9 @@ def device_bucketed_join(session, plan: L.Join, compat=None, setup=None) -> B.Ba
         t = _add(stages, "join_upload", t)
 
     t0 = program_clock(device)
-    lo, hi = bucketed_span(lmat_dev, rmat_dev)
+    with _program_lint.maybe_verify(session.conf, "bucketed-smj-span", "bucketed-smj-span/join-span",
+                                    (lmat_dev, rmat_dev)):
+        lo, hi = bucketed_span(lmat_dev, rmat_dev)
     count_dispatch("bucketed-smj-span")
     _observe_program("bucketed-smj-span", t0)
     t = _add(stages, "join_span", t)

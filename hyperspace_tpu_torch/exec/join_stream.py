@@ -47,6 +47,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from hyperspace_tpu_torch.check import program_lint as _program_lint
 from hyperspace_tpu_torch.exec import batch as B
 from hyperspace_tpu_torch.exec import trace
 from hyperspace_tpu_torch.exec.device import (
@@ -159,6 +160,27 @@ def broadcast_spec(session, plan: L.Join) -> Optional[BroadcastSpec]:
 # --------------------------------------------------------------------------
 
 
+# --- declared program contracts (see exec/device.py's block): the broadcast
+# join's three program families are single-device and shuffle-free by
+# construction — a collective in any of them means the build side leaked
+# onto the mesh path.
+_program_lint.register_contract(
+    "hash-build",
+    collectives={},
+    description="broadcast build: combine key hash planes + stable argsort, device-local",
+)
+_program_lint.register_contract(
+    "hash-probe",
+    collectives={},
+    description="broadcast probe: combine + two searchsorted walks into the sorted table, device-local",
+)
+_program_lint.register_contract(
+    "fused-postjoin",
+    collectives={},
+    description="post-join filter fused over pair-gathered columns, device-local",
+)
+
+
 def hash_build_program(planes: List[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
     """"hash-build": combine the key hash planes (int tensors whose low 32
     bits are the uint32 hash inputs), then one stable sort. Returns the
@@ -226,7 +248,9 @@ def build_hash_side(session, build_plan: L.LogicalPlan, build_cols: List[str],
     t = time.perf_counter()
     n = B.num_rows(batch)
     hashes = [hash_input_uint32(batch[k]) for k in bkeys]
-    table, order = hash_build_program(_upload_hash_planes(hashes, session.device))
+    planes = _upload_hash_planes(hashes, session.device)
+    with _program_lint.maybe_verify(session.conf, "hash-build", f"hash-build/{len(planes)}", (planes,)):
+        table, order = hash_build_program(planes)
     count_dispatch("hash-build")
     order_host = _copy_back(order)
     nbytes = sum(int(a.nbytes) for a in batch.values()) + int(table.nbytes) + int(order_host.nbytes)
@@ -283,7 +307,10 @@ def _probe_chunk(session, build: BuildSide, chunk: B.Batch,
             # compares at the finest common unit
             arr = arr.astype(bdt)
         hashes.append(hash_input_uint32(arr))
-    lo_d, hi_d = hash_probe_program(build.table, build.n, _upload_hash_planes(hashes, build.table.device))
+    planes = _upload_hash_planes(hashes, build.table.device)
+    with _program_lint.maybe_verify(session.conf, "hash-probe", f"hash-probe/{len(planes)}",
+                                    (build.table, planes)):
+        lo_d, hi_d = hash_probe_program(build.table, build.n, planes)
     count_dispatch("hash-probe")
     lo, hi = _copy_back(torch.stack([lo_d, hi_d]))
     t = _add(session.query_stage_seconds, "join_probe", t)
@@ -432,8 +459,10 @@ def _device_postjoin_mask(session, condition, pbatch: B.Batch, build: BuildSide,
     sides = tuple(sorted(ref_on_probe.items()))
     n = int(pidx.shape[0])
     prog = _postjoin_program((skeleton, sides), list(refs), ref_on_probe, fn)
-    mask = prog(pcols, bcols, _host_tensor(pidx).to(device), _host_tensor(bidx).to(device),
-                upload_literals(lits, device))
+    args = (pcols, bcols, _host_tensor(pidx).to(device), _host_tensor(bidx).to(device),
+            upload_literals(lits, device))
+    with _program_lint.maybe_verify(session.conf, "fused-postjoin", f"fused-postjoin/{skeleton}|{sides}", args):
+        mask = prog(*args)
     count_dispatch("fused-postjoin")
     if mask.dim() == 0:  # a predicate over literals only
         mask = mask.expand(n)

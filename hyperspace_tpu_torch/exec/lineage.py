@@ -25,6 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from hyperspace_tpu_torch.check import program_lint as _program_lint
 from hyperspace_tpu_torch.exec import batch as B
 from hyperspace_tpu_torch.exec.device import (
     DeviceUnsupported,
@@ -44,6 +45,12 @@ ID_SENTINEL = np.iinfo(np.int64).max
 ID_BUCKET_FLOOR = 64
 
 _SQRT2 = 1.4142135623730951
+
+_program_lint.register_contract(
+    "lineage-antijoin",
+    collectives={},
+    description="hybrid-scan delete filter: sorted-lookup anti-semi-join, shuffle-free",
+)
 
 
 def id_table_rows(n: int, floor: int = ID_BUCKET_FLOOR) -> int:
@@ -110,13 +117,15 @@ def lineage_delete_mask(session, batch: B.Batch, column: str, deleted_ids, scan_
         if ckey is not None:
             _device_cache.put(ckey, (dev_col, codec, n, None), nbytes)
     dev_ids = _host_tensor(table).to(device)
-    if parallel is not None:
-        from hyperspace_tpu_torch.parallel import collectives as C
+    key = f"lineage-antijoin/{'sharded' if parallel is not None else 'single'}"
+    with _program_lint.maybe_verify(session.conf, "lineage-antijoin", key, (dev_col, dev_ids)):
+        if parallel is not None:
+            from hyperspace_tpu_torch.parallel import collectives as C
 
-        program = C.sharded_elementwise(
-            parallel.mesh, parallel.axis, lambda cols, lits: antijoin_program(cols["c"], lits[0], n_ids))
-        mask = program({"c": dev_col}, (dev_ids,))
-    else:
-        mask = antijoin_program(dev_col, dev_ids, n_ids)
+            program = C.sharded_elementwise(
+                parallel.mesh, parallel.axis, lambda cols, lits: antijoin_program(cols["c"], lits[0], n_ids))
+            mask = program({"c": dev_col}, (dev_ids,))
+        else:
+            mask = antijoin_program(dev_col, dev_ids, n_ids)
     count_dispatch("lineage-antijoin")
     return mask.cpu().numpy()[:n]

@@ -53,6 +53,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from hyperspace_tpu_torch.check import program_lint as _program_lint
 from hyperspace_tpu_torch.exec import device as _device
 
 # --------------------------------------------------------------------------
@@ -262,6 +263,19 @@ def clear_stage_cache() -> None:
 # --------------------------------------------------------------------------
 # fused join -> grouped-aggregate stage (the q3 shape)
 # --------------------------------------------------------------------------
+
+# Declared program contract: the fused stage is one dispatch (single_fusion),
+# host-wait-free and collective-free — any collective means the broadcast
+# build side leaked onto the mesh path.
+_program_lint.register_contract(
+    "fused-stage-join-agg",
+    collectives={},
+    description=(
+        "whole-stage probe+verify+filter+group+merge program: one dispatch, "
+        "device-local, in-place fold state"
+    ),
+    single_fusion=True,
+)
 
 
 def fused_join_agg_program(
@@ -637,11 +651,11 @@ def _fused_fold_chunk(session, gs, build, chunk, pkeys, bkeys, post_filter,
     )
     fold_peak_start(device)
     t0 = _device.program_clock(device)
-    total, n_chunk, n_m, n_kept, n_out, fs_out, keys_out, slots_out = program(
-        state_keys, state_slots, state_fs, state_n,
-        build.table, border, build.n, bkenc, pplanes, pkenc, pcols, bcols,
-        upload_literals(lits, device), gs._row_base,
-    )
+    args = (state_keys, state_slots, state_fs, state_n,
+            build.table, border, build.n, bkenc, pplanes, pkenc, pcols, bcols,
+            upload_literals(lits, device), gs._row_base)
+    with _program_lint.maybe_verify(conf, "fused-stage-join-agg", f"fused-stage-join-agg/{skeleton}", args):
+        total, n_chunk, n_m, n_kept, n_out, fs_out, keys_out, slots_out = program(*args)
     count_dispatch("fused-stage-join-agg")
     _device._observe_program("fused-stage-join-agg", t0)
     session.query_stage_seconds["agg_program"] += time.perf_counter() - t

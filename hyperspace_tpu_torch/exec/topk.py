@@ -50,6 +50,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from hyperspace_tpu_torch.check import program_lint as _program_lint
 from hyperspace_tpu_torch.exec import batch as B
 from hyperspace_tpu_torch.exec import device as D
 from hyperspace_tpu_torch.obs.metrics import REGISTRY
@@ -236,14 +237,19 @@ class TopKStream:
         nk = len(self.keys)
         px = self.parallel
         planes = self._upload(np.stack(mat_rows))
+        family = "sharded-topk" if px is not None else "topk-chunk"
+        window = _program_lint.maybe_verify(
+            self.session.conf, family, lambda: D.program_key(family, f"topk[{nk},{self.cap}]", px), (planes,))
         if px is not None:
             from hyperspace_tpu_torch.parallel import collectives as C
 
-            out = px.timed_call("topk", C.sharded_topk_chunk_program(px.mesh, px.axis, nk, self.cap), planes)
-            D.count_dispatch("sharded-topk")
+            program = C.sharded_topk_chunk_program(px.mesh, px.axis, nk, self.cap)
+            with window:
+                out = px.timed_call("topk", program, planes)
         else:
-            out = S.topk_chunk_fn(nk, self.cap)(planes)
-            D.count_dispatch("topk-chunk")
+            with window:
+                out = S.topk_chunk_fn(nk, self.cap)(planes)
+        D.count_dispatch(family)
         return out
 
     def _run_fused(self, mat_rows: List[np.ndarray]):
@@ -274,10 +280,11 @@ class TopKStream:
         program = stage_ir.compile_stage(skeleton, fn, donate_argnums=(0,) if donate else ())
         planes = self._upload(np.stack(mat_rows))
         stage_ir.fold_peak_start(self.session.device)
-        if px is not None:
-            merged, cand = px.timed_call("topk", program, self._state, planes)
-        else:
-            merged, cand = program(self._state, planes)
+        with _program_lint.maybe_verify(self.session.conf, family, f"{family}/{skeleton}", (self._state, planes)):
+            if px is not None:
+                merged, cand = px.timed_call("topk", program, self._state, planes)
+            else:
+                merged, cand = program(self._state, planes)
         stage_ir.count_dispatch(family)
         stage_ir.note_peak_bytes([merged])
         return merged, cand
@@ -300,7 +307,9 @@ class TopKStream:
             # rebuild BOTH candidate matrices from raw pooled values over one
             # combined encoding (O(cap) host work) before the device merge
             a, b = (self._upload(m) for m in self._rebuild_matrices(add_pool, add_rid))
-        merged = S.topk_merge_fn(len(self.keys), self.cap)(a, b)
+        with _program_lint.maybe_verify(self.session.conf, "topk-merge",
+                                        f"topk-merge/topk[{len(self.keys)},{self.cap}]", (a, b)):
+            merged = S.topk_merge_fn(len(self.keys), self.cap)(a, b)
         D.count_dispatch("topk-merge")
         self._state = merged
         _merges_total().inc()

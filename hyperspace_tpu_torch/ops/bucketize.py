@@ -34,6 +34,7 @@ from typing import Dict, List, Sequence, Tuple
 
 import torch
 
+from hyperspace_tpu_torch.check import program_lint as _program_lint
 from hyperspace_tpu_torch.parallel.mesh import Mesh, ShardedTensor, all_to_all
 
 #: rows an exchange could not place, summed over every call (the build's
@@ -197,7 +198,11 @@ def rebucket(mesh: Mesh, arrays: Dict[str, ShardedTensor], bucket_ids: ShardedTe
     buckets = _shards(bucket_ids)
     values = {g: [cols[n][g] for n in names] + [b] for g, b in buckets.items()}
     dest = {g: (b.to(torch.int64) % n_dev) for g, b in buckets.items()}
-    out, out_mask, overflow = _exchange_phase(mesh, axis, n_dev, values, dest, capacity)
+    # the overflow counts are read after the program's window: the exchange
+    # itself never waits on the host
+    with _program_lint.maybe_verify(None, "index-rebucket", lambda: f"index-rebucket/c{capacity}|n{n_dev}",
+                                    (values, dest)):
+        out, out_mask, overflow = _exchange_phase(mesh, axis, n_dev, values, dest, capacity)
     for v in overflow.values():
         overflow_rows["rebucket"] += int(v)
     out_arrays = {n: _wrap(mesh, {g: out[g][i] for g in out}) for i, n in enumerate(names)}
@@ -231,6 +236,26 @@ def rebucket_and_sort(mesh: Mesh, arrays: Dict[str, ShardedTensor], hash_inputs:
 
 def _next_pow2(x: int) -> int:
     return max(8, 1 << (max(int(x) - 1, 1)).bit_length())
+
+
+# Declared program contracts for the build/exchange programs (build =
+# exactly ONE all-to-all; hierarchical re-bucketing = one per phase). The
+# single-phase contracts also apply to ``rebucket``.
+_program_lint.register_contract(
+    "index-build-exchange",
+    collectives={"all-to-all": (1, 1)},
+    description="distributed index build: rows cross devices in exactly one plane-packed all-to-all",
+)
+_program_lint.register_contract(
+    "index-rebucket",
+    collectives={"all-to-all": (1, 1)},
+    description="incremental re-bucketing: one plane-packed all-to-all",
+)
+_program_lint.register_contract(
+    "hierarchical-exchange",
+    collectives={"all-to-all": (2, 2)},
+    description="2-D (dcn, ici) re-bucketing: one all-to-all per phase, rows cross DCN once",
+)
 
 
 def _build_exchange_program(mesh: Mesh, kinds: Tuple[str, ...], num_buckets: int, capacity: int):
@@ -298,7 +323,12 @@ def distributed_bucket_sort_build(mesh: Mesh, keys, host_hashes, kinds: Tuple[st
     otherwise (the skew strategy, SURVEY.md §7)."""
     as_list = lambda x: x.shards if isinstance(x, ShardedTensor) else list(x)  # noqa: E731
     fn = _build_exchange_program(mesh, tuple(kinds), int(num_buckets), int(capacity))
-    out = fn([as_list(k) for k in keys], [as_list(h) for h in host_hashes], as_list(row_idx), int(n_valid))
+    args = ([as_list(k) for k in keys], [as_list(h) for h in host_hashes], as_list(row_idx), int(n_valid))
+    # no session conf reaches this layer: maybe_verify(None, ...) consults
+    # the module default the last Session set
+    key = f"index-build-exchange/{','.join(kinds)}|b{int(num_buckets)}|c{int(capacity)}|n{mesh.size}"
+    with _program_lint.maybe_verify(None, "index-build-exchange", key, args):
+        out = fn(*args)
     for v in out.values():
         overflow_rows["build"] += int(v[3])
     return out
@@ -325,15 +355,17 @@ def rebucket_hierarchical(mesh: Mesh, arrays: Dict[str, ShardedTensor], bucket_i
     cols = {n: _shards(arrays[n]) for n in names}
     buckets = _shards(bucket_ids)
 
-    # -- phase 1 (ici): to the owner's local position in this slice
     values = {g: [cols[n][g] for n in names] + [b] for g, b in buckets.items()}
-    dest = {g: (b.to(torch.int64) % n_dev) % n_l for g, b in buckets.items()}
-    mid, mid_mask, of1 = _exchange_phase(mesh, ici_axis, n_l, values, dest, capacity_ici)
+    key = lambda: f"hierarchical-exchange/c{capacity_ici},{capacity_dcn}|n{n_s}x{n_l}"  # noqa: E731
+    with _program_lint.maybe_verify(None, "hierarchical-exchange", key, (values,)):
+        # -- phase 1 (ici): to the owner's local position in this slice
+        dest = {g: (b.to(torch.int64) % n_dev) % n_l for g, b in buckets.items()}
+        mid, mid_mask, of1 = _exchange_phase(mesh, ici_axis, n_l, values, dest, capacity_ici)
 
-    # -- phase 2 (dcn): to the owner slice; the local position is kept
-    dest2 = {g: (v[-1].to(torch.int64) % n_dev) // n_l for g, v in mid.items()}
-    out, out_mask, of2 = _exchange_phase(mesh, dcn_axis, n_s, mid, dest2, capacity_dcn, mid_mask)
-    overflow = {g: of1[g] + of2[g] for g in of1}
+        # -- phase 2 (dcn): to the owner slice; the local position is kept
+        dest2 = {g: (v[-1].to(torch.int64) % n_dev) // n_l for g, v in mid.items()}
+        out, out_mask, of2 = _exchange_phase(mesh, dcn_axis, n_s, mid, dest2, capacity_dcn, mid_mask)
+        overflow = {g: of1[g] + of2[g] for g in of1}
     for v in overflow.values():
         overflow_rows["hierarchical"] += int(v)
     out_arrays = {n: _wrap(mesh, {g: out[g][i] for g in out}) for i, n in enumerate(names)}

@@ -31,6 +31,7 @@ from typing import Sequence, Tuple
 
 import torch
 
+from hyperspace_tpu_torch.check import program_lint as _program_lint
 from hyperspace_tpu_torch.ops.encode import ORDER_PLANE_SENTINEL
 from hyperspace_tpu_torch.ops.hashing import bucket_ids_torch
 from hyperspace_tpu_torch.ops.kernels import bucket_histogram
@@ -152,6 +153,48 @@ def padded_size(n: int) -> int:
 # --------------------------------------------------------------------------
 
 _TOPK_SENTINEL = int(ORDER_PLANE_SENTINEL)
+
+# --- declared program contracts (check/program_lint.py), stated next to the
+# program builders like exec/device.py's families ---------------------------
+_program_lint.register_contract(
+    "topk-chunk",
+    collectives={"all-gather": (0, None)},
+    description=(
+        "chunk select-top-k: one multi-operand sort over key planes; may "
+        "gather fixed-size planes, never payload rows"
+    ),
+)
+_program_lint.register_contract(
+    "topk-merge",
+    collectives={},
+    description="pairwise top-k candidate merge: 2*cap fixed-size inputs, device-local, collective-free",
+)
+_program_lint.register_contract(
+    "sharded-topk",
+    collectives={"all-gather": (1, 1)},
+    description=(
+        "sharded top-k chunk: per-shard select + EXACTLY one fixed-size "
+        "all-gather of candidate planes (never rows), replicated final merge"
+    ),
+)
+_program_lint.register_contract(
+    "fused-stage-topk",
+    collectives={"all-gather": (0, None)},
+    description=(
+        "whole-stage chunk select + state merge with an in-place candidate "
+        "buffer: one dispatch per chunk"
+    ),
+    single_fusion=True,
+)
+_program_lint.register_contract(
+    "fused-stage-topk-sharded",
+    collectives={"all-gather": (1, 1)},
+    description=(
+        "sharded whole-stage top-k fold: per-shard select, one fixed-size "
+        "candidate all-gather, replicated merge with the running state"
+    ),
+    single_fusion=True,
+)
 
 
 def _take_cap(mat: torch.Tensor, cap: int, sentinel: int) -> torch.Tensor:

@@ -27,6 +27,8 @@ process boundary, parallel/distributed.py) the ``dcn`` exchange goes through
 from __future__ import annotations
 
 import collections
+import contextlib
+import threading
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -49,6 +51,32 @@ collective_entries: collections.Counter = collections.Counter()
 def reset_collectives() -> None:
     collective_calls.clear()
     collective_entries.clear()
+
+
+#: this thread's collective listener: the list a recording program window
+#: (check/program_lint.py) appends ``(op, axis)`` to. Per thread, because
+#: pipeline threads run programs concurrently and ``collective_calls`` is
+#: the process's total.
+_listener = threading.local()
+
+
+@contextlib.contextmanager
+def listening_collectives(sink: list):
+    """Append ``(op, axis)`` to ``sink`` for each collective this thread
+    calls inside the block (op names as in the JAX package's HLO:
+    ``all-gather``, ``all-to-all``)."""
+    prev = getattr(_listener, "sink", None)
+    _listener.sink = sink
+    try:
+        yield sink
+    finally:
+        _listener.sink = prev
+
+
+def _heard(op: str, axis: str) -> None:
+    sink = getattr(_listener, "sink", None)
+    if sink is not None:
+        sink.append((op, axis))
 
 
 class Mesh:
@@ -276,6 +304,7 @@ def all_gather(parts: Sequence[torch.Tensor], device: torch.device, axis: str = 
     ``device`` (where the replicated merge runs): one copy per table whose
     shard lives on another device."""
     collective_calls[("all_gather", axis)] += 1
+    _heard("all-gather", axis)
     collective_entries[("all_gather", axis)] += sum(int(p.numel()) for p in parts)
     return torch.cat([p.to(device, non_blocking=True) for p in parts])
 
@@ -303,6 +332,7 @@ def all_to_all(mesh: Mesh, axis: str, staged: Dict[int, torch.Tensor]) -> Dict[i
     if mesh.process_count > 1 and axis == mesh.axis_names[0] and len(mesh.axis_names) == 2:
         return _all_to_all_processes(mesh, staged)
     collective_calls[("all_to_all", axis)] += 1
+    _heard("all-to-all", axis)
     out: Dict[int, torch.Tensor] = {}
     for group in _groups(mesh, axis):
         if group[0] not in staged:  # another process's slice
@@ -328,6 +358,7 @@ def _all_to_all_processes(mesh: Mesh, staged: Dict[int, torch.Tensor]) -> Dict[i
     recv = torch.empty_like(send)
     dist.all_to_all_single(recv, send)
     collective_calls[("all_to_all", mesh.axis_names[0], "process")] += 1
+    _heard("all-to-all", mesh.axis_names[0])
     collective_entries[("all_to_all", mesh.axis_names[0], "process")] += int(send.numel())
     n_s = recv.shape[0]
     return {g: recv[:, i].reshape(n_s * recv.shape[2], recv.shape[3]).to(mesh.device_of(g))

@@ -70,6 +70,11 @@ class Session:
         from hyperspace_tpu_torch import reliability as _reliability
 
         _reliability.configure(self)
+        # program-contract verification for sites with no session in scope
+        # (the exchange build): the session constructed last wins
+        from hyperspace_tpu_torch.check import program_lint as _program_lint
+
+        _program_lint.set_default_enabled(self.conf.check_hlo_enabled)
         # lock watching is enable-only: locks wrap at construction, so a
         # later session with the flag off cannot unwrap them
         if self.conf.check_locks_enabled:

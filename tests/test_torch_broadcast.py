@@ -10,7 +10,6 @@ the JAX package's does. The shared build cache of
 
 Left out, each with its reason:
 
-- ``TestHloContracts``: HLO contracts, never ported (XLA only);
 - ``TestQ3Chain::test_probe_compile_flatness_across_chunk_sizes``: XLA
   compile counts (torch compiles nothing).
 
@@ -45,7 +44,6 @@ from hyperspace_tpu_torch.ops.hashing import combine_hashes_np  # noqa: E402
 pytestmark = pytest.mark.torch_port
 
 LEFT_OUT = {
-    "TestHloContracts": "HLO contracts (XLA only)",
     "TestQ3Chain::test_probe_compile_flatness_across_chunk_sizes": "XLA compile counts",
 }
 
@@ -63,6 +61,10 @@ _cases = M.load_cases(
             "        from hyperspace_tpu_torch.exec import join as D\n        from hyperspace_tpu_torch.obs.metrics import REGISTRY\n",
         "        from hyperspace_tpu_torch.exec import device as D\n\n        sess, ldf, rdf, _lpd, _rpd = smj_sides":
             "        from hyperspace_tpu_torch.exec import join as D\n\n        sess, ldf, rdf, _lpd, _rpd = smj_sides",
+        # the port's program contracts (check/program_lint.py, the
+        # counterpart of check/hlo_lint.py)
+        "        from hyperspace_tpu_torch.check import hlo_lint\n": (
+            "        from hyperspace_tpu_torch.check import program_lint as hlo_lint\n"),
     },
 )
 M.export_cases(_cases, globals(), LEFT_OUT)

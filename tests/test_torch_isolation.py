@@ -205,6 +205,33 @@ def test_sharded_path_imports_without_jax_or_cuda():
     assert r.returncode == 0 and r.stdout.strip().endswith("ok"), r.stderr
 
 
+def test_static_analysis_imports_without_jax_or_cuda():
+    """The lint, its eleven rules and the program contracts
+    (``check/rules/``, ``check/program_lint.py``) load neither JAX nor the
+    JAX package and start no CUDA context, and ``python -m
+    hyperspace_tpu_torch.check`` lints the port's tree clean in such a
+    process."""
+    code = (
+        "import runpy, sys\n"
+        "import hyperspace_tpu_torch.check, hyperspace_tpu_torch.check.lint\n"
+        "import hyperspace_tpu_torch.check.program_lint\n"
+        "from hyperspace_tpu_torch.check.rules import all_rules\n"
+        "assert len(all_rules()) == 11\n"
+        "sys.argv = ['hyperspace_tpu_torch.check']\n"
+        "try:\n"
+        "    runpy.run_module('hyperspace_tpu_torch.check', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert not e.code, e.code\n"
+        "import torch\n"
+        "assert not torch.cuda.is_initialized(), 'import initialized CUDA'\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'hyperspace_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0 and r.stdout.strip().endswith("ok"), r.stderr
+
+
 def test_session_defaults_to_cuda_and_refuses_without_it(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

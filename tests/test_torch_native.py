@@ -13,18 +13,14 @@ for the port:
   so the decode buffer holds exactly the file's rows, and the staging path's
   host tensor (``exec/device._staging_host``) must read that very memory;
 - ``TestDictionaryShipping::test_dict_expand_on_device_matches_and_passes_contract``
-  keeps its decode, the ``dict-expand`` dispatch and the mask against host
-  evaluation, and loses its ``hlo_lint`` half (below).
+  reads the port's program contracts (``check/program_lint.py``, the
+  counterpart of ``check/hlo_lint.py``), its session a CPU one.
 
 Left out, by name:
 
 - ``TestZeroCopy::test_adoption_rejects_garbage_tail``: the port has no
   padded tail to adopt or reject; ``test_staged_host_tensor_is_the_decode_buffer``
-  here is its pointer-identity counterpart on the CPU;
-- the ``hlo_lint`` half of ``test_dict_expand_on_device_matches_and_passes_contract``
-  (``hlo_lint.reset_runtime_state``, ``CHECK_HLO_ENABLED`` and
-  ``runtime_violations``): ``check/hlo_lint.py`` has no torch counterpart
-  (ROADMAP A11).
+  here is its pointer-identity counterpart on the CPU.
 
 The cases of this file hold the port's ``read_parquet_batch`` against the
 JAX package's on a seeded codec matrix (NONE, SNAPPY, GZIP, ZSTD x int,
@@ -89,12 +85,11 @@ SOURCES = {
         "            assert padded is arr.base, c  # staging adopts the decoder's buffer\n": (
             '            host = D._staging_host(enc, torch.device("cpu"))\n'
             "            assert host.data_ptr() == arr.ctypes.data, c  # staging reads the decode buffer\n"),
-        # the hlo_lint half of the dict-expand case
-        "        from hyperspace_tpu_torch.check import hlo_lint\n": "",
-        "        hlo_lint.reset_runtime_state()\n": "",
+        # the dict-expand case reads the port's program contracts
+        "        from hyperspace_tpu_torch.check import hlo_lint\n": (
+            "        from hyperspace_tpu_torch.check import program_lint as hlo_lint\n"),
         "        sess = hst.Session(conf={hst.keys.CHECK_HLO_ENABLED: True})\n": (
-            '        sess = hst.Session(device="cpu")\n'),
-        "        assert hlo_lint.runtime_violations() == []\n": "",
+            '        sess = hst.Session(device="cpu", conf={hst.keys.CHECK_HLO_ENABLED: True})\n'),
     },
 }
 LEFT_OUT = {

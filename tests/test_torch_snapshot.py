@@ -11,12 +11,9 @@ here). The case at the end holds the port's pins against the JAX package:
 both packages read one system path while the port's refresh manager commits
 a new version, and a pin taken before the commit keeps serving the old
 version's rows in both.
-
-Left out, each with its reason (``LEFT_OUT``):
-
-- ``TestDeviceLineage::test_hlo_contract_zero_collectives``: it checks an
-  XLA program's HLO; the port's programs are torch programs and have none
-  (ROADMAP: ``check/hlo_lint.py`` gets no port).
+``TestDeviceLineage::test_hlo_contract_zero_collectives`` reads the port's
+program contracts (``check/program_lint.py``, the counterpart of
+``check/hlo_lint.py``). Nothing is left out (``LEFT_OUT`` is empty).
 """
 
 import os
@@ -46,13 +43,12 @@ SOURCES = {
             "            assert D._device_cache.get(dev_other_key) is not None"),
         "            assert D._device_cache_get(dev_victim_key) is None": (
             "            assert D._device_cache.get(dev_victim_key) is None"),
+        "        from hyperspace_tpu_torch.check import hlo_lint\n": (
+            "        from hyperspace_tpu_torch.check import program_lint as hlo_lint\n"),
     },
     "test_sched.py": dict(M.CPU_PORT_IMPORT),
 }
-LEFT_OUT = {
-    "TestDeviceLineage::test_hlo_contract_zero_collectives": (
-        "an XLA program's HLO contract; the port's programs are torch programs (no hlo_lint port)"),
-}
+LEFT_OUT: dict = {}
 
 _modules = [M.load_cases(os.path.join(HERE, src), f"_torch_{src[:-3]}_suite", rewrites=rw)
             for src, rw in SOURCES.items()]
