@@ -3,6 +3,13 @@
 
     python3 chip_smoke.py [--seed N] [--rows N] [--files N] [--reps N] [--baseline-csrc DIR]
 
+"SF1" in the phases below names the main lake: ``--rows`` TPC-H-shaped
+``lineitem`` rows in ``--files`` files beside 1.5M ``orders`` rows. Its
+default is ``DEFAULT_ROWS``, 3M (SF 0.5), cut from 6M so that the whole
+script stays well inside its 1200 s limit on a slow host; ``--rows
+6000000`` runs SF1 itself. The ``sql`` phase's TPC-H lake (``SQL_SF``)
+and the ``scale`` lake (sized past the real 1 GiB gate) keep their sizes.
+
 Phases, each printed with its time (the filter query's phases are 5, 10
 and 13, the join's 6, 11 and 14, the aggregates' 7, 12 and 15, out-of-core
 execution's 7b, 12b, 15b and 17, the index lifecycle's 7c and 12c, scan
@@ -273,7 +280,8 @@ the JAX package does):
    hyperspace off, each split by its layers; then the ``fused-agg`` program
    of a warm A2 and the ``grouped-agg-chunk`` program of a warm A1 timed
    alone with CUDA events beside their bounds;
-12b. stream: J1 and J2 streamed (``joinMinBytes=1``) with the join
+12b. stream: J1 streamed (``joinMinBytes=1``; J2's shape runs in 7b
+   and in ``join``, cut here for the script's time limit) with the join
    pipeline on and off, byte for byte equal to the unstreamed join and to
    hyperspace off as a multiset; A1 and A2 streamed (``aggMinBytes=1``,
    ``chunkBytes`` an eighth of ``li_q1``'s index bytes: at least 8 chunks)
@@ -332,16 +340,17 @@ the JAX package does):
    warm, with the aggregate tier each takes (SQL's ``Aggregate ->
    Compute`` takes the host aggregate, as in the JAX package); then the
    other nineteen once on and once off, rows equal, over a lake and roster
-   of their own at SF 0.1 (cut from SF1 to keep the script inside its
-   time limit). Every query prints its ``join: broadcast-hash-stream``
+   of their own at SF 0.1 and 16 buckets (cut from SF1 and 200 buckets to
+   keep the script inside its time limit). Every query prints its ``join: broadcast-hash-stream``
    count; each timed one also runs off with ``broadcastMaxBytes=0`` (the
    generic merge, PR 9's "off"), and its layers include the broadcast
    join's ``join_build``, ``join_probe`` (program and copy-back),
    ``join_verify``, ``join_postjoin`` and ``join_gather``; then
    ``hash-build`` and ``hash-probe`` alone on the largest table the timed
    queries broadcast and its largest probe chunk;
-12k. native: q6 and J1 on the main session and q12 and q19 through
-   ``Session.sql`` on the SF1 TPC-H session, cold and warm (2), with native
+12k. native: q6 and J1 on the main session and q19 through
+   ``Session.sql`` on the SF1 TPC-H session (q12 went for the script's time
+   limit), cold and warm (2), with native
    decode on and off (``hyperspace.exec.io.native.enabled``), rows equal,
    with ``decode``/``join_decode`` layers, ``hs_native_decode_total`` by
    codec, ``hs_native_decode_bytes_total`` and no dialect or io-error
@@ -362,13 +371,14 @@ the JAX package does):
    groups pruning kept and the cold run's dispatches; T4 (``limit(10)``
    through ``to_local_iterator``) with the files it decoded of 16; then
    ``topk-chunk`` and ``topk-merge`` alone on T1's inputs;
-12i. nested: the SF1 ``lineitem`` and ``orders`` written again with
-   struct columns (``l_ship``, ``l_key``, ``o_key``); ``li_ship_nested``,
-   ``li_key_nested`` and ``o_key_nested`` built (stages, rows/s, K1); NQ6
-   (q6's filter over the ``l_ship`` leaves, ``filter: device``) and NJ1
-   (J1 on the nested order keys, nested-small's join tier) cold, warm and
-   off (one run) with layers, equal to off and as many rows as their flat
-   twins q6 and J1. Within 12g, ``explain``: ``Hyperspace.explain`` and
+12i. nested: the first ``NESTED_FILES`` of SF1's 16 ``lineitem`` files
+   and all of ``orders`` written again with struct columns (``l_ship``,
+   ``l_key``, ``o_key``); ``li_ship_nested``, ``li_key_nested`` and
+   ``o_key_nested`` built (stages, rows/s, K1); NQ6 (q6's filter over the
+   ``l_ship`` leaves, ``filter: device``) and NJ1 (J1 on the nested order
+   keys, nested-small's join tier) cold, warm and off (one run) with
+   layers, equal to off and as many rows as their flat twins q6 and J1
+   over the same files. Within 12g, ``explain``: ``Hyperspace.explain`` and
    ``why_not`` of all 22 texts over the SF1 lake and roster, each timed and
    equal to a CPU session's;
 12j. fusion: at SF1, fusion on against off (warm medians of a third of
@@ -381,6 +391,8 @@ the JAX package does):
    FT1 (T1); then one warm run with each fused program between CUDA events
    and one with the per-family programs it replaces (FJ3's through the
    per-family device fold over the same probe chunks), printed per chunk;
+   and one warm FA4 under ``torch.profiler`` with fusion on and off (the
+   grouped programs' device time by kernel at many groups);
 12n. mesh: the sharded path at SF1 over the main session's indexes under
    the card's own mesh (one device) and a 4-shard mesh on cuda:0: q6, A1
    (``li_q1``), A1 streamed (12b's chunks), T1 (8 chunks), FA1d and FT1
@@ -413,9 +425,14 @@ the JAX package does):
    CPU session over a 60 000-row lake (and its 4 x cpu mesh), each
    family's verified count and findings beside the card's, and the
    synchronisations CUDA reported in each window (with the Python line
-   that caused each) beside the window's recorded ``host-callback`` ops.
-   Last, warm q6 and A1 with the check on (each program already verified)
-   against off;
+   that caused each) beside the window's recorded ``host-callback`` ops,
+   and the syncs per family on one line. The phase fails if any recorded
+   window, on the card or the CPU, reports a finding, and if a window of
+   the grouped families or the exchange staging (``SYNC_FREE_FAMILIES``)
+   reports a synchronisation. Then warm q6 and A1 with the check on (each
+   program already verified) against off; last, on one line, the grouped
+   programs' times the earlier phases measured (``agg``, ``stream``,
+   ``fusion``, ``mesh``);
 13. profile-query: one warm q6 under ``torch.profiler``: device busy time
    against the query's wall time, and the device time by op;
 14. profile-join: the same for one warm J1;
@@ -424,17 +441,15 @@ the JAX package does):
 16. profile: one more covering build under ``torch.profiler``: the device's
    busy time (the union of its kernel and copy intervals) against the
    build's wall time, and the device time by kernel;
-17. scale: the gates at their defaults. Each SF1 index's bytes, then the
-   fewest ``lineitem`` rows (the SF1 lake's columns, distributions and rows
-   per file; ``orders`` at a quarter) that put J1's two covering indexes
-   (TPC-H q3's ``lineitem`` and ``orders`` columns) together, and ``li_q1``
-   alone, above 1.1 GiB, sized from those indexes' SF1 bytes per row;
-   the lake generated on worker processes and indexed (K1 launches), the
-   gates' crossing asserted from the bytes; J1 (the streamed join) and A1
-   (the streamed aggregate) cold, against hyperspace off (J1 by row count
-   and an order-free digest of the rows, A1 at the aggregates'
-   tolerances), with no ``stream-fallback`` in any trace (the warm run
-   went, for the script's time limit);
+17. scale: the aggregate's gate at its default. ``li_q1``'s SF1 bytes, then
+   the fewest ``lineitem`` rows (the SF1 lake's columns, distributions and
+   rows per file) that put ``li_q1`` above 1.1 GiB, sized from its SF1
+   bytes per row; the lake generated on worker processes and indexed (K1
+   launches), the gate's crossing asserted from the bytes; A1 (the
+   streamed aggregate) cold, against hyperspace off at the aggregates'
+   tolerances, with no ``stream-fallback`` in its trace (the warm run went,
+   and then J1 over the join's two indexes at 35.6M rows, for the
+   script's time limit);
 12l. serving: ``QueryServer(workers=4)`` at its defaults (no result cache,
    no scheduler) over the SF1 lake and the indexes built above
    (``deviceMinRows=0``, hybrid scan on, row-group pruning on), fed by 8
@@ -444,9 +459,9 @@ the JAX package does):
    ``orders``, 2 ``o_totalprice`` literals) and 10% T1, each over a fresh
    listing of the lake; first each distinct request's direct ``collect()``
    (in a second session, row-group pruning off) and dispatch trace; then
-   one server for a warm-up (each distinct request once), quiesced run A
-   under ``torch.profiler`` (the device's busy share), quiesced run B
-   (printed against A: agree or unresolved), and a run while a background
+   one server for a warm-up (each distinct request once), a quiesced run
+   under ``torch.profiler`` (the device's busy share; its repeat, run B,
+   went for the script's time limit), and a run while a background
    ``RefreshManager`` (mode incremental) refreshes every ``lineitem``
    index after an SF1-sized file of new orders lands once a tenth of the
    requests are served (K1 and K2 launches, each call equal to its plain
@@ -520,6 +535,9 @@ CORE_OPS_PER_S = 67e12
 
 LINEITEM_ROWS_SF1 = 6_000_000
 ORDERS_ROWS_SF1 = 1_500_000
+#: the main lake's default ``lineitem`` rows: SF 0.5 (SF1 ran 913-1204 s of
+#: the 1200 s limit on the card's hosts, which differ up to 2x in host work)
+DEFAULT_ROWS = LINEITEM_ROWS_SF1 // 2
 BATCH_ROWS = 2_000_000  # the build's default hyperspace.tpu.build.batchRows
 
 
@@ -1178,14 +1196,18 @@ def canonical_order(keys):
     if not keys:
         return np.zeros(0, dtype=np.int64)
 
-    def mix(z):  # splitmix64's finalizer (uint64 arithmetic wraps)
-        z = (z ^ (z >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
-        z = (z ^ (z >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
-        return z ^ (z >> np.uint64(31))
+    def mix(z):  # splitmix64's finalizer, in place (uint64 arithmetic wraps)
+        z ^= z >> np.uint64(30)
+        z *= np.uint64(0xBF58476D1CE4E5B9)
+        z ^= z >> np.uint64(27)
+        z *= np.uint64(0x94D049BB133111EB)
+        z ^= z >> np.uint64(31)
+        return z
 
     h = np.zeros(len(keys[0]), dtype=np.uint64)
     for k in keys:
-        h = mix(h ^ mix(k.astype(np.uint64)))
+        h ^= k.view(np.uint64) if k.dtype == np.int64 else k.astype(np.uint64)
+        h = mix(h)
     order = np.argsort(h)
     h = h[order]
     tie = np.flatnonzero(h[1:] == h[:-1])
@@ -2493,13 +2515,13 @@ def merge_program_time(program, args, reps: int, hbm: float) -> dict:
     written = nbytes((fs, *keys, *slots))
     b_ms, b_by = bound(read + written, 0, hbm)
     ms = time_ms(lambda: program(*args), reps)
-    return {"shape": f"2 x {keys_a[0].shape[0]} rows ({n_a} + {n_b} groups) -> {fs.shape[0]} ({n_g} groups), "
+    return {"shape": f"2 x {keys_a[0].shape[0]} rows ({n_a} + {n_b} groups) -> {fs.shape[0]} ({int(n_g)} groups), "
                      f"{len(keys_a)} keys, {len(slots_a)} slots",
             "ms": ms, "bound_ms": b_ms, "bound_by": b_by, "share_of_bound": b_ms / ms, "bytes": read + written}
 
 
 def run_stream(sess, li_src: str, o_src: str, tmp: str, args, smi: str, hbm: float) -> dict:
-    """J1 and J2 streamed (``joinMinBytes=1``) and A1 and A2 streamed
+    """J1 streamed (``joinMinBytes=1``) and A1 and A2 streamed
     (``aggMinBytes=1``, ``chunkBytes`` an eighth of ``li_q1``'s index
     bytes), with the pipeline on and off, against the unstreamed results and
     hyperspace off; warm medians and layers of every run; the pipelined
@@ -2536,7 +2558,7 @@ def run_stream(sess, li_src: str, o_src: str, tmp: str, args, smi: str, hbm: flo
         print(f"layers {name} {mode} (warm): " + ", ".join(f"{k} {v:.3f} ms" for k, v in layers.items())
               + f" ({smi})", flush=True)
 
-    joins = join_queries(li, orders)
+    joins = {"J1": join_queries(li, orders)["J1"]}
     for name, q in joins.items():
         unstreamed, summary, cold_u, warm_u = run_mode(q, {ht.keys.STREAM_JOIN_MIN_BYTES: 1 << 30}, reps_join)
         assert "join: device-smj x1" in summary.splitlines(), summary
@@ -2680,70 +2702,32 @@ def _write_orders_file(path: str, seed: int, i: int, first_key: int, rows: int, 
     pq.write_table(pa.table(orders_columns(np.random.default_rng([seed, i]), first_key, rows, sf)), path)
 
 
-def gen_scale_lake(root: str, rows_total: int, seed: int):
-    """The SF1 lake's tables at ``rows_total`` lineitem rows (orders at a
-    quarter, every ``l_orderkey`` matching one order): the same columns,
-    value ranges and rows per file, each file from its own generator, on
-    a pool of worker processes. Returns (lineitem dir, orders dir)."""
+def gen_scale_lake(root: str, rows_total: int, seed: int) -> str:
+    """The SF1 lake's ``lineitem`` at ``rows_total`` rows: the same
+    columns, value ranges and rows per file, each file from its own
+    generator, on a pool of worker processes. Returns its directory."""
     import concurrent.futures
     import multiprocessing
 
     sf = rows_total / LINEITEM_ROWS_SF1
-    n_orders = max(1, int(ORDERS_ROWS_SF1 * sf))
-    li_dir, o_dir = os.path.join(root, "lineitem"), os.path.join(root, "orders")
+    li_dir = os.path.join(root, "lineitem")
     os.makedirs(li_dir, exist_ok=True)
-    os.makedirs(o_dir, exist_ok=True)
     jobs = []
     for i, first in enumerate(range(0, rows_total, SCALE_ROWS_PER_FILE)):
         rows = min(SCALE_ROWS_PER_FILE, rows_total - first)
-        jobs.append((_write_lineitem_file, os.path.join(li_dir, f"part-{i:05d}.parquet"), seed, i, rows, sf))
-    per_orders = ORDERS_ROWS_SF1 // 8
-    for i, first in enumerate(range(0, n_orders, per_orders)):
-        rows = min(per_orders, n_orders - first)
-        jobs.append((_write_orders_file, os.path.join(o_dir, f"part-{i:05d}.parquet"), seed + 1, i, first, rows, sf))
+        jobs.append((os.path.join(li_dir, f"part-{i:05d}.parquet"), seed, i, rows, sf))
     workers = max(1, min(8, os.cpu_count() or 1))
     with concurrent.futures.ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as pool:
-        for f in [pool.submit(fn, *a) for fn, *a in jobs]:
+        for f in [pool.submit(_write_lineitem_file, *a) for a in jobs]:
             f.result()
-    return li_dir, o_dir
+    return li_dir
 
 
-def row_digest(batch, columns) -> int:
-    """Order-free digest of a batch's rows: the sum mod 2^64 of a 64-bit mix
-    of each row's column bit patterns (dates as int64 days)."""
-    import numpy as np
-
-    n = len(batch[columns[0]])
-    total = np.uint64(0)
-    step = 1 << 22
-    with np.errstate(over="ignore"):
-        for lo in range(0, n, step):
-            h = np.zeros(min(step, n - lo), dtype=np.uint64)
-            for i, c in enumerate(columns):
-                v = batch[c][lo: lo + step]
-                if v.dtype.kind == "M":
-                    v = v.astype("datetime64[D]").view(np.int64)
-                bits = np.ascontiguousarray(v.astype(np.float64) if v.dtype.kind == "f" else v.astype(np.int64))
-                h = h * np.uint64(0x9E3779B97F4A7C15) + bits.view(np.uint64) + np.uint64(i + 1)
-                h ^= h >> np.uint64(30)
-                h *= np.uint64(0xBF58476D1CE4E5B9)
-                h ^= h >> np.uint64(27)
-                h *= np.uint64(0x94D049BB133111EB)
-                h ^= h >> np.uint64(31)
-            total = total + h.sum(dtype=np.uint64)
-    return int(total)
-
-
-SCALE_Q3_LI = ("l_orderkey", ["l_extendedprice", "l_discount", "l_shipdate"])
-SCALE_Q3_O = ("o_orderkey", ["o_orderdate", "o_shippriority"])
-SCALE_J1_COLUMNS = ("l_orderkey", "l_extendedprice", "l_discount", "l_shipdate", "o_orderdate", "o_shippriority")
-
-
-def run_scale(main_sess, li_src: str, o_src: str, tmp: str, args, smi: str) -> dict:
-    """A lake whose J1 and A1 inputs pass the real 1 GiB gates with the
-    defaults untouched (``deviceMinRows`` 0, as in every SF1 phase):
-    sized from the SF1 index bytes per row, generated, indexed, then J1 and
-    A1 cold against hyperspace off."""
+def run_scale(main_sess, tmp: str, args, smi: str) -> dict:
+    """A lake whose A1 input passes the real 1 GiB gate with the defaults
+    untouched (``deviceMinRows`` 0, as in every SF1 phase): sized from
+    ``li_q1``'s SF1 bytes per row, generated, indexed, then A1 cold against
+    hyperspace off."""
     import torch
 
     import hyperspace_tpu_torch as ht
@@ -2751,96 +2735,61 @@ def run_scale(main_sess, li_src: str, o_src: str, tmp: str, args, smi: str) -> d
     from hyperspace_tpu_torch.ops import kernels
 
     system = main_sess.conf.system_path
-    sizes = {name: index_bytes(system, name) for name in ("li_shipdate", "li_orderkey", "o_orderkey", "li_q1")}
-    for name, b in sizes.items():
-        print(f"scale: SF1 index {name}: {b} bytes on disk", flush=True)
-    # the scale indexes' bytes per row, from their SF1 builds
-    hs = ht.Hyperspace(main_sess)
-    hs.create_index(main_sess.read_parquet(li_src), ht.CoveringIndexConfig("li_q3", [SCALE_Q3_LI[0]], SCALE_Q3_LI[1]))
-    hs.create_index(main_sess.read_parquet(o_src), ht.CoveringIndexConfig("o_q3", [SCALE_Q3_O[0]], SCALE_Q3_O[1]))
-    for name in ("li_q3", "o_q3"):
-        sizes[name] = index_bytes(system, name)
-        print(f"scale: SF1 index {name}: {sizes[name]} bytes on disk", flush=True)
-    # per lineitem row: the lake's lineitem rows, and a quarter of an order
-    # (the scale lake's orders per lineitem row, as SF1's)
-    per_row_q1 = sizes["li_q1"] / args.rows
-    per_row_j1 = sizes["li_q3"] / args.rows + sizes["o_q3"] / LINEITEM_ROWS_SF1
-    need = max(SCALE_TARGET_BYTES / per_row_q1, SCALE_TARGET_BYTES / per_row_j1)
-    rows = -(-int(need) // SCALE_ROWS_PER_FILE) * SCALE_ROWS_PER_FILE
-    print(f"scale: {per_row_q1:.3f} bytes per row for li_q1, {per_row_j1:.3f} for J1's two indexes: "
-          f"{rows} lineitem rows ({rows / LINEITEM_ROWS_SF1:.2f} x SF1) put both above {SCALE_TARGET_BYTES} bytes",
-          flush=True)
+    q1_sf1 = index_bytes(system, "li_q1")
+    per_row = q1_sf1 / args.rows
+    rows = -(-int(SCALE_TARGET_BYTES / per_row) // SCALE_ROWS_PER_FILE) * SCALE_ROWS_PER_FILE
+    print(f"scale: SF1 index li_q1: {q1_sf1} bytes on disk, {per_row:.3f} bytes per row: {rows} lineitem rows "
+          f"({rows / LINEITEM_ROWS_SF1:.2f} x SF1) put it above {SCALE_TARGET_BYTES} bytes", flush=True)
 
     root = os.path.join(tmp, "scale")
     t = time.perf_counter()
-    li_dir, o_dir = gen_scale_lake(root, rows, args.seed + 7)
+    li_dir = gen_scale_lake(root, rows, args.seed + 7)
     gen_s = time.perf_counter() - t
-    print(f"scale lake: {rows} lineitem rows, {max(1, int(ORDERS_ROWS_SF1 * rows / LINEITEM_ROWS_SF1))} orders rows "
-          f"({gen_s:.3f} s)", flush=True)
+    print(f"scale lake: {rows} lineitem rows ({gen_s:.3f} s)", flush=True)
     sess = ht.Session(conf={ht.keys.SYSTEM_PATH: os.path.join(root, "indexes"), ht.keys.DEVICE_MIN_ROWS: 0},
                       device="cuda")
-    hs = ht.Hyperspace(sess)
-    li, orders = sess.read_parquet(li_dir), sess.read_parquet(o_dir)
+    li = sess.read_parquet(li_dir)
     torch.cuda.synchronize()
     kernels.reset_launches()
-    builds = {}
-    for name, df, (key, included) in (("li_q3", li, SCALE_Q3_LI), ("o_q3", orders, SCALE_Q3_O),
-                                      ("li_q1", li, ("l_shipdate", ["l_returnflag", "l_linestatus", "l_quantity",
-                                                                    "l_extendedprice", "l_discount", "l_tax"]))):
-        t = time.perf_counter()
-        hs.create_index(df, ht.CoveringIndexConfig(name, [key], included))
-        torch.cuda.synchronize()
-        builds[name] = {"seconds": time.perf_counter() - t, "bytes": index_bytes(sess.conf.system_path, name)}
-        print(f"scale build {name}: {builds[name]['seconds']:.3f} s, {builds[name]['bytes']} bytes ({smi})", flush=True)
+    t = time.perf_counter()
+    ht.Hyperspace(sess).create_index(li, ht.CoveringIndexConfig(
+        "li_q1", ["l_shipdate"], ["l_returnflag", "l_linestatus", "l_quantity", "l_extendedprice", "l_discount",
+                                  "l_tax"]))
+    torch.cuda.synchronize()
+    build = {"seconds": time.perf_counter() - t, "bytes": index_bytes(sess.conf.system_path, "li_q1")}
     launches = dict(kernels.launches)
-    print(f"scale builds: kernel launches {launches}", flush=True)
+    print(f"scale build li_q1: {build['seconds']:.3f} s, {build['bytes']} bytes, kernel launches {launches} ({smi})",
+          flush=True)
     assert launches.get("bucket_histogram", 0) > 0, launches
-    j1_bytes = builds["li_q3"]["bytes"] + builds["o_q3"]["bytes"]
-    q1_bytes = builds["li_q1"]["bytes"]
-    assert j1_bytes >= sess.conf.stream_join_min_bytes and q1_bytes >= sess.conf.stream_agg_min_bytes, \
-        (j1_bytes, q1_bytes)
-    print(f"scale gates: J1's indexes {j1_bytes} bytes >= joinMinBytes {sess.conf.stream_join_min_bytes}; li_q1 "
-          f"{q1_bytes} bytes >= aggMinBytes {sess.conf.stream_agg_min_bytes}", flush=True)
+    assert build["bytes"] >= sess.conf.stream_agg_min_bytes, build
+    print(f"scale gate: li_q1 {build['bytes']} bytes >= aggMinBytes {sess.conf.stream_agg_min_bytes}", flush=True)
 
     sess.enable_hyperspace()
-    c = ht.col
-    out = {"rows": rows, "generate_s": gen_s, "builds": builds, "launches": launches, "sf1_index_bytes": sizes}
-    j1 = li.join(orders, c("l_orderkey") == c("o_orderkey")).select(*SCALE_J1_COLUMNS)
-    plan = j1.optimized_plan()
-    assert sorted(s.entry.name for s in plan_index_scans(plan)) == ["li_q3", "o_q3"], plan.pretty()
+    out = {"rows": rows, "generate_s": gen_s, "builds": {"li_q1": build}, "launches": launches,
+           "sf1_index_bytes": {"li_q1": q1_sf1}}
     a1 = q1_query(li)
     assert [s.entry.name for s in plan_index_scans(a1.optimized_plan())] == ["li_q1"], a1.optimized_plan().pretty()
-    for name, q, want in (("J1", j1, "join: host-span-smj-stream x1"), ("A1", a1, "agg: device-grouped-stream x1")):
-        clear_query_caches()
-        D.reset_dispatches()
-        t = time.perf_counter()
-        got, summary = traced_collect(q)
-        torch.cuda.synchronize()
-        cold = (time.perf_counter() - t) * 1e3
-        print(f"trace scale {name}: " + "; ".join(summary.splitlines()), flush=True)
+    clear_query_caches()
+    D.reset_dispatches()
+    t = time.perf_counter()
+    got, summary = traced_collect(a1)
+    torch.cuda.synchronize()
+    cold = (time.perf_counter() - t) * 1e3
+    print("trace scale A1: " + "; ".join(summary.splitlines()), flush=True)
+    for want in ("agg: device-grouped-stream x1", "agg: streamed-partial x1"):
         assert want in summary.splitlines(), summary
-        if name == "A1":
-            assert "agg: streamed-partial x1" in summary.splitlines(), summary
-        assert_no_fallback(summary, f"scale {name}")
-        dispatches = dict(D.dispatches)
-        with sess.hyperspace_scope(False):
-            t = time.perf_counter()
-            off, off_summary = traced_collect(q)
-            off_ms = (time.perf_counter() - t) * 1e3
-        print(f"trace scale {name} off: " + "; ".join(off_summary.splitlines()), flush=True)
-        n = len(next(iter(got.values())))
-        entry = {"rows_out": n, "cold_ms": cold, "off_ms": off_ms, "dispatches": dispatches}
-        if name == "J1":
-            digest = row_digest(got, SCALE_J1_COLUMNS)
-            assert n == len(off["l_orderkey"]) and digest == row_digest(off, SCALE_J1_COLUMNS), \
-                "scale J1: differs from hyperspace off"
-            entry["digest"] = digest
-        else:
-            assert same_groups(got, off, float_aggs_of(q), ordered=False), "scale A1: differs from hyperspace off"
-        del got, off
-        out[name] = entry
-        print(f"scale {name}: {n} rows out, equal to hyperspace off; cold {cold:.3f} ms, "
-              f"hyperspace off {off_ms:.3f} ms; dispatches {dispatches} ({smi})", flush=True)
+    assert_no_fallback(summary, "scale A1")
+    dispatches = dict(D.dispatches)
+    with sess.hyperspace_scope(False):
+        t = time.perf_counter()
+        off, off_summary = traced_collect(a1)
+        off_ms = (time.perf_counter() - t) * 1e3
+    print("trace scale A1 off: " + "; ".join(off_summary.splitlines()), flush=True)
+    n = len(next(iter(got.values())))
+    assert same_groups(got, off, float_aggs_of(a1), ordered=False), "scale A1: differs from hyperspace off"
+    out["A1"] = {"rows_out": n, "cold_ms": cold, "off_ms": off_ms, "dispatches": dispatches}
+    print(f"scale A1: {n} rows out, equal to hyperspace off; cold {cold:.3f} ms, hyperspace off {off_ms:.3f} ms; "
+          f"dispatches {dispatches} ({smi})", flush=True)
     return out
 
 
@@ -3655,11 +3604,11 @@ def check_sources_small(tmp: str, seed: int, devices=("cpu", "cuda")) -> dict:
     return out
 
 
-def time_queries(sess, qs: dict, reps: int, label: str, smi: str, cold_and_off: bool = True):
+def time_queries(sess, qs: dict, reps: int, label: str, smi: str, cold_and_off: bool = True, offs=None):
     """Cold (caches emptied), warm (median of ``reps``, with layers) and
     hyperspace-off (one run) times of each query; the results of the
-    first runs. ``cold_and_off=False`` keeps the caches and times warm
-    only."""
+    first runs (and of the off runs, into ``offs`` where given).
+    ``cold_and_off=False`` keeps the caches and times warm only."""
     import torch
 
     out, results = {}, {}
@@ -3675,7 +3624,13 @@ def time_queries(sess, qs: dict, reps: int, label: str, smi: str, cold_and_off: 
         off_ms = None
         if cold_and_off:
             with sess.hyperspace_scope(False):
-                off_ms = median_ms(q.collect, 1)
+                t = time.perf_counter()
+                off = q.collect()
+                torch.cuda.synchronize()
+                off_ms = (time.perf_counter() - t) * 1e3
+            if offs is not None:
+                offs[name] = off
+            del off
         out[name] = {"rows": len(next(iter(results[name].values()))), "warm_ms": warm["total"], "layers": warm,
                      **({"cold_ms": cold, "off_ms": off_ms} if cold_and_off else {})}
         print(f"{label} {name}: {out[name]['rows']} rows; "
@@ -3898,12 +3853,12 @@ def run_hybrid(li_src: str, o_src: str, tmp: str, args, smi: str, hbm: float) ->
     assert D.dispatches["lineage-antijoin"] >= 1, out["dispatches"]
     out["traces"] = traces
     reps = max(2, args.reps // 3)
-    times, results = time_queries(sess, qs, reps, "hybrid", smi)
+    offs = {}
+    times, results = time_queries(sess, qs, reps, "hybrid", smi, offs=offs)
     out["queries"] = times
-    for name, q in qs.items():
-        with sess.hyperspace_scope(False):
-            off = q.collect()
-        assert same_groups(results[name], off, {"sum_price", "sum_total"}, ordered=False), f"hybrid {name} != off"
+    for name in qs:
+        assert same_groups(results[name], offs.pop(name), {"sum_price", "sum_total"}, ordered=False), (
+            f"hybrid {name} != off")
     out["program"] = lineage_program_time(capture_lineage_program(qs["q6"].collect), args.reps, hbm)
     p = out["program"]
     print(f"program lineage-antijoin ({p['shape']}): {p['ms']:.6f} ms, bound {p['bound_ms']:.6f} ms "
@@ -3922,8 +3877,9 @@ def run_hybrid(li_src: str, o_src: str, tmp: str, args, smi: str, hbm: float) ->
     for name, q in qs.items():
         plan = q.optimized_plan().pretty()
         assert "_data_file_id" not in plan and "BucketUnion" not in plan, plan
-        assert same_groups(q.collect(), results[name], {"sum_price", "sum_total"}, ordered=False), name
-    refreshed, _ = time_queries(sess, qs, reps, "hybrid refreshed", smi, cold_and_off=False)
+    refreshed, after = time_queries(sess, qs, reps, "hybrid refreshed", smi, cold_and_off=False)
+    for name in qs:
+        assert same_groups(after[name], results[name], {"sum_price", "sum_total"}, ordered=False), name
     out["refreshed"] = refreshed
     print(f"hybrid: full refresh {out['full_refresh']['seconds']:.3f} s (launches {out['full_refresh']['launches']}); "
           f"q6, J1, A3 equal before and after", flush=True)
@@ -4099,6 +4055,9 @@ SQL_TIMED = ("q3", "q6", "q19")
 #: the other sixteen's (cut to keep the script inside its time limit)
 SQL_SF = 1.0
 SQL_OTHER_SF = 0.1
+#: the other sixteen's roster buckets (the default 200 gave every cold
+#: bucketed scan 200 files a side at SF 0.1; cut for the time limit)
+SQL_OTHER_BUCKETS = 16
 
 
 def _tpch_gen(cname, kind, n, rng):
@@ -4486,10 +4445,10 @@ def run_sql(tmp: str, args, smi: str, hbm: float):
     sf1_sess = sess
     other_root = os.path.join(tmp, "sql-other")
     other_dirs = tpch_full.gen_all(other_root, SQL_OTHER_SF, args.seed)
-    sess, builds = open_tpch(other_dirs, os.path.join(other_root, "_indexes"), "cuda")
+    sess, builds = open_tpch(other_dirs, os.path.join(other_root, "_indexes"), "cuda", SQL_OTHER_BUCKETS)
     assert all(b["launches"].get("bucket_histogram", 0) > 0 for b in builds.values()), builds
     out["other_sf"], out["other_builds"] = SQL_OTHER_SF, builds
-    print(f"sql other lake: TPC-H SF {SQL_OTHER_SF}, roster built, K1 launches "
+    print(f"sql other lake: TPC-H SF {SQL_OTHER_SF}, roster built at {SQL_OTHER_BUCKETS} buckets, K1 launches "
           f"{sum(b['launches'].get('bucket_histogram', 0) for b in builds.values())} ({smi})", flush=True)
     for qname, text in texts.items():
         if qname in SQL_TIMED:
@@ -5698,6 +5657,16 @@ def run_fusion(sess, li_src: str, o_src: str, a1_streamed, a1_chunk: int, args, 
                   + (f"; grouped-agg-chunk median {entry['grouped_agg_chunk']['ms']:.3f} ms, bound "
                      f"{entry['grouped_agg_chunk']['bound_ms']:.4f} ms" if "grouped_agg_chunk" in entry else "")
                   + f" ({smi})", flush=True)
+            if name == "FA4":
+                # where the grouped programs' device time goes at many groups,
+                # fused and per-family, kernel by kernel
+                with sess.hyperspace_scope(hs_on):
+                    for fusion in (True, False):
+                        sess.conf.set(ht.keys.FUSION_ENABLED, fusion)
+                        q.collect()
+                        entry[f"profile_fusion_{'on' if fusion else 'off'}"] = device_profile(
+                            f"FA4 (warm, fusion {'on' if fusion else 'off'})", q.collect, os.path.dirname(li_src),
+                            highlight=("indexFunc", "RadixSort", "radixSort", "scatter"))
     finally:
         for k, v in saved.items():
             sess.conf.set(k, v)
@@ -6139,8 +6108,14 @@ def check_nested_small(tmp: str, seed: int) -> dict:
     return {"shapes": sorted(results["cuda"]), "join_tier": join_tier, "launches": dict(launched)}
 
 
+#: the SF1 ``lineitem`` files the nested lake writes again (a quarter of
+#: 16: its off runs decode the structs row by row, the script's time limit)
+NESTED_FILES = 4
+
+
 def gen_nested_lake(root: str, li_src: str, o_src: str, seed: int) -> tuple:
-    """SF1 ``lineitem`` and ``orders`` written again with struct columns:
+    """The first ``NESTED_FILES`` SF1 ``lineitem`` files and every
+    ``orders`` file written again with struct columns:
     ``l_ship: struct<shipdate, quantity, discount, extendedprice>`` and
     ``l_key: struct<orderkey, linenumber>`` (line numbers from ``seed``)
     beside the other columns, ``o_key: struct<orderkey>`` beside the
@@ -6153,7 +6128,7 @@ def gen_nested_lake(root: str, li_src: str, o_src: str, seed: int) -> tuple:
     os.makedirs(li)
     os.makedirs(od)
     rng = np.random.default_rng(seed + 7)
-    for f in sorted(os.listdir(li_src)):
+    for f in sorted(os.listdir(li_src))[:NESTED_FILES]:
         t = pq.read_table(os.path.join(li_src, f))
         ship = pa.StructArray.from_arrays(
             [t.column(c).combine_chunks() for c in ("l_shipdate", "l_quantity", "l_discount", "l_extendedprice")],
@@ -6190,14 +6165,16 @@ def nested_queries(li, od):
     return {"NQ6": nq6, "NJ1": nj1}
 
 
-def run_nested(li_src: str, o_src: str, tmp: str, args, smi: str, join_tier, twins: dict) -> dict:
-    """The SF1 lakes with struct columns; ``li_ship_nested`` (on
+def run_nested(li_src: str, o_src: str, tmp: str, args, smi: str, join_tier) -> dict:
+    """The nested lake (``gen_nested_lake``); ``li_ship_nested`` (on
     ``l_ship.shipdate`` with the other three leaves), ``li_key_nested`` and
     ``o_key_nested`` (on the nested order keys with the columns NJ1 reads),
     each build's stages, rows/s and K1 launches; NQ6 and NJ1 cold, warm (the
     median of ``--reps``) and hyperspace off (one run: the source path
     decodes the structs row by row), with layers; NQ6 on ``filter:
-    device``, NJ1 on ``join_tier`` (nested-small's), both equal to off."""
+    device``, NJ1 on ``join_tier`` (nested-small's), both equal to off
+    and as many rows as their flat twins q6 and J1 over the same source
+    files (hyperspace off)."""
     import pyarrow.parquet as pq
     import torch
 
@@ -6241,6 +6218,14 @@ def run_nested(li_src: str, o_src: str, tmp: str, args, smi: str, join_tier, twi
         print(f"build {cfg.index_name}: {s:.3f} s, {n / s:.0f} rows/s, launches {launches} ({smi})", flush=True)
         print(f"stages {cfg.index_name}: " + ", ".join(f"{k} {v:.3f} s" for k, v in sess.build_stage_seconds.items()),
               flush=True)
+    # the flat twins: q6 and J1 over the SF1 files the nested lake rewrote
+    flat_li, flat_o = os.path.join(tmp, "nested", "lineitem_flat"), os.path.join(tmp, "nested", "orders_flat")
+    for src, d, names in ((li_src, flat_li, os.listdir(li_dir)), (o_src, flat_o, os.listdir(o_dir))):
+        os.makedirs(d)
+        for f in names:
+            os.link(os.path.join(src, f), os.path.join(d, f))
+    flat = {"NQ6": q6_query(sess.read_parquet(flat_li)),
+            "NJ1": join_queries(sess.read_parquet(flat_li), sess.read_parquet(flat_o))["J1"]}
     sess.enable_hyperspace()
     for name, q in nested_queries(li, od).items():
         plan = q.optimized_plan()
@@ -6275,14 +6260,18 @@ def run_nested(li_src: str, o_src: str, tmp: str, args, smi: str, join_tier, twi
         # a multiset (the index path and the source path order rows apart)
         assert n_rows > 0 and same_batch(as_multiset(got), as_multiset(off)), f"{name}: differs from hyperspace off"
         del off
-        twin = twins[name]
+        with sess.hyperspace_scope(False):
+            t = time.perf_counter()
+            twin_rows = len(next(iter(flat[name].collect().values())))
+            twin = {"name": "q6" if name == "NQ6" else "J1", "rows": twin_rows,
+                    "off_ms": (time.perf_counter() - t) * 1e3}
         out["queries"][name] = {"rows": n_rows, "trace": lines, "off_trace": dispatch_lines(off_summary),
                                 "cold_ms": cold, "warm_ms": warm["total"], "off_ms": off_ms,
                                 "layers_ms": {"cold": cold_layers, "warm": warm, "off": off_layers},
                                 "flat_twin": twin}
         print(f"nested {name}: {n_rows} rows, equal to hyperspace off; cold {cold:.3f} ms, warm {warm['total']:.3f} "
-              f"ms, off {off_ms:.3f} ms; flat twin {twin['name']}: {twin['rows']} rows, warm {twin['warm_ms']:.3f} "
-              f"ms ({smi})", flush=True)
+              f"ms, off {off_ms:.3f} ms; flat twin {twin['name']} over the same files: {twin['rows']} rows, off "
+              f"{twin['off_ms']:.3f} ms ({smi})", flush=True)
         for run, lay in out["queries"][name]["layers_ms"].items():
             print(f"layers {name} ({run}): " + ", ".join(f"{k} {v:.3f} ms" for k, v in lay.items()) + f" ({smi})",
                   flush=True)
@@ -6562,7 +6551,7 @@ def set_native(ht, on: bool) -> None:
 
 def run_native(sess, hs, df, li_src: str, j1, sql_sess, args, smi: str, hbm: float) -> dict:
     """Native decode at SF1: cold and warm q6 and J1 on the main session and
-    q12 and q19 through ``Session.sql`` on the SF1 TPC-H session, native on
+    q19 through ``Session.sql`` on the SF1 TPC-H session, native on
     and off (``hyperspace.exec.io.native.enabled``), rows equal; decode
     counters; no dialect or io-error fallback over index files; the pinned
     decode against pageable decode plus ``.pin_memory()``; a string filter
@@ -6585,7 +6574,7 @@ def run_native(sess, hs, df, li_src: str, j1, sql_sess, args, smi: str, hbm: flo
     texts = tpch_texts()
     sess.conf.set(ht.keys.DEVICE_MIN_ROWS, 0)
     queries = {"q6": (sess, q6_query(sess.read_parquet(li_src))), "J1": (sess, j1),
-               "q12": (sql_sess, sql_sess.sql(texts["q12"])), "q19": (sql_sess, sql_sess.sql(texts["q19"]))}
+               "q19": (sql_sess, sql_sess.sql(texts["q19"]))}
     out = {"device": smi, "queries": {}}
     rows_on = {}
     index_fallbacks = {}
@@ -7117,8 +7106,7 @@ def run_serving(li_src: str, o_src: str, system: str, tmp: str, args, smi: str) 
     refreshes); row-group pruning stays on. One server serves every run, as
     a long-lived one does: a warm-up (each distinct request once: its
     bucket cache starts empty),
-    two quiesced runs (A under torch.profiler: the device's busy share; A
-    and B side by side, marked unresolved where they disagree), then a run
+    a quiesced run (A, under torch.profiler: the device's busy share), then a run
     under a background ``RefreshManager`` that refreshes every index of
     ``lineitem`` after an SF1-sized file lands, once a tenth of the mix is
     served. Each client cycles through its share until the commit and then
@@ -7301,15 +7289,8 @@ def run_serving(li_src: str, o_src: str, system: str, tmp: str, args, smi: str) 
         quiet["device_busy_share"] = None if prof["busy_ms"] is None else prof["busy_ms"] / prof["wall_ms"]
         quiet["dispatches"] = dict(D.dispatches)
         print(f"serving quiesced A dispatches: {quiet['dispatches']}", flush=True)
-        quiet_b, done_b, _ = run(srv, "quiesced B")
-        qps_ratio = quiet_b["qps"] / quiet["qps"]
-        p99_ratio = quiet_b["p99_ms"] / quiet["p99_ms"]
-        agree = 0.8 <= qps_ratio <= 1.25 and 2 / 3 <= p99_ratio <= 1.5
-        print(f"serving quiesced B / A: queries/s {qps_ratio:.3f}, p50 {quiet_b['p50_ms'] / quiet['p50_ms']:.3f}, "
-              f"p99 {p99_ratio:.3f}: {'agree' if agree else 'unresolved'} (within 0.8-1.25 for queries/s and "
-              f"0.67-1.5 for p99)", flush=True)
         checked = 0
-        for kind, v, _, _, _, got in done + done_b:
+        for kind, v, _, _, _, got in done:
             if got is not None:
                 assert _same_served(kind, got, ref_old[kind, v], ordered=True), f"serving {kind}{v}: differs from collect()"
                 checked += 1
@@ -7378,7 +7359,7 @@ def run_serving(li_src: str, o_src: str, system: str, tmp: str, args, smi: str) 
     for kind, v, _, _, _, got in done:
         if got is not None:
             assert _same_served(kind, got, ref_new[kind, v], ordered=True), f"serving cached {kind}{v}: differs"
-    return {"quiesced": quiet, "quiesced_b": quiet_b, "quiesced_agree": agree, "under_refresh": under,
+    return {"quiesced": quiet, "under_refresh": under,
             "result_cache": cached, "host_cores": cores, "device": smi, "launches": refresh_launches}
 
 
@@ -8307,6 +8288,11 @@ CHECK_FAMILIES = {
     "mesh rebucket": ("index-rebucket",),
     "mesh build": ("index-build-exchange",),
 }
+#: the families whose windows must report no synchronisation on the card:
+#: the grouped programs and the exchange staging, fixed-shape as the JAX
+#: package's (ROADMAP §C: C12, C13)
+SYNC_FREE_FAMILIES = ("grouped-agg-chunk", "sharded-grouped", "grouped-merge", "fused-stage-agg",
+                      "fused-stage-agg-sharded", "fused-stage-join-agg", "index-build-exchange", "index-rebucket")
 
 
 def check_queries(li, orders, a1_chunk: int, src_chunk: int) -> dict:
@@ -8502,7 +8488,9 @@ def run_check(system: str, li_src: str, o_src: str, a1_chunk: int, tmp: str, arg
               device: str = "cuda") -> dict:
     """12o: the lint on this tree, then the program contracts on the card
     over the SF1 lake (``system``'s indexes), beside the CPU port's over a
-    60 000-row lake, then warm q6 and A1 with the check on against off."""
+    60 000-row lake, then warm q6 and A1 with the check on against off.
+    Raises on any finding and on a synchronisation in a window of
+    ``SYNC_FREE_FAMILIES``."""
     import contextlib
     import io
     import statistics
@@ -8566,6 +8554,16 @@ def run_check(system: str, li_src: str, o_src: str, a1_chunk: int, tmp: str, arg
               f"CPU port verified {row['verified_cpu']}, findings {row['findings_cpu'] or 'none'}{syncs} ({smi})",
               flush=True)
     out["seconds"] = {"card_on": card["seconds_on"], "card_off": card["seconds_off"], "cpu": cpu_s}
+    if "syncs" in card:
+        out["syncs"] = {fam: sum(row.get("syncs_card", {}).values()) for fam, row in out["families"].items()}
+        print("check syncs per family (card windows): " + ", ".join(
+            f"{fam} {n}" for fam, n in sorted(out["syncs"].items())) + f" ({smi})", flush=True)
+        stalled = {fam: out["families"][fam]["syncs_card"] for fam in SYNC_FREE_FAMILIES
+                   if out["syncs"].get(fam)}
+        assert not stalled, f"check: windows of sync-free families synchronised: {stalled}"
+    found = {fam: {"card": row["findings_card"], "cpu": row["findings_cpu"]}
+             for fam, row in out["families"].items() if row["findings_card"] or row["findings_cpu"]}
+    assert not found, f"check: recorded windows report findings: {found}"
 
     # warm q6 and A1, each program already verified, the check on and off
     out["warm_ms"] = {}
@@ -8596,12 +8594,34 @@ def run_check(system: str, li_src: str, o_src: str, a1_chunk: int, tmp: str, arg
     return out
 
 
+def grouped_program_times(queries: dict, smi: str) -> dict:
+    """The grouped programs' times the earlier phases measured (ms, CUDA
+    events), on one line: ``grouped-agg-chunk`` alone at A1 (``agg``),
+    ``grouped-merge`` alone on streamed A1's tables (``stream``), each fused
+    fold summed over its query's chunks with the median per-family chunk
+    program beside it (``fusion``), and the sharded twins alone at each mesh
+    (``mesh``)."""
+    out = {"A1 grouped-agg-chunk": queries["agg"]["programs"]["grouped-agg-chunk"]["ms"],
+           "A1 streamed grouped-merge": queries["stream"]["grouped_merge"]["ms"]}
+    for name in ("FA1d", "FA4", "FJ3-shippriority", "FJ3-partkey"):
+        entry = queries["fusion"][name]
+        out[f"{name} {entry['fused']['family']}"] = entry["fused"]["ms"]
+        if "grouped_agg_chunk" in entry:
+            out[f"{name} grouped-agg-chunk (median chunk)"] = entry["grouped_agg_chunk"]["ms"]
+    for label, res in queries["mesh"]["meshes"].items():
+        for fam in ("sharded-grouped", "fused-stage-agg-sharded"):
+            if fam in res.get("programs", {}):
+                out[f"{fam} @ {label}"] = res["programs"][fam]["ms"]
+    print("grouped programs (ms): " + ", ".join(f"{k} {v}" for k, v in out.items()) + f" ({smi})", flush=True)
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--rows", type=int, default=LINEITEM_ROWS_SF1, help="lineitem rows (6M = SF1)")
+    ap.add_argument("--rows", type=int, default=DEFAULT_ROWS, help="lineitem rows (6M = SF1; default SF 0.5)")
     ap.add_argument("--files", type=int, default=16)
-    ap.add_argument("--reps", type=int, default=6, help="timed runs per kernel and warm query")
+    ap.add_argument("--reps", type=int, default=3, help="timed runs per kernel and warm query")
     ap.add_argument("--baseline-csrc", help="a copy of an earlier tree's hyperspace_tpu_torch/csrc: its "
                     "kernels are built and timed in turns with this tree's")
     args = ap.parse_args()
@@ -8850,9 +8870,7 @@ def main() -> None:
         phase("topk", t)
 
         t = time.perf_counter()
-        twins = {"NQ6": next(q for q in queries["queries"] if q["name"] == "q6"),
-                 "NJ1": next(j for j in queries["join"]["joins"] if j["name"] == "J1")}
-        queries["nested"] = run_nested(src, o_src, tmp, args, smi, nested_small["join_tier"], twins)
+        queries["nested"] = run_nested(src, o_src, tmp, args, smi, nested_small["join_tier"])
         queries["nested"]["small"] = nested_small
         queries["nested"]["api_small"] = api_small
         queries["nested"]["explain_small"] = explain_small
@@ -8870,6 +8888,7 @@ def main() -> None:
 
         t = time.perf_counter()
         queries["check"] = run_check(sess.conf.system_path, src, o_src, chunk, tmp, args, smi)
+        queries["check"]["grouped_ms"] = grouped_program_times(queries, smi)
         phase("check", t)
         for name in results:
             results[name]["launches_by_path"] = {
@@ -8926,7 +8945,7 @@ def main() -> None:
 
         t = time.perf_counter()
         print(f"scale: {shutil.disk_usage(tmp).free} bytes free on the lake's disk", flush=True)
-        queries["scale"] = run_scale(sess, src, o_src, tmp, args, smi)
+        queries["scale"] = run_scale(sess, tmp, args, smi)
         phase("scale", t)
 
         t = time.perf_counter()

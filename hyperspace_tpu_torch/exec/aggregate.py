@@ -41,14 +41,22 @@ the merge between chunks stays ``grouped-merge``.
 
 Where torch and JAX differ, the programs here do what JAX does:
 
-- ``jnp.lexsort`` becomes a chain of stable ``torch.sort`` from the last key
-  to the first over the matched rows (found with ``nonzero``, so they keep
-  their row order); the first row of each segment is then the group's
-  smallest row, which JAX takes with ``segment_min``.
+- The grouped programs are fixed-shape, as JAX's are: every row of the
+  chunk is sorted, ``jnp.lexsort`` becoming a chain of stable ``torch.sort``
+  from the last key to the first, then the inverted mask, so the matched
+  rows come first and keep their row order; the group count is a 0-d
+  tensor, and every capacity overflow is decided on the device
+  (``torch.where`` against the state). The caller reads the counts after
+  the program, in one device-to-host copy.
 - JAX's segment reductions drop the masked rows' out-of-range id; torch
-  raises on the CPU and asserts on CUDA, so the masked rows never reach a
-  reduction here: only the matched rows are sorted and reduced. Slots past
-  ``n_groups`` hold each reduction's identity, as in JAX.
+  raises on the CPU and asserts on CUDA. Here a masked row (or a group
+  past ``cap``) scatters into a scratch band of ``_SCRATCH_BAND`` slots
+  past the table's ``cap`` (slot ``cap + position % band``), sliced off
+  afterwards: no single address takes every masked row's atomic. Slots
+  past ``n_groups`` hold each reduction's identity, as in JAX.
+- A group's representative row, the segment min of the sorted row
+  positions in JAX, is the row at its segment's head (the stable sorts
+  keep a segment's rows in row order): one write a group, no atomic.
 - Float keys are canonicalised (-0.0 to +0.0, one NaN) before the bitcast.
 - Fill values are tensors of the slot's dtype, never Python floats; int
   sums stay int64 and exact, and avg of an int column has its own float64
@@ -369,25 +377,47 @@ def _key_code(k: torch.Tensor, tag: str) -> torch.Tensor:
     return k.to(torch.int64)
 
 
-def _segment_ids(codes: List[torch.Tensor], mask: torch.Tensor):
-    """The matched rows sorted so equal key tuples are adjacent, then
-    rank-compressed. Returns (order: matched rows in sorted order, seg: their
-    segment ids, starts: each segment's first position); ``starts.numel()``
-    is the group count (read by the ``nonzero``, which waits)."""
-    order = torch.nonzero(mask).squeeze(1)
+#: width of the scratch band past a segment table's ``cap`` slots: a masked
+#: row, or a row of a group past ``cap``, scatters into slot ``cap +
+#: position % band`` (sliced off afterwards), so the rows a predicate drops
+#: spread their atomics over the band instead of queueing on one address
+_SCRATCH_BAND = 1024
+
+
+def _segment_ids(codes: List[torch.Tensor], mask: torch.Tensor, cap: int):
+    """Every row sorted so equal key tuples are adjacent, masked rows last
+    (the inverted mask is the most significant key), then rank-compressed.
+    Returns (order, the sorted mask, n_groups as a 0-d tensor, scatter ids):
+    a matched row's id is its segment when that is below ``cap``, every
+    other row's a slot of the scratch band. Needs at least one row."""
+    order = None
     # least significant key first; stable sorts keep equal tuples in row order
     for c in reversed(codes):
-        order = order[torch.sort(c[order], stable=True).indices]
-    m = order.numel()
-    change = torch.zeros(m, dtype=torch.bool, device=mask.device)
-    if m:
-        change[0] = True
-        for c in codes:
-            cs = c[order]
-            change[1:] |= cs[1:] != cs[:-1]
-    seg = torch.cumsum(change, 0) - 1
-    starts = torch.nonzero(change).squeeze(1)
-    return order, seg, starts
+        idx = torch.sort(c if order is None else c[order], stable=True).indices
+        order = idx if order is None else order[idx]
+    order = order[torch.sort((~mask).to(torch.uint8)[order], stable=True).indices]
+    ms = mask[order]
+    change = ms[1:] != ms[:-1]
+    for c in codes:
+        cs = c[order]
+        change = change | (cs[1:] != cs[:-1])
+    seg = torch.cat([torch.zeros(1, dtype=torch.int64, device=mask.device), torch.cumsum(change, 0)])
+    n_groups = torch.where(ms, seg, -1).amax() + 1
+    pos = torch.arange(seg.numel(), device=mask.device)
+    ids = torch.where(ms & (seg < cap), seg, cap + pos % _SCRATCH_BAND)
+    return order, ms, n_groups, ids
+
+
+def _segment_rep(order: torch.Tensor, ids: torch.Tensor, cap: int) -> torch.Tensor:
+    """Per segment below ``cap`` its smallest row (JAX's segment min of the
+    sorted row positions), I64_MAX for an empty one. The stable sorts keep a
+    segment's rows in row order, so the smallest is the row at the
+    segment's head: one write a segment, and no atomic."""
+    pos = torch.arange(ids.numel(), device=ids.device)
+    head = torch.cat([ids.new_ones(1, dtype=torch.bool), ids[1:] != ids[:-1]]) & (ids < cap)
+    dst = torch.where(head, ids, cap + pos % _SCRATCH_BAND)
+    out = torch.full((cap + _SCRATCH_BAND,), I64_MAX, dtype=torch.int64, device=ids.device)
+    return out.scatter_(0, dst, order)[:cap]
 
 
 def _float_order_key(x: torch.Tensor) -> torch.Tensor:
@@ -400,104 +430,103 @@ def _float_order_key(x: torch.Tensor) -> torch.Tensor:
 
 def _seg_fold_float(v: torch.Tensor, seg: torch.Tensor, cap: int, how: str) -> torch.Tensor:
     """Segment min (``how="amin"``) or max of float64 values into ``cap``
-    slots, as XLA's segment_min/max give them: -0.0 below +0.0 whatever the
-    order of arrival (a float ``scatter_reduce_`` keeps the first of two
-    equal zeros, and on CUDA the first is the first atomic), a NaN
-    propagates, and an empty slot holds +inf (min) or -inf (max). The fold
-    runs on order-preserving int64 keys, so it is exact on CUDA too."""
+    slots (ids of the scratch band past them are dropped), as XLA's
+    segment_min/max give them: -0.0 below +0.0 whatever the order of
+    arrival (a float ``scatter_reduce_`` keeps the first of two equal
+    zeros, and on CUDA the first is the first atomic), a NaN propagates,
+    and an empty slot holds +inf (min) or -inf (max). The fold runs on
+    order-preserving int64 keys, so it is exact on CUDA too."""
+    width = cap + _SCRATCH_BAND
     fill = float("inf") if how == "amin" else float("-inf")
-    init = _float_order_key(torch.full((cap,), fill, dtype=torch.float64, device=v.device))
-    out = init.scatter_reduce_(0, seg, _float_order_key(v.to(torch.float64)), how, include_self=True)
+    init = _float_order_key(torch.full((width,), fill, dtype=torch.float64, device=v.device))
+    out = init.scatter_reduce_(0, seg, _float_order_key(v.to(torch.float64)), how, include_self=True)[:cap]
     out = _float_order_key(out).view(torch.float64)
-    seen = torch.zeros(cap, dtype=torch.int64, device=v.device).index_add_(0, seg, torch.isnan(v).to(torch.int64))
-    return torch.where(seen > 0, out.new_full((), float("nan")), out)
+    seen = torch.zeros(width, dtype=torch.int64, device=v.device).index_add_(0, seg, torch.isnan(v).to(torch.int64))
+    return torch.where(seen[:cap] > 0, out.new_full((), float("nan")), out)
 
 
-def _segment_reduce_slots(cols_sorted, seg, starts, cap: int, slot_specs):
-    """Per-slot segment reductions over the sorted matched rows into
-    ``cap``-row tables; rows past the group count hold each reduction's
+def _seg_sum(v: torch.Tensor, ids: torch.Tensor, cap: int) -> torch.Tensor:
+    return torch.zeros(cap + _SCRATCH_BAND, dtype=v.dtype, device=v.device).index_add_(0, ids, v)[:cap]
+
+
+def _seg_fold_int(v: torch.Tensor, ids: torch.Tensor, cap: int, how: str) -> torch.Tensor:
+    fill = I64_MAX if how == "amin" else I64_MIN
+    out = torch.full((cap + _SCRATCH_BAND,), fill, dtype=v.dtype, device=v.device)
+    return out.scatter_reduce_(0, ids, v, how, include_self=True)[:cap]
+
+
+def _segment_reduce_slots(cols_sorted, ms, ids, cap: int, slot_specs):
+    """Per-slot segment reductions over the sorted rows into ``cap``-row
+    tables; a masked row adds nothing to its group (its id is in the
+    scratch band), and rows past the group count hold each reduction's
     identity. ``cols_sorted`` maps input column -> sorted values."""
-    device = seg.device
-    n_groups = starts.numel()
-    ends = torch.cat([starts[1:], starts.new_full((1,), seg.numel())]) if n_groups else starts
-
-    def seg_sum(v: torch.Tensor) -> torch.Tensor:
-        return torch.zeros(cap, dtype=v.dtype, device=device).index_add_(0, seg, v)
-
-    def seg_fold(v: torch.Tensor, how: str, fill) -> torch.Tensor:
-        out = torch.full((cap,), fill, dtype=v.dtype, device=device)
-        return out.scatter_reduce_(0, seg, v, how, include_self=True)
+    matched = None  # the segment sum of the mask: count(*) and every int count
 
     out = []
     for kind, col, isint in slot_specs:
-        if kind == "cntm":
-            counts = torch.zeros(cap, dtype=torch.int64, device=device)
-            counts[:n_groups] = ends - starts
-            out.append(counts)
+        if kind == "cntm" or (kind == "cnt" and isint):
+            if matched is None:
+                matched = _seg_sum(ms.to(torch.int64), ids, cap)
+            out.append(matched)
             continue
         x = cols_sorted[col]
         nn = None if isint else ~torch.isnan(x)
         if kind == "cnt":
-            if nn is None:
-                counts = torch.zeros(cap, dtype=torch.int64, device=device)
-                counts[:n_groups] = ends - starts
-                out.append(counts)
-            else:
-                out.append(seg_sum(nn.to(torch.int64)))
+            out.append(_seg_sum(nn.to(torch.int64), ids, cap))
         elif kind == "sum":
             z = x.to(torch.int64) if isint else x.to(torch.float64)
-            out.append(seg_sum(z if nn is None else torch.where(nn, z, z.new_zeros(()))))
+            out.append(_seg_sum(z if nn is None else torch.where(nn, z, z.new_zeros(())), ids, cap))
         elif kind == "sumsq":
             xf = x.to(torch.float64)
-            out.append(seg_sum(xf * xf if nn is None else torch.where(nn, xf * xf, xf.new_zeros(()))))
-        elif kind == "min":
-            if isint:
-                out.append(seg_fold(x.to(torch.int64), "amin", I64_MAX))
-            else:
-                xf = x.to(torch.float64)
-                out.append(_seg_fold_float(torch.where(nn, xf, xf.new_full((), float("inf"))), seg, cap, "amin"))
-        else:  # max
-            if isint:
-                out.append(seg_fold(x.to(torch.int64), "amax", I64_MIN))
-            else:
-                xf = x.to(torch.float64)
-                out.append(_seg_fold_float(torch.where(nn, xf, xf.new_full((), float("-inf"))), seg, cap, "amax"))
+            out.append(_seg_sum(xf * xf if nn is None else torch.where(nn, xf * xf, xf.new_zeros(())), ids, cap))
+        elif isint:
+            out.append(_seg_fold_int(x.to(torch.int64), ids, cap, "amin" if kind == "min" else "amax"))
+        else:
+            xf = x.to(torch.float64)
+            fill = xf.new_full((), float("inf") if kind == "min" else float("-inf"))
+            out.append(_seg_fold_float(torch.where(nn, xf, fill), ids, cap, "amin" if kind == "min" else "amax"))
     return tuple(out)
+
+
+def grouped_body(cols, mask: torch.Tensor, key_specs, slot_specs, cap: int):
+    """Group the rows of ``cols`` that ``mask`` keeps and reduce each slot:
+    (n_groups as a 0-d tensor, each group's smallest row or I64_MAX, its
+    key values gathered from that row, its state slots), each ``cap`` rows.
+    Above ``cap`` groups the tables hold the first ``cap`` and the count is
+    still exact."""
+    total = mask.shape[0]
+    codes = [_key_code(cols[name], tag) for name, tag in key_specs]
+    order, ms, n_groups, ids = _segment_ids(codes, mask, cap)
+    rep = _segment_rep(order, ids, cap)
+    repc = torch.clamp(rep, 0, total - 1)
+    key_out = tuple(cols[name][repc] for name, _ in key_specs)
+    cols_sorted = {c: cols[c][order] for _, c, _ in slot_specs if c is not None}
+    return n_groups, rep, key_out, _segment_reduce_slots(cols_sorted, ms, ids, cap, slot_specs)
 
 
 def grouped_chunk_program(pred_fn, key_specs, slot_specs, cap: int):
     """The ``grouped-agg-chunk`` program: filter -> group-by -> segment
     reduce. ``program(cols, lits, n, row_base)`` returns (n_groups, fs,
-    key_out, slot_out): the group count (a host int), per group its first
+    key_out, slot_out): the group count (a 0-d tensor), per group its first
     matched row plus ``row_base`` (appearance order), its key values
     gathered from that row (so -0.0/NaN payloads follow appearance order
     like pandas) and its state slots, each ``cap`` rows. Above ``cap``
-    groups only the count is returned, and the caller re-runs at a larger
-    capacity, as the JAX package does."""
+    groups the count is exact and the tables hold the first ``cap``
+    groups; the caller re-runs at a larger capacity, as the JAX package
+    does."""
 
     def program(cols, lits, n: int, row_base: int):
         device = next(iter(cols.values())).device
         mask = _full_mask(pred_fn, cols, lits, n, device)
-        codes = [_key_code(cols[name], tag) for name, tag in key_specs]
-        order, seg, starts = _segment_ids(codes, mask)
-        n_groups = starts.numel()
-        if n_groups > cap:
-            return n_groups, None, None, None
-        # the first sorted row of a segment is its smallest matched row
-        rep = torch.full((cap,), I64_MAX, dtype=torch.int64, device=device)
-        rep[:n_groups] = order[starts]
+        n_groups, rep, key_out, slot_out = grouped_body(cols, mask, key_specs, slot_specs, cap)
         fs = torch.where(rep < n, rep + row_base, rep.new_full((), _FS_SENTINEL))
-        repc = torch.clamp(rep, 0, n - 1)
-        key_out = tuple(cols[name][repc] for name, _ in key_specs)
-        cols_sorted = {c: cols[c][order] for _, c, _ in slot_specs if c is not None}
-        slot_out = _segment_reduce_slots(cols_sorted, seg, starts, cap, slot_specs)
         return n_groups, fs, key_out, slot_out
 
     return program
 
 
-def _merge_concat_parts(key_specs, slot_specs, cap_out: int, kcat, slots_cat, fs_cat):
-    """Merge CONCATENATED partial-aggregate tables (only their groups' rows)
+def _merge_concat_parts(key_specs, slot_specs, cap_out: int, kcat, slots_cat, fs_cat, mask):
+    """Merge CONCATENATED partial-aggregate tables (the rows ``mask`` keeps)
     into one of ``cap_out`` rows: re-rank the keys and segment-reduce each
     slot with its merge operation (cnt/sum/sumsq add, min/max fold).
     Returns (n_groups, fs, key_out, slot_out) as ``grouped_chunk_program``
@@ -506,54 +535,47 @@ def _merge_concat_parts(key_specs, slot_specs, cap_out: int, kcat, slots_cat, fs
     Contract (the JAX package's): the parts are concatenated in ascending
     order of their rows' global range, so a group's smallest concat
     position is a row of the part where it first appeared, and the key
-    gathered from it is the one a single pass would have kept. Above
-    ``cap_out`` groups only the count is returned (the fused fold's
-    overflow check)."""
-    device = fs_cat.device
-    m = fs_cat.shape[0]
+    gathered from it is the one a single pass would have kept."""
+    total = mask.shape[0]
     codes = [_key_code(k, tag) for k, (_, tag) in zip(kcat, key_specs)]
-    order, seg, starts = _segment_ids(codes, torch.ones(m, dtype=torch.bool, device=device))
-    n_groups = starts.numel()
-    if n_groups > cap_out:
-        return n_groups, None, None, None
-    rep = order[starts]  # the stable sorts put each group's first concat row first
-    key_out = []
-    for k in kcat:
-        out = torch.full((cap_out,), float("nan") if k.is_floating_point() else 0, dtype=k.dtype, device=device)
-        out[:n_groups] = k[rep]
-        key_out.append(out)
-    # values reduced per segment follow the SORTED row order ``seg`` is over
-    fs = torch.full((cap_out,), _FS_SENTINEL, dtype=torch.int64, device=device)
-    fs = fs.scatter_reduce_(0, seg, fs_cat[order], "amin", include_self=True)
+    order, _, n_groups, ids = _segment_ids(codes, mask, cap_out)
+    repc = torch.clamp(_segment_rep(order, ids, cap_out), 0, total - 1)
+    key_out = tuple(k[repc] for k in kcat)
+    # values reduced per segment follow the SORTED row order ``ids`` is over
+    fs = _seg_fold_int(fs_cat[order], ids, cap_out, "amin")
     slot_out = []
     for (kind, _, _), v in zip(slot_specs, slots_cat):
         v = v[order]
         if kind in ("cntm", "cnt", "sum", "sumsq"):
-            slot_out.append(torch.zeros(cap_out, dtype=v.dtype, device=device).index_add_(0, seg, v))
+            slot_out.append(_seg_sum(v, ids, cap_out))
         elif v.is_floating_point():
-            slot_out.append(_seg_fold_float(v, seg, cap_out, "amin" if kind == "min" else "amax"))
+            slot_out.append(_seg_fold_float(v, ids, cap_out, "amin" if kind == "min" else "amax"))
         else:
-            fill = I64_MAX if kind == "min" else I64_MIN
-            slot_out.append(torch.full((cap_out,), fill, dtype=v.dtype, device=device)
-                            .scatter_reduce_(0, seg, v, "amin" if kind == "min" else "amax", include_self=True))
-    return n_groups, fs, tuple(key_out), tuple(slot_out)
+            slot_out.append(_seg_fold_int(v, ids, cap_out, "amin" if kind == "min" else "amax"))
+    return n_groups, fs, key_out, tuple(slot_out)
+
+
+def _concat_mask(cap_a: int, n_a, cap_b: int, n_b, device) -> torch.Tensor:
+    """The rows of two concatenated tables that hold a group: the first
+    ``n_a`` of ``cap_a`` and the first ``n_b`` of ``cap_b`` (host ints or
+    0-d tensors)."""
+    return torch.cat([torch.arange(cap_a, device=device) < n_a, torch.arange(cap_b, device=device) < n_b])
 
 
 def grouped_merge_program(key_specs, slot_specs, cap_in: int, cap_out: int):
     """The ``grouped-merge`` program: merge two partial-aggregate tables,
     each padded to ``cap_in`` rows, into one of ``cap_out``.
     ``program(keys_a, keys_b, slots_a, slots_b, fs_a, fs_b, n_a, n_b)``
-    takes each table's first ``n`` rows; the running partial is table a,
-    and its groups were first seen no later than the incoming chunk's (the
-    row bases ascend), which is ``_merge_concat_parts``'s ordering
+    masks each table to its first ``n`` rows; the running partial is table
+    a, and its groups were first seen no later than the incoming chunk's
+    (the row bases ascend), which is ``_merge_concat_parts``'s ordering
     contract."""
 
-    def program(keys_a, keys_b, slots_a, slots_b, fs_a, fs_b, n_a: int, n_b: int):
-        assert max(n_a, n_b) <= cap_in
-        kcat = tuple(torch.cat([a[:n_a], b[:n_b]]) for a, b in zip(keys_a, keys_b))
-        slots_cat = tuple(torch.cat([va[:n_a], vb[:n_b]]) for va, vb in zip(slots_a, slots_b))
-        fs_cat = torch.cat([fs_a[:n_a], fs_b[:n_b]])
-        return _merge_concat_parts(key_specs, slot_specs, cap_out, kcat, slots_cat, fs_cat)
+    def program(keys_a, keys_b, slots_a, slots_b, fs_a, fs_b, n_a, n_b):
+        mask = _concat_mask(cap_in, n_a, cap_in, n_b, fs_a.device)
+        kcat = tuple(torch.cat([a, b]) for a, b in zip(keys_a, keys_b))
+        slots_cat = tuple(torch.cat([va, vb]) for va, vb in zip(slots_a, slots_b))
+        return _merge_concat_parts(key_specs, slot_specs, cap_out, kcat, slots_cat, torch.cat([fs_a, fs_b]), mask)
 
     return program
 
@@ -579,26 +601,33 @@ def _fused_state_dtypes(key_specs, slot_specs):
 
 
 def fold_into_state(key_specs, slot_specs, cap: int, donate: bool,
-                    state_keys, state_slots, state_fs, state_n: int, key_b, slot_b, fs_b, n_b: int):
-    """Merge a chunk's per-group table (its first ``n_b`` rows) into the
-    running ``cap``-row state (its first ``state_n`` rows), state first:
-    ``_merge_concat_parts``'s first-seen contract, the ``grouped-merge``
-    body. Returns ``(n_merged, fs, keys, slots)``. The merged count is read
-    before any write: above ``cap`` groups the state comes back as it was.
-    With ``donate`` the merged table is written into the state tensors
-    (``copy_``; their storage stays), else the state is the merged table's
-    fresh tensors."""
-    kcat = tuple(torch.cat([a[:state_n], b[:n_b]]) for a, b in zip(state_keys, key_b))
-    scat = tuple(torch.cat([a[:state_n], b[:n_b]]) for a, b in zip(state_slots, slot_b))
-    fs_cat = torch.cat([state_fs[:state_n], fs_b[:n_b]])
-    n_m, fs_m, key_m, slot_m = _merge_concat_parts(key_specs, slot_specs, cap, kcat, scat, fs_cat)
-    if n_m > cap:
-        return n_m, state_fs, tuple(state_keys), tuple(state_slots)
-    if not donate:
-        return n_m, fs_m, key_m, slot_m
-    for dst, src in zip((state_fs, *state_keys, *state_slots), (fs_m, *key_m, *slot_m)):
-        dst.copy_(src)
-    return n_m, state_fs, tuple(state_keys), tuple(state_slots)
+                    state_keys, state_slots, state_fs, state_n, key_b, slot_b, fs_b, n_b, ok=None):
+    """Merge a chunk's ``cap``-row per-group table (its first ``n_b`` rows)
+    into the running ``cap``-row state (its first ``state_n`` rows), state
+    first: ``_merge_concat_parts``'s first-seen contract, the
+    ``grouped-merge`` body. Returns ``(n_merged, n_out, fs, keys, slots)``.
+    The fold takes when ``(n_b <= cap) & (n_merged <= cap)`` (and ``ok``, a
+    0-d bool, where given), decided on the device: else ``n_out`` is
+    ``state_n`` and every output holds the state's values. With ``donate``
+    the selected table is written into the state tensors (``copy_``; their
+    storage stays, and on an overflow they take their own values back),
+    else the outputs are fresh tensors."""
+    mask = _concat_mask(cap, state_n, cap, n_b, state_fs.device)
+    kcat = tuple(torch.cat([a, b]) for a, b in zip(state_keys, key_b))
+    scat = tuple(torch.cat([a, b]) for a, b in zip(state_slots, slot_b))
+    n_m, fs_m, key_m, slot_m = _merge_concat_parts(
+        key_specs, slot_specs, cap, kcat, scat, torch.cat([state_fs, fs_b]), mask)
+    fits = (n_b <= cap) & (n_m <= cap)
+    if ok is not None:
+        fits = fits & ok
+    state = (state_fs, *state_keys, *state_slots)
+    out = [torch.where(fits, m, s) for m, s in zip((fs_m, *key_m, *slot_m), state)]
+    if donate:
+        for dst, src in zip(state, out):
+            dst.copy_(src)
+        out = state
+    n_k = len(state_keys)
+    return n_m, torch.where(fits, n_m, state_n), out[0], tuple(out[1:1 + n_k]), tuple(out[1 + n_k:])
 
 
 def fused_grouped_update_program(pred_fn, key_specs, slot_specs, cap: int, donate: bool):
@@ -609,24 +638,28 @@ def fused_grouped_update_program(pred_fn, key_specs, slot_specs, cap: int, donat
     the state keeps its storage.
 
     ``program(state_keys, state_slots, state_fs, state_n, cols, lits, n,
-    row_base)`` returns ``(n_b, n_m, n_out, fs, keys, slots)``. Overflow
-    contract: above ``cap`` groups in the chunk (``n_b``; then ``n_m`` is
-    reported as ``n_b``, a lower bound) or in the merge (``n_m``) the state
-    is not written, ``n_out`` is ``state_n``, and the caller redoes the
-    chunk per-family."""
+    row_base)`` returns ``(n_b, n_m, n_out, fs, keys, slots)``, the counts
+    as 0-d tensors. Overflow contract: the counts are exact above ``cap``;
+    above ``cap`` groups in the chunk (``n_b``) or in the merge (``n_m``)
+    every state output holds the state's values, ``n_out`` is
+    ``state_n``, and the caller redoes the chunk per-family."""
     chunk = grouped_chunk_program(pred_fn, key_specs, slot_specs, cap)
 
-    def program(state_keys, state_slots, state_fs, state_n: int, cols, lits, n: int, row_base: int):
+    def program(state_keys, state_slots, state_fs, state_n, cols, lits, n: int, row_base: int):
         n_b, fs_b, key_b, slot_b = chunk(cols, lits, n, row_base)
-        if n_b > cap:
-            return n_b, n_b, state_n, state_fs, tuple(state_keys), tuple(state_slots)
-        n_m, fs_out, keys_out, slots_out = fold_into_state(
+        n_m, n_out, fs_out, keys_out, slots_out = fold_into_state(
             key_specs, slot_specs, cap, donate, state_keys, state_slots, state_fs, state_n,
             key_b, slot_b, fs_b, n_b,
         )
-        return n_b, n_m, (n_m if n_m <= cap else state_n), fs_out, keys_out, slots_out
+        return n_b, n_m, n_out, fs_out, keys_out, slots_out
 
     return program
+
+
+def read_counts(*counts) -> List[int]:
+    """A program's 0-d counts as host ints, in one device-to-host copy: the
+    one read of a grouped program's window, made after it."""
+    return [int(v) for v in torch.stack([c.to(torch.int64) for c in counts]).cpu().tolist()]
 
 
 def _np(x) -> np.ndarray:
@@ -805,6 +838,7 @@ class GroupedAggStream:
                 with window:
                     n_g, fs, key_out, slot_out = program(dev_cols, lits, n, self._row_base)
             count_dispatch(family)
+            (n_g,) = read_counts(n_g)
             _observe_program(family, t0)
             if n_g > self.max_groups:
                 t = _add(self.session, "agg_program", t)
@@ -884,6 +918,7 @@ class GroupedAggStream:
             else:
                 n_b, n_m, n_out, fs_out, keys_out, slots_out = program(*args)
         stage_ir.count_dispatch(family)
+        n_b, n_m, n_out = read_counts(n_b, n_m, n_out)
         _observe_program(family, t0)
         self._partial = {"cap": cap, "n": n_out, "fs": fs_out, "keys": list(keys_out), "slots": list(slots_out)}
         stage_ir.note_peak_bytes([fs_out, *keys_out, *slots_out])
@@ -948,6 +983,7 @@ class GroupedAggStream:
                     lambda: f"grouped-merge/gmerge[{cap_in}->{cap_out}]|k:{key_specs}|s:{self._slots}", args):
                 n_g, fs, key_out, slot_out = program(*args)
             count_dispatch("grouped-merge")
+            (n_g,) = read_counts(n_g)
         _observe_program("grouped-merge", t0)
         REGISTRY.counter(
             "hs_agg_merge_seconds_total",

@@ -290,42 +290,45 @@ def fused_join_agg_program(
     donate: bool,
 ):
     """The whole fused stage: the hash probe's span walk -> pair expansion
-    bounded by ``pair_cap`` -> exact key verification (``vmodes[i]``: 'i'
+    to ``pair_cap`` pairs -> exact key verification (``vmodes[i]``: 'i'
     exact int64, 'f' float64 with NaN matching NaN, as
     ``join_stream._pairs_equal``) -> the post-join predicate -> the grouped
-    chunk program over the kept pairs -> the merge into the running
-    partial.
+    body over every pair, the kept ones its mask -> the merge into the
+    running partial. Fixed-shape, as the JAX package's program is: no
+    count is read on the host inside it.
 
     ``program(state_keys, state_slots, state_fs, state_n, table, border,
     n_build, bkenc, pplanes, pkenc, pcols, bcols, lits, row_base)`` returns
-    ``(total, n_chunk, n_merged, n_kept, n_out, fs, keys, slots)``. The
-    kept pairs are numbered in pair order from ``row_base``: exactly the
-    rows the per-family path assembles. Above ``pair_cap`` pairs, or above
-    ``cap`` groups in the chunk or the merge, the state is not written
-    (``n_out`` is ``state_n``) and the caller redoes the chunk per-family."""
-    from hyperspace_tpu_torch.exec.aggregate import fold_into_state, grouped_chunk_program
+    ``(total, n_chunk, n_merged, n_kept, n_out, fs, keys, slots)``, the
+    counts as 0-d tensors. The kept pairs are numbered in pair order from
+    ``row_base``: exactly the rows the per-family path assembles. The fold
+    takes when ``total <= pair_cap`` and the chunk and the merge hold at
+    most ``cap`` groups, decided on the device; else every state output
+    holds the state's values, ``n_out`` is ``state_n``, and the caller
+    redoes the chunk per-family."""
+    from hyperspace_tpu_torch.exec.aggregate import _FS_SENTINEL, fold_into_state, grouped_body
     from hyperspace_tpu_torch.exec.join_stream import hash_probe_program
-
-    chunk_program = grouped_chunk_program(None, gkey_specs, slot_specs, cap)
 
     def program(state_keys, state_slots, state_fs, state_n,
                 table, border, n_build, bkenc, pplanes, pkenc, pcols, bcols, lits, row_base):
         n_probe = pplanes[0].shape[0]
         t_len = table.shape[0]
         b_len = bkenc[0].shape[0]
+        device = table.device
+        if n_probe == 0:  # known from the shapes: no pair, the state as it is
+            zero = torch.zeros((), dtype=torch.int64, device=device)
+            n_state = torch.full((), int(state_n), dtype=torch.int64, device=device)
+            return (zero, zero, n_state, zero, n_state, state_fs, tuple(state_keys), tuple(state_slots))
         # 1. probe spans (the hash-probe family's body)
         lo, hi = hash_probe_program(table, n_build, list(pplanes))
         counts = hi - lo
         cum = torch.cumsum(counts, 0)
-        total = int(cum[-1]) if n_probe else 0
-        unchanged = (state_fs, tuple(state_keys), tuple(state_slots))
-        if total > pair_cap:
-            return (total, 0, state_n, 0, state_n) + unchanged
+        total = cum[-1]
         # 2. pair expansion: pair j belongs to the first probe row whose
         # cumulative count exceeds j; every gather index is clamped
-        j = torch.arange(pair_cap, dtype=torch.int64, device=table.device)
-        pvalid = j < total
-        cand_p = torch.clamp(torch.searchsorted(cum, j, right=True), 0, max(n_probe - 1, 0))
+        j = torch.arange(pair_cap, dtype=torch.int64, device=device)
+        pvalid = j < torch.clamp(total, max=pair_cap)
+        cand_p = torch.clamp(torch.searchsorted(cum, j, right=True), 0, n_probe - 1)
         start = cum[cand_p] - counts[cand_p]
         slot = torch.clamp(j - start + lo[cand_p], 0, max(t_len - 1, 0))
         cand_b = torch.clamp(border[slot], 0, max(b_len - 1, 0))
@@ -344,23 +347,20 @@ def fused_join_agg_program(
         if pred_fn is not None:
             mask = pred_fn(cols, lits)
             keep = keep & (mask.expand(pair_cap) if mask.dim() == 0 else mask)
-        kept = torch.nonzero(keep).squeeze(1)
-        n_kept = int(kept.numel())
-        if n_kept == 0:
-            return (total, 0, state_n, 0, state_n) + unchanged
-        # 5. the grouped-agg-chunk body over the kept pairs, numbered from
-        # row_base in pair order
-        kcols = {name: cols[name][kept] for name in dict.fromkeys(
-            [n for n, _ in gkey_specs] + [c for _, c, _ in slot_specs if c is not None])}
-        n_chunk, fs_b, key_b, slot_b = chunk_program(kcols, (), n_kept, row_base)
-        if n_chunk > cap:
-            return (total, n_chunk, state_n, n_kept, state_n) + unchanged
-        # 6. the merge into the running partial (the grouped-merge body)
-        n_m, fs_out, keys_out, slots_out = fold_into_state(
+        rank = torch.cumsum(keep, 0) - 1  # a kept pair's position among the kept
+        n_kept = keep.sum()
+        # 5. the grouped-agg-chunk body over the pairs, the kept ones its
+        # mask; a group's first row is its first kept pair, numbered from
+        # row_base
+        n_chunk, rep, key_b, slot_b = grouped_body(cols, keep, gkey_specs, slot_specs, cap)
+        repc = torch.clamp(rep, 0, pair_cap - 1)
+        fs_b = torch.where(rep < pair_cap, rank[repc] + row_base, rep.new_full((), _FS_SENTINEL))
+        # 6. the merge into the running partial (the grouped-merge body),
+        # guarded by every capacity at once
+        n_m, n_out, fs_out, keys_out, slots_out = fold_into_state(
             gkey_specs, slot_specs, cap, donate,
-            state_keys, state_slots, state_fs, state_n, key_b, slot_b, fs_b, n_chunk,
+            state_keys, state_slots, state_fs, state_n, key_b, slot_b, fs_b, n_chunk, ok=total <= pair_cap,
         )
-        n_out = n_m if n_m <= cap else state_n
         return total, n_chunk, n_m, n_kept, n_out, fs_out, keys_out, slots_out
 
     return program
@@ -657,6 +657,7 @@ def _fused_fold_chunk(session, gs, build, chunk, pkeys, bkeys, post_filter,
     with _program_lint.maybe_verify(conf, "fused-stage-join-agg", f"fused-stage-join-agg/{skeleton}", args):
         total, n_chunk, n_m, n_kept, n_out, fs_out, keys_out, slots_out = program(*args)
     count_dispatch("fused-stage-join-agg")
+    total, n_chunk, n_m, n_kept, n_out = A.read_counts(total, n_chunk, n_m, n_kept, n_out)
     _device._observe_program("fused-stage-join-agg", t0)
     session.query_stage_seconds["agg_program"] += time.perf_counter() - t
     gs._partial = {"cap": cap, "n": n_out, "fs": fs_out, "keys": list(keys_out), "slots": list(slots_out)}

@@ -19,6 +19,9 @@ Where torch differs from JAX:
   on CUDA (JAX drops it), so rows that have no slot (overflow, padding)
   write into one scratch slot past the ``n_shards * capacity`` grid, which
   is sliced off afterwards;
+- JAX's fixed-length count of each destination becomes a ``searchsorted``
+  of the destinations into the sorted ones (torch's own count sizes its
+  output by its input's maximum, a read on the host);
 - the multi-operand sort is ``ops/sort.lex_argsort``, a chain of stable
   sorts, and uint32 hash inputs ride in int64 with 32-bit masks
   (ops/hashing.py);
@@ -53,9 +56,11 @@ def _stage_for_exchange(values, dest: torch.Tensor, n_dev: int, capacity: int, f
         dest = torch.where(valid, dest, torch.full_like(dest, n_dev))  # invalid rows -> scratch bin
     order = torch.sort(dest, stable=True).indices
     dest_sorted = dest[order]
-    counts_ext = torch.bincount(dest, minlength=n_dev + 1)
-    counts = counts_ext[:n_dev]
-    offsets = torch.cumsum(counts_ext, 0) - counts_ext
+    # each destination's first sorted row: a fixed-length search, which
+    # reads nothing on the host
+    bounds = torch.searchsorted(dest_sorted, torch.arange(n_dev + 2, device=dest.device))
+    offsets = bounds[:-1]
+    counts = (bounds[1:] - offsets)[:n_dev]
     rank = torch.arange(n_loc, device=dest.device) - offsets[dest_sorted]
     in_slot = (dest_sorted < n_dev) & (rank < capacity)
     slot = dest_sorted.clamp(max=n_dev - 1) * capacity + rank.clamp(0, capacity - 1)

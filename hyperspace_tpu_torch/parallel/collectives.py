@@ -108,32 +108,33 @@ def sharded_fused_topk_program(mesh: Mesh, axis: str, num_keys: int, cap: int):
 
 
 def _empty_part(cols, key_specs, slot_specs, cap: int, device: torch.device):
-    """A shard's table when its row block is empty: no group, each column
-    of its program's dtype."""
+    """A shard's table when its row block is empty (known from the shapes):
+    no group, each column of its program's dtype."""
     from hyperspace_tpu_torch.exec.aggregate import _FS_SENTINEL, _fused_state_dtypes
 
     _, slot_dts = _fused_state_dtypes(key_specs, slot_specs)
     fs = torch.full((cap,), _FS_SENTINEL, dtype=torch.int64, device=device)
     keys = tuple(torch.zeros(cap, dtype=cols[name].dtype, device=device) for name, _ in key_specs)
     slots = tuple(torch.zeros(cap, dtype=dt, device=device) for dt in slot_dts)
-    return 0, fs, keys, slots
+    return torch.zeros((), dtype=torch.int64, device=device), fs, keys, slots
 
 
 def sharded_grouped_chunk_program(mesh: Mesh, axis: str, pred_fn, key_specs, slot_specs, cap: int):
     """Sharded twin of ``aggregate.grouped_chunk_program``: the same
     signature ``program(cols, lits, n, row_base)`` and outputs ``(n_groups,
-    first-seen, key reps, state slots)``.
+    first-seen, key reps, state slots)``, the count a 0-d tensor.
 
     Per shard: the fused predicate and the segment reduction over the
     shard's row block, its first-seen rows global (the block's first row
-    plus ``row_base``). Then one gather per table of the per-shard tables
-    (``n_shards * cap`` entries: group cardinality, not row count) and one
-    merge (``_merge_concat_parts``) of their groups, in shard order.
+    plus ``row_base``). Then one gather per table of the per-shard counts
+    and tables (``n_shards * cap`` entries: group cardinality, not row
+    count) and one merge (``_merge_concat_parts``) of the rows that hold a
+    group (``part_mask``), in shard order.
 
-    Overflow: a shard over ``cap`` groups returns only its count, and the
-    program returns the largest shard count, so the caller re-runs at a
-    larger capacity; the merged count is maxed with every shard's, as in
-    the JAX package."""
+    Overflow: a shard over ``cap`` groups keeps only its first ``cap`` in
+    its table, which can leave the merged count at or below ``cap``; the
+    returned count is maxed with every shard's on the device, as in the JAX
+    package, so the caller re-runs at a larger capacity."""
     from hyperspace_tpu_torch.exec.aggregate import _merge_concat_parts, grouped_chunk_program
 
     chunk = grouped_chunk_program(pred_fn, key_specs, slot_specs, cap)
@@ -146,20 +147,15 @@ def sharded_grouped_chunk_program(mesh: Mesh, axis: str, pred_fn, key_specs, slo
                 parts.append(chunk(cols_d, _to(lits, dev), hi - lo, row_base + lo))
             else:
                 parts.append(_empty_part(cols, key_specs, slot_specs, cap, dev))
-        ng_all = [p[0] for p in parts]
-        if max(ng_all) > cap:
-            return max(ng_all), None, None, None
         home = mesh.device_of(0)
+        ng_all = all_gather([p[0].reshape(1) for p in parts], home, axis)
         fs_all = all_gather([p[1] for p in parts], home, axis)
-        keys_all = [all_gather([p[2][i] for p in parts], home, axis) for i in range(len(key_specs))]
-        slots_all = [all_gather([p[3][i] for p in parts], home, axis) for i in range(len(slot_specs))]
-        # the gathered tables' rows that hold a group, in shard order
-        take = torch.cat([torch.arange(ng, device=home) + d * cap for d, ng in enumerate(ng_all)])
+        keys_all = tuple(all_gather([p[2][i] for p in parts], home, axis) for i in range(len(key_specs)))
+        slots_all = tuple(all_gather([p[3][i] for p in parts], home, axis) for i in range(len(slot_specs)))
+        part_mask = (torch.arange(cap, device=home)[None, :] < ng_all[:, None]).reshape(-1)
         n_g, fs, key_out, slot_out = _merge_concat_parts(
-            key_specs, slot_specs, cap,
-            tuple(k[take] for k in keys_all), tuple(s[take] for s in slots_all), fs_all[take],
-        )
-        return max(n_g, max(ng_all)), fs, key_out, slot_out
+            key_specs, slot_specs, cap, keys_all, slots_all, fs_all, part_mask)
+        return torch.maximum(n_g, ng_all.amax()), fs, key_out, slot_out
 
     return program
 
@@ -169,22 +165,21 @@ def sharded_fused_grouped_program(mesh: Mesh, axis: str, pred_fn, key_specs, slo
     sharded chunk program and the merge into the running partial as one
     program. Same signature, ``program(state_keys, state_slots, state_fs,
     state_n, cols, lits, n, row_base) -> (n_b, n_m, n_out, fs, keys,
-    slots)``, and the same overflow contract: above ``cap`` groups in the
-    chunk (any shard's or the merged count) or in the merge, the state
-    comes back as it was and the caller redoes the chunk per-family. The
-    state is never written in place (the sharded fold does not donate)."""
+    slots)``, and the same overflow contract, decided on the device: above
+    ``cap`` groups in the chunk (any shard's or the merged count) or in the
+    merge, every output holds the state's values and the caller redoes the
+    chunk per-family. The state is never written in place (the sharded
+    fold does not donate)."""
     from hyperspace_tpu_torch.exec.aggregate import fold_into_state
 
     chunk = sharded_grouped_chunk_program(mesh, axis, pred_fn, key_specs, slot_specs, cap)
 
-    def program(state_keys, state_slots, state_fs, state_n: int, cols, lits, n: int, row_base: int):
+    def program(state_keys, state_slots, state_fs, state_n, cols, lits, n: int, row_base: int):
         n_b, fs_b, key_b, slot_b = chunk(cols, lits, n, row_base)
-        if n_b > cap:
-            return n_b, n_b, state_n, state_fs, tuple(state_keys), tuple(state_slots)
-        n_m, fs_out, keys_out, slots_out = fold_into_state(
+        n_m, n_out, fs_out, keys_out, slots_out = fold_into_state(
             key_specs, slot_specs, cap, False, state_keys, state_slots, state_fs, state_n,
             key_b, slot_b, fs_b, n_b,
         )
-        return n_b, n_m, (n_m if n_m <= cap else state_n), fs_out, keys_out, slots_out
+        return n_b, n_m, n_out, fs_out, keys_out, slots_out
 
     return program

@@ -210,8 +210,16 @@ class DataFrame:
         plan = self.optimized_plan()
         self.session.query_stage_seconds["rewrite"] += time.perf_counter() - t
         cols = plan.output_columns
-        for chunk in Executor(self.session).execute_stream(plan):
-            yield B.select(chunk, cols)
+        stream = Executor(self.session).execute_stream(plan)
+        try:
+            for chunk in stream:
+                yield B.select(chunk, cols)
+        finally:
+            # closed here, not when the last reference goes: some CPython
+            # 3.12 releases close a generator suspended outside a try block
+            # without releasing its loop's iterator, which would keep the
+            # stream, and its prefetched decodes, running
+            stream.close()
 
     toLocalIterator = to_local_iterator
 

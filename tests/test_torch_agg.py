@@ -545,12 +545,15 @@ def test_grouped_program_matches_jax(keys, keep):
 
 def test_grouped_program_above_capacity_reports_count():
     """Above its capacity the program reports the group count, as JAX's
-    does, and the caller re-runs it at a capacity that holds them."""
+    does, with ``cap``-row tables of the first ``cap`` groups equal to
+    JAX's, and the caller re-runs it at a capacity that holds them."""
     cols = _program_inputs(np.random.default_rng(4), 800)
     key_specs = (("q", "i"),)
-    program = A.grouped_chunk_program(None, key_specs, SLOTS[:3], 16)
-    n_g, fs, keys, slots = program({k: torch.from_numpy(v) for k, v in cols.items()}, (), 800, 0)
-    assert n_g == _jax_grouped(cols, key_specs, SLOTS[:3], 16, None)[0] == 800 and fs is None
+    got = _torch_grouped(cols, key_specs, SLOTS[:3], 16, None)
+    ref = _jax_grouped(cols, key_specs, SLOTS[:3], 16, None)
+    n_g = got[0]
+    assert n_g == ref[0] == 800 and got[1].shape == (16,)
+    _assert_grouped_equal(got, ref, SLOTS[:3])
     cap = A.group_capacity(n_g, 16)
     assert cap == RD.group_capacity(n_g, 16) >= n_g
     _assert_grouped_equal(_torch_grouped(cols, key_specs, SLOTS[:3], cap, None),

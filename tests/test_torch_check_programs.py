@@ -17,9 +17,8 @@ record by running a program instead of writing HLO text. Then:
 - the 22 families are registered in both packages with the same budgets;
 - ``TestEndToEnd``: both packages run the same queries over the same lake
   with ``hyperspace.check.hlo.enabled`` on. The same families are
-  verified, the JAX package's programs break no contract, and the port's
-  break none but the open faults of ROADMAP §C (C12), each pinned by a
-  strict xfail with its label.
+  verified, and neither package's programs break a contract (the port's
+  grouped families did until ROADMAP §C's C12 was repaired).
 
 Exact everywhere: counts of ops and collectives, and rows byte for byte.
 """
@@ -72,19 +71,6 @@ pytestmark = [pytest.mark.torch_port, pytest.mark.check]
 
 N_DEV = 4
 
-#: ROADMAP §C, C12: the port's grouped programs compact rows and segment
-#: starts with ``nonzero`` (a host wait and a value-dependent shape) where
-#: the JAX package's programs are fixed-shape. {family: ops the record shows}
-C12 = {
-    "grouped-agg-chunk": {"aten::nonzero"},
-    "sharded-grouped": {"aten::nonzero"},
-    "grouped-merge": {"aten::nonzero"},
-    "fused-stage-agg": {"aten::nonzero"},
-    "fused-stage-agg-sharded": {"aten::nonzero"},
-    # and the pair total's ``int()``, read mid-program to test the pair
-    # capacity before the expansion
-    "fused-stage-join-agg": {"aten::nonzero", "aten::_local_scalar_dense"},
-}
 #: the families the end-to-end query mix runs (dict-expand, lineage-antijoin
 #: and fused-stage-join-agg: the mirrored suites' cases; the sharded and
 #: exchange families: TestProgramCollectives)
@@ -92,7 +78,9 @@ EXPECTED_FAMILIES = {
     "fused-filter", "grouped-agg-chunk", "fused-agg", "bucketed-smj-span", "topk-chunk", "grouped-merge",
     "topk-merge", "fused-stage-agg", "fused-stage-topk", "hash-build", "hash-probe", "fused-postjoin",
 }
-C12_REASON = "ROADMAP C12: the port's grouped programs compact with nonzero (host wait, value-dependent shape)"
+#: the grouped families of the query mix: ROADMAP §C's C12, repaired (their
+#: programs compacted rows with ``nonzero`` until then)
+GROUPED_FAMILIES = {"grouped-agg-chunk", "grouped-merge", "fused-stage-agg"}
 
 
 def _verified(family: str) -> float:
@@ -563,7 +551,6 @@ class TestProgramCollectives:
         assert got["all-gather"] >= 1 and got["all-to-all"] == 0, got
         assert not [f for f in verify_program("sharded-grouped", rec) if f.rule.startswith("collective-budget")]
 
-    @pytest.mark.xfail(strict=True, reason=C12_REASON)
     def test_sharded_grouped_agg_verifies_clean(self, mesh):
         assert not verify_program("sharded-grouped", self._sharded_grouped_record(mesh))
 
@@ -716,23 +703,18 @@ class TestEndToEnd:
         assert ref_bad == [], [f.render() for f in ref_bad]
 
     def test_the_port_breaks_only_the_logged_faults(self, end_to_end):
-        """Every violation the port's run reports is C12's: a family and an
-        op the fault names."""
+        """The port's run reports no violation: no fault of ROADMAP §C is
+        open against the contracts."""
         port_bad = end_to_end[4]
-        for f in port_bad:
-            family = f.detail["family"]
-            assert family in C12, f.render()
-            assert f.rule in ("forbidden-op:host-callback", "forbidden-op:dynamic-shape", "single-fusion"), f.render()
-            assert set(f.detail["ops"]) <= C12[family], f.render()
+        assert port_bad == [], [f.render() for f in port_bad]
 
-    @pytest.mark.parametrize("family", sorted(EXPECTED_FAMILIES & set(C12)))
-    @pytest.mark.xfail(strict=True, reason=C12_REASON)
+    @pytest.mark.parametrize("family", sorted(GROUPED_FAMILIES))
     def test_the_ports_family_verifies_clean(self, end_to_end, family):
         port_fams, port_bad = end_to_end[2], end_to_end[4]
         assert family in port_fams
         assert [f.render() for f in port_bad if f.detail["family"] == family] == []
 
-    @pytest.mark.parametrize("family", sorted(EXPECTED_FAMILIES - set(C12)))
+    @pytest.mark.parametrize("family", sorted(EXPECTED_FAMILIES - GROUPED_FAMILIES))
     def test_the_ports_clean_families(self, end_to_end, family):
         port_fams, port_bad = end_to_end[2], end_to_end[4]
         assert family in port_fams

@@ -73,8 +73,6 @@ LEFT_OUT = {
 
 _suite = M.load_cases(os.path.join(HERE, "test_fusion.py"), "_torch_test_fusion_suite", rewrites=REWRITES)
 M.export_cases(_suite, globals(), LEFT_OUT)
-M.known_fault(globals(), "TestHloContracts::test_fused_programs_verify_clean",
-              "ROADMAP C12: fused-stage-agg and fused-stage-join-agg compact with nonzero")
 
 
 @pytest.fixture(autouse=True)

@@ -232,8 +232,8 @@ def test_mesh_build_files_equal_across_packages_and_topologies(tmp_path, dataset
 def test_sharded_programs_gather_tables_not_rows():
     """Each gather of the sharded grouped and top-k programs moves
     ``n_shards * cap`` entries per table (keys, first-seen rows, state
-    slots; the candidate planes), whatever the row count; the sharded
-    filter moves nothing."""
+    slots; the candidate planes), and the grouped one's count gather one a
+    shard, whatever the row count; the sharded filter moves nothing."""
     from hyperspace_tpu_torch.exec.aggregate import _grouped_slots
     from hyperspace_tpu_torch.parallel import collectives as C
 
@@ -247,8 +247,9 @@ def test_sharded_programs_gather_tables_not_rows():
     n_g, fs, keys, out = C.sharded_grouped_chunk_program(mesh, "buckets", None, key_specs, slots, cap)(
         cols, (), n, 0)
     tables = 1 + len(key_specs) + len(slots)
-    assert n_g == 40 and PM.collective_calls[("all_gather", "buckets")] == tables
-    assert PM.collective_entries[("all_gather", "buckets")] == tables * SHARDS * cap < n
+    # and one gather of the shards' group counts, one entry a shard
+    assert n_g == 40 and PM.collective_calls[("all_gather", "buckets")] == tables + 1
+    assert PM.collective_entries[("all_gather", "buckets")] == tables * SHARDS * cap + SHARDS < n
     PM.reset_collectives()
     planes = torch.from_numpy(np.stack([rng.integers(0, 1000, n), np.arange(n)]))
     cand = C.sharded_topk_chunk_program(mesh, "buckets", 1, cap)(planes)

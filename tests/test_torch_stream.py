@@ -742,6 +742,30 @@ def test_float_segment_fold_matches_xla():
         assert got.tobytes() == ref.tobytes(), (how, got, ref)
 
 
+def test_closing_the_iterator_closes_the_executor_stream_at_once(tmp_path, monkeypatch):
+    """``to_local_iterator`` closed after one chunk closes the executor's
+    stream before ``close()`` returns, so the stream's prefetched decodes
+    stop with it. CPython 3.12.3 closes a generator suspended outside a
+    try block without releasing its loop's iterator (later 3.12 releases
+    do): the stream is closed explicitly, whatever the interpreter."""
+    pq.write_table(pa.table({"a": np.arange(10, dtype=np.int64)}), tmp_path / "p.parquet")
+    closed = []
+
+    def execute_stream(self, plan):
+        try:
+            for _ in range(3):
+                yield {"a": np.arange(3, dtype=np.int64)}
+        finally:
+            closed.append(True)
+
+    monkeypatch.setattr(Executor, "execute_stream", execute_stream)
+    sess = ht.Session(conf={ht.keys.SYSTEM_PATH: str(tmp_path / "idx")}, device="cpu")
+    it = sess.read_parquet(str(tmp_path)).to_local_iterator()
+    assert next(it)["a"].tolist() == [0, 1, 2] and closed == []
+    it.close()
+    assert closed == [True]
+
+
 # --------------------------------------------------------------------------
 # on the card
 # --------------------------------------------------------------------------

@@ -327,35 +327,6 @@ def export_cases(mod, namespace: dict, left_out: dict) -> None:
             namespace[attr] = type(attr, (obj,), {"__module__": namespace["__name__"], **gone})
 
 
-def known_fault(namespace: dict, case: str, reason: str) -> None:
-    """Mark the mirrored case ``TestX::test_y`` (or ``test_y``) of
-    ``namespace`` as a strict xfail: it fails in the port for a fault that
-    ROADMAP §C logs (``reason`` names its label), and passes once repaired,
-    which fails the strict xfail so the mark goes with the fault."""
-    import functools
-
-    cls_name, _, name = case.rpartition("::")
-    owner = namespace[cls_name] if cls_name else None
-    fn = getattr(owner, name) if owner is not None else namespace[name]
-
-    @functools.wraps(fn)
-    def run(*args, **kwargs):
-        from hyperspace_tpu_torch.check import program_lint
-
-        try:
-            return fn(*args, **kwargs)
-        finally:
-            # the fault's contract violations stay with its case: a later
-            # case on this worker reads an empty log
-            program_lint.reset_runtime_state()
-
-    marked = pytest.mark.xfail(strict=True, reason=reason)(run)
-    if owner is not None:
-        setattr(owner, name, marked)
-    else:
-        namespace[name] = marked
-
-
 def assert_every_case(mods, namespace: dict, left_out: dict) -> None:
     """Each test function and test method of ``mods`` (modules from
     ``load_cases``) is collected in ``namespace`` or left out by name, never
