@@ -7,8 +7,9 @@
 ``lineitem`` rows in ``--files`` files beside 1.5M ``orders`` rows. Its
 default is ``DEFAULT_ROWS``, 3M (SF 0.5), cut from 6M so that the whole
 script stays well inside its 1200 s limit on a slow host; ``--rows
-6000000`` runs SF1 itself. The ``sql`` phase's TPC-H lake (``SQL_SF``)
-and the ``scale`` lake (sized past the real 1 GiB gate) keep their sizes.
+6000000`` runs SF1 itself. The ``sql`` phase's TPC-H lake is SF 0.5
+(``SQL_SF``, cut from SF1 for the same limit); the ``scale`` lake (sized
+past the real 1 GiB gate) keeps its size.
 
 Phases, each printed with its time (the filter query's phases are 5, 10
 and 13, the join's 6, 11 and 14, the aggregates' 7, 12 and 15, out-of-core
@@ -328,7 +329,7 @@ the JAX package does):
    again and a time-travel q6 of the table before the edits (served by
    the index's first version), each action's seconds, rows/s and
    launches, each query cold, warm and off;
-12g. sql: all 8 TPC-H tables at SF1 from ``benchmarks/tpch_full.py``'s
+12g. sql: all 8 TPC-H tables at ``SQL_SF`` (0.5) from ``benchmarks/tpch_full.py``'s
    ``gen_all`` (``--seed``), the suite's roster at 200 buckets (each
    build's seconds and K1 launches); three of the nine queries that
    rewrite in benchmarks/RESULTS.md's 22-query table (q3, q6, q19;
@@ -348,9 +349,9 @@ the JAX package does):
    ``join_verify``, ``join_postjoin`` and ``join_gather``; then
    ``hash-build`` and ``hash-probe`` alone on the largest table the timed
    queries broadcast and its largest probe chunk;
-12k. native: q6 and J1 on the main session and q19 through
-   ``Session.sql`` on the SF1 TPC-H session (q12 went for the script's time
-   limit), cold and warm (2), with native
+12k. native: q6 and J1 on the main session (q12 and q19 through
+   ``Session.sql`` went for the script's time limit; ``sql`` times q19 at
+   SF1 with native decode on), cold and warm (2), with native
    decode on and off (``hyperspace.exec.io.native.enabled``), rows equal,
    with ``decode``/``join_decode`` layers, ``hs_native_decode_total`` by
    codec, ``hs_native_decode_bytes_total`` and no dialect or io-error
@@ -418,21 +419,31 @@ the JAX package does):
    ``lineage-antijoin`` program on a million rows; on a 4-shard mesh over
    cuda:0, q6, A1 (``sharded-grouped``), T1 (``sharded-topk``), FA1d and
    FT1 (the sharded fused folds), a re-bucketing of a million rows
-   (``index-rebucket``) and ``li_shipdate`` built through the exchange
-   (``index-build-exchange``): 21 of the 22 families (the hierarchical
-   exchange needs a 2-D mesh of processes), each verified at least once;
-   then every query with the check off, its rows equal. The same run in a
-   CPU session over a 60 000-row lake (and its 4 x cpu mesh), each
+   (``index-rebucket``), and ``li_shipdate`` built through the exchange
+   (``index-build-exchange``); on a 2 x 2 ``(dcn, ici)`` mesh over cuda:0
+   (``make_mesh_2d(2, 2, devices=...)``) the hierarchical exchange
+   (``hierarchical-exchange``, two all-to-alls) of 1 048 576 rows from
+   ``--seed`` (``li_shipdate``'s widths: an int64 key, int64 and f64
+   payload, 200 buckets) at a capacity that holds them and one that
+   cannot: all 22 families, each verified at least once; then every query
+   with the check off, its rows equal. The same run in a CPU session over
+   a 60 000-row lake (and its 4 x cpu and 2 x 2 cpu meshes), each
    family's verified count and findings beside the card's, and the
    synchronisations CUDA reported in each window (with the Python line
    that caused each) beside the window's recorded ``host-callback`` ops,
    and the syncs per family on one line. The phase fails if any recorded
-   window, on the card or the CPU, reports a finding, and if a window of
-   the grouped families or the exchange staging (``SYNC_FREE_FAMILIES``)
-   reports a synchronisation. Then warm q6 and A1 with the check on (each
-   program already verified) against off; last, on one line, the grouped
-   programs' times the earlier phases measured (``agg``, ``stream``,
-   ``fusion``, ``mesh``);
+   window, on the card or the CPU, reports a finding, if a registered
+   family was never verified, and if a window of the grouped families or
+   the three exchanges (``SYNC_FREE_FAMILIES``) reports a
+   synchronisation; and unless each hierarchical exchange called two
+   all-to-alls (``ici``, then ``dcn``), put every row on its owner shard
+   (``b % 4``), gave each shard the CPU port's rows and, at the roomy
+   capacity, the flat ``rebucket``'s on the 4-shard mesh (multisets), with
+   overflow 0 there and the CPU port's count at the tight one. Then the
+   exchange's CUDA-event time beside ``index-rebucket``'s on the same rows,
+   warm q6 and A1 with the check on (each program already verified)
+   against off; last, on one line, the grouped programs' times the earlier
+   phases measured (``agg``, ``stream``, ``fusion``, ``mesh``);
 13. profile-query: one warm q6 under ``torch.profiler``: device busy time
    against the query's wall time, and the device time by op;
 14. profile-join: the same for one warm J1;
@@ -4044,16 +4055,17 @@ TPCH_INDEXES = [
     ("partsupp", "ps_pk", ["ps_partkey"],
      ["ps_suppkey", "ps_availqty", "ps_supplycost"]),
 ]
-#: the queries timed at SF1: q6, q3 (a bucketed join and broadcasts off)
-#: and q19 (the native phase's), of those that rewrite onto the roster in
+#: the queries timed at ``SQL_SF``: q6, q3 (a bucketed join and broadcasts off)
+#: and q19 (a join with a residual disjunction), of those that rewrite onto the roster in
 #: benchmarks/RESULTS.md's 22-query table; q1 (the unindexed scan), q5,
 #: q12 and the other four (q10, q14, q17, q18) run with the other twelve at
 #: ``SQL_OTHER_SF``, to keep the script inside its time limit (six were
 #: timed until the check phase came)
 SQL_TIMED = ("q3", "q6", "q19")
-#: the scale factors of the ``sql`` phase's lakes: the timed queries', and
-#: the other sixteen's (cut to keep the script inside its time limit)
-SQL_SF = 1.0
+#: the scale factors of the ``sql`` phase's lakes: the timed queries' (SF1
+#: until the hierarchical exchange joined the check phase), and the other
+#: sixteen's (both cut to keep the script inside its time limit)
+SQL_SF = 0.5
 SQL_OTHER_SF = 0.1
 #: the other sixteen's roster buckets (the default 200 gave every cold
 #: bucketed scan 200 files a side at SF 0.1; cut for the time limit)
@@ -4303,14 +4315,13 @@ def sql_layers(sess, q, reps: int) -> dict:
 
 
 def run_sql(tmp: str, args, smi: str, hbm: float):
-    """TPC-H at SF1 through ``Session.sql``: all 8 tables from
+    """TPC-H at ``SQL_SF`` through ``Session.sql``: all 8 tables from
     ``benchmarks/tpch_full.py::gen_all``, the suite's roster at 200 buckets,
     the timed queries cold, warm, off and generic (off with
     ``broadcastMaxBytes=0``), the broadcast programs alone on their largest
     inputs, q6 and q1 beside their DataFrame forms (A2, A1); then the other
     sixteen once on and once off over a lake and roster of their own at
-    ``SQL_OTHER_SF``. Returns the results and the SF1 session (its lake and
-    roster serve the ``native`` phase)."""
+    ``SQL_OTHER_SF``. Returns the results."""
     import torch
 
     import hyperspace_tpu_torch as ht
@@ -4442,7 +4453,6 @@ def run_sql(tmp: str, args, smi: str, hbm: float):
     assert "agg: device-fused-scan x1" in out["compute"]["A2"]["tiers"], out["compute"]["A2"]
     assert "agg: device-grouped-scan x1" in out["compute"]["A1"]["tiers"], out["compute"]["A1"]
 
-    sf1_sess = sess
     other_root = os.path.join(tmp, "sql-other")
     other_dirs = tpch_full.gen_all(other_root, SQL_OTHER_SF, args.seed)
     sess, builds = open_tpch(other_dirs, os.path.join(other_root, "_indexes"), "cuda", SQL_OTHER_BUCKETS)
@@ -4473,7 +4483,7 @@ def run_sql(tmp: str, args, smi: str, hbm: float):
         print(f"sql {qname} (SF {SQL_OTHER_SF}): {rows} rows, equal to hyperspace off; on {on_ms:.3f} ms "
               f"(first run), off {off_ms:.3f} ms; join: broadcast-hash-stream x{broadcast_count(lines)}; "
               + "; ".join(lines) + f" ({smi})", flush=True)
-    return out, sf1_sess
+    return out
 
 
 # --- the broadcast hash join and ORDER BY ... LIMIT ---------------------------------
@@ -6549,10 +6559,9 @@ def set_native(ht, on: bool) -> None:
     ht.Session(conf={ht.keys.EXEC_IO_NATIVE_ENABLED: on}, device="cuda")
 
 
-def run_native(sess, hs, df, li_src: str, j1, sql_sess, args, smi: str, hbm: float) -> dict:
-    """Native decode at SF1: cold and warm q6 and J1 on the main session and
-    q19 through ``Session.sql`` on the SF1 TPC-H session, native on
-    and off (``hyperspace.exec.io.native.enabled``), rows equal; decode
+def run_native(sess, hs, df, li_src: str, j1, args, smi: str, hbm: float) -> dict:
+    """Native decode at SF1: cold and warm q6 and J1 on the main session,
+    native on and off (``hyperspace.exec.io.native.enabled``), rows equal; decode
     counters; no dialect or io-error fallback over index files; the pinned
     decode against pageable decode plus ``.pin_memory()``; a string filter
     over the source that runs ``dict-expand`` (timed beside its bound); and
@@ -6571,33 +6580,27 @@ def run_native(sess, hs, df, li_src: str, j1, sql_sess, args, smi: str, hbm: flo
     from hyperspace_tpu_torch.ops.sort import bucket_sort_build
 
     cuda = torch.device("cuda", torch.cuda.current_device())
-    texts = tpch_texts()
     sess.conf.set(ht.keys.DEVICE_MIN_ROWS, 0)
-    queries = {"q6": (sess, q6_query(sess.read_parquet(li_src))), "J1": (sess, j1),
-               "q19": (sql_sess, sql_sess.sql(texts["q19"]))}
+    queries = {"q6": q6_query(sess.read_parquet(li_src)), "J1": j1}
     out = {"device": smi, "queries": {}}
     rows_on = {}
     index_fallbacks = {}
     for mode in ("on", "off"):
         set_native(ht, mode == "on")
-        for name, (s, q) in queries.items():
+        for name, q in queries.items():
             before = {n: counter_values(n) for n in ("hs_native_decode_total", "hs_native_decode_bytes_total",
                                                      "hs_native_fallback_total")}
-            layers, got, summary = sql_layers(s, q, 2)
+            layers, got, summary = sql_layers(sess, q, 2)
             delta = {n: counter_delta(counter_values(n), b) for n, b in before.items()}
             decode = [ln for ln in summary.splitlines() if ln.startswith("decode:")]
-            if mode == "on":
+            if mode == "on":  # both read index files only
                 rows_on[name] = got
-                if name in ("q6", "J1"):  # index files only
-                    index_fallbacks[name] = delta["hs_native_fallback_total"]
-                    assert not any(k in ("reason=dialect", "reason=io-error")
-                                   for k in delta["hs_native_fallback_total"]), (name, delta)
-                    assert decode and not any("pyarrow" in ln for ln in decode), (name, decode)
+                index_fallbacks[name] = delta["hs_native_fallback_total"]
+                assert not any(k in ("reason=dialect", "reason=io-error")
+                               for k in delta["hs_native_fallback_total"]), (name, delta)
+                assert decode and not any("pyarrow" in ln for ln in decode), (name, decode)
             else:
-                ordered = name in ("q6", "J1")
-                ok = (same_batch(got, rows_on[name]) if ordered
-                      else same_groups(got, rows_on[name], float_columns(got), ordered=True))
-                assert ok, f"native {name}: rows differ with native decode off"
+                assert same_batch(got, rows_on[name]), f"native {name}: rows differ with native decode off"
             r = out["queries"].setdefault(name, {})
             r[mode] = {"cold_ms": layers["cold"]["total"], "warm_ms": layers["warm"]["total"],
                        "decode_ms": {"cold": layers["cold"].get("decode", 0.0),
@@ -6615,7 +6618,7 @@ def run_native(sess, hs, df, li_src: str, j1, sql_sess, args, smi: str, hbm: flo
 
     # the pinned decode against pageable decode plus .pin_memory(): q6 cold,
     # and its index columns decoded and staged alone, in turns
-    q6 = queries["q6"][1]
+    q6 = queries["q6"]
     files = list(sess.index_manager.get_index("li_shipdate").content.files)
     cols = ["l_shipdate", "l_quantity", "l_discount", "l_extendedprice"]
     pin = {"q6_cold": {True: [], False: []}, "stage": {True: [], False: []}}
@@ -7115,7 +7118,8 @@ def run_serving(li_src: str, o_src: str, system: str, tmp: str, args, smi: str) 
     and after the commit. Then a second server with the result cache on
     serves the mix once, its hits' and misses' latencies apart. Each run
     prints queries/s, latency p50 and p99, its cache hit rates and
-    micro-batches; every fifth served result is held to a direct
+    micro-batches; every fifth served result, and under the refresh each
+    client's first after the commit, is held to a direct
     ``collect()`` (quiesced in order; under the refresh as multisets, by
     the data version its request could see: after the commit it must hold
     the new file's rows, before the commit the old or the new rows whole;
@@ -7191,8 +7195,10 @@ def run_serving(li_src: str, o_src: str, system: str, tmp: str, args, smi: str) 
                     at_submit = fut.done()  # a result-cache hit resolves inside submit()
                     got = fut.result(timeout=660)
                     t1 = time.perf_counter()
+                    # every fifth result, and each client's first after the commit
+                    keep = (k + j * SERVING_CLIENTS) % 5 == 0 or (late and tail == 0)
                     with lock:
-                        done.append((kind, v, t0, t1, at_submit, got if (k + j * SERVING_CLIENTS) % 5 == 0 else None))
+                        done.append((kind, v, t0, t1, at_submit, got if keep else None))
                     j += 1
                     tail += late
             except Exception as e:  # surfaced below: a client error fails the phase
@@ -8286,13 +8292,62 @@ CHECK_FAMILIES = {
     "mesh FA1d": ("fused-stage-agg-sharded",),
     "mesh FT1": ("fused-stage-topk-sharded",),
     "mesh rebucket": ("index-rebucket",),
+    "mesh hierarchical": ("hierarchical-exchange",),
     "mesh build": ("index-build-exchange",),
 }
 #: the families whose windows must report no synchronisation on the card:
-#: the grouped programs and the exchange staging, fixed-shape as the JAX
+#: the grouped programs and the exchanges, fixed-shape as the JAX
 #: package's (ROADMAP §C: C12, C13)
 SYNC_FREE_FAMILIES = ("grouped-agg-chunk", "sharded-grouped", "grouped-merge", "fused-stage-agg",
-                      "fused-stage-agg-sharded", "fused-stage-join-agg", "index-build-exchange", "index-rebucket")
+                      "fused-stage-agg-sharded", "fused-stage-join-agg", "index-build-exchange", "index-rebucket",
+                      "hierarchical-exchange")
+#: rows and buckets of the check phase's hierarchical exchange
+HIER_ROWS = 1 << 20
+HIER_BUCKETS = 200
+
+
+def hierarchical_rows(seed: int, n: int = HIER_ROWS):
+    """``li_shipdate``'s widths from ``seed``: the ship date as int64 days
+    (the key), ``l_quantity`` (int64) and ``l_extendedprice`` (f64), and
+    each row's bucket, the build's hash of its key over ``HIER_BUCKETS``."""
+    import numpy as np
+
+    from hyperspace_tpu_torch.ops.hashing import bucket_ids_np, numeric_hash32
+
+    rng = np.random.default_rng(seed)
+    key = np.datetime64("1992-01-01", "D").astype(np.int64) + rng.integers(0, 2526, n)
+    cols = {"k": key.astype(np.int64), "q": rng.integers(1, 51, n).astype(np.int64),
+            "p": np.round(rng.uniform(900.0, 105000.0, n), 2)}
+    return cols, bucket_ids_np([numeric_hash32(cols["k"])], HIER_BUCKETS)
+
+
+def exchange_rows(mesh, cols: dict, buckets, capacity: int, hierarchical: bool) -> dict:
+    """Re-bucket ``cols`` over ``mesh`` (``rebucket_hierarchical`` on a 2-D
+    one at ``capacity`` in both phases, else the flat ``rebucket``): each
+    shard's valid rows as one (bucket, k, q, p bits) array sorted row by
+    row (a multiset), the overflow, and the all-to-alls it called."""
+    import numpy as np
+
+    from hyperspace_tpu_torch.ops import bucketize as BZ
+    from hyperspace_tpu_torch.parallel import mesh as PM
+
+    place = PM.Placement(mesh)
+    args = ({n: place.put(v) for n, v in cols.items()}, place.put(buckets))
+    before = collections.Counter(PM.collective_calls)
+    if hierarchical:
+        out, ob, valid, overflow = BZ.rebucket_hierarchical(mesh, *args, capacity, capacity)
+    else:
+        out, ob, valid, overflow = BZ.rebucket(mesh, *args, capacity)
+    calls = {key[1]: n - before[key] for key, n in PM.collective_calls.items()
+             if key[0] == "all_to_all" and n > before[key]}
+    n_dev = mesh.size
+    mask = np.asarray(valid).reshape(n_dev, -1)
+    planes = [np.asarray(ob).astype(np.int64)] + [np.asarray(out[n]).view(np.int64) for n in cols]
+    rows = []
+    for g in range(n_dev):
+        r = np.stack([p.reshape(n_dev, -1)[g][mask[g]] for p in planes], axis=1)
+        rows.append(r[np.lexsort(r.T[::-1])])
+    return {"rows": rows, "overflow": int(np.asarray(overflow).sum()), "all_to_all": calls}
 
 
 def check_queries(li, orders, a1_chunk: int, src_chunk: int) -> dict:
@@ -8377,11 +8432,13 @@ def _findings_by_family(findings) -> dict:
 
 
 def contract_pass(system: str, li_src: str, o_src: str, a1_chunk: int, src_chunk: int, device: str,
-                  mesh_devices, build_root: str, syncs: bool = False):
+                  mesh_devices, build_root: str, seed: int, syncs: bool = False):
     """Every check query on ``device`` with the check on, the
     ``lineage-antijoin`` program, and on a mesh over ``mesh_devices`` q6,
-    A1, T1, FA1d and FT1, a re-bucketing of 1M rows and ``li_shipdate``
-    built through the exchange: each family's
+    A1, T1, FA1d and FT1, the flat re-bucketing of ``hierarchical_rows(seed)``
+    (``out["flat"]``, ``exchange_rows``) and its hierarchical exchange on a
+    2 x 2 mesh at a roomy and a tight capacity (``out["hierarchical"]``, by
+    capacity), and ``li_shipdate`` built through the exchange: each family's
     verified count and findings; then every query again with the check off,
     its rows equal to the on run's. With ``syncs`` the recorded windows
     also run under ``torch.cuda.set_sync_debug_mode("warn")``, the scan
@@ -8398,9 +8455,7 @@ def contract_pass(system: str, li_src: str, o_src: str, a1_chunk: int, src_chunk
     from hyperspace_tpu_torch.exec import io as IO
     from hyperspace_tpu_torch.exec import lineage as LN
     from hyperspace_tpu_torch.obs.metrics import REGISTRY
-    from hyperspace_tpu_torch.ops import bucketize as BZ
-    from hyperspace_tpu_torch.parallel import make_mesh
-    from hyperspace_tpu_torch.parallel.mesh import sharded
+    from hyperspace_tpu_torch.parallel import make_mesh, make_mesh_2d
 
     k = ht.keys
 
@@ -8447,13 +8502,14 @@ def contract_pass(system: str, li_src: str, o_src: str, a1_chunk: int, src_chunk
                 "lineage-antijoin differs"
             _check_switch(msess, True)
             on.update({name: run("on", name, msess, spec) for name, spec in mesh_qs.items()})
-            # the flat re-bucketing exchange over the mesh: one all-to-all
-            n_rb = 1 << 20
-            place = sharded(msess.mesh)
-            _, _, valid, overflow = BZ.rebucket(
-                msess.mesh, {"v": place.put(np.arange(n_rb, dtype=np.int64))},
-                place.put((np.arange(n_rb) % 200).astype(np.int32)), 2 * n_rb // MESH_SHARDS)
-            assert int(np.asarray(overflow).sum()) == 0 and int(np.asarray(valid).sum()) == n_rb
+            # the flat re-bucketing exchange over the mesh (one all-to-all),
+            # then the hierarchical one over a 2 x 2 (dcn, ici) mesh (two), at
+            # a capacity that holds every row and one that cannot
+            hcols, hbuckets = hierarchical_rows(seed)
+            out["flat"] = exchange_rows(msess.mesh, hcols, hbuckets, HIER_ROWS // MESH_SHARDS, False)
+            hmesh = make_mesh_2d(2, MESH_SHARDS // 2, devices=[mesh_devices] * MESH_SHARDS)
+            out["hierarchical"] = {cap: exchange_rows(hmesh, hcols, hbuckets, cap, True)
+                                   for cap in (HIER_ROWS // MESH_SHARDS, HIER_ROWS // (4 * MESH_SHARDS))}
             bsess = _mesh_session(build_root, device, make_mesh(devices=[mesh_devices] * MESH_SHARDS))
             _check_switch(bsess, True)
             t_b = time.perf_counter()
@@ -8498,6 +8554,7 @@ def run_check(system: str, li_src: str, o_src: str, a1_chunk: int, tmp: str, arg
     import torch
 
     import hyperspace_tpu_torch as ht
+    from hyperspace_tpu_torch.check import program_lint as PL
     from hyperspace_tpu_torch.check.__main__ import main as lint_main
     from hyperspace_tpu_torch.ops import kernels
 
@@ -8515,7 +8572,7 @@ def run_check(system: str, li_src: str, o_src: str, a1_chunk: int, tmp: str, arg
     src_chunk = 2 * max(os.path.getsize(f) for f in files)
     kernels.reset_launches()
     card, sess, qs = contract_pass(system, li_src, o_src, a1_chunk, src_chunk, device, device,
-                         os.path.join(tmp, "check_mesh_build"), syncs=device == "cuda")
+                                   os.path.join(tmp, "check_mesh_build"), args.seed, syncs=device == "cuda")
     out["launches"] = {k_: v for k_, v in kernels.launches.items() if v}
 
     # the CPU port over a small lake: the same queries, indexes and mesh
@@ -8536,7 +8593,7 @@ def run_check(system: str, li_src: str, o_src: str, a1_chunk: int, tmp: str, arg
     s_chunk = max(1, index_bytes(s_sys, "li_q1") // 8)
     s_files = sorted(os.path.join(s_li, f) for f in os.listdir(s_li))
     cpu, _, _ = contract_pass(s_sys, s_li, s_o, s_chunk, 2 * max(os.path.getsize(f) for f in s_files), "cpu", "cpu",
-                        os.path.join(small, "mesh_build"))
+                              os.path.join(small, "mesh_build"), args.seed)
     cpu_s = time.perf_counter() - t
 
     out["families"] = {}
@@ -8564,6 +8621,12 @@ def run_check(system: str, li_src: str, o_src: str, a1_chunk: int, tmp: str, arg
     found = {fam: {"card": row["findings_card"], "cpu": row["findings_cpu"]}
              for fam, row in out["families"].items() if row["findings_card"] or row["findings_cpu"]}
     assert not found, f"check: recorded windows report findings: {found}"
+    registered = sorted(PL.registered_contracts())
+    unverified = [fam for fam in registered if not card["verified"].get(fam)]
+    assert not unverified, f"check: families never verified on {device}: {unverified}"
+    print(f"check families: {len(registered)} of the {len(registered)} registered families verified on {device} "
+          f"with 0 findings ({smi})", flush=True)
+    out["hierarchical"] = check_hierarchical(card, cpu, device, args.seed, args.reps, smi)
 
     # warm q6 and A1, each program already verified, the check on and off
     out["warm_ms"] = {}
@@ -8591,6 +8654,57 @@ def run_check(system: str, li_src: str, o_src: str, a1_chunk: int, tmp: str, arg
     print(f"check: card passes {card['seconds_on']:.3f} s with the check on"
           f"{' under the sync debug mode' if 'syncs' in card else ''}, {card['seconds_off']:.3f} s off; CPU port "
           f"{cpu_s:.3f} s (its lake and builds included); kernel launches {out['launches']}", flush=True)
+    return out
+
+
+def check_hierarchical(card: dict, cpu: dict, device: str, seed: int, reps: int, smi: str) -> dict:
+    """The hierarchical exchange of the contract passes: two all-to-alls a
+    call (``ici``, then ``dcn``); every row on its owner shard (``b % 4``);
+    each shard's rows, as a multiset, the CPU port's on its 2 x 2 CPU mesh
+    and, at the roomy capacity, the flat ``rebucket``'s on the 4-shard mesh
+    of ``device``; overflow 0 at the roomy capacity and the CPU port's
+    count at the tight one, where every row is placed or counted. Then, on
+    the card, one call's CUDA-event time beside ``index-rebucket``'s on the
+    same rows."""
+    import numpy as np
+
+    from hyperspace_tpu_torch.ops import bucketize as BZ
+    from hyperspace_tpu_torch.parallel import mesh as PM
+
+    roomy, tight = sorted(card["hierarchical"], reverse=True)
+    flat = card["flat"]
+    out = {"rows": HIER_ROWS, "buckets": HIER_BUCKETS, "capacity": {}}
+    for cap, got in card["hierarchical"].items():
+        want = cpu["hierarchical"][cap]
+        assert got["all_to_all"] == {"ici": 1, "dcn": 1}, f"hierarchical exchange at {cap}: {got['all_to_all']}"
+        for g, rows in enumerate(got["rows"]):
+            assert np.all(rows[:, 0] % MESH_SHARDS == g), f"hierarchical exchange at {cap}: shard {g} holds foreign rows"
+            assert np.array_equal(rows, want["rows"][g]), f"hierarchical exchange at {cap}: shard {g} != the CPU port's"
+        placed = sum(len(r) for r in got["rows"])
+        assert got["overflow"] == want["overflow"] and placed + got["overflow"] == HIER_ROWS, \
+            f"hierarchical exchange at {cap}: overflow {got['overflow']}, CPU port {want['overflow']}, placed {placed}"
+        out["capacity"][cap] = {"placed": placed, "overflow": got["overflow"], "overflow_cpu": want["overflow"]}
+    assert out["capacity"][roomy]["overflow"] == 0 and out["capacity"][tight]["overflow"] > 0, out["capacity"]
+    assert flat["overflow"] == 0 and all(np.array_equal(h, f) for h, f in zip(card["hierarchical"][roomy]["rows"],
+                                                                            flat["rows"])), \
+        "hierarchical exchange: rows differ from the flat rebucket's"
+    line = ", ".join(f"capacity {cap}: {c['placed']} rows placed, overflow {c['overflow']} (CPU port "
+                     f"{c['overflow_cpu']})" for cap, c in out["capacity"].items())
+    print(f"check hierarchical-exchange: 2 x 2 (dcn, ici) mesh over {device}, {HIER_ROWS} rows, {HIER_BUCKETS} "
+          f"buckets, 2 all-to-alls a call (ici 1, dcn 1); {line}; every row on its owner, each shard's rows == "
+          f"the flat rebucket's (4 shards over {device}) == the CPU port's (2 x 2 over cpu)", flush=True)
+    if device == "cuda":
+        cols, buckets = hierarchical_rows(seed)
+        hmesh = PM.make_mesh_2d(2, MESH_SHARDS // 2, devices=[device] * MESH_SHARDS)
+        flat_mesh = PM.make_mesh(devices=[device] * MESH_SHARDS)
+        args = {m: ({n: PM.Placement(m).put(v) for n, v in cols.items()}, PM.Placement(m).put(buckets))
+                for m in (hmesh, flat_mesh)}
+        out["ms"] = {"hierarchical-exchange": time_ms(
+                         lambda: BZ.rebucket_hierarchical(hmesh, *args[hmesh], roomy, roomy), reps),
+                     "index-rebucket": time_ms(lambda: BZ.rebucket(flat_mesh, *args[flat_mesh], roomy), reps)}
+        print(f"check exchange time ({HIER_ROWS} rows, capacity {roomy}, CUDA events, median of {reps}): "
+              f"hierarchical-exchange {out['ms']['hierarchical-exchange']} ms on the 2 x 2 mesh, index-rebucket "
+              f"{out['ms']['index-rebucket']} ms on the 4-shard mesh ({smi})", flush=True)
     return out
 
 
@@ -8853,15 +8967,14 @@ def main() -> None:
         phase("delta", t)
 
         t = time.perf_counter()
-        queries["sql"], sql_sess = run_sql(tmp, args, smi, hbm)
+        queries["sql"] = run_sql(tmp, args, smi, hbm)
         queries["sql"]["small"] = sql_small
         queries["sql"]["bcast_small"] = bcast_small
         phase("sql", t)
 
         t = time.perf_counter()
-        queries["native"] = run_native(sess, hs, df, src, j1, sql_sess, args, smi, hbm)
+        queries["native"] = run_native(sess, hs, df, src, j1, args, smi, hbm)
         queries["native"]["small"] = native_small
-        del sql_sess
         phase("native", t)
 
         t = time.perf_counter()

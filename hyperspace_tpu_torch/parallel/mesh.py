@@ -8,13 +8,17 @@ holds one tensor per shard, on that shard's device. Bucket ``b`` lives on
 shard ``b % n_shards``, so a bucketed join needs no collective, and
 re-bucketing is one all-to-all (ops/bucketize.py).
 
-On a CUDA host ``make_mesh`` spans ``torch.cuda.device_count()`` cards; on
-the CPU it spans ``SHARD_COUNT`` shards of the CPU device, the counterpart of
-the JAX package's ``--xla_force_host_platform_device_count`` (1 by default;
-the port's tests set 8). ``make_mesh`` also takes an explicit device list,
-which may repeat a device: a 4-shard mesh on ``cuda:0`` runs every per-shard
-program, the gather and the exchange on one card. That is test scaffolding,
-like the JAX package's virtual CPU devices; no conf key reaches it.
+``make_mesh`` and ``make_mesh_2d`` build on the card unless the caller asks
+for the CPU, as ``Session`` does: by default they span
+``torch.cuda.device_count()`` cards and raise when no CUDA device is
+present; ``device_type="cpu"`` spans ``SHARD_COUNT`` shards of the CPU
+device, the counterpart of the JAX package's
+``--xla_force_host_platform_device_count`` (1 by default; the port's tests
+set 8). Both also take an explicit device list, which may repeat a device:
+a 4-shard mesh (or a 2 x 2 ``("dcn", "ici")`` one) on ``cuda:0`` runs every
+per-shard program, the gather and the exchanges on one card. That is test
+scaffolding, like the JAX package's virtual CPU devices; no conf key
+reaches it.
 
 Inside one process the collectives are copies between the shards' tensors
 (``all_gather``: a concatenation of fixed-size per-shard tables; ``all_to_all``:
@@ -122,9 +126,16 @@ class Mesh:
         return f"Mesh({self.shape}, devices={[str(d) for d in self.devices.flat]})"
 
 
-def _local_devices(device_type: Optional[str]) -> List[torch.device]:
-    kind = device_type or ("cuda" if torch.cuda.is_available() else "cpu")
-    if kind == "cuda":
+def _local_devices(devices, device_type: Optional[str]) -> List[torch.device]:
+    """The shards a mesh may span: ``devices`` when given (repeats allowed),
+    else every card, or ``SHARD_COUNT`` CPU shards for ``device_type="cpu"``.
+    Raises, as ``session.resolve_device`` does, when the card is asked for
+    or implied and none is present: a mesh never falls back to the CPU."""
+    if devices is not None:
+        return [torch.device(d) for d in devices]
+    from hyperspace_tpu_torch.session import resolve_device
+
+    if resolve_device(device_type).type == "cuda":
         return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
     return [torch.device("cpu")] * max(1, int(SHARD_COUNT))
 
@@ -132,14 +143,13 @@ def _local_devices(device_type: Optional[str]) -> List[torch.device]:
 def make_mesh(n_devices: Optional[int] = None, axis: str = DEFAULT_AXIS, *, devices=None,
               device_type: Optional[str] = None) -> Mesh:
     """1-D mesh over the first ``n_devices`` local devices (all by default):
-    every card on a CUDA host, ``SHARD_COUNT`` CPU shards otherwise
-    (``device_type`` picks one of the two). ``devices`` names the shards
-    explicitly and may repeat a device.
+    every card, or ``SHARD_COUNT`` CPU shards for ``device_type="cpu"``.
+    ``devices`` names the shards explicitly and may repeat a device.
 
     Raises ``ValueError`` when the request oversubscribes the host: a
     silently truncated mesh would shard programs across fewer devices than
     the caller planned capacity for."""
-    avail = [torch.device(d) for d in devices] if devices is not None else _local_devices(device_type)
+    avail = _local_devices(devices, device_type)
     if n_devices is not None:
         if n_devices < 1:
             raise ValueError(f"n_devices must be >= 1, got {n_devices}")
@@ -155,17 +165,19 @@ def make_mesh(n_devices: Optional[int] = None, axis: str = DEFAULT_AXIS, *, devi
     return Mesh(avail, (axis,))
 
 
-def make_mesh_2d(n_slices: Optional[int] = None, per_slice: Optional[int] = None) -> Mesh:
+def make_mesh_2d(n_slices: Optional[int] = None, per_slice: Optional[int] = None, *, devices=None,
+                 device_type: Optional[str] = None) -> Mesh:
     """2-D ``("dcn", "ici")`` mesh: ``ici`` spans the shards of one slice (one
     process), ``dcn`` the slices. In a multi-process world
     (parallel/distributed.py) the slice count defaults to the world size and
     each process's local devices form its own slice, so the hierarchical
-    exchange crosses the process boundary once per row."""
+    exchange crosses the process boundary once per row. ``devices`` and
+    ``device_type`` pick the local devices as in ``make_mesh``."""
     import torch.distributed as dist
 
     world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
     rank = dist.get_rank() if world > 1 else 0
-    local = _local_devices(None)
+    local = _local_devices(devices, device_type)
     if n_slices is None:
         n_slices = max(1, world)
     if world > 1:

@@ -34,6 +34,9 @@ HERE = os.path.dirname(__file__)
 REWRITES = {
     'jax = pytest.importorskip("jax")\nimport jax.numpy as jnp  # noqa: E402\n': (
         "import torch_mirror as _mirror  # noqa: E402\n\njax = _mirror.port_jax_shim()\njnp = np\n"),
+    # the port's mesh constructors build on the card unless asked for the CPU
+    "    return make_mesh_2d(n_slices=2, per_slice=4)\n": '    return make_mesh_2d(n_slices=2, per_slice=4, device_type="cpu")\n',
+    "        flat_mesh = make_mesh()\n": '        flat_mesh = make_mesh(device_type="cpu")\n',
 }
 LEFT_OUT = {}
 
@@ -90,7 +93,7 @@ def test_rebucket_equals_the_jax_package():
     ref_bz, ref_mesh = _ref()
     n_dev, n, nb, cap = 8, 8 * 48, 32, 96
     keys, vals, buckets = _inputs(n, nb, 3)
-    mesh, rmesh = PM.make_mesh(), ref_mesh.make_mesh()
+    mesh, rmesh = PM.make_mesh(device_type="cpu"), ref_mesh.make_mesh()
     place, rplace = PM.sharded(mesh), ref_mesh.sharded(rmesh)
     got = BZ.rebucket(mesh, {"k": place.put(keys), "v": place.put(vals)}, place.put(buckets), cap)
     want = ref_bz.rebucket(rmesh, {"k": jax.device_put(keys, rplace), "v": jax.device_put(vals, rplace)},
@@ -114,7 +117,7 @@ def test_rebucket_and_sort_sorts_each_owner_shard():
     n_dev, n, nb, cap = 8, 8 * 40, 16, 80
     keys, vals, _ = _inputs(n, nb, 9)
     h = numeric_hash32(keys).astype(np.uint32)
-    mesh = PM.make_mesh()
+    mesh = PM.make_mesh(device_type="cpu")
     place = PM.sharded(mesh)
     out, ob, ov, of = BZ.rebucket_and_sort(mesh, {"v": place.put(vals), "i": place.put(np.arange(n))},
                                            [place.put(h.view(np.int32))], [place.put(keys)], nb, cap)
@@ -151,7 +154,7 @@ def test_build_exchange_equals_the_jax_package_and_the_single_device_build():
         out[: a.shape[0]] = a
         return out
 
-    mesh, rmesh = PM.make_mesh(), ref_mesh.make_mesh()
+    mesh, rmesh = PM.make_mesh(device_type="cpu"), ref_mesh.make_mesh()
     place, rplace = PM.sharded(mesh), ref_mesh.sharded(rmesh)
     ridx = np.arange(pad, dtype=np.int32)
     cap = 128
@@ -205,7 +208,7 @@ def test_planes_carry_every_dtype_bit_for_bit(dtype):
 def test_overflow_is_counted_and_returned():
     """All rows to one owner through too few slots: every row without a
     slot is counted, and every row with one arrives."""
-    mesh = PM.make_mesh()
+    mesh = PM.make_mesh(device_type="cpu")
     place = PM.sharded(mesh)
     n, cap = 8 * 32, 5
     before = BZ.overflow_rows["rebucket"]

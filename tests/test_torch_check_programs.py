@@ -442,7 +442,7 @@ def test_a_window_sees_only_its_own_threads_ops_and_collectives():
 @pytest.fixture()
 def mesh(monkeypatch):
     monkeypatch.setattr(PM, "SHARD_COUNT", N_DEV)
-    return PM.make_mesh()
+    return PM.make_mesh(device_type="cpu")
 
 
 class TestProgramCollectives:
@@ -495,7 +495,7 @@ class TestProgramCollectives:
 
     def test_hierarchical_is_two_all_to_alls(self, mesh, runtime_default_on):
         """DCN x ICI two-phase exchange: exactly two (one per phase)."""
-        mesh2d = PM.make_mesh_2d(n_slices=2, per_slice=N_DEV // 2)
+        mesh2d = PM.make_mesh_2d(n_slices=2, per_slice=N_DEV // 2, device_type="cpu")
         sh2 = PM.sharded_2d(mesh2d)
         n = N_DEV * 16
         before = _verified("hierarchical-exchange")

@@ -8,12 +8,14 @@ tests/test_log_entry.py, test_dataskipping_rule.py, test_delta_and_analysis.py
 run with the package renamed to the port, their ``session`` a
 ``MirroredSession`` on the CPU. No moved name, and no fault, was found.
 
-Left out, each with the item of ROADMAP.md that takes it:
+``test_dataskipping_rule.py::test_usage_event_reports_applied_dataskipping_index``
+builds its own session: it becomes a ``MirroredSession`` with the case's
+conf, whose ``CollectingEventLogger`` is the port's sink
+(telemetry/events.py).
 
-- ``test_dataskipping_rule.py::test_usage_event_reports_applied_dataskipping_index``:
-  the conf-chosen event sink ``CollectingEventLogger`` (A9);
-- ``test_delta_and_analysis.py::TestExplainWhyNot``: runs in
-  tests/test_torch_explain.py (A12b).
+Left out, with the item of ROADMAP.md that takes it:
+``test_delta_and_analysis.py::TestExplainWhyNot``, which runs in
+tests/test_torch_explain.py (A12b).
 
 ``test_iceberg.py::TestAvroCodec::test_snappy_codec_blocks`` runs on the
 port's native library.
@@ -32,12 +34,16 @@ pytestmark = pytest.mark.torch_port
 
 HERE = os.path.dirname(__file__)
 SOURCES = ("test_log_entry.py", "test_dataskipping_rule.py", "test_delta_and_analysis.py", "test_iceberg.py")
+REWRITES = {
+    "test_dataskipping_rule.py": {
+        "    sess = hst.Session(\n": "    import torch_mirror as _mirror\n\n    sess = _mirror.mirrored_session(\n"},
+}
 LEFT_OUT = {
-    "test_usage_event_reports_applied_dataskipping_index": "A9: the CollectingEventLogger event sink",
     "TestExplainWhyNot": "A12b: runs in tests/test_torch_explain.py",
 }
 
-_modules = [M.load_cases(os.path.join(HERE, src), f"_torch_{src[:-3]}_lake_suite") for src in SOURCES]
+_modules = [M.load_cases(os.path.join(HERE, src), f"_torch_{src[:-3]}_lake_suite", rewrites=REWRITES.get(src))
+            for src in SOURCES]
 for _mod in _modules:
     M.export_cases(_mod, globals(), LEFT_OUT)
 

@@ -54,8 +54,14 @@ _MIRRORED = {
     "    return hst.Session(conf=merged)\n": "    return _mirror.mirrored_session(conf=merged)\n",
 }
 _CPU_WRITER = "session=_mirror.CpuSession())\n"
+#: ``TestMeshHelpers``' bare mesh constructors, asked for the CPU: the
+#: port's build on the card unless asked (ROADMAP C15)
+CPU_MESH_CALLS = {f"{call})": f'{call}, device_type="cpu")' for call in (
+    "make_mesh(9", "make_mesh(0", "make_mesh(-2", "make_mesh(8", "make_mesh(4", "make_mesh_2d(n_slices=3",
+    "make_mesh_2d(n_slices=4, per_slice=4", "make_mesh_2d(n_slices=2, per_slice=4")}
 MESH_REWRITES = {
     **_MIRRORED,
+    **CPU_MESH_CALLS,
     '        write_bucketed(t, ["ship"], 16, d_host, session=None)\n': (
         '        write_bucketed(t, ["ship"], 16, d_host, ' + _CPU_WRITER),
 }
@@ -202,7 +208,7 @@ def test_mesh_build_files_equal_across_packages_and_topologies(tmp_path, dataset
                 pkg.keys.NUM_BUCKETS: 16}
         sess = pkg.Session(conf=conf, device="cpu") if pkg is ht else pkg.Session(conf=conf)
         if not mesh:
-            sess.set_mesh(PM.make_mesh(1) if pkg is ht else ref_make_mesh(1))
+            sess.set_mesh(PM.make_mesh(1, device_type="cpu") if pkg is ht else ref_make_mesh(1))
         PM.reset_collectives()
         entry = pkg.Hyperspace(sess).create_index(
             sess.read_parquet(dataset), pkg.CoveringIndexConfig("idx", ["ship", "rf"], ["qty", "messy"]))
@@ -237,7 +243,7 @@ def test_sharded_programs_gather_tables_not_rows():
     from hyperspace_tpu_torch.exec.aggregate import _grouped_slots
     from hyperspace_tpu_torch.parallel import collectives as C
 
-    mesh = PM.make_mesh()
+    mesh = PM.make_mesh(device_type="cpu")
     n, cap = 50_000, 64
     rng = np.random.default_rng(5)
     cols = {"g": torch.from_numpy(rng.integers(0, 40, n)), "v": torch.from_numpy(rng.standard_normal(n))}
@@ -260,3 +266,41 @@ def test_sharded_programs_gather_tables_not_rows():
     mask = C.sharded_elementwise(mesh, "buckets", lambda c, lits: c["v"] > lits[0])(
         {"v": cols["v"]}, (torch.tensor(0.0, dtype=torch.float64),))
     assert torch.equal(mask, cols["v"] > 0) and not PM.collective_calls
+
+
+# --------------------------------------------------------------------------
+# the mesh constructors build on the card unless asked for the CPU
+# (ROADMAP C15)
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("build", ["make_mesh", "make_mesh_2d"])
+def test_mesh_constructors_raise_without_a_card(monkeypatch, build):
+    """With no CUDA device, a constructor not asked for the CPU raises as
+    ``Session`` does; it never returns a CPU mesh silently."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for kwargs in ({}, {"device_type": "cuda"}):
+        with pytest.raises(RuntimeError, match="no CUDA device is available"):
+            getattr(PM, build)(**kwargs)
+    assert getattr(PM, build)(device_type="cpu").size == SHARDS
+
+
+def test_cpu_meshes_are_the_jax_package_grids():
+    """Asked for the CPU, the constructors give the ``SHARD_COUNT`` shards
+    the JAX package's give over its 8 virtual devices; a 2 x 2 mesh over a
+    repeated device is the JAX package's grid for four devices."""
+    from hyperspace_tpu.parallel import mesh as ref_mesh
+
+    pairs = [(PM.make_mesh(device_type="cpu"), ref_mesh.make_mesh()),
+             (PM.make_mesh(4, device_type="cpu"), ref_mesh.make_mesh(4)),
+             (PM.make_mesh_2d(device_type="cpu"), ref_mesh.make_mesh_2d()),
+             (PM.make_mesh_2d(2, 4, device_type="cpu"), ref_mesh.make_mesh_2d(2, 4)),
+             (PM.make_mesh_2d(2, 2, devices=[torch.device("cpu")] * 4), ref_mesh.make_mesh_2d(2, 2))]
+    for got, want in pairs:
+        assert PM.mesh_fingerprint(got) == ref_mesh.mesh_fingerprint(want)
+        assert got.shape == dict(want.shape) and got.axis_names == tuple(want.axis_names)
+        assert all(d == torch.device("cpu") for d in got.devices.flat)
+    grid, ref = pairs[-1]
+    ids = np.vectorize(lambda d: d.id)(ref.devices)
+    assert ids.tolist() == [[0, 1], [2, 3]]
+    assert PM._groups(grid, "ici") == ids.tolist() and PM._groups(grid, "dcn") == ids.T.tolist()

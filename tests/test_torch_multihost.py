@@ -42,7 +42,7 @@ assert dist.get_world_size() == 2 and dist.get_rank() == pid and dist.get_backen
 
 from hyperspace_tpu_torch.ops.bucketize import rebucket_hierarchical
 
-mesh = PM.make_mesh_2d()  # n_slices defaults to the world size
+mesh = PM.make_mesh_2d(device_type="cpu")  # n_slices defaults to the world size
 assert mesh.shape == {"dcn": 2, "ici": 4}, mesh.shape
 assert mesh.local_shards() == list(range(4 * pid, 4 * pid + 4))
 sh = PM.sharded_2d(mesh)
