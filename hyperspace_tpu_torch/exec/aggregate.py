@@ -104,7 +104,7 @@ from hyperspace_tpu_torch.exec.device import (
     program_key,
     upload_literals,
 )
-from hyperspace_tpu_torch.obs import spans as obs_spans
+from hyperspace_tpu_torch.obs import stages
 from hyperspace_tpu_torch.obs.metrics import REGISTRY
 from hyperspace_tpu_torch.plan.expr import Expr
 
@@ -131,23 +131,25 @@ def _device_columns(session, batch: B.Batch, names, scan_key, n: int, reject_str
     device = session.device
     dev_cols: Dict[str, torch.Tensor] = {}
     codecs: Dict[str, ColumnCodec] = {}
-    t = time.perf_counter()
-    uploaded = False
-    for r in names:
-        ckey = (scan_key, r, str(device)) if scan_key is not None else None
-        cached = _cached_column(ckey, n)
-        if cached is not None:
-            dev_cols[r], codecs[r] = cached
-            continue
-        if reject_strings and batch[r].dtype.kind in ("U", "S", "O"):
-            raise DeviceUnsupported("string aggregate/predicate columns stay host-side here")
-        dev, codec, nbytes = _put_encoded(batch[r], device)
-        dev_cols[r], codecs[r] = dev, codec
-        uploaded = True
-        if ckey is not None:
-            _device_cache.put(ckey, (dev, codec, n, None), nbytes)
-    if uploaded:
-        session.query_stage_seconds["agg_upload"] += time.perf_counter() - t
+    upload = None  # the agg_upload stage, from the first column the cache misses
+    try:
+        for r in names:
+            ckey = (scan_key, r, str(device)) if scan_key is not None else None
+            cached = _cached_column(ckey, n)
+            if cached is not None:
+                dev_cols[r], codecs[r] = cached
+                continue
+            if reject_strings and batch[r].dtype.kind in ("U", "S", "O"):
+                raise DeviceUnsupported("string aggregate/predicate columns stay host-side here")
+            if upload is None:
+                upload = stages.start(session, "agg_upload")
+            dev, codec, nbytes = _put_encoded(batch[r], device)
+            dev_cols[r], codecs[r] = dev, codec
+            if ckey is not None:
+                _device_cache.put(ckey, (dev, codec, n, None), nbytes)
+    finally:
+        if upload is not None:
+            upload.stop()
     return dev_cols, codecs
 
 
@@ -261,48 +263,41 @@ def device_filtered_aggregate(
     dev_cols, codecs = _device_columns(session, batch, sorted(set(refs) | set(agg_inputs)), scan_key, n,
                                        reject_strings=True)
 
-    t = time.perf_counter()
-    if condition is not None:
-        pred_fn, lit_values = compile_predicate(condition, codecs)
-    else:
-        pred_fn, lit_values = None, ()
-    agg_spec = tuple((fn, c) for _, fn, c in aggs)
-    program = fused_agg_program(pred_fn, agg_spec)
-    t0 = program_clock(session.device)
-    lits = upload_literals(lit_values, session.device)
-    with _program_lint.maybe_verify(session.conf, "fused-agg", lambda: program_key(
-            "fused-agg", f"{_pred_skeleton(condition, codecs)}|a:{agg_spec}"), (dev_cols, lits)):
-        outs, valids = program(dev_cols, lits, n)
-    count_dispatch("fused-agg")
-    outs, valids = _read_scalars(outs, valids)
-    _observe_program("fused-agg", t0)
-    t = _add(session, "agg_program", t)
-
-    result: Dict[str, np.ndarray] = {}
-    for (name, fn, c), val, n_valid in zip(aggs, outs, valids):
-        if fn == "count":
-            result[name] = np.asarray([int(val)])
-        elif fn in ("sum", "min", "max", "avg") and n_valid == 0:
-            # no non-null matches: SQL yields NULL (SUM over zero rows too)
-            result[name] = np.asarray([np.nan])
+    with stages.stage(session, "agg_program") as st:
+        if condition is not None:
+            pred_fn, lit_values = compile_predicate(condition, codecs)
         else:
-            src = batch[c]
-            if fn in ("sum", "min", "max") and src.dtype.kind in ("i", "u", "b"):
+            pred_fn, lit_values = None, ()
+        agg_spec = tuple((fn, c) for _, fn, c in aggs)
+        program = fused_agg_program(pred_fn, agg_spec)
+        t0 = program_clock(session.device)
+        lits = upload_literals(lit_values, session.device)
+        with _program_lint.maybe_verify(session.conf, "fused-agg", lambda: program_key(
+                "fused-agg", f"{_pred_skeleton(condition, codecs)}|a:{agg_spec}"), (dev_cols, lits)):
+            outs, valids = program(dev_cols, lits, n)
+        count_dispatch("fused-agg")
+        outs, valids = _read_scalars(outs, valids)
+        _observe_program("fused-agg", t0)
+        st.next("agg_finalize")
+
+        result: Dict[str, np.ndarray] = {}
+        for (name, fn, c), val, n_valid in zip(aggs, outs, valids):
+            if fn == "count":
                 result[name] = np.asarray([int(val)])
+            elif fn in ("sum", "min", "max", "avg") and n_valid == 0:
+                # no non-null matches: SQL yields NULL (SUM over zero rows too)
+                result[name] = np.asarray([np.nan])
             else:
-                result[name] = np.asarray([float(val)])
-    _add(session, "agg_finalize", t)
+                src = batch[c]
+                if fn in ("sum", "min", "max") and src.dtype.kind in ("i", "u", "b"):
+                    result[name] = np.asarray([int(val)])
+                else:
+                    result[name] = np.asarray([float(val)])
     return result
 
 
 def _pred_skeleton(condition: Optional[Expr], codecs) -> str:
     return predicate_skeleton(condition, codecs) if condition is not None else "<none>"
-
-
-def _add(session, stage: str, t0: float) -> float:
-    now = time.perf_counter()
-    session.query_stage_seconds[stage] += now - t0
-    return now
 
 
 # --------------------------------------------------------------------------
@@ -793,71 +788,67 @@ class GroupedAggStream:
             if codecs[col].kind == "string":
                 raise DeviceUnsupported("string aggregate inputs stay host-side")
 
-        t = time.perf_counter()
-        if condition is not None:
-            pred_fn, lit_values = compile_predicate(condition, codecs)
-        else:
-            pred_fn, lit_values = None, ()
-        lits = upload_literals(lit_values, self.session.device)
-        key_specs = tuple(
-            (name, "f" if tag == "f" else "i") for name, (tag, _, _) in zip(self.group_keys, keys_schema)
-        )
-        if stage_ir.fusion_wanted(self.session.conf) and not any(tag == "s" for tag, _, _ in keys_schema):
-            # whole-stage fold: the chunk program and the merge in ONE
-            # dispatch. String group keys stay per-family: their chunk ->
-            # global dictionary remap is a host step between the two
-            skeleton = (
-                f"{_pred_skeleton(condition, codecs)}"
-                f"|k:{','.join(f'{n_}:{t_}' for n_, t_ in key_specs)}"
-                f"|s:{','.join(f'{k_}:{c_}:{int(i_)}' for k_, c_, i_ in self._slots)}"
-            )
-            folded = self._update_fused(dev_cols, lits, pred_fn, key_specs, skeleton, n)
-            _add(self.session, "agg_program", t)
-            if folded:
-                return
-            trace.fallback("fusion", "grouped-overflow")
-            t = time.perf_counter()
-        cap = group_capacity(max(self._cap_hint, 1), self.cap_floor)
-        px = self._parallel
-        family = "sharded-grouped" if px is not None else "grouped-agg-chunk"
-        while True:
-            t0 = program_clock(self.session.device)
-            window = _program_lint.maybe_verify(
-                self.session.conf, family,
-                lambda: program_key(family, f"gagg[{cap}]:{_pred_skeleton(condition, codecs)}|k:{key_specs}"
-                                            f"|s:{self._slots}", px), (dev_cols, lits))
-            if px is not None:
-                from hyperspace_tpu_torch.parallel import collectives as C
-
-                program = C.sharded_grouped_chunk_program(px.mesh, px.axis, pred_fn, key_specs, self._slots, cap)
-                with window:
-                    n_g, fs, key_out, slot_out = px.timed_call(
-                        "grouped-agg", program, dev_cols, lits, n, self._row_base)
+        with stages.stage(self.session, "agg_program"):
+            if condition is not None:
+                pred_fn, lit_values = compile_predicate(condition, codecs)
             else:
-                program = grouped_chunk_program(pred_fn, key_specs, self._slots, cap)
-                with window:
-                    n_g, fs, key_out, slot_out = program(dev_cols, lits, n, self._row_base)
-            count_dispatch(family)
-            (n_g,) = read_counts(n_g)
-            _observe_program(family, t0)
-            if n_g > self.max_groups:
-                t = _add(self.session, "agg_program", t)
-                # this chunk is NOT in the running partial (folded is False)
-                raise GroupCapacityExceeded(f"group cardinality {n_g} exceeds maxGroups {self.max_groups}")
-            if n_g <= cap:
-                break
-            cap = group_capacity(n_g, self.cap_floor)  # one re-run, right-sized
-        self._cap_hint = max(self._cap_hint, n_g)
+                pred_fn, lit_values = None, ()
+            lits = upload_literals(lit_values, self.session.device)
+            key_specs = tuple(
+                (name, "f" if tag == "f" else "i") for name, (tag, _, _) in zip(self.group_keys, keys_schema)
+            )
+            if stage_ir.fusion_wanted(self.session.conf) and not any(tag == "s" for tag, _, _ in keys_schema):
+                # whole-stage fold: the chunk program and the merge in ONE
+                # dispatch. String group keys stay per-family: their chunk ->
+                # global dictionary remap is a host step between the two
+                skeleton = (
+                    f"{_pred_skeleton(condition, codecs)}"
+                    f"|k:{','.join(f'{n_}:{t_}' for n_, t_ in key_specs)}"
+                    f"|s:{','.join(f'{k_}:{c_}:{int(i_)}' for k_, c_, i_ in self._slots)}"
+                )
+                folded = self._update_fused(dev_cols, lits, pred_fn, key_specs, skeleton, n)
+                if folded:
+                    return
+                trace.fallback("fusion", "grouped-overflow")
+            cap = group_capacity(max(self._cap_hint, 1), self.cap_floor)
+            px = self._parallel
+            family = "sharded-grouped" if px is not None else "grouped-agg-chunk"
+            while True:
+                t0 = program_clock(self.session.device)
+                window = _program_lint.maybe_verify(
+                    self.session.conf, family,
+                    lambda: program_key(family, f"gagg[{cap}]:{_pred_skeleton(condition, codecs)}|k:{key_specs}"
+                                                f"|s:{self._slots}", px), (dev_cols, lits))
+                if px is not None:
+                    from hyperspace_tpu_torch.parallel import collectives as C
 
-        key_out = list(key_out)
-        for i, (name, (tag, _, _)) in enumerate(zip(self.group_keys, keys_schema)):
-            if tag == "s":
-                key_out[i] = torch.from_numpy(
-                    self._remap_string_key(name, key_out[i], codecs[name], n_g, cap)
-                ).to(self.session.device)
-        new = {"cap": cap, "n": n_g, "fs": fs, "keys": key_out, "slots": list(slot_out)}
-        self._row_base += n
-        _add(self.session, "agg_program", t)
+                    program = C.sharded_grouped_chunk_program(px.mesh, px.axis, pred_fn, key_specs, self._slots, cap)
+                    with window:
+                        n_g, fs, key_out, slot_out = px.timed_call(
+                            "grouped-agg", program, dev_cols, lits, n, self._row_base)
+                else:
+                    program = grouped_chunk_program(pred_fn, key_specs, self._slots, cap)
+                    with window:
+                        n_g, fs, key_out, slot_out = program(dev_cols, lits, n, self._row_base)
+                count_dispatch(family)
+                (n_g,) = read_counts(n_g)
+                _observe_program(family, t0)
+                if n_g > self.max_groups:
+                    # this chunk is NOT in the running partial (folded is False)
+                    raise GroupCapacityExceeded(f"group cardinality {n_g} exceeds maxGroups {self.max_groups}")
+                if n_g <= cap:
+                    break
+                cap = group_capacity(n_g, self.cap_floor)  # one re-run, right-sized
+            self._cap_hint = max(self._cap_hint, n_g)
+
+            key_out = list(key_out)
+            for i, (name, (tag, _, _)) in enumerate(zip(self.group_keys, keys_schema)):
+                if tag == "s":
+                    key_out[i] = torch.from_numpy(
+                        self._remap_string_key(name, key_out[i], codecs[name], n_g, cap)
+                    ).to(self.session.device)
+            new = {"cap": cap, "n": n_g, "fs": fs, "keys": key_out, "slots": list(slot_out)}
+            self._row_base += n
         if self._partial is None:
             self._partial = new
         else:
@@ -910,7 +901,6 @@ class GroupedAggStream:
             fn = fused_grouped_update_program(pred_fn, key_specs, self._slots, cap, donate)
         program = stage_ir.compile_stage(skeleton, fn, donate_argnums=(0, 1, 2) if donate else ())
         args = (state_keys, state_slots, state_fs, state_n, dev_cols, lits, n, self._row_base)
-        stage_ir.fold_peak_start(self.session.device)
         t0 = program_clock(self.session.device)
         with _program_lint.maybe_verify(self.session.conf, family, f"{family}/{skeleton}", args):
             if px is not None:
@@ -959,39 +949,38 @@ class GroupedAggStream:
         set when the merged table holds more than ``maxGroups`` groups: the
         merged partial is still valid, and the caller hands it to the host
         before spilling."""
-        t = time.perf_counter()
-        a, b = self._partial, new
-        keys_schema, _ = self._schema
-        key_specs = tuple(
-            (name, "f" if tag == "f" else "i") for name, (tag, _, _) in zip(self.group_keys, keys_schema)
-        )
-        cap_in = max(a["cap"], b["cap"])
-        for part in (a, b):
-            if part["cap"] != cap_in:
-                part["fs"] = _dev_pad(part["fs"], cap_in, _FS_SENTINEL)
-                part["keys"] = [_dev_pad(k, cap_in, float("nan") if k.is_floating_point() else 0)
-                                for k in part["keys"]]
-                part["slots"] = [_dev_pad(v, cap_in, 0) for v in part["slots"]]
-        cap_out = group_capacity(a["n"] + b["n"], self.cap_floor)
-        program = grouped_merge_program(key_specs, self._slots, cap_in, cap_out)
-        args = (tuple(a["keys"]), tuple(b["keys"]), tuple(a["slots"]), tuple(b["slots"]),
-                a["fs"], b["fs"], a["n"], b["n"])
-        t0 = program_clock(self.session.device)
-        with obs_spans.span("agg-merge", cat="groupagg", groups_in=a["n"] + b["n"]):
+        with stages.stage(self.session, "agg_merge") as st:
+            a, b = self._partial, new
+            keys_schema, _ = self._schema
+            key_specs = tuple(
+                (name, "f" if tag == "f" else "i") for name, (tag, _, _) in zip(self.group_keys, keys_schema)
+            )
+            cap_in = max(a["cap"], b["cap"])
+            for part in (a, b):
+                if part["cap"] != cap_in:
+                    part["fs"] = _dev_pad(part["fs"], cap_in, _FS_SENTINEL)
+                    part["keys"] = [_dev_pad(k, cap_in, float("nan") if k.is_floating_point() else 0)
+                                    for k in part["keys"]]
+                    part["slots"] = [_dev_pad(v, cap_in, 0) for v in part["slots"]]
+            cap_out = group_capacity(a["n"] + b["n"], self.cap_floor)
+            program = grouped_merge_program(key_specs, self._slots, cap_in, cap_out)
+            args = (tuple(a["keys"]), tuple(b["keys"]), tuple(a["slots"]), tuple(b["slots"]),
+                    a["fs"], b["fs"], a["n"], b["n"])
+            t0 = program_clock(self.session.device)
+            st.set(groups_in=a["n"] + b["n"])
             with _program_lint.maybe_verify(
                     self.session.conf, "grouped-merge",
                     lambda: f"grouped-merge/gmerge[{cap_in}->{cap_out}]|k:{key_specs}|s:{self._slots}", args):
                 n_g, fs, key_out, slot_out = program(*args)
             count_dispatch("grouped-merge")
             (n_g,) = read_counts(n_g)
-        _observe_program("grouped-merge", t0)
-        REGISTRY.counter(
-            "hs_agg_merge_seconds_total",
-            "Cumulative device partial-aggregate merge time (seconds)",
-        ).inc(time.perf_counter() - t0.t0)
-        self._partial = {"cap": cap_out, "n": n_g, "fs": fs, "keys": list(key_out), "slots": list(slot_out)}
-        self._cap_hint = max(self._cap_hint, n_g)
-        _add(self.session, "agg_merge", t)
+            _observe_program("grouped-merge", t0)
+            REGISTRY.counter(
+                "hs_agg_merge_seconds_total",
+                "Cumulative device partial-aggregate merge time (seconds)",
+            ).inc(time.perf_counter() - t0.t0)
+            self._partial = {"cap": cap_out, "n": n_g, "fs": fs, "keys": list(key_out), "slots": list(slot_out)}
+            self._cap_hint = max(self._cap_hint, n_g)
         if n_g > self.max_groups:
             exc = GroupCapacityExceeded(f"group cardinality {n_g} exceeds maxGroups {self.max_groups}")
             exc.folded = True  # the chunk that crossed the limit IS in the partial
@@ -1037,9 +1026,12 @@ class GroupedAggStream:
             if len(_CAP_HINT_MEMO) >= 4096:  # bound pathological key churn
                 _CAP_HINT_MEMO.clear()
             _CAP_HINT_MEMO[self._hint_key] = self._cap_hint
-        t = time.perf_counter()
-        n, key_cols, slot_cols = self._host_table()
-        t = _add(self.session, "agg_program", t)
+        with stages.stage(self.session, "agg_program") as st:
+            n, key_cols, slot_cols = self._host_table()
+            st.next("agg_finalize")
+            return self._final_values(n, key_cols, slot_cols)
+
+    def _final_values(self, n: int, key_cols, slot_cols) -> B.Batch:
         _, input_dtypes = self._schema
         out: B.Batch = dict(key_cols)
         for (name, fn, c), ref in zip(self.aggs, self._refs):
@@ -1075,7 +1067,6 @@ class GroupedAggStream:
                     )
                     out[name] = np.sqrt(np.clip(var, 0.0, None))
         REGISTRY.counter("hs_agg_groups_total", "Groups produced by device grouped aggregation").inc(n)
-        _add(self.session, "agg_finalize", t)
         return out
 
 
@@ -1086,9 +1077,8 @@ class GroupedAggStream:
         the host combine without recomputing any chunk."""
         import pandas as pd
 
-        t = time.perf_counter()
-        n, key_cols, slot_cols = self._host_table()
-        _add(self.session, "agg_program", t)
+        with stages.stage(self.session, "agg_program"):
+            n, key_cols, slot_cols = self._host_table()
         _, input_dtypes = self._schema
         frame = dict(key_cols)
         refs_by_name = {name: ref for (name, _, _), ref in zip(self.aggs, self._refs)}

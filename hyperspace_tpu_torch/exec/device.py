@@ -45,6 +45,7 @@ import torch
 from hyperspace_tpu_torch.check import program_lint as _program_lint
 from hyperspace_tpu_torch.exec import batch as B
 from hyperspace_tpu_torch.obs import spans as obs_spans
+from hyperspace_tpu_torch.obs import stages
 from hyperspace_tpu_torch.plan.expr import (
     BinaryOp,
     Col,
@@ -964,7 +965,7 @@ def stage_filter_columns(session, batch: B.Batch, condition: Optional[Expr], sca
             _pack_literals(compile_predicate(condition, _dry_codecs(batch, refs))[1])
         if FAULTS.active:
             FAULTS.check("device.transfer")
-        with obs_spans.span("h2d-stage", cat="pipeline", rows=n):
+        with stages.stage(session, "h2d_stage", rows=n):
             for r in cols:
                 ckey = (scan_key, r, str(session.device))
                 cached = _device_cache.get(ckey)
@@ -1006,39 +1007,35 @@ def device_filter_mask(session, batch: B.Batch, condition: Expr, scan_key=None, 
         else:
             missing.append(r)
 
-    stages = session.query_stage_seconds
     if missing:
         # reject unsupported predicates BEFORE encoding/transferring the
         # missing columns — an unsupported shape must not cost device memory
         # or a wasted upload
         _pack_literals(compile_predicate(condition, _dry_codecs(batch, refs))[1])
-        t = time.perf_counter()
-        for r in missing:
-            dev, codec, nbytes = _put_encoded(batch[r], device)
-            dev_cols[r], codecs[r] = dev, codec
-            if scan_key is not None:
-                _device_cache.put((scan_key, r, str(device)), (dev, codec, n, None), nbytes)
-        stages["upload"] += time.perf_counter() - t
+        with stages.stage(session, "upload"):
+            for r in missing:
+                dev, codec, nbytes = _put_encoded(batch[r], device)
+                dev_cols[r], codecs[r] = dev, codec
+                if scan_key is not None:
+                    _device_cache.put((scan_key, r, str(device)), (dev, codec, n, None), nbytes)
 
-    t = time.perf_counter()
-    clock = program_clock(device)
-    fn, lit_values = compile_predicate(condition, codecs)
-    if parallel is not None:
-        from hyperspace_tpu_torch.parallel import collectives as C
+    with stages.stage(session, "predicate_launch") as st:
+        clock = program_clock(device)
+        fn, lit_values = compile_predicate(condition, codecs)
+        if parallel is not None:
+            from hyperspace_tpu_torch.parallel import collectives as C
 
-        fn = C.sharded_elementwise(parallel.mesh, parallel.axis, fn)
-        parallel.note_op("filter")
-    lits = upload_literals(lit_values, device)
-    with _program_lint.maybe_verify(
-        session.conf, "fused-filter", lambda: program_key("fused-filter", predicate_skeleton(condition, codecs),
-                                                          parallel), (dev_cols, lits)):
-        mask = fn(dev_cols, lits)
-    count_dispatch("fused-filter")
-    if mask.dim() == 0:  # a predicate over literals only
-        mask = mask.expand(n)
-    t1 = time.perf_counter()
-    stages["predicate_launch"] += t1 - t
-    out = mask.cpu().numpy()
-    stages["wait_copy_mask"] += time.perf_counter() - t1
+            fn = C.sharded_elementwise(parallel.mesh, parallel.axis, fn)
+            parallel.note_op("filter")
+        lits = upload_literals(lit_values, device)
+        with _program_lint.maybe_verify(
+            session.conf, "fused-filter", lambda: program_key("fused-filter", predicate_skeleton(condition, codecs),
+                                                              parallel), (dev_cols, lits)):
+            mask = fn(dev_cols, lits)
+        count_dispatch("fused-filter")
+        if mask.dim() == 0:  # a predicate over literals only
+            mask = mask.expand(n)
+        st.next("wait_copy_mask")
+        out = mask.cpu().numpy()
     _observe_program("fused-filter", clock)
     return out

@@ -35,14 +35,13 @@ here the framework owns it.
 
 from __future__ import annotations
 
-import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
 from hyperspace_tpu_torch.exec import batch as B
 from hyperspace_tpu_torch.exec import trace
-from hyperspace_tpu_torch.obs import spans
+from hyperspace_tpu_torch.obs import spans, stages
 from hyperspace_tpu_torch.plan import logical as L
 from hyperspace_tpu_torch.plan.expr import (
     EMPTY_SCALAR,
@@ -487,6 +486,24 @@ def _chunk_files_by_bytes(files: List[str], target_bytes: int) -> List[List[str]
     return groups
 
 
+def _streaming_groups(files: List[str], min_bytes: int, chunk_bytes: int) -> Optional[List[List[str]]]:
+    """The streamed aggregate's gate: the file groups of a scan over at
+    least two files and ``min_bytes`` of them that makes two groups or more,
+    else None (a file that cannot be stat'ed: None too)."""
+    import os
+
+    if len(files) < 2:
+        return None
+    try:
+        total_bytes = sum(os.stat(f).st_size for f in files)
+    except OSError:
+        return None
+    if total_bytes < min_bytes:
+        return None
+    groups = _chunk_files_by_bytes(files, max(1, chunk_bytes))
+    return groups if len(groups) >= 2 else None
+
+
 #: aggregate functions with a decomposable partial state (Spark's
 #: partial/final split); distinct forms accumulate uniques
 _STREAMABLE_AGGS = {
@@ -639,18 +656,6 @@ class Executor:
         # the chunk's chain over it (_stream_chunks)
         self._leaf_override: Optional[Tuple[L.LogicalPlan, B.Batch]] = None
 
-    def _add_stage(self, stage: str, t0: float) -> float:
-        """Add the time since ``t0`` to the session's
-        ``query_stage_seconds[stage]`` (``prefetch_<stage>`` on a scan
-        pipeline's thread, where it overlaps the consumer's layers); returns
-        now."""
-        from hyperspace_tpu_torch.exec.pipeline import on_producer_thread
-
-        now = time.perf_counter()
-        key = f"prefetch_{stage}" if on_producer_thread() else stage
-        self.session.query_stage_seconds[key] += now - t0
-        return now
-
     def execute(
         self,
         plan: L.LogicalPlan,
@@ -787,8 +792,9 @@ class Executor:
                                 gen.close()  # an abandoned stream stops its probe decodes
                 chain, leaf = _chain_to_scan(plan)
                 if leaf is not None:
-                    files = _leaf_files(leaf)
-                    groups = _chunk_files_by_bytes(files, max(1, self.session.conf.stream_chunk_bytes))
+                    with stages.stage(self.session, "stream_gate"):
+                        files = _leaf_files(leaf)
+                        groups = _chunk_files_by_bytes(files, max(1, self.session.conf.stream_chunk_bytes))
                     if len(groups) > 1:
                         needed = _chain_needed_columns(chain) | set(plan.output_columns)
                         yield from self._stream_chunks(chain, leaf, groups, needed)
@@ -891,9 +897,7 @@ class Executor:
             stage=stage if staging else None,
         )
         try:
-            t = time.perf_counter()
-            for i, leaf_batch in enumerate(pipe):
-                self._add_stage("stream_wait", t)
+            for i, leaf_batch in enumerate(stages.timed(self.session, "stream_wait", pipe)):
                 if leaf_only:
                     yield leaves[i], subs[i], leaf_batch
                 else:
@@ -905,7 +909,6 @@ class Executor:
                     finally:
                         self._leaf_override = prev
                     yield out
-                t = time.perf_counter()
         finally:
             pipe.close()
 
@@ -962,20 +965,19 @@ class Executor:
                 and not plan.format_options
             ):
                 trace.record("scan", "bucket-cache-filescan")
-                return bucket_cache.read(list(plan.files), list(plan.columns))
-            t = time.perf_counter()
-            batch = _read_files(
-                list(plan.files),
-                plan.file_format,
-                list(plan.columns),
-                with_file_names,
-                partition_values=plan.partition_values,
-                partition_dtypes=plan.partition_dtypes,
-                format_options=plan.format_options,
-                predicate=getattr(plan, "pushdown_predicate", None),
-            )
-            self._add_stage("decode", t)
-            return batch
+                with stages.stage(self.session, "bucket_read"):
+                    return bucket_cache.read(list(plan.files), list(plan.columns))
+            with stages.stage(self.session, "decode"):
+                return _read_files(
+                    list(plan.files),
+                    plan.file_format,
+                    list(plan.columns),
+                    with_file_names,
+                    partition_values=plan.partition_values,
+                    partition_dtypes=plan.partition_dtypes,
+                    format_options=plan.format_options,
+                    predicate=getattr(plan, "pushdown_predicate", None),
+                )
 
         if isinstance(plan, L.IndexScan):
             if plan.pruned_buckets is not None:
@@ -990,17 +992,17 @@ class Executor:
                 cols = list(fcols) + ([INPUT_FILE_NAME] if with_file_names else [])
                 batch = {c: np.empty(0, dtype=object) for c in cols}
             elif bucket_cache is not None and not with_file_names:
-                batch = bucket_cache.read(list(plan.files), list(fcols))
+                with stages.stage(self.session, "bucket_read"):
+                    batch = bucket_cache.read(list(plan.files), list(fcols))
             else:
-                t = time.perf_counter()
-                batch = _read_files(
-                    list(plan.files),
-                    "parquet",
-                    list(fcols),
-                    with_file_names,
-                    predicate=getattr(plan, "pushdown_predicate", None),
-                )
-                self._add_stage("decode", t)
+                with stages.stage(self.session, "decode"):
+                    batch = _read_files(
+                        list(plan.files),
+                        "parquet",
+                        list(fcols),
+                        with_file_names,
+                        predicate=getattr(plan, "pushdown_predicate", None),
+                    )
             if plan.file_columns is not None:
                 # present index columns under the output names
                 renamed: B.Batch = {out: batch[fc] for out, fc in zip(plan.columns, fcols)}
@@ -1043,10 +1045,8 @@ class Executor:
                 else:
                     child = self._exec(plan.child, with_file_names)
             mask = self._filter_mask(plan, child, pruned_by=pushed)
-            t = time.perf_counter()
-            out = B.mask_rows(child, mask)
-            self._add_stage("mask_rows", t)
-            return out
+            with stages.stage(self.session, "mask_rows"):
+                return B.mask_rows(child, mask)
 
         if isinstance(plan, L.Project):
             # projection pushdown into a directly-scanned source: decode ONLY
@@ -1210,78 +1210,77 @@ class Executor:
             raise NotImplementedError("Only conjunctive equi-joins are supported")
         left = self._exec(plan.left, with_file_names)
         right = self._exec(plan.right, with_file_names)
-        t = time.perf_counter()
-        left = {k: v for k, v in left.items() if k != INPUT_FILE_NAME}
-        right = {k: v for k, v in right.items() if k != INPUT_FILE_NAME}
+        with stages.stage(self.session, "join_merge"):
+            left = {k: v for k, v in left.items() if k != INPUT_FILE_NAME}
+            right = {k: v for k, v in right.items() if k != INPUT_FILE_NAME}
 
-        def materialize_key(batch: B.Batch, name: str) -> bool:
-            """Ensure ``name`` is a column of ``batch``, resolving its case
-            like the analyzer (case-insensitive)."""
-            if name in batch:
-                return True
-            got = get_column(batch, name)
-            if got is not None:
-                batch[name] = got
-                return True
-            lowered = {k.lower(): k for k in batch}
-            actual = lowered.get(name.lower())
-            if actual is not None:
-                batch[name] = batch[actual]
-                return True
-            return False
+            def materialize_key(batch: B.Batch, name: str) -> bool:
+                """Ensure ``name`` is a column of ``batch``, resolving its case
+                like the analyzer (case-insensitive)."""
+                if name in batch:
+                    return True
+                got = get_column(batch, name)
+                if got is not None:
+                    batch[name] = got
+                    return True
+                lowered = {k.lower(): k for k in batch}
+                actual = lowered.get(name.lower())
+                if actual is not None:
+                    batch[name] = batch[actual]
+                    return True
+                return False
 
-        # validate key sides (columns may arrive swapped from the user)
-        lkeys, rkeys = [], []
-        for a, b in pairs:
-            if materialize_key(left, a) and materialize_key(right, b):
-                lkeys.append(a)
-                rkeys.append(b)
-            elif materialize_key(left, b) and materialize_key(right, a):
-                lkeys.append(b)
-                rkeys.append(a)
-            else:
-                raise ValueError(f"Join keys ({a}, {b}) not found in the two sides")
+            # validate key sides (columns may arrive swapped from the user)
+            lkeys, rkeys = [], []
+            for a, b in pairs:
+                if materialize_key(left, a) and materialize_key(right, b):
+                    lkeys.append(a)
+                    rkeys.append(b)
+                elif materialize_key(left, b) and materialize_key(right, a):
+                    lkeys.append(b)
+                    rkeys.append(a)
+                else:
+                    raise ValueError(f"Join keys ({a}, {b}) not found in the two sides")
 
-        # rename duplicated right-side columns up front so every output column
-        # resolves to one unambiguous source (the plan's join_output_names).
-        # Only the KEY columns enter pandas: every payload column is gathered
-        # from the original numpy arrays by matched row id afterwards.
-        _, rename = L.join_output_names(list(left), list(right))
-        right_named = {rename.get(k, k): v for k, v in right.items()}
-        rkeys_renamed = [rename.get(k, k) for k in rkeys]
-        ldf = pd.DataFrame({**{k: left[k] for k in lkeys}, "__lrow": np.arange(B.num_rows(left))})
-        rdf = pd.DataFrame({**{k: right_named[k] for k in rkeys_renamed}, "__rrow": np.arange(B.num_rows(right))})
-        if plan.residual is None:
-            spill = self.session.conf.join_spill_min_rows
-            if spill and spill > 0 and max(len(ldf), len(rdf)) > spill:
-                merged = self._partitioned_merge(ldf, rdf, lkeys, rkeys_renamed, plan.how, spill)
+            # rename duplicated right-side columns up front so every output column
+            # resolves to one unambiguous source (the plan's join_output_names).
+            # Only the KEY columns enter pandas: every payload column is gathered
+            # from the original numpy arrays by matched row id afterwards.
+            _, rename = L.join_output_names(list(left), list(right))
+            right_named = {rename.get(k, k): v for k, v in right.items()}
+            rkeys_renamed = [rename.get(k, k) for k in rkeys]
+            ldf = pd.DataFrame({**{k: left[k] for k in lkeys}, "__lrow": np.arange(B.num_rows(left))})
+            rdf = pd.DataFrame({**{k: right_named[k] for k in rkeys_renamed}, "__rrow": np.arange(B.num_rows(right))})
+            if plan.residual is None:
+                spill = self.session.conf.join_spill_min_rows
+                if spill and spill > 0 and max(len(ldf), len(rdf)) > spill:
+                    merged = self._partitioned_merge(ldf, rdf, lkeys, rkeys_renamed, plan.how, spill)
+                else:
+                    merged = ldf.merge(rdf, left_on=lkeys, right_on=rkeys_renamed, how=plan.how)
             else:
-                merged = ldf.merge(rdf, left_on=lkeys, right_on=rkeys_renamed, how=plan.how)
-        else:
-            merged = self._residual_join(plan, ldf, rdf, lkeys, rkeys_renamed, left, right_named)
-        lspec = _gather_spec(merged["__lrow"].to_numpy())
-        rspec = _gather_spec(merged["__rrow"].to_numpy())
-        out: B.Batch = {}
-        for name in plan.output_columns:
-            if name in merged.columns:  # key columns, incl. renamed right keys
-                out[name] = merged[name].to_numpy()
-            elif name in left:
-                out[name] = _gather_with_missing(left[name], lspec)
-            elif name in right_named:
-                out[name] = _gather_with_missing(right_named[name], rspec)
-            else:
-                raise KeyError(f"Join output column {name!r} missing")
-        # USING-style joins coalesce the key across sides: a right/outer
-        # join's unmatched rows show the RIGHT side's key, not NULL
-        if plan.how in ("right", "outer") and plan.using_pairs:
-            for lk, rk in plan.using_pairs:
-                rkr = rename.get(rk, rk)
-                if lk in out and rkr in merged.columns:
-                    lv = out[lk]
-                    mask = pd.isna(lv)
-                    if mask.any():
-                        out[lk] = np.where(mask, merged[rkr].to_numpy(), lv)
-        self._add_stage("join_merge", t)
+                merged = self._residual_join(plan, ldf, rdf, lkeys, rkeys_renamed, left, right_named)
+            lspec = _gather_spec(merged["__lrow"].to_numpy())
+            rspec = _gather_spec(merged["__rrow"].to_numpy())
+            out: B.Batch = {}
+            for name in plan.output_columns:
+                if name in merged.columns:  # key columns, incl. renamed right keys
+                    out[name] = merged[name].to_numpy()
+                elif name in left:
+                    out[name] = _gather_with_missing(left[name], lspec)
+                elif name in right_named:
+                    out[name] = _gather_with_missing(right_named[name], rspec)
+                else:
+                    raise KeyError(f"Join output column {name!r} missing")
+            # USING-style joins coalesce the key across sides: a right/outer
+            # join's unmatched rows show the RIGHT side's key, not NULL
+            if plan.how in ("right", "outer") and plan.using_pairs:
+                for lk, rk in plan.using_pairs:
+                    rkr = rename.get(rk, rk)
+                    if lk in out and rkr in merged.columns:
+                        lv = out[lk]
+                        mask = pd.isna(lv)
+                        if mask.any():
+                            out[lk] = np.where(mask, merged[rkr].to_numpy(), lv)
         return out
 
     @staticmethod
@@ -1435,18 +1434,15 @@ class Executor:
                 # the device gate already materialized the scan: reuse it
                 if filter_node is not None:
                     mask = self._filter_mask(filter_node, scan_batch, pruned_by=pruned)
-                    t = time.perf_counter()
-                    child = B.mask_rows(scan_batch, mask)
-                    self._add_stage("mask_rows", t)
+                    with stages.stage(self.session, "mask_rows"):
+                        child = B.mask_rows(scan_batch, mask)
                 else:
                     child = scan_batch
 
         if child is None:
             child = self._exec(plan.child, with_file_names)
-        t = time.perf_counter()
-        out = host_aggregate(child, list(plan.keys), list(plan.aggs))
-        self._add_stage("agg_host", t)
-        return out
+        with stages.stage(self.session, "agg_host"):
+            return host_aggregate(child, list(plan.keys), list(plan.aggs))
 
     # -- ORDER BY ... LIMIT and the bare LIMIT, streamed ---------------------
 
@@ -1478,8 +1474,9 @@ class Executor:
         chain, leaf = _chain_to_scan(plan.child)
         if leaf is None:
             return None
-        files = _leaf_files(leaf)
-        groups = _chunk_files_by_bytes(files, max(1, conf.stream_chunk_bytes))
+        with stages.stage(self.session, "stream_gate"):
+            files = _leaf_files(leaf)
+            groups = _chunk_files_by_bytes(files, max(1, conf.stream_chunk_bytes))
         if len(groups) < 2:
             return None
         needed = _chain_needed_columns(chain) | set(plan.output_columns)
@@ -1521,10 +1518,9 @@ class Executor:
         chain, leaf = _chain_to_scan(sort_plan.child)
         if leaf is None:
             return None
-        files = _leaf_files(leaf)
-        if len(files) < 2:
-            return None
-        groups = _chunk_files_by_bytes(files, max(1, conf.stream_chunk_bytes))
+        with stages.stage(self.session, "stream_gate"):
+            files = _leaf_files(leaf)
+            groups = _chunk_files_by_bytes(files, max(1, conf.stream_chunk_bytes)) if len(files) >= 2 else []
         if len(groups) < 2:
             return None
         try:
@@ -1560,10 +1556,9 @@ class Executor:
         for batch in self._stream_chunks(chain, leaf, groups, needed, dynamic_pushdown=dynamic):
             batch = {c: v for c, v in batch.items() if c != INPUT_FILE_NAME}
             if host_parts is None:
-                t = time.perf_counter()
                 try:
-                    stream.update(batch)
-                    self._add_stage("topk_fold", t)
+                    with stages.stage(self.session, "topk_fold"):
+                        stream.update(batch)
                     continue
                 except D.DeviceUnsupported as e:
                     # mid-stream fallback: the pool is a superset of the
@@ -1756,19 +1751,9 @@ class Executor:
         chain, leaf = _chain_to_scan(plan.child)
         if leaf is None:
             return None
-        files = _leaf_files(leaf)
-        if len(files) < 2:
-            return None
-        import os
-
-        try:
-            total_bytes = sum(os.stat(f).st_size for f in files)
-        except OSError:
-            return None
-        if total_bytes < min_bytes:
-            return None
-        groups = _chunk_files_by_bytes(files, max(1, conf.stream_chunk_bytes))
-        if len(groups) < 2:
+        with stages.stage(self.session, "stream_gate"):
+            groups = _streaming_groups(_leaf_files(leaf), min_bytes, conf.stream_chunk_bytes)
+        if groups is None:
             return None
         from hyperspace_tpu_torch.exec.device import DeviceUnsupported
 
@@ -1796,83 +1781,82 @@ class Executor:
         g_state: Dict[int, object] = {}  # global plain partials
 
         def fold_chunk(batch):
-            t = time.perf_counter()
-            batch = {k: v for k, v in batch.items() if k != INPUT_FILE_NAME}
-            n = B.num_rows(batch)
+            with stages.stage(self.session, "agg_host"):
+                batch = {k: v for k, v in batch.items() if k != INPUT_FILE_NAME}
+                n = B.num_rows(batch)
 
-            def series(col):
-                got = batch.get(col)
-                if got is None:
-                    got = get_column(batch, col)
-                if got is None:
-                    raise KeyError(f"Aggregate input column {col!r} not found")
-                return got
+                def series(col):
+                    got = batch.get(col)
+                    if got is None:
+                        got = get_column(batch, col)
+                    if got is None:
+                        raise KeyError(f"Aggregate input column {col!r} not found")
+                    return got
 
-            if grouped:
-                frame_cols = {k: series(k) for k in plan.keys}
-                for _i, _n, _fn, c in plain:
-                    if c is not None and c not in frame_cols:
-                        frame_cols[c] = series(c)
-                df = pd.DataFrame(frame_cols)
-                gb = df.groupby(list(plan.keys), dropna=False, sort=False)
-                pieces = {}
-                for i, name, fn, c in plain:
-                    p = f"__p{i}"
-                    if fn == "count":
-                        pieces[p] = gb.size() if c is None else gb[c].count()
-                    elif fn == "sum":
-                        pieces[p] = gb[c].sum(min_count=1)
-                    elif fn == "min":
-                        pieces[p] = gb[c].min()
-                    elif fn == "max":
-                        pieces[p] = gb[c].max()
-                    elif fn == "avg":
-                        pieces[p + "_s"] = gb[c].sum(min_count=1)
-                        pieces[p + "_c"] = gb[c].count()
-                    elif fn == "stddev_samp":
-                        # the raw (n, sum, sum of squares) partials, as the
-                        # JAX package merges them: they cancel when the mean
-                        # is much larger than the spread (ROADMAP C)
-                        pieces[p + "_n"] = gb[c].count()
-                        pieces[p + "_s"] = gb[c].sum(min_count=1)
-                        # float64 before squaring: int64 values near 2^32
-                        # would wrap the sum of squares negative
-                        pieces[p + "_ss"] = gb[c].apply(lambda s: float((s.dropna().astype(np.float64) ** 2).sum()))
-                if pieces:
-                    partial_frames.append(pd.DataFrame(pieces).reset_index())
-                elif distinct:
-                    # a keys-only partial, so groups with only distinct
-                    # aggregates still materialize every group
-                    partial_frames.append(pd.DataFrame({k: frame_cols[k] for k in plan.keys}).drop_duplicates())
-                for i, name, fn, c in distinct:
-                    pair = pd.DataFrame({**{k: series(k) for k in plan.keys}, "__v": series(c)}).drop_duplicates()
-                    distinct_frames[i].append(pair)
-            else:
-                for i, name, fn, c in plain:
-                    s = pd.Series(series(c)) if c is not None else None
-                    st = g_state.get(i)
-                    if fn == "count":
-                        v = n if c is None else int(s.count())
-                        g_state[i] = (st or 0) + v
-                    elif fn in ("sum", "min", "max"):
-                        part = getattr(s, fn)(**({"min_count": 1} if fn == "sum" else {}))
-                        g_state.setdefault(i, []).append(part)
-                    elif fn == "avg":
-                        sc = g_state.setdefault(i, [0.0, 0])
-                        cnt = int(s.count())
-                        if cnt:
-                            sc[0] += float(s.sum())
-                            sc[1] += cnt
-                    elif fn == "stddev_samp":
-                        sc = g_state.setdefault(i, [0, 0.0, 0.0])
-                        d = s.dropna().astype(np.float64)
-                        sc[0] += int(d.shape[0])
-                        sc[1] += float(d.sum())
-                        sc[2] += float((d**2).sum())
-                for i, name, fn, c in distinct:
-                    u = pd.Series(series(c)).dropna().drop_duplicates()
-                    distinct_frames[i].append(u.to_frame("__v"))
-            self._add_stage("agg_host", t)
+                if grouped:
+                    frame_cols = {k: series(k) for k in plan.keys}
+                    for _i, _n, _fn, c in plain:
+                        if c is not None and c not in frame_cols:
+                            frame_cols[c] = series(c)
+                    df = pd.DataFrame(frame_cols)
+                    gb = df.groupby(list(plan.keys), dropna=False, sort=False)
+                    pieces = {}
+                    for i, name, fn, c in plain:
+                        p = f"__p{i}"
+                        if fn == "count":
+                            pieces[p] = gb.size() if c is None else gb[c].count()
+                        elif fn == "sum":
+                            pieces[p] = gb[c].sum(min_count=1)
+                        elif fn == "min":
+                            pieces[p] = gb[c].min()
+                        elif fn == "max":
+                            pieces[p] = gb[c].max()
+                        elif fn == "avg":
+                            pieces[p + "_s"] = gb[c].sum(min_count=1)
+                            pieces[p + "_c"] = gb[c].count()
+                        elif fn == "stddev_samp":
+                            # the raw (n, sum, sum of squares) partials, as the
+                            # JAX package merges them: they cancel when the mean
+                            # is much larger than the spread (ROADMAP C)
+                            pieces[p + "_n"] = gb[c].count()
+                            pieces[p + "_s"] = gb[c].sum(min_count=1)
+                            # float64 before squaring: int64 values near 2^32
+                            # would wrap the sum of squares negative
+                            pieces[p + "_ss"] = gb[c].apply(lambda s: float((s.dropna().astype(np.float64) ** 2).sum()))
+                    if pieces:
+                        partial_frames.append(pd.DataFrame(pieces).reset_index())
+                    elif distinct:
+                        # a keys-only partial, so groups with only distinct
+                        # aggregates still materialize every group
+                        partial_frames.append(pd.DataFrame({k: frame_cols[k] for k in plan.keys}).drop_duplicates())
+                    for i, name, fn, c in distinct:
+                        pair = pd.DataFrame({**{k: series(k) for k in plan.keys}, "__v": series(c)}).drop_duplicates()
+                        distinct_frames[i].append(pair)
+                else:
+                    for i, name, fn, c in plain:
+                        s = pd.Series(series(c)) if c is not None else None
+                        st = g_state.get(i)
+                        if fn == "count":
+                            v = n if c is None else int(s.count())
+                            g_state[i] = (st or 0) + v
+                        elif fn in ("sum", "min", "max"):
+                            part = getattr(s, fn)(**({"min_count": 1} if fn == "sum" else {}))
+                            g_state.setdefault(i, []).append(part)
+                        elif fn == "avg":
+                            sc = g_state.setdefault(i, [0.0, 0])
+                            cnt = int(s.count())
+                            if cnt:
+                                sc[0] += float(s.sum())
+                                sc[1] += cnt
+                        elif fn == "stddev_samp":
+                            sc = g_state.setdefault(i, [0, 0.0, 0.0])
+                            d = s.dropna().astype(np.float64)
+                            sc[0] += int(d.shape[0])
+                            sc[1] += float(d.sum())
+                            sc[2] += float((d**2).sum())
+                    for i, name, fn, c in distinct:
+                        u = pd.Series(series(c)).dropna().drop_duplicates()
+                        distinct_frames[i].append(u.to_frame("__v"))
 
         # the grouped device stream: the chain's predicate fuses into the
         # grouped program over each raw leaf chunk, and the running partial
@@ -1960,10 +1944,8 @@ class Executor:
                 )
                 return stream.finalize()
 
-        t = time.perf_counter()
-        out = self._combine_partials(plan, plain, distinct, partial_frames, distinct_frames, g_state)
-        self._add_stage("agg_finalize", t)
-        return out
+        with stages.stage(self.session, "agg_finalize"):
+            return self._combine_partials(plan, plain, distinct, partial_frames, distinct_frames, g_state)
 
     @staticmethod
     def _combine_partials(plan, plain, distinct, partial_frames, distinct_frames, g_state) -> B.Batch:
@@ -2077,9 +2059,8 @@ class Executor:
             trace.fallback("agg", "min-rows")
             return None, batch, filter_node, pruned
         condition = filter_node.condition if filter_node is not None else None
-        t = time.perf_counter()
-        scan_key = _pruned_scan_key(_scan_identity(node), pruned)
-        self._add_stage("scan_identity", t)
+        with stages.stage(self.session, "scan_identity"):
+            scan_key = _pruned_scan_key(_scan_identity(node), pruned)
         try:
             if plan.keys:
                 got = A.device_grouped_aggregate(
@@ -2130,19 +2111,17 @@ class Executor:
         if rel.partition_columns:
             pv = {f: rel.partition_values_for(f) for f in files}
             pd = dict(rel.partition_dtypes) or None
-        t = time.perf_counter()
-        batch = _read_files(
-            files,
-            rel.physical_format,
-            columns,
-            with_file_names,
-            pv,
-            pd,
-            format_options=getattr(rel, "options", None) or None,
-            predicate=predicate,
-        )
-        self._add_stage("decode", t)
-        return batch
+        with stages.stage(self.session, "decode"):
+            return _read_files(
+                files,
+                rel.physical_format,
+                columns,
+                with_file_names,
+                pv,
+                pd,
+                format_options=getattr(rel, "options", None) or None,
+                predicate=predicate,
+            )
 
     def _filter_mask(self, plan: L.Filter, child: B.Batch, pruned_by=None) -> np.ndarray:
         """Predicate evaluation: the device program over index and file
@@ -2163,15 +2142,13 @@ class Executor:
                     from hyperspace_tpu_torch.exec import device as D
                     from hyperspace_tpu_torch.exec.lineage import lineage_delete_mask
 
-                    t = time.perf_counter()
-                    scan_key = _pruned_scan_key(_scan_identity(plan.child), pruned_by)
-                    self._add_stage("scan_identity", t)
+                    with stages.stage(self.session, "scan_identity"):
+                        scan_key = _pruned_scan_key(_scan_identity(plan.child), pruned_by)
                     col, ids = lineage
                     try:
-                        t = time.perf_counter()
-                        mask = lineage_delete_mask(self.session, child, col, ids, scan_key=scan_key,
-                                                   parallel=_maybe_parallel(self.session, B.num_rows(child)))
-                        self._add_stage("lineage", t)
+                        with stages.stage(self.session, "lineage"):
+                            mask = lineage_delete_mask(self.session, child, col, ids, scan_key=scan_key,
+                                                       parallel=_maybe_parallel(self.session, B.num_rows(child)))
                         trace.record("filter", "device-lineage")
                         return mask
                     except D.DeviceUnsupported:
@@ -2184,9 +2161,8 @@ class Executor:
             if B.num_rows(child) >= conf.device_exec_min_rows:
                 from hyperspace_tpu_torch.exec import device as D
 
-                t = time.perf_counter()
-                scan_key = _pruned_scan_key(_scan_identity(plan.child), pruned_by)
-                self._add_stage("scan_identity", t)
+                with stages.stage(self.session, "scan_identity"):
+                    scan_key = _pruned_scan_key(_scan_identity(plan.child), pruned_by)
                 try:
                     px = _maybe_parallel(self.session, B.num_rows(child))
                     mask = D.device_filter_mask(self.session, child, plan.condition, scan_key=scan_key, parallel=px)
@@ -2219,16 +2195,15 @@ class Executor:
         return inner.child.name, ids
 
     def _host_mask(self, plan: L.Filter, child: B.Batch) -> np.ndarray:
-        t = time.perf_counter()
-        # a struct leaf the predicate names more than once is extracted from
-        # its root column once, not per reference
-        dotted = [r for r in plan.condition.references() if "." in r and r not in child]
-        if dotted:
-            child = dict(child)
-            for r in dotted:
-                got = get_column(child, r)
-                if got is not None:
-                    child[r] = got
-        mask = as_bool_mask(plan.condition.eval(child))
-        self._add_stage("host_predicate", t)
+        with stages.stage(self.session, "host_predicate"):
+            # a struct leaf the predicate names more than once is extracted from
+            # its root column once, not per reference
+            dotted = [r for r in plan.condition.references() if "." in r and r not in child]
+            if dotted:
+                child = dict(child)
+                for r in dotted:
+                    got = get_column(child, r)
+                    if got is not None:
+                        child[r] = got
+            mask = as_bool_mask(plan.condition.eval(child))
         return mask

@@ -342,6 +342,29 @@ def _count_pruned(path: str, keep: List[int], dsp) -> int:
     return int(sk_bytes)
 
 
+class _FileNote:
+    __slots__ = ("facts",)
+
+    def __init__(self, facts: dict):
+        self.facts = facts
+
+    def set(self, **attrs) -> "_FileNote":
+        self.facts.update(attrs)
+        return self
+
+
+def _file_note(f: str):
+    """One file's decode facts (``rows``, the row groups skipped), noted on
+    the context's current span, the decode stage's (obs/stages.py), as one
+    entry of its ``decoded`` list; a no-op without a trace."""
+    sp = spans.current_span()
+    if sp is None:
+        return spans.NULL_SPAN
+    facts = {"file": os.path.basename(f)}
+    sp.attrs.setdefault("decoded", []).append(facts)  # list.append: atomic under the GIL
+    return _FileNote(facts)
+
+
 def _read_row_groups(f: str, columns: Optional[List[str]], schema: pa.Schema, keep: List[int], dsp) -> B.Batch:
     """Decode only the kept row groups of one file (pyarrow). A fully pruned
     file gives a typed empty batch from the file schema."""
@@ -788,11 +811,10 @@ def _native_rg_decode(
             out[c] = vals
 
     for fi, f in enumerate(files):
-        with spans.span("decode", cat="io", file=os.path.basename(f)) as dsp:
-            dsp.set(rows=file_rows[fi])
-            if file_skip[fi] is not None:
-                dsp.set(rowgroups_skipped=file_skip[fi][0], rowgroup_bytes_skipped=file_skip[fi][1])
-            trace.record("decode", "rowgroup-pruned" if fully_pruned[fi] else "native-rg")
+        dsp = _file_note(f).set(rows=file_rows[fi])
+        if file_skip[fi] is not None:
+            dsp.set(rowgroups_skipped=file_skip[fi][0], rowgroup_bytes_skipped=file_skip[fi][1])
+        trace.record("decode", "rowgroup-pruned" if fully_pruned[fi] else "native-rg")
         if QUARANTINE.enabled:
             QUARANTINE.note_ok(f)
 
@@ -950,68 +972,68 @@ def read_parquet_batch(files: List[str], columns: Optional[List[str]], predicate
             return got
 
     def read_one(f: str, schema: pa.Schema) -> B.Batch:
-        with spans.span("decode", cat="io", file=os.path.basename(f)) as dsp:
-            ckey = _io_cache_key(f, columns)
-            got = _io_cache_get(ckey)
-            if got is not None:
-                trace.record("decode", "cached")
-                return got
-            if predicate is not None and f not in evolved:
-                keep = prune_row_groups(f, predicate)
-                if keep is not None:
-                    return _read_row_groups(f, columns, schema, keep, dsp)
-
-            def _decode() -> B.Batch:
-                if FAULTS.active:
-                    FAULTS.check("io.decode", f)
-                if f in evolved:
-                    # decode against the unified schema so this file's
-                    # missing columns null-fill with their siblings' types
-                    trace.record("decode", "pyarrow")
-                    ds = pads.dataset([f], format="parquet", schema=unified)
-                    return B.table_to_batch(ds.to_table(columns=columns))
-                out = None
-                try:
-                    cols = list(columns) if columns is not None else list(schema.names)
-                    hints = _dtype_hints(schema, cols) if _NATIVE_ENABLED else None
-                    if hints is None:
-                        if _NATIVE_ENABLED:
-                            _native_fallback_counter("dtype").inc()
-                    else:
-                        out = native.read_columns(f, cols, hints)
-                except (native.NativeUnsupported, OSError, KeyError) as e:
-                    # a dialect mismatch is the expected fallback; a real IO
-                    # failure before the pyarrow re-read is counted too
-                    if isinstance(e, native.NativeUnsupported):
-                        _native_fallback_counter("dialect").inc()
-                    else:
-                        rerr.count_io_error("io.decode", e, swallowed=True)
-                        _native_fallback_counter("io-error").inc()
-                    out = None
-                if out is None:
-                    trace.record("decode", "pyarrow")
-                    return B.table_to_batch(pads.dataset([f], format="parquet").to_table(columns=columns))
-                trace.record("decode", "native")
-                return out
-
-            try:
-                got = with_retry(_decode, op="io.decode")
-            except rerr.ReliabilityError as exc:
-                rerr.count_io_error("io.decode", exc)
-                if QUARANTINE.enabled and isinstance(exc, rerr.CorruptDataError):
-                    QUARANTINE.note_corrupt(f)
-                raise
-            except (OSError, pa.ArrowInvalid, pa.ArrowTypeError) as exc:
-                err = rerr.classify(exc, path=f)
-                rerr.count_io_error("io.decode", err)
-                if QUARANTINE.enabled and isinstance(err, rerr.CorruptDataError):
-                    QUARANTINE.note_corrupt(f)
-                raise err from exc
-            if QUARANTINE.enabled:
-                QUARANTINE.note_ok(f)
-            dsp.set(rows=B.num_rows(got))
-            _io_cache_put(ckey, got)
+        dsp = _file_note(f)
+        ckey = _io_cache_key(f, columns)
+        got = _io_cache_get(ckey)
+        if got is not None:
+            trace.record("decode", "cached")
             return got
+        if predicate is not None and f not in evolved:
+            keep = prune_row_groups(f, predicate)
+            if keep is not None:
+                return _read_row_groups(f, columns, schema, keep, dsp)
+
+        def _decode() -> B.Batch:
+            if FAULTS.active:
+                FAULTS.check("io.decode", f)
+            if f in evolved:
+                # decode against the unified schema so this file's
+                # missing columns null-fill with their siblings' types
+                trace.record("decode", "pyarrow")
+                ds = pads.dataset([f], format="parquet", schema=unified)
+                return B.table_to_batch(ds.to_table(columns=columns))
+            out = None
+            try:
+                cols = list(columns) if columns is not None else list(schema.names)
+                hints = _dtype_hints(schema, cols) if _NATIVE_ENABLED else None
+                if hints is None:
+                    if _NATIVE_ENABLED:
+                        _native_fallback_counter("dtype").inc()
+                else:
+                    out = native.read_columns(f, cols, hints)
+            except (native.NativeUnsupported, OSError, KeyError) as e:
+                # a dialect mismatch is the expected fallback; a real IO
+                # failure before the pyarrow re-read is counted too
+                if isinstance(e, native.NativeUnsupported):
+                    _native_fallback_counter("dialect").inc()
+                else:
+                    rerr.count_io_error("io.decode", e, swallowed=True)
+                    _native_fallback_counter("io-error").inc()
+                out = None
+            if out is None:
+                trace.record("decode", "pyarrow")
+                return B.table_to_batch(pads.dataset([f], format="parquet").to_table(columns=columns))
+            trace.record("decode", "native")
+            return out
+
+        try:
+            got = with_retry(_decode, op="io.decode")
+        except rerr.ReliabilityError as exc:
+            rerr.count_io_error("io.decode", exc)
+            if QUARANTINE.enabled and isinstance(exc, rerr.CorruptDataError):
+                QUARANTINE.note_corrupt(f)
+            raise
+        except (OSError, pa.ArrowInvalid, pa.ArrowTypeError) as exc:
+            err = rerr.classify(exc, path=f)
+            rerr.count_io_error("io.decode", err)
+            if QUARANTINE.enabled and isinstance(err, rerr.CorruptDataError):
+                QUARANTINE.note_corrupt(f)
+            raise err from exc
+        if QUARANTINE.enabled:
+            QUARANTINE.note_ok(f)
+        dsp.set(rows=B.num_rows(got))
+        _io_cache_put(ckey, got)
+        return got
 
     # decode files concurrently (pyarrow and the native decoder release the
     # GIL); list order — bucket sortedness — is preserved by mapping, not by

@@ -45,7 +45,6 @@ from __future__ import annotations
 
 import os
 import threading
-import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -63,6 +62,7 @@ from hyperspace_tpu_torch.exec.device import (
     count_dispatch,
     program_clock,
 )
+from hyperspace_tpu_torch.obs import stages
 from hyperspace_tpu_torch.ops.encode import sort_key_int64
 from hyperspace_tpu_torch.plan import logical as L
 from hyperspace_tpu_torch.plan.expr import (
@@ -421,29 +421,27 @@ def dispatch_bucketed_join(session, plan: L.Join) -> B.Batch:
     device or host spans by the input-rows threshold and the span round
     trip's byte budget. Raises DeviceUnsupported when the join isn't a
     compatible bucketed pair (the executor then runs its generic merge)."""
-    stages = session.query_stage_seconds
-    t = time.perf_counter()
-    compat = join_sides_compatible(plan)
-    if compat is None:
-        raise DeviceUnsupported("join sides are not compatible bucketed index scans")
-    lside, rside, _lkeys, _rkeys = compat
-    files = [f for side in (lside, rside) for f in _side_files(side)]
-    try:
-        total = sum(_file_num_rows(f) for f in files)
-    except OSError:
-        total = 0  # unreadable footer -> stay on host
-    stream_min = session.conf.stream_join_min_bytes
-    if stream_min and stream_min > 0:
+    with stages.stage(session, "join_plan"):
+        compat = join_sides_compatible(plan)
+        if compat is None:
+            raise DeviceUnsupported("join sides are not compatible bucketed index scans")
+        lside, rside, _lkeys, _rkeys = compat
+        files = [f for side in (lside, rside) for f in _side_files(side)]
         try:
-            input_bytes = sum(os.stat(f).st_size for f in files)
+            total = sum(_file_num_rows(f) for f in files)
         except OSError:
-            input_bytes = 0
-        if input_bytes >= stream_min:
-            # out of core: walk the buckets one at a time instead of
-            # decoding both whole sides
-            stages["join_plan"] += time.perf_counter() - t
-            return _fold_streamed_join(session, plan, compat)
-    stages["join_plan"] += time.perf_counter() - t
+            total = 0  # unreadable footer -> stay on host
+        input_bytes = 0
+        stream_min = session.conf.stream_join_min_bytes
+        if stream_min and stream_min > 0:
+            try:
+                input_bytes = sum(os.stat(f).st_size for f in files)
+            except OSError:
+                input_bytes = 0
+    if stream_min and stream_min > 0 and input_bytes >= stream_min:
+        # out of core: walk the buckets one at a time instead of decoding
+        # both whole sides
+        return _fold_streamed_join(session, plan, compat)
     setup = _bucketed_join_setup(session, plan, compat)
     # the span program's round trip is known here: keys go up as rectangles
     # of nb x (widest bucket) int64, and [lo, hi) comes down (16 B per left
@@ -477,7 +475,6 @@ def _fold_streamed_join(session, plan: L.Join, compat) -> B.Batch:
     exit, so both sides' readers stop mid-stream. An empty stream is typed
     from the index footers: falling back to the generic merge would
     materialize both sides, which this path exists to avoid."""
-    stages = session.query_stage_seconds
     gen = stream_bucketed_join(session, plan, _compat=compat)
     merged = None
     merged_bytes = 0
@@ -485,22 +482,20 @@ def _fold_streamed_join(session, plan: L.Join, compat) -> B.Batch:
     pending_bytes = 0
     try:
         for chunk in gen:
-            t = time.perf_counter()
-            pending.append(chunk)
-            pending_bytes += _chunk_nbytes(chunk)
-            if merged is None or pending_bytes >= merged_bytes:
-                batches = ([merged] if merged is not None else []) + pending
-                merged = batches[0] if len(batches) == 1 else B.concat(batches)
-                merged_bytes = _chunk_nbytes(merged)
-                pending, pending_bytes = [], 0
-            _add(stages, "join_fold", t)
+            with stages.stage(session, "join_fold"):
+                pending.append(chunk)
+                pending_bytes += _chunk_nbytes(chunk)
+                if merged is None or pending_bytes >= merged_bytes:
+                    batches = ([merged] if merged is not None else []) + pending
+                    merged = batches[0] if len(batches) == 1 else B.concat(batches)
+                    merged_bytes = _chunk_nbytes(merged)
+                    pending, pending_bytes = [], 0
     finally:
         gen.close()
-    t = time.perf_counter()
     if pending:
-        batches = ([merged] if merged is not None else []) + pending
-        merged = batches[0] if len(batches) == 1 else B.concat(batches)
-    _add(stages, "join_fold", t)
+        with stages.stage(session, "join_fold"):
+            batches = ([merged] if merged is not None else []) + pending
+            merged = batches[0] if len(batches) == 1 else B.concat(batches)
     if merged is None:
         lside, rside, lkeys, rkeys = compat
         lc, rc = _stream_needed_columns(plan, lside, rside, lkeys, rkeys)
@@ -590,7 +585,7 @@ def stream_bucketed_join(session, plan: L.Join, _compat=None):
     ``dispatch_bucketed_join`` and by ``DataFrame.to_local_iterator``.
     Chunk dtypes may differ across buckets (a nullable int column is
     float64 only in chunks holding nulls); ``B.concat`` promotes."""
-    from hyperspace_tpu_torch.exec.pipeline import ScanPipeline, on_producer_thread
+    from hyperspace_tpu_torch.exec.pipeline import ScanPipeline
 
     compat = _compat if _compat is not None else join_sides_compatible(plan)
     if compat is None:
@@ -604,7 +599,6 @@ def stream_bucketed_join(session, plan: L.Join, _compat=None):
     nb = _side_bucket_spec(lside).num_buckets
     keep_left = plan.how in ("left", "outer")
     keep_right = plan.how in ("right", "outer")
-    stages = session.query_stage_seconds
 
     hints = _stream_join_dtype_hints(plan, lside, rside, lcols_needed, rcols_needed)
     parts = [b for b in range(nb) if b in lread or b in rread]
@@ -614,25 +608,24 @@ def stream_bucketed_join(session, plan: L.Join, _compat=None):
         (after the decode, the bucket's largest host cost)."""
         if FAULTS.active:
             FAULTS.check("join.task")
-        t = time.perf_counter()
-        lt, rt = lread.get(b), rread.get(b)
-        lb = lt() if lt is not None else None
-        rb = rt() if rt is not None else None
-        if lb is not None and B.num_rows(lb) == 0:
-            lb = None
-        if rb is not None and B.num_rows(rb) == 0:
-            rb = None
-        lk = rk = None
-        if lb is not None and rb is not None:
-            if len(lkeys) == 1:
-                try:
-                    lk = _join_key_of(lb, lkeys[0])
-                    rk = _join_key_of(rb, rkeys[0])
-                except DeviceUnsupported:
-                    lk = rk = None
-            if lk is None:
-                lk, rk = _composite_ranks([lb[k] for k in lkeys], [rb[k] for k in rkeys])
-        _add(stages, "prefetch_join_decode" if on_producer_thread() else "join_decode", t)
+        with stages.stage(session, "join_decode"):
+            lt, rt = lread.get(b), rread.get(b)
+            lb = lt() if lt is not None else None
+            rb = rt() if rt is not None else None
+            if lb is not None and B.num_rows(lb) == 0:
+                lb = None
+            if rb is not None and B.num_rows(rb) == 0:
+                rb = None
+            lk = rk = None
+            if lb is not None and rb is not None:
+                if len(lkeys) == 1:
+                    try:
+                        lk = _join_key_of(lb, lkeys[0])
+                        rk = _join_key_of(rb, rkeys[0])
+                    except DeviceUnsupported:
+                        lk = rk = None
+                if lk is None:
+                    lk, rk = _composite_ranks([lb[k] for k in lkeys], [rb[k] for k in rkeys])
         return lb, rb, lk, rk
 
     def expand(lb, rb, lk, rk):
@@ -644,7 +637,6 @@ def stream_bucketed_join(session, plan: L.Join, _compat=None):
             return None
         if rb is None and not keep_left:
             return None
-        t = time.perf_counter()
         span_of = None
         if lb is not None and rb is not None:
 
@@ -654,17 +646,17 @@ def stream_bucketed_join(session, plan: L.Join, _compat=None):
                 except native.NativeUnsupported:
                     return np.searchsorted(rk, lk, side="left"), np.searchsorted(rk, lk, side="right")
 
-        chunk = _expand_join_pairs(
-            plan,
-            {0: lb} if lb is not None else {},
-            {0: rb} if rb is not None else {},
-            1,
-            lcols_needed,
-            rcols_needed,
-            span_of,
-            dtype_fallback=hints,
-        )
-        _add(stages, "join_host_expand", t)
+        with stages.stage(session, "join_host_expand"):
+            chunk = _expand_join_pairs(
+                plan,
+                {0: lb} if lb is not None else {},
+                {0: rb} if rb is not None else {},
+                1,
+                lcols_needed,
+                rcols_needed,
+                span_of,
+                dtype_fallback=hints,
+            )
         return chunk if B.num_rows(chunk) else None
 
     conf = session.conf
@@ -681,14 +673,11 @@ def stream_bucketed_join(session, plan: L.Join, _compat=None):
             weigh=weigh,
         )
         try:
-            t = time.perf_counter()
-            for lb, rb, lk, rk in pipe:
-                _add(stages, "stream_wait", t)
+            for lb, rb, lk, rk in stages.timed(session, "stream_wait", pipe):
                 chunk = expand(lb, rb, lk, rk)
                 if chunk is not None:
                     _count_join_stream_chunk()
                     yield chunk
-                t = time.perf_counter()
         finally:
             # a generator closed mid-stream lands here: queued bucket
             # decodes are cancelled and the ones in flight waited for, so
@@ -724,18 +713,17 @@ def _bucketed_join_setup(session, plan: L.Join, compat=None, needed_override=Non
     lside, rside, lkeys, rkeys = compat
     if plan.how not in ("inner", "left", "right", "outer"):
         raise DeviceUnsupported(f"unsupported join type {plan.how!r}")
-    t = time.perf_counter()
-    # decode only the columns the consumer needs (plus keys)
-    if needed_override is not None:
-        need_l, need_r = set(needed_override[0]), set(needed_override[1])
-    else:
-        need_l = need_r = set(plan.output_columns) | {n[:-2] for n in plan.output_columns if n.endswith("#r")}
-    lcols_needed = [c for c in lside.output_columns if c in need_l or c in lkeys]
-    rcols_needed = [c for c in rside.output_columns if c in need_r or c in rkeys]
-    lbuckets = _side_buckets(session, lside, lcols_needed, lkeys)
-    rbuckets = _side_buckets(session, rside, rcols_needed, rkeys)
-    nb = _side_bucket_spec(lside).num_buckets
-    session.query_stage_seconds["join_decode"] += time.perf_counter() - t
+    with stages.stage(session, "join_decode"):
+        # decode only the columns the consumer needs (plus keys)
+        if needed_override is not None:
+            need_l, need_r = set(needed_override[0]), set(needed_override[1])
+        else:
+            need_l = need_r = set(plan.output_columns) | {n[:-2] for n in plan.output_columns if n.endswith("#r")}
+        lcols_needed = [c for c in lside.output_columns if c in need_l or c in lkeys]
+        rcols_needed = [c for c in rside.output_columns if c in need_r or c in rkeys]
+        lbuckets = _side_buckets(session, lside, lcols_needed, lkeys)
+        rbuckets = _side_buckets(session, rside, rcols_needed, rkeys)
+        nb = _side_bucket_spec(lside).num_buckets
     return lbuckets, rbuckets, lkeys, rkeys, nb, lcols_needed, rcols_needed
 
 
@@ -967,9 +955,8 @@ def _expand_join_pairs(plan: L.Join, lbuckets, rbuckets, nb: int, lout: List[str
 def _make_host_span_of(session, setup, compat):
     """``span_of(b) -> (lo, hi)`` over the pre-sorted per-bucket runs, using
     the shared per-bucket key encodings (whose time goes to ``join_keys``)."""
-    t = time.perf_counter()
-    lkeys_by_bucket, rkeys_by_bucket = _encoded_join_keys(setup, compat)
-    _add(session.query_stage_seconds, "join_keys", t)
+    with stages.stage(session, "join_keys"):
+        lkeys_by_bucket, rkeys_by_bucket = _encoded_join_keys(setup, compat)
 
     def span_of(b: int):
         lk, rk = lkeys_by_bucket[b], rkeys_by_bucket[b]
@@ -995,17 +982,8 @@ def host_bucketed_join(session, plan: L.Join, compat=None, setup=None) -> B.Batc
         setup = _bucketed_join_setup(session, plan, compat)
     lbuckets, rbuckets, lkeys, rkeys, nb, lcols_needed, rcols_needed = setup
     span_of = _make_host_span_of(session, setup, compat)
-    t = time.perf_counter()
-    out = _expand_join_pairs(plan, lbuckets, rbuckets, nb, lcols_needed, rcols_needed, span_of)
-    _add(session.query_stage_seconds, "join_host_expand", t)
-    return out
-
-
-def _add(stages, key: str, t0: float) -> float:
-    """Add the time since ``t0`` to ``stages[key]``; returns now."""
-    now = time.perf_counter()
-    stages[key] += now - t0
-    return now
+    with stages.stage(session, "join_host_expand"):
+        return _expand_join_pairs(plan, lbuckets, rbuckets, nb, lcols_needed, rcols_needed, span_of)
 
 
 # --------------------------------------------------------------------------
@@ -1076,45 +1054,42 @@ def device_bucketed_join(session, plan: L.Join, compat=None, setup=None) -> B.Ba
         setup = _bucketed_join_setup(session, plan, compat)
     lbuckets, rbuckets, lkeys, rkeys, nb, lcols_needed, rcols_needed = setup
     device = session.device
-    stages = session.query_stage_seconds
-    t = time.perf_counter()
-    # index bucket files are immutable (versioned v__=N dirs), so the key
-    # rectangles stay resident on the device across queries; only the first
-    # execution of a (sides, keys) pair pays the encoding and the upload
-    pair_key = _rank_cache_key(compat[0], compat[1], lkeys, rkeys)
-    dev_key = ("join-keymats", pair_key, str(device)) if pair_key is not None else None
-    cached = _device_cache.get(dev_key) if dev_key is not None else None
-    if cached is not None:
-        lmat_dev, rmat_dev, llens, rlens = cached
-        t = _add(stages, "join_keys", t)
-    else:
-        lkeys_by_bucket, rkeys_by_bucket = _encoded_join_keys(setup, compat, pair_key)
+    with stages.stage(session, "join_keys") as st:
+        # index bucket files are immutable (versioned v__=N dirs), so the key
+        # rectangles stay resident on the device across queries; only the first
+        # execution of a (sides, keys) pair pays the encoding and the upload
+        pair_key = _rank_cache_key(compat[0], compat[1], lkeys, rkeys)
+        dev_key = ("join-keymats", pair_key, str(device)) if pair_key is not None else None
+        cached = _device_cache.get(dev_key) if dev_key is not None else None
+        if cached is not None:
+            lmat_dev, rmat_dev, llens, rlens = cached
+        else:
+            lkeys_by_bucket, rkeys_by_bucket = _encoded_join_keys(setup, compat, pair_key)
 
-        def stack_side(buckets: Dict[int, B.Batch], keymap: Dict[int, np.ndarray]):
-            lens = [B.num_rows(buckets[b]) if b in buckets else 0 for b in range(nb)]
-            keys_mat = np.full((nb, max(max(lens), 1)), SENTINEL, dtype=np.int64)
-            for b in range(nb):
-                enc = keymap.get(b)
-                if enc is not None and enc.shape[0]:
-                    keys_mat[b, : enc.shape[0]] = enc
-            return keys_mat, np.asarray(lens, dtype=np.int64)
+            def stack_side(buckets: Dict[int, B.Batch], keymap: Dict[int, np.ndarray]):
+                lens = [B.num_rows(buckets[b]) if b in buckets else 0 for b in range(nb)]
+                keys_mat = np.full((nb, max(max(lens), 1)), SENTINEL, dtype=np.int64)
+                for b in range(nb):
+                    enc = keymap.get(b)
+                    if enc is not None and enc.shape[0]:
+                        keys_mat[b, : enc.shape[0]] = enc
+                return keys_mat, np.asarray(lens, dtype=np.int64)
 
-        lmat, llens_np = stack_side(lbuckets, lkeys_by_bucket)
-        rmat, rlens_np = stack_side(rbuckets, rkeys_by_bucket)
-        t = _add(stages, "join_keys", t)
-        lmat_dev, rmat_dev = _upload(lmat, device), _upload(rmat, device)
-        llens, rlens = _upload(llens_np, device), _upload(rlens_np, device)
-        if dev_key is not None:
-            _device_cache.put(dev_key, (lmat_dev, rmat_dev, llens, rlens), lmat.nbytes + rmat.nbytes)
-        t = _add(stages, "join_upload", t)
+            lmat, llens_np = stack_side(lbuckets, lkeys_by_bucket)
+            rmat, rlens_np = stack_side(rbuckets, rkeys_by_bucket)
+            st.next("join_upload")
+            lmat_dev, rmat_dev = _upload(lmat, device), _upload(rmat, device)
+            llens, rlens = _upload(llens_np, device), _upload(rlens_np, device)
+            if dev_key is not None:
+                _device_cache.put(dev_key, (lmat_dev, rmat_dev, llens, rlens), lmat.nbytes + rmat.nbytes)
 
-    t0 = program_clock(device)
-    with _program_lint.maybe_verify(session.conf, "bucketed-smj-span", "bucketed-smj-span/join-span",
-                                    (lmat_dev, rmat_dev)):
-        lo, hi = bucketed_span(lmat_dev, rmat_dev)
-    count_dispatch("bucketed-smj-span")
-    _observe_program("bucketed-smj-span", t0)
-    t = _add(stages, "join_span", t)
+        st.next("join_span")
+        t0 = program_clock(device)
+        with _program_lint.maybe_verify(session.conf, "bucketed-smj-span", "bucketed-smj-span/join-span",
+                                        (lmat_dev, rmat_dev)):
+            lo, hi = bucketed_span(lmat_dev, rmat_dev)
+        count_dispatch("bucketed-smj-span")
+        _observe_program("bucketed-smj-span", t0)
 
     if plan.how == "inner" and session.conf.join_device_materialize:
         try:
@@ -1124,18 +1099,16 @@ def device_bucketed_join(session, plan: L.Join, compat=None, setup=None) -> B.Ba
             )
         except DeviceUnsupported:
             pass  # e.g. no overlapping buckets or the output above its budget -> host gather
-        t = time.perf_counter()
 
-    lo_np, hi_np = lo.cpu().numpy(), hi.cpu().numpy()
-    llens_np = llens.cpu().numpy()
+    with stages.stage(session, "join_host_expand"):
+        lo_np, hi_np = lo.cpu().numpy(), hi.cpu().numpy()
+        llens_np = llens.cpu().numpy()
 
-    def span_of(b: int):
-        ll = int(llens_np[b])
-        return lo_np[b, :ll], hi_np[b, :ll]
+        def span_of(b: int):
+            ll = int(llens_np[b])
+            return lo_np[b, :ll], hi_np[b, :ll]
 
-    out = _expand_join_pairs(plan, lbuckets, rbuckets, nb, lcols_needed, rcols_needed, span_of)
-    _add(stages, "join_host_expand", t)
-    return out
+        return _expand_join_pairs(plan, lbuckets, rbuckets, nb, lcols_needed, rcols_needed, span_of)
 
 
 def _device_materialize_inner(session, plan: L.Join, lbuckets, rbuckets, lcols_needed, rcols_needed,
@@ -1146,103 +1119,99 @@ def _device_materialize_inner(session, plan: L.Join, lbuckets, rbuckets, lcols_n
     from hyperspace_tpu_torch.ops.sort import padded_size
 
     device = session.device
-    stages = session.query_stage_seconds
-    t = time.perf_counter()
-    out_cols = plan.output_columns
-    participating = sorted(set(lbuckets) & set(rbuckets))
-    if not participating:
-        # no overlapping buckets: the host path builds the typed empty columns
-        raise DeviceUnsupported("no overlapping buckets")
-    sources = {name: _join_column_source(name, lcols_needed, rcols_needed) for name in out_cols}
-    dtypes = {name: _join_column_dtype(name, sources[name], lbuckets, rbuckets, participating) for name in out_cols}
-    device_cols = [n for n in out_cols if dtypes[n].kind in ("i", "u", "f", "b", "M", "m")]
-    host_cols = [n for n in out_cols if n not in device_cols]
+    with stages.stage(session, "join_materialize") as st:
+        out_cols = plan.output_columns
+        participating = sorted(set(lbuckets) & set(rbuckets))
+        if not participating:
+            # no overlapping buckets: the host path builds the typed empty columns
+            raise DeviceUnsupported("no overlapping buckets")
+        sources = {name: _join_column_source(name, lcols_needed, rcols_needed) for name in out_cols}
+        dtypes = {name: _join_column_dtype(name, sources[name], lbuckets, rbuckets, participating) for name in out_cols}
+        device_cols = [n for n in out_cols if dtypes[n].kind in ("i", "u", "f", "b", "M", "m")]
+        host_cols = [n for n in out_cols if n not in device_cols]
 
-    # the pair totals size the output: one small copy back (nb ints), which
-    # also waits for the span program
-    bucket_totals = bucket_pair_totals(lo, hi, llens, rlens).cpu().numpy()
-    total = int(bucket_totals.sum())
-    if total == 0:
-        _add(stages, "join_materialize", t)
-        return {name: np.empty(0, dtype=dtypes[name]) for name in out_cols}
-    # cost-based placement: a device-materialized join copies its WHOLE
-    # output back, so above the byte budget the host expansion runs. The
-    # estimate is the JAX package's, at the padded size it downloads (the
-    # port sizes its buffers at the exact total), plus the b/i/j index
-    # arrays a string gather downloads, so both take the same decision
-    n_pad = padded_size(total)
-    est_bytes = n_pad * max(1, len(device_cols)) * 8
-    if host_cols:
-        est_bytes += 3 * n_pad * 8
-    if est_bytes > session.conf.join_device_materialize_max_bytes:
-        _add(stages, "join_materialize", t)
-        raise DeviceUnsupported(
-            f"materialized output ~{est_bytes >> 20} MiB exceeds joinDeviceMaterializeMaxBytes -> host expansion"
-        )
-    t = _add(stages, "join_materialize", t)
+        # the pair totals size the output: one small copy back (nb ints), which
+        # also waits for the span program
+        bucket_totals = bucket_pair_totals(lo, hi, llens, rlens).cpu().numpy()
+        total = int(bucket_totals.sum())
+        if total == 0:
+            return {name: np.empty(0, dtype=dtypes[name]) for name in out_cols}
+        # cost-based placement: a device-materialized join copies its WHOLE
+        # output back, so above the byte budget the host expansion runs. The
+        # estimate is the JAX package's, at the padded size it downloads (the
+        # port sizes its buffers at the exact total), plus the b/i/j index
+        # arrays a string gather downloads, so both take the same decision
+        n_pad = padded_size(total)
+        est_bytes = n_pad * max(1, len(device_cols)) * 8
+        if host_cols:
+            est_bytes += 3 * n_pad * 8
+        if est_bytes > session.conf.join_device_materialize_max_bytes:
+            raise DeviceUnsupported(
+                f"materialized output ~{est_bytes >> 20} MiB exceeds joinDeviceMaterializeMaxBytes -> host expansion"
+            )
 
-    def rectangles(side_buckets, cols, width: int):
-        """(nb, width) rectangle per column: int64 views of dates, int64
-        for bools, the promoted dtype otherwise."""
-        mats = []
-        for name in cols:
-            col = sources[name][1]
+        def rectangles(side_buckets, cols, width: int):
+            """(nb, width) rectangle per column: int64 views of dates, int64
+            for bools, the promoted dtype otherwise."""
+            mats = []
+            for name in cols:
+                col = sources[name][1]
+                dt = dtypes[name]
+                view_int = dt.kind in ("M", "m")
+                base = np.dtype(np.int64) if view_int or dt.kind == "b" else dt
+                mat = np.zeros((lo.shape[0], max(width, 1)), dtype=base)
+                for b in participating:
+                    arr = side_buckets[b].get(col)
+                    if arr is None:
+                        raise DeviceUnsupported(f"column {col!r} absent in bucket {b}")
+                    v = arr.view("int64") if view_int else arr
+                    mat[b, : v.shape[0]] = v.astype(base, copy=False)
+                mats.append(mat)
+            return mats
+
+        l_device = [n for n in device_cols if sources[n][0]]
+        r_device = [n for n in device_cols if not sources[n][0]]
+        # the payload rectangles are pure functions of the sides' immutable
+        # decoded buckets, so they stay resident like the key rectangles
+        mats_key = ("join-paymats", ident, tuple(l_device), tuple(r_device)) if ident is not None else None
+        cached = _device_cache.get(mats_key) if mats_key is not None else None
+        if cached is not None:
+            lmats_dev, rmats_dev = cached
+        else:
+            st.next("join_upload")
+            wr = max(B.num_rows(rbuckets[b]) for b in participating)
+            lmats = rectangles(lbuckets, l_device, lo.shape[1])
+            rmats = rectangles(rbuckets, r_device, wr)
+            lmats_dev = tuple(_upload(m, device) for m in lmats)
+            rmats_dev = tuple(_upload(m, device) for m in rmats)
+            if mats_key is not None:
+                _device_cache.put(mats_key, (lmats_dev, rmats_dev), sum(m.nbytes for m in (*lmats, *rmats)))
+            st.next("join_materialize")
+
+        louts, routs, b_idx, i_idx, j_idx = expand_gather(lo, hi, llens, rlens, lmats_dev, rmats_dev, total)
+        count_dispatch("join-expand-gather")
+        out: B.Batch = {}
+        for name, arr in (*zip(l_device, louts), *zip(r_device, routs)):
+            v = arr.cpu().numpy()
             dt = dtypes[name]
-            view_int = dt.kind in ("M", "m")
-            base = np.dtype(np.int64) if view_int or dt.kind == "b" else dt
-            mat = np.zeros((lo.shape[0], max(width, 1)), dtype=base)
-            for b in participating:
-                arr = side_buckets[b].get(col)
-                if arr is None:
-                    raise DeviceUnsupported(f"column {col!r} absent in bucket {b}")
-                v = arr.view("int64") if view_int else arr
-                mat[b, : v.shape[0]] = v.astype(base, copy=False)
-            mats.append(mat)
-        return mats
-
-    l_device = [n for n in device_cols if sources[n][0]]
-    r_device = [n for n in device_cols if not sources[n][0]]
-    # the payload rectangles are pure functions of the sides' immutable
-    # decoded buckets, so they stay resident like the key rectangles
-    mats_key = ("join-paymats", ident, tuple(l_device), tuple(r_device)) if ident is not None else None
-    cached = _device_cache.get(mats_key) if mats_key is not None else None
-    if cached is not None:
-        lmats_dev, rmats_dev = cached
-    else:
-        wr = max(B.num_rows(rbuckets[b]) for b in participating)
-        lmats = rectangles(lbuckets, l_device, lo.shape[1])
-        rmats = rectangles(rbuckets, r_device, wr)
-        lmats_dev = tuple(_upload(m, device) for m in lmats)
-        rmats_dev = tuple(_upload(m, device) for m in rmats)
-        if mats_key is not None:
-            _device_cache.put(mats_key, (lmats_dev, rmats_dev), sum(m.nbytes for m in (*lmats, *rmats)))
-        t = _add(stages, "join_upload", t)
-
-    louts, routs, b_idx, i_idx, j_idx = expand_gather(lo, hi, llens, rlens, lmats_dev, rmats_dev, total)
-    count_dispatch("join-expand-gather")
-    out: B.Batch = {}
-    for name, arr in (*zip(l_device, louts), *zip(r_device, routs)):
-        v = arr.cpu().numpy()
-        dt = dtypes[name]
-        out[name] = v.view(dt) if dt.kind in ("M", "m") else v.astype(dt, copy=False)
-    if host_cols:
-        # string columns: download the (bucket-ordered) row indexes once and
-        # gather on the host, bucket by bucket
-        i_np = i_idx.cpu().numpy()
-        j_np = j_idx.cpu().numpy()
-        offsets = np.concatenate([[0], np.cumsum(bucket_totals)])
-        for name in host_cols:
-            is_left, col = sources[name]
-            src = lbuckets if is_left else rbuckets
-            idx = i_np if is_left else j_np
-            res = np.empty(total, dtype=object)
-            for b in participating:
-                s, e = int(offsets[b]), int(offsets[b + 1])
-                if e > s:
-                    res[s:e] = src[b][col][idx[s:e]]
-            out[name] = res
-    _add(stages, "join_materialize", t)
-    return {name: out[name] for name in out_cols}
+            out[name] = v.view(dt) if dt.kind in ("M", "m") else v.astype(dt, copy=False)
+        if host_cols:
+            # string columns: download the (bucket-ordered) row indexes once and
+            # gather on the host, bucket by bucket
+            i_np = i_idx.cpu().numpy()
+            j_np = j_idx.cpu().numpy()
+            offsets = np.concatenate([[0], np.cumsum(bucket_totals)])
+            for name in host_cols:
+                is_left, col = sources[name]
+                src = lbuckets if is_left else rbuckets
+                idx = i_np if is_left else j_np
+                res = np.empty(total, dtype=object)
+                for b in participating:
+                    s, e = int(offsets[b]), int(offsets[b + 1])
+                    if e > s:
+                        res[s:e] = src[b][col][idx[s:e]]
+                out[name] = res
+        return {name: out[name] for name in out_cols}
 
 
 # --------------------------------------------------------------------------
@@ -1350,161 +1319,157 @@ def aggregate_over_bucketed_join(session, agg: L.Aggregate, join: L.Join, comput
     int sums, an input computed from both sides); the executor then
     materializes the join. ``computes`` are the ``(name, expr)`` pairs of
     the Compute nodes between the aggregate and the join."""
-    stages = session.query_stage_seconds
-    t = time.perf_counter()
-    if join.how != "inner":
-        raise DeviceUnsupported("fused join-aggregate covers inner joins")
-    compat = join_sides_compatible(join)
-    if compat is None:
-        raise DeviceUnsupported("join sides are not compatible bucketed scans")
-    lside, rside, lkeys, rkeys = compat
+    with stages.stage(session, "join_plan"):
+        if join.how != "inner":
+            raise DeviceUnsupported("fused join-aggregate covers inner joins")
+        compat = join_sides_compatible(join)
+        if compat is None:
+            raise DeviceUnsupported("join sides are not compatible bucketed scans")
+        lside, rside, lkeys, rkeys = compat
     if agg.keys:
         return _grouped_aggregate_over_join(session, agg, join, compat, computes=computes)
+    with stages.stage(session, "join_plan"):
+        lcols = set(lside.output_columns)
+        rcols = set(rside.output_columns)
+        computed = _computed_map(computes, lcols, rcols)
+        plans = []  # (name, fn, side, src, expr|None)
+        need_l, need_r = set(), set()
+        for name, fn, col_name in agg.aggs:
+            if fn not in _AGG_FNS:
+                raise DeviceUnsupported(f"unsupported aggregate fn {fn!r} -> materialize")
+            if fn == "count" and col_name is None:
+                plans.append((name, "count*", None, None, None))
+                continue
+            if col_name in computed:
+                side, expr = computed[col_name]
+                src, refs = col_name, set(expr.references())
+            else:
+                side, src = _agg_side_of(lcols, rcols, col_name)
+                expr, refs = None, {src}
+            if fn in ("min", "max") and side == "right":
+                raise DeviceUnsupported("min/max of a right-side column -> materialize")
+            plans.append((name, fn, side, src, expr))
+            (need_l if side == "left" else need_r).update(refs)
 
-    lcols = set(lside.output_columns)
-    rcols = set(rside.output_columns)
-    computed = _computed_map(computes, lcols, rcols)
-    plans = []  # (name, fn, side, src, expr|None)
-    need_l, need_r = set(), set()
-    for name, fn, col_name in agg.aggs:
-        if fn not in _AGG_FNS:
-            raise DeviceUnsupported(f"unsupported aggregate fn {fn!r} -> materialize")
-        if fn == "count" and col_name is None:
-            plans.append((name, "count*", None, None, None))
-            continue
-        if col_name in computed:
-            side, expr = computed[col_name]
-            src, refs = col_name, set(expr.references())
-        else:
-            side, src = _agg_side_of(lcols, rcols, col_name)
-            expr, refs = None, {src}
-        if fn in ("min", "max") and side == "right":
-            raise DeviceUnsupported("min/max of a right-side column -> materialize")
-        plans.append((name, fn, side, src, expr))
-        (need_l if side == "left" else need_r).update(refs)
-
-    # footer-level dtype check BEFORE any decode (the overflow guards still
-    # bail late: they need values)
-    _check_agg_input_dtypes(lside, rside, need_l, need_r)
-    _add(stages, "join_plan", t)
+        # footer-level dtype check BEFORE any decode (the overflow guards still
+        # bail late: they need values)
+        _check_agg_input_dtypes(lside, rside, need_l, need_r)
 
     setup = _bucketed_join_setup(session, join, compat, needed_override=(sorted(need_l), sorted(need_r)))
     lbuckets, rbuckets, _lk, _rk, nb, _lc, _rc = setup
     span_of = _make_host_span_of(session, setup, compat)
-    t = time.perf_counter()
+    with stages.stage(session, "agg_join"):
+        def declared_is_int(side: str, src: str, expr) -> bool:
+            # dtype from ANY decoded bucket, so the output dtype is right even
+            # when no bucket has matches
+            for batch in (lbuckets if side == "left" else rbuckets).values():
+                if expr is not None:
+                    return _agg_column_stats(np.asarray(expr.eval(batch)))[2]
+                if src in batch:
+                    return _agg_column_stats(batch[src])[2]
+            raise DeviceUnsupported(f"aggregate input {src!r} has no decoded bucket")
 
-    def declared_is_int(side: str, src: str, expr) -> bool:
-        # dtype from ANY decoded bucket, so the output dtype is right even
-        # when no bucket has matches
-        for batch in (lbuckets if side == "left" else rbuckets).values():
-            if expr is not None:
-                return _agg_column_stats(np.asarray(expr.eval(batch)))[2]
-            if src in batch:
-                return _agg_column_stats(batch[src])[2]
-        raise DeviceUnsupported(f"aggregate input {src!r} has no decoded bucket")
+        total_pairs = 0
+        acc = {name: {"sum": 0, "cnt": 0, "min": None, "max": None} for name, *_ in plans}
+        is_int_out = {
+            name: (declared_is_int(side, src, expr) if side is not None else True)
+            for name, fn, side, src, expr in plans
+        }
+        for b in range(nb):
+            lb, rb = lbuckets.get(b), rbuckets.get(b)
+            if lb is None or rb is None:
+                continue
+            if B.num_rows(lb) == 0 or B.num_rows(rb) == 0:
+                continue
+            lo, hi = span_of(b)
+            lo_i = np.asarray(lo, dtype=np.int64)
+            hi_i = np.asarray(hi, dtype=np.int64)
+            counts = hi_i - lo_i
+            bucket_pairs = int(counts.sum())
+            total_pairs += bucket_pairs
+            if bucket_pairs == 0:
+                continue
 
-    total_pairs = 0
-    acc = {name: {"sum": 0, "cnt": 0, "min": None, "max": None} for name, *_ in plans}
-    is_int_out = {
-        name: (declared_is_int(side, src, expr) if side is not None else True)
-        for name, fn, side, src, expr in plans
-    }
-    for b in range(nb):
-        lb, rb = lbuckets.get(b), rbuckets.get(b)
-        if lb is None or rb is None:
-            continue
-        if B.num_rows(lb) == 0 or B.num_rows(rb) == 0:
-            continue
-        lo, hi = span_of(b)
-        lo_i = np.asarray(lo, dtype=np.int64)
-        hi_i = np.asarray(hi, dtype=np.int64)
-        counts = hi_i - lo_i
-        bucket_pairs = int(counts.sum())
-        total_pairs += bucket_pairs
-        if bucket_pairs == 0:
-            continue
+            # per-(side, column) encodings + prefix sums, shared by every
+            # aggregate reading that column in this bucket
+            col_cache: Dict[Tuple[str, str], tuple] = {}
 
-        # per-(side, column) encodings + prefix sums, shared by every
-        # aggregate reading that column in this bucket
-        col_cache: Dict[Tuple[str, str], tuple] = {}
-
-        def col_info(side: str, src: str, expr):
-            got = col_cache.get((side, src))
-            if got is not None:
+            def col_info(side: str, src: str, expr):
+                got = col_cache.get((side, src))
+                if got is not None:
+                    return got
+                vals, ok, is_int = _agg_column_stats(_side_values(lb if side == "left" else rb, src, expr))
+                pref = prefn = None
+                if side == "right":
+                    if is_int:
+                        if vals.size and _int_magnitude(vals) * vals.size >= INT_GUARD:
+                            raise DeviceUnsupported("int sum overflow risk -> materialize")
+                        pref = np.concatenate([[0], np.cumsum(vals)])
+                    else:
+                        pref = np.concatenate([[0.0], np.cumsum(np.where(ok, vals, 0.0))])
+                    nn = np.ones(vals.shape[0], dtype=np.int64) if ok is None else ok.astype(np.int64)
+                    prefn = np.concatenate([[0], np.cumsum(nn)])
+                got = (vals, ok, is_int, pref, prefn)
+                col_cache[(side, src)] = got
                 return got
-            vals, ok, is_int = _agg_column_stats(_side_values(lb if side == "left" else rb, src, expr))
-            pref = prefn = None
-            if side == "right":
-                if is_int:
-                    if vals.size and _int_magnitude(vals) * vals.size >= INT_GUARD:
-                        raise DeviceUnsupported("int sum overflow risk -> materialize")
-                    pref = np.concatenate([[0], np.cumsum(vals)])
-                else:
-                    pref = np.concatenate([[0.0], np.cumsum(np.where(ok, vals, 0.0))])
-                nn = np.ones(vals.shape[0], dtype=np.int64) if ok is None else ok.astype(np.int64)
-                prefn = np.concatenate([[0], np.cumsum(nn)])
-            got = (vals, ok, is_int, pref, prefn)
-            col_cache[(side, src)] = got
-            return got
 
+            for name, fn, side, src, expr in plans:
+                a = acc[name]
+                if fn == "count*":
+                    continue
+                vals, ok, is_int, pref, prefn = col_info(side, src, expr)
+                if side == "left":
+                    w = counts if ok is None else counts * ok
+                    if fn in ("sum", "avg"):
+                        if is_int:
+                            if vals.size and _int_magnitude(vals) * bucket_pairs >= INT_GUARD:
+                                raise DeviceUnsupported("int sum overflow risk -> materialize")
+                            a["sum"] += int(np.dot(vals, counts))
+                        else:
+                            a["sum"] += float(np.dot(np.where(ok, vals, 0.0), counts))
+                        a["cnt"] += int(w.sum())
+                    elif fn == "count":
+                        a["cnt"] += int(w.sum())
+                    else:  # min/max over rows that matched at least once
+                        sel = (counts > 0) if ok is None else (ok & (counts > 0))
+                        if sel.any():
+                            mn, mx = vals[sel].min(), vals[sel].max()
+                            a["min"] = mn if a["min"] is None else min(a["min"], mn)
+                            a["max"] = mx if a["max"] is None else max(a["max"], mx)
+                else:
+                    if fn in ("sum", "avg"):
+                        span_sum = (pref[hi_i] - pref[lo_i]).sum()
+                        a["sum"] += int(span_sum) if is_int else float(span_sum)
+                        a["cnt"] += int((prefn[hi_i] - prefn[lo_i]).sum())
+                    elif fn == "count":
+                        a["cnt"] += int((prefn[hi_i] - prefn[lo_i]).sum())
+
+        out: B.Batch = {}
         for name, fn, side, src, expr in plans:
             a = acc[name]
             if fn == "count*":
-                continue
-            vals, ok, is_int, pref, prefn = col_info(side, src, expr)
-            if side == "left":
-                w = counts if ok is None else counts * ok
-                if fn in ("sum", "avg"):
-                    if is_int:
-                        if vals.size and _int_magnitude(vals) * bucket_pairs >= INT_GUARD:
-                            raise DeviceUnsupported("int sum overflow risk -> materialize")
-                        a["sum"] += int(np.dot(vals, counts))
-                    else:
-                        a["sum"] += float(np.dot(np.where(ok, vals, 0.0), counts))
-                    a["cnt"] += int(w.sum())
-                elif fn == "count":
-                    a["cnt"] += int(w.sum())
-                else:  # min/max over rows that matched at least once
-                    sel = (counts > 0) if ok is None else (ok & (counts > 0))
-                    if sel.any():
-                        mn, mx = vals[sel].min(), vals[sel].max()
-                        a["min"] = mn if a["min"] is None else min(a["min"], mn)
-                        a["max"] = mx if a["max"] is None else max(a["max"], mx)
+                out[name] = np.asarray([total_pairs])
+            elif fn == "count":
+                out[name] = np.asarray([a["cnt"]])
+            elif fn == "sum" and a["cnt"] == 0:
+                # SQL: SUM over zero (non-null) rows is NULL, not 0
+                out[name] = np.asarray([np.nan])
+            elif fn == "sum":
+                # int inputs stay int (exact)
+                if is_int_out[name] and abs(a["sum"]) >= 2**63:
+                    # the exact total exceeds int64 across buckets: the
+                    # materialized path defines the (wrapping/float) behaviour
+                    raise DeviceUnsupported("int sum exceeds int64 -> materialize")
+                out[name] = np.asarray([a["sum"]], dtype=np.int64 if is_int_out[name] else np.float64)
+            elif fn == "avg":
+                out[name] = np.asarray([a["sum"] / a["cnt"] if a["cnt"] else np.nan])
+            elif fn == "min":
+                v = a["min"]
+                out[name] = np.asarray([np.nan if v is None else v])
             else:
-                if fn in ("sum", "avg"):
-                    span_sum = (pref[hi_i] - pref[lo_i]).sum()
-                    a["sum"] += int(span_sum) if is_int else float(span_sum)
-                    a["cnt"] += int((prefn[hi_i] - prefn[lo_i]).sum())
-                elif fn == "count":
-                    a["cnt"] += int((prefn[hi_i] - prefn[lo_i]).sum())
-
-    out: B.Batch = {}
-    for name, fn, side, src, expr in plans:
-        a = acc[name]
-        if fn == "count*":
-            out[name] = np.asarray([total_pairs])
-        elif fn == "count":
-            out[name] = np.asarray([a["cnt"]])
-        elif fn == "sum" and a["cnt"] == 0:
-            # SQL: SUM over zero (non-null) rows is NULL, not 0
-            out[name] = np.asarray([np.nan])
-        elif fn == "sum":
-            # int inputs stay int (exact)
-            if is_int_out[name] and abs(a["sum"]) >= 2**63:
-                # the exact total exceeds int64 across buckets: the
-                # materialized path defines the (wrapping/float) behaviour
-                raise DeviceUnsupported("int sum exceeds int64 -> materialize")
-            out[name] = np.asarray([a["sum"]], dtype=np.int64 if is_int_out[name] else np.float64)
-        elif fn == "avg":
-            out[name] = np.asarray([a["sum"] / a["cnt"] if a["cnt"] else np.nan])
-        elif fn == "min":
-            v = a["min"]
-            out[name] = np.asarray([np.nan if v is None else v])
-        else:
-            v = a["max"]
-            out[name] = np.asarray([np.nan if v is None else v])
-    _add(stages, "agg_join", t)
-    return out
+                v = a["max"]
+                out[name] = np.asarray([np.nan if v is None else v])
+        return out
 
 
 def _grouped_aggregate_over_join(session, agg: L.Aggregate, join: L.Join, compat, computes=()) -> B.Batch:
@@ -1527,237 +1492,233 @@ def _grouped_aggregate_over_join(session, agg: L.Aggregate, join: L.Join, compat
     Raises DeviceUnsupported for shapes it can't fuse (min/max, inputs
     computed from both sides, non-unique right side under right-side group
     keys); the executor then materializes."""
-    stages = session.query_stage_seconds
-    t = time.perf_counter()
-    lside, rside, lkeys, rkeys = compat
-    lcols = set(lside.output_columns)
-    rcols = set(rside.output_columns)
-    computed = _computed_map(computes, lcols, rcols)
+    with stages.stage(session, "join_plan"):
+        lside, rside, lkeys, rkeys = compat
+        lcols = set(lside.output_columns)
+        rcols = set(rside.output_columns)
+        computed = _computed_map(computes, lcols, rcols)
 
-    def resolve(col):
-        if col in computed:
-            side, expr = computed[col]
-            return side, col, expr, set(expr.references())
-        side, src = _agg_side_of(lcols, rcols, col)
-        return side, src, None, {src}
+        def resolve(col):
+            if col in computed:
+                side, expr = computed[col]
+                return side, col, expr, set(expr.references())
+            side, src = _agg_side_of(lcols, rcols, col)
+            return side, src, None, {src}
 
-    for _, fn, _c in agg.aggs:
-        if fn not in _AGG_FNS:
-            raise DeviceUnsupported(f"unsupported aggregate fn {fn!r} -> materialize")
+        for _, fn, _c in agg.aggs:
+            if fn not in _AGG_FNS:
+                raise DeviceUnsupported(f"unsupported aggregate fn {fn!r} -> materialize")
 
-    # group-key plan: join keys canonicalize to the LEFT key column
-    # (matched rows carry equal values); anything else is an "extra"
-    key_plan = []  # (out_name, kind, src, expr) kind in jk/lx/rx
-    need_l, need_r = set(lkeys), set(rkeys)
-    has_right_extra = False
-    for k in agg.keys:
-        side, src, expr, refs = resolve(k)
-        if expr is None and side == "left" and src in lkeys:
-            key_plan.append((k, "jk", src, None))
-        elif expr is None and side == "right" and src in rkeys:
-            key_plan.append((k, "jk", lkeys[rkeys.index(src)], None))
-        elif side == "left":
-            key_plan.append((k, "lx", src, expr))
-            need_l |= refs
-        else:
-            key_plan.append((k, "rx", src, expr))
-            need_r |= refs
-            has_right_extra = True
+        # group-key plan: join keys canonicalize to the LEFT key column
+        # (matched rows carry equal values); anything else is an "extra"
+        key_plan = []  # (out_name, kind, src, expr) kind in jk/lx/rx
+        need_l, need_r = set(lkeys), set(rkeys)
+        has_right_extra = False
+        for k in agg.keys:
+            side, src, expr, refs = resolve(k)
+            if expr is None and side == "left" and src in lkeys:
+                key_plan.append((k, "jk", src, None))
+            elif expr is None and side == "right" and src in rkeys:
+                key_plan.append((k, "jk", lkeys[rkeys.index(src)], None))
+            elif side == "left":
+                key_plan.append((k, "lx", src, expr))
+                need_l |= refs
+            else:
+                key_plan.append((k, "rx", src, expr))
+                need_r |= refs
+                has_right_extra = True
 
-    plans = []  # (name, fn, side, src, expr)
-    for name, fn, col_name in agg.aggs:
-        if fn == "count" and col_name is None:
-            plans.append((name, "count*", None, None, None))
-            continue
-        side, src, expr, refs = resolve(col_name)
-        if fn in ("min", "max"):
-            raise DeviceUnsupported("grouped min/max -> materialize")
-        plans.append((name, fn, side, src, expr))
-        (need_l if side == "left" else need_r).update(refs)
+        plans = []  # (name, fn, side, src, expr)
+        for name, fn, col_name in agg.aggs:
+            if fn == "count" and col_name is None:
+                plans.append((name, "count*", None, None, None))
+                continue
+            side, src, expr, refs = resolve(col_name)
+            if fn in ("min", "max"):
+                raise DeviceUnsupported("grouped min/max -> materialize")
+            plans.append((name, fn, side, src, expr))
+            (need_l if side == "left" else need_r).update(refs)
 
-    # the footer pre-check covers computed inputs through their references,
-    # so a string-referencing expression bails before decoding both sides
-    check_l = {s for _, fn, sd, s, e in plans if sd == "left" and e is None}
-    check_r = {s for _, fn, sd, s, e in plans if sd == "right" and e is None}
-    for _, fn, sd, _s, e in plans:
-        if e is not None:
-            (check_l if sd == "left" else check_r).update(e.references())
-    _check_agg_input_dtypes(lside, rside, check_l, check_r)
-    _add(stages, "join_plan", t)
+        # the footer pre-check covers computed inputs through their references,
+        # so a string-referencing expression bails before decoding both sides
+        check_l = {s for _, fn, sd, s, e in plans if sd == "left" and e is None}
+        check_r = {s for _, fn, sd, s, e in plans if sd == "right" and e is None}
+        for _, fn, sd, _s, e in plans:
+            if e is not None:
+                (check_l if sd == "left" else check_r).update(e.references())
+        _check_agg_input_dtypes(lside, rside, check_l, check_r)
     setup = _bucketed_join_setup(session, join, compat, needed_override=(sorted(need_l), sorted(need_r)))
     lbuckets, rbuckets, _lk, _rk, nb, _lc, _rc = setup
     span_of = _make_host_span_of(session, setup, compat)
-    t = time.perf_counter()
+    with stages.stage(session, "agg_join"):
 
-    key_parts: Dict[str, List[np.ndarray]] = {k: [] for k, *_ in key_plan}
-    # per-aggregate partial columns: sum+cnt for sum/avg, cnt for counts
-    sum_parts: Dict[str, List[np.ndarray]] = {name: [] for name, *_ in plans}
-    cnt_parts: Dict[str, List[np.ndarray]] = {name: [] for name, *_ in plans}
-    int_sum = {name: True for name, *_ in plans}
+        key_parts: Dict[str, List[np.ndarray]] = {k: [] for k, *_ in key_plan}
+        # per-aggregate partial columns: sum+cnt for sum/avg, cnt for counts
+        sum_parts: Dict[str, List[np.ndarray]] = {name: [] for name, *_ in plans}
+        cnt_parts: Dict[str, List[np.ndarray]] = {name: [] for name, *_ in plans}
+        int_sum = {name: True for name, *_ in plans}
 
-    for b in range(nb):
-        lb, rb = lbuckets.get(b), rbuckets.get(b)
-        if lb is None or rb is None:
-            continue
-        ll, rr = B.num_rows(lb), B.num_rows(rb)
-        if ll == 0 or rr == 0:
-            continue
-        lo, hi = span_of(b)
-        lo_i = np.asarray(lo, dtype=np.int64)
-        hi_i = np.asarray(hi, dtype=np.int64)
-        counts = hi_i - lo_i
-        if has_right_extra and counts.size and int(counts.max()) > 1:
-            raise DeviceUnsupported("right-side group key over a non-unique join side -> materialize")
-
-        def right_gathered(src, expr):
-            # valid where counts == 1; count-0 rows carry a neighbour's
-            # value, which either forms an empty segment (dropped) or
-            # harmlessly extends an equal-valued one
-            return _side_values(rb, src, expr)[np.clip(lo_i, 0, rr - 1)]
-
-        # sub-segment boundaries: a change in ANY join key or group extra
-        key_arrays = {}  # out_name -> per-left-row values for output
-        change = np.zeros(ll, dtype=bool)
-        change[0] = True
-        for kc in lkeys:
-            kv = sort_key_int64(lb[kc])
-            change[1:] |= kv[1:] != kv[:-1]
-        for k, kind, src, expr in key_plan:
-            if kind == "jk":
-                key_arrays[k] = lb[src]
+        for b in range(nb):
+            lb, rb = lbuckets.get(b), rbuckets.get(b)
+            if lb is None or rb is None:
                 continue
-            arr = _side_values(lb, src, expr) if kind == "lx" else right_gathered(src, expr)
-            key_arrays[k] = arr
-            kv = sort_key_int64(arr)
-            change[1:] |= kv[1:] != kv[:-1]
-        starts = np.flatnonzero(change)
-        run_pairs = np.add.reduceat(counts, starts)
-        keep = run_pairs > 0  # inner join: unmatched segments drop out
-        if not keep.any():
-            continue
+            ll, rr = B.num_rows(lb), B.num_rows(rb)
+            if ll == 0 or rr == 0:
+                continue
+            lo, hi = span_of(b)
+            lo_i = np.asarray(lo, dtype=np.int64)
+            hi_i = np.asarray(hi, dtype=np.int64)
+            counts = hi_i - lo_i
+            if has_right_extra and counts.size and int(counts.max()) > 1:
+                raise DeviceUnsupported("right-side group key over a non-unique join side -> materialize")
 
-        for k, kind, src, expr in key_plan:
-            key_parts[k].append(key_arrays[k][starts][keep])
+            def right_gathered(src, expr):
+                # valid where counts == 1; count-0 rows carry a neighbour's
+                # value, which either forms an empty segment (dropped) or
+                # harmlessly extends an equal-valued one
+                return _side_values(rb, src, expr)[np.clip(lo_i, 0, rr - 1)]
 
-        col_cache: Dict[Tuple[str, str], tuple] = {}
+            # sub-segment boundaries: a change in ANY join key or group extra
+            key_arrays = {}  # out_name -> per-left-row values for output
+            change = np.zeros(ll, dtype=bool)
+            change[0] = True
+            for kc in lkeys:
+                kv = sort_key_int64(lb[kc])
+                change[1:] |= kv[1:] != kv[:-1]
+            for k, kind, src, expr in key_plan:
+                if kind == "jk":
+                    key_arrays[k] = lb[src]
+                    continue
+                arr = _side_values(lb, src, expr) if kind == "lx" else right_gathered(src, expr)
+                key_arrays[k] = arr
+                kv = sort_key_int64(arr)
+                change[1:] |= kv[1:] != kv[:-1]
+            starts = np.flatnonzero(change)
+            run_pairs = np.add.reduceat(counts, starts)
+            keep = run_pairs > 0  # inner join: unmatched segments drop out
+            if not keep.any():
+                continue
 
-        def col_info(side, src, expr):
-            got = col_cache.get((side, src))
-            if got is not None:
+            for k, kind, src, expr in key_plan:
+                key_parts[k].append(key_arrays[k][starts][keep])
+
+            col_cache: Dict[Tuple[str, str], tuple] = {}
+
+            def col_info(side, src, expr):
+                got = col_cache.get((side, src))
+                if got is not None:
+                    return got
+                vals, ok, is_int = _agg_column_stats(_side_values(lb if side == "left" else rb, src, expr))
+                if is_int and vals.size and _int_magnitude(vals) * max(int(counts.sum()), 1) >= INT_GUARD:
+                    raise DeviceUnsupported("int sum overflow risk -> materialize")
+                pref = prefn = None
+                if side == "right":
+                    if ok is None:
+                        pref = np.concatenate([[0], np.cumsum(vals)])
+                        nn = np.ones(vals.shape[0], dtype=np.int64)
+                    else:
+                        pref = np.concatenate([[0.0], np.cumsum(np.where(ok, vals, 0.0))])
+                        nn = ok.astype(np.int64)
+                    prefn = np.concatenate([[0], np.cumsum(nn)])
+                got = (vals, ok, is_int, pref, prefn)
+                col_cache[(side, src)] = got
                 return got
-            vals, ok, is_int = _agg_column_stats(_side_values(lb if side == "left" else rb, src, expr))
-            if is_int and vals.size and _int_magnitude(vals) * max(int(counts.sum()), 1) >= INT_GUARD:
-                raise DeviceUnsupported("int sum overflow risk -> materialize")
-            pref = prefn = None
-            if side == "right":
-                if ok is None:
-                    pref = np.concatenate([[0], np.cumsum(vals)])
-                    nn = np.ones(vals.shape[0], dtype=np.int64)
+
+            for name, fn, side, src, expr in plans:
+                if fn == "count*":
+                    cnt_parts[name].append(run_pairs[keep])
+                    continue
+                vals, ok, is_int, pref, prefn = col_info(side, src, expr)
+                if not is_int:
+                    int_sum[name] = False
+                if side == "left":
+                    w = counts if ok is None else counts * ok
+                    cnt_parts[name].append(np.add.reduceat(w, starts)[keep])
+                    if fn in ("sum", "avg"):
+                        contrib = vals * counts if ok is None else np.where(ok, vals, 0) * counts
+                        sum_parts[name].append(np.add.reduceat(contrib, starts)[keep])
                 else:
-                    pref = np.concatenate([[0.0], np.cumsum(np.where(ok, vals, 0.0))])
-                    nn = ok.astype(np.int64)
-                prefn = np.concatenate([[0], np.cumsum(nn)])
-            got = (vals, ok, is_int, pref, prefn)
-            col_cache[(side, src)] = got
-            return got
+                    row_cnts = prefn[hi_i] - prefn[lo_i]
+                    cnt_parts[name].append(np.add.reduceat(row_cnts, starts)[keep])
+                    if fn in ("sum", "avg"):
+                        row_sums = pref[hi_i] - pref[lo_i]
+                        sum_parts[name].append(np.add.reduceat(row_sums, starts)[keep])
 
-        for name, fn, side, src, expr in plans:
-            if fn == "count*":
-                cnt_parts[name].append(run_pairs[keep])
-                continue
-            vals, ok, is_int, pref, prefn = col_info(side, src, expr)
-            if not is_int:
-                int_sum[name] = False
-            if side == "left":
-                w = counts if ok is None else counts * ok
-                cnt_parts[name].append(np.add.reduceat(w, starts)[keep])
-                if fn in ("sum", "avg"):
-                    contrib = vals * counts if ok is None else np.where(ok, vals, 0) * counts
-                    sum_parts[name].append(np.add.reduceat(contrib, starts)[keep])
-            else:
-                row_cnts = prefn[hi_i] - prefn[lo_i]
-                cnt_parts[name].append(np.add.reduceat(row_cnts, starts)[keep])
-                if fn in ("sum", "avg"):
-                    row_sums = pref[hi_i] - pref[lo_i]
-                    sum_parts[name].append(np.add.reduceat(row_sums, starts)[keep])
-
-    def declared_dtype(side, src, expr) -> np.dtype:
-        # a computed column's dtype comes from evaluating it over any
-        # decoded bucket (empty-result outputs type like the materialized
-        # path's)
-        for batch in (lbuckets if side == "left" else rbuckets).values():
+        def declared_dtype(side, src, expr) -> np.dtype:
+            # a computed column's dtype comes from evaluating it over any
+            # decoded bucket (empty-result outputs type like the materialized
+            # path's)
+            for batch in (lbuckets if side == "left" else rbuckets).values():
+                if expr is not None:
+                    return np.asarray(expr.eval(batch)).dtype
+                if src in batch:
+                    return batch[src].dtype
             if expr is not None:
-                return np.asarray(expr.eval(batch)).dtype
-            if src in batch:
-                return batch[src].dtype
-        if expr is not None:
-            return np.dtype(np.float64)
-        raise DeviceUnsupported(f"aggregate input {src!r} has no decoded bucket")
+                return np.dtype(np.float64)
+            raise DeviceUnsupported(f"aggregate input {src!r} has no decoded bucket")
 
-    out: B.Batch = {}
-    if not any(key_parts[k] for k, *_ in key_plan):
-        for k, kind, src, expr in key_plan:
-            out[k] = np.empty(0, dtype=declared_dtype("left" if kind != "rx" else "right", src, expr))
+        out: B.Batch = {}
+        if not any(key_parts[k] for k, *_ in key_plan):
+            for k, kind, src, expr in key_plan:
+                out[k] = np.empty(0, dtype=declared_dtype("left" if kind != "rx" else "right", src, expr))
+            for name, fn, side, src, expr in plans:
+                if fn in ("count", "count*"):
+                    dt = np.dtype(np.int64)
+                elif fn == "sum":
+                    is_int = _agg_column_stats(np.empty(0, dtype=declared_dtype(side, src, expr)))[2]
+                    dt = np.dtype(np.int64) if is_int else np.dtype(np.float64)
+                else:
+                    dt = np.dtype(np.float64)
+                out[name] = np.empty(0, dtype=dt)
+            return out
+
+        # FINAL MERGE: equal group tuples recur across segments (and, when the
+        # group keys don't pin the join key, across buckets) — one
+        # segment-count-sized pandas groupby folds the partials. Keys enter as
+        # null-safe int64 ORDER CODES; a representative row index maps each
+        # group back to its exact original values and dtypes.
+        import pandas as pd
+
+        key_arrays_out = {k: np.concatenate(key_parts[k]) for k, *_ in key_plan}
+        frame = {f"__k{i}": sort_key_int64(key_arrays_out[k]) for i, (k, *_rest) in enumerate(key_plan)}
+        gcols = list(frame)
+        n_seg = len(next(iter(key_arrays_out.values())))
+        frame["__pos"] = np.arange(n_seg, dtype=np.int64)
         for name, fn, side, src, expr in plans:
+            frame[f"__c_{name}"] = np.concatenate(cnt_parts[name])
+            if sum_parts[name]:
+                s_part = np.concatenate(sum_parts[name])
+                if int_sum[name] and s_part.dtype.kind != "f":
+                    # pandas sums int64 with wrapping arithmetic; cross-bucket
+                    # merges could exceed int64 even when every per-bucket
+                    # partial passed its own guard
+                    if float(np.abs(s_part.astype(np.float64)).sum()) >= float(INT_GUARD):
+                        raise DeviceUnsupported("int sum overflow risk at merge -> materialize")
+                frame[f"__s_{name}"] = s_part
+        df = pd.DataFrame(frame)
+        gb = df.groupby(gcols, dropna=False, sort=False)
+        agg_spec = {c: "sum" for c in df.columns if c not in gcols and c != "__pos"}
+        agg_spec["__pos"] = "first"
+        res = gb.agg(agg_spec).reset_index()
+
+        rep = res["__pos"].to_numpy()
+        for k, *_rest in key_plan:
+            out[k] = key_arrays_out[k][rep]
+        for name, fn, side, src, expr in plans:
+            c = res[f"__c_{name}"].to_numpy()
             if fn in ("count", "count*"):
-                dt = np.dtype(np.int64)
-            elif fn == "sum":
-                is_int = _agg_column_stats(np.empty(0, dtype=declared_dtype(side, src, expr)))[2]
-                dt = np.dtype(np.int64) if is_int else np.dtype(np.float64)
+                out[name] = c.astype(np.int64)
+                continue
+            s = res[f"__s_{name}"].to_numpy()
+            if fn == "avg":
+                out[name] = np.divide(s.astype(np.float64), c, out=np.full(s.shape, np.nan), where=c > 0)
+                continue
+            # sum: SQL NULL (NaN) for all-null groups; int sums stay int when
+            # no group needs a NULL hole
+            if (c > 0).all():
+                out[name] = s.astype(np.int64) if int_sum[name] and s.dtype.kind != "f" else s
             else:
-                dt = np.dtype(np.float64)
-            out[name] = np.empty(0, dtype=dt)
-        _add(stages, "agg_join", t)
+                sf = s.astype(np.float64)
+                sf[c == 0] = np.nan
+                out[name] = sf
         return out
-
-    # FINAL MERGE: equal group tuples recur across segments (and, when the
-    # group keys don't pin the join key, across buckets) — one
-    # segment-count-sized pandas groupby folds the partials. Keys enter as
-    # null-safe int64 ORDER CODES; a representative row index maps each
-    # group back to its exact original values and dtypes.
-    import pandas as pd
-
-    key_arrays_out = {k: np.concatenate(key_parts[k]) for k, *_ in key_plan}
-    frame = {f"__k{i}": sort_key_int64(key_arrays_out[k]) for i, (k, *_rest) in enumerate(key_plan)}
-    gcols = list(frame)
-    n_seg = len(next(iter(key_arrays_out.values())))
-    frame["__pos"] = np.arange(n_seg, dtype=np.int64)
-    for name, fn, side, src, expr in plans:
-        frame[f"__c_{name}"] = np.concatenate(cnt_parts[name])
-        if sum_parts[name]:
-            s_part = np.concatenate(sum_parts[name])
-            if int_sum[name] and s_part.dtype.kind != "f":
-                # pandas sums int64 with wrapping arithmetic; cross-bucket
-                # merges could exceed int64 even when every per-bucket
-                # partial passed its own guard
-                if float(np.abs(s_part.astype(np.float64)).sum()) >= float(INT_GUARD):
-                    raise DeviceUnsupported("int sum overflow risk at merge -> materialize")
-            frame[f"__s_{name}"] = s_part
-    df = pd.DataFrame(frame)
-    gb = df.groupby(gcols, dropna=False, sort=False)
-    agg_spec = {c: "sum" for c in df.columns if c not in gcols and c != "__pos"}
-    agg_spec["__pos"] = "first"
-    res = gb.agg(agg_spec).reset_index()
-
-    rep = res["__pos"].to_numpy()
-    for k, *_rest in key_plan:
-        out[k] = key_arrays_out[k][rep]
-    for name, fn, side, src, expr in plans:
-        c = res[f"__c_{name}"].to_numpy()
-        if fn in ("count", "count*"):
-            out[name] = c.astype(np.int64)
-            continue
-        s = res[f"__s_{name}"].to_numpy()
-        if fn == "avg":
-            out[name] = np.divide(s.astype(np.float64), c, out=np.full(s.shape, np.nan), where=c > 0)
-            continue
-        # sum: SQL NULL (NaN) for all-null groups; int sums stay int when
-        # no group needs a NULL hole
-        if (c > 0).all():
-            out[name] = s.astype(np.int64) if int_sum[name] and s.dtype.kind != "f" else s
-        else:
-            sf = s.astype(np.float64)
-            sf[c == 0] = np.nan
-            out[name] = sf
-    _add(stages, "agg_join", t)
-    return out

@@ -59,7 +59,8 @@ from hyperspace_tpu_torch.exec.device import (
     predicate_skeleton,
     upload_literals,
 )
-from hyperspace_tpu_torch.exec.join import _add, _count_join_stream_chunk, _join_column_source, _null_value
+from hyperspace_tpu_torch.exec.join import _count_join_stream_chunk, _join_column_source, _null_value
+from hyperspace_tpu_torch.obs import stages
 from hyperspace_tpu_torch.ops.encode import hash_input_uint32
 from hyperspace_tpu_torch.ops.hashing import combine_hashes_torch
 from hyperspace_tpu_torch.plan import logical as L
@@ -141,8 +142,9 @@ def broadcast_spec(session, plan: L.Join) -> Optional[BroadcastSpec]:
             rkeys.append(a)
         else:
             return None
-    lb = _plan_leaf_bytes(plan.left)
-    rb = _plan_leaf_bytes(plan.right)
+    with stages.stage(session, "broadcast_gate"):
+        lb = _plan_leaf_bytes(plan.left)
+        rb = _plan_leaf_bytes(plan.right)
     cands = []
     if lb is not None and lb <= max_bytes:
         cands.append((lb, True))
@@ -245,17 +247,16 @@ def build_hash_side(session, build_plan: L.LogicalPlan, build_cols: List[str],
 
     batch = Executor(session).execute(build_plan, required_columns=build_cols)
     batch = {k: np.asarray(v) for k, v in batch.items()}
-    t = time.perf_counter()
-    n = B.num_rows(batch)
-    hashes = [hash_input_uint32(batch[k]) for k in bkeys]
-    planes = _upload_hash_planes(hashes, session.device)
-    with _program_lint.maybe_verify(session.conf, "hash-build", f"hash-build/{len(planes)}", (planes,)):
-        table, order = hash_build_program(planes)
-    count_dispatch("hash-build")
-    order_host = _copy_back(order)
-    nbytes = sum(int(a.nbytes) for a in batch.values()) + int(table.nbytes) + int(order_host.nbytes)
-    _add(session.query_stage_seconds, "join_build", t)
-    return BuildSide(batch, n, table, order_host, {k: batch[k].dtype for k in bkeys}, nbytes)
+    with stages.stage(session, "join_build"):
+        n = B.num_rows(batch)
+        hashes = [hash_input_uint32(batch[k]) for k in bkeys]
+        planes = _upload_hash_planes(hashes, session.device)
+        with _program_lint.maybe_verify(session.conf, "hash-build", f"hash-build/{len(planes)}", (planes,)):
+            table, order = hash_build_program(planes)
+        count_dispatch("hash-build")
+        order_host = _copy_back(order)
+        nbytes = sum(int(a.nbytes) for a in batch.values()) + int(table.nbytes) + int(order_host.nbytes)
+        return BuildSide(batch, n, table, order_host, {k: batch[k].dtype for k in bkeys}, nbytes)
 
 
 # --------------------------------------------------------------------------
@@ -295,39 +296,37 @@ def _probe_chunk(session, build: BuildSide, chunk: B.Batch,
     """(probe row, build row) matched pairs of one probe chunk: candidate
     spans by hash on the device, exact host verification over the
     candidates."""
-    t = time.perf_counter()
-    n = B.num_rows(chunk)
-    hashes = []
-    for pk, bk in zip(pkeys, bkeys):
-        arr = np.asarray(chunk[pk])
-        bdt = build.key_dtypes[bk]
-        if arr.dtype.kind == "M" and bdt.kind == "M" and arr.dtype != bdt:
-            # hash in the build side's epoch unit (a pure function of the
-            # value, so equal keys still collide); verification below
-            # compares at the finest common unit
-            arr = arr.astype(bdt)
-        hashes.append(hash_input_uint32(arr))
-    planes = _upload_hash_planes(hashes, build.table.device)
-    with _program_lint.maybe_verify(session.conf, "hash-probe", f"hash-probe/{len(planes)}",
-                                    (build.table, planes)):
-        lo_d, hi_d = hash_probe_program(build.table, build.n, planes)
-    count_dispatch("hash-probe")
-    lo, hi = _copy_back(torch.stack([lo_d, hi_d]))
-    t = _add(session.query_stage_seconds, "join_probe", t)
-    counts = hi - lo
-    total = int(counts.sum())
-    if total == 0:
-        _add(session.query_stage_seconds, "join_verify", t)
-        return np.empty(0, dtype=np.int64), np.empty(0, dtype=np.int64)
-    cand_p = np.repeat(np.arange(n, dtype=np.int64), counts)
-    offsets = np.concatenate([[0], np.cumsum(counts)[:-1]])
-    slot = np.arange(total, dtype=np.int64) - np.repeat(offsets, counts) + np.repeat(lo, counts)
-    cand_b = build.order[slot]
-    keep = np.ones(total, dtype=bool)
-    for pk, bk in zip(pkeys, bkeys):
-        keep &= _pairs_equal(np.asarray(chunk[pk])[cand_p], build.batch[bk][cand_b])
-    _add(session.query_stage_seconds, "join_verify", t)
-    return cand_p[keep], cand_b[keep]
+    with stages.stage(session, "join_probe") as st:
+        n = B.num_rows(chunk)
+        hashes = []
+        for pk, bk in zip(pkeys, bkeys):
+            arr = np.asarray(chunk[pk])
+            bdt = build.key_dtypes[bk]
+            if arr.dtype.kind == "M" and bdt.kind == "M" and arr.dtype != bdt:
+                # hash in the build side's epoch unit (a pure function of the
+                # value, so equal keys still collide); verification below
+                # compares at the finest common unit
+                arr = arr.astype(bdt)
+            hashes.append(hash_input_uint32(arr))
+        planes = _upload_hash_planes(hashes, build.table.device)
+        with _program_lint.maybe_verify(session.conf, "hash-probe", f"hash-probe/{len(planes)}",
+                                        (build.table, planes)):
+            lo_d, hi_d = hash_probe_program(build.table, build.n, planes)
+        count_dispatch("hash-probe")
+        lo, hi = _copy_back(torch.stack([lo_d, hi_d]))
+        st.next("join_verify")
+        counts = hi - lo
+        total = int(counts.sum())
+        if total == 0:
+            return np.empty(0, dtype=np.int64), np.empty(0, dtype=np.int64)
+        cand_p = np.repeat(np.arange(n, dtype=np.int64), counts)
+        offsets = np.concatenate([[0], np.cumsum(counts)[:-1]])
+        slot = np.arange(total, dtype=np.int64) - np.repeat(offsets, counts) + np.repeat(lo, counts)
+        cand_b = build.order[slot]
+        keep = np.ones(total, dtype=bool)
+        for pk, bk in zip(pkeys, bkeys):
+            keep &= _pairs_equal(np.asarray(chunk[pk])[cand_p], build.batch[bk][cand_b])
+        return cand_p[keep], cand_b[keep]
 
 
 # --------------------------------------------------------------------------
@@ -548,43 +547,41 @@ def stream_broadcast_join(executor, plan: L.Join, spec: Optional[BroadcastSpec] 
     def filter_pairs(pbatch: Optional[B.Batch], p_i: np.ndarray, b_i: np.ndarray):
         if post_filter is None or p_i.shape[0] == 0:
             return p_i, b_i
-        t = time.perf_counter()
-        mask = None
-        if (
-            session.conf.device_execution_enabled
-            and pbatch is not None
-            and bool((p_i >= 0).all())
-            and bool((b_i >= 0).all())
-        ):
-            try:
-                mask = _device_postjoin_mask(
-                    session, post_filter, pbatch, build, p_i, b_i,
-                    refs, sources, probe_is_left,
+        with stages.stage(session, "join_postjoin"):
+            mask = None
+            if (
+                session.conf.device_execution_enabled
+                and pbatch is not None
+                and bool((p_i >= 0).all())
+                and bool((b_i >= 0).all())
+            ):
+                try:
+                    mask = _device_postjoin_mask(
+                        session, post_filter, pbatch, build, p_i, b_i,
+                        refs, sources, probe_is_left,
+                    )
+                except DeviceUnsupported:
+                    trace.fallback("join", "postjoin_device")
+                    mask = None
+            if mask is None:
+                lidx, ridx = orient(p_i, b_i)
+                lb, rb = (pbatch, build.batch) if probe_is_left else (build.batch, pbatch)
+                refbatch = _gather_pairs(
+                    refs, sources, lb, rb, lidx, ridx, {}, pair_fallback_dtypes(pbatch)
                 )
-            except DeviceUnsupported:
-                trace.fallback("join", "postjoin_device")
-                mask = None
-        if mask is None:
-            lidx, ridx = orient(p_i, b_i)
-            lb, rb = (pbatch, build.batch) if probe_is_left else (build.batch, pbatch)
-            refbatch = _gather_pairs(
-                refs, sources, lb, rb, lidx, ridx, {}, pair_fallback_dtypes(pbatch)
-            )
-            raw = as_bool_mask(post_filter.eval(refbatch))
-            mask = np.broadcast_to(np.asarray(raw, dtype=bool), (p_i.shape[0],))
-        _add(session.query_stage_seconds, "join_postjoin", t)
+                raw = as_bool_mask(post_filter.eval(refbatch))
+                mask = np.broadcast_to(np.asarray(raw, dtype=bool), (p_i.shape[0],))
         return p_i[mask], b_i[mask]
 
     def assemble(pbatch: Optional[B.Batch], p_i: np.ndarray, b_i: np.ndarray) -> B.Batch:
-        t = time.perf_counter()
-        lidx, ridx = orient(p_i, b_i)
-        lb, rb = (pbatch, build.batch) if probe_is_left else (build.batch, pbatch)
-        out = _gather_pairs(
-            out_names, sources, lb, rb, lidx, ridx, coalesce_from,
-            pair_fallback_dtypes(pbatch),
-        )
-        _add(session.query_stage_seconds, "join_gather", t)
-        return out
+        with stages.stage(session, "join_gather"):
+            lidx, ridx = orient(p_i, b_i)
+            lb, rb = (pbatch, build.batch) if probe_is_left else (build.batch, pbatch)
+            out = _gather_pairs(
+                out_names, sources, lb, rb, lidx, ridx, coalesce_from,
+                pair_fallback_dtypes(pbatch),
+            )
+            return out
 
     yielded = False
     probe_iter = Executor(session).execute_stream(probe_exec)
@@ -673,15 +670,16 @@ def _shared_build_side(session, build_plan, build_cols: List[str], bkeys: List[s
     cache = getattr(session, "join_build_cache", None)
     if cache is None:
         return build_hash_side(session, build_plan, build_cols, bkeys)
-    key = _build_identity(build_plan, build_cols, bkeys)
-    brand = None
-    if key is not None:
-        try:
-            from hyperspace_tpu_torch.serving.result_cache import version_brand
+    with stages.stage(session, "build_identity"):
+        key = _build_identity(build_plan, build_cols, bkeys)
+        brand = None
+        if key is not None:
+            try:
+                from hyperspace_tpu_torch.serving.result_cache import version_brand
 
-            brand = version_brand(session, build_plan, enabled=True)
-        except Exception:
-            brand = None
+                brand = version_brand(session, build_plan, enabled=True)
+            except Exception:
+                brand = None
     if key is None or brand is None:
         return build_hash_side(session, build_plan, build_cols, bkeys)
     return cache.get_or_build(

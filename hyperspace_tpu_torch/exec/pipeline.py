@@ -30,17 +30,12 @@ from concurrent.futures import Future
 from typing import Callable, Dict, List, Optional, Sequence
 
 from hyperspace_tpu_torch.obs import spans
+from hyperspace_tpu_torch.obs.stages import PRODUCER as _PRODUCER
+from hyperspace_tpu_torch.obs.stages import on_producer_thread  # noqa: F401 (the pipeline's own test reads it here)
 from hyperspace_tpu_torch.reliability.faults import FAULTS
 
 _PIPELINE_POOL = None
 _PIPELINE_POOL_LOCK = threading.Lock()
-_PRODUCER = threading.local()
-
-
-def on_producer_thread() -> bool:
-    """Whether the caller runs inside a pipeline task (its time overlaps the
-    consumer's)."""
-    return getattr(_PRODUCER, "active", False)
 
 
 def _pipeline_pool():

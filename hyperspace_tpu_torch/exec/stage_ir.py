@@ -55,6 +55,7 @@ import torch
 
 from hyperspace_tpu_torch.check import program_lint as _program_lint
 from hyperspace_tpu_torch.exec import device as _device
+from hyperspace_tpu_torch.obs import stages
 
 # --------------------------------------------------------------------------
 # conf gates
@@ -91,36 +92,20 @@ def count_dispatch(program: str) -> None:
 _peak_bytes = 0
 
 
-def fold_peak_start(device: Optional[torch.device]) -> None:
-    """Start a fold step's peak-memory window: on a CUDA device the
-    allocator's peak counter restarts from what is allocated now, so
-    ``note_peak_bytes`` after the step reads the step's own high-water
-    mark (``torch.cuda.max_memory_allocated``)."""
-    if device is not None and device.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(device)
-
-
 def note_peak_bytes(tensors=()) -> int:
-    """Sample the bytes the fold held and fold them into the high-water
-    mark and the ``hs_device_peak_bytes`` gauge: on a CUDA device the
-    allocator's peak since ``fold_peak_start`` (everything allocated there
-    while the fold ran, its temporaries included), else the summed bytes
-    of the live fold-state ``tensors``. Called after each fold step, when
-    the old and the new state could coexist (the allocation in-place state
-    avoids)."""
+    """Fold the bytes of the live fold-state ``tensors`` into the high-water
+    mark and the ``hs_device_peak_bytes`` gauge. Called after each fold
+    step, when the old and the new state could coexist (the allocation
+    in-place state avoids). It reads the fold's own tensors, on every
+    device: the allocator's process-wide peak belongs to whoever reads
+    ``torch.cuda.max_memory_allocated`` and is never reset here."""
     global _peak_bytes
-    tensors = [t for t in tensors if isinstance(t, torch.Tensor)]
-    cuda = next((t.device for t in tensors if t.device.type == "cuda"), None)
-    if cuda is not None:
-        total = int(torch.cuda.max_memory_allocated(cuda))
-    else:
-        total = sum(int(t.nelement() * t.element_size()) for t in tensors)
+    total = sum(int(t.nelement() * t.element_size()) for t in tensors if isinstance(t, torch.Tensor))
     from hyperspace_tpu_torch.obs.metrics import REGISTRY
 
     g = REGISTRY.gauge(
         "hs_device_peak_bytes",
-        "High-water bytes on the device while a streamed fold step ran "
-        "(CUDA allocator peak; the fold state's bytes on the CPU)",
+        "High-water bytes of a streamed fold step's state on the device",
     )
     if total > _peak_bytes:
         _peak_bytes = total
@@ -552,8 +537,6 @@ def _fused_fold_chunk(session, gs, build, chunk, pkeys, bkeys, post_filter,
     capacity overflow (the state as it was; the caller redoes the chunk
     per-family); raises DeviceUnsupported when this chunk's dtypes do not
     fuse."""
-    import time
-
     from hyperspace_tpu_torch.exec import aggregate as A
     from hyperspace_tpu_torch.exec import batch as B
     from hyperspace_tpu_torch.exec.device import (
@@ -599,67 +582,64 @@ def _fused_fold_chunk(session, gs, build, chunk, pkeys, bkeys, post_filter,
         state.bdev = (bkenc, bcols, bcodecs, _host_tensor(border).to(device))
     bkenc, bcols, bcodecs, border = state.bdev
 
-    t = time.perf_counter()
-    hashes = []
-    for pk, bk in zip(pkeys, bkeys):
-        arr = np.asarray(chunk[pk])
-        bdt = build.key_dtypes[bk]
-        if arr.dtype.kind == "M" and bdt.kind == "M" and arr.dtype != bdt:
-            arr = arr.astype(bdt)
-        hashes.append(hash_input_uint32(arr))
-    pplanes = tuple(_upload_hash_planes(hashes, device))
-    pkenc = tuple(_host_tensor(encode_column(np.asarray(chunk[pk]))[0]).to(device) for pk in pkeys)
-    pcols, codecs = {}, dict(bcodecs)
-    for name in needed:
-        if not on_probe[name]:
-            continue
-        enc, codec = encode_column(np.asarray(chunk[sources[name][1]]))
-        if codec.kind == "string" and name in agg_inputs:
-            raise DeviceUnsupported("string aggregate inputs stay host-side")
-        pcols[name] = _host_tensor(enc).to(device)
-        codecs[name] = codec
-    if post_filter is not None:
-        pred_fn, lits = compile_predicate(post_filter, codecs)
-        pred_sk = predicate_skeleton(post_filter, codecs)
-    else:
-        pred_fn, lits, pred_sk = None, (), "<none>"
-    session.query_stage_seconds["agg_upload"] += time.perf_counter() - t
+    with stages.stage(session, "agg_upload") as st:
+        hashes = []
+        for pk, bk in zip(pkeys, bkeys):
+            arr = np.asarray(chunk[pk])
+            bdt = build.key_dtypes[bk]
+            if arr.dtype.kind == "M" and bdt.kind == "M" and arr.dtype != bdt:
+                arr = arr.astype(bdt)
+            hashes.append(hash_input_uint32(arr))
+        pplanes = tuple(_upload_hash_planes(hashes, device))
+        pkenc = tuple(_host_tensor(encode_column(np.asarray(chunk[pk]))[0]).to(device) for pk in pkeys)
+        pcols, codecs = {}, dict(bcodecs)
+        for name in needed:
+            if not on_probe[name]:
+                continue
+            enc, codec = encode_column(np.asarray(chunk[sources[name][1]]))
+            if codec.kind == "string" and name in agg_inputs:
+                raise DeviceUnsupported("string aggregate inputs stay host-side")
+            pcols[name] = _host_tensor(enc).to(device)
+            codecs[name] = codec
+        if post_filter is not None:
+            pred_fn, lits = compile_predicate(post_filter, codecs)
+            pred_sk = predicate_skeleton(post_filter, codecs)
+        else:
+            pred_fn, lits, pred_sk = None, (), "<none>"
+        st.next("agg_program")
 
-    keys_schema, _ = gs._schema
-    gkey_specs = tuple((name, "f" if tag == "f" else "i") for name, (tag, _, _) in zip(gs.group_keys, keys_schema))
-    # capacities: pairs start at one match per probe row, groups at the hint
-    if state.pair_cap <= 0:
-        state.pair_cap = bucket_rows(n)
-    pair_cap = state.pair_cap
-    p = gs._partial
-    cap = A.group_capacity(max(gs._cap_hint, 1), gs.cap_floor)
-    if p is not None:
-        cap = max(cap, p["cap"])
-    state_keys, state_slots, state_fs, state_n = gs._ensure_fused_state(gkey_specs, cap)
+        keys_schema, _ = gs._schema
+        gkey_specs = tuple((name, "f" if tag == "f" else "i") for name, (tag, _, _) in zip(gs.group_keys, keys_schema))
+        # capacities: pairs start at one match per probe row, groups at the hint
+        if state.pair_cap <= 0:
+            state.pair_cap = bucket_rows(n)
+        pair_cap = state.pair_cap
+        p = gs._partial
+        cap = A.group_capacity(max(gs._cap_hint, 1), gs.cap_floor)
+        if p is not None:
+            cap = max(cap, p["cap"])
+        state_keys, state_slots, state_fs, state_n = gs._ensure_fused_state(gkey_specs, cap)
 
-    t = time.perf_counter()
-    plan = StagePlan((FilterOp(pred_sk), JoinProbeOp(len(pkeys), pair_cap),
-                      GroupAggOp(gkey_specs, tuple(gs._slots), cap)))
-    donate = donation_wanted(conf)
-    sides = ",".join(f"{name}:{'p' if on_probe[name] else 'b'}" for name in needed)
-    skeleton = plan.skeleton() + f"|v:{','.join(vmodes)}|c:{sides}" + ("|don" if donate else "")
-    program = compile_stage(
-        skeleton,
-        fused_join_agg_program(vmodes, pred_fn, needed, on_probe, gkey_specs, tuple(gs._slots),
-                               cap, pair_cap, donate),
-        donate_argnums=(0, 1, 2) if donate else (),
-    )
-    fold_peak_start(device)
-    t0 = _device.program_clock(device)
-    args = (state_keys, state_slots, state_fs, state_n,
-            build.table, border, build.n, bkenc, pplanes, pkenc, pcols, bcols,
-            upload_literals(lits, device), gs._row_base)
-    with _program_lint.maybe_verify(conf, "fused-stage-join-agg", f"fused-stage-join-agg/{skeleton}", args):
-        total, n_chunk, n_m, n_kept, n_out, fs_out, keys_out, slots_out = program(*args)
-    count_dispatch("fused-stage-join-agg")
-    total, n_chunk, n_m, n_kept, n_out = A.read_counts(total, n_chunk, n_m, n_kept, n_out)
-    _device._observe_program("fused-stage-join-agg", t0)
-    session.query_stage_seconds["agg_program"] += time.perf_counter() - t
+        plan = StagePlan((FilterOp(pred_sk), JoinProbeOp(len(pkeys), pair_cap),
+                          GroupAggOp(gkey_specs, tuple(gs._slots), cap)))
+        donate = donation_wanted(conf)
+        sides = ",".join(f"{name}:{'p' if on_probe[name] else 'b'}" for name in needed)
+        skeleton = plan.skeleton() + f"|v:{','.join(vmodes)}|c:{sides}" + ("|don" if donate else "")
+        program = compile_stage(
+            skeleton,
+            fused_join_agg_program(vmodes, pred_fn, needed, on_probe, gkey_specs, tuple(gs._slots),
+                                   cap, pair_cap, donate),
+            donate_argnums=(0, 1, 2) if donate else (),
+        )
+        t0 = _device.program_clock(device)
+        args = (state_keys, state_slots, state_fs, state_n,
+                build.table, border, build.n, bkenc, pplanes, pkenc, pcols, bcols,
+                upload_literals(lits, device), gs._row_base)
+        with _program_lint.maybe_verify(conf, "fused-stage-join-agg", f"fused-stage-join-agg/{skeleton}", args):
+            total, n_chunk, n_m, n_kept, n_out, fs_out, keys_out, slots_out = program(*args)
+        count_dispatch("fused-stage-join-agg")
+        total, n_chunk, n_m, n_kept, n_out = A.read_counts(total, n_chunk, n_m, n_kept, n_out)
+        _device._observe_program("fused-stage-join-agg", t0)
     gs._partial = {"cap": cap, "n": n_out, "fs": fs_out, "keys": list(keys_out), "slots": list(slots_out)}
     note_peak_bytes([fs_out, *keys_out, *slots_out])
     if total > pair_cap or n_chunk > cap or n_m > cap:

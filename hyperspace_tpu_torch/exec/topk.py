@@ -279,7 +279,6 @@ class TopKStream:
             fn = S.fused_topk_fn(nk, self.cap, donate)
         program = stage_ir.compile_stage(skeleton, fn, donate_argnums=(0,) if donate else ())
         planes = self._upload(np.stack(mat_rows))
-        stage_ir.fold_peak_start(self.session.device)
         with _program_lint.maybe_verify(self.session.conf, family, f"{family}/{skeleton}", (self._state, planes)):
             if px is not None:
                 merged, cand = px.timed_call("topk", program, self._state, planes)

@@ -35,7 +35,6 @@ Bucket id is encoded in the data file name: ``part-<bucket>-<tag>.parquet``.
 
 from __future__ import annotations
 
-import collections
 import itertools
 import os
 import re
@@ -52,6 +51,7 @@ from hyperspace_tpu_torch import config as C
 from hyperspace_tpu_torch.indexes import registry
 from hyperspace_tpu_torch.indexes.base import CreateContext, Index, IndexConfig
 from hyperspace_tpu_torch.models.log_entry import DerivedDataset
+from hyperspace_tpu_torch.obs import stages
 from hyperspace_tpu_torch.plan.logical import BucketSpec
 from hyperspace_tpu_torch.plan.resolver import ResolvedColumn, resolve_columns_against_schema
 from hyperspace_tpu_torch.sources import schema as schema_codec
@@ -67,13 +67,6 @@ _BUCKET_FILE_RE = re.compile(r"part-(\d+)-")
 #: see rules/utils.transform_plan_to_use_index.
 BUCKET_HASH_VERSION = 2
 _BUCKET_HASH_VERSION_PROP = "bucketHashVersion"
-
-
-def _add_stage(seconds: collections.Counter, stage: str, t0: float) -> float:
-    """Add the time since ``t0`` to ``seconds[stage]``; returns now."""
-    now = time.perf_counter()
-    seconds[stage] += now - t0
-    return now
 
 
 def bucket_of_file(path: str) -> Optional[int]:
@@ -236,10 +229,9 @@ class CoveringIndex(Index):
                     return kt, group_payload_fn
 
                 for f in files:
-                    t = time.perf_counter()
-                    ds_f = relation.arrow_dataset([f])
-                    kt = _project_conform(ds_f, key_res, key_schema)
-                    _add_stage(ctx.session.build_stage_seconds, "key_decode", t)
+                    with stages.stage(ctx.session, "key_decode"):
+                        ds_f = relation.arrow_dataset([f])
+                        kt = _project_conform(ds_f, key_res, key_schema)
                     # emit BEFORE a file that would cross batchRows: groups
                     # stay under the cap (only a single file larger than
                     # batchRows exceeds it, and that group slices evenly),
@@ -433,50 +425,47 @@ def _chunk_stages(bucket_sort_columns: List[str], num_buckets: int, out_dir: str
     from hyperspace_tpu_torch.ops.sort import bucket_sort_build
 
     device = _device_of(session)
-    seconds = session.build_stage_seconds if session is not None else collections.Counter()
     mesh = _build_mesh(session, total_rows)
     if mesh is not None:
-        return _mesh_stages(bucket_sort_columns, num_buckets, out_dir, column_order, session, mesh, seconds)
+        return _mesh_stages(bucket_sort_columns, num_buckets, out_dir, column_order, session, mesh)
 
     def launch(chunk: pa.Table) -> dict:
         """Host encode + device pass. The device work is queued on the
         current stream; nothing here waits for it."""
-        t = time.perf_counter()
-        batch = table_to_batch(chunk.select(bucket_sort_columns))
-        keys, kinds, host_hashes = encode.encode_sort_columns(
-            [batch[c] for c in bucket_sort_columns]
-        )
-        t = _add_stage(seconds, "encode_keys", t)
-        dev_keys = [torch.from_numpy(k).to(device) for k in keys]
-        dev_hashes = [torch.from_numpy(h.view(np.int32)).to(device) for h in host_hashes]
-        perm, counts = bucket_sort_build(dev_keys, dev_hashes, kinds, num_buckets, chunk.num_rows)
-        _add_stage(seconds, "upload_launch", t)
+        with stages.stage(session, "encode_keys") as st:
+            batch = table_to_batch(chunk.select(bucket_sort_columns))
+            keys, kinds, host_hashes = encode.encode_sort_columns(
+                [batch[c] for c in bucket_sort_columns]
+            )
+            st.next("upload_launch")
+            dev_keys = [torch.from_numpy(k).to(device) for k in keys]
+            dev_hashes = [torch.from_numpy(h.view(np.int32)).to(device) for h in host_hashes]
+            perm, counts = bucket_sort_build(dev_keys, dev_hashes, kinds, num_buckets, chunk.num_rows)
         return {"chunk": chunk, "perm": perm, "counts": counts}
 
     def finish(state: dict, chunk_payload_fn) -> List[str]:
         """Attach the lazily-decoded payload, fetch the permutation, and
         write the per-bucket sorted parquet files; host-heavy, overlapped
         with the NEXT chunk's device work."""
-        t = time.perf_counter()
-        chunk = _prepare_chunk(state["chunk"], chunk_payload_fn, column_order)
-        t = _add_stage(seconds, "payload_decode", t)
-        perm_np = state["perm"].cpu().numpy()
-        boundaries = np.concatenate([[0], np.cumsum(state["counts"].cpu().numpy())])
-        t = _add_stage(seconds, "device_wait_fetch", t)
+        with stages.stage(session, "payload_decode") as st:
+            chunk = _prepare_chunk(state["chunk"], chunk_payload_fn, column_order)
+            st.next("device_wait_fetch")
+            perm_np = state["perm"].cpu().numpy()
+            boundaries = np.concatenate([[0], np.cumsum(state["counts"].cpu().numpy())])
+            st.next("take_write")
 
-        def _take_write(b: int, lo: int, hi: int) -> str:
-            return _write_bucket_file(chunk, out_dir, b, perm_np[lo:hi])
+            def _take_write(b: int, lo: int, hi: int) -> str:
+                return _write_bucket_file(chunk, out_dir, b, perm_np[lo:hi])
 
-        from concurrent.futures import ThreadPoolExecutor
+            from concurrent.futures import ThreadPoolExecutor
 
-        with ThreadPoolExecutor(max_workers=8) as ex:
-            futures = [
-                ex.submit(_take_write, b, int(boundaries[b]), int(boundaries[b + 1]))
-                for b in range(num_buckets)
-                if boundaries[b + 1] > boundaries[b]
-            ]
-            out = [f.result() for f in futures]
-        _add_stage(seconds, "take_write", t)
+            with ThreadPoolExecutor(max_workers=8) as ex:
+                futures = [
+                    ex.submit(_take_write, b, int(boundaries[b]), int(boundaries[b + 1]))
+                    for b in range(num_buckets)
+                    if boundaries[b + 1] > boundaries[b]
+                ]
+                out = [f.result() for f in futures]
         return out
 
     return launch, finish
@@ -506,7 +495,7 @@ def _write_bucket_file(chunk: pa.Table, out_dir: str, b: int, rows) -> str:
 
 
 def _mesh_stages(bucket_sort_columns: List[str], num_buckets: int, out_dir: str,
-                 column_order: Optional[List[str]], session, mesh, seconds: collections.Counter):
+                 column_order: Optional[List[str]], session, mesh):
     """The mesh build's two stages of one chunk (the JAX package's
     ``_launch_mesh`` / ``_finish_mesh``): ``launch`` shards the encoded key
     planes over the mesh (each padded to one row count per shard) and runs
@@ -532,58 +521,56 @@ def _mesh_stages(bucket_sort_columns: List[str], num_buckets: int, out_dir: str,
                 for d in mesh.local_shards()]
 
     def launch(chunk: pa.Table) -> dict:
-        t = time.perf_counter()
-        batch = table_to_batch(chunk.select(bucket_sort_columns))
-        keys, kinds, host_hashes = encode.encode_sort_columns([batch[c] for c in bucket_sort_columns])
-        t = _add_stage(seconds, "encode_keys", t)
-        cn = chunk.num_rows
-        per_dev = padded_size(-(-cn // n_dev))
-        dev_keys = [shards_of(k, per_dev) for k in keys]
-        dev_hashes = [shards_of(h.view(np.int32), per_dev) for h in host_hashes]
-        row_idx = shards_of(np.arange(per_dev * n_dev, dtype=np.int32), per_dev)
-        capacity = min(_next_pow2(int(per_dev / n_dev * capacity_factor)), _next_pow2(per_dev))
-        out = distributed_bucket_sort_build(mesh, dev_keys, dev_hashes, kinds, row_idx, cn, num_buckets, capacity)
-        _add_stage(seconds, "upload_launch", t)
+        with stages.stage(session, "encode_keys") as st:
+            batch = table_to_batch(chunk.select(bucket_sort_columns))
+            keys, kinds, host_hashes = encode.encode_sort_columns([batch[c] for c in bucket_sort_columns])
+            st.next("upload_launch")
+            cn = chunk.num_rows
+            per_dev = padded_size(-(-cn // n_dev))
+            dev_keys = [shards_of(k, per_dev) for k in keys]
+            dev_hashes = [shards_of(h.view(np.int32), per_dev) for h in host_hashes]
+            row_idx = shards_of(np.arange(per_dev * n_dev, dtype=np.int32), per_dev)
+            capacity = min(_next_pow2(int(per_dev / n_dev * capacity_factor)), _next_pow2(per_dev))
+            out = distributed_bucket_sort_build(mesh, dev_keys, dev_hashes, kinds, row_idx, cn, num_buckets, capacity)
         return {"chunk": chunk, "out": out, "capacity": capacity, "per_dev": per_dev,
                 "retry": (dev_keys, dev_hashes, kinds, row_idx, cn)}
 
     def finish(state: dict, chunk_payload_fn) -> List[str]:
-        t = time.perf_counter()
-        chunk = _prepare_chunk(state["chunk"], chunk_payload_fn, column_order)
-        t = _add_stage(seconds, "payload_decode", t)
-        out, capacity, per_dev = state["out"], state["capacity"], state["per_dev"]
-        while sum(int(v[3].sum()) for v in out.values()) > 0:
-            # skew overflowed a destination's slots: double the capacity
-            # and redo (a source shard holds per_dev rows, so a capacity of
-            # per_dev always fits and the loop ends)
-            if capacity >= per_dev:
-                raise RuntimeError(
-                    f"distributed build exchange overflow at full capacity (capacity={capacity}, per_dev={per_dev})"
-                )
-            capacity = min(_next_pow2(capacity * 2), _next_pow2(per_dev))
-            dev_keys, dev_hashes, kinds, row_idx, cn = state["retry"]
-            out = distributed_bucket_sort_build(mesh, dev_keys, dev_hashes, kinds, row_idx, cn, num_buckets,
-                                                capacity)
-        host = {g: tuple(v.cpu().numpy() for v in out[g][:3]) for g in out}
-        t = _add_stage(seconds, "device_wait_fetch", t)
+        with stages.stage(session, "payload_decode") as st:
+            chunk = _prepare_chunk(state["chunk"], chunk_payload_fn, column_order)
+            st.next("device_wait_fetch")
+            out, capacity, per_dev = state["out"], state["capacity"], state["per_dev"]
+            while sum(int(v[3].sum()) for v in out.values()) > 0:
+                # skew overflowed a destination's slots: double the capacity
+                # and redo (a source shard holds per_dev rows, so a capacity of
+                # per_dev always fits and the loop ends)
+                if capacity >= per_dev:
+                    raise RuntimeError(
+                        f"distributed build exchange overflow at full capacity (capacity={capacity}, per_dev={per_dev})"
+                    )
+                capacity = min(_next_pow2(capacity * 2), _next_pow2(per_dev))
+                dev_keys, dev_hashes, kinds, row_idx, cn = state["retry"]
+                out = distributed_bucket_sort_build(mesh, dev_keys, dev_hashes, kinds, row_idx, cn, num_buckets,
+                                                    capacity)
+            host = {g: tuple(v.cpu().numpy() for v in out[g][:3]) for g in out}
+            st.next("take_write")
 
-        from concurrent.futures import ThreadPoolExecutor
+            from concurrent.futures import ThreadPoolExecutor
 
-        futures = []
-        with ThreadPoolExecutor(max_workers=8) as ex:
-            for d in sorted(host):
-                bkts, ridx, vld = host[d]
-                nv = int(vld.sum())  # valid rows sort to the shard's prefix
-                if nv == 0:
-                    continue
-                b_v, r_v = bkts[:nv], ridx[:nv]
-                bounds = np.searchsorted(b_v, np.arange(num_buckets + 1))
-                for b in range(d, num_buckets, n_dev):
-                    lo, hi = int(bounds[b]), int(bounds[b + 1])
-                    if hi > lo:
-                        futures.append(ex.submit(_write_bucket_file, chunk, out_dir, b, r_v[lo:hi]))
-            paths = [f.result() for f in futures]
-        _add_stage(seconds, "take_write", t)
+            futures = []
+            with ThreadPoolExecutor(max_workers=8) as ex:
+                for d in sorted(host):
+                    bkts, ridx, vld = host[d]
+                    nv = int(vld.sum())  # valid rows sort to the shard's prefix
+                    if nv == 0:
+                        continue
+                    b_v, r_v = bkts[:nv], ridx[:nv]
+                    bounds = np.searchsorted(b_v, np.arange(num_buckets + 1))
+                    for b in range(d, num_buckets, n_dev):
+                        lo, hi = int(bounds[b]), int(bounds[b + 1])
+                        if hi > lo:
+                            futures.append(ex.submit(_write_bucket_file, chunk, out_dir, b, r_v[lo:hi]))
+                paths = [f.result() for f in futures]
         return paths
 
     return launch, finish

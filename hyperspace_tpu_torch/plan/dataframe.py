@@ -8,11 +8,11 @@ Hyperspace is enabled on the session) then the executor.
 
 from __future__ import annotations
 
-import time
 from typing import Dict, List, Optional, Union as TUnion
 
 import numpy as np
 
+from hyperspace_tpu_torch.obs import stages
 from hyperspace_tpu_torch.plan import logical as L
 from hyperspace_tpu_torch.plan.expr import Col, Expr, col
 from hyperspace_tpu_torch.plan.resolver import resolve_column, resolve_expr
@@ -189,12 +189,9 @@ class DataFrame:
                         pass  # the cost model must never fail a query
 
     def _timed_optimized_plan(self) -> L.LogicalPlan:
-        """``optimized_plan()``, its wall time added to the session's
-        ``query_stage_seconds["rewrite"]``."""
-        t = time.perf_counter()
-        plan = self.optimized_plan()
-        self.session.query_stage_seconds["rewrite"] += time.perf_counter() - t
-        return plan
+        """``optimized_plan()``, timed as the ``rewrite`` stage."""
+        with stages.stage(self.session, "rewrite"):
+            return self.optimized_plan()
 
     def to_local_iterator(self):
         """Yield the result as a stream of column batches (dicts of numpy
@@ -206,9 +203,7 @@ class DataFrame:
         from hyperspace_tpu_torch.exec import batch as B
         from hyperspace_tpu_torch.exec.executor import Executor
 
-        t = time.perf_counter()
-        plan = self.optimized_plan()
-        self.session.query_stage_seconds["rewrite"] += time.perf_counter() - t
+        plan = self._timed_optimized_plan()
         cols = plan.output_columns
         stream = Executor(self.session).execute_stream(plan)
         try:

@@ -74,8 +74,9 @@ def optimize_plan(plan: L.LogicalPlan, session, enabled: Optional[bool] = None) 
         enabled = session.hyperspace_enabled
     if not enabled:
         return plan
-    with spans.span("optimize", cat="plan"):
-        return ApplyHyperspace(session).apply(plan)
+    # timed by its caller's stage (obs/stages.py): ``rewrite`` for a
+    # DataFrame, the server's ``resolve``, whose span the rewrite annotates
+    return ApplyHyperspace(session).apply(plan)
 
 
 class ApplyHyperspace:

@@ -27,7 +27,7 @@ from concurrent.futures import Future
 from typing import Any, Dict, List, Optional
 
 from hyperspace_tpu_torch.obs import metrics as obs_metrics
-from hyperspace_tpu_torch.obs import spans
+from hyperspace_tpu_torch.obs import spans, stages
 from hyperspace_tpu_torch.obs.profile import build_profile
 from hyperspace_tpu_torch.serving.admission import (
     AdmissionController,
@@ -58,20 +58,22 @@ class _Request:
     __slots__ = (
         "plan", "fp", "token", "enabled", "future", "deadline", "submitted_at",
         "root", "tenant", "query_text", "cost_class", "brand", "dequeued_at",
-        "sched_charge", "snapshot",
+        "sched_charge", "snapshot", "clock",
     )
 
     def __init__(self, plan, fp: Fingerprint, token, enabled: bool, deadline, root=None,
                  tenant: str = "default", query_text: str = "",
                  cost_class: str = "unknown", brand: Optional[str] = None,
-                 snapshot=None):
+                 snapshot=None, clock: Optional[stages.RequestClock] = None):
         self.plan = plan
         self.fp = fp
         self.token = token
         self.enabled = enabled
         self.future: "Future" = Future()
         self.deadline = deadline
-        self.submitted_at = time.monotonic()
+        # the moment the request enters the admission queue, on the stage
+        # clock's timeline (time.perf_counter)
+        self.submitted_at = time.perf_counter()
         # per-request span-tree root (None when obs tracing is off); workers
         # attach() it so each request's spans land in its own disjoint tree
         self.root = root
@@ -89,6 +91,9 @@ class _Request:
         # enter snapshot_scope(self.snapshot) so every log-version resolution
         # sees the roster this request was admitted against
         self.snapshot = snapshot
+        # the request's stage clock (obs/stages.py), started on entry to
+        # submit; workers bind it wherever they attach the span root
+        self.clock = clock if clock is not None else stages.RequestClock(root)
 
     def expired(self) -> bool:
         return self.deadline is not None and time.monotonic() > self.deadline
@@ -311,7 +316,8 @@ class QueryServer:
         return self.slo.burn_rate(min(self.slo.windows_s), tenant)
 
     def _expire_seal(self, r: "_Request") -> None:
-        self._seal(r, error="RequestTimeout")
+        with stages.bind(r.clock), stages.stage(self.session, "finish"):
+            self._seal(r, error="RequestTimeout")
 
     # -- lifecycle -----------------------------------------------------------
     def start(self) -> "QueryServer":
@@ -399,6 +405,7 @@ class QueryServer:
         request's SLO accounting and per-tenant completion counters.
         ``trace_context`` (or the ambient :func:`spans.current_context`)
         parents this request's span tree under a routing caller's trace."""
+        clock = stages.RequestClock()
         if self._closed or not self._started:
             raise ServerClosed("server is not running (call start() or use as a context manager)")
         enabled = bool(self.session.hyperspace_enabled)
@@ -417,14 +424,16 @@ class QueryServer:
                 # that issued this hop, checkable after stitching
                 root.attrs["trace_id"] = ctx.trace_id
                 root.attrs["parent_span_id"] = ctx.span_id
-        with spans.attach(root):
+        clock.root = root
+        with stages.bind(clock), stages.stage(self.session, "parse"):
             plan, fp = self._parse(query)
         # pin the data version at admission: the token, the brand, and every
         # later resolution in the worker read through this snapshot, so a
         # refresh committing mid-flight never changes this request's answer
         snapshot = None
         if self.session.conf.lifecycle_snapshot_enabled:
-            snapshot = SnapshotHandle.capture(self.session)
+            with stages.bind(clock), stages.stage(self.session, "admit"):
+                snapshot = SnapshotHandle.capture(self.session)
             # seqlock validation of the capture: the handle records the bus
             # sequence BEFORE reading the roster, so a commit landing during
             # the read (a local refresh, or a fabric watcher replaying a
@@ -442,8 +451,9 @@ class QueryServer:
                     "snapshot re-captures after a commit raced the roster read",
                     server=self.server_name,
                 ).inc()
-                snapshot = SnapshotHandle.capture(self.session)
-        with snapshot_scope(snapshot):
+                with stages.bind(clock), stages.stage(self.session, "admit"):
+                    snapshot = SnapshotHandle.capture(self.session)
+        with snapshot_scope(snapshot), stages.bind(clock), stages.stage(self.session, "admit"):
             token = session_token(self.session, enabled)
             cost_class = "unknown"
             if self.history is not None:
@@ -459,7 +469,7 @@ class QueryServer:
         req = _Request(
             plan, fp, token, enabled, self.admission.deadline_for(timeout),
             root=root, tenant=tenant, query_text=query_text,
-            cost_class=cost_class, brand=brand, snapshot=snapshot,
+            cost_class=cost_class, brand=brand, snapshot=snapshot, clock=clock,
         )
         if brand is not None:
             hit = self.result_cache.get(fp, brand, plan=plan)
@@ -469,7 +479,9 @@ class QueryServer:
                 # cache hits would corrupt the cost model's latency estimates
                 req.future.set_result(hit)
                 req.future.request_root = root
-                latency = time.monotonic() - req.submitted_at
+                req.future.request_clock = clock
+                latency = time.perf_counter() - req.submitted_at
+                stages.seal(self.session, clock, None, None)
                 self.metrics.observe(latency, tenant=tenant)
                 if self.slo is not None:
                     self.slo.record(latency, error=False, tenant=tenant)
@@ -499,6 +511,7 @@ class QueryServer:
                 )
             raise
         req.future.request_root = root  # span tree visible to the caller
+        req.future.request_clock = clock  # the request's stage clock, sealed with it
         if self.prefetch_enabled:
             self._prefetch_hint(token, fp)
         return req.future
@@ -581,7 +594,7 @@ class QueryServer:
             self._process_group(group)
 
     def _process_group(self, group: List[_Request]) -> None:
-        now = time.monotonic()
+        now = time.perf_counter()
         for r in group:
             r.dequeued_at = now
             self.registry.histogram(
@@ -618,7 +631,7 @@ class QueryServer:
         resolved = []  # (req, bound_plan, entry or None)
         for r in reqs:
             try:
-                with spans.attach(r.root), spans.span("resolve-plan", cat="serving"):
+                with stages.bind(r.clock), stages.stage(self.session, "resolve"):
                     with snapshot_scope(r.snapshot), deadline_scope(r.deadline):
                         resolved.append((r, *self._resolve(r)))
             except Exception as exc:
@@ -645,7 +658,8 @@ class QueryServer:
                     group_deadlines = [r.deadline for r, _, _ in resolved if r.deadline is not None]
                     with self.session.hyperspace_scope(resolved[0][0].enabled), \
                             snapshot_scope(resolved[0][0].snapshot), \
-                            deadline_scope(min(group_deadlines) if group_deadlines else None):
+                            deadline_scope(min(group_deadlines) if group_deadlines else None), \
+                            stages.bind(*(r.clock for r, _, _ in resolved)):
                         batches = execute_shared_scan(
                             self.session, ops, leaf, [b for _, b, _ in resolved]
                         )
@@ -667,7 +681,7 @@ class QueryServer:
                 self.admission.expire(r)  # exactly-once timeout + seal
                 continue
             try:
-                with spans.attach(r.root), spans.span("execute", cat="serving"):
+                with stages.bind(r.clock), spans.span("execute", cat="serving"):
                     with self.session.hyperspace_scope(r.enabled), snapshot_scope(r.snapshot), \
                             deadline_scope(r.deadline):
                         out_cols = list(entry.output_columns) if entry is not None else list(bound.output_columns)
@@ -704,6 +718,10 @@ class QueryServer:
             return plan
 
     def _finish(self, r: _Request, batch, entry: Optional[CompiledPlan]) -> None:
+        with stages.bind(r.clock), stages.stage(self.session, "finish"):
+            self._finish_request(r, batch, entry)
+
+    def _finish_request(self, r: _Request, batch, entry: Optional[CompiledPlan]) -> None:
         if entry is not None and tuple(entry.output_columns) != tuple(r.fp.output_columns):
             # template carries the FIRST request's aliases; relabel
             # positionally to this request's output names
@@ -727,32 +745,45 @@ class QueryServer:
             # registry series for this request is already published, so a
             # caller may scrape /metrics immediately and see consistent state
             try:
-                self.metrics.observe(time.monotonic() - r.submitted_at, tenant=r.tenant)
+                self.metrics.observe(time.perf_counter() - r.submitted_at, tenant=r.tenant)
                 self._seal(r, rows=rows)
             finally:
                 r.future.set_result(batch)
 
     def _fail(self, r: _Request, exc: BaseException) -> None:
+        with stages.bind(r.clock), stages.stage(self.session, "finish"):
+            self._fail_request(r, exc)
+
+    def _fail_request(self, r: _Request, exc: BaseException) -> None:
         if not r.future.done():
             try:
-                self.metrics.observe(time.monotonic() - r.submitted_at, error=True, tenant=r.tenant)
+                self.metrics.observe(time.perf_counter() - r.submitted_at, error=True, tenant=r.tenant)
                 self._seal(r, error=type(exc).__name__)
             finally:
                 r.future.set_exception(exc)
 
     def _seal(self, r: _Request, error: Optional[str] = None, rows: Optional[int] = None) -> None:
+        """:meth:`_seal_request`, then stop the request's stage clock: its
+        ``request``, ``unattributed`` and ``host_wait`` seconds go to the
+        session's ``query_stage_seconds`` before the future resolves."""
+        try:
+            self._seal_request(r, error=error, rows=rows)
+        finally:
+            stages.seal(self.session, r.clock, r.submitted_at, r.dequeued_at)
+
+    def _seal_request(self, r: _Request, error: Optional[str] = None, rows: Optional[int] = None) -> None:
         """Completion hook: finish the request's span tree, publish its
         QueryProfile (on the future as ``.profile`` and in the bounded server
         history), fold it into the fingerprint-keyed ProfileHistory, account
         the SLO event, and flight-record slow/errored requests. Runs for
         every sealed request, traced or not — the intelligence layer does not
         require span tracing."""
-        latency = time.monotonic() - r.submitted_at
+        latency = time.perf_counter() - r.submitted_at
         if self.sched_enabled and r.dequeued_at is not None:
             # replace the predicted charge taken at dispatch with the actual
             # service seconds so fair-share accounting self-corrects
             self.admission.observe_completion(
-                r.tenant, time.monotonic() - r.dequeued_at, charged_s=r.sched_charge
+                r.tenant, time.perf_counter() - r.dequeued_at, charged_s=r.sched_charge
             )
         profile = None
         if r.root is not None:

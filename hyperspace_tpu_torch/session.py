@@ -96,20 +96,11 @@ class Session:
         #: payload_decode, device_wait_fetch (waits for the device pass and
         #: copies the permutation back), take_write
         self.build_stage_seconds: collections.Counter = collections.Counter()
-        #: host wall seconds per query layer, summed over every collect() of
-        #: this session: rewrite, decode, scan_identity, upload (encode and
-        #: copy of columns the device cache misses), predicate_launch
-        #: (compile, literal upload, enqueue), wait_copy_mask (waits for the
-        #: device program and copies the mask back), host_predicate,
-        #: mask_rows; and for joins (exec/join.py): join_plan (compatibility,
-        #: footer row counts and the input-size stat), join_decode (both
-        #: sides' per-bucket decode, sort and side filters), join_keys (key
-        #: encoding, the key cache's stat of both sides' files, the key
-        #: rectangles), join_upload (host-to-device copies of key and payload
-        #: rectangles), join_span (the span program's launch),
-        #: join_materialize (pair totals, which wait for the span program;
-        #: expand-gather; the copies back), join_host_expand (host spans,
-        #: pair expansion and gathers), join_merge (the generic merge)
+        #: host wall seconds per query stage, summed over every query of this
+        #: session, each stage's key and layer in obs/stages.py's LAYERS (the
+        #: one primitive that writes here, under a lock: serving workers add
+        #: concurrently); a QueryServer adds each request's ``request``,
+        #: ``unattributed`` and ``host_wait`` seconds at its seal
         self.query_stage_seconds: collections.Counter = collections.Counter()
         #: views registered for ``sql()`` (name -> DataFrame)
         self._temp_views: Dict[str, Any] = {}

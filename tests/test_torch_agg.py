@@ -436,13 +436,15 @@ def test_sharded_and_fused_aggregates(system, lake, monkeypatch):
 def test_agg_stage_seconds(system, lake):
     """An aggregate's collect() adds its host time per layer to the
     session's ``query_stage_seconds``; a repeated device aggregate uploads
-    nothing."""
+    nothing. An aggregate over a scan of several files passes the streamed
+    aggregate's size gate (``stream_gate``, its stat sweep) first."""
     D.clear_device_cache()
     sess = ht.Session(conf=_conf(ht.keys, system, **MODES["device"]), device="cpu").enable_hyperspace()
     frames = {t: sess.read_parquet(p) for t, p in lake.items()}
+    scan = {"rewrite", "stream_gate", "decode", "scan_identity", "agg_program", "agg_finalize"}
     for name, first, layers in (
-        ("by_int", {"agg_upload"}, {"rewrite", "decode", "scan_identity", "agg_program", "agg_finalize"}),
-        ("global_filtered", {"agg_upload"}, {"rewrite", "decode", "scan_identity", "agg_program", "agg_finalize"}),
+        ("by_int", {"agg_upload"}, scan),
+        ("global_filtered", {"agg_upload"}, scan),
         ("join_by_left_key", set(), {"rewrite", "join_plan", "join_decode", "join_keys", "agg_join"}),
     ):
         df = QUERIES[name](frames, ht.col)
@@ -456,7 +458,8 @@ def test_agg_stage_seconds(system, lake):
     sess.conf.set(ht.keys.DEVICE_MIN_ROWS, 1 << 25)
     sess.query_stage_seconds.clear()
     QUERIES["by_int"](frames, ht.col).collect()
-    assert set(sess.query_stage_seconds) == {"rewrite", "decode", "host_predicate", "mask_rows", "agg_host"}
+    assert set(sess.query_stage_seconds) == {"rewrite", "stream_gate", "decode", "host_predicate", "mask_rows",
+                                             "agg_host"}
 
 
 # --------------------------------------------------------------------------

@@ -4,8 +4,10 @@ Eighty-two modules of ``hyperspace_tpu_torch/`` are copies of their
 counterparts in ``hyperspace_tpu/`` with only the package name rewritten
 (and, in ``models/path_resolver.py``, one ``typing`` import fewer, since the
 copy does not use ``Optional``; in ``serving/fingerprint.py``, a ``Scan``'s
-token carries its file listing, ROADMAP C8; in five modules of ``check/``,
-the lint's scope and the differences named beside them in ``COPIES``), and
+token carries its file listing, ROADMAP C8; in ``serving/server.py``, each
+request carries the port's stage clock, ``obs/stages.py``; in five modules
+of ``check/``, the lint's scope and the differences named beside them in
+``COPIES``), and
 the port builds its native decoder from byte-identical copies of
 ``native/hs_native.cc`` and ``native/thrift_compact.h`` in
 ``hyperspace_tpu_torch/csrc/``. This test compares the texts, so a change
@@ -100,7 +102,61 @@ COPIES = {
     "serving/plan_cache.py": {},
     "serving/result_cache.py": {},
     "serving/scheduler.py": {},
-    "serving/server.py": {},
+    # the stage clock (obs/stages.py): each request's clock from submit to
+    # seal, bound wherever a worker attaches the request's span root, and
+    # the parse, admit, resolve and finish stages
+    "serving/server.py": {
+        'from hyperspace_tpu.obs import spans':
+            'from hyperspace_tpu_torch.obs import spans, stages',
+        '        "sched_charge", "snapshot",':
+            '        "sched_charge", "snapshot", "clock",',
+        '                 snapshot=None):':
+            '                 snapshot=None, clock: Optional[stages.RequestClock] = None):',
+        '        self.submitted_at = time.monotonic()':
+            "        # the moment the request enters the admission queue, on the stage\n        # clock's timeline (time.perf_counter)\n        self.submitted_at = time.perf_counter()",
+        '        self.snapshot = snapshot':
+            "        self.snapshot = snapshot\n        # the request's stage clock (obs/stages.py), started on entry to\n        # submit; workers bind it wherever they attach the span root\n        self.clock = clock if clock is not None else stages.RequestClock(root)",
+        '        self._seal(r, error="RequestTimeout")':
+            '        with stages.bind(r.clock), stages.stage(self.session, "finish"):\n            self._seal(r, error="RequestTimeout")',
+        '        parents this request\'s span tree under a routing caller\'s trace."""':
+            '        parents this request\'s span tree under a routing caller\'s trace."""\n        clock = stages.RequestClock()',
+        '        with spans.attach(root):':
+            '        clock.root = root\n        with stages.bind(clock), stages.stage(self.session, "parse"):',
+        '            snapshot = SnapshotHandle.capture(self.session)':
+            '            with stages.bind(clock), stages.stage(self.session, "admit"):\n                snapshot = SnapshotHandle.capture(self.session)',
+        '                snapshot = SnapshotHandle.capture(self.session)':
+            '                with stages.bind(clock), stages.stage(self.session, "admit"):\n                    snapshot = SnapshotHandle.capture(self.session)',
+        '        with snapshot_scope(snapshot):':
+            '        with snapshot_scope(snapshot), stages.bind(clock), stages.stage(self.session, "admit"):',
+        '            cost_class=cost_class, brand=brand, snapshot=snapshot,':
+            '            cost_class=cost_class, brand=brand, snapshot=snapshot, clock=clock,',
+        '                latency = time.monotonic() - req.submitted_at':
+            '                req.future.request_clock = clock\n                latency = time.perf_counter() - req.submitted_at\n                stages.seal(self.session, clock, None, None)',
+        '        req.future.request_root = root  # span tree visible to the caller':
+            "        req.future.request_root = root  # span tree visible to the caller\n        req.future.request_clock = clock  # the request's stage clock, sealed with it",
+        '        now = time.monotonic()':
+            '        now = time.perf_counter()',
+        '                with spans.attach(r.root), spans.span("resolve-plan", cat="serving"):':
+            '                with stages.bind(r.clock), stages.stage(self.session, "resolve"):',
+        '                            deadline_scope(min(group_deadlines) if group_deadlines else None):':
+            '                            deadline_scope(min(group_deadlines) if group_deadlines else None), \\\n                            stages.bind(*(r.clock for r, _, _ in resolved)):',
+        '                with spans.attach(r.root), spans.span("execute", cat="serving"):':
+            '                with stages.bind(r.clock), spans.span("execute", cat="serving"):',
+        '    def _finish(self, r: _Request, batch, entry: Optional[CompiledPlan]) -> None:':
+            '    def _finish(self, r: _Request, batch, entry: Optional[CompiledPlan]) -> None:\n        with stages.bind(r.clock), stages.stage(self.session, "finish"):\n            self._finish_request(r, batch, entry)\n\n    def _finish_request(self, r: _Request, batch, entry: Optional[CompiledPlan]) -> None:',
+        '                self.metrics.observe(time.monotonic() - r.submitted_at, tenant=r.tenant)':
+            '                self.metrics.observe(time.perf_counter() - r.submitted_at, tenant=r.tenant)',
+        '    def _fail(self, r: _Request, exc: BaseException) -> None:':
+            '    def _fail(self, r: _Request, exc: BaseException) -> None:\n        with stages.bind(r.clock), stages.stage(self.session, "finish"):\n            self._fail_request(r, exc)\n\n    def _fail_request(self, r: _Request, exc: BaseException) -> None:',
+        '                self.metrics.observe(time.monotonic() - r.submitted_at, error=True, tenant=r.tenant)':
+            '                self.metrics.observe(time.perf_counter() - r.submitted_at, error=True, tenant=r.tenant)',
+        '    def _seal(self, r: _Request, error: Optional[str] = None, rows: Optional[int] = None) -> None:':
+            '    def _seal(self, r: _Request, error: Optional[str] = None, rows: Optional[int] = None) -> None:\n        """:meth:`_seal_request`, then stop the request\'s stage clock: its\n        ``request``, ``unattributed`` and ``host_wait`` seconds go to the\n        session\'s ``query_stage_seconds`` before the future resolves."""\n        try:\n            self._seal_request(r, error=error, rows=rows)\n        finally:\n            stages.seal(self.session, r.clock, r.submitted_at, r.dequeued_at)\n\n    def _seal_request(self, r: _Request, error: Optional[str] = None, rows: Optional[int] = None) -> None:',
+        '        latency = time.monotonic() - r.submitted_at':
+            '        latency = time.perf_counter() - r.submitted_at',
+        '                r.tenant, time.monotonic() - r.dequeued_at, charged_s=r.sched_charge':
+            '                r.tenant, time.perf_counter() - r.dequeued_at, charged_s=r.sched_charge',
+    },
     "fabric/__init__.py": {},
     "fabric/coherence.py": {},
     "fabric/frontdoor.py": {},
