@@ -5130,7 +5130,7 @@ def run_topk(sess, li_src: str, args, smi: str, hbm: float) -> dict:
 
     files = sorted(os.path.join(li_src, f) for f in os.listdir(li_src))
     chunk = 2 * max(os.path.getsize(f) for f in files)
-    assert len(_chunk_files_by_bytes(files, chunk)) == 8, chunk
+    assert len(_chunk_files_by_bytes([(f, None, os.path.getsize(f)) for f in files], chunk)) == 8, chunk
     row_groups = sum(pq.ParquetFile(f).metadata.num_row_groups for f in files)
     saved = {k: sess.conf.get(k) for k in (ht.keys.STREAM_CHUNK_BYTES, ht.keys.DEVICE_MIN_ROWS)}
     sess.conf.set(ht.keys.STREAM_CHUNK_BYTES, chunk)

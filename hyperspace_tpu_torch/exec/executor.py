@@ -62,21 +62,18 @@ _TOPK_RID = "__hs_topk_rid__"
 
 
 def _scan_identity(scan):
-    """Stable identity of a scan's file set for device-side caching: any
-    rewrite of a file (new index version, compaction) changes mtime/size and
-    naturally invalidates. Returns None (= don't cache) when any file can't
-    be stat'ed — a path-only key could serve stale device columns after an
-    in-place rewrite."""
-    import os
-
-    parts = []
-    for f in scan.files:
-        try:
-            st = os.stat(f)
-        except OSError:
-            return None
-        parts.append((f, st.st_mtime_ns, st.st_size))
-    return tuple(parts)
+    """Stable identity of a scan's file set for device-side caching: the
+    (path, mtime, size) of each file, so a rewrite of a file (new index
+    version, compaction) changes the key. An index scan's files are
+    immutable per path, and their facts are committed in its log entry, so
+    they come from the entry; source files, and files the entry does not
+    record, are stat'ed (``leaf_file_facts``). Returns None (= don't cache)
+    when any file can't be stat'ed — a path-only key could serve stale
+    device columns after an in-place rewrite."""
+    try:
+        return tuple(leaf_file_facts(scan))
+    except OSError:
+        return None
 
 
 def _maybe_parallel(session, n_rows: Optional[int] = None):
@@ -433,6 +430,37 @@ def _leaf_files(leaf: L.LogicalPlan) -> List[str]:
     return list(leaf.files)
 
 
+def leaf_file_facts(leaf: L.LogicalPlan, files: Optional[List[str]] = None, partial: bool = False) -> list:
+    """``[(path, mtime_ns, size), ...]`` of ``files`` (default: every file
+    the scan leaf reads). Index data is written once, under a fresh path,
+    and each commit records the facts of every file it adds
+    (``Content.from_directory`` stats them), so an ``IndexScan``'s files
+    come from its entry's ``FileInfo``s. Source files can change in place
+    and are stat'ed, as is any file the entry does not record. Raises the
+    ``OSError`` of a file that cannot be stat'ed; with ``partial`` that file
+    gets ``(path, None, None)``."""
+    import os
+
+    if files is None:
+        files = _leaf_files(leaf)
+    recorded = leaf.entry.content.file_info_map() if isinstance(leaf, L.IndexScan) else {}
+    facts = []
+    for f in files:
+        fi = recorded.get(f)
+        if fi is not None:
+            facts.append((f, fi.modified_time, fi.size))
+            continue
+        try:
+            st = os.stat(f)
+        except OSError:
+            if not partial:
+                raise
+            facts.append((f, None, None))
+            continue
+        facts.append((f, st.st_mtime_ns, st.st_size))
+    return facts
+
+
 def _leaf_subset(leaf: L.LogicalPlan, files: List[str], needed=None) -> L.LogicalPlan:
     """A scan leaf over only ``files``; a relation-backed Scan becomes a
     FileScan carrying the relation's partition metadata, pruned to the
@@ -463,18 +491,15 @@ def _leaf_subset(leaf: L.LogicalPlan, files: List[str], needed=None) -> L.Logica
     )
 
 
-def _chunk_files_by_bytes(files: List[str], target_bytes: int) -> List[List[str]]:
-    """Greedy size-bounded file groups (a single file above the target forms
-    its own group)."""
-    import os
-
+def _chunk_files_by_bytes(facts, target_bytes: int) -> List[List[str]]:
+    """Greedy size-bounded file groups over ``(path, mtime, size)`` facts
+    (a single file above the target forms its own group, as does one of
+    unknown size)."""
     groups: List[List[str]] = []
     cur: List[str] = []
     cur_bytes = 0
-    for f in files:
-        try:
-            sz = os.stat(f).st_size
-        except OSError:
+    for f, _, sz in facts:
+        if sz is None:
             sz = target_bytes  # unknown -> isolate conservatively
         if cur and cur_bytes + sz > target_bytes:
             groups.append(cur)
@@ -486,21 +511,26 @@ def _chunk_files_by_bytes(files: List[str], target_bytes: int) -> List[List[str]
     return groups
 
 
-def _streaming_groups(files: List[str], min_bytes: int, chunk_bytes: int) -> Optional[List[List[str]]]:
-    """The streamed aggregate's gate: the file groups of a scan over at
+def _leaf_chunks(leaf, chunk_bytes: int, files: Optional[List[str]] = None) -> List[List[str]]:
+    """``_chunk_files_by_bytes`` over the file facts of a scan leaf's
+    ``files`` (default: all it reads)."""
+    return _chunk_files_by_bytes(leaf_file_facts(leaf, files, partial=True), max(1, chunk_bytes))
+
+
+def _streaming_groups(leaf, min_bytes: int, chunk_bytes: int) -> Optional[List[List[str]]]:
+    """The streamed aggregate's gate: the file groups of a scan leaf over at
     least two files and ``min_bytes`` of them that makes two groups or more,
     else None (a file that cannot be stat'ed: None too)."""
-    import os
-
+    files = _leaf_files(leaf)
     if len(files) < 2:
         return None
     try:
-        total_bytes = sum(os.stat(f).st_size for f in files)
+        facts = leaf_file_facts(leaf, files)
     except OSError:
         return None
-    if total_bytes < min_bytes:
+    if sum(sz for _, _, sz in facts) < min_bytes:
         return None
-    groups = _chunk_files_by_bytes(files, max(1, chunk_bytes))
+    groups = _chunk_files_by_bytes(facts, max(1, chunk_bytes))
     return groups if len(groups) >= 2 else None
 
 
@@ -793,8 +823,7 @@ class Executor:
                 chain, leaf = _chain_to_scan(plan)
                 if leaf is not None:
                     with stages.stage(self.session, "stream_gate"):
-                        files = _leaf_files(leaf)
-                        groups = _chunk_files_by_bytes(files, max(1, self.session.conf.stream_chunk_bytes))
+                        groups = _leaf_chunks(leaf, self.session.conf.stream_chunk_bytes)
                     if len(groups) > 1:
                         needed = _chain_needed_columns(chain) | set(plan.output_columns)
                         yield from self._stream_chunks(chain, leaf, groups, needed)
@@ -1475,8 +1504,7 @@ class Executor:
         if leaf is None:
             return None
         with stages.stage(self.session, "stream_gate"):
-            files = _leaf_files(leaf)
-            groups = _chunk_files_by_bytes(files, max(1, conf.stream_chunk_bytes))
+            groups = _leaf_chunks(leaf, conf.stream_chunk_bytes)
         if len(groups) < 2:
             return None
         needed = _chain_needed_columns(chain) | set(plan.output_columns)
@@ -1520,7 +1548,7 @@ class Executor:
             return None
         with stages.stage(self.session, "stream_gate"):
             files = _leaf_files(leaf)
-            groups = _chunk_files_by_bytes(files, max(1, conf.stream_chunk_bytes)) if len(files) >= 2 else []
+            groups = _leaf_chunks(leaf, conf.stream_chunk_bytes, files) if len(files) >= 2 else []
         if len(groups) < 2:
             return None
         try:
@@ -1752,7 +1780,7 @@ class Executor:
         if leaf is None:
             return None
         with stages.stage(self.session, "stream_gate"):
-            groups = _streaming_groups(_leaf_files(leaf), min_bytes, conf.stream_chunk_bytes)
+            groups = _streaming_groups(leaf, min_bytes, conf.stream_chunk_bytes)
         if groups is None:
             return None
         from hyperspace_tpu_torch.exec.device import DeviceUnsupported

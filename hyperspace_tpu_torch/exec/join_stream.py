@@ -39,7 +39,6 @@ probe of it on the device.
 
 from __future__ import annotations
 
-import os
 import time
 from collections import OrderedDict
 from typing import Dict, List, Optional, Tuple
@@ -91,9 +90,12 @@ class BroadcastSpec:
 
 
 def _plan_leaf_bytes(plan: L.LogicalPlan) -> Optional[int]:
-    """Estimated input bytes of ``plan`` from its leaf files; None when a
+    """Estimated input bytes of ``plan`` from its leaf files' sizes (an index
+    scan's from its log entry, ``executor.leaf_file_facts``); None when a
     leaf is not file-backed or a file cannot be stat'ed (no estimate, no
     broadcast decision)."""
+    from hyperspace_tpu_torch.exec.executor import leaf_file_facts
+
     leaves = L.collect(plan, lambda p: isinstance(p, (L.Scan, L.FileScan, L.IndexScan)))
     if not leaves:
         return None
@@ -105,7 +107,7 @@ def _plan_leaf_bytes(plan: L.LogicalPlan) -> Optional[int]:
             else:
                 if not leaf.files:
                     return None
-                total += sum(os.stat(f).st_size for f in leaf.files)
+                total += sum(sz for _, _, sz in leaf_file_facts(leaf))
         except Exception as exc:
             # no estimate, no broadcast decision; counted, so a flaky mount
             # that sends every join to the merge shows in the metrics
@@ -641,23 +643,21 @@ def stream_broadcast_join(executor, plan: L.Join, spec: Optional[BroadcastSpec] 
 
 def _build_identity(build_plan: L.LogicalPlan, build_cols: List[str], bkeys: List[str]):
     """Cache identity of a built hash table: the plan text (filters included)
-    + every leaf file's (path, mtime, size) + columns + keys. None (= don't
-    cache) when a leaf can't be stat'ed."""
+    + every leaf file's (path, mtime, size) + columns + keys. An index
+    scan's files are immutable per path, and their facts are committed in
+    its log entry, so they come from the entry; source files, and files the
+    entry does not record, are stat'ed (``executor.leaf_file_facts``). None
+    (= don't cache) when a leaf's file can't be stat'ed."""
+    from hyperspace_tpu_torch.exec.executor import leaf_file_facts
+
     files = []
     for leaf in L.collect(
         build_plan, lambda p: isinstance(p, (L.Scan, L.FileScan, L.IndexScan))
     ):
-        names = (
-            [fi.name for fi in leaf.relation.all_file_infos()]
-            if isinstance(leaf, L.Scan)
-            else list(leaf.files)
-        )
-        for f in names:
-            try:
-                st = os.stat(f)
-            except OSError:
-                return None
-            files.append((f, st.st_mtime_ns, st.st_size))
+        try:
+            files.extend(leaf_file_facts(leaf))
+        except OSError:
+            return None
     return (build_plan.pretty(), tuple(files), tuple(build_cols), tuple(bkeys))
 
 

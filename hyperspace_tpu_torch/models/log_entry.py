@@ -189,6 +189,15 @@ class Content:
             cached = self.__dict__["_file_infos"] = out
         return list(cached)
 
+    def file_info_map(self) -> Dict[str, FileInfo]:
+        """``file_infos()`` by absolute path, memoized as the walk is: an index
+        scan looks its files' committed facts up here instead of stat'ing them
+        (exec/executor.py::leaf_file_facts)."""
+        cached = self.__dict__.get("_file_info_map")
+        if cached is None:
+            cached = self.__dict__["_file_info_map"] = {fi.name: fi for fi in self.file_infos()}
+        return cached
+
     @property
     def total_size(self) -> int:
         cached = self.__dict__.get("_total_size")

@@ -151,7 +151,9 @@ ROW_GROUP = 100
 def pruned_index(tmp_path):
     """One bucket file of an index on ``k`` (0..399, sorted), rewritten with
     row groups of 100 rows, so ``k < 100`` and ``k >= 300`` each keep one
-    row group of the same size."""
+    row group of the same size. The rewrite is committed as the index's
+    writers commit theirs: a new log entry records the rewritten files'
+    (path, size, mtime), which an index scan's device-cache key reads."""
     rng = np.random.default_rng(11)
     data = tmp_path / "lake"
     data.mkdir()
@@ -169,6 +171,15 @@ def pruned_index(tmp_path):
         t = pq.read_table(f)
         pq.write_table(t, f, row_group_size=ROW_GROUP, use_dictionary=False, compression="NONE")
         assert pq.ParquetFile(f).metadata.num_row_groups == ROWS // ROW_GROUP
+    from hyperspace_tpu_torch.models.log_entry import Content, FileInfo
+    from hyperspace_tpu_torch.models.log_manager import IndexLogManager
+
+    logs = IndexLogManager(os.path.join(system, "c11"))
+    entry = logs.get_latest_stable_log()
+    entry.content = Content.from_leaf_files(FileInfo.from_path(fi.name, fi.file_id)
+                                            for fi in entry.content.file_infos())
+    log_id = logs.get_latest_id() + 1
+    assert logs.write_log(log_id, entry) and logs.create_latest_stable_log(log_id)
     return str(data), conf
 
 
